@@ -1,0 +1,120 @@
+"""Config dataclasses of the PyTorch port.
+
+Same fields, defaults and ``model_config()`` rule as the JAX package's
+``nerfmlp_tpu/config.py:16-166``, so a configuration reads the same in
+both packages. One rename: ``use_pallas`` is ``use_kernel`` here (the
+fused MLP is a hand-written CUDA kernel on this side, not a Pallas one).
+``TrainConfig`` arrives with the training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture of the NeRF MLP.
+
+    Defaults reproduce the reference: depth 8, width 256, skip-concat of the
+    encoded input into layer index 5, view-dependent head with a 256-wide
+    bottleneck and a single 128-wide hidden view layer.
+    """
+
+    depth: int = 8
+    width: int = 256
+    input_ch: int = 63          # 3 * (1 + 2 * pos_enc_L) with L=10
+    input_ch_views: int = 27    # 3 * (1 + 2 * dir_enc_L) with L=4
+    skips: Tuple[int, ...] = (5,)
+    use_viewdirs: bool = True
+    output_ch: int = 4          # only used when use_viewdirs=False
+    bottleneck_ch: int = 256
+    view_width: int = 128       # W // 2 in the reference
+
+    @property
+    def num_tf_arrays(self) -> int:
+        """Length of the official .npy weight list this model maps to."""
+        return 2 * self.depth + (8 if self.use_viewdirs else 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Volume-rendering configuration.
+
+    ``perturb``/``raw_noise_std`` are train-time stochasticity; inference
+    paths use ``dataclasses.replace(cfg, perturb=False, raw_noise_std=0.0)``.
+    """
+
+    pos_enc_L: int = 10
+    dir_enc_L: int = 4
+    # Network architecture; 0 for the fine dims means "same as coarse".
+    depth: int = 8
+    width: int = 256
+    depth_fine: int = 0
+    width_fine: int = 0
+    N_samples: int = 64
+    N_importance: int = 128
+    near: float = 2.0
+    far: float = 6.0
+    white_bkgd: bool = True
+    perturb: bool = True
+    raw_noise_std: float = 0.0
+    coord_scale: float = 1.0
+    lindisp: bool = False        # inverse-depth sampling
+    ndc: bool = False            # NDC ray reparameterization for LLFF scenes
+    use_viewdirs: bool = True
+    separate_fine: bool = False  # one shared net for coarse+fine by default
+    use_kernel: bool = False     # fused encode+MLP CUDA kernel (ops/fused_mlp.py)
+    compute_dtype: str = "float32"  # or "bfloat16"
+    fp32_precision: str = "highest"  # "highest" = true fp32 matmuls;
+                                 # "high" = three bf16 products per matmul
+                                 # (the kernel's hi_lo mode). Ignored in
+                                 # bfloat16 mode.
+    remat: bool = False          # kept for config parity; training only
+    aabb: Optional[Tuple[float, float, float, float, float, float]] = None
+                                 # (xmin,ymin,zmin,xmax,ymax,zmax): tighten
+                                 # per-ray near/far to the scene box
+    use_occupancy: bool = False  # occupancy-grid sampling (not ported yet)
+    occ_dense_samples: int = 128
+    occ_grid_size: int = 64
+    occ_update_every: int = 64
+    occ_threshold: float = 1e-2
+    occ_one_shot: bool = False
+    occ_warmup_steps: int = 1024
+
+    @property
+    def input_ch(self) -> int:
+        return 3 * (1 + 2 * self.pos_enc_L)
+
+    @property
+    def input_ch_views(self) -> int:
+        return 3 * (1 + 2 * self.dir_enc_L)
+
+    def model_config(self, fine: bool = False) -> ModelConfig:
+        """Architecture of the coarse net, or (``fine=True``) the fine net.
+
+        Bottleneck width equals the trunk width and the view layer is
+        W // 2. The skip sits before layer 5 for every depth > 5 and is
+        absent otherwise: depth 5 warns, because the TF oracle's trailing
+        concat at that depth cannot be expressed in this convention.
+        """
+        depth = (self.depth_fine or self.depth) if fine else self.depth
+        width = (self.width_fine or self.width) if fine else self.width
+        if depth == 5:
+            warnings.warn(
+                "netdepth=5 drops the oracle's trailing skip concat: this "
+                "model computes a (slightly) different function than the "
+                "TF reference at depth 5; checkpoints do not interchange"
+            )
+        return ModelConfig(
+            depth=depth,
+            width=width,
+            skips=(5,) if depth > 5 else (),
+            input_ch=self.input_ch,
+            input_ch_views=self.input_ch_views,
+            use_viewdirs=self.use_viewdirs,
+            bottleneck_ch=width,
+            view_width=max(1, width // 2),
+        )

@@ -1,0 +1,58 @@
+"""The PyTorch port stands alone: it imports no jax, flax, optax or
+nerfmlp_tpu — checked in a fresh interpreter (this test process already
+holds jax, from conftest) and by scanning the port's sources."""
+
+import ast
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "nerfmlp_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "nerfmlp_tpu")
+
+
+def _port_modules():
+    import nerfmlp_torch
+
+    return ["nerfmlp_torch"] + [
+        m.name for m in pkgutil.walk_packages(nerfmlp_torch.__path__,
+                                              "nerfmlp_torch.")
+    ]
+
+
+def test_port_imports_no_jax_in_a_fresh_interpreter():
+    mods = _port_modules()
+    assert "nerfmlp_torch.serve" in mods and "nerfmlp_torch.ops.fused_mlp" in mods
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"print(json.dumps(sorted(m for m in sys.modules "
+        f"if m.split('.')[0] in {FORBIDDEN!r})))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("path", sorted(
+    os.path.join(d, f) for d, _, files in os.walk(PORT) for f in files
+    if f.endswith(".py")
+) + [os.path.join(ROOT, "chip_smoke.py")])
+def test_port_sources_import_nothing_forbidden(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
