@@ -14,7 +14,19 @@ Phases, each fatal on failure:
      over HTTP from RenderServer on 127.0.0.1 — png, npy and json — and
      check the kernel launches per frame, the images, and the frame
      against the same frame rendered with use_kernel=False on the card;
-     then profile one frame.
+     then profile one frame;
+  4. hold the forward kernel, the backward kernel and its reduction
+     against their plain versions at the flagship train step's shapes (1024
+     rays of a pose x 64 / 128 samples, a cotangent from a seeded MSE
+     loss); the backward also in hi_lo mode, beside the bf16 kernel as a
+     control, and at the generic architecture; repeat runs must give the
+     same bits;
+  5. train the flagship recipe (8x256, batch 1024, 64+128 samples, bf16,
+     perturb) for 300 steps through the Trainer on a 64x64 synthetic scene
+     made here, with the kernels and with use_kernel=False: the loss must
+     fall, held-out PSNR reach 20 dB and agree within 1 dB, and each step
+     launch the forward, backward and reduction kernels twice; time the
+     runs and profile one step.
 Then it prints the kernels' JSON line, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Weights are random, from a seed.
 It exits non-zero, printing no result, without a CUDA device.
@@ -41,10 +53,22 @@ H = W = 400
 FOCAL = 555.5555          # the Blender scenes' focal at 400x400
 TILE = 4096
 SERVE_POSE = (30.0, -30.0, 4.0)  # theta, phi, radius
+TRAIN_RAYS = 1024         # the flagship train step's batch
+TRAIN_STEPS = 300
+TRAIN_WH = 64             # the synthetic training scene's image size
+PSNR_MIN = 20.0           # held-out PSNR after TRAIN_STEPS steps, dB
+PSNR_GAP = 1.0            # ... and its distance from use_kernel=False
 KERNEL_TOL = 1e-2         # max |kernel - plain| / max |plain|, bf16: a
 #                           bf16 rounding that flips cascades through 8 layers
 HI_LO_TOL = 1e-4          # the same in hi_lo mode: fp32-grade activations,
 #                           only the fp32 summation order differs
+HI_LO_BWD_TOL = 1e-3      # the backward in hi_lo mode. Its activations
+#                           carry bf16x3 noise, so the ReLU masks of the
+#                           pre-activations nearest 0 flip between any two
+#                           summation orders; the bar sits between the
+#                           hi_lo reading (1.6e-4) and the bf16 kernel's
+#                           distance from the same reference (6.0e-3), a
+#                           control that check_backward asserts is above it
 FRAME_TOL = 3e-3          # served rgb vs the use_kernel=False frame
 FRAME_MAX = 1e-2          # ... at the few discontinuous fine-pass pixels
 
@@ -89,9 +113,10 @@ def phase_build():
                     print(f"[build] {name}: {line.strip()}")
 
 
-def serving_points(n_samples, cfg):
-    """Points and encoded view directions of the first tile of rays of the
-    serving pose, ``n_samples`` evenly spaced depths per ray."""
+def serving_points(n_samples, cfg, n_rays=TILE):
+    """Points and encoded view directions of ``n_rays`` rays through the
+    centre of the serving pose's image, ``n_samples`` evenly spaced depths
+    per ray."""
     import torch
 
     from nerfmlp_torch.ops.encoding import positional_encoding
@@ -100,14 +125,14 @@ def serving_points(n_samples, cfg):
 
     o, d, _ = rays_for_pose_device(pose_spherical(*SERVE_POSE), H, W, FOCAL,
                                    cfg, device="cuda")
-    mid = (H * W - TILE) // 2            # a tile through the image centre
-    o, d = o[mid:mid + TILE], d[mid:mid + TILE]
+    mid = (H * W - n_rays) // 2
+    o, d = o[mid:mid + n_rays], d[mid:mid + n_rays]
     z = torch.linspace(cfg.near, cfg.far, n_samples, device="cuda")
     pts = (o[:, None, :] + d[:, None, :] * z[None, :, None]).reshape(-1, 3)
     vd = d / torch.linalg.norm(d, dim=-1, keepdim=True)
     dirs = positional_encoding(vd, cfg.dir_enc_L)
-    dirs = dirs[:, None, :].expand(TILE, n_samples, dirs.shape[-1])
-    return pts.contiguous(), dirs.reshape(TILE * n_samples, -1)
+    dirs = dirs[:, None, :].expand(n_rays, n_samples, dirs.shape[-1])
+    return pts.contiguous(), dirs.reshape(n_rays * n_samples, -1)
 
 
 def check_kernel(net, cfg, pts, dirs, label, time_it, hi_lo=False):
@@ -128,7 +153,8 @@ def check_kernel(net, cfg, pts, dirs, label, time_it, hi_lo=False):
         return fused_mlp.fused_nerf_mlp_plain(net, pts, dirs, cfg.pos_enc_L,
                                               torch.bfloat16, hi_lo)
 
-    got = fused_mlp.fused_nerf_mlp(packed, pts, dirs, cfg)
+    with torch.no_grad():   # the serving path: no autograd record
+        got = fused_mlp.fused_nerf_mlp(packed, pts, dirs, cfg)
     want = plain()
     torch.cuda.synchronize()
     if got.shape != want.shape or not torch.isfinite(got).all():
@@ -149,8 +175,9 @@ def check_kernel(net, cfg, pts, dirs, label, time_it, hi_lo=False):
            "bound_by": ("operations" if flops / PEAK_BF16_FLOPS
                         >= nbytes / PEAK_MEM_BYTES else "bytes")}
     if time_it:
-        rec["ms"] = cuda_ms(lambda: fused_mlp.fused_nerf_mlp(packed, pts, dirs,
-                                                             cfg), iters=10)
+        with torch.no_grad():
+            rec["ms"] = cuda_ms(lambda: fused_mlp.fused_nerf_mlp(
+                packed, pts, dirs, cfg), iters=10)
         rec["plain_ms"] = cuda_ms(plain, iters=3)
         rec["tflops"] = flops / rec["ms"] / 1e9
     print(f"[kernel] {label}: n={n} max|err|={err:.3e} "
@@ -185,6 +212,330 @@ def phase_kernel(net):
     check_kernel(gnet, generic, pts, None, "generic 6x128 no-viewdirs",
                  time_it=False)
     return recs
+
+
+def bwd_macs(net, vdirs):
+    """MACs per point of the backward: the recomputed forward, dX (none
+    for layer 0, the skip's encoded block or the dirs block) and dW."""
+    mc = net.cfg
+    fwd = sum(p.numel() for name, p in net.named_parameters()
+              if name.endswith("weight"))
+    no_dx = mc.input_ch * mc.width * (1 + len(mc.skips))
+    if vdirs:
+        no_dx += mc.input_ch_views * mc.view_width
+    return fwd + (fwd - no_dx) + fwd
+
+
+def check_backward(net, cfg, pts, dirs, label, time_it, hi_lo=False):
+    """Backward kernel (+ its reduction) vs the plain backward on the same
+    inputs and a cotangent from a seeded loss, per parameter (max |err| /
+    max |plain|); a repeat run must give the same bits. In hi_lo mode the
+    bf16 kernel's gradients are held against the same hi_lo reference as a
+    control, which must land above the bar: the bar then tells hi_lo from
+    bf16. Returns (backward record, reduction record)."""
+    import torch
+
+    from nerfmlp_torch.ops import fused_mlp
+
+    vdirs = dirs is not None
+    tol = HI_LO_BWD_TOL if hi_lo else KERNEL_TOL
+    if hi_lo:
+        cfg = dataclasses.replace(cfg, compute_dtype="float32",
+                                  fp32_precision="high")
+    packed = fused_mlp.pack_params(net, cfg.pos_enc_L, vdirs, hi_lo)
+    raw = fused_mlp.fused_nerf_mlp_plain(net, pts, dirs, cfg.pos_enc_L,
+                                         torch.bfloat16, hi_lo)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    target = torch.rand(raw.shape, device="cuda", generator=gen)
+    g = (2.0 / raw.numel()) * (raw - target)   # d mean((raw - target)^2)
+
+    def plain():
+        return fused_mlp.fused_nerf_mlp_bwd_plain(
+            net, pts, dirs, g, cfg.pos_enc_L, torch.bfloat16, hi_lo)
+
+    def compare(got, want):
+        """(max abs error, worst normalised error, its parameter)."""
+        err, worst = 0.0, (0.0, "")
+        for name, p in net.named_parameters():
+            e = float((got[name] - want[name]).abs().max())
+            err = max(err, e)
+            worst = max(worst,
+                        (e / max(float(want[name].abs().max()), 1e-12), name))
+        return err, worst[0], worst[1]
+
+    flat = fused_mlp._launch_bwd(packed, pts, dirs, g)
+    again = fused_mlp._launch_bwd(packed, pts, dirs, g)
+    got = fused_mlp.unpack_grads(packed, flat)
+    torch.cuda.synchronize()
+    if not torch.equal(flat, again):
+        raise SystemExit(f"[backward] {label}: two runs differ")
+    for name, p in net.named_parameters():
+        if got[name].shape != p.shape or not torch.isfinite(got[name]).all():
+            raise SystemExit(f"[backward] {label}: bad gradient for {name}")
+    want = plain()
+    err, norm, leaf = compare(got, want)
+    control = None
+    if hi_lo:
+        bf16 = fused_mlp.pack_params(net, cfg.pos_enc_L, vdirs, False)
+        _, control, cleaf = compare(fused_mlp.unpack_grads(
+            bf16, fused_mlp._launch_bwd(bf16, pts, dirs, g)), want)
+        print(f"[backward] {label}: control, the bf16 kernel vs the same "
+              f"hi_lo plain backward: normalised {control:.3e} ({cleaf})")
+    n = pts.shape[0]
+    flops = 2.0 * bwd_macs(net, vdirs) * n * (3 if hi_lo else 1)
+    nbytes = (pts.numel() * 4 + g.numel() * 4
+              + (dirs.numel() * (4 if hi_lo else 2) if vdirs else 0)
+              + packed.weights.numel() * 2 + packed.biases.numel() * 4
+              + packed.grad_total * 4)
+    rec = {"label": label, "n": n, "max_abs_err": err, "norm_err": norm,
+           "control_norm_err": control,
+           "bound_ms": 1e3 * max(flops / PEAK_BF16_FLOPS,
+                                 nbytes / PEAK_MEM_BYTES),
+           "bound_by": ("operations" if flops / PEAK_BF16_FLOPS
+                        >= nbytes / PEAK_MEM_BYTES else "bytes")}
+    red = None
+    if time_it:
+        rec["ms"] = cuda_ms(lambda: fused_mlp._launch_bwd(packed, pts, dirs,
+                                                          g), iters=10)
+        rec["plain_ms"] = cuda_ms(plain, iters=3)
+        rec["tflops"] = flops / rec["ms"] / 1e9
+        red = check_reduce(packed, n, hi_lo)
+    print(f"[backward] {label}: n={n} max|err|={err:.3e} "
+          f"normalised={norm:.3e} ({leaf}; tol {tol}), repeat bit-identical"
+          + (f" kernel+reduction {rec['ms']:.3f} ms ({rec['tflops']:.1f} "
+             f"TFLOP/s) plain {rec['plain_ms']:.3f} ms" if time_it else "")
+          + f" bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})")
+    if not norm <= tol:
+        raise SystemExit(f"[backward] {label}: kernel disagrees with plain")
+    if control is not None and not control > tol:
+        raise SystemExit(f"[backward] {label}: the bar does not tell hi_lo "
+                         f"from bf16")
+    return rec, red
+
+
+def check_reduce(packed, n, hi_lo):
+    """The reduction kernel alone on partials of the backward's grid
+    shape: against its plain version (same order, so the same bits) and
+    torch.sum over the slots (the library call for the same function)."""
+    import torch
+
+    from nerfmlp_torch.ops import fused_mlp
+
+    grid = min(-(-n // fused_mlp.BWD_ROWS),
+               fused_mlp.bwd_grid(hi_lo, torch.cuda.current_device()))
+    total = packed.grad_total
+    stride = -(-total // 64) * 64
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    part = torch.randn((grid, stride), device="cuda", generator=gen)
+    got = fused_mlp.reduce_partials(part, total)
+    want = fused_mlp.reduce_partials_plain(part, total)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    nbytes = part.numel() * 4 + total * 4
+    rec = {"label": f"G={grid}", "max_abs_err": err,
+           "bound_ms": 1e3 * nbytes / PEAK_MEM_BYTES, "bound_by": "bytes",
+           "ms": cuda_ms(lambda: fused_mlp.reduce_partials(part, total),
+                         iters=10),
+           "plain_ms": cuda_ms(lambda: fused_mlp.reduce_partials_plain(
+               part, total), iters=3),
+           "library_ms": cuda_ms(lambda: part[:, :total].sum(0), iters=10)}
+    print(f"[reduce] {grid} slots x {total} floats: max|err|={err:.3e} "
+          f"kernel {rec['ms']:.3f} ms plain {rec['plain_ms']:.3f} ms "
+          f"torch.sum {rec['library_ms']:.3f} ms bound {rec['bound_ms']:.3f} "
+          f"ms (bytes)")
+    if err != 0.0:
+        raise SystemExit("[reduce] reduction kernel disagrees with plain")
+    return rec
+
+
+def phase_backward(net):
+    """The forward and backward kernels at the flagship train step's
+    shapes: 1024 rays of a pose x 64 coarse / 128 fine samples, bf16; the
+    backward in hi_lo at the first and at the generic 6x128 no-viewdirs
+    net; and, for context, autograd through the bf16 module on the fine
+    call's shape. Returns (forward records, backward records, reduction
+    record)."""
+    import torch
+
+    from nerfmlp_torch.models.mlp import init_model
+    from nerfmlp_torch.ops import fused_mlp
+    from nerfmlp_torch.ops.encoding import positional_encoding
+
+    t0 = time.perf_counter()
+    cfg = slice_config()
+    mc = cfg.model_config()
+    print(f"[backward] 8x256 budget: {fused_mlp.backward_counts(mc, True)} "
+          f"(operations, buffers), {fused_mlp.bwd_scratch_bytes(mc, True)} "
+          f"B scratch per block, G={fused_mlp.bwd_grid(False, 0)}, "
+          f"fits={fused_mlp.backward_fits(mc, True)}")
+    fwds, recs, reds = [], [], []
+    for n_samples, label in ((cfg.N_samples, "coarse"),
+                             (cfg.N_importance, "fine")):
+        pts, dirs = serving_points(n_samples, cfg, n_rays=TRAIN_RAYS)
+        fwds.append(check_kernel(net, cfg, pts, dirs, f"train {label}",
+                                 time_it=True))
+        rec, red = check_backward(net, cfg, pts, dirs, label, time_it=True)
+        recs.append(rec)
+        reds.append(red)
+    pts, dirs = serving_points(cfg.N_samples, cfg, n_rays=TRAIN_RAYS)
+    check_backward(net, cfg, pts, dirs, "coarse hi_lo", time_it=False,
+                   hi_lo=True)
+    generic = dataclasses.replace(cfg, depth=6, width=128, use_viewdirs=False)
+    gnet = init_model(generic.model_config(), seed=SEED + 1, device="cuda")
+    check_backward(gnet, generic, pts, None, "generic 6x128 no-viewdirs",
+                   time_it=False)
+
+    pts, dirs = serving_points(cfg.N_importance, cfg, n_rays=TRAIN_RAYS)
+    enc = positional_encoding(pts, cfg.pos_enc_L)
+    out = net(enc, dirs, compute_dtype=torch.bfloat16)
+    g = torch.ones_like(out)
+    ms = cuda_ms(lambda: torch.autograd.grad(out, list(net.parameters()), g,
+                                             retain_graph=True), iters=10)
+    recs[1]["module_autograd_ms"] = ms
+    print(f"[backward] context: autograd through the bf16 module, fine "
+          f"call: {ms:.3f} ms (backward only)")
+    print(f"[backward] phase took {time.perf_counter() - t0:.1f} s")
+    return fwds, recs, reds[1]
+
+
+def train_configs(near, far):
+    """The flagship recipe: 8x256, batch 1024, 64+128 samples, shared net,
+    bf16 through the kernels, perturb on; 300 steps, no validation inside
+    the run (it is rendered after)."""
+    from nerfmlp_torch.config import RenderConfig, TrainConfig
+
+    rc = RenderConfig(N_samples=64, N_importance=128, near=near, far=far,
+                      white_bkgd=True, perturb=True, raw_noise_std=0.0,
+                      compute_dtype="bfloat16", use_kernel=True)
+    tc = TrainConfig(batch_size=TRAIN_RAYS, iters=TRAIN_STEPS, seed=SEED,
+                     quick_val_interval=0, full_val_interval=0,
+                     log_interval=100, ckpt_interval=0)
+    return rc, tc
+
+
+def train_once(rc, tc, train_ds, val_ds, save_dir):
+    """Train through the Trainer; returns losses per step, wall seconds of
+    the synchronised run, held-out PSNR and the Trainer."""
+    import numpy as np
+    import torch
+
+    from nerfmlp_torch.ops import fused_mlp
+    from nerfmlp_torch.train.loop import Trainer
+
+    trainer = Trainer(rc, tc, train_ds, save_dir=save_dir, device="cuda",
+                      verbose=False)
+    losses = []
+    step_fn = trainer.step_fn
+
+    def recorded(state, batch):
+        m = step_fn(state, batch)
+        losses.append(m["loss"])
+        return m
+
+    trainer.step_fn = recorded
+    torch.cuda.synchronize()
+    fused_mlp.fused_nerf_mlp.launches = 0
+    fused_mlp.fused_nerf_mlp_bwd.launches = 0
+    fused_mlp.reduce_partials.launches = 0
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trainer.step_fn = step_fn
+    launches = (fused_mlp.fused_nerf_mlp.launches,
+                fused_mlp.fused_nerf_mlp_bwd.launches,
+                fused_mlp.reduce_partials.launches)
+    val = trainer._validate(val_ds)
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(losses).all() or not np.isfinite(val["psnr"]):
+        raise SystemExit("[train] non-finite loss or PSNR")
+    return losses, wall, val, launches, trainer
+
+
+def profile_step(trainer):
+    """One profiled train step: the kernels' device ms, the rest of the
+    device time, and the device's idle share of the step's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = trainer.pool.batch(trainer.state.step)
+    trainer.step_fn(trainer.state, batch)   # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step_fn(trainer.state, batch)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    rows = device_rows(prof)
+    busy = sum(ms for _, ms in rows)
+    kern = {name: sum(ms for k, ms in rows if name in k)
+            for name in ("fused_mlp_fwd_kernel", "fused_mlp_bwd_kernel",
+                         "reduce_partials_kernel")}
+    print(f"[profile] train step wall {wall:.2f} ms, device busy {busy:.2f} "
+          f"ms (idle {100 * (1 - busy / wall):.1f}%): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in kern.items())
+          + f", rest {busy - sum(kern.values()):.3f} ms")
+    for key, ms in sorted(rows, key=lambda r: -r[1])[:6]:
+        print(f"[profile]   {ms:9.3f} ms {100 * ms / busy:5.1f}%  {key[:70]}")
+
+
+def phase_train():
+    """Train the flagship recipe through the Trainer on a synthetic scene
+    made here, with the kernels and with use_kernel=False; check the loss
+    falls, held-out PSNR, the two runs' agreement and the kernel launches
+    per step; time and profile the step."""
+    import numpy as np
+
+    from nerfmlp_torch.data.blender import BlenderDataset
+    from nerfmlp_torch.data.synthetic import make_synthetic_scene
+
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "chip_smoke")
+    scene = os.path.join(root, "scene")
+    make_synthetic_scene(scene, n_train=8, n_val=2, n_test=0,
+                         img_wh=(TRAIN_WH, TRAIN_WH), seed=SEED)
+    train_ds = BlenderDataset(scene, "train", img_wh=(TRAIN_WH, TRAIN_WH))
+    val_ds = BlenderDataset(scene, "val", img_wh=(TRAIN_WH, TRAIN_WH))
+    rc, tc = train_configs(*train_ds.dynamic_near_far())
+    print(f"[train] scene {TRAIN_WH}x{TRAIN_WH}, 8 train / 2 val views in "
+          f"{time.perf_counter() - t0:.1f} s; {TRAIN_STEPS} steps of "
+          f"{TRAIN_RAYS} rays, {rc.N_samples}+{rc.N_importance} samples, "
+          f"bf16")
+    runs = {}
+    for name, cfg in (("kernel", rc),
+                      ("plain", dataclasses.replace(rc, use_kernel=False))):
+        losses, wall, val, launches, trainer = train_once(
+            cfg, tc, train_ds, val_ds, os.path.join(root, name))
+        times = trainer.history["iteration_times"][10:]
+        first, last = losses[:20].mean(), losses[-20:].mean()
+        print(f"[train] {name}: loss {first:.5f} -> {last:.5f} (mean of "
+              f"first / last 20 steps), held-out PSNR {val['psnr']:.2f} dB, "
+              f"SSIM {val['ssim']:.4f}; {1e3 * wall / TRAIN_STEPS:.2f} ms "
+              f"per step ({TRAIN_RAYS * TRAIN_STEPS / wall:.0f} rays/s, "
+              f"synchronised), host median {1e3 * np.median(times):.2f} ms")
+        if not last < 0.5 * first:
+            raise SystemExit(f"[train] {name}: the loss did not fall")
+        runs[name] = (val, launches, trainer, wall)
+    val, launches, trainer, wall = runs["kernel"]
+    want = (2 * TRAIN_STEPS,) * 3
+    print(f"[train] kernel launches over {TRAIN_STEPS} steps: forward "
+          f"{launches[0]}, backward {launches[1]}, reduction {launches[2]} "
+          f"(want {want[0]} each: coarse + fine query per step); plain run: "
+          f"{runs['plain'][1]}")
+    if launches != want or runs["plain"][1] != (0, 0, 0):
+        raise SystemExit("[train] the train steps did not go through the "
+                         "kernels as expected")
+    gap = abs(val["psnr"] - runs["plain"][0]["psnr"])
+    print(f"[train] held-out PSNR kernel {val['psnr']:.2f} dB vs "
+          f"use_kernel=False {runs['plain'][0]['psnr']:.2f} dB (gap "
+          f"{gap:.2f} dB, limit {PSNR_GAP} dB; floor {PSNR_MIN} dB)")
+    if not (val["psnr"] >= PSNR_MIN and gap <= PSNR_GAP):
+        raise SystemExit("[train] held-out PSNR below the floor or off the "
+                         "plain path")
+    profile_step(trainer)
+    print(f"[train] phase took {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def _png_pixels(body):
@@ -312,6 +663,18 @@ def phase_serve(net):
     return launches
 
 
+def device_rows(prof):
+    """(name, device ms) of the kernels the profiler saw on the card —
+    the device events only, so a CPU-side op that launched a kernel (an
+    autograd Function, aten::sort) does not count its kernel twice."""
+    from torch.autograd import DeviceType
+
+    return [(e.key, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
 def profile_frame(params, o, d, cfg):
     """Where one served frame's time goes: wall clock, device busy time,
     and the device time of the heaviest operations, by torch.profiler."""
@@ -325,9 +688,7 @@ def profile_frame(params, o, d, cfg):
         t0 = time.perf_counter()
         render_image_maps(params, o, d, H, W, cfg, tile=TILE)["rgb_map"].cpu()
         wall = 1e3 * (time.perf_counter() - t0)
-    rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3)
-            for e in prof.key_averages()]
-    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    rows = sorted(device_rows(prof), key=lambda r: -r[1])
     busy = sum(ms for _, ms in rows)
     print(f"[profile] frame wall {wall:.1f} ms, device busy {busy:.1f} ms "
           f"(idle {100 * (1 - busy / wall):.1f}%)")
@@ -344,25 +705,73 @@ def main():
     sys.path.insert(0, ROOT)
     from nerfmlp_torch.models.mlp import init_model
 
+    from nerfmlp_torch import use_true_fp32
+
+    use_true_fp32()
     print(f"[device] {torch.cuda.get_device_name(0)} | torch "
           f"{torch.__version__} CUDA {torch.version.cuda}")
     phase_build()
     net = init_model(slice_config().model_config(), seed=SEED, device="cuda")
     coarse, fine = phase_kernel(net)
-    launches = phase_serve(net)
+    fwd_train, (bwd_coarse, bwd_fine), red = phase_backward(net)
+    serve_launches = phase_serve(net)
+    fwd_launches, bwd_launches, red_launches = phase_train()
 
+    # The forward runs on both paths, at different shapes: one record per
+    # path, each with that path's launches and its fine call's times.
     kernels = [{
         "name": "fused_mlp_fwd",
+        "path": "serve",
         "route": "cuda",
         "source": "nerfmlp_torch/csrc/fused_mlp_fwd.cu",
         "replaces": "nerfmlp_tpu/ops/pallas_mlp.py:264",
-        "launches": launches,
+        "launches": serve_launches,
         "max_abs_err": max(coarse["max_abs_err"], fine["max_abs_err"]),
         "ms": fine["ms"],
         "plain_ms": fine["plain_ms"],
         "bound_ms": fine["bound_ms"],
         "bound_by": fine["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "fused_mlp_fwd_train",
+        "path": "train",
+        "route": "cuda",
+        "source": "nerfmlp_torch/csrc/fused_mlp_fwd.cu",
+        "replaces": "nerfmlp_tpu/ops/pallas_mlp.py:264",
+        "launches": fwd_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in fwd_train),
+        "ms": fwd_train[1]["ms"],
+        "plain_ms": fwd_train[1]["plain_ms"],
+        "bound_ms": fwd_train[1]["bound_ms"],
+        "bound_by": fwd_train[1]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "fused_mlp_bwd",
+        "path": "train",
+        "route": "cuda",
+        "source": "nerfmlp_torch/csrc/fused_mlp_bwd.cu",
+        "replaces": "nerfmlp_tpu/ops/pallas_mlp.py:312",
+        "launches": bwd_launches,
+        "max_abs_err": max(bwd_coarse["max_abs_err"],
+                           bwd_fine["max_abs_err"]),
+        "ms": bwd_fine["ms"],
+        "plain_ms": bwd_fine["plain_ms"],
+        "bound_ms": bwd_fine["bound_ms"],
+        "bound_by": bwd_fine["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "fused_mlp_bwd_reduce",
+        "path": "train",
+        "route": "cuda",
+        "source": "nerfmlp_torch/csrc/fused_mlp_bwd.cu",
+        "replaces": "nerfmlp_tpu/ops/pallas_mlp.py:327",
+        "launches": red_launches,
+        "max_abs_err": red["max_abs_err"],
+        "ms": red["ms"],
+        "plain_ms": red["plain_ms"],
+        "bound_ms": red["bound_ms"],
+        "bound_by": red["bound_by"],
+        "library_ms": red["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

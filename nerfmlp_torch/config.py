@@ -2,9 +2,9 @@
 
 Same fields, defaults and ``model_config()`` rule as the JAX package's
 ``nerfmlp_tpu/config.py:16-166``, so a configuration reads the same in
-both packages. One rename: ``use_pallas`` is ``use_kernel`` here (the
-fused MLP is a hand-written CUDA kernel on this side, not a Pallas one).
-``TrainConfig`` arrives with the training slice.
+both packages (``TrainConfig``: ``nerfmlp_tpu/config.py:169-260``). One
+rename: ``use_pallas`` is ``use_kernel`` here (the fused MLP is a pair of
+hand-written CUDA kernels on this side, not Pallas ones).
 """
 
 from __future__ import annotations
@@ -118,3 +118,60 @@ class RenderConfig:
             bottleneck_ch=width,
             view_width=max(1, width // 2),
         )
+
+
+# TrainConfig fields whose features this port does not have yet: a
+# non-default value raises in the Trainer, naming the ROADMAP item.
+TRAIN_NOT_PORTED = {
+    "profile_dir": "profiling traces in the Trainer (ROADMAP.md, Queue 1 "
+                   "item 21)",
+    "i_video": "in-training render events (ROADMAP.md, Queue 1 item 14)",
+    "i_testset": "in-training render events (ROADMAP.md, Queue 1 item 14)",
+    "i_img": "in-training render events (ROADMAP.md, Queue 1 item 14)",
+    "render_factor": "in-training render events (ROADMAP.md, Queue 1 "
+                     "item 14)",
+    "i_mesh": "mesh extraction (ROADMAP.md, Queue 1 item 17)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization & loop configuration, the JAX package's
+    (``nerfmlp_tpu/config.py:169-260``): same fields and defaults.
+
+    The LR decays continuously, ``lr * rate ** (updates / steps)`` (the
+    official schedule, example/run_nerf.py:705-709). ``steps_per_dispatch``
+    batched jit dispatches; PyTorch runs eagerly, so values above 1 raise
+    (CUDA graphs take its place, ROADMAP.md Queue 1 item 19). The event and
+    profiling fields in ``TRAIN_NOT_PORTED`` are kept and refused when set.
+    """
+
+    batch_size: int = 1024
+    iters: int = 200_000
+    lr: float = 5e-4
+    lr_decay_rate: float = 0.1
+    lr_decay_steps: int = 250_000
+    coarse_loss: bool = False    # official adds img_loss0; reference trains
+                                 # on the fine map only. Default = reference.
+    seed: int = 0
+    quick_val_interval: int = 1000
+    full_val_interval: int = 50_000
+    quick_val_subset: int = 10
+    log_interval: int = 100
+    ckpt_interval: int = 10_000
+    grad_clip: float = 0.0       # 0 = off
+    precrop_iters: int = 0       # central-crop sampling for the first N iters
+    precrop_frac: float = 0.5
+    no_batching: bool = False    # sample each batch from ONE random image
+    profile_dir: str = ""
+    i_video: int = 0
+    i_testset: int = 0
+    i_img: int = 0
+    render_factor: int = 0
+    i_mesh: int = 0
+    mesh_resolution: int = 128
+    mesh_threshold: float = 25.0
+    chunk: int = 4096            # ray tile for validation renders
+    steps_per_dispatch: int = 1
+    device_pool: bool = True     # ray pool resident on the device, shuffled
+                                 # per epoch there (data/device_pool.py)

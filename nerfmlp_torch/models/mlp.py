@@ -81,12 +81,11 @@ class NeRFMLP(nn.Module):
                 compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """Raw outputs ``[rgb, sigma]`` (or ``output_ch`` channels).
 
-        float32 runs true fp32 matmuls: TF32 stays off (PyTorch's default,
-        set here so no caller's setting leaks in). bfloat16 casts inputs,
+        float32 runs true fp32 matmuls where TF32 is off (PyTorch's
+        default; the package's entry points keep it so, see
+        :func:`nerfmlp_torch.use_true_fp32`). bfloat16 casts inputs,
         weights and biases to bf16 like Flax's ``Dense(dtype=bf16)``.
         """
-        if compute_dtype == torch.float32:
-            torch.backends.cuda.matmul.allow_tf32 = False
         cfg = self.cfg
 
         def dense(layer, h):

@@ -24,7 +24,8 @@ from typing import Dict, Iterable
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 
 # Every kernel of the port: library name -> its source in csrc/.
-KERNELS = {"fused_mlp_fwd": "fused_mlp_fwd.cu"}
+KERNELS = {"fused_mlp_fwd": "fused_mlp_fwd.cu",
+           "fused_mlp_bwd": "fused_mlp_bwd.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

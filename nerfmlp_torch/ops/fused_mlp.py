@@ -1,24 +1,34 @@
-"""Fused encode -> MLP -> raw forward: the CUDA kernel, its plain version,
-and the wrapper that picks between them by the tensor's device.
+"""Fused encode -> MLP -> raw, forward and backward: the CUDA kernels, their
+plain versions, and the wrappers that pick between them by the tensor's
+device.
 
-Counterpart of ``nerfmlp_tpu/ops/pallas_mlp.py`` (forward only):
-``_flatten_params`` (:103-141) becomes :func:`pack_params`, ``_encode_tile``
-+ ``_mlp_tile_math`` (:172-246) are the kernel in
-``csrc/fused_mlp_fwd.cu`` (which notes what bounds it and how it is built
-for Hopper) and :func:`fused_nerf_mlp_plain`, and ``fused_nerf_mlp``
-(:611-689) is :func:`fused_nerf_mlp`.
+Counterpart of ``nerfmlp_tpu/ops/pallas_mlp.py``: ``_flatten_params``
+(:103-141) becomes :func:`pack_params`; ``_encode_tile`` +
+``_mlp_tile_math`` (:172-246) are the kernel in ``csrc/fused_mlp_fwd.cu``
+and :func:`fused_nerf_mlp_plain`; ``_bwd_kernel`` + ``_trunk_bwd``
+(:312-441) are the kernel in ``csrc/fused_mlp_bwd.cu`` (with its partial-sum
+reduction) and :func:`fused_nerf_mlp_bwd_plain`; the ``_fused_apply``
+custom VJP (:530-567) is :class:`FusedMLPFunction`; ``fused_nerf_mlp``
+(:611-689) is :func:`fused_nerf_mlp`. Each CUDA source notes what bounds
+it and how it is built for Hopper.
 
-* :func:`fused_nerf_mlp` runs the kernel for CUDA tensors — or raises —
-  and the plain version for CPU tensors. Nothing falls back from one to
-  the other. ``fused_nerf_mlp.launches`` counts kernel launches.
-* :func:`pack_params` lays a net's weights out for the kernel once
+* :func:`fused_nerf_mlp` runs the forward kernel for CUDA tensors — or
+  raises — and the plain version for CPU tensors, under autograd: the
+  backward runs :func:`fused_nerf_mlp_bwd` (kernel + reduction, or the
+  plain backward on the CPU) and returns the ``nn.Linear`` weight and bias
+  gradients; points and dirs get zeros. Nothing falls back from a kernel
+  to a plain version. ``fused_nerf_mlp.launches``,
+  ``fused_nerf_mlp_bwd.launches`` and ``reduce_partials.launches`` count
+  kernel launches.
+* :func:`pack_params` lays a net's weights out for the kernels once
   (transposed to ``(in, out)``, split at the skip and view layers, padded
   to multiples of 16 with zeros, bf16 — (hi, lo) bf16 pairs in the hi_lo
-  mode of ``fp32_precision="high"``) — at service build and on every
-  weight swap, never per tile.
-* :func:`kernel_fits` is the Hopper budget that decides, from the
-  architecture alone, whether a net goes to the kernel (the role of
-  ``backward_fits_vmem``, :592-608, for the TPU's VMEM).
+  mode of ``fp32_precision="high"``) together with the forward's layer
+  program and the backward's operation program — at service build, weight
+  swap and once per train step, never per call.
+* :func:`kernel_fits` and :func:`backward_fits` are the Hopper budgets that
+  decide, from the architecture alone, whether a net goes to the kernels
+  (the role of ``backward_fits_vmem``, :592-608, for the TPU's VMEM).
 """
 
 from __future__ import annotations
@@ -27,7 +37,7 @@ import ctypes
 import dataclasses
 import functools
 import logging
-from typing import Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -39,8 +49,8 @@ from nerfmlp_torch.ops.encoding import positional_encoding
 
 log = logging.getLogger(__name__)
 
-# The kernel's fixed shape (csrc/fused_mlp_fwd.cu); checked against the
-# built library at load.
+# The forward kernel's fixed shape (csrc/fused_mlp_fwd.cu); checked against
+# the built library at load.
 TILE_ROWS = 64          # points per block
 THREADS = 256
 SLAB_ROWS = 32          # weight rows per shared-memory slab
@@ -51,9 +61,22 @@ HEADER_INTS = 22
 LAYER_INTS = 11
 SMEM_LIMIT = 232_448    # dynamic shared memory one Hopper block may use
 
-# Shared-memory buffers and epilogues of the kernel's layer program.
+# The backward kernel's fixed shape (csrc/fused_mlp_bwd.cu).
+BWD_ROWS = 128          # points per tile = rows per dW update
+BWD_THREADS = 256
+BWD_MAX_BUFS = 64
+BWD_HEADER_INTS = 16
+BWD_OP_INTS = 12
+BWD_MAX_OPS = 160
+BWD_OPS_BASE = BWD_HEADER_INTS + 2 * BWD_MAX_BUFS
+# Its static shared memory: the program and eight 16x16 fp32 stages.
+BWD_SMEM = 4 * (BWD_OPS_BASE + BWD_MAX_OPS * BWD_OP_INTS) + 4 * 8 * 256
+
+# Shared-memory buffers and epilogues of the forward's layer program.
 _X, _D, _A, _B = 0, 1, 2, 3
 _RELU_BF16, _BF16, _OUT_F32 = 0, 1, 2
+# Operations of the backward's program.
+_FWD, _DX, _DW, _DB = 0, 1, 2, 3
 
 
 def _pad16(n: int) -> int:
@@ -65,9 +88,10 @@ def _align128(n: int) -> int:
 
 
 def _smem_layout(enc_k: int, dirs_k: int, hid_k: int, hi_lo: bool):
-    """Byte offsets in the kernel's dynamic shared memory: the buffers X,
-    D, A, B, their lo planes and the weight slab's lo twin (empty unless
-    hi_lo), the weight slab, the epilogue stage — and the total."""
+    """Byte offsets in the forward kernel's dynamic shared memory: the
+    buffers X, D, A, B, their lo planes and the weight slab's lo twin
+    (empty unless hi_lo), the weight slab, the epilogue stage — and the
+    total."""
     off = 0
 
     def region(nbytes):
@@ -92,7 +116,8 @@ def _hidden_cols(mc: ModelConfig, vdirs: bool) -> int:
 
 
 def smem_bytes(mc: ModelConfig, vdirs: bool, hi_lo: bool = False) -> int:
-    """Shared memory one block needs for this architecture and mode."""
+    """Shared memory one forward block needs for this architecture and
+    mode."""
     dirs_k = _pad16(mc.input_ch_views) if vdirs else 0
     return _smem_layout(_pad16(mc.input_ch), dirs_k,
                         _hidden_cols(mc, vdirs), hi_lo)[-1]
@@ -101,10 +126,9 @@ def smem_bytes(mc: ModelConfig, vdirs: bool, hi_lo: bool = False) -> int:
 @functools.lru_cache(maxsize=None)
 def kernel_fits(mc: ModelConfig, vdirs: bool = True,
                 hi_lo: bool = False) -> bool:
-    """Whether the kernel takes this architecture: its activations, slabs
-    and stage fit one block's shared memory, and its layers the kernel's
-    program. Wider nets go to the plain module path. Logged once per
-    architecture and mode."""
+    """Whether the forward kernel takes this architecture: its
+    activations, slabs and stage fit one block's shared memory, and its
+    layers the kernel's program. Logged once per architecture and mode."""
     need = smem_bytes(mc, vdirs, hi_lo)
     layers = mc.depth + (4 if vdirs else 1)
     fits = need <= SMEM_LIMIT and layers <= MAX_LAYERS
@@ -118,19 +142,72 @@ def kernel_fits(mc: ModelConfig, vdirs: bool = True,
     return fits
 
 
+def backward_counts(mc: ModelConfig, vdirs: bool) -> Tuple[int, int]:
+    """(operations, buffers) of the backward program for an architecture:
+    the recomputed forward layers, the heads' and every trunk layer's db,
+    dW and dX records; the buffers X, D, one per trunk activation, the
+    heads' activations, the cotangent inputs and two cotangent buffers."""
+    fwd = mc.depth + (2 if vdirs else 0)
+    heads = 12 if vdirs else 3
+    trunk = sum(2 + (i in mc.skips) + (i > 0) for i in range(mc.depth))
+    bufs = 1 + mc.depth + (7 if vdirs else 3)
+    return fwd + heads + trunk, bufs
+
+
+def bwd_scratch_bytes(mc: ModelConfig, vdirs: bool,
+                      hi_lo: bool = False) -> int:
+    """Device-memory scratch one backward block holds for its tile: every
+    stored activation and cotangent, ``BWD_ROWS`` rows, bf16 (two planes
+    in hi_lo mode)."""
+    hid = _hidden_cols(mc, vdirs)
+    cols = (_pad16(mc.input_ch) + mc.depth * _pad16(mc.width) + 2 * hid
+            + (_pad16(mc.input_ch_views) + _pad16(mc.bottleneck_ch)
+               + _pad16(mc.view_width) + 32 if vdirs
+               else _pad16(mc.output_ch)))
+    return BWD_ROWS * cols * 2 * (2 if hi_lo else 1)
+
+
+@functools.lru_cache(maxsize=None)
+def backward_fits(mc: ModelConfig, vdirs: bool = True,
+                  hi_lo: bool = False) -> bool:
+    """Whether the backward kernel takes this architecture. Its shared
+    memory is fixed (the program and the epilogue stages, ``BWD_SMEM``);
+    the stored activations live in a per-block device-memory scratch
+    (:func:`bwd_scratch_bytes`), so what bounds it is the program: at most
+    ``BWD_MAX_OPS`` operations and ``BWD_MAX_BUFS`` buffers. Logged once
+    per architecture and mode."""
+    ops, bufs = backward_counts(mc, vdirs)
+    fits = ops <= BWD_MAX_OPS and bufs <= BWD_MAX_BUFS
+    log.info(
+        "fused MLP backward budget: depth %d width %d%s%s needs %d "
+        "operations (limit %d), %d buffers (limit %d), %d B of scratch per "
+        "block and %d B of shared memory: %s",
+        mc.depth, mc.width, " +view head" if vdirs else "",
+        " hi_lo" if hi_lo else "", ops, BWD_MAX_OPS, bufs, BWD_MAX_BUFS,
+        bwd_scratch_bytes(mc, vdirs, hi_lo), BWD_SMEM,
+        "kernel" if fits else "plain module path",
+    )
+    return fits
+
+
 # --------------------------------------------------------------------- #
-# Weights, packed once for the kernel
+# Weights, packed once for the kernels
 # --------------------------------------------------------------------- #
 @dataclasses.dataclass(frozen=True)
 class PackedMLP:
-    """One net's weights in the kernel's layout, plus the layer program.
+    """One net's weights in the kernels' layout, plus both programs.
 
     ``weights``: every weight block, bf16, each ``(k_pad, n_pad)`` row-major
     in ``(in, out)`` layout — in ``hi_lo`` mode a (hi, lo) pair of such
     blocks, lo right after hi; ``biases``: fp32, each padded to ``n_pad``;
-    ``program``: int32 header + one record per layer (see the CUDA
-    source). ``net`` is the module the blocks came from (the plain path
-    and the architecture check read it)."""
+    ``program``: the forward's int32 header + one record per layer (see
+    ``fused_mlp_fwd.cu``); ``bwd_program``: the backward's header, buffer
+    table and operations (see ``fused_mlp_bwd.cu``), also on the device as
+    ``bwd_program_dev``. ``grad_blocks`` / ``grad_biases`` say where each
+    parameter's gradient lies in the backward's flat fp32 output:
+    ``(param, in_start, k, n, offset, k_pad, n_pad)`` per weight block and
+    ``(param, offset, n)`` per bias. ``net`` is the module the blocks came
+    from (the plain path and the architecture check read it)."""
 
     net: NeRFMLP
     vdirs: bool
@@ -139,6 +216,12 @@ class PackedMLP:
     biases: torch.Tensor
     program: np.ndarray
     out_w: int
+    bwd_program: np.ndarray
+    bwd_program_dev: torch.Tensor
+    bwd_plane: int
+    grad_total: int
+    grad_blocks: Tuple[Tuple, ...]
+    grad_biases: Tuple[Tuple, ...]
 
 
 def _check_arch(net: NeRFMLP, mc: ModelConfig, vdirs: bool) -> None:
@@ -166,7 +249,7 @@ def _check_arch(net: NeRFMLP, mc: ModelConfig, vdirs: bool) -> None:
 
 def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
                 hi_lo: bool = False) -> PackedMLP:
-    """Lay ``net`` out for the kernel, on the net's device; ``hi_lo``
+    """Lay ``net`` out for the kernels, on the net's device; ``hi_lo``
     splits every weight into a (hi, lo) bf16 pair."""
     mc = net.cfg
     if vdirs and not mc.use_viewdirs:
@@ -176,11 +259,16 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
     if enc_dim != mc.input_ch:
         raise ValueError(f"pos_enc_L={n_freqs} gives {enc_dim} encoded "
                          f"channels; the net takes {mc.input_ch}")
+    names = {id(m): name for name, m in net.named_modules()}
     w_parts, b_parts = [], []
-    w_off = b_off = 0
+    w_off = b_off = g_off = 0
+    grad_blocks, grad_biases = [], []
+    blocks: Dict[str, list] = {}   # Linear name -> [(w_off, k_pad, n_pad)]
+    bias_of: Dict[str, int] = {}
 
-    def weight(k: torch.Tensor):  # (in, out) fp32 -> (offset, padded rows)
-        nonlocal w_off
+    def weight(lin, in0: int, k: torch.Tensor):
+        """One (in, out) block of ``lin`` from input column ``in0``."""
+        nonlocal w_off, g_off
         kp, np_ = _pad16(k.shape[0]), _pad16(k.shape[1])
         blk = torch.zeros(kp, np_, device=dev, dtype=torch.float32)
         blk[: k.shape[0], : k.shape[1]] = k
@@ -188,56 +276,64 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
         w_parts.append(hi.reshape(-1))
         if hi_lo:
             w_parts.append((blk - hi.float()).to(torch.bfloat16).reshape(-1))
+        name = names[id(lin)]
+        grad_blocks.append((f"{name}.weight", in0, k.shape[0], k.shape[1],
+                            g_off, kp, np_))
+        blocks.setdefault(name, []).append((w_off, kp, np_, g_off))
         off, w_off = w_off, w_off + kp * np_ * (2 if hi_lo else 1)
+        g_off += kp * np_
         return off, kp
 
-    def bias(b: torch.Tensor) -> int:
+    def bias(lin) -> int:
         nonlocal b_off
+        b = lin.bias.detach().float()
         bp = torch.zeros(_pad16(b.shape[0]), device=dev, dtype=torch.float32)
         bp[: b.shape[0]] = b
         b_parts.append(bp)
+        bias_of[names[id(lin)]] = b_off
         off, b_off = b_off, b_off + bp.shape[0]
         return off
 
     layers = []
 
     def layer(a, b, lin, mode, dst, n_real=0):
-        """a/b: (buffer, (in, out) kernel block) operands; b may be None."""
-        wa, ka = weight(a[1])
-        wb, kb = weight(b[1]) if b is not None else (0, 0)
+        """a/b: (buffer, in_start, (in, out) block) operands; b may be
+        None."""
+        wa, ka = weight(lin, a[1], a[2])
+        wb, kb = weight(lin, b[1], b[2]) if b is not None else (0, 0)
         layers.append([a[0], wa, ka, b[0] if b is not None else 0, wb, kb,
-                       bias(lin.bias.detach().float()),
-                       _pad16(lin.out_features), mode, dst, n_real])
+                       bias(lin), _pad16(lin.out_features), mode, dst,
+                       n_real])
 
+    kt = lambda lin: lin.weight.detach().float().t()
     with torch.no_grad():
         cur = _X
         for i, lin in enumerate(net.pts_linears):
-            k = lin.weight.detach().float().t()
+            k = kt(lin)
             dst = _A if i % 2 == 0 else _B
             if i in mc.skips:  # cat([x, h]) @ W == x @ W[:enc] + h @ W[enc:]
-                layer((_X, k[:enc_dim]), (cur, k[enc_dim:]), lin,
+                layer((_X, 0, k[:enc_dim]), (cur, enc_dim, k[enc_dim:]), lin,
                       _RELU_BF16, dst)
             else:
-                layer((cur, k), None, lin, _RELU_BF16, dst)
+                layer((cur, 0, k), None, lin, _RELU_BF16, dst)
             cur = dst
         other = _B if cur == _A else _A
         if vdirs:
-            kt = lambda lin: lin.weight.detach().float().t()
             kv = kt(net.view_linear)
             bott = mc.bottleneck_ch
-            layer((cur, kt(net.sigma_linear)), None, net.sigma_linear,
+            layer((cur, 0, kt(net.sigma_linear)), None, net.sigma_linear,
                   _OUT_F32, 3, 1)
-            layer((cur, kt(net.bottleneck_linear)), None,
+            layer((cur, 0, kt(net.bottleneck_linear)), None,
                   net.bottleneck_linear, _BF16, other)
-            layer((other, kv[:bott]), (_D, kv[bott:]), net.view_linear,
-                  _RELU_BF16, cur)
-            layer((cur, kt(net.rgb_linear)), None, net.rgb_linear,
+            layer((other, 0, kv[:bott]), (_D, bott, kv[bott:]),
+                  net.view_linear, _RELU_BF16, cur)
+            layer((cur, 0, kt(net.rgb_linear)), None, net.rgb_linear,
                   _OUT_F32, 0, 3)
             out_w = 4
         else:
             out_w = mc.output_ch
-            layer((cur, net.output_linear.weight.detach().float().t()), None,
-                  net.output_linear, _OUT_F32, 0, out_w)
+            layer((cur, 0, kt(net.output_linear)), None, net.output_linear,
+                  _OUT_F32, 0, out_w)
 
     enc_k = _pad16(enc_dim)
     dirs_k = _pad16(mc.input_ch_views) if vdirs else 0
@@ -250,16 +346,155 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
               off_slab, off_slab_lo, off_stage, total]
     program = np.asarray(header + [v for rec in layers for v in rec],
                          dtype=np.int32)
+    modules = dict(net.named_modules())
+    for name, off in bias_of.items():
+        grad_biases.append((f"{name}.bias", g_off + off,
+                            modules[name].out_features))
+    bwd_program, plane = _bwd_program(net, n_freqs, vdirs, hi_lo, out_w,
+                                      blocks, bias_of, g_off)
     return PackedMLP(
         net=net, vdirs=vdirs, hi_lo=hi_lo,
         weights=torch.cat(w_parts).contiguous(),
         biases=torch.cat(b_parts).contiguous(),
         program=program, out_w=out_w,
+        bwd_program=bwd_program,
+        bwd_program_dev=_device_program(bwd_program.tobytes(), str(dev)),
+        bwd_plane=plane, grad_total=g_off + b_off,
+        grad_blocks=tuple(grad_blocks), grad_biases=tuple(grad_biases),
     )
 
 
+@functools.lru_cache(maxsize=64)
+def _device_program(prog: bytes, device: str) -> torch.Tensor:
+    """A backward program on its device, copied once per architecture: a
+    copy from pageable host memory would wait for the device's queue on
+    every pack, i.e. every train step."""
+    return torch.frombuffer(bytearray(prog), dtype=torch.int32).to(device)
+
+
+def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
+                 out_w: int, blocks: Dict[str, list], bias_of: Dict[str, int],
+                 db_base: int) -> Tuple[np.ndarray, int]:
+    """The backward kernel's program: header, buffer table, operations —
+    ``_bwd_kernel``/``_trunk_bwd`` (``pallas_mlp.py:312-441``) step by
+    step. ``blocks``: per Linear its (weight offset, k_pad, n_pad, gradient
+    offset) blocks in operand order; ``bias_of``: its bias offset, which is
+    also its gradient's offset after ``db_base``. Returns the program and
+    the buffers' plane size (elements of one block's scratch plane)."""
+    mc = net.cfg
+    depth = mc.depth
+    cols: List[int] = []
+
+    def buf(c: int) -> int:
+        cols.append(c)
+        return len(cols) - 1
+
+    x = buf(_pad16(3 + 6 * n_freqs))
+    d = buf(_pad16(mc.input_ch_views)) if vdirs else -1
+    hs = [buf(_pad16(mc.width)) for _ in range(depth)]
+    hid = _hidden_cols(mc, vdirs)
+    c0, c1 = buf(hid), buf(hid)
+    ops: List[List[int]] = []
+
+    def op(kind, a=-1, wa=0, ka=0, b=-1, wb=0, kb=0, off=0, n=0, flag=0,
+           dst=-1):
+        ops.append([kind, a, wa, ka, b, wb, kb, off, n, flag, dst, 0])
+
+    def fwd(name, srcs, dst, relu):
+        blk = blocks[name]
+        wa, ka, na, _ = blk[0]
+        wb, kb = (blk[1][0], blk[1][1]) if len(blk) > 1 else (0, 0)
+        op(_FWD, srcs[0], wa, ka, srcs[1] if len(srcs) > 1 else -1, wb, kb,
+           bias_of[name], na, int(relu), dst)
+
+    def dw(name, part, act, dy):
+        w, k, n, goff = blocks[name][part]
+        op(_DW, act, 0, k, dy, off=goff, n=n)
+
+    def db(name, dy):
+        op(_DB, dy, off=db_base + bias_of[name],
+           n=blocks[name][0][2])
+
+    def dx(srcs, dst, mask):
+        """dst = mask(sum of src @ W^T) for (src, name, part) operands."""
+        (sa, na, pa) = srcs[0]
+        wa, ka_rows, ka_cols, _ = blocks[na][pa]
+        rec = dict(a=sa, wa=wa, ka=ka_cols, n=ka_rows, flag=mask, dst=dst)
+        if len(srcs) > 1:
+            sb, nb, pb = srcs[1]
+            rec.update(b=sb, wb=blocks[nb][pb][0], kb=blocks[nb][pb][2])
+        op(_DX, **rec)
+
+    trunk = [f"pts_linears.{i}" for i in range(depth)]
+    # Recompute the forward: every activation the backward reads.
+    for i, name in enumerate(trunk):
+        a = x if i == 0 else hs[i - 1]
+        fwd(name, (x, a) if i in mc.skips else (a,), hs[i], True)
+    h_last = hs[-1]
+    if vdirs:
+        bott = buf(_pad16(mc.bottleneck_ch))
+        v = buf(_pad16(mc.view_width))
+        gr, gs = buf(16), buf(16)
+        fwd("bottleneck_linear", (h_last,), bott, False)
+        fwd("view_linear", (bott, d), v, True)
+        # rgb head, view layer (dv masked by v > 0), bottleneck, sigma.
+        db("rgb_linear", gr)
+        dw("rgb_linear", 0, v, gr)
+        dx([(gr, "rgb_linear", 0)], c0, v)
+        db("view_linear", c0)
+        dw("view_linear", 0, bott, c0)
+        dw("view_linear", 1, d, c0)
+        dx([(c0, "view_linear", 0)], c1, -1)
+        db("bottleneck_linear", c1)
+        dw("bottleneck_linear", 0, h_last, c1)
+        db("sigma_linear", gs)
+        dw("sigma_linear", 0, h_last, gs)
+        # dh = dbott @ Wb^T + g_sigma @ Ws^T, then the last layer's mask.
+        dx([(c1, "bottleneck_linear", 0), (gs, "sigma_linear", 0)], c0,
+           h_last)
+        gr_cols = 3
+    else:
+        gr, gs = buf(_pad16(out_w)), -1
+        db("output_linear", gr)
+        dw("output_linear", 0, h_last, gr)
+        dx([(gr, "output_linear", 0)], c0, h_last)
+        gr_cols = out_w
+    cur = c0
+    for i in range(depth - 1, -1, -1):
+        name = trunk[i]
+        a = x if i == 0 else hs[i - 1]
+        db(name, cur)
+        if i in mc.skips:
+            dw(name, 0, x, cur)
+            dw(name, 1, a, cur)
+        else:
+            dw(name, 0, a, cur)
+        if i > 0:  # the skip's d(enc) branch is dropped
+            nxt = c1 if cur == c0 else c0
+            dx([(cur, name, len(blocks[name]) - 1)], nxt, hs[i - 1])
+            cur = nxt
+
+    offs, plane = [], 0
+    for c in cols:
+        offs.append(plane)
+        plane += _align128(BWD_ROWS * c)
+    table = [0] * (2 * BWD_MAX_BUFS)
+    for i, (o, c) in enumerate(zip(offs, cols)):
+        table[2 * i: 2 * i + 2] = [o, c]
+    header = [len(ops), len(cols), n_freqs, 3 + 6 * n_freqs,
+              mc.input_ch_views if vdirs else 0, int(hi_lo), x, d,
+              out_w, gr, gr_cols, gs, plane, 0, 0, 0]
+    prog = np.asarray(header + table + [v for rec in ops for v in rec],
+                      dtype=np.int32)
+    if len(ops) > BWD_MAX_OPS or len(cols) > BWD_MAX_BUFS:
+        raise ValueError(f"backward program of {len(ops)} operations and "
+                         f"{len(cols)} buffers exceeds the kernel's "
+                         f"{BWD_MAX_OPS} / {BWD_MAX_BUFS}")
+    return prog, plane
+
+
 # --------------------------------------------------------------------- #
-# The plain version: same function, same rounding points, plain PyTorch
+# The plain versions: same functions, same rounding points, plain PyTorch
 # --------------------------------------------------------------------- #
 def _split_bf16(a: torch.Tensor):
     """fp32 -> (hi, lo) bf16-valued fp32 pair with hi + lo ~= a."""
@@ -267,24 +502,13 @@ def _split_bf16(a: torch.Tensor):
     return hi, (a - hi).to(torch.bfloat16).float()
 
 
-def fused_nerf_mlp_plain(net: NeRFMLP, pts: torch.Tensor,
-                         dirs: Optional[torch.Tensor], n_freqs: int,
-                         compute_dtype: torch.dtype = torch.bfloat16,
-                         hi_lo: bool = False) -> torch.Tensor:
-    """What the kernel computes, in plain PyTorch: pts (N, 3) -> (N, 4).
-
-    "bf16 operands, fp32 accumulation" is ``a.to(bf16).float() @
-    w.to(bf16).float()`` — ``torch.matmul`` on bf16 tensors would round its
-    OUTPUT to bf16, which the kernel does not. Matmuls run in true fp32
-    (TF32 off). ``hi_lo``: three bf16 products per matmul, hi@hi + hi@lo +
-    lo@hi, with fp32 activations (``pallas_mlp.py:68-100``)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+def _plain_forward(net: NeRFMLP, pts, dirs, n_freqs: int, dt, hi_lo: bool):
+    """The forward with its residuals: (out, (x, d, hs, bott, v))."""
     mc = net.cfg
     f32 = torch.float32
-    dt = f32 if hi_lo else compute_dtype
 
-    def rnd(x):
-        return x.to(dt).float()
+    def rnd(t):
+        return t.to(dt).float()
 
     def dot(a, w):  # w: an nn.Linear weight, (out, in)
         if hi_lo:
@@ -296,33 +520,144 @@ def fused_nerf_mlp_plain(net: NeRFMLP, pts: torch.Tensor,
     x = rnd(positional_encoding(pts.to(f32), n_freqs))
     enc = x.shape[-1]
     h = x
+    hs = []
+    for i, lin in enumerate(net.pts_linears):
+        if i in mc.skips:
+            acc = dot(x, lin.weight[:, :enc]) + dot(h, lin.weight[:, enc:])
+        else:
+            acc = dot(h, lin.weight)
+        h = rnd(torch.relu(acc + lin.bias.float()))
+        hs.append(h)
+    if dirs is None:
+        out = dot(h, net.output_linear.weight) + net.output_linear.bias
+        return out, (x, None, hs, None, None)
+    d = rnd(dirs.to(f32))
+    bott_ch = mc.bottleneck_ch
+    bott = rnd(dot(h, net.bottleneck_linear.weight)
+               + net.bottleneck_linear.bias)
+    wv = net.view_linear.weight
+    v = rnd(torch.relu(dot(bott, wv[:, :bott_ch]) + dot(d, wv[:, bott_ch:])
+                       + net.view_linear.bias))
+    rgb = dot(v, net.rgb_linear.weight) + net.rgb_linear.bias
+    sigma = dot(h, net.sigma_linear.weight) + net.sigma_linear.bias
+    return torch.cat([rgb, sigma], dim=-1), (x, d, hs, bott, v)
+
+
+def fused_nerf_mlp_plain(net: NeRFMLP, pts: torch.Tensor,
+                         dirs: Optional[torch.Tensor], n_freqs: int,
+                         compute_dtype: torch.dtype = torch.bfloat16,
+                         hi_lo: bool = False) -> torch.Tensor:
+    """What the forward kernel computes, in plain PyTorch: pts (N, 3) ->
+    (N, 4).
+
+    "bf16 operands, fp32 accumulation" is ``a.to(bf16).float() @
+    w.to(bf16).float()`` — ``torch.matmul`` on bf16 tensors would round its
+    OUTPUT to bf16, which the kernel does not. fp32 matmuls are true fp32
+    where the caller keeps TF32 off (the package's entry points do, see
+    :func:`nerfmlp_torch.use_true_fp32`). ``hi_lo``: three bf16 products
+    per matmul, hi@hi + hi@lo + lo@hi, with fp32 activations
+    (``pallas_mlp.py:68-100``)."""
+    dt = torch.float32 if hi_lo else compute_dtype
     with torch.no_grad():
-        for i, lin in enumerate(net.pts_linears):
-            if i in mc.skips:
-                acc = dot(x, lin.weight[:, :enc]) + dot(h, lin.weight[:, enc:])
-            else:
-                acc = dot(h, lin.weight)
-            h = rnd(torch.relu(acc + lin.bias.float()))
+        return _plain_forward(net, pts, dirs, n_freqs, dt, hi_lo)[0]
+
+
+def fused_nerf_mlp_bwd_plain(net: NeRFMLP, pts: torch.Tensor,
+                             dirs: Optional[torch.Tensor], g: torch.Tensor,
+                             n_freqs: int,
+                             compute_dtype: torch.dtype = torch.bfloat16,
+                             hi_lo: bool = False
+                             ) -> Dict[str, torch.Tensor]:
+    """What the backward kernel computes, in plain PyTorch: the gradient of
+    ``sum(g * fused_nerf_mlp(pts, dirs))`` for every parameter of ``net``,
+    by name, in the ``nn.Linear`` layout.
+
+    The rounding points of ``_bwd_kernel``/``_trunk_bwd``
+    (``pallas_mlp.py:383-441``): the cotangent cast to the compute type;
+    ``dv`` masked, then rounded; ``dbott`` rounded; ``dh`` rounded after the
+    sigma and bottleneck branches are summed; every ``dacc`` and ``dh`` down
+    the trunk rounded; dW from rounded operands in fp32; db an fp32 sum of
+    the rounded cotangents; the skip's d(enc) branch dropped. ``hi_lo``
+    splits both operands of every product (``:347-365``)."""
+    mc = net.cfg
+    dt = torch.float32 if hi_lo else compute_dtype
+
+    def rnd(t):
+        return t.to(dt).float()
+
+    def wgrad(a, gg):  # (out, in) = (a^T @ gg)^T
+        if hi_lo:
+            a_hi, a_lo = _split_bf16(a)
+            g_hi, g_lo = _split_bf16(gg)
+            return g_hi.t() @ a_hi + g_lo.t() @ a_hi + g_hi.t() @ a_lo
+        return gg.t() @ a
+
+    def back(gg, w):  # gg @ W for an (out, in) weight: the dX product
+        if hi_lo:
+            g_hi, g_lo = _split_bf16(gg)
+            w_hi, w_lo = _split_bf16(w.float())
+            return g_hi @ w_hi + g_hi @ w_lo + g_lo @ w_hi
+        return gg @ rnd(w.float())
+
+    grads: Dict[str, torch.Tensor] = {}
+
+    def put(name, dw, dbias):
+        grads[f"{name}.weight"] = dw
+        grads[f"{name}.bias"] = dbias
+
+    with torch.no_grad():
+        _, (x, d, hs, bott, v) = _plain_forward(net, pts, dirs, n_freqs, dt,
+                                                hi_lo)
+        g = g.float()
+        h_last = hs[-1]
         if dirs is None:
-            return dot(h, net.output_linear.weight) + net.output_linear.bias
-        d = rnd(dirs.to(f32))
-        bott_ch = mc.bottleneck_ch
-        bott = rnd(dot(h, net.bottleneck_linear.weight)
-                   + net.bottleneck_linear.bias)
-        wv = net.view_linear.weight
-        v = rnd(torch.relu(dot(bott, wv[:, :bott_ch]) + dot(d, wv[:, bott_ch:])
-                           + net.view_linear.bias))
-        rgb = dot(v, net.rgb_linear.weight) + net.rgb_linear.bias
-        sigma = dot(h, net.sigma_linear.weight) + net.sigma_linear.bias
-        return torch.cat([rgb, sigma], dim=-1)
+            g_out = rnd(g)
+            put("output_linear", wgrad(h_last, g_out), g_out.sum(0))
+            dh = rnd(back(g_out, net.output_linear.weight))
+        else:
+            g_rgb, g_sigma = rnd(g[:, 0:3]), rnd(g[:, 3:4])
+            put("rgb_linear", wgrad(v, g_rgb), g_rgb.sum(0))
+            dv = back(g_rgb, net.rgb_linear.weight)
+            dv = rnd(torch.where(v > 0, dv, torch.zeros_like(dv)))
+            put("view_linear", torch.cat([wgrad(bott, dv), wgrad(d, dv)], 1),
+                dv.sum(0))
+            dbott = rnd(back(dv, net.view_linear.weight[:, :mc.bottleneck_ch]))
+            put("bottleneck_linear", wgrad(h_last, dbott), dbott.sum(0))
+            put("sigma_linear", wgrad(h_last, g_sigma), g_sigma.sum(0))
+            dh = rnd(back(dbott, net.bottleneck_linear.weight)
+                     + back(g_sigma, net.sigma_linear.weight))
+        enc = x.shape[-1]
+        for i in range(mc.depth - 1, -1, -1):
+            lin = net.pts_linears[i]
+            dacc = rnd(torch.where(hs[i] > 0, dh, torch.zeros_like(dh)))
+            a = x if i == 0 else hs[i - 1]
+            if i in mc.skips:
+                dw = torch.cat([wgrad(x, dacc), wgrad(a, dacc)], 1)
+                w_h = lin.weight[:, enc:]   # the d(enc) branch is dropped
+            else:
+                dw = wgrad(a, dacc)
+                w_h = lin.weight
+            put(f"pts_linears.{i}", dw, dacc.sum(0))
+            if i > 0:
+                dh = rnd(back(dacc, w_h))
+    return grads
+
+
+def reduce_partials_plain(part: torch.Tensor, total: int) -> torch.Tensor:
+    """What the reduction kernel computes: the sum of the (G, stride)
+    partial rows' first ``total`` columns, added in row order."""
+    out = part[0, :total].clone()
+    for b in range(1, part.shape[0]):
+        out += part[b, :total]
+    return out
 
 
 # --------------------------------------------------------------------- #
-# The kernel and the wrapper
+# The kernels and their wrappers
 # --------------------------------------------------------------------- #
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    """The built library, with its C signatures declared and its fixed
+    """The forward's library, with its C signatures declared and its fixed
     shape checked against this module's."""
     lib = _build.load("fused_mlp_fwd")
     fn = lib.fused_mlp_fwd
@@ -345,9 +680,53 @@ def _kernel():
     return lib
 
 
-def _launch(packed: PackedMLP, pts: torch.Tensor,
-            dirs: Optional[torch.Tensor]) -> torch.Tensor:
-    n = pts.shape[0]
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel():
+    """The backward's library (kernel + reduction), declared and checked."""
+    lib = _build.load("fused_mlp_bwd")
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.fused_mlp_bwd.argtypes = [vp] * 6 + [i32, i32, i32, i32, vp, i64,
+                                             vp, i64, vp]
+    lib.fused_mlp_bwd.restype = i32
+    lib.fused_mlp_bwd_reduce.argtypes = [vp, i32, i64, vp, i64, vp]
+    lib.fused_mlp_bwd_reduce.restype = i32
+    lib.fused_mlp_bwd_grid.argtypes = [i32, ctypes.POINTER(i32)]
+    lib.fused_mlp_bwd_grid.restype = i32
+    lib.fused_mlp_bwd_error_string.argtypes = [i32]
+    lib.fused_mlp_bwd_error_string.restype = ctypes.c_char_p
+    lib.fused_mlp_bwd_constants.argtypes = [ctypes.POINTER(i32), i32]
+    consts = (i32 * 6)()
+    lib.fused_mlp_bwd_constants(consts, 6)
+    want = [BWD_ROWS, BWD_THREADS, BWD_MAX_BUFS, BWD_HEADER_INTS,
+            BWD_OP_INTS, BWD_MAX_OPS]
+    if list(consts) != want:
+        raise RuntimeError(f"fused_mlp_bwd.cu constants {list(consts)} "
+                           f"differ from the wrapper's {want}")
+    return lib
+
+
+def _bwd_error(lib, what: str, rc: int):
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: "
+                           + lib.fused_mlp_bwd_error_string(rc).decode())
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_grid(hi_lo: bool, device_index: int) -> int:
+    """The backward's persistent grid G on a device: the blocks that fit
+    at once (at most two per SM)."""
+    lib = _bwd_kernel()
+    out = ctypes.c_int()
+    with torch.cuda.device(device_index):
+        _bwd_error(lib, "fused_mlp_bwd_grid",
+                   lib.fused_mlp_bwd_grid(int(hi_lo), ctypes.byref(out)))
+    return out.value
+
+
+def _check_operands(packed: PackedMLP, pts, dirs):
+    """Device, type, shape and alignment of the kernels' operands; returns
+    (pts, dirs) contiguous, dirs in the kernel's type."""
+    n = pts.shape[0] if pts.dim() == 2 else -1
     dev = pts.device
     if packed.weights.device != dev:
         raise ValueError(f"packed weights on {packed.weights.device}, "
@@ -362,9 +741,19 @@ def _launch(packed: PackedMLP, pts: torch.Tensor,
             raise ValueError(f"dirs must be ({n}, {views}) on {dev}")
         dirs = dirs.to(torch.float32 if packed.hi_lo
                        else torch.bfloat16).contiguous()
+    else:
+        dirs = None
     for t in (pts, dirs, packed.weights, packed.biases):
         if t is not None and t.data_ptr() % 16:
             raise ValueError("kernel operands must be 16-byte aligned")
+    return pts, dirs
+
+
+def _launch(packed: PackedMLP, pts: torch.Tensor,
+            dirs: Optional[torch.Tensor]) -> torch.Tensor:
+    pts, dirs = _check_operands(packed, pts, dirs)
+    n = pts.shape[0]
+    dev = pts.device
     out = torch.empty((n, packed.out_w), device=dev, dtype=torch.float32)
     if n == 0:
         return out
@@ -386,6 +775,164 @@ def _launch(packed: PackedMLP, pts: torch.Tensor,
     return out
 
 
+def reduce_partials(part: torch.Tensor, total: int) -> torch.Tensor:
+    """Sum the rows of a (G, stride) fp32 partial-gradient array in row
+    order -> (total,): the reduction kernel for a CUDA tensor (or raise),
+    :func:`reduce_partials_plain` for a CPU one. Bit-identical run to run.
+    ``reduce_partials.launches`` counts kernel launches."""
+    if part.device.type == "cpu":
+        return reduce_partials_plain(part, total)
+    if (part.dtype != torch.float32 or part.dim() != 2
+            or not part.is_contiguous() or part.shape[1] < total
+            or part.data_ptr() % 16):
+        raise ValueError(f"partials must be a contiguous (G, >= {total}) "
+                         f"float32 array, got {tuple(part.shape)} "
+                         f"{part.dtype}")
+    lib = _bwd_kernel()
+    out = torch.empty(total, device=part.device, dtype=torch.float32)
+    with torch.cuda.device(part.device):
+        stream = torch.cuda.current_stream(part.device).cuda_stream
+        _bwd_error(lib, "fused_mlp_bwd_reduce launch",
+                   lib.fused_mlp_bwd_reduce(part.data_ptr(), part.shape[0],
+                                            part.shape[1], out.data_ptr(),
+                                            total, stream))
+    reduce_partials.launches += 1
+    return out
+
+
+def _launch_bwd(packed: PackedMLP, pts: torch.Tensor,
+                dirs: Optional[torch.Tensor],
+                g: torch.Tensor) -> torch.Tensor:
+    """The backward kernel and its reduction: the flat fp32 gradient
+    (``packed.grad_total``) in the packed blocks' layout."""
+    pts, dirs = _check_operands(packed, pts, dirs)
+    n = pts.shape[0]
+    dev = pts.device
+    if g.shape != (n, packed.out_w) or g.device != dev:
+        raise ValueError(f"the cotangent must be ({n}, {packed.out_w}) on "
+                         f"{dev}, got {tuple(g.shape)} on {g.device}")
+    g = g.to(torch.float32).contiguous()
+    total = packed.grad_total
+    if n == 0:
+        return torch.zeros(total, device=dev, dtype=torch.float32)
+    lib = _bwd_kernel()
+    tiles = -(-n // BWD_ROWS)
+    grid = min(tiles, bwd_grid(packed.hi_lo, dev.index
+                               if dev.index is not None
+                               else torch.cuda.current_device()))
+    scratch_stride = packed.bwd_plane * (2 if packed.hi_lo else 1)
+    part_stride = -(-total // 64) * 64
+    scratch = torch.empty(grid * scratch_stride, device=dev,
+                          dtype=torch.bfloat16)
+    part = torch.empty((grid, part_stride), device=dev, dtype=torch.float32)
+    prog = packed.bwd_program_dev
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _bwd_error(lib, "fused_mlp_bwd launch", lib.fused_mlp_bwd(
+            pts.data_ptr(), dirs.data_ptr() if dirs is not None else None,
+            g.data_ptr(), packed.weights.data_ptr(),
+            packed.biases.data_ptr(), prog.data_ptr(), prog.numel(),
+            int(packed.hi_lo), n, grid, scratch.data_ptr(), scratch_stride,
+            part.data_ptr(), part_stride, stream))
+    fused_nerf_mlp_bwd.launches += 1
+    return reduce_partials(part, total)
+
+
+def unpack_grads(packed: PackedMLP,
+                 flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The flat gradient of the packed blocks -> each parameter's gradient
+    in the ``nn.Linear`` layout: (in, out) blocks transposed to (out, in),
+    skip and view blocks side by side, padding dropped."""
+    grads = {name: torch.zeros_like(p)
+             for name, p in packed.net.named_parameters()}
+    for name, in0, k, n, off, kp, np_ in packed.grad_blocks:
+        blk = flat[off: off + kp * np_].view(kp, np_)
+        grads[name][:, in0: in0 + k] = blk[:k, :n].t()
+    for name, off, n in packed.grad_biases:
+        grads[name] = flat[off: off + n].clone()
+    return grads
+
+
+@dataclasses.dataclass(frozen=True)
+class _Call:
+    """What one fused-MLP call runs on: the net, its packed layout (None
+    for CPU tensors, which take the plain versions), the encoding's
+    frequencies, the compute type and the hi_lo mode."""
+
+    net: NeRFMLP
+    packed: Optional[PackedMLP]
+    n_freqs: int
+    dt: torch.dtype
+    hi_lo: bool
+
+    def forward(self, pts, dirs) -> torch.Tensor:
+        if self.packed is None:
+            return fused_nerf_mlp_plain(self.net, pts, dirs, self.n_freqs,
+                                        self.dt, self.hi_lo)
+        return _launch(self.packed, pts, dirs)
+
+    def backward(self, pts, dirs, g) -> Dict[str, torch.Tensor]:
+        if self.packed is None:
+            return fused_nerf_mlp_bwd_plain(self.net, pts, dirs, g,
+                                            self.n_freqs, self.dt,
+                                            self.hi_lo)
+        return unpack_grads(self.packed,
+                            _launch_bwd(self.packed, pts, dirs, g))
+
+
+def _route(params, pts_flat, dirs_enc_flat, cfg: RenderConfig,
+           mc: Optional[ModelConfig], backward: bool):
+    """(call, dirs) for one call: checks the architecture, and for CUDA
+    tensors the kernels' type and budgets (``backward``: the backward's
+    too), and packs a bare net (per call: callers pack once and pass the
+    layout)."""
+    vdirs = bool(cfg.use_viewdirs) and dirs_enc_flat is not None
+    mc = mc or cfg.model_config()
+    net = params.net if isinstance(params, PackedMLP) else params
+    _check_arch(net, mc, vdirs)
+    dt = getattr(torch, cfg.compute_dtype)
+    hi_lo = dt == torch.float32 and cfg.fp32_precision == "high"
+    dirs = dirs_enc_flat if vdirs else None
+    if pts_flat.device.type == "cpu":
+        return _Call(net, None, cfg.pos_enc_L, dt, hi_lo), dirs
+    if dt != torch.bfloat16 and not hi_lo:
+        raise ValueError("the CUDA kernels compute in bfloat16 or fp32 "
+                         "'high'; fp32 'highest' takes the plain module path")
+    if not kernel_fits(mc, vdirs, hi_lo) or (
+            backward and not backward_fits(mc, vdirs, hi_lo)):
+        raise ValueError(f"depth {mc.depth} width {mc.width} does not fit "
+                         "the kernels (see kernel_fits, backward_fits)")
+    if (not isinstance(params, PackedMLP) or params.vdirs != vdirs
+            or params.hi_lo != hi_lo):
+        params = pack_params(net, cfg.pos_enc_L, vdirs, hi_lo)
+    return _Call(net, params, cfg.pos_enc_L, dt, hi_lo), dirs
+
+
+class FusedMLPFunction(torch.autograd.Function):
+    """The fused MLP under autograd (``_fused_apply``'s custom VJP,
+    ``pallas_mlp.py:530-567``). ``apply(call, pts, dirs, *net_params)``:
+    the forward kernel (or plain forward) of ``call``; the backward runs
+    the backward kernel and reduction (or the plain backward) and returns
+    each parameter's gradient — two calls on one net (coarse and fine)
+    are summed by autograd — and zeros for points and dirs (``:564``)."""
+
+    @staticmethod
+    def forward(ctx, call, pts, dirs, *net_params):
+        ctx.call = call
+        ctx.save_for_backward(pts, dirs)
+        return call.forward(pts, dirs)
+
+    @staticmethod
+    def backward(ctx, g):
+        pts, dirs = ctx.saved_tensors
+        grads = ctx.call.backward(pts, dirs, g)
+        d_pts = torch.zeros_like(pts) if ctx.needs_input_grad[1] else None
+        d_dirs = (torch.zeros_like(dirs)
+                  if dirs is not None and ctx.needs_input_grad[2] else None)
+        return (None, d_pts, d_dirs,
+                *[grads[name] for name, _ in ctx.call.net.named_parameters()])
+
+
 def fused_nerf_mlp(
     params: Union[NeRFMLP, PackedMLP],
     pts_flat: torch.Tensor,
@@ -398,29 +945,34 @@ def fused_nerf_mlp(
 
     ``params``: the net, or its :func:`pack_params` layout (packed once by
     the caller; a bare net is packed per call). CUDA tensors run the
-    kernel — bf16, or fp32 with ``fp32_precision="high"`` (hi_lo); fp32
-    'highest' raises — and CPU tensors the plain version. ``mc``: the
+    kernels — bf16, or fp32 with ``fp32_precision="high"`` (hi_lo); fp32
+    'highest' raises — and CPU tensors the plain versions. Differentiable
+    with respect to the net's parameters through :class:`FusedMLPFunction`
+    (the backward kernel); points and dirs get zero gradients. ``mc``: the
     architecture the net must have (default: the coarse net of ``cfg``)."""
-    vdirs = bool(cfg.use_viewdirs) and dirs_enc_flat is not None
-    mc = mc or cfg.model_config()
-    net = params.net if isinstance(params, PackedMLP) else params
-    _check_arch(net, mc, vdirs)
-    dt = getattr(torch, cfg.compute_dtype)
-    hi_lo = dt == torch.float32 and cfg.fp32_precision == "high"
-    dirs = dirs_enc_flat if vdirs else None
-    if pts_flat.device.type == "cpu":
-        return fused_nerf_mlp_plain(net, pts_flat, dirs, cfg.pos_enc_L, dt,
-                                    hi_lo)
-    if dt != torch.bfloat16 and not hi_lo:
-        raise ValueError("the CUDA kernel computes in bfloat16 or fp32 "
-                         "'high'; fp32 'highest' takes the plain module path")
-    if not kernel_fits(mc, vdirs, hi_lo):
-        raise ValueError(f"depth {mc.depth} width {mc.width} does not fit "
-                         "the kernel (see kernel_fits)")
-    if (not isinstance(params, PackedMLP) or params.vdirs != vdirs
-            or params.hi_lo != hi_lo):
-        params = pack_params(net, cfg.pos_enc_L, vdirs, hi_lo)
-    return _launch(params, pts_flat, dirs)
+    call, dirs = _route(params, pts_flat, dirs_enc_flat, cfg, mc,
+                        backward=torch.is_grad_enabled())
+    return FusedMLPFunction.apply(call, pts_flat, dirs,
+                                  *call.net.parameters())
+
+
+def fused_nerf_mlp_bwd(
+    params: Union[NeRFMLP, PackedMLP],
+    pts_flat: torch.Tensor,
+    dirs_enc_flat: Optional[torch.Tensor],
+    g: torch.Tensor,
+    cfg: RenderConfig,
+    mc: Optional[ModelConfig] = None,
+) -> Dict[str, torch.Tensor]:
+    """The gradient of ``sum(g * fused_nerf_mlp(...))`` for every parameter
+    of the net, by name. CUDA tensors run the backward kernel and its
+    reduction (or raise); CPU tensors :func:`fused_nerf_mlp_bwd_plain`.
+    ``fused_nerf_mlp_bwd.launches`` counts backward-kernel launches."""
+    call, dirs = _route(params, pts_flat, dirs_enc_flat, cfg, mc,
+                        backward=True)
+    return call.backward(pts_flat, dirs, g)
 
 
 fused_nerf_mlp.launches = 0
+fused_nerf_mlp_bwd.launches = 0
+reduce_partials.launches = 0

@@ -26,7 +26,7 @@ import torch
 from nerfmlp_torch.config import RenderConfig
 from nerfmlp_torch.ops.encoding import positional_encoding
 from nerfmlp_torch.ops.fused_mlp import (
-    PackedMLP, fused_nerf_mlp, kernel_fits, pack_params,
+    PackedMLP, backward_fits, fused_nerf_mlp, kernel_fits, pack_params,
 )
 from nerfmlp_torch.ops.integrate import composite_rays
 from nerfmlp_torch.ops.sampling import sample_pdf, stratified_sample
@@ -50,18 +50,22 @@ def _hi_lo(cfg: RenderConfig) -> bool:
 
 
 def uses_kernel(cfg: RenderConfig, fine: bool = False) -> bool:
-    """Whether ``cfg`` routes a net's queries through the fused kernel:
-    bf16 (or fp32 'high', the kernel's hi_lo mode) and an architecture
-    within the Hopper budget. fp32 'highest' stays on the module path."""
+    """Whether ``cfg`` routes a net's queries through the fused kernels:
+    bf16 (or fp32 'high', the kernels' hi_lo mode) and an architecture
+    within the Hopper budgets of both the forward and the backward (so a
+    net that renders through the kernel also trains through it). fp32
+    'highest' stays on the module path."""
+    mc = cfg.model_config(fine=fine)
     return (cfg.use_kernel
             and (_dtype(cfg) == torch.bfloat16 or _hi_lo(cfg))
-            and kernel_fits(cfg.model_config(fine=fine), cfg.use_viewdirs,
-                            _hi_lo(cfg)))
+            and kernel_fits(mc, cfg.use_viewdirs, _hi_lo(cfg))
+            and backward_fits(mc, cfg.use_viewdirs, _hi_lo(cfg)))
 
 
 def prepare_params(params: Dict, cfg: RenderConfig) -> Dict:
-    """Pack every net that ``cfg`` sends to the kernel, once (at service
-    build and weight swap, not per tile). Other nets pass through."""
+    """Pack every net that ``cfg`` sends to the kernels, once (at service
+    build, weight swap and train step, not per tile or call). Other nets
+    pass through."""
     out = {}
     for key, net in params.items():
         fine = key == "fine" and cfg.separate_fine

@@ -35,7 +35,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from nerfmlp_torch import resolve_device
+from nerfmlp_torch import resolve_device, use_true_fp32
 from nerfmlp_torch.config import RenderConfig
 
 _VALID_MAPS = ("rgb_map", "disp_map", "depth_map", "acc_map")
@@ -59,8 +59,9 @@ class RenderService:
 
     ``params``: ``{"coarse": NeRFMLP, ["fine": NeRFMLP]}``, moved to
     ``device`` (default ``cuda``) and packed for the kernel once here and
-    on every :meth:`swap_params`. Thread-safe: device work is serialized
-    internally.
+    on every :meth:`swap_params`. Starting a service keeps TF32 off
+    process-wide (:func:`nerfmlp_torch.use_true_fp32`). Thread-safe:
+    device work is serialized internally.
     """
 
     def __init__(
@@ -82,6 +83,7 @@ class RenderService:
         log=print,
     ):
         self.device = resolve_device(device)
+        use_true_fp32()
         self.cfg = cfg
         self.params = self._prepare(params)
         self.tile = int(tile)

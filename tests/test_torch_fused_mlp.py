@@ -63,7 +63,7 @@ def test_plain_matches_jax_kernel(case):
     cfg = dataclasses.replace(cfg, compute_dtype="bfloat16", use_kernel=True)
     got = fused_mlp.fused_nerf_mlp(
         net, torch.from_numpy(pts),
-        torch.from_numpy(dirs) if vdirs else None, cfg).numpy()
+        torch.from_numpy(dirs) if vdirs else None, cfg).detach().numpy()
     assert got.shape == want.shape == (n, 4)
     np.testing.assert_allclose(got, want, atol=1e-4)
 
@@ -78,7 +78,7 @@ def test_plain_hi_lo_matches_jax_kernel():
                                 jcfg, tile=128))
     cfg = dataclasses.replace(cfg, fp32_precision="high", use_kernel=True)
     got = fused_mlp.fused_nerf_mlp(net, torch.from_numpy(pts),
-                                   torch.from_numpy(dirs), cfg).numpy()
+                                   torch.from_numpy(dirs), cfg).detach().numpy()
     scale = np.abs(want).max()
     np.testing.assert_allclose(got / scale, want / scale, atol=2e-5)
 

@@ -28,6 +28,10 @@ def _port_modules():
 def test_port_imports_no_jax_in_a_fresh_interpreter():
     mods = _port_modules()
     assert "nerfmlp_torch.serve" in mods and "nerfmlp_torch.ops.fused_mlp" in mods
+    assert {"nerfmlp_torch.parallel.train_step", "nerfmlp_torch.train.loop",
+            "nerfmlp_torch.scripts.train", "nerfmlp_torch.data.synthetic",
+            "nerfmlp_torch.data.device_pool", "nerfmlp_torch.data.pipeline",
+            "nerfmlp_torch.train.metrics"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
