@@ -15,18 +15,20 @@ Phases, each fatal on failure:
      check the kernel launches per frame, the images, and the frame
      against the same frame rendered with use_kernel=False on the card;
      then profile one frame;
-  4. hold the forward kernel, the backward kernel and its reduction
-     against their plain versions at the flagship train step's shapes (1024
-     rays of a pose x 64 / 128 samples, a cotangent from a seeded MSE
-     loss); the backward also in hi_lo mode, beside the bf16 kernel as a
+  4. hold the forward kernel and the backward's three kernels (phase 1:
+     recompute + dX into a workspace; phase 2: dW and db partials; their
+     reduction) against their plain versions at the flagship train step's
+     shapes (1024 rays of a pose x 64 / 128 samples, a cotangent from a
+     seeded MSE loss), each alone and the backward as a whole, and time
+     each; the backward also in hi_lo mode, beside the bf16 kernels as a
      control, and at the generic architecture; repeat runs must give the
      same bits;
   5. train the flagship recipe (8x256, batch 1024, 64+128 samples, bf16,
      perturb) for 300 steps through the Trainer on a 64x64 synthetic scene
      made here, with the kernels and with use_kernel=False: the loss must
      fall, held-out PSNR reach 20 dB and agree within 1 dB, and each step
-     launch the forward, backward and reduction kernels twice; time the
-     runs and profile one step.
+     launch each of the four kernels twice; time the runs and profile one
+     step.
 Then it prints the kernels' JSON line, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Weights are random, from a seed.
 It exits non-zero, printing no result, without a CUDA device.
@@ -69,12 +71,25 @@ HI_LO_BWD_TOL = 1e-3      # the backward in hi_lo mode. Its activations
 #                           hi_lo reading (1.6e-4) and the bf16 kernel's
 #                           distance from the same reference (6.0e-3), a
 #                           control that check_backward asserts is above it
+PHASE1_TOL = 3e-2         # the backward's phase-1 workspace vs its plain
+#                           version, relative L2 per matrix: a ReLU mask
+#                           that flips at a pre-activation within rounding
+#                           of 0 zeroes (or keeps) a whole cotangent value,
+#                           and the flip cascades down the dX chain; the
+#                           gradients it feeds are held at KERNEL_TOL
+PHASE2_TOL = 1e-4         # phase 2's partials vs the plain products on the
+#                           same workspace: fp32 summation order only
+SPIN_CYCLES = 4_000_000   # the GPU spin ahead of each timed call
 FRAME_TOL = 3e-3          # served rgb vs the use_kernel=False frame
 FRAME_MAX = 1e-2          # ... at the few discontinuous fine-pass pixels
 
 
-def cuda_ms(fn, iters, warmup=2):
-    """Median milliseconds of ``fn`` by CUDA events, after warm-up."""
+def cuda_ms(fn, iters, warmup=2, spin=True):
+    """Median milliseconds of ``fn`` by CUDA events, after warm-up. A GPU
+    spin (~2 ms) ahead of the start event lets the host enqueue ``fn``
+    before the device reaches it, so the device's time is timed, not the
+    host's path to the launch. With ``spin=False`` the host's Python and
+    launch path from the start event on is timed as well."""
     import torch
 
     for _ in range(warmup):
@@ -83,6 +98,8 @@ def cuda_ms(fn, iters, warmup=2):
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -176,14 +193,16 @@ def check_kernel(net, cfg, pts, dirs, label, time_it, hi_lo=False):
                         >= nbytes / PEAK_MEM_BYTES else "bytes")}
     if time_it:
         with torch.no_grad():
-            rec["ms"] = cuda_ms(lambda: fused_mlp.fused_nerf_mlp(
-                packed, pts, dirs, cfg), iters=10)
+            for key, spin in (("ms", True), ("ms_no_spin", False)):
+                rec[key] = cuda_ms(lambda: fused_mlp.fused_nerf_mlp(
+                    packed, pts, dirs, cfg), iters=10, spin=spin)
         rec["plain_ms"] = cuda_ms(plain, iters=3)
         rec["tflops"] = flops / rec["ms"] / 1e9
     print(f"[kernel] {label}: n={n} max|err|={err:.3e} "
           f"normalised={norm:.3e} (tol {tol})"
-          + (f" kernel {rec['ms']:.3f} ms ({rec['tflops']:.1f} TFLOP/s) "
-             f"plain {rec['plain_ms']:.3f} ms" if time_it else "")
+          + (f" kernel {rec['ms']:.3f} ms ({rec['tflops']:.1f} TFLOP/s; "
+             f"{rec['ms_no_spin']:.3f} ms without the spin) plain "
+             f"{rec['plain_ms']:.3f} ms" if time_it else "")
           + f" bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})")
     if not norm <= tol:
         raise SystemExit(f"[kernel] {label}: kernel disagrees with plain")
@@ -226,13 +245,33 @@ def bwd_macs(net, vdirs):
     return fwd + (fwd - no_dx) + fwd
 
 
+def phase1_macs(net, vdirs):
+    """MACs per point of the backward's phase 1: the recomputed forward
+    without the output heads, and dX. Phase 2 does the other fwd (dW)."""
+    mc = net.cfg
+    fwd = sum(p.numel() for name, p in net.named_parameters()
+              if name.endswith("weight"))
+    heads = (mc.view_width * 3 + mc.width) if vdirs else (
+        mc.width * mc.output_ch)
+    return bwd_macs(net, vdirs) - fwd - heads
+
+
+def bound(flops, nbytes):
+    """(least ms, what bounds it) at the bf16 peak and the HBM rate."""
+    ops, mem = flops / PEAK_BF16_FLOPS, nbytes / PEAK_MEM_BYTES
+    return 1e3 * max(ops, mem), "operations" if ops >= mem else "bytes"
+
+
 def check_backward(net, cfg, pts, dirs, label, time_it, hi_lo=False):
-    """Backward kernel (+ its reduction) vs the plain backward on the same
-    inputs and a cotangent from a seeded loss, per parameter (max |err| /
-    max |plain|); a repeat run must give the same bits. In hi_lo mode the
-    bf16 kernel's gradients are held against the same hi_lo reference as a
-    control, which must land above the bar: the bar then tells hi_lo from
-    bf16. Returns (backward record, reduction record)."""
+    """The backward (both phases + reduction) vs the plain backward on the
+    same inputs and a cotangent from a seeded loss, per parameter (max
+    |err| / max |plain|); a repeat run must give the same bits. In hi_lo
+    mode the bf16 kernels' gradients are held against the same hi_lo
+    reference as a control, which must land above the bar: the bar then
+    tells hi_lo from bf16. With ``time_it``, each kernel is also held
+    against its own plain version and timed (check_phases), and the whole
+    backward is timed with and without the spin. Returns (the
+    whole backward's record, the kernels' records or None)."""
     import torch
 
     from nerfmlp_torch.ops import fused_mlp
@@ -279,7 +318,7 @@ def check_backward(net, cfg, pts, dirs, label, time_it, hi_lo=False):
         bf16 = fused_mlp.pack_params(net, cfg.pos_enc_L, vdirs, False)
         _, control, cleaf = compare(fused_mlp.unpack_grads(
             bf16, fused_mlp._launch_bwd(bf16, pts, dirs, g)), want)
-        print(f"[backward] {label}: control, the bf16 kernel vs the same "
+        print(f"[backward] {label}: control, the bf16 kernels vs the same "
               f"hi_lo plain backward: normalised {control:.3e} ({cleaf})")
     n = pts.shape[0]
     flops = 2.0 * bwd_macs(net, vdirs) * n * (3 if hi_lo else 1)
@@ -288,73 +327,127 @@ def check_backward(net, cfg, pts, dirs, label, time_it, hi_lo=False):
               + packed.weights.numel() * 2 + packed.biases.numel() * 4
               + packed.grad_total * 4)
     rec = {"label": label, "n": n, "max_abs_err": err, "norm_err": norm,
-           "control_norm_err": control,
-           "bound_ms": 1e3 * max(flops / PEAK_BF16_FLOPS,
-                                 nbytes / PEAK_MEM_BYTES),
-           "bound_by": ("operations" if flops / PEAK_BF16_FLOPS
-                        >= nbytes / PEAK_MEM_BYTES else "bytes")}
-    red = None
+           "control_norm_err": control}
+    rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes)
+    phases = None
     if time_it:
-        rec["ms"] = cuda_ms(lambda: fused_mlp._launch_bwd(packed, pts, dirs,
-                                                          g), iters=10)
+        for key, spin in (("ms", True), ("ms_no_spin", False)):
+            rec[key] = cuda_ms(lambda: fused_mlp._launch_bwd(
+                packed, pts, dirs, g), iters=10, spin=spin)
         rec["plain_ms"] = cuda_ms(plain, iters=3)
         rec["tflops"] = flops / rec["ms"] / 1e9
-        red = check_reduce(packed, n, hi_lo)
+        phases = check_phases(net, packed, pts, dirs, g, label)
+        rec["floor_ms"] = sum(r["bound_ms"] for r in phases.values())
     print(f"[backward] {label}: n={n} max|err|={err:.3e} "
           f"normalised={norm:.3e} ({leaf}; tol {tol}), repeat bit-identical"
-          + (f" kernel+reduction {rec['ms']:.3f} ms ({rec['tflops']:.1f} "
-             f"TFLOP/s) plain {rec['plain_ms']:.3f} ms" if time_it else "")
+          + (f" kernels {rec['ms']:.3f} ms ({rec['tflops']:.1f} TFLOP/s; "
+             f"{rec['ms_no_spin']:.3f} ms without the spin) plain "
+             f"{rec['plain_ms']:.3f} ms; design floor {rec['floor_ms']:.3f} "
+             f"ms" if time_it else "")
           + f" bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})")
     if not norm <= tol:
-        raise SystemExit(f"[backward] {label}: kernel disagrees with plain")
+        raise SystemExit(f"[backward] {label}: kernels disagree with plain")
     if control is not None and not control > tol:
         raise SystemExit(f"[backward] {label}: the bar does not tell hi_lo "
                          f"from bf16")
-    return rec, red
+    return rec, phases
 
 
-def check_reduce(packed, n, hi_lo):
-    """The reduction kernel alone on partials of the backward's grid
-    shape: against its plain version (same order, so the same bits) and
-    torch.sum over the slots (the library call for the same function)."""
+def check_phases(net, packed, pts, dirs, g, label):
+    """Each kernel of the backward alone, against its plain version on the
+    same inputs, and timed: phase 1's workspace (per matrix, relative L2
+    over the n rows), phase 2's partials on that workspace, the reduction
+    of those partials (bit-identical; beside part.sum(0), the library call
+    for the same function). Returns {"phase1", "phase2", "reduce"}
+    records, each with its bound from this run's shapes."""
     import torch
 
-    from nerfmlp_torch.ops import fused_mlp
+    from nerfmlp_torch.ops import fused_mlp as fm
 
-    grid = min(-(-n // fused_mlp.BWD_ROWS),
-               fused_mlp.bwd_grid(hi_lo, torch.cuda.current_device()))
+    n = pts.shape[0]
+    tile = fm.bwd_tile_rows(packed.hi_lo)
+    rows = -(-n // tile) * tile
+    ws = torch.empty(rows * packed.ws_cols, device="cuda",
+                     dtype=torch.bfloat16)
+    fm.bwd_workspace(packed, pts, dirs, g, ws)
+    want_ws = fm.bwd_workspace_plain(packed, pts, dirs, g, rows)
+    err1, worst = 0.0, (0.0, "")
+    for m, (name, _, _) in enumerate(packed.ws_mats):
+        a = fm.ws_matrix(packed, ws, m)[0, :n].float()
+        b = fm.ws_matrix(packed, want_ws, m)[0, :n].float()
+        err1 = max(err1, float((a - b).abs().max()))
+        worst = max(worst, (float((a - b).norm() / b.norm().clamp_min(1e-30)),
+                            name))
+    splits, split_rows = fm.bwd_splits(rows)
     total = packed.grad_total
-    stride = -(-total // 64) * 64
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
-    part = torch.randn((grid, stride), device="cuda", generator=gen)
-    got = fused_mlp.reduce_partials(part, total)
-    want = fused_mlp.reduce_partials_plain(part, total)
+    part = torch.empty((splits, fm.part_stride(total)), device="cuda")
+    fm.weight_grads(packed, ws, rows, split_rows, part)
+    want_part = fm.weight_grads_plain(packed, ws, rows, split_rows)
+    err2 = float((part[:, :total] - want_part[:, :total]).abs().max())
+    norm2 = err2 / float(want_part[:, :total].abs().max())
+    red = fm.reduce_partials(part, total)
+    err3 = float((red - fm.reduce_partials_plain(part, total)).abs().max())
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    nbytes = part.numel() * 4 + total * 4
-    rec = {"label": f"G={grid}", "max_abs_err": err,
-           "bound_ms": 1e3 * nbytes / PEAK_MEM_BYTES, "bound_by": "bytes",
-           "ms": cuda_ms(lambda: fused_mlp.reduce_partials(part, total),
-                         iters=10),
-           "plain_ms": cuda_ms(lambda: fused_mlp.reduce_partials_plain(
-               part, total), iters=3),
-           "library_ms": cuda_ms(lambda: part[:, :total].sum(0), iters=10)}
-    print(f"[reduce] {grid} slots x {total} floats: max|err|={err:.3e} "
-          f"kernel {rec['ms']:.3f} ms plain {rec['plain_ms']:.3f} ms "
-          f"torch.sum {rec['library_ms']:.3f} ms bound {rec['bound_ms']:.3f} "
-          f"ms (bytes)")
-    if err != 0.0:
-        raise SystemExit("[reduce] reduction kernel disagrees with plain")
-    return rec
+    recs = {
+        "phase1": {"max_abs_err": err1, "rel_l2": worst[0],
+                   "ms": cuda_ms(lambda: fm.bwd_workspace(
+                       packed, pts, dirs, g, ws), iters=10),
+                   "plain_ms": cuda_ms(lambda: fm.bwd_workspace_plain(
+                       packed, pts, dirs, g, rows), iters=3)},
+        "phase2": {"max_abs_err": err2, "norm_err": norm2,
+                   "ms": cuda_ms(lambda: fm.weight_grads(
+                       packed, ws, rows, split_rows, part), iters=10),
+                   "plain_ms": cuda_ms(lambda: fm.weight_grads_plain(
+                       packed, ws, rows, split_rows), iters=3)},
+        "reduce": {"max_abs_err": err3,
+                   "ms": cuda_ms(lambda: fm.reduce_partials(part, total),
+                                 iters=10),
+                   "plain_ms": cuda_ms(lambda: fm.reduce_partials_plain(
+                       part, total), iters=3),
+                   "library_ms": cuda_ms(lambda: part[:, :total].sum(0),
+                                         iters=10)},
+    }
+    ws_bytes = rows * packed.ws_cols * 2
+    in_bytes = (pts.numel() * 4 + g.numel() * 4
+                + (dirs.numel() * 2 if dirs is not None else 0)
+                + packed.weights.numel() * 2 + packed.biases.numel() * 4)
+    dw_macs = sum(p.numel() for name, p in net.named_parameters()
+                  if name.endswith("weight"))
+    for key, flops, nbytes in (
+            ("phase1", 2.0 * phase1_macs(net, dirs is not None) * n,
+             in_bytes + ws_bytes),
+            ("phase2", 2.0 * dw_macs * n, ws_bytes + splits * total * 4),
+            ("reduce", 0.0, (splits + 1) * total * 4)):
+        recs[key]["bound_ms"], recs[key]["bound_by"] = bound(flops, nbytes)
+        recs[key]["library_ms"] = recs[key].get("library_ms")
+    r1, r2, r3 = recs["phase1"], recs["phase2"], recs["reduce"]
+    print(f"[backward] {label} phase 1 (recompute + dX -> {ws_bytes} B "
+          f"workspace): rel-L2 {r1['rel_l2']:.3e} ({worst[1]}; tol "
+          f"{PHASE1_TOL}) kernel {r1['ms']:.3f} ms plain {r1['plain_ms']:.3f} "
+          f"ms bound {r1['bound_ms']:.3f} ms ({r1['bound_by']})")
+    print(f"[backward] {label} phase 2 (dW, db: {len(packed.bwd_jobs)} jobs x "
+          f"{splits} splits of {split_rows} rows): normalised "
+          f"{norm2:.3e} (tol {PHASE2_TOL}) kernel {r2['ms']:.3f} ms plain "
+          f"{r2['plain_ms']:.3f} ms bound {r2['bound_ms']:.3f} ms "
+          f"({r2['bound_by']})")
+    print(f"[reduce] {label}: {splits} slots x {total} floats: max|err| "
+          f"{err3:.3e} kernel {r3['ms']:.4f} ms plain {r3['plain_ms']:.4f} "
+          f"ms part.sum(0) {r3['library_ms']:.4f} ms bound "
+          f"{r3['bound_ms']:.4f} ms (bytes; {100 * r3['bound_ms'] / r3['ms']:.0f}"
+          f"% of it)")
+    if not (worst[0] <= PHASE1_TOL and norm2 <= PHASE2_TOL and err3 == 0.0):
+        raise SystemExit(f"[backward] {label}: a kernel of the backward "
+                         f"disagrees with its plain version")
+    return recs
 
 
 def phase_backward(net):
     """The forward and backward kernels at the flagship train step's
-    shapes: 1024 rays of a pose x 64 coarse / 128 fine samples, bf16; the
-    backward in hi_lo at the first and at the generic 6x128 no-viewdirs
-    net; and, for context, autograd through the bf16 module on the fine
-    call's shape. Returns (forward records, backward records, reduction
-    record)."""
+    shapes: 1024 rays of a pose x 64 coarse / 128 fine samples, bf16, each
+    backward kernel also alone; the backward in hi_lo at the first and at
+    the generic 6x128 no-viewdirs net; and, for context, autograd through
+    the bf16 module on the fine call's shape. Returns (forward records,
+    backward records, the fine call's kernel records, the coarse call's)."""
     import torch
 
     from nerfmlp_torch.models.mlp import init_model
@@ -365,18 +458,19 @@ def phase_backward(net):
     cfg = slice_config()
     mc = cfg.model_config()
     print(f"[backward] 8x256 budget: {fused_mlp.backward_counts(mc, True)} "
-          f"(operations, buffers), {fused_mlp.bwd_scratch_bytes(mc, True)} "
-          f"B scratch per block, G={fused_mlp.bwd_grid(False, 0)}, "
+          f"(phase-1 operations, workspace matrices), "
+          f"{fused_mlp.bwd_smem_bytes(mc, True)} B shared memory per block, "
+          f"{fused_mlp.bwd_scratch_bytes(mc, True)} B workspace per point, "
           f"fits={fused_mlp.backward_fits(mc, True)}")
-    fwds, recs, reds = [], [], []
+    fwds, recs, phases = [], [], []
     for n_samples, label in ((cfg.N_samples, "coarse"),
                              (cfg.N_importance, "fine")):
         pts, dirs = serving_points(n_samples, cfg, n_rays=TRAIN_RAYS)
         fwds.append(check_kernel(net, cfg, pts, dirs, f"train {label}",
                                  time_it=True))
-        rec, red = check_backward(net, cfg, pts, dirs, label, time_it=True)
+        rec, ph = check_backward(net, cfg, pts, dirs, label, time_it=True)
         recs.append(rec)
-        reds.append(red)
+        phases.append(ph)
     pts, dirs = serving_points(cfg.N_samples, cfg, n_rays=TRAIN_RAYS)
     check_backward(net, cfg, pts, dirs, "coarse hi_lo", time_it=False,
                    hi_lo=True)
@@ -395,7 +489,7 @@ def phase_backward(net):
     print(f"[backward] context: autograd through the bf16 module, fine "
           f"call: {ms:.3f} ms (backward only)")
     print(f"[backward] phase took {time.perf_counter() - t0:.1f} s")
-    return fwds, recs, reds[1]
+    return fwds, recs, phases[1], phases[0]
 
 
 def train_configs(near, far):
@@ -434,17 +528,16 @@ def train_once(rc, tc, train_ds, val_ds, save_dir):
 
     trainer.step_fn = recorded
     torch.cuda.synchronize()
-    fused_mlp.fused_nerf_mlp.launches = 0
-    fused_mlp.fused_nerf_mlp_bwd.launches = 0
-    fused_mlp.reduce_partials.launches = 0
+    counters = (fused_mlp.fused_nerf_mlp, fused_mlp.bwd_workspace,
+                fused_mlp.weight_grads, fused_mlp.reduce_partials)
+    for c in counters:
+        c.launches = 0
     t0 = time.perf_counter()
     trainer.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     trainer.step_fn = step_fn
-    launches = (fused_mlp.fused_nerf_mlp.launches,
-                fused_mlp.fused_nerf_mlp_bwd.launches,
-                fused_mlp.reduce_partials.launches)
+    launches = tuple(c.launches for c in counters)
     val = trainer._validate(val_ds)
     losses = torch.stack(losses).cpu().numpy()
     if not np.isfinite(losses).all() or not np.isfinite(val["psnr"]):
@@ -470,8 +563,8 @@ def profile_step(trainer):
     rows = device_rows(prof)
     busy = sum(ms for _, ms in rows)
     kern = {name: sum(ms for k, ms in rows if name in k)
-            for name in ("fused_mlp_fwd_kernel", "fused_mlp_bwd_kernel",
-                         "reduce_partials_kernel")}
+            for name in ("fused_mlp_fwd_kernel", "bwd_phase1_kernel",
+                         "bwd_phase2_kernel", "reduce_partials_kernel")}
     print(f"[profile] train step wall {wall:.2f} ms, device busy {busy:.2f} "
           f"ms (idle {100 * (1 - busy / wall):.1f}%): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in kern.items())
@@ -484,7 +577,8 @@ def phase_train():
     """Train the flagship recipe through the Trainer on a synthetic scene
     made here, with the kernels and with use_kernel=False; check the loss
     falls, held-out PSNR, the two runs' agreement and the kernel launches
-    per step; time and profile the step."""
+    per step; time and profile the step. Returns the kernel run's launches
+    (forward, backward phase 1, phase 2, reduction)."""
     import numpy as np
 
     from nerfmlp_torch.data.blender import BlenderDataset
@@ -518,12 +612,12 @@ def phase_train():
             raise SystemExit(f"[train] {name}: the loss did not fall")
         runs[name] = (val, launches, trainer, wall)
     val, launches, trainer, wall = runs["kernel"]
-    want = (2 * TRAIN_STEPS,) * 3
+    want = (2 * TRAIN_STEPS,) * 4
     print(f"[train] kernel launches over {TRAIN_STEPS} steps: forward "
-          f"{launches[0]}, backward {launches[1]}, reduction {launches[2]} "
-          f"(want {want[0]} each: coarse + fine query per step); plain run: "
-          f"{runs['plain'][1]}")
-    if launches != want or runs["plain"][1] != (0, 0, 0):
+          f"{launches[0]}, backward phase 1 {launches[1]}, phase 2 "
+          f"{launches[2]}, reduction {launches[3]} (want {want[0]} each: "
+          f"coarse + fine query per step); plain run: {runs['plain'][1]}")
+    if launches != want or runs["plain"][1] != (0, 0, 0, 0):
         raise SystemExit("[train] the train steps did not go through the "
                          "kernels as expected")
     gap = abs(val["psnr"] - runs["plain"][0]["psnr"])
@@ -713,12 +807,14 @@ def main():
     phase_build()
     net = init_model(slice_config().model_config(), seed=SEED, device="cuda")
     coarse, fine = phase_kernel(net)
-    fwd_train, (bwd_coarse, bwd_fine), red = phase_backward(net)
+    fwd_train, bwds, ph_fine, ph_coarse = phase_backward(net)
     serve_launches = phase_serve(net)
-    fwd_launches, bwd_launches, red_launches = phase_train()
+    fwd_launches, *bwd_launches = phase_train()
 
     # The forward runs on both paths, at different shapes: one record per
-    # path, each with that path's launches and its fine call's times.
+    # path, each with that path's launches and its fine call's times. The
+    # backward's three kernels: the fine call's times, the launches of the
+    # training run. The whole backward (all three) is printed beside them.
     kernels = [{
         "name": "fused_mlp_fwd",
         "path": "serve",
@@ -745,34 +841,35 @@ def main():
         "bound_ms": fwd_train[1]["bound_ms"],
         "bound_by": fwd_train[1]["bound_by"],
         "library_ms": None,
-    }, {
-        "name": "fused_mlp_bwd",
-        "path": "train",
-        "route": "cuda",
-        "source": "nerfmlp_torch/csrc/fused_mlp_bwd.cu",
-        "replaces": "nerfmlp_tpu/ops/pallas_mlp.py:312",
-        "launches": bwd_launches,
-        "max_abs_err": max(bwd_coarse["max_abs_err"],
-                           bwd_fine["max_abs_err"]),
-        "ms": bwd_fine["ms"],
-        "plain_ms": bwd_fine["plain_ms"],
-        "bound_ms": bwd_fine["bound_ms"],
-        "bound_by": bwd_fine["bound_by"],
-        "library_ms": None,
-    }, {
-        "name": "fused_mlp_bwd_reduce",
-        "path": "train",
-        "route": "cuda",
-        "source": "nerfmlp_torch/csrc/fused_mlp_bwd.cu",
-        "replaces": "nerfmlp_tpu/ops/pallas_mlp.py:327",
-        "launches": red_launches,
-        "max_abs_err": red["max_abs_err"],
-        "ms": red["ms"],
-        "plain_ms": red["plain_ms"],
-        "bound_ms": red["bound_ms"],
-        "bound_by": red["bound_by"],
-        "library_ms": red["library_ms"],
     }]
+    for key, name, replaces, launches in (
+            ("phase1", "fused_mlp_bwd_phase1", "pallas_mlp.py:312",
+             bwd_launches[0]),
+            ("phase2", "fused_mlp_bwd_phase2", "pallas_mlp.py:386",
+             bwd_launches[1]),
+            ("reduce", "fused_mlp_bwd_reduce", "pallas_mlp.py:327",
+             bwd_launches[2])):
+        r = ph_fine[key]
+        kernels.append({
+            "name": name,
+            "path": "train",
+            "route": "cuda",
+            "source": "nerfmlp_torch/csrc/fused_mlp_bwd.cu",
+            "replaces": "nerfmlp_tpu/ops/" + replaces,
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"],
+                               ph_coarse[key]["max_abs_err"]),
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+        })
+    for rec in bwds:
+        print(f"[backward] {rec['label']} call, all three kernels: "
+              f"{rec['ms']:.3f} ms ({rec['ms_no_spin']:.3f} ms without the "
+              f"spin); bound {rec['bound_ms']:.3f} ms "
+              f"({rec['bound_by']}), design floor {rec['floor_ms']:.3f} ms")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,390 +1,756 @@
-// Fused NeRF-MLP backward for Hopper (sm_90a): recompute the forward for a
-// tile of points, backpropagate the (T, 4) cotangent through the heads and
-// the trunk, and accumulate fp32 weight and bias gradients — plus the
-// reduction that sums the per-block partial gradients in a fixed order.
+// Fused NeRF-MLP backward for Hopper (sm_90a), split by what bounds each
+// part: phase 1 recomputes the forward and walks the dX chain per tile of
+// points; phase 2 forms every weight gradient as one long product over the
+// points; a reduction sums phase 2's few partial slots in a fixed order.
 //
 // Replaces the TPU kernel `_bwd_kernel` + `_trunk_bwd`
 // (nerfmlp_tpu/ops/pallas_mlp.py:312-441, launched by `_pallas_backward`,
-// :444-496). It computes the same function with the same rounding points:
-// the cotangent cast to the compute type; dv masked by v > 0 and rounded;
-// dbott rounded; dh rounded after the sigma and bottleneck branches are
-// summed; every dacc and every dh down the trunk rounded (mask and rounding
-// commute, so one epilogue does both); dW accumulated in fp32 from bf16
-// operands; db an fp32 sum over the rounded cotangents; the skip's d(enc)
-// branch dropped. A template flag adds the hi_lo mode
-// (fp32_precision="high", pallas_mlp.py:347-365): every value is a (hi, lo)
-// pair of bf16 planes and every product is hi*hi + hi*lo + lo*hi.
+// :444-496) with the same function and the same rounding points: the
+// cotangent cast to the compute type; dv masked by v > 0 and rounded; dbott
+// rounded; dh rounded after the sigma and bottleneck branches are summed;
+// every dacc and every dh down the trunk rounded (mask and rounding commute,
+// so one epilogue does both); dW accumulated in fp32 from bf16 operands; db
+// an fp32 sum over the rounded cotangents; the skip's d(enc) branch dropped.
+// A template flag adds the hi_lo mode (fp32_precision="high",
+// pallas_mlp.py:347-365): every value is a (hi, lo) pair of bf16 planes and
+// every product is hi*hi + lo*hi + hi*lo.
 //
-// What bounds it. Per point at 8x256 with the view head: 593,408 MACs of
-// recomputed forward, 557,696 of dX (none for layer 0, the skip's encoded
-// block or the dirs block) and 593,408 of dW: 3.49 MFLOP, bf16 tensor-core
-// work. Device memory sees 12 B of points, 54 B of dirs and 16 B of
-// cotangent per point, so the floor is the 989 TFLOP/s bf16 peak (0.231 ms
-// for 65,536 points, 0.462 ms for 131,072).
+// Work at 8x256 with the view head, per point: 1,150,464 MACs in phase 1
+// (the recomputed forward without the two output heads, and dX) and
+// 593,408 in phase 2 (dW); the function's floor is the 989 TFLOP/s bf16
+// peak over 3.49 MFLOP per point, 0.462 ms for 131,072 points. This design
+// adds a workspace that phase 1 writes and phase 2 reads, 9,984 B per point
+// (1.31 GB at 131,072 points), so its own floor is about 0.78 ms: phase 1
+// by the bytes it writes, phase 2 by the bytes it reads.
 //
-// Design.
-//   * The TPU accumulates dW over a sequential grid. Hopper's blocks run in
-//     parallel and in no order, so the grid is persistent: G blocks (those
-//     that fit at once, at most two per SM), each walking a fixed,
-//     contiguous range of tiles and
-//     accumulating into its own fp32 partial slot in device memory (every
-//     logical weight and bias). fused_mlp_bwd_reduce then sums the G slots
-//     in a fixed order. No atomics: the gradients repeat bit for bit.
-//   * The stored activations of a tile (every post-ReLU trunk layer, the
-//     bottleneck and the view layer: 8 x 128 x 256 x 2 B = 512 KB at 128
-//     rows) do not fit a block's 227 KB of shared memory. They go to a
-//     per-block scratch in device memory (786,432 B per block at 8x256 and
-//     128 rows; hi_lo doubles it) that the block writes and reads back,
-//     mostly from the 50 MB L2. Shared memory holds only the program and
-//     each warp's 16x16 epilogue stage (16,448 B).
-//   * Every product is wmma 16x16x16 bf16 with fp32 accumulators, operands
-//     loaded straight from device memory (scratch, weights: both L2-hot):
-//       forward  out[T, n]  = act(A[T, k] @ W[k, n] + b)       W row-major
-//       dX       out[T, n]  = mask(dY[T, k] @ W[n, k]^T)        W as col-major B
-//       dW       P[k, n]   += A[T, k]^T @ dY[T, n]              A as col-major A
-//     Each warp owns a 16 x 128 output strip (eight accumulators).
-//   * A tile is 128 rows: each dW update reads and writes the block's whole
-//     2.4 MB partial slot once per tile, so more rows per update amortise
-//     that traffic; it likely sets the pace of this simple design.
+// Phase 1 (bwd_phase1_kernel). The TPU kernel keeps a tile's activations
+// in VMEM. A per-block device-memory scratch in their place would hold
+// 786 KB per block, 104 MB over 132 blocks: twice the 50 MB L2, so every
+// product would wait on HBM.
+//   * A persistent grid (one block per SM) walks tiles of 128 points (64 in
+//     hi_lo). The tile's current input and output activations live in
+//     shared memory (two ping-pong buffers, the encoded points and dirs), so
+//     the A operand of every product comes from shared memory by ldmatrix.
+//   * Weights stream through a ring of 16-row k-slabs (3 stages at 8x256,
+//     2 in hi_lo) filled by cp.async two slabs (one in hi_lo) ahead of the
+//     product; one barrier per slab. The slab sequence runs across
+//     operations and tiles, so the ring never drains, and each thread's
+//     chunk of an operand's slabs is set up once per operand: issuing a
+//     slab costs a few instructions. A ring of bulk copies instead (warp 0
+//     copying each slab's 16 rows with cp.async.bulk, a full and an empty
+//     mbarrier per stage, no block barrier per slab, dX from a transposed
+//     copy of the weights) measured 29% slower on an H100 (PERF.md). The
+//     likely causes, not measured apart: a ring two slabs deep does not
+//     hide a bulk copy's latency, and warp 0, a consumer too, waits for
+//     the slowest warp before each refill.
+//   * mma.sync m16n8k16 bf16 with fp32 accumulators (not wgmma); 16 warps,
+//     each owning a 32 x 64 block (16 x 64 in hi_lo) of the 128 x 256 layer
+//     output, so a whole layer is one pass over its k-slabs and two warps
+//     per scheduler hide each other's latency.
+//   * The ReLU masks the dX chain needs are kept as bits in shared memory:
+//     a thread holds the same (row, column) positions in every layer, so it
+//     writes its bits in the forward epilogue and reads them back in the
+//     dX epilogue, with no other thread involved.
+//   * Every stored activation and every rounded cotangent is copied once,
+//     16 B per thread, into a row-major (rows, width) workspace matrix.
+// Phase 2 (bwd_phase2_kernel). The TPU adds each tile's dW into one
+// accumulator over its sequential grid; on 132 parallel blocks that would
+// be a read-modify-write of a 2.4 MB partial slot per tile, ~4.6 GB per
+// call of 131,072 points.
+//   * dW_b = A_b^T dY_b is a product with the points as its long K: one
+//     block per 128 x 128 tile of one weight block and one split of the
+//     rows, accumulating in registers over its whole range of rows through
+//     a 3-stage cp.async ring of 64-row (rows x k) and (rows x n) tiles;
+//     A^T comes from ldmatrix.trans. The block writes one fp32 partial.
+//   * db is the column sum of the same dY tiles, in fp32, in the blocks
+//     that hold the first k-tile of a layer's first weight block.
+//   * Jobs are ordered largest weight block first, and the tiles of one
+//     weight block and split are neighbours, so blocks that share an
+//     operand run together and the second read comes from L2.
+// Reduction (reduce_partials_kernel), bound by bytes: float4 loads, sixteen
+// slots in flight at a time, added in slot order, so the sum repeats bit
+// for bit and equals the plain sum. Nothing here uses atomics.
 //
 // The network arrives as a program built by the Python wrapper
-// (nerfmlp_torch/ops/fused_mlp.py, pack_params): a header, a buffer table
-// (offset and row stride of each activation or cotangent buffer in the
-// block's scratch) and one record per operation (forward layer, dX, dW,
-// db). Every width is padded to a multiple of 16 with zeros, so padding
-// adds exactly zero. Rows at or past n load a zero cotangent, so they
-// contribute nothing to any gradient.
+// (nerfmlp_torch/ops/fused_mlp.py, pack_params): a header, a shared-memory
+// buffer table, a workspace matrix table, one record per phase-1 operation
+// (forward layer, dX, load of the cotangent) and phase 2's job list. Every
+// width is padded to a multiple of 16 with zeros, so padding adds exactly
+// zero. Rows at or past n load a zero cotangent, so they contribute nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
-
-#include <type_traits>
+#include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int kRows = 128;        // points per tile (rows per dW update)
-constexpr int kThreads = 256;     // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kFrags = 8;         // accumulators per warp task: 16 x 128
-constexpr int kStrip = 16 * kFrags;
-constexpr int kMaxBufs = 64;
-constexpr int kHeaderInts = 16;
-constexpr int kOpInts = 12;
-constexpr int kMaxOps = 160;
-constexpr int kOpsBase = kHeaderInts + 2 * kMaxBufs;
-constexpr int kMaxProg = kOpsBase + kMaxOps * kOpInts;
+constexpr int kThreads = 256;     // phase 2: 8 warps
+constexpr int kPad = 8;           // bf16 of padding per shared-memory row
+constexpr int kMaxN = 256;        // widest layer phase 1's warp grid covers
+constexpr int kHeaderInts = 32;
+constexpr int kMaxBufs = 8;       // shared-memory buffers: offset, ld, cols
+constexpr int kMaxMats = 64;      // workspace matrices: column offset, cols
+constexpr int kOpInts = 16;
+constexpr int kMaxOps = 96;
+constexpr int kBufsBase = kHeaderInts;
+constexpr int kMatsBase = kBufsBase + 3 * kMaxBufs;
+constexpr int kOpsBase = kMatsBase + 2 * kMaxMats;
+constexpr int kTileK = 128;       // phase 2: dW rows per block
+constexpr int kTileN = 128;       // phase 2: dW columns per block
+constexpr int kStageRows = 64;    // phase 2: points per ring stage
+constexpr int kStages2 = 3;
+constexpr int kLd2 = kTileK + kPad;
+constexpr int kJobInts = 10;
 
-// Operations of the program.
-enum Op { kFwd = 0, kDx = 1, kDw = 2, kDb = 3 };
+// Phase-1 operations.
+enum Op { kFwd = 0, kDx = 1, kLoadG = 2 };
 
 // Header fields.
 enum Header {
-  hNOps = 0, hNBufs, hNFreqs, hEncDim, hDirsDim, hHiLo, hXBuf, hDBuf,
-  hGCols, hGrBuf, hGrCols, hGsBuf, hPlane
+  hNOps = 0, hProgLen, hNFreqs, hEncDim, hDirsDim, hGCols, hGrCols,
+  hXBuf, hDBuf, hGrBuf, hGsBuf, hXMat, hDMat, hGrMat, hGsMat,
+  hStages, hRingOff, hStageElems, hMaskOff, hSmem, hWsCols, hJobsOff,
+  hNJobs
 };
 
 // Operation record fields:
-//   kFwd: dst = act(a @ Wa + b @ Wb + bias)   (flag: 1 = ReLU)
-//   kDx:  dst = mask(a @ Wa^T + b @ Wb^T)     (flag: mask buffer or -1)
-//   kDw:  P[part:] += a^T @ b                 (k_a rows, n columns)
-//   kDb:  P[part:] += column sums of a        (n columns)
+//   kFwd:  dst = act(A @ WA + B @ WB + bias); act = ReLU when maskOut >= 0,
+//          which also records dst > 0 into that mask slot
+//   kDx:   dst = mask(A @ WA^T + B @ WB^T)   (maskIn: a slot, or -1)
+//   kLoadG: the cotangent into buffers GR / GS and their matrices
+// dst is then copied into workspace matrix `mat` (if >= 0).
 enum Field {
-  fOp = 0, fSrcA, fWA, fKA, fSrcB, fWB, fKB, fOff, fN, fFlag, fDst
+  fOp = 0, fSrcA, fWA, fKA, fSrcB, fWB, fKB, fBias, fN, fMaskIn, fDst,
+  fMat, fMaskOut
 };
 
-using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+// Job record fields (phase 2): the tile [k0, k0 + kc) x [n0, n0 + nc) of
+// the weight block whose gradient starts at `off` (row stride `ld`), from
+// workspace matrices A (activations) and Y (cotangent); `db`: the bias
+// gradient's offset when this job also sums Y's columns, else -1.
+enum JobField { jA = 0, jK0, jKc, jY, jN0, jNc, jOff, jLd, jDb };
 
-// A value into a buffer: bf16, or in hi_lo mode the pair
-// (hi, lo) = (bf16(v), bf16(v - hi)).
-template <bool kHiLo>
-__device__ __forceinline__ void put(bf16* hi, int plane, size_t i, float v) {
-  const bf16 h = __float2bfloat16(v);
-  hi[i] = h;
-  if (kHiLo) hi[plane + i] = __float2bfloat16(v - __bfloat162float(h));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// acc[j] += A[strip rows, :k] @ B[:, cbase + 16 j] for the warp's strip.
-// B is W (k x n, row-major) or, with kTransW, W^T where W is n x k
-// row-major (a col-major B). In hi_lo mode the lo planes of A and W follow
-// their hi planes at `plane` and k * n elements.
-template <bool kHiLo, bool kTransW>
-__device__ __forceinline__ void strip_mma(AccFrag (&acc)[kFrags],
-                                          const bf16* a, int lda, int plane,
-                                          const bf16* __restrict__ w, int k,
-                                          int n, int cbase) {
-  using BLayout =
-      typename std::conditional<kTransW, wmma::col_major, wmma::row_major>::type;
-  const bf16* w_lo = w + static_cast<size_t>(k) * n;
-  const int ldb = kTransW ? k : n;
-  for (int k0 = 0; k0 < k; k0 += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa, fa_lo;
-    wmma::load_matrix_sync(fa, a + k0, lda);
-    if (kHiLo) wmma::load_matrix_sync(fa_lo, a + plane + k0, lda);
-#pragma unroll
-    for (int j = 0; j < kFrags; ++j) {
-      const int col = cbase + 16 * j;
-      if (col < n) {  // warp-uniform
-        const size_t at = kTransW ? static_cast<size_t>(col) * k + k0
-                                  : static_cast<size_t>(k0) * n + col;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> fb;
-        wmma::load_matrix_sync(fb, w + at, ldb);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
-        if (kHiLo) {
-          wmma::mma_sync(acc[j], fa_lo, fb, acc[j]);
-          wmma::load_matrix_sync(fb, w_lo + at, ldb);
-          wmma::mma_sync(acc[j], fa, fb, acc[j]);
-        }
-      }
-    }
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most `pending` (0..2) groups are in flight.
+__device__ __forceinline__ void cp_async_wait_n(int pending) {
+  if (pending <= 0)
+    cp_async_wait<0>();
+  else if (pending == 1)
+    cp_async_wait<1>();
+  else
+    cp_async_wait<2>();
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d += a @ b for one m16n8k16 tile: bf16 operands, fp32 accumulators.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) =
+      __halves2bfloat162(__float2bfloat16(v0), __float2bfloat16(v1));
+}
+
+// A value into a shared-memory buffer and its workspace matrix: bf16, or in
+// hi_lo mode the pair (hi, lo) = (bf16(v), bf16(v - hi)) into two planes.
+template <bool kHiLo>
+__device__ __forceinline__ void put2(bf16* s, int s_plane, bf16* w,
+                                     long long w_plane, float v) {
+  const bf16 h = __float2bfloat16(v);
+  s[0] = h;
+  w[0] = h;
+  if (kHiLo) {
+    const bf16 l = __float2bfloat16(v - __bfloat162float(h));
+    s[s_plane] = l;
+    w[w_plane] = l;
   }
 }
 
-// kHiLo = false: bf16 operands, fp32 accumulation, bf16 values.
-// kHiLo = true (fp32_precision="high"): (hi, lo) bf16 planes, three
-// products per matmul.
+// Phase 1's warps: 4 x 4, each owning 64 columns and 16 * kMT rows of the
+// tile.
 template <bool kHiLo>
-__global__ void __launch_bounds__(kThreads)
-fused_mlp_bwd_kernel(const float* __restrict__ pts,
-                     const void* __restrict__ dirs,
-                     const float* __restrict__ g,
-                     const bf16* __restrict__ weights,
-                     const float* __restrict__ biases,
-                     const int* __restrict__ prog_in, int prog_len, int n,
-                     int n_tiles, bf16* scratch_all, long long scratch_stride,
-                     float* part_all, long long part_stride) {
-  // The scratch and the partials are written and read back by this block:
-  // no __restrict__ / read-only loads on them.
-  __shared__ int prog[kMaxProg];
-  __shared__ __align__(32) float stage_all[kWarps * 256];
+struct Phase1 {
+  static constexpr int kThreads = 512;
+  static constexpr int kMT = kHiLo ? 1 : 2;  // m16 tiles per warp
+  static constexpr int kNT = 8;              // n8 tiles per warp: 64 columns
+  static constexpr int kRows = 4 * 16 * kMT; // points per tile: 128, or 64
+};
+// One thread per 16-byte chunk of a weight slab: 16 rows of up to 32
+// chunks (forward), or up to 256 rows of 2 chunks (dX).
+static_assert(16 * (kMaxN / 8) <= 512 && 2 * kMaxN <= 512,
+              "a slab must take at most one chunk per thread");
+
+template <bool kHiLo>
+__global__ void __launch_bounds__(Phase1<kHiLo>::kThreads, 1)
+bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
+                  const float* __restrict__ g, const bf16* __restrict__ weights,
+                  const float* __restrict__ biases,
+                  const int* __restrict__ prog_in, int prog_len, int n,
+                  int n_tiles, bf16* __restrict__ ws, long long rows_cap) {
+  constexpr int MT = Phase1<kHiLo>::kMT;
+  constexpr int NT = Phase1<kHiLo>::kNT;
+  constexpr int T = Phase1<kHiLo>::kRows;
+  constexpr int kThreads = Phase1<kHiLo>::kThreads;
+  extern __shared__ __align__(128) unsigned char smem[];
+  int* prog = reinterpret_cast<int*>(smem);
   for (int i = threadIdx.x; i < prog_len; i += kThreads) prog[i] = prog_in[i];
   __syncthreads();
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* stage = stage_all + warp * 256;
-  bf16* scratch = scratch_all + blockIdx.x * scratch_stride;
-  float* part = part_all + blockIdx.x * part_stride;
-  const int plane = prog[hPlane];
-  const int* bufs = prog + kHeaderInts;
-  auto buf = [&](int b) { return scratch + bufs[2 * b]; };
-  auto ld = [&](int b) { return bufs[2 * b + 1]; };
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rb = (warp >> 2) * MT * 16;  // the warp's first row
+  const int cb = (warp & 3) * 64;        // ... and first column
+  const int* bufs = prog + kBufsBase;
+  const int* mats = prog + kMatsBase;
+  const int* ops = prog + kOpsBase;
+  const int n_ops = prog[hNOps];
+  const int stages = prog[hStages];
+  const int half = prog[hStageElems];  // a slab's lo plane follows its hi
+  const int stage_elems = half * (kHiLo ? 2 : 1);
+  bf16* ring = reinterpret_cast<bf16*>(smem + prog[hRingOff]);
+  uint32_t* masks = reinterpret_cast<uint32_t*>(smem + prog[hMaskOff]);
+  auto bufp = [&](int b) { return reinterpret_cast<bf16*>(smem + bufs[3 * b]); };
+  auto bld = [&](int b) { return bufs[3 * b + 1]; };
+  auto matp = [&](int m) { return ws + static_cast<long long>(mats[2 * m]) * rows_cap; };
+  auto mcols = [&](int m) { return mats[2 * m + 1]; };
+  auto steps = [&](int oi) {
+    const int* o = ops + oi * kOpInts;
+    return o[fOp] == kLoadG ? 0 : (o[fKA] + o[fKB]) / 16;
+  };
 
-  const int t_begin = static_cast<int>(
-      static_cast<long long>(blockIdx.x) * n_tiles / gridDim.x);
-  const int t_end = static_cast<int>(
-      static_cast<long long>(blockIdx.x + 1) * n_tiles / gridDim.x);
-  for (int t = t_begin; t < t_end; ++t) {
-    const bool first = t == t_begin;
-    const int row0 = t * kRows;
+  // The slab stream: every operation's 16-row k-slabs in program order,
+  // tile after tile. Forward: rows k0..k0+15 of W (k x n), stored
+  // [16][n + kPad]. dX: the same rows of W^T, i.e. columns k0..k0+15 of
+  // every row of W (n x k), stored [n][16] with the two 16-byte halves of a
+  // row swapped every 4 rows, so that ldmatrix meets no bank conflict. A
+  // thread's chunk of an operand's slabs is set up once per operand
+  // (f_operand); fetch() then issues it, one slab further each call, or an
+  // empty group at the end.
+  const bf16* f_src = weights;
+  long long f_lo = 0;
+  int f_dst = -1, f_step = 0, f_op = -1, f_j = 0, f_steps = 0, f_steps_a = 0;
+  auto f_operand = [&](const int* o, bool second) {
+    const int k = second ? o[fKB] : o[fKA], nn = o[fN];
+    const bf16* w = weights + (second ? o[fWB] : o[fWA]);
+    f_lo = static_cast<long long>(k) * nn;
+    if (o[fOp] == kFwd) {
+      const int r = tid >> 5, cc = tid & 31;
+      f_dst = cc < nn / 8 ? r * (nn + kPad) + cc * 8 : -1;
+      f_src = w + r * nn + cc * 8;
+      f_step = 16 * nn;
+    } else {
+      const int r = tid >> 1, h = tid & 1;
+      f_dst = r < nn ? r * 16 + 8 * (h ^ ((r >> 2) & 1)) : -1;
+      f_src = w + static_cast<long long>(r) * k + 8 * h;
+      f_step = 16;
+    }
+  };
+  int per_tile = 0;
+  for (int oi = 0; oi < n_ops; ++oi) per_tile += steps(oi);
+  const int my_tiles = static_cast<int>(blockIdx.x) < n_tiles
+      ? (n_tiles - 1 - static_cast<int>(blockIdx.x)) / static_cast<int>(gridDim.x) + 1
+      : 0;
+  long long f_left = static_cast<long long>(my_tiles) * per_tile;
+  auto fetch = [&](int slot) {
+    if (f_left > 0) {
+      while (f_j >= f_steps) {
+        f_op = f_op + 1 == n_ops ? 0 : f_op + 1;
+        f_j = 0;
+        f_steps = steps(f_op);
+        f_steps_a = ops[f_op * kOpInts + fKA] / 16;
+        if (f_steps) f_operand(ops + f_op * kOpInts, false);
+      }
+      if (f_j == f_steps_a) f_operand(ops + f_op * kOpInts, true);
+      if (f_dst >= 0) {
+        bf16* d = ring + slot * stage_elems + f_dst;
+        cp_async16(d, f_src);
+        if (kHiLo) cp_async16(d + half, f_src + f_lo);
+      }
+      f_src += f_step;
+      ++f_j;
+      --f_left;
+    }
+    cp_async_commit();
+  };
+  for (int s = 0; s < stages - 1; ++s) fetch(s);
+  int consumed = 0;
+
+  float acc[MT][NT][4];
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * T;
 
     // Encoded points: [x, sin(x * 2^0), cos(x * 2^0), sin(x * 2^1), ...],
     // x * 2^l exact in fp32, full-precision sinf/cosf (as the forward).
     {
-      const int xb = prog[hXBuf], ldx = ld(xb), enc_dim = prog[hEncDim];
-      bf16* x = buf(xb);
-      for (int idx = threadIdx.x; idx < kRows * ldx; idx += kThreads) {
-        const int r = idx / ldx, j = idx - r * ldx, gr = row0 + r;
+      const int xb = prog[hXBuf], ldx = bld(xb), xm = prog[hXMat];
+      const int xc = mcols(xm), enc_dim = prog[hEncDim];
+      bf16* xs = bufp(xb);
+      bf16* xw = matp(xm) + static_cast<long long>(row0) * xc;
+      for (int idx = tid; idx < T * xc; idx += kThreads) {
+        const int r = idx / xc, j = idx - r * xc, gr = row0 + r;
         float v = 0.f;
         if (gr < n && j < enc_dim) {
           if (j < 3) {
-            v = pts[3 * static_cast<size_t>(gr) + j];
+            v = pts[3 * static_cast<long long>(gr) + j];
           } else {
             const int l = (j - 3) / 6, m = (j - 3) - 6 * l;
             const float a =
-                pts[3 * static_cast<size_t>(gr) + m % 3] * ldexpf(1.f, l);
+                pts[3 * static_cast<long long>(gr) + m % 3] * ldexpf(1.f, l);
             v = m < 3 ? sinf(a) : cosf(a);
           }
         }
-        put<kHiLo>(x, plane, idx, v);
+        put2<kHiLo>(xs + r * ldx + j, T * ldx, xw + idx, rows_cap * xc, v);
       }
     }
     // Encoded view directions: bf16, or fp32 in hi_lo mode.
     if (prog[hDBuf] >= 0) {
-      const int db = prog[hDBuf], ldd = ld(db), dirs_dim = prog[hDirsDim];
-      bf16* d = buf(db);
-      for (int idx = threadIdx.x; idx < kRows * ldd; idx += kThreads) {
-        const int r = idx / ldd, j = idx - r * ldd, gr = row0 + r;
+      const int db = prog[hDBuf], ldd = bld(db), dm = prog[hDMat];
+      const int dc = mcols(dm), dirs_dim = prog[hDirsDim];
+      bf16* ds = bufp(db);
+      bf16* dw = matp(dm) + static_cast<long long>(row0) * dc;
+      for (int idx = tid; idx < T * dc; idx += kThreads) {
+        const int r = idx / dc, j = idx - r * dc, gr = row0 + r;
         float v = 0.f;
         if (gr < n && j < dirs_dim) {
-          const size_t at = static_cast<size_t>(gr) * dirs_dim + j;
+          const long long at = static_cast<long long>(gr) * dirs_dim + j;
           v = kHiLo ? static_cast<const float*>(dirs)[at]
                     : __bfloat162float(static_cast<const bf16*>(dirs)[at]);
         }
-        put<kHiLo>(d, plane, idx, v);
+        put2<kHiLo>(ds + r * ldd + j, T * ldd, dw + idx, rows_cap * dc, v);
       }
     }
-    // The cotangent, cast to the compute type: its first gr_cols columns
-    // into buffer GR (rgb, or the whole output head), the next into GS
-    // (sigma). Rows at or past n are zero.
-    {
-      const int g_cols = prog[hGCols], gr_cols = prog[hGrCols];
-      for (int which = 0; which < 2; ++which) {
-        const int b = which ? prog[hGsBuf] : prog[hGrBuf];
-        if (b < 0) continue;
-        const int ldg = ld(b), c0 = which ? gr_cols : 0;
-        const int cn = which ? g_cols - gr_cols : gr_cols;
-        bf16* dst = buf(b);
-        for (int idx = threadIdx.x; idx < kRows * ldg; idx += kThreads) {
-          const int r = idx / ldg, j = idx - r * ldg, gr = row0 + r;
-          const float v = (gr < n && j < cn)
-                              ? g[static_cast<size_t>(gr) * g_cols + c0 + j]
-                              : 0.f;
-          put<kHiLo>(dst, plane, idx, v);
-        }
-      }
-    }
-    __syncthreads();
 
-    const int n_ops = prog[hNOps];
     for (int oi = 0; oi < n_ops; ++oi) {
-      const int* o = prog + kOpsBase + oi * kOpInts;
-      const int op = o[fOp], nn = o[fN];
-      if (op == kFwd || op == kDx) {
-        const int groups = (nn + kStrip - 1) / kStrip;
-        const int tasks = (kRows / 16) * groups;
-        for (int task = warp; task < tasks; task += kWarps) {
-          const int r0 = (task / groups) * 16;
-          const int cbase = (task % groups) * kStrip;
-          AccFrag acc[kFrags];
-#pragma unroll
-          for (int j = 0; j < kFrags; ++j) wmma::fill_fragment(acc[j], 0.f);
-          for (int opnd = 0; opnd < 2; ++opnd) {
-            const int k = opnd ? o[fKB] : o[fKA];
-            if (k == 0) continue;
-            const int src = opnd ? o[fSrcB] : o[fSrcA];
-            const bf16* a = buf(src) + static_cast<size_t>(r0) * ld(src);
-            const bf16* w = weights + (opnd ? o[fWB] : o[fWA]);
-            if (op == kFwd)
-              strip_mma<kHiLo, false>(acc, a, ld(src), plane, w, k, nn, cbase);
-            else
-              strip_mma<kHiLo, true>(acc, a, ld(src), plane, w, k, nn, cbase);
+      const int* o = ops + oi * kOpInts;
+      const int op = o[fOp];
+      if (op == kLoadG) {
+        // The cotangent, cast to the compute type: its first gr_cols
+        // columns into GR (rgb, or the whole output head), the rest into
+        // GS (sigma). Rows at or past n are zero. The buffers may overlay
+        // the encoded points, which no later operation of the tile reads.
+        const int g_cols = prog[hGCols], gr_cols = prog[hGrCols];
+        for (int which = 0; which < 2; ++which) {
+          const int b = which ? prog[hGsBuf] : prog[hGrBuf];
+          if (b < 0) continue;
+          const int m = which ? prog[hGsMat] : prog[hGrMat];
+          const int ldg = bld(b), mc = mcols(m);
+          const int c0 = which ? gr_cols : 0;
+          const int cn = which ? g_cols - gr_cols : gr_cols;
+          bf16* gs = bufp(b);
+          bf16* gw = matp(m) + static_cast<long long>(row0) * mc;
+          for (int idx = tid; idx < T * mc; idx += kThreads) {
+            const int r = idx / mc, j = idx - r * mc, gr = row0 + r;
+            const float v =
+                (gr < n && j < cn)
+                    ? g[static_cast<long long>(gr) * g_cols + c0 + j]
+                    : 0.f;
+            put2<kHiLo>(gs + r * ldg + j, T * ldg, gw + idx, rows_cap * mc, v);
           }
-          // Epilogue: forward: fp32 bias, then ReLU; dX: the ReLU mask of
-          // the stored activation. Then the compute type, into dst.
-          const int dst = o[fDst], ldo = ld(dst), flag = o[fFlag];
+        }
+        continue;
+      }
+
 #pragma unroll
-          for (int j = 0; j < kFrags; ++j) {
-            const int col = cbase + 16 * j;
-            if (col >= nn) continue;
-            wmma::store_matrix_sync(stage, acc[j], 16, wmma::mem_row_major);
-            __syncwarp();
-            for (int e = lane; e < 256; e += 32) {
-              const int r = r0 + (e >> 4), c = col + (e & 15);
-              float v = stage[e];
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+      // Per operation: each operand's A rows for this lane, and where the
+      // lane's B fragments sit in a slab (column pair p at + p * b_pair).
+      const int nn = o[fN];
+      const int steps_a = o[fKA] / 16, n_steps = steps(oi);
+      const int lda = bld(o[fSrcA]), ldb = o[fKB] ? bld(o[fSrcB]) : 0;
+      const int a_lane = (rb + (lane & 15)) * lda + (lane >> 4) * 8;
+      const int b_lane = (rb + (lane & 15)) * ldb + (lane >> 4) * 8;
+      const bf16* a_op = bufp(o[fSrcA]) + a_lane;
+      const bf16* b_op = o[fKB] ? bufp(o[fSrcB]) + b_lane : a_op;
+      const bool fwd = op == kFwd;
+      const int b_frag =
+          fwd ? (lane & 15) * (nn + kPad) + cb + (lane >> 4) * 8
+              : (cb + (lane & 7) + ((lane >> 4) << 3)) * 16 +
+                    8 * (((lane >> 3) & 1) ^ ((lane >> 2) & 1));
+      const int b_pair = fwd ? 16 : 256;
+      for (int j = 0; j < n_steps; ++j) {
+        cp_async_wait_n(stages - 2);
+        __syncthreads();  // the slab is in; the oldest slot is free
+        fetch((consumed + stages - 1) % stages);
+        const bf16* slab = ring + (consumed % stages) * stage_elems + b_frag;
+        ++consumed;
+        const bool second = j >= steps_a;
+        const int ld = second ? ldb : lda;
+        const bf16* a_base = second ? b_op + 16 * (j - steps_a) : a_op + 16 * j;
+        uint32_t a[MT][4], al[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          ldsm_x4(a[mt], a_base + mt * 16 * ld);
+          if (kHiLo) ldsm_x4(al[mt], a_base + mt * 16 * ld + T * ld);
+        }
+#pragma unroll
+        for (int p = 0; p < NT / 2; ++p) {
+          if (cb + 16 * p >= nn) continue;  // warp-uniform
+          uint32_t b[4], bl[4];
+          const bf16* q = slab + p * b_pair;
+          if (fwd) {
+            ldsm_x4_t(b, q);
+            if (kHiLo) ldsm_x4_t(bl, q + half);
+          } else {
+            ldsm_x4(b, q);
+            if (kHiLo) ldsm_x4(bl, q + half);
+          }
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma(acc[mt][2 * p], a[mt], b[0], b[1]);
+            mma(acc[mt][2 * p + 1], a[mt], b[2], b[3]);
+            if (kHiLo) {
+              mma(acc[mt][2 * p], al[mt], b[0], b[1]);
+              mma(acc[mt][2 * p + 1], al[mt], b[2], b[3]);
+              mma(acc[mt][2 * p], a[mt], bl[0], bl[1]);
+              mma(acc[mt][2 * p + 1], a[mt], bl[2], bl[3]);
+            }
+          }
+        }
+      }
+
+      // Epilogue. Forward: fp32 bias, then ReLU, recording dst > 0 (of the
+      // rounded value in bf16 mode) into the mask slot. dX: the mask slot
+      // of the stored activation. Then the compute type, into dst. Bit
+      // 4 nt + e of word mt is the thread's accumulator acc[mt][nt][e].
+      {
+        const int dst = o[fDst], ldd = bld(dst);
+        bf16* d = bufp(dst);
+        const int mask_in = o[fMaskIn], mask_out = o[fMaskOut];
+        const float* bias = biases + o[fBias];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const uint32_t bits_in =
+              (op == kDx && mask_in >= 0)
+                  ? masks[(mask_in * MT + mt) * kThreads + tid]
+                  : 0xffffffffu;
+          uint32_t bits_out = 0;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            if (cb + nt * 8 >= nn) continue;
+            const int col = cb + nt * 8 + 2 * (lane & 3);
+            float b0 = 0.f, b1 = 0.f;
+            if (op == kFwd) {
+              b0 = bias[col];
+              b1 = bias[col + 1];
+            }
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int row = rb + mt * 16 + (lane >> 2) + 8 * hh;
+              const int bit = 4 * nt + 2 * hh;
+              float v0 = acc[mt][nt][2 * hh], v1 = acc[mt][nt][2 * hh + 1];
               if (op == kFwd) {
-                v += biases[o[fOff] + c];
-                if (flag) v = fmaxf(v, 0.f);
-              } else if (flag >= 0) {
-                const float m = __bfloat162float(
-                    buf(flag)[static_cast<size_t>(r) * ld(flag) + c]);
-                if (!(m > 0.f)) v = 0.f;
-              }
-              put<kHiLo>(buf(dst), plane, static_cast<size_t>(r) * ldo + c,
-                         v);
-            }
-            __syncwarp();
-          }
-        }
-      } else if (op == kDw) {
-        // P[k, n] += A^T @ dY over the tile's rows; each warp task owns a
-        // 16 x 128 strip of P, loaded once and stored once per tile.
-        const int k = o[fKA], src = o[fSrcA], dy = o[fSrcB];
-        const int lda = ld(src), ldy = ld(dy);
-        const bf16* a = buf(src);
-        const bf16* y = buf(dy);
-        float* p = part + o[fOff];
-        const int groups = (nn + kStrip - 1) / kStrip;
-        const int tasks = (k / 16) * groups;
-        for (int task = warp; task < tasks; task += kWarps) {
-          const int k0 = (task / groups) * 16;
-          const int cbase = (task % groups) * kStrip;
-          AccFrag acc[kFrags];
-#pragma unroll
-          for (int j = 0; j < kFrags; ++j) {
-            const int col = cbase + 16 * j;
-            if (first || col >= nn)
-              wmma::fill_fragment(acc[j], 0.f);
-            else
-              wmma::load_matrix_sync(acc[j], p + static_cast<size_t>(k0) * nn + col,
-                                     nn, wmma::mem_row_major);
-          }
-          for (int t0 = 0; t0 < kRows; t0 += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa, fa_lo;
-            const bf16* at = a + static_cast<size_t>(t0) * lda + k0;
-            wmma::load_matrix_sync(fa, at, lda);
-            if (kHiLo) wmma::load_matrix_sync(fa_lo, at + plane, lda);
-#pragma unroll
-            for (int j = 0; j < kFrags; ++j) {
-              const int col = cbase + 16 * j;
-              if (col < nn) {
-                const bf16* yt = y + static_cast<size_t>(t0) * ldy + col;
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-                wmma::load_matrix_sync(fb, yt, ldy);
-                wmma::mma_sync(acc[j], fa, fb, acc[j]);
-                if (kHiLo) {
-                  wmma::mma_sync(acc[j], fa_lo, fb, acc[j]);
-                  wmma::load_matrix_sync(fb, yt + plane, ldy);
-                  wmma::mma_sync(acc[j], fa, fb, acc[j]);
+                v0 += b0;
+                v1 += b1;
+                if (mask_out >= 0) {
+                  v0 = fmaxf(v0, 0.f);
+                  v1 = fmaxf(v1, 0.f);
                 }
+              } else {
+                if (!((bits_in >> bit) & 1u)) v0 = 0.f;
+                if (!((bits_in >> (bit + 1)) & 1u)) v1 = 0.f;
+              }
+              const bf16 h0 = __float2bfloat16(v0), h1 = __float2bfloat16(v1);
+              bf16* at = d + row * ldd + col;
+              *reinterpret_cast<__nv_bfloat162*>(at) = __halves2bfloat162(h0, h1);
+              if (kHiLo)
+                store2(at + T * ldd, v0 - __bfloat162float(h0),
+                       v1 - __bfloat162float(h1));
+              if (mask_out >= 0) {
+                const bool p0 = kHiLo ? v0 > 0.f : __bfloat162float(h0) > 0.f;
+                const bool p1 = kHiLo ? v1 > 0.f : __bfloat162float(h1) > 0.f;
+                bits_out |= (static_cast<uint32_t>(p0) << bit) |
+                            (static_cast<uint32_t>(p1) << (bit + 1));
               }
             }
           }
-#pragma unroll
-          for (int j = 0; j < kFrags; ++j) {
-            const int col = cbase + 16 * j;
-            if (col < nn)
-              wmma::store_matrix_sync(p + static_cast<size_t>(k0) * nn + col,
-                                      acc[j], nn, wmma::mem_row_major);
-          }
-        }
-      } else {  // kDb: column sums of the rounded cotangent, fp32, in order
-        const int src = o[fSrcA], lds = ld(src);
-        const bf16* y = buf(src);
-        float* p = part + o[fOff];
-        for (int c = threadIdx.x; c < nn; c += kThreads) {
-          float s = 0.f;
-          for (int r = 0; r < kRows; ++r) {
-            const size_t at = static_cast<size_t>(r) * lds + c;
-            float v = __bfloat162float(y[at]);
-            if (kHiLo) v += __bfloat162float(y[plane + at]);
-            s += v;
-          }
-          p[c] = first ? s : p[c] + s;
+          if (mask_out >= 0) masks[(mask_out * MT + mt) * kThreads + tid] = bits_out;
         }
       }
       __syncthreads();
+
+      // The output, 16 B a thread, into its workspace matrix: row r, chunk
+      // cc of thread slot c = 32 r + cc.
+      const int m = o[fMat];
+      if (m >= 0) {
+        const int b = o[fDst], cols = mcols(m), ld = bld(b);
+        const bf16* s = bufp(b);
+        bf16* w = matp(m) + static_cast<long long>(row0) * cols;
+        for (int c = tid; c < 32 * T; c += kThreads) {
+          const int r = c >> 5, cc = c & 31;
+          if (8 * cc >= cols) continue;
+          const long long at = static_cast<long long>(r) * cols + cc * 8;
+          *reinterpret_cast<uint4*>(w + at) =
+              *reinterpret_cast<const uint4*>(s + r * ld + cc * 8);
+          if (kHiLo)
+            *reinterpret_cast<uint4*>(w + rows_cap * cols + at) =
+                *reinterpret_cast<const uint4*>(s + (T + r) * ld + cc * 8);
+        }
+      }
     }
+  }
+  cp_async_wait<0>();
+}
+
+// dW and db partials of one job and one split of the rows.
+template <bool kHiLo>
+__global__ void __launch_bounds__(kThreads)
+bwd_phase2_kernel(const bf16* __restrict__ ws, long long rows_cap,
+                  const int* __restrict__ prog, const int* __restrict__ jobs,
+                  int n_jobs, int rows, int split_rows,
+                  float* __restrict__ part, long long part_stride) {
+  constexpr int kPlane = kStageRows * kLd2;  // one [64][136] tile
+  constexpr int kStage = 2 * kPlane * (kHiLo ? 2 : 1);
+  constexpr int kLo = 2 * kPlane;             // lo planes follow both his
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+
+  const int job = blockIdx.x % n_jobs, split = blockIdx.x / n_jobs;
+  const int* jb = jobs + job * kJobInts;
+  const int* mats = prog + kMatsBase;
+  const int am = jb[jA], ym = jb[jY];
+  const int k0 = jb[jK0], kc = jb[jKc], n0 = jb[jN0], nc = jb[jNc];
+  const int ac = mats[2 * am + 1], yc = mats[2 * ym + 1];
+  const bf16* A = ws + static_cast<long long>(mats[2 * am]) * rows_cap + k0;
+  const bf16* Y = ws + static_cast<long long>(mats[2 * ym]) * rows_cap + n0;
+  const long long a_lo = rows_cap * ac, y_lo = rows_cap * yc;
+  const int r0 = split * split_rows;
+  const int r1 = min(rows, r0 + split_rows);
+  const int n_st = r1 > r0 ? (r1 - r0) / kStageRows : 0;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kb = (warp >> 2) * 64;  // the warp's k rows of the tile
+  const int nb = (warp & 3) * 32;   // ... and its n columns
+
+  // This thread's chunks of a stage: slot c = tid + kThreads i holds row
+  // c / 16 and 16-byte chunk c % 16 of the A and Y tiles.
+  constexpr int kChunks = kStageRows * 16 / kThreads;
+  const int ca = kc / 8, cy = nc / 8;
+  auto load = [&](int st, int slot) {
+    const long long r = r0 + st * kStageRows;
+    bf16* sa = ring + slot * kStage;
+    bf16* sy = sa + kPlane;
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i) {
+      const int c = tid + i * kThreads, rr = c >> 4, cc = c & 15;
+      const int at = rr * kLd2 + cc * 8;
+      if (cc < ca) {
+        const long long src = (r + rr) * ac + cc * 8;
+        cp_async16(sa + at, A + src);
+        if (kHiLo) cp_async16(sa + kLo + at, A + a_lo + src);
+      }
+      if (cc < cy) {
+        const long long src = (r + rr) * yc + cc * 8;
+        cp_async16(sy + at, Y + src);
+        if (kHiLo) cp_async16(sy + kLo + at, Y + y_lo + src);
+      }
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  const bool do_db = jb[jDb] >= 0;
+  const int db_col = tid & 127, db_half = tid >> 7;
+  float db_sum = 0.f;
+
+  for (int s = 0; s < kStages2 - 1; ++s) {
+    if (s < n_st) load(s, s);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_st; ++i) {
+    cp_async_wait<kStages2 - 2>();
+    __syncthreads();
+    if (i + kStages2 - 1 < n_st)
+      load(i + kStages2 - 1, (i + kStages2 - 1) % kStages2);
+    cp_async_commit();
+    const bf16* sa = ring + (i % kStages2) * kStage;
+    const bf16* sy = sa + kPlane;
+#pragma unroll
+    for (int kk = 0; kk < kStageRows; kk += 16) {
+      // A^T: the m16 tile is 16 k-columns of A, its K the 16 rows.
+      uint32_t a[4][4], al[4][4];
+      const bf16* pa = sa + (kk + (lane & 7) + ((lane >> 4) << 3)) * kLd2 +
+                       kb + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        if (kb + 16 * mt < kc) {
+          ldsm_x4_t(a[mt], pa + 16 * mt);
+          if (kHiLo) ldsm_x4_t(al[mt], pa + 16 * mt + kLo);
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int c = nb + 16 * p;
+        if (c >= nc) continue;
+        uint32_t b[4], bl[4];
+        const bf16* q = sy + (kk + (lane & 15)) * kLd2 + c + (lane >> 4) * 8;
+        ldsm_x4_t(b, q);
+        if (kHiLo) ldsm_x4_t(bl, q + kLo);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          if (kb + 16 * mt >= kc) continue;
+          mma(acc[mt][2 * p], a[mt], b[0], b[1]);
+          mma(acc[mt][2 * p + 1], a[mt], b[2], b[3]);
+          if (kHiLo) {
+            mma(acc[mt][2 * p], al[mt], b[0], b[1]);
+            mma(acc[mt][2 * p + 1], al[mt], b[2], b[3]);
+            mma(acc[mt][2 * p], a[mt], bl[0], bl[1]);
+            mma(acc[mt][2 * p + 1], a[mt], bl[2], bl[3]);
+          }
+        }
+      }
+    }
+    if (do_db && db_col < nc) {
+#pragma unroll 4
+      for (int rr = 0; rr < kStageRows / 2; ++rr) {
+        const int at = (kStageRows / 2 * db_half + rr) * kLd2 + db_col;
+        float v = __bfloat162float(sy[at]);
+        if (kHiLo) v += __bfloat162float(sy[kLo + at]);
+        db_sum += v;
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* P = part + static_cast<long long>(split) * part_stride;
+  const int off = jb[jOff], ld = jb[jLd];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    if (kb + 16 * mt >= kc) continue;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      if (nb + 8 * nt >= nc) continue;
+      const int k = k0 + kb + 16 * mt + (lane >> 2);
+      const int c = n0 + nb + 8 * nt + 2 * (lane & 3);
+      float* at = P + off + static_cast<long long>(k) * ld + c;
+      *reinterpret_cast<float2*>(at) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(at + 8LL * ld) =
+          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+  }
+  if (do_db) {
+    __syncthreads();  // the ring is idle: reuse it for the two halves
+    float* halves = reinterpret_cast<float*>(smem);
+    if (db_half) halves[db_col] = db_sum;
+    __syncthreads();
+    if (!db_half && db_col < nc) P[jb[jDb] + n0 + db_col] = db_sum + halves[db_col];
   }
 }
 
-// out[j] = sum over the G partial slots of part[g * stride + j], in slot
-// order: the same bits on every run.
-__global__ void __launch_bounds__(256)
+// out[j] = the sum over `slots` partial rows of part[s * stride + j], added
+// in slot order: the same bits on every run, and those of the plain sum.
+// Blocks of 64 threads, one float4 column each, so that the blocks spread
+// evenly over the SMs.
+constexpr int kReduceThreads = 64;
+__global__ void __launch_bounds__(kReduceThreads)
 reduce_partials_kernel(const float* __restrict__ part, int slots,
                        long long stride, float* __restrict__ out,
                        long long total) {
-  for (long long j = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-       j < total; j += static_cast<long long>(gridDim.x) * blockDim.x) {
-    float s = 0.f;
-    for (int b = 0; b < slots; ++b) s += part[b * stride + j];
-    out[j] = s;
+  const long long n4 = (total + 3) / 4, s4 = stride / 4;
+  const float4* p4 = reinterpret_cast<const float4*>(part);
+  for (long long q = blockIdx.x * static_cast<long long>(kReduceThreads) +
+                     threadIdx.x;
+       q < n4; q += static_cast<long long>(gridDim.x) * kReduceThreads) {
+    float4 s = __ldg(p4 + q);
+    for (int b = 1; b < slots; b += 16) {
+      float4 v[16];
+#pragma unroll
+      for (int u = 0; u < 16; ++u)
+        if (b + u < slots) v[u] = __ldg(p4 + (b + u) * s4 + q);
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        if (b + u < slots) {
+          s.x += v[u].x;
+          s.y += v[u].y;
+          s.z += v[u].z;
+          s.w += v[u].w;
+        }
+      }
+    }
+    const long long j = 4 * q;
+    if (j + 3 < total) {
+      *reinterpret_cast<float4*>(out + j) = s;
+    } else {
+      const float e[4] = {s.x, s.y, s.z, s.w};
+      for (int u = 0; j + u < total; ++u) out[j + u] = e[u];
+    }
   }
 }
 
 template <bool kHiLo>
-cudaError_t launch(const float* pts, const void* dirs, const float* g,
-                   const bf16* weights, const float* biases, const int* prog,
-                   int prog_len, int n, int grid, bf16* scratch,
-                   long long scratch_stride, float* part, long long part_stride,
-                   cudaStream_t stream) {
-  const int n_tiles = (n + kRows - 1) / kRows;
-  fused_mlp_bwd_kernel<kHiLo><<<grid, kThreads, 0, stream>>>(
-      pts, dirs, g, weights, biases, prog, prog_len, n, n_tiles, scratch,
-      scratch_stride, part, part_stride);
+cudaError_t launch_phase1(const float* pts, const void* dirs, const float* g,
+                          const bf16* weights, const float* biases,
+                          const int* prog, int prog_len, int n, int grid,
+                          int smem, bf16* ws, long long rows_cap,
+                          cudaStream_t stream) {
+  const int n_tiles = (n + Phase1<kHiLo>::kRows - 1) / Phase1<kHiLo>::kRows;
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_phase1_kernel<kHiLo>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  bwd_phase1_kernel<kHiLo><<<grid, Phase1<kHiLo>::kThreads, smem, stream>>>(
+      pts, dirs, g, weights, biases, prog, prog_len, n, n_tiles, ws, rows_cap);
+  return cudaGetLastError();
+}
+
+template <bool kHiLo>
+cudaError_t launch_phase2(const bf16* ws, long long rows_cap, const int* prog,
+                          const int* jobs, int n_jobs, int rows, int splits,
+                          int split_rows, float* part, long long part_stride,
+                          cudaStream_t stream) {
+  const int smem = kStages2 * 2 * kStageRows * kLd2 * 2 * (kHiLo ? 2 : 1);
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_phase2_kernel<kHiLo>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  bwd_phase2_kernel<kHiLo><<<n_jobs * splits, kThreads, smem, stream>>>(
+      ws, rows_cap, prog, jobs, n_jobs, rows, split_rows, part, part_stride);
   return cudaGetLastError();
 }
 
@@ -392,9 +758,13 @@ cudaError_t launch(const float* pts, const void* dirs, const float* g,
 
 extern "C" {
 
-// The kernel's fixed shape, for the wrapper to check against its own.
+// The kernels' fixed shape, for the wrapper to check against its own.
 int fused_mlp_bwd_constants(int* out, int len) {
-  const int c[] = {kRows, kThreads, kMaxBufs, kHeaderInts, kOpInts, kMaxOps};
+  const int c[] = {kThreads,   kPad,        kMaxN,      kHeaderInts,
+                   kMaxBufs,   kMaxMats,    kOpInts,    kMaxOps,
+                   kTileK,     kTileN,      kStageRows, kStages2,
+                   kJobInts,   Phase1<false>::kRows,    Phase1<true>::kRows,
+                   Phase1<false>::kThreads};
   const int count = static_cast<int>(sizeof(c) / sizeof(c[0]));
   for (int i = 0; i < len && i < count; ++i) out[i] = c[i];
   return count;
@@ -404,66 +774,72 @@ const char* fused_mlp_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Blocks of the backward kernel that fit on one SM of the current device
-// (at most 2) times its SMs: the persistent grid's size G.
-int fused_mlp_bwd_grid(int hi_lo, int* out) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm,
-        hi_lo ? fused_mlp_bwd_kernel<true> : fused_mlp_bwd_kernel<false>,
-        kThreads, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  per_sm = per_sm < 1 ? 1 : (per_sm > 2 ? 2 : per_sm);
-  *out = per_sm * sms;
-  return static_cast<int>(cudaSuccess);
-}
-
-// pts (n, 3) fp32; dirs (n, dirs_dim) bf16 (fp32 in hi_lo mode) or null;
-// g (n, g_cols) fp32; weights bf16 and biases fp32 as packed for the
-// forward; prog (device, int32): the backward program. scratch: grid *
-// scratch_stride bf16; part: grid * part_stride fp32 (no initialisation
-// needed). Launches on `stream`, does not synchronise, allocates nothing;
-// returns cudaGetLastError().
-int fused_mlp_bwd(const void* pts, const void* dirs, const void* g,
-                  const void* weights, const void* biases, const void* prog,
-                  int prog_len, int hi_lo, int n, int grid, void* scratch,
-                  long long scratch_stride, void* part, long long part_stride,
-                  void* stream) {
-  if (prog_len < kOpsBase || prog_len > kMaxProg ||
-      (prog_len - kOpsBase) % kOpInts != 0 || grid <= 0)
+// Phase 1 for n points. pts (n, 3) fp32; dirs (n, dirs_dim) bf16 (fp32 in
+// hi_lo mode) or null; g (n, g_cols) fp32; weights bf16 and biases fp32 as
+// packed for the forward; prog (device, int32): the program, whose first
+// prog_len ints go to shared memory; smem: the program's shared-memory
+// bytes; ws: the workspace, rows_cap rows per matrix (>= n rounded up to
+// the tile). Launches `grid` persistent blocks on `stream`, does not
+// synchronise, allocates nothing; returns cudaGetLastError().
+int fused_mlp_bwd_phase1(const void* pts, const void* dirs, const void* g,
+                         const void* weights, const void* biases,
+                         const void* prog, int prog_len, int hi_lo, int n,
+                         int grid, int smem, void* ws, long long rows_cap,
+                         void* stream) {
+  const int rows = hi_lo ? Phase1<true>::kRows : Phase1<false>::kRows;
+  if (prog_len < kOpsBase || grid <= 0 ||
+      rows_cap < static_cast<long long>(n + rows - 1) / rows * rows)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaSuccess);
-  // Every block needs a tile: its partial slot is written by its first.
-  if (grid > (n + kRows - 1) / kRows)
-    return static_cast<int>(cudaErrorInvalidValue);
   const auto* p = static_cast<const float*>(pts);
   const auto* gg = static_cast<const float*>(g);
   const auto* w = static_cast<const bf16*>(weights);
   const auto* b = static_cast<const float*>(biases);
   const auto* pr = static_cast<const int*>(prog);
-  auto* sc = static_cast<bf16*>(scratch);
+  auto* wsp = static_cast<bf16*>(ws);
+  auto* s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      hi_lo ? launch_phase1<true>(p, dirs, gg, w, b, pr, prog_len, n, grid,
+                                  smem, wsp, rows_cap, s)
+            : launch_phase1<false>(p, dirs, gg, w, b, pr, prog_len, n, grid,
+                                   smem, wsp, rows_cap, s));
+}
+
+// Phase 2 over the first `rows` rows of the workspace (a multiple of 32):
+// n_jobs jobs (device, int32) x `splits` ranges of split_rows rows (a
+// multiple of 32), each writing its tile into part[split * part_stride +
+// ...] (fp32). Every element of the packed gradient is written once per
+// split.
+int fused_mlp_bwd_phase2(const void* ws, long long rows_cap, const void* prog,
+                         const void* jobs, int n_jobs, int hi_lo, int rows,
+                         int splits, int split_rows, void* part,
+                         long long part_stride, void* stream) {
+  if (n_jobs <= 0 || splits <= 0 || rows % kStageRows ||
+      split_rows % kStageRows || rows > rows_cap ||
+      static_cast<long long>(splits) * split_rows < rows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* w = static_cast<const bf16*>(ws);
+  const auto* pr = static_cast<const int*>(prog);
+  const auto* jb = static_cast<const int*>(jobs);
   auto* pa = static_cast<float*>(part);
   auto* s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      hi_lo ? launch<true>(p, dirs, gg, w, b, pr, prog_len, n, grid, sc,
-                           scratch_stride, pa, part_stride, s)
-            : launch<false>(p, dirs, gg, w, b, pr, prog_len, n, grid, sc,
-                            scratch_stride, pa, part_stride, s));
+      hi_lo ? launch_phase2<true>(w, rows_cap, pr, jb, n_jobs, rows, splits,
+                                  split_rows, pa, part_stride, s)
+            : launch_phase2<false>(w, rows_cap, pr, jb, n_jobs, rows, splits,
+                                   split_rows, pa, part_stride, s));
 }
 
-// out (total,) = the sum of `slots` partial rows of `stride` floats each.
+// out (total,) = the sum of `slots` partial rows of `stride` floats each
+// (stride a multiple of 4, part and out 16-byte aligned).
 int fused_mlp_bwd_reduce(const void* part, int slots, long long stride,
                          void* out, long long total, void* stream) {
-  if (slots <= 0 || total < 0 || stride < total)
+  if (slots <= 0 || total < 0 || stride < total || stride % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   if (total == 0) return static_cast<int>(cudaSuccess);
-  long long blocks = (total + 255) / 256;
-  if (blocks > 4096) blocks = 4096;
-  reduce_partials_kernel<<<static_cast<int>(blocks), 256, 0,
+  long long blocks = ((total + 3) / 4 + kReduceThreads - 1) / kReduceThreads;
+  if (blocks > 65535) blocks = 65535;
+  reduce_partials_kernel<<<static_cast<int>(blocks), kReduceThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(part), slots, stride,
       static_cast<float*>(out), total);

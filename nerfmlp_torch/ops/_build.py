@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[str, ctypes.CDLL] = {}   # by library path
 
 
 def build_dir() -> str:
@@ -55,27 +55,30 @@ def nvcc() -> str:
                        "kernels are built from source at first use")
 
 
-def library_path(name: str) -> str:
-    """Where ``name``'s library lives for the current source and flags."""
-    with open(os.path.join(CSRC, KERNELS[name]), "rb") as f:
+def library_path(name: str, csrc: str = CSRC) -> str:
+    """Where ``name``'s library lives for its source in ``csrc`` and the
+    flags."""
+    with open(os.path.join(csrc, KERNELS[name]), "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
     return os.path.join(build_dir(), f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
-def build(names: Iterable[str] = tuple(KERNELS)) -> Dict[str, str]:
-    """Compile every named kernel that is not built yet, one ``nvcc`` per
-    source, all started together. Returns name -> library path; raises
-    with the compiler's output when a build fails. The compiler's log
-    (``-Xptxas -v``) is kept beside each library as ``<lib>.log``."""
+def build(names: Iterable[str] = tuple(KERNELS),
+          csrc: str = CSRC) -> Dict[str, str]:
+    """Compile every named kernel of ``csrc`` that is not built yet, one
+    ``nvcc`` per source, all started together. Returns name -> library
+    path; raises with the compiler's output when a build fails. The
+    compiler's log (``-Xptxas -v``) is kept beside each library as
+    ``<lib>.log``."""
     os.makedirs(build_dir(), exist_ok=True)
-    paths = {n: library_path(n) for n in names}
+    paths = {n: library_path(n, csrc) for n in names}
     procs = {}
     for name, path in paths.items():
         if os.path.exists(path):
             continue
         tmp = f"{path}.{os.getpid()}.tmp"
         procs[name] = (tmp, subprocess.Popen(
-            [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, KERNELS[name])],
+            [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(csrc, KERNELS[name])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
     failed = []
@@ -92,9 +95,11 @@ def build(names: Iterable[str] = tuple(KERNELS)) -> Dict[str, str]:
     return paths
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The kernel library ``name``, built if needed; loaded once."""
+def load(name: str, csrc: str = CSRC) -> ctypes.CDLL:
+    """The kernel library ``name`` of the sources in ``csrc``, built if
+    needed; loaded once."""
     with _lock:
-        if name not in _loaded:
-            _loaded[name] = ctypes.CDLL(build([name])[name])
-        return _loaded[name]
+        path = build([name], csrc)[name]
+        if path not in _loaded:
+            _loaded[path] = ctypes.CDLL(path)
+        return _loaded[path]

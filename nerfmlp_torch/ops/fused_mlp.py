@@ -6,25 +6,26 @@ Counterpart of ``nerfmlp_tpu/ops/pallas_mlp.py``: ``_flatten_params``
 (:103-141) becomes :func:`pack_params`; ``_encode_tile`` +
 ``_mlp_tile_math`` (:172-246) are the kernel in ``csrc/fused_mlp_fwd.cu``
 and :func:`fused_nerf_mlp_plain`; ``_bwd_kernel`` + ``_trunk_bwd``
-(:312-441) are the kernel in ``csrc/fused_mlp_bwd.cu`` (with its partial-sum
-reduction) and :func:`fused_nerf_mlp_bwd_plain`; the ``_fused_apply``
+(:312-441) are the two phases and the partial-sum reduction in
+``csrc/fused_mlp_bwd.cu`` (:func:`bwd_workspace`, :func:`weight_grads`,
+:func:`reduce_partials`) and :func:`fused_nerf_mlp_bwd_plain`; the ``_fused_apply``
 custom VJP (:530-567) is :class:`FusedMLPFunction`; ``fused_nerf_mlp``
 (:611-689) is :func:`fused_nerf_mlp`. Each CUDA source notes what bounds
 it and how it is built for Hopper.
 
 * :func:`fused_nerf_mlp` runs the forward kernel for CUDA tensors — or
   raises — and the plain version for CPU tensors, under autograd: the
-  backward runs :func:`fused_nerf_mlp_bwd` (kernel + reduction, or the
-  plain backward on the CPU) and returns the ``nn.Linear`` weight and bias
-  gradients; points and dirs get zeros. Nothing falls back from a kernel
-  to a plain version. ``fused_nerf_mlp.launches``,
-  ``fused_nerf_mlp_bwd.launches`` and ``reduce_partials.launches`` count
-  kernel launches.
+  backward runs :func:`fused_nerf_mlp_bwd` (the backward's kernels, or
+  the plain backward on the CPU) and returns the ``nn.Linear`` weight and
+  bias gradients; points and dirs get zeros. Nothing falls back from a
+  kernel to a plain version. Each kernel's wrapper counts its launches:
+  ``fused_nerf_mlp.launches``, ``bwd_workspace.launches``,
+  ``weight_grads.launches`` and ``reduce_partials.launches``.
 * :func:`pack_params` lays a net's weights out for the kernels once
   (transposed to ``(in, out)``, split at the skip and view layers, padded
   to multiples of 16 with zeros, bf16 — (hi, lo) bf16 pairs in the hi_lo
   mode of ``fp32_precision="high"``) together with the forward's layer
-  program and the backward's operation program — at service build, weight
+  program and the backward's program and job list — at service build, weight
   swap and once per train step, never per call.
 * :func:`kernel_fits` and :func:`backward_fits` are the Hopper budgets that
   decide, from the architecture alone, whether a net goes to the kernels
@@ -61,22 +62,38 @@ HEADER_INTS = 22
 LAYER_INTS = 11
 SMEM_LIMIT = 232_448    # dynamic shared memory one Hopper block may use
 
-# The backward kernel's fixed shape (csrc/fused_mlp_bwd.cu).
-BWD_ROWS = 128          # points per tile = rows per dW update
-BWD_THREADS = 256
-BWD_MAX_BUFS = 64
-BWD_HEADER_INTS = 16
-BWD_OP_INTS = 12
-BWD_MAX_OPS = 160
-BWD_OPS_BASE = BWD_HEADER_INTS + 2 * BWD_MAX_BUFS
-# Its static shared memory: the program and eight 16x16 fp32 stages.
-BWD_SMEM = 4 * (BWD_OPS_BASE + BWD_MAX_OPS * BWD_OP_INTS) + 4 * 8 * 256
+# The backward kernels' fixed shape (csrc/fused_mlp_bwd.cu).
+BWD_THREADS = 256      # phase 2 and the reduction
+BWD_P1_THREADS = 512   # phase 1: 16 warps, 4 x 4 over the tile
+BWD_MAX_N = 256         # widest layer phase 1's warp grid covers
+BWD_SLAB_K = 16         # weight rows per ring stage of phase 1
+BWD_HEADER_INTS = 32
+BWD_MAX_BUFS = 8        # shared-memory buffers (offset, ld, cols)
+BWD_MAX_MATS = 64       # workspace matrices (column offset, cols)
+BWD_OP_INTS = 16
+BWD_MAX_OPS = 96
+BWD_MATS_BASE = BWD_HEADER_INTS + 3 * BWD_MAX_BUFS
+BWD_OPS_BASE = BWD_MATS_BASE + 2 * BWD_MAX_MATS
+BWD_TILE_K = 128        # phase 2: dW rows per block
+BWD_TILE_N = 128        # phase 2: dW columns per block
+BWD_STAGE_ROWS = 64     # phase 2: points per ring stage
+BWD_STAGES2 = 3
+BWD_JOB_INTS = 10
+# Phase 1's points per tile: 128, or 64 in hi_lo mode (two bf16 planes).
+BWD_TILE_ROWS = 128
+BWD_TILE_ROWS_HI_LO = 64
+# How a call is cut: at most BWD_CHUNK_ROWS points per phase-1 / phase-2
+# pair (bounds the workspace), and phase 2's rows split in up to
+# BWD_MAX_SPLITS ranges of at least BWD_MIN_SPLIT_ROWS points.
+BWD_CHUNK_ROWS = 131_072
+BWD_MAX_SPLITS = 32
+BWD_MIN_SPLIT_ROWS = 2048
 
 # Shared-memory buffers and epilogues of the forward's layer program.
 _X, _D, _A, _B = 0, 1, 2, 3
 _RELU_BF16, _BF16, _OUT_F32 = 0, 1, 2
-# Operations of the backward's program.
-_FWD, _DX, _DW, _DB = 0, 1, 2, 3
+# Operations of the backward's phase-1 program.
+_FWD, _DX, _LOAD_G = 0, 1, 2
 
 
 def _pad16(n: int) -> int:
@@ -142,49 +159,117 @@ def kernel_fits(mc: ModelConfig, vdirs: bool = True,
     return fits
 
 
+def bwd_tile_rows(hi_lo: bool) -> int:
+    """Phase 1's points per tile."""
+    return BWD_TILE_ROWS_HI_LO if hi_lo else BWD_TILE_ROWS
+
+
+def _bwd_mats(mc: ModelConfig, vdirs: bool) -> List[Tuple[str, int]]:
+    """The workspace matrices phase 1 writes and phase 2 reads, in order:
+    (name, padded width). Every stored activation (encoded points and
+    dirs, each trunk layer, bottleneck, view) and every rounded cotangent
+    (the output's, dv, dbott, each trunk layer's dacc)."""
+    w = _pad16(mc.width)
+    mats = [("x", _pad16(mc.input_ch))]
+    if vdirs:
+        mats.append(("d", _pad16(mc.input_ch_views)))
+    mats += [(f"h{i}", w) for i in range(mc.depth)]
+    if vdirs:
+        bott, view = _pad16(mc.bottleneck_ch), _pad16(mc.view_width)
+        mats += [("bott", bott), ("v", view), ("g_rgb", 16),
+                 ("g_sigma", 16), ("dv", view), ("dbott", bott)]
+    else:
+        mats.append(("g_out", _pad16(mc.output_ch)))
+    return mats + [(f"dacc{i}", w) for i in range(mc.depth - 1, -1, -1)]
+
+
 def backward_counts(mc: ModelConfig, vdirs: bool) -> Tuple[int, int]:
-    """(operations, buffers) of the backward program for an architecture:
-    the recomputed forward layers, the heads' and every trunk layer's db,
-    dW and dX records; the buffers X, D, one per trunk activation, the
-    heads' activations, the cotangent inputs and two cotangent buffers."""
+    """(phase-1 operations, workspace matrices) for an architecture: the
+    recomputed forward layers (the output heads excepted), the load of the
+    cotangent and the dX chain; the matrices of :func:`_bwd_mats`."""
     fwd = mc.depth + (2 if vdirs else 0)
-    heads = 12 if vdirs else 3
-    trunk = sum(2 + (i in mc.skips) + (i > 0) for i in range(mc.depth))
-    bufs = 1 + mc.depth + (7 if vdirs else 3)
-    return fwd + heads + trunk, bufs
+    dx = mc.depth - 1 + (3 if vdirs else 1)
+    return fwd + 1 + dx, len(_bwd_mats(mc, vdirs))
 
 
 def bwd_scratch_bytes(mc: ModelConfig, vdirs: bool,
                       hi_lo: bool = False) -> int:
-    """Device-memory scratch one backward block holds for its tile: every
-    stored activation and cotangent, ``BWD_ROWS`` rows, bf16 (two planes
-    in hi_lo mode)."""
+    """Workspace bytes per point: every matrix of :func:`_bwd_mats`, bf16
+    (two planes in hi_lo mode)."""
+    cols = sum(c for _, c in _bwd_mats(mc, vdirs))
+    return cols * 2 * (2 if hi_lo else 1)
+
+
+def _bwd_smem_layout(mc: ModelConfig, vdirs: bool, hi_lo: bool):
+    """Phase 1's dynamic shared memory, in bytes: the program; the buffers
+    x, d, the two ping-pong activation buffers p0 / p1, and the cotangent's
+    gr / gs laid over x when they fit there (x is dead by then); a mask
+    slot per ReLU layer; the weight ring, with as many 16-row stages (up
+    to 4) as fit. Returns (buffers {name: (offset, ld, cols)}, mask
+    offset, ring offset, elements of a stage's hi slab, stages, total
+    bytes)."""
+    rows = bwd_tile_rows(hi_lo)
+    planes = 2 if hi_lo else 1
+    n_ops, _ = backward_counts(mc, vdirs)
+    off = _align128(4 * (BWD_OPS_BASE + n_ops * BWD_OP_INTS))
+    bufs: Dict[str, Tuple[int, int, int]] = {}
+
+    def size(cols):
+        return _align128(rows * (cols + PAD) * 2 * planes)
+
+    def region(name, cols, at=None):
+        nonlocal off
+        if at is None:
+            at, off = off, off + size(cols)
+        bufs[name] = (at, cols + PAD, cols)
+        return at + size(cols)
+
+    region("x", _pad16(mc.input_ch))
+    if vdirs:
+        region("d", _pad16(mc.input_ch_views))
     hid = _hidden_cols(mc, vdirs)
-    cols = (_pad16(mc.input_ch) + mc.depth * _pad16(mc.width) + 2 * hid
-            + (_pad16(mc.input_ch_views) + _pad16(mc.bottleneck_ch)
-               + _pad16(mc.view_width) + 32 if vdirs
-               else _pad16(mc.output_ch)))
-    return BWD_ROWS * cols * 2 * (2 if hi_lo else 1)
+    region("p0", hid)
+    region("p1", hid)
+    g_cols = (16, 16) if vdirs else (_pad16(mc.output_ch),)
+    over_x = sum(size(c) for c in g_cols) <= size(_pad16(mc.input_ch))
+    at = bufs["x"][0] if over_x else None
+    for name, c in zip(("gr", "gs"), g_cols):
+        end = region(name, c, at)
+        at = end if over_x else None
+    masks = off
+    n_masks = mc.depth + (1 if vdirs else 0)
+    off += _align128(n_masks * rows * BWD_MAX_N // 8)  # one bit a value
+    stage = BWD_SLAB_K * (hid + PAD)
+    stages = min(4, (SMEM_LIMIT - off) // (2 * stage * planes))
+    return bufs, masks, off, stage, stages, off + 2 * stage * planes * stages
+
+
+def bwd_smem_bytes(mc: ModelConfig, vdirs: bool, hi_lo: bool = False) -> int:
+    """Shared memory one phase-1 block needs for this architecture."""
+    return _bwd_smem_layout(mc, vdirs, hi_lo)[-1]
 
 
 @functools.lru_cache(maxsize=None)
 def backward_fits(mc: ModelConfig, vdirs: bool = True,
                   hi_lo: bool = False) -> bool:
-    """Whether the backward kernel takes this architecture. Its shared
-    memory is fixed (the program and the epilogue stages, ``BWD_SMEM``);
-    the stored activations live in a per-block device-memory scratch
-    (:func:`bwd_scratch_bytes`), so what bounds it is the program: at most
-    ``BWD_MAX_OPS`` operations and ``BWD_MAX_BUFS`` buffers. Logged once
-    per architecture and mode."""
-    ops, bufs = backward_counts(mc, vdirs)
-    fits = ops <= BWD_MAX_OPS and bufs <= BWD_MAX_BUFS
+    """Whether the backward kernels take this architecture: phase 1's
+    buffers, masks and at least two weight-ring stages fit one block's
+    shared memory, every layer it writes is at most ``BWD_MAX_N`` wide,
+    and its program and workspace fit the kernel's tables. The workspace,
+    :func:`bwd_scratch_bytes` per point, is bounded by the call's chunk of
+    ``BWD_CHUNK_ROWS`` points. Logged once per architecture and mode."""
+    ops, mats = backward_counts(mc, vdirs)
+    stages, smem = _bwd_smem_layout(mc, vdirs, hi_lo)[-2:]
+    fits = (stages >= 2 and _hidden_cols(mc, vdirs) <= BWD_MAX_N
+            and ops <= BWD_MAX_OPS and mats <= BWD_MAX_MATS)
     log.info(
-        "fused MLP backward budget: depth %d width %d%s%s needs %d "
-        "operations (limit %d), %d buffers (limit %d), %d B of scratch per "
-        "block and %d B of shared memory: %s",
+        "fused MLP backward budget: depth %d width %d%s%s needs %d B of "
+        "shared memory per block (%d weight stages; Hopper limit %d B), "
+        "%d operations (limit %d), %d workspace matrices (limit %d), %d B "
+        "of workspace per point: %s",
         mc.depth, mc.width, " +view head" if vdirs else "",
-        " hi_lo" if hi_lo else "", ops, BWD_MAX_OPS, bufs, BWD_MAX_BUFS,
-        bwd_scratch_bytes(mc, vdirs, hi_lo), BWD_SMEM,
+        " hi_lo" if hi_lo else "", smem, stages, SMEM_LIMIT, ops,
+        BWD_MAX_OPS, mats, BWD_MAX_MATS, bwd_scratch_bytes(mc, vdirs, hi_lo),
         "kernel" if fits else "plain module path",
     )
     return fits
@@ -202,12 +287,16 @@ class PackedMLP:
     blocks, lo right after hi; ``biases``: fp32, each padded to ``n_pad``;
     ``program``: the forward's int32 header + one record per layer (see
     ``fused_mlp_fwd.cu``); ``bwd_program``: the backward's header, buffer
-    table and operations (see ``fused_mlp_bwd.cu``), also on the device as
-    ``bwd_program_dev``. ``grad_blocks`` / ``grad_biases`` say where each
-    parameter's gradient lies in the backward's flat fp32 output:
-    ``(param, in_start, k, n, offset, k_pad, n_pad)`` per weight block and
-    ``(param, offset, n)`` per bias. ``net`` is the module the blocks came
-    from (the plain path and the architecture check read it)."""
+    and matrix tables, phase-1 operations (its first ``bwd_prog_len``
+    ints) and phase 2's ``bwd_jobs`` (see ``fused_mlp_bwd.cu``), also on
+    the device as ``bwd_program_dev``. ``ws_mats``: each workspace
+    matrix's (name, column offset, cols); a workspace of R rows holds
+    ``R * ws_cols`` bf16, matrix m at ``R * offset`` as (planes, R, cols).
+    ``grad_blocks`` / ``grad_biases`` say where each parameter's gradient
+    lies in the backward's flat fp32 output: ``(param, in_start, k, n,
+    offset, k_pad, n_pad)`` per weight block and ``(param, offset, n)``
+    per bias. ``net`` is the module the blocks came from (the plain path
+    and the architecture check read it)."""
 
     net: NeRFMLP
     vdirs: bool
@@ -218,7 +307,11 @@ class PackedMLP:
     out_w: int
     bwd_program: np.ndarray
     bwd_program_dev: torch.Tensor
-    bwd_plane: int
+    bwd_prog_len: int
+    bwd_jobs: np.ndarray
+    bwd_smem: int
+    ws_cols: int
+    ws_mats: Tuple[Tuple[str, int, int], ...]
     grad_total: int
     grad_blocks: Tuple[Tuple, ...]
     grad_biases: Tuple[Tuple, ...]
@@ -350,8 +443,10 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
     for name, off in bias_of.items():
         grad_biases.append((f"{name}.bias", g_off + off,
                             modules[name].out_features))
-    bwd_program, plane = _bwd_program(net, n_freqs, vdirs, hi_lo, out_w,
-                                      blocks, bias_of, g_off)
+    bwd_program, ws_mats = _bwd_program(net, n_freqs, vdirs, hi_lo, out_w,
+                                        blocks, bias_of, g_off)
+    hdr = bwd_program[:BWD_HEADER_INTS]
+    jobs_off, n_jobs = int(hdr[_H_JOBS_OFF]), int(hdr[_H_N_JOBS])
     return PackedMLP(
         net=net, vdirs=vdirs, hi_lo=hi_lo,
         weights=torch.cat(w_parts).contiguous(),
@@ -359,7 +454,10 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
         program=program, out_w=out_w,
         bwd_program=bwd_program,
         bwd_program_dev=_device_program(bwd_program.tobytes(), str(dev)),
-        bwd_plane=plane, grad_total=g_off + b_off,
+        bwd_prog_len=jobs_off,
+        bwd_jobs=bwd_program[jobs_off:].reshape(n_jobs, BWD_JOB_INTS),
+        bwd_smem=int(hdr[_H_SMEM]), ws_cols=int(hdr[_H_WS_COLS]),
+        ws_mats=ws_mats, grad_total=g_off + b_off,
         grad_blocks=tuple(grad_blocks), grad_biases=tuple(grad_biases),
     )
 
@@ -372,125 +470,141 @@ def _device_program(prog: bytes, device: str) -> torch.Tensor:
     return torch.frombuffer(bytearray(prog), dtype=torch.int32).to(device)
 
 
+# The backward program's header fields, in the order of fused_mlp_bwd.cu's
+# `Header` enum.
+_BWD_HEADER = ("n_ops", "prog_len", "n_freqs", "enc_dim", "dirs_dim",
+               "g_cols", "gr_cols", "x_buf", "d_buf", "gr_buf", "gs_buf",
+               "x_mat", "d_mat", "gr_mat", "gs_mat", "stages", "ring_off",
+               "stage_elems", "mask_off", "smem", "ws_cols", "jobs_off",
+               "n_jobs")
+_H_SMEM, _H_WS_COLS, _H_JOBS_OFF, _H_N_JOBS = (
+    _BWD_HEADER.index(k) for k in ("smem", "ws_cols", "jobs_off", "n_jobs"))
+
+
 def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
                  out_w: int, blocks: Dict[str, list], bias_of: Dict[str, int],
-                 db_base: int) -> Tuple[np.ndarray, int]:
-    """The backward kernel's program: header, buffer table, operations —
-    ``_bwd_kernel``/``_trunk_bwd`` (``pallas_mlp.py:312-441``) step by
-    step. ``blocks``: per Linear its (weight offset, k_pad, n_pad, gradient
-    offset) blocks in operand order; ``bias_of``: its bias offset, which is
-    also its gradient's offset after ``db_base``. Returns the program and
-    the buffers' plane size (elements of one block's scratch plane)."""
+                 db_base: int) -> Tuple[np.ndarray, Tuple]:
+    """The backward kernels' program — ``_bwd_kernel``/``_trunk_bwd``
+    (``pallas_mlp.py:312-441``) as phase 1's operations over shared-memory
+    buffers, each writing a workspace matrix, and phase 2's jobs over
+    those matrices. ``blocks``: per Linear its (weight offset, k_pad,
+    n_pad, gradient offset) blocks in operand order; ``bias_of``: its bias
+    offset, which is also its gradient's offset after ``db_base``. Returns
+    the program (header, buffer table, matrix table, operations, jobs) and
+    the matrices' (name, column offset, cols)."""
     mc = net.cfg
     depth = mc.depth
-    cols: List[int] = []
-
-    def buf(c: int) -> int:
-        cols.append(c)
-        return len(cols) - 1
-
-    x = buf(_pad16(3 + 6 * n_freqs))
-    d = buf(_pad16(mc.input_ch_views)) if vdirs else -1
-    hs = [buf(_pad16(mc.width)) for _ in range(depth)]
-    hid = _hidden_cols(mc, vdirs)
-    c0, c1 = buf(hid), buf(hid)
+    bufs, mask_off, ring_off, stage, stages, smem = _bwd_smem_layout(
+        mc, vdirs, hi_lo)
+    buf = {name: i for i, name in enumerate(bufs)}
+    names = _bwd_mats(mc, vdirs)
+    mat = {name: i for i, (name, _) in enumerate(names)}
+    x, p = buf["x"], (buf["p0"], buf["p1"])
     ops: List[List[int]] = []
 
-    def op(kind, a=-1, wa=0, ka=0, b=-1, wb=0, kb=0, off=0, n=0, flag=0,
-           dst=-1):
-        ops.append([kind, a, wa, ka, b, wb, kb, off, n, flag, dst, 0])
+    def op(kind, a=-1, wa=0, ka=0, b=-1, wb=0, kb=0, bias=0, n=0,
+           mask_in=-1, dst=-1, m=-1, mask_out=-1):
+        ops.append([kind, a, wa, ka, b, wb, kb, bias, n, mask_in, dst, m,
+                    mask_out, 0, 0, 0])
 
-    def fwd(name, srcs, dst, relu):
+    def fwd(name, srcs, dst, m, mask_out=-1):
+        """dst = act(sum of src @ W + bias); ReLU when it records a mask."""
         blk = blocks[name]
         wa, ka, na, _ = blk[0]
         wb, kb = (blk[1][0], blk[1][1]) if len(blk) > 1 else (0, 0)
         op(_FWD, srcs[0], wa, ka, srcs[1] if len(srcs) > 1 else -1, wb, kb,
-           bias_of[name], na, int(relu), dst)
+           bias_of[name], na, dst=dst, m=mat[m], mask_out=mask_out)
 
-    def dw(name, part, act, dy):
-        w, k, n, goff = blocks[name][part]
-        op(_DW, act, 0, k, dy, off=goff, n=n)
-
-    def db(name, dy):
-        op(_DB, dy, off=db_base + bias_of[name],
-           n=blocks[name][0][2])
-
-    def dx(srcs, dst, mask):
+    def dx(srcs, dst, m, mask_in=-1):
         """dst = mask(sum of src @ W^T) for (src, name, part) operands."""
         (sa, na, pa) = srcs[0]
         wa, ka_rows, ka_cols, _ = blocks[na][pa]
-        rec = dict(a=sa, wa=wa, ka=ka_cols, n=ka_rows, flag=mask, dst=dst)
+        rec = dict(a=sa, wa=wa, ka=ka_cols, n=ka_rows, mask_in=mask_in,
+                   dst=dst, m=mat[m])
         if len(srcs) > 1:
             sb, nb, pb = srcs[1]
             rec.update(b=sb, wb=blocks[nb][pb][0], kb=blocks[nb][pb][2])
         op(_DX, **rec)
 
+    # Recompute the forward (mask slot i: h_i > 0), load the cotangent,
+    # walk the dX chain; h_i is in p[i % 2].
     trunk = [f"pts_linears.{i}" for i in range(depth)]
-    # Recompute the forward: every activation the backward reads.
     for i, name in enumerate(trunk):
-        a = x if i == 0 else hs[i - 1]
-        fwd(name, (x, a) if i in mc.skips else (a,), hs[i], True)
-    h_last = hs[-1]
+        a = x if i == 0 else p[(i - 1) % 2]
+        fwd(name, (x, a) if i in mc.skips else (a,), p[i % 2], f"h{i}", i)
+    last, other = p[(depth - 1) % 2], p[depth % 2]
     if vdirs:
-        bott = buf(_pad16(mc.bottleneck_ch))
-        v = buf(_pad16(mc.view_width))
-        gr, gs = buf(16), buf(16)
-        fwd("bottleneck_linear", (h_last,), bott, False)
-        fwd("view_linear", (bott, d), v, True)
-        # rgb head, view layer (dv masked by v > 0), bottleneck, sigma.
-        db("rgb_linear", gr)
-        dw("rgb_linear", 0, v, gr)
-        dx([(gr, "rgb_linear", 0)], c0, v)
-        db("view_linear", c0)
-        dw("view_linear", 0, bott, c0)
-        dw("view_linear", 1, d, c0)
-        dx([(c0, "view_linear", 0)], c1, -1)
-        db("bottleneck_linear", c1)
-        dw("bottleneck_linear", 0, h_last, c1)
-        db("sigma_linear", gs)
-        dw("sigma_linear", 0, h_last, gs)
-        # dh = dbott @ Wb^T + g_sigma @ Ws^T, then the last layer's mask.
-        dx([(c1, "bottleneck_linear", 0), (gs, "sigma_linear", 0)], c0,
-           h_last)
+        fwd("bottleneck_linear", (last,), other, "bott")
+        fwd("view_linear", (other, buf["d"]), last, "v", depth)
+        op(_LOAD_G)
+        # rgb head, view layer (dv masked by v > 0), bottleneck, then
+        # dh = dbott @ Wb^T + g_sigma @ Ws^T and the last layer's mask.
+        dx([(buf["gr"], "rgb_linear", 0)], other, "dv", depth)
+        dx([(other, "view_linear", 0)], last, "dbott")
+        dx([(last, "bottleneck_linear", 0), (buf["gs"], "sigma_linear", 0)],
+           other, f"dacc{depth - 1}", depth - 1)
         gr_cols = 3
     else:
-        gr, gs = buf(_pad16(out_w)), -1
-        db("output_linear", gr)
-        dw("output_linear", 0, h_last, gr)
-        dx([(gr, "output_linear", 0)], c0, h_last)
+        op(_LOAD_G)
+        dx([(buf["gr"], "output_linear", 0)], other, f"dacc{depth - 1}",
+           depth - 1)
         gr_cols = out_w
-    cur = c0
-    for i in range(depth - 1, -1, -1):
-        name = trunk[i]
-        a = x if i == 0 else hs[i - 1]
-        db(name, cur)
-        if i in mc.skips:
-            dw(name, 0, x, cur)
-            dw(name, 1, a, cur)
-        else:
-            dw(name, 0, a, cur)
-        if i > 0:  # the skip's d(enc) branch is dropped
-            nxt = c1 if cur == c0 else c0
-            dx([(cur, name, len(blocks[name]) - 1)], nxt, hs[i - 1])
-            cur = nxt
+    cur = other
+    for i in range(depth - 1, 0, -1):  # the skip's d(enc) branch is dropped
+        nxt = p[0] if cur == p[1] else p[1]
+        dx([(cur, trunk[i], len(blocks[trunk[i]]) - 1)], nxt,
+           f"dacc{i - 1}", i - 1)
+        cur = nxt
 
-    offs, plane = [], 0
-    for c in cols:
-        offs.append(plane)
-        plane += _align128(BWD_ROWS * c)
-    table = [0] * (2 * BWD_MAX_BUFS)
-    for i, (o, c) in enumerate(zip(offs, cols)):
-        table[2 * i: 2 * i + 2] = [o, c]
-    header = [len(ops), len(cols), n_freqs, 3 + 6 * n_freqs,
-              mc.input_ch_views if vdirs else 0, int(hi_lo), x, d,
-              out_w, gr, gr_cols, gs, plane, 0, 0, 0]
-    prog = np.asarray(header + table + [v for rec in ops for v in rec],
-                      dtype=np.int32)
-    if len(ops) > BWD_MAX_OPS or len(cols) > BWD_MAX_BUFS:
-        raise ValueError(f"backward program of {len(ops)} operations and "
-                         f"{len(cols)} buffers exceeds the kernel's "
-                         f"{BWD_MAX_OPS} / {BWD_MAX_BUFS}")
-    return prog, plane
+    # Phase 2: dW = A^T dY per weight block, in tiles; db with the first
+    # k-tile of each layer's first block. Largest blocks first.
+    wblocks = [(f"h{depth - 1}", "g_out", "output_linear", 0)]
+    if vdirs:
+        wblocks = [("v", "g_rgb", "rgb_linear", 0),
+                   ("bott", "dv", "view_linear", 0),
+                   ("d", "dv", "view_linear", 1),
+                   (f"h{depth - 1}", "dbott", "bottleneck_linear", 0),
+                   (f"h{depth - 1}", "g_sigma", "sigma_linear", 0)]
+    for i, name in enumerate(trunk):
+        a = "x" if i == 0 else f"h{i - 1}"
+        parts = [("x", 0), (a, 1)] if i in mc.skips else [(a, 0)]
+        wblocks += [(am, f"dacc{i}", name, pt) for am, pt in parts]
+    wblocks.sort(key=lambda b: -blocks[b[2]][b[3]][1] * blocks[b[2]][b[3]][2])
+    jobs = []
+    for am, ym, name, pt in wblocks:
+        _, kp, np_, goff = blocks[name][pt]
+        for k0 in range(0, kp, BWD_TILE_K):
+            for n0 in range(0, np_, BWD_TILE_N):
+                db = db_base + bias_of[name] if pt == 0 and k0 == 0 else -1
+                jobs.append([mat[am], k0, min(BWD_TILE_K, kp - k0), mat[ym],
+                             n0, min(BWD_TILE_N, np_ - n0), goff, np_, db, 0])
+
+    buf_table = [0] * (3 * BWD_MAX_BUFS)
+    for i, rec in enumerate(bufs.values()):
+        buf_table[3 * i: 3 * i + 3] = rec
+    mat_table, ws_mats, col = [0] * (2 * BWD_MAX_MATS), [], 0
+    for i, (name, c) in enumerate(names):
+        mat_table[2 * i: 2 * i + 2] = [col, c]
+        ws_mats.append((name, col, c))
+        col += c * (2 if hi_lo else 1)
+    prog_len = BWD_OPS_BASE + BWD_OP_INTS * len(ops)
+    header = dict(
+        n_ops=len(ops), prog_len=prog_len, n_freqs=n_freqs,
+        enc_dim=3 + 6 * n_freqs,
+        dirs_dim=mc.input_ch_views if vdirs else 0, g_cols=out_w,
+        gr_cols=gr_cols, x_buf=x, d_buf=buf.get("d", -1), gr_buf=buf["gr"],
+        gs_buf=buf.get("gs", -1), x_mat=mat["x"], d_mat=mat.get("d", -1),
+        gr_mat=mat["g_rgb" if vdirs else "g_out"],
+        gs_mat=mat.get("g_sigma", -1), stages=stages, ring_off=ring_off,
+        stage_elems=stage, mask_off=mask_off, smem=smem, ws_cols=col,
+        jobs_off=prog_len, n_jobs=len(jobs))
+    head = [header[k] for k in _BWD_HEADER]
+    head += [0] * (BWD_HEADER_INTS - len(head))
+    prog = np.asarray(head + buf_table + mat_table
+                      + [v for rec in ops + jobs for v in rec], np.int32)
+    if len(ops) != backward_counts(mc, vdirs)[0] or len(ops) > BWD_MAX_OPS:
+        raise ValueError(f"backward program of {len(ops)} operations")
+    return prog, tuple(ws_mats)
 
 
 # --------------------------------------------------------------------- #
@@ -652,6 +766,123 @@ def reduce_partials_plain(part: torch.Tensor, total: int) -> torch.Tensor:
     return out
 
 
+def _bwd_terms(net: NeRFMLP, pts, dirs, g, n_freqs: int, dt,
+               hi_lo: bool) -> Dict[str, torch.Tensor]:
+    """Every value the backward stores, by workspace matrix name (see
+    :func:`_bwd_mats`): the forward's residuals and the rounded cotangents
+    of :func:`fused_nerf_mlp_bwd_plain`, at its rounding points."""
+    mc = net.cfg
+
+    def rnd(t):
+        return t.to(dt).float()
+
+    def back(gg, w):  # gg @ W for an (out, in) weight: the dX product
+        if hi_lo:
+            g_hi, g_lo = _split_bf16(gg)
+            w_hi, w_lo = _split_bf16(w.float())
+            return g_hi @ w_hi + g_hi @ w_lo + g_lo @ w_hi
+        return gg @ rnd(w.float())
+
+    with torch.no_grad():
+        _, (x, d, hs, bott, v) = _plain_forward(net, pts, dirs, n_freqs, dt,
+                                                hi_lo)
+        terms = {"x": x, **{f"h{i}": h for i, h in enumerate(hs)}}
+        g = g.float()
+        if dirs is None:
+            terms["g_out"] = rnd(g)
+            dh = rnd(back(terms["g_out"], net.output_linear.weight))
+        else:
+            g_rgb, g_sigma = rnd(g[:, 0:3]), rnd(g[:, 3:4])
+            dv = back(g_rgb, net.rgb_linear.weight)
+            dv = rnd(torch.where(v > 0, dv, torch.zeros_like(dv)))
+            dbott = rnd(back(dv, net.view_linear.weight[:, :mc.bottleneck_ch]))
+            dh = rnd(back(dbott, net.bottleneck_linear.weight)
+                     + back(g_sigma, net.sigma_linear.weight))
+            terms.update(d=d, bott=bott, v=v, g_rgb=g_rgb, g_sigma=g_sigma,
+                         dv=dv, dbott=dbott)
+        enc = x.shape[-1]
+        for i in range(mc.depth - 1, -1, -1):
+            dacc = rnd(torch.where(hs[i] > 0, dh, torch.zeros_like(dh)))
+            terms[f"dacc{i}"] = dacc
+            if i > 0:
+                w = net.pts_linears[i].weight
+                dh = rnd(back(dacc, w[:, enc:] if i in mc.skips else w))
+    return terms
+
+
+def ws_matrix(packed: PackedMLP, ws: torch.Tensor, m: int) -> torch.Tensor:
+    """Workspace matrix ``m`` of a flat workspace: (planes, rows, cols)."""
+    rows = ws.numel() // packed.ws_cols
+    _, off, cols = packed.ws_mats[m]
+    planes = 2 if packed.hi_lo else 1
+    return ws[rows * off: rows * (off + planes * cols)].view(planes, rows,
+                                                               cols)
+
+
+def bwd_workspace_plain(packed: PackedMLP, pts: torch.Tensor,
+                        dirs: Optional[torch.Tensor], g: torch.Tensor,
+                        rows: int) -> torch.Tensor:
+    """What phase 1 computes, from the function's definition: the flat
+    workspace of ``rows`` rows holding every stored activation and rounded
+    cotangent of the n points (bf16; in hi_lo mode the (hi, lo) planes of
+    the fp32 value), rows n and on zero."""
+    hi_lo = packed.hi_lo
+    dt = torch.float32 if hi_lo else torch.bfloat16
+    n_freqs = int(packed.bwd_program[_BWD_HEADER.index("n_freqs")])
+    terms = _bwd_terms(packed.net, pts, dirs, g, n_freqs, dt, hi_lo)
+    ws = torch.zeros(rows * packed.ws_cols, device=pts.device,
+                     dtype=torch.bfloat16)
+    n = pts.shape[0]
+    for m, (name, _, _) in enumerate(packed.ws_mats):
+        t = terms[name]
+        mat = ws_matrix(packed, ws, m)
+        hi = t.to(torch.bfloat16)
+        mat[0, :n, :t.shape[1]] = hi
+        if hi_lo:
+            mat[1, :n, :t.shape[1]] = (t - hi.float()).to(torch.bfloat16)
+    return ws
+
+
+def bwd_splits(rows: int) -> Tuple[int, int]:
+    """(splits, rows per split) of phase 2 over ``rows`` points, a multiple
+    of ``BWD_STAGE_ROWS``: up to ``BWD_MAX_SPLITS`` ranges of at least
+    ``BWD_MIN_SPLIT_ROWS`` points, each a whole number of stages."""
+    want = max(1, min(BWD_MAX_SPLITS, rows // BWD_MIN_SPLIT_ROWS))
+    per = -(-rows // (want * BWD_STAGE_ROWS)) * BWD_STAGE_ROWS
+    return -(-rows // per), per
+
+
+def part_stride(total: int) -> int:
+    """Floats per partial slot: the gradient, rounded up to 64."""
+    return -(-total // 64) * 64
+
+
+def weight_grads_plain(packed: PackedMLP, ws: torch.Tensor, rows: int,
+                       split_rows: int) -> torch.Tensor:
+    """What phase 2 computes: for each split of the workspace's first
+    ``rows`` rows into ranges of ``split_rows``, one (splits, stride) fp32
+    partial slot with every job's dW tile (A^T dY over the range; in hi_lo
+    mode hi*hi + lo*hi + hi*lo) and its db (dY's column sums)."""
+    splits = -(-rows // split_rows)
+    part = torch.zeros((splits, part_stride(packed.grad_total)),
+                       device=ws.device)
+    mats = [ws_matrix(packed, ws, m).float()
+            for m in range(len(packed.ws_mats))]
+    for am, k0, kc, ym, n0, nc, off, ld, db, _ in packed.bwd_jobs.tolist():
+        for s in range(splits):
+            r0, r1 = s * split_rows, min(rows, (s + 1) * split_rows)
+            a = mats[am][:, r0:r1, k0:k0 + kc]
+            y = mats[ym][:, r0:r1, n0:n0 + nc]
+            prod = a[0].t() @ y[0]
+            if packed.hi_lo:
+                prod = prod + a[1].t() @ y[0] + a[0].t() @ y[1]
+            tile = part[s, off + k0 * ld: off + (k0 + kc) * ld].view(kc, ld)
+            tile[:, n0:n0 + nc] = prod
+            if db >= 0:
+                part[s, db + n0: db + n0 + nc] = y.sum(0).sum(0)
+    return part
+
+
 # --------------------------------------------------------------------- #
 # The kernels and their wrappers
 # --------------------------------------------------------------------- #
@@ -681,24 +912,27 @@ def _kernel():
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_kernel():
-    """The backward's library (kernel + reduction), declared and checked."""
-    lib = _build.load("fused_mlp_bwd")
+def _bwd_kernel(csrc: str = _build.CSRC):
+    """The backward's library (both phases + reduction) built from the
+    sources in ``csrc``, declared and checked."""
+    lib = _build.load("fused_mlp_bwd", csrc)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fused_mlp_bwd.argtypes = [vp] * 6 + [i32, i32, i32, i32, vp, i64,
-                                             vp, i64, vp]
-    lib.fused_mlp_bwd.restype = i32
+    lib.fused_mlp_bwd_phase1.argtypes = [vp] * 6 + [i32] * 5 + [vp, i64, vp]
+    lib.fused_mlp_bwd_phase1.restype = i32
+    lib.fused_mlp_bwd_phase2.argtypes = [vp, i64, vp, vp] + [i32] * 5 + [
+        vp, i64, vp]
+    lib.fused_mlp_bwd_phase2.restype = i32
     lib.fused_mlp_bwd_reduce.argtypes = [vp, i32, i64, vp, i64, vp]
     lib.fused_mlp_bwd_reduce.restype = i32
-    lib.fused_mlp_bwd_grid.argtypes = [i32, ctypes.POINTER(i32)]
-    lib.fused_mlp_bwd_grid.restype = i32
     lib.fused_mlp_bwd_error_string.argtypes = [i32]
     lib.fused_mlp_bwd_error_string.restype = ctypes.c_char_p
     lib.fused_mlp_bwd_constants.argtypes = [ctypes.POINTER(i32), i32]
-    consts = (i32 * 6)()
-    lib.fused_mlp_bwd_constants(consts, 6)
-    want = [BWD_ROWS, BWD_THREADS, BWD_MAX_BUFS, BWD_HEADER_INTS,
-            BWD_OP_INTS, BWD_MAX_OPS]
+    want = [BWD_THREADS, PAD, BWD_MAX_N, BWD_HEADER_INTS, BWD_MAX_BUFS,
+            BWD_MAX_MATS, BWD_OP_INTS, BWD_MAX_OPS, BWD_TILE_K, BWD_TILE_N,
+            BWD_STAGE_ROWS, BWD_STAGES2, BWD_JOB_INTS, BWD_TILE_ROWS,
+            BWD_TILE_ROWS_HI_LO, BWD_P1_THREADS]
+    consts = (i32 * len(want))()
+    lib.fused_mlp_bwd_constants(consts, len(want))
     if list(consts) != want:
         raise RuntimeError(f"fused_mlp_bwd.cu constants {list(consts)} "
                            f"differ from the wrapper's {want}")
@@ -712,15 +946,8 @@ def _bwd_error(lib, what: str, rc: int):
 
 
 @functools.lru_cache(maxsize=None)
-def bwd_grid(hi_lo: bool, device_index: int) -> int:
-    """The backward's persistent grid G on a device: the blocks that fit
-    at once (at most two per SM)."""
-    lib = _bwd_kernel()
-    out = ctypes.c_int()
-    with torch.cuda.device(device_index):
-        _bwd_error(lib, "fused_mlp_bwd_grid",
-                   lib.fused_mlp_bwd_grid(int(hi_lo), ctypes.byref(out)))
-    return out.value
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _check_operands(packed: PackedMLP, pts, dirs):
@@ -776,18 +1003,19 @@ def _launch(packed: PackedMLP, pts: torch.Tensor,
 
 
 def reduce_partials(part: torch.Tensor, total: int) -> torch.Tensor:
-    """Sum the rows of a (G, stride) fp32 partial-gradient array in row
+    """Sum the rows of a (slots, stride) fp32 partial-gradient array in row
     order -> (total,): the reduction kernel for a CUDA tensor (or raise),
-    :func:`reduce_partials_plain` for a CPU one. Bit-identical run to run.
-    ``reduce_partials.launches`` counts kernel launches."""
+    :func:`reduce_partials_plain` for a CPU one. Bit-identical run to run
+    and to the plain sum. ``reduce_partials.launches`` counts kernel
+    launches."""
     if part.device.type == "cpu":
         return reduce_partials_plain(part, total)
     if (part.dtype != torch.float32 or part.dim() != 2
             or not part.is_contiguous() or part.shape[1] < total
-            or part.data_ptr() % 16):
-        raise ValueError(f"partials must be a contiguous (G, >= {total}) "
-                         f"float32 array, got {tuple(part.shape)} "
-                         f"{part.dtype}")
+            or part.shape[1] % 4 or part.data_ptr() % 16):
+        raise ValueError(f"partials must be a contiguous (slots, >= {total}) "
+                         f"float32 array, rows a multiple of 4, got "
+                         f"{tuple(part.shape)} {part.dtype}")
     lib = _bwd_kernel()
     out = torch.empty(total, device=part.device, dtype=torch.float32)
     with torch.cuda.device(part.device):
@@ -800,41 +1028,113 @@ def reduce_partials(part: torch.Tensor, total: int) -> torch.Tensor:
     return out
 
 
-def _launch_bwd(packed: PackedMLP, pts: torch.Tensor,
-                dirs: Optional[torch.Tensor],
-                g: torch.Tensor) -> torch.Tensor:
-    """The backward kernel and its reduction: the flat fp32 gradient
-    (``packed.grad_total``) in the packed blocks' layout."""
+def _check_ws(packed: PackedMLP, ws: torch.Tensor, rows: int, dev) -> int:
+    """The workspace's rows per matrix, after checking it holds ``rows``."""
+    cap = ws.numel() // packed.ws_cols
+    if (ws.dtype != torch.bfloat16 or ws.dim() != 1 or not ws.is_contiguous()
+            or ws.device != dev or cap < rows
+            or ws.numel() != cap * packed.ws_cols or ws.data_ptr() % 16):
+        raise ValueError(f"the workspace must be a contiguous bf16 vector of "
+                         f">= {rows} x {packed.ws_cols} on {dev}")
+    return cap
+
+
+def bwd_workspace(packed: PackedMLP, pts: torch.Tensor,
+                  dirs: Optional[torch.Tensor], g: torch.Tensor,
+                  ws: torch.Tensor) -> torch.Tensor:
+    """Phase 1 for n points: recompute the forward, walk the dX chain and
+    fill the flat workspace ``ws`` (at least n, rounded up to
+    :func:`bwd_tile_rows`, rows per matrix). The kernel for CUDA tensors
+    (or raise), :func:`bwd_workspace_plain` for CPU ones.
+    ``bwd_workspace.launches`` counts kernel launches."""
     pts, dirs = _check_operands(packed, pts, dirs)
-    n = pts.shape[0]
-    dev = pts.device
+    n, dev = pts.shape[0], pts.device
     if g.shape != (n, packed.out_w) or g.device != dev:
         raise ValueError(f"the cotangent must be ({n}, {packed.out_w}) on "
                          f"{dev}, got {tuple(g.shape)} on {g.device}")
     g = g.to(torch.float32).contiguous()
-    total = packed.grad_total
+    tile = bwd_tile_rows(packed.hi_lo)
+    cap = _check_ws(packed, ws, -(-n // tile) * tile, dev)
+    if dev.type == "cpu":
+        return ws.copy_(bwd_workspace_plain(packed, pts, dirs, g, cap))
     if n == 0:
-        return torch.zeros(total, device=dev, dtype=torch.float32)
+        return ws
     lib = _bwd_kernel()
-    tiles = -(-n // BWD_ROWS)
-    grid = min(tiles, bwd_grid(packed.hi_lo, dev.index
-                               if dev.index is not None
-                               else torch.cuda.current_device()))
-    scratch_stride = packed.bwd_plane * (2 if packed.hi_lo else 1)
-    part_stride = -(-total // 64) * 64
-    scratch = torch.empty(grid * scratch_stride, device=dev,
-                          dtype=torch.bfloat16)
-    part = torch.empty((grid, part_stride), device=dev, dtype=torch.float32)
     prog = packed.bwd_program_dev
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _bwd_error(lib, "fused_mlp_bwd launch", lib.fused_mlp_bwd(
+        _bwd_error(lib, "fused_mlp_bwd_phase1 launch", lib.fused_mlp_bwd_phase1(
             pts.data_ptr(), dirs.data_ptr() if dirs is not None else None,
             g.data_ptr(), packed.weights.data_ptr(),
-            packed.biases.data_ptr(), prog.data_ptr(), prog.numel(),
-            int(packed.hi_lo), n, grid, scratch.data_ptr(), scratch_stride,
-            part.data_ptr(), part_stride, stream))
-    fused_nerf_mlp_bwd.launches += 1
+            packed.biases.data_ptr(), prog.data_ptr(), packed.bwd_prog_len,
+            int(packed.hi_lo), n, min(-(-n // tile), _sm_count(index)),
+            packed.bwd_smem, ws.data_ptr(), cap, stream))
+    bwd_workspace.launches += 1
+    return ws
+
+
+def weight_grads(packed: PackedMLP, ws: torch.Tensor, rows: int,
+                 split_rows: int, part: torch.Tensor) -> torch.Tensor:
+    """Phase 2: every weight and bias gradient of the workspace's first
+    ``rows`` rows (a multiple of ``BWD_STAGE_ROWS``), one fp32 partial slot
+    per range of ``split_rows`` rows, into ``part`` (splits, stride). The
+    kernel for CUDA tensors (or raise), :func:`weight_grads_plain` for CPU
+    ones. ``weight_grads.launches`` counts kernel launches."""
+    splits = -(-rows // split_rows)
+    stride = part_stride(packed.grad_total)
+    if (part.shape != (splits, stride) or part.dtype != torch.float32
+            or not part.is_contiguous() or part.device != ws.device
+            or rows % BWD_STAGE_ROWS or split_rows % BWD_STAGE_ROWS):
+        raise ValueError(f"partials must be a contiguous ({splits}, {stride}) "
+                         f"float32 array beside the workspace; rows and "
+                         f"split_rows multiples of {BWD_STAGE_ROWS}")
+    cap = _check_ws(packed, ws, rows, ws.device)
+    if ws.device.type == "cpu":
+        return part.copy_(weight_grads_plain(packed, ws, rows, split_rows))
+    lib = _bwd_kernel()
+    prog = packed.bwd_program_dev
+    with torch.cuda.device(ws.device):
+        stream = torch.cuda.current_stream(ws.device).cuda_stream
+        _bwd_error(lib, "fused_mlp_bwd_phase2 launch", lib.fused_mlp_bwd_phase2(
+            ws.data_ptr(), cap, prog.data_ptr(),
+            prog.data_ptr() + 4 * packed.bwd_prog_len, len(packed.bwd_jobs),
+            int(packed.hi_lo), rows, splits, split_rows, part.data_ptr(),
+            stride, stream))
+    weight_grads.launches += 1
+    return part
+
+
+def _launch_bwd(packed: PackedMLP, pts: torch.Tensor,
+                dirs: Optional[torch.Tensor], g: torch.Tensor) -> torch.Tensor:
+    """The backward: the flat fp32 gradient (``packed.grad_total``) in the
+    packed blocks' layout. The call is walked in chunks of at most
+    ``BWD_CHUNK_ROWS`` points, each phase 1 into one workspace, then phase
+    2 into the chunk's partial slots; the reduction sums every slot in
+    (chunk, split) order."""
+    n, dev = pts.shape[0], pts.device
+    chunk_rows = BWD_CHUNK_ROWS
+    if g.shape != (n, packed.out_w):
+        raise ValueError(f"the cotangent must be ({n}, {packed.out_w}), got "
+                         f"{tuple(g.shape)}")
+    total = packed.grad_total
+    tile = bwd_tile_rows(packed.hi_lo)
+    ws = torch.empty(-(-min(n, chunk_rows) // tile) * tile * packed.ws_cols,
+                     device=dev, dtype=torch.bfloat16)
+    chunks = [(c0, min(chunk_rows, n - c0)) for c0 in range(0, n, chunk_rows)]
+    plans = [bwd_splits(-(-r // tile) * tile) for _, r in chunks]
+    part = torch.empty((sum(s for s, _ in plans), part_stride(total)),
+                       device=dev, dtype=torch.float32)
+    slot = 0
+    for (c0, r), (splits, split_rows) in zip(chunks, plans):
+        bwd_workspace(packed, pts[c0:c0 + r],
+                      None if dirs is None else dirs[c0:c0 + r],
+                      g[c0:c0 + r], ws)
+        weight_grads(packed, ws, -(-r // tile) * tile, split_rows,
+                     part[slot:slot + splits])
+        slot += splits
+    if n == 0:
+        return torch.zeros(total, device=dev, dtype=torch.float32)
     return reduce_partials(part, total)
 
 
@@ -965,14 +1265,14 @@ def fused_nerf_mlp_bwd(
     mc: Optional[ModelConfig] = None,
 ) -> Dict[str, torch.Tensor]:
     """The gradient of ``sum(g * fused_nerf_mlp(...))`` for every parameter
-    of the net, by name. CUDA tensors run the backward kernel and its
-    reduction (or raise); CPU tensors :func:`fused_nerf_mlp_bwd_plain`.
-    ``fused_nerf_mlp_bwd.launches`` counts backward-kernel launches."""
+    of the net, by name. CUDA tensors run the backward's kernels (or
+    raise); CPU tensors :func:`fused_nerf_mlp_bwd_plain`."""
     call, dirs = _route(params, pts_flat, dirs_enc_flat, cfg, mc,
                         backward=True)
     return call.backward(pts_flat, dirs, g)
 
 
 fused_nerf_mlp.launches = 0
-fused_nerf_mlp_bwd.launches = 0
+bwd_workspace.launches = 0
+weight_grads.launches = 0
 reduce_partials.launches = 0

@@ -49,27 +49,31 @@ def _hi_lo(cfg: RenderConfig) -> bool:
     return _dtype(cfg) == torch.float32 and cfg.fp32_precision == "high"
 
 
-def uses_kernel(cfg: RenderConfig, fine: bool = False) -> bool:
+def uses_kernel(cfg: RenderConfig, fine: bool = False,
+                backward: bool = False) -> bool:
     """Whether ``cfg`` routes a net's queries through the fused kernels:
     bf16 (or fp32 'high', the kernels' hi_lo mode) and an architecture
-    within the Hopper budgets of both the forward and the backward (so a
-    net that renders through the kernel also trains through it). fp32
-    'highest' stays on the module path."""
+    within the forward kernel's Hopper budget — and, for a query that is
+    differentiated (``backward``), the backward's too, so that a net
+    trains either wholly through the kernels or wholly on the module
+    path. fp32 'highest' stays on the module path."""
     mc = cfg.model_config(fine=fine)
+    hi_lo = _hi_lo(cfg)
     return (cfg.use_kernel
-            and (_dtype(cfg) == torch.bfloat16 or _hi_lo(cfg))
-            and kernel_fits(mc, cfg.use_viewdirs, _hi_lo(cfg))
-            and backward_fits(mc, cfg.use_viewdirs, _hi_lo(cfg)))
+            and (_dtype(cfg) == torch.bfloat16 or hi_lo)
+            and kernel_fits(mc, cfg.use_viewdirs, hi_lo)
+            and (not backward or backward_fits(mc, cfg.use_viewdirs, hi_lo)))
 
 
-def prepare_params(params: Dict, cfg: RenderConfig) -> Dict:
-    """Pack every net that ``cfg`` sends to the kernels, once (at service
-    build, weight swap and train step, not per tile or call). Other nets
-    pass through."""
+def prepare_params(params: Dict, cfg: RenderConfig,
+                   backward: bool = False) -> Dict:
+    """Pack every net that ``cfg`` sends to the kernels (``backward``: to
+    train through them), once (at service build, weight swap and train
+    step, not per tile or call). Other nets pass through."""
     out = {}
     for key, net in params.items():
         fine = key == "fine" and cfg.separate_fine
-        if isinstance(net, PackedMLP) or not uses_kernel(cfg, fine):
+        if isinstance(net, PackedMLP) or not uses_kernel(cfg, fine, backward):
             out[key] = net
         else:
             out[key] = pack_params(net, cfg.pos_enc_L, cfg.use_viewdirs,
@@ -93,7 +97,7 @@ def _query_mlp(net, pts: torch.Tensor, viewdirs_enc: Optional[torch.Tensor],
         dirs = viewdirs_enc[:, None, :].expand(
             n_rays, n_samples, viewdirs_enc.shape[-1]
         ).reshape(n_rays * n_samples, -1)
-    if uses_kernel(cfg, fine):
+    if uses_kernel(cfg, fine, backward=torch.is_grad_enabled()):
         raw = fused_nerf_mlp(net, flat, dirs, cfg, mc=mc)
     else:
         module = net.net if isinstance(net, PackedMLP) else net

@@ -119,7 +119,7 @@ def make_step_fn(rc: RenderConfig, tc: TrainConfig):
     def step_fn(state: TrainState, batch: torch.Tensor
                 ) -> Dict[str, torch.Tensor]:
         state.optimizer.zero_grad(set_to_none=True)
-        params = prepare_params(state.params, rc)   # packed once per step
+        params = prepare_params(state.params, rc, backward=True)  # once a step
         loss, metrics = loss_and_metrics(params, batch, state.generator,
                                          rc, tc)
         loss.backward()

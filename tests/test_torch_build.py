@@ -1,0 +1,44 @@
+"""The port's kernel build helpers (nerfmlp_torch/ops/_build.py) and the
+source variants of the backward's ablation script, on the CPU: where a
+library goes, what its name depends on, and how a build or a variant
+fails. Nothing here compiles."""
+
+import os
+import shutil
+
+import pytest
+
+from nerfmlp_torch.ops import _build
+from nerfmlp_torch.scripts import bwd_ablate
+
+
+@pytest.mark.parametrize("edit, same", [("", True), ("\n// edited\n", False)])
+def test_library_path_hashes_the_source_in_one_build_dir(tmp_path, edit, same):
+    """A copy of a source in another directory builds into the same build
+    directory, under the same name when its text is the same and another
+    name when it differs."""
+    name = "fused_mlp_bwd"
+    src = os.path.join(_build.CSRC, _build.KERNELS[name])
+    with open(src) as f:
+        (tmp_path / _build.KERNELS[name]).write_text(f.read() + edit)
+    here = _build.library_path(name)
+    there = _build.library_path(name, str(tmp_path))
+    assert os.path.dirname(there) == os.path.dirname(here) == _build.build_dir()
+    assert (there == here) is same
+
+
+def test_build_without_nvcc_names_it(tmp_path, monkeypatch):
+    monkeypatch.setenv("NERFMLP_TORCH_BUILD_DIR", str(tmp_path / "out"))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    monkeypatch.setattr(shutil, "which", lambda _: None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(["fused_mlp_fwd"])
+    assert not any(p.suffix == ".so" for p in (tmp_path / "out").iterdir())
+
+
+def test_ablation_variant_whose_text_is_gone_fails_by_name(monkeypatch):
+    monkeypatch.setitem(bwd_ablate.VARIANTS, "phase 1 without nothing",
+                        [("no such line in the kernel", "", True)])
+    with pytest.raises(RuntimeError, match="phase 1 without nothing"):
+        bwd_ablate.variant_source("phase 1 without nothing")
+    assert bwd_ablate.variant_source("as built") == open(bwd_ablate._SRC).read()

@@ -1,12 +1,13 @@
 """The port's fused MLP backward (nerfmlp_torch/ops/fused_mlp.py) against
 the JAX package's Pallas backward, which runs here in interpret mode.
 
-The CUDA kernel cannot run on the CPU; its arithmetic is held here two
+The CUDA kernels cannot run on the CPU; their arithmetic is held here two
 ways: the plain backward (through the autograd Function, as CPU tensors
-take it) against ``jax.grad`` through the Pallas kernel, and the backward
-program the kernel executes (buffers, operations, per-block partial slots
-and their reduction) interpreted in PyTorch against the plain backward.
-The kernel itself is held against the plain version on a GPU by
+take it) against ``jax.grad`` through the Pallas kernel, and the schedule
+the kernels execute (phase 1's program over shared-memory buffers and its
+workspace, phase 2's jobs over splits and chunks, the reduction's slot
+order) interpreted in PyTorch against the plain backward.
+The kernels themselves are held against the plain versions on a GPU by
 tests/test_torch_fused_mlp_gpu.py and chip_smoke.py.
 """
 
@@ -26,6 +27,7 @@ from nerfmlp_torch.models.convert import params_from_state_dict
 from nerfmlp_torch.models.mlp import init_model
 from nerfmlp_torch.ops import fused_mlp
 from nerfmlp_torch.ops.encoding import positional_encoding
+from nerfmlp_torch.ops.render import prepare_params, uses_kernel
 
 from test_torch_fused_mlp import ARCH, _inputs, _nets
 
@@ -118,112 +120,168 @@ def test_two_calls_on_one_net_sum_their_grads():
                                    atol=1e-6)
 
 
-def _run_bwd_program(packed, pts, dirs, g, grid):
+def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
     """What the CUDA backward does with a packed net, step for step, in
-    PyTorch: tiles of BWD_ROWS rows walked in contiguous ranges by ``grid``
-    blocks, each with its own partial slot (zeroed by its first tile), the
-    program's buffers, operations and epilogues, the (hi, lo) products in
-    hi_lo mode, rows past n zero — then the slots summed in order."""
-    prog = [int(v) for v in packed.bwd_program]
-    (n_ops, n_bufs, n_freqs, enc_dim, dirs_dim, hi_lo, xb, db, g_cols, grb,
-     gr_cols, gsb) = prog[:12]
-    table = prog[fused_mlp.BWD_HEADER_INTS:fused_mlp.BWD_OPS_BASE]
-    ops = [prog[fused_mlp.BWD_OPS_BASE + 12 * i:
-                fused_mlp.BWD_OPS_BASE + 12 * (i + 1)] for i in range(n_ops)]
-    rows = fused_mlp.BWD_ROWS
+    PyTorch: the call walked in chunks of at most ``chunk_rows`` points. In
+    each chunk, phase 1 walks tiles of ``bwd_tile_rows`` points: the
+    program's shared-memory buffers (one flat array, so buffers laid over
+    each other share storage), its mask slots, operations and epilogues,
+    the (hi, lo) planes and three products in hi_lo mode, rows past n zero,
+    each result copied into its workspace matrix. Then phase 2 runs every
+    job over every split of the chunk's rows into that chunk's partial
+    slots, and the slots are summed in (chunk, split) order."""
+    prog = packed.bwd_program.tolist()
+    hdr = dict(zip(fused_mlp._BWD_HEADER, prog))
+    hi_lo = packed.hi_lo
+    planes = 2 if hi_lo else 1
+    bufs = [prog[fused_mlp.BWD_HEADER_INTS + 3 * i:
+                 fused_mlp.BWD_HEADER_INTS + 3 * i + 3]
+            for i in range(fused_mlp.BWD_MAX_BUFS)]
+    mats = [prog[fused_mlp.BWD_MATS_BASE + 2 * i:
+                 fused_mlp.BWD_MATS_BASE + 2 * i + 2]
+            for i in range(fused_mlp.BWD_MAX_MATS)]
+    ops = [prog[fused_mlp.BWD_OPS_BASE + 16 * i:
+                fused_mlp.BWD_OPS_BASE + 16 * (i + 1)]
+           for i in range(hdr["n_ops"])]
+    jobs = np.asarray(prog[hdr["jobs_off"]:]).reshape(hdr["n_jobs"], 10)
+    rows = fused_mlp.bwd_tile_rows(hi_lo)
     bf = lambda t: t.to(torch.bfloat16).float()
-    act = (lambda t: t) if hi_lo else bf
     w = packed.weights.float()
-    bias = packed.biases
     n = pts.shape[0]
-    tiles = -(-n // rows)
-    stride = -(-packed.grad_total // 64) * 64
-    part = torch.zeros(grid, stride)
+    enc = positional_encoding(pts, hdr["n_freqs"])
+    smem = torch.zeros(hdr["smem"] // 2)   # bf16 slots, by element
 
-    def split(t):
-        hi = bf(t)
-        return hi, bf(t - hi)
+    def buf(b, plane=0):
+        off, ld, cols = bufs[b]
+        at = off // 2 + plane * rows * ld
+        return smem[at: at + rows * ld].view(rows, ld)[:, :cols]
 
-    def mm(a, b):  # a @ b, three products in hi_lo mode
-        if not hi_lo:
-            return a @ b
-        (a_hi, a_lo), (b_hi, b_lo) = split(a), split(b)
-        return a_hi @ b_hi + a_lo @ b_hi + a_hi @ b_lo
-
-    def block(off, k, cols):  # a packed (k, cols) weight, hi + lo
+    def block(off, k, cols):   # a packed (k, cols) weight's planes
         size = k * cols
-        blk = w[off:off + size].reshape(k, cols)
-        return blk + (w[off + size:off + 2 * size].reshape(k, cols)
-                      if hi_lo else 0)
+        return [w[off + p * size: off + (p + 1) * size].view(k, cols)
+                for p in range(planes)]
 
-    def rows_of(t, r0):
+    def mm(a, b):   # planes @ planes: hi*hi (+ lo*hi + hi*lo)
+        out = a[0] @ b[0]
+        return out + a[1] @ b[0] + a[0] @ b[1] if hi_lo else out
+
+    def put(b, v):   # a value into buffer b's planes, from column 0
+        hi = bf(v)
+        buf(b, 0)[:, :v.shape[1]] = hi
+        if hi_lo:
+            buf(b, 1)[:, :v.shape[1]] = bf(v - hi)
+
+    def tile_of(t, r0):
         out = torch.zeros(rows, t.shape[1])
-        m = min(rows, n - r0)
+        m = max(0, min(rows, t.shape[0] - r0))
         out[:m] = t[r0:r0 + m]
         return out
 
-    enc = positional_encoding(pts, n_freqs)
-    for blk_i in range(grid):
-        for t in range(blk_i * tiles // grid, (blk_i + 1) * tiles // grid):
-            r0 = t * rows
-            bufs = [torch.zeros(rows, table[2 * i + 1]) for i in range(n_bufs)]
-            bufs[xb][:, :enc_dim] = act(rows_of(enc, r0))
-            if db >= 0:
-                bufs[db][:, :dirs_dim] = act(rows_of(dirs, r0))
-            gt = rows_of(g, r0)
-            bufs[grb][:, :gr_cols] = act(gt[:, :gr_cols])
-            if gsb >= 0:
-                bufs[gsb][:, :g_cols - gr_cols] = act(gt[:, gr_cols:])
-            p = part[blk_i]
-            for (kind, sa, wa, ka, sb, wb, kb, off, nn, flag, dst, _) in ops:
-                if kind in (0, 1):
-                    acc = 0
-                    for s, wo, k in ((sa, wa, ka), (sb, wb, kb)):
-                        if k:
-                            wt = (block(wo, k, nn) if kind == 0
-                                  else block(wo, nn, k).t())
-                            acc = acc + mm(bufs[s][:, :k], wt)
-                    if kind == 0:
-                        acc = acc + bias[off:off + nn]
-                        if flag:
-                            acc = torch.relu(acc)
-                    elif flag >= 0:
-                        acc = torch.where(bufs[flag][:, :nn] > 0, acc, 0.0)
-                    bufs[dst][:, :nn] = act(acc)
-                elif kind == 2:
-                    p[off:off + ka * nn] += mm(bufs[sa][:, :ka].t(),
-                                               bufs[sb][:, :nn]).reshape(-1)
-                else:
-                    p[off:off + nn] += bufs[sa][:, :nn].sum(0)
-    flat = fused_mlp.reduce_partials(part, packed.grad_total)
+    chunks = [(c0, min(chunk_rows, n - c0)) for c0 in range(0, n, chunk_rows)]
+    cap = -(-min(n, chunk_rows) // rows) * rows
+    slots = []
+    for c0, r in chunks:
+        ws = torch.zeros(cap * hdr["ws_cols"])
+
+        def mat(m, plane=0):
+            col, cols = mats[m]
+            at = cap * (col + plane * cols)
+            return ws[at: at + cap * cols].view(cap, cols)
+
+        def save(b, m, r0):   # the matrix's columns of buffer b
+            for plane in range(planes):
+                dst = mat(m, plane)
+                dst[r0:r0 + rows] = buf(b, plane)[:, :dst.shape[1]]
+
+        c_pts, c_g = pts[c0:c0 + r], g[c0:c0 + r]
+        c_enc = enc[c0:c0 + r]
+        c_dirs = None if dirs is None else dirs[c0:c0 + r]
+        masks = {}
+        for r0 in range(0, r, rows):
+            put(hdr["x_buf"], tile_of(c_enc, r0))
+            save(hdr["x_buf"], hdr["x_mat"], r0)
+            if hdr["d_buf"] >= 0:
+                put(hdr["d_buf"], tile_of(c_dirs, r0))
+                save(hdr["d_buf"], hdr["d_mat"], r0)
+            for (kind, sa, wa, ka, sb, wb, kb, bias, nn, mask_in, dst, m,
+                 mask_out, *_) in ops:
+                if kind == 2:   # the cotangent, split at gr_cols
+                    gt = tile_of(c_g, r0)
+                    put(hdr["gr_buf"], gt[:, :hdr["gr_cols"]])
+                    save(hdr["gr_buf"], hdr["gr_mat"], r0)
+                    if hdr["gs_buf"] >= 0:
+                        put(hdr["gs_buf"], gt[:, hdr["gr_cols"]:])
+                        save(hdr["gs_buf"], hdr["gs_mat"], r0)
+                    continue
+                acc = 0
+                for src, wo, k in ((sa, wa, ka), (sb, wb, kb)):
+                    if k:
+                        a = [buf(src, p)[:, :k] for p in range(planes)]
+                        wt = (block(wo, k, nn) if kind == 0
+                              else [t.t() for t in block(wo, nn, k)])
+                        acc = acc + mm(a, wt)
+                if kind == 0:
+                    acc = acc + packed.biases[bias:bias + nn]
+                    if mask_out >= 0:
+                        acc = torch.relu(acc)
+                        masks[mask_out] = acc > 0 if hi_lo else bf(acc) > 0
+                elif mask_in >= 0:
+                    acc = torch.where(masks[mask_in], acc, 0.0)
+                put(dst, acc)
+                save(dst, m, r0)
+        # Phase 2 over the chunk's rows, rounded up to the tile.
+        r_pad = -(-r // rows) * rows
+        splits, split_rows = fused_mlp.bwd_splits(r_pad)
+        for s in range(splits):
+            s0, s1 = s * split_rows, min(r_pad, (s + 1) * split_rows)
+            part = torch.zeros(fused_mlp.part_stride(packed.grad_total))
+            for am, k0, kc, ym, n0, nc, off, ld, db, _ in jobs.tolist():
+                a = [mat(am, p)[s0:s1, k0:k0 + kc] for p in range(planes)]
+                y = [mat(ym, p)[s0:s1, n0:n0 + nc] for p in range(planes)]
+                prod = mm([t.t() for t in a], y)
+                tile = part[off + k0 * ld: off + (k0 + kc) * ld].view(kc, ld)
+                tile[:, n0:n0 + nc] = prod
+                if db >= 0:
+                    part[db + n0: db + n0 + nc] = sum(y).sum(0)
+            slots.append(part)
+    flat = slots[0][:packed.grad_total].clone()
+    for part in slots[1:]:
+        flat += part[:packed.grad_total]
     return fused_mlp.unpack_grads(packed, flat)
 
 
-@pytest.mark.parametrize("arch", [
-    dict(depth=6, width=64, use_viewdirs=True),
-    dict(depth=6, width=40, use_viewdirs=False),   # padded to 48
-    dict(depth=8, width=32, use_viewdirs=True),
-    dict(depth=6, width=64, use_viewdirs=True, hi_lo=True),
-    dict(depth=6, width=40, use_viewdirs=False, hi_lo=True),
+@pytest.mark.parametrize("arch, n, chunk, min_split", [
+    (dict(depth=6, width=64, use_viewdirs=True), 549, 256, 2048),
+    (dict(depth=6, width=40, use_viewdirs=False), 549, 256, 2048),  # pad 48
+    (dict(depth=8, width=32, use_viewdirs=True), 549, 256, 2048),
+    (dict(depth=6, width=64, use_viewdirs=True, hi_lo=True), 549, 256, 2048),
+    (dict(depth=6, width=40, use_viewdirs=False, hi_lo=True), 549, 256, 2048),
+    # rows not a multiple of the tile or the chunk, phase 2 in 9 splits
+    (dict(depth=6, width=64, use_viewdirs=True), 1100, 1200, 128),
+    # fewer rows than one tile
+    (dict(depth=6, width=64, use_viewdirs=True), 50, 256, 2048),
+    # more than one chunk, each in several splits
+    (dict(depth=6, width=64, use_viewdirs=True), 700, 192, 64),
 ])
-def test_bwd_program_matches_plain(arch):
-    """The backward program, packed layout and partial-slot reduction the
-    kernel executes compute the plain backward (padding adds zero; rows
-    past n contribute nothing; 3 blocks over 5 tiles, ragged)."""
+def test_bwd_program_matches_plain(arch, n, chunk, min_split, monkeypatch):
+    """The backward program, packed layout, workspace, job list, splits,
+    chunks and slot order the kernels execute compute the plain backward
+    (padding adds zero; rows past n contribute nothing)."""
     arch = dict(arch)
     hi_lo = arch.pop("hi_lo", False)
     vdirs = arch["use_viewdirs"]
+    monkeypatch.setattr(fused_mlp, "BWD_MIN_SPLIT_ROWS", min_split)
     cfg = RenderConfig(compute_dtype="bfloat16", use_kernel=True, **arch)
     net = init_model(cfg.model_config(), seed=3, device="cpu")
-    n = 4 * fused_mlp.BWD_ROWS + 37
     pts, dirs = _inputs(n, seed=5)
     pts, dirs = torch.from_numpy(pts), torch.from_numpy(dirs)
     g = torch.from_numpy(np.random.default_rng(6).normal(
         size=(n, 4 if vdirs else net.cfg.output_ch)).astype(np.float32))
     packed = fused_mlp.pack_params(net, cfg.pos_enc_L, vdirs, hi_lo)
-    ops, bufs = fused_mlp.backward_counts(net.cfg, vdirs)
-    assert packed.bwd_program[:2].tolist() == [ops, bufs]
-    got = _run_bwd_program(packed, pts, dirs if vdirs else None, g, grid=3)
+    ops, mats = fused_mlp.backward_counts(net.cfg, vdirs)
+    assert int(packed.bwd_program[0]) == ops
+    assert len(packed.ws_mats) == mats
+    got = _run_bwd_program(packed, pts, dirs if vdirs else None, g, chunk)
     want = fused_mlp.fused_nerf_mlp_bwd_plain(
         net, pts, dirs if vdirs else None, g, cfg.pos_enc_L, hi_lo=hi_lo)
     assert set(got) == set(want) == {n for n, _ in net.named_parameters()}
@@ -235,13 +293,54 @@ def test_bwd_program_matches_plain(arch):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("vdirs, hi_lo", [(True, False), (False, True)])
+def test_wrappers_on_cpu_take_the_plain_phases(vdirs, hi_lo, monkeypatch):
+    """The chunked path through the three wrappers on CPU tensors (each
+    phase's plain version, no launch) gives the plain backward, and the
+    plain phase 1 fills the interpreter's workspace layout."""
+    monkeypatch.setattr(fused_mlp, "BWD_MIN_SPLIT_ROWS", 64)
+    monkeypatch.setattr(fused_mlp, "BWD_CHUNK_ROWS", 200)   # two chunks
+    cfg = RenderConfig(compute_dtype="bfloat16", use_kernel=True, depth=6,
+                       width=64, use_viewdirs=vdirs)
+    net = init_model(cfg.model_config(), seed=4, device="cpu")
+    n = 333
+    pts, dirs = (torch.from_numpy(a) for a in _inputs(n, seed=7))
+    dirs = dirs if vdirs else None
+    g = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(n, 4 if vdirs else net.cfg.output_ch)).astype(np.float32))
+    packed = fused_mlp.pack_params(net, cfg.pos_enc_L, vdirs, hi_lo)
+    before = (fused_mlp.bwd_workspace.launches,
+              fused_mlp.weight_grads.launches,
+              fused_mlp.reduce_partials.launches)
+    got = fused_mlp.unpack_grads(
+        packed, fused_mlp._launch_bwd(packed, pts, dirs, g))
+    assert (fused_mlp.bwd_workspace.launches,
+            fused_mlp.weight_grads.launches,
+            fused_mlp.reduce_partials.launches) == before
+    want = fused_mlp.fused_nerf_mlp_bwd_plain(net, pts, dirs, g,
+                                              cfg.pos_enc_L, hi_lo=hi_lo)
+    for name in want:
+        scale = max(float(want[name].abs().max()), 1e-8)
+        np.testing.assert_allclose(got[name].numpy() / scale,
+                                   want[name].numpy() / scale,
+                                   atol=1e-4 if not hi_lo else 1e-5,
+                                   err_msg=name)
+
+
 def test_reduce_partials_sums_rows_in_order():
+    """Slots of the real width (the 8x256 gradient) summed in slot order:
+    (chunks x splits) slots of part_stride(total) floats."""
+    packed = fused_mlp.pack_params(
+        init_model(RenderConfig().model_config(), seed=0, device="cpu"), 10,
+        True)
+    total = packed.grad_total
     part = torch.from_numpy(np.random.default_rng(0).normal(
-        size=(5, 70)).astype(np.float32))
-    want = part[0, :60] + part[1, :60] + part[2, :60] + part[3, :60] \
-        + part[4, :60]
+        size=(2 * 3, fused_mlp.part_stride(total))).astype(np.float32))
+    want = part[0, :total].clone()
+    for s in range(1, part.shape[0]):
+        want = want + part[s, :total]
     before = fused_mlp.reduce_partials.launches
-    got = fused_mlp.reduce_partials(part, 60)
+    got = fused_mlp.reduce_partials(part, total)
     assert torch.equal(got, want)
     assert fused_mlp.reduce_partials.launches == before
 
@@ -251,29 +350,59 @@ def test_cpu_backward_takes_the_plain_version():
     cfg = dataclasses.replace(cfg, compute_dtype="bfloat16", use_kernel=True)
     pts, dirs = (torch.from_numpy(a) for a in _inputs(40))
     g = torch.ones(40, 4)
-    before = fused_mlp.fused_nerf_mlp_bwd.launches
+    counts = lambda: (fused_mlp.bwd_workspace.launches,
+                      fused_mlp.weight_grads.launches,
+                      fused_mlp.reduce_partials.launches)
+    before = counts()
     got = fused_mlp.fused_nerf_mlp_bwd(net, pts, dirs, g, cfg)
     want = fused_mlp.fused_nerf_mlp_bwd_plain(net, pts, dirs, g, 10)
     for name in want:
         assert torch.equal(got[name], want[name])
-    assert fused_mlp.fused_nerf_mlp_bwd.launches == before
+    assert counts() == before
 
 
 def test_backward_budget():
-    """8x256 + view head: 10 recomputed layers, 12 head and 24 trunk
-    operations, 16 buffers — within the program's limits; the scratch
-    holds every activation and cotangent of a 128-row tile."""
+    """8x256 + view head: 10 recomputed layers, the cotangent's load and
+    10 dX operations; 24 workspace matrices, 9,984 B per point (4,992 bf16
+    columns); phase 1's shared memory within Hopper's 227 KB with three
+    weight stages (two in hi_lo); a net too deep for the program table, or
+    too wide for the warp grid, does not fit."""
     mc = RenderConfig().model_config()
-    ops, bufs = fused_mlp.backward_counts(mc, True)
-    assert (ops, bufs) == (10 + 12 + 24, 16)
+    ops, mats = fused_mlp.backward_counts(mc, True)
+    assert (ops, mats) == (10 + 1 + 10, 24)
     assert fused_mlp.backward_fits(mc, True)
     assert fused_mlp.backward_fits(mc, True, hi_lo=True)
-    # 64 + 32 + 8 x 256 + 256 + 128 + 16 + 16 + 2 x 256 columns, bf16.
-    assert fused_mlp.bwd_scratch_bytes(mc, True) == 128 * 3072 * 2
-    assert fused_mlp.BWD_SMEM <= 48 * 1024
-    deep = RenderConfig(depth=40).model_config()
+    # 64 + 32 + 8 x 256 + 256 + 128 + 16 + 16 + 128 + 256 + 8 x 256.
+    assert fused_mlp.bwd_scratch_bytes(mc, True) == 4992 * 2
+    assert fused_mlp.bwd_scratch_bytes(mc, True, hi_lo=True) == 4992 * 4
+    for hi_lo, stages in ((False, 3), (True, 2)):
+        layout = fused_mlp._bwd_smem_layout(mc, True, hi_lo)
+        assert layout[-2] == stages
+        assert fused_mlp.bwd_smem_bytes(mc, True, hi_lo) <= fused_mlp.SMEM_LIMIT
+    deep = RenderConfig(depth=100).model_config()
     assert not fused_mlp.backward_fits(deep, True)
-    from nerfmlp_torch.ops.render import uses_kernel
-
-    assert not uses_kernel(RenderConfig(depth=40, use_kernel=True,
+    assert not fused_mlp.backward_fits(RenderConfig(width=384).model_config(),
+                                       True)
+    assert not uses_kernel(RenderConfig(depth=100, use_kernel=True,
                                         compute_dtype="bfloat16"))
+
+
+@pytest.mark.parametrize("width, serve, train", [
+    (256, True, True),
+    (384, True, False),    # wider than phase 1's warp grid
+    (512, True, False),
+    (1024, False, False),  # past the forward's shared memory too
+])
+def test_kernel_gates_of_serving_and_training(width, serve, train):
+    """A net goes to the forward kernel when it fits the forward's budget;
+    it trains through the kernels only when the backward's fits too, and
+    otherwise takes the module path for both passes of training. Only a
+    net that goes to the kernels is packed."""
+    cfg = RenderConfig(width=width, use_kernel=True, compute_dtype="bfloat16",
+                       depth=2)
+    assert uses_kernel(cfg) is serve
+    assert uses_kernel(cfg, backward=True) is train
+    net = init_model(cfg.model_config(), seed=0, device="cpu")
+    for backward, packed in ((False, serve), (True, train)):
+        got = prepare_params({"coarse": net}, cfg, backward)["coarse"]
+        assert isinstance(got, fused_mlp.PackedMLP) is packed

@@ -1,5 +1,5 @@
-"""The fused MLP CUDA kernels (forward, backward and its reduction) against
-their plain versions, on a GPU.
+"""The fused MLP CUDA kernels (forward; the backward's two phases and their
+reduction) against their plain versions, on a GPU.
 
 Imports neither jax nor the JAX package, so it also runs where only
 PyTorch and the CUDA toolkit are installed:
@@ -60,11 +60,13 @@ def test_kernel_matches_plain_on_gpu(use_viewdirs, dtype, tol):
     (True, "bfloat16", 1000, 1e-2),   # a flipped bf16 rounding cascades
     (False, "bfloat16", 1000, 1e-2),
     (True, "float32", 65535, 1e-3),   # chip_smoke.py's HI_LO_BWD_TOL
+    # two chunks: BWD_CHUNK_ROWS points, then a ragged 4,097
+    (True, "bfloat16", fused_mlp.BWD_CHUNK_ROWS + 4097, 1e-2),
 ])
 def test_backward_kernel_matches_plain_on_gpu(use_viewdirs, dtype, n, tol):
-    """The backward kernel and its reduction vs the plain backward, per
-    parameter (max |err| / max |plain|), on a ragged n (not a multiple of
-    the kernel's 128-point tile); a second run gives the same bits."""
+    """The backward's kernels vs the plain backward, per parameter (max
+    |err| / max |plain|), on a ragged n (not a multiple of phase 1's
+    128-point tile); a second run gives the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
     cfg = RenderConfig(compute_dtype=dtype, fp32_precision="high",
@@ -86,16 +88,18 @@ def test_backward_kernel_matches_plain_on_gpu(use_viewdirs, dtype, n, tol):
     target = torch.from_numpy(rng.uniform(size=tuple(raw.shape)).astype(
         np.float32)).cuda()
     g = 2.0 / raw.numel() * (raw - target)
-    before = (fused_mlp.fused_nerf_mlp_bwd.launches,
-              fused_mlp.reduce_partials.launches)
+    counts = lambda: (fused_mlp.bwd_workspace.launches,
+                      fused_mlp.weight_grads.launches,
+                      fused_mlp.reduce_partials.launches)
+    before = counts()
     got = fused_mlp.fused_nerf_mlp_bwd(net, pts, dirs, g, cfg)
     again = fused_mlp.fused_nerf_mlp_bwd(net, pts, dirs, g, cfg)
     want = fused_mlp.fused_nerf_mlp_bwd_plain(net, pts, dirs, g,
                                               cfg.pos_enc_L, hi_lo=hi_lo)
     torch.cuda.synchronize()
-    assert (fused_mlp.fused_nerf_mlp_bwd.launches,
-            fused_mlp.reduce_partials.launches) == (before[0] + 2,
-                                                    before[1] + 2)
+    chunks = -(-n // fused_mlp.BWD_CHUNK_ROWS)
+    assert counts() == (before[0] + 2 * chunks, before[1] + 2 * chunks,
+                        before[2] + 2)
 
     def worst(grads):
         return max(float((grads[k] - want[k]).abs().max())
