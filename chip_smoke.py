@@ -8,8 +8,10 @@ Phases, each fatal on failure:
   2. hold the fused MLP kernel against its plain PyTorch version at the
      serving path's shapes (8x256 + view head, 262,144 and 524,288 points
      from real rays of a serving pose), in hi_lo mode (fp32 'high') at the
-     first shape, and at one generic architecture (depth 6, width 128, no
-     view head), and time both versions;
+     first shape, at one generic architecture (depth 6, width 128, no
+     view head) and at width 512 with the view head (two 256-column
+     passes per layer) at both shapes; time both versions, and beside
+     them the module path (use_kernel=False) at the same shapes;
   3. serve 400x400 frames (64+128 samples, shared net, bf16, kernel on)
      over HTTP from RenderServer on 127.0.0.1 — png, npy and json — and
      check the kernel launches per frame, the images, and the frame
@@ -154,10 +156,15 @@ def serving_points(n_samples, cfg, n_rays=TILE):
 
 def check_kernel(net, cfg, pts, dirs, label, time_it, hi_lo=False):
     """Kernel vs plain on the same inputs; returns a result record.
-    ``hi_lo``: fp32_precision="high", three bf16 products per matmul."""
+    ``hi_lo``: fp32_precision="high", three bf16 products per matmul. With
+    ``time_it`` the module path that use_kernel=False takes for the same
+    call (encoding + the nn.Linear net, bf16; fp32 for hi_lo) is timed
+    too, as the kernel's yardstick: no single PyTorch call computes this
+    function."""
     import torch
 
     from nerfmlp_torch.ops import fused_mlp
+    from nerfmlp_torch.ops.encoding import positional_encoding
 
     vdirs = dirs is not None
     tol = HI_LO_TOL if hi_lo else KERNEL_TOL
@@ -197,12 +204,19 @@ def check_kernel(net, cfg, pts, dirs, label, time_it, hi_lo=False):
                 rec[key] = cuda_ms(lambda: fused_mlp.fused_nerf_mlp(
                     packed, pts, dirs, cfg), iters=10, spin=spin)
         rec["plain_ms"] = cuda_ms(plain, iters=3)
+        dt = torch.float32 if hi_lo else torch.bfloat16
+        with torch.no_grad():
+            rec["module_ms"] = cuda_ms(lambda: net(
+                positional_encoding(pts, cfg.pos_enc_L), dirs,
+                compute_dtype=dt).float(), iters=5)
         rec["tflops"] = flops / rec["ms"] / 1e9
     print(f"[kernel] {label}: n={n} max|err|={err:.3e} "
           f"normalised={norm:.3e} (tol {tol})"
           + (f" kernel {rec['ms']:.3f} ms ({rec['tflops']:.1f} TFLOP/s; "
              f"{rec['ms_no_spin']:.3f} ms without the spin) plain "
-             f"{rec['plain_ms']:.3f} ms" if time_it else "")
+             f"{rec['plain_ms']:.3f} ms, module path (use_kernel=False, "
+             f"{'fp32' if hi_lo else 'bf16'}) {rec['module_ms']:.3f} ms"
+             if time_it else "")
           + f" bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})")
     if not norm <= tol:
         raise SystemExit(f"[kernel] {label}: kernel disagrees with plain")
@@ -211,12 +225,18 @@ def check_kernel(net, cfg, pts, dirs, label, time_it, hi_lo=False):
 
 def phase_kernel(net):
     from nerfmlp_torch.models.mlp import init_model
-    from nerfmlp_torch.ops.fused_mlp import kernel_fits, smem_bytes
+    from nerfmlp_torch.ops.fused_mlp import _fwd_layout, kernel_fits
 
     cfg = slice_config()
-    mc = cfg.model_config()
-    print(f"[kernel] 8x256 budget: {smem_bytes(mc, True)} B shared memory, "
-          f"fits={kernel_fits(mc, True)}")
+    wide = dataclasses.replace(cfg, width=512)
+    for c in (cfg, wide):
+        mc = c.model_config()
+        for hi_lo in (False, True):
+            lay = _fwd_layout(mc, True, hi_lo)
+            print(f"[kernel] 8x{c.width}{' hi_lo' if hi_lo else ''} budget: "
+                  f"{lay.rows}-point tiles, {lay.stages} weight stages of "
+                  f"{16 * lay.ksub} rows, {lay.smem} B shared memory, "
+                  f"fits={kernel_fits(mc, True, hi_lo)}")
     recs = []
     for n_samples, label in ((cfg.N_samples, "coarse"),
                              (cfg.N_importance, "fine")):
@@ -230,6 +250,12 @@ def phase_kernel(net):
     pts, _ = serving_points(cfg.N_samples, cfg)
     check_kernel(gnet, generic, pts, None, "generic 6x128 no-viewdirs",
                  time_it=False)
+    wnet = init_model(wide.model_config(), seed=SEED + 2, device="cuda")
+    for n_samples, label in ((cfg.N_samples, "coarse"),
+                             (cfg.N_importance, "fine")):
+        pts, dirs = serving_points(n_samples, cfg)
+        check_kernel(wnet, wide, pts, dirs, f"wide 8x512 {label}",
+                     time_it=True)
     return recs
 
 
@@ -812,9 +838,12 @@ def main():
     fwd_launches, *bwd_launches = phase_train()
 
     # The forward runs on both paths, at different shapes: one record per
-    # path, each with that path's launches and its fine call's times. The
-    # backward's three kernels: the fine call's times, the launches of the
-    # training run. The whole backward (all three) is printed beside them.
+    # path, each with that path's launches and its fine call's times, and
+    # module_ms, the use_kernel=False module path's time for the same call
+    # (its yardstick; no single PyTorch call computes the function, so
+    # library_ms is null). The backward's three kernels: the fine call's
+    # times, the launches of the training run. The whole backward (all
+    # three) is printed beside them.
     kernels = [{
         "name": "fused_mlp_fwd",
         "path": "serve",
@@ -825,6 +854,7 @@ def main():
         "max_abs_err": max(coarse["max_abs_err"], fine["max_abs_err"]),
         "ms": fine["ms"],
         "plain_ms": fine["plain_ms"],
+        "module_ms": fine["module_ms"],
         "bound_ms": fine["bound_ms"],
         "bound_by": fine["bound_by"],
         "library_ms": None,
@@ -838,6 +868,7 @@ def main():
         "max_abs_err": max(r["max_abs_err"] for r in fwd_train),
         "ms": fwd_train[1]["ms"],
         "plain_ms": fwd_train[1]["plain_ms"],
+        "module_ms": fwd_train[1]["module_ms"],
         "bound_ms": fwd_train[1]["bound_ms"],
         "bound_by": fwd_train[1]["bound_by"],
         "library_ms": None,

@@ -82,12 +82,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mlp_tile.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace mlp_tile;
 
 constexpr int kThreads = 256;     // phase 2: 8 warps
-constexpr int kPad = 8;           // bf16 of padding per shared-memory row
 constexpr int kMaxN = 256;        // widest layer phase 1's warp grid covers
 constexpr int kHeaderInts = 32;
 constexpr int kMaxBufs = 8;       // shared-memory buffers: offset, ld, cols
@@ -131,64 +132,6 @@ enum Field {
 // workspace matrices A (activations) and Y (cotangent); `db`: the bias
 // gradient's offset when this job also sums Y's columns, else -1.
 enum JobField { jA = 0, jK0, jKc, jY, jN0, jNc, jOff, jLd, jDb };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(smem)),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Wait until at most `pending` (0..2) groups are in flight.
-__device__ __forceinline__ void cp_async_wait_n(int pending) {
-  if (pending <= 0)
-    cp_async_wait<0>();
-  else if (pending == 1)
-    cp_async_wait<1>();
-  else
-    cp_async_wait<2>();
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a @ b for one m16n8k16 tile: bf16 operands, fp32 accumulators.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) =
-      __halves2bfloat162(__float2bfloat16(v0), __float2bfloat16(v1));
-}
 
 // A value into a shared-memory buffer and its workspace matrix: bf16, or in
 // hi_lo mode the pair (hi, lo) = (bf16(v), bf16(v - hi)) into two planes.
@@ -317,8 +260,7 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * T;
 
-    // Encoded points: [x, sin(x * 2^0), cos(x * 2^0), sin(x * 2^1), ...],
-    // x * 2^l exact in fp32, full-precision sinf/cosf (as the forward).
+    // Encoded points (mlp_tile.cuh's encode, as the forward).
     {
       const int xb = prog[hXBuf], ldx = bld(xb), xm = prog[hXMat];
       const int xc = mcols(xm), enc_dim = prog[hEncDim];
@@ -326,17 +268,7 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
       bf16* xw = matp(xm) + static_cast<long long>(row0) * xc;
       for (int idx = tid; idx < T * xc; idx += kThreads) {
         const int r = idx / xc, j = idx - r * xc, gr = row0 + r;
-        float v = 0.f;
-        if (gr < n && j < enc_dim) {
-          if (j < 3) {
-            v = pts[3 * static_cast<long long>(gr) + j];
-          } else {
-            const int l = (j - 3) / 6, m = (j - 3) - 6 * l;
-            const float a =
-                pts[3 * static_cast<long long>(gr) + m % 3] * ldexpf(1.f, l);
-            v = m < 3 ? sinf(a) : cosf(a);
-          }
-        }
+        const float v = (gr < n && j < enc_dim) ? encode(pts, gr, j) : 0.f;
         put2<kHiLo>(xs + r * ldx + j, T * ldx, xw + idx, rows_cap * xc, v);
       }
     }

@@ -1,263 +1,392 @@
 // Fused NeRF-MLP forward for Hopper (sm_90a): positional encoding, the whole
-// trunk and both heads for a tile of points in one launch.
+// trunk and both heads for tiles of points in one launch.
 //
 // Replaces the TPU kernel `_fwd_kernel` (nerfmlp_tpu/ops/pallas_mlp.py:264,
 // launched by `_pallas_forward`, :275-309). It computes the same function
 // with the same rounding points: bf16 operands with fp32 accumulation; bias
 // added in fp32, then ReLU, then rounding to bf16 for every trunk layer; the
 // bottleneck rounded to bf16 without ReLU; the view layer ReLU then bf16;
-// rgb and sigma left in fp32. The encoding computes x * 2^l exactly in fp32
-// and takes full-precision sinf/cosf (never the fast intrinsics: arguments
-// reach |x| * 2^9, thousands, where __sinf is wrong), then rounds to bf16.
-// A template flag adds the TPU kernel's hi_lo mode (fp32_precision="high",
-// pallas_mlp.py:68-100): activations stay fp32-grade as (hi, lo) bf16
-// planes, each weight is a (hi, lo) pair of bf16 blocks, and every matmul
-// is hi@hi + lo@hi + hi@lo into the same fp32 accumulators.
+// rgb and sigma left in fp32; the encoding in full precision
+// (mlp_tile.cuh's encode), rounded to bf16. A template flag adds the TPU
+// kernel's hi_lo mode (fp32_precision="high", pallas_mlp.py:68-100):
+// activations stay fp32-grade as (hi, lo) bf16 planes, each weight is a
+// (hi, lo) pair of bf16 blocks, and every matmul is hi@hi + lo@hi + hi@lo
+// into the same fp32 accumulators.
 //
 // What bounds it. One point costs 2 * 593,408 FLOP at 8x256 with the view
 // head; device memory sees only 12 B of points, 54 B of dirs and 16 B of
 // output per point. So the work is compute-bound by about 50x against the
-// card's memory rate: the bf16 tensor cores set the floor (0.315 ms for the
-// 262,144-point coarse call at 989 TFLOP/s).
+// card's memory rate: the bf16 tensor cores set the floor (0.629 ms for the
+// 524,288-point fine serving call at 989 TFLOP/s).
 //
-// Design. The TPU kernel keeps all ~1.19 MB of bf16 weights resident in
-// VMEM. A Hopper block has 227 KB of shared memory, so here:
-//   * one block of 8 warps takes a tile of 64 points;
-//   * the tile's activations stay in shared memory as bf16, in two
-//     ping-pong buffers, beside the encoded input (kept for the skip layer)
-//     and the encoded view directions; only the last layer's real columns
-//     leave the block;
-//   * each layer's weights stream through shared memory in 32-row slabs and
-//     stay hot in the 50 MB L2 across blocks;
-//   * each warp holds a 16 x 128 slice of the layer's output in registers
-//     (eight 16x16x16 bf16 wmma accumulators, fp32), so a 256-wide layer
-//     is one pass; wider layers loop over 256-column chunks;
-//   * the skip layer's cat([x, h]) @ W is two operands accumulated into the
+// Design: the core of the backward's phase 1 (fused_mlp_bwd.cu), which
+// recomputes this same forward.
+//   * A persistent grid (one block of 16 warps per SM) walks tiles of 128
+//     points (64 in hi_lo, and where two 128-row activation buffers of the
+//     net's width do not fit shared memory, e.g. widths 384-512). Every
+//     block streams the ~1.19 MB of weights from L2 once per tile: 9.3 KB
+//     per point, half of what the first 64-point, one-tile-per-block design
+//     read.
+//   * The tile's activations stay in shared memory: the encoded points
+//     (kept for the skip layer), the encoded view directions and two
+//     ping-pong buffers for a layer's input and output. Only the output
+//     heads' real columns leave the block, straight from registers.
+//   * Each warp owns 32 x 64 of a 128 x 256 output pass (16 x 64 of a
+//     64 x 256 pass): mma.sync m16n8k16 bf16 into fp32 accumulators, A
+//     fragments from the activation buffers and B fragments from the weight
+//     ring, both by ldmatrix. A layer wider than 256 columns is cut into
+//     column passes by the Python wrapper, each a record of the program.
+//   * Weights stream through a cp.async ring of k-slabs: 32 rows per stage
+//     (16 in hi_lo, where the (hi, lo) planes take twice the room), up to
+//     4 stages as they fit. A narrow operation takes as many rows per
+//     stage as its slot holds: every stage costs a barrier and a wait
+//     whatever its width, so the sigma and rgb heads take one stage per
+//     operand instead of 8 and 4. The slab sequence runs across the
+//     program's operations and across the block's tiles, so the ring never
+//     drains; each thread's 16-byte chunk of an operand's slabs is set up
+//     once per operand; one block barrier per stage both publishes the
+//     stage and frees the oldest slot.
+//   * The epilogue works in registers: fp32 bias, ReLU, bf16 (pairs), into
+//     the destination buffer; the heads write their real columns to the
+//     (n, out_w) fp32 output, rows at or past n masked. The barrier of the
+//     next operation's first stage orders an epilogue's writes before any
+//     read of them, so operations need no barrier of their own.
+//   * The skip layer's cat([x, h]) @ W is two operands accumulated into the
 //     same registers, x @ W[:enc] + h @ W[enc:], as is the view layer's
 //     cat([bottleneck, dirs]) @ Wv.
-// At 107 KB of shared memory two blocks share an SM (hi_lo: 206 KB, one
-// block). Every block re-reads
-// all weights from L2 (about 4.9 GB per coarse call), which likely sets the
-// pace of this simple design; larger tiles, persistent blocks, wgmma and
-// TMA multicast of weight tiles are later work.
 //
-// The network arrives as a small program built by the Python wrapper
-// (nerfmlp_torch/ops/fused_mlp.py): a header and one record per layer
-// naming its operand buffers, weight blocks, bias, width, epilogue and
-// destination. Every dimension is padded to a multiple of 16 with zero
-// weights, zero biases and zero activations, so padding adds exactly zero.
-// Rows past n are zero on the way in and never written on the way out.
+// Measured (chip_smoke.py, one H100 80GB HBM3 at 700 W): about 4.0 ms for
+// the 524,288-point served fine call and 1.0 ms for the 131,072-point
+// train fine call, ~150 TFLOP/s: 2.6x faster than the first design (wmma,
+// one 64-point tile per block, synchronous slab loads), 6.4x the bound.
+// No part dominates (scripts/bwd_ablate.py): without the mma ~20% less,
+// without the stage wait and barrier ~17%, without the weight loads ~17%,
+// without the B-fragment ldmatrix ~11%, without the encoding (sinf/cosf
+// and the point loads) ~8%. The next step is wgmma with a producer warp
+// and TMA multicast of the weight slabs (PERF.md).
+//
+// The network arrives as a program built by the Python wrapper
+// (nerfmlp_torch/ops/fused_mlp.py, pack_params) and copied into shared
+// memory: a header, a table of the four buffers and one record per column
+// pass of each layer naming its operand buffers, weight blocks, bias,
+// width, epilogue and destination. Every dimension is padded to a multiple
+// of 16 with zero weights, zero biases and zero activations, so padding adds
+// exactly zero. Rows past n are zero on the way in and never written on the
+// way out.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <stdint.h>
 
-#include <cstring>
+#include "mlp_tile.cuh"
 
 namespace {
 
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
+using namespace mlp_tile;
 
-constexpr int kRows = 64;         // points per block
-constexpr int kThreads = 256;     // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kSlabRows = 32;     // weight rows per shared-memory slab
-constexpr int kChunkCols = 256;   // output columns per register pass
-constexpr int kPad = 8;           // bf16 elements of padding per smem row
-constexpr int kSlabLd = kChunkCols + kPad;
-constexpr int kFrags = 8;         // accumulators per warp: 16 x 128
-constexpr int kMaxLayers = 48;
-constexpr int kHeaderInts = 22;
-constexpr int kLayerInts = 11;
-static_assert((kRows / 16) * (kChunkCols / 16) == kWarps * kFrags,
-              "the warps' accumulators tile one chunk exactly");
+constexpr int kThreads = 512;     // 16 warps, 4 x 4 over an output pass
+constexpr int kMaxN = 256;        // output columns of one pass
+constexpr int kHeaderInts = 16;
+constexpr int kMaxBufs = 4;       // X, D, P0, P1: offset, ld, cols
+constexpr int kOpInts = 16;
+constexpr int kBufsBase = kHeaderInts;
+constexpr int kOpsBase = kBufsBase + 3 * kMaxBufs;
 
-// Shared-memory buffers a layer reads or writes.
-enum Buffer { kX = 0, kD = 1, kA = 2, kB = 3 };
+// Header fields.
+enum Header {
+  hNOps = 0, hProgLen, hNFreqs, hEncDim, hDirsDim, hOutW, hHiLo, hRows,
+  hKSub, hStages, hRingOff, hStageElems, hSmem
+};
+// Buffers of the encoded points and dirs (the activations: 2 and 3).
+enum Buffer { kX = 0, kD = 1 };
 // Epilogues.
 enum Mode { kReluBf16 = 0, kBf16 = 1, kOutF32 = 2 };
-
-struct Layer {
-  int src_a, w_a, k_a;  // first operand: buffer, weight offset, padded rows
-  int src_b, w_b, k_b;  // second operand (k_b == 0: none)
-  int bias;             // offset of the layer's fp32 bias
-  int n;                // padded output columns (row stride of its weights)
-  int mode;             // Mode
-  int dst;              // destination buffer, or output column for kOutF32
-  int n_real;           // real output columns (kOutF32 writes only these)
+// Operation record fields: columns [c, c + n) of a layer,
+//   dst[:, col:col + n] = act(A @ WA + B @ WB + bias)
+// with WA the (k_a, n) block at weight offset w_a, row stride w_ld (the
+// layer's padded width; in hi_lo its lo plane k_a * w_ld further on), B and
+// WB likewise (k_b == 0: none). kOutF32: out[:, dst + j] for j < n_real.
+// kr: weight rows per ring stage, a multiple of 16 — KS, or more for a
+// narrow operation whose slab of kr x (n + kPad) still fits a ring slot
+// (the sigma and rgb heads take one stage per operand).
+enum Field {
+  fSrcA = 0, fWA, fKA, fSrcB, fWB, fKB, fBias, fN, fWLd, fMode, fDst, fCol,
+  fNReal, fKR
 };
-static_assert(sizeof(Layer) == kLayerInts * sizeof(int), "Layer layout");
 
-struct Net {
-  int n_layers, n_freqs, enc_dim, dirs_dim, out_w;
-  int hi_lo;       // 1: three bf16 products per matmul on (hi, lo) pairs
-  int cols[4];     // padded columns of X, D, A, B (row stride = cols + kPad)
-  int off[4];      // byte offsets of X, D, A, B in dynamic shared memory
-  int off_lo[4];   // ... of their lo planes (hi_lo only)
-  int off_slab, off_slab_lo, off_stage, smem_bytes;
-  Layer layers[kMaxLayers];
-};
+// One slab thread per 16-byte chunk of 16 rows: 16 x 32 chunks.
+static_assert(16 * (kMaxN / 8) == kThreads, "a slab row set per thread");
 
 // A value into an activation buffer: bf16, or in hi_lo mode the pair
 // (hi, lo) = (bf16(v), bf16(v - hi)) — the split the TPU kernel takes of
 // its fp32 activations before each product (pallas_mlp.py:68-100).
 template <bool kHiLo>
-__device__ __forceinline__ void put(bf16* hi, bf16* lo, int i, float v) {
+__device__ __forceinline__ void put(bf16* p, int plane, float v) {
   const bf16 h = __float2bfloat16(v);
-  hi[i] = h;
-  if (kHiLo) lo[i] = __float2bfloat16(v - __bfloat162float(h));
+  p[0] = h;
+  if (kHiLo) p[plane] = __float2bfloat16(v - __bfloat162float(h));
 }
 
-// kHiLo = false: bf16 operands, fp32 accumulation, bf16 activations.
-// kHiLo = true (fp32_precision="high"): fp32 activations held as (hi, lo)
-// bf16 planes, weights as (hi, lo) blocks, hi@hi + hi@lo + lo@hi per matmul.
-template <bool kHiLo>
-__global__ void __launch_bounds__(kThreads, kHiLo ? 1 : 2)
+// kHiLo: (hi, lo) planes and three products. MT: m16 tiles per warp (2:
+// 128-point tiles, 1: 64). KSUB: 16-row k-steps per ring stage of a full
+// width operation.
+template <bool kHiLo, int MT, int KSUB>
+__global__ void __launch_bounds__(kThreads, 1)
 fused_mlp_fwd_kernel(const float* __restrict__ pts,
                      const void* __restrict__ dirs,
                      const bf16* __restrict__ weights,
                      const float* __restrict__ biases,
-                     float* __restrict__ out, int n, const Net net) {
+                     float* __restrict__ out,
+                     const int* __restrict__ prog_in, int prog_len, int n,
+                     int n_tiles) {
+  constexpr int NT = 8;           // n8 tiles per warp: 64 columns
+  constexpr int T = 64 * MT;      // points per tile
+  constexpr int KS = 16 * KSUB;   // weight rows per ring stage
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* buf[4];
-  bf16* lo[4];
-  int ld[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    buf[i] = reinterpret_cast<bf16*>(smem + net.off[i]);
-    lo[i] = reinterpret_cast<bf16*>(smem + net.off_lo[i]);
-    ld[i] = net.cols[i] + kPad;
-  }
-  bf16* slab = reinterpret_cast<bf16*>(smem + net.off_slab);
-  bf16* slab_lo = reinterpret_cast<bf16*>(smem + net.off_slab_lo);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* stage = reinterpret_cast<float*>(smem + net.off_stage) + warp * 256;
-  const int row0 = blockIdx.x * kRows;
+  int* prog = reinterpret_cast<int*>(smem);
+  for (int i = threadIdx.x; i < prog_len; i += kThreads) prog[i] = prog_in[i];
+  __syncthreads();
 
-  // Encoded points: [x, sin(x * 2^0), cos(x * 2^0), sin(x * 2^1), ...].
-  const int enc_k = net.cols[kX];
-  for (int idx = threadIdx.x; idx < kRows * enc_k; idx += kThreads) {
-    const int r = idx / enc_k, j = idx - r * enc_k, g = row0 + r;
-    float v = 0.f;
-    if (g < n && j < net.enc_dim) {
-      if (j < 3) {
-        v = pts[3 * static_cast<size_t>(g) + j];
-      } else {
-        const int l = (j - 3) / 6, m = (j - 3) - 6 * l;
-        const float a = pts[3 * static_cast<size_t>(g) + m % 3] * ldexpf(1.f, l);
-        v = m < 3 ? sinf(a) : cosf(a);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rb = (warp >> 2) * MT * 16;  // the warp's first row
+  const int cb = (warp & 3) * 64;        // ... and first column of a pass
+  const int* bufs = prog + kBufsBase;
+  const int* ops = prog + kOpsBase;
+  const int n_ops = prog[hNOps];
+  const int stages = prog[hStages];
+  const int half = prog[hStageElems];  // a stage's lo plane follows its hi
+  const int stage_elems = half * (kHiLo ? 2 : 1);
+  bf16* ring = reinterpret_cast<bf16*>(smem + prog[hRingOff]);
+  auto bufp = [&](int b) { return reinterpret_cast<bf16*>(smem + bufs[3 * b]); };
+  auto bld = [&](int b) { return bufs[3 * b + 1]; };
+  auto stages_of = [](int k, int kr) { return (k + kr - 1) / kr; };
+  auto steps = [&](int oi) {
+    const int* o = ops + oi * kOpInts;
+    return stages_of(o[fKA], o[fKR]) + stages_of(o[fKB], o[fKR]);
+  };
+
+  // The slab stream: every operation's kr-row k-slabs, operand A's then
+  // B's, in program order, tile after tile. A slab holds rows k0..k0+kr-1
+  // of the operation's columns of W, stored [kr][n + kPad]; rows past the
+  // operand's k are not loaded (and not read). A thread's chunk (row
+  // tid / 32, 16-byte column chunk tid % 32, and the same chunk every 16
+  // rows further on) is set up once per operand (f_operand); fetch() then
+  // issues it, one slab further each call, or an empty group at the end.
+  const bf16* f_src = weights;
+  long long f_lo = 0, f_rows16 = 0;
+  int f_dst = -1, f_ld = 0, f_row = 0, f_k = 0, f_kr = KS;
+  int f_op = -1, f_j = 0, f_steps = 0, f_steps_a = 0;
+  auto f_operand = [&](const int* o, bool second) {
+    const int k = second ? o[fKB] : o[fKA], nn = o[fN], wld = o[fWLd];
+    const int r = tid >> 5, cc = tid & 31;
+    f_lo = static_cast<long long>(k) * wld;
+    f_ld = nn + kPad;
+    f_dst = cc < nn / 8 ? r * f_ld + cc * 8 : -1;
+    f_src = weights + (second ? o[fWB] : o[fWA]) +
+            static_cast<long long>(r) * wld + cc * 8;
+    f_rows16 = 16LL * wld;
+    f_row = r;
+    f_k = k;
+    f_kr = o[fKR];
+  };
+  int per_tile = 0;
+  for (int oi = 0; oi < n_ops; ++oi) per_tile += steps(oi);
+  const int my_tiles = static_cast<int>(blockIdx.x) < n_tiles
+      ? (n_tiles - 1 - static_cast<int>(blockIdx.x)) / static_cast<int>(gridDim.x) + 1
+      : 0;
+  long long f_left = static_cast<long long>(my_tiles) * per_tile;
+  auto fetch = [&](int slot) {
+    if (f_left > 0) {
+      while (f_j >= f_steps) {
+        f_op = f_op + 1 == n_ops ? 0 : f_op + 1;
+        f_j = 0;
+        f_steps = steps(f_op);
+        f_steps_a = stages_of(ops[f_op * kOpInts + fKA], ops[f_op * kOpInts + fKR]);
+        if (f_steps) f_operand(ops + f_op * kOpInts, false);
+      }
+      if (f_j == f_steps_a) f_operand(ops + f_op * kOpInts, true);
+      if (f_dst >= 0) {
+        bf16* d = ring + slot * stage_elems + f_dst;
+        const bf16* src = f_src;
+#pragma unroll 2
+        for (int s = 0; s < f_kr && f_row + s < f_k; s += 16) {
+          cp_async16(d + s * f_ld, src);
+          if (kHiLo) cp_async16(d + s * f_ld + half, src + f_lo);
+          src += f_rows16;
+        }
+      }
+      f_src += (f_kr / 16) * f_rows16;
+      f_row += f_kr;
+      ++f_j;
+      --f_left;
+    }
+    cp_async_commit();
+  };
+  for (int s = 0; s < stages - 1; ++s) fetch(s);
+  int consumed = 0;
+
+  float acc[MT][NT][4];
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * T;
+    __syncthreads();  // the previous tile's reads of X and D are done
+
+    // Encoded points, then the encoded view directions (bf16, or fp32 in
+    // hi_lo mode); zeros past n and in the padding columns.
+    {
+      const int ldx = bld(kX), xc = bufs[3 * kX + 2], enc_dim = prog[hEncDim];
+      bf16* xs = bufp(kX);
+      for (int idx = tid; idx < T * xc; idx += kThreads) {
+        const int r = idx / xc, j = idx - r * xc, g = row0 + r;
+        const float v = (g < n && j < enc_dim) ? encode(pts, g, j) : 0.f;
+        put<kHiLo>(xs + r * ldx + j, T * ldx, v);
       }
     }
-    put<kHiLo>(buf[kX], lo[kX], r * ld[kX] + j, v);
-  }
-  // Encoded view directions: bf16, or fp32 in hi_lo mode.
-  const int dirs_k = net.cols[kD];
-  for (int idx = threadIdx.x; idx < kRows * dirs_k; idx += kThreads) {
-    const int r = idx / dirs_k, j = idx - r * dirs_k, g = row0 + r;
-    float v = 0.f;
-    if (g < n && j < net.dirs_dim) {
-      const size_t at = static_cast<size_t>(g) * net.dirs_dim + j;
-      v = kHiLo ? static_cast<const float*>(dirs)[at]
-                : __bfloat162float(static_cast<const bf16*>(dirs)[at]);
+    if (prog[hDirsDim] > 0) {
+      const int ldd = bld(kD), dc = bufs[3 * kD + 2], dirs_dim = prog[hDirsDim];
+      bf16* ds = bufp(kD);
+      for (int idx = tid; idx < T * dc; idx += kThreads) {
+        const int r = idx / dc, j = idx - r * dc, g = row0 + r;
+        float v = 0.f;
+        if (g < n && j < dirs_dim) {
+          const long long at = static_cast<long long>(g) * dirs_dim + j;
+          v = kHiLo ? static_cast<const float*>(dirs)[at]
+                    : __bfloat162float(static_cast<const bf16*>(dirs)[at]);
+        }
+        put<kHiLo>(ds + r * ldd + j, T * ldd, v);
+      }
     }
-    put<kHiLo>(buf[kD], lo[kD], r * ld[kD] + j, v);
-  }
 
-  const int rt = warp & 3;              // this warp's 16-row tile
-  const int cbase = (warp >> 2) * 128;  // its first column in a chunk
-  for (int li = 0; li < net.n_layers; ++li) {
-    const Layer& L = net.layers[li];
-    for (int c0 = 0; c0 < L.n; c0 += kChunkCols) {
-      const int cn = min(kChunkCols, L.n - c0);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kFrags];
+    for (int oi = 0; oi < n_ops; ++oi) {
+      const int* o = ops + oi * kOpInts;
 #pragma unroll
-      for (int j = 0; j < kFrags; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-      for (int op = 0; op < 2; ++op) {
-        const int k = op ? L.k_b : L.k_a;
-        if (k == 0) continue;
-        const int src = op ? L.src_b : L.src_a;
-        // In hi_lo mode a weight block's lo half follows its hi half.
-        const bf16* w = weights + (op ? L.w_b : L.w_a);
-        const bf16* w_lo = w + static_cast<size_t>(k) * L.n;
-        const bf16* a = buf[src] + rt * 16 * ld[src];
-        const bf16* a_lo = lo[src] + rt * 16 * ld[src];
-        for (int k0 = 0; k0 < k; k0 += kSlabRows) {
-          const int ks = min(kSlabRows, k - k0);
-          const int vecs = cn / 8;  // 16-byte vectors per slab row
-          __syncthreads();  // previous slab consumed, previous layer written
-          for (int idx = threadIdx.x; idx < ks * vecs; idx += kThreads) {
-            const int r = idx / vecs, v = idx - r * vecs;
-            const size_t at = static_cast<size_t>(k0 + r) * L.n + c0 + 8 * v;
-            *reinterpret_cast<uint4*>(slab + r * kSlabLd + 8 * v) =
-                *reinterpret_cast<const uint4*>(w + at);
-            if (kHiLo)
-              *reinterpret_cast<uint4*>(slab_lo + r * kSlabLd + 8 * v) =
-                  *reinterpret_cast<const uint4*>(w_lo + at);
-          }
-          __syncthreads();
-          for (int kk = 0; kk < ks; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa, fa_lo;
-            wmma::load_matrix_sync(fa, a + k0 + kk, ld[src]);
-            if (kHiLo) wmma::load_matrix_sync(fa_lo, a_lo + k0 + kk, ld[src]);
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-            for (int j = 0; j < kFrags; ++j) {
-              const int col = cbase + 16 * j;
-              if (col < cn) {  // warp-uniform
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-                wmma::load_matrix_sync(fb, slab + kk * kSlabLd + col, kSlabLd);
-                wmma::mma_sync(acc[j], fa, fb, acc[j]);
-                if (kHiLo) {
-                  wmma::mma_sync(acc[j], fa_lo, fb, acc[j]);
-                  wmma::load_matrix_sync(fb, slab_lo + kk * kSlabLd + col,
-                                         kSlabLd);
-                  wmma::mma_sync(acc[j], fa, fb, acc[j]);
-                }
-              }
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+      // Per operation: each operand's A rows for this lane, and where the
+      // lane's B fragments sit in a slab (column pair p at + 16 p).
+      const int nn = o[fN], ka = o[fKA], kb = o[fKB], kr = o[fKR];
+      const int steps_a = stages_of(ka, kr), n_steps = steps_a + stages_of(kb, kr);
+      const int lda = bld(o[fSrcA]), ldb = kb ? bld(o[fSrcB]) : 0;
+      const bf16* a_op =
+          bufp(o[fSrcA]) + (rb + (lane & 15)) * lda + (lane >> 4) * 8;
+      const bf16* b_op =
+          kb ? bufp(o[fSrcB]) + (rb + (lane & 15)) * ldb + (lane >> 4) * 8
+             : a_op;
+      const int sld = nn + kPad;
+      const int b_frag = (lane & 15) * sld + cb + (lane >> 4) * 8;
+      // One 16-row k-step: A fragments at a_s (row stride ld), B from the
+      // slab's rows at b_s.
+      auto k_step = [&](const bf16* a_s, const bf16* b_s, int ld) {
+        uint32_t a[MT][4], al[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          ldsm_x4(a[mt], a_s + mt * 16 * ld);
+          if (kHiLo) ldsm_x4(al[mt], a_s + mt * 16 * ld + T * ld);
+        }
+#pragma unroll
+        for (int p = 0; p < NT / 2; ++p) {
+          if (cb + 16 * p >= nn) continue;  // warp-uniform
+          uint32_t b[4], bl[4];
+          const bf16* q = b_s + p * 16;
+          ldsm_x4_t(b, q);
+          if (kHiLo) ldsm_x4_t(bl, q + half);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma(acc[mt][2 * p], a[mt], b[0], b[1]);
+            mma(acc[mt][2 * p + 1], a[mt], b[2], b[3]);
+            if (kHiLo) {
+              mma(acc[mt][2 * p], al[mt], b[0], b[1]);
+              mma(acc[mt][2 * p + 1], al[mt], b[2], b[3]);
+              mma(acc[mt][2 * p], a[mt], bl[0], bl[1]);
+              mma(acc[mt][2 * p + 1], a[mt], bl[2], bl[3]);
             }
           }
         }
+      };
+      for (int j = 0; j < n_steps; ++j) {
+        cp_async_wait_n(stages - 2);
+        __syncthreads();  // the slab is in; the oldest slot is free
+        fetch((consumed + stages - 1) % stages);
+        const bf16* slab = ring + (consumed % stages) * stage_elems + b_frag;
+        ++consumed;
+        const bool second = j >= steps_a;
+        const int ld = second ? ldb : lda, k = second ? kb : ka;
+        const int k0 = kr * (second ? j - steps_a : j);
+        const bf16* a_base = (second ? b_op : a_op) + k0;
+        if (kr == KS) {  // a full-width operation: unrolled k-steps
+#pragma unroll
+          for (int s = 0; s < KSUB; ++s) {
+            if (s > 0 && k0 + 16 * s >= k) break;  // warp-uniform
+            k_step(a_base + 16 * s, slab + s * 16 * sld, ld);
+          }
+        } else {
+          for (int s = 0; s < kr && k0 + s < k; s += 16)
+            k_step(a_base + s, slab + s * sld, ld);
+        }
       }
 
-      // Epilogue: fp32 bias, then ReLU and the activation type into shared
-      // memory, or the real columns in fp32 to the output.
+      // Epilogue, in registers: fp32 bias, then ReLU and the activation
+      // type into the destination buffer, or the real columns in fp32 to
+      // the output. Accumulator acc[mt][nt][2 hh + e] is row rb + 16 mt +
+      // lane / 4 + 8 hh, column cb + 8 nt + 2 (lane % 4) + e of the pass.
+      const int mode = o[fMode], dst = o[fDst];
+      const float* bias = biases + o[fBias];
+      const int n_real = o[fNReal], out_w = prog[hOutW];
+      bf16* d = mode == kOutF32 ? nullptr : bufp(dst) + o[fCol];
+      const int ldd = mode == kOutF32 ? 0 : bld(dst);
 #pragma unroll
-      for (int j = 0; j < kFrags; ++j) {
-        const int col = cbase + 16 * j;
-        if (col >= cn) continue;
-        wmma::store_matrix_sync(stage, acc[j], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int r = rt * 16 + (e >> 4);
-          const int c = c0 + col + (e & 15);
-          float v = stage[e] + biases[L.bias + c];
-          if (L.mode == kOutF32) {
-            if (c < L.n_real && row0 + r < n)
-              out[static_cast<size_t>(row0 + r) * net.out_w + L.dst + c] = v;
-          } else {
-            if (L.mode == kReluBf16) v = fmaxf(v, 0.f);
-            put<kHiLo>(buf[L.dst], lo[L.dst], r * ld[L.dst] + c, v);
+      for (int nt = 0; nt < NT; ++nt) {
+        if (cb + nt * 8 >= nn) continue;  // warp-uniform
+        const int col = cb + nt * 8 + 2 * (lane & 3);
+        const float b0 = bias[col], b1 = bias[col + 1];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = rb + mt * 16 + (lane >> 2) + 8 * hh;
+            float v0 = acc[mt][nt][2 * hh] + b0;
+            float v1 = acc[mt][nt][2 * hh + 1] + b1;
+            if (mode == kOutF32) {
+              const int g = row0 + row;
+              if (g < n) {
+                float* at = out + static_cast<long long>(g) * out_w + dst + col;
+                if (col < n_real) at[0] = v0;
+                if (col + 1 < n_real) at[1] = v1;
+              }
+              continue;
+            }
+            if (mode == kReluBf16) {
+              v0 = fmaxf(v0, 0.f);
+              v1 = fmaxf(v1, 0.f);
+            }
+            const bf16 h0 = __float2bfloat16(v0), h1 = __float2bfloat16(v1);
+            bf16* at = d + row * ldd + col;
+            *reinterpret_cast<__nv_bfloat162*>(at) = __halves2bfloat162(h0, h1);
+            if (kHiLo)
+              store2(at + T * ldd, v0 - __bfloat162float(h0),
+                     v1 - __bfloat162float(h1));
           }
         }
-        __syncwarp();
       }
     }
   }
+  cp_async_wait<0>();
 }
 
-template <bool kHiLo>
-cudaError_t launch(const Net& net, const float* pts, const void* dirs,
-                   const bf16* weights, const float* biases, float* out,
-                   int n, cudaStream_t stream) {
+template <bool kHiLo, int MT, int KSUB>
+cudaError_t launch(const float* pts, const void* dirs, const bf16* weights,
+                   const float* biases, float* out, const int* prog,
+                   int prog_len, int n, int grid, int smem,
+                   cudaStream_t stream) {
+  const int n_tiles = (n + 64 * MT - 1) / (64 * MT);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_fwd_kernel<kHiLo>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      net.smem_bytes);
+      fused_mlp_fwd_kernel<kHiLo, MT, KSUB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int blocks = (n + kRows - 1) / kRows;
-  fused_mlp_fwd_kernel<kHiLo><<<blocks, kThreads, net.smem_bytes, stream>>>(
-      pts, dirs, weights, biases, out, n, net);
+  fused_mlp_fwd_kernel<kHiLo, MT, KSUB><<<grid, kThreads, smem, stream>>>(
+      pts, dirs, weights, biases, out, prog, prog_len, n, n_tiles);
   return cudaGetLastError();
 }
 
@@ -267,8 +396,7 @@ extern "C" {
 
 // The kernel's fixed shape, for the wrapper to check against its own.
 int fused_mlp_fwd_constants(int* out, int len) {
-  const int c[] = {kRows, kThreads, kSlabRows, kChunkCols, kPad,
-                   kMaxLayers, kHeaderInts, kLayerInts};
+  const int c[] = {kThreads, kPad, kMaxN, kHeaderInts, kMaxBufs, kOpInts};
   const int count = static_cast<int>(sizeof(c) / sizeof(c[0]));
   for (int i = 0; i < len && i < count; ++i) out[i] = c[i];
   return count;
@@ -279,32 +407,38 @@ const char* fused_mlp_fwd_error_string(int code) {
 }
 
 // pts (n, 3) fp32; dirs (n, dirs_dim), bf16 (fp32 in hi_lo mode) or null;
-// weights bf16; biases fp32; out (n, out_w) fp32 — all on the current
-// device. prog is the host program (header + layers). Launches on
-// `stream`, does not synchronise, allocates nothing; returns
-// cudaGetLastError().
+// weights bf16; biases fp32; out (n, out_w) fp32; prog (int32): the
+// program, whose first prog_len ints go to shared memory — all on the
+// current device. rows (128 or 64 points per tile) and ksub (2 or 1
+// 16-row k-steps per ring stage) pick the kernel; smem: the program's
+// shared-memory bytes. Launches `grid` persistent blocks on `stream`, does
+// not synchronise, allocates nothing; returns cudaGetLastError().
 int fused_mlp_fwd(const void* pts, const void* dirs, const void* weights,
-                  const void* biases, void* out, int n, const int* prog,
-                  int prog_len, void* stream) {
-  if (prog_len < kHeaderInts || (prog_len - kHeaderInts) % kLayerInts != 0)
+                  const void* biases, void* out, int n, const void* prog,
+                  int prog_len, int hi_lo, int rows, int ksub, int grid,
+                  int smem, void* stream) {
+  if (prog_len < kOpsBase || grid <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Net net;
-  std::memset(&net, 0, sizeof(net));
-  std::memcpy(&net, prog, kHeaderInts * sizeof(int));
-  if (net.n_layers != (prog_len - kHeaderInts) / kLayerInts ||
-      net.n_layers > kMaxLayers)
-    return static_cast<int>(cudaErrorInvalidValue);
-  std::memcpy(net.layers, prog + kHeaderInts,
-              net.n_layers * sizeof(Layer));
   if (n <= 0) return static_cast<int>(cudaSuccess);
   const auto* p = static_cast<const float*>(pts);
   const auto* w = static_cast<const bf16*>(weights);
   const auto* b = static_cast<const float*>(biases);
+  const auto* pr = static_cast<const int*>(prog);
   auto* o = static_cast<float*>(out);
   auto* s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      net.hi_lo ? launch<true>(net, p, dirs, w, b, o, n, s)
-                : launch<false>(net, p, dirs, w, b, o, n, s));
+  if (hi_lo && rows == 64 && ksub == 1)
+    return static_cast<int>(launch<true, 1, 1>(p, dirs, w, b, o, pr, prog_len,
+                                               n, grid, smem, s));
+  if (!hi_lo && rows == 128 && ksub == 2)
+    return static_cast<int>(launch<false, 2, 2>(p, dirs, w, b, o, pr,
+                                                prog_len, n, grid, smem, s));
+  if (!hi_lo && rows == 64 && ksub == 2)
+    return static_cast<int>(launch<false, 1, 2>(p, dirs, w, b, o, pr,
+                                                prog_len, n, grid, smem, s));
+  if (!hi_lo && rows == 64 && ksub == 1)
+    return static_cast<int>(launch<false, 1, 1>(p, dirs, w, b, o, pr,
+                                                prog_len, n, grid, smem, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

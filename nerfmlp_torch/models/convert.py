@@ -25,6 +25,7 @@ from typing import Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from nerfmlp_torch import resolve_device
 from nerfmlp_torch.config import ModelConfig
 from nerfmlp_torch.models.mlp import NeRFMLP
 
@@ -158,12 +159,14 @@ def state_dict_from_params(params: Mapping, cfg: Optional[ModelConfig] = None
 
 
 def model_from_params(params: Mapping, cfg: Optional[ModelConfig] = None,
-                      device="cpu") -> NeRFMLP:
-    """JAX-layout param dict -> :class:`NeRFMLP` on ``device``."""
+                      device=None) -> NeRFMLP:
+    """JAX-layout param dict -> :class:`NeRFMLP` on ``device`` (default
+    ``cuda``; raises without a GPU unless ``device="cpu"``)."""
+    dev = resolve_device(device)
     cfg = cfg or ModelConfig()
     model = NeRFMLP(cfg)
     model.load_state_dict(state_dict_from_params(params, cfg))
-    return model.to(device)
+    return model.to(dev)
 
 
 def params_from_model(model: NeRFMLP) -> Dict:

@@ -1,10 +1,12 @@
 """Build the port's CUDA sources into shared libraries, at first use.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C interface, compiled
-by ``nvcc`` for Hopper (``sm_90a``) into ``build/nerfmlp_torch/`` beside
-the package (or ``$NERFMLP_TORCH_BUILD_DIR``) and loaded with ``ctypes``.
-The library's file name carries a hash of its source and flags, so an
-edited source rebuilds and an unchanged one loads at once. Builds write
+Each kernel is one ``csrc/*.cu`` file with a plain C interface (it may
+include the headers ``csrc/*.cuh``), compiled by ``nvcc`` for Hopper
+(``sm_90a``) into ``build/nerfmlp_torch/`` beside the package (or
+``$NERFMLP_TORCH_BUILD_DIR``) and loaded with ``ctypes``. The library's
+file name carries a hash of its source, the headers beside it and the
+flags, so an edited source or header rebuilds and an unchanged one loads
+at once. Builds write
 to a temporary name and rename, so concurrent processes never load a
 half-written library. No ``--use_fast_math``: the encoding's ``sinf``/
 ``cosf`` take arguments of several thousand, where the fast intrinsics
@@ -19,7 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 
@@ -55,11 +57,20 @@ def nvcc() -> str:
                        "kernels are built from source at first use")
 
 
+def sources(name: str, csrc: str = CSRC) -> List[str]:
+    """The files ``name``'s build reads: its source and every header in
+    ``csrc``."""
+    headers = sorted(f for f in os.listdir(csrc) if f.endswith(".cuh"))
+    return [os.path.join(csrc, f) for f in [KERNELS[name], *headers]]
+
+
 def library_path(name: str, csrc: str = CSRC) -> str:
-    """Where ``name``'s library lives for its source in ``csrc`` and the
+    """Where ``name``'s library lives for its sources in ``csrc`` and the
     flags."""
-    with open(os.path.join(csrc, KERNELS[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name, csrc):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     return os.path.join(build_dir(), f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

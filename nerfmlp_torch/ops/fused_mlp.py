@@ -24,9 +24,10 @@ it and how it is built for Hopper.
 * :func:`pack_params` lays a net's weights out for the kernels once
   (transposed to ``(in, out)``, split at the skip and view layers, padded
   to multiples of 16 with zeros, bf16 — (hi, lo) bf16 pairs in the hi_lo
-  mode of ``fp32_precision="high"``) together with the forward's layer
-  program and the backward's program and job list — at service build, weight
-  swap and once per train step, never per call.
+  mode of ``fp32_precision="high"``) together with the forward's program
+  (one operation per pass of at most ``FWD_MAX_N`` columns over each
+  layer) and the backward's program and job list — at service build,
+  weight swap and once per train step, never per call.
 * :func:`kernel_fits` and :func:`backward_fits` are the Hopper budgets that
   decide, from the architecture alone, whether a net goes to the kernels
   (the role of ``backward_fits_vmem``, :592-608, for the TPU's VMEM).
@@ -52,14 +53,14 @@ log = logging.getLogger(__name__)
 
 # The forward kernel's fixed shape (csrc/fused_mlp_fwd.cu); checked against
 # the built library at load.
-TILE_ROWS = 64          # points per block
-THREADS = 256
-SLAB_ROWS = 32          # weight rows per shared-memory slab
-CHUNK_COLS = 256        # output columns per register pass
+FWD_THREADS = 512       # 16 warps, 4 x 4 over a tile's output pass
 PAD = 8                 # bf16 elements of padding per shared-memory row
-MAX_LAYERS = 48
-HEADER_INTS = 22
-LAYER_INTS = 11
+FWD_MAX_N = 256         # output columns of one pass
+FWD_HEADER_INTS = 16
+FWD_MAX_BUFS = 4        # X, D, P0, P1: (offset, ld, cols)
+FWD_OP_INTS = 16
+FWD_OPS_BASE = FWD_HEADER_INTS + 3 * FWD_MAX_BUFS
+MAX_LAYERS = 48         # layers of a program the forward admits
 SMEM_LIMIT = 232_448    # dynamic shared memory one Hopper block may use
 
 # The backward kernels' fixed shape (csrc/fused_mlp_bwd.cu).
@@ -89,8 +90,8 @@ BWD_CHUNK_ROWS = 131_072
 BWD_MAX_SPLITS = 32
 BWD_MIN_SPLIT_ROWS = 2048
 
-# Shared-memory buffers and epilogues of the forward's layer program.
-_X, _D, _A, _B = 0, 1, 2, 3
+# Shared-memory buffers and epilogues of the forward's program.
+_X, _D, _P0, _P1 = 0, 1, 2, 3
 _RELU_BF16, _BF16, _OUT_F32 = 0, 1, 2
 # Operations of the backward's phase-1 program.
 _FWD, _DX, _LOAD_G = 0, 1, 2
@@ -104,56 +105,109 @@ def _align128(n: int) -> int:
     return -(-n // 128) * 128
 
 
-def _smem_layout(enc_k: int, dirs_k: int, hid_k: int, hi_lo: bool):
-    """Byte offsets in the forward kernel's dynamic shared memory: the
-    buffers X, D, A, B, their lo planes and the weight slab's lo twin
-    (empty unless hi_lo), the weight slab, the epilogue stage — and the
-    total."""
-    off = 0
-
-    def region(nbytes):
-        nonlocal off
-        start, off = off, off + _align128(nbytes)
-        return start
-
-    cols = (enc_k, dirs_k, hid_k, hid_k)
-    offs = [region(TILE_ROWS * (c + PAD) * 2 if c else 0) for c in cols]
-    offs_lo = [region(TILE_ROWS * (c + PAD) * 2 if c and hi_lo else 0)
-               for c in cols]
-    slab = SLAB_ROWS * (CHUNK_COLS + PAD) * 2
-    off_slab = region(slab)
-    off_slab_lo = region(slab if hi_lo else 0)
-    off_stage = region((THREADS // 32) * 256 * 4)
-    return offs, offs_lo, off_slab, off_slab_lo, off_stage, off
-
-
 def _hidden_cols(mc: ModelConfig, vdirs: bool) -> int:
     widths = [mc.width] + ([mc.bottleneck_ch, mc.view_width] if vdirs else [])
     return max(_pad16(w) for w in widths)
 
 
+def _layer_widths(mc: ModelConfig, vdirs: bool) -> List[int]:
+    """Padded output widths of the forward's layers, in program order: the
+    trunk, then sigma, bottleneck, view and rgb, or the output head."""
+    trunk = [_pad16(mc.width)] * mc.depth
+    if vdirs:
+        return trunk + [16, _pad16(mc.bottleneck_ch), _pad16(mc.view_width),
+                        16]
+    return trunk + [_pad16(mc.output_ch)]
+
+
+def forward_ops(mc: ModelConfig, vdirs: bool) -> int:
+    """Operations of the forward's program: one per pass of at most
+    ``FWD_MAX_N`` columns over each layer."""
+    return sum(-(-w // FWD_MAX_N) for w in _layer_widths(mc, vdirs))
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdLayout:
+    """The forward kernel's shared memory for one architecture and mode:
+    ``rows`` points per tile (128, or 64), ``ksub`` 16-row k-steps per
+    weight-ring stage (2, or 1), the program's buffers as ``(name, (byte
+    offset, ld, cols))`` pairs in table order, the ring's byte offset, the
+    elements of a stage's hi slab, the ring's stages and the total
+    bytes."""
+
+    rows: int
+    ksub: int
+    bufs: Tuple[Tuple[str, Tuple[int, int, int]], ...]
+    ring_off: int
+    stage_elems: int
+    stages: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_layout(mc: ModelConfig, vdirs: bool, hi_lo: bool) -> FwdLayout:
+    """The program, then the buffers x (encoded points), d (encoded dirs),
+    p0 / p1 (a layer's input and output, ping-pong), each ``rows`` rows of
+    ``cols + PAD`` bf16 (two planes in hi_lo), then the weight ring with as
+    many stages (up to 4) as fit. The first of 128-point tiles with 32-row
+    stages, 64-point tiles with 32-row stages and 64-point tiles with
+    16-row stages (hi_lo: only the last) that holds three stages, else the
+    first that holds two."""
+    planes = 2 if hi_lo else 1
+    hid = _hidden_cols(mc, vdirs)
+    pass_cols = min(FWD_MAX_N, max(_layer_widths(mc, vdirs)))
+    prog = _align128(4 * (FWD_OPS_BASE + forward_ops(mc, vdirs) * FWD_OP_INTS))
+    cols = (("x", _pad16(mc.input_ch)),
+            ("d", _pad16(mc.input_ch_views) if vdirs else 0),
+            ("p0", hid), ("p1", hid))
+    layouts = []
+    for rows, ksub in ((64, 1),) if hi_lo else ((128, 2), (64, 2), (64, 1)):
+        off, bufs = prog, []
+        for name, c in cols:
+            bufs.append((name, (off, c + PAD, c)))
+            off += _align128(rows * (c + PAD) * 2 * planes) if c else 0
+        stage = 16 * ksub * (pass_cols + PAD)
+        stages = max(0, min(4, (SMEM_LIMIT - off) // (2 * stage * planes)))
+        layouts.append(FwdLayout(rows, ksub, tuple(bufs), off, stage, stages,
+                                 off + 2 * stage * planes * stages))
+    for want in (3, 2):
+        for lay in layouts:
+            if lay.stages >= want:
+                return lay
+    return layouts[-1]
+
+
+def _stage_rows(lay: FwdLayout, n: int, k: int) -> int:
+    """Weight rows per ring stage of an operation of ``n`` columns whose
+    largest operand has ``k`` rows: as many (a multiple of 16) as a slot of
+    ``lay.stage_elems`` holds at a row stride of ``n + PAD`` — 16 *
+    ``lay.ksub`` for the widest operations — and no more than k needs."""
+    return min(lay.stage_elems // (n + PAD) // 16 * 16, _pad16(k))
+
+
 def smem_bytes(mc: ModelConfig, vdirs: bool, hi_lo: bool = False) -> int:
     """Shared memory one forward block needs for this architecture and
     mode."""
-    dirs_k = _pad16(mc.input_ch_views) if vdirs else 0
-    return _smem_layout(_pad16(mc.input_ch), dirs_k,
-                        _hidden_cols(mc, vdirs), hi_lo)[-1]
+    return _fwd_layout(mc, vdirs, hi_lo).smem
 
 
 @functools.lru_cache(maxsize=None)
 def kernel_fits(mc: ModelConfig, vdirs: bool = True,
                 hi_lo: bool = False) -> bool:
-    """Whether the forward kernel takes this architecture: its
-    activations, slabs and stage fit one block's shared memory, and its
-    layers the kernel's program. Logged once per architecture and mode."""
-    need = smem_bytes(mc, vdirs, hi_lo)
+    """Whether the forward kernel takes this architecture: its program,
+    activation buffers and at least two weight-ring stages fit one block's
+    shared memory, and it has at most ``MAX_LAYERS`` layers. Logged once
+    per architecture and mode."""
+    lay = _fwd_layout(mc, vdirs, hi_lo)
     layers = mc.depth + (4 if vdirs else 1)
-    fits = need <= SMEM_LIMIT and layers <= MAX_LAYERS
+    fits = lay.stages >= 2 and layers <= MAX_LAYERS
     log.info(
-        "fused MLP kernel budget: depth %d width %d%s%s needs %d B of shared "
-        "memory per block (Hopper limit %d B) and %d layers (limit %d): %s",
+        "fused MLP kernel budget: depth %d width %d%s%s: %d-point tiles, %d "
+        "weight stages of %d rows, %d B of shared memory per block (Hopper "
+        "limit %d B), %d layers (limit %d): %s",
         mc.depth, mc.width, " +view head" if vdirs else "",
-        " hi_lo" if hi_lo else "", need, SMEM_LIMIT, layers, MAX_LAYERS,
+        " hi_lo" if hi_lo else "", lay.rows, lay.stages, 16 * lay.ksub,
+        lay.smem, SMEM_LIMIT, layers, MAX_LAYERS,
         "kernel" if fits else "plain module path",
     )
     return fits
@@ -285,8 +339,9 @@ class PackedMLP:
     ``weights``: every weight block, bf16, each ``(k_pad, n_pad)`` row-major
     in ``(in, out)`` layout — in ``hi_lo`` mode a (hi, lo) pair of such
     blocks, lo right after hi; ``biases``: fp32, each padded to ``n_pad``;
-    ``program``: the forward's int32 header + one record per layer (see
-    ``fused_mlp_fwd.cu``); ``bwd_program``: the backward's header, buffer
+    ``program``: the forward's int32 header, buffer table and one record
+    per column pass of each layer (see ``fused_mlp_fwd.cu``), also on the
+    device as ``program_dev``; ``bwd_program``: the backward's header, buffer
     and matrix tables, phase-1 operations (its first ``bwd_prog_len``
     ints) and phase 2's ``bwd_jobs`` (see ``fused_mlp_bwd.cu``), also on
     the device as ``bwd_program_dev``. ``ws_mats``: each workspace
@@ -304,6 +359,7 @@ class PackedMLP:
     weights: torch.Tensor
     biases: torch.Tensor
     program: np.ndarray
+    program_dev: torch.Tensor
     out_w: int
     bwd_program: np.ndarray
     bwd_program_dev: torch.Tensor
@@ -387,30 +443,38 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
         off, b_off = b_off, b_off + bp.shape[0]
         return off
 
-    layers = []
+    ops = []
+    lay = _fwd_layout(mc, vdirs, hi_lo)
 
     def layer(a, b, lin, mode, dst, n_real=0):
         """a/b: (buffer, in_start, (in, out) block) operands; b may be
-        None."""
+        None. One operation per pass of at most FWD_MAX_N columns; an
+        output head's dst is its first output column."""
         wa, ka = weight(lin, a[1], a[2])
         wb, kb = weight(lin, b[1], b[2]) if b is not None else (0, 0)
-        layers.append([a[0], wa, ka, b[0] if b is not None else 0, wb, kb,
-                       bias(lin), _pad16(lin.out_features), mode, dst,
-                       n_real])
+        bo, n = bias(lin), _pad16(lin.out_features)
+        for c0 in range(0, n, FWD_MAX_N):
+            nn = min(FWD_MAX_N, n - c0)
+            head = mode == _OUT_F32
+            ops.append([a[0], wa + c0, ka, b[0] if b is not None else 0,
+                        wb + c0 if kb else 0, kb, bo + c0, nn, n, mode,
+                        dst + c0 if head else dst, 0 if head else c0,
+                        max(0, min(nn, n_real - c0)) if head else 0,
+                        _stage_rows(lay, nn, max(ka, kb)), 0, 0])
 
     kt = lambda lin: lin.weight.detach().float().t()
     with torch.no_grad():
         cur = _X
         for i, lin in enumerate(net.pts_linears):
             k = kt(lin)
-            dst = _A if i % 2 == 0 else _B
+            dst = _P0 if i % 2 == 0 else _P1
             if i in mc.skips:  # cat([x, h]) @ W == x @ W[:enc] + h @ W[enc:]
                 layer((_X, 0, k[:enc_dim]), (cur, enc_dim, k[enc_dim:]), lin,
                       _RELU_BF16, dst)
             else:
                 layer((cur, 0, k), None, lin, _RELU_BF16, dst)
             cur = dst
-        other = _B if cur == _A else _A
+        other = _P1 if cur == _P0 else _P0
         if vdirs:
             kv = kt(net.view_linear)
             bott = mc.bottleneck_ch
@@ -428,17 +492,18 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
             layer((cur, 0, kt(net.output_linear)), None, net.output_linear,
                   _OUT_F32, 0, out_w)
 
-    enc_k = _pad16(enc_dim)
-    dirs_k = _pad16(mc.input_ch_views) if vdirs else 0
-    hid_k = _hidden_cols(mc, vdirs)
-    offs, offs_lo, off_slab, off_slab_lo, off_stage, total = _smem_layout(
-        enc_k, dirs_k, hid_k, hi_lo)
-    header = [len(layers), n_freqs, enc_dim,
-              mc.input_ch_views if vdirs else 0, out_w, int(hi_lo),
-              enc_k, dirs_k, hid_k, hid_k, *offs, *offs_lo,
-              off_slab, off_slab_lo, off_stage, total]
-    program = np.asarray(header + [v for rec in layers for v in rec],
-                         dtype=np.int32)
+    if len(ops) != forward_ops(mc, vdirs):
+        raise ValueError(f"forward program of {len(ops)} operations")
+    header = dict(
+        n_ops=len(ops), prog_len=FWD_OPS_BASE + FWD_OP_INTS * len(ops),
+        n_freqs=n_freqs, enc_dim=enc_dim,
+        dirs_dim=mc.input_ch_views if vdirs else 0, out_w=out_w,
+        hi_lo=int(hi_lo), rows=lay.rows, ksub=lay.ksub, stages=lay.stages,
+        ring_off=lay.ring_off, stage_elems=lay.stage_elems, smem=lay.smem)
+    head = [header[k] for k in _FWD_HEADER]
+    head += [0] * (FWD_HEADER_INTS - len(head))
+    program = np.asarray(head + [v for _, b in lay.bufs for v in b]
+                         + [v for rec in ops for v in rec], dtype=np.int32)
     modules = dict(net.named_modules())
     for name, off in bias_of.items():
         grad_biases.append((f"{name}.bias", g_off + off,
@@ -451,7 +516,9 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
         net=net, vdirs=vdirs, hi_lo=hi_lo,
         weights=torch.cat(w_parts).contiguous(),
         biases=torch.cat(b_parts).contiguous(),
-        program=program, out_w=out_w,
+        program=program, program_dev=_device_program(program.tobytes(),
+                                                     str(dev)),
+        out_w=out_w,
         bwd_program=bwd_program,
         bwd_program_dev=_device_program(bwd_program.tobytes(), str(dev)),
         bwd_prog_len=jobs_off,
@@ -464,10 +531,22 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
 
 @functools.lru_cache(maxsize=64)
 def _device_program(prog: bytes, device: str) -> torch.Tensor:
-    """A backward program on its device, copied once per architecture: a
+    """A kernel's program on its device, copied once per architecture: a
     copy from pageable host memory would wait for the device's queue on
     every pack, i.e. every train step."""
     return torch.frombuffer(bytearray(prog), dtype=torch.int32).to(device)
+
+
+# The forward program's header fields, in the order of fused_mlp_fwd.cu's
+# `Header` enum.
+_FWD_HEADER = ("n_ops", "prog_len", "n_freqs", "enc_dim", "dirs_dim",
+               "out_w", "hi_lo", "rows", "ksub", "stages", "ring_off",
+               "stage_elems", "smem")
+
+
+def fwd_header(packed: "PackedMLP") -> Dict[str, int]:
+    """The forward program's header fields by name."""
+    return dict(zip(_FWD_HEADER, packed.program.tolist()))
 
 
 # The backward program's header fields, in the order of fused_mlp_bwd.cu's
@@ -887,24 +966,21 @@ def weight_grads_plain(packed: PackedMLP, ws: torch.Tensor, rows: int,
 # The kernels and their wrappers
 # --------------------------------------------------------------------- #
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    """The forward's library, with its C signatures declared and its fixed
-    shape checked against this module's."""
-    lib = _build.load("fused_mlp_fwd")
-    fn = lib.fused_mlp_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    lib.fused_mlp_fwd_error_string.argtypes = [ctypes.c_int]
+def _kernel(csrc: str = _build.CSRC):
+    """The forward's library built from the sources in ``csrc``, with its
+    C signature declared and its fixed shape checked against this
+    module's."""
+    lib = _build.load("fused_mlp_fwd", csrc)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.fused_mlp_fwd.argtypes = [vp] * 5 + [i32, vp] + [i32] * 6 + [vp]
+    lib.fused_mlp_fwd.restype = i32
+    lib.fused_mlp_fwd_error_string.argtypes = [i32]
     lib.fused_mlp_fwd_error_string.restype = ctypes.c_char_p
-    lib.fused_mlp_fwd_constants.argtypes = [ctypes.POINTER(ctypes.c_int),
-                                            ctypes.c_int]
-    consts = (ctypes.c_int * 8)()
-    lib.fused_mlp_fwd_constants(consts, 8)
-    want = [TILE_ROWS, THREADS, SLAB_ROWS, CHUNK_COLS, PAD, MAX_LAYERS,
-            HEADER_INTS, LAYER_INTS]
+    lib.fused_mlp_fwd_constants.argtypes = [ctypes.POINTER(i32), i32]
+    want = [FWD_THREADS, PAD, FWD_MAX_N, FWD_HEADER_INTS, FWD_MAX_BUFS,
+            FWD_OP_INTS]
+    consts = (i32 * len(want))()
+    lib.fused_mlp_fwd_constants(consts, len(want))
     if list(consts) != want:
         raise RuntimeError(f"fused_mlp_fwd.cu constants {list(consts)} "
                            f"differ from the wrapper's {want}")
@@ -963,7 +1039,7 @@ def _check_operands(packed: PackedMLP, pts, dirs):
                          f"{tuple(pts.shape)} {pts.dtype}")
     pts = pts.contiguous()
     if packed.vdirs:
-        views = int(packed.program[3])
+        views = fwd_header(packed)["dirs_dim"]
         if dirs is None or dirs.shape != (n, views) or dirs.device != dev:
             raise ValueError(f"dirs must be ({n}, {views}) on {dev}")
         dirs = dirs.to(torch.float32 if packed.hi_lo
@@ -985,15 +1061,16 @@ def _launch(packed: PackedMLP, pts: torch.Tensor,
     if n == 0:
         return out
     lib = _kernel()
-    prog = packed.program
+    hdr = fwd_header(packed)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fused_mlp_fwd(
             pts.data_ptr(), dirs.data_ptr() if dirs is not None else None,
             packed.weights.data_ptr(), packed.biases.data_ptr(),
-            out.data_ptr(), n,
-            prog.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), prog.size,
-            stream,
+            out.data_ptr(), n, packed.program_dev.data_ptr(),
+            hdr["prog_len"], hdr["hi_lo"], hdr["rows"], hdr["ksub"],
+            min(-(-n // hdr["rows"]), _sm_count(index)), hdr["smem"], stream,
         )
     if rc != 0:
         raise RuntimeError("fused_mlp_fwd launch failed: "

@@ -1,12 +1,16 @@
-"""Where the fused MLP backward's time goes, on one GPU.
+"""Where the fused MLP kernels' time goes, on one GPU.
 
     python -m nerfmlp_torch.scripts.bwd_ablate
 
-Builds csrc/fused_mlp_bwd.cu as it is and in variants with one part of a
-kernel taken out (results are then wrong: only their time counts), all
-builds started together, and times each variant's two phases at the
-flagship train step's fine call (1024 rays x 128 samples, 8x256 + view
-head, bf16, random weights from seed 0). Then, with the source as it is:
+Builds csrc/fused_mlp_bwd.cu and csrc/fused_mlp_fwd.cu as they are and in
+variants with one part of a kernel taken out (results are then wrong:
+only their time counts), all builds of a source started together, and
+times each backward variant's two phases at the flagship train step's
+fine call (1024 rays x 128 samples, 8x256 + view head, bf16, random
+weights from seed 0), and each forward variant at that call and at the
+served fine call (4096 rays x 128 samples), then the forward with its
+narrow operations' weight rows per ring stage capped. Then, with the
+sources as they are:
 phase 2 and the reduction at 4 to 32 row splits, and the whole backward
 at the fine and coarse calls in one chunk per call and in chunks of 8,192
 points (80 MB of workspace, against 1.31 GB for the fine call in one
@@ -19,6 +23,7 @@ longer in the source fails with its name. Needs no jax.
 import argparse
 import concurrent.futures
 import os
+import shutil
 import statistics
 import subprocess
 from unittest import mock
@@ -32,6 +37,7 @@ from nerfmlp_torch.ops import fused_mlp as fm
 from nerfmlp_torch.ops.encoding import positional_encoding
 
 _SRC = os.path.join(_build.CSRC, "fused_mlp_bwd.cu")
+_FWD_SRC = os.path.join(_build.CSRC, "fused_mlp_fwd.cu")
 _P1_END = "// dW and db partials of one job"
 CHUNK_TRY = 8192
 
@@ -80,6 +86,50 @@ VARIANTS = {
 }
 
 
+# The forward's variants: name -> [(old text, new text)].
+FWD_VARIANTS = {
+    "as built": [],
+    "forward without mma": [(
+        "            mma(acc[mt][2 * p], a[mt], b[0], b[1]);\n"
+        "            mma(acc[mt][2 * p + 1], a[mt], b[2], b[3]);\n"
+        "            if (kHiLo) {",
+        "            acc[mt][2 * p][0] += __uint_as_float(a[mt][0] ^ b[0]);\n"
+        "            acc[mt][2 * p + 1][0] += __uint_as_float(a[mt][1] ^ b[2]);\n"
+        "            if (kHiLo) {")],
+    "forward without stage wait + barrier": [(
+        "        cp_async_wait_n(stages - 2);\n"
+        "        __syncthreads();  // the slab is in; the oldest slot is free\n",
+        "")],
+    "forward without weight loads": [(
+        "      if (f_dst >= 0) {", "      if (false) {")],
+    "forward without B-fragment ldmatrix": [(
+        "          ldsm_x4_t(b, q);\n"
+        "          if (kHiLo) ldsm_x4_t(bl, q + half);",
+        "          b[0] = b[1] = b[2] = b[3] = lane ^ p;\n"
+        "          bl[0] = bl[1] = bl[2] = bl[3] = lane;\n"
+        "          (void)q;")],
+    "forward without A-fragment ldmatrix": [(
+        "          ldsm_x4(a[mt], a_s + mt * 16 * ld);",
+        "          a[mt][0] = a[mt][1] = a[mt][2] = a[mt][3] = mt + lane;\n"
+        "          (void)a_s;")],
+    "forward without encoding": [(
+        "(g < n && j < enc_dim) ? encode(pts, g, j) : 0.f",
+        "(g < n && j < enc_dim) ? 0.5f : 0.f")],
+}
+
+
+def fwd_variant_source(name: str) -> str:
+    """The forward's source with the named variant's edits applied; each
+    edit's text must occur once in the source."""
+    src = open(_FWD_SRC).read()
+    for old, new in FWD_VARIANTS[name]:
+        if src.count(old) != 1:
+            raise RuntimeError(f"{name}: its text is not found once in the "
+                               f"source: {old!r}")
+        src = src.replace(old, new)
+    return src
+
+
 def variant_source(name: str) -> str:
     """The backward's source with the named variant's edits applied; each
     edit's text must occur once in its kernel's part of the source."""
@@ -95,18 +145,22 @@ def variant_source(name: str) -> str:
     return src
 
 
-def build_variants(names):
-    """Each variant's source directory, every one built (in parallel)."""
+def build_variants(names, kernel="fused_mlp_bwd", source=variant_source):
+    """Each variant's source directory for ``kernel`` (its source from
+    ``source(name)``, beside the headers), every one built (in
+    parallel)."""
     dirs = {}
     for name in names:
-        d = os.path.join(_build.build_dir(), "ablate", name.replace(" ", "_"))
+        d = os.path.join(_build.build_dir(), "ablate", kernel,
+                         name.replace(" ", "_"))
         os.makedirs(d, exist_ok=True)
-        with open(os.path.join(d, "fused_mlp_bwd.cu"), "w") as f:
-            f.write(variant_source(name))
+        for path in _build.sources(kernel)[1:]:   # the headers
+            shutil.copy(path, d)
+        with open(os.path.join(d, _build.KERNELS[kernel]), "w") as f:
+            f.write(source(name))
         dirs[name] = d
     with concurrent.futures.ThreadPoolExecutor(len(dirs)) as pool:
-        list(pool.map(lambda d: _build.build(["fused_mlp_bwd"], d),
-                      dirs.values()))
+        list(pool.map(lambda d: _build.build([kernel], d), dirs.values()))
     return dirs
 
 
@@ -162,6 +216,33 @@ def main(argv=None) -> int:
                                                    part))
         print(f"[ablate] {name}: phase 1 {t1:.3f} ms, phase 2 {t2:.3f} ms",
               flush=True)
+    serve = call_inputs(4 * n, cfg)[:2]
+    fwd_dirs = build_variants(FWD_VARIANTS, "fused_mlp_fwd",
+                              fwd_variant_source)
+    with torch.no_grad():
+        for name, d in fwd_dirs.items():
+            lib = fm._kernel(d)
+            with mock.patch.object(fm, "_kernel", lambda: lib):
+                tt = device_ms(lambda: fm._launch(packed, pts, dirs))
+                ts = device_ms(lambda: fm._launch(packed, *serve))
+            print(f"[ablate] {name}: train fine call {tt:.3f} ms, served "
+                  f"fine call ({4 * n} points) {ts:.3f} ms", flush=True)
+        # The narrow operations (sigma, rgb, view) with at most `cap` weight
+        # rows per ring stage (0: a full-width stage's 16 * ksub rows, as
+        # wide operations take), packed anew; the as-built program last.
+        stage_rows = fm._stage_rows
+        for cap in (0, 64, 128, None):
+            def capped(lay, nn, k, cap=cap):
+                got = stage_rows(lay, nn, k)
+                return got if cap is None else min(got, max(16 * lay.ksub, cap))
+            with mock.patch.object(fm, "_stage_rows", capped):
+                pc = fm.pack_params(net, cfg.pos_enc_L, True)
+            tt = device_ms(lambda: fm._launch(pc, pts, dirs))
+            ts = device_ms(lambda: fm._launch(pc, *serve))
+            print(f"[ablate] forward, narrow operations at "
+                  f"{'as built' if cap is None else f'<= max({cap}, 32)'} "
+                  f"rows per stage: train fine call {tt:.3f} ms, served fine "
+                  f"call {ts:.3f} ms", flush=True)
 
     fm.bwd_workspace(packed, pts, dirs, g, ws)
     for s in (4, 8, 16, 32):

@@ -18,13 +18,28 @@ def test_library_path_hashes_the_source_in_one_build_dir(tmp_path, edit, same):
     directory, under the same name when its text is the same and another
     name when it differs."""
     name = "fused_mlp_bwd"
-    src = os.path.join(_build.CSRC, _build.KERNELS[name])
+    src, *headers = _build.sources(name)
+    assert headers, "the kernels share csrc/mlp_tile.cuh"
+    for path in headers:
+        shutil.copy(path, tmp_path)
     with open(src) as f:
         (tmp_path / _build.KERNELS[name]).write_text(f.read() + edit)
     here = _build.library_path(name)
     there = _build.library_path(name, str(tmp_path))
     assert os.path.dirname(there) == os.path.dirname(here) == _build.build_dir()
     assert (there == here) is same
+
+
+@pytest.mark.parametrize("name", sorted(_build.KERNELS))
+def test_library_path_hashes_the_shared_header(tmp_path, name):
+    """Both kernels include csrc/mlp_tile.cuh: an edit of the header alone
+    renames (so rebuilds) each library."""
+    src, *headers = _build.sources(name)
+    shutil.copy(src, tmp_path)
+    for path in headers:
+        with open(path) as f:
+            (tmp_path / os.path.basename(path)).write_text(f.read() + "\n")
+    assert _build.library_path(name, str(tmp_path)) != _build.library_path(name)
 
 
 def test_build_without_nvcc_names_it(tmp_path, monkeypatch):
@@ -42,3 +57,13 @@ def test_ablation_variant_whose_text_is_gone_fails_by_name(monkeypatch):
     with pytest.raises(RuntimeError, match="phase 1 without nothing"):
         bwd_ablate.variant_source("phase 1 without nothing")
     assert bwd_ablate.variant_source("as built") == open(bwd_ablate._SRC).read()
+
+
+def test_forward_ablation_variant_whose_text_is_gone_fails_by_name(
+        monkeypatch):
+    monkeypatch.setitem(bwd_ablate.FWD_VARIANTS, "forward without nothing",
+                        [("no such line in the kernel", "")])
+    with pytest.raises(RuntimeError, match="forward without nothing"):
+        bwd_ablate.fwd_variant_source("forward without nothing")
+    assert (bwd_ablate.fwd_variant_source("as built")
+            == open(bwd_ablate._FWD_SRC).read())

@@ -35,7 +35,7 @@ def _nets(use_viewdirs=True, seed=0, **arch):
     params = jax_init_model(jax.random.PRNGKey(seed), jcfg.model_config())
     cfg = RenderConfig(use_viewdirs=use_viewdirs, **kw)
     net = model_from_params(jax.tree.map(np.asarray, params),
-                            cfg.model_config())
+                            cfg.model_config(), device="cpu")
     return params, net, cfg
 
 
@@ -85,57 +85,101 @@ def test_plain_hi_lo_matches_jax_kernel():
 
 def _run_program(packed, pts, dirs):
     """What the CUDA kernel does with a packed net, step for step, in
-    PyTorch: its buffers, layer records, padding, epilogues and, in hi_lo
-    mode, the (hi, lo) splits and three products."""
+    PyTorch: tiles of the program's row count, each encoded into the
+    kernel's shared-memory buffers (one flat array laid out as the kernel
+    lays them out, unwritten slots NaN so that a read of one shows); then
+    the program's operations, each a pass of at most FWD_MAX_N columns over
+    one layer, with its padding, epilogue and, in hi_lo mode, the (hi, lo)
+    planes and three products; the heads' real columns written from the
+    epilogue to the output, rows at or past n masked. The weight ring is
+    not modelled beyond the room of a stage."""
+    hdr = fused_mlp.fwd_header(packed)
     prog = [int(v) for v in packed.program]
-    n_layers, n_freqs, enc_dim, dirs_dim, out_w, hi_lo = prog[:6]
-    cols = prog[6:10]
-    n = pts.shape[0]
+    base, ops_base = fused_mlp.FWD_HEADER_INTS, fused_mlp.FWD_OPS_BASE
+    bufs = [prog[base + 3 * i: base + 3 * i + 3]
+            for i in range(fused_mlp.FWD_MAX_BUFS)]
+    ops = [prog[ops_base + fused_mlp.FWD_OP_INTS * i:
+                ops_base + fused_mlp.FWD_OP_INTS * (i + 1)]
+           for i in range(hdr["n_ops"])]
+    rows, hi_lo = hdr["rows"], bool(hdr["hi_lo"])
+    planes = 2 if hi_lo else 1
+    slot = hdr["stage_elems"]
+    assert hdr["stages"] >= 2 and hdr["smem"] <= fused_mlp.SMEM_LIMIT
+    assert all(off + rows * ld * 2 * planes <= hdr["ring_off"]
+               for off, ld, cols in bufs if cols)
     bf = lambda t: t.to(torch.bfloat16).float()
-    act = (lambda t: t) if hi_lo else bf   # activations: fp32 or bf16
-    bufs = [torch.zeros(n, max(c, 1)) for c in cols]
-    bufs[0][:, :enc_dim] = act(positional_encoding(pts, n_freqs))
-    if dirs is not None:
-        bufs[1][:, :dirs_dim] = act(dirs)
     w = packed.weights.float()
     b = packed.biases
-    out = torch.zeros(n, out_w)
+    n = pts.shape[0]
+    smem = torch.full((hdr["ring_off"] // 2,), float("nan"))
 
-    def matmul(a, off, k, cols_out):
-        size = k * cols_out
-        w_hi = w[off:off + size].reshape(k, cols_out)
-        if not hi_lo:
-            return a @ w_hi
-        w_lo = w[off + size:off + 2 * size].reshape(k, cols_out)
-        a_hi = bf(a)
-        a_lo = bf(a - a_hi)
-        return a_hi @ w_hi + a_lo @ w_hi + a_hi @ w_lo
+    def buf(bi, plane=0):
+        off, ld, cols = bufs[bi]
+        at = off // 2 + plane * rows * ld
+        return smem[at: at + rows * ld].view(rows, ld)[:, :cols]
 
-    for li in range(n_layers):
-        (src_a, w_a, k_a, src_b, w_b, k_b, b_off, cols_out, mode, dst,
-         n_real) = prog[22 + 11 * li: 33 + 11 * li]
-        acc = matmul(bufs[src_a][:, :k_a], w_a, k_a, cols_out)
-        if k_b:
-            acc = acc + matmul(bufs[src_b][:, :k_b], w_b, k_b, cols_out)
-        acc = acc + b[b_off:b_off + cols_out]
-        if mode == 2:
-            out[:, dst:dst + n_real] = acc[:, :n_real]
-        else:
-            bufs[dst][:, :cols_out] = act(torch.relu(acc) if mode == 0
-                                          else acc)
+    def put(bi, col, v):   # a value into buffer bi's planes from column col
+        hi = bf(v)
+        buf(bi, 0)[:, col:col + v.shape[1]] = hi
+        if hi_lo:
+            buf(bi, 1)[:, col:col + v.shape[1]] = bf(v - hi)
+
+    def block(off, k, nn, ld):   # columns of a packed (k, ld) weight's planes
+        return [w.as_strided((k, nn), (ld, 1), off + p * k * ld)
+                for p in range(planes)]
+
+    def mm(a, wt):   # planes @ planes: hi*hi (+ lo*hi + hi*lo)
+        out = a[0] @ wt[0]
+        return out + a[1] @ wt[0] + a[0] @ wt[1] if hi_lo else out
+
+    def tile(t, r0, cols):   # rows r0.. of t, zero past n and past its width
+        out = torch.zeros(rows, cols)
+        m = max(0, min(rows, t.shape[0] - r0))
+        out[:m, :t.shape[1]] = t[r0:r0 + m]
+        return out
+
+    enc = positional_encoding(pts, hdr["n_freqs"])
+    out = torch.full((n, hdr["out_w"]), float("nan"))
+    for r0 in range(0, n, rows):
+        put(0, 0, tile(enc, r0, bufs[0][2]))
+        if hdr["dirs_dim"]:
+            put(1, 0, tile(dirs, r0, bufs[1][2]))
+        for (sa, wa, ka, sb, wb, kb, bo, nn, wld, mode, dst, col, n_real,
+             kr, *_) in ops:
+            assert nn <= fused_mlp.FWD_MAX_N and nn % 16 == 0
+            # a stage of kr weight rows fits one slot of the ring
+            assert kr % 16 == 0 and kr * (nn + fused_mlp.PAD) <= slot
+            acc = mm([buf(sa, p)[:, :ka] for p in range(planes)],
+                     block(wa, ka, nn, wld))
+            if kb:
+                acc = acc + mm([buf(sb, p)[:, :kb] for p in range(planes)],
+                               block(wb, kb, nn, wld))
+            acc = acc + b[bo:bo + nn]
+            if mode == 2:
+                m = min(rows, n - r0)
+                out[r0:r0 + m, dst:dst + n_real] = acc[:m, :n_real]
+            else:
+                put(dst, col, torch.relu(acc) if mode == 0 else acc)
     return out
 
 
-@pytest.mark.parametrize("arch", [
-    dict(depth=6, width=64, use_viewdirs=True),
-    dict(depth=6, width=40, use_viewdirs=False),   # padded to 48
-    dict(depth=8, width=32, use_viewdirs=True),
-    dict(depth=6, width=64, use_viewdirs=True, hi_lo=True),
-    dict(depth=6, width=40, use_viewdirs=False, hi_lo=True),
+@pytest.mark.parametrize("arch, n", [
+    (dict(depth=6, width=64, use_viewdirs=True), 200),
+    (dict(depth=6, width=40, use_viewdirs=False), 200),   # padded to 48
+    (dict(depth=8, width=32, use_viewdirs=True), 200),
+    (dict(depth=6, width=64, use_viewdirs=True, hi_lo=True), 200),
+    (dict(depth=6, width=40, use_viewdirs=False, hi_lo=True), 200),
+    # wider than one 256-column pass: trunk and bottleneck in two passes
+    (dict(depth=4, width=288, use_viewdirs=True), 200),
+    (dict(depth=4, width=288, use_viewdirs=True, hi_lo=True), 200),
+    (dict(depth=2, width=512, use_viewdirs=True), 150),   # 64-point tiles
+    # ragged: one row past two 128-point tiles
+    (dict(depth=6, width=64, use_viewdirs=True), 257),
 ])
-def test_packed_program_matches_plain(arch):
-    """The weight layout and layer program the kernel executes compute the
-    plain version's function (padding adds exactly zero)."""
+def test_packed_program_matches_plain(arch, n):
+    """The weight layout and program the kernel executes — tiles, column
+    passes, buffers, epilogues — compute the plain version's function
+    (padding adds exactly zero; rows past n are never written)."""
     arch = dict(arch)
     hi_lo = arch.pop("hi_lo", False)
     vdirs = arch["use_viewdirs"]
@@ -143,11 +187,16 @@ def test_packed_program_matches_plain(arch):
     from nerfmlp_torch.models.mlp import init_model
 
     net = init_model(cfg.model_config(), seed=3, device="cpu")
-    pts, dirs = _inputs(200, seed=2)
+    pts, dirs = _inputs(n, seed=2)
     pts, dirs = torch.from_numpy(pts), torch.from_numpy(dirs)
     packed = fused_mlp.pack_params(net, cfg.pos_enc_L, vdirs, hi_lo)
     assert packed.weights.dtype == torch.bfloat16
-    assert packed.program[0] == cfg.depth + (4 if vdirs else 1)
+    hdr = fused_mlp.fwd_header(packed)
+    layers = cfg.depth + (4 if vdirs else 1)
+    assert hdr["n_ops"] == fused_mlp.forward_ops(net.cfg, vdirs) >= layers
+    assert (hdr["n_ops"] == layers) is (cfg.width <= fused_mlp.FWD_MAX_N)
+    assert hdr["rows"] == (64 if hi_lo or cfg.width > 288 else 128)
+    assert n % hdr["rows"]
     got = _run_program(packed, pts, dirs if vdirs else None)
     want = fused_mlp.fused_nerf_mlp_plain(net, pts, dirs if vdirs else None,
                                           cfg.pos_enc_L, torch.bfloat16,
@@ -179,17 +228,33 @@ def test_architecture_mismatch_raises():
 
 
 def test_hopper_budget():
+    """The forward's shared memory per block: its program, the encoded
+    points and dirs, two ping-pong activation buffers and as many weight
+    stages (up to 4) as fit Hopper's 232,448 B."""
     mc = RenderConfig().model_config()
-    # 8x256 + view head: 2 bf16 activation buffers + encodings + a weight
-    # slab + the epilogue stage = 107,008 B, so two blocks share an SM.
-    assert fused_mlp.smem_bytes(mc, True) == 107_008
+    # 8x256 + view head: 128-point tiles, 32-row weight stages.
+    # 896 (program) + 18,432 (x) + 10,240 (dirs) + 2 x 67,584 + 4 x 16,896.
+    lay = fused_mlp._fwd_layout(mc, True, False)
+    assert (lay.rows, lay.ksub, lay.stages) == (128, 2, 4)
+    assert fused_mlp.smem_bytes(mc, True) == 232_320
     assert fused_mlp.kernel_fits(mc, True)
-    # hi_lo adds a lo plane to every activation buffer and to the slab:
-    # 205,824 B, one block per SM.
-    assert fused_mlp.smem_bytes(mc, True, hi_lo=True) == 205_824
+    # Rows per stage: 32 for a 256-column layer, 48 for the 128-column view
+    # layer; the sigma (256 x 16) and rgb (128 x 16) heads in one stage.
+    assert [fused_mlp._stage_rows(lay, n, k) for n, k in (
+        (256, 256), (128, 256), (16, 256), (16, 128))] == [32, 48, 256, 128]
+    # hi_lo: 64-point tiles of two planes, 16-row stages of two planes.
+    lay = fused_mlp._fwd_layout(mc, True, True)
+    assert (lay.rows, lay.ksub, lay.stages) == (64, 1, 4)
+    assert fused_mlp.smem_bytes(mc, True, hi_lo=True) == 232_320
     assert fused_mlp.kernel_fits(mc, True, hi_lo=True)
     assert not fused_mlp.kernel_fits(
         RenderConfig(width=384).model_config(), True, hi_lo=True)
-    assert fused_mlp.kernel_fits(RenderConfig(width=512).model_config(), True)
+    # Width 512: 64-point tiles, every layer in two 256-column passes.
+    wide = RenderConfig(width=512).model_config()
+    assert fused_mlp._fwd_layout(wide, True, False).rows == 64
+    assert fused_mlp.forward_ops(wide, True) == 8 * 2 + 1 + 2 + 1 + 1
+    assert fused_mlp.kernel_fits(wide, True)
     assert not fused_mlp.kernel_fits(
         RenderConfig(width=1024).model_config(), True)
+    assert not fused_mlp.kernel_fits(RenderConfig(depth=48).model_config(),
+                                     True)

@@ -21,19 +21,26 @@ from nerfmlp_torch.ops.encoding import positional_encoding
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("use_viewdirs, dtype, tol", [
-    (True, "bfloat16", 1e-2),   # a flipped bf16 rounding cascades
-    (False, "bfloat16", 1e-2),
-    (True, "float32", 1e-4),    # hi_lo: fp32 summation order only
+@pytest.mark.parametrize("use_viewdirs, dtype, width, tol", [
+    (True, "bfloat16", 256, 1e-2),   # a flipped bf16 rounding cascades
+    (False, "bfloat16", 256, 1e-2),
+    (True, "float32", 256, 1e-4),    # hi_lo: fp32 summation order only
+    (False, "float32", 256, 1e-4),
+    # two 256-column passes per layer: 128-point tiles at 288, 64 at 512
+    (True, "bfloat16", 288, 1e-2),
+    (True, "bfloat16", 512, 1e-2),
+    (False, "bfloat16", 512, 1e-2),
+    (True, "float32", 320, 1e-4),    # the widest hi_lo net that fits
 ])
-def test_kernel_matches_plain_on_gpu(use_viewdirs, dtype, tol):
+def test_kernel_matches_plain_on_gpu(use_viewdirs, dtype, width, tol):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
     cfg = RenderConfig(compute_dtype=dtype, fp32_precision="high",
-                       use_kernel=True, use_viewdirs=use_viewdirs)
+                       use_kernel=True, use_viewdirs=use_viewdirs,
+                       width=width)
     net = init_model(cfg.model_config(), seed=0, device="cuda")
     rng = np.random.default_rng(0)
-    n = 1000  # not a multiple of the kernel's 64-point tile
+    n = 1000  # not a multiple of the kernel's 128- or 64-point tile
     pts = torch.from_numpy((rng.normal(size=(n, 3)) * 3).astype(np.float32))
     d = rng.normal(size=(n, 3)).astype(np.float32)
     d = torch.from_numpy(d / np.linalg.norm(d, axis=-1, keepdims=True))
@@ -46,7 +53,7 @@ def test_kernel_matches_plain_on_gpu(use_viewdirs, dtype, tol):
                                           hi_lo=dtype == "float32")
     torch.cuda.synchronize()
     assert fused_mlp.fused_nerf_mlp.launches == before + 1
-    assert got.shape == want.shape == (n, 4)
+    assert got.shape == want.shape
     assert float((got - want).abs().max() / want.abs().max()) <= tol
 
 

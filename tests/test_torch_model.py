@@ -49,7 +49,7 @@ def test_model_fp32_matches_jax(use_viewdirs):
     """NeRFMLP fp32 vs apply_model fp32 'highest' on the same weights."""
     params = _jax_params(use_viewdirs)
     mc = ModelConfig(use_viewdirs=use_viewdirs, **SMALL)
-    net = convert.model_from_params(params, mc)
+    net = convert.model_from_params(params, mc, device="cpu")
     rng = np.random.default_rng(1)
     x = rng.normal(size=(128, 63)).astype(np.float32)
     v = rng.normal(size=(128, 27)).astype(np.float32)
@@ -64,11 +64,25 @@ def test_model_fp32_matches_jax(use_viewdirs):
     np.testing.assert_allclose(got, want, atol=2e-4)
 
 
+def test_model_from_params_defaults_to_cuda(monkeypatch):
+    """Like every entry point, the converter runs on ``cuda`` unless told
+    otherwise, and raises without a GPU rather than fall back to the
+    CPU."""
+    params = _jax_params()
+    mc = ModelConfig(**SMALL)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.model_from_params(params, mc)
+    net = convert.model_from_params(params, mc, device="cpu")
+    assert net.pts_linears[0].weight.device.type == "cpu"
+
+
 @pytest.mark.parametrize("use_viewdirs", [True, False])
 def test_conversion_round_trip_is_exact(use_viewdirs):
     params = _jax_params(use_viewdirs, seed=2)
     mc = ModelConfig(use_viewdirs=use_viewdirs, **SMALL)
-    back = convert.params_from_model(convert.model_from_params(params, mc))
+    back = convert.params_from_model(
+        convert.model_from_params(params, mc, device="cpu"))
     assert set(back) == set(params)
     for name in params:
         for leaf in ("kernel", "bias"):

@@ -154,7 +154,8 @@ def _both(mode, **extra):
         jp["fine"] = jax_init_model(jax.random.PRNGKey(1),
                                     jcfg.model_config(fine=True))
     tp = {k: model_from_params(jax.tree.map(np.asarray, v),
-                               cfg.model_config(fine=k == "fine"))
+                               cfg.model_config(fine=k == "fine"),
+                               device="cpu")
           for k, v in jp.items()}
     return jp, jcfg, tp, cfg
 

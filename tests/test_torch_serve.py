@@ -37,7 +37,7 @@ def _params(seed=0):
 
 def _service(seed=0, **kw):
     cfg = RenderConfig(**KW)
-    net = model_from_params(_params(seed), cfg.model_config())
+    net = model_from_params(_params(seed), cfg.model_config(), device="cpu")
     args = dict(FRAME, log=lambda *a: None, device="cpu")
     args.update(kw)
     return RenderService({"coarse": net}, cfg, **args)
@@ -128,8 +128,8 @@ def test_admission_sheds_and_swap_changes_output():
             s._inflight = 0
     assert s.health()["rejected"] == 1
     cfg = RenderConfig(**KW)
-    s.swap_params({"coarse": model_from_params(_params(7),
-                                               cfg.model_config())})
+    s.swap_params({"coarse": model_from_params(_params(7), cfg.model_config(),
+                                               device="cpu")})
     assert s.reloads == 1
     assert np.abs(s.render_pose(pose)["rgb_map"] - before).max() > 0
 
