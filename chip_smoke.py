@@ -30,7 +30,29 @@ Phases, each fatal on failure:
      made here, with the kernels and with use_kernel=False: the loss must
      fall, held-out PSNR reach 20 dB and agree within 1 dB, and each step
      launch each of the four kernels twice; time the runs and profile one
-     step.
+     step;
+  6. occupancy-grid sampling: hold the forward and the backward's kernels
+     against their plain versions at its shapes (the 16-sample probe and
+     48-sample refine queries of a 1024-ray step, a 64^3-point grid
+     refresh, a served 16,384-ray tile's probe and refine queries; in
+     hi_lo mode the one-shot recipe's 64-sample query, forward and
+     backward, and its refresh) and time them; train the turbo recipe
+     (8x256, batch 1024, occupancy 16+48 hierarchical, 64 grid-scored
+     depths, a 64^3 grid refreshed every 16 steps, decaying after step
+     64, bf16) for 300 steps through the Trainer, with the kernels and
+     with use_kernel=False (the loss falls, the grid prunes cells,
+     held-out PSNR rendered with the grid reaches 20 dB and agrees within
+     1 dB, exactly 2 forward launches per step plus 1 per refresh and 2 of
+     each backward kernel per step), profile one step; train the one-shot
+     fp32 'high' (hi_lo) recipe for 100 steps, the first 50 on the
+     central crop, with the kernels and with use_kernel=False (the loss
+     falls and ends within 1% of the plain run's, 1 launch of each kernel
+     per step plus 1 forward per refresh); serve the turbo model over HTTP
+     with the grid the service builds from its weights (400x400 frames in
+     16,384-ray tiles, 2 forward launches per tile), hold that grid
+     against the plain build and the frame against use_kernel=False with
+     the same grid (bf16: no farther from the fp32 frame than the bf16
+     module path's; hi_lo: at the serving bar), and profile a frame.
 Then it prints the kernels' JSON line, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Weights are random, from a seed.
 It exits non-zero, printing no result, without a CUDA device.
@@ -84,6 +106,32 @@ PHASE2_TOL = 1e-4         # phase 2's partials vs the plain products on the
 SPIN_CYCLES = 4_000_000   # the GPU spin ahead of each timed call
 FRAME_TOL = 3e-3          # served rgb vs the use_kernel=False frame
 FRAME_MAX = 1e-2          # ... at the few discontinuous fine-pass pixels
+FRAME_RATIO = 1.1         # a trained model's bf16 frame: the kernel's
+#                           distance from the fp32 module frame (99.9th
+#                           percentile and mean) over the bf16 module
+#                           path's. Both sit ~3e-2 from it at p99.9, and
+#                           ~2e-2 from each other: rounding to bf16 moves
+#                           sharp surfaces, and the refine samples with them
+OCC_AABB = (-1.5, -1.5, -1.2, 1.5, 1.5, 1.5)  # the synthetic scene's box
+OCC_PROBE, OCC_REFINE = 16, 48   # the turbo recipe's samples per ray
+OCC_DENSE = 64            # its grid-scored depths per ray
+OCC_GRID = 64             # grid cells per side: 262,144 points a refresh
+OCC_EVERY = 16            # steps between refreshes, and
+OCC_WARMUP = 64           # refreshes up to this step only add density: the
+#                           recipe's 64 and 1024, cut so that 15 of the 19
+#                           refreshes decay (0.95 each), and a cell left at
+#                           the initial 0.02 falls below the threshold 1e-2
+#                           (it needs 14) within the run: the grid prunes
+OCC_TILE = 16384          # rays per served tile with occupancy
+LR_DECAY_STEPS = 500_000  # the occupancy recipes' lrate_decay 500
+HI_LO_STEPS = 100         # the one-shot hi_lo run, the first half on the
+#                           central crop (the official Blender recipe's
+#                           precrop, cut from 500 steps): without it the
+#                           white background drives every density below 0
+#                           in the first step and the loss stays flat for
+#                           the whole run, through the kernels and without
+HI_LO_TRACK = 1e-2        # its loss at the end vs use_kernel=False's, rel.:
+#                           a few times the gap measured on an H100 (1.4e-3)
 
 
 def cuda_ms(fn, iters, warmup=2, spin=True):
@@ -435,14 +483,17 @@ def check_phases(net, packed, pts, dirs, g, label):
     }
     ws_bytes = rows * packed.ws_cols * 2
     in_bytes = (pts.numel() * 4 + g.numel() * 4
-                + (dirs.numel() * 2 if dirs is not None else 0)
+                + (dirs.numel() * (4 if packed.hi_lo else 2)
+                   if dirs is not None else 0)
                 + packed.weights.numel() * 2 + packed.biases.numel() * 4)
     dw_macs = sum(p.numel() for name, p in net.named_parameters()
                   if name.endswith("weight"))
+    products = 3 if packed.hi_lo else 1   # bf16 products per product
+    p1_macs = phase1_macs(net, dirs is not None)
     for key, flops, nbytes in (
-            ("phase1", 2.0 * phase1_macs(net, dirs is not None) * n,
-             in_bytes + ws_bytes),
-            ("phase2", 2.0 * dw_macs * n, ws_bytes + splits * total * 4),
+            ("phase1", 2.0 * products * p1_macs * n, in_bytes + ws_bytes),
+            ("phase2", 2.0 * products * dw_macs * n,
+             ws_bytes + splits * total * 4),
             ("reduce", 0.0, (splits + 1) * total * 4)):
         recs[key]["bound_ms"], recs[key]["bound_by"] = bound(flops, nbytes)
         recs[key]["library_ms"] = recs[key].get("library_ms")
@@ -535,7 +586,9 @@ def train_configs(near, far):
 
 def train_once(rc, tc, train_ds, val_ds, save_dir):
     """Train through the Trainer; returns losses per step, wall seconds of
-    the synchronised run, held-out PSNR and the Trainer."""
+    the synchronised run, held-out PSNR (rendered with the grid under
+    occupancy), the four kernels' launches, the Trainer, and the grid
+    refreshes with the forward launches made inside them."""
     import numpy as np
     import torch
 
@@ -545,14 +598,21 @@ def train_once(rc, tc, train_ds, val_ds, save_dir):
     trainer = Trainer(rc, tc, train_ds, save_dir=save_dir, device="cuda",
                       verbose=False)
     losses = []
-    step_fn = trainer.step_fn
+    step_fn, occ_update = trainer.step_fn, trainer._occ_update
+    refresh = {"n": 0, "launches": 0}
 
-    def recorded(state, batch):
-        m = step_fn(state, batch)
+    def recorded(state, batch, *occ):
+        m = step_fn(state, batch, *occ)
         losses.append(m["loss"])
         return m
 
-    trainer.step_fn = recorded
+    def counted(*args):
+        before = fused_mlp.fused_nerf_mlp.launches
+        occ_update(*args)
+        refresh["n"] += 1
+        refresh["launches"] += fused_mlp.fused_nerf_mlp.launches - before
+
+    trainer.step_fn, trainer._occ_update = recorded, counted
     torch.cuda.synchronize()
     counters = (fused_mlp.fused_nerf_mlp, fused_mlp.bwd_workspace,
                 fused_mlp.weight_grads, fused_mlp.reduce_partials)
@@ -562,13 +622,13 @@ def train_once(rc, tc, train_ds, val_ds, save_dir):
     trainer.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    trainer.step_fn = step_fn
     launches = tuple(c.launches for c in counters)
+    trainer.step_fn, trainer._occ_update = step_fn, occ_update
     val = trainer._validate(val_ds)
     losses = torch.stack(losses).cpu().numpy()
     if not np.isfinite(losses).all() or not np.isfinite(val["psnr"]):
         raise SystemExit("[train] non-finite loss or PSNR")
-    return losses, wall, val, launches, trainer
+    return losses, wall, val, launches, trainer, refresh
 
 
 def profile_step(trainer):
@@ -578,12 +638,13 @@ def profile_step(trainer):
     from torch.profiler import ProfilerActivity, profile
 
     batch = trainer.pool.batch(trainer.state.step)
-    trainer.step_fn(trainer.state, batch)   # warm
+    occ = () if trainer.occ_grid is None else (trainer.occ_grid,)
+    trainer.step_fn(trainer.state, batch, *occ)   # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.step_fn(trainer.state, batch)
+        trainer.step_fn(trainer.state, batch, *occ)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     rows = device_rows(prof)
@@ -599,63 +660,110 @@ def profile_step(trainer):
         print(f"[profile]   {ms:9.3f} ms {100 * ms / busy:5.1f}%  {key[:70]}")
 
 
-def phase_train():
-    """Train the flagship recipe through the Trainer on a synthetic scene
-    made here, with the kernels and with use_kernel=False; check the loss
-    falls, held-out PSNR, the two runs' agreement and the kernel launches
-    per step; time and profile the step. Returns the kernel run's launches
-    (forward, backward phase 1, phase 2, reduction)."""
-    import numpy as np
+SMOKE_DIR = os.path.join(ROOT, "build", "chip_smoke")
 
+
+def make_scene():
+    """The 64x64 synthetic scene (8 train / 2 val views), written under
+    build/chip_smoke/: (train, val) datasets."""
     from nerfmlp_torch.data.blender import BlenderDataset
     from nerfmlp_torch.data.synthetic import make_synthetic_scene
 
     t0 = time.perf_counter()
-    root = os.path.join(ROOT, "build", "chip_smoke")
-    scene = os.path.join(root, "scene")
+    scene = os.path.join(SMOKE_DIR, "scene")
     make_synthetic_scene(scene, n_train=8, n_val=2, n_test=0,
                          img_wh=(TRAIN_WH, TRAIN_WH), seed=SEED)
-    train_ds = BlenderDataset(scene, "train", img_wh=(TRAIN_WH, TRAIN_WH))
-    val_ds = BlenderDataset(scene, "val", img_wh=(TRAIN_WH, TRAIN_WH))
-    rc, tc = train_configs(*train_ds.dynamic_near_far())
+    wh = (TRAIN_WH, TRAIN_WH)
     print(f"[train] scene {TRAIN_WH}x{TRAIN_WH}, 8 train / 2 val views in "
-          f"{time.perf_counter() - t0:.1f} s; {TRAIN_STEPS} steps of "
-          f"{TRAIN_RAYS} rays, {rc.N_samples}+{rc.N_importance} samples, "
-          f"bf16")
+          f"{time.perf_counter() - t0:.1f} s")
+    return (BlenderDataset(scene, "train", img_wh=wh),
+            BlenderDataset(scene, "val", img_wh=wh))
+
+
+def train_both(tag, rc, tc, train_ds, val_ds):
+    """Train one recipe through the Trainer with the kernels and with
+    use_kernel=False (train_once sets the launch counts to 0 just before
+    each run and reads them just after); check that each run's loss falls
+    (the mean of the last 20 steps below half the first 20's), that the
+    kernel run launched the forward once per query and grid refresh and
+    each backward kernel once per query, and that the plain run launched
+    none. Returns {"kernel" | "plain": run}, each run a dict of
+    train_once's results, the losses' first and last means and, under
+    occupancy, the share of the grid's cells left occupied."""
+    import numpy as np
+
+    steps = tc.iters
+    queries = 1 if rc.use_occupancy and rc.occ_one_shot else 2
+    n_ref = -(-steps // rc.occ_update_every) if rc.use_occupancy else 0
+    want = (queries * steps + n_ref,) + (queries * steps,) * 3
     runs = {}
     for name, cfg in (("kernel", rc),
                       ("plain", dataclasses.replace(rc, use_kernel=False))):
-        losses, wall, val, launches, trainer = train_once(
-            cfg, tc, train_ds, val_ds, os.path.join(root, name))
+        losses, wall, val, launches, trainer, refresh = train_once(
+            cfg, tc, train_ds, val_ds,
+            os.path.join(SMOKE_DIR, tag.replace(" ", "_") + "_" + name))
+        run = {"val": val, "launches": launches, "trainer": trainer,
+               "refresh": refresh, "first": float(losses[:20].mean()),
+               "last": float(losses[-20:].mean()), "occupied": None}
+        grid = ""
+        if trainer.occ_grid is not None:
+            run["occupied"] = float((trainer.occ_grid.density
+                                     > rc.occ_threshold).float().mean())
+            grid = (f" with the grid ({100 * run['occupied']:.1f}% of cells "
+                    f"occupied)")
         times = trainer.history["iteration_times"][10:]
-        first, last = losses[:20].mean(), losses[-20:].mean()
-        print(f"[train] {name}: loss {first:.5f} -> {last:.5f} (mean of "
-              f"first / last 20 steps), held-out PSNR {val['psnr']:.2f} dB, "
-              f"SSIM {val['ssim']:.4f}; {1e3 * wall / TRAIN_STEPS:.2f} ms "
-              f"per step ({TRAIN_RAYS * TRAIN_STEPS / wall:.0f} rays/s, "
-              f"synchronised), host median {1e3 * np.median(times):.2f} ms")
-        if not last < 0.5 * first:
-            raise SystemExit(f"[train] {name}: the loss did not fall")
-        runs[name] = (val, launches, trainer, wall)
-    val, launches, trainer, wall = runs["kernel"]
-    want = (2 * TRAIN_STEPS,) * 4
-    print(f"[train] kernel launches over {TRAIN_STEPS} steps: forward "
-          f"{launches[0]}, backward phase 1 {launches[1]}, phase 2 "
-          f"{launches[2]}, reduction {launches[3]} (want {want[0]} each: "
-          f"coarse + fine query per step); plain run: {runs['plain'][1]}")
-    if launches != want or runs["plain"][1] != (0, 0, 0, 0):
-        raise SystemExit("[train] the train steps did not go through the "
+        print(f"[{tag}] {name}: loss {run['first']:.5f} -> {run['last']:.5f} "
+              f"(mean of first / last 20 steps), held-out PSNR "
+              f"{val['psnr']:.2f} dB{grid}, SSIM {val['ssim']:.4f}; "
+              f"{1e3 * wall / steps:.2f} ms per step "
+              f"({tc.batch_size * steps / wall:.0f} rays/s, synchronised, "
+              f"{refresh['n']} refreshes included), host median "
+              f"{1e3 * np.median(times):.2f} ms")
+        if not run["last"] < 0.5 * run["first"]:
+            raise SystemExit(f"[{tag}] {name}: the loss did not fall")
+        runs[name] = run
+    k = runs["kernel"]
+    print(f"[{tag}] kernel launches over {steps} steps: forward "
+          f"{k['launches'][0]} ({k['refresh']['launches']} in "
+          f"{k['refresh']['n']} refreshes), backward phase 1 "
+          f"{k['launches'][1]}, phase 2 {k['launches'][2]}, reduction "
+          f"{k['launches'][3]} (want {want}: {queries} queries per step, 1 "
+          f"forward per refresh); plain run: {runs['plain']['launches']}")
+    if (k["launches"] != want
+            or k["refresh"] != {"n": n_ref, "launches": n_ref}
+            or runs["plain"]["launches"] != (0, 0, 0, 0)):
+        raise SystemExit(f"[{tag}] the train steps did not go through the "
                          "kernels as expected")
-    gap = abs(val["psnr"] - runs["plain"][0]["psnr"])
-    print(f"[train] held-out PSNR kernel {val['psnr']:.2f} dB vs "
-          f"use_kernel=False {runs['plain'][0]['psnr']:.2f} dB (gap "
-          f"{gap:.2f} dB, limit {PSNR_GAP} dB; floor {PSNR_MIN} dB)")
-    if not (val["psnr"] >= PSNR_MIN and gap <= PSNR_GAP):
-        raise SystemExit("[train] held-out PSNR below the floor or off the "
+    return runs
+
+
+def check_psnr(tag, runs):
+    """The kernel run's held-out PSNR: at least PSNR_MIN, and within
+    PSNR_GAP of the plain run's."""
+    psnr, plain = runs["kernel"]["val"]["psnr"], runs["plain"]["val"]["psnr"]
+    gap = abs(psnr - plain)
+    print(f"[{tag}] held-out PSNR kernel {psnr:.2f} dB vs use_kernel=False "
+          f"{plain:.2f} dB (gap {gap:.2f} dB, limit {PSNR_GAP} dB; floor "
+          f"{PSNR_MIN} dB)")
+    if not (psnr >= PSNR_MIN and gap <= PSNR_GAP):
+        raise SystemExit(f"[{tag}] held-out PSNR below the floor or off the "
                          "plain path")
-    profile_step(trainer)
+
+
+def phase_train(train_ds, val_ds):
+    """Train the flagship recipe through the Trainer on the synthetic scene,
+    with the kernels and with use_kernel=False (train_both), hold the
+    held-out PSNR (check_psnr), profile a step. Returns the kernel run's
+    launches (forward, backward phase 1, phase 2, reduction)."""
+    t0 = time.perf_counter()
+    rc, tc = train_configs(*train_ds.dynamic_near_far())
+    print(f"[train] {TRAIN_STEPS} steps of {TRAIN_RAYS} rays, "
+          f"{rc.N_samples}+{rc.N_importance} samples, bf16")
+    runs = train_both("train", rc, tc, train_ds, val_ds)
+    check_psnr("train", runs)
+    profile_step(runs["kernel"]["trainer"])
     print(f"[train] phase took {time.perf_counter() - t0:.1f} s")
-    return launches
+    return runs["kernel"]["launches"]
 
 
 def _png_pixels(body):
@@ -680,19 +788,16 @@ def _png_pixels(body):
     return rows[:, 1:].reshape(h, w, 3)
 
 
-def phase_serve(net):
+def serve_frames(svc, tag):
+    """Warm ``svc`` up, serve three frames of the serving pose over HTTP
+    from RenderServer on 127.0.0.1 (png, npy, json with the depth map),
+    with the forward's launch count set to 0 just before and read just
+    after; check the images. Returns (the npy rgb, launches, frames)."""
     import numpy as np
-    import torch
 
     from nerfmlp_torch.ops.fused_mlp import fused_nerf_mlp
-    from nerfmlp_torch.ops.rays import pose_spherical
-    from nerfmlp_torch.ops.render import prepare_params, render_image_maps
-    from nerfmlp_torch.render_path import rays_for_pose_device
-    from nerfmlp_torch.serve import RenderServer, RenderService
+    from nerfmlp_torch.serve import RenderServer
 
-    cfg = slice_config()
-    svc = RenderService({"coarse": net}, cfg, H, W, FOCAL, tile=TILE,
-                        device="cuda", log=lambda m: print(f"[serve] {m}"))
     svc.warmup()
     server = RenderServer(svc, "127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -714,19 +819,16 @@ def phase_serve(net):
         launches = fused_nerf_mlp.launches
         with urllib.request.urlopen(url + "/health", timeout=30) as resp:
             health = json.loads(resp.read())
+        with urllib.request.urlopen(url + "/spec", timeout=30) as resp:
+            spec = json.loads(resp.read())
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
     if any(status != 200 for status, _ in replies):
-        raise SystemExit(f"[serve] HTTP status {[s for s, _ in replies]}")
-    n_tiles = -(-H * W // TILE)
-    want = 2 * n_tiles * len(replies)
-    print(f"[serve] {len(replies)} frames: {launches} kernel launches "
-          f"(want {want} = 2 x {n_tiles} tiles per frame)")
-    if launches != want:
-        raise SystemExit("[serve] the served frames did not go through the "
-                         "kernel as expected")
+        raise SystemExit(f"[{tag}] HTTP status {[s for s, _ in replies]}")
+    if spec["occupancy"] != (svc.occ_grid is not None):
+        raise SystemExit(f"[{tag}] /spec misreports occupancy")
     png = _png_pixels(replies[0][1])
     rgb = np.load(io.BytesIO(replies[1][1]))
     maps = json.loads(replies[2][1])
@@ -737,12 +839,36 @@ def phase_serve(net):
           and np.array_equal(png, (rgb * 255).round().astype(np.uint8))
           and np.allclose(np.asarray(maps["rgb_map"], np.float32), rgb))
     if not ok:
-        raise SystemExit("[serve] images are not finite, of the right shape "
+        raise SystemExit(f"[{tag}] images are not finite, of the right shape "
                          "and consistent across formats")
     lat = health["latency"]
-    print(f"[serve] frame latency p50 {lat['p50_ms']} ms, max "
+    print(f"[{tag}] frame latency p50 {lat['p50_ms']} ms, max "
           f"{lat['max_ms']} ms over {lat['n']} frames "
-          f"(warmup {health['warmup_s']} s)")
+          f"(warmup {health['warmup_s']} s); /spec occupancy "
+          f"{spec['occupancy']}, tile {spec['tile']}")
+    return rgb, launches, len(replies)
+
+
+def phase_serve(net):
+    import numpy as np
+    import torch
+
+    from nerfmlp_torch.ops.rays import pose_spherical
+    from nerfmlp_torch.ops.render import prepare_params, render_image_maps
+    from nerfmlp_torch.render_path import rays_for_pose_device
+    from nerfmlp_torch.serve import RenderService
+
+    cfg = slice_config()
+    svc = RenderService({"coarse": net}, cfg, H, W, FOCAL, tile=TILE,
+                        device="cuda", log=lambda m: print(f"[serve] {m}"))
+    rgb, launches, n_frames = serve_frames(svc, "serve")
+    n_tiles = -(-H * W // TILE)
+    want = 2 * n_tiles * n_frames
+    print(f"[serve] {n_frames} frames: {launches} kernel launches "
+          f"(want {want} = 2 x {n_tiles} tiles per frame)")
+    if launches != want:
+        raise SystemExit("[serve] the served frames did not go through the "
+                         "kernel as expected")
 
     # The same frame through the kernel and through use_kernel=False (the
     # bf16 module path), rendered directly with the function the service
@@ -783,6 +909,248 @@ def phase_serve(net):
     return launches
 
 
+def refresh_points(cfg):
+    """The points and encoded directions of one grid refresh: the
+    OCC_GRID^3 cell corners plus a seeded jitter, one sample each, with the
+    constant direction [0, 0, -1] (ops/occupancy.update_grid's query)."""
+    import torch
+
+    from nerfmlp_torch.ops.encoding import positional_encoding
+    from nerfmlp_torch.ops.occupancy import _cell_centers
+
+    n = OCC_GRID ** 3
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    jitter = torch.rand((n, 3), generator=gen, device="cuda")
+    pts = _cell_centers(OCC_GRID, OCC_AABB, jitter, "cuda")
+    down = torch.tensor([0.0, 0.0, -1.0], device="cuda").expand(n, 3)
+    return pts.contiguous(), positional_encoding(down, cfg.dir_enc_L)
+
+
+def phase_occ_kernels(net):
+    """The forward and the backward's kernels at occupancy sampling's
+    shapes: the probe (16 samples) and refine (48) queries of a 1024-ray
+    step, each forward and backward (each backward kernel alone too); a
+    grid refresh (64^3 points, forward only); a served 16,384-ray tile's
+    probe and refine queries (forward only); and in hi_lo mode (fp32
+    'high') the one-shot recipe's query (1024 rays x 64 samples, forward
+    and backward) and its grid refresh. Returns {label: record} and the
+    backward's per-kernel records {"refine", "probe", "hi_lo"}."""
+    cfg = slice_config()
+    t0 = time.perf_counter()
+    recs, phases = {}, {}
+    for n_samples, label in ((OCC_PROBE, "probe"), (OCC_REFINE, "refine")):
+        pts, dirs = serving_points(n_samples, cfg, n_rays=TRAIN_RAYS)
+        recs[f"train {label}"] = check_kernel(net, cfg, pts, dirs,
+                                              f"occ train {label}",
+                                              time_it=True)
+        recs[f"bwd {label}"], phases[label] = check_backward(
+            net, cfg, pts, dirs, f"occ {label}", time_it=True)
+    refresh = refresh_points(cfg)
+    recs["refresh"] = check_kernel(net, cfg, *refresh, "occ grid refresh",
+                                   time_it=True)
+    for n_samples, label in ((OCC_PROBE, "probe"), (OCC_REFINE, "refine")):
+        pts, dirs = serving_points(n_samples, cfg, n_rays=OCC_TILE)
+        recs[f"serve {label}"] = check_kernel(net, cfg, pts, dirs,
+                                              f"occ served tile {label}",
+                                              time_it=True)
+    pts, dirs = serving_points(OCC_PROBE + OCC_REFINE, cfg, n_rays=TRAIN_RAYS)
+    recs["hi_lo train"] = check_kernel(net, cfg, pts, dirs,
+                                       "occ hi_lo one-shot train",
+                                       time_it=True, hi_lo=True)
+    recs["bwd hi_lo"], phases["hi_lo"] = check_backward(
+        net, cfg, pts, dirs, "occ hi_lo one-shot", time_it=True, hi_lo=True)
+    recs["hi_lo refresh"] = check_kernel(net, cfg, *refresh,
+                                         "occ hi_lo grid refresh",
+                                         time_it=True, hi_lo=True)
+    print(f"[occ] kernel checks took {time.perf_counter() - t0:.1f} s")
+    return recs, phases
+
+
+def turbo_configs(near, far):
+    """The turbo recipe (configs/lego_turbo_bf16.txt): 8x256, batch 1024,
+    occupancy 16+48 hierarchical, 64 grid-scored depths, a 64^3 grid
+    refreshed every OCC_EVERY steps, bf16 through the kernels, perturb on;
+    TRAIN_STEPS steps, no validation inside the run."""
+    from nerfmlp_torch.config import RenderConfig, TrainConfig
+
+    rc = RenderConfig(N_samples=OCC_PROBE, N_importance=OCC_REFINE, near=near,
+                      far=far, white_bkgd=True, perturb=True,
+                      raw_noise_std=0.0, compute_dtype="bfloat16",
+                      use_kernel=True, aabb=OCC_AABB, use_occupancy=True,
+                      occ_dense_samples=OCC_DENSE, occ_grid_size=OCC_GRID,
+                      occ_update_every=OCC_EVERY,
+                      occ_warmup_steps=OCC_WARMUP)
+    tc = TrainConfig(batch_size=TRAIN_RAYS, iters=TRAIN_STEPS, seed=SEED,
+                     lr_decay_steps=LR_DECAY_STEPS, quick_val_interval=0,
+                     full_val_interval=0, log_interval=100, ckpt_interval=0)
+    return rc, tc
+
+
+def fast_configs(near, far):
+    """The fast recipe (configs/lego_fast_fp32.txt) in the one-shot
+    protocol: the turbo recipe in fp32 'high' (the kernels' hi_lo mode)
+    with 128 grid-scored depths; HI_LO_STEPS steps, the first half on the
+    central crop."""
+    rc, tc = turbo_configs(near, far)
+    return (dataclasses.replace(rc, compute_dtype="float32",
+                                fp32_precision="high", occ_one_shot=True,
+                                occ_dense_samples=128),
+            dataclasses.replace(tc, iters=HI_LO_STEPS,
+                                precrop_iters=HI_LO_STEPS // 2))
+
+
+def phase_occ_train(train_ds, val_ds):
+    """Train the turbo recipe through the Trainer with the kernels and with
+    use_kernel=False (train_both: 2 forward launches per step plus 1 per
+    refresh, 2 of each backward kernel per step); check that each run's
+    grid pruned cells, hold the held-out PSNR rendered with each run's grid
+    (check_psnr), profile a step. Returns the kernel run."""
+    t0 = time.perf_counter()
+    rc, tc = turbo_configs(*train_ds.dynamic_near_far())
+    print(f"[occ train] {TRAIN_STEPS} steps of {TRAIN_RAYS} rays, "
+          f"occupancy {rc.N_samples}+{rc.N_importance} hierarchical, "
+          f"{rc.occ_dense_samples} grid-scored depths, {OCC_GRID}^3 grid "
+          f"every {OCC_EVERY} steps (decay 1 to step {OCC_WARMUP}), bf16")
+    runs = train_both("occ train", rc, tc, train_ds, val_ds)
+    if not all(r["occupied"] < 1.0 for r in runs.values()):
+        raise SystemExit("[occ train] the grid pruned no cell: training "
+                         "never sampled a pruned grid")
+    check_psnr("occ train", runs)
+    profile_step(runs["kernel"]["trainer"])
+    print(f"[occ train] phase took {time.perf_counter() - t0:.1f} s")
+    return runs["kernel"]
+
+
+def phase_occ_hi_lo(train_ds, val_ds):
+    """The one-shot fp32 'high' recipe through the kernels' hi_lo mode and
+    with use_kernel=False (train_both: 1 launch of each kernel per step
+    plus 1 forward per refresh); the kernel run's last losses must lie
+    within HI_LO_TRACK of the plain run's. Returns the kernel run."""
+    t0 = time.perf_counter()
+    rc, tc = fast_configs(*train_ds.dynamic_near_far())
+    print(f"[occ hi_lo] {HI_LO_STEPS} steps of {TRAIN_RAYS} rays, occupancy "
+          f"one-shot {rc.N_samples + rc.N_importance} samples, "
+          f"{rc.occ_dense_samples} grid-scored depths, fp32 'high', central "
+          f"crop for {tc.precrop_iters} steps")
+    runs = train_both("occ hi_lo", rc, tc, train_ds, val_ds)
+    k, p = runs["kernel"]["last"], runs["plain"]["last"]
+    gap = abs(k - p) / p
+    print(f"[occ hi_lo] last-20 loss, kernel vs use_kernel=False: relative "
+          f"gap {gap:.3e} (limit {HI_LO_TRACK}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not gap <= HI_LO_TRACK:
+        raise SystemExit("[occ hi_lo] the kernel run does not track the "
+                         "plain run")
+    return runs["kernel"]
+
+
+def phase_occ_serve(trainer):
+    """Serve the turbo model over HTTP in 16,384-ray tiles with the grid
+    that RenderService builds from its weights (build_grid through the
+    forward kernel, 4 launches): 2 forward launches per tile; that grid
+    against the plain build from the same seed; the frame against
+    use_kernel=False with the same grid (see below); a profiled frame.
+    Returns the frames' launches."""
+    import numpy as np
+    import torch
+
+    from nerfmlp_torch.ops import fused_mlp
+    from nerfmlp_torch.ops.occupancy import build_grid
+    from nerfmlp_torch.ops.rays import pose_spherical
+    from nerfmlp_torch.ops.render import prepare_params, render_image_maps
+    from nerfmlp_torch.render_path import rays_for_pose_device
+    from nerfmlp_torch.serve import GRID_SEED, RenderService
+
+    t0 = time.perf_counter()
+    cfg, params = trainer.rc, trainer.state.params
+    fused_mlp.fused_nerf_mlp.launches = 0
+    svc = RenderService(params, cfg, H, W, FOCAL, tile=OCC_TILE,
+                        device="cuda", log=lambda m: print(f"[occ serve] {m}"))
+    built = fused_mlp.fused_nerf_mlp.launches
+    grid = svc.occ_grid
+    plain_grid = build_grid(params, dataclasses.replace(cfg, use_kernel=False),
+                            torch.Generator(device="cuda").manual_seed(
+                                GRID_SEED), resolution=cfg.occ_grid_size)
+    dk, dp = grid.density, plain_grid.density
+    err = float((dk - dp).abs().max())
+    norm = err / max(float(dp.abs().max()), 1e-12)
+    thr = cfg.occ_threshold
+    flips = (dk > thr) != (dp > thr)
+    near_thr = (dp - thr).abs() <= KERNEL_TOL * float(dp.abs().max())
+    print(f"[occ serve] the service's grid, {OCC_GRID}^3 built through the "
+          f"kernel ({built} launches, 4 refreshes), vs the plain build: "
+          f"max|err| {err:.3e}, normalised {norm:.3e} (tol {KERNEL_TOL}); "
+          f"occupied {100 * float((dk > thr).float().mean()):.1f}% / "
+          f"{100 * float((dp > thr).float().mean()):.1f}%, "
+          f"{int(flips.sum())} cells decided otherwise, all within "
+          f"{KERNEL_TOL} x max density of the threshold: "
+          f"{bool((near_thr | ~flips).all())}")
+    if not (norm <= KERNEL_TOL and built == 4 and (near_thr | ~flips).all()):
+        raise SystemExit("[occ serve] the kernel-built grid disagrees with "
+                         "the plain build")
+    rgb, launches, n_frames = serve_frames(svc, "occ serve")
+    n_tiles = -(-H * W // OCC_TILE)
+    want = 2 * n_tiles * n_frames
+    print(f"[occ serve] {n_frames} frames: {launches} kernel launches (want "
+          f"{want} = probe + refine query x {n_tiles} tiles per frame)")
+    if launches != want:
+        raise SystemExit("[occ serve] the served frames did not go through "
+                         "the kernel as expected")
+
+    # The same frame with the same grid through use_kernel=False. The
+    # trained model's bf16 frames, the kernel's and the module path's, each
+    # lie ~3e-2 (99.9th percentile) from the fp32 frame and ~2e-2 from
+    # each other, beyond the random-weight serving bars; so the bf16 kernel
+    # frame is held to be no farther from the fp32 module frame than the
+    # bf16 module frame is, and the hi_lo kernel frame (fp32 'high') to
+    # the serving bar against it, for 99.9% of values (the refine samples
+    # follow the probes' weights discontinuously at a few pixels).
+    o, d, _ = rays_for_pose_device(pose_spherical(*SERVE_POSE), H, W, FOCAL,
+                                   cfg, device="cuda")
+    frames = {}
+    for name, c in (
+            ("kernel", cfg),
+            ("module bf16", dataclasses.replace(cfg, use_kernel=False)),
+            ("kernel hi_lo", dataclasses.replace(
+                cfg, compute_dtype="float32", fp32_precision="high")),
+            ("module fp32", dataclasses.replace(
+                cfg, use_kernel=False, compute_dtype="float32",
+                fp32_precision="highest"))):
+        p = prepare_params(params, c)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = render_image_maps(p, o, d, H, W, c, tile=OCC_TILE,
+                                occ_grid=grid)
+        frames[name] = np.clip(out["rgb_map"].cpu().numpy(), 0.0, 1.0)
+        print(f"[occ serve] {name} frame rendered directly in "
+              f"{time.perf_counter() - t1:.3f} s")
+    if not np.array_equal(frames["kernel"], rgb):
+        raise SystemExit("[occ serve] the served frame differs from a direct "
+                         "render through the kernel")
+
+    def dist(a, b):
+        e = np.abs(frames[a] - frames[b])
+        q = float(np.quantile(e, 0.999))
+        print(f"[occ serve] {a} vs {b}: rgb max|err| {e.max():.3e}, 99.9th "
+              f"percentile {q:.3e}, mean {e.mean():.3e}, "
+              f"{100 * float((e > FRAME_TOL).mean()):.2f}% of values above "
+              f"{FRAME_TOL}")
+        return q, float(e.mean())
+
+    dist("kernel", "module bf16")
+    k_q, k_mean = dist("kernel", "module fp32")
+    m_q, m_mean = dist("module bf16", "module fp32")
+    h_q, _ = dist("kernel hi_lo", "module fp32")
+    if not (k_q <= FRAME_RATIO * m_q and k_mean <= FRAME_RATIO * m_mean
+            and h_q <= FRAME_TOL):
+        raise SystemExit("[occ serve] served frame disagrees with the plain "
+                         "path")
+    profile_frame(prepare_params(params, cfg), o, d, cfg, tile=OCC_TILE,
+                  occ_grid=grid)
+    print(f"[occ serve] phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def device_rows(prof):
     """(name, device ms) of the kernels the profiler saw on the card —
     the device events only, so a CPU-side op that launched a kernel (an
@@ -795,7 +1163,7 @@ def device_rows(prof):
             and e.self_device_time_total > 0]
 
 
-def profile_frame(params, o, d, cfg):
+def profile_frame(params, o, d, cfg, tile=TILE, occ_grid=None):
     """Where one served frame's time goes: wall clock, device busy time,
     and the device time of the heaviest operations, by torch.profiler."""
     import torch
@@ -806,7 +1174,8 @@ def profile_frame(params, o, d, cfg):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render_image_maps(params, o, d, H, W, cfg, tile=TILE)["rgb_map"].cpu()
+        render_image_maps(params, o, d, H, W, cfg, tile=tile,
+                          occ_grid=occ_grid)["rgb_map"].cpu()
         wall = 1e3 * (time.perf_counter() - t0)
     rows = sorted(device_rows(prof), key=lambda r: -r[1])
     busy = sum(ms for _, ms in rows)
@@ -835,7 +1204,12 @@ def main():
     coarse, fine = phase_kernel(net)
     fwd_train, bwds, ph_fine, ph_coarse = phase_backward(net)
     serve_launches = phase_serve(net)
-    fwd_launches, *bwd_launches = phase_train()
+    train_ds, val_ds = make_scene()
+    fwd_launches, *bwd_launches = phase_train(train_ds, val_ds)
+    occ, occ_ph = phase_occ_kernels(net)
+    occ_run = phase_occ_train(train_ds, val_ds)
+    hi_lo_run = phase_occ_hi_lo(train_ds, val_ds)
+    occ_serve_launches = phase_occ_serve(occ_run["trainer"])
 
     # The forward runs on both paths, at different shapes: one record per
     # path, each with that path's launches and its fine call's times, and
@@ -873,30 +1247,69 @@ def main():
         "bound_by": fwd_train[1]["bound_by"],
         "library_ms": None,
     }]
-    for key, name, replaces, launches in (
-            ("phase1", "fused_mlp_bwd_phase1", "pallas_mlp.py:312",
-             bwd_launches[0]),
-            ("phase2", "fused_mlp_bwd_phase2", "pallas_mlp.py:386",
-             bwd_launches[1]),
-            ("reduce", "fused_mlp_bwd_reduce", "pallas_mlp.py:327",
-             bwd_launches[2])):
-        r = ph_fine[key]
+    # Occupancy sampling's paths: the forward's records per call kind
+    # (the train step's queries, timed at the refine call; the grid
+    # refreshes; the served tiles, timed at the refine query; the one-shot
+    # hi_lo recipe's query and refreshes), each with its launches on that
+    # path.
+    occ_launches, occ_refresh = occ_run["launches"], occ_run["refresh"]
+    hi_lo_launches, hi_lo_refresh = hi_lo_run["launches"], hi_lo_run["refresh"]
+    for name, path, launches, recs in (
+            ("fused_mlp_fwd_occ_train", "occ_train",
+             occ_launches[0] - occ_refresh["launches"],
+             (occ["train refine"], occ["train probe"])),
+            ("fused_mlp_fwd_occ_refresh", "occ_train",
+             occ_refresh["launches"], (occ["refresh"],)),
+            ("fused_mlp_fwd_occ_serve", "occ_serve", occ_serve_launches,
+             (occ["serve refine"], occ["serve probe"])),
+            ("fused_mlp_fwd_occ_hi_lo", "occ_hi_lo",
+             hi_lo_launches[0] - hi_lo_refresh["launches"],
+             (occ["hi_lo train"],)),
+            ("fused_mlp_fwd_occ_hi_lo_refresh", "occ_hi_lo",
+             hi_lo_refresh["launches"], (occ["hi_lo refresh"],))):
+        r = recs[0]
         kernels.append({
             "name": name,
-            "path": "train",
+            "path": path,
             "route": "cuda",
-            "source": "nerfmlp_torch/csrc/fused_mlp_bwd.cu",
-            "replaces": "nerfmlp_tpu/ops/" + replaces,
+            "source": "nerfmlp_torch/csrc/fused_mlp_fwd.cu",
+            "replaces": "nerfmlp_tpu/ops/pallas_mlp.py:264",
             "launches": launches,
-            "max_abs_err": max(r["max_abs_err"],
-                               ph_coarse[key]["max_abs_err"]),
+            "max_abs_err": max(x["max_abs_err"] for x in recs),
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
+            "module_ms": r["module_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
+            "library_ms": None,
         })
-    for rec in bwds:
+    for key, name, replaces, i in (
+            ("phase1", "fused_mlp_bwd_phase1", "pallas_mlp.py:312", 0),
+            ("phase2", "fused_mlp_bwd_phase2", "pallas_mlp.py:386", 1),
+            ("reduce", "fused_mlp_bwd_reduce", "pallas_mlp.py:327", 2)):
+        for suffix, path, launches, big, small in (
+                ("", "train", bwd_launches[i], ph_fine, ph_coarse),
+                ("_occ_train", "occ_train", occ_launches[1 + i],
+                 occ_ph["refine"], occ_ph["probe"]),
+                ("_occ_hi_lo", "occ_hi_lo", hi_lo_launches[1 + i],
+                 occ_ph["hi_lo"], occ_ph["hi_lo"])):
+            r = big[key]
+            kernels.append({
+                "name": name + suffix,
+                "path": path,
+                "route": "cuda",
+                "source": "nerfmlp_torch/csrc/fused_mlp_bwd.cu",
+                "replaces": "nerfmlp_tpu/ops/" + replaces,
+                "launches": launches,
+                "max_abs_err": max(r["max_abs_err"],
+                                   small[key]["max_abs_err"]),
+                "ms": r["ms"],
+                "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"],
+            })
+    for rec in bwds + [occ["bwd probe"], occ["bwd refine"], occ["bwd hi_lo"]]:
         print(f"[backward] {rec['label']} call, all three kernels: "
               f"{rec['ms']:.3f} ms ({rec['ms_no_spin']:.3f} ms without the "
               f"spin); bound {rec['bound_ms']:.3f} ms "

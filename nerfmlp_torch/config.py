@@ -76,7 +76,7 @@ class RenderConfig:
     aabb: Optional[Tuple[float, float, float, float, float, float]] = None
                                  # (xmin,ymin,zmin,xmax,ymax,zmax): tighten
                                  # per-ray near/far to the scene box
-    use_occupancy: bool = False  # occupancy-grid sampling (not ported yet)
+    use_occupancy: bool = False  # occupancy-grid sampling (ops/occupancy.py)
     occ_dense_samples: int = 128
     occ_grid_size: int = 64
     occ_update_every: int = 64

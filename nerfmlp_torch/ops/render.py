@@ -12,8 +12,10 @@ Counterpart of ``nerfmlp_tpu/ops/render.py``:
 :class:`~nerfmlp_torch.models.mlp.NeRFMLP` or its kernel layout
 (:class:`~nerfmlp_torch.ops.fused_mlp.PackedMLP`, see
 :func:`prepare_params`). One shared net serves coarse and fine by default;
-``RenderConfig.separate_fine`` switches to the two-net scheme.
-Occupancy-grid sampling is not ported yet.
+``RenderConfig.separate_fine`` switches to the two-net scheme. With
+``use_occupancy`` a density grid (``ops/occupancy.py``) takes the coarse
+pass's place: the net that renders the final image is queried once
+(``occ_one_shot``) or twice (probes, then refinement samples).
 """
 
 from __future__ import annotations
@@ -30,9 +32,6 @@ from nerfmlp_torch.ops.fused_mlp import (
 )
 from nerfmlp_torch.ops.integrate import composite_rays
 from nerfmlp_torch.ops.sampling import sample_pdf, stratified_sample
-
-_OCCUPANCY = ("occupancy-grid sampling is not ported yet "
-              "(ROADMAP.md, Queue 1 item 12)")
 
 
 def _final_net(params: Dict, cfg: RenderConfig):
@@ -128,18 +127,28 @@ def render_rays(
     cfg: RenderConfig,
     near=None,
     far=None,
+    occ_grid=None,
     viewdirs: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """Coarse(+fine) render of (N, 3) ray batches.
 
     Fine maps under ``rgb_map`` etc., plus ``*_coarse`` companions and
     ``z_std`` with hierarchical sampling. ``near``/``far``: scalars or
-    per-ray tensors (default: the config). ``viewdirs``: optional (N, 3)
-    world-space view directions (required for NDC rays), else
-    normalize(rays_d). ``generator`` drives ``perturb``/``raw_noise_std``.
+    per-ray tensors (default: the config). ``occ_grid``: the
+    :class:`~nerfmlp_torch.ops.occupancy.OccupancyGrid` that
+    ``use_occupancy`` requires (no ``*_coarse`` maps then). ``viewdirs``:
+    optional (N, 3) world-space view directions (required for NDC rays),
+    else normalize(rays_d). ``generator`` drives ``perturb``/
+    ``raw_noise_std``.
     """
-    if cfg.use_occupancy:
-        raise NotImplementedError(_OCCUPANCY)
+    if cfg.use_occupancy and occ_grid is None:
+        # Not the hierarchical path instead: under separate_fine occupancy
+        # training never trains the coarse net, whose placement would then
+        # render garbage without an error.
+        raise ValueError(
+            "cfg.use_occupancy=True but no occ_grid was passed — build one "
+            "with ops.occupancy.create_grid/update_grid/build_grid, or "
+            "render with dataclasses.replace(cfg, use_occupancy=False)")
     n_rays = rays_o.shape[0]
     near = cfg.near if near is None else near
     far = cfg.far if far is None else far
@@ -164,6 +173,10 @@ def render_rays(
         vd = rays_d if viewdirs is None else viewdirs
         vd = vd / (torch.linalg.norm(vd, dim=-1, keepdim=True) + 1e-8)
         viewdirs_enc = positional_encoding(vd, cfg.dir_enc_L)
+
+    if cfg.use_occupancy:
+        return _render_occupancy(params, rays_o, rays_d, generator, cfg,
+                                 near, far, far_cap, occ_grid, viewdirs_enc)
 
     # --- Coarse pass -----------------------------------------------------
     z_vals = stratified_sample(
@@ -216,6 +229,59 @@ def render_rays(
     }
 
 
+def _render_occupancy(params, rays_o, rays_d, generator, cfg, near, far,
+                      far_cap, occ_grid, viewdirs_enc):
+    """The occupancy branch of :func:`render_rays`
+    (``nerfmlp_tpu/ops/render.py:249-323``): dense stratified depths scored
+    by the grid, then the net that renders the final image, queried at
+    depths drawn from that prior — all ``N_samples + N_importance`` at once
+    (``occ_one_shot``), or ``N_samples`` probes whose compositing weights
+    place ``N_importance`` refinement samples, merged by depth. Depths carry
+    no gradient."""
+    from nerfmlp_torch.ops.occupancy import occupancy_weights
+
+    n_rays = rays_o.shape[0]
+    z_dense = stratified_sample(
+        generator, n_rays, cfg.occ_dense_samples, near, far,
+        perturb=cfg.perturb, lindisp=cfg.lindisp, device=rays_o.device,
+    )
+    w = occupancy_weights(occ_grid, rays_o, rays_d, z_dense, cfg,
+                          cfg.occ_threshold)
+    # Interval mass between consecutive dense depths: the endpoints'
+    # occupancy counts (the coarse path's w[1:-1] would drop surfaces at an
+    # aabb-tightened interval's ends).
+    w_int = 0.5 * (w[..., 1:] + w[..., :-1])
+    net, is_fine = _final_net(params, cfg)
+    det = not cfg.perturb
+
+    def query(z):
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+        return _query_mlp(net, pts, viewdirs_enc, cfg, fine=is_fine)
+
+    if cfg.occ_one_shot or cfg.N_importance <= 0:
+        # Stratified draws come out sorted: no per-ray sort.
+        z_vals = sample_pdf(generator, z_dense, w_int,
+                            cfg.N_samples + cfg.N_importance, det=det,
+                            stratified=True).detach()
+        raw = query(z_vals)
+    else:
+        z_probe = sample_pdf(generator, z_dense, w_int, cfg.N_samples,
+                             det=det, stratified=True).detach()
+        raw_p = query(z_probe)
+        probe = composite_rays(raw_p, z_probe, rays_d, generator=generator,
+                               raw_noise_std=cfg.raw_noise_std,
+                               white_bkgd=cfg.white_bkgd, far_cap=far_cap)
+        z_mids = 0.5 * (z_probe[..., 1:] + z_probe[..., :-1])
+        z_new = sample_pdf(generator, z_mids,
+                           probe["weights"][..., 1:-1].detach(),
+                           cfg.N_importance, det=det).detach()
+        z_vals, raw = _merge_by_depth(z_probe, raw_p, z_new, query(z_new))
+    out = composite_rays(raw, z_vals, rays_d, generator=generator,
+                         raw_noise_std=cfg.raw_noise_std,
+                         white_bkgd=cfg.white_bkgd, far_cap=far_cap)
+    return {k: out[k] for k in ("rgb_map", "depth_map", "disp_map", "acc_map")}
+
+
 def render_image_maps(
     params: Dict,
     rays_o: torch.Tensor,
@@ -226,6 +292,7 @@ def render_image_maps(
     tile: int = 4096,
     near=None,
     far=None,
+    occ_grid=None,
     viewdirs: Optional[torch.Tensor] = None,
     maps: Tuple[str, ...] = ("rgb_map",),
 ) -> Dict[str, torch.Tensor]:
@@ -233,9 +300,8 @@ def render_image_maps(
 
     Deterministic (perturb and noise forced off). Rays are padded to a
     multiple of ``tile`` and rendered tile by tile on the rays' device,
-    without autograd; per-ray near/far tensors are padded like the rays."""
-    if cfg.use_occupancy:
-        raise NotImplementedError(_OCCUPANCY)
+    without autograd; per-ray near/far tensors are padded like the rays.
+    ``occ_grid``: the density grid ``use_occupancy`` renders with."""
     cfg = dataclasses.replace(cfg, perturb=False, raw_noise_std=0.0)
     n_rays = rays_o.shape[0]
     n_tiles = -(-n_rays // tile)
@@ -267,7 +333,7 @@ def render_image_maps(
             out = render_rays(
                 params, piece(rays_o, i), piece(rays_d, i), None, cfg,
                 near=piece(near_t, i), far=piece(far_t, i),
-                viewdirs=piece(viewdirs, i),
+                occ_grid=occ_grid, viewdirs=piece(viewdirs, i),
             )
             outs.append({k: out[k] for k in maps})
     result = {}
@@ -279,9 +345,9 @@ def render_image_maps(
 
 def render_image(params: Dict, rays_o: torch.Tensor, rays_d: torch.Tensor,
                  H: int, W: int, cfg: RenderConfig, tile: int = 4096,
-                 near=None, far=None,
+                 near=None, far=None, occ_grid=None,
                  viewdirs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(H*W, 3) rays -> (H, W, 3) rgb (see :func:`render_image_maps`)."""
     return render_image_maps(params, rays_o, rays_d, H, W, cfg, tile=tile,
-                             near=near, far=far, viewdirs=viewdirs,
-                             maps=("rgb_map",))["rgb_map"]
+                             near=near, far=far, occ_grid=occ_grid,
+                             viewdirs=viewdirs, maps=("rgb_map",))["rgb_map"]

@@ -19,8 +19,12 @@ optax's, term by term:
 Every net the config sends to the fused kernels is packed once per step
 (``prepare_params``); the coarse and fine queries of the shared net then
 run the forward kernel and, under ``backward()``, the backward kernel, and
-autograd sums their gradients. The step never reads a value back to the
-host: metrics stay device tensors.
+autograd sums their gradients. With ``use_occupancy`` the step takes the
+density grid (``occ_grid``) and queries the net that renders the final
+image, once or twice; a net the loss does not reach (the coarse net under
+``separate_fine``) gets a zero gradient, so Adam treats it as optax does.
+The step never reads a value back to the host: metrics stay device
+tensors.
 """
 
 from __future__ import annotations
@@ -84,12 +88,13 @@ def create_train_state(rc: RenderConfig, tc: TrainConfig,
 
 def loss_and_metrics(params: Dict, batch: torch.Tensor,
                      generator: Optional[torch.Generator], rc: RenderConfig,
-                     tc: TrainConfig, bounds=None
+                     tc: TrainConfig, occ_grid=None, bounds=None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: (B, 9) = [rays_o | rays_d | rgb], or (B, 12) with world
     viewdirs for NDC datasets. Returns the loss (fine MSE, plus the coarse
     MSE with ``coarse_loss``) and {loss: fine MSE, psnr: of the fine MSE}.
-    ``bounds``: optional [near, far] overriding the config's."""
+    ``occ_grid``: the density grid of ``use_occupancy``. ``bounds``:
+    optional [near, far] overriding the config's."""
     rays_o, rays_d = batch[:, 0:3], batch[:, 3:6]
     viewdirs = batch[:, 6:9] if batch.shape[1] == 12 else None
     target = batch[:, -3:]
@@ -97,7 +102,7 @@ def loss_and_metrics(params: Dict, batch: torch.Tensor,
     if bounds is not None:
         near, far = bounds[0], bounds[1]
     out = render_rays(params, rays_o, rays_d, generator, rc, near=near,
-                      far=far, viewdirs=viewdirs)
+                      far=far, occ_grid=occ_grid, viewdirs=viewdirs)
     loss_fine = torch.mean((out["rgb_map"] - target) ** 2)
     loss = loss_fine
     if tc.coarse_loss and "rgb_map_coarse" in out:
@@ -112,19 +117,25 @@ def global_norm(grads) -> torch.Tensor:
 
 
 def make_step_fn(rc: RenderConfig, tc: TrainConfig):
-    """The update rule ``step_fn(state, batch) -> metrics``: one step in
-    place on ``state``. Metrics are device tensors: loss, psnr, grad_norm
-    and total_loss."""
+    """The update rule ``step_fn(state, batch[, occ_grid]) -> metrics``:
+    one step in place on ``state``. Metrics are device tensors: loss, psnr,
+    grad_norm and total_loss."""
 
-    def step_fn(state: TrainState, batch: torch.Tensor
+    def step_fn(state: TrainState, batch: torch.Tensor, occ_grid=None
                 ) -> Dict[str, torch.Tensor]:
         state.optimizer.zero_grad(set_to_none=True)
         params = prepare_params(state.params, rc, backward=True)  # once a step
         loss, metrics = loss_and_metrics(params, batch, state.generator,
-                                         rc, tc)
+                                         rc, tc, occ_grid)
         loss.backward()
-        grads = [p.grad for g in state.optimizer.param_groups
-                 for p in g["params"] if p.grad is not None]
+        grads = []
+        for group in state.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    # Not reached by the loss: optax's zero gradient, so the
+                    # moments decay and the update count stays shared.
+                    p.grad = torch.zeros_like(p)
+                grads.append(p.grad)
         gnorm = global_norm(grads)
         if tc.grad_clip > 0:
             clip = tc.grad_clip

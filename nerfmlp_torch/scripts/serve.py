@@ -5,6 +5,11 @@ for the parts ported plus ``--device``. Checkpoints are ``.npy`` official
 weight lists or ``.pth``/``.pt`` reference files; camera defaults come from
 ``--focal``/``--near``/``--far`` (near/far default to the Blender 2/6).
 
+A model trained with ``--use_occupancy`` is served with the same flag and
+its ``--aabb``: the service builds a density grid from the loaded weights
+at start-up (fixed seed) and rebuilds it on every weight swap; ``--tile``
+then defaults to 16,384 rays (4,096 otherwise).
+
 Example:
     python -m nerfmlp_torch.scripts.serve --ckpt model.pth --focal 555.5 \\
         --img_wh 400 400 --port 8008
@@ -22,6 +27,7 @@ def build_service(args):
     from nerfmlp_torch.config import RenderConfig
     from nerfmlp_torch.serve import RenderService
     from nerfmlp_torch.train.checkpoint import load_params_any
+    from nerfmlp_torch.utils.cli import occupancy_fields, resolve_tile
 
     W, H = args.img_wh
     n_importance = args.N_importance
@@ -36,20 +42,26 @@ def build_service(args):
         separate_fine=args.separate_fine, white_bkgd=not args.no_white_bkgd,
         depth=args.netdepth, width=args.netwidth,
         depth_fine=args.netdepth_fine, width_fine=args.netwidth_fine,
+        **occupancy_fields(args),
     )
     params, step = load_params_any(args.ckpt, rc.model_config(),
                                    device=args.device, with_step=True)
     print(f"loaded {args.ckpt} | {W}x{H} focal={args.focal:.2f} "
           f"near={rc.near:.3f} far={rc.far:.3f} "
-          f"samples {rc.N_samples}+{rc.N_importance} | {args.device}")
+          f"samples {rc.N_samples}+{rc.N_importance}"
+          + (f" | occupancy {rc.occ_grid_size}^3 grid" if rc.use_occupancy
+             else "")
+          + f" | {args.device}")
     return RenderService(
-        params, rc, H, W, args.focal, tile=args.tile,
+        params, rc, H, W, args.focal, tile=resolve_tile(args),
         max_pixels=args.max_pixels, max_queue=args.max_queue,
         ckpt_path=args.ckpt, ckpt_step=step, device=args.device,
     )
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from nerfmlp_torch.utils.cli import add_occupancy_flags
+
     p = argparse.ArgumentParser(
         description="Persistent NeRF render server (PyTorch, one GPU)")
     p.add_argument("--ckpt", "--model_path", type=str, required=True,
@@ -78,8 +90,10 @@ def build_parser() -> argparse.ArgumentParser:
                    action="store_false", default=True,
                    help="plain PyTorch module path instead of the fused kernel")
     p.add_argument("--separate_fine", action="store_true")
-    p.add_argument("--tile", "--chunk", type=int, default=4096,
-                   help="rays per tile")
+    add_occupancy_flags(p)
+    p.add_argument("--tile", "--chunk", type=int, default=None,
+                   help="rays per tile (default: 16384 with "
+                        "--use_occupancy, else 4096)")
     p.add_argument("--max_pixels", type=int, default=4096 * 4096,
                    help="reject render requests above this pixel count")
     p.add_argument("--max_queue", type=int, default=8,

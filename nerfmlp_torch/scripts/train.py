@@ -24,8 +24,8 @@ import argparse
 import os
 
 from nerfmlp_torch.utils.cli import (
-    add_arch_flags, arch_fields, bool_flag_names, expand_config_files,
-    negation_flags,
+    add_arch_flags, add_occupancy_flags, arch_fields, bool_flag_names,
+    expand_config_files, negation_flags, occupancy_fields,
 )
 
 _DEFAULT_SAVE_DIR = "outputs/checkpoints"
@@ -68,10 +68,6 @@ _NOT_PORTED = {
     "remat": (dict(action="store_true"),
               "activation rematerialisation (the fused backward recomputes "
               "the forward already)"),
-    "use_occupancy": (dict(action="store_true"),
-                      "occupancy-grid sampling (ROADMAP.md, Queue 1 item 12)"),
-    "occ_one_shot": (dict(action="store_true"),
-                     "occupancy-grid sampling (ROADMAP.md, Queue 1 item 12)"),
 }
 
 
@@ -168,13 +164,12 @@ def build_parser():
                    help="periodic model_{step}.pt interval")
     p.add_argument("--mesh_resolution", type=int, default=128)
     p.add_argument("--mesh_threshold", type=float, default=25.0)
-    p.add_argument("--aabb", type=float, nargs=6, default=None,
-                   metavar=("XMIN", "YMIN", "ZMIN", "XMAX", "YMAX", "ZMAX"),
-                   help="scene box: tighten per-ray near/far")
-    p.add_argument("--occ_grid_size", type=int, default=64)
-    p.add_argument("--occ_update_every", type=int, default=64)
-    p.add_argument("--occ_warmup_steps", type=int, default=1024)
-    p.add_argument("--occ_dense_samples", type=int, default=128)
+    add_occupancy_flags(p)
+    p.add_argument("--occ_update_every", type=int, default=64,
+                   help="refresh the density grid every N steps")
+    p.add_argument("--occ_warmup_steps", type=int, default=1024,
+                   help="refreshes up to this step only add density "
+                        "(decay 1; 0.95 after)")
     for name, (kw, what) in _NOT_PORTED.items():
         p.add_argument(f"--{name}", help=f"not ported: {what}", **kw)
     return p
@@ -272,11 +267,9 @@ def main(argv=None):
         raw_noise_std=args.raw_noise_std, lindisp=args.lindisp,
         separate_fine=args.separate_fine, compute_dtype=args.compute_dtype,
         use_kernel=args.use_kernel, fp32_precision=args.fp32_precision,
-        aabb=tuple(args.aabb) if args.aabb else None,
-        occ_grid_size=args.occ_grid_size,
+        **occupancy_fields(args),
         occ_update_every=args.occ_update_every,
         occ_warmup_steps=args.occ_warmup_steps,
-        occ_dense_samples=args.occ_dense_samples,
     )
     tc = TrainConfig(
         batch_size=args.batch_size, iters=args.iters, lr=args.lr,

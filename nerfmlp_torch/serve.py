@@ -15,7 +15,9 @@ optional ``H``/``W``/``focal``/``near``/``far`` overrides, ``gamma``,
 ``viewdirs_c2w``.
 
 Device work is serialized by a lock; at most ``max_queue`` requests render
-or wait at once, and the excess is shed with HTTP 503 + Retry-After.
+or wait at once, and the excess is shed with HTTP 503 + Retry-After. A
+config with ``use_occupancy`` is served with a density grid that the
+service builds from its weights, at start-up and on every weight swap.
 ``/mesh``, ``/reload`` with checkpoint watching, and multi-device
 sharding are not ported yet: they answer 404, and ``/spec`` lists them.
 """
@@ -44,6 +46,9 @@ MAX_BODY_BYTES = 1 << 20
 ROUTES = ("GET /health", "GET /spec", "POST /render")
 NOT_PORTED = ("POST /mesh", "POST /reload", "checkpoint watch",
               "multi-device sharding")
+# The seed of the grid a service builds from its weights: a fixed one, so a
+# restart serves the same grid.
+GRID_SEED = 0
 
 
 class RequestError(ValueError):
@@ -59,8 +64,11 @@ class RenderService:
 
     ``params``: ``{"coarse": NeRFMLP, ["fine": NeRFMLP]}``, moved to
     ``device`` (default ``cuda``) and packed for the kernel once here and
-    on every :meth:`swap_params`. Starting a service keeps TF32 off
-    process-wide (:func:`nerfmlp_torch.use_true_fp32`). Thread-safe:
+    on every :meth:`swap_params`. With ``cfg.use_occupancy`` (which needs
+    ``cfg.aabb``) every frame renders with ``occ_grid``, built from the
+    weights by ``ops/occupancy.build_grid`` at ``cfg.occ_grid_size`` from
+    ``GRID_SEED``, here and on every swap. Starting a service keeps TF32
+    off process-wide (:func:`nerfmlp_torch.use_true_fp32`). Thread-safe:
     device work is serialized internally.
     """
 
@@ -82,10 +90,14 @@ class RenderService:
         device=None,
         log=print,
     ):
+        if cfg.use_occupancy and cfg.aabb is None:
+            raise ValueError("use_occupancy requires RenderConfig.aabb "
+                             "(--aabb): the grid covers that box")
         self.device = resolve_device(device)
         use_true_fp32()
         self.cfg = cfg
         self.params = self._prepare(params)
+        self.occ_grid = self._build_grid(self.params)
         self.tile = int(tile)
         self.defaults = {
             "H": int(H),
@@ -114,6 +126,19 @@ class RenderService:
         return prepare_params(
             {k: net.to(self.device) for k, net in params.items()}, self.cfg
         )
+
+    def _build_grid(self, params: Dict):
+        """The density grid of prepared ``params``, or None without
+        ``cfg.use_occupancy``."""
+        if not self.cfg.use_occupancy:
+            return None
+        import torch
+
+        from nerfmlp_torch.ops.occupancy import build_grid
+
+        gen = torch.Generator(device=self.device).manual_seed(GRID_SEED)
+        return build_grid(params, self.cfg, gen,
+                          resolution=self.cfg.occ_grid_size)
 
     # -------------------------------------------------------------- #
     # Core rendering
@@ -187,7 +212,8 @@ class RenderService:
             )
             out = render_image_maps(
                 self.params, o, d, H, W, self.cfg, tile=self.tile,
-                near=near, far=far, viewdirs=vd, maps=tuple(maps),
+                near=near, far=far, occ_grid=self.occ_grid, viewdirs=vd,
+                maps=tuple(maps),
             )
             # The copy to the host waits for the device: the honest end.
             result = {k: v.float().cpu().numpy() for k, v in out.items()}
@@ -283,6 +309,7 @@ class RenderService:
             "max_queue": self.max_queue,
             "device": str(self.device),
             "kernel": uses_kernel(self.cfg),
+            "occupancy": self.cfg.use_occupancy,
             "routes": list(ROUTES),
             "not_ported": list(NOT_PORTED),
             "render_config": dataclasses.asdict(self.cfg),
@@ -333,11 +360,14 @@ class RenderService:
         }
 
     def swap_params(self, params: Dict, source: str = "<direct>") -> None:
-        """Atomically replace the served weights: moved and packed here,
-        outside the lock; in-flight renders finish on the old weights."""
+        """Atomically replace the served weights (and the density grid,
+        rebuilt from them): moved, packed and rebuilt here, outside the
+        lock; in-flight renders finish on the old weights."""
         params = self._prepare(params)
+        occ_grid = self._build_grid(params)
         with self._lock:
             self.params = params
+            self.occ_grid = occ_grid
             self.reloads += 1
         self.log(f"params swapped from {source} (reload #{self.reloads})")
 

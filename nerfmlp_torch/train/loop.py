@@ -6,10 +6,11 @@ main path on one device: the train state, the host loader and the device
 ray pool; ``train()`` with the log interval and precrop; quick and full
 validation on whole held-out images (PSNR, SSIM); best, final, periodic
 and latest checkpoints; auto-resume; the metrics JSON in the reference
-schema. Left out, and refused when asked for: the in-training render
-events (``i_video``, ``i_testset``, ``i_img``, ``i_mesh``), TensorBoard,
-``profile_dir``, tensor parallelism and occupancy sampling (each raises a
-``NotImplementedError`` naming its ROADMAP item), and
+schema; occupancy-grid sampling, with the grid refreshed on the JAX
+Trainer's schedule and rebuilt on resume. Left out, and refused when asked
+for: the in-training render events (``i_video``, ``i_testset``, ``i_img``,
+``i_mesh``), TensorBoard, ``profile_dir`` and tensor parallelism (each
+raises a ``NotImplementedError`` naming its ROADMAP item), and
 ``steps_per_dispatch`` above 1 (CUDA graphs take its place later).
 
 The hot loop never waits for the card: loss and PSNR stay device tensors,
@@ -44,7 +45,7 @@ from nerfmlp_torch.train.metrics import (
 )
 
 
-def check_supported(rc: RenderConfig, tc: TrainConfig) -> None:
+def check_supported(tc: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for every requested feature this port
     does not have yet, naming its ROADMAP item — none is ignored."""
     defaults = TrainConfig()
@@ -58,10 +59,6 @@ def check_supported(rc: RenderConfig, tc: TrainConfig) -> None:
             f"steps_per_dispatch={tc.steps_per_dispatch}: PyTorch runs "
             "eagerly; CUDA graphs of the train step take its place "
             "(ROADMAP.md, Queue 1 item 19)")
-    if rc.use_occupancy:
-        raise NotImplementedError(
-            "occupancy-grid sampling is not ported yet (ROADMAP.md, Queue 1 "
-            "item 12)")
 
 
 class Trainer:
@@ -76,12 +73,16 @@ class Trainer:
     # iteration_times cap: past it the oldest half is folded into the
     # dropped counters, so the JSON stays bounded.
     _ITER_TIMES_CAP = 20_000
+    # The grid refreshes' jitter: a generator seeded from this and the step.
+    _OCC_SEED = 17
 
     def __init__(self, rc: RenderConfig, tc: TrainConfig, train_ds,
                  val_ds=None, quick_val_ds=None,
                  save_dir: str = "outputs/checkpoints", verbose: bool = True,
                  device=None):
-        check_supported(rc, tc)
+        check_supported(tc)
+        if rc.use_occupancy and rc.aabb is None:
+            raise ValueError("use_occupancy requires RenderConfig.aabb")
         self.device = resolve_device(device)
         use_true_fp32()
         self.rc = rc
@@ -95,6 +96,13 @@ class Trainer:
 
         self.state = create_train_state(rc, tc, self.device)
         self.step_fn = make_step_fn(rc, tc)
+        # Occupancy-grid sampling state (ops/occupancy.py): derived from the
+        # nets, refreshed in train() and rebuilt on resume, not saved.
+        self.occ_grid = None
+        if rc.use_occupancy:
+            from nerfmlp_torch.ops.occupancy import create_grid
+
+            self.occ_grid = create_grid(rc.occ_grid_size, device=self.device)
         self.loader = RayBatchLoader.from_dataset(
             train_ds, tc.batch_size, seed=tc.seed, image_mode=tc.no_batching)
         # The device pool: no host->device copy per step. The host loader
@@ -139,6 +147,16 @@ class Trainer:
         if self.verbose:
             print(msg, flush=True)
 
+    def _occ_update(self, seed_step: int, decay: float) -> None:
+        """One refresh of the density grid from the current nets, its
+        jitter drawn from a generator seeded by ``seed_step``."""
+        from nerfmlp_torch.ops.occupancy import update_grid
+
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self._OCC_SEED * 1_000_003 + seed_step)
+        self.occ_grid = update_grid(self.occ_grid, self.state.params, self.rc,
+                                    gen, decay=decay)
+
     def _render_view(self, dataset, idx: int) -> tuple:
         """Deterministic render of one held-out view, and its ground
         truth: ((H, W, 3) numpy, (H, W, 3) numpy)."""
@@ -149,7 +167,7 @@ class Trainer:
         t = lambda a: torch.as_tensor(a, device=self.device)
         params = prepare_params(self.state.params, self.rc)
         img = render_image(params, t(o), t(d), dataset.H, dataset.W, self.rc,
-                           tile=self.tc.chunk,
+                           tile=self.tc.chunk, occ_grid=self.occ_grid,
                            viewdirs=None if vd is None else t(vd))
         return img.float().cpu().numpy(), gt
 
@@ -218,6 +236,11 @@ class Trainer:
             self._log(f"⚠️  no history sidecar at {hist_path} — metric "
                       "histories start empty (step comes from the state)")
         self.history["step"] = max(int(self.history.get("step", 0)), st.step)
+        if self.occ_grid is not None:
+            # The grid is derived state: one refresh with decay 0 rebuilds
+            # it from the restored nets (an EMA step on the fresh grid
+            # would not).
+            self._occ_update(0, 0.0)
         self._log(f"🔄 resumed from {path} at step {st.step:,} (best "
                   f"quick-val PSNR {self.history['best_val_psnr']:.2f})")
         return True
@@ -284,7 +307,16 @@ class Trainer:
             else:
                 batch = torch.from_numpy(self.loader.next_batch()).to(
                     dev, non_blocking=True)
-            metrics = self.step_fn(self.state, batch)
+            occ_args = ()
+            if self.occ_grid is not None:
+                if (s - 1) % rc.occ_update_every == 0:
+                    # Decay 1 during warmup: cells only accumulate, so the
+                    # whole box stays sampled until the model has placed
+                    # density.
+                    self._occ_update(
+                        s, 1.0 if s <= rc.occ_warmup_steps else 0.95)
+                occ_args = (self.occ_grid,)
+            metrics = self.step_fn(self.state, batch, *occ_args)
             run_loss += metrics["loss"]
             run_psnr += metrics["psnr"]
             run_count += 1

@@ -1,9 +1,12 @@
-"""Shared CLI plumbing: the architecture flags and ``--config FILE``
-expansion.
+"""Shared CLI plumbing: the architecture and occupancy flags, the tile
+default and ``--config FILE`` expansion.
 
 Counterpart of ``nerfmlp_tpu/utils/cli.py:15-35`` (``add_arch_flags``,
-``arch_fields``) and of the config-file helpers in ``scripts/train.py:23-92``
-(the oracle reads ``key = value`` files through configargparse).
+``arch_fields``) and ``:58-133`` (``add_occupancy_flags``,
+``occupancy_fields``, ``resolve_tile``; the grid that ``build_occ_grid``
+makes there, the render service builds itself here), and of the
+config-file helpers in ``scripts/train.py:23-92`` (the oracle reads
+``key = value`` files through configargparse).
 """
 
 from __future__ import annotations
@@ -30,6 +33,44 @@ def arch_fields(args) -> Dict[str, int]:
     return {"depth": args.netdepth, "width": args.netwidth,
             "depth_fine": args.netdepth_fine,
             "width_fine": args.netwidth_fine}
+
+
+def add_occupancy_flags(p) -> None:
+    """--use_occupancy/--aabb/--occ_grid_size/--occ_dense_samples/
+    --occ_one_shot for scripts that load a checkpoint: the coarse pass is
+    replaced by a density grid built from the loaded weights."""
+    p.add_argument("--use_occupancy", action="store_true",
+                   help="occupancy-grid sampling (requires --aabb): build a "
+                        "density grid from the checkpoint and place every "
+                        "sample in occupied space")
+    p.add_argument("--aabb", type=float, nargs=6, default=None,
+                   metavar=("XMIN", "YMIN", "ZMIN", "XMAX", "YMAX", "ZMAX"),
+                   help="scene box: tightens per-ray near/far; required "
+                        "by --use_occupancy")
+    p.add_argument("--occ_grid_size", type=int, default=64)
+    p.add_argument("--occ_dense_samples", type=int, default=128)
+    p.add_argument("--occ_one_shot", action="store_true",
+                   help="draw every depth from the grid prior in one query "
+                        "(default: grid-placed probes, then refinement "
+                        "samples from their weights)")
+
+
+def occupancy_fields(args) -> Dict:
+    """RenderConfig kwargs for the parsed occupancy flags."""
+    return {"use_occupancy": args.use_occupancy,
+            "aabb": tuple(args.aabb) if args.aabb else None,
+            "occ_grid_size": args.occ_grid_size,
+            "occ_dense_samples": args.occ_dense_samples,
+            "occ_one_shot": args.occ_one_shot}
+
+
+def resolve_tile(args) -> int:
+    """The parsed --tile, else rays per tile by sampling mode: 16,384 with
+    --use_occupancy (16 + 48 samples, a shallower pipeline per ray), else
+    4,096 (the JAX package's measured optima, kept as defaults)."""
+    if args.tile is not None:
+        return args.tile
+    return 16384 if getattr(args, "use_occupancy", False) else 4096
 
 
 def bool_flag_names(parser):

@@ -201,7 +201,8 @@ def test_render_rays_bf16_kernel_flag_matches_jax_pallas():
 def test_render_guards():
     _, _, tp, cfg = _both("shared")
     o, d = _rays(4)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # use_occupancy with no grid: the JAX package's ValueError naming it.
+    with pytest.raises(ValueError, match="occ_grid"):
         render_rays(tp, t(o), t(d), None,
                     dataclasses.replace(cfg, use_occupancy=True))
     with pytest.raises(ValueError, match="viewdirs"):

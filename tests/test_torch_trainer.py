@@ -131,10 +131,12 @@ def test_trainer_refuses_what_is_not_ported(scene, field, value, item):
                 device="cpu")
 
 
-def test_trainer_refuses_occupancy(scene):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Trainer(dataclasses.replace(RC, use_occupancy=True), TC, scene[0],
-                device="cpu")
+def test_trainer_refuses_occupancy(scene, tmp_path):
+    """Occupancy without a scene box raises the JAX Trainer's ValueError
+    naming aabb (occupancy itself is ported: test_torch_occupancy.py)."""
+    with pytest.raises(ValueError, match="aabb"):
+        Trainer(dataclasses.replace(RC, use_occupancy=True, aabb=None), TC,
+                scene[0], save_dir=str(tmp_path), device="cpu")
 
 
 def test_checkpoint_names_and_formats(tmp_path):
