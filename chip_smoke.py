@@ -52,16 +52,31 @@ Phases, each fatal on failure:
      16,384-ray tiles, 2 forward launches per tile), hold that grid
      against the plain build and the frame against use_kernel=False with
      the same grid (bf16: no farther from the fp32 frame than the bf16
-     module path's; hi_lo: at the serving bar), and profile a frame.
+     module path's; hi_lo: at the serving bar), and profile a frame;
+  7. the inference entry points, as a user runs them: the train CLI on
+     configs/lego_turbo_bf16.txt as it is (half_res from the file) on a
+     128x128 synthetic scene (8 train / 2 val / 2 test views) it writes,
+     for 200 steps at 64x64 with the orbit videos, a test-set sweep and
+     held-out frames at step 100 (the events' files must exist, each GIF
+     hold 8 frames, the loss fall and the final held-out PSNR reach 20
+     dB; each backward kernel launched twice a step); --render_only, then
+     --render_only --render_test on the run (test PSNR >= 20 dB); the
+     render_video CLI on its model_final.pt with the grid, 8 frames at
+     400x400 (20 forward launches a frame, frame 0 equal to
+     RenderService's frame of the same pose, weights, grid and tile within
+     1e-6); the eval CLI on the val split (mean PSNR >= 20 dB, within 1 dB
+     of the Trainer's final validation).
 Then it prints the kernels' JSON line, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Weights are random, from a seed.
 It exits non-zero, printing no result, without a CUDA device.
 """
 
 import dataclasses
+import glob
 import io
 import json
 import os
+import shutil
 import statistics
 import struct
 import subprocess
@@ -132,6 +147,13 @@ HI_LO_STEPS = 100         # the one-shot hi_lo run, the first half on the
 #                           the whole run, through the kernels and without
 HI_LO_TRACK = 1e-2        # its loss at the end vs use_kernel=False's, rel.:
 #                           a few times the gap measured on an H100 (1.4e-3)
+INF_WH = 128              # the inference phase's scene, stored size: the
+#                           config's half_res trains it at 64x64
+INF_STEPS = 200           # the train CLI's steps there, and
+INF_EVENT = 100           # the interval of its render events
+INF_FRAMES = 8            # frames of every video in that phase
+INF_SIZE = 400            # render_video's frame size
+INF_FRAME_TOL = 1e-6      # render_video's frame 0 vs the service's frame
 
 
 def cuda_ms(fn, iters, warmup=2, spin=True):
@@ -1151,6 +1173,231 @@ def phase_occ_serve(trainer):
     return launches
 
 
+def gif_info(path):
+    """(width, height, frames, loop count) of a GIF89a file, by walking
+    its blocks: this phase's own reader, no imaging package."""
+    with open(path, "rb") as f:
+        b = f.read()
+    if b[:6] != b"GIF89a":
+        raise SystemExit(f"[inference] {path} is not a GIF89a file")
+    w, h, packed = struct.unpack("<HHB", b[6:11])
+    pos = 13 + (3 << ((packed & 7) + 1) if packed & 0x80 else 0)
+    frames, loop = 0, None
+
+    def skip_sub_blocks(pos):
+        n = 0
+        while b[pos]:
+            n += b[pos]
+            pos += b[pos] + 1
+        return pos + 1, n
+
+    while pos < len(b) and b[pos] != 0x3B:
+        if b[pos] == 0x21:                      # extension
+            if b[pos + 1] == 0xFF and b[pos + 3:pos + 14] == b"NETSCAPE2.0":
+                loop = struct.unpack("<H", b[pos + 16:pos + 18])[0]
+            pos, _ = skip_sub_blocks(pos + 2)
+        elif b[pos] == 0x2C:                    # image
+            packed = b[pos + 9]
+            pos += 10 + (3 << ((packed & 7) + 1) if packed & 0x80 else 0)
+            pos, n = skip_sub_blocks(pos + 1)
+            if n == 0:
+                raise SystemExit(f"[inference] {path}: a frame without data")
+            frames += 1
+        else:
+            raise SystemExit(f"[inference] {path}: bad block at {pos}")
+    if pos >= len(b):
+        raise SystemExit(f"[inference] {path}: no trailer")
+    return w, h, frames, loop
+
+
+class Timed:
+    """Wrap ``owner.name`` (a function or method) for the duration of a
+    ``with`` block: each call synchronised and timed, seconds kept."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.times = owner, name, []
+
+    def __enter__(self):
+        import torch
+
+        inner = self.fn = getattr(self.owner, self.name)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(*a, **kw)
+            torch.cuda.synchronize()
+            self.times.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.owner, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.fn)
+
+
+def phase_inference():
+    """The inference entry points on the card, as a user runs them (see
+    the module docstring, phase 7). Returns the render_video run's forward
+    launches (the grid build's and the frames')."""
+    import numpy as np
+    import torch
+
+    from nerfmlp_torch.data.blender import BlenderDataset
+    from nerfmlp_torch.data.synthetic import make_synthetic_scene
+    from nerfmlp_torch.ops import fused_mlp
+    from nerfmlp_torch.ops import render as render_mod
+    from nerfmlp_torch.scripts import eval as eval_cli
+    from nerfmlp_torch.scripts import render_video, train as train_cli
+    from nerfmlp_torch.serve import RenderService
+    from nerfmlp_torch.train import loop
+    from nerfmlp_torch.train.checkpoint import load_params_any
+
+    t0 = time.perf_counter()
+    root = os.path.join(SMOKE_DIR, "inference")
+    shutil.rmtree(root, ignore_errors=True)     # no auto-resume of a rerun
+    scene, run = os.path.join(root, "scene"), os.path.join(root, "run")
+    make_synthetic_scene(scene, n_train=8, n_val=2, n_test=2,
+                         img_wh=(INF_WH, INF_WH), seed=SEED)
+    print(f"[inference] scene {INF_WH}x{INF_WH}, 8 train / 2 val / 2 test "
+          f"views in {time.perf_counter() - t0:.1f} s")
+    # The config as it is; on the command line only what this scene and
+    # the time limit force: its box, the steps, the turbo cell's refresh
+    # cuts, the events' interval and frames, a quick validation inside the
+    # 200 steps (the loss is read there), the save dir.
+    box = [str(v) for v in OCC_AABB]
+    argv = ["--config", os.path.join(ROOT, "configs", "lego_turbo_bf16.txt"),
+            "--datadir", scene, "--save_dir", run, "--aabb", *box,
+            "--iters", str(INF_STEPS), "--occ_update_every", str(OCC_EVERY),
+            "--occ_warmup_steps", str(OCC_WARMUP),
+            "--i_video", str(INF_EVENT), "--i_testset", str(INF_EVENT),
+            "--i_img", str(INF_EVENT), "--video_frames", str(INF_FRAMES),
+            "--quick_val_interval", str(INF_EVENT)]
+    counters = (fused_mlp.fused_nerf_mlp, fused_mlp.bwd_workspace,
+                fused_mlp.weight_grads, fused_mlp.reduce_partials)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with Timed(loop.Trainer, "_video_event") as video, \
+            Timed(loop.Trainer, "_testset_event") as testset, \
+            Timed(loop.Trainer, "_save_val_image") as frame:
+        metrics = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = [c.launches for c in counters]
+    res = metrics["config"]["full_val_res"]
+    losses = metrics["train_losses"]
+    final = metrics["final_val"]["psnr"]
+    steps = metrics["iteration_times"]
+    print(f"[inference] train CLI: {INF_STEPS} steps at {res[0]}x{res[1]} "
+          f"in {wall:.1f} s (events and validation included), host median "
+          f"{1e3 * statistics.median(steps):.2f} ms per step; mean loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f} (steps 1-{INF_EVENT} / "
+          f"{INF_EVENT + 1}-{INF_STEPS}); final held-out PSNR {final:.2f} dB; "
+          f"test sweep {[round(p, 2) for p in metrics['testset_psnrs']]} dB "
+          f"at {metrics['testset_steps']}")
+    print(f"[inference] events: video {video.times} s, test sweep "
+          f"{testset.times} s, held-out frames {frame.times} s")
+    print(f"[inference] launches in the train CLI run: forward {launches[0]}"
+          f", backward phase 1 {launches[1]}, phase 2 {launches[2]}, "
+          f"reduction {launches[3]} (each backward kernel: want "
+          f"{2 * INF_STEPS})")
+    gifs = {}
+    for kind in ("rgb", "disp", "rgb_still"):
+        found = glob.glob(os.path.join(
+            run, f"*_spiral_{INF_EVENT:06d}_{kind}.gif"))
+        if len(found) != 1:
+            raise SystemExit(f"[inference] no {kind} video at step "
+                             f"{INF_EVENT}: {sorted(os.listdir(run))}")
+        gifs[kind] = gif_info(found[0])
+    print(f"[inference] videos (w, h, frames, loop): {gifs}")
+    want_files = [os.path.join(run, f"testset_{INF_EVENT:06d}", n)
+                  for n in ("000.png", "001.png")]
+    want_files += [os.path.join(run, f"val_{s:06d}.png")
+                   for s in (INF_EVENT, INF_STEPS)]
+    missing = [f for f in want_files if not os.path.exists(f)]
+    if (res != [INF_WH // 2] * 2 or missing
+            or any(g[2:] != (INF_FRAMES, 0) for g in gifs.values())
+            or metrics["testset_steps"] != [INF_EVENT]
+            or not losses[-1] < losses[0] or not final >= PSNR_MIN
+            or launches[1:] != [2 * INF_STEPS] * 3
+            or launches[0] <= 2 * INF_STEPS):
+        raise SystemExit(f"[inference] the train CLI run failed its checks "
+                         f"(missing {missing})")
+
+    t1 = time.perf_counter()
+    path = train_cli.main(argv + ["--render_only"])
+    test = train_cli.main(argv + ["--render_only", "--render_test"])
+    test_psnr = float(np.mean(test["psnrs"]))
+    print(f"[inference] --render_only: {path['render_only']}, "
+          f"{gif_info(os.path.join(path['render_only'], 'video_rgb.gif'))}; "
+          f"--render_test: {test['render_only']}, PSNR "
+          f"{[round(float(p), 2) for p in test['psnrs']]} dB, mean "
+          f"{test_psnr:.2f}; "
+          f"{time.perf_counter() - t1:.1f} s")
+    if not (os.path.exists(os.path.join(path["render_only"],
+                                        f"{INF_FRAMES - 1:03d}.png"))
+            and os.path.exists(os.path.join(path["render_only"],
+                                            "video_disp.gif"))
+            and test_psnr >= PSNR_MIN):
+        raise SystemExit("[inference] --render_only failed its checks")
+
+    ckpt = os.path.join(run, "model_final.pt")
+    occ = ["--use_occupancy", "--aabb", *box, "--N_samples",
+           str(OCC_PROBE), "--N_importance", str(OCC_REFINE),
+           "--occ_dense_samples", str(OCC_DENSE)]
+    fused_mlp.fused_nerf_mlp.launches = 0
+    with Timed(render_mod, "render_image_maps") as frames:
+        out = render_video.main(["--datadir", scene, "--ckpt", ckpt,
+                                 "--out_dir", os.path.join(root, "video"),
+                                 "--n_frames", str(INF_FRAMES), "--size",
+                                 str(INF_SIZE)] + occ)
+    rv_launches = fused_mlp.fused_nerf_mlp.launches
+    n_tiles = -(-INF_SIZE * INF_SIZE // OCC_TILE)
+    want = 4 + 2 * n_tiles * INF_FRAMES
+    p50 = statistics.median(frames.times)
+    print(f"[inference] render_video: {INF_FRAMES} frames of "
+          f"{INF_SIZE}x{INF_SIZE}, p50 {p50:.4f} s a frame (max "
+          f"{max(frames.times):.4f}); {rv_launches} forward launches (want "
+          f"{want}: 4 for the grid, 2 x {n_tiles} tiles a frame); videos "
+          f"{[gif_info(v) for v in out['videos']]}")
+    if rv_launches != want or any(gif_info(v)[2] != INF_FRAMES
+                                  for v in out["videos"]):
+        raise SystemExit("[inference] render_video did not go through the "
+                         "kernel as expected")
+    rc = out["cfg"]
+    ds = BlenderDataset(scene, "train", img_wh=(INF_SIZE, INF_SIZE))
+    svc = RenderService(
+        load_params_any(ckpt, rc.model_config(), device="cuda"), rc,
+        INF_SIZE, INF_SIZE, ds.focal, tile=OCC_TILE, device="cuda",
+        log=lambda m: None)
+    ref = svc.render_pose(ds.render_poses(n_frames=INF_FRAMES)[0])["rgb_map"]
+    err = float(np.abs(out["rgbs"][0] - ref).max())
+    print(f"[inference] render_video frame 0 vs RenderService's frame: "
+          f"max|err| {err:.3e} (tol {INF_FRAME_TOL})")
+    if not err <= INF_FRAME_TOL:
+        raise SystemExit("[inference] render_video's frame differs from the "
+                         "service's")
+
+    t1 = time.perf_counter()
+    report = eval_cli.main(["--datadir", scene, "--split", "val", "--img_wh",
+                            str(INF_WH // 2), str(INF_WH // 2), "--ckpt",
+                            ckpt, "--out", os.path.join(root, "eval.json")]
+                           + occ)
+    gap = abs(report["mean_psnr"] - final)
+    print(f"[inference] eval CLI on val: mean PSNR {report['mean_psnr']:.2f} "
+          f"dB, SSIM {report['mean_ssim']:.4f} vs the Trainer's final "
+          f"{final:.2f} dB (gap {gap:.2f}, limit {PSNR_GAP}); "
+          f"{time.perf_counter() - t1:.1f} s")
+    if not (report["mean_psnr"] >= PSNR_MIN and gap <= PSNR_GAP
+            and os.path.exists(os.path.join(root, "eval.json"))):
+        raise SystemExit("[inference] eval failed its checks")
+    print(f"[inference] phase took {time.perf_counter() - t0:.1f} s")
+    return rv_launches
+
+
 def device_rows(prof):
     """(name, device ms) of the kernels the profiler saw on the card —
     the device events only, so a CPU-side op that launched a kernel (an
@@ -1210,6 +1457,7 @@ def main():
     occ_run = phase_occ_train(train_ds, val_ds)
     hi_lo_run = phase_occ_hi_lo(train_ds, val_ds)
     occ_serve_launches = phase_occ_serve(occ_run["trainer"])
+    cli_launches = phase_inference()
 
     # The forward runs on both paths, at different shapes: one record per
     # path, each with that path's launches and its fine call's times, and
@@ -1250,8 +1498,8 @@ def main():
     # Occupancy sampling's paths: the forward's records per call kind
     # (the train step's queries, timed at the refine call; the grid
     # refreshes; the served tiles, timed at the refine query; the one-shot
-    # hi_lo recipe's query and refreshes), each with its launches on that
-    # path.
+    # hi_lo recipe's query and refreshes; render_video's frames, the served
+    # tile's shapes), each with its launches on that path.
     occ_launches, occ_refresh = occ_run["launches"], occ_run["refresh"]
     hi_lo_launches, hi_lo_refresh = hi_lo_run["launches"], hi_lo_run["refresh"]
     for name, path, launches, recs in (
@@ -1266,7 +1514,10 @@ def main():
              hi_lo_launches[0] - hi_lo_refresh["launches"],
              (occ["hi_lo train"],)),
             ("fused_mlp_fwd_occ_hi_lo_refresh", "occ_hi_lo",
-             hi_lo_refresh["launches"], (occ["hi_lo refresh"],))):
+             hi_lo_refresh["launches"], (occ["hi_lo refresh"],)),
+            # render_video's frames: the served tile's shapes.
+            ("fused_mlp_fwd_cli", "cli", cli_launches,
+             (occ["serve refine"], occ["serve probe"]))):
         r = recs[0]
         kernels.append({
             "name": name,

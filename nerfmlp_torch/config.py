@@ -125,11 +125,6 @@ class RenderConfig:
 TRAIN_NOT_PORTED = {
     "profile_dir": "profiling traces in the Trainer (ROADMAP.md, Queue 1 "
                    "item 21)",
-    "i_video": "in-training render events (ROADMAP.md, Queue 1 item 14)",
-    "i_testset": "in-training render events (ROADMAP.md, Queue 1 item 14)",
-    "i_img": "in-training render events (ROADMAP.md, Queue 1 item 14)",
-    "render_factor": "in-training render events (ROADMAP.md, Queue 1 "
-                     "item 14)",
     "i_mesh": "mesh extraction (ROADMAP.md, Queue 1 item 17)",
 }
 
@@ -142,7 +137,7 @@ class TrainConfig:
     The LR decays continuously, ``lr * rate ** (updates / steps)`` (the
     official schedule, example/run_nerf.py:705-709). ``steps_per_dispatch``
     batched jit dispatches; PyTorch runs eagerly, so values above 1 raise
-    (CUDA graphs take its place, ROADMAP.md Queue 1 item 19). The event and
+    (CUDA graphs take its place, ROADMAP.md Queue 1 item 19). The mesh and
     profiling fields in ``TRAIN_NOT_PORTED`` are kept and refused when set.
     """
 

@@ -5,9 +5,9 @@ Counterpart of ``nerfmlp_tpu/data/blender.py:31-162``: RGBA load, /255,
 white-background compositing ``rgb*a + (1-a)``, sRGB -> linear, focal =
 0.5 W / tan(0.5 camera_angle_x), and every ray of every image generated
 up front and flattened (numpy). PNGs are read by the port's standard-
-library decoder. The JAX loader resizes with PIL's LANCZOS filter; this
-one reads only images stored at ``img_wh`` and raises otherwise (a
-LANCZOS-equal resize is ROADMAP.md, Queue 1 item 20).
+library decoder; an image stored at another size than ``img_wh`` is
+resized by ``utils/image.py::resize_lanczos``, bit-equal to the JAX
+loader's ``Image.resize(img_wh, LANCZOS)`` on its RGBA pixels.
 """
 
 from __future__ import annotations
@@ -75,22 +75,18 @@ class BlenderDataset:
         self._generate_rays()
 
     def _load_image(self, fname: str) -> np.ndarray:
-        from nerfmlp_torch.utils.image import read_png
+        from nerfmlp_torch.utils.image import read_png, resize_lanczos
 
         px = read_png(fname)
-        if (px.shape[1], px.shape[0]) != self.img_wh:
-            raise NotImplementedError(
-                f"{fname} is {px.shape[1]}x{px.shape[0]}; the PyTorch port "
-                f"reads images at their stored size only, not img_wh "
-                f"{self.img_wh[0]}x{self.img_wh[1]} (a LANCZOS-equal resize "
-                "is ROADMAP.md, Queue 1 item 20)"
-            )
         if px.shape[2] in (1, 2):  # grey (+ alpha)
             px = np.concatenate([np.repeat(px[..., :1], 3, axis=2),
                                  px[..., 1:]], axis=2)
+        if px.shape[2] == 3:       # RGBA, as the JAX loader's convert()
+            px = np.concatenate(
+                [px, np.full(px.shape[:2] + (1,), 255, np.uint8)], axis=2)
+        px = resize_lanczos(px, self.img_wh)
         img = px.astype(np.float32) / 255.0
-        rgb = img[..., :3]
-        alpha = img[..., 3:] if img.shape[2] == 4 else np.ones_like(img[..., :1])
+        rgb, alpha = img[..., :3], img[..., 3:]
         return rgb * alpha + (1.0 - alpha) if self.white_bkgd else rgb * alpha
 
     def _generate_rays(self) -> None:
@@ -124,6 +120,17 @@ class BlenderDataset:
             self.all_rays_d[sl],
             self.all_rgbs[sl].reshape(self.H, self.W, 3),
         )
+
+    def render_poses(self, n_frames: int = 40) -> np.ndarray:
+        """The orbit the video events render: ``n_frames`` poses at
+        elevation -30 deg, at the capture's mean camera radius (4.0 on
+        real Blender scenes)."""
+        from nerfmlp_torch.ops.rays import (
+            blender_render_poses, mean_camera_radius,
+        )
+
+        return blender_render_poses(n_frames=n_frames,
+                                    radius=mean_camera_radius(self.poses))
 
     def dynamic_near_far(self) -> Tuple[float, float]:
         """Scene bounds heuristic with spherical-camera detection: if all

@@ -1,14 +1,16 @@
 """Camera ray generation: pinhole, NDC reparameterization, look-at poses.
 
-Counterpart of ``nerfmlp_tpu/ops/rays.py:24-175``. For pixel (i, j) with i
+Counterpart of ``nerfmlp_tpu/ops/rays.py:24-236``. For pixel (i, j) with i
 along width:
 
   dir_cam = [(i - W/2) / focal, -(j - H/2) / focal, -1]
   rays_d  = dir_cam @ R^T,   rays_o = t   (c2w = [R | t])
 
 The tensor functions run on the pose's device; the numpy helpers
-(``get_rays_np``, ``look_at_matrix``, ``pose_spherical``) are copied as
-they are.
+(``get_rays_np``, ``look_at_matrix``, ``pose_spherical`` and the
+trajectories ``blender_render_poses``, ``mean_camera_radius``,
+``flythrough_poses``) are copied as they are. LLFF's ``spiral_poses``
+comes with the LLFF loader (ROADMAP.md, Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -137,3 +139,43 @@ def pose_spherical(theta_deg: float, phi_deg: float, radius: float) -> np.ndarra
         dtype=np.float32,
     )
     return flip @ rot_y @ rot_x @ c2w
+
+
+def blender_render_poses(n_frames: int = 40, phi_deg: float = -30.0,
+                         radius: float = 4.0) -> np.ndarray:
+    """The Blender-synthetic orbit: ``n_frames`` azimuths in [-180, 180)
+    at elevation ``phi``, distance ``radius`` (the trajectory of the
+    in-training video events)."""
+    return np.stack([
+        pose_spherical(th, phi_deg, radius)
+        for th in np.linspace(-180.0, 180.0, n_frames, endpoint=False)
+    ], axis=0)
+
+
+def mean_camera_radius(poses: np.ndarray) -> float:
+    """Mean distance of (N, 4, 4) c2w camera centres from the origin (the
+    orbit radius; Blender captures sit at 4.0)."""
+    return float(np.linalg.norm(poses[:, :3, 3], axis=-1).mean())
+
+
+def flythrough_poses(n_frames: int = 120, radius: float = 4.0,
+                     phi_base_deg: float = -30.0, phi_amp_deg: float = 15.0,
+                     radius_amp: float = 0.12, speed_amp: float = 0.15,
+                     target: np.ndarray = None) -> np.ndarray:
+    """A looping fly-through: one orbit with sinusoidal altitude (2
+    cycles), distance (3 cycles) and angular speed (2 cycles,
+    ``speed_amp``), always looking at ``target``. Whole cycle counts make
+    frame 0 follow on from frame n-1."""
+    target = (np.zeros(3, dtype=np.float32) if target is None
+              else np.asarray(target))
+    poses = []
+    for k in np.arange(n_frames) / n_frames:
+        theta = 2.0 * np.pi * k + speed_amp * np.sin(2.0 * np.pi * 2 * k)
+        phi = np.deg2rad(phi_base_deg
+                         + phi_amp_deg * np.sin(2.0 * np.pi * 2 * k))
+        r = radius * (1.0 + radius_amp * np.sin(2.0 * np.pi * 3 * k))
+        eye = target + r * np.array([np.cos(theta) * np.cos(phi),
+                                     np.sin(theta) * np.cos(phi),
+                                     -np.sin(phi)], dtype=np.float32)
+        poses.append(look_at_matrix(eye, target))
+    return np.stack(poses, axis=0)

@@ -1,13 +1,19 @@
-"""Rays for one camera pose, on the host or on the device.
+"""Trajectory rendering: rays for one camera pose, on the host or on the
+device, and ``render_path``, which renders a list of poses to rgb and
+disparity frames (optionally downscaled, saved as PNGs and scored against
+ground truth), with ``save_path_videos`` for their videos.
 
-Counterpart of ``nerfmlp_tpu/render_path.py:30-121`` (``rays_for_pose``
-and ``rays_for_pose_device``); trajectory rendering comes with the
-inference CLIs.
+Counterpart of ``nerfmlp_tpu/render_path.py`` (``rays_for_pose``,
+``rays_for_pose_device``, ``render_path``, ``save_path_videos``). Used by
+the Trainer's video and test-set events, ``--render_only`` and the
+``render_video`` CLI. Rendering over several devices (``mesh``) is not
+ported (ROADMAP.md, Queue 1 item 18).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import os
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,3 +85,99 @@ def rays_for_pose_device(
         return o, d, vd
     o_n, d_n = ndc_rays(H, W, focal, 1.0, o, d)
     return o_n, d_n, vd
+
+
+def params_device(params: Dict) -> torch.device:
+    """The device the nets of ``params`` (modules or packed) live on."""
+    net = next(iter(params.values()))
+    return next(getattr(net, "net", net).parameters()).device
+
+
+def render_path(
+    params: Dict,
+    poses: np.ndarray,
+    hwf: Tuple[int, int, float],
+    cfg: RenderConfig,
+    gt_images: Optional[np.ndarray] = None,
+    render_factor: int = 0,
+    occ_grid=None,
+    save_dir: Optional[str] = None,
+    tile: int = 4096,
+    verbose: bool = True,
+    static_cam_pose: Optional[np.ndarray] = None,
+    mesh=None,
+) -> Tuple[np.ndarray, np.ndarray, Optional[list]]:
+    """Render every pose on the nets' device; returns (rgbs (N, H, W, 3),
+    disps (N, H, W), psnrs or None).
+
+    * ``render_factor``: any non-zero value divides H, W and focal, and
+      drops the ground-truth comparison (even 1, as the reference does).
+    * ``gt_images`` (N, H, W, 3): per-frame PSNR, printed and returned.
+    * ``save_dir``: ``{i:03d}.png`` rgb frames.
+    * ``static_cam_pose``: every frame from this camera while the view
+      branch follows the trajectory (the view-dependence video).
+    * ``mesh``: rendering over several devices; not ported, raises.
+
+    Rays are generated on the device from each 16-float pose
+    (:func:`rays_for_pose_device`) and rendered by
+    ``ops/render.py::render_image_maps`` with the nets packed once."""
+    from nerfmlp_torch.ops.render import prepare_params, render_image_maps
+    from nerfmlp_torch.train.metrics import psnr_images
+    from nerfmlp_torch.utils.image import save_png
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "render_path(mesh=...): rendering over several devices is not "
+            "ported to PyTorch yet (ROADMAP.md, Queue 1 item 18)")
+    H, W, focal = hwf
+    if render_factor:
+        H, W = H // render_factor, W // render_factor
+        focal = focal / render_factor
+        gt_images = None
+    if save_dir:
+        os.makedirs(save_dir, exist_ok=True)
+    dev = params_device(params)
+    params = prepare_params(params, cfg)
+    rgbs, disps = [], []
+    psnrs = [] if gt_images is not None else None
+    poses = np.asarray(poses)
+    for i, pose in enumerate(poses):
+        if static_cam_pose is not None:
+            o, d, vd = rays_for_pose_device(static_cam_pose, H, W, focal, cfg,
+                                            viewdirs_pose=pose, device=dev)
+        else:
+            o, d, vd = rays_for_pose_device(pose, H, W, focal, cfg,
+                                            device=dev)
+        out = render_image_maps(params, o, d, H, W, cfg, tile=tile,
+                                occ_grid=occ_grid, viewdirs=vd,
+                                maps=("rgb_map", "disp_map"))
+        rgb = out["rgb_map"].float().cpu().numpy()
+        disp = out["disp_map"].float().cpu().numpy()
+        rgbs.append(rgb)
+        disps.append(disp)
+        line = f"render_path {i + 1}/{len(poses)}"
+        if psnrs is not None:
+            p = psnr_images(rgb, gt_images[i])
+            psnrs.append(p)
+            line += f" | PSNR {p:.2f}"
+        if save_dir:
+            save_png(os.path.join(save_dir, f"{i:03d}.png"), rgb)
+        if verbose:
+            print(line, flush=True)
+    if psnrs and verbose:
+        print(f"render_path mean PSNR over {len(psnrs)} frames: "
+              f"{float(np.mean(psnrs)):.2f}", flush=True)
+    return np.stack(rgbs), np.stack(disps), psnrs
+
+
+def save_path_videos(base: str, rgbs: np.ndarray, disps: np.ndarray,
+                     fps: int = 30) -> Tuple[str, str]:
+    """Write ``<base>_rgb`` and ``<base>_disp`` videos (the disparity
+    normalised by its maximum); returns the two paths written."""
+    from nerfmlp_torch.utils.image import to8b, write_video
+
+    rgb_path = write_video(base + "_rgb", to8b(rgbs), fps=fps)
+    disp_path = write_video(
+        base + "_disp", to8b(disps / max(float(np.max(disps)), 1e-8)),
+        fps=fps)
+    return rgb_path, disp_path

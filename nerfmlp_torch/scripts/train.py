@@ -8,14 +8,19 @@ everything this port supports, plus:
     ``--datadir`` first (at ``--img_wh``; 8 train, 2 val and 2 test views),
     so a run needs no dataset.
 
-Flags of features not ported yet are refused by name, each naming its
-ROADMAP item; the Blender loader reads images at their stored size only,
-so ``--quick_val_res`` defaults to ``--img_wh`` and any other size is
-refused too.
+``--img_wh`` defaults to the first training image's stored size (the JAX
+CLI's default is 1024x1024); ``--half_res`` halves that size. The shipped
+``configs/*.txt`` run as they are, given ``--datadir``. Videos are
+animated GIFs. Flags of features not ported yet are refused by name, each
+naming its ROADMAP item.
 
-Example:
+Examples:
     python -m nerfmlp_torch.scripts.train --datadir /tmp/scene \\
         --make_synthetic_scene --img_wh 64 64 --iters 300 --save_dir /tmp/out
+    python -m nerfmlp_torch.scripts.train \\
+        --config configs/lego_turbo_bf16.txt --datadir data/lego
+    python -m nerfmlp_torch.scripts.train --config ... --render_only \\
+        [--render_test]     # renders the newest checkpoint, no training
 """
 
 from __future__ import annotations
@@ -24,8 +29,9 @@ import argparse
 import os
 
 from nerfmlp_torch.utils.cli import (
-    add_arch_flags, add_occupancy_flags, arch_fields, bool_flag_names,
-    expand_config_files, negation_flags, occupancy_fields,
+    NOT_PORTED_DATASETS, add_arch_flags, add_occupancy_flags, arch_fields,
+    bool_flag_names, dataset_class, expand_config_files, negation_flags,
+    occupancy_fields,
 )
 
 _DEFAULT_SAVE_DIR = "outputs/checkpoints"
@@ -33,11 +39,7 @@ _DEFAULT_SAVE_DIR = "outputs/checkpoints"
 # Flags of the JAX CLI whose features this port does not have yet:
 # name -> (argparse kwargs, what is missing). Any non-default value is
 # refused.
-_EVENTS = "in-training render events (ROADMAP.md, Queue 1 item 14)"
-_DATASETS = "the LLFF and DeepVoxels loaders (ROADMAP.md, Queue 1 item 15)"
 _NOT_PORTED = {
-    "half_res": (dict(action="store_true"),
-                 "resizing images (ROADMAP.md, Queue 1 item 20)"),
     "check_numerics": (dict(action="store_true"),
                        "numerics checking (ROADMAP.md, Queue 1 item 21)"),
     "profile_dir": (dict(type=str, default=""),
@@ -46,25 +48,18 @@ _NOT_PORTED = {
                           "a compilation cache (PyTorch runs eagerly)"),
     "tensorboard": (dict(action="store_true"),
                     "TensorBoard logging (ROADMAP.md, Queue 1 item 21)"),
-    "i_img": (dict(type=int, default=0), _EVENTS),
-    "i_video": (dict(type=int, default=0), _EVENTS),
-    "i_testset": (dict(type=int, default=0), _EVENTS),
-    "render_factor": (dict(type=int, default=0), _EVENTS),
-    "video_frames": (dict(type=int, default=0), _EVENTS),
-    "render_only": (dict(action="store_true"), _EVENTS),
-    "render_test": (dict(action="store_true"), _EVENTS),
     "i_mesh": (dict(type=int, default=0),
                "mesh extraction (ROADMAP.md, Queue 1 item 17)"),
     "n_devices": (dict(type=int, default=0),
                   "data parallelism (ROADMAP.md, Queue 1 item 18)"),
     "tensor_parallel": (dict(type=int, default=1),
                         "tensor parallelism (ROADMAP.md, Queue 1 item 18)"),
-    "shape": (dict(type=str, default="greek"), _DATASETS),
-    "spherify": (dict(action="store_true"), _DATASETS),
-    "factor": (dict(type=int, default=0), _DATASETS),
-    "llffhold": (dict(type=int, default=8), _DATASETS),
-    "no_ndc": (dict(action="store_true"), _DATASETS),
-    "no_aspect_snap": (dict(action="store_true"), _DATASETS),
+    "shape": (dict(type=str, default="greek"), NOT_PORTED_DATASETS),
+    "spherify": (dict(action="store_true"), NOT_PORTED_DATASETS),
+    "factor": (dict(type=int, default=0), NOT_PORTED_DATASETS),
+    "llffhold": (dict(type=int, default=8), NOT_PORTED_DATASETS),
+    "no_ndc": (dict(action="store_true"), NOT_PORTED_DATASETS),
+    "no_aspect_snap": (dict(action="store_true"), NOT_PORTED_DATASETS),
     "remat": (dict(action="store_true"),
               "activation rematerialisation (the fused backward recomputes "
               "the forward already)"),
@@ -82,8 +77,12 @@ def build_parser():
                    help="cuda (default) or cpu")
     p.add_argument("--split", type=str, default="train")
     p.add_argument("--img_wh", type=int, nargs=2, default=None,
-                   help="training resolution; must be the images' stored "
-                        "size (default: the first training image's)")
+                   help="training resolution (default: the first training "
+                        "image's stored size); other sizes are resized "
+                        "with LANCZOS")
+    p.add_argument("--half_res", action="store_true",
+                   help="train at half the images' stored size (Blender; "
+                        "overrides --img_wh)")
     p.add_argument("--batch_size", "--N_rand", type=int, default=1024,
                    help="rays per step (oracle --N_rand)")
     p.add_argument("--iters", type=int, default=200000)
@@ -96,9 +95,7 @@ def build_parser():
                    help="experiment name; sets save_dir=<basedir>/<expname>")
     p.add_argument("--quick_val_interval", type=int, default=1000)
     p.add_argument("--full_val_interval", type=int, default=10000)
-    p.add_argument("--quick_val_res", type=int, nargs=2, default=None,
-                   help="quick-validation resolution (default and only "
-                        "value: the stored image size)")
+    p.add_argument("--quick_val_res", type=int, nargs=2, default=[256, 256])
     p.add_argument("--quick_val_subset", type=int, default=10)
     p.add_argument("--resume", "--ft_path", type=str, default=None,
                    help="checkpoint to resume from; by default the newest "
@@ -162,6 +159,24 @@ def build_parser():
                    help="console log interval")
     p.add_argument("--i_weights", type=int, default=10000,
                    help="periodic model_{step}.pt interval")
+    p.add_argument("--i_img", type=int, default=0,
+                   help="held-out frame val_{step}.png every N steps")
+    p.add_argument("--i_video", type=int, default=0,
+                   help="orbit rgb + disparity videos every N steps (0 = off)")
+    p.add_argument("--i_testset", type=int, default=0,
+                   help="render the test split with per-frame PSNR every N "
+                        "steps (0 = off)")
+    p.add_argument("--render_factor", type=int, default=0,
+                   help="downscale factor of the render events")
+    p.add_argument("--video_frames", type=int, default=0,
+                   help="frames of the --i_video orbit (0 = 40)")
+    p.add_argument("--render_only", action="store_true",
+                   help="no training: render the orbit (or, with "
+                        "--render_test, the test split) from the loaded "
+                        "checkpoint to save_dir/renderonly_*")
+    p.add_argument("--render_test", action="store_true",
+                   help="with --render_only: the test split's poses, with "
+                        "per-frame PSNR")
     p.add_argument("--mesh_resolution", type=int, default=128)
     p.add_argument("--mesh_threshold", type=float, default=25.0)
     add_occupancy_flags(p)
@@ -188,13 +203,11 @@ def refuse_unported(args) -> None:
         if getattr(args, name) != p.get_default(name):
             raise SystemExit(f"--{name}: {what} is not ported to PyTorch "
                              "yet")
-    if args.dataset_type != "blender":
-        raise SystemExit(f"--dataset_type {args.dataset_type}: {_DATASETS} "
-                         "are not ported to PyTorch yet")
+    dataset_class(args.dataset_type)
 
 
 def _stored_wh(datadir: str, split: str):
-    """(W, H) of the split's first image, from its PNG header."""
+    """[W, H] of the split's first image, from its PNG header."""
     import json
     import struct
 
@@ -203,6 +216,34 @@ def _stored_wh(datadir: str, split: str):
     with open(os.path.join(datadir, split, name + ".png"), "rb") as f:
         head = f.read(24)
     return list(struct.unpack(">II", head[16:24]))
+
+
+def _render_only(args, trainer, rc, dataset, test_ds, render_poses,
+                 resumed):
+    """Render the orbit (or the test split) from the loaded state into
+    ``renderonly_{path|test}_{step:06d}/``; no training."""
+    from nerfmlp_torch.render_path import render_path, save_path_videos
+
+    if not resumed:
+        print("⚠️  --render_only with no checkpoint found in "
+              f"{args.save_dir}: rendering from the random init")
+    start = int(trainer.history["step"])
+    suffix = "test" if args.render_test else "path"
+    out_dir = os.path.join(args.save_dir, f"renderonly_{suffix}_{start:06d}")
+    kw = dict(render_factor=args.render_factor, occ_grid=trainer.occ_grid,
+              save_dir=out_dir, tile=args.chunk)
+    if args.render_test:
+        rgbs, _, psnrs = render_path(
+            trainer.state.params, test_ds.poses,
+            (test_ds.H, test_ds.W, test_ds.focal), rc,
+            gt_images=test_ds.images, **kw)
+    else:
+        rgbs, disps, psnrs = render_path(
+            trainer.state.params, render_poses,
+            (dataset.H, dataset.W, dataset.focal), rc, **kw)
+        save_path_videos(os.path.join(out_dir, "video"), rgbs, disps)
+    print(f"✅ render_only done: {len(rgbs)} frames -> {out_dir}")
+    return {"render_only": out_dir, "psnrs": psnrs}
 
 
 def main(argv=None):
@@ -223,8 +264,12 @@ def main(argv=None):
         print(f"synthetic scene ({wh[0]}x{wh[1]}) -> {args.datadir}")
     if args.img_wh is None:
         args.img_wh = _stored_wh(args.datadir, args.split)
-    if args.quick_val_res is None:
-        args.quick_val_res = list(args.img_wh)
+    if args.half_res:
+        # Half the first train frame's stored size (the reference's
+        # load_blender half_res), read from its PNG header.
+        w, h = _stored_wh(args.datadir, "train")
+        args.img_wh = [max(1, w // 2), max(1, h // 2)]
+        print(f"--half_res: training at {args.img_wh[0]}x{args.img_wh[1]}")
 
     from nerfmlp_torch import resolve_device, use_true_fp32
     from nerfmlp_torch.config import RenderConfig, TrainConfig
@@ -240,11 +285,24 @@ def main(argv=None):
     val_ds = BlenderDataset(args.datadir, split="val",
                             img_wh=tuple(args.img_wh), white_bkgd=white,
                             testskip=args.testskip)
-    quick_val_ds = (val_ds if list(args.quick_val_res) == list(args.img_wh)
-                    else BlenderDataset(args.datadir, split="val",
-                                        img_wh=tuple(args.quick_val_res),
-                                        white_bkgd=white,
-                                        testskip=args.testskip))
+    quick_val_ds = BlenderDataset(args.datadir, split="val",
+                                  img_wh=tuple(args.quick_val_res),
+                                  white_bkgd=white, testskip=args.testskip)
+    # The render events' inputs, loaded only when asked for.
+    render_poses = None
+    if args.i_video or (args.render_only and not args.render_test):
+        render_poses = dataset.render_poses(
+            **({"n_frames": args.video_frames} if args.video_frames else {}))
+    test_ds = None
+    if args.i_testset or (args.render_only and args.render_test):
+        try:
+            test_ds = BlenderDataset(args.datadir, split="test",
+                                     img_wh=tuple(args.img_wh),
+                                     white_bkgd=white, testskip=args.testskip)
+        except FileNotFoundError as e:
+            print(f"⚠️  --i_testset: no test split ({e}); falling back to "
+                  "val")
+            test_ds = val_ds
     os.makedirs(args.save_dir, exist_ok=True)
     with open(os.path.join(args.save_dir, "args.txt"), "w") as f:
         for k, v in sorted(vars(args).items()):
@@ -283,10 +341,13 @@ def main(argv=None):
         no_batching=args.no_batching, mesh_resolution=args.mesh_resolution,
         mesh_threshold=args.mesh_threshold, chunk=args.chunk,
         steps_per_dispatch=args.steps_per_dispatch,
-        device_pool=args.device_pool,
+        device_pool=args.device_pool, i_video=args.i_video,
+        i_testset=args.i_testset, i_img=args.i_img,
+        render_factor=args.render_factor,
     )
     trainer = Trainer(rc, tc, dataset, val_ds, quick_val_ds,
-                      save_dir=args.save_dir, device=device)
+                      save_dir=args.save_dir, device=device,
+                      render_poses=render_poses, test_ds=test_ds)
     resume_path = args.resume
     if resume_path is None and not args.no_resume:
         resume_path = latest_checkpoint(args.save_dir)
@@ -295,6 +356,9 @@ def main(argv=None):
                   "--no_resume to start fresh)")
     if resume_path:
         trainer.resume(resume_path)
+    if args.render_only:
+        return _render_only(args, trainer, rc, dataset, test_ds, render_poses,
+                            bool(resume_path))
     metrics = trainer.train()
     print(f"✅ done — final PSNR {metrics.get('final_val', {}).get('psnr')}")
     return metrics

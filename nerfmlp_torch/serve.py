@@ -51,6 +51,20 @@ NOT_PORTED = ("POST /mesh", "POST /reload", "checkpoint watch",
 GRID_SEED = 0
 
 
+def grid_from_weights(params: Dict, cfg: RenderConfig):
+    """The density grid a process with no training loop renders with:
+    ``ops/occupancy.py::build_grid`` of ``params`` at ``cfg.occ_grid_size``,
+    its jitter drawn on the nets' device from ``GRID_SEED`` — the service's
+    grid, and the inference CLIs'."""
+    import torch
+
+    from nerfmlp_torch.ops.occupancy import build_grid
+    from nerfmlp_torch.render_path import params_device
+
+    gen = torch.Generator(device=params_device(params)).manual_seed(GRID_SEED)
+    return build_grid(params, cfg, gen, resolution=cfg.occ_grid_size)
+
+
 class RequestError(ValueError):
     """A malformed render request (maps to HTTP 400)."""
 
@@ -132,13 +146,7 @@ class RenderService:
         ``cfg.use_occupancy``."""
         if not self.cfg.use_occupancy:
             return None
-        import torch
-
-        from nerfmlp_torch.ops.occupancy import build_grid
-
-        gen = torch.Generator(device=self.device).manual_seed(GRID_SEED)
-        return build_grid(params, self.cfg, gen,
-                          resolution=self.cfg.occ_grid_size)
+        return grid_from_weights(params, self.cfg)
 
     # -------------------------------------------------------------- #
     # Core rendering

@@ -7,11 +7,13 @@ ray pool; ``train()`` with the log interval and precrop; quick and full
 validation on whole held-out images (PSNR, SSIM); best, final, periodic
 and latest checkpoints; auto-resume; the metrics JSON in the reference
 schema; occupancy-grid sampling, with the grid refreshed on the JAX
-Trainer's schedule and rebuilt on resume. Left out, and refused when asked
-for: the in-training render events (``i_video``, ``i_testset``, ``i_img``,
-``i_mesh``), TensorBoard, ``profile_dir`` and tensor parallelism (each
-raises a ``NotImplementedError`` naming its ROADMAP item), and
-``steps_per_dispatch`` above 1 (CUDA graphs take its place later).
+Trainer's schedule and rebuilt on resume; the in-training render events
+(``i_video``: orbit videos, ``i_testset``: test-set sweeps with per-frame
+PSNR, ``i_img``: held-out frames, ``render_factor``). Left out, and refused
+when asked for: ``i_mesh``, TensorBoard, ``profile_dir`` and tensor
+parallelism (each raises a ``NotImplementedError`` naming its ROADMAP
+item), and ``steps_per_dispatch`` above 1 (CUDA graphs take its place
+later).
 
 The hot loop never waits for the card: loss and PSNR stay device tensors,
 summed on the device, and are read back at log and validation steps
@@ -66,6 +68,8 @@ class Trainer:
 
     ``train_ds``/``val_ds``/``quick_val_ds`` are BlenderDataset-like
     objects (``all_rays_*``, ``image_rays``, ``n_images``, ``H``/``W``).
+    ``render_poses``: the c2w trajectory of the ``i_video`` event;
+    ``test_ds``: the held-out split of the ``i_testset`` event.
     ``device``: default ``cuda``; ``"cpu"`` runs the plain versions of the
     kernels. Starting a Trainer keeps TF32 off process-wide
     (:func:`nerfmlp_torch.use_true_fp32`)."""
@@ -79,7 +83,7 @@ class Trainer:
     def __init__(self, rc: RenderConfig, tc: TrainConfig, train_ds,
                  val_ds=None, quick_val_ds=None,
                  save_dir: str = "outputs/checkpoints", verbose: bool = True,
-                 device=None):
+                 device=None, render_poses=None, test_ds=None):
         check_supported(tc)
         if rc.use_occupancy and rc.aabb is None:
             raise ValueError("use_occupancy requires RenderConfig.aabb")
@@ -92,6 +96,8 @@ class Trainer:
         self.quick_val_ds = quick_val_ds if quick_val_ds is not None else val_ds
         self.save_dir = save_dir
         self.verbose = verbose
+        self.render_poses = render_poses
+        self.test_ds = test_ds
         os.makedirs(save_dir, exist_ok=True)
 
         self.state = create_train_state(rc, tc, self.device)
@@ -186,6 +192,82 @@ class Trainer:
             ssims.append(ssim(img, gt))
         return {"loss": float(np.mean(mses)), "psnr": float(np.mean(psnrs)),
                 "ssim": float(np.nanmean(ssims))}
+
+    def _save_val_image(self, step: int) -> None:
+        """One held-out render, ``val_{step:06d}.png`` (the ``i_img``
+        frames). Best-effort: a failure is logged, training goes on."""
+        if self.val_ds is None:
+            return
+        try:
+            from nerfmlp_torch.utils.image import save_png
+
+            img, _ = self._render_view(self.val_ds, 0)
+            save_png(os.path.join(self.save_dir, f"val_{step:06d}.png"), img)
+        except Exception as e:
+            self._log(f"(val image dump skipped: {e})")
+
+    def _video_event(self, step: int) -> None:
+        """The orbit as rgb and disparity videos,
+        ``<expname>_spiral_{step:06d}_{rgb,disp}.gif``, and with view
+        directions the static-camera ``_rgb_still`` video. Best-effort."""
+        try:
+            from nerfmlp_torch.render_path import (
+                render_path, save_path_videos,
+            )
+            from nerfmlp_torch.utils.image import to8b, write_video
+
+            ds = self.train_ds
+            kw = dict(render_factor=self.tc.render_factor,
+                      occ_grid=self.occ_grid, verbose=False,
+                      tile=self.tc.chunk)
+            rgbs, disps, _ = render_path(self.state.params, self.render_poses,
+                                         (ds.H, ds.W, ds.focal), self.rc, **kw)
+            expname = os.path.basename(os.path.normpath(self.save_dir))
+            base = os.path.join(self.save_dir, f"{expname}_spiral_{step:06d}")
+            rgb_path, disp_path = save_path_videos(base, rgbs, disps)
+            self._log(f"🎬 i_video @ {step:,}: {rgb_path}, {disp_path}")
+            if self.rc.use_viewdirs:
+                stills, _, _ = render_path(
+                    self.state.params, self.render_poses,
+                    (ds.H, ds.W, ds.focal), self.rc,
+                    static_cam_pose=np.asarray(self.render_poses)[0], **kw)
+                still_path = write_video(base + "_rgb_still", to8b(stills))
+                self._log(f"🎬 i_video @ {step:,}: {still_path} (static cam)")
+        except Exception as e:
+            self._log(f"(i_video event failed: {e})")
+
+    def _testset_event(self, step: int) -> None:
+        """Every test pose rendered to ``testset_{step:06d}/{i:03d}.png``
+        with per-frame PSNR; the mean goes to ``history["testset_psnrs"]``.
+        Under ``render_factor`` the frames are smaller and the ground truth
+        is sampled with the same stride, so PSNR is still recorded.
+        Best-effort."""
+        try:
+            from nerfmlp_torch.render_path import render_path
+
+            out_dir = os.path.join(self.save_dir, f"testset_{step:06d}")
+            ds = self.test_ds
+            H, W, focal = ds.H, ds.W, ds.focal
+            gt = ds.images
+            rf = int(self.tc.render_factor or 0)
+            if rf > 1:
+                H, W, focal = H // rf, W // rf, focal / rf
+                gt = gt[:, : H * rf: rf, : W * rf: rf]
+            _, _, psnrs = render_path(
+                self.state.params, ds.poses, (H, W, focal), self.rc,
+                gt_images=gt, tile=self.tc.chunk, occ_grid=self.occ_grid,
+                save_dir=out_dir, verbose=False)
+            if psnrs:
+                mean_p = float(np.mean(psnrs))
+                self.history["testset_psnrs"].append(mean_p)
+                self.history["testset_steps"].append(step)
+                self._log(f"🧪 i_testset @ {step:,}: {len(psnrs)} views -> "
+                          f"{out_dir} | mean PSNR {mean_p:.2f} (min "
+                          f"{min(psnrs):.2f} / max {max(psnrs):.2f})")
+            else:
+                self._log(f"🧪 i_testset @ {step:,}: frames -> {out_dir}")
+        except Exception as e:
+            self._log(f"(i_testset event failed: {e})")
 
     def quick_validate(self) -> Optional[Dict[str, float]]:
         return self._validate(self.quick_val_ds, self.tc.quick_val_subset)
@@ -366,13 +448,33 @@ class Trainer:
                     self._log(f"📋 FULL VAL @ {step:,}: loss "
                               f"{fv['loss']:.6f} | PSNR {fv['psnr']:.2f} | "
                               f"SSIM {fv['ssim']:.4f}")
+                    self._save_val_image(step)
                 t_prev = time.time()
 
             if tc.ckpt_interval and step % tc.ckpt_interval == 0:
                 self._save_params(f"model_{step}.pt")
 
+            # Render events, never on the last step (the end-of-run
+            # artefacts come from the final model).
+            if step < iters:
+                if (tc.i_video and step % tc.i_video == 0
+                        and self.render_poses is not None):
+                    self._video_event(step)
+                    t_prev = time.time()
+                if (tc.i_testset and step % tc.i_testset == 0
+                        and self.test_ds is not None):
+                    self._testset_event(step)
+                    t_prev = time.time()
+                if tc.i_img and step % tc.i_img == 0:
+                    self._save_val_image(step)
+                    t_prev = time.time()
+
         # Final saves + full validation.
         self._save_params("model_final.pt")
+        if tc.i_img and iters > start_step:
+            # The in-loop frames stop one interval early; the time-lapse
+            # they feed ends on the final model.
+            self._save_val_image(iters)
         final = {}
         if self.val_ds is not None:
             final = self.full_validate() or {}

@@ -1,18 +1,26 @@
-"""Shared CLI plumbing: the architecture and occupancy flags, the tile
-default and ``--config FILE`` expansion.
+"""Shared CLI plumbing: the architecture, occupancy, tile and shard flags,
+``--config FILE`` expansion, and what every checkpoint-loading script
+does the same way — load the weights, build the occupancy grid, pick the
+dataset, render one frame.
 
-Counterpart of ``nerfmlp_tpu/utils/cli.py:15-35`` (``add_arch_flags``,
-``arch_fields``) and ``:58-133`` (``add_occupancy_flags``,
-``occupancy_fields``, ``resolve_tile``; the grid that ``build_occ_grid``
-makes there, the render service builds itself here), and of the
-config-file helpers in ``scripts/train.py:23-92`` (the oracle reads
-``key = value`` files through configargparse).
+Counterpart of ``nerfmlp_tpu/utils/cli.py`` (``add_arch_flags``,
+``arch_fields``, ``add_occupancy_flags``, ``occupancy_fields``,
+``add_tile_flag``, ``resolve_tile``, ``build_occ_grid``,
+``add_shard_flag``, ``render_frame``, ``dataset_class``;
+``dataset_kwargs`` has nothing to carry for Blender scenes, and
+``params_template`` becomes :func:`load_params`, since ``.ckpt`` files are
+not read here) and of the config-file helpers in
+``scripts/train.py:23-92`` (the oracle reads ``key = value`` files
+through configargparse). LLFF and DeepVoxels (ROADMAP.md, Queue 1 item
+15) and rendering over several devices (item 18) are refused by name.
 """
 
 from __future__ import annotations
 
 import sys
 from typing import Dict
+
+import numpy as np
 
 
 def add_arch_flags(p) -> None:
@@ -64,6 +72,14 @@ def occupancy_fields(args) -> Dict:
             "occ_one_shot": args.occ_one_shot}
 
 
+def add_tile_flag(p) -> None:
+    """--tile/--chunk: rays per tile, by default the sampling mode's
+    (:func:`resolve_tile`)."""
+    p.add_argument("--tile", "--chunk", type=int, default=None,
+                   help="rays per tile (default: 16384 with "
+                        "--use_occupancy, else 4096)")
+
+
 def resolve_tile(args) -> int:
     """The parsed --tile, else rays per tile by sampling mode: 16,384 with
     --use_occupancy (16 + 48 samples, a shallower pipeline per ray), else
@@ -71,6 +87,100 @@ def resolve_tile(args) -> int:
     if args.tile is not None:
         return args.tile
     return 16384 if getattr(args, "use_occupancy", False) else 4096
+
+
+NOT_PORTED_DATASETS = ("the LLFF and DeepVoxels loaders (ROADMAP.md, Queue 1 "
+                       "item 15)")
+NOT_PORTED_SHARDING = ("rendering over several devices (ROADMAP.md, Queue 1 "
+                       "item 18)")
+
+
+def add_device_flags(p) -> None:
+    """--device (default cuda) and --no_kernel (alias --no_pallas)."""
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default) or cpu")
+    p.add_argument("--no_kernel", "--no_pallas", dest="use_kernel",
+                   action="store_false", default=True,
+                   help="plain PyTorch module path instead of the fused "
+                        "kernels")
+
+
+def add_dataset_flag(p, choices=("blender", "llff", "deepvoxels")) -> None:
+    p.add_argument("--dataset_type", type=str, default="blender",
+                   choices=list(choices))
+
+
+def add_shard_flag(p) -> None:
+    """--shard_render, kept so that a JAX command line reads here; the
+    CLIs refuse it (:func:`refuse_shard_render`)."""
+    p.add_argument("--shard_render", action="store_true",
+                   help=f"not ported: {NOT_PORTED_SHARDING}")
+
+
+def refuse_shard_render(args) -> None:
+    if getattr(args, "shard_render", False):
+        raise SystemExit(f"--shard_render: {NOT_PORTED_SHARDING} is not "
+                         "ported to PyTorch yet")
+
+
+def dataset_class(dataset_type: str):
+    """The loader class for a ``--dataset_type``: Blender; the others
+    raise naming their ROADMAP item."""
+    if dataset_type != "blender":
+        raise SystemExit(f"--dataset_type {dataset_type}: "
+                         f"{NOT_PORTED_DATASETS} are not ported to PyTorch "
+                         "yet")
+    from nerfmlp_torch.data.blender import BlenderDataset
+
+    return BlenderDataset
+
+
+def load_params(path: str, rc, device) -> Dict:
+    """``{"coarse": ..., ["fine": ...]}`` nets of ``rc``'s architecture (the
+    fine one's under ``separate_fine``) on ``device``, from a ``.npy``,
+    ``.pth`` or ``.pt`` file (``train/checkpoint.py::load_params_any``)."""
+    from nerfmlp_torch.train.checkpoint import load_params_any
+
+    return load_params_any(
+        path, rc.model_config(), device=device,
+        fine_cfg=rc.model_config(fine=True) if rc.separate_fine else None)
+
+
+def build_occ_grid(args, rc, params, parser):
+    """The density grid of a loaded checkpoint, or None without
+    --use_occupancy: built from the weights exactly as the render service
+    builds its grid (``serve.py::grid_from_weights``, ``GRID_SEED``).
+    parser.error when --aabb is missing."""
+    if not args.use_occupancy:
+        return None
+    if rc.aabb is None:
+        parser.error("--use_occupancy requires --aabb")
+    from nerfmlp_torch.serve import grid_from_weights
+
+    grid = grid_from_weights(params, rc)
+    print(f"occupancy grid {rc.occ_grid_size}^3 built from checkpoint")
+    return grid
+
+
+def render_frame(args, params, o, d, H, W, rc, occ_grid=None,
+                 viewdirs=None):
+    """One (H, W, 3) numpy frame of host rays (H*W, 3), rendered on the
+    nets' device in tiles of :func:`resolve_tile` rays. ``params``: packed
+    by the caller (``ops/render.py::prepare_params``)."""
+    import torch
+
+    from nerfmlp_torch.ops.render import render_image
+    from nerfmlp_torch.render_path import params_device
+
+    dev = params_device(params)
+
+    def t(a):
+        return None if a is None else torch.as_tensor(
+            np.asarray(a, np.float32), device=dev)
+
+    return render_image(params, t(o), t(d), H, W, rc,
+                        tile=resolve_tile(args), occ_grid=occ_grid,
+                        viewdirs=t(viewdirs)).float().cpu().numpy()
 
 
 def bool_flag_names(parser):

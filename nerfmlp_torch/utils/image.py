@@ -1,10 +1,16 @@
-"""Small image helpers: ``to8b``, and a PNG encoder and decoder on the
-standard library (``zlib`` + ``struct``), so serving and training need no
-imaging package. Counterpart of ``nerfmlp_tpu/utils/image.py:1-40``
-(``to8b``, ``save_png``, ``load_png``), which uses PIL."""
+"""Small image helpers on numpy and the standard library, so serving,
+training and rendering need no imaging package: ``to8b``; a PNG encoder
+and decoder (``zlib`` + ``struct``); a LANCZOS resize equal to Pillow's;
+an animated-GIF writer for videos.
+
+Counterpart of ``nerfmlp_tpu/utils/image.py`` (``to8b``, ``save_png``,
+``load_png``, ``write_video``), which uses PIL and imageio, and of the
+``Image.resize(img_wh, LANCZOS)`` call in ``nerfmlp_tpu/data/blender.py``.
+"""
 
 from __future__ import annotations
 
+import math
 import struct
 import zlib
 
@@ -134,3 +140,223 @@ def load_png(path: str) -> np.ndarray:
     if px.shape[2] in (1, 2):
         px = np.repeat(px[..., :1], 3, axis=2)
     return px[..., :3].astype(np.float32) / 255.0
+
+
+# -- Resize ---------------------------------------------------------------
+# Pillow's 8-bit resampling (libImaging/Resample.c): coefficients in fixed
+# point with this many fraction bits (32 - 8 - 2).
+_PRECISION_BITS = 22
+_LANCZOS_SUPPORT = 3.0
+
+
+def _sinc(x: float) -> float:
+    if x == 0.0:
+        return 1.0
+    x = x * math.pi
+    return math.sin(x) / x
+
+
+def _lanczos(x: float) -> float:
+    if -_LANCZOS_SUPPORT <= x < _LANCZOS_SUPPORT:
+        return _sinc(x) * _sinc(x / _LANCZOS_SUPPORT)
+    return 0.0
+
+
+def _lanczos_taps(in_size: int, out_size: int):
+    """Pillow's ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for one
+    axis: (first input index (out,), fixed-point weights (out, ksize)).
+
+    Scalar float64 arithmetic in Pillow's order: libm's ``sin`` (as
+    ``math.sin``), the weights summed left to right (not ``sum``, which
+    compensates), divided by that sum, scaled by 2^22 and rounded half
+    away from 0."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = _LANCZOS_SUPPORT * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    inv = 1.0 / filterscale
+    first = np.zeros(out_size, np.int64)
+    taps = np.zeros((out_size, ksize), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        n = min(int(center + support + 0.5), in_size) - xmin
+        w = [_lanczos((x + xmin - center + 0.5) * inv) for x in range(n)]
+        total = 0.0
+        for v in w:
+            total += v
+        for x, v in enumerate(w):
+            v = (v / total if total != 0.0 else v) * (1 << _PRECISION_BITS)
+            taps[xx, x] = int(v - 0.5) if v < 0 else int(v + 0.5)
+        first[xx] = xmin
+    return first, taps
+
+
+def _resample_axis(px: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One pass of Pillow's 8-bit resampling along ``axis`` of int64
+    pixels: a rounding offset of 2^21, the taps' products summed, shifted
+    down by 22 bits and clipped to [0, 255]."""
+    in_size = px.shape[axis]
+    first, taps = _lanczos_taps(in_size, out_size)
+    bshape = [1] * px.ndim
+    bshape[axis] = out_size
+    out_shape = list(px.shape)
+    out_shape[axis] = out_size
+    acc = np.full(out_shape, 1 << (_PRECISION_BITS - 1), np.int64)
+    for x in range(taps.shape[1]):
+        idx = np.minimum(first + x, in_size - 1)   # weight 0 past the end
+        acc += np.take(px, idx, axis=axis) * taps[:, x].reshape(bshape)
+    return np.clip(acc >> _PRECISION_BITS, 0, 255)
+
+
+def resize_lanczos(px: np.ndarray, wh) -> np.ndarray:
+    """uint8 (H, W, C) pixels -> uint8 (h, w, C) at ``wh`` = (w, h), equal
+    to Pillow's ``Image.resize(wh, Image.Resampling.LANCZOS)`` bit for bit
+    (checked against Pillow 12.1.0).
+
+    Pillow's steps, on integers: an image with alpha (C = 2 or 4, the last
+    channel) is premultiplied, ``c * a`` divided by 255 as ``MULDIV255``
+    (``t = c * a + 128; ((t >> 8) + t) >> 8``); the horizontal pass, then
+    the vertical, each in 22-bit fixed point and clipped to uint8 (a pass
+    whose size does not change is skipped); then alpha is divided out,
+    ``min(255 * c // a, 255)``, where it is neither 0 nor 255. An image
+    already at ``wh`` is returned unchanged, as Pillow copies it."""
+    arr = np.asarray(px)
+    if arr.dtype != np.uint8 or arr.ndim != 3:
+        raise ValueError(f"resize_lanczos takes (H, W, C) uint8 pixels, got "
+                         f"{arr.shape} {arr.dtype}")
+    w, h = int(wh[0]), int(wh[1])
+    if w <= 0 or h <= 0:
+        raise ValueError(f"resize_lanczos: size {w}x{h} must be positive")
+    if (arr.shape[1], arr.shape[0]) == (w, h):
+        return arr.copy()
+    a = arr.astype(np.int64)
+    has_alpha = a.shape[2] in (2, 4)
+    if has_alpha:
+        alpha = a[..., -1:]
+        t = a[..., :-1] * alpha + 128
+        a = np.concatenate([((t >> 8) + t) >> 8, alpha], axis=-1)
+    if w != a.shape[1]:
+        a = _resample_axis(a, w, axis=1)
+    if h != a.shape[0]:
+        a = _resample_axis(a, h, axis=0)
+    if has_alpha:
+        alpha, c = a[..., -1:], a[..., :-1]
+        div = np.minimum(255 * c // np.maximum(alpha, 1), 255)
+        c = np.where((alpha == 0) | (alpha == 255), c, div)
+        a = np.concatenate([c, alpha], axis=-1)
+    return a.astype(np.uint8)
+
+
+# -- Video ----------------------------------------------------------------
+# RGB frames are quantised to a fixed 6 x 7 x 6 colour cube (252 of the 256
+# palette entries): each channel to the nearest of its evenly spaced
+# levels, so no value moves by more than RGB_GIF_MAX_ERR of 255.
+_CUBE = (6, 7, 6)
+RGB_GIF_MAX_ERR = 25
+
+
+def _cube_palette() -> np.ndarray:
+    r, g, b = (np.round(np.arange(n) * 255.0 / (n - 1)) for n in _CUBE)
+    pal = np.stack(np.meshgrid(r, g, b, indexing="ij"), -1).reshape(-1, 3)
+    return np.concatenate([pal, np.zeros((256 - len(pal), 3))]).astype(
+        np.uint8)
+
+
+def _cube_indices(rgb: np.ndarray) -> np.ndarray:
+    lv = [np.round(rgb[..., i].astype(np.float64) * (n - 1) / 255.0)
+          .astype(np.int64) for i, n in enumerate(_CUBE)]
+    return ((lv[0] * _CUBE[1] + lv[1]) * _CUBE[2] + lv[2]).astype(np.uint8)
+
+
+def _lzw(indices: bytes, min_code_size: int = 8) -> bytes:
+    """GIF's variable-width LZW code stream (codes packed LSB first): a
+    clear code first, a width step each time the next table code needs
+    one more bit, and a clear code when the 4,096-code table is full."""
+    clear = 1 << min_code_size
+    size, nxt = min_code_size + 1, clear + 2
+    table = {}
+    out = bytearray()
+    acc = nbits = 0
+
+    def emit(code, width):
+        nonlocal acc, nbits
+        acc |= code << nbits
+        nbits += width
+        while nbits >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nbits -= 8
+
+    emit(clear, size)
+    prefix = indices[0]
+    for b in indices[1:]:
+        key = (prefix << 8) | b
+        code = table.get(key)
+        if code is not None:
+            prefix = code
+            continue
+        emit(prefix, size)
+        if nxt < 4096:
+            table[key] = nxt
+            if nxt == 1 << size:
+                size += 1
+            nxt += 1
+        else:
+            emit(clear, size)
+            table.clear()
+            size, nxt = min_code_size + 1, clear + 2
+        prefix = b
+    emit(prefix, size)
+    emit(clear + 1, size)          # end of information
+    if nbits:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+def gif_bytes(frames, fps: int = 30) -> bytes:
+    """uint8 frames, all (H, W) grey or all (H, W, 3) RGB -> an animated
+    GIF89a that loops forever (NETSCAPE2.0, loop 0), each frame shown for
+    ``max(1000 // fps, 20)`` ms, in GIF's 10 ms units rounded down. Grey
+    frames use a 256-grey palette and are exact; RGB frames are mapped to
+    a 6 x 7 x 6 colour cube, within ``RGB_GIF_MAX_ERR`` (25 of 255) of
+    their values in every channel."""
+    frames = [np.asarray(f) for f in frames]
+    if not frames or any(f.dtype != np.uint8 for f in frames):
+        raise ValueError("gif_bytes takes one or more uint8 frames")
+    shape = frames[0].shape
+    grey = len(shape) == 2
+    if any(f.shape != shape for f in frames) or not (
+            grey or (len(shape) == 3 and shape[2] == 3)):
+        raise ValueError("gif_bytes takes frames of one shape, (H, W) or "
+                         f"(H, W, 3); got {[f.shape for f in frames]}")
+    h, w = shape[:2]
+    palette = (np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1)
+               if grey else _cube_palette())
+    delay = max(1000 // fps, 20) // 10
+    out = bytearray(b"GIF89a")
+    # Global colour table of 256 entries, 8 bits per primary.
+    out += struct.pack("<HHBBB", w, h, 0xF7, 0, 0) + palette.tobytes()
+    out += b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"
+    for f in frames:
+        idx = f if grey else _cube_indices(f)
+        out += b"\x21\xf9\x04\x00" + struct.pack("<H", delay) + b"\x00\x00"
+        out += b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0) + b"\x08"
+        data = _lzw(np.ascontiguousarray(idx).tobytes())
+        for i in range(0, len(data), 255):
+            out += bytes([len(data[i:i + 255])]) + data[i:i + 255]
+        out += b"\x00"
+    return bytes(out + b"\x3b")
+
+
+def write_video(path_base: str, frames, fps: int = 30) -> str:
+    """Write frames (uint8, or float in [0, 1]; (H, W) grey or (H, W, 3))
+    as the animated GIF ``<path_base>.gif`` (:func:`gif_bytes`) and return
+    its path. The JAX package writes mp4 through imageio, else a GIF
+    through Pillow; neither is a dependency here."""
+    frames = [np.asarray(f) for f in frames]
+    frames = [f if f.dtype == np.uint8 else to8b(f) for f in frames]
+    path = path_base + ".gif"
+    with open(path, "wb") as f:
+        f.write(gif_bytes(frames, fps=fps))
+    return path

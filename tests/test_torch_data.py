@@ -165,8 +165,10 @@ def test_blender_alpha_composite_matches_jax(tmp_path, scenes):
 
 
 def test_blender_refuses_a_resize(scenes):
-    with pytest.raises(NotImplementedError, match="item 20"):
-        blender.BlenderDataset(scenes[0], "train", img_wh=(12, 10))
+    """Images are resized now (tests/test_torch_resize.py); a size that is
+    not positive is refused, as Pillow refuses it."""
+    with pytest.raises(ValueError, match="positive"):
+        blender.BlenderDataset(scenes[0], "train", img_wh=(0, 10))
 
 
 @pytest.mark.parametrize("mode", ["global", "image", "precrop", "tiny"])

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: it imports no jax, flax, optax or
-nerfmlp_tpu — checked in a fresh interpreter (this test process already
-holds jax, from conftest) and by scanning the port's sources."""
+nerfmlp_tpu, and no imaging or plotting package (PIL, imageio,
+matplotlib: the card's machine has none) — checked in a fresh
+interpreter (this test process already holds jax, from conftest) and by
+scanning the port's sources and chip_smoke.py."""
 
 import ast
 import json
@@ -13,7 +15,8 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "nerfmlp_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "nerfmlp_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "nerfmlp_tpu", "PIL",
+             "imageio", "matplotlib")
 
 
 def _port_modules():
@@ -31,7 +34,14 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
     assert {"nerfmlp_torch.parallel.train_step", "nerfmlp_torch.train.loop",
             "nerfmlp_torch.scripts.train", "nerfmlp_torch.data.synthetic",
             "nerfmlp_torch.data.device_pool", "nerfmlp_torch.data.pipeline",
-            "nerfmlp_torch.train.metrics"} <= set(mods)
+            "nerfmlp_torch.train.metrics", "nerfmlp_torch.render_path",
+            "nerfmlp_torch.utils.image", "nerfmlp_torch.utils.cli",
+            "nerfmlp_torch.scripts.render_video",
+            "nerfmlp_torch.scripts.render_example",
+            "nerfmlp_torch.scripts.eval",
+            "nerfmlp_torch.scripts.compare_single_view",
+            "nerfmlp_torch.scripts.train_only",
+            "nerfmlp_torch.scripts.zoom_example"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -120,8 +120,7 @@ def test_resume_from_params_only_checkpoint(scene, tmp_path):
 
 
 @pytest.mark.parametrize("field, value, item", [
-    ("i_video", 10, "item 14"), ("i_testset", 10, "item 14"),
-    ("i_img", 10, "item 14"), ("i_mesh", 10, "item 17"),
+    ("i_mesh", 10, "item 17"),
     ("profile_dir", "/tmp/x", "item 21"), ("steps_per_dispatch", 4,
                                            "item 19"),
 ])
@@ -205,7 +204,7 @@ def test_train_cli_on_cpu(tmp_path):
     metrics = cli.main(args[:args.index("--iters") + 1] + ["12"]
                        + args[args.index("--iters") + 2:])
     assert metrics["step"] == 12
-    for flag, value in (("--i_video", "5"), ("--tensor_parallel", "2"),
+    for flag, value in (("--i_mesh", "5"), ("--tensor_parallel", "2"),
                         ("--dataset_type", "llff")):
         with pytest.raises(SystemExit, match="not ported"):
             cli.main(args + [flag, value])
