@@ -65,7 +65,27 @@ Phases, each fatal on failure:
      400x400 (20 forward launches a frame, frame 0 equal to
      RenderService's frame of the same pose, weights, grid and tile within
      1e-6); the eval CLI on the val split (mean PSNR >= 20 dB, within 1 dB
-     of the Trainer's final validation).
+     of the Trainer's final validation);
+  8. forward-facing (LLFF, NDC) and DeepVoxels scenes, as a user runs them:
+     the train CLI on configs/fern.txt as it is (factor 8, llffhold 8,
+     64 + 64 samples, raw noise 1, world viewdirs) on a 96x72 forward
+     capture it writes as a pre-minified images_8/ (12 views, views 0 and 8
+     held out), for 400 steps with 8-frame spiral videos and a quick
+     validation at step 200, through the kernels and with --no_kernel (the
+     loss falls, held-out PSNR reaches 20 dB on both and they agree within
+     1 dB; exactly 2 launches of each kernel per step beside those of the
+     renders, none on the plain run), a profiled step; render_video on its
+     model, the loader's spiral, 8 frames at 504x378 (2 forward launches
+     per 4,096-ray tile); the serve CLI with --dataset_type llff --datadir,
+     one frame over HTTP equal to render_video's frame 0, and that frame
+     through use_kernel=False (bf16: no farther from the fp32 module frame
+     than the bf16 module frame, x1.1); the kernels against their plain
+     versions at the path's shapes with random weights (a served NDC tile,
+     262,144 points; a train call, 65,536 points, forward and backward),
+     timed beside the module path; eval on the held-out views (within 1 dB
+     of the Trainer's final validation); 50 train CLI steps on a 64x64
+     DeepVoxels-layout scene it writes (the loss falls, 2 launches of each
+     kernel per step beside the renders').
 Then it prints the kernels' JSON line, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Weights are random, from a seed.
 It exits non-zero, printing no result, without a CUDA device.
@@ -154,6 +174,18 @@ INF_EVENT = 100           # the interval of its render events
 INF_FRAMES = 8            # frames of every video in that phase
 INF_SIZE = 400            # render_video's frame size
 INF_FRAME_TOL = 1e-6      # render_video's frame 0 vs the service's frame
+LLFF_WH = (96, 72)        # phase 8's forward capture, stored as images_8/
+#                           (4:3, as fern), which configs/fern.txt's factor
+#                           8 reads at this native size
+LLFF_VIEWS = 12           # llffhold 8 holds out views 0 and 8
+LLFF_STEPS = 400          # the train CLI's steps there, and
+LLFF_EVENT = 200          # the interval of its videos and quick validation
+LLFF_SIZE = 504           # render_video's --size: the loader snaps a 4:3
+#                           capture to 504x378 (fern at factor 8)
+LLFF_SAMPLES = 64         # configs/fern.txt's 64 + 64
+DV_WH = 64                # phase 8's DeepVoxels-layout scene, and
+DV_STEPS = 50             # the train CLI's steps on it
+DV_RADIUS = 4.0           # its cameras' hemisphere (near / far R -/+ 1)
 
 
 def cuda_ms(fn, iters, warmup=2, spin=True):
@@ -1212,22 +1244,31 @@ def gif_info(path):
 
 class Timed:
     """Wrap ``owner.name`` (a function or method) for the duration of a
-    ``with`` block: each call synchronised and timed, seconds kept."""
+    ``with`` block: each call synchronised and timed, seconds kept, and
+    the forward kernel's launches inside it; with ``keep_args`` the calls'
+    positional arguments too (a method's first is its object)."""
 
-    def __init__(self, owner, name):
+    def __init__(self, owner, name, keep_args=False):
         self.owner, self.name, self.times = owner, name, []
+        self.fwd, self.keep_args, self.args = [], keep_args, []
 
     def __enter__(self):
         import torch
 
+        from nerfmlp_torch.ops.fused_mlp import fused_nerf_mlp
+
         inner = self.fn = getattr(self.owner, self.name)
 
         def timed(*a, **kw):
+            if self.keep_args:
+                self.args.append(a)
             torch.cuda.synchronize()
+            before = fused_nerf_mlp.launches
             t0 = time.perf_counter()
             out = inner(*a, **kw)
             torch.cuda.synchronize()
             self.times.append(time.perf_counter() - t0)
+            self.fwd.append(fused_nerf_mlp.launches - before)
             return out
 
         setattr(self.owner, self.name, timed)
@@ -1398,6 +1439,320 @@ def phase_inference():
     return rv_launches
 
 
+def ndc_points(cfg, pose, hwf, n_rays, n_samples):
+    """Points and encoded world view directions of ``n_rays`` NDC rays
+    through the centre of a forward-facing pose's image, ``n_samples``
+    evenly spaced NDC depths in [0, 1] per ray (the forward-facing path's
+    inputs: NDC points, directions that are not rays_d)."""
+    import torch
+
+    from nerfmlp_torch.ops.encoding import positional_encoding
+    from nerfmlp_torch.render_path import rays_for_pose_device
+
+    h, w, focal = hwf
+    o, d, vd = rays_for_pose_device(pose, h, w, focal, cfg, device="cuda")
+    mid = (h * w - n_rays) // 2
+    o, d, vd = o[mid:mid + n_rays], d[mid:mid + n_rays], vd[mid:mid + n_rays]
+    z = torch.linspace(0.0, 1.0, n_samples, device="cuda")
+    pts = (o[:, None, :] + d[:, None, :] * z[None, :, None]).reshape(-1, 3)
+    dirs = positional_encoding(vd, cfg.dir_enc_L)
+    dirs = dirs[:, None, :].expand(n_rays, n_samples, dirs.shape[-1])
+    return pts.contiguous(), dirs.reshape(n_rays * n_samples, -1)
+
+
+def write_deepvoxels_scene(root):
+    """A DeepVoxels-layout capture of the synthetic scene's field, written
+    here (the layout of tests/test_deepvoxels.py's writer; a fixture of
+    this script), scene "smoke": OpenCV poses on a hemisphere of
+    DV_RADIUS, DV_WH images integrated over the loader's near / far
+    (R -/+ 1) on white, 8 train / 2 validation / 1 test views."""
+    import numpy as np
+
+    from nerfmlp_torch.data.synthetic import render_analytic
+    from nerfmlp_torch.ops.rays import look_at_matrix
+    from nerfmlp_torch.utils.image import save_png
+
+    wh, radius = DV_WH, DV_RADIUS
+    focal = 0.5 * wh / np.tan(0.5 * 0.6911112070083618)   # Lego's FOV
+    gl_to_cv = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+    rng = np.random.default_rng(SEED)
+    for split, n in (("train", 8), ("validation", 2), ("test", 1)):
+        base = os.path.join(root, split, "smoke")
+        os.makedirs(os.path.join(base, "pose"))
+        os.makedirs(os.path.join(base, "rgb"))
+        with open(os.path.join(base, "intrinsics.txt"), "w") as f:
+            f.write(f"{focal} {wh / 2} {wh / 2} 0.\n0. 0. 0.\n1.0\n1.0\n"
+                    f"{wh} {wh}\n")
+        for i in range(n):
+            theta = 2.0 * np.pi * (i + rng.uniform(0.0, 0.5)) / n
+            phi = np.deg2rad(rng.uniform(20.0, 50.0))
+            eye = radius * np.array([np.cos(theta) * np.cos(phi),
+                                     np.sin(theta) * np.cos(phi),
+                                     np.sin(phi)])
+            c2w = look_at_matrix(eye, np.zeros(3))
+            np.savetxt(os.path.join(base, "pose", f"{i:06d}.txt"),
+                       (c2w @ gl_to_cv).reshape(1, 16))
+            save_png(os.path.join(base, "rgb", f"{i:06d}.png"),
+                     render_analytic(c2w, wh, wh, focal, near=radius - 1.0,
+                                     far=radius + 1.0))
+
+
+def train_cli_run(tag, argv, steps):
+    """One train CLI run with every launch counter set to 0 just before
+    and read just after; the renders inside it (held-out views, videos)
+    timed and their forward launches counted apart. Returns (metrics,
+    launches, the step's forward launches, seconds of train() less its
+    renders, the Trainer)."""
+    import torch
+
+    from nerfmlp_torch.ops import fused_mlp
+    from nerfmlp_torch.scripts import train as train_cli
+    from nerfmlp_torch.train import loop
+
+    counters = (fused_mlp.fused_nerf_mlp, fused_mlp.bwd_workspace,
+                fused_mlp.weight_grads, fused_mlp.reduce_partials)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    with Timed(loop.Trainer, "train", keep_args=True) as tr, \
+            Timed(loop.Trainer, "_render_view") as views, \
+            Timed(loop.Trainer, "_video_event") as video:
+        metrics = train_cli.main(argv)
+    launches = [c.launches for c in counters]
+    rendered = sum(views.fwd) + sum(video.fwd)
+    wall = tr.times[0] - sum(views.times) - sum(video.times)
+    losses = metrics["train_losses"]
+    print(f"[{tag}] {steps} steps at {metrics['config']['full_val_res']}: "
+          f"{1e3 * wall / steps:.2f} ms per step synchronised (train() less "
+          f"its renders: {len(views.times)} held-out views, "
+          f"{len(video.times)} video events, {sum(video.times):.2f} s), "
+          f"host median {1e3 * statistics.median(metrics['iteration_times']):.2f}"
+          f" ms; mean loss {losses[0]:.5f} -> {losses[-1]:.5f}; final "
+          f"held-out PSNR {metrics['final_val']['psnr']:.2f} dB, SSIM "
+          f"{metrics['final_val']['ssim']:.4f}")
+    print(f"[{tag}] launches: forward {launches[0]} ({rendered} in the "
+          f"renders, {launches[0] - rendered} in the steps), backward phase "
+          f"1 {launches[1]}, phase 2 {launches[2]}, reduction {launches[3]}")
+    return metrics, launches, launches[0] - rendered, wall, tr.args[0][0]
+
+
+def phase_llff(net):
+    """Forward-facing (LLFF, NDC) and DeepVoxels scenes as a user runs them
+    (the module docstring, phase 8). Returns the llff path's records: its
+    forward launches, the kernel records at its shapes and the train CLI
+    run's backward launches."""
+    import numpy as np
+
+    from nerfmlp_torch.data.llff import LLFFDataset
+    from nerfmlp_torch.data.synthetic import make_synthetic_llff_scene
+    from nerfmlp_torch.ops import fused_mlp
+    from nerfmlp_torch.ops import render as render_mod
+    from nerfmlp_torch.ops.render import prepare_params, render_image_maps
+    from nerfmlp_torch.render_path import rays_for_pose_device
+    from nerfmlp_torch.scripts import eval as eval_cli
+    from nerfmlp_torch.scripts import render_video
+    from nerfmlp_torch.scripts import serve as serve_cli
+    from nerfmlp_torch.serve import RenderServer
+    from nerfmlp_torch.train.checkpoint import load_params_any
+
+    t0 = time.perf_counter()
+    root = os.path.join(SMOKE_DIR, "llff")
+    shutil.rmtree(root, ignore_errors=True)     # no auto-resume of a rerun
+    scene = os.path.join(root, "scene")
+    make_synthetic_llff_scene(scene, n_images=LLFF_VIEWS, img_wh=LLFF_WH,
+                              style="forward", seed=SEED)
+    os.rename(os.path.join(scene, "images"), os.path.join(scene, "images_8"))
+    print(f"[llff] forward-facing scene {LLFF_WH[0]}x{LLFF_WH[1]}, "
+          f"{LLFF_VIEWS} views as a pre-minified images_8/, in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # configs/fern.txt as it is; on the command line only what this scene
+    # and the time limit force: the data and save dirs, the steps, the
+    # interval of the videos (8 frames) and of a quick validation (the loss
+    # is read there).
+    runs = {}
+    for name, extra in (("kernel", []), ("plain", ["--no_kernel"])):
+        argv = ["--config", os.path.join(ROOT, "configs", "fern.txt"),
+                "--datadir", scene, "--save_dir", os.path.join(root, name),
+                "--iters", str(LLFF_STEPS), "--i_video", str(LLFF_EVENT),
+                "--video_frames", str(INF_FRAMES), "--quick_val_interval",
+                str(LLFF_EVENT)] + extra
+        runs[name] = train_cli_run(f"llff {name}", argv, LLFF_STEPS)
+    metrics, launches, step_fwd, _, trainer = runs["kernel"]
+    plain_metrics, plain_launches = runs["plain"][:2]
+    rc = trainer.rc
+    final, plain_final = (metrics["final_val"]["psnr"],
+                          plain_metrics["final_val"]["psnr"])
+    gifs = {}
+    for kind in ("rgb", "disp", "rgb_still"):
+        found = glob.glob(os.path.join(
+            root, "kernel", f"*_spiral_{LLFF_EVENT:06d}_{kind}.gif"))
+        gifs[kind] = gif_info(found[0]) if len(found) == 1 else None
+    print(f"[llff] config: {rc.N_samples}+{rc.N_importance} samples, ndc "
+          f"{rc.ndc}, white_bkgd {rc.white_bkgd}, raw_noise_std "
+          f"{rc.raw_noise_std}, near/far {rc.near}/{rc.far}, quick val "
+          f"{metrics['config']['quick_val_res']}; spiral videos (w, h, "
+          f"frames, loop): {gifs}")
+    print(f"[llff] held-out PSNR kernel {final:.2f} dB vs --no_kernel "
+          f"{plain_final:.2f} dB (gap {abs(final - plain_final):.2f}, limit "
+          f"{PSNR_GAP}; floor {PSNR_MIN})")
+    want = 2 * LLFF_STEPS
+    if not (rc.ndc and not rc.white_bkgd and rc.raw_noise_std == 1.0
+            and (rc.N_samples, rc.N_importance) == (LLFF_SAMPLES,) * 2
+            and metrics["config"]["full_val_res"] == list(LLFF_WH)
+            and all(g is not None and g[:3] == (*LLFF_WH, INF_FRAMES)
+                    for g in gifs.values())
+            and all(m["train_losses"][-1] < m["train_losses"][0]
+                    for m in (metrics, plain_metrics))
+            and final >= PSNR_MIN and plain_final >= PSNR_MIN
+            and abs(final - plain_final) <= PSNR_GAP):
+        raise SystemExit("[llff] the train CLI runs failed their checks")
+    if (step_fwd != want or launches[1:] != [want] * 3
+            or plain_launches != [0, 0, 0, 0]):
+        raise SystemExit(f"[llff] the steps did not go through the kernels "
+                         f"as expected (want {want} of each)")
+    profile_step(trainer)
+
+    ckpt = os.path.join(root, "kernel", "model_final.pt")
+    flags = ["--datadir", scene, "--dataset_type", "llff", "--factor", "8"]
+    fused_mlp.fused_nerf_mlp.launches = 0
+    with Timed(render_mod, "render_image_maps") as frames:
+        out = render_video.main(flags + [
+            "--ckpt", ckpt, "--out_dir", os.path.join(root, "video"),
+            "--n_frames", str(INF_FRAMES), "--size", str(LLFF_SIZE)])
+    rv_launches = fused_mlp.fused_nerf_mlp.launches
+    h, w = out["rgbs"].shape[1:3]
+    n_tiles = -(-h * w // TILE)
+    print(f"[llff] render_video: {INF_FRAMES} spiral frames of {w}x{h}, "
+          f"p50 {statistics.median(frames.times):.4f} s a frame (max "
+          f"{max(frames.times):.4f}); {rv_launches} forward launches "
+          f"({rv_launches / INF_FRAMES:.0f} a frame, want 2 x {n_tiles} "
+          f"tiles); videos {[gif_info(v) for v in out['videos']]}")
+    if ((w, h) != (LLFF_SIZE, LLFF_SIZE * 3 // 4) or not out["cfg"].ndc
+            or rv_launches != 2 * n_tiles * INF_FRAMES
+            or any(gif_info(v)[2] != INF_FRAMES for v in out["videos"])):
+        raise SystemExit("[llff] render_video failed its checks")
+
+    pose = LLFFDataset(scene, "train", img_wh=LLFF_WH, factor=8
+                       ).render_poses(n_frames=INF_FRAMES)[0]
+    args = serve_cli.build_parser().parse_args(flags + [
+        "--ckpt", ckpt, "--img_wh", str(w), str(h), "--N_importance",
+        str(LLFF_SAMPLES)])
+    svc = serve_cli.build_service(args)
+    svc.warmup()
+    server = RenderServer(svc, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        fused_mlp.fused_nerf_mlp.launches = 0
+        req = urllib.request.Request(
+            "http://%s:%d/render" % server.server_address[:2],
+            method="POST", data=json.dumps(
+                {"c2w": pose.tolist(), "format": "npy"}).encode())
+        t1 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            status, body = resp.status, resp.read()
+        served_s = time.perf_counter() - t1
+        served_launches = fused_mlp.fused_nerf_mlp.launches
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    served = np.load(io.BytesIO(body))
+    err = float(np.abs(served - np.clip(out["rgbs"][0], 0.0, 1.0)).max())
+    print(f"[llff] serve CLI (--dataset_type llff --datadir): one {w}x{h} "
+          f"frame over HTTP in {served_s:.3f} s, {served_launches} forward "
+          f"launches; ndc {svc.cfg.ndc}, defaults {svc.defaults}; vs "
+          f"render_video's frame 0: max|err| {err:.3e} (tol "
+          f"{INF_FRAME_TOL})")
+    if (status != 200 or served.shape != (h, w, 3) or not svc.cfg.ndc
+            or svc.cfg.white_bkgd or served_launches != 2 * n_tiles
+            or not err <= INF_FRAME_TOL):
+        raise SystemExit("[llff] the served frame failed its checks")
+
+    # The served frame through use_kernel=False: a trained model's bf16
+    # frames lie apart from the fp32 frame on both bf16 paths, so the
+    # kernel frame is held to be no farther from the fp32 module frame
+    # than the bf16 module frame is (x FRAME_RATIO), as phase 6 holds it.
+    params = load_params_any(ckpt, rc.model_config(), device="cuda")
+    cfg = svc.cfg
+    o, d, vd = rays_for_pose_device(pose, h, w, svc.defaults["focal"], cfg,
+                                    device="cuda")
+    got = {}
+    for name, c in (
+            ("kernel", cfg),
+            ("module bf16", dataclasses.replace(cfg, use_kernel=False)),
+            ("module fp32", dataclasses.replace(
+                cfg, use_kernel=False, compute_dtype="float32",
+                fp32_precision="highest"))):
+        r = render_image_maps(prepare_params(params, c), o, d, h, w, c,
+                              tile=TILE, viewdirs=vd)
+        got[name] = np.clip(r["rgb_map"].cpu().numpy(), 0.0, 1.0)
+
+    def dist(a, b):
+        e = np.abs(got[a] - got[b])
+        q = float(np.quantile(e, 0.999))
+        print(f"[llff] {a} vs {b}: rgb max|err| {e.max():.3e}, 99.9th "
+              f"percentile {q:.3e}, mean {e.mean():.3e}")
+        return q, float(e.mean())
+
+    dist("kernel", "module bf16")
+    k_q, k_mean = dist("kernel", "module fp32")
+    m_q, m_mean = dist("module bf16", "module fp32")
+    if not (np.array_equal(got["kernel"], served)
+            and k_q <= FRAME_RATIO * m_q and k_mean <= FRAME_RATIO * m_mean):
+        raise SystemExit("[llff] the served frame disagrees with the plain "
+                         "path")
+
+    # The kernels at this path's shapes, random weights (seed 0).
+    kcfg = dataclasses.replace(slice_config(), N_importance=LLFF_SAMPLES,
+                               near=0.0, far=1.0, ndc=True, white_bkgd=False)
+    hwf = (h, w, svc.defaults["focal"])
+    pts, dirs = ndc_points(kcfg, pose, hwf, TILE, LLFF_SAMPLES)
+    tile = check_kernel(net, kcfg, pts, dirs, "llff served NDC tile",
+                        time_it=True)
+    pts, dirs = ndc_points(kcfg, pose, hwf, TRAIN_RAYS, LLFF_SAMPLES)
+    fwd_train = check_kernel(net, kcfg, pts, dirs, "llff train call",
+                             time_it=True)
+    bwd, phases = check_backward(net, kcfg, pts, dirs, "llff train call",
+                                 time_it=True)
+
+    t1 = time.perf_counter()
+    report = eval_cli.main(flags + [
+        "--split", "val", "--img_wh", str(LLFF_WH[0]), str(LLFF_WH[1]),
+        "--ckpt", ckpt, "--N_importance", str(LLFF_SAMPLES), "--out",
+        os.path.join(root, "eval.json")])
+    gap = abs(report["mean_psnr"] - final)
+    print(f"[llff] eval CLI on the held-out views: mean PSNR "
+          f"{report['mean_psnr']:.2f} dB, SSIM {report['mean_ssim']:.4f} vs "
+          f"the Trainer's final {final:.2f} dB (gap {gap:.2f}, limit "
+          f"{PSNR_GAP}); {time.perf_counter() - t1:.1f} s")
+    if not (report["n_views"] == 2 and gap <= PSNR_GAP):
+        raise SystemExit("[llff] eval failed its checks")
+
+    t1 = time.perf_counter()
+    dv = os.path.join(root, "deepvoxels")
+    write_deepvoxels_scene(dv)
+    print(f"[deepvoxels] scene {DV_WH}x{DV_WH} (8 train / 2 validation / 1 "
+          f"test views) in {time.perf_counter() - t1:.1f} s")
+    dv_metrics, dv_launches, dv_fwd, _, _ = train_cli_run(
+        "deepvoxels", ["--datadir", dv, "--dataset_type", "deepvoxels",
+                       "--shape", "smoke", "--img_wh", str(DV_WH), str(DV_WH),
+                       "--iters", str(DV_STEPS), "--save_dir",
+                       os.path.join(dv, "run"), "--quick_val_interval",
+                       str(DV_STEPS // 2), "--quick_val_res", str(DV_WH),
+                       str(DV_WH)], DV_STEPS)
+    dv_losses = dv_metrics["train_losses"]
+    if not (dv_losses[-1] < dv_losses[0] and dv_fwd == 2 * DV_STEPS
+            and dv_launches[1:] == [2 * DV_STEPS] * 3
+            and dv_metrics["config"]["render"]["white_bkgd"]):
+        raise SystemExit("[deepvoxels] the train CLI run failed its checks")
+    print(f"[llff] phase took {time.perf_counter() - t0:.1f} s")
+    return {"fwd_launches": launches[0] + rv_launches + served_launches,
+            "bwd_launches": launches[1:], "tile": tile,
+            "fwd_train": fwd_train, "bwd": bwd, "phases": phases}
+
+
 def device_rows(prof):
     """(name, device ms) of the kernels the profiler saw on the card —
     the device events only, so a CPU-side op that launched a kernel (an
@@ -1458,6 +1813,7 @@ def main():
     hi_lo_run = phase_occ_hi_lo(train_ds, val_ds)
     occ_serve_launches = phase_occ_serve(occ_run["trainer"])
     cli_launches = phase_inference()
+    llff = phase_llff(net)
 
     # The forward runs on both paths, at different shapes: one record per
     # path, each with that path's launches and its fine call's times, and
@@ -1534,6 +1890,26 @@ def main():
             "bound_by": r["bound_by"],
             "library_ms": None,
         })
+    # The forward-facing path (phase 8): its forward launches (the train CLI
+    # run, render_video and the served frame) with the served NDC tile's
+    # times; the backward's with the train call's.
+    tile = llff["tile"]
+    kernels.append({
+        "name": "fused_mlp_fwd_llff",
+        "path": "llff",
+        "route": "cuda",
+        "source": "nerfmlp_torch/csrc/fused_mlp_fwd.cu",
+        "replaces": "nerfmlp_tpu/ops/pallas_mlp.py:264",
+        "launches": llff["fwd_launches"],
+        "max_abs_err": max(tile["max_abs_err"],
+                           llff["fwd_train"]["max_abs_err"]),
+        "ms": tile["ms"],
+        "plain_ms": tile["plain_ms"],
+        "module_ms": tile["module_ms"],
+        "bound_ms": tile["bound_ms"],
+        "bound_by": tile["bound_by"],
+        "library_ms": None,
+    })
     for key, name, replaces, i in (
             ("phase1", "fused_mlp_bwd_phase1", "pallas_mlp.py:312", 0),
             ("phase2", "fused_mlp_bwd_phase2", "pallas_mlp.py:386", 1),
@@ -1543,7 +1919,9 @@ def main():
                 ("_occ_train", "occ_train", occ_launches[1 + i],
                  occ_ph["refine"], occ_ph["probe"]),
                 ("_occ_hi_lo", "occ_hi_lo", hi_lo_launches[1 + i],
-                 occ_ph["hi_lo"], occ_ph["hi_lo"])):
+                 occ_ph["hi_lo"], occ_ph["hi_lo"]),
+                ("_llff", "llff", llff["bwd_launches"][i], llff["phases"],
+                 llff["phases"])):
             r = big[key]
             kernels.append({
                 "name": name + suffix,
@@ -1560,7 +1938,8 @@ def main():
                 "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"],
             })
-    for rec in bwds + [occ["bwd probe"], occ["bwd refine"], occ["bwd hi_lo"]]:
+    for rec in bwds + [occ["bwd probe"], occ["bwd refine"], occ["bwd hi_lo"],
+                       llff["bwd"]]:
         print(f"[backward] {rec['label']} call, all three kernels: "
               f"{rec['ms']:.3f} ms ({rec['ms_no_spin']:.3f} ms without the "
               f"spin); bound {rec['bound_ms']:.3f} ms "

@@ -1,12 +1,14 @@
-"""Procedural Blender-format test scene: two analytic radiance fields,
-their ground-truth renders, and a scene writer.
+"""Procedural test scenes: two analytic radiance fields, their
+ground-truth renders, and two scene writers.
 
-Counterpart of ``nerfmlp_tpu/data/synthetic.py:25-330`` (numpy, so the
-same seed writes the same images in both packages). The scene is written
-in the ``transforms_{split}.json`` + PNG layout the Blender loader reads,
-with PNGs from the port's standard-library writer (no imaging package is
-needed). The JAX package's jitted ground-truth path (``use_jax``) and the
-LLFF-layout writer are not ported.
+Counterpart of ``nerfmlp_tpu/data/synthetic.py:25-393`` (numpy, so the
+same seed writes the same images in both packages). ``make_synthetic_scene``
+writes the ``transforms_{split}.json`` + PNG layout the Blender loader
+reads; ``make_synthetic_llff_scene`` the ``poses_bounds.npy`` + ``images/``
+layout the LLFF loader reads, with the cameras on a ring (``"360"``) or
+clustered in front of the object (``"forward"``). PNGs come from the
+port's standard-library writer (no imaging package is needed). The JAX
+package's jitted ground-truth path (``use_jax``) is not ported.
 """
 
 from __future__ import annotations
@@ -214,4 +216,61 @@ def make_synthetic_scene(
                            "transform_matrix": pose.tolist()})
         with open(os.path.join(outdir, f"transforms_{split}.json"), "w") as f:
             json.dump({"camera_angle_x": camera_angle_x, "frames": frames}, f)
+    return outdir
+
+
+def make_synthetic_llff_scene(
+    outdir: str,
+    n_images: int = 12,
+    img_wh: Tuple[int, int] = (64, 48),
+    style: str = "360",
+    radius: float = 4.0,
+    seed: int = 0,
+) -> str:
+    """Write an LLFF-layout scene (``poses_bounds.npy`` + ``images/``) of
+    the default analytic field: ``style="360"`` puts the cameras on a ring
+    around the object (the ``spherify`` workload), ``"forward"`` clusters
+    them behind it looking down -z (the NDC forward-facing workload). The
+    images are the linear renders, each stored with its ``hwf`` and its
+    camera distance -/+ 1.5 as bounds."""
+    rng = np.random.default_rng(seed)
+    W, H = img_wh
+    focal = 1.2 * W  # a long-ish lens, as captured LLFF scenes have
+
+    img_dir = os.path.join(outdir, "images")
+    os.makedirs(img_dir, exist_ok=True)
+    rows = []
+    for k in range(n_images):
+        if style == "360":
+            theta = 2.0 * np.pi * k / n_images
+            phi = np.deg2rad(25.0 + 10.0 * rng.uniform())
+            eye = radius * np.array([
+                np.cos(theta) * np.cos(phi),
+                np.sin(theta) * np.cos(phi),
+                np.sin(phi),
+            ])
+        else:  # forward-facing: small offsets around (0, 0, radius)
+            eye = np.array([
+                0.35 * rng.uniform(-1, 1),
+                0.35 * rng.uniform(-1, 1),
+                radius + 0.15 * rng.uniform(-1, 1),
+            ])
+        pose = look_at_matrix(eye, np.zeros(3))
+        dist = float(np.linalg.norm(eye))
+        near_k, far_k = dist - 1.5, dist + 1.5
+        img = render_analytic(pose, H, W, focal, near=near_k, far=far_k)
+        save_png(os.path.join(img_dir, f"image{k:03d}.png"),
+                 (np.clip(img, 0, 1) * 255).round().astype(np.uint8))
+        # LLFF stores 3x5 [down | right | back | t | hwf] + 2 depth bounds
+        # (the loader's axis swap inverts [right, up, back] to that).
+        m = np.concatenate(
+            [-pose[:3, 1:2], pose[:3, 0:1], pose[:3, 2:3], pose[:3, 3:4]],
+            axis=1,
+        )
+        hwf = np.array([[H], [W], [focal]], dtype=np.float32)
+        rows.append(np.concatenate(
+            [np.concatenate([m, hwf], axis=1).ravel(), [near_k, far_k]]
+        ))
+    np.save(os.path.join(outdir, "poses_bounds.npy"),
+            np.stack(rows).astype(np.float64))
     return outdir

@@ -6,11 +6,12 @@ along width:
   dir_cam = [(i - W/2) / focal, -(j - H/2) / focal, -1]
   rays_d  = dir_cam @ R^T,   rays_o = t   (c2w = [R | t])
 
-The tensor functions run on the pose's device; the numpy helpers
-(``get_rays_np``, ``look_at_matrix``, ``pose_spherical`` and the
-trajectories ``blender_render_poses``, ``mean_camera_radius``,
-``flythrough_poses``) are copied as they are. LLFF's ``spiral_poses``
-comes with the LLFF loader (ROADMAP.md, Queue 1 item 15).
+The tensor functions run on the pose's device (``ndc_rays`` also on the
+CPU tensors of the LLFF loader); the numpy helpers (``get_rays_np``,
+``look_at_matrix``, ``pose_spherical`` and the trajectories
+``blender_render_poses``, ``mean_camera_radius``, ``flythrough_poses``,
+``spiral_poses``) are copied as they are. The LLFF spiral and the
+spherified circle live with their loader (``data/llff.py``).
 """
 
 from __future__ import annotations
@@ -177,5 +178,21 @@ def flythrough_poses(n_frames: int = 120, radius: float = 4.0,
         eye = target + r * np.array([np.cos(theta) * np.cos(phi),
                                      np.sin(theta) * np.cos(phi),
                                      -np.sin(phi)], dtype=np.float32)
+        poses.append(look_at_matrix(eye, target))
+    return np.stack(poses, axis=0)
+
+
+def spiral_poses(radius: float, n_frames: int = 120, height: float = 0.0,
+                 target: np.ndarray = None, n_rots: float = 1.0
+                 ) -> np.ndarray:
+    """(n_frames, 4, 4) c2w on a horizontal circle of ``radius`` at
+    ``height``, ``n_rots`` turns, each camera looking at ``target``."""
+    target = (np.zeros(3, dtype=np.float32) if target is None
+              else np.asarray(target))
+    poses = []
+    for theta in np.linspace(0.0, 2.0 * np.pi * n_rots, n_frames,
+                             endpoint=False):
+        eye = np.array([radius * np.cos(theta), radius * np.sin(theta),
+                        height], dtype=np.float32)
         poses.append(look_at_matrix(eye, target))
     return np.stack(poses, axis=0)

@@ -3,7 +3,8 @@ render], with the view's PSNR and SSIM, on one GPU (or, with ``--device
 cpu``, on the CPU).
 
 The PyTorch counterpart of ``scripts/compare_single_view.py``, with its
-flags and the occupancy flags. Beside the JAX CLI: ``--device``;
+flags (``--dataset_type`` ``blender`` or ``llff``; LLFF is not composited
+on white) and the occupancy flags. Beside the JAX CLI: ``--device``;
 ``--no_kernel`` (alias ``--no_pallas``) renders in float32 on the module
 path unless ``--compute_dtype`` says otherwise, as there.
 
@@ -77,7 +78,9 @@ def main(argv=None):
         separate_fine=args.separate_fine,
         compute_dtype=args.compute_dtype or (
             "bfloat16" if args.use_kernel else "float32"),
-        fp32_precision=args.fp32_precision, white_bkgd=True,
+        fp32_precision=args.fp32_precision,
+        ndc=bool(getattr(ds, "use_ndc", False)),
+        white_bkgd=args.dataset_type != "llff",
         **occupancy_fields(args), **arch_fields(args))
     params = prepare_params(load_params(args.ckpt, rc, device), rc)
     occ_grid = build_occ_grid(args, rc, params, p)

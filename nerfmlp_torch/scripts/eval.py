@@ -4,7 +4,9 @@ on the CPU).
 
 The PyTorch counterpart of ``scripts/eval.py``, with its flags and its
 JSON report (``--out``, default ``<ckpt>.eval.json``), ``--save_renders``
-and the occupancy flags. Beside the JAX CLI: ``--device`` and
+the occupancy flags and ``--dataset_type`` ``blender``, ``llff`` (with
+the LLFF flags of training; no white background) or ``deepvoxels``
+(``--shape``). Beside the JAX CLI: ``--device`` and
 ``--no_kernel`` (alias ``--no_pallas``). Refused by name: ``--lpips`` (the
 ``lpips`` package and its pretrained AlexNet weights are not available to
 the port) and ``--shard_render`` (ROADMAP.md, Queue 1 item 18).
@@ -24,10 +26,10 @@ import time
 import numpy as np
 
 from nerfmlp_torch.utils.cli import (
-    add_arch_flags, add_dataset_flag, add_device_flags, add_occupancy_flags,
-    add_shard_flag, add_tile_flag, arch_fields, build_occ_grid,
-    dataset_class, load_params, occupancy_fields, refuse_shard_render,
-    render_frame,
+    add_arch_flags, add_dataset_flag, add_device_flags, add_llff_flags,
+    add_occupancy_flags, add_shard_flag, add_tile_flag, arch_fields,
+    build_occ_grid, dataset_class, dataset_kwargs, load_params,
+    occupancy_fields, refuse_shard_render, render_frame,
 )
 
 
@@ -35,6 +37,7 @@ def build_parser():
     p = argparse.ArgumentParser(description="Evaluate a checkpoint on a split")
     p.add_argument("--datadir", type=str, required=True)
     add_dataset_flag(p)
+    add_llff_flags(p)
     add_occupancy_flags(p)
     add_shard_flag(p)
     p.add_argument("--split", type=str, default="test")
@@ -83,7 +86,8 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     use_true_fp32()
-    ds = DS(args.datadir, args.split, img_wh=tuple(args.img_wh))
+    ds = DS(args.datadir, args.split, img_wh=tuple(args.img_wh),
+            **dataset_kwargs(args))
     near, far = ds.dynamic_near_far()
     near = near if args.near is None else args.near
     far = far if args.far is None else args.far
@@ -92,7 +96,9 @@ def main(argv=None):
         far=far, perturb=False, raw_noise_std=0.0,
         compute_dtype=args.compute_dtype, fp32_precision=args.fp32_precision,
         use_kernel=args.use_kernel, separate_fine=args.separate_fine,
-        white_bkgd=True, **occupancy_fields(args), **arch_fields(args))
+        ndc=bool(getattr(ds, "use_ndc", False)),
+        white_bkgd=args.dataset_type != "llff", **occupancy_fields(args),
+        **arch_fields(args))
     params = prepare_params(load_params(args.ckpt, rc, device), rc)
     occ_grid = build_occ_grid(args, rc, params, p)
     if args.save_renders:

@@ -4,7 +4,9 @@
 The PyTorch counterpart of ``scripts/render_example.py``, with its flags:
 ``.pt``/``.pth`` checkpoints and official ``.npy`` weight lists (64
 importance samples by default for ``.npy``, 128 otherwise); bounds 2 / 6
-unless ``--dynamic_bounds`` or ``--near``/``--far``; ``--apply_gamma``,
+for Blender unless ``--dynamic_bounds``, the dataset's own for LLFF
+(NDC [0, 1] unless metric) and DeepVoxels, and ``--near``/``--far`` over
+either; the LLFF flags of training (LLFF is never composited on white); ``--apply_gamma``,
 ``--brightness_boost``, ``--out_prefix``; the occupancy flags. PNGs are
 written by the port's own encoder. Beside the JAX CLI: ``--device`` and
 ``--no_kernel`` (alias ``--no_pallas``); ``--shard_render`` is refused
@@ -23,10 +25,10 @@ import os
 import numpy as np
 
 from nerfmlp_torch.utils.cli import (
-    add_arch_flags, add_dataset_flag, add_device_flags, add_occupancy_flags,
-    add_shard_flag, add_tile_flag, arch_fields, build_occ_grid,
-    dataset_class, load_params, occupancy_fields, refuse_shard_render,
-    render_frame,
+    add_arch_flags, add_dataset_flag, add_device_flags, add_llff_flags,
+    add_occupancy_flags, add_shard_flag, add_tile_flag, arch_fields,
+    build_occ_grid, dataset_class, dataset_kwargs, load_params,
+    occupancy_fields, refuse_shard_render, render_frame,
 )
 
 
@@ -34,6 +36,7 @@ def build_parser():
     p = argparse.ArgumentParser(description="Render NeRF views (PyTorch)")
     p.add_argument("--datadir", type=str, required=True)
     add_dataset_flag(p)
+    add_llff_flags(p)
     add_shard_flag(p)
     p.add_argument("--split", type=str, default="test")
     p.add_argument("--img_wh", type=int, nargs=2, default=[800, 800])
@@ -49,9 +52,11 @@ def build_parser():
     p.add_argument("--num_views", type=int, default=1)
     p.add_argument("--view_idx", type=int, default=None)
     p.add_argument("--near", type=float, default=None,
-                   help="explicit near bound (default 2.0)")
+                   help="explicit near bound (default: 2.0 for blender, "
+                        "else the dataset's)")
     p.add_argument("--far", type=float, default=None,
-                   help="explicit far bound (default 6.0)")
+                   help="explicit far bound (default: 6.0 for blender, "
+                        "else the dataset's)")
     p.add_argument("--dynamic_bounds", action="store_true",
                    help="derive near/far from the camera poses")
     p.add_argument("--coord_scale", type=float, default=1.0)
@@ -92,12 +97,15 @@ def main(argv=None):
     device = resolve_device(args.device)
     use_true_fp32()
     os.makedirs(args.out_dir, exist_ok=True)
-    ds = DS(args.datadir, args.split, img_wh=tuple(args.img_wh))
+    ds = DS(args.datadir, args.split, img_wh=tuple(args.img_wh),
+            **dataset_kwargs(args))
     n_importance = args.N_importance
     if n_importance is None:
         n_importance = 64 if args.ckpt.endswith(".npy") else 128
-    near, far = (ds.dynamic_near_far() if args.dynamic_bounds
-                 else (2.0, 6.0))
+    near, far = 2.0, 6.0     # the Blender scenes' training bounds
+    if args.dynamic_bounds or args.dataset_type in ("llff", "deepvoxels"):
+        # NDC depths lie in [0, 1]; DeepVoxels' hemisphere is R -/+ 1.
+        near, far = ds.dynamic_near_far()
     near = near if args.near is None else args.near
     far = far if args.far is None else args.far
     print(f"bounds: near={near:.3f} far={far:.3f} | "
@@ -107,7 +115,9 @@ def main(argv=None):
         far=far, perturb=False, raw_noise_std=0.0,
         coord_scale=args.coord_scale, compute_dtype=args.compute_dtype,
         fp32_precision=args.fp32_precision, use_kernel=args.use_kernel,
-        separate_fine=args.separate_fine, white_bkgd=not args.no_white_bkgd,
+        separate_fine=args.separate_fine,
+        ndc=bool(getattr(ds, "use_ndc", False)),
+        white_bkgd=args.dataset_type != "llff" and not args.no_white_bkgd,
         **occupancy_fields(args), **arch_fields(args))
     params = prepare_params(load_params(args.ckpt, rc, device), rc)
     occ_grid = build_occ_grid(args, rc, params, p)

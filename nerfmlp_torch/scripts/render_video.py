@@ -3,8 +3,16 @@ disparity videos, on one GPU (or, with ``--device cpu``, on the CPU).
 
 The PyTorch counterpart of ``scripts/render_video.py``, with its flags:
 
-  * the dataset's orbit by default (Blender: the 40-pose orbit at the
-    captures' mean radius), ``--flythrough`` for the looping fly-through;
+  * the dataset's trajectory by default (Blender and DeepVoxels: the
+    orbit at the captures' mean radius; LLFF: the spiral around the
+    average pose, or the circle under ``--spherify``, from the whole
+    capture), ``--flythrough`` for the looping fly-through (metric rays
+    only);
+  * ``--dataset_type llff`` with the LLFF flags of training
+    (``--factor``, ``--llffhold``, ``--spherify``, ``--no_ndc``,
+    ``--no_aspect_snap``): NDC rays unless metric, frames ``--size`` wide
+    at the capture's aspect (504 -> 504x378 for a 4:3 capture); no white
+    background (Blender and DeepVoxels composite on white);
   * ``--render_test``: the test split's poses, with per-frame PSNR against
     the ground truth (``psnr.json``);
   * ``--render_factor``: a downscale for fast previews;
@@ -30,10 +38,10 @@ import os
 import numpy as np
 
 from nerfmlp_torch.utils.cli import (
-    add_arch_flags, add_dataset_flag, add_device_flags, add_occupancy_flags,
-    add_shard_flag, add_tile_flag, arch_fields, build_occ_grid,
-    dataset_class, load_params, occupancy_fields, refuse_shard_render,
-    resolve_tile,
+    add_arch_flags, add_dataset_flag, add_device_flags, add_llff_flags,
+    add_occupancy_flags, add_shard_flag, add_tile_flag, arch_fields,
+    build_occ_grid, dataset_class, dataset_kwargs, load_params,
+    occupancy_fields, refuse_shard_render, resolve_tile,
 )
 
 
@@ -65,6 +73,7 @@ def build_parser():
     add_occupancy_flags(p)
     add_shard_flag(p)
     add_tile_flag(p)
+    add_llff_flags(p)
     return p
 
 
@@ -87,19 +96,24 @@ def main(argv=None):
     os.makedirs(args.out_dir, exist_ok=True)
     wh = (args.size, args.size)
     split = "test" if args.render_test else "train"
+    kw = dataset_kwargs(args)
     try:
-        ds = DS(args.datadir, split, img_wh=wh)
+        ds = DS(args.datadir, split, img_wh=wh, **kw)
     except FileNotFoundError:
-        if not args.render_test:
+        if not args.render_test or args.dataset_type != "blender":
             raise
         print("(no test split; using val)")
-        ds = DS(args.datadir, "val", img_wh=wh)
+        ds = DS(args.datadir, "val", img_wh=wh, **kw)
+    ndc = bool(getattr(ds, "use_ndc", False))
     near, far = ds.dynamic_near_far()
     near = near if args.near is None else args.near
     far = far if args.far is None else args.far
     rc = RenderConfig(
         N_samples=args.N_samples, N_importance=args.N_importance,
-        near=near, far=far, perturb=False, white_bkgd=True,
+        near=near, far=far, perturb=False, ndc=ndc,
+        # White composite for Blender and DeepVoxels; LLFF's real photos
+        # have a background of their own.
+        white_bkgd=args.dataset_type != "llff",
         separate_fine=args.separate_fine, use_kernel=args.use_kernel,
         compute_dtype="bfloat16" if args.use_kernel else "float32",
         **occupancy_fields(args), **arch_fields(args))
@@ -111,6 +125,12 @@ def main(argv=None):
     elif args.flythrough:
         from nerfmlp_torch.ops.rays import flythrough_poses, mean_camera_radius
 
+        if ndc:
+            # A world-space orbit through the forward-facing projection
+            # gives origins out of its range.
+            p.error("--flythrough needs metric rays: forward-facing NDC "
+                    "LLFF captures can't be orbited (use the default "
+                    "spiral path, or --spherify for 360 captures)")
         poses = flythrough_poses(n_frames=args.n_frames,
                                  radius=mean_camera_radius(ds.poses))
         gts, tag = None, "flythrough"

@@ -2,8 +2,20 @@
 
 The PyTorch counterpart of ``scripts/serve.py``, with the same flag names
 for the parts ported plus ``--device``. Checkpoints are ``.npy`` official
-weight lists or ``.pth``/``.pt`` reference files; camera defaults come from
-``--focal``/``--near``/``--far`` (near/far default to the Blender 2/6).
+weight lists or ``.pth``/``.pt`` reference files. Camera defaults come
+from ``--focal``/``--near``/``--far``, or from a dataset (``--datadir``,
+``--dataset_type``, ``--split``, ``--shape`` and the LLFF flags of
+training, read as the render CLIs read them): its focal at ``--img_wh``
+(give an LLFF capture's aspect: the frames keep ``--img_wh``, while the
+loader's focal is the snapped size's), Blender's 2 / 6 bounds
+or the dataset's own (LLFF: NDC [0, 1] unless metric; DeepVoxels: its
+hemisphere), and NDC rays when the LLFF loader has them (``--spherify``
+and ``--no_ndc`` turn them off). Without ``--datadir``, ``--focal``,
+``--near`` and ``--far`` are required, but for Blender, whose bounds
+default to 2 / 6; ``--dataset_type llff`` there means NDC rays unless
+``--no_ndc`` / ``--spherify``. LLFF
+is never composited on white. A request for an NDC model sends a
+``c2w`` in the capture's recentred frame.
 
 A model trained with ``--use_occupancy`` is served with the same flag and
 its ``--aabb``: the service builds a density grid from the loaded weights
@@ -13,6 +25,9 @@ then defaults to 16,384 rays (4,096 otherwise).
 Example:
     python -m nerfmlp_torch.scripts.serve --ckpt model.pth --focal 555.5 \\
         --img_wh 400 400 --port 8008
+    python -m nerfmlp_torch.scripts.serve --ckpt logs/fern/model_final.pt \\
+        --dataset_type llff --datadir data/nerf_llff_data/fern --factor 8 \\
+        --img_wh 504 378 --N_importance 64
     curl -s localhost:8008/render -d '{"theta": 30, "phi": -30, "radius": 4}' \\
         -o view.png
 """
@@ -22,45 +37,86 @@ from __future__ import annotations
 import argparse
 
 
-def build_service(args):
+def camera_defaults(args, parser=None):
+    """(H, W, focal, near, far, ndc) from the flags, or from the dataset
+    under --datadir where a flag is not given (``scripts/serve.py:40-75``
+    of the JAX CLI)."""
+    from nerfmlp_torch.utils.cli import dataset_class, dataset_kwargs
+
+    W, H = args.img_wh
+    focal, near, far = args.focal, args.near, args.far
+    # NDC must match training: without a dataset, NDC for LLFF unless
+    # --no_ndc / --spherify; with one, the loader decides.
+    ndc = (args.dataset_type == "llff" and not args.no_ndc
+           and not args.spherify)
+    if args.datadir is None:
+        if args.dataset_type == "blender":     # the Blender scenes' bounds
+            near = 2.0 if near is None else near
+            far = 6.0 if far is None else far
+        if None in (focal, near, far):
+            msg = ("--focal/--near/--far must all be given when no "
+                   "--datadir supplies camera defaults")
+            if parser is not None:
+                parser.error(msg)
+            raise SystemExit(msg)
+        return H, W, focal, near, far, ndc
+    ds = dataset_class(args.dataset_type)(
+        args.datadir, args.split, img_wh=(W, H), **dataset_kwargs(args))
+    if args.dataset_type == "llff":
+        ndc = ds.use_ndc
+    if focal is None:
+        focal = float(ds.focal)
+    # Blender keeps its training bounds 2 / 6; LLFF and DeepVoxels take
+    # the dataset's, as render_example does.
+    d_near, d_far = ((2.0, 6.0) if args.dataset_type == "blender"
+                     else ds.dynamic_near_far())
+    return (H, W, focal, d_near if near is None else near,
+            d_far if far is None else far, ndc)
+
+
+def build_service(args, parser=None):
     """CLI args -> a ready (unwarmed) RenderService."""
     from nerfmlp_torch.config import RenderConfig
     from nerfmlp_torch.serve import RenderService
     from nerfmlp_torch.train.checkpoint import load_params_any
     from nerfmlp_torch.utils.cli import occupancy_fields, resolve_tile
 
-    W, H = args.img_wh
+    H, W, focal, near, far, ndc = camera_defaults(args, parser)
     n_importance = args.N_importance
     if n_importance is None:
         n_importance = 64 if args.ckpt.endswith(".npy") else 128
     rc = RenderConfig(
         N_samples=args.N_samples, N_importance=n_importance,
-        near=float(args.near), far=float(args.far), perturb=False,
+        near=float(near), far=float(far), perturb=False, ndc=ndc,
         raw_noise_std=0.0, coord_scale=args.coord_scale,
         compute_dtype=args.compute_dtype,
         fp32_precision=args.fp32_precision, use_kernel=args.use_kernel,
-        separate_fine=args.separate_fine, white_bkgd=not args.no_white_bkgd,
+        separate_fine=args.separate_fine,
+        # Real LLFF photos are never composited on white.
+        white_bkgd=args.dataset_type != "llff" and not args.no_white_bkgd,
         depth=args.netdepth, width=args.netwidth,
         depth_fine=args.netdepth_fine, width_fine=args.netwidth_fine,
         **occupancy_fields(args),
     )
     params, step = load_params_any(args.ckpt, rc.model_config(),
                                    device=args.device, with_step=True)
-    print(f"loaded {args.ckpt} | {W}x{H} focal={args.focal:.2f} "
+    print(f"loaded {args.ckpt} | {W}x{H} focal={focal:.2f} "
           f"near={rc.near:.3f} far={rc.far:.3f} "
           f"samples {rc.N_samples}+{rc.N_importance}"
           + (f" | occupancy {rc.occ_grid_size}^3 grid" if rc.use_occupancy
              else "")
-          + f" | {args.device}")
+          + (" | NDC rays" if ndc else "") + f" | {args.device}")
     return RenderService(
-        params, rc, H, W, args.focal, tile=resolve_tile(args),
+        params, rc, H, W, focal, tile=resolve_tile(args),
         max_pixels=args.max_pixels, max_queue=args.max_queue,
         ckpt_path=args.ckpt, ckpt_step=step, device=args.device,
     )
 
 
 def build_parser() -> argparse.ArgumentParser:
-    from nerfmlp_torch.utils.cli import add_occupancy_flags
+    from nerfmlp_torch.utils.cli import (
+        add_dataset_flag, add_llff_flags, add_occupancy_flags,
+    )
 
     p = argparse.ArgumentParser(
         description="Persistent NeRF render server (PyTorch, one GPU)")
@@ -72,10 +128,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=8008)
     p.add_argument("--img_wh", type=int, nargs=2, default=[400, 400],
                    help="default render W H (per-request overridable)")
-    p.add_argument("--focal", type=float, required=True,
-                   help="default focal length in pixels")
-    p.add_argument("--near", type=float, default=2.0)
-    p.add_argument("--far", type=float, default=6.0)
+    p.add_argument("--focal", type=float, default=None,
+                   help="default focal length in pixels; omit to read it "
+                        "from --datadir")
+    p.add_argument("--near", type=float, default=None,
+                   help="default: the dataset's under --datadir (LLFF, "
+                        "DeepVoxels), else 2.0 for Blender")
+    p.add_argument("--far", type=float, default=None,
+                   help="default: the dataset's under --datadir (LLFF, "
+                        "DeepVoxels), else 6.0 for Blender")
+    p.add_argument("--datadir", type=str, default=None,
+                   help="dataset dir supplying the focal, bounds and ray "
+                        "space (as the render CLIs read it)")
+    add_dataset_flag(p)
+    p.add_argument("--split", type=str, default="test")
+    add_llff_flags(p)
     p.add_argument("--no_white_bkgd", action="store_true")
     p.add_argument("--coord_scale", type=float, default=1.0)
     p.add_argument("--N_samples", type=int, default=64)
@@ -110,10 +177,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     from nerfmlp_torch.serve import serve
 
-    serve(build_service(args), host=args.host, port=args.port,
+    serve(build_service(args, parser), host=args.host, port=args.port,
           warmup=args.warmup)
 
 

@@ -8,17 +8,25 @@ everything this port supports, plus:
     ``--datadir`` first (at ``--img_wh``; 8 train, 2 val and 2 test views),
     so a run needs no dataset.
 
-``--img_wh`` defaults to the first training image's stored size (the JAX
-CLI's default is 1024x1024); ``--half_res`` halves that size. The shipped
-``configs/*.txt`` run as they are, given ``--datadir``. Videos are
-animated GIFs. Flags of features not ported yet are refused by name, each
-naming its ROADMAP item.
+``--dataset_type`` takes ``blender``, ``llff`` (with ``--factor``,
+``--llffhold``, ``--spherify``, ``--no_ndc``, ``--no_aspect_snap``; NDC
+rays by default, no white background) and ``deepvoxels`` (``--shape``).
+``--img_wh`` defaults to, for Blender, the first training image's stored
+size (the JAX CLI's default is 1024x1024), for LLFF with ``--factor`` the
+native size of ``images_{factor}/``, else 504x378, and for DeepVoxels
+512x512; ``--half_res`` halves a Blender scene's stored size and is
+ignored, with a warning, elsewhere. The shipped ``configs/*.txt`` run as
+they are, given ``--datadir``. Videos are animated GIFs. Flags of
+features not ported yet are refused by name, each naming its ROADMAP
+item.
 
 Examples:
     python -m nerfmlp_torch.scripts.train --datadir /tmp/scene \\
         --make_synthetic_scene --img_wh 64 64 --iters 300 --save_dir /tmp/out
     python -m nerfmlp_torch.scripts.train \\
         --config configs/lego_turbo_bf16.txt --datadir data/lego
+    python -m nerfmlp_torch.scripts.train \\
+        --config configs/fern.txt --datadir data/nerf_llff_data/fern
     python -m nerfmlp_torch.scripts.train --config ... --render_only \\
         [--render_test]     # renders the newest checkpoint, no training
 """
@@ -29,9 +37,9 @@ import argparse
 import os
 
 from nerfmlp_torch.utils.cli import (
-    NOT_PORTED_DATASETS, add_arch_flags, add_occupancy_flags, arch_fields,
-    bool_flag_names, dataset_class, expand_config_files, negation_flags,
-    occupancy_fields,
+    add_arch_flags, add_dataset_flag, add_llff_flags, add_occupancy_flags,
+    arch_fields, bool_flag_names, dataset_class, dataset_kwargs,
+    expand_config_files, negation_flags, occupancy_fields,
 )
 
 _DEFAULT_SAVE_DIR = "outputs/checkpoints"
@@ -54,12 +62,6 @@ _NOT_PORTED = {
                   "data parallelism (ROADMAP.md, Queue 1 item 18)"),
     "tensor_parallel": (dict(type=int, default=1),
                         "tensor parallelism (ROADMAP.md, Queue 1 item 18)"),
-    "shape": (dict(type=str, default="greek"), NOT_PORTED_DATASETS),
-    "spherify": (dict(action="store_true"), NOT_PORTED_DATASETS),
-    "factor": (dict(type=int, default=0), NOT_PORTED_DATASETS),
-    "llffhold": (dict(type=int, default=8), NOT_PORTED_DATASETS),
-    "no_ndc": (dict(action="store_true"), NOT_PORTED_DATASETS),
-    "no_aspect_snap": (dict(action="store_true"), NOT_PORTED_DATASETS),
     "remat": (dict(action="store_true"),
               "activation rematerialisation (the fused backward recomputes "
               "the forward already)"),
@@ -71,18 +73,21 @@ def build_parser():
         description="Train NeRF with the PyTorch port (one GPU)")
     p.add_argument("--datadir", type=str, required=True)
     p.add_argument("--make_synthetic_scene", action="store_true",
-                   help="write the analytic synthetic scene into --datadir "
-                        "first (at --img_wh; 8 train / 2 val / 2 test views)")
+                   help="write the analytic synthetic Blender scene into "
+                        "--datadir first (at --img_wh; 8 train / 2 val / 2 "
+                        "test views)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
     p.add_argument("--split", type=str, default="train")
     p.add_argument("--img_wh", type=int, nargs=2, default=None,
-                   help="training resolution (default: the first training "
-                        "image's stored size); other sizes are resized "
+                   help="training resolution (default: Blender, the first "
+                        "training image's stored size; LLFF, images_"
+                        "{factor}/'s with --factor, else 504x378; "
+                        "DeepVoxels, 512x512); other sizes are resized "
                         "with LANCZOS")
     p.add_argument("--half_res", action="store_true",
-                   help="train at half the images' stored size (Blender; "
-                        "overrides --img_wh)")
+                   help="train at half the images' stored size (Blender "
+                        "only; overrides --img_wh)")
     p.add_argument("--batch_size", "--N_rand", type=int, default=1024,
                    help="rays per step (oracle --N_rand)")
     p.add_argument("--iters", type=int, default=200000)
@@ -150,8 +155,8 @@ def build_parser():
                    action="store_false",
                    help="plain PyTorch module path instead of the kernels")
     p.add_argument("--seed", "--random_seed", type=int, default=0)
-    p.add_argument("--dataset_type", type=str, default="blender",
-                   choices=["blender", "llff", "deepvoxels"])
+    add_dataset_flag(p)
+    add_llff_flags(p)
     p.add_argument("--precrop_iters", type=int, default=0)
     p.add_argument("--precrop_frac", type=float, default=0.5)
     p.add_argument("--no_batching", action="store_true")
@@ -169,7 +174,8 @@ def build_parser():
     p.add_argument("--render_factor", type=int, default=0,
                    help="downscale factor of the render events")
     p.add_argument("--video_frames", type=int, default=0,
-                   help="frames of the --i_video orbit (0 = 40)")
+                   help="frames of the --i_video trajectory (0 = the "
+                        "dataset's: 40 Blender / DeepVoxels, 120 LLFF)")
     p.add_argument("--render_only", action="store_true",
                    help="no training: render the orbit (or, with "
                         "--render_test, the test split) from the loaded "
@@ -203,19 +209,37 @@ def refuse_unported(args) -> None:
         if getattr(args, name) != p.get_default(name):
             raise SystemExit(f"--{name}: {what} is not ported to PyTorch "
                              "yet")
-    dataset_class(args.dataset_type)
 
 
 def _stored_wh(datadir: str, split: str):
-    """[W, H] of the split's first image, from its PNG header."""
+    """[W, H] of a Blender split's first image, from its PNG header."""
     import json
-    import struct
+
+    from nerfmlp_torch.utils.image import png_size
 
     with open(os.path.join(datadir, f"transforms_{split}.json")) as f:
         name = json.load(f)["frames"][0]["file_path"].split("/")[-1]
-    with open(os.path.join(datadir, split, name + ".png"), "rb") as f:
-        head = f.read(24)
-    return list(struct.unpack(">II", head[16:24]))
+    return list(png_size(os.path.join(datadir, split, name + ".png")))
+
+
+def _default_wh(args):
+    """The training resolution when --img_wh is not given, per dataset
+    type (the JAX CLI's ``scripts/train.py:347-370``, with Blender's
+    stored size in place of its 1024x1024)."""
+    if args.dataset_type == "llff" and args.factor:
+        from nerfmlp_torch.data.llff import LLFFDataset, _image_files
+        from nerfmlp_torch.utils.image import image_size
+
+        img_dir = LLFFDataset._ensure_factor_dir(args.datadir, args.factor)
+        wh = list(image_size(os.path.join(img_dir,
+                                          _image_files(img_dir)[0])))
+        print(f"--factor {args.factor}: native resolution {wh[0]}x{wh[1]}")
+        return wh
+    if args.dataset_type == "llff":
+        return [504, 378]
+    if args.dataset_type == "deepvoxels":
+        return [512, 512]
+    return _stored_wh(args.datadir, args.split)
 
 
 def _render_only(args, trainer, rc, dataset, test_ds, render_poses,
@@ -254,6 +278,9 @@ def main(argv=None):
     if args.i_embed == -1:
         args.pos_enc_L = 0
         args.dir_enc_L = 0
+    if args.make_synthetic_scene and args.dataset_type != "blender":
+        raise SystemExit("--make_synthetic_scene writes a Blender scene; "
+                         f"not one for --dataset_type {args.dataset_type}")
     if args.make_synthetic_scene and not os.path.exists(
             os.path.join(args.datadir, "transforms_train.json")):
         from nerfmlp_torch.data.synthetic import make_synthetic_scene
@@ -263,31 +290,40 @@ def main(argv=None):
                              img_wh=wh, seed=args.seed)
         print(f"synthetic scene ({wh[0]}x{wh[1]}) -> {args.datadir}")
     if args.img_wh is None:
-        args.img_wh = _stored_wh(args.datadir, args.split)
-    if args.half_res:
+        args.img_wh = _default_wh(args)
+    if args.half_res and args.dataset_type == "blender":
         # Half the first train frame's stored size (the reference's
         # load_blender half_res), read from its PNG header.
         w, h = _stored_wh(args.datadir, "train")
         args.img_wh = [max(1, w // 2), max(1, h // 2)]
         print(f"--half_res: training at {args.img_wh[0]}x{args.img_wh[1]}")
+    elif args.half_res:
+        print("⚠️  --half_res is blender-only; use --factor for llff — "
+              "ignored")
 
     from nerfmlp_torch import resolve_device, use_true_fp32
     from nerfmlp_torch.config import RenderConfig, TrainConfig
-    from nerfmlp_torch.data.blender import BlenderDataset
     from nerfmlp_torch.train.checkpoint import latest_checkpoint
     from nerfmlp_torch.train.loop import Trainer
 
     device = resolve_device(args.device)
     use_true_fp32()
+    DS = dataset_class(args.dataset_type)
+    ds_kw = dataset_kwargs(args)
+    if args.dataset_type == "llff":
+        # Real photos have no alpha to composite: white backgrounds are a
+        # Blender (and DeepVoxels) behaviour.
+        args.no_white_bkgd = True
     white = not args.no_white_bkgd
-    dataset = BlenderDataset(args.datadir, split=args.split,
-                             img_wh=tuple(args.img_wh), white_bkgd=white)
-    val_ds = BlenderDataset(args.datadir, split="val",
-                            img_wh=tuple(args.img_wh), white_bkgd=white,
-                            testskip=args.testskip)
-    quick_val_ds = BlenderDataset(args.datadir, split="val",
-                                  img_wh=tuple(args.quick_val_res),
-                                  white_bkgd=white, testskip=args.testskip)
+    dataset = DS(args.datadir, split=args.split, img_wh=tuple(args.img_wh),
+                 white_bkgd=white, **ds_kw)
+    # (The LLFF loader takes testskip and ignores it: its holdout is
+    # llffhold.)
+    val_ds = DS(args.datadir, split="val", img_wh=tuple(args.img_wh),
+                white_bkgd=white, testskip=args.testskip, **ds_kw)
+    quick_val_ds = DS(args.datadir, split="val",
+                      img_wh=tuple(args.quick_val_res), white_bkgd=white,
+                      testskip=args.testskip, **ds_kw)
     # The render events' inputs, loaded only when asked for.
     render_poses = None
     if args.i_video or (args.render_only and not args.render_test):
@@ -296,10 +332,10 @@ def main(argv=None):
     test_ds = None
     if args.i_testset or (args.render_only and args.render_test):
         try:
-            test_ds = BlenderDataset(args.datadir, split="test",
-                                     img_wh=tuple(args.img_wh),
-                                     white_bkgd=white, testskip=args.testskip)
-        except FileNotFoundError as e:
+            test_ds = DS(args.datadir, split="test",
+                         img_wh=tuple(args.img_wh), white_bkgd=white,
+                         testskip=args.testskip, **ds_kw)
+        except OSError as e:
             print(f"⚠️  --i_testset: no test split ({e}); falling back to "
                   "val")
             test_ds = val_ds
@@ -323,6 +359,7 @@ def main(argv=None):
         N_samples=args.N_samples, N_importance=args.N_importance,
         near=near, far=far, white_bkgd=white, perturb=args.perturb > 0,
         raw_noise_std=args.raw_noise_std, lindisp=args.lindisp,
+        ndc=bool(getattr(dataset, "use_ndc", False)),
         separate_fine=args.separate_fine, compute_dtype=args.compute_dtype,
         use_kernel=args.use_kernel, fp32_precision=args.fp32_precision,
         **occupancy_fields(args),

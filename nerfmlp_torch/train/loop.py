@@ -66,9 +66,13 @@ def check_supported(tc: TrainConfig) -> None:
 class Trainer:
     """End-to-end trainer for one scene on one device.
 
-    ``train_ds``/``val_ds``/``quick_val_ds`` are BlenderDataset-like
-    objects (``all_rays_*``, ``image_rays``, ``n_images``, ``H``/``W``).
-    ``render_poses``: the c2w trajectory of the ``i_video`` event;
+    ``train_ds``/``val_ds``/``quick_val_ds`` are Blender, LLFF or
+    DeepVoxels datasets (``all_rays_*``, ``image_rays``, ``n_images``,
+    ``H``/``W``; an NDC dataset's batches carry its world-space viewdirs,
+    and so do its held-out renders, through ``image_viewdirs``).
+    ``render_poses``: the c2w trajectory of the ``i_video`` event (the
+    CLI passes the dataset's own: an orbit, or an LLFF spiral rendered
+    through ``rc.ndc``);
     ``test_ds``: the held-out split of the ``i_testset`` event.
     ``device``: default ``cuda``; ``"cpu"`` runs the plain versions of the
     kernels. Starting a Trainer keeps TF32 off process-wide

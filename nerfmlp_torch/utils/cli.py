@@ -1,18 +1,17 @@
-"""Shared CLI plumbing: the architecture, occupancy, tile and shard flags,
-``--config FILE`` expansion, and what every checkpoint-loading script
-does the same way — load the weights, build the occupancy grid, pick the
-dataset, render one frame.
+"""Shared CLI plumbing: the architecture, occupancy, tile, shard and
+dataset flags, ``--config FILE`` expansion, and what every
+checkpoint-loading script does the same way — load the weights, build the
+occupancy grid, pick the dataset, render one frame.
 
 Counterpart of ``nerfmlp_tpu/utils/cli.py`` (``add_arch_flags``,
-``arch_fields``, ``add_occupancy_flags``, ``occupancy_fields``,
-``add_tile_flag``, ``resolve_tile``, ``build_occ_grid``,
-``add_shard_flag``, ``render_frame``, ``dataset_class``;
-``dataset_kwargs`` has nothing to carry for Blender scenes, and
-``params_template`` becomes :func:`load_params`, since ``.ckpt`` files are
-not read here) and of the config-file helpers in
-``scripts/train.py:23-92`` (the oracle reads ``key = value`` files
-through configargparse). LLFF and DeepVoxels (ROADMAP.md, Queue 1 item
-15) and rendering over several devices (item 18) are refused by name.
+``arch_fields``, ``add_llff_flags``, ``dataset_kwargs``,
+``add_occupancy_flags``, ``occupancy_fields``, ``add_tile_flag``,
+``resolve_tile``, ``build_occ_grid``, ``add_shard_flag``,
+``render_frame``, ``dataset_class``; ``params_template`` becomes
+:func:`load_params`, since ``.ckpt`` files are not read here) and of the
+config-file helpers in ``scripts/train.py:23-92`` (the oracle reads ``key
+= value`` files through configargparse). Rendering over several devices
+(ROADMAP.md, Queue 1 item 18) is refused by name.
 """
 
 from __future__ import annotations
@@ -89,8 +88,6 @@ def resolve_tile(args) -> int:
     return 16384 if getattr(args, "use_occupancy", False) else 4096
 
 
-NOT_PORTED_DATASETS = ("the LLFF and DeepVoxels loaders (ROADMAP.md, Queue 1 "
-                       "item 15)")
 NOT_PORTED_SHARDING = ("rendering over several devices (ROADMAP.md, Queue 1 "
                        "item 18)")
 
@@ -106,8 +103,51 @@ def add_device_flags(p) -> None:
 
 
 def add_dataset_flag(p, choices=("blender", "llff", "deepvoxels")) -> None:
+    """--dataset_type, and --shape where DeepVoxels is one of the choices."""
     p.add_argument("--dataset_type", type=str, default="blender",
                    choices=list(choices))
+    if "deepvoxels" in choices:
+        p.add_argument("--shape", type=str, default="greek",
+                       help="deepvoxels scene: armchair / cube / greek / "
+                            "vase (oracle --shape)")
+
+
+def add_llff_flags(p) -> None:
+    """--no_ndc/--spherify/--factor/--llffhold/--no_aspect_snap: a script
+    that loads a checkpoint builds the LLFF dataset as the checkpoint was
+    trained (NDC or metric rays, spherified poses, image directory,
+    holdout), or the geometry silently differs."""
+    p.add_argument("--no_ndc", action="store_true",
+                   help="LLFF: metric rays instead of NDC (match training)")
+    p.add_argument("--spherify", action="store_true",
+                   help="LLFF: a 360 capture (match training)")
+    p.add_argument("--factor", type=int, default=0,
+                   help="LLFF: read images_{factor}/, minified from "
+                        "images/ when absent (0 = the narrowest images*/ "
+                        "directory that covers the width)")
+    p.add_argument("--llffhold", type=int, default=8,
+                   help="LLFF: every Nth image is val/test (match training)")
+    p.add_argument("--no_aspect_snap", action="store_true",
+                   help="LLFF: honour a non-native-aspect --img_wh exactly "
+                        "instead of snapping the height to the capture's "
+                        "aspect (the vertical FOV then differs from the "
+                        "resized ground truth)")
+
+
+def dataset_kwargs(args) -> dict:
+    """Loader kwargs for the parsed --dataset_type and its flags (with
+    :func:`dataset_class` and :func:`add_llff_flags`)."""
+    if args.dataset_type == "llff":
+        return {
+            "use_ndc": not args.no_ndc,
+            "spherify": args.spherify,
+            "factor": args.factor,
+            "llffhold": args.llffhold,
+            "keep_aspect": not getattr(args, "no_aspect_snap", False),
+        }
+    if args.dataset_type == "deepvoxels":
+        return {"shape": args.shape}
+    return {}
 
 
 def add_shard_flag(p) -> None:
@@ -124,12 +164,16 @@ def refuse_shard_render(args) -> None:
 
 
 def dataset_class(dataset_type: str):
-    """The loader class for a ``--dataset_type``: Blender; the others
-    raise naming their ROADMAP item."""
-    if dataset_type != "blender":
-        raise SystemExit(f"--dataset_type {dataset_type}: "
-                         f"{NOT_PORTED_DATASETS} are not ported to PyTorch "
-                         "yet")
+    """The loader class for a ``--dataset_type``: llff, deepvoxels, else
+    blender."""
+    if dataset_type == "llff":
+        from nerfmlp_torch.data.llff import LLFFDataset
+
+        return LLFFDataset
+    if dataset_type == "deepvoxels":
+        from nerfmlp_torch.data.deepvoxels import DeepVoxelsDataset
+
+        return DeepVoxelsDataset
     from nerfmlp_torch.data.blender import BlenderDataset
 
     return BlenderDataset

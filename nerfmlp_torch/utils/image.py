@@ -1,7 +1,9 @@
 """Small image helpers on numpy and the standard library, so serving,
 training and rendering need no imaging package: ``to8b``; a PNG encoder
-and decoder (``zlib`` + ``struct``); a LANCZOS resize equal to Pillow's;
-an animated-GIF writer for videos.
+and decoder (``zlib`` + ``struct``) and the image size from a PNG or JPEG
+header; a LANCZOS resize equal to Pillow's; an animated-GIF writer for
+videos. JPEG pixels are not decoded: :func:`refuse_jpeg` names the
+ROADMAP item that waits for a decoder.
 
 Counterpart of ``nerfmlp_tpu/utils/image.py`` (``to8b``, ``save_png``,
 ``load_png``, ``write_video``), which uses PIL and imageio, and of the
@@ -19,6 +21,11 @@ import numpy as np
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # Colour types this reader takes (8-bit): channels per pixel.
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+_COLOUR_TYPE = {c: t for t, c in _CHANNELS.items()}
+IMAGE_EXTS = (".png", ".jpg", ".jpeg")
+JPEG_NOT_PORTED = ("JPEG images are not decoded by the PyTorch port (a "
+                   "baseline JPEG decoder is ROADMAP.md, Queue 1 item 22); "
+                   "convert them to PNG")
 
 
 def to8b(x: np.ndarray) -> np.ndarray:
@@ -27,22 +34,24 @@ def to8b(x: np.ndarray) -> np.ndarray:
 
 
 def png_bytes(img: np.ndarray) -> bytes:
-    """uint8 (H, W, 3) RGB -> PNG file bytes (8-bit, no interlace, filter 0
-    on every row)."""
+    """uint8 (H, W, C) pixels -> PNG file bytes: C = 3 RGB (as served), 1
+    grey, 2 grey + alpha, 4 RGBA (8-bit, no interlace, filter 0 on every
+    row)."""
     arr = np.asarray(img)
-    if arr.dtype != np.uint8 or arr.ndim != 3 or arr.shape[2] != 3:
-        raise ValueError(f"png_bytes takes (H, W, 3) uint8 pixels, got "
-                         f"{arr.shape} {arr.dtype}")
-    h, w, _ = arr.shape
+    if (arr.dtype != np.uint8 or arr.ndim != 3
+            or arr.shape[2] not in _COLOUR_TYPE):
+        raise ValueError(f"png_bytes takes (H, W, C) uint8 pixels, C in "
+                         f"1-4, got {arr.shape} {arr.dtype}")
+    h, w, c = arr.shape
     rows = np.concatenate(
-        [np.zeros((h, 1), np.uint8), arr.reshape(h, w * 3)], axis=1
+        [np.zeros((h, 1), np.uint8), arr.reshape(h, w * c)], axis=1
     )
 
     def chunk(tag: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)  # 8-bit RGB
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOUR_TYPE[c], 0, 0, 0)
     return (_SIGNATURE + chunk(b"IHDR", ihdr)
             + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
             + chunk(b"IEND", b""))
@@ -132,6 +141,56 @@ def read_png(path: str) -> np.ndarray:
     ch = _CHANNELS[color]
     pixels = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch)
     return pixels.reshape(h, w, ch)
+
+
+def is_jpeg(path: str) -> bool:
+    return path.lower().endswith((".jpg", ".jpeg"))
+
+
+def refuse_jpeg(path: str) -> None:
+    """ValueError for a ``.jpg``/``.jpeg`` file, naming its ROADMAP item."""
+    if is_jpeg(path):
+        raise ValueError(f"{path}: {JPEG_NOT_PORTED}")
+
+
+def png_size(path: str):
+    """(width, height) from a PNG's IHDR chunk, without decoding."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != _SIGNATURE or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file")
+    return struct.unpack(">II", head[16:24])
+
+
+def _jpeg_size(path: str):
+    """(width, height) from a JPEG's start-of-frame marker."""
+    with open(path, "rb") as f:
+        b = f.read()
+    if b[:2] != b"\xff\xd8":
+        raise ValueError(f"{path}: not a JPEG file")
+    pos = 2
+    while pos + 4 <= len(b):
+        if b[pos] != 0xFF:
+            raise ValueError(f"{path}: bad JPEG marker at {pos}")
+        marker = b[pos + 1]
+        if marker == 0xFF:          # fill byte
+            pos += 1
+            continue
+        if marker == 0x01 or 0xD0 <= marker <= 0xD7:   # no length
+            pos += 2
+            continue
+        (length,) = struct.unpack(">H", b[pos + 2:pos + 4])
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            h, w = struct.unpack(">HH", b[pos + 5:pos + 9])
+            return w, h
+        pos += 2 + length
+    raise ValueError(f"{path}: JPEG without a start-of-frame marker")
+
+
+def image_size(path: str):
+    """(width, height) of a PNG or JPEG file, from its header alone (what
+    the JAX loaders read with ``Image.open(path).size``)."""
+    return _jpeg_size(path) if is_jpeg(path) else png_size(path)
 
 
 def load_png(path: str) -> np.ndarray:

@@ -41,7 +41,9 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
             "nerfmlp_torch.scripts.eval",
             "nerfmlp_torch.scripts.compare_single_view",
             "nerfmlp_torch.scripts.train_only",
-            "nerfmlp_torch.scripts.zoom_example"} <= set(mods)
+            "nerfmlp_torch.scripts.zoom_example",
+            "nerfmlp_torch.scripts.serve", "nerfmlp_torch.data.llff",
+            "nerfmlp_torch.data.deepvoxels"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

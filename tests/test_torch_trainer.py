@@ -186,7 +186,7 @@ def test_library_calls_leave_tf32_alone():
 
 def test_train_cli_on_cpu(tmp_path):
     """python -m nerfmlp_torch.scripts.train --device cpu on a synthetic
-    scene it writes itself; then a refused flag."""
+    scene it writes itself; then refused flags; then an LLFF capture."""
     from nerfmlp_torch.scripts import train as cli
 
     data, out = tmp_path / "scene", tmp_path / "out"
@@ -204,7 +204,21 @@ def test_train_cli_on_cpu(tmp_path):
     metrics = cli.main(args[:args.index("--iters") + 1] + ["12"]
                        + args[args.index("--iters") + 2:])
     assert metrics["step"] == 12
-    for flag, value in (("--i_mesh", "5"), ("--tensor_parallel", "2"),
-                        ("--dataset_type", "llff")):
+    for flag, value in (("--i_mesh", "5"), ("--tensor_parallel", "2")):
         with pytest.raises(SystemExit, match="not ported"):
             cli.main(args + [flag, value])
+    # --dataset_type llff, refused until the LLFF loader was ported, trains
+    # on a forward-facing capture (NDC rays, no white background).
+    from nerfmlp_torch.data.synthetic import make_synthetic_llff_scene
+
+    fwd = str(tmp_path / "fwd")
+    make_synthetic_llff_scene(fwd, n_images=9, img_wh=(16, 12),
+                              style="forward")
+    llff_args = [a for a in args if a != "--make_synthetic_scene"]
+    llff_args[llff_args.index(str(data))] = fwd
+    llff_args[llff_args.index(str(out))] = str(tmp_path / "llff_out")
+    m = cli.main(llff_args[:llff_args.index("--img_wh")]
+                 + llff_args[llff_args.index("--img_wh") + 3:]
+                 + ["--dataset_type", "llff", "--img_wh", "16", "12"])
+    assert m["step"] == 8 and m["config"]["render"]["ndc"]
+    assert not m["config"]["render"]["white_bkgd"]
