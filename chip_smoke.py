@@ -85,7 +85,25 @@ Phases, each fatal on failure:
      timed beside the module path; eval on the held-out views (within 1 dB
      of the Trainer's final validation); 50 train CLI steps on a 64x64
      DeepVoxels-layout scene it writes (the loss falls, 2 launches of each
-     kernel per step beside the renders').
+     kernel per step beside the renders');
+  9. steps_per_dispatch through CUDA graphs ("graph"): the flagship recipe
+     of phase 5 for 300 steps at K = 16 (windows of 16 replays of one
+     captured step; the device pool's 32 steps an epoch, so windows end at
+     its reshuffles), held against phase 5's K = 1 run at the JAX
+     package's scan bars (window-end losses rtol 1e-3, parameters rtol
+     2e-4 / atol 2e-6; the measured difference is printed), the whole
+     run traced (exactly 2 launches of each kernel per step: the warm-up
+     steps' and the replays'; each kernel's device ms per launch), the
+     four kernels held against their plain versions on its trained net at
+     its two calls' shapes and timed, and exactly 2 launches of each kernel
+     per replayed step in a profiled window; the
+     turbo recipe of phase 6 at K = 16 (the same refresh steps and seeds
+     as K = 1, held-out PSNR within 0.5 dB of it); the one-shot hi_lo
+     recipe at K = 8 (host-batch windows through the central crop, then
+     the pool; its last losses within 1% of K = 1's); each K = 16 and
+     K = 1 step timed synchronised and profiled over a 16-step window
+     (busy, wall, idle share), beside the card's name and power limit; one
+     eager step of each recipe under set_sync_debug_mode('error').
 Then it prints the kernels' JSON line, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Weights are random, from a seed.
 It exits non-zero, printing no result, without a CUDA device.
@@ -186,6 +204,13 @@ LLFF_SAMPLES = 64         # configs/fern.txt's 64 + 64
 DV_WH = 64                # phase 8's DeepVoxels-layout scene, and
 DV_STEPS = 50             # the train CLI's steps on it
 DV_RADIUS = 4.0           # its cameras' hemisphere (near / far R -/+ 1)
+GRAPH_K = 16              # phase 9's steps_per_dispatch: 16 replays a window
+GRAPH_HOST_K = 8          # ... for the one-shot run's host (precrop) windows
+GRAPH_PSNR_GAP = 0.5      # turbo at GRAPH_K vs K = 1, dB
+PARAM_RTOL, PARAM_ATOL = 2e-4, 2e-6   # K = 16 vs K = 1 parameters and
+LOSS_RTOL = 1e-3          # losses: the JAX package's bars for its scan
+KERNEL_NAMES = ("fused_mlp_fwd_kernel", "bwd_phase1_kernel",
+                "bwd_phase2_kernel", "reduce_partials_kernel")
 
 
 def cuda_ms(fn, iters, warmup=2, spin=True):
@@ -653,7 +678,7 @@ def train_once(rc, tc, train_ds, val_ds, save_dir):
                       verbose=False)
     losses = []
     step_fn, occ_update = trainer.step_fn, trainer._occ_update
-    refresh = {"n": 0, "launches": 0}
+    refresh = {"n": 0, "launches": 0, "calls": []}
 
     def recorded(state, batch, *occ):
         m = step_fn(state, batch, *occ)
@@ -663,6 +688,7 @@ def train_once(rc, tc, train_ds, val_ds, save_dir):
     def counted(*args):
         before = fused_mlp.fused_nerf_mlp.launches
         occ_update(*args)
+        refresh["calls"].append(args)      # (seed step, decay)
         refresh["n"] += 1
         refresh["launches"] += fused_mlp.fused_nerf_mlp.launches - before
 
@@ -712,6 +738,7 @@ def profile_step(trainer):
           + f", rest {busy - sum(kern.values()):.3f} ms")
     for key, ms in sorted(rows, key=lambda r: -r[1])[:6]:
         print(f"[profile]   {ms:9.3f} ms {100 * ms / busy:5.1f}%  {key[:70]}")
+    return {"wall": wall, "busy": busy}
 
 
 SMOKE_DIR = os.path.join(ROOT, "build", "chip_smoke")
@@ -757,7 +784,8 @@ def train_both(tag, rc, tc, train_ds, val_ds):
             cfg, tc, train_ds, val_ds,
             os.path.join(SMOKE_DIR, tag.replace(" ", "_") + "_" + name))
         run = {"val": val, "launches": launches, "trainer": trainer,
-               "refresh": refresh, "first": float(losses[:20].mean()),
+               "refresh": refresh, "losses": losses, "wall": wall,
+               "first": float(losses[:20].mean()),
                "last": float(losses[-20:].mean()), "occupied": None}
         grid = ""
         if trainer.occ_grid is not None:
@@ -784,7 +812,7 @@ def train_both(tag, rc, tc, train_ds, val_ds):
           f"{k['launches'][3]} (want {want}: {queries} queries per step, 1 "
           f"forward per refresh); plain run: {runs['plain']['launches']}")
     if (k["launches"] != want
-            or k["refresh"] != {"n": n_ref, "launches": n_ref}
+            or (k["refresh"]["n"], k["refresh"]["launches"]) != (n_ref, n_ref)
             or runs["plain"]["launches"] != (0, 0, 0, 0)):
         raise SystemExit(f"[{tag}] the train steps did not go through the "
                          "kernels as expected")
@@ -815,9 +843,12 @@ def phase_train(train_ds, val_ds):
           f"{rc.N_samples}+{rc.N_importance} samples, bf16")
     runs = train_both("train", rc, tc, train_ds, val_ds)
     check_psnr("train", runs)
-    profile_step(runs["kernel"]["trainer"])
+    k = runs["kernel"]
+    k["params"] = [p.detach().clone() for net in k["trainer"].state.params
+                   .values() for p in net.parameters()]   # before profiling
+    k["profile"] = profile_step(k["trainer"])
     print(f"[train] phase took {time.perf_counter() - t0:.1f} s")
-    return runs["kernel"]["launches"]
+    return k
 
 
 def _png_pixels(body):
@@ -1753,6 +1784,283 @@ def phase_llff(net):
             "fwd_train": fwd_train, "bwd": bwd, "phases": phases}
 
 
+def kernel_trace(prof):
+    """(launches, device ms in all) of each of the four kernels in a
+    torch.profiler trace, by kernel name. Read from the trace's raw
+    events: ``key_averages()`` builds a Python object per event, ~0.1 ms
+    each, which over a whole run's ~10^5 events takes tens of seconds."""
+    from torch.autograd import DeviceType
+
+    found = [[0, 0.0] for _ in KERNEL_NAMES]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            name = e.name()
+            for f, kernel in zip(found, KERNEL_NAMES):
+                if kernel in name:
+                    f[0] += 1
+                    f[1] += e.duration_ns() / 1e6
+    return tuple((n, ms) for n, ms in found)
+
+
+def graph_train(tag, rc, tc, train_ds, val_ds, k, trace=False):
+    """Train through the Trainer at steps_per_dispatch ``k``: windows of
+    replays of the captured step. Returns the Trainer, the loss at every
+    window's end (the window's output tensor) by step, the synchronised
+    wall seconds (the captures included), the held-out PSNR, the grid
+    refreshes' (seed step, decay), and the four kernel wrappers' counts
+    over the run: the warm-up steps' launches and each capture's, which
+    records 2 per kernel into its graph (a replay calls no wrapper). With
+    ``trace`` the whole run is traced (device activity only, from zero
+    just before ``train()``), and ``trace`` holds each kernel's launches
+    and device ms over it (:func:`kernel_trace`): the warm-up steps' and
+    every replay's."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nerfmlp_torch.ops import fused_mlp
+    from nerfmlp_torch.train.loop import Trainer
+
+    trainer = Trainer(rc, dataclasses.replace(tc, steps_per_dispatch=k),
+                      train_ds, device="cuda", verbose=False,
+                      save_dir=os.path.join(SMOKE_DIR, f"graph_{tag}_{k}"))
+    win, ends, calls = trainer.windows, [], []
+    for name in ("run_pool", "run_host"):
+        def recorded(*args, inner=getattr(win, name)):
+            m = inner(*args)
+            ends.append((trainer.state.step, m["loss"].clone()))
+            return m
+        setattr(win, name, recorded)
+    occ_update = trainer._occ_update
+    trainer._occ_update = lambda *a: calls.append(a) or occ_update(*a)
+    counters = (fused_mlp.fused_nerf_mlp, fused_mlp.bwd_workspace,
+                fused_mlp.weight_grads, fused_mlp.reduce_partials)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    prof = (profile(activities=[ProfilerActivity.CUDA]) if trace
+            else contextlib.nullcontext())
+    with prof:
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = tuple(c.launches for c in counters)
+    del win.run_pool, win.run_host, trainer._occ_update
+    val = trainer._validate(val_ds)
+    return {"trainer": trainer, "ends": {s: float(x) for s, x in ends},
+            "wall": wall, "val": val, "calls": calls, "counts": counts,
+            "trace": kernel_trace(prof) if trace else None}
+
+
+def step_timing(trainer, w, graph):
+    """``w`` steps of a trained Trainer: windows of replays (``graph``) or
+    eager steps. Returns the synchronised ms per step over four windows,
+    and one profiled window's wall and busy ms, idle share and the four
+    kernels' launches per step, counted from the trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    occ = () if trainer.occ_grid is None else (trainer.occ_grid,)
+
+    def window():
+        if graph:
+            trainer.windows.run_pool(w)
+        else:
+            for _ in range(w):
+                trainer.step_fn(trainer.state,
+                                trainer.pool.batch(trainer.state.step), *occ)
+
+    window()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        window()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / (4 * w)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        window()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    busy = sum(ms for _, ms in device_rows(prof))
+    per_step = tuple(n / w for n, _ in kernel_trace(prof))
+    return {"ms": ms, "wall": wall, "busy": busy,
+            "idle": 100 * (1 - busy / wall), "per_step": per_step}
+
+
+def print_timing(tag, label, t, card):
+    print(f"[graph] {tag} {label}: {t['ms']:.2f} ms per step synchronised; "
+          f"a profiled window of {GRAPH_K} steps: wall {t['wall']:.2f} ms, "
+          f"device busy {t['busy']:.2f} ms, idle {t['idle']:.1f}%; launches "
+          f"per step (forward, phase 1, phase 2, reduction) "
+          f"{t['per_step']} [{card}]")
+
+
+def sync_check(trainer, tag):
+    """One eager step under torch.cuda.set_sync_debug_mode('error'): any
+    operation on the step's path that waits for the device raises."""
+    import torch
+
+    occ = () if trainer.occ_grid is None else (trainer.occ_grid,)
+    batch = trainer.pool.batch(trainer.state.step)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.step_fn(trainer.state, batch, *occ)
+    except RuntimeError as e:
+        raise SystemExit(f"[graph] sync check, {tag}: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def graph_kernels(tr, g):
+    """The dense K = 16 run's kernels: each held against its plain version
+    on the run's trained net at the run's two calls (1024 rays x 64 coarse
+    / 128 fine samples; check_kernel, check_backward), timed. Returns one
+    record per kernel, in KERNEL_NAMES' order: its launches and device ms
+    per launch over the run, from the run's trace (``g["trace"]``); its
+    bound, plain and library ms as the means of the two calls, which the
+    run launches one each per step; the larger of their errors."""
+    cfg = slice_config()
+    net = tr.state.params["coarse"]
+    fwd, phases = [], []
+    for n_samples, label in ((cfg.N_samples, "coarse"),
+                             (cfg.N_importance, "fine")):
+        pts, dirs = serving_points(n_samples, cfg, n_rays=TRAIN_RAYS)
+        label = f"graph-trained net, train {label}"
+        fwd.append(check_kernel(net, cfg, pts, dirs, label, time_it=True))
+        phases.append(check_backward(net, cfg, pts, dirs, label,
+                                     time_it=True)[1])
+    recs = []
+    for (n, ms), calls in zip(g["trace"], [fwd] + [
+            [ph[key] for ph in phases]
+            for key in ("phase1", "phase2", "reduce")]):
+        lib = [c.get("library_ms") for c in calls]
+        recs.append({
+            "launches": n, "ms": ms / n,
+            "max_abs_err": max(c["max_abs_err"] for c in calls),
+            "plain_ms": statistics.mean(c["plain_ms"] for c in calls),
+            "bound_ms": statistics.mean(c["bound_ms"] for c in calls),
+            "bound_by": calls[1]["bound_by"],
+            "library_ms": None if None in lib else statistics.mean(lib)})
+        if "module_ms" in calls[0]:
+            recs[-1]["module_ms"] = statistics.mean(
+                c["module_ms"] for c in calls)
+    return recs
+
+
+def phase_graph(train_ds, val_ds, dense1, turbo1, fast1, card):
+    """steps_per_dispatch through CUDA graphs (the module docstring, phase
+    9), against the K = 1 runs of phases 5 and 6 (``dense1``, ``turbo1``,
+    ``fast1``). Returns the dense run's kernel records (graph_kernels):
+    launches and device time from a trace of the whole run."""
+    import numpy as np
+    import torch
+
+    from nerfmlp_torch.train.graph import WARMUP_STEPS
+
+    t0 = time.perf_counter()
+    near_far = train_ds.dynamic_near_far()
+    rc, tc = train_configs(*near_far)
+    print(f"[graph] dense flagship, {TRAIN_STEPS} steps at K = {GRAPH_K} "
+          f"(device pool, {TRAIN_WH ** 2 * 8 // TRAIN_RAYS} steps an epoch)")
+    g = graph_train("dense", rc, tc, train_ds, val_ds, GRAPH_K, trace=True)
+    tr = g["trainer"]
+    loss_k1 = dense1["losses"]
+    d_loss = max(abs(v - float(loss_k1[s - 1])) for s, v in g["ends"].items())
+    loss_ok = all(np.isclose(v, loss_k1[s - 1], rtol=LOSS_RTOL, atol=0)
+                  for s, v in g["ends"].items())
+    params = [p.detach() for net in tr.state.params.values()
+              for p in net.parameters()]
+    d_par = max(float((p - q).abs().max())
+                for p, q in zip(params, dense1["params"]))
+    par_ok = all(torch.allclose(p, q, rtol=PARAM_RTOL, atol=PARAM_ATOL)
+                 for p, q in zip(params, dense1["params"]))
+    replays = tr.windows.replays
+    print(f"[graph] dense: {len(g['ends'])} windows, {replays} replays; "
+          f"window-end losses vs K = 1: max |diff| {d_loss:.3e} (rtol "
+          f"{LOSS_RTOL}); parameters: max |diff| {d_par:.3e} (rtol "
+          f"{PARAM_RTOL}, atol {PARAM_ATOL}); wrapper counts over the run "
+          f"{g['counts']} ({WARMUP_STEPS} warm-up steps + 1 capture, 2 each)")
+    print(f"[graph] dense held-out PSNR: K = {GRAPH_K} "
+          f"{g['val']['psnr']:.2f} dB, K = 1 {dense1['val']['psnr']:.2f} dB; "
+          f"whole run {1e3 * g['wall'] / TRAIN_STEPS:.2f} ms per step "
+          f"(captures included, traced) vs "
+          f"{1e3 * dense1['wall'] / TRAIN_STEPS:.2f} [{card}]")
+    want = 2 * (WARMUP_STEPS + replays)
+    print(f"[graph] dense run traced whole: launches (forward, phase 1, "
+          f"phase 2, reduction) {tuple(n for n, _ in g['trace'])} (want "
+          f"{want}: 2 per step, {WARMUP_STEPS} warm-up steps + {replays} "
+          f"replays), device ms per launch "
+          f"{tuple(round(ms / max(n, 1), 4) for n, ms in g['trace'])} "
+          f"[{card}]")
+    if any(n != want for n, _ in g["trace"]):
+        raise SystemExit("[graph] the traced dense run did not launch each "
+                         "kernel twice a step")
+    recs = graph_kernels(tr, g)
+    t_graph = step_timing(tr, GRAPH_K, graph=True)
+    t_eager = step_timing(dense1["trainer"], GRAPH_K, graph=False)
+    print_timing("dense", f"K = {GRAPH_K}", t_graph, card)
+    print_timing("dense", "K = 1", t_eager, card)
+    if not (loss_ok and par_ok and replays == TRAIN_STEPS):
+        raise SystemExit("[graph] the K = 16 run left the K = 1 run")
+    if t_graph["per_step"] != (2, 2, 2, 2) or g["counts"] != (
+            2 * (WARMUP_STEPS + 1),) * 4:
+        raise SystemExit("[graph] a captured dense step did not launch each "
+                         "kernel twice")
+
+    orc, otc = turbo_configs(*near_far)
+    o = graph_train("turbo", orc, otc, train_ds, val_ds, GRAPH_K)
+    want = [tuple(c) for c in turbo1["refresh"]["calls"]]
+    gap = abs(o["val"]["psnr"] - turbo1["val"]["psnr"])
+    print(f"[graph] turbo at K = {GRAPH_K}: refreshes at steps "
+          f"{[c[0] for c in o['calls']]} (seed step, decay equal to K = 1's: "
+          f"{o['calls'] == want}); held-out PSNR {o['val']['psnr']:.2f} dB "
+          f"vs K = 1 {turbo1['val']['psnr']:.2f} dB (gap {gap:.2f}, limit "
+          f"{GRAPH_PSNR_GAP}); whole run "
+          f"{1e3 * o['wall'] / TRAIN_STEPS:.2f} ms per step vs "
+          f"{1e3 * turbo1['wall'] / TRAIN_STEPS:.2f} [{card}]")
+    to_graph = step_timing(o["trainer"], GRAPH_K, graph=True)
+    to_eager = step_timing(turbo1["trainer"], GRAPH_K, graph=False)
+    print_timing("turbo", f"K = {GRAPH_K}", to_graph, card)
+    print_timing("turbo", "K = 1", to_eager, card)
+    if o["calls"] != want or gap > GRAPH_PSNR_GAP or to_graph[
+            "per_step"] != (2, 2, 2, 2):
+        raise SystemExit("[graph] the turbo run's refreshes, PSNR or "
+                         "launches left the K = 1 run's")
+
+    frc, ftc = fast_configs(*near_far)
+    f = graph_train("fast", frc, ftc, train_ds, val_ds, GRAPH_HOST_K)
+    loss_f1 = fast1["losses"]
+    tail = [s for s in f["ends"] if s > HI_LO_STEPS - 20]
+    ours = np.mean([f["ends"][s] for s in tail])
+    theirs = np.mean([loss_f1[s - 1] for s in tail])
+    rel = abs(ours - theirs) / theirs
+    d_fast = max(abs(v - float(loss_f1[s - 1])) for s, v in f["ends"].items())
+    sources = sorted(f["trainer"].windows.graphs)
+    print(f"[graph] one-shot hi_lo at K = {GRAPH_HOST_K}: windows end at "
+          f"{sorted(f['ends'])}; graphs {sources} (host batches through the "
+          f"central crop, then the pool); last window-end losses vs K = 1: "
+          f"relative gap {rel:.3e} (limit {HI_LO_TRACK}), max |diff| "
+          f"{d_fast:.3e}; whole run {1e3 * f['wall'] / HI_LO_STEPS:.2f} ms "
+          f"per step [{card}]")
+    if rel > HI_LO_TRACK or sources != ["host", "pool"]:
+        raise SystemExit("[graph] the host-batch run left the K = 1 run")
+
+    for trainer, tag in ((tr, "dense"), (o["trainer"], "turbo"),
+                         (f["trainer"], "one-shot hi_lo")):
+        sync_check(trainer, tag)
+    print("[graph] sync check: one eager step each of dense, turbo and "
+          "one-shot hi_lo under set_sync_debug_mode('error'): no "
+          "synchronising operation")
+    print(f"[graph] phase took {time.perf_counter() - t0:.1f} s")
+    return recs
+
+
 def device_rows(prof):
     """(name, device ms) of the kernels the profiler saw on the card —
     the device events only, so a CPU-side op that launched a kernel (an
@@ -1787,6 +2095,15 @@ def profile_frame(params, o, d, cfg, tile=TILE, occ_grid=None):
         print(f"[profile]   {ms:9.3f} ms {100 * ms / busy:5.1f}%  {key[:70]}")
 
 
+def smi_line():
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def main():
     import torch
 
@@ -1807,13 +2124,17 @@ def main():
     fwd_train, bwds, ph_fine, ph_coarse = phase_backward(net)
     serve_launches = phase_serve(net)
     train_ds, val_ds = make_scene()
-    fwd_launches, *bwd_launches = phase_train(train_ds, val_ds)
+    train_run = phase_train(train_ds, val_ds)
+    fwd_launches, *bwd_launches = train_run["launches"]
     occ, occ_ph = phase_occ_kernels(net)
     occ_run = phase_occ_train(train_ds, val_ds)
     hi_lo_run = phase_occ_hi_lo(train_ds, val_ds)
     occ_serve_launches = phase_occ_serve(occ_run["trainer"])
     cli_launches = phase_inference()
     llff = phase_llff(net)
+    card = smi_line()
+    graph_recs = phase_graph(train_ds, val_ds, train_run, occ_run,
+                             hi_lo_run, card)
 
     # The forward runs on both paths, at different shapes: one record per
     # path, each with that path's launches and its fine call's times, and
@@ -1938,6 +2259,25 @@ def main():
                 "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"],
             })
+    # The dense step replayed from its CUDA graph (phase 9): launches and
+    # device ms per launch from the trace of the whole K = 16 run; errors,
+    # bounds, plain and library times from the kernels held on its trained
+    # net at its two calls (graph_kernels).
+    for (name, source, replaces), r in zip(
+            (("fused_mlp_fwd", "fused_mlp_fwd.cu", "pallas_mlp.py:264"),
+             ("fused_mlp_bwd_phase1", "fused_mlp_bwd.cu", "pallas_mlp.py:312"),
+             ("fused_mlp_bwd_phase2", "fused_mlp_bwd.cu", "pallas_mlp.py:386"),
+             ("fused_mlp_bwd_reduce", "fused_mlp_bwd.cu",
+              "pallas_mlp.py:327")),
+            graph_recs):
+        kernels.append({
+            "name": name + "_graph",
+            "path": "graph",
+            "route": "cuda",
+            "source": "nerfmlp_torch/csrc/" + source,
+            "replaces": "nerfmlp_tpu/ops/" + replaces,
+            **r,
+        })
     for rec in bwds + [occ["bwd probe"], occ["bwd refine"], occ["bwd hi_lo"],
                        llff["bwd"]]:
         print(f"[backward] {rec['label']} call, all three kernels: "
@@ -1945,12 +2285,7 @@ def main():
               f"spin); bound {rec['bound_ms']:.3f} ms "
               f"({rec['bound_by']}), design floor {rec['floor_ms']:.3f} ms")
     print(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi)
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

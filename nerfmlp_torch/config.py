@@ -136,9 +136,12 @@ class TrainConfig:
 
     The LR decays continuously, ``lr * rate ** (updates / steps)`` (the
     official schedule, example/run_nerf.py:705-709). ``steps_per_dispatch``
-    batched jit dispatches; PyTorch runs eagerly, so values above 1 raise
-    (CUDA graphs take its place, ROADMAP.md Queue 1 item 19). The mesh and
-    profiling fields in ``TRAIN_NOT_PORTED`` are kept and refused when set.
+    K > 1 runs the steps in windows of up to K with no Python between them:
+    on ``cuda`` one captured CUDA graph of the step, replayed (the JAX
+    package's jitted ``lax.scan``; ``train/graph.py``), on the CPU the same
+    step body eagerly; windows end at every step where the host has work.
+    The mesh and profiling fields in ``TRAIN_NOT_PORTED`` are kept and
+    refused when set.
     """
 
     batch_size: int = 1024

@@ -7,7 +7,11 @@ epoch) — the JAX package's ``fold_in(PRNGKey(seed), epoch)`` — gathers it
 into a (steps_per_epoch, B, F) batch stack; rays past the last full batch
 sit the epoch out, as in the host loader. A resumed run rebuilds the
 exact stack of the epoch it stopped in. The train step reads batch
-``step % steps_per_epoch`` of the stack.
+``step % steps_per_epoch`` of the stack: the host picks it
+(:meth:`DeviceRayPool.batch`), or the step picks it on the device from its
+step counter (:meth:`DeviceRayPool.batch_at`). Every epoch is written into
+the same stack tensor, so a CUDA graph that captured it reads each new
+epoch; the reshuffle runs between graph replays, never inside one.
 """
 
 from __future__ import annotations
@@ -61,8 +65,12 @@ class DeviceRayPool:
             n_use = self.steps_per_epoch * self.batch_size
             perm = torch.randperm(self._flat.shape[0], generator=gen,
                                   device=self.device)[:n_use]
-            self.stack = self._flat[perm].reshape(
+            stack = self._flat[perm].reshape(
                 self.steps_per_epoch, self.batch_size, -1)
+            if self.stack is None:
+                self.stack = stack
+            else:
+                self.stack.copy_(stack)   # in place: graphs hold its pointer
             self.epoch = epoch
         return self.stack
 
@@ -70,3 +78,10 @@ class DeviceRayPool:
         """The batch of the step after ``completed_steps``."""
         stack = self.ensure_epoch(self.epoch_of(completed_steps))
         return stack[completed_steps % self.steps_per_epoch]
+
+    def batch_at(self, counter: torch.Tensor) -> torch.Tensor:
+        """The batch of the step after ``counter`` updates, ``counter`` a
+        () integer tensor on the device: picked there, from the stack of
+        the current epoch (the caller keeps it current)."""
+        idx = torch.remainder(counter, self.steps_per_epoch).reshape(1)
+        return self.stack.index_select(0, idx)[0]

@@ -14,6 +14,8 @@ import functools
 import numpy as np
 import torch
 
+from nerfmlp_torch.ops import device_constant
+
 
 @functools.lru_cache(maxsize=None)
 def frequency_bands(num_freqs: int, log_sampling: bool = True) -> np.ndarray:
@@ -28,6 +30,16 @@ def frequency_bands(num_freqs: int, log_sampling: bool = True) -> np.ndarray:
     bands = bands.astype(np.float32)
     bands.setflags(write=False)
     return bands
+
+
+def band_tensor(num_freqs: int, log_sampling: bool, dtype: torch.dtype,
+                device) -> torch.Tensor:
+    """:func:`frequency_bands` on ``device`` in ``dtype``, copied once
+    (:func:`~nerfmlp_torch.ops.device_constant`; the fp32 bands are exact
+    Python floats, so the tensor holds the same bits)."""
+    return device_constant(
+        tuple(float(b) for b in frequency_bands(num_freqs, log_sampling)),
+        dtype, device)
 
 
 def encoded_dim(input_dim: int, num_freqs: int, include_input: bool = True) -> int:
@@ -47,8 +59,7 @@ def positional_encoding(
     """
     if num_freqs == 0:
         return x if include_input else x[..., :0]
-    bands = torch.from_numpy(frequency_bands(num_freqs, log_sampling).copy())
-    bands = bands.to(device=x.device, dtype=x.dtype)
+    bands = band_tensor(num_freqs, log_sampling, x.dtype, x.device)
     xb = x[..., None, :] * bands[:, None]                 # (..., L, D)
     sc = torch.stack([torch.sin(xb), torch.cos(xb)], dim=-2)  # (..., L, 2, D)
     enc = sc.reshape(*x.shape[:-1], 2 * num_freqs * x.shape[-1])

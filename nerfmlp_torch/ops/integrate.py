@@ -16,6 +16,28 @@ from typing import Dict, Optional
 
 import torch
 
+from nerfmlp_torch.ops import device_scalar
+
+
+class _PositiveCumprod(torch.autograd.Function):
+    """``torch.cumprod`` along the last axis of a tensor with no zero
+    entries. The forward is ``torch.cumprod``'s; the backward is the
+    branch ``cumprod_backward`` takes when the input has no zero,
+    ``reversed_cumsum(output * grad) / input``, bit for bit, without the
+    check for zeros that reads a flag back to the host (a synchronisation
+    that a CUDA graph cannot capture)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return (out * g).flip(-1).cumsum(-1).flip(-1).div(x)
+
 
 def composite_rays(
     raw: torch.Tensor,
@@ -37,7 +59,7 @@ def composite_rays(
     if far_cap is None:
         last = torch.full_like(dists[..., :1], 1e10)
     else:
-        cap = torch.as_tensor(far_cap, dtype=z_vals.dtype, device=z_vals.device)
+        cap = device_scalar(far_cap, z_vals.dtype, z_vals.device)
         if cap.dim() == z_vals.dim() - 1:   # per-ray (N,) -> (N, 1)
             cap = cap[..., None]
         cap = cap.expand_as(z_vals[..., :1])
@@ -56,9 +78,9 @@ def composite_rays(
     alpha = 1.0 - torch.exp(-torch.relu(sigma) * dists)
 
     ones = torch.ones_like(alpha[..., :1])
-    transmittance = torch.cumprod(
-        torch.cat([ones, 1.0 - alpha + 1e-10], dim=-1), dim=-1
-    )[..., :-1]
+    # Every factor is at least 1e-10: no zero.
+    transmittance = _PositiveCumprod.apply(
+        torch.cat([ones, 1.0 - alpha + 1e-10], dim=-1))[..., :-1]
     weights = alpha * transmittance
 
     rgb_map = torch.sum(weights[..., None] * rgb, dim=-2)

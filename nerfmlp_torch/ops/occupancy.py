@@ -27,6 +27,7 @@ import torch
 
 from nerfmlp_torch import resolve_device
 from nerfmlp_torch.config import RenderConfig
+from nerfmlp_torch.ops import device_constant
 
 # The constant view direction of a density query: sigma does not depend
 # on it, and the net's view head needs one.
@@ -56,8 +57,11 @@ def create_grid(resolution: int = 64, init_density: float = 0.02,
 
 
 def _box(aabb, device):
-    return (torch.tensor(aabb[:3], dtype=torch.float32, device=device),
-            torch.tensor(aabb[3:], dtype=torch.float32, device=device))
+    """The box's (min, max) corners on ``device``, copied once
+    (:func:`~nerfmlp_torch.ops.device_constant`)."""
+    return tuple(device_constant(tuple(float(v) for v in corner),
+                                 torch.float32, torch.device(device))
+                 for corner in (aabb[:3], aabb[3:]))
 
 
 def _cell_centers(resolution: int, aabb,
@@ -99,7 +103,8 @@ def update_grid(grid: OccupancyGrid, params: Dict, cfg: RenderConfig,
         net, fine = _final_net(prepare_params(params, cfg), cfg)
         dirs_enc = None
         if cfg.use_viewdirs:
-            const_dir = torch.tensor(_QUERY_DIR, device=dev).expand(g ** 3, 3)
+            const_dir = device_constant(_QUERY_DIR, torch.float32,
+                                        dev).expand(g ** 3, 3)
             dirs_enc = positional_encoding(const_dir, cfg.dir_enc_L)
         raw = _query_mlp(net, pts[:, None, :], dirs_enc, cfg, fine=fine)
         sigma = torch.relu(raw[:, 0, 3]).reshape(g, g, g)

@@ -21,6 +21,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from nerfmlp_torch.ops import device_constant, device_scalar
+
 
 def get_rays(H: int, W: int, focal: float, c2w: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -75,10 +77,12 @@ def intersect_aabb(rays_o: torch.Tensor, rays_d: torch.Tensor, box_min,
                    box_max, near, far) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-ray [near, far] tightened to the axis-aligned scene box (slab
     test); rays that miss keep the global bounds."""
-    box_min = torch.as_tensor(box_min, dtype=rays_o.dtype, device=rays_o.device)
-    box_max = torch.as_tensor(box_max, dtype=rays_o.dtype, device=rays_o.device)
-    near = torch.as_tensor(near, dtype=rays_o.dtype, device=rays_o.device)
-    far = torch.as_tensor(far, dtype=rays_o.dtype, device=rays_o.device)
+    dt, dev = rays_o.dtype, rays_o.device
+    box_min, box_max = (
+        b.to(dtype=dt, device=dev) if isinstance(b, torch.Tensor)
+        else device_constant(tuple(float(x) for x in b), dt, dev)
+        for b in (box_min, box_max))
+    near, far = device_scalar(near, dt, dev), device_scalar(far, dt, dev)
     inv_d = 1.0 / torch.where(rays_d.abs() < 1e-10,
                               torch.full_like(rays_d, 1e-10), rays_d)
     t0 = (box_min - rays_o) * inv_d

@@ -14,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from nerfmlp_torch.ops import device_scalar
+
 
 def _linspace01(n: int, device) -> torch.Tensor:
     """The float32 values of ``jnp.linspace(0, 1, n)``: ``i * fl(1/(n-1))``
@@ -24,12 +26,12 @@ def _linspace01(n: int, device) -> torch.Tensor:
         return torch.zeros(1, device=device)
     step = torch.ones((), dtype=torch.float32, device=device) / (n - 1)
     t = torch.arange(n, device=device, dtype=torch.float32) * step
-    t[-1] = 1.0
+    t[-1:].fill_(1.0)   # a fill on the device: no host copy (graph-safe)
     return t
 
 
 def _per_ray(v, n_rays: int, device) -> torch.Tensor:
-    v = torch.as_tensor(v, dtype=torch.float32, device=device)
+    v = device_scalar(v, torch.float32, device)
     return v.expand(n_rays)[:, None] if v.dim() == 0 else v.reshape(n_rays, 1)
 
 

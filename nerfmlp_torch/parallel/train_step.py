@@ -6,11 +6,13 @@ Counterpart of ``nerfmlp_tpu/parallel/train_step.py:30-127``
 optax's, term by term:
 
   * Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8 outside the
-    square root, bias correction): ``torch.optim.Adam`` computes the same
-    update;
+    square root, bias correction from Adam's own update count): :class:`Adam`,
+    written with ``torch._foreach_*`` operations so that its state and
+    every scalar it reads stay on the device;
   * the learning rate of update ``k`` (0-based: the number of updates
     before it) is ``lr * rate ** (k / steps)`` — optax's continuous
-    ``exponential_decay`` — set on the optimizer before each update;
+    ``exponential_decay`` — computed on the device from the state's step
+    counter (:func:`lr_tensor`);
   * ``grad_clip`` is ``clip_by_global_norm``: ``g / max(|g|, c) * c``,
     i.e. ``g * min(1, c / |g|)`` (``torch.nn.utils.clip_grad_norm_``
     adds 1e-6 to the norm, so it is not used);
@@ -23,8 +25,14 @@ autograd sums their gradients. With ``use_occupancy`` the step takes the
 density grid (``occ_grid``) and queries the net that renders the final
 image, once or twice; a net the loss does not reach (the coarse net under
 ``separate_fine``) gets a zero gradient, so Adam treats it as optax does.
-The step never reads a value back to the host: metrics stay device
-tensors.
+
+The step never reads a value back to the host and reads no host value
+that changes between steps: the step count it needs lives in a device
+counter, and metrics stay device tensors. So one step can be captured in
+a CUDA graph and replayed (``train/graph.py``, ``steps_per_dispatch``).
+Why a hand-written Adam and not ``torch.optim.Adam(capturable=True)``:
+the capturable mode refuses CPU tensors, and the CPU path has to run the
+very update that the graph replays.
 """
 
 from __future__ import annotations
@@ -43,30 +51,136 @@ ADAM_BETAS = (0.9, 0.999)   # optax.adam defaults
 ADAM_EPS = 1e-8
 
 
+class Adam:
+    """optax.adam over a fixed list of parameters: moments ``exp_avg`` and
+    ``exp_avg_sq`` and the update count ``count`` (fp32, Adam's own: it
+    drives the bias correction and restarts with fresh moments) live on
+    the parameters' device, and :meth:`step` takes the learning rate as a
+    device tensor, so an update reads nothing from the host. The state is
+    always materialised (zeros before the first update), and loading
+    writes into it in place, so a captured graph's pointers stay valid.
+    ``state_dict`` has ``torch.optim.Adam``'s layout, and either class
+    reads the other's."""
+
+    def __init__(self, params, betas=ADAM_BETAS, eps=ADAM_EPS):
+        self.params = list(params)
+        self.betas, self.eps = tuple(betas), float(eps)
+        dev = self.params[0].device
+        self.count = torch.zeros((), dtype=torch.float32, device=dev)
+        self.exp_avg = [torch.zeros_like(p) for p in self.params]
+        self.exp_avg_sq = [torch.zeros_like(p) for p in self.params]
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self, grads, lr: torch.Tensor) -> None:
+        """One update with ``grads`` (one per parameter) at learning rate
+        ``lr``, a 0-d device tensor: optax's ``scale_by_adam`` then
+        ``-lr``, in its order of operations."""
+        b1, b2 = self.betas
+        self.count.add_(1.0)
+        torch._foreach_mul_(self.exp_avg, b1)
+        torch._foreach_add_(self.exp_avg, grads, alpha=1.0 - b1)
+        torch._foreach_mul_(self.exp_avg_sq, b2)
+        torch._foreach_addcmul_(self.exp_avg_sq, grads, grads, value=1.0 - b2)
+        bc1 = 1.0 - torch.pow(b1, self.count)
+        bc2 = 1.0 - torch.pow(b2, self.count)
+        denom = torch._foreach_div(self.exp_avg_sq, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        upd = torch._foreach_div(self.exp_avg, bc1)
+        torch._foreach_div_(upd, denom)
+        torch._foreach_mul_(upd, -lr)
+        torch._foreach_add_(self.params, upd)
+
+    @torch.no_grad()
+    def reset(self) -> None:
+        """Fresh moments and count, in place."""
+        self.count.zero_()
+        for t in self.exp_avg + self.exp_avg_sq:
+            t.zero_()
+
+    def state_dict(self) -> Dict:
+        """Copies, one ``step`` per parameter: ``torch.optim.Adam`` adds 1
+        to each parameter's ``step`` in place, so a shared tensor would
+        count once per parameter. The group holds every key of
+        ``torch.optim.Adam``'s; its ``lr`` is that class's default, as the
+        rate is set per update."""
+        group = torch.optim.Adam([torch.zeros(())], betas=self.betas,
+                                 eps=self.eps).state_dict()["param_groups"][0]
+        group["params"] = list(range(len(self.params)))
+        return {
+            "state": {i: {"step": self.count.clone(), "exp_avg": m.clone(),
+                          "exp_avg_sq": v.clone()}
+                      for i, (m, v) in enumerate(zip(self.exp_avg,
+                                                     self.exp_avg_sq))},
+            "param_groups": [group],
+        }
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: Dict) -> None:
+        """Copy a state in (this class's or ``torch.optim.Adam``'s, whose
+        state is empty before its first update), in place."""
+        state = sd["state"]
+        if not state:
+            self.reset()
+            return
+        if sorted(state) != list(range(len(self.params))):
+            raise ValueError(f"optimizer state for {len(state)} parameters, "
+                             f"this run has {len(self.params)}")
+        for i, (m, v) in enumerate(zip(self.exp_avg, self.exp_avg_sq)):
+            m.copy_(state[i]["exp_avg"])
+            v.copy_(state[i]["exp_avg_sq"])
+        self.count.fill_(float(state[0]["step"]))
+
+
 @dataclasses.dataclass
 class TrainState:
     """Everything a step mutates: the update count, the nets, Adam and
-    the generator that draws the stratified jitter and noise."""
+    the generator that draws the stratified jitter and noise.
+
+    ``step`` is the host's count of updates; ``counter`` the same count as
+    a () int64 tensor on the nets' device, which the step reads (learning
+    rate, device-pool batch) and advances, so that a replayed graph
+    counts too. Between steps they agree; :meth:`set_step` sets both."""
 
     step: int
     params: Dict[str, NeRFMLP]     # {"coarse": net, ["fine": net]}
-    optimizer: torch.optim.Adam
+    optimizer: Adam
     generator: torch.Generator
+    counter: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.counter is None:
+            dev = next(self.params["coarse"].parameters()).device
+            self.counter = torch.zeros((), dtype=torch.int64, device=dev)
+            self.counter.fill_(int(self.step))
+
+    def set_step(self, step: int) -> None:
+        self.step = int(step)
+        self.counter.fill_(self.step)
 
 
 def lr_at(tc: TrainConfig, count: int) -> float:
     """Learning rate of the update that follows ``count`` updates
-    (optax ``exponential_decay``, not staircase)."""
+    (optax ``exponential_decay``, not staircase), on the host: the log's."""
     return tc.lr * tc.lr_decay_rate ** (count / tc.lr_decay_steps)
 
 
-def make_optimizer(params: Dict[str, NeRFMLP],
-                   tc: TrainConfig) -> torch.optim.Adam:
+def lr_tensor(tc: TrainConfig, counter: torch.Tensor) -> torch.Tensor:
+    """:func:`lr_at` on the device, in fp32 as optax computes it, from the
+    () integer ``counter``."""
+    return tc.lr * torch.pow(tc.lr_decay_rate,
+                             counter.to(torch.float32) / tc.lr_decay_steps)
+
+
+def make_optimizer(params: Dict[str, NeRFMLP], tc: TrainConfig) -> Adam:
     """Adam over every net's parameters, optax's defaults; the learning
-    rate is set per update by the step (:func:`lr_at`)."""
-    return torch.optim.Adam(
-        [p for net in params.values() for p in net.parameters()],
-        lr=tc.lr, betas=ADAM_BETAS, eps=ADAM_EPS)
+    rate comes with each update (:func:`lr_tensor`)."""
+    return Adam([p for net in params.values() for p in net.parameters()],
+                betas=ADAM_BETAS, eps=ADAM_EPS)
 
 
 def create_train_state(rc: RenderConfig, tc: TrainConfig,
@@ -116,37 +230,48 @@ def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
 
 
-def make_step_fn(rc: RenderConfig, tc: TrainConfig):
-    """The update rule ``step_fn(state, batch[, occ_grid]) -> metrics``:
-    one step in place on ``state``. Metrics are device tensors: loss, psnr,
-    grad_norm and total_loss."""
+def make_step_body(rc: RenderConfig, tc: TrainConfig):
+    """The update rule on the device, ``body(state, batch[, occ_grid]) ->
+    metrics``: one step in place on the state's nets, Adam and counter,
+    the host's ``state.step`` left alone. It reads no host value that
+    changes between steps and reads nothing back, so it can be captured
+    in a CUDA graph. Metrics are device tensors: loss, psnr, grad_norm and
+    total_loss."""
 
-    def step_fn(state: TrainState, batch: torch.Tensor, occ_grid=None
-                ) -> Dict[str, torch.Tensor]:
-        state.optimizer.zero_grad(set_to_none=True)
+    def body(state: TrainState, batch: torch.Tensor, occ_grid=None
+             ) -> Dict[str, torch.Tensor]:
+        opt = state.optimizer
+        opt.zero_grad()
         params = prepare_params(state.params, rc, backward=True)  # once a step
         loss, metrics = loss_and_metrics(params, batch, state.generator,
                                          rc, tc, occ_grid)
         loss.backward()
-        grads = []
-        for group in state.optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    # Not reached by the loss: optax's zero gradient, so the
-                    # moments decay and the update count stays shared.
-                    p.grad = torch.zeros_like(p)
-                grads.append(p.grad)
+        # A parameter the loss does not reach gets optax's zero gradient,
+        # so its moments decay and the update count stays shared.
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in opt.params]
         gnorm = global_norm(grads)
         if tc.grad_clip > 0:
             clip = tc.grad_clip
             scale = torch.where(gnorm < clip, torch.ones_like(gnorm),
                                 clip / gnorm)
-            for g in grads:
-                g.mul_(scale)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr_at(tc, state.step)
-        state.optimizer.step()
-        state.step += 1
+            torch._foreach_mul_(grads, scale)
+        opt.step(grads, lr_tensor(tc, state.counter))
+        state.counter.add_(1)
         return dict(metrics, grad_norm=gnorm, total_loss=loss.detach())
+
+    return body
+
+
+def make_step_fn(rc: RenderConfig, tc: TrainConfig):
+    """One eager step, ``step_fn(state, batch[, occ_grid]) -> metrics``:
+    :func:`make_step_body`'s update, then the host's step count."""
+    body = make_step_body(rc, tc)
+
+    def step_fn(state: TrainState, batch: torch.Tensor, occ_grid=None
+                ) -> Dict[str, torch.Tensor]:
+        metrics = body(state, batch, occ_grid)
+        state.step += 1
+        return metrics
 
     return step_fn

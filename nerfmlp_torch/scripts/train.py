@@ -137,8 +137,11 @@ def build_parser():
     p.add_argument("--netchunk", type=int, default=0,
                    help="accepted for oracle config compatibility")
     p.add_argument("--steps_per_dispatch", type=int, default=1,
-                   help="only 1: PyTorch runs eagerly (CUDA graphs are "
-                        "ROADMAP.md, Queue 1 item 19)")
+                   help="K > 1: run the steps in windows of up to K with no "
+                        "Python between them (on cuda, a captured CUDA "
+                        "graph of the step replayed; windows end at every "
+                        "log / validation / checkpoint / event / grid "
+                        "refresh step)")
     p.add_argument("--device_pool", action="store_true", default=True,
                    help="keep the ray pool on the device (default)")
     p.add_argument("--no_device_pool", dest="device_pool",

@@ -9,11 +9,17 @@ and latest checkpoints; auto-resume; the metrics JSON in the reference
 schema; occupancy-grid sampling, with the grid refreshed on the JAX
 Trainer's schedule and rebuilt on resume; the in-training render events
 (``i_video``: orbit videos, ``i_testset``: test-set sweeps with per-frame
-PSNR, ``i_img``: held-out frames, ``render_factor``). Left out, and refused
-when asked for: ``i_mesh``, TensorBoard, ``profile_dir`` and tensor
-parallelism (each raises a ``NotImplementedError`` naming its ROADMAP
-item), and ``steps_per_dispatch`` above 1 (CUDA graphs take its place
-later).
+PSNR, ``i_img``: held-out frames, ``render_factor``); ``steps_per_dispatch``
+K > 1: windows of up to K steps with no Python between them, a captured
+CUDA graph of the step replayed (``train/graph.py``), the windows ending
+at every step where the host has work, as the JAX Trainer's scan windows
+do (:func:`dispatch_window`). At K = 1, the default, the loop calls
+``step_fn`` once a step on the pool's batch or the host batch copied
+straight in: a window of one step gains nothing from a graph, and the
+static batch buffer and slot counter a window reads would only add a
+copy and an index to every step. Left out, and refused when asked for:
+``i_mesh``, TensorBoard, ``profile_dir`` and tensor parallelism (each
+raises a ``NotImplementedError`` naming its ROADMAP item).
 
 The hot loop never waits for the card: loss and PSNR stay device tensors,
 summed on the device, and are read back at log and validation steps
@@ -38,13 +44,38 @@ from nerfmlp_torch.data import image_viewdirs
 from nerfmlp_torch.data.device_pool import DeviceRayPool
 from nerfmlp_torch.data.pipeline import RayBatchLoader
 from nerfmlp_torch.parallel.train_step import (
-    create_train_state, lr_at, make_optimizer, make_step_fn,
+    create_train_state, lr_at, make_step_body, make_step_fn,
 )
 from nerfmlp_torch.train import checkpoint as ckpt
+from nerfmlp_torch.train.graph import StepWindows
 from nerfmlp_torch.train.metrics import (
     calculate_etc, format_time_duration, get_memory_usage_gb, psnr_images,
     ssim,
 )
+
+
+def dispatch_window(
+    step: int, iters: int, max_w: int, intervals, stop_steps=()
+) -> int:
+    """Size of the dispatch window starting at ``step`` (1-based, inclusive).
+
+    The window [step, step+w-1] may contain a host-action step ONLY at its
+    last position, so every ``step % interval == 0`` event block fires on
+    exactly the same steps as single-step dispatch. ``intervals``: active
+    periods whose multiples need host work (logging, validation,
+    checkpoints, render events, occupancy refresh). ``stop_steps``: one-off
+    boundaries (the precrop transition). Zero/None entries are ignored.
+    (The JAX package's ``nerfmlp_tpu/train/loop.py:38-58``, copied.)
+    """
+    w = min(max_w, iters - step + 1)
+    for ivl in intervals:
+        if ivl:
+            nxt = ((step + ivl - 1) // ivl) * ivl  # next multiple >= step
+            w = min(w, nxt - step + 1)
+    for s in stop_steps:
+        if s and step <= s:
+            w = min(w, s - step + 1)
+    return max(w, 1)
 
 
 def check_supported(tc: TrainConfig) -> None:
@@ -56,11 +87,6 @@ def check_supported(tc: TrainConfig) -> None:
             raise NotImplementedError(
                 f"TrainConfig.{name}={getattr(tc, name)!r}: {what} is not "
                 "ported to PyTorch yet")
-    if tc.steps_per_dispatch > 1:
-        raise NotImplementedError(
-            f"steps_per_dispatch={tc.steps_per_dispatch}: PyTorch runs "
-            "eagerly; CUDA graphs of the train step take its place "
-            "(ROADMAP.md, Queue 1 item 19)")
 
 
 class Trainer:
@@ -76,7 +102,10 @@ class Trainer:
     ``test_ds``: the held-out split of the ``i_testset`` event.
     ``device``: default ``cuda``; ``"cpu"`` runs the plain versions of the
     kernels. Starting a Trainer keeps TF32 off process-wide
-    (:func:`nerfmlp_torch.use_true_fp32`)."""
+    (:func:`nerfmlp_torch.use_true_fp32`). With ``steps_per_dispatch`` K >
+    1 the steps run in windows (``self.windows``): on ``cuda`` a CUDA
+    graph of one step, captured at the first window of each batch source
+    and replayed; on the CPU the same step body, eagerly."""
 
     # iteration_times cap: past it the oldest half is folded into the
     # dropped counters, so the JSON stays bounded.
@@ -107,12 +136,15 @@ class Trainer:
         self.state = create_train_state(rc, tc, self.device)
         self.step_fn = make_step_fn(rc, tc)
         # Occupancy-grid sampling state (ops/occupancy.py): derived from the
-        # nets, refreshed in train() and rebuilt on resume, not saved.
+        # nets, refreshed in train() and rebuilt on resume (in place: a
+        # captured step reads its density), not saved.
         self.occ_grid = None
         if rc.use_occupancy:
             from nerfmlp_torch.ops.occupancy import create_grid
 
             self.occ_grid = create_grid(rc.occ_grid_size, device=self.device)
+        # The running [loss, psnr] sums between validations, on the device.
+        self._sums = torch.zeros(2, device=self.device)
         self.loader = RayBatchLoader.from_dataset(
             train_ds, tc.batch_size, seed=tc.seed, image_mode=tc.no_batching)
         # The device pool: no host->device copy per step. The host loader
@@ -129,6 +161,11 @@ class Trainer:
             else:
                 self.pool = DeviceRayPool(self.loader.pool, tc.batch_size,
                                           seed=tc.seed, device=self.device)
+        self.windows = None
+        if tc.steps_per_dispatch > 1:
+            self.windows = StepWindows(self.state, make_step_body(rc, tc),
+                                       tc.steps_per_dispatch, self._sums,
+                                       pool=self.pool, occ_grid=self.occ_grid)
 
         # Metric histories (the reference schema, its train.py:457-467).
         self.history: Dict = {
@@ -164,8 +201,9 @@ class Trainer:
 
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self._OCC_SEED * 1_000_003 + seed_step)
-        self.occ_grid = update_grid(self.occ_grid, self.state.params, self.rc,
-                                    gen, decay=decay)
+        new = update_grid(self.occ_grid, self.state.params, self.rc, gen,
+                          decay=decay)
+        self.occ_grid.density.copy_(new.density)
 
     def _render_view(self, dataset, idx: int) -> tuple:
         """Deterministic render of one held-out view, and its ground
@@ -298,16 +336,18 @@ class Trainer:
                       "fresh")
             return False
         st = self.state
+        # Everything is written into the live tensors, so a captured step
+        # (steps_per_dispatch) stays valid and a run resumes at any K.
         if ckpt.is_train_state(raw):
             self._load_params(raw["params"], path)
             st.optimizer.load_state_dict(raw["opt_state"])
             st.generator.set_state(raw["generator"])
-            st.step = int(raw["step"])
+            st.set_step(int(raw["step"]))
         else:
             self._load_params(raw if "coarse" in raw else {"coarse": raw},
                               path)
-            st.step = ckpt.step_from_filename(path)
-            st.optimizer = make_optimizer(st.params, self.tc)
+            st.set_step(ckpt.step_from_filename(path))
+            st.optimizer.reset()
             if st.step == 0 and os.path.basename(path) != "model_0.pt":
                 self._log(
                     f"⚠️  cannot infer the training step from "
@@ -364,8 +404,8 @@ class Trainer:
         start_step = int(self.history["step"])
         start_time = time.time()
         dev = self.device
-        run_loss = torch.zeros((), device=dev)
-        run_psnr = torch.zeros((), device=dev)
+        sums = self._sums          # [loss, psnr] since the last validation
+        sums.zero_()
         run_count = 0
         self._log(
             f"Training: {len(self.train_ds):,} rays | batch {tc.batch_size} | "
@@ -380,19 +420,39 @@ class Trainer:
         if self.pool is not None:
             self._log(f"📍 device ray pool: {len(self.pool):,} rays on "
                       f"{dev}, {self.pool.steps_per_epoch:,} steps/epoch")
+        windowed = self.windows is not None
+        if windowed:
+            # Windows end exactly at every step where the blocks below need
+            # host work, so the events fire on the same steps as at K = 1.
+            intervals = [tc.log_interval, tc.ckpt_interval, tc.i_video,
+                         tc.i_testset, tc.i_img]
+            if self.quick_val_ds is not None:
+                intervals.append(tc.quick_val_interval)
+            if self.val_ds is not None:
+                intervals.append(tc.full_val_interval)
+            if self.occ_grid is not None:
+                intervals.append(rc.occ_update_every)
+            self._log(f"🔁 steps_per_dispatch {tc.steps_per_dispatch}: "
+                      + ("CUDA-graph replays" if dev.type == "cuda"
+                         else "eager windows on the CPU"))
 
         t_prev = time.time()
         step = start_step
         while step < iters:
-            s = step + 1
+            s = step + 1   # the first step of this window
             if tc.precrop_iters > 0 and s == tc.precrop_iters + 1:
                 self.loader.set_precrop(1.0)
                 self._log(f"🎯 precrop off at iter {s:,}")
-            if self.pool is not None and s > tc.precrop_iters:
-                batch = self.pool.batch(s - 1)
-            else:
-                batch = torch.from_numpy(self.loader.next_batch()).to(
-                    dev, non_blocking=True)
+            w = 1
+            if windowed:
+                w = dispatch_window(s, iters, tc.steps_per_dispatch,
+                                    intervals, stop_steps=(tc.precrop_iters,))
+            pool_active = self.pool is not None and s > tc.precrop_iters
+            if pool_active:
+                # A window reads one epoch's stack: it ends at the reshuffle.
+                spe = self.pool.steps_per_epoch
+                w = min(w, spe - ((s - 1) % spe))
+                self.pool.ensure_epoch(self.pool.epoch_of(s - 1))
             occ_args = ()
             if self.occ_grid is not None:
                 if (s - 1) % rc.occ_update_every == 0:
@@ -402,16 +462,26 @@ class Trainer:
                     self._occ_update(
                         s, 1.0 if s <= rc.occ_warmup_steps else 0.95)
                 occ_args = (self.occ_grid,)
-            metrics = self.step_fn(self.state, batch, *occ_args)
-            run_loss += metrics["loss"]
-            run_psnr += metrics["psnr"]
-            run_count += 1
-            step = s
+            if windowed and pool_active:
+                metrics = self.windows.run_pool(w)
+            elif windowed:
+                metrics = self.windows.run_host(np.stack(
+                    [self.loader.next_batch() for _ in range(w)]))
+            else:
+                if pool_active:
+                    batch = self.pool.batch(s - 1)
+                else:
+                    batch = torch.from_numpy(self.loader.next_batch()).to(
+                        dev, non_blocking=True)
+                metrics = self.step_fn(self.state, batch, *occ_args)
+                sums.add_(torch.stack((metrics["loss"], metrics["psnr"])))
+            run_count += w
+            step = s + w - 1
             self.history["step"] = step
 
             now = time.time()
             it = self.history["iteration_times"]
-            it.append(now - t_prev)
+            it.extend([(now - t_prev) / w] * w)
             t_prev = now
             if len(it) > self._ITER_TIMES_CAP:
                 drop = len(it) // 2
@@ -433,11 +503,10 @@ class Trainer:
 
             if (tc.quick_val_interval and step % tc.quick_val_interval == 0
                     and self.quick_val_ds is not None):
-                self._quick_val_block(step, iters, start_time,
-                                      float(run_loss), float(run_psnr),
-                                      run_count)
-                run_loss.zero_()
-                run_psnr.zero_()
+                run_loss, run_psnr = sums.tolist()
+                self._quick_val_block(step, iters, start_time, run_loss,
+                                      run_psnr, run_count)
+                sums.zero_()
                 run_count = 0
                 t_prev = time.time()
 

@@ -43,7 +43,8 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
             "nerfmlp_torch.scripts.train_only",
             "nerfmlp_torch.scripts.zoom_example",
             "nerfmlp_torch.scripts.serve", "nerfmlp_torch.data.llff",
-            "nerfmlp_torch.data.deepvoxels"} <= set(mods)
+            "nerfmlp_torch.data.deepvoxels",
+            "nerfmlp_torch.train.graph"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -122,19 +122,19 @@ def test_lr_schedule_matches_optax():
 
 
 def test_adam_update_equals_optax():
-    """torch.optim.Adam with optax's defaults computes optax.adam's update
-    (eps outside the square root, bias correction), step by step."""
+    """The port's Adam (optax's defaults, its learning rate a device
+    tensor) computes optax.adam's update (eps outside the square root,
+    bias correction), step by step."""
     rng = np.random.default_rng(0)
     w0 = rng.normal(size=(7, 5)).astype(np.float32)
     gs = [rng.normal(size=(7, 5)).astype(np.float32) * s
           for s in (1.0, 1e-3, 10.0)]
     p = torch.nn.Parameter(torch.from_numpy(w0.copy()))
-    opt = torch.optim.Adam([p], lr=1e-2, betas=ts.ADAM_BETAS, eps=ts.ADAM_EPS)
+    opt = ts.Adam([p], betas=ts.ADAM_BETAS, eps=ts.ADAM_EPS)
     ox = optax.adam(1e-2)
     w, st = jnp.asarray(w0), ox.init(jnp.asarray(w0))
     for g in gs:
-        p.grad = torch.from_numpy(g)
-        opt.step()
+        opt.step([torch.from_numpy(g)], torch.tensor(1e-2))
         upd, st = ox.update(jnp.asarray(g), st, w)
         w = optax.apply_updates(w, upd)
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(w),
@@ -230,5 +230,5 @@ def test_create_train_state_is_seeded():
             assert torch.equal(p, q), n
     assert not torch.equal(a.params["coarse"].pts_linears[0].weight,
                            a.params["fine"].pts_linears[0].weight)
-    assert len(a.optimizer.param_groups[0]["params"]) == 2 * len(
+    assert len(a.optimizer.params) == 2 * len(
         list(a.params["coarse"].parameters()))

@@ -110,8 +110,10 @@ def test_resume_from_params_only_checkpoint(scene, tmp_path):
     tr.train()
     again = _trainer(scene, tmp_path / "b")
     assert again.resume(str(tmp_path / "model_12.pt"))
-    assert again.state.step == 12
-    assert not again.state.optimizer.state      # fresh Adam moments
+    assert again.state.step == 12 and int(again.state.counter) == 12
+    opt = again.state.optimizer                 # fresh Adam moments
+    assert float(opt.count) == 0
+    assert not any(t.any() for t in opt.exp_avg + opt.exp_avg_sq)
     assert not again.resume(str(tmp_path / "missing.pt"))
     wide = Trainer(dataclasses.replace(RC, width=48), TC, scene[0],
                    save_dir=str(tmp_path / "c"), device="cpu", verbose=False)
@@ -121,8 +123,7 @@ def test_resume_from_params_only_checkpoint(scene, tmp_path):
 
 @pytest.mark.parametrize("field, value, item", [
     ("i_mesh", 10, "item 17"),
-    ("profile_dir", "/tmp/x", "item 21"), ("steps_per_dispatch", 4,
-                                           "item 19"),
+    ("profile_dir", "/tmp/x", "item 21"),
 ])
 def test_trainer_refuses_what_is_not_ported(scene, field, value, item):
     with pytest.raises(NotImplementedError, match=item):
