@@ -103,12 +103,29 @@ Phases, each fatal on failure:
      the pool; its last losses within 1% of K = 1's); each K = 16 and
      K = 1 step timed synchronised and profiled over a 16-step window
      (busy, wall, idle share), beside the card's name and power limit; one
-     eager step of each recipe under set_sync_debug_mode('error').
+     eager step of each recipe under set_sync_debug_mode('error');
+ 10. mesh extraction and hot reload ("mesh"): the turbo model phase 6
+     trained, through extract_mesh at 128^3 and 256^3 with the kernel and
+     with use_kernel=False: the density volume against the kernel's plain
+     version on the same points (1e-2 of its largest value), every kernel
+     vertex within a cell diagonal of the plain version's mesh and 99.9%
+     of them within one of the module path's mesh, the faces within 2% of
+     the module path's, the tet stage on the card equal to the CPU's on
+     the same cells, ceil(G^3 / 65,536) + ceil(V / 65,536) forward
+     launches, the default iso level 25 (or, if the model's sigma never
+     reaches it, one inside its range), each stage timed at 256^3; the serve CLI with --watch 0.5 on a train CLI run (a
+     subprocess: the turbo config at 64x64, a checkpoint every 50 steps,
+     K = 16): at least two swaps, /health on the last step written, a
+     frame served after the last swap bit-equal to a fresh service's from
+     that file, POST /reload with nothing new, POST /mesh in json (counts
+     equal to extract_mesh's on those weights), ply and obj; the train CLI
+     with --i_mesh 100 for 200 steps at K = 16 (one .ply, at step 100).
 Then it prints the kernels' JSON line, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Weights are random, from a seed.
 It exits non-zero, printing no result, without a CUDA device.
 """
 
+import contextlib
 import dataclasses
 import glob
 import io
@@ -209,6 +226,18 @@ GRAPH_HOST_K = 8          # ... for the one-shot run's host (precrop) windows
 GRAPH_PSNR_GAP = 0.5      # turbo at GRAPH_K vs K = 1, dB
 PARAM_RTOL, PARAM_ATOL = 2e-4, 2e-6   # K = 16 vs K = 1 parameters and
 LOSS_RTOL = 1e-3          # losses: the JAX package's bars for its scan
+MESH_RES = (128, 256)     # phase 10's grids: 256 is the served cap
+MESH_ISO = 25.0           # the default iso level (sigma)
+MESH_CHUNK = 65536        # points per density query, vertices per colour one
+MESH_FACE_GAP = 0.02      # the kernel mesh's faces vs the module path's
+MESH_TET_TOL = 1e-6       # the card's tet stage vs the CPU's, vertices
+MESH_WATCH = 0.5          # the serve CLI's --watch, seconds
+MESH_SERVE_RES = 128      # ... and its --max_mesh_resolution
+MESH_CKPT_EVERY = 50      # the watched train run's --i_weights, and
+MESH_RELOAD_STEPS = 1000  # its steps (20 checkpoints, ~4 s at K = 16)
+MESH_EVENT = 100          # --i_mesh of the 200-step run at K = 16, and
+MESH_EVENT_ISO = 1.0      # its --mesh_threshold: that model's sigma peaks
+#                           near 2.8 at step 100 (25 would give no faces)
 KERNEL_NAMES = ("fused_mlp_fwd_kernel", "bwd_phase1_kernel",
                 "bwd_phase2_kernel", "reduce_partials_kernel")
 
@@ -2095,6 +2124,416 @@ def profile_frame(params, o, d, cfg, tile=TILE, occ_grid=None):
         print(f"[profile]   {ms:9.3f} ms {100 * ms / busy:5.1f}%  {key[:70]}")
 
 
+@contextlib.contextmanager
+def plain_forward():
+    """A context in which ``_query_mlp`` runs the forward kernel's plain
+    version (``fused_nerf_mlp_plain``, bf16) on the card in the kernel's
+    place: the same path, the same inputs."""
+    import torch
+
+    from nerfmlp_torch.ops import fused_mlp
+    from nerfmlp_torch.ops import render as render_mod
+
+    def plain(params, pts, dirs, cfg, mc=None):
+        net = params.net if isinstance(params, fused_mlp.PackedMLP) else params
+        return fused_mlp.fused_nerf_mlp_plain(net, pts, dirs, cfg.pos_enc_L,
+                                              torch.bfloat16, False)
+
+    inner = render_mod.fused_nerf_mlp
+    render_mod.fused_nerf_mlp = plain
+    try:
+        yield
+    finally:
+        render_mod.fused_nerf_mlp = inner
+
+
+def nearest(a, b, reach, rows=4096):
+    """Distance from each point of ``a`` (N, 3) to its nearest point of
+    ``b`` (M, 3), exact up to ``reach`` (beyond it: a lower bound, or inf),
+    on the card: both sorted by x, each chunk of ``rows`` points of ``a``
+    against the points of ``b`` within ``reach`` of its x range."""
+    import numpy as np
+    import torch
+
+    a = a[np.argsort(a[:, 0], kind="stable")]
+    b = b[np.argsort(b[:, 0], kind="stable")]
+    bt = torch.from_numpy(b).cuda()
+    out = []
+    for s in range(0, len(a), rows):
+        blk = a[s:s + rows]
+        lo = np.searchsorted(b[:, 0], blk[0, 0] - reach, "left")
+        hi = np.searchsorted(b[:, 0], blk[-1, 0] + reach, "right")
+        if hi <= lo:
+            out.append(torch.full((len(blk),), float("inf"), device="cuda"))
+            continue
+        out.append(torch.cdist(torch.from_numpy(blk).cuda(),
+                               bt[lo:hi]).min(1).values)
+    return torch.cat(out).cpu().numpy()
+
+
+def ply_counts(body):
+    """(vertices, faces, property names) from a PLY's header."""
+    head = body.partition(b"end_header\n")[0].decode("ascii").splitlines()
+    count = {ln.split()[1]: int(ln.split()[2]) for ln in head
+             if ln.startswith("element ")}
+    names = [ln.split()[2] for ln in head if ln.startswith("property ")
+             and "list" not in ln]
+    return count["vertex"], count["face"], names
+
+
+class PathLaunches:
+    """Count the forward launches of ``density_volume`` and
+    ``vertex_colors`` inside ``with`` blocks (``Timed``), summed over the
+    blocks in ``self.density`` and ``self.colours``."""
+
+    def __init__(self):
+        self.density = self.colours = 0
+
+    @contextlib.contextmanager
+    def __call__(self):
+        from nerfmlp_torch.ops import mesh as mesh_mod
+
+        with Timed(mesh_mod, "density_volume") as d, \
+                Timed(mesh_mod, "vertex_colors") as c:
+            yield
+        self.density += sum(d.fwd)
+        self.colours += sum(c.fwd)
+
+
+def mesh_extract(params, cfg, g, thr, tag, card):
+    """extract_mesh at ``g``^3, its stages timed (synchronised) and its
+    forward launches counted; returns (mesh, {stage: s}, launches of the
+    density and the colour bake)."""
+    from nerfmlp_torch.ops import mesh as mesh_mod
+
+    with Timed(mesh_mod, "density_volume") as dens, \
+            Timed(mesh_mod, "_active_cells") as comp, \
+            Timed(mesh_mod, "_tet_stage") as tets, \
+            Timed(mesh_mod, "_weld_and_orient") as weld, \
+            Timed(mesh_mod, "vertex_colors") as bake:
+        t0 = time.perf_counter()
+        m = mesh_mod.extract_mesh(params, cfg, resolution=g, threshold=thr,
+                                  density_chunk=MESH_CHUNK)
+        total = time.perf_counter() - t0
+    stages = {"density": dens.times[0], "compaction": comp.times[0],
+              "tets": tets.times[0], "weld+orient": weld.times[0],
+              "colours": bake.times[0], "total": total}
+    print(f"[mesh] {tag} {g}^3 iso {thr:g}: {len(m['verts'])} verts, "
+          f"{len(m['faces'])} faces, sigma in [{m['sigma_min']:.3g}, "
+          f"{m['sigma_max']:.3g}]; forward launches {dens.fwd[0]} + "
+          f"{bake.fwd[0]}; s " + ", ".join(f"{k} {v:.3f}"
+                                           for k, v in stages.items())
+          + f" [{card}]")
+    return m, stages, (dens.fwd[0], bake.fwd[0])
+
+
+def phase_mesh(turbo_ckpt, card):
+    """Mesh extraction and hot reload on the card (the module docstring,
+    phase 10). Returns the forward's two records (path ``mesh``)."""
+    import numpy as np
+    import torch
+
+    from nerfmlp_torch.ops import fused_mlp
+    from nerfmlp_torch.ops import mesh as mesh_mod
+    from nerfmlp_torch.ops.encoding import positional_encoding
+    from nerfmlp_torch.ops.occupancy import _QUERY_DIR
+    from nerfmlp_torch.ops.rays import pose_spherical
+    from nerfmlp_torch.scripts import serve as serve_cli
+    from nerfmlp_torch.scripts import train as train_cli
+    from nerfmlp_torch.serve import RenderServer
+    from nerfmlp_torch.train import loop
+    from nerfmlp_torch.train.checkpoint import load_params_any
+
+    t0 = time.perf_counter()
+    root = os.path.join(SMOKE_DIR, "mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    box = [str(v) for v in OCC_AABB]
+    occ = ["--use_occupancy", "--aabb", *box, "--N_samples", str(OCC_PROBE),
+           "--N_importance", str(OCC_REFINE), "--occ_dense_samples",
+           str(OCC_DENSE)]
+    flags = occ + ["--focal", str(FOCAL), "--img_wh", str(W), str(H)]
+    # The turbo recipe's config: its box, net, bf16 through the kernel.
+    cfg = dataclasses.replace(turbo_configs(2.0, 6.0)[0], perturb=False)
+    params = load_params_any(turbo_ckpt, cfg.model_config(), device="cuda")
+    plain = dataclasses.replace(cfg, use_kernel=False)
+
+    # -- extract_mesh at 128^3 and 256^3, kernel against module path -----
+    counters = (fused_mlp.fused_nerf_mlp, fused_mlp.bwd_workspace,
+                fused_mlp.weight_grads, fused_mlp.reduce_partials)
+    for c in counters:
+        c.launches = 0
+    probe = mesh_mod.density_volume(params, cfg, resolution=MESH_RES[0])
+    lo, hi = float(probe.min()), float(probe.max())
+    thr = MESH_ISO if hi > MESH_ISO else 0.5 * (lo + hi)
+    print(f"[mesh] the turbo model's sigma at {MESH_RES[0]}^3 lies in "
+          f"[{lo:.3g}, {hi:.3g}]: iso level {thr:g}"
+          + ("" if thr == MESH_ISO else f" (inside the range: the model "
+             f"never reaches the default {MESH_ISO:g})"))
+    # The path's launches: the kernel extractions, the served meshes and
+    # the i_mesh event; not the threshold probe above, nor the volumes
+    # recomputed below to hold against the plain version.
+    path = PathLaunches()
+    results = {}
+    for g in MESH_RES:
+        with path():
+            mk, stages, (nd, nc) = mesh_extract(params, cfg, g, thr,
+                                                "kernel", card)
+        if not len(mk["faces"]):
+            raise SystemExit(f"[mesh] the kernel's mesh at {g}^3 is empty")
+        mp, pstages, _ = mesh_extract(params, plain, g, thr,
+                                      "module path (use_kernel=False)", card)
+        want = (-(-g ** 3 // MESH_CHUNK), -(-len(mk["verts"]) // MESH_CHUNK))
+        # The volume through the kernel's plain version, same points.
+        vk = mesh_mod.density_volume(params, cfg, resolution=g)
+        with plain_forward():
+            t1 = time.perf_counter()
+            vp = mesh_mod.density_volume(params, cfg, resolution=g)
+            plain_s = time.perf_counter() - t1
+        err = float(np.abs(vk - vp).max())
+        norm = err / max(float(np.abs(vp).max()), 1e-12)
+        cell = (np.asarray(OCC_AABB[3:]) - np.asarray(OCC_AABB[:3])) / (g - 1)
+        diag = float(np.linalg.norm(cell))
+        gap = abs(len(mk["faces"]) - len(mp["faces"])) / max(
+            len(mp["faces"]), 1)
+        # Every kernel vertex within a cell diagonal of the mesh of the
+        # plain version's volume (the same bf16 function on the same
+        # points). Against the module path's mesh (cuBLAS bf16, another
+        # rounding) the count of vertices beyond one diagonal is printed:
+        # two bf16 fields' level sets part where sigma crosses the
+        # threshold with little slope.
+        pv, _ = mesh_mod.mesh_from_volume(vp, OCC_AABB, thr, device="cuda")
+        to_plain = nearest(mk["verts"], pv, 4 * diag)
+        to_module = nearest(mk["verts"], mp["verts"], 4 * diag)
+        from_module = nearest(mp["verts"], mk["verts"], 4 * diag)
+
+        def spread(d):
+            return (f"max {d.max():.3e}, 99.9th percentile "
+                    f"{np.quantile(d, 0.999):.3e}, {int((d > diag).sum())} "
+                    f"beyond a diagonal")
+        # The tet stage on the card against the CPU's on the same cells:
+        # triangle soups in cell order, so equal soups weld into equal
+        # meshes.
+        idx, corners = mesh_mod._active_cells(vk, thr)
+        soups = {}
+        for dev in ("cuda", "cpu"):
+            t1 = time.perf_counter()
+            soups[dev] = mesh_mod._tet_stage(
+                idx, corners, np.asarray(OCC_AABB[:3], np.float32),
+                (np.asarray(OCC_AABB[3:], np.float32)
+                 - np.asarray(OCC_AABB[:3], np.float32)) / (g - 1), thr,
+                16384, dev)
+            soups[dev + " s"] = time.perf_counter() - t1
+        same = soups["cuda"].shape == soups["cpu"].shape
+        tet_err = (float(np.abs(soups["cuda"] - soups["cpu"]).max())
+                   if same else float("inf"))
+        bits = same and np.array_equal(soups["cuda"], soups["cpu"])
+        print(f"[mesh] {g}^3: volume kernel vs its plain version (same "
+              f"points, plain {plain_s:.2f} s): max|err| {err:.3e}, "
+              f"normalised {norm:.3e} (tol {KERNEL_TOL}); faces kernel "
+              f"{len(mk['faces'])} vs module path {len(mp['faces'])} (gap "
+              f"{100 * gap:.2f}%, limit {100 * MESH_FACE_GAP:.0f}%); "
+              f"kernel vertices to the plain version's mesh ({len(pv)} "
+              f"verts): {spread(to_plain)}; to the module path's mesh: "
+              f"{spread(to_module)}; the module path's to the kernel's: "
+              f"{spread(from_module)} (cell diagonal {diag:.3e}, distances "
+              f"exact to 4 diagonals); launches {(nd, nc)} (want "
+              f"{want}); tet stage on the card ({soups['cuda s']:.3f} s) "
+              f"vs the CPU ({soups['cpu s']:.3f} s) on {len(idx)} cells: "
+              f"{len(soups['cuda'])} / {len(soups['cpu'])} triangles, max|err| "
+              f"{tet_err:.3e} (tol {MESH_TET_TOL}), bit-equal {bits}")
+        if not (norm <= KERNEL_TOL and gap <= MESH_FACE_GAP
+                and to_plain.max() <= diag
+                and np.quantile(to_module, 0.999) <= diag
+                and (nd, nc) == want and same and tet_err <= MESH_TET_TOL
+                and len(mk["faces"]) > 0
+                and np.isfinite(mk["colors"]).all()):
+            raise SystemExit(f"[mesh] extraction at {g}^3 failed its checks")
+        results[g] = (mk, stages, pstages)
+    mk, stages, pstages = results[MESH_RES[-1]]
+    print(f"[mesh] stages at {MESH_RES[-1]}^3, kernel path: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+          + "; module path: " + ", ".join(f"{k} {v:.3f} s"
+                                          for k, v in pstages.items())
+          + f" [{card}]")
+
+    # -- serving a model while it trains ----------------------------------
+    scene = os.path.join(SMOKE_DIR, "inference", "scene")
+    run = os.path.join(root, "run")
+    args = serve_cli.build_parser().parse_args(flags + [
+        "--ckpt", turbo_ckpt, "--watch", str(MESH_WATCH), "--watch_dir", run,
+        "--max_mesh_resolution", str(MESH_SERVE_RES)])
+    svc = serve_cli.build_service(args)
+    svc.log = lambda m: print(f"[mesh] serve: {m}")
+    svc.warmup()
+    server = RenderServer(svc, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    watcher = svc.watch(args.watch)
+    url = "http://%s:%d" % server.server_address[:2]
+    cam = dict(zip(("theta", "phi", "radius"), SERVE_POSE))
+
+    def post(route, req):
+        r = urllib.request.Request(url + route, method="POST",
+                                   data=json.dumps(req).encode())
+        with urllib.request.urlopen(r, timeout=300) as resp:
+            return resp.status, resp.read()
+
+    def health():
+        with urllib.request.urlopen(url + "/health", timeout=30) as resp:
+            return json.loads(resp.read())
+
+    argv = [sys.executable, "-m", "nerfmlp_torch.scripts.train", "--config",
+            os.path.join(ROOT, "configs", "lego_turbo_bf16.txt"),
+            "--datadir", scene, "--save_dir", run, "--aabb", *box,
+            "--iters", str(MESH_RELOAD_STEPS), "--i_weights",
+            str(MESH_CKPT_EVERY), "--steps_per_dispatch", str(GRAPH_K),
+            "--occ_update_every", str(OCC_EVERY), "--occ_warmup_steps",
+            str(OCC_WARMUP)]
+    log_path = os.path.join(root, "train.log")
+    try:
+        t1 = time.perf_counter()
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(argv, cwd=ROOT, stdout=log,
+                                    stderr=subprocess.STDOUT)
+            try:
+                rc = proc.wait(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        train_s = time.perf_counter() - t1
+        last = MESH_RELOAD_STEPS
+        deadline = time.time() + 30
+        while svc.ckpt["step"] != last and time.time() < deadline:
+            time.sleep(0.1)
+        swaps, h = svc.reloads, health()
+        with open(log_path) as f:
+            tail = f.read()[-2000:]
+        print(f"[mesh] train CLI subprocess (turbo config, 64x64, "
+              f"{MESH_RELOAD_STEPS} steps, K = {GRAPH_K}, a checkpoint every "
+              f"{MESH_CKPT_EVERY}): rc {rc} in {train_s:.1f} s; the server "
+              f"swapped {swaps} times, /health ckpt {h['ckpt']} [{card}]")
+        if rc != 0 or swaps < 2 or h["ckpt"]["step"] != last:
+            raise SystemExit(f"[mesh] serving while training failed its "
+                             f"checks; the run's log ends:\n{tail}")
+        served_path = h["ckpt"]["path"]
+        status, body = post("/render", {**cam, "format": "npy"})
+        served = np.load(io.BytesIO(body))
+        fresh = serve_cli.build_service(serve_cli.build_parser().parse_args(
+            flags + ["--ckpt", served_path]))
+        fresh.log = lambda m: None
+        ref = np.clip(fresh.render_pose(
+            pose_spherical(*SERVE_POSE))["rgb_map"], 0.0, 1.0)
+        frame_equal = status == 200 and np.array_equal(served, ref)
+        quiet = svc.reload(force=False)
+        status_r, body_r = post("/reload", {})
+        info = json.loads(body_r)
+        status, body = post("/render", {**cam, "format": "npy"})
+        after = np.load(io.BytesIO(body))
+        print(f"[mesh] frame served after the last swap vs a fresh "
+              f"RenderService from {os.path.basename(served_path)}: equal "
+              f"bit for bit {frame_equal}; the watcher's reload with nothing "
+              f"new: {quiet}; POST /reload: {status_r} step {info['step']} "
+              f"(same file {info['path'] == served_path}), the frame after "
+              f"it equal {np.array_equal(after, served)}")
+        if not (frame_equal and quiet is None and status_r == 200
+                and info["step"] == last and info["path"] == served_path
+                and np.array_equal(after, served)):
+            raise SystemExit("[mesh] the reloaded service's frames failed "
+                             "their checks")
+        stats = json.loads(post("/mesh", {"resolution": MESH_SERVE_RES,
+                                          "threshold": 1e9,
+                                          "format": "json"})[1])
+        thr_s = (MESH_ISO if stats["sigma_max"] > MESH_ISO
+                 else 0.5 * (stats["sigma_min"] + stats["sigma_max"]))
+        req = {"resolution": MESH_SERVE_RES, "threshold": thr_s}
+        with path():
+            counts = json.loads(post("/mesh", {**req, "format": "json"})[1])
+            n_v, n_f, names = ply_counts(post("/mesh", req)[1])
+            obj = post("/mesh", {**req, "format": "obj"})[1].decode()
+        ref_mesh = mesh_mod.extract_mesh(
+            load_params_any(served_path, cfg.model_config(), device="cuda"),
+            svc.cfg, resolution=MESH_SERVE_RES, threshold=thr_s)
+        obj_v = sum(ln.startswith("v ") for ln in obj.splitlines())
+        obj_f = sum(ln.startswith("f ") for ln in obj.splitlines())
+        h = health()
+        print(f"[mesh] POST /mesh at {MESH_SERVE_RES}^3, sigma in "
+              f"[{stats['sigma_min']:.3g}, {stats['sigma_max']:.3g}], iso "
+              f"{thr_s:g}: json {counts['verts']} verts / {counts['faces']} "
+              f"faces in {counts['seconds']} s (extract_mesh on the file: "
+              f"{len(ref_mesh['verts'])} / {len(ref_mesh['faces'])}); ply "
+              f"{n_v} / {n_f} {names}; obj {obj_v} / {obj_f}; /health "
+              f"meshes {h['meshes']} [{card}]")
+        if not (counts["faces"] > 0
+                and (counts["verts"], counts["faces"])
+                == (len(ref_mesh["verts"]), len(ref_mesh["faces"]))
+                == (n_v, n_f) == (obj_v, obj_f)
+                and names[:3] == ["x", "y", "z"] and h["meshes"] == 4):
+            raise SystemExit("[mesh] POST /mesh failed its checks")
+    finally:
+        watcher.stop_event.set()
+        watcher.join(timeout=30)
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+
+    # -- i_mesh in training ----------------------------------------------
+    imesh = os.path.join(root, "imesh")
+    with path(), Timed(loop.Trainer, "_mesh_event") as events:
+        train_cli.main(["--config", os.path.join(ROOT, "configs",
+                                                 "lego_turbo_bf16.txt"),
+                        "--datadir", scene, "--save_dir", imesh, "--aabb",
+                        *box, "--iters", str(2 * MESH_EVENT), "--i_mesh",
+                        str(MESH_EVENT), "--mesh_threshold",
+                        str(MESH_EVENT_ISO), "--steps_per_dispatch",
+                        str(GRAPH_K), "--occ_update_every", str(OCC_EVERY),
+                        "--occ_warmup_steps", str(OCC_WARMUP)])
+    found = sorted(f for f in os.listdir(imesh) if f.endswith(".ply"))
+    want = [f"imesh_mesh_{MESH_EVENT:06d}.ply"]
+    n_v = n_f = 0
+    if found == want:
+        with open(os.path.join(imesh, want[0]), "rb") as f:
+            n_v, n_f, _ = ply_counts(f.read())
+    print(f"[mesh] train CLI --i_mesh {MESH_EVENT}, {2 * MESH_EVENT} steps "
+          f"at K = {GRAPH_K}: {found} (want {want}); {n_v} verts / {n_f} "
+          f"faces; the event {events.times} s, {events.fwd} forward "
+          f"launches [{card}]")
+    if found != want or len(events.times) != 1 or not n_f:
+        raise SystemExit("[mesh] i_mesh wrote other files than the JAX "
+                         "Trainer would")
+
+    # -- the forward at the path's two shapes ----------------------------
+    net = params["coarse"]
+    g = MESH_RES[-1]
+    n = g ** 3
+    s0 = (n // 2) // MESH_CHUNK * MESH_CHUNK
+    ids = torch.arange(s0, s0 + MESH_CHUNK, dtype=torch.int32,
+                       device="cuda")
+    ijk = torch.stack([ids // (g * g), (ids // g) % g, ids % g], -1)
+    lo_t = torch.tensor(OCC_AABB[:3], device="cuda")
+    span = torch.tensor(OCC_AABB[3:], device="cuda") - lo_t
+    pts = (lo_t + (ijk.float() / (g - 1)) * span).contiguous()
+    dirs = positional_encoding(
+        torch.tensor(_QUERY_DIR, device="cuda").expand(MESH_CHUNK, 3),
+        cfg.dir_enc_L)
+    dens = check_kernel(net, cfg, pts, dirs, "mesh density chunk",
+                        time_it=True)
+    m = min(MESH_CHUNK, len(mk["verts"]))
+    vpts = torch.from_numpy(mk["verts"][:m]).cuda().contiguous()
+    vdirs = positional_encoding(
+        -torch.from_numpy(mk["normals"][:m]).cuda(), cfg.dir_enc_L)
+    col = check_kernel(net, cfg, vpts, vdirs, "mesh colour chunk",
+                       time_it=True)
+    print(f"[mesh] forward launches on the path (extractions, the served "
+          f"meshes, the i_mesh event): density {path.density}, colours "
+          f"{path.colours}; phase took {time.perf_counter() - t0:.1f} s")
+    if not (path.density > 0 and path.colours > 0):
+        raise SystemExit("[mesh] the path launched no forward kernel")
+    return [dict(rec, launches=n_l) for rec, n_l in
+            ((dens, path.density), (col, path.colours))]
+
+
 def smi_line():
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -2130,11 +2569,18 @@ def main():
     occ_run = phase_occ_train(train_ds, val_ds)
     hi_lo_run = phase_occ_hi_lo(train_ds, val_ds)
     occ_serve_launches = phase_occ_serve(occ_run["trainer"])
+    # Phase 10's model: the turbo weights as phase 6 left them (phase 9
+    # trains that Trainer on).
+    from nerfmlp_torch.train.checkpoint import save_params
+
+    turbo_ckpt = os.path.join(SMOKE_DIR, "turbo_phase6.pt")
+    save_params(turbo_ckpt, occ_run["trainer"].state.params)
     cli_launches = phase_inference()
     llff = phase_llff(net)
     card = smi_line()
     graph_recs = phase_graph(train_ds, val_ds, train_run, occ_run,
                              hi_lo_run, card)
+    mesh_recs = phase_mesh(turbo_ckpt, card)
 
     # The forward runs on both paths, at different shapes: one record per
     # path, each with that path's launches and its fine call's times, and
@@ -2277,6 +2723,26 @@ def main():
             "source": "nerfmlp_torch/csrc/" + source,
             "replaces": "nerfmlp_tpu/ops/" + replaces,
             **r,
+        })
+    # Mesh extraction (phase 10): the forward at the density query's shape
+    # (65,536 grid nodes, one sample each, the constant direction) and at
+    # the colour bake's (surface vertices, their inward normals), each with
+    # its launches on the path.
+    for suffix, r in zip(("density", "colour"), mesh_recs):
+        kernels.append({
+            "name": "fused_mlp_fwd_mesh_" + suffix,
+            "path": "mesh",
+            "route": "cuda",
+            "source": "nerfmlp_torch/csrc/fused_mlp_fwd.cu",
+            "replaces": "nerfmlp_tpu/ops/pallas_mlp.py:264",
+            "launches": r["launches"],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "module_ms": r["module_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
         })
     for rec in bwds + [occ["bwd probe"], occ["bwd refine"], occ["bwd hi_lo"],
                        llff["bwd"]]:

@@ -125,7 +125,6 @@ class RenderConfig:
 TRAIN_NOT_PORTED = {
     "profile_dir": "profiling traces in the Trainer (ROADMAP.md, Queue 1 "
                    "item 21)",
-    "i_mesh": "mesh extraction (ROADMAP.md, Queue 1 item 17)",
 }
 
 
@@ -140,8 +139,8 @@ class TrainConfig:
     on ``cuda`` one captured CUDA graph of the step, replayed (the JAX
     package's jitted ``lax.scan``; ``train/graph.py``), on the CPU the same
     step body eagerly; windows end at every step where the host has work.
-    The mesh and profiling fields in ``TRAIN_NOT_PORTED`` are kept and
-    refused when set.
+    The profiling field in ``TRAIN_NOT_PORTED`` is kept and refused when
+    set.
     """
 
     batch_size: int = 1024

@@ -22,6 +22,13 @@ its ``--aabb``: the service builds a density grid from the loaded weights
 at start-up (fixed seed) and rebuilds it on every weight swap; ``--tile``
 then defaults to 16,384 rays (4,096 otherwise).
 
+``POST /mesh`` extracts a mesh of the served weights, at most
+``--max_mesh_resolution`` nodes per axis (0 disables it; the box defaults
+to ``--aabb``). ``--watch SECONDS`` polls ``--watch_dir`` — by default the
+checkpoint's own directory when watching or when the checkpoint is a
+Trainer's ``.pt`` — and swaps in every newer checkpoint the Trainer
+writes there; ``POST /reload`` forces a swap.
+
 Example:
     python -m nerfmlp_torch.scripts.serve --ckpt model.pth --focal 555.5 \\
         --img_wh 400 400 --port 8008
@@ -30,11 +37,16 @@ Example:
         --img_wh 504 378 --N_importance 64
     curl -s localhost:8008/render -d '{"theta": 30, "phi": -30, "radius": 4}' \\
         -o view.png
+    python -m nerfmlp_torch.scripts.serve --ckpt logs/lego/model_final.pt \\
+        --use_occupancy --aabb -1.5 -1.5 -1.2 1.5 1.5 1.5 --N_samples 16 \\
+        --N_importance 48 --occ_dense_samples 64 --watch 5
+    curl -s localhost:8008/mesh -d '{"resolution": 256}' -o lego.ply
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 
 def camera_defaults(args, parser=None):
@@ -98,18 +110,29 @@ def build_service(args, parser=None):
         depth_fine=args.netdepth_fine, width_fine=args.netwidth_fine,
         **occupancy_fields(args),
     )
-    params, step = load_params_any(args.ckpt, rc.model_config(),
-                                   device=args.device, with_step=True)
+    def reload_fn(path):
+        # (params, step) in one decode.
+        return load_params_any(path, rc.model_config(), device=args.device,
+                               with_step=True)
+
+    params, step = reload_fn(args.ckpt)
     print(f"loaded {args.ckpt} | {W}x{H} focal={focal:.2f} "
           f"near={rc.near:.3f} far={rc.far:.3f} "
           f"samples {rc.N_samples}+{rc.N_importance}"
           + (f" | occupancy {rc.occ_grid_size}^3 grid" if rc.use_occupancy
              else "")
           + (" | NDC rays" if ndc else "") + f" | {args.device}")
+    watch_dir = args.watch_dir
+    if watch_dir is None and (args.watch > 0 or not args.ckpt.endswith(
+            (".npy", ".pth"))):
+        # The checkpoint's own directory: the Trainer's --save_dir layout.
+        watch_dir = os.path.dirname(os.path.abspath(args.ckpt))
     return RenderService(
         params, rc, H, W, focal, tile=resolve_tile(args),
         max_pixels=args.max_pixels, max_queue=args.max_queue,
-        ckpt_path=args.ckpt, ckpt_step=step, device=args.device,
+        max_mesh_resolution=args.max_mesh_resolution, reload_fn=reload_fn,
+        watch_dir=watch_dir, ckpt_path=os.path.abspath(args.ckpt),
+        ckpt_step=step, device=args.device,
     )
 
 
@@ -166,6 +189,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_queue", type=int, default=8,
                    help="max renders rendering-or-waiting at once; excess "
                         "requests get 503 + Retry-After (0 = unbounded)")
+    p.add_argument("--max_mesh_resolution", type=int, default=256,
+                   help="POST /mesh grid-resolution cap (0 disables the "
+                        "mesh route)")
+    p.add_argument("--watch", type=float, default=0.0, metavar="SECONDS",
+                   help="poll the watch dir every SECONDS and swap in newer "
+                        "checkpoints (0 = off; POST /reload always works)")
+    p.add_argument("--watch_dir", type=str, default=None,
+                   help="directory to watch (default: the --ckpt's dir)")
     p.add_argument("--no_warmup", dest="warmup", action="store_false",
                    default=True,
                    help="skip the startup render (the first request pays it)")
@@ -182,7 +213,7 @@ def main(argv=None):
     from nerfmlp_torch.serve import serve
 
     serve(build_service(args, parser), host=args.host, port=args.port,
-          warmup=args.warmup)
+          warmup=args.warmup, watch_interval=args.watch)
 
 
 if __name__ == "__main__":

@@ -56,8 +56,6 @@ _NOT_PORTED = {
                           "a compilation cache (PyTorch runs eagerly)"),
     "tensorboard": (dict(action="store_true"),
                     "TensorBoard logging (ROADMAP.md, Queue 1 item 21)"),
-    "i_mesh": (dict(type=int, default=0),
-               "mesh extraction (ROADMAP.md, Queue 1 item 17)"),
     "n_devices": (dict(type=int, default=0),
                   "data parallelism (ROADMAP.md, Queue 1 item 18)"),
     "tensor_parallel": (dict(type=int, default=1),
@@ -186,8 +184,13 @@ def build_parser():
     p.add_argument("--render_test", action="store_true",
                    help="with --render_only: the test split's poses, with "
                         "per-frame PSNR")
-    p.add_argument("--mesh_resolution", type=int, default=128)
-    p.add_argument("--mesh_threshold", type=float, default=25.0)
+    p.add_argument("--i_mesh", type=int, default=0,
+                   help="write a density-isosurface .ply of the current "
+                        "weights every N steps (0 = off; needs --aabb)")
+    p.add_argument("--mesh_resolution", type=int, default=128,
+                   help="grid nodes per axis for --i_mesh snapshots")
+    p.add_argument("--mesh_threshold", type=float, default=25.0,
+                   help="sigma iso level for --i_mesh snapshots")
     add_occupancy_flags(p)
     p.add_argument("--occ_update_every", type=int, default=64,
                    help="refresh the density grid every N steps")
@@ -383,7 +386,7 @@ def main(argv=None):
         steps_per_dispatch=args.steps_per_dispatch,
         device_pool=args.device_pool, i_video=args.i_video,
         i_testset=args.i_testset, i_img=args.i_img,
-        render_factor=args.render_factor,
+        render_factor=args.render_factor, i_mesh=args.i_mesh,
     )
     trainer = Trainer(rc, tc, dataset, val_ds, quick_val_ds,
                       save_dir=args.save_dir, device=device,

@@ -4,9 +4,14 @@ Counterpart of ``nerfmlp_tpu/serve.py``. :class:`RenderService` is the
 embeddable core (weights + config + device behind a dispatch lock);
 :func:`serve` wraps it in a threaded stdlib HTTP server with a JSON API:
 
-    GET  /health    -> status, render count, queue, latency percentiles
+    GET  /health    -> status, render and mesh counts, queue, reloads,
+                       served checkpoint, latency percentiles
     GET  /spec      -> model / render configuration + defaults
     POST /render    -> image bytes (png, default), .npy bytes, or JSON
+    POST /mesh      -> density-isosurface mesh of the served weights
+                       (ops/mesh.py): binary .ply (default), .obj, or JSON
+                       counts
+    POST /reload    -> swap in the newest checkpoint of the watch dir
 
 ``POST /render`` takes one camera per request — ``{"c2w": 3x4 | 4x4}``,
 ``{"eye", "target"[, "up"]}`` or ``{"theta", "phi", "radius"}`` — plus
@@ -15,11 +20,17 @@ optional ``H``/``W``/``focal``/``near``/``far`` overrides, ``gamma``,
 ``viewdirs_c2w``.
 
 Device work is serialized by a lock; at most ``max_queue`` requests render
-or wait at once, and the excess is shed with HTTP 503 + Retry-After. A
-config with ``use_occupancy`` is served with a density grid that the
-service builds from its weights, at start-up and on every weight swap.
-``/mesh``, ``/reload`` with checkpoint watching, and multi-device
-sharding are not ported yet: they answer 404, and ``/spec`` lists them.
+or extract a mesh, or wait, at once, and the excess is shed with HTTP 503
++ Retry-After. A config with ``use_occupancy`` is served with a density
+grid that the service builds from its weights, at start-up and on every
+weight swap.
+
+Hot reload serves a model while it trains: point ``watch_dir`` at a
+Trainer's ``--save_dir`` and :meth:`RenderService.watch` swaps in every
+newer ``model_{step}[_latest].pt`` (``metrics_latest.pt`` until one
+exists); ``POST /reload`` forces a swap. The Trainer writes each file to
+``*.tmp`` and renames it, and no ``.tmp`` name is ever picked. Multi-device
+sharding is not ported: ``/spec`` lists it.
 """
 
 from __future__ import annotations
@@ -28,12 +39,13 @@ import dataclasses
 import io
 import json
 import math
+import os
 import threading
 import time
 from collections import deque
 from contextlib import contextmanager
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -43,9 +55,9 @@ from nerfmlp_torch.config import RenderConfig
 _VALID_MAPS = ("rgb_map", "disp_map", "depth_map", "acc_map")
 # A camera-spec JSON body is a few hundred bytes.
 MAX_BODY_BYTES = 1 << 20
-ROUTES = ("GET /health", "GET /spec", "POST /render")
-NOT_PORTED = ("POST /mesh", "POST /reload", "checkpoint watch",
-              "multi-device sharding")
+ROUTES = ("GET /health", "GET /spec", "POST /render", "POST /mesh",
+          "POST /reload")
+NOT_PORTED = ("multi-device sharding",)
 # The seed of the grid a service builds from its weights: a fixed one, so a
 # restart serves the same grid.
 GRID_SEED = 0
@@ -84,6 +96,11 @@ class RenderService:
     ``GRID_SEED``, here and on every swap. Starting a service keeps TF32
     off process-wide (:func:`nerfmlp_torch.use_true_fp32`). Thread-safe:
     device work is serialized internally.
+
+    ``max_mesh_resolution``: the cap of ``POST /mesh``'s grid (0 disables
+    the route). ``reload_fn(path)``: weights, or ``(weights, step)``, of a
+    checkpoint, for :meth:`reload`; ``watch_dir``: where :meth:`reload`
+    and :meth:`watch` look (without it, the served file is reloaded).
     """
 
     def __init__(
@@ -99,8 +116,11 @@ class RenderService:
         tile: int = 4096,
         max_pixels: int = 4096 * 4096,
         max_queue: int = 8,
+        max_mesh_resolution: int = 256,
+        reload_fn: Optional[Callable[[str], object]] = None,
+        watch_dir: Optional[str] = None,
         ckpt_path: Optional[str] = None,
-        ckpt_step: int = 0,
+        ckpt_step: Optional[int] = None,
         device=None,
         log=print,
     ):
@@ -124,7 +144,20 @@ class RenderService:
         self.max_queue = int(max_queue)
         self._inflight = 0
         self.rejected = 0
-        self.ckpt = {"path": ckpt_path, "step": int(ckpt_step)}
+        # /mesh: G^3 queries; the cap keeps one request from holding the
+        # device for minutes.
+        self.max_mesh_resolution = int(max_mesh_resolution)
+        self.meshes = 0
+        self._mesh_times = deque(maxlen=16)    # seconds per extraction
+        self._mesh_active = 0                  # extractions in progress
+        self.reload_fn = reload_fn
+        self.watch_dir = watch_dir
+        self.ckpt = {
+            "path": ckpt_path,
+            "mtime": _mtime(ckpt_path),
+            "step": int(ckpt_step) if ckpt_step is not None
+            else _ckpt_step(ckpt_path),
+        }
         self.reloads = 0
         self.log = log
         self.renders = 0
@@ -133,6 +166,7 @@ class RenderService:
         self._times = deque(maxlen=128)        # per-render seconds
         self._lock = threading.Lock()          # device dispatch
         self._stats_lock = threading.Lock()    # counters, for /health
+        self._reload_lock = threading.Lock()   # the watcher vs POST /reload
 
     def _prepare(self, params: Dict) -> Dict:
         from nerfmlp_torch.ops.render import prepare_params
@@ -190,7 +224,8 @@ class RenderService:
     @contextmanager
     def _admit(self, record: bool = True):
         """Admission slot: raises :class:`ServiceOverloaded` when
-        ``max_queue`` requests are already rendering or waiting."""
+        ``max_queue`` requests are already rendering or waiting. Renders
+        and mesh extractions share it: both hold the device."""
         if record:
             with self._stats_lock:
                 if self.max_queue and self._inflight >= self.max_queue:
@@ -307,6 +342,93 @@ class RenderService:
             return json.dumps(body).encode(), "application/json"
         raise RequestError(f"unknown format {fmt!r}; png | npy | json")
 
+    def mesh_request(self, req: Dict) -> Tuple[bytes, str]:
+        """``POST /mesh``: the density-isosurface mesh of the served
+        weights -> (body bytes, content type).
+
+        Request keys, all optional: ``resolution`` (grid nodes per axis,
+        default 128, at most ``max_mesh_resolution``), ``threshold`` (sigma
+        iso level, default 25), ``aabb`` (6 floats; default the render
+        config's box, which is then required), ``color`` (bake vertex RGB,
+        default true), ``gamma`` (sRGB-encode it, default false),
+        ``format`` ("ply" binary | "obj" | "json" counts). Takes an
+        admission slot like a render, and the dispatch lock for the
+        density evaluation and the colour bake only. Reads ``self.params``
+        once: a reload during an extraction serves the next request.
+        """
+        if not isinstance(req, dict):
+            raise RequestError("request body must be a JSON object")
+        if not self.max_mesh_resolution:
+            raise RequestError("mesh extraction disabled on this server "
+                               "(max_mesh_resolution=0)")
+        try:
+            resolution = int(req.get("resolution", 128))
+            threshold = float(req.get("threshold", 25.0))
+        except (TypeError, ValueError) as e:
+            raise RequestError(f"resolution/threshold must be numeric: {e}")
+        if not 2 <= resolution <= self.max_mesh_resolution:
+            raise RequestError(
+                f"resolution must be in [2, {self.max_mesh_resolution}]")
+        if not math.isfinite(threshold):
+            raise RequestError("threshold must be finite")
+        aabb = req.get("aabb", self.cfg.aabb)
+        if aabb is None:
+            raise RequestError(
+                'no scene bounds: pass "aabb": [xmin,ymin,zmin,'
+                "xmax,ymax,zmax] or start the server with --aabb")
+        from nerfmlp_torch.ops.mesh import (
+            _check_aabb, extract_mesh, obj_str, ply_bytes,
+        )
+
+        try:
+            aabb = _check_aabb(aabb)
+        except (TypeError, ValueError) as e:
+            raise RequestError(str(e))
+        color = bool(req.get("color", True))
+        gamma = bool(req.get("gamma", False))
+        fmt = req.get("format", "ply")
+        if fmt not in ("ply", "obj", "json"):
+            raise RequestError(f"unknown format {fmt!r}; ply | obj | json")
+
+        with self._admit():
+            with self._stats_lock:
+                self._mesh_active += 1
+            try:
+                t0 = time.perf_counter()
+                # One read: a swap replaces the attribute, never the dict.
+                mesh = extract_mesh(self.params, self.cfg, resolution=resolution,
+                                    threshold=threshold, aabb=aabb,
+                                    color=color, gamma=gamma,
+                                    device_lock=self._lock)
+                dt = time.perf_counter() - t0
+            finally:
+                with self._stats_lock:
+                    self._mesh_active -= 1
+        with self._stats_lock:
+            self.meshes += 1
+            self._mesh_times.append(dt)
+        self.log(f"mesh {resolution}^3 iso {threshold:g}: "
+                 f"{len(mesh['verts'])} verts / {len(mesh['faces'])} faces "
+                 f"in {dt:.1f}s")
+        if fmt == "json":
+            return json.dumps({
+                "verts": len(mesh["verts"]),
+                "faces": len(mesh["faces"]),
+                "sigma_min": mesh["sigma_min"],
+                "sigma_max": mesh["sigma_max"],
+                "resolution": resolution,
+                "threshold": threshold,
+                "aabb": list(aabb),
+                "seconds": round(dt, 3),
+            }).encode(), "application/json"
+        if fmt == "obj":
+            body = obj_str(mesh["verts"], mesh["faces"],
+                           colors=mesh.get("colors"))
+            return body.encode(), "text/plain; charset=utf-8"
+        return ply_bytes(mesh["verts"], mesh["faces"],
+                         colors=mesh.get("colors"), normals=mesh["normals"],
+                         binary=True), "application/octet-stream"
+
     def spec(self) -> Dict:
         from nerfmlp_torch.ops.render import uses_kernel
 
@@ -315,6 +437,9 @@ class RenderService:
             "tile": self.tile,
             "max_pixels": self.max_pixels,
             "max_queue": self.max_queue,
+            "max_mesh_resolution": self.max_mesh_resolution,
+            "hot_reload": self.reload_fn is not None,
+            "watch_dir": self.watch_dir,
             "device": str(self.device),
             "kernel": uses_kernel(self.cfg),
             "occupancy": self.cfg.use_occupancy,
@@ -325,16 +450,26 @@ class RenderService:
 
     def retry_after_s(self) -> int:
         """Whole-second Retry-After hint for shed requests: one median
-        render (a queue slot frees roughly that often), floor 1 s."""
+        render (a queue slot frees roughly that often), floor 1 s; while a
+        mesh extraction runs, at least one median extraction (30 s before
+        the first has finished)."""
         with self._stats_lock:
             times = sorted(self._times)
-        return max(1, round(times[len(times) // 2] if times else 1.0))
+            mesh_times = sorted(self._mesh_times)
+            mesh_active = self._mesh_active
+        hint = times[len(times) // 2] if times else 1.0
+        if mesh_active:
+            hint = max(hint, mesh_times[len(mesh_times) // 2] if mesh_times
+                       else 30.0)
+        return max(1, round(hint))
 
     def health(self) -> Dict:
         # Stats lock only: /health answers at once even mid-render.
         with self._stats_lock:
             raw = list(self._times)
             renders = self.renders
+            meshes = self.meshes
+            mesh_times = list(self._mesh_times)
             inflight = self._inflight
             rejected = self.rejected
         times = sorted(raw)
@@ -355,6 +490,8 @@ class RenderService:
         return {
             "status": "ok",
             "renders": renders,
+            "meshes": meshes,
+            "mesh_last_s": round(mesh_times[-1], 3) if mesh_times else None,
             "queued": inflight,
             "max_queue": self.max_queue,
             "rejected": rejected,
@@ -378,6 +515,119 @@ class RenderService:
             self.occ_grid = occ_grid
             self.reloads += 1
         self.log(f"params swapped from {source} (reload #{self.reloads})")
+
+    # -------------------------------------------------------------- #
+    # Hot checkpoint reload (serve a model while it trains)
+    # -------------------------------------------------------------- #
+    def reload(self, force: bool = True) -> Optional[Dict]:
+        """Load the newest checkpoint and serve it; returns the new
+        ``ckpt`` record (path, mtime, step).
+
+        The path is :func:`latest_params_checkpoint` of ``watch_dir``, or
+        without one the served file; never one from the caller, so the
+        HTTP layer loads no file a client names. ``force=False`` (the
+        watcher's mode) is a no-op, returning None, unless the path or
+        its mtime differs from the served one. The record is written only
+        after the swap: a load that fails leaves it, so the watcher tries
+        the file again.
+        """
+        if self.reload_fn is None:
+            raise RequestError("server was started without reload support")
+        # One reload at a time: an older file must not be swapped in last
+        # while the record names the newer one.
+        with self._reload_lock:
+            path = (latest_params_checkpoint(self.watch_dir)
+                    if self.watch_dir else self.ckpt["path"])
+            if path is None:
+                if force:
+                    if self.watch_dir is None:
+                        raise RequestError(
+                            "server has no watch dir and no original "
+                            "checkpoint path — nothing to reload")
+                    raise RequestError(
+                        f"no checkpoint found in {self.watch_dir!r}")
+                return None
+            mtime = _mtime(path)
+            if not force and (path, mtime) == (self.ckpt["path"],
+                                               self.ckpt["mtime"]):
+                return None
+            loaded = self.reload_fn(path)
+            step = None
+            if isinstance(loaded, tuple):   # (params, step): one decode
+                loaded, step = loaded
+            self.swap_params(loaded, source=path)
+            self.ckpt = {"path": path, "mtime": mtime,
+                         "step": step if step is not None
+                         else _ckpt_step(path)}
+            return dict(self.ckpt)
+
+    def watch(self, interval_s: float,
+              stop: Optional[threading.Event] = None) -> threading.Thread:
+        """Poll ``watch_dir`` every ``interval_s`` and swap in newer
+        checkpoints, on a daemon thread (``thread.stop_event`` stops it).
+        A failed load is logged and tried again at the next poll."""
+        stop = stop or threading.Event()
+
+        def loop():
+            while not stop.wait(interval_s):
+                try:
+                    info = self.reload(force=False)
+                    if info:
+                        self.log(f"watch: now serving step {info['step']}"
+                                 f" ({os.path.basename(info['path'])})")
+                except Exception as e:  # a file being replaced: retry
+                    self.log(f"watch: reload failed ({e}); retrying")
+
+        thread = threading.Thread(target=loop, daemon=True,
+                                  name="ckpt-watch")
+        thread.stop_event = stop  # type: ignore[attr-defined]
+        thread.start()
+        return thread
+
+
+def latest_params_checkpoint(save_dir: str) -> Optional[str]:
+    """The newest checkpoint to serve from a Trainer's save dir: the
+    highest-step ``model_{step}.pt`` / ``model_{step}_latest.pt`` (the
+    newer file on a tie), else ``metrics_latest.pt`` (the whole train
+    state, whose parameters ``load_params_any`` takes). ``model_best`` /
+    ``model_final`` carry no step and never match, nor does a ``.tmp``
+    file the Trainer is still writing."""
+    from nerfmlp_torch.train.checkpoint import step_from_filename
+
+    if not os.path.isdir(save_dir):
+        return None
+    best: Tuple[int, float, Optional[str]] = (0, 0.0, None)
+    for name in os.listdir(save_dir):
+        if name.startswith("model_") and name.endswith(".pt"):
+            step = step_from_filename(name)
+            if step <= 0:
+                continue
+            key = (step, _mtime(os.path.join(save_dir, name)) or 0.0, name)
+            if key[:2] > best[:2]:
+                best = key
+    if best[2] is not None:
+        return os.path.join(save_dir, best[2])
+    cand = os.path.join(save_dir, "metrics_latest.pt")
+    return cand if os.path.exists(cand) else None
+
+
+def _ckpt_step(path: Optional[str]) -> int:
+    """The step for /health: from the file name, else from inside a whole
+    train state (``metrics_latest.pt``)."""
+    if not path:
+        return 0
+    from nerfmlp_torch.train.checkpoint import (
+        step_from_filename, step_in_checkpoint,
+    )
+
+    return step_from_filename(path) or step_in_checkpoint(path)
+
+
+def _mtime(path: Optional[str]) -> Optional[float]:
+    try:
+        return os.path.getmtime(path) if path else None
+    except OSError:
+        return None
 
 
 def _as_pose(x, name: str) -> np.ndarray:
@@ -456,9 +706,7 @@ class _Handler(BaseHTTPRequestHandler):
         self._reply(code, json.dumps(obj).encode(), "application/json")
 
     def _no_route(self):
-        ported = f"{self.command} {self.path}" in NOT_PORTED
-        self._reply_json(404, {"error": f"no route {self.path}" + (
-            " (not ported to the PyTorch server yet)" if ported else "")})
+        self._reply_json(404, {"error": f"no route {self.path}"})
 
     def do_GET(self):  # noqa: N802
         if self.path == "/health":
@@ -469,10 +717,16 @@ class _Handler(BaseHTTPRequestHandler):
             self._no_route()
 
     def do_POST(self):  # noqa: N802
-        if self.path != "/render":
+        if self.path not in ("/render", "/mesh", "/reload"):
             self._no_route()
             return
         try:
+            if self.path == "/reload":
+                # The configured watch dir or served file only: no path
+                # from the wire.
+                info = self.service.reload(force=True)
+                self._reply_json(200, {"reloaded": True, **info})
+                return
             try:
                 n = int(self.headers.get("Content-Length", 0))
             except (TypeError, ValueError):
@@ -498,7 +752,10 @@ class _Handler(BaseHTTPRequestHandler):
                 self.close_connection = True
                 return
             req = json.loads(self.rfile.read(n) or b"{}")
-            body, ctype = self.service.render_request(req)
+            if self.path == "/mesh":
+                body, ctype = self.service.mesh_request(req)
+            else:
+                body, ctype = self.service.render_request(req)
             self._reply(200, body, ctype)
         except RequestError as e:
             self._reply_json(400, {"error": str(e)})
@@ -530,11 +787,16 @@ class RenderServer(ThreadingHTTPServer):
 
 
 def serve(service: RenderService, host: str = "127.0.0.1", port: int = 8008,
-          warmup: bool = True) -> None:
-    """Blocking server loop (the ``nerfmlp_torch.scripts.serve`` entry)."""
+          warmup: bool = True, watch_interval: float = 0.0) -> None:
+    """Blocking server loop (the ``nerfmlp_torch.scripts.serve`` entry);
+    ``watch_interval`` > 0 starts :meth:`RenderService.watch`."""
     server = RenderServer(service, host, port)
     if warmup:
         service.warmup()
+    if watch_interval > 0:
+        service.watch(watch_interval)
+        service.log(f"watching {service.watch_dir} every "
+                    f"{watch_interval:g}s for newer checkpoints")
     h, p = server.server_address[:2]
     service.log(f"serving on http://{h}:{p}  ({', '.join(ROUTES)})")
     try:

@@ -159,6 +159,18 @@ def step_from_filename(path: str) -> int:
     return 0
 
 
+def step_in_checkpoint(path: str) -> int:
+    """The step recorded inside a whole train state (``metrics_latest.pt``
+    names none); 0 for any other file, or one that cannot be read."""
+    if not path or not path.endswith(".pt") or not os.path.exists(path):
+        return 0
+    try:
+        raw = load_checkpoint(path)
+    except (OSError, RuntimeError, EOFError, pickle.UnpicklingError):
+        return 0
+    return int(raw["step"]) if is_train_state(raw) else 0
+
+
 def latest_checkpoint(save_dir: str) -> Optional[str]:
     """The most recent resumable checkpoint in a directory: the whole
     state ``metrics_latest.pt``, else the ``model_{step}.pt`` with the

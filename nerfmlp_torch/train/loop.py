@@ -9,7 +9,8 @@ and latest checkpoints; auto-resume; the metrics JSON in the reference
 schema; occupancy-grid sampling, with the grid refreshed on the JAX
 Trainer's schedule and rebuilt on resume; the in-training render events
 (``i_video``: orbit videos, ``i_testset``: test-set sweeps with per-frame
-PSNR, ``i_img``: held-out frames, ``render_factor``); ``steps_per_dispatch``
+PSNR, ``i_img``: held-out frames, ``render_factor``; ``i_mesh``:
+density-isosurface ``.ply`` snapshots); ``steps_per_dispatch``
 K > 1: windows of up to K steps with no Python between them, a captured
 CUDA graph of the step replayed (``train/graph.py``), the windows ending
 at every step where the host has work, as the JAX Trainer's scan windows
@@ -18,8 +19,8 @@ do (:func:`dispatch_window`). At K = 1, the default, the loop calls
 straight in: a window of one step gains nothing from a graph, and the
 static batch buffer and slot counter a window reads would only add a
 copy and an index to every step. Left out, and refused when asked for:
-``i_mesh``, TensorBoard, ``profile_dir`` and tensor parallelism (each
-raises a ``NotImplementedError`` naming its ROADMAP item).
+TensorBoard, ``profile_dir`` and tensor parallelism (each raises a
+``NotImplementedError`` naming its ROADMAP item).
 
 The hot loop never waits for the card: loss and PSNR stay device tensors,
 summed on the device, and are read back at log and validation steps
@@ -131,6 +132,7 @@ class Trainer:
         self.verbose = verbose
         self.render_poses = render_poses
         self.test_ds = test_ds
+        self._mesh_warned = False
         os.makedirs(save_dir, exist_ok=True)
 
         self.state = create_train_state(rc, tc, self.device)
@@ -311,6 +313,35 @@ class Trainer:
         except Exception as e:
             self._log(f"(i_testset event failed: {e})")
 
+    def _mesh_event(self, step: int) -> None:
+        """A density-isosurface ``<expname>_mesh_{step:06d}.ply`` of the
+        current weights (``ops/mesh.py``), packed from them here: under
+        ``steps_per_dispatch`` the replays update the nets in place, so no
+        earlier packing is current. Without ``rc.aabb`` it warns once and
+        skips. Best-effort."""
+        try:
+            if self.rc.aabb is None:
+                if not self._mesh_warned:
+                    self._mesh_warned = True
+                    self._log("(i_mesh skipped: needs --aabb scene bounds)")
+                return
+            from nerfmlp_torch.ops.mesh import extract_mesh, save_ply
+
+            mesh = extract_mesh(self.state.params, self.rc,
+                                resolution=self.tc.mesh_resolution,
+                                threshold=self.tc.mesh_threshold)
+            expname = os.path.basename(os.path.normpath(self.save_dir))
+            path = os.path.join(self.save_dir,
+                                f"{expname}_mesh_{step:06d}.ply")
+            save_ply(path, mesh["verts"], mesh["faces"],
+                     colors=mesh.get("colors"), normals=mesh["normals"])
+            self._log(f"🔺 i_mesh @ {step:,}: {len(mesh['verts'])} verts / "
+                      f"{len(mesh['faces'])} faces (iso "
+                      f"{self.tc.mesh_threshold:g}, sigma_max "
+                      f"{mesh['sigma_max']:.3g}) -> {path}")
+        except Exception as e:
+            self._log(f"(i_mesh event failed: {e})")
+
     def quick_validate(self) -> Optional[Dict[str, float]]:
         return self._validate(self.quick_val_ds, self.tc.quick_val_subset)
 
@@ -423,7 +454,10 @@ class Trainer:
         windowed = self.windows is not None
         if windowed:
             # Windows end exactly at every step where the blocks below need
-            # host work, so the events fire on the same steps as at K = 1.
+            # host work, so the events fire on the same steps as at K = 1 —
+            # but for i_mesh, which the JAX Trainer's windows leave out too
+            # (nerfmlp_tpu/train/loop.py:642-649): at K > 1 a mesh is
+            # written only where a window happens to end on its multiple.
             intervals = [tc.log_interval, tc.ckpt_interval, tc.i_video,
                          tc.i_testset, tc.i_img]
             if self.quick_val_ds is not None:
@@ -537,6 +571,9 @@ class Trainer:
                 if (tc.i_testset and step % tc.i_testset == 0
                         and self.test_ds is not None):
                     self._testset_event(step)
+                    t_prev = time.time()
+                if tc.i_mesh and step % tc.i_mesh == 0:
+                    self._mesh_event(step)
                     t_prev = time.time()
                 if tc.i_img and step % tc.i_img == 0:
                     self._save_val_image(step)

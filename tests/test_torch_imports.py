@@ -44,7 +44,8 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
             "nerfmlp_torch.scripts.zoom_example",
             "nerfmlp_torch.scripts.serve", "nerfmlp_torch.data.llff",
             "nerfmlp_torch.data.deepvoxels",
-            "nerfmlp_torch.train.graph"} <= set(mods)
+            "nerfmlp_torch.train.graph", "nerfmlp_torch.ops.mesh",
+            "nerfmlp_torch.scripts.extract_mesh"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -164,7 +164,8 @@ def test_http_routes(server_url):
     status, body, _ = _http(server_url + "/spec")
     spec = json.loads(body)
     assert status == 200 and spec["defaults"]["W"] == 16
-    assert "POST /mesh" in spec["not_ported"]
+    assert spec["not_ported"] == ["multi-device sharding"]
+    assert {"POST /mesh", "POST /reload"} <= set(spec["routes"])
     assert spec["render_config"]["use_kernel"] is False
     status, body, ctype = _http(server_url + "/render", json.dumps(
         {"theta": 0, "phi": -30, "radius": 4}).encode())
@@ -178,9 +179,12 @@ def test_http_errors(server_url):
     assert status == 400 and b"bad JSON" in body
     status, body, _ = _http(server_url + "/render", b'{"format": "png"}')
     assert status == 400 and "camera spec" in json.loads(body)["error"]
-    for path in ("/mesh", "/reload"):
-        status, body, _ = _http(server_url + path, b"{}")
-        assert status == 404 and b"not ported" in body
+    # /mesh and /reload are served: this service has no box and no reload
+    # support, so both answer 400 with the reason.
+    status, body, _ = _http(server_url + "/mesh", b"{}")
+    assert status == 400 and "aabb" in json.loads(body)["error"]
+    status, body, _ = _http(server_url + "/reload", b"")
+    assert status == 400 and "reload" in json.loads(body)["error"]
     status, _, _ = _http(server_url + "/nope")
     assert status == 404
 

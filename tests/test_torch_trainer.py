@@ -122,7 +122,6 @@ def test_resume_from_params_only_checkpoint(scene, tmp_path):
 
 
 @pytest.mark.parametrize("field, value, item", [
-    ("i_mesh", 10, "item 17"),
     ("profile_dir", "/tmp/x", "item 21"),
 ])
 def test_trainer_refuses_what_is_not_ported(scene, field, value, item):
@@ -205,9 +204,8 @@ def test_train_cli_on_cpu(tmp_path):
     metrics = cli.main(args[:args.index("--iters") + 1] + ["12"]
                        + args[args.index("--iters") + 2:])
     assert metrics["step"] == 12
-    for flag, value in (("--i_mesh", "5"), ("--tensor_parallel", "2")):
-        with pytest.raises(SystemExit, match="not ported"):
-            cli.main(args + [flag, value])
+    with pytest.raises(SystemExit, match="not ported"):
+        cli.main(args + ["--tensor_parallel", "2"])
     # --dataset_type llff, refused until the LLFF loader was ported, trains
     # on a forward-facing capture (NDC rays, no white background).
     from nerfmlp_torch.data.synthetic import make_synthetic_llff_scene
