@@ -120,9 +120,34 @@ Phases, each fatal on failure:
      that file, POST /reload with nothing new, POST /mesh in json (counts
      equal to extract_mesh's on those weights), ply and obj; the train CLI
      with --i_mesh 100 for 200 steps at K = 16 (one .ply, at step 100).
+ 11. multi-scene batched training ("multi_scene"): the four kernels over a
+     scene axis (one launch for 4 nets, seeds 0-3, 8x256 + view head) at
+     the multi-scene step's calls — the dense step's coarse and fine calls
+     (4 x 65,536 and 4 x 131,072 points), the turbo probe call (4 x
+     16,384) and, in hi_lo, the one-shot query (4 x 65,536) — each bit-equal
+     to 4 single-scene launches, at the single-scene bars from the stacked
+     plain versions, timed beside the single-scene launches, the plain
+     version and the module path, with its bound at 4 x n points; the
+     train_multi_scene CLI on 4 synthetic 64x64 scenes (seeds 0-3, the
+     smooth and the hard field; scene 0 is phase 5's) for 300 steps of the
+     flagship recipe, through the kernels and with --no_kernel (each
+     scene's held-out PSNR >= 20 dB and within 1 dB of its --no_kernel
+     run's, scene 0 within 1 dB of phase 5's single-scene Trainer, exactly
+     2 launches of each kernel a step); the stack's scene 0 held to a solo
+     step seeded the same for 5 steps (phase 9's bars), a stacked step
+     timed beside 4 solo eager steps and profiled (idle share); the turbo
+     recipe with per-scene grids (phase 6's cuts) through the library's
+     multi-scene step for 300 steps, through the kernels and without
+     (every grid prunes; PSNR with each scene's grid >= 20 dB and within 1
+     dB; 2 launches a step, 1 forward a refresh of all four grids); the
+     CLI for 50 steps on a synthetic scene and phase 8's LLFF capture
+     (per-scene bounds, NDC 0/1; the white-background warning; two .pt
+     files read by load_params_any, one served for a frame by
+     RenderService).
 Then it prints the kernels' JSON line, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Weights are random, from a seed.
 It exits non-zero, printing no result, without a CUDA device.
+``--only multi_scene`` runs the build, phase 5 and phase 11 alone.
 """
 
 import contextlib
@@ -2534,6 +2559,710 @@ def phase_mesh(turbo_ckpt, card):
             ((dens, path.density), (col, path.colours))]
 
 
+# --------------------------------------------------------------------- #
+# Phase 11: multi-scene batched training ("multi_scene")
+# --------------------------------------------------------------------- #
+MS_SCENES = 4             # phase 11's scenes: each kernel call covers all
+#                           four in one launch; 4 x 131,072 points hold a
+#                           5.2 GB phase-1 workspace (9,984 B a point)
+MS_CHECK_STEPS = 5        # stacked vs solo steps compared on the card
+MS_MIXED_STEPS = 50       # the mixed blender + LLFF CLI run
+MS_HARD_PSNR_MIN = 15.0   # the hard field's held-out PSNR floor after
+#                           TRAIN_STEPS steps: the single-scene Trainer
+#                           reaches 15.71 / 16.74 dB on this phase's two hard
+#                           scenes on both paths (21.45 / 21.74 after 1,000
+#                           steps), so PSNR_MIN holds the smooth scenes only
+MS_GAP_EACH = 2 * PSNR_GAP  # one scene's distance from the module path's
+#                           run: over three seeds of the ray batches the 12
+#                           per-scene gaps of one 300-step dense run spread
+#                           from -1.07 to +0.42 dB (std 0.38); the mean over
+#                           the scenes is held at PSNR_GAP
+
+
+def stack_inputs(n_samples, cfg):
+    """MS_SCENES scenes' points (the serving pose's central rays, each
+    scene's shifted by 0.03 * s) and encoded dirs, scene-major: (pts,
+    dirs, points a scene)."""
+    import torch
+
+    pts, dirs = serving_points(n_samples, cfg, n_rays=TRAIN_RAYS)
+    n_s = pts.shape[0]
+    pts = torch.cat([pts + 0.03 * s for s in range(MS_SCENES)])
+    dirs = dirs.repeat(MS_SCENES, 1)
+    return pts.contiguous(), dirs.contiguous(), n_s
+
+
+def ms_cotangent(nets, pts, dirs, cfg, n_s, hi_lo):
+    """The cotangent of each scene's mean squared error against seeded
+    targets, at the stacked plain forward's output."""
+    import torch
+
+    from nerfmlp_torch.ops import fused_mlp as fm
+
+    raw = fm.fused_nerf_mlp_stack_plain(nets, pts, dirs, cfg.pos_enc_L,
+                                        torch.bfloat16, hi_lo)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    target = torch.rand(raw.shape, device="cuda", generator=gen)
+    return (2.0 / (n_s * raw.shape[1])) * (raw - target)
+
+
+def check_stack(nets, cfg, n_samples, label, card, hi_lo=False):
+    """The four kernels over a scene axis at one call of the multi-scene
+    step (MS_SCENES x points of 1024 rays x ``n_samples``): the stacked
+    launch against MS_SCENES single-scene launches of the same work, bit
+    for bit, and against the stacked plain version at the single-scene
+    bars; timed beside the single-scene launches, the plain version and
+    (forward) the use_kernel=False module path; each with its bound at
+    MS_SCENES x n_s points. Returns {"fwd", "phase1", "phase2", "reduce",
+    "bwd"} records."""
+    import torch
+
+    from nerfmlp_torch.ops import fused_mlp as fm
+    from nerfmlp_torch.ops.encoding import positional_encoding
+
+    if hi_lo:
+        cfg = dataclasses.replace(cfg, compute_dtype="float32",
+                                  fp32_precision="high")
+    dt = torch.float32 if hi_lo else torch.bfloat16
+    vdirs = True
+    pts, dirs, n_s = stack_inputs(n_samples, cfg)
+    n = pts.shape[0]
+    stack = fm.pack_params_stack(nets, cfg.pos_enc_L, vdirs, hi_lo)
+    solos = [fm.pack_params(net, cfg.pos_enc_L, vdirs, hi_lo) for net in nets]
+    sl = [slice(s * n_s, (s + 1) * n_s) for s in range(MS_SCENES)]
+    sp = [pts[x].contiguous() for x in sl]
+    sd = [dirs[x].contiguous() for x in sl]
+    g = ms_cotangent(nets, pts, dirs, cfg, n_s, hi_lo)
+    sg = [g[x].contiguous() for x in sl]
+    products = 3 if hi_lo else 1
+    fwd_macs = sum(p.numel() for name, p in nets[0].named_parameters()
+                   if name.endswith("weight"))
+    w_bytes = stack.weights.numel() * 2 + stack.biases.numel() * 4
+    in_bytes = pts.numel() * 4 + dirs.numel() * (4 if hi_lo else 2) + w_bytes
+    tol = HI_LO_TOL if hi_lo else KERNEL_TOL
+    recs = {}
+
+    # The forward.
+    def solo_fwd():
+        return torch.cat([fm._launch(p, a, d) for p, a, d in
+                          zip(solos, sp, sd)])
+
+    with torch.no_grad():
+        got = fm.fused_nerf_mlp(stack, pts, dirs, cfg)
+        one = solo_fwd()
+    want = fm.fused_nerf_mlp_stack_plain(nets, pts, dirs, cfg.pos_enc_L,
+                                         torch.bfloat16, hi_lo)
+    torch.cuda.synchronize()
+    same = torch.equal(got, one)
+    err = float((got - want).abs().max())
+    norm = err / max(float(want.abs().max()), 1e-12)
+    r = {"max_abs_err": err, "norm_err": norm, "n": n}
+    r["bound_ms"], r["bound_by"] = bound(2.0 * products * fwd_macs * n,
+                                         in_bytes + got.numel() * 4)
+    with torch.no_grad():
+        r["ms"] = cuda_ms(lambda: fm._launch(stack, pts, dirs), iters=10)
+        r["solo_ms"] = cuda_ms(solo_fwd, iters=5)
+        r["module_ms"] = cuda_ms(lambda: [
+            net(positional_encoding(a, cfg.pos_enc_L), d, compute_dtype=dt)
+            for net, a, d in zip(nets, sp, sd)], iters=3)
+    r["plain_ms"] = cuda_ms(lambda: fm.fused_nerf_mlp_stack_plain(
+        nets, pts, dirs, cfg.pos_enc_L, torch.bfloat16, hi_lo), iters=2,
+        warmup=1)
+    recs["fwd"] = r
+    print(f"[multi_scene] {label} forward, {MS_SCENES} x {n_s} points: one "
+          f"launch bit-equal to {MS_SCENES} single-scene launches: {same}; "
+          f"max|err| {err:.3e} normalised {norm:.3e} (tol {tol}); kernel "
+          f"{r['ms']:.3f} ms, {MS_SCENES} single-scene launches "
+          f"{r['solo_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, module path "
+          f"{r['module_ms']:.3f} ms; bound {r['bound_ms']:.3f} ms "
+          f"({r['bound_by']}) [{card}]")
+    if not (same and norm <= tol):
+        raise SystemExit(f"[multi_scene] {label}: the stacked forward "
+                         "disagrees")
+
+    # Phase 1, phase 2 and the reduction, each alone.
+    tile = fm.bwd_tile_rows(hi_lo)
+    rows_s = -(-n_s // tile) * tile
+    ws = torch.empty(MS_SCENES * rows_s * stack.ws_cols, device="cuda",
+                     dtype=torch.bfloat16)
+    fm.bwd_workspace(stack, pts, dirs, g, ws)
+    ws1 = [torch.empty(rows_s * stack.ws_cols, device="cuda",
+                       dtype=torch.bfloat16) for _ in nets]
+    for p, a, d, gg, w in zip(solos, sp, sd, sg, ws1):
+        fm.bwd_workspace(p, a, d, gg, w)
+    same1 = all(torch.equal(
+        fm.ws_matrix(stack, ws, m)[:, s * rows_s:(s + 1) * rows_s],
+        fm.ws_matrix(solos[s], ws1[s], m))
+        for s in range(MS_SCENES) for m in range(len(stack.ws_mats)))
+    want_ws = fm.bwd_workspace_plain(stack, pts, dirs, g, MS_SCENES * rows_s)
+    rel1 = 0.0
+    err1 = 0.0
+    for m in range(len(stack.ws_mats)):
+        a = fm.ws_matrix(stack, ws, m)[0].float()
+        b = fm.ws_matrix(stack, want_ws, m)[0].float()
+        err1 = max(err1, float((a - b).abs().max()))
+        rel1 = max(rel1, float((a - b).norm() / b.norm().clamp_min(1e-30)))
+    del want_ws
+    splits, split_rows = fm.bwd_splits(rows_s)
+    total = stack.grad_total
+    part = torch.empty((MS_SCENES, splits, fm.part_stride(total)),
+                       device="cuda")
+    fm.weight_grads(stack, ws, rows_s, split_rows, part)
+    part1 = [torch.empty((splits, fm.part_stride(total)), device="cuda")
+             for _ in nets]
+    for p, w, q in zip(solos, ws1, part1):
+        fm.weight_grads(p, w, rows_s, split_rows, q)
+    same2 = all(torch.equal(part[s, :, :total], part1[s][:, :total])
+                for s in range(MS_SCENES))   # past total: padding
+    want_part = fm.weight_grads_plain(stack, ws, rows_s, split_rows)
+    err2 = float((part[..., :total] - want_part[..., :total]).abs().max())
+    norm2 = err2 / float(want_part[..., :total].abs().max())
+    del want_part
+    red = fm.reduce_partials(part, total)
+    same3 = all(torch.equal(red[s], fm.reduce_partials(part1[s], total))
+                for s in range(MS_SCENES))
+    err3 = float((red - fm.reduce_partials_plain(part, total)).abs().max())
+    torch.cuda.synchronize()
+    ws_bytes = MS_SCENES * rows_s * stack.ws_cols * 2
+    p1_macs = phase1_macs(nets[0], vdirs)
+    recs["phase1"] = {
+        "max_abs_err": err1, "rel_l2": rel1,
+        "ms": cuda_ms(lambda: fm.bwd_workspace(stack, pts, dirs, g, ws),
+                      iters=10),
+        "solo_ms": cuda_ms(lambda: [fm.bwd_workspace(p, a, d, gg, w) for
+                                    p, a, d, gg, w in
+                                    zip(solos, sp, sd, sg, ws1)], iters=5),
+        "plain_ms": cuda_ms(lambda: fm.bwd_workspace_plain(
+            stack, pts, dirs, g, MS_SCENES * rows_s), iters=2, warmup=1)}
+    recs["phase2"] = {
+        "max_abs_err": err2, "norm_err": norm2,
+        "ms": cuda_ms(lambda: fm.weight_grads(stack, ws, rows_s, split_rows,
+                                              part), iters=10),
+        "solo_ms": cuda_ms(lambda: [fm.weight_grads(p, w, rows_s, split_rows,
+                                                    q) for p, w, q in
+                                    zip(solos, ws1, part1)], iters=5),
+        "plain_ms": cuda_ms(lambda: fm.weight_grads_plain(
+            stack, ws, rows_s, split_rows), iters=2, warmup=1)}
+    recs["reduce"] = {
+        "max_abs_err": err3,
+        "ms": cuda_ms(lambda: fm.reduce_partials(part, total), iters=10),
+        "solo_ms": cuda_ms(lambda: [fm.reduce_partials(q, total)
+                                    for q in part1], iters=10),
+        "plain_ms": cuda_ms(lambda: fm.reduce_partials_plain(part, total),
+                            iters=3),
+        "library_ms": cuda_ms(lambda: part[..., :total].sum(1), iters=10)}
+    for key, flops, nbytes in (
+            ("phase1", 2.0 * products * p1_macs * n, in_bytes
+             + g.numel() * 4 + ws_bytes),
+            ("phase2", 2.0 * products * fwd_macs * n,
+             ws_bytes + MS_SCENES * splits * total * 4),
+            ("reduce", 0.0, MS_SCENES * (splits + 1) * total * 4)):
+        recs[key]["bound_ms"], recs[key]["bound_by"] = bound(flops, nbytes)
+        recs[key].setdefault("library_ms", None)
+    del ws, ws1
+    r1, r2, r3 = recs["phase1"], recs["phase2"], recs["reduce"]
+    print(f"[multi_scene] {label} phase 1 ({ws_bytes} B workspace): "
+          f"bit-equal to single-scene launches: {same1}; rel-L2 {rel1:.3e} "
+          f"(tol {PHASE1_TOL}); kernel {r1['ms']:.3f} ms, single-scene "
+          f"{r1['solo_ms']:.3f} ms, plain {r1['plain_ms']:.3f} ms; bound "
+          f"{r1['bound_ms']:.3f} ms ({r1['bound_by']}) [{card}]")
+    print(f"[multi_scene] {label} phase 2 ({len(stack.bwd_jobs)} jobs x "
+          f"{splits} splits x {MS_SCENES} scenes): bit-equal: {same2}; "
+          f"normalised {norm2:.3e} (tol {PHASE2_TOL}); kernel "
+          f"{r2['ms']:.3f} ms, single-scene {r2['solo_ms']:.3f} ms, plain "
+          f"{r2['plain_ms']:.3f} ms; bound {r2['bound_ms']:.3f} ms "
+          f"({r2['bound_by']}) [{card}]")
+    print(f"[multi_scene] {label} reduction ({MS_SCENES} x {splits} slots): "
+          f"bit-equal: {same3}; max|err| vs plain {err3:.3e}; kernel "
+          f"{r3['ms']:.4f} ms, single-scene {r3['solo_ms']:.4f} ms, plain "
+          f"{r3['plain_ms']:.4f} ms, part.sum(1) {r3['library_ms']:.4f} ms; "
+          f"bound {r3['bound_ms']:.4f} ms ({r3['bound_by']}) [{card}]")
+    if not (same1 and same2 and same3 and rel1 <= PHASE1_TOL
+            and norm2 <= PHASE2_TOL and err3 == 0.0):
+        raise SystemExit(f"[multi_scene] {label}: a backward kernel over the "
+                         "scene axis disagrees")
+
+    # The backward whole: bit-equal to single-scene backwards, repeatable,
+    # at the single-scene bar from the stacked plain backward (hi_lo: the
+    # bf16 kernels as the control, above the bar).
+    flat = fm._launch_bwd(stack, pts, dirs, g)
+    again = fm._launch_bwd(stack, pts, dirs, g)
+    one = [fm._launch_bwd(p, a, d, gg) for p, a, d, gg in
+           zip(solos, sp, sd, sg)]
+    same = torch.equal(flat, again) and all(torch.equal(flat[s], one[s])
+                                            for s in range(MS_SCENES))
+    want = fm.fused_nerf_mlp_bwd_stack_plain(nets, pts, dirs, g,
+                                             cfg.pos_enc_L, torch.bfloat16,
+                                             hi_lo)
+
+    def worst(grads):
+        return max(float((gs[k] - ws_[k]).abs().max())
+                   / max(float(ws_[k].abs().max()), 1e-12)
+                   for gs, ws_ in zip(grads, want) for k in ws_)
+
+    bwd_norm = worst(fm.unpack_grads(stack, flat))
+    btol = HI_LO_BWD_TOL if hi_lo else KERNEL_TOL
+    control = None
+    if hi_lo:
+        bf16 = fm.pack_params_stack(nets, cfg.pos_enc_L, vdirs, False)
+        control = worst(fm.unpack_grads(bf16, fm._launch_bwd(bf16, pts, dirs,
+                                                             g)))
+    rb = {"norm_err": bwd_norm, "control_norm_err": control,
+          "ms": cuda_ms(lambda: fm._launch_bwd(stack, pts, dirs, g),
+                        iters=5),
+          "solo_ms": cuda_ms(lambda: [fm._launch_bwd(p, a, d, gg) for
+                                      p, a, d, gg in zip(solos, sp, sd, sg)],
+                             iters=3)}
+    rb["floor_ms"] = sum(recs[k]["bound_ms"] for k in ("phase1", "phase2",
+                                                       "reduce"))
+    recs["bwd"] = rb
+    print(f"[multi_scene] {label} backward whole: bit-equal to "
+          f"{MS_SCENES} single-scene backwards and repeatable: {same}; "
+          f"normalised {bwd_norm:.3e} (tol {btol})"
+          + (f", control (bf16 kernels) {control:.3e}" if hi_lo else "")
+          + f"; {rb['ms']:.3f} ms vs {rb['solo_ms']:.3f} ms single-scene; "
+          f"design floor {rb['floor_ms']:.3f} ms [{card}]")
+    if not (same and bwd_norm <= btol
+            and (control is None or control > btol)):
+        raise SystemExit(f"[multi_scene] {label}: the stacked backward "
+                         "disagrees")
+    return recs
+
+
+def ms_scenes():
+    """The phase's MS_SCENES 64x64 synthetic scenes (8 train / 2 val
+    views), seeds 0..3, the smooth and the hard field in turn: scene 0 is
+    phase 5's scene. Returns their directories and (train, val) datasets."""
+    from nerfmlp_torch.data.blender import BlenderDataset
+    from nerfmlp_torch.data.synthetic import make_synthetic_scene
+
+    t0 = time.perf_counter()
+    dirs, data = [], []
+    wh = (TRAIN_WH, TRAIN_WH)
+    for s in range(MS_SCENES):
+        field = ("default", "hard")[s % 2]
+        d = (os.path.join(SMOKE_DIR, "scene") if s == 0 else
+             os.path.join(SMOKE_DIR, "multi_scene", f"scene{s}_{field}"))
+        if s > 0:
+            make_synthetic_scene(d, n_train=8, n_val=2, n_test=0, img_wh=wh,
+                                 seed=SEED + s, field=field)
+        dirs.append(d)
+        data.append((BlenderDataset(d, "train", img_wh=wh),
+                     BlenderDataset(d, "val", img_wh=wh)))
+    print(f"[multi_scene] {MS_SCENES} scenes {TRAIN_WH}x{TRAIN_WH} (seeds "
+          f"0-{MS_SCENES - 1}, default / hard fields) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return dirs, data
+
+
+def ms_psnr(params, rc, val_ds, grid=None):
+    """Held-out PSNR of one scene's params over its val views (the
+    Trainer's validation: whole images, perturb off)."""
+    import numpy as np
+    import torch
+
+    from nerfmlp_torch.ops.render import prepare_params, render_image
+    from nerfmlp_torch.train.metrics import psnr_images
+
+    params = prepare_params(params, rc)
+    out = []
+    for i in range(val_ds.n_images):
+        o, d, gt = val_ds.image_rays(i)
+        t = lambda a: torch.as_tensor(a, device="cuda")
+        img = render_image(params, t(o), t(d), val_ds.H, val_ds.W, rc,
+                           tile=4096, occ_grid=grid)
+        out.append(psnr_images(img.float().cpu().numpy(), gt))
+    return float(np.mean(out))
+
+
+def ms_check_psnr(tag, kernel, plain):
+    """Each scene's held-out PSNR through the kernels: at least PSNR_MIN
+    (smooth scenes) or MS_HARD_PSNR_MIN (hard ones, the odd scenes); the
+    gaps to the module path's run: their mean within PSNR_GAP, each within
+    MS_GAP_EACH."""
+    gaps = [k - p for k, p in zip(kernel, plain)]
+    floors = [MS_HARD_PSNR_MIN if s % 2 else PSNR_MIN
+              for s in range(len(kernel))]
+    mean = sum(gaps) / len(gaps)
+    print(f"[multi_scene] {tag}: held-out PSNR kernel "
+          f"{[round(x, 2) for x in kernel]} dB, use_kernel=False "
+          f"{[round(x, 2) for x in plain]} dB; gaps "
+          f"{[round(g, 2) for g in gaps]} (mean {mean:+.2f}, limit "
+          f"{PSNR_GAP}; each {MS_GAP_EACH}); floors {floors} dB")
+    if not (all(k >= f for k, f in zip(kernel, floors))
+            and abs(mean) <= PSNR_GAP
+            and max(abs(g) for g in gaps) <= MS_GAP_EACH):
+        raise SystemExit(f"[multi_scene] {tag}: held-out PSNR below its "
+                         "floor or off the module path")
+
+
+def ms_counters():
+    from nerfmlp_torch.ops import fused_mlp
+
+    return (fused_mlp.fused_nerf_mlp, fused_mlp.bwd_workspace,
+            fused_mlp.weight_grads, fused_mlp.reduce_partials)
+
+
+def ms_cli_dense(dirs, data, single_psnr, card):
+    """(b): the train_multi_scene CLI on the MS_SCENES scenes, the flagship
+    recipe's flags, TRAIN_STEPS steps, through the kernels and with
+    --no_kernel: launches, ms a step, held-out PSNR per scene."""
+    import torch
+
+    from nerfmlp_torch.config import RenderConfig
+    from nerfmlp_torch.parallel import multi_scene as ms
+    from nerfmlp_torch.scripts import train_multi_scene as cli
+
+    runs = {}
+    for name, extra in (("kernel", []), ("plain", ["--no_kernel"])):
+        argv = ["--datadirs", *dirs, "--img_wh", str(TRAIN_WH),
+                str(TRAIN_WH), "--batch_size", str(TRAIN_RAYS), "--iters",
+                str(TRAIN_STEPS), "--N_samples", "64", "--N_importance",
+                "128", "--log_interval", "100", "--save_dir",
+                os.path.join(SMOKE_DIR, "multi_scene", f"dense_{name}")]
+        torch.cuda.synchronize()
+        for c in ms_counters():
+            c.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            state, _ = cli.main(argv + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = tuple(c.launches for c in ms_counters())
+        rc = RenderConfig(N_samples=64, N_importance=128, perturb=False,
+                          compute_dtype="bfloat16",
+                          use_kernel=name == "kernel")
+        psnr = []
+        for s, (tr, val) in enumerate(data):
+            near, far = tr.dynamic_near_far()
+            psnr.append(ms_psnr(ms.scene_params(state, s), dataclasses.replace(
+                rc, near=near, far=far), val))
+        lines = [ln for ln in log.getvalue().splitlines()
+                 if ln.startswith("iter")]
+        runs[name] = {"state": state, "launches": launches, "psnr": psnr,
+                      "wall": wall}
+        print(f"[multi_scene] CLI dense {name}: {TRAIN_STEPS} steps of "
+              f"{MS_SCENES} x {TRAIN_RAYS} rays in {wall:.2f} s "
+              f"({1e3 * wall / TRAIN_STEPS:.2f} ms a step, the loaders' "
+              f"host batches included); launches (forward, phase 1, phase 2, "
+              f"reduction) {launches}; held-out PSNR per scene "
+              f"{[round(p, 2) for p in psnr]} dB; last log: {lines[-1]} "
+              f"[{card}]")
+    k, p = runs["kernel"], runs["plain"]
+    want = (2 * TRAIN_STEPS,) * 4
+    print(f"[multi_scene] dense: launches {k['launches']} (want {want}: 2 of "
+          f"each kernel a step whatever the scenes), plain run "
+          f"{p['launches']}; scene 0 {k['psnr'][0]:.2f} dB vs phase 5's "
+          f"single-scene Trainer {single_psnr:.2f} dB (limit {PSNR_GAP})")
+    if (k["launches"] != want or p["launches"] != (0, 0, 0, 0)
+            or abs(k["psnr"][0] - single_psnr) > PSNR_GAP):
+        raise SystemExit("[multi_scene] the dense CLI run failed its checks")
+    ms_check_psnr("dense", k["psnr"], p["psnr"])
+    return runs
+
+
+def ms_batches(data, steps, seed_offset=0):
+    """Per-scene loaders' batches (the CLI's RayBatchLoader, seeded by the
+    scene's index) for ``steps`` steps: a list of (S, B, 9) CUDA tensors."""
+    import numpy as np
+    import torch
+
+    from nerfmlp_torch.data.pipeline import RayBatchLoader
+
+    loaders = [RayBatchLoader.from_dataset(tr, TRAIN_RAYS,
+                                           seed=s + seed_offset)
+               for s, (tr, _) in enumerate(data)]
+    return [torch.from_numpy(np.stack([ld.next_batch() for ld in loaders]))
+            .cuda() for _ in range(steps)]
+
+
+def ms_against_solo(data, card):
+    """The stack's scene 0 over MS_CHECK_STEPS steps against a solo step
+    seeded the same on the same batches and bounds (phase 9's bars); then
+    ms a step of the stack beside MS_SCENES solo eager steps, and a
+    profiled stacked step's idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nerfmlp_torch.parallel import multi_scene as ms
+    from nerfmlp_torch.parallel import train_step as ts
+
+    bounds = torch.tensor([tr.dynamic_near_far() for tr, _ in data],
+                          device="cuda", dtype=torch.float32)
+    rc, tc = train_configs(float(bounds[:, 0].min()),
+                           float(bounds[:, 1].max()))
+    state = ms.create_multi_scene_state(MS_SCENES, rc, tc, device="cuda")
+    step = ms.make_multi_scene_step(rc, tc, with_bounds=True)
+    solos = [ts.create_train_state(rc, dataclasses.replace(
+        tc, seed=tc.seed + ms.SCENE_SEED_STRIDE * s), device="cuda")
+        for s in range(MS_SCENES)]
+    solo_step = ts.make_step_fn(rc, tc)
+    batches = ms_batches(data, MS_CHECK_STEPS + 12)
+    worst = 0.0
+    for b in batches[:MS_CHECK_STEPS]:
+        step(state, b, bounds)
+        solo_step(solos[0], b[0], None, bounds[0])
+        for p, q in zip(state.params["coarse"].nets[0].parameters(),
+                        solos[0].params["coarse"].parameters()):
+            d = (p - q).abs() - 2e-4 * q.abs()
+            worst = max(worst, float(d.max()))
+    ok = worst <= 2e-6
+    print(f"[multi_scene] the stack's scene 0 vs a solo step seeded the "
+          f"same, {MS_CHECK_STEPS} steps: max(|diff| - 2e-4 |solo|) = "
+          f"{worst:.3e} (atol 2e-6)")
+    if not ok:
+        raise SystemExit("[multi_scene] scene 0 of the stack left its solo "
+                         "step")
+
+    def stacked():
+        for b in batches[MS_CHECK_STEPS:MS_CHECK_STEPS + 4]:
+            step(state, b, bounds)
+
+    def solo():
+        for b in batches[MS_CHECK_STEPS:MS_CHECK_STEPS + 4]:
+            for s in range(MS_SCENES):
+                solo_step(solos[s], b[s], None, bounds[s])
+
+    out = {}
+    for key, fn in (("stack", stacked), ("solo", solo)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out[key] = 1e3 * (time.perf_counter() - t0) / 4
+    b = batches[-1]
+    step(state, b, bounds)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, b, bounds)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    rows = device_rows(prof)
+    busy = sum(ms_ for _, ms_ in rows)
+    kern = {k: sum(ms_ for name, ms_ in rows if k in name)
+            for k in KERNEL_NAMES}
+    out.update(wall=wall, busy=busy, idle=100 * (1 - busy / wall))
+    print(f"[multi_scene] eager: one step of {MS_SCENES} scenes "
+          f"{out['stack']:.2f} ms vs {MS_SCENES} solo steps "
+          f"{out['solo']:.2f} ms (synchronised, mean of 4); a profiled "
+          f"stacked step: wall {wall:.2f} ms, device busy {busy:.2f} ms "
+          f"(idle {out['idle']:.1f}%): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in kern.items())
+          + f" [{card}]")
+    return out
+
+
+def ms_turbo(data, card):
+    """(c): the turbo recipe with per-scene grids through the library's
+    multi-scene step and grid refresh (the CLI keeps the JAX CLI's flags,
+    which cut no warmup: its grids would not prune in TRAIN_STEPS steps),
+    through the kernels and with use_kernel=False: launches, pruning and
+    held-out PSNR per scene, rendered with the scene's grid."""
+    import torch
+
+    from nerfmlp_torch.ops.occupancy import OccupancyGrid
+    from nerfmlp_torch.parallel import multi_scene as ms
+
+    bounds = torch.tensor([tr.dynamic_near_far() for tr, _ in data],
+                          device="cuda", dtype=torch.float32)
+    rc0, tc = turbo_configs(float(bounds[:, 0].min()),
+                            float(bounds[:, 1].max()))
+    batches = ms_batches(data, TRAIN_STEPS)   # the CLI's loaders' seeds
+    runs = {}
+    for name, rc in (("kernel", rc0),
+                     ("plain", dataclasses.replace(rc0, use_kernel=False))):
+        state = ms.create_multi_scene_state(MS_SCENES, rc, tc, device="cuda")
+        step = ms.make_multi_scene_step(rc, tc, with_bounds=True)
+        update = ms.make_multi_scene_grid_update(rc)
+        grids = ms.create_multi_scene_grids(MS_SCENES, rc, device="cuda")
+        torch.cuda.synchronize()
+        for c in ms_counters():
+            c.launches = 0
+        refreshes = 0
+        t0 = time.perf_counter()
+        for it, b in enumerate(batches, start=1):
+            if (it - 1) % rc.occ_update_every == 0:
+                gens = [torch.Generator(device="cuda").manual_seed(
+                    (17 + it) * 1_000_003 + s) for s in range(MS_SCENES)]
+                grids = update(grids, state.params, gens,
+                               1.0 if it <= rc.occ_warmup_steps else 0.95)
+                refreshes += 1
+            step(state, b, grids, bounds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = tuple(c.launches for c in ms_counters())
+        occupied = [float((grids.density[s] > rc.occ_threshold).float()
+                          .mean()) for s in range(MS_SCENES)]
+        psnr = []
+        for s, (tr, val) in enumerate(data):
+            near, far = tr.dynamic_near_far()
+            psnr.append(ms_psnr(ms.scene_params(state, s), dataclasses.replace(
+                rc, near=near, far=far), val,
+                OccupancyGrid(grids.density[s])))
+        runs[name] = {"launches": launches, "psnr": psnr,
+                      "occupied": occupied, "refreshes": refreshes}
+        print(f"[multi_scene] turbo {name}: {TRAIN_STEPS} steps in "
+              f"{wall:.2f} s ({1e3 * wall / TRAIN_STEPS:.2f} ms a step, "
+              f"{refreshes} refreshes); launches {launches}; cells occupied "
+              f"{[round(100 * o, 1) for o in occupied]}%; held-out PSNR "
+              f"{[round(p, 2) for p in psnr]} dB [{card}]")
+    k, p = runs["kernel"], runs["plain"]
+    want = (2 * TRAIN_STEPS + k["refreshes"],) + (2 * TRAIN_STEPS,) * 3
+    print(f"[multi_scene] turbo: launches {k['launches']} (want {want}: 2 "
+          f"queries a step, 1 forward a refresh of every scene's grid); "
+          f"every grid pruned: {max(k['occupied']) < 1.0}")
+    if (k["launches"] != want or p["launches"] != (0, 0, 0, 0)
+            or max(k["occupied"]) >= 1.0):
+        raise SystemExit("[multi_scene] the turbo run failed its checks")
+    ms_check_psnr("turbo", k["psnr"], p["psnr"])
+    return runs
+
+
+def ms_mixed(blender_dir, focal, card):
+    """(d): the CLI on one synthetic scene and phase 8's LLFF fixture (NDC),
+    MS_MIXED_STEPS steps: per-scene bounds and the white-background
+    warning printed, two .pt files that load_params_any reads, one served
+    for a frame by RenderService."""
+    import numpy as np
+
+    from nerfmlp_torch.config import RenderConfig
+    from nerfmlp_torch.data.synthetic import make_synthetic_llff_scene
+    from nerfmlp_torch.ops.rays import pose_spherical
+    from nerfmlp_torch.scripts import train_multi_scene as cli
+    from nerfmlp_torch.serve import RenderService
+    from nerfmlp_torch.train.checkpoint import load_params_any
+
+    llff = os.path.join(SMOKE_DIR, "llff", "scene")
+    if not os.path.isdir(os.path.join(llff, "images_8")):   # phase 8's
+        make_synthetic_llff_scene(llff, n_images=LLFF_VIEWS, img_wh=LLFF_WH,
+                                  style="forward", seed=SEED)
+        os.rename(os.path.join(llff, "images"),
+                  os.path.join(llff, "images_8"))
+    out = os.path.join(SMOKE_DIR, "multi_scene", "mixed")
+    shutil.rmtree(out, ignore_errors=True)
+    for c in ms_counters():
+        c.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        cli.main(["--datadirs", blender_dir, llff, "--dataset_types",
+                  "blender", "llff", "--factor", "8", "--img_wh",
+                  str(TRAIN_WH), str(TRAIN_WH), "--batch_size",
+                  str(TRAIN_RAYS), "--iters", str(MS_MIXED_STEPS),
+                  "--log_interval", "25", "--save_dir", out])
+    wall = time.perf_counter() - t0
+    text = log.getvalue()
+    launches = tuple(c.launches for c in ms_counters())
+    for ln in text.splitlines():
+        print(f"[multi_scene] mixed CLI | {ln}")
+    files = sorted(f for f in os.listdir(out) if f.endswith(".pt"))
+    params = [load_params_any(os.path.join(out, f), device="cuda")
+              for f in files]
+    rc = RenderConfig(N_samples=64, N_importance=128, near=2.0, far=6.0,
+                      compute_dtype="bfloat16", use_kernel=True,
+                      white_bkgd=False)
+    svc = RenderService(params[0], rc, TRAIN_WH, TRAIN_WH, focal, tile=4096,
+                        device="cuda", log=lambda m: None)
+    before = ms_counters()[0].launches
+    frame = svc.render_pose(pose_spherical(30.0, -30.0, 4.0))["rgb_map"]
+    served = ms_counters()[0].launches - before
+    nf = [ln for ln in text.splitlines() if "near/far" in ln]
+    ok = (len(nf) == 2 and "0.00/1.00" in nf[1] and "0.00/1.00" not in nf[0]
+          and "white_bkgd" in text
+          # both directories are named "scene": the names are made unique
+          and files == ["model_scene_0_final.pt", "model_scene_1_final.pt"]
+          and launches == (2 * MS_MIXED_STEPS,) * 4
+          and np.isfinite(np.asarray(frame)).all() and served > 0)
+    print(f"[multi_scene] mixed CLI: {MS_MIXED_STEPS} steps in {wall:.1f} s, "
+          f"launches {launches}; wrote {files}, each read by "
+          f"load_params_any; {files[0]} served a {TRAIN_WH}x{TRAIN_WH} frame "
+          f"({served} forward launches, finite) [{card}]")
+    if not ok:
+        raise SystemExit("[multi_scene] the mixed CLI run failed its checks")
+    return files
+
+
+def phase_multi_scene(single_psnr, card):
+    """Phase 11 (the module docstring). Returns the kernel records of path
+    multi_scene and the CLI runs' launches."""
+    from nerfmlp_torch.models.mlp import init_model
+
+    t0 = time.perf_counter()
+    cfg = slice_config()
+    nets = [init_model(cfg.model_config(), seed=SEED + s, device="cuda")
+            for s in range(MS_SCENES)]
+    checks = {
+        "coarse": check_stack(nets, cfg, cfg.N_samples, "dense coarse",
+                              card),
+        "fine": check_stack(nets, cfg, cfg.N_importance, "dense fine", card),
+        "probe": check_stack(nets, cfg, OCC_PROBE, "turbo probe", card),
+        "hi_lo": check_stack(nets, cfg, OCC_PROBE + OCC_REFINE,
+                             "hi_lo one-shot query", card, hi_lo=True),
+    }
+    del nets
+    dirs, data = ms_scenes()
+    dense = ms_cli_dense(dirs, data, single_psnr, card)
+    timing = ms_against_solo(data, card)
+    turbo = ms_turbo(data, card)
+    files = ms_mixed(dirs[0], data[0][0].focal, card)
+    print(f"[multi_scene] phase took {time.perf_counter() - t0:.1f} s")
+    k = turbo["kernel"]
+    queries = (k["launches"][0] - k["refreshes"],) + k["launches"][1:]
+    return {"checks": checks, "dense": dense["kernel"]["launches"],
+            "turbo": queries, "timing": timing, "files": files}
+
+
+def multi_scene_records(ms_run):
+    """The JSON line's records of path multi_scene: each kernel at the
+    dense step's fine call (launches: the dense CLI run's; max_abs_err over
+    its coarse and fine calls; the hi_lo one-shot query's error and times
+    beside them) and at the turbo probe call (launches: the turbo run's
+    queries, its grid refreshes left out); S single-scene launches' time
+    as solo_ms."""
+    c = ms_run["checks"]
+    recs = []
+    for key, name, source, replaces, i in (
+            ("fwd", "fused_mlp_fwd", "fused_mlp_fwd.cu", "pallas_mlp.py:264",
+             0),
+            ("phase1", "fused_mlp_bwd_phase1", "fused_mlp_bwd.cu",
+             "pallas_mlp.py:312", 1),
+            ("phase2", "fused_mlp_bwd_phase2", "fused_mlp_bwd.cu",
+             "pallas_mlp.py:386", 2),
+            ("reduce", "fused_mlp_bwd_reduce", "fused_mlp_bwd.cu",
+             "pallas_mlp.py:327", 3)):
+        for suffix, big, small, launches in (
+                ("_multi_scene", c["fine"], c["coarse"], ms_run["dense"][i]),
+                ("_multi_scene_probe", c["probe"], c["probe"],
+                 ms_run["turbo"][i])):
+            r = big[key]
+            hi_lo = ({"hi_lo_max_abs_err": c["hi_lo"][key]["max_abs_err"],
+                      "hi_lo_ms": c["hi_lo"][key]["ms"],
+                      "hi_lo_solo_ms": c["hi_lo"][key]["solo_ms"]}
+                     if suffix == "_multi_scene" else {})
+            recs.append({
+                "name": name + suffix,
+                "path": "multi_scene",
+                "route": "cuda",
+                "source": "nerfmlp_torch/csrc/" + source,
+                "replaces": "nerfmlp_tpu/ops/" + replaces,
+                "launches": launches,
+                "scenes": MS_SCENES,
+                "max_abs_err": max(r["max_abs_err"],
+                                   small[key]["max_abs_err"]),
+                "ms": r["ms"],
+                "solo_ms": r["solo_ms"],
+                "plain_ms": r["plain_ms"],
+                "module_ms": r.get("module_ms"),
+                "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"],
+                "library_ms": r.get("library_ms"),
+                **hi_lo,
+            })
+    return recs
+
+
 def smi_line():
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -2558,6 +3287,15 @@ def main():
     print(f"[device] {torch.cuda.get_device_name(0)} | torch "
           f"{torch.__version__} CUDA {torch.version.cuda}")
     phase_build()
+    if sys.argv[1:] == ["--only", "multi_scene"]:
+        # Phase 11 alone, after the single-scene run it is held against.
+        train_ds, val_ds = make_scene()
+        card = smi_line()
+        ms_run = phase_multi_scene(phase_train(train_ds, val_ds)["val"]
+                                   ["psnr"], card)
+        print(json.dumps({"kernels": multi_scene_records(ms_run)}))
+        print(card)
+        return 0
     net = init_model(slice_config().model_config(), seed=SEED, device="cuda")
     coarse, fine = phase_kernel(net)
     fwd_train, bwds, ph_fine, ph_coarse = phase_backward(net)
@@ -2581,6 +3319,7 @@ def main():
     graph_recs = phase_graph(train_ds, val_ds, train_run, occ_run,
                              hi_lo_run, card)
     mesh_recs = phase_mesh(turbo_ckpt, card)
+    ms_run = phase_multi_scene(train_run["val"]["psnr"], card)
 
     # The forward runs on both paths, at different shapes: one record per
     # path, each with that path's launches and its fine call's times, and
@@ -2744,6 +3483,8 @@ def main():
             "bound_by": r["bound_by"],
             "library_ms": None,
         })
+    # Multi-scene training (phase 11): each kernel over the scene axis.
+    kernels += multi_scene_records(ms_run)
     for rec in bwds + [occ["bwd probe"], occ["bwd refine"], occ["bwd hi_lo"],
                        llff["bwd"]]:
         print(f"[backward] {rec['label']} call, all three kernels: "

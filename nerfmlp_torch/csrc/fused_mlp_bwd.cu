@@ -77,6 +77,21 @@
 // (forward layer, dX, load of the cotangent) and phase 2's job list. Every
 // width is padded to a multiple of 16 with zeros, so padding adds exactly
 // zero. Rows at or past n load a zero cotangent, so they contribute nothing.
+//
+// A scene axis (the TPU kernels under jax.vmap: one pallas_call with a
+// leading grid axis over scenes): each launch runs S nets of one
+// architecture, scene s with its own weights and biases (at s times a
+// stride), its own n points, dirs and cotangent rows (scene-major, at s *
+// n), its own workspace rows and its own partial slots.
+//   * Phase 1 walks S * ceil(n / T) tiles, none straddling two scenes; tile
+//     t is workspace rows t * T on, so scene s's rows start at s * rows_s,
+//     rows_s = n rounded up to the tile. The fetch stream keeps the scene
+//     of the tile it fetches for.
+//   * Phase 2's blocks are (job, split, scene): scene s's splits cover its
+//     rows_s rows only, and write slot block s of the partials.
+//   * The reduction sums each scene's slots (grid y: the scene) in the order
+//     it sums one scene's.
+// So every per-scene result is bit-equal to a launch of that scene alone.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -168,7 +183,8 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
                   const float* __restrict__ g, const bf16* __restrict__ weights,
                   const float* __restrict__ biases,
                   const int* __restrict__ prog_in, int prog_len, int n,
-                  int n_tiles, bf16* __restrict__ ws, long long rows_cap) {
+                  int n_tiles, bf16* __restrict__ ws, long long rows_cap,
+                  long long w_stride, int b_stride) {
   constexpr int MT = Phase1<kHiLo>::kMT;
   constexpr int NT = Phase1<kHiLo>::kNT;
   constexpr int T = Phase1<kHiLo>::kRows;
@@ -198,6 +214,7 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
     const int* o = ops + oi * kOpInts;
     return o[fOp] == kLoadG ? 0 : (o[fKA] + o[fKB]) / 16;
   };
+  const int tiles_per_scene = (n + T - 1) / T;
 
   // The slab stream: every operation's 16-row k-slabs in program order,
   // tile after tile. Forward: rows k0..k0+15 of W (k x n), stored
@@ -206,13 +223,16 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
   // row swapped every 4 rows, so that ldmatrix meets no bank conflict. A
   // thread's chunk of an operand's slabs is set up once per operand
   // (f_operand); fetch() then issues it, one slab further each call, or an
-  // empty group at the end.
+  // empty group at the end. f_w: the weights of the scene of the tile being
+  // fetched for.
+  const bf16* f_w = weights;
+  int f_tile = static_cast<int>(blockIdx.x) - static_cast<int>(gridDim.x);
   const bf16* f_src = weights;
   long long f_lo = 0;
   int f_dst = -1, f_step = 0, f_op = -1, f_j = 0, f_steps = 0, f_steps_a = 0;
   auto f_operand = [&](const int* o, bool second) {
     const int k = second ? o[fKB] : o[fKA], nn = o[fN];
-    const bf16* w = weights + (second ? o[fWB] : o[fWA]);
+    const bf16* w = f_w + (second ? o[fWB] : o[fWA]);
     f_lo = static_cast<long long>(k) * nn;
     if (o[fOp] == kFwd) {
       const int r = tid >> 5, cc = tid & 31;
@@ -235,7 +255,13 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
   auto fetch = [&](int slot) {
     if (f_left > 0) {
       while (f_j >= f_steps) {
-        f_op = f_op + 1 == n_ops ? 0 : f_op + 1;
+        if (f_op + 1 == n_ops || f_op < 0) {  // the block's next tile
+          f_op = 0;
+          f_tile += gridDim.x;
+          f_w = weights + (f_tile / tiles_per_scene) * w_stride;
+        } else {
+          ++f_op;
+        }
         f_j = 0;
         f_steps = steps(f_op);
         f_steps_a = ops[f_op * kOpInts + fKA] / 16;
@@ -258,7 +284,14 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
 
   float acc[MT][NT][4];
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    // Workspace rows row0 on; the tile's scene, its first point within the
+    // scene (p0) and the scene's points, dirs, cotangent rows and biases.
     const int row0 = tile * T;
+    const int scene = tile / tiles_per_scene;
+    const int p0 = (tile - scene * tiles_per_scene) * T;
+    const long long base = static_cast<long long>(scene) * n;
+    const float* pts_s = pts + 3 * base;
+    const float* bias_s = biases + static_cast<long long>(scene) * b_stride;
 
     // Encoded points (mlp_tile.cuh's encode, as the forward).
     {
@@ -267,8 +300,8 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
       bf16* xs = bufp(xb);
       bf16* xw = matp(xm) + static_cast<long long>(row0) * xc;
       for (int idx = tid; idx < T * xc; idx += kThreads) {
-        const int r = idx / xc, j = idx - r * xc, gr = row0 + r;
-        const float v = (gr < n && j < enc_dim) ? encode(pts, gr, j) : 0.f;
+        const int r = idx / xc, j = idx - r * xc, gr = p0 + r;
+        const float v = (gr < n && j < enc_dim) ? encode(pts_s, gr, j) : 0.f;
         put2<kHiLo>(xs + r * ldx + j, T * ldx, xw + idx, rows_cap * xc, v);
       }
     }
@@ -279,10 +312,10 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
       bf16* ds = bufp(db);
       bf16* dw = matp(dm) + static_cast<long long>(row0) * dc;
       for (int idx = tid; idx < T * dc; idx += kThreads) {
-        const int r = idx / dc, j = idx - r * dc, gr = row0 + r;
+        const int r = idx / dc, j = idx - r * dc, gr = p0 + r;
         float v = 0.f;
         if (gr < n && j < dirs_dim) {
-          const long long at = static_cast<long long>(gr) * dirs_dim + j;
+          const long long at = (base + gr) * dirs_dim + j;
           v = kHiLo ? static_cast<const float*>(dirs)[at]
                     : __bfloat162float(static_cast<const bf16*>(dirs)[at]);
         }
@@ -309,11 +342,9 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
           bf16* gs = bufp(b);
           bf16* gw = matp(m) + static_cast<long long>(row0) * mc;
           for (int idx = tid; idx < T * mc; idx += kThreads) {
-            const int r = idx / mc, j = idx - r * mc, gr = row0 + r;
+            const int r = idx / mc, j = idx - r * mc, gr = p0 + r;
             const float v =
-                (gr < n && j < cn)
-                    ? g[static_cast<long long>(gr) * g_cols + c0 + j]
-                    : 0.f;
+                (gr < n && j < cn) ? g[(base + gr) * g_cols + c0 + j] : 0.f;
             put2<kHiLo>(gs + r * ldg + j, T * ldg, gw + idx, rows_cap * mc, v);
           }
         }
@@ -390,7 +421,7 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
         const int dst = o[fDst], ldd = bld(dst);
         bf16* d = bufp(dst);
         const int mask_in = o[fMaskIn], mask_out = o[fMaskOut];
-        const float* bias = biases + o[fBias];
+        const float* bias = bias_s + o[fBias];
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           const uint32_t bits_in =
@@ -465,20 +496,22 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
   cp_async_wait<0>();
 }
 
-// dW and db partials of one job and one split of the rows.
+// dW and db partials of one job, one split of the rows and one scene.
 template <bool kHiLo>
 __global__ void __launch_bounds__(kThreads)
 bwd_phase2_kernel(const bf16* __restrict__ ws, long long rows_cap,
                   const int* __restrict__ prog, const int* __restrict__ jobs,
-                  int n_jobs, int rows, int split_rows,
-                  float* __restrict__ part, long long part_stride) {
+                  int n_jobs, int rows, int splits, int split_rows,
+                  float* __restrict__ part, long long part_stride,
+                  long long part_scene_stride) {
   constexpr int kPlane = kStageRows * kLd2;  // one [64][136] tile
   constexpr int kStage = 2 * kPlane * (kHiLo ? 2 : 1);
   constexpr int kLo = 2 * kPlane;             // lo planes follow both his
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
 
-  const int job = blockIdx.x % n_jobs, split = blockIdx.x / n_jobs;
+  const int job = blockIdx.x % n_jobs, split = (blockIdx.x / n_jobs) % splits;
+  const int scene = blockIdx.x / n_jobs / splits;
   const int* jb = jobs + job * kJobInts;
   const int* mats = prog + kMatsBase;
   const int am = jb[jA], ym = jb[jY];
@@ -487,9 +520,11 @@ bwd_phase2_kernel(const bf16* __restrict__ ws, long long rows_cap,
   const bf16* A = ws + static_cast<long long>(mats[2 * am]) * rows_cap + k0;
   const bf16* Y = ws + static_cast<long long>(mats[2 * ym]) * rows_cap + n0;
   const long long a_lo = rows_cap * ac, y_lo = rows_cap * yc;
-  const int r0 = split * split_rows;
-  const int r1 = min(rows, r0 + split_rows);
-  const int n_st = r1 > r0 ? (r1 - r0) / kStageRows : 0;
+  // The scene's rows are rows [scene * rows, (scene + 1) * rows).
+  const long long r_end = static_cast<long long>(scene + 1) * rows;
+  const long long r0 = r_end - rows + static_cast<long long>(split) * split_rows;
+  const long long r1 = min(r_end, r0 + split_rows);
+  const int n_st = r1 > r0 ? static_cast<int>((r1 - r0) / kStageRows) : 0;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int kb = (warp >> 2) * 64;  // the warp's k rows of the tile
@@ -590,7 +625,8 @@ bwd_phase2_kernel(const bf16* __restrict__ ws, long long rows_cap,
   }
   cp_async_wait<0>();
 
-  float* P = part + static_cast<long long>(split) * part_stride;
+  float* P = part + scene * part_scene_stride +
+             static_cast<long long>(split) * part_stride;
   const int off = jb[jOff], ld = jb[jLd];
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt) {
@@ -618,13 +654,16 @@ bwd_phase2_kernel(const bf16* __restrict__ ws, long long rows_cap,
 // out[j] = the sum over `slots` partial rows of part[s * stride + j], added
 // in slot order: the same bits on every run, and those of the plain sum.
 // Blocks of 64 threads, one float4 column each, so that the blocks spread
-// evenly over the SMs.
+// evenly over the SMs. Grid y is the scene: its slots at blockIdx.y *
+// slots * stride, its sum at blockIdx.y * total.
 constexpr int kReduceThreads = 64;
 __global__ void __launch_bounds__(kReduceThreads)
 reduce_partials_kernel(const float* __restrict__ part, int slots,
                        long long stride, float* __restrict__ out,
                        long long total) {
   const long long n4 = (total + 3) / 4, s4 = stride / 4;
+  part += static_cast<long long>(blockIdx.y) * slots * stride;
+  out += static_cast<long long>(blockIdx.y) * total;
   const float4* p4 = reinterpret_cast<const float4*>(part);
   for (long long q = blockIdx.x * static_cast<long long>(kReduceThreads) +
                      threadIdx.x;
@@ -658,31 +697,37 @@ reduce_partials_kernel(const float* __restrict__ part, int slots,
 template <bool kHiLo>
 cudaError_t launch_phase1(const float* pts, const void* dirs, const float* g,
                           const bf16* weights, const float* biases,
-                          const int* prog, int prog_len, int n, int grid,
-                          int smem, bf16* ws, long long rows_cap,
+                          const int* prog, int prog_len, int n,
+                          int n_scenes, long long w_stride, int b_stride,
+                          int grid, int smem, bf16* ws, long long rows_cap,
                           cudaStream_t stream) {
-  const int n_tiles = (n + Phase1<kHiLo>::kRows - 1) / Phase1<kHiLo>::kRows;
+  const int n_tiles =
+      n_scenes * ((n + Phase1<kHiLo>::kRows - 1) / Phase1<kHiLo>::kRows);
   cudaError_t err = cudaFuncSetAttribute(
       bwd_phase1_kernel<kHiLo>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
   bwd_phase1_kernel<kHiLo><<<grid, Phase1<kHiLo>::kThreads, smem, stream>>>(
-      pts, dirs, g, weights, biases, prog, prog_len, n, n_tiles, ws, rows_cap);
+      pts, dirs, g, weights, biases, prog, prog_len, n, n_tiles, ws, rows_cap,
+      w_stride, b_stride);
   return cudaGetLastError();
 }
 
 template <bool kHiLo>
 cudaError_t launch_phase2(const bf16* ws, long long rows_cap, const int* prog,
                           const int* jobs, int n_jobs, int rows, int splits,
-                          int split_rows, float* part, long long part_stride,
+                          int split_rows, int n_scenes, float* part,
+                          long long part_stride, long long part_scene_stride,
                           cudaStream_t stream) {
   const int smem = kStages2 * 2 * kStageRows * kLd2 * 2 * (kHiLo ? 2 : 1);
   cudaError_t err = cudaFuncSetAttribute(
       bwd_phase2_kernel<kHiLo>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  bwd_phase2_kernel<kHiLo><<<n_jobs * splits, kThreads, smem, stream>>>(
-      ws, rows_cap, prog, jobs, n_jobs, rows, split_rows, part, part_stride);
+  bwd_phase2_kernel<kHiLo><<<n_jobs * splits * n_scenes, kThreads, smem,
+                              stream>>>(
+      ws, rows_cap, prog, jobs, n_jobs, rows, splits, split_rows, part,
+      part_stride, part_scene_stride);
   return cudaGetLastError();
 }
 
@@ -706,21 +751,27 @@ const char* fused_mlp_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Phase 1 for n points. pts (n, 3) fp32; dirs (n, dirs_dim) bf16 (fp32 in
-// hi_lo mode) or null; g (n, g_cols) fp32; weights bf16 and biases fp32 as
-// packed for the forward; prog (device, int32): the program, whose first
+// Phase 1 for n_scenes scenes of n points each, scene-major. pts
+// (n_scenes * n, 3) fp32; dirs (n_scenes * n, dirs_dim) bf16 (fp32 in
+// hi_lo mode) or null; g (n_scenes * n, g_cols) fp32; weights bf16 and
+// biases fp32 as packed for the forward, scene s's at s * w_stride and
+// s * b_stride elements; prog (device, int32): the program, whose first
 // prog_len ints go to shared memory; smem: the program's shared-memory
-// bytes; ws: the workspace, rows_cap rows per matrix (>= n rounded up to
-// the tile). Launches `grid` persistent blocks on `stream`, does not
-// synchronise, allocates nothing; returns cudaGetLastError().
+// bytes; ws: the workspace, rows_cap rows per matrix (>= n_scenes times n
+// rounded up to the tile; scene s's from s times that). Launches `grid`
+// persistent blocks on `stream`, does not synchronise, allocates nothing;
+// returns cudaGetLastError().
 int fused_mlp_bwd_phase1(const void* pts, const void* dirs, const void* g,
                          const void* weights, const void* biases,
                          const void* prog, int prog_len, int hi_lo, int n,
+                         int n_scenes, long long w_stride, int b_stride,
                          int grid, int smem, void* ws, long long rows_cap,
                          void* stream) {
   const int rows = hi_lo ? Phase1<true>::kRows : Phase1<false>::kRows;
-  if (prog_len < kOpsBase || grid <= 0 ||
-      rows_cap < static_cast<long long>(n + rows - 1) / rows * rows)
+  if (prog_len < kOpsBase || grid <= 0 || n_scenes <= 0 || w_stride % 8 ||
+      b_stride < 0 ||
+      rows_cap < static_cast<long long>(n_scenes) * ((n + rows - 1) / rows) *
+                     rows)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaSuccess);
   const auto* p = static_cast<const float*>(pts);
@@ -731,24 +782,30 @@ int fused_mlp_bwd_phase1(const void* pts, const void* dirs, const void* g,
   auto* wsp = static_cast<bf16*>(ws);
   auto* s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      hi_lo ? launch_phase1<true>(p, dirs, gg, w, b, pr, prog_len, n, grid,
-                                  smem, wsp, rows_cap, s)
-            : launch_phase1<false>(p, dirs, gg, w, b, pr, prog_len, n, grid,
-                                   smem, wsp, rows_cap, s));
+      hi_lo ? launch_phase1<true>(p, dirs, gg, w, b, pr, prog_len, n,
+                                  n_scenes, w_stride, b_stride, grid, smem,
+                                  wsp, rows_cap, s)
+            : launch_phase1<false>(p, dirs, gg, w, b, pr, prog_len, n,
+                                   n_scenes, w_stride, b_stride, grid, smem,
+                                   wsp, rows_cap, s));
 }
 
-// Phase 2 over the first `rows` rows of the workspace (a multiple of 32):
-// n_jobs jobs (device, int32) x `splits` ranges of split_rows rows (a
-// multiple of 32), each writing its tile into part[split * part_stride +
-// ...] (fp32). Every element of the packed gradient is written once per
-// split.
+// Phase 2 over n_scenes scenes of `rows` workspace rows each (a multiple
+// of 64; scene s's from s * rows): n_jobs jobs (device, int32) x `splits`
+// ranges of split_rows rows (a multiple of 64) x the scenes, each writing
+// its tile into part[scene * part_scene_stride + split * part_stride +
+// ...] (fp32). Every element of each scene's packed gradient is written
+// once per split.
 int fused_mlp_bwd_phase2(const void* ws, long long rows_cap, const void* prog,
                          const void* jobs, int n_jobs, int hi_lo, int rows,
-                         int splits, int split_rows, void* part,
-                         long long part_stride, void* stream) {
-  if (n_jobs <= 0 || splits <= 0 || rows % kStageRows ||
-      split_rows % kStageRows || rows > rows_cap ||
-      static_cast<long long>(splits) * split_rows < rows)
+                         int splits, int split_rows, int n_scenes, void* part,
+                         long long part_stride, long long part_scene_stride,
+                         void* stream) {
+  if (n_jobs <= 0 || splits <= 0 || n_scenes <= 0 || rows % kStageRows ||
+      split_rows % kStageRows ||
+      static_cast<long long>(n_scenes) * rows > rows_cap ||
+      static_cast<long long>(splits) * split_rows < rows ||
+      static_cast<long long>(n_jobs) * splits * n_scenes > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* w = static_cast<const bf16*>(ws);
   const auto* pr = static_cast<const int*>(prog);
@@ -757,21 +814,29 @@ int fused_mlp_bwd_phase2(const void* ws, long long rows_cap, const void* prog,
   auto* s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
       hi_lo ? launch_phase2<true>(w, rows_cap, pr, jb, n_jobs, rows, splits,
-                                  split_rows, pa, part_stride, s)
+                                  split_rows, n_scenes, pa, part_stride,
+                                  part_scene_stride, s)
             : launch_phase2<false>(w, rows_cap, pr, jb, n_jobs, rows, splits,
-                                   split_rows, pa, part_stride, s));
+                                   split_rows, n_scenes, pa, part_stride,
+                                   part_scene_stride, s));
 }
 
-// out (total,) = the sum of `slots` partial rows of `stride` floats each
-// (stride a multiple of 4, part and out 16-byte aligned).
+// For each of n_scenes scenes: out (total,) at scene * total = the sum of
+// `slots` partial rows of `stride` floats each, at scene * slots * stride
+// (stride and total multiples of 4 when n_scenes > 1, part and out 16-byte
+// aligned).
 int fused_mlp_bwd_reduce(const void* part, int slots, long long stride,
-                         void* out, long long total, void* stream) {
-  if (slots <= 0 || total < 0 || stride < total || stride % 4)
+                         void* out, long long total, int n_scenes,
+                         void* stream) {
+  if (slots <= 0 || total < 0 || stride < total || stride % 4 ||
+      n_scenes <= 0 || n_scenes > 65535 || (n_scenes > 1 && total % 4))
     return static_cast<int>(cudaErrorInvalidValue);
   if (total == 0) return static_cast<int>(cudaSuccess);
   long long blocks = ((total + 3) / 4 + kReduceThreads - 1) / kReduceThreads;
   if (blocks > 65535) blocks = 65535;
-  reduce_partials_kernel<<<static_cast<int>(blocks), kReduceThreads, 0,
+  reduce_partials_kernel<<<dim3(static_cast<unsigned>(blocks),
+                                static_cast<unsigned>(n_scenes)),
+                           kReduceThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(part), slots, stride,
       static_cast<float*>(out), total);

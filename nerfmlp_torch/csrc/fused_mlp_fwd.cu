@@ -73,6 +73,17 @@
 // of 16 with zero weights, zero biases and zero activations, so padding adds
 // exactly zero. Rows past n are zero on the way in and never written on the
 // way out.
+//
+// A scene axis (the TPU kernel under jax.vmap, whose batching rule gives the
+// pallas_call a leading grid axis over scenes): one launch runs S nets of
+// one architecture, scene s with its own weights and biases (at s times a
+// stride in each buffer), its n points, dirs and output rows (scene-major,
+// at s * n). The tile loop runs over S * ceil(n / T) tiles; a tile never
+// straddles two scenes, and each tile decodes (scene, local tile). The
+// weight ring's fetch stream, which runs ahead into the block's next tile,
+// keeps the scene of the tile it fetches for. Every output row is computed
+// as in a launch of its scene alone, so scene s's rows equal a single-scene
+// launch's bit for bit. S = 1 is the single net.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -138,7 +149,7 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
                      const float* __restrict__ biases,
                      float* __restrict__ out,
                      const int* __restrict__ prog_in, int prog_len, int n,
-                     int n_tiles) {
+                     int n_tiles, long long w_stride, int b_stride) {
   constexpr int NT = 8;           // n8 tiles per warp: 64 columns
   constexpr int T = 64 * MT;      // points per tile
   constexpr int KS = 16 * KSUB;   // weight rows per ring stage
@@ -164,6 +175,7 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
     const int* o = ops + oi * kOpInts;
     return stages_of(o[fKA], o[fKR]) + stages_of(o[fKB], o[fKR]);
   };
+  const int tiles_per_scene = (n + T - 1) / T;
 
   // The slab stream: every operation's kr-row k-slabs, operand A's then
   // B's, in program order, tile after tile. A slab holds rows k0..k0+kr-1
@@ -172,6 +184,9 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
   // tid / 32, 16-byte column chunk tid % 32, and the same chunk every 16
   // rows further on) is set up once per operand (f_operand); fetch() then
   // issues it, one slab further each call, or an empty group at the end.
+  // f_w: the weights of the scene of the tile being fetched for.
+  const bf16* f_w = weights;
+  int f_tile = static_cast<int>(blockIdx.x) - static_cast<int>(gridDim.x);
   const bf16* f_src = weights;
   long long f_lo = 0, f_rows16 = 0;
   int f_dst = -1, f_ld = 0, f_row = 0, f_k = 0, f_kr = KS;
@@ -182,7 +197,7 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
     f_lo = static_cast<long long>(k) * wld;
     f_ld = nn + kPad;
     f_dst = cc < nn / 8 ? r * f_ld + cc * 8 : -1;
-    f_src = weights + (second ? o[fWB] : o[fWA]) +
+    f_src = f_w + (second ? o[fWB] : o[fWA]) +
             static_cast<long long>(r) * wld + cc * 8;
     f_rows16 = 16LL * wld;
     f_row = r;
@@ -198,7 +213,13 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
   auto fetch = [&](int slot) {
     if (f_left > 0) {
       while (f_j >= f_steps) {
-        f_op = f_op + 1 == n_ops ? 0 : f_op + 1;
+        if (f_op + 1 == n_ops || f_op < 0) {  // the block's next tile
+          f_op = 0;
+          f_tile += gridDim.x;
+          f_w = weights + (f_tile / tiles_per_scene) * w_stride;
+        } else {
+          ++f_op;
+        }
         f_j = 0;
         f_steps = steps(f_op);
         f_steps_a = stages_of(ops[f_op * kOpInts + fKA], ops[f_op * kOpInts + fKR]);
@@ -227,7 +248,13 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
 
   float acc[MT][NT][4];
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * T;
+    // The tile's scene and its first point within the scene; the scene's
+    // points, dirs, output rows and biases.
+    const int scene = tile / tiles_per_scene;
+    const int row0 = (tile - scene * tiles_per_scene) * T;
+    const long long base = static_cast<long long>(scene) * n;
+    const float* pts_s = pts + 3 * base;
+    const float* bias_s = biases + static_cast<long long>(scene) * b_stride;
     __syncthreads();  // the previous tile's reads of X and D are done
 
     // Encoded points, then the encoded view directions (bf16, or fp32 in
@@ -237,7 +264,7 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
       bf16* xs = bufp(kX);
       for (int idx = tid; idx < T * xc; idx += kThreads) {
         const int r = idx / xc, j = idx - r * xc, g = row0 + r;
-        const float v = (g < n && j < enc_dim) ? encode(pts, g, j) : 0.f;
+        const float v = (g < n && j < enc_dim) ? encode(pts_s, g, j) : 0.f;
         put<kHiLo>(xs + r * ldx + j, T * ldx, v);
       }
     }
@@ -248,7 +275,7 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
         const int r = idx / dc, j = idx - r * dc, g = row0 + r;
         float v = 0.f;
         if (g < n && j < dirs_dim) {
-          const long long at = static_cast<long long>(g) * dirs_dim + j;
+          const long long at = (base + g) * dirs_dim + j;
           v = kHiLo ? static_cast<const float*>(dirs)[at]
                     : __bfloat162float(static_cast<const bf16*>(dirs)[at]);
         }
@@ -332,7 +359,7 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
       // the output. Accumulator acc[mt][nt][2 hh + e] is row rb + 16 mt +
       // lane / 4 + 8 hh, column cb + 8 nt + 2 (lane % 4) + e of the pass.
       const int mode = o[fMode], dst = o[fDst];
-      const float* bias = biases + o[fBias];
+      const float* bias = bias_s + o[fBias];
       const int n_real = o[fNReal], out_w = prog[hOutW];
       bf16* d = mode == kOutF32 ? nullptr : bufp(dst) + o[fCol];
       const int ldd = mode == kOutF32 ? 0 : bld(dst);
@@ -351,7 +378,7 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
             if (mode == kOutF32) {
               const int g = row0 + row;
               if (g < n) {
-                float* at = out + static_cast<long long>(g) * out_w + dst + col;
+                float* at = out + (base + g) * out_w + dst + col;
                 if (col < n_real) at[0] = v0;
                 if (col + 1 < n_real) at[1] = v1;
               }
@@ -378,15 +405,16 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
 template <bool kHiLo, int MT, int KSUB>
 cudaError_t launch(const float* pts, const void* dirs, const bf16* weights,
                    const float* biases, float* out, const int* prog,
-                   int prog_len, int n, int grid, int smem,
-                   cudaStream_t stream) {
-  const int n_tiles = (n + 64 * MT - 1) / (64 * MT);
+                   int prog_len, int n, int n_scenes, long long w_stride,
+                   int b_stride, int grid, int smem, cudaStream_t stream) {
+  const int n_tiles = n_scenes * ((n + 64 * MT - 1) / (64 * MT));
   cudaError_t err = cudaFuncSetAttribute(
       fused_mlp_fwd_kernel<kHiLo, MT, KSUB>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   fused_mlp_fwd_kernel<kHiLo, MT, KSUB><<<grid, kThreads, smem, stream>>>(
-      pts, dirs, weights, biases, out, prog, prog_len, n, n_tiles);
+      pts, dirs, weights, biases, out, prog, prog_len, n, n_tiles, w_stride,
+      b_stride);
   return cudaGetLastError();
 }
 
@@ -406,18 +434,23 @@ const char* fused_mlp_fwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// pts (n, 3) fp32; dirs (n, dirs_dim), bf16 (fp32 in hi_lo mode) or null;
-// weights bf16; biases fp32; out (n, out_w) fp32; prog (int32): the
-// program, whose first prog_len ints go to shared memory — all on the
-// current device. rows (128 or 64 points per tile) and ksub (2 or 1
+// n_scenes scenes of n points each, scene-major: pts (n_scenes * n, 3)
+// fp32; dirs (n_scenes * n, dirs_dim), bf16 (fp32 in hi_lo mode) or null;
+// weights bf16 and biases fp32, scene s's at s * w_stride and s * b_stride
+// elements; out (n_scenes * n, out_w) fp32; prog (int32): the program,
+// whose first prog_len ints go to shared memory — all on the current
+// device. rows (128 or 64 points per tile) and ksub (2 or 1
 // 16-row k-steps per ring stage) pick the kernel; smem: the program's
 // shared-memory bytes. Launches `grid` persistent blocks on `stream`, does
 // not synchronise, allocates nothing; returns cudaGetLastError().
 int fused_mlp_fwd(const void* pts, const void* dirs, const void* weights,
-                  const void* biases, void* out, int n, const void* prog,
+                  const void* biases, void* out, int n, int n_scenes,
+                  long long w_stride, int b_stride, const void* prog,
                   int prog_len, int hi_lo, int rows, int ksub, int grid,
                   int smem, void* stream) {
-  if (prog_len < kOpsBase || grid <= 0)
+  if (prog_len < kOpsBase || grid <= 0 || n_scenes <= 0 || w_stride % 8 ||
+      b_stride < 0 ||
+      static_cast<long long>(n_scenes) * ((n + rows - 1) / rows) > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaSuccess);
   const auto* p = static_cast<const float*>(pts);
@@ -428,16 +461,20 @@ int fused_mlp_fwd(const void* pts, const void* dirs, const void* weights,
   auto* s = static_cast<cudaStream_t>(stream);
   if (hi_lo && rows == 64 && ksub == 1)
     return static_cast<int>(launch<true, 1, 1>(p, dirs, w, b, o, pr, prog_len,
-                                               n, grid, smem, s));
+                                               n, n_scenes, w_stride, b_stride,
+                                               grid, smem, s));
   if (!hi_lo && rows == 128 && ksub == 2)
     return static_cast<int>(launch<false, 2, 2>(p, dirs, w, b, o, pr,
-                                                prog_len, n, grid, smem, s));
+                                                prog_len, n, n_scenes, w_stride,
+                                                b_stride, grid, smem, s));
   if (!hi_lo && rows == 64 && ksub == 2)
     return static_cast<int>(launch<false, 1, 2>(p, dirs, w, b, o, pr,
-                                                prog_len, n, grid, smem, s));
+                                                prog_len, n, n_scenes, w_stride,
+                                                b_stride, grid, smem, s));
   if (!hi_lo && rows == 64 && ksub == 1)
     return static_cast<int>(launch<false, 1, 1>(p, dirs, w, b, o, pr,
-                                                prog_len, n, grid, smem, s));
+                                                prog_len, n, n_scenes, w_stride,
+                                                b_stride, grid, smem, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -31,6 +31,15 @@ it and how it is built for Hopper.
 * :func:`kernel_fits` and :func:`backward_fits` are the Hopper budgets that
   decide, from the architecture alone, whether a net goes to the kernels
   (the role of ``backward_fits_vmem``, :592-608, for the TPU's VMEM).
+* A stack of S nets of one architecture (:class:`NetStack`, packed by
+  :func:`pack_params_stack`: one scene per net) runs every call above as
+  ONE launch of each kernel over a scene axis — the TPU kernels under
+  ``jax.vmap``, whose batching rule gives each ``pallas_call`` a leading
+  grid axis over scenes (multi-scene training,
+  ``parallel/multi_scene.py``). The points come scene-major, the same
+  number per scene; scene s's results are bit-equal to a launch of its net
+  alone. The plain version of a stacked call is the plain function on
+  each scene's slice, concatenated.
 """
 
 from __future__ import annotations
@@ -371,6 +380,32 @@ class PackedMLP:
     grad_total: int
     grad_blocks: Tuple[Tuple, ...]
     grad_biases: Tuple[Tuple, ...]
+    stack: Tuple[NeRFMLP, ...] = ()
+
+    @property
+    def n_scenes(self) -> int:
+        """Nets laid out one after another (:func:`pack_params_stack`): 1
+        for a single net."""
+        return len(self.stack) or 1
+
+    @property
+    def w_stride(self) -> int:
+        """bf16 elements of one scene's weights."""
+        return self.weights.numel() // self.n_scenes
+
+    @property
+    def b_stride(self) -> int:
+        """fp32 elements of one scene's biases."""
+        return self.biases.numel() // self.n_scenes
+
+
+@dataclasses.dataclass(frozen=True)
+class NetStack:
+    """S nets of one architecture, one per scene, queried together: every
+    call takes S equal, scene-major slices of points, scene s's through
+    ``nets[s]``."""
+
+    nets: Tuple[NeRFMLP, ...]
 
 
 def _check_arch(net: NeRFMLP, mc: ModelConfig, vdirs: bool) -> None:
@@ -527,6 +562,29 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
         ws_mats=ws_mats, grad_total=g_off + b_off,
         grad_blocks=tuple(grad_blocks), grad_biases=tuple(grad_biases),
     )
+
+
+def pack_params_stack(nets, n_freqs: int, vdirs: bool,
+                      hi_lo: bool = False) -> PackedMLP:
+    """Lay S nets of one architecture out for one launch over a scene
+    axis: scene 0's programs, and every net's weights, then biases, one
+    scene after another (scene s's at ``s * w_stride`` / ``s * b_stride``).
+    ``packed.stack`` holds the nets."""
+    nets = tuple(nets.nets if isinstance(nets, NetStack) else nets)
+    if not nets:
+        raise ValueError("pack_params_stack needs at least one net")
+    packs = [pack_params(net, n_freqs, vdirs, hi_lo) for net in nets]
+    first = packs[0]
+    for net, p in zip(nets[1:], packs[1:]):
+        if (net.cfg != first.net.cfg
+                or not np.array_equal(p.program, first.program)
+                or not np.array_equal(p.bwd_program, first.bwd_program)):
+            raise ValueError("the nets of a stack must share one "
+                             "architecture")
+    return dataclasses.replace(
+        first, stack=nets,
+        weights=torch.cat([p.weights for p in packs]),
+        biases=torch.cat([p.biases for p in packs]))
 
 
 @functools.lru_cache(maxsize=64)
@@ -838,7 +896,10 @@ def fused_nerf_mlp_bwd_plain(net: NeRFMLP, pts: torch.Tensor,
 
 def reduce_partials_plain(part: torch.Tensor, total: int) -> torch.Tensor:
     """What the reduction kernel computes: the sum of the (G, stride)
-    partial rows' first ``total`` columns, added in row order."""
+    partial rows' first ``total`` columns, added in row order; of each
+    scene's rows for (S, G, stride) partials -> (S, total)."""
+    if part.dim() == 3:
+        return torch.stack([reduce_partials_plain(p, total) for p in part])
     out = part[0, :total].clone()
     for b in range(1, part.shape[0]):
         out += part[b, :total]
@@ -889,6 +950,46 @@ def _bwd_terms(net: NeRFMLP, pts, dirs, g, n_freqs: int, dt,
     return terms
 
 
+def _scenes(t: Optional[torch.Tensor], n_scenes: int):
+    """The S equal, scene-major slices of ``t`` (None: S Nones)."""
+    if t is None:
+        return [None] * n_scenes
+    if t.shape[0] % n_scenes:
+        raise ValueError(f"{t.shape[0]} rows do not split into {n_scenes} "
+                         f"equal scenes")
+    return list(t.chunk(n_scenes)) if n_scenes > 1 else [t]
+
+
+def fused_nerf_mlp_stack_plain(nets, pts: torch.Tensor,
+                               dirs: Optional[torch.Tensor], n_freqs: int,
+                               compute_dtype: torch.dtype = torch.bfloat16,
+                               hi_lo: bool = False) -> torch.Tensor:
+    """What the forward kernel computes over a scene axis: scene s's
+    slice of the scene-major points through ``nets[s]``
+    (:func:`fused_nerf_mlp_plain`), concatenated."""
+    nets = nets.nets if isinstance(nets, NetStack) else tuple(nets)
+    return torch.cat([
+        fused_nerf_mlp_plain(net, p, d, n_freqs, compute_dtype, hi_lo)
+        for net, p, d in zip(nets, _scenes(pts, len(nets)),
+                             _scenes(dirs, len(nets)))])
+
+
+def fused_nerf_mlp_bwd_stack_plain(nets, pts: torch.Tensor,
+                                   dirs: Optional[torch.Tensor],
+                                   g: torch.Tensor, n_freqs: int,
+                                   compute_dtype: torch.dtype = torch.bfloat16,
+                                   hi_lo: bool = False
+                                   ) -> List[Dict[str, torch.Tensor]]:
+    """What the backward kernels compute over a scene axis: each scene's
+    gradients (:func:`fused_nerf_mlp_bwd_plain` on its slice), by scene."""
+    nets = nets.nets if isinstance(nets, NetStack) else tuple(nets)
+    s = len(nets)
+    return [fused_nerf_mlp_bwd_plain(net, p, d, gg, n_freqs, compute_dtype,
+                                     hi_lo)
+            for net, p, d, gg in zip(nets, _scenes(pts, s), _scenes(dirs, s),
+                                     _scenes(g, s))]
+
+
 def ws_matrix(packed: PackedMLP, ws: torch.Tensor, m: int) -> torch.Tensor:
     """Workspace matrix ``m`` of a flat workspace: (planes, rows, cols)."""
     rows = ws.numel() // packed.ws_cols
@@ -904,21 +1005,30 @@ def bwd_workspace_plain(packed: PackedMLP, pts: torch.Tensor,
     """What phase 1 computes, from the function's definition: the flat
     workspace of ``rows`` rows holding every stored activation and rounded
     cotangent of the n points (bf16; in hi_lo mode the (hi, lo) planes of
-    the fp32 value), rows n and on zero."""
+    the fp32 value), rows n and on zero. For a stack, scene s's n / S
+    points fill rows ``s * rows_s`` on, ``rows_s`` = n / S rounded up to
+    phase 1's tile."""
     hi_lo = packed.hi_lo
     dt = torch.float32 if hi_lo else torch.bfloat16
     n_freqs = int(packed.bwd_program[_BWD_HEADER.index("n_freqs")])
-    terms = _bwd_terms(packed.net, pts, dirs, g, n_freqs, dt, hi_lo)
     ws = torch.zeros(rows * packed.ws_cols, device=pts.device,
                      dtype=torch.bfloat16)
-    n = pts.shape[0]
-    for m, (name, _, _) in enumerate(packed.ws_mats):
-        t = terms[name]
-        mat = ws_matrix(packed, ws, m)
-        hi = t.to(torch.bfloat16)
-        mat[0, :n, :t.shape[1]] = hi
-        if hi_lo:
-            mat[1, :n, :t.shape[1]] = (t - hi.float()).to(torch.bfloat16)
+    s = packed.n_scenes
+    nets = packed.stack or (packed.net,)
+    tile = bwd_tile_rows(hi_lo)
+    for i, (net, p, d, gg) in enumerate(zip(
+            nets, _scenes(pts, s), _scenes(dirs, s), _scenes(g, s))):
+        n = p.shape[0]
+        r0 = i * (-(-n // tile) * tile)
+        terms = _bwd_terms(net, p, d, gg, n_freqs, dt, hi_lo)
+        for m, (name, _, _) in enumerate(packed.ws_mats):
+            t = terms[name]
+            mat = ws_matrix(packed, ws, m)
+            hi = t.to(torch.bfloat16)
+            mat[0, r0:r0 + n, :t.shape[1]] = hi
+            if hi_lo:
+                mat[1, r0:r0 + n, :t.shape[1]] = (
+                    t - hi.float()).to(torch.bfloat16)
     return ws
 
 
@@ -941,25 +1051,30 @@ def weight_grads_plain(packed: PackedMLP, ws: torch.Tensor, rows: int,
     """What phase 2 computes: for each split of the workspace's first
     ``rows`` rows into ranges of ``split_rows``, one (splits, stride) fp32
     partial slot with every job's dW tile (A^T dY over the range; in hi_lo
-    mode hi*hi + lo*hi + hi*lo) and its db (dY's column sums)."""
+    mode hi*hi + lo*hi + hi*lo) and its db (dY's column sums). For a stack,
+    ``rows`` per scene from ``s * rows`` on, into (S, splits, stride)."""
     splits = -(-rows // split_rows)
-    part = torch.zeros((splits, part_stride(packed.grad_total)),
+    n_sc = packed.n_scenes
+    part = torch.zeros((n_sc, splits, part_stride(packed.grad_total)),
                        device=ws.device)
     mats = [ws_matrix(packed, ws, m).float()
             for m in range(len(packed.ws_mats))]
     for am, k0, kc, ym, n0, nc, off, ld, db, _ in packed.bwd_jobs.tolist():
-        for s in range(splits):
-            r0, r1 = s * split_rows, min(rows, (s + 1) * split_rows)
-            a = mats[am][:, r0:r1, k0:k0 + kc]
-            y = mats[ym][:, r0:r1, n0:n0 + nc]
-            prod = a[0].t() @ y[0]
-            if packed.hi_lo:
-                prod = prod + a[1].t() @ y[0] + a[0].t() @ y[1]
-            tile = part[s, off + k0 * ld: off + (k0 + kc) * ld].view(kc, ld)
-            tile[:, n0:n0 + nc] = prod
-            if db >= 0:
-                part[s, db + n0: db + n0 + nc] = y.sum(0).sum(0)
-    return part
+        for sc in range(n_sc):
+            for s in range(splits):
+                r0 = sc * rows + s * split_rows
+                r1 = min((sc + 1) * rows, r0 + split_rows)
+                a = mats[am][:, r0:r1, k0:k0 + kc]
+                y = mats[ym][:, r0:r1, n0:n0 + nc]
+                prod = a[0].t() @ y[0]
+                if packed.hi_lo:
+                    prod = prod + a[1].t() @ y[0] + a[0].t() @ y[1]
+                tile = part[sc, s, off + k0 * ld:
+                            off + (k0 + kc) * ld].view(kc, ld)
+                tile[:, n0:n0 + nc] = prod
+                if db >= 0:
+                    part[sc, s, db + n0: db + n0 + nc] = y.sum(0).sum(0)
+    return part if packed.stack else part[0]
 
 
 # --------------------------------------------------------------------- #
@@ -972,7 +1087,8 @@ def _kernel(csrc: str = _build.CSRC):
     module's."""
     lib = _build.load("fused_mlp_fwd", csrc)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.fused_mlp_fwd.argtypes = [vp] * 5 + [i32, vp] + [i32] * 6 + [vp]
+    lib.fused_mlp_fwd.argtypes = ([vp] * 5 + [i32, i32, ctypes.c_longlong, i32,
+                                   vp] + [i32] * 6 + [vp])
     lib.fused_mlp_fwd.restype = i32
     lib.fused_mlp_fwd_error_string.argtypes = [i32]
     lib.fused_mlp_fwd_error_string.restype = ctypes.c_char_p
@@ -993,12 +1109,13 @@ def _bwd_kernel(csrc: str = _build.CSRC):
     sources in ``csrc``, declared and checked."""
     lib = _build.load("fused_mlp_bwd", csrc)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fused_mlp_bwd_phase1.argtypes = [vp] * 6 + [i32] * 5 + [vp, i64, vp]
+    lib.fused_mlp_bwd_phase1.argtypes = ([vp] * 6 + [i32] * 4 + [i64]
+                                         + [i32] * 3 + [vp, i64, vp])
     lib.fused_mlp_bwd_phase1.restype = i32
-    lib.fused_mlp_bwd_phase2.argtypes = [vp, i64, vp, vp] + [i32] * 5 + [
-        vp, i64, vp]
+    lib.fused_mlp_bwd_phase2.argtypes = [vp, i64, vp, vp] + [i32] * 6 + [
+        vp, i64, i64, vp]
     lib.fused_mlp_bwd_phase2.restype = i32
-    lib.fused_mlp_bwd_reduce.argtypes = [vp, i32, i64, vp, i64, vp]
+    lib.fused_mlp_bwd_reduce.argtypes = [vp, i32, i64, vp, i64, i32, vp]
     lib.fused_mlp_bwd_reduce.restype = i32
     lib.fused_mlp_bwd_error_string.argtypes = [i32]
     lib.fused_mlp_bwd_error_string.restype = ctypes.c_char_p
@@ -1028,7 +1145,8 @@ def _sm_count(device_index: int) -> int:
 
 def _check_operands(packed: PackedMLP, pts, dirs):
     """Device, type, shape and alignment of the kernels' operands; returns
-    (pts, dirs) contiguous, dirs in the kernel's type."""
+    (pts, dirs) contiguous, dirs in the kernel's type. A stack's points
+    split into ``packed.n_scenes`` equal scenes."""
     n = pts.shape[0] if pts.dim() == 2 else -1
     dev = pts.device
     if packed.weights.device != dev:
@@ -1037,6 +1155,9 @@ def _check_operands(packed: PackedMLP, pts, dirs):
     if pts.dtype != torch.float32 or pts.dim() != 2 or pts.shape[1] != 3:
         raise ValueError(f"pts must be (N, 3) float32, got "
                          f"{tuple(pts.shape)} {pts.dtype}")
+    if n % packed.n_scenes:
+        raise ValueError(f"{n} points do not split into {packed.n_scenes} "
+                         f"equal scenes")
     pts = pts.contiguous()
     if packed.vdirs:
         views = fwd_header(packed)["dirs_dim"]
@@ -1062,15 +1183,19 @@ def _launch(packed: PackedMLP, pts: torch.Tensor,
         return out
     lib = _kernel()
     hdr = fwd_header(packed)
+    scenes = packed.n_scenes
+    n_s = n // scenes
+    tiles = scenes * -(-n_s // hdr["rows"])
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fused_mlp_fwd(
             pts.data_ptr(), dirs.data_ptr() if dirs is not None else None,
             packed.weights.data_ptr(), packed.biases.data_ptr(),
-            out.data_ptr(), n, packed.program_dev.data_ptr(),
+            out.data_ptr(), n_s, scenes, packed.w_stride, packed.b_stride,
+            packed.program_dev.data_ptr(),
             hdr["prog_len"], hdr["hi_lo"], hdr["rows"], hdr["ksub"],
-            min(-(-n // hdr["rows"]), _sm_count(index)), hdr["smem"], stream,
+            min(tiles, _sm_count(index)), hdr["smem"], stream,
         )
     if rc != 0:
         raise RuntimeError("fused_mlp_fwd launch failed: "
@@ -1081,26 +1206,30 @@ def _launch(packed: PackedMLP, pts: torch.Tensor,
 
 def reduce_partials(part: torch.Tensor, total: int) -> torch.Tensor:
     """Sum the rows of a (slots, stride) fp32 partial-gradient array in row
-    order -> (total,): the reduction kernel for a CUDA tensor (or raise),
-    :func:`reduce_partials_plain` for a CPU one. Bit-identical run to run
-    and to the plain sum. ``reduce_partials.launches`` counts kernel
+    order -> (total,), or each scene's rows of (S, slots, stride) -> (S,
+    total), in one launch: the reduction kernel for a CUDA tensor (or
+    raise), :func:`reduce_partials_plain` for a CPU one. Bit-identical run
+    to run and to the plain sum. ``reduce_partials.launches`` counts kernel
     launches."""
     if part.device.type == "cpu":
         return reduce_partials_plain(part, total)
-    if (part.dtype != torch.float32 or part.dim() != 2
-            or not part.is_contiguous() or part.shape[1] < total
-            or part.shape[1] % 4 or part.data_ptr() % 16):
-        raise ValueError(f"partials must be a contiguous (slots, >= {total}) "
-                         f"float32 array, rows a multiple of 4, got "
-                         f"{tuple(part.shape)} {part.dtype}")
+    scenes = part.shape[0] if part.dim() == 3 else 1
+    if (part.dtype != torch.float32 or part.dim() not in (2, 3)
+            or not part.is_contiguous() or part.shape[-1] < total
+            or part.shape[-1] % 4 or part.data_ptr() % 16
+            or (scenes > 1 and total % 4)):
+        raise ValueError(f"partials must be a contiguous ([scenes,] slots, "
+                         f">= {total}) float32 array, rows a multiple of 4, "
+                         f"got {tuple(part.shape)} {part.dtype}")
     lib = _bwd_kernel()
-    out = torch.empty(total, device=part.device, dtype=torch.float32)
+    out = torch.empty((scenes, total) if part.dim() == 3 else total,
+                      device=part.device, dtype=torch.float32)
     with torch.cuda.device(part.device):
         stream = torch.cuda.current_stream(part.device).cuda_stream
         _bwd_error(lib, "fused_mlp_bwd_reduce launch",
-                   lib.fused_mlp_bwd_reduce(part.data_ptr(), part.shape[0],
-                                            part.shape[1], out.data_ptr(),
-                                            total, stream))
+                   lib.fused_mlp_bwd_reduce(part.data_ptr(), part.shape[-2],
+                                            part.shape[-1], out.data_ptr(),
+                                            total, scenes, stream))
     reduce_partials.launches += 1
     return out
 
@@ -1121,8 +1250,9 @@ def bwd_workspace(packed: PackedMLP, pts: torch.Tensor,
                   ws: torch.Tensor) -> torch.Tensor:
     """Phase 1 for n points: recompute the forward, walk the dX chain and
     fill the flat workspace ``ws`` (at least n, rounded up to
-    :func:`bwd_tile_rows`, rows per matrix). The kernel for CUDA tensors
-    (or raise), :func:`bwd_workspace_plain` for CPU ones.
+    :func:`bwd_tile_rows`, rows per matrix; for a stack, S times n / S
+    rounded up, scene s's rows after scene s - 1's). The kernel for CUDA
+    tensors (or raise), :func:`bwd_workspace_plain` for CPU ones.
     ``bwd_workspace.launches`` counts kernel launches."""
     pts, dirs = _check_operands(packed, pts, dirs)
     n, dev = pts.shape[0], pts.device
@@ -1131,7 +1261,9 @@ def bwd_workspace(packed: PackedMLP, pts: torch.Tensor,
                          f"{dev}, got {tuple(g.shape)} on {g.device}")
     g = g.to(torch.float32).contiguous()
     tile = bwd_tile_rows(packed.hi_lo)
-    cap = _check_ws(packed, ws, -(-n // tile) * tile, dev)
+    scenes = packed.n_scenes
+    n_s = n // scenes
+    cap = _check_ws(packed, ws, scenes * (-(-n_s // tile) * tile), dev)
     if dev.type == "cpu":
         return ws.copy_(bwd_workspace_plain(packed, pts, dirs, g, cap))
     if n == 0:
@@ -1145,7 +1277,8 @@ def bwd_workspace(packed: PackedMLP, pts: torch.Tensor,
             pts.data_ptr(), dirs.data_ptr() if dirs is not None else None,
             g.data_ptr(), packed.weights.data_ptr(),
             packed.biases.data_ptr(), prog.data_ptr(), packed.bwd_prog_len,
-            int(packed.hi_lo), n, min(-(-n // tile), _sm_count(index)),
+            int(packed.hi_lo), n_s, scenes, packed.w_stride, packed.b_stride,
+            min(scenes * -(-n_s // tile), _sm_count(index)),
             packed.bwd_smem, ws.data_ptr(), cap, stream))
     bwd_workspace.launches += 1
     return ws
@@ -1155,18 +1288,23 @@ def weight_grads(packed: PackedMLP, ws: torch.Tensor, rows: int,
                  split_rows: int, part: torch.Tensor) -> torch.Tensor:
     """Phase 2: every weight and bias gradient of the workspace's first
     ``rows`` rows (a multiple of ``BWD_STAGE_ROWS``), one fp32 partial slot
-    per range of ``split_rows`` rows, into ``part`` (splits, stride). The
-    kernel for CUDA tensors (or raise), :func:`weight_grads_plain` for CPU
-    ones. ``weight_grads.launches`` counts kernel launches."""
+    per range of ``split_rows`` rows, into ``part`` (splits, stride). For a
+    stack, ``rows`` per scene (scene s's from ``s * rows``) into ``part``
+    (S, splits, stride), each scene's slots contiguous (a slice of more
+    slots is allowed). The kernel for CUDA tensors (or raise),
+    :func:`weight_grads_plain` for CPU ones. ``weight_grads.launches``
+    counts kernel launches."""
     splits = -(-rows // split_rows)
     stride = part_stride(packed.grad_total)
-    if (part.shape != (splits, stride) or part.dtype != torch.float32
-            or not part.is_contiguous() or part.device != ws.device
+    scenes = packed.n_scenes
+    shape = (scenes, splits, stride) if packed.stack else (splits, stride)
+    if (part.shape != shape or part.dtype != torch.float32
+            or part.stride()[-2:] != (stride, 1) or part.device != ws.device
             or rows % BWD_STAGE_ROWS or split_rows % BWD_STAGE_ROWS):
-        raise ValueError(f"partials must be a contiguous ({splits}, {stride}) "
-                         f"float32 array beside the workspace; rows and "
-                         f"split_rows multiples of {BWD_STAGE_ROWS}")
-    cap = _check_ws(packed, ws, rows, ws.device)
+        raise ValueError(f"partials must be a {shape} float32 array beside "
+                         f"the workspace, each scene's slots contiguous; rows "
+                         f"and split_rows multiples of {BWD_STAGE_ROWS}")
+    cap = _check_ws(packed, ws, scenes * rows, ws.device)
     if ws.device.type == "cpu":
         return part.copy_(weight_grads_plain(packed, ws, rows, split_rows))
     lib = _bwd_kernel()
@@ -1176,8 +1314,9 @@ def weight_grads(packed: PackedMLP, ws: torch.Tensor, rows: int,
         _bwd_error(lib, "fused_mlp_bwd_phase2 launch", lib.fused_mlp_bwd_phase2(
             ws.data_ptr(), cap, prog.data_ptr(),
             prog.data_ptr() + 4 * packed.bwd_prog_len, len(packed.bwd_jobs),
-            int(packed.hi_lo), rows, splits, split_rows, part.data_ptr(),
-            stride, stream))
+            int(packed.hi_lo), rows, splits, split_rows, scenes,
+            part.data_ptr(), stride, part.stride(0) if packed.stack else 0,
+            stream))
     weight_grads.launches += 1
     return part
 
@@ -1185,10 +1324,12 @@ def weight_grads(packed: PackedMLP, ws: torch.Tensor, rows: int,
 def _launch_bwd(packed: PackedMLP, pts: torch.Tensor,
                 dirs: Optional[torch.Tensor], g: torch.Tensor) -> torch.Tensor:
     """The backward: the flat fp32 gradient (``packed.grad_total``) in the
-    packed blocks' layout. The call is walked in chunks of at most
-    ``BWD_CHUNK_ROWS`` points, each phase 1 into one workspace, then phase
-    2 into the chunk's partial slots; the reduction sums every slot in
-    (chunk, split) order."""
+    packed blocks' layout; (S, grad_total) for a stack. The call is walked
+    in chunks of at most ``BWD_CHUNK_ROWS`` points (of each scene), each
+    phase 1 into one workspace, then phase 2 into the chunk's partial
+    slots; the reduction sums every slot in (chunk, split) order. A stack's
+    chunk is one launch of each phase over all scenes, so it launches each
+    kernel as often as one of its scenes alone."""
     n, dev = pts.shape[0], pts.device
     chunk_rows = BWD_CHUNK_ROWS
     if g.shape != (n, packed.out_w):
@@ -1196,30 +1337,46 @@ def _launch_bwd(packed: PackedMLP, pts: torch.Tensor,
                          f"{tuple(g.shape)}")
     total = packed.grad_total
     tile = bwd_tile_rows(packed.hi_lo)
-    ws = torch.empty(-(-min(n, chunk_rows) // tile) * tile * packed.ws_cols,
-                     device=dev, dtype=torch.bfloat16)
-    chunks = [(c0, min(chunk_rows, n - c0)) for c0 in range(0, n, chunk_rows)]
+    scenes = packed.n_scenes
+    n_s = n // scenes
+    ws = torch.empty(scenes * (-(-min(n_s, chunk_rows) // tile) * tile)
+                     * packed.ws_cols, device=dev, dtype=torch.bfloat16)
+    chunks = [(c0, min(chunk_rows, n_s - c0))
+              for c0 in range(0, n_s, chunk_rows)]
     plans = [bwd_splits(-(-r // tile) * tile) for _, r in chunks]
-    part = torch.empty((sum(s for s, _ in plans), part_stride(total)),
-                       device=dev, dtype=torch.float32)
+    slots = sum(s for s, _ in plans)
+    part = torch.empty((scenes, slots, part_stride(total)), device=dev,
+                       dtype=torch.float32)
+
+    def piece(t, c0, r):
+        """The chunk's rows of every scene, scene-major."""
+        if t is None or len(chunks) == 1:
+            return t
+        rows = t.reshape(scenes, n_s, -1)[:, c0:c0 + r]
+        return rows.reshape(scenes * r, -1)
+
     slot = 0
     for (c0, r), (splits, split_rows) in zip(chunks, plans):
-        bwd_workspace(packed, pts[c0:c0 + r],
-                      None if dirs is None else dirs[c0:c0 + r],
-                      g[c0:c0 + r], ws)
+        bwd_workspace(packed, piece(pts, c0, r), piece(dirs, c0, r),
+                      piece(g, c0, r), ws)
         weight_grads(packed, ws, -(-r // tile) * tile, split_rows,
-                     part[slot:slot + splits])
+                     part[:, slot:slot + splits] if packed.stack
+                     else part[0, slot:slot + splits])
         slot += splits
     if n == 0:
-        return torch.zeros(total, device=dev, dtype=torch.float32)
-    return reduce_partials(part, total)
+        return torch.zeros((scenes, total) if packed.stack else total,
+                           device=dev, dtype=torch.float32)
+    return reduce_partials(part if packed.stack else part[0], total)
 
 
-def unpack_grads(packed: PackedMLP,
-                 flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+def unpack_grads(packed: PackedMLP, flat: torch.Tensor):
     """The flat gradient of the packed blocks -> each parameter's gradient
     in the ``nn.Linear`` layout: (in, out) blocks transposed to (out, in),
-    skip and view blocks side by side, padding dropped."""
+    skip and view blocks side by side, padding dropped. For a stack, (S,
+    grad_total) -> one such dict per scene."""
+    if flat.dim() == 2:
+        return [unpack_grads(dataclasses.replace(packed, stack=()), f)
+                for f in flat]
     grads = {name: torch.zeros_like(p)
              for name, p in packed.net.named_parameters()}
     for name, in0, k, n, off, kp, np_ in packed.grad_blocks:
@@ -1232,11 +1389,13 @@ def unpack_grads(packed: PackedMLP,
 
 @dataclasses.dataclass(frozen=True)
 class _Call:
-    """What one fused-MLP call runs on: the net, its packed layout (None
-    for CPU tensors, which take the plain versions), the encoding's
-    frequencies, the compute type and the hi_lo mode."""
+    """What one fused-MLP call runs on: its nets (one, or a stack's, one per
+    scene), their packed layout (None for CPU tensors, which take the plain
+    versions), the encoding's frequencies, the compute type and the hi_lo
+    mode."""
 
-    net: NeRFMLP
+    nets: Tuple[NeRFMLP, ...]
+    stacked: bool
     packed: Optional[PackedMLP]
     n_freqs: int
     dt: torch.dtype
@@ -1244,34 +1403,46 @@ class _Call:
 
     def forward(self, pts, dirs) -> torch.Tensor:
         if self.packed is None:
-            return fused_nerf_mlp_plain(self.net, pts, dirs, self.n_freqs,
-                                        self.dt, self.hi_lo)
+            return fused_nerf_mlp_stack_plain(self.nets, pts, dirs,
+                                              self.n_freqs, self.dt,
+                                              self.hi_lo)
         return _launch(self.packed, pts, dirs)
 
-    def backward(self, pts, dirs, g) -> Dict[str, torch.Tensor]:
+    def backward(self, pts, dirs, g) -> List[Dict[str, torch.Tensor]]:
+        """Each net's gradients, in the order of ``nets``."""
         if self.packed is None:
-            return fused_nerf_mlp_bwd_plain(self.net, pts, dirs, g,
-                                            self.n_freqs, self.dt,
-                                            self.hi_lo)
-        return unpack_grads(self.packed,
-                            _launch_bwd(self.packed, pts, dirs, g))
+            return fused_nerf_mlp_bwd_stack_plain(self.nets, pts, dirs, g,
+                                                  self.n_freqs, self.dt,
+                                                  self.hi_lo)
+        grads = unpack_grads(self.packed,
+                             _launch_bwd(self.packed, pts, dirs, g))
+        return grads if self.stacked else [grads]
 
 
 def _route(params, pts_flat, dirs_enc_flat, cfg: RenderConfig,
            mc: Optional[ModelConfig], backward: bool):
     """(call, dirs) for one call: checks the architecture, and for CUDA
     tensors the kernels' type and budgets (``backward``: the backward's
-    too), and packs a bare net (per call: callers pack once and pass the
-    layout)."""
+    too), and packs a bare net or stack (per call: callers pack once and
+    pass the layout)."""
     vdirs = bool(cfg.use_viewdirs) and dirs_enc_flat is not None
     mc = mc or cfg.model_config()
-    net = params.net if isinstance(params, PackedMLP) else params
-    _check_arch(net, mc, vdirs)
+    if isinstance(params, PackedMLP):
+        stacked = bool(params.stack)
+        nets = params.stack or (params.net,)
+    else:
+        stacked = isinstance(params, NetStack)
+        nets = params.nets if stacked else (params,)
+    for net in nets:
+        _check_arch(net, mc, vdirs)
     dt = getattr(torch, cfg.compute_dtype)
     hi_lo = dt == torch.float32 and cfg.fp32_precision == "high"
     dirs = dirs_enc_flat if vdirs else None
+    if pts_flat.shape[0] % len(nets):
+        raise ValueError(f"{pts_flat.shape[0]} points do not split into "
+                         f"{len(nets)} equal scenes")
     if pts_flat.device.type == "cpu":
-        return _Call(net, None, cfg.pos_enc_L, dt, hi_lo), dirs
+        return _Call(nets, stacked, None, cfg.pos_enc_L, dt, hi_lo), dirs
     if dt != torch.bfloat16 and not hi_lo:
         raise ValueError("the CUDA kernels compute in bfloat16 or fp32 "
                          "'high'; fp32 'highest' takes the plain module path")
@@ -1281,17 +1452,21 @@ def _route(params, pts_flat, dirs_enc_flat, cfg: RenderConfig,
                          "the kernels (see kernel_fits, backward_fits)")
     if (not isinstance(params, PackedMLP) or params.vdirs != vdirs
             or params.hi_lo != hi_lo):
-        params = pack_params(net, cfg.pos_enc_L, vdirs, hi_lo)
-    return _Call(net, params, cfg.pos_enc_L, dt, hi_lo), dirs
+        params = (pack_params_stack(nets, cfg.pos_enc_L, vdirs, hi_lo)
+                  if stacked else pack_params(nets[0], cfg.pos_enc_L, vdirs,
+                                              hi_lo))
+    return _Call(nets, stacked, params, cfg.pos_enc_L, dt, hi_lo), dirs
 
 
 class FusedMLPFunction(torch.autograd.Function):
     """The fused MLP under autograd (``_fused_apply``'s custom VJP,
-    ``pallas_mlp.py:530-567``). ``apply(call, pts, dirs, *net_params)``:
-    the forward kernel (or plain forward) of ``call``; the backward runs
-    the backward kernel and reduction (or the plain backward) and returns
-    each parameter's gradient — two calls on one net (coarse and fine)
-    are summed by autograd — and zeros for points and dirs (``:564``)."""
+    ``pallas_mlp.py:530-567``). ``apply(call, pts, dirs, *params)``, the
+    parameters of every net of the call in order: the forward kernel (or
+    plain forward) of ``call``; the backward runs the backward kernels and
+    reduction (or the plain backward) and returns each parameter's
+    gradient — every net's of a stack, from its own scene's rows; two
+    calls on one net (coarse and fine) are summed by autograd — and zeros
+    for points and dirs (``:564``)."""
 
     @staticmethod
     def forward(ctx, call, pts, dirs, *net_params):
@@ -1307,11 +1482,12 @@ class FusedMLPFunction(torch.autograd.Function):
         d_dirs = (torch.zeros_like(dirs)
                   if dirs is not None and ctx.needs_input_grad[2] else None)
         return (None, d_pts, d_dirs,
-                *[grads[name] for name, _ in ctx.call.net.named_parameters()])
+                *[gr[name] for gr, net in zip(grads, ctx.call.nets)
+                  for name, _ in net.named_parameters()])
 
 
 def fused_nerf_mlp(
-    params: Union[NeRFMLP, PackedMLP],
+    params: Union[NeRFMLP, NetStack, PackedMLP],
     pts_flat: torch.Tensor,
     dirs_enc_flat: Optional[torch.Tensor],
     cfg: RenderConfig,
@@ -1320,33 +1496,38 @@ def fused_nerf_mlp(
     """Fused encode -> MLP -> raw. pts (N, 3) -> raw (N, 4), or (N,
     output_ch) with ``dirs_enc_flat=None`` / ``use_viewdirs=False``.
 
-    ``params``: the net, or its :func:`pack_params` layout (packed once by
-    the caller; a bare net is packed per call). CUDA tensors run the
-    kernels — bf16, or fp32 with ``fp32_precision="high"`` (hi_lo); fp32
-    'highest' raises — and CPU tensors the plain versions. Differentiable
-    with respect to the net's parameters through :class:`FusedMLPFunction`
-    (the backward kernel); points and dirs get zero gradients. ``mc``: the
-    architecture the net must have (default: the coarse net of ``cfg``)."""
+    ``params``: the net, a :class:`NetStack` (N points scene-major, N / S
+    per scene), or their :func:`pack_params` / :func:`pack_params_stack`
+    layout (packed once by the caller; a bare net or stack is packed per
+    call). CUDA tensors run the kernels — bf16, or fp32 with
+    ``fp32_precision="high"`` (hi_lo); fp32 'highest' raises — and CPU
+    tensors the plain versions. Differentiable with respect to the nets'
+    parameters through :class:`FusedMLPFunction` (the backward kernels);
+    points and dirs get zero gradients. ``mc``: the architecture the nets
+    must have (default: the coarse net of ``cfg``)."""
     call, dirs = _route(params, pts_flat, dirs_enc_flat, cfg, mc,
                         backward=torch.is_grad_enabled())
     return FusedMLPFunction.apply(call, pts_flat, dirs,
-                                  *call.net.parameters())
+                                  *[p for net in call.nets
+                                    for p in net.parameters()])
 
 
 def fused_nerf_mlp_bwd(
-    params: Union[NeRFMLP, PackedMLP],
+    params: Union[NeRFMLP, NetStack, PackedMLP],
     pts_flat: torch.Tensor,
     dirs_enc_flat: Optional[torch.Tensor],
     g: torch.Tensor,
     cfg: RenderConfig,
     mc: Optional[ModelConfig] = None,
-) -> Dict[str, torch.Tensor]:
+):
     """The gradient of ``sum(g * fused_nerf_mlp(...))`` for every parameter
-    of the net, by name. CUDA tensors run the backward's kernels (or
-    raise); CPU tensors :func:`fused_nerf_mlp_bwd_plain`."""
+    of the net, by name (for a stack, one such dict per scene). CUDA
+    tensors run the backward's kernels (or raise); CPU tensors
+    :func:`fused_nerf_mlp_bwd_plain`."""
     call, dirs = _route(params, pts_flat, dirs_enc_flat, cfg, mc,
                         backward=True)
-    return call.backward(pts_flat, dirs, g)
+    grads = call.backward(pts_flat, dirs, g)
+    return grads if call.stacked else grads[0]
 
 
 fused_nerf_mlp.launches = 0

@@ -16,7 +16,7 @@ from typing import Dict, Optional
 
 import torch
 
-from nerfmlp_torch.ops import device_scalar
+from nerfmlp_torch.ops import device_scalar, draw
 
 
 class _PositiveCumprod(torch.autograd.Function):
@@ -53,7 +53,8 @@ def composite_rays(
     Returns rgb_map (N, 3), depth_map, disp_map, acc_map (N,) and weights
     (N, S). ``far_cap``: scalar or per-ray depth bounding the LAST
     interval instead of 1e10 (beyond an AABB exit nothing contributes).
-    ``generator`` draws the ``raw_noise_std`` noise.
+    ``generator`` (or one per scene, :func:`~nerfmlp_torch.ops.draw`) draws
+    the ``raw_noise_std`` noise.
     """
     dists = z_vals[..., 1:] - z_vals[..., :-1]
     if far_cap is None:
@@ -72,9 +73,8 @@ def composite_rays(
     if raw_noise_std > 0.0:
         if generator is None:
             raise ValueError("composite_rays(raw_noise_std>0) needs a generator")
-        sigma = sigma + torch.randn(sigma.shape, generator=generator,
-                                    device=sigma.device,
-                                    dtype=sigma.dtype) * raw_noise_std
+        sigma = sigma + draw(generator, sigma.shape, sigma.device,
+                             sigma.dtype, normal=True) * raw_noise_std
     alpha = 1.0 - torch.exp(-torch.relu(sigma) * dists)
 
     ones = torch.ones_like(alpha[..., :1])

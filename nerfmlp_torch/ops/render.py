@@ -16,6 +16,14 @@ Counterpart of ``nerfmlp_tpu/ops/render.py``:
 ``use_occupancy`` a density grid (``ops/occupancy.py``) takes the coarse
 pass's place: the net that renders the final image is queried once
 (``occ_one_shot``) or twice (probes, then refinement samples).
+
+Several scenes render in one pass (multi-scene training,
+``parallel/multi_scene.py``): a net is then a
+:class:`~nerfmlp_torch.ops.fused_mlp.NetStack` of one net per scene (or
+its :func:`~nerfmlp_torch.ops.fused_mlp.pack_params_stack` layout), the
+rays come scene-major, the same number per scene, with per-ray near/far,
+``generator`` is one generator per scene and the grid a stack of one grid
+per scene. Every kernel call then covers all scenes in one launch.
 """
 
 from __future__ import annotations
@@ -28,7 +36,8 @@ import torch
 from nerfmlp_torch.config import RenderConfig
 from nerfmlp_torch.ops.encoding import positional_encoding
 from nerfmlp_torch.ops.fused_mlp import (
-    PackedMLP, backward_fits, fused_nerf_mlp, kernel_fits, pack_params,
+    NetStack, PackedMLP, backward_fits, fused_nerf_mlp, kernel_fits,
+    pack_params, pack_params_stack,
 )
 from nerfmlp_torch.ops.integrate import composite_rays
 from nerfmlp_torch.ops.sampling import sample_pdf, stratified_sample
@@ -66,18 +75,29 @@ def uses_kernel(cfg: RenderConfig, fine: bool = False,
 
 def prepare_params(params: Dict, cfg: RenderConfig,
                    backward: bool = False) -> Dict:
-    """Pack every net that ``cfg`` sends to the kernels (``backward``: to
-    train through them), once (at service build, weight swap and train
-    step, not per tile or call). Other nets pass through."""
+    """Pack every net (or stack of nets) that ``cfg`` sends to the kernels
+    (``backward``: to train through them), once (at service build, weight
+    swap and train step, not per tile or call). Other nets pass through."""
     out = {}
     for key, net in params.items():
         fine = key == "fine" and cfg.separate_fine
         if isinstance(net, PackedMLP) or not uses_kernel(cfg, fine, backward):
             out[key] = net
         else:
-            out[key] = pack_params(net, cfg.pos_enc_L, cfg.use_viewdirs,
-                                   _hi_lo(cfg))
+            pack = (pack_params_stack if isinstance(net, NetStack)
+                    else pack_params)
+            out[key] = pack(net, cfg.pos_enc_L, cfg.use_viewdirs,
+                            _hi_lo(cfg))
     return out
+
+
+def _stack_nets(net):
+    """The modules of a stack (bare or packed), else None."""
+    if isinstance(net, NetStack):
+        return net.nets
+    if isinstance(net, PackedMLP) and net.stack:
+        return net.stack
+    return None
 
 
 def _query_mlp(net, pts: torch.Tensor, viewdirs_enc: Optional[torch.Tensor],
@@ -85,7 +105,9 @@ def _query_mlp(net, pts: torch.Tensor, viewdirs_enc: Optional[torch.Tensor],
     """Encode points + run the MLP. pts (N, S, 3) -> raw (N, S, 4).
 
     ``viewdirs_enc``: (N, E) per-ray encoded directions, broadcast over
-    the samples, or None. ``fine`` selects the fine net's architecture."""
+    the samples, or None. ``fine`` selects the fine net's architecture.
+    A stack of nets takes scene-major rays: the kernels in one launch, or
+    on the module path each scene's rays through its own net."""
     n_rays, n_samples, _ = pts.shape
     if cfg.coord_scale != 1.0:
         pts = pts * cfg.coord_scale
@@ -96,8 +118,16 @@ def _query_mlp(net, pts: torch.Tensor, viewdirs_enc: Optional[torch.Tensor],
         dirs = viewdirs_enc[:, None, :].expand(
             n_rays, n_samples, viewdirs_enc.shape[-1]
         ).reshape(n_rays * n_samples, -1)
+    stack = _stack_nets(net)
     if uses_kernel(cfg, fine, backward=torch.is_grad_enabled()):
         raw = fused_nerf_mlp(net, flat, dirs, cfg, mc=mc)
+    elif stack is not None:
+        k = flat.shape[0] // len(stack)
+        raw = torch.cat([
+            module(positional_encoding(flat[i * k:(i + 1) * k], cfg.pos_enc_L),
+                   None if dirs is None else dirs[i * k:(i + 1) * k],
+                   compute_dtype=_dtype(cfg))
+            for i, module in enumerate(stack)])
     else:
         module = net.net if isinstance(net, PackedMLP) else net
         enc = positional_encoding(flat, cfg.pos_enc_L)
@@ -139,7 +169,8 @@ def render_rays(
     ``use_occupancy`` requires (no ``*_coarse`` maps then). ``viewdirs``:
     optional (N, 3) world-space view directions (required for NDC rays),
     else normalize(rays_d). ``generator`` drives ``perturb``/
-    ``raw_noise_std``.
+    ``raw_noise_std``; for stacks of nets (scene-major rays), one generator
+    per scene, each drawing its own scene's rows.
     """
     if cfg.use_occupancy and occ_grid is None:
         # Not the hierarchical path instead: under separate_fine occupancy

@@ -4,8 +4,9 @@ Counterpart of ``nerfmlp_tpu/ops/sampling.py:22-130``: the same ``+1e-5``
 on the weights, the same denominator floor (below 1e-5 it becomes 1), and
 the same right-side search, ``#{j : cdf_j <= u}``. The TPU's one-hot
 contractions become ``torch.searchsorted(..., right=True)`` and
-``torch.gather``. Random draws come from an explicit ``torch.Generator``,
-or are passed in as ``u`` so tests can feed both packages the same numbers.
+``torch.gather``. Random draws come from an explicit ``torch.Generator`` (or one per scene
+for scene-major rays, :func:`nerfmlp_torch.ops.draw`), or are passed in as
+``u`` so tests can feed both packages the same numbers.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from nerfmlp_torch.ops import device_scalar
+from nerfmlp_torch.ops import device_scalar, draw
 
 
 def _linspace01(n: int, device) -> torch.Tensor:
@@ -69,7 +70,7 @@ def stratified_sample(
             if generator is None:
                 raise ValueError(
                     "stratified_sample(perturb=True) needs a generator or u")
-            u = torch.rand(z_vals.shape, generator=generator, device=device)
+            u = draw(generator, z_vals.shape, device)
         mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
         upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
         lower = torch.cat([z_vals[..., :1], mids], dim=-1)
@@ -108,8 +109,7 @@ def sample_pdf(
         if u is None:
             if generator is None:
                 raise ValueError("sample_pdf(det=False) needs a generator or u")
-            u = torch.rand(shape, generator=generator, device=cdf.device,
-                           dtype=cdf.dtype)
+            u = draw(generator, shape, cdf.device, cdf.dtype)
         if stratified:
             base = torch.arange(n_samples, device=cdf.device,
                                 dtype=cdf.dtype) / n_samples

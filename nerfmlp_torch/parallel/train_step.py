@@ -2,8 +2,9 @@
 
 Counterpart of ``nerfmlp_tpu/parallel/train_step.py:30-127``
 (``TrainState``, ``make_optimizer``, ``create_train_state``,
-``loss_and_metrics``, ``make_step_fn``), single device. The update is
-optax's, term by term:
+``loss_and_metrics``, ``make_step_fn``), single device; and of that rule
+under ``jax.vmap`` over a scene axis (:func:`make_stack_step_body`, for
+``parallel/multi_scene.py``). The update is optax's, term by term:
 
   * Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8 outside the
     square root, bias correction from Adam's own update count): :class:`Adam`,
@@ -45,6 +46,7 @@ import torch
 from nerfmlp_torch import resolve_device
 from nerfmlp_torch.config import RenderConfig, TrainConfig
 from nerfmlp_torch.models.mlp import NeRFMLP, init_model
+from nerfmlp_torch.ops.fused_mlp import NetStack
 from nerfmlp_torch.ops.render import prepare_params, render_rays
 
 ADAM_BETAS = (0.9, 0.999)   # optax.adam defaults
@@ -230,32 +232,43 @@ def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
 
 
-def make_step_body(rc: RenderConfig, tc: TrainConfig):
-    """The update rule on the device, ``body(state, batch[, occ_grid]) ->
-    metrics``: one step in place on the state's nets, Adam and counter,
-    the host's ``state.step`` left alone. It reads no host value that
-    changes between steps and reads nothing back, so it can be captured
-    in a CUDA graph. Metrics are device tensors: loss, psnr, grad_norm and
-    total_loss."""
+def _grads(params) -> list:
+    """Each parameter's gradient, in order; a parameter the loss does not
+    reach gets optax's zero gradient, so its moments decay and the update
+    count stays shared."""
+    return [p.grad if p.grad is not None else torch.zeros_like(p)
+            for p in params]
 
-    def body(state: TrainState, batch: torch.Tensor, occ_grid=None
-             ) -> Dict[str, torch.Tensor]:
+
+def _clip(grads, gnorm: torch.Tensor, tc: TrainConfig) -> None:
+    """``clip_by_global_norm(tc.grad_clip)`` of ``grads`` in place, from
+    their norm ``gnorm``; nothing when ``grad_clip`` is 0."""
+    if tc.grad_clip > 0:
+        clip = tc.grad_clip
+        scale = torch.where(gnorm < clip, torch.ones_like(gnorm), clip / gnorm)
+        torch._foreach_mul_(grads, scale)
+
+
+def make_step_body(rc: RenderConfig, tc: TrainConfig):
+    """The update rule on the device, ``body(state, batch[, occ_grid[,
+    bounds]]) -> metrics``: one step in place on the state's nets, Adam and
+    counter, the host's ``state.step`` left alone. ``bounds``: an optional
+    [near, far] pair (a (2,) tensor) overriding the config's, as JAX's
+    ``step_fn`` takes it. It reads no host value that changes between
+    steps and reads nothing back, so it can be captured in a CUDA graph.
+    Metrics are device tensors: loss, psnr, grad_norm and total_loss."""
+
+    def body(state: TrainState, batch: torch.Tensor, occ_grid=None,
+             bounds=None) -> Dict[str, torch.Tensor]:
         opt = state.optimizer
         opt.zero_grad()
         params = prepare_params(state.params, rc, backward=True)  # once a step
         loss, metrics = loss_and_metrics(params, batch, state.generator,
-                                         rc, tc, occ_grid)
+                                         rc, tc, occ_grid, bounds)
         loss.backward()
-        # A parameter the loss does not reach gets optax's zero gradient,
-        # so its moments decay and the update count stays shared.
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in opt.params]
+        grads = _grads(opt.params)
         gnorm = global_norm(grads)
-        if tc.grad_clip > 0:
-            clip = tc.grad_clip
-            scale = torch.where(gnorm < clip, torch.ones_like(gnorm),
-                                clip / gnorm)
-            torch._foreach_mul_(grads, scale)
+        _clip(grads, gnorm, tc)
         opt.step(grads, lr_tensor(tc, state.counter))
         state.counter.add_(1)
         return dict(metrics, grad_norm=gnorm, total_loss=loss.detach())
@@ -264,14 +277,101 @@ def make_step_body(rc: RenderConfig, tc: TrainConfig):
 
 
 def make_step_fn(rc: RenderConfig, tc: TrainConfig):
-    """One eager step, ``step_fn(state, batch[, occ_grid]) -> metrics``:
-    :func:`make_step_body`'s update, then the host's step count."""
+    """One eager step, ``step_fn(state, batch[, occ_grid[, bounds]]) ->
+    metrics``: :func:`make_step_body`'s update, then the host's step
+    count."""
     body = make_step_body(rc, tc)
 
-    def step_fn(state: TrainState, batch: torch.Tensor, occ_grid=None
-                ) -> Dict[str, torch.Tensor]:
-        metrics = body(state, batch, occ_grid)
+    def step_fn(state: TrainState, batch: torch.Tensor, occ_grid=None,
+                bounds=None) -> Dict[str, torch.Tensor]:
+        metrics = body(state, batch, occ_grid, bounds)
         state.step += 1
         return metrics
 
     return step_fn
+
+
+# --------------------------------------------------------------------- #
+# S scenes in lock step: the update rule under a scene axis
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass
+class StackState:
+    """S scenes' train states stacked (JAX's ``TrainState`` with a leading
+    scene axis): ``params`` maps coarse / fine to a
+    :class:`~nerfmlp_torch.ops.fused_mlp.NetStack` of one net per scene;
+    one Adam over every scene's parameters, scene after scene, with one
+    update count (every scene's is the same under ``vmap``); one generator
+    per scene; the host's ``step`` and the device ``counter``, as in
+    :class:`TrainState`."""
+
+    step: int
+    params: Dict[str, NetStack]
+    optimizer: Adam
+    generators: Tuple[torch.Generator, ...]
+    counter: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.counter is None:
+            net = self.params["coarse"].nets[0]
+            self.counter = torch.zeros((), dtype=torch.int64,
+                                       device=next(net.parameters()).device)
+            self.counter.fill_(int(self.step))
+
+
+def make_stack_step_body(rc: RenderConfig, tc: TrainConfig):
+    """:func:`make_step_body`'s rule for S scenes at once, as JAX's
+    ``jax.vmap`` of ``make_step_fn`` computes it: ``body(state, batch[,
+    occ_grid[, bounds]]) -> metrics`` with ``batch`` (S, B, 9 | 12),
+    ``occ_grid`` a stack of S grids, ``bounds`` an (S, 2) [near, far] per
+    scene. One render of the S x B rays, scene-major, each scene's draws
+    from its own generator: every fused-MLP call is one launch over all
+    scenes. The loss is the sum of the scenes' own losses, so each net's
+    gradient is its scene's alone; ``grad_norm`` and the clip are per
+    scene (``vmap`` clips each scene alone); Adam runs over every scene's
+    parameters with one count and learning rate. Metrics are (S,) device
+    tensors."""
+
+    def body(state: StackState, batch: torch.Tensor, occ_grid=None,
+             bounds=None) -> Dict[str, torch.Tensor]:
+        opt = state.optimizer
+        opt.zero_grad()
+        params = prepare_params(state.params, rc, backward=True)  # once a step
+        n_scenes, b = batch.shape[:2]
+        flat = batch.reshape(n_scenes * b, batch.shape[2])
+        near = far = None
+        if bounds is not None:   # per ray, from its scene's pair
+            near, far = (bounds[:, i:i + 1].expand(n_scenes, b).reshape(-1)
+                         for i in (0, 1))
+        out = render_rays(params, flat[:, 0:3], flat[:, 3:6],
+                          state.generators, rc, near=near, far=far,
+                          occ_grid=occ_grid,
+                          viewdirs=flat[:, 6:9] if flat.shape[1] == 12
+                          else None)
+        target = batch[..., -3:]
+        rgb = out["rgb_map"].view(n_scenes, b, 3)
+        coarse = (out["rgb_map_coarse"].view(n_scenes, b, 3)
+                  if tc.coarse_loss and "rgb_map_coarse" in out else None)
+        # Each scene's mean over its own rays, as its step alone takes it.
+        fine = [torch.mean((rgb[s] - target[s]) ** 2)
+                for s in range(n_scenes)]
+        losses = [f + torch.mean((coarse[s] - target[s]) ** 2)
+                  if coarse is not None else f for s, f in enumerate(fine)]
+        sum(losses).backward()
+        per = len(opt.params) // n_scenes   # Adam's params, scene by scene
+        grads, gnorms = [], []
+        for s in range(n_scenes):
+            mine = _grads(opt.params[s * per:(s + 1) * per])
+            gnorms.append(global_norm(mine))
+            _clip(mine, gnorms[-1], tc)
+            grads += mine
+        opt.step(grads, lr_tensor(tc, state.counter))
+        state.counter.add_(1)
+        fine = [f.detach() for f in fine]
+        return {"loss": torch.stack(fine),
+                "psnr": torch.stack([
+                    -10.0 * torch.log10(torch.clamp(f, min=1e-10))
+                    for f in fine]),
+                "grad_norm": torch.stack(gnorms),
+                "total_loss": torch.stack(losses).detach()}
+
+    return body

@@ -113,7 +113,7 @@ FWD_VARIANTS = {
         "          a[mt][0] = a[mt][1] = a[mt][2] = a[mt][3] = mt + lane;\n"
         "          (void)a_s;")],
     "forward without encoding": [(
-        "(g < n && j < enc_dim) ? encode(pts, g, j) : 0.f",
+        "(g < n && j < enc_dim) ? encode(pts_s, g, j) : 0.f",
         "(g < n && j < enc_dim) ? 0.5f : 0.f")],
 }
 

@@ -45,7 +45,9 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
             "nerfmlp_torch.scripts.serve", "nerfmlp_torch.data.llff",
             "nerfmlp_torch.data.deepvoxels",
             "nerfmlp_torch.train.graph", "nerfmlp_torch.ops.mesh",
-            "nerfmlp_torch.scripts.extract_mesh"} <= set(mods)
+            "nerfmlp_torch.scripts.extract_mesh",
+            "nerfmlp_torch.parallel.multi_scene",
+            "nerfmlp_torch.scripts.train_multi_scene"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
