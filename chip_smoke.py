@@ -144,10 +144,28 @@ Phases, each fatal on failure:
      (per-scene bounds, NDC 0/1; the white-background warning; two .pt
      files read by load_params_any, one served for a frame by
      RenderService).
+ 12. ground truth on the card and the JAX package's .ckpt files
+     ("interchange"): the make_synthetic_scene CLI writes the
+     quality-certification scene (the hard field, 400x400, 48 / 4 / 8
+     views, 512 GT samples, --device cuda), timed beside the card's name
+     and power limit, and the Blender loader reads its 60 views; two of
+     its test poses at 128x128 on the card and in numpy, within 1 level of
+     8-bit sRGB on 99.9% of values and 2 everywhere; phase 6's turbo
+     weights through the convert_checkpoint CLI to a .ckpt, served by the
+     serve CLI over HTTP (the frame bit-equal to the .pt's, the same
+     forward launches) and back to a .pth equal to the .pt; phase 5's
+     final train state written as the JAX Trainer's metrics_latest.ckpt
+     (flax msgpack, optax's Adam state), from which the train CLI resumes
+     for 50 steps: the params, Adam moments and count, step and learning
+     rate just after the resume bit-equal to a resume from the .pt, the
+     mean loss below phase 5's last 50 steps', 2 launches of each kernel
+     a step; the forward at the served tile and the four kernels at the
+     resumed fine call, held on the weights read back, timed.
 Then it prints the kernels' JSON line, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Weights are random, from a seed.
 It exits non-zero, printing no result, without a CUDA device.
-``--only multi_scene`` runs the build, phase 5 and phase 11 alone.
+``--only multi_scene`` runs the build, phase 5 and phase 11 alone;
+``--only interchange`` the build, phases 5 and 6 and phase 12.
 """
 
 import contextlib
@@ -3263,6 +3281,339 @@ def multi_scene_records(ms_run):
     return recs
 
 
+# -- phase 12 ------------------------------------------------------------- #
+GT_WH = 400               # phase 12's certification scene (README.md:42-43,
+GT_SPLITS = (48, 4, 8)    # docs/RESULTS.md:185-203): 400x400, the hard
+GT_SAMPLES = 512          # field, 48 / 4 / 8 views, 512 GT samples a ray
+GT_CHECK_WH = 128         # two of its poses on the card and in numpy,
+GT_LEVEL_SHARE = 0.999    # 8-bit sRGB: within 1 level on this share of
+GT_LEVEL_MAX = 2          # values, within 2 everywhere (float32 trig)
+RESUME_STEPS = 50         # train CLI steps after each resume
+
+
+def jax_train_state_tree(raw, cfgs):
+    """A train state the port's Trainer wrote (a ``metrics_latest.pt``
+    dict), as the JAX package's Trainer writes its ``metrics_latest.ckpt``
+    (``nerfmlp_tpu/parallel/train_step.py:30-37`` through flax's
+    serialization): step, params in the JAX layout, ``opt_state`` as
+    ``optax.chain(adam)`` holds it with ``grad_clip`` 0 — ((Adam's count,
+    mu, nu), the schedule's count) — and a PRNG key of the seed, which the
+    port does not read. Dict keys sorted, as ``jax.device_get`` leaves
+    them. ``cfgs``: the nets' ModelConfigs by name."""
+    import numpy as np
+
+    from nerfmlp_torch.models import convert
+
+    def srt(t):
+        return {k: srt(t[k]) for k in sorted(t)} if isinstance(t, dict) else t
+
+    state = raw["opt_state"]["state"]
+    moments, i = {"mu": {}, "nu": {}}, 0
+    for k, sd in raw["params"].items():
+        names = list(sd)   # the Adam's order: each net's parameters
+        for key, slot in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            moments[key][k] = convert.params_from_state_dict(
+                {n: state[i + j][slot] for j, n in enumerate(names)},
+                cfgs[k])
+        i += len(names)
+    if i != len(state):
+        raise SystemExit(f"[interchange] {len(state)} Adam slots for {i} "
+                         "parameters")
+    count = np.asarray(int(state[0]["step"]), np.int32)
+    return {
+        "step": np.asarray(int(raw["step"]), np.int32),
+        "params": srt({k: convert.params_from_state_dict(sd, cfgs[k])
+                       for k, sd in raw["params"].items()}),
+        "opt_state": {"0": {
+            "0": {"count": count, "mu": srt(moments["mu"]),
+                  "nu": srt(moments["nu"])},
+            "1": {"count": count}}},
+        "rng": np.asarray([0, SEED], np.uint32),
+    }
+
+
+def gt_scene(card):
+    """The certification scene through the make_synthetic_scene CLI on the
+    card, timed and loaded back; two of its test poses at GT_CHECK_WH
+    rendered on the card and in numpy, compared in 8-bit sRGB levels."""
+    import numpy as np
+    import torch
+
+    from nerfmlp_torch.data.blender import BlenderDataset, linear_to_srgb
+    from nerfmlp_torch.data.synthetic import FIELDS, render_analytic
+    from nerfmlp_torch.scripts import make_synthetic_scene as gt_cli
+
+    scene = os.path.join(SMOKE_DIR, "interchange", "hard400")
+    n_views = sum(GT_SPLITS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    gt_cli.main(["--outdir", scene, "--field", "hard", "--img_wh",
+                 str(GT_WH), str(GT_WH), "--n_train", str(GT_SPLITS[0]),
+                 "--n_val", str(GT_SPLITS[1]), "--n_test", str(GT_SPLITS[2]),
+                 "--gt_samples", str(GT_SAMPLES), "--device", "cuda"])
+    gt_s = time.perf_counter() - t1
+    print(f"[interchange] make_synthetic_scene --field hard {GT_WH}x{GT_WH}, "
+          f"{n_views} views x {GT_SAMPLES} GT samples, --device cuda: "
+          f"{gt_s:.2f} s, {gt_s / n_views:.3f} s a view (PNGs included) "
+          f"[{card}]")
+    loaded = {split: BlenderDataset(scene, split, img_wh=(GT_WH, GT_WH))
+              for split in ("train", "val", "test")}
+    sizes = tuple(len(ds.poses) for ds in loaded.values())
+    print(f"[interchange] the Blender loader reads {sizes} views")
+    if sizes != GT_SPLITS or not all(
+            np.isfinite(ds.images).all() for ds in loaded.values()):
+        raise SystemExit("[interchange] the certification scene does not "
+                         "load as written")
+
+    with open(os.path.join(scene, "transforms_test.json")) as f:
+        meta = json.load(f)
+    focal = 0.5 * GT_CHECK_WH / np.tan(0.5 * meta["camera_angle_x"])
+    worst = {"levels": 0, "share": 1.0, "linear": 0.0}
+    times = {"cuda": 0.0, "numpy": 0.0}
+    for frame in meta["frames"][:2]:
+        pose = np.asarray(frame["transform_matrix"], np.float32)
+        imgs = {}
+        for dev in ("cuda", "numpy"):
+            t1 = time.perf_counter()
+            imgs[dev] = render_analytic(
+                pose, GT_CHECK_WH, GT_CHECK_WH, focal, n_samples=GT_SAMPLES,
+                near=2.0, far=6.0, field=FIELDS["hard"],
+                device=None if dev == "numpy" else dev)
+            times[dev] += time.perf_counter() - t1
+        lv = np.abs((linear_to_srgb(imgs["cuda"]) * 255.0).round()
+                    - (linear_to_srgb(imgs["numpy"]) * 255.0).round())
+        worst["levels"] = max(worst["levels"], int(lv.max()))
+        worst["share"] = min(worst["share"], float((lv <= 1).mean()))
+        worst["linear"] = max(worst["linear"], float(
+            np.abs(imgs["cuda"] - imgs["numpy"]).max()))
+    print(f"[interchange] two test poses at {GT_CHECK_WH}x{GT_CHECK_WH} "
+          f"({GT_SAMPLES} samples), card vs numpy: max {worst['levels']} "
+          f"levels of 8-bit sRGB, {100 * worst['share']:.4f}% of values "
+          f"within 1 level (bars: {GT_LEVEL_MAX}, "
+          f"{100 * GT_LEVEL_SHARE:g}%), max |linear err| "
+          f"{worst['linear']:.3e}; {times['cuda']:.2f} s on the card, "
+          f"{times['numpy']:.2f} s in numpy")
+    if not (worst["levels"] <= GT_LEVEL_MAX
+            and worst["share"] >= GT_LEVEL_SHARE):
+        raise SystemExit("[interchange] the card's ground truth is off the "
+                         "numpy path")
+    return {"seconds": gt_s, "views": n_views}
+
+
+def serve_frame(flags, ckpt_path):
+    """One frame served over HTTP by the serve CLI's service from
+    ``ckpt_path``: (frame, forward launches in the request)."""
+    import numpy as np
+
+    from nerfmlp_torch.ops import fused_mlp
+    from nerfmlp_torch.scripts import serve as serve_cli
+    from nerfmlp_torch.serve import RenderServer
+
+    svc = serve_cli.build_service(serve_cli.build_parser().parse_args(
+        flags + ["--ckpt", ckpt_path]))
+    svc.log = lambda m: None
+    svc.warmup()
+    server = RenderServer(svc, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        fused_mlp.fused_nerf_mlp.launches = 0
+        req = urllib.request.Request(
+            "http://%s:%d/render" % server.server_address[:2], method="POST",
+            data=json.dumps({**dict(zip(("theta", "phi", "radius"),
+                                        SERVE_POSE)),
+                             "format": "npy"}).encode())
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            status, body = resp.status, resp.read()
+        launches = fused_mlp.fused_nerf_mlp.launches
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    if status != 200:
+        raise SystemExit(f"[interchange] /render answered {status}")
+    return np.load(io.BytesIO(body)), launches
+
+
+def resume_run(tag, argv, path):
+    """The train CLI resumed from ``path`` for RESUME_STEPS steps
+    (train_cli_run: every launch counter set to 0 just before, read just
+    after): the state just after the resume (step, params, Adam moments
+    and count, the learning rate of the next update), the per-step losses
+    after it, and train_cli_run's results."""
+    import torch
+
+    from nerfmlp_torch.parallel.train_step import lr_tensor
+    from nerfmlp_torch.train import loop
+
+    snap = {}
+    resume = loop.Trainer.resume
+
+    def snapshot(self, p):
+        ok = resume(self, p)
+        st = self.state
+        snap.update(
+            ok=ok, step=st.step,
+            params=[p.detach().clone() for net in st.params.values()
+                    for p in net.parameters()],
+            moments=[t.clone() for t in st.optimizer.exp_avg
+                     + st.optimizer.exp_avg_sq],
+            count=st.optimizer.count.clone(),
+            lr=lr_tensor(self.tc, st.counter).clone(), losses=[])
+        inner = self.step_fn
+
+        def recorded(state, batch, *occ):
+            m = inner(state, batch, *occ)
+            snap["losses"].append(m["loss"])
+            return m
+
+        self.step_fn = recorded
+        return ok
+
+    loop.Trainer.resume = snapshot
+    try:
+        out = train_cli_run(tag, argv + ["--resume", path], RESUME_STEPS)
+    finally:
+        loop.Trainer.resume = resume
+    snap["loss"] = float(torch.stack(snap["losses"]).mean())
+    return snap, out
+
+
+def phase_interchange(train_run, turbo_ckpt, card):
+    """Ground truth on the card and the JAX package's .ckpt files (the
+    module docstring, phase 12). Returns the records of path interchange."""
+    import numpy as np
+    import torch
+
+    from nerfmlp_torch.scripts import convert_checkpoint as conv_cli
+    from nerfmlp_torch.train.checkpoint import load_params_any, save_ckpt
+
+    t0 = time.perf_counter()
+    root = os.path.join(SMOKE_DIR, "interchange")
+    shutil.rmtree(root, ignore_errors=True)     # no auto-resume of a rerun
+    os.makedirs(root)
+    gt = gt_scene(card)
+
+    # -- phase 6's turbo weights as a .ckpt, served and converted back ----
+    ckpt = os.path.join(root, "turbo_phase6.ckpt")
+    conv_cli.main(["--in", turbo_ckpt, "--out", ckpt])
+    flags = ["--use_occupancy", "--aabb", *[str(v) for v in OCC_AABB],
+             "--N_samples", str(OCC_PROBE), "--N_importance", str(OCC_REFINE),
+             "--occ_dense_samples", str(OCC_DENSE), "--focal", str(FOCAL),
+             "--img_wh", str(W), str(H)]
+    frame_pt, launches_pt = serve_frame(flags, turbo_ckpt)
+    frame_ck, launches_ck = serve_frame(flags, ckpt)
+    pth = os.path.join(root, "turbo_phase6.pth")
+    conv_cli.main(["--in", ckpt, "--out", pth])
+    back = torch.load(pth, map_location="cpu", weights_only=True)
+    orig = torch.load(turbo_ckpt, map_location="cpu", weights_only=True)
+    same = list(back) == list(orig) and all(
+        torch.equal(back[k], orig[k]) for k in orig)
+    print(f"[interchange] turbo weights .pt -> .ckpt ({os.path.getsize(ckpt)} "
+          f"B) served by the serve CLI: frame bit-equal to the .pt's "
+          f"{np.array_equal(frame_ck, frame_pt)}, forward launches "
+          f"{launches_ck} vs {launches_pt} a frame; .ckpt -> .pth equal to "
+          f"the .pt bit for bit {same}")
+    if not (np.array_equal(frame_ck, frame_pt) and launches_ck == launches_pt
+            and launches_ck > 0 and same and np.isfinite(frame_ck).all()):
+        raise SystemExit("[interchange] the .ckpt did not serve or convert "
+                         "as the .pt")
+    cfg = slice_config()
+    net = load_params_any(ckpt, cfg.model_config(), device="cuda")["coarse"]
+    serve_rec = check_kernel(net, cfg, *serving_points(OCC_REFINE, cfg,
+                                                       n_rays=OCC_TILE),
+                             "interchange served tile refine (.ckpt)",
+                             time_it=True)
+
+    # -- phase 5's final train state as the JAX Trainer writes it --------
+    trainer = train_run["trainer"]
+    pt_state = os.path.join(trainer.save_dir, "metrics_latest.pt")
+    raw = torch.load(pt_state, map_location="cpu", weights_only=True)
+    jax_dir = os.path.join(root, "jax_run")
+    ck_state = os.path.join(jax_dir, "metrics_latest.ckpt")
+    save_ckpt(ck_state, jax_train_state_tree(
+        raw, {"coarse": trainer.rc.model_config()}))
+    shutil.copy(os.path.join(trainer.save_dir,
+                             "metrics_latest.history.json"), jax_dir)
+    step = int(raw["step"])
+    argv = ["--datadir", os.path.join(SMOKE_DIR, "scene"), "--img_wh",
+            str(TRAIN_WH), str(TRAIN_WH), "--white_bkgd", "--N_samples",
+            str(cfg.N_samples), "--N_importance", str(cfg.N_importance),
+            "--batch_size", str(TRAIN_RAYS), "--iters",
+            str(step + RESUME_STEPS), "--quick_val_interval",
+            str(RESUME_STEPS // 2), "--quick_val_res", str(TRAIN_WH),
+            str(TRAIN_WH), "--quick_val_subset", "1", "--full_val_interval",
+            "0", "--i_weights", "0"]
+    runs = {}
+    for name, path in (("pt", pt_state), ("ckpt", ck_state)):
+        runs[name] = resume_run(
+            f"interchange resume {name}",
+            argv + ["--save_dir", os.path.join(root, "resumed_" + name)],
+            path)
+    (a, _), (b, out) = runs["pt"], runs["ckpt"]
+    equal = {key: (a[key] == b[key] if key == "step" else
+                   all(torch.equal(x, y) for x, y in zip(a[key], b[key]))
+                   if isinstance(a[key], list) else torch.equal(a[key],
+                                                                b[key]))
+             for key in ("step", "params", "moments", "count", "lr")}
+    before = float(np.mean(train_run["losses"][-RESUME_STEPS:]))
+    _, launches, step_fwd, _, tr = out
+    want = 2 * RESUME_STEPS
+    print(f"[interchange] train CLI resumed at step {b['step']} from the "
+          f"JAX-layout metrics_latest.ckpt vs from metrics_latest.pt: "
+          f"bit-equal {equal}; mean loss of the next {RESUME_STEPS} steps "
+          f"{b['loss']:.6f} (.ckpt) / {a['loss']:.6f} (.pt) vs {before:.6f} "
+          f"over phase 5's last {RESUME_STEPS}; launches in the steps "
+          f"{(step_fwd, *launches[1:])} (want {want} of each)")
+    if not (a["ok"] and b["ok"] and all(equal.values()) and b["step"] == step
+            and b["loss"] < before and a["loss"] < before
+            and step_fwd == want and list(launches[1:]) == [want] * 3):
+        raise SystemExit("[interchange] the .ckpt resume failed its checks")
+    pts, dirs = serving_points(cfg.N_importance, cfg, n_rays=TRAIN_RAYS)
+    resumed = tr.state.params["coarse"]
+    fwd_rec = check_kernel(resumed, cfg, pts, dirs,
+                           "interchange resumed fine call", time_it=True)
+    _, phases = check_backward(resumed, cfg, pts, dirs,
+                               "interchange resumed fine call", time_it=True)
+    print(f"[interchange] phase took {time.perf_counter() - t0:.1f} s "
+          f"(ground truth {gt['seconds']:.1f} s)")
+
+    recs = []
+    base = {"path": "interchange", "route": "cuda"}
+    for name, launches_n, r in (
+            ("fused_mlp_fwd_interchange_serve", launches_ck, serve_rec),
+            ("fused_mlp_fwd_interchange_train", step_fwd, fwd_rec)):
+        recs.append({**base, "name": name,
+                     "source": "nerfmlp_torch/csrc/fused_mlp_fwd.cu",
+                     "replaces": "nerfmlp_tpu/ops/pallas_mlp.py:264",
+                     "launches": launches_n, "max_abs_err": r["max_abs_err"],
+                     "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "module_ms": r["module_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": None})
+    for key, name, replaces, i in (
+            ("phase1", "fused_mlp_bwd_phase1", "pallas_mlp.py:312", 1),
+            ("phase2", "fused_mlp_bwd_phase2", "pallas_mlp.py:386", 2),
+            ("reduce", "fused_mlp_bwd_reduce", "pallas_mlp.py:327", 3)):
+        r = phases[key]
+        recs.append({**base, "name": name + "_interchange",
+                     "source": "nerfmlp_torch/csrc/fused_mlp_bwd.cu",
+                     "replaces": "nerfmlp_tpu/ops/" + replaces,
+                     "launches": launches[i], "max_abs_err": r["max_abs_err"],
+                     "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"]})
+    return recs
+
+
+def save_turbo(occ_run):
+    """Phase 6's turbo weights, as phase 10 and 12 read them."""
+    from nerfmlp_torch.train.checkpoint import save_params
+
+    path = os.path.join(SMOKE_DIR, "turbo_phase6.pt")
+    save_params(path, occ_run["trainer"].state.params)
+    return path
+
+
 def smi_line():
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -3287,6 +3638,17 @@ def main():
     print(f"[device] {torch.cuda.get_device_name(0)} | torch "
           f"{torch.__version__} CUDA {torch.version.cuda}")
     phase_build()
+    if sys.argv[1:] == ["--only", "interchange"]:
+        # Phase 12 alone, after the runs whose files it reads: phase 5's
+        # train state and phase 6's turbo weights.
+        train_ds, val_ds = make_scene()
+        card = smi_line()
+        train_run = phase_train(train_ds, val_ds)
+        turbo_ckpt = save_turbo(phase_occ_train(train_ds, val_ds))
+        print(json.dumps({"kernels": phase_interchange(train_run, turbo_ckpt,
+                                                       card)}))
+        print(card)
+        return 0
     if sys.argv[1:] == ["--only", "multi_scene"]:
         # Phase 11 alone, after the single-scene run it is held against.
         train_ds, val_ds = make_scene()
@@ -3309,10 +3671,7 @@ def main():
     occ_serve_launches = phase_occ_serve(occ_run["trainer"])
     # Phase 10's model: the turbo weights as phase 6 left them (phase 9
     # trains that Trainer on).
-    from nerfmlp_torch.train.checkpoint import save_params
-
-    turbo_ckpt = os.path.join(SMOKE_DIR, "turbo_phase6.pt")
-    save_params(turbo_ckpt, occ_run["trainer"].state.params)
+    turbo_ckpt = save_turbo(occ_run)
     cli_launches = phase_inference()
     llff = phase_llff(net)
     card = smi_line()
@@ -3320,6 +3679,7 @@ def main():
                              hi_lo_run, card)
     mesh_recs = phase_mesh(turbo_ckpt, card)
     ms_run = phase_multi_scene(train_run["val"]["psnr"], card)
+    interchange_recs = phase_interchange(train_run, turbo_ckpt, card)
 
     # The forward runs on both paths, at different shapes: one record per
     # path, each with that path's launches and its fine call's times, and
@@ -3485,6 +3845,9 @@ def main():
         })
     # Multi-scene training (phase 11): each kernel over the scene axis.
     kernels += multi_scene_records(ms_run)
+    # The JAX package's .ckpt files (phase 12): the served frame's forward
+    # and the resumed steps' four kernels, held on the weights read back.
+    kernels += interchange_recs
     for rec in bwds + [occ["bwd probe"], occ["bwd refine"], occ["bwd hi_lo"],
                        llff["bwd"]]:
         print(f"[backward] {rec['label']} call, all three kernels: "

@@ -112,6 +112,26 @@ def params_from_numpy(arrays: Sequence[np.ndarray],
                      for i, n in enumerate(order)}, cfg)
 
 
+def params_to_numpy(params: Mapping, cfg: Optional[ModelConfig] = None
+                    ) -> List[np.ndarray]:
+    """JAX-layout param dict -> official weight list (``[kernel, bias,
+    ...]`` in official order)."""
+    cfg = cfg or ModelConfig()
+    p = _checked(params, cfg)
+    return [p[n][leaf] for n in _official_order(cfg)
+            for leaf in ("kernel", "bias")]
+
+
+def save_npy_weights(path: str, params: Mapping,
+                     cfg: Optional[ModelConfig] = None) -> None:
+    """An official ``.npy`` object-array checkpoint of one net."""
+    arrays = params_to_numpy(params, cfg)
+    obj = np.empty(len(arrays), dtype=object)
+    for i, a in enumerate(arrays):
+        obj[i] = a
+    np.save(path, obj)
+
+
 def load_npy_weights(path: str) -> List[np.ndarray]:
     """An official ``.npy`` object-array checkpoint from disk."""
     return [np.asarray(a) for a in np.load(path, allow_pickle=True)]

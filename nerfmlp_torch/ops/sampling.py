@@ -114,8 +114,16 @@ def sample_pdf(
             base = torch.arange(n_samples, device=cdf.device,
                                 dtype=cdf.dtype) / n_samples
             u = base + u / n_samples
-    u = u.contiguous()
-    inds = torch.searchsorted(cdf.contiguous(), u, right=True)
+    return _invert_cdf(bins, cdf, u)
+
+
+def _invert_cdf(bins: torch.Tensor, cdf: torch.Tensor,
+                u: torch.Tensor) -> torch.Tensor:
+    """Depths where the piecewise-linear CDF over ``bins`` reaches ``u``.
+    In a bin holding little mass ``t`` divides by that mass, so an ulp of
+    the CDF moves a depth by ulp / mass of the bin's width."""
+    m = cdf.shape[-1]
+    inds = torch.searchsorted(cdf.contiguous(), u.contiguous(), right=True)
     below = torch.clamp(inds - 1, min=0)
     above = torch.clamp(inds, max=m - 1)
     cdf_below = torch.gather(cdf, -1, below)

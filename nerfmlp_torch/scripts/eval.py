@@ -43,7 +43,7 @@ def build_parser():
     p.add_argument("--split", type=str, default="test")
     p.add_argument("--img_wh", type=int, nargs=2, default=[800, 800])
     p.add_argument("--ckpt", type=str, required=True,
-                   help=".pt, .pth or .npy")
+                   help=".pt, .pth, .npy or .ckpt")
     p.add_argument("--out", type=str, default=None,
                    help="JSON report path (default: <ckpt>.eval.json)")
     p.add_argument("--save_renders", type=str, default=None,

@@ -7,8 +7,8 @@ plus ``--device`` (default ``cuda``) and ``--no_kernel`` (alias
 ``sigma > threshold`` level set by marching tetrahedra
 (``ops/mesh.py``) and write ``.ply`` (binary or ascii, with vertex
 colours and normals) or ``.obj``. Checkpoints are ``.pt`` files the
-Trainer wrote, reference ``.pth`` files or official ``.npy`` weight
-lists. On the card the density grid and the colour bake go through the
+Trainer wrote, the JAX package's ``.ckpt``, reference ``.pth`` files or
+official ``.npy`` weight lists. On the card the density grid and the colour bake go through the
 forward kernel, one launch per chunk.
 
 Example:
@@ -33,7 +33,7 @@ def build_parser():
     p = argparse.ArgumentParser(
         description="Extract a density-isosurface mesh from a checkpoint")
     p.add_argument("--ckpt", type=str, required=True,
-                   help=".pt, .pth or .npy checkpoint")
+                   help=".pt, .pth, .npy or .ckpt checkpoint")
     p.add_argument("--out", type=str, default="mesh.ply",
                    help="output path; extension picks the format (.ply/.obj)")
     p.add_argument("--aabb", type=float, nargs=6, metavar="F",

@@ -2,7 +2,7 @@
 ``--device cpu``, on the CPU).
 
 The PyTorch counterpart of ``scripts/render_example.py``, with its flags:
-``.pt``/``.pth`` checkpoints and official ``.npy`` weight lists (64
+``.pt``/``.pth``/``.ckpt`` checkpoints and official ``.npy`` weight lists (64
 importance samples by default for ``.npy``, 128 otherwise); bounds 2 / 6
 for Blender unless ``--dynamic_bounds``, the dataset's own for LLFF
 (NDC [0, 1] unless metric) and DeepVoxels, and ``--near``/``--far`` over
@@ -41,7 +41,7 @@ def build_parser():
     p.add_argument("--split", type=str, default="test")
     p.add_argument("--img_wh", type=int, nargs=2, default=[800, 800])
     p.add_argument("--ckpt", "--model_path", type=str, required=True,
-                   help=".pt/.pth/.npy checkpoint")
+                   help=".pt/.pth/.npy/.ckpt checkpoint")
     p.add_argument("--out_dir", type=str, default="outputs/renders")
     p.add_argument("--out_prefix", type=str, default=None,
                    help="write {out_prefix}_{idx}.png instead of "

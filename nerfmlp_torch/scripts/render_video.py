@@ -50,7 +50,7 @@ def build_parser():
         description="Render an orbit / fly-through / test-set video")
     p.add_argument("--datadir", type=str, required=True)
     p.add_argument("--ckpt", type=str, required=True,
-                   help=".pt, .pth or .npy weights")
+                   help=".pt, .pth, .npy or .ckpt weights")
     add_dataset_flag(p)
     p.add_argument("--out_dir", type=str, default="outputs/video")
     p.add_argument("--size", type=int, default=400)

@@ -2,7 +2,8 @@
 
 The PyTorch counterpart of ``scripts/serve.py``, with the same flag names
 for the parts ported plus ``--device``. Checkpoints are ``.npy`` official
-weight lists or ``.pth``/``.pt`` reference files. Camera defaults come
+weight lists, ``.pth``/``.pt`` reference files, the Trainer's ``.pt`` or
+the JAX package's ``.ckpt``. Camera defaults come
 from ``--focal``/``--near``/``--far``, or from a dataset (``--datadir``,
 ``--dataset_type``, ``--split``, ``--shape`` and the LLFF flags of
 training, read as the render CLIs read them): its focal at ``--img_wh``
@@ -26,8 +27,9 @@ then defaults to 16,384 rays (4,096 otherwise).
 ``--max_mesh_resolution`` nodes per axis (0 disables it; the box defaults
 to ``--aabb``). ``--watch SECONDS`` polls ``--watch_dir`` — by default the
 checkpoint's own directory when watching or when the checkpoint is a
-Trainer's ``.pt`` — and swaps in every newer checkpoint the Trainer
-writes there; ``POST /reload`` forces a swap.
+Trainer's ``.pt`` or ``.ckpt`` — and swaps in every newer checkpoint a
+Trainer (the port's or the JAX package's) writes there; ``POST /reload``
+forces a swap.
 
 Example:
     python -m nerfmlp_torch.scripts.serve --ckpt model.pth --focal 555.5 \\
@@ -144,7 +146,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Persistent NeRF render server (PyTorch, one GPU)")
     p.add_argument("--ckpt", "--model_path", type=str, required=True,
-                   help=".npy/.pth/.pt checkpoint to serve")
+                   help=".npy/.pth/.pt/.ckpt checkpoint to serve")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to serve on (default cuda)")
     p.add_argument("--host", type=str, default="127.0.0.1")

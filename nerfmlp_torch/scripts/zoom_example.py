@@ -40,7 +40,7 @@ def build_parser():
     p.add_argument("--datadir", type=str, required=True,
                    help="dataset dir (for camera_angle_x)")
     p.add_argument("--ckpt", type=str, required=True,
-                   help=".pt, .pth or .npy")
+                   help=".pt, .pth, .npy or .ckpt")
     p.add_argument("--out_dir", type=str, default="outputs/zoom_examples")
     p.add_argument("--size", type=int, default=400)
     p.add_argument("--N_samples", type=int, default=64)

@@ -27,8 +27,9 @@ weight swap.
 
 Hot reload serves a model while it trains: point ``watch_dir`` at a
 Trainer's ``--save_dir`` and :meth:`RenderService.watch` swaps in every
-newer ``model_{step}[_latest].pt`` (``metrics_latest.pt`` until one
-exists); ``POST /reload`` forces a swap. The Trainer writes each file to
+newer ``model_{step}[_latest].pt`` or the JAX Trainer's ``.ckpt``
+(``metrics_latest.pt`` / ``.ckpt`` until one exists); ``POST /reload``
+forces a swap. The Trainer writes each file to
 ``*.tmp`` and renames it, and no ``.tmp`` name is ever picked. Multi-device
 sharding is not ported: ``/spec`` lists it.
 """
@@ -586,19 +587,20 @@ class RenderService:
 
 
 def latest_params_checkpoint(save_dir: str) -> Optional[str]:
-    """The newest checkpoint to serve from a Trainer's save dir: the
-    highest-step ``model_{step}.pt`` / ``model_{step}_latest.pt`` (the
-    newer file on a tie), else ``metrics_latest.pt`` (the whole train
-    state, whose parameters ``load_params_any`` takes). ``model_best`` /
-    ``model_final`` carry no step and never match, nor does a ``.tmp``
-    file the Trainer is still writing."""
+    """The newest checkpoint to serve from a Trainer's save dir, the port's
+    or the JAX package's: the highest-step ``model_{step}.pt`` /
+    ``model_{step}_latest.pt`` / ``.ckpt`` (the newer file on a tie),
+    else the newer of ``metrics_latest.pt`` and ``metrics_latest.ckpt``
+    (whole train states, whose parameters ``load_params_any`` takes).
+    ``model_best`` / ``model_final`` carry no step and never match, nor
+    does a ``.tmp`` file a Trainer is still writing."""
     from nerfmlp_torch.train.checkpoint import step_from_filename
 
     if not os.path.isdir(save_dir):
         return None
     best: Tuple[int, float, Optional[str]] = (0, 0.0, None)
     for name in os.listdir(save_dir):
-        if name.startswith("model_") and name.endswith(".pt"):
+        if name.startswith("model_") and name.endswith((".pt", ".ckpt")):
             step = step_from_filename(name)
             if step <= 0:
                 continue
@@ -607,13 +609,15 @@ def latest_params_checkpoint(save_dir: str) -> Optional[str]:
                 best = key
     if best[2] is not None:
         return os.path.join(save_dir, best[2])
-    cand = os.path.join(save_dir, "metrics_latest.pt")
-    return cand if os.path.exists(cand) else None
+    states = [os.path.join(save_dir, f"metrics_latest{ext}")
+              for ext in (".pt", ".ckpt")]
+    states = [p for p in states if os.path.exists(p)]
+    return max(states, key=lambda p: _mtime(p) or 0.0) if states else None
 
 
 def _ckpt_step(path: Optional[str]) -> int:
     """The step for /health: from the file name, else from inside a whole
-    train state (``metrics_latest.pt``)."""
+    train state (``metrics_latest.pt`` / ``.ckpt``)."""
     if not path:
         return 0
     from nerfmlp_torch.train.checkpoint import (

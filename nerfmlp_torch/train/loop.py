@@ -352,17 +352,23 @@ class Trainer:
 
     def resume(self, path: str) -> bool:
         """Restore the state and metric histories from a checkpoint: a
-        whole train state (``metrics_latest.pt``), or parameters only
-        (``model_{step}.pt``: step from the file name, fresh Adam moments;
-        the learning rate follows the step). A missing or undecodable file
-        warns and starts fresh; an architecture mismatch raises."""
+        whole train state (``metrics_latest.pt``, or the JAX package's
+        ``metrics_latest.ckpt`` / ``model_full_val_final.ckpt``: its
+        params, step and optax Adam state; its PRNG key cannot seed a torch
+        generator, which is seeded from the config's seed as on a fresh
+        run), or parameters only (``model_{step}.pt`` / ``.ckpt``: step
+        from the file name, fresh Adam moments; the learning rate follows
+        the step). A missing or undecodable file warns and starts fresh;
+        an architecture mismatch raises."""
         if not os.path.exists(path):
             self._log(f"⚠️  resume checkpoint not found: {path} — starting "
                       "fresh")
             return False
         try:
-            raw = ckpt.load_checkpoint(path)
-        except (OSError, RuntimeError, EOFError) as e:
+            raw = ckpt.load_checkpoint(path, self.rc.model_config(),
+                                       self.rc.model_config(fine=True))
+        except (OSError, RuntimeError, EOFError,
+                ckpt.CheckpointCorruptError) as e:
             self._log(f"⚠️  resume failed to decode {path} ({e}) — starting "
                       "fresh")
             return False
@@ -372,14 +378,21 @@ class Trainer:
         if ckpt.is_train_state(raw):
             self._load_params(raw["params"], path)
             st.optimizer.load_state_dict(raw["opt_state"])
-            st.generator.set_state(raw["generator"])
+            if raw["generator"] is None:
+                st.generator.manual_seed(self.tc.seed)
+                self._log(f"⚠️  {path} holds a JAX PRNG key, not a torch "
+                          f"generator state — draws reseeded from seed "
+                          f"{self.tc.seed}, as on a fresh run")
+            else:
+                st.generator.set_state(raw["generator"])
             st.set_step(int(raw["step"]))
         else:
             self._load_params(raw if "coarse" in raw else {"coarse": raw},
                               path)
             st.set_step(ckpt.step_from_filename(path))
             st.optimizer.reset()
-            if st.step == 0 and os.path.basename(path) != "model_0.pt":
+            if st.step == 0 and os.path.basename(path) not in (
+                    "model_0.pt", "model_0.ckpt"):
                 self._log(
                     f"⚠️  cannot infer the training step from "
                     f"'{os.path.basename(path)}' — resuming at step 0 with "

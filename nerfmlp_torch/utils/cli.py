@@ -8,8 +8,8 @@ Counterpart of ``nerfmlp_tpu/utils/cli.py`` (``add_arch_flags``,
 ``add_occupancy_flags``, ``occupancy_fields``, ``add_tile_flag``,
 ``resolve_tile``, ``build_occ_grid``, ``add_shard_flag``,
 ``render_frame``, ``dataset_class``; ``params_template`` becomes
-:func:`load_params`, since ``.ckpt`` files are not read here) and of the
-config-file helpers in ``scripts/train.py:23-92`` (the oracle reads ``key
+:func:`load_params`: the port reads a ``.ckpt`` without a template) and of
+the config-file helpers in ``scripts/train.py:23-92`` (the oracle reads ``key
 = value`` files through configargparse). Rendering over several devices
 (ROADMAP.md, Queue 1 item 18) is refused by name.
 """
@@ -182,7 +182,8 @@ def dataset_class(dataset_type: str):
 def load_params(path: str, rc, device) -> Dict:
     """``{"coarse": ..., ["fine": ...]}`` nets of ``rc``'s architecture (the
     fine one's under ``separate_fine``) on ``device``, from a ``.npy``,
-    ``.pth`` or ``.pt`` file (``train/checkpoint.py::load_params_any``)."""
+    ``.pth``, ``.pt`` or ``.ckpt`` file
+    (``train/checkpoint.py::load_params_any``)."""
     from nerfmlp_torch.train.checkpoint import load_params_any
 
     return load_params_any(

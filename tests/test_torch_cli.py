@@ -16,6 +16,7 @@ from PIL import Image
 
 from nerfmlp_tpu.data.blender import BlenderDataset as JaxBlenderDataset
 
+from nerfmlp_torch.config import RenderConfig
 from nerfmlp_torch.data.blender import BlenderDataset
 from nerfmlp_torch.data.synthetic import make_synthetic_scene
 from nerfmlp_torch.scripts import compare_single_view, render_example
@@ -266,8 +267,28 @@ def test_other_datasets_run(other_scenes, trained, tmp_path, cli, dataset):
         assert rep["n_views"] == 1 and np.isfinite(rep["mean_psnr"])
 
 
-def test_ckpt_files_are_refused(scene, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        render_example.main(["--datadir", scene, "--split", "val",
-                             "--img_wh", "32", "32", "--ckpt",
-                             str(tmp_path / "model.ckpt")] + NET)
+def test_ckpt_files_are_refused(scene, trained, tmp_path):
+    """A .ckpt that does not decode is refused by name; the trained weights
+    as the JAX package's .ckpt render the .pt's frame."""
+    from nerfmlp_torch.train.checkpoint import (
+        CheckpointCorruptError, jax_params_tree, load_params_any, save_ckpt,
+    )
+
+    argv = ["--datadir", scene, "--split", "val", "--img_wh", "32", "32",
+            "--num_views", "1"] + NET
+    bad = tmp_path / "model.ckpt"
+    bad.write_bytes(b"\x85\xa4step")
+    with pytest.raises(CheckpointCorruptError, match="truncated"):
+        render_example.main(argv + ["--ckpt", str(bad)])
+    good = str(tmp_path / "model_final.ckpt")
+    save_ckpt(good, jax_params_tree(load_params_any(
+        trained, RenderConfig(depth=2, width=32).model_config(),
+        device="cpu")))
+    frames = []
+    for i, path in enumerate((trained, good)):
+        render_example.main(argv + ["--ckpt", path, "--out_prefix",
+                                    str(tmp_path / f"r{i}")])
+        frames.append(sorted(glob.glob(str(tmp_path / f"r{i}*.png"))))
+    assert len(frames[0]) == len(frames[1]) > 0
+    for a, b in zip(*frames):
+        assert open(a, "rb").read() == open(b, "rb").read()

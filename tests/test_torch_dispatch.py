@@ -38,6 +38,17 @@ LOOP = dict(batch_size=256, iters=30, quick_val_interval=15,
 
 # ---- dispatch_window: the JAX package's function, copied ---------------- #
 
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """One intra-op thread for this module's tests and fixtures (restored
+    after), so that parallel test workers do not oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("args, kw, want", [
     ((1, 1000, 10, [100]), {}, 10),         # no boundary inside: full K
     ((95, 1000, 10, [100]), {}, 6),         # ends at the interval multiple

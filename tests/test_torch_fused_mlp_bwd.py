@@ -40,6 +40,17 @@ BF16_TOL = 1e-3
 HI_LO_TOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """One intra-op thread for this module's tests and fixtures (restored
+    after), so that parallel test workers do not oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _loss_jax(raw):
     return jnp.mean(jax.nn.sigmoid(raw[:, :3]) ** 2) + jnp.mean(
         jax.nn.relu(raw[:, 3]) * 1e-2)

@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: it imports no jax, flax, optax or
-nerfmlp_tpu, and no imaging or plotting package (PIL, imageio,
+"""The PyTorch port stands alone: it imports no jax, flax, optax, msgpack
+or nerfmlp_tpu, and no imaging or plotting package (PIL, imageio,
 matplotlib: the card's machine has none) — checked in a fresh
 interpreter (this test process already holds jax, from conftest) and by
 scanning the port's sources and chip_smoke.py."""
@@ -15,8 +15,8 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "nerfmlp_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "nerfmlp_tpu", "PIL",
-             "imageio", "matplotlib")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "nerfmlp_tpu",
+             "PIL", "imageio", "matplotlib")
 
 
 def _port_modules():
@@ -47,7 +47,10 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
             "nerfmlp_torch.train.graph", "nerfmlp_torch.ops.mesh",
             "nerfmlp_torch.scripts.extract_mesh",
             "nerfmlp_torch.parallel.multi_scene",
-            "nerfmlp_torch.scripts.train_multi_scene"} <= set(mods)
+            "nerfmlp_torch.scripts.train_multi_scene",
+            "nerfmlp_torch.train.flax_msgpack",
+            "nerfmlp_torch.scripts.make_synthetic_scene",
+            "nerfmlp_torch.scripts.convert_checkpoint"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

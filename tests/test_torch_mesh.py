@@ -42,6 +42,17 @@ KW = dict(N_samples=8, N_importance=0, near=2.0, far=6.0, perturb=False,
           depth=2, width=32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """One intra-op thread for this module's tests and fixtures (restored
+    after), so that parallel test workers do not oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _both(seed=1, box=BOX, **extra):
     """Both packages' configs and the same weights (the fine net too under
     ``separate_fine``)."""

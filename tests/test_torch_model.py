@@ -119,7 +119,11 @@ def test_load_npy_and_pth_checkpoints(tmp_path):
     composite = tmp_path / "metrics_latest.pth"
     torch.save({"model_state_dict": params_to_torch_state_dict(params, jmc),
                 "best_val_psnr": 12.5}, composite)
-    for path in (npy, bare, composite):
+    from nerfmlp_tpu.train.checkpoint import save_checkpoint
+
+    flax_file = tmp_path / "model_best.ckpt"
+    save_checkpoint(str(flax_file), {"coarse": params})
+    for path in (npy, bare, composite, flax_file):
         loaded, step = load_params_any(str(path), mc, device="cpu",
                                        with_step=True)
         assert step == 0 and set(loaded) == {"coarse"}
@@ -132,7 +136,7 @@ def test_load_npy_and_pth_checkpoints(tmp_path):
         load_params_any(str(bare), ModelConfig(depth=7, width=64,
                                                bottleneck_ch=64,
                                                view_width=32), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError):
         load_params_any(str(tmp_path / "model_100.ckpt"), mc, device="cpu")
 
 

@@ -32,6 +32,7 @@ from jax.sharding import Mesh
 from nerfmlp_tpu.config import RenderConfig as JaxRenderConfig
 from nerfmlp_tpu.config import TrainConfig as JaxTrainConfig
 from nerfmlp_tpu.ops import occupancy as jocc
+from nerfmlp_tpu.ops import render as jrender
 from nerfmlp_tpu.parallel import multi_scene as jms
 from nerfmlp_tpu.parallel import train_step as jts
 
@@ -42,6 +43,8 @@ from nerfmlp_torch.models.convert import (
 from nerfmlp_torch.models.mlp import init_model
 from nerfmlp_torch.ops import fused_mlp as fm
 from nerfmlp_torch.ops import occupancy as occ
+from nerfmlp_torch.ops import render as render_mod
+from nerfmlp_torch.ops.sampling import _invert_cdf
 from nerfmlp_torch.ops.fused_mlp import NetStack
 from nerfmlp_torch.parallel import multi_scene as ms
 from nerfmlp_torch.parallel import train_step as ts
@@ -54,6 +57,17 @@ OCC = dict(use_occupancy=True, aabb=AABB, occ_grid_size=12,
            occ_dense_samples=32)
 BOUNDS = np.asarray([[2.0 + 0.25 * s, 6.0 - 0.25 * s] for s in range(S)],
                     np.float32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """One intra-op thread for this module's tests and fixtures (restored
+    after), so that parallel test workers do not oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _batches(seed=0, n=B):
@@ -109,17 +123,53 @@ def _rel_and_cos(got, want):
 _value_and_grad = jax.value_and_grad(jts.loss_and_metrics, has_aux=True)
 
 
-# Occupancy runs one-shot here: with probes, then refinement depths from
-# their weights, 3 of 32 rays of a scene of this fixture place their
-# refinement samples apart from JAX's (depth maps 4.8e-3 apart, within the
-# renderer's bar), and the first trunk layer's kernel gradient, whose
-# input is the L = 10 encoding, lies 0.23-0.33 (relative Frobenius) from
-# JAX's — on the single-scene step as on the stack, which equals it bit
-# for bit (test_scene_of_the_stack_equals_its_solo_step); ROADMAP.md,
-# Queue 3.
+def _jax_render_trace(jcfg, jparams, jgrids, batch, monkeypatch):
+    """JAX's eager single-scene render of each scene of the fixture, with
+    the inputs and the depths of each sample_pdf call (probes, then
+    refinement samples) and the grid's sampling prior recorded."""
+    calls = []
+
+    def recorder(fn, name):
+        def wrapped(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            calls[-1].append((name, args, np.asarray(out)))
+            return out
+        return wrapped
+
+    with monkeypatch.context() as m:
+        m.setattr(jrender, "sample_pdf", recorder(jrender.sample_pdf, "pdf"))
+        m.setattr(jocc, "occupancy_weights",
+                  recorder(jocc.occupancy_weights, "prior"))
+        for s in range(S):
+            calls.append([])
+            b = jnp.asarray(batch[s])
+            jrender.render_rays(
+                jax.tree.map(jnp.asarray, _scene(jparams, s)), b[:, :3],
+                b[:, 3:6], None, jcfg, near=jnp.asarray(BOUNDS[s, 0]),
+                far=jnp.asarray(BOUNDS[s, 1]),
+                occ_grid=_scene(jgrids, s))
+    return calls
+
+
+def _jax_cdf(weights):
+    """The CDF JAX's sample_pdf builds (nerfmlp_tpu/ops/sampling.py:76-79),
+    in JAX's own ops."""
+    w = jnp.asarray(weights) + 1e-5
+    cdf = jnp.cumsum(w / jnp.sum(w, axis=-1, keepdims=True), axis=-1)
+    return np.array(jnp.concatenate([jnp.zeros_like(cdf[..., :1]), cdf],
+                                    axis=-1))
+
+
+# Hierarchical occupancy draws its probes and its refinement samples by
+# inverse CDFs; their depths depart from JAX's by up to ~3e-4 on a few rays
+# (test_hierarchical_departure_is_the_cdf_sum_order), which the L = 10
+# encoding turns into ~0.2 of the first layer's gradient. So that case takes
+# JAX's depths for both draws, checks the port's own beside them, and holds
+# the rest of the step at the bars of the other cases.
 @pytest.mark.parametrize("mode", ["dense", "coarse_only",
-                                  "occupancy_one_shot"])
-def test_step_matches_jax_make_multi_scene_step(mode):
+                                  "occupancy_one_shot",
+                                  "occupancy_hierarchical"])
+def test_step_matches_jax_make_multi_scene_step(mode, monkeypatch):
     """The port's multi-scene step against JAX's make_multi_scene_step on a
     one-device mesh, with per-scene bounds (and per-scene grids), the same
     per-scene weights: per-scene losses, psnr and grad_norm; each scene's
@@ -127,7 +177,8 @@ def test_step_matches_jax_make_multi_scene_step(mode):
     updated parameters against the optax chain (JAX's make_optimizer) on
     the port's gradients, with a clip that fires for some scenes."""
     extra = {"coarse_only": dict(N_importance=0),
-             "occupancy_one_shot": dict(OCC, occ_one_shot=True)}.get(mode, {})
+             "occupancy_one_shot": dict(OCC, occ_one_shot=True),
+             "occupancy_hierarchical": OCC}.get(mode, {})
     jcfg, rc = _configs(perturb=False, raw_noise_std=0.0, **extra)
     jstate = jms.create_multi_scene_state(S, jcfg, JaxTrainConfig())
     start = jax.tree.map(np.asarray, jstate.params)
@@ -156,8 +207,23 @@ def test_step_matches_jax_make_multi_scene_step(mode):
                      jnp.asarray(BOUNDS))
 
     state = _stack_state(start, rc, tc)
+    if mode == "occupancy_hierarchical":
+        trace = _jax_render_trace(jcfg, start, jgrids, batch, monkeypatch)
+        fed = [np.concatenate([[c for c in trace[s] if c[0] == "pdf"][k][2]
+                               for s in range(S)]) for k in range(2)]
+        port_pdf = render_mod.sample_pdf
+
+        def jax_depths(*args, **kwargs):
+            mine, want = port_pdf(*args, **kwargs), fed.pop(0)
+            assert mine.shape == want.shape
+            np.testing.assert_allclose(mine.numpy(), want, atol=1e-3)
+            return torch.from_numpy(want)
+
+        monkeypatch.setattr(render_mod, "sample_pdf", jax_depths)
     step = ms.make_multi_scene_step(rc, tc, with_bounds=True)
     m = step(state, torch.from_numpy(batch), *grids, torch.from_numpy(BOUNDS))
+    if mode == "occupancy_hierarchical":
+        assert fed == []   # both draws took JAX's depths
     assert state.step == 1
     for key in ("loss", "psnr", "grad_norm"):
         assert m[key].shape == (S,)
@@ -168,8 +234,13 @@ def test_step_matches_jax_make_multi_scene_step(mode):
     np.testing.assert_allclose(m["psnr"].numpy(), np.asarray(jm["psnr"]),
                                atol=1e-2)
     # grad_norm: the norm of gradients that agree per leaf at the bars below.
-    np.testing.assert_allclose(m["grad_norm"].numpy(),
-                               np.asarray(jm["grad_norm"]), rtol=5e-2)
+    # The fed depths are JAX's eager draws; its jitted step draws its own
+    # (JAX's jit and eager occupancy renders differ), so that case holds
+    # the norms of the eager gradients.
+    want_gn = np.asarray(jm["grad_norm"])
+    if mode == "occupancy_hierarchical":
+        want_gn = np.asarray([float(optax.global_norm(g)) for _, g in jaxs])
+    np.testing.assert_allclose(m["grad_norm"].numpy(), want_gn, rtol=5e-2)
     gn = m["grad_norm"].numpy()
     assert (gn > tc.grad_clip).any() and (gn < tc.grad_clip).any(), gn
 
@@ -204,6 +275,84 @@ def test_step_matches_jax_make_multi_scene_step(mode):
                                            np.asarray(leaf[part]), rtol=1e-6,
                                            atol=1e-7,
                                            err_msg=f"{s} {name}.{part}")
+
+
+def test_hierarchical_departure_is_the_cdf_sum_order():
+    """Where hierarchical occupancy's depths depart from JAX's on this
+    fixture (single-scene renders, deterministic): the grid's sampling
+    prior and the first draw's inputs are bit-equal, so the grid lookup, the
+    bounds and the dense depths are JAX's. The port's CDF lies a few ulps
+    from XLA's (another summation order of the normalising sum and the
+    cumsum), and the port's inversion of JAX's CDF gives JAX's depths bit
+    for bit, for the probes and for the refinement draw. The own depths
+    depart only where u falls in a bin holding almost no mass (a cell the
+    grid left empty, or the empty last bin at u = 1), where the inversion
+    divides by that mass."""
+    jcfg, rc = _configs(perturb=False, raw_noise_std=0.0, **OCC)
+    jstate = jms.create_multi_scene_state(S, jcfg, JaxTrainConfig())
+    start = jax.tree.map(np.asarray, jstate.params)
+    batch = _batches(seed=3)
+    jgrids = _jax_grids(jstate, jcfg)
+    trace = _jax_render_trace(jcfg, start, jgrids, batch,
+                              pytest.MonkeyPatch())
+    departed = 0
+    for s in range(S):
+        grid = occ.OccupancyGrid(torch.from_numpy(
+            np.asarray(jgrids.density[s]).copy()))
+        b = torch.from_numpy(batch[s])
+        near, far = torch.from_numpy(BOUNDS[s])
+        ports = []
+        with pytest.MonkeyPatch.context() as m:
+            port_pdf = render_mod.sample_pdf
+
+            def recorded(*args, **kwargs):
+                out = port_pdf(*args, **kwargs)
+                ports.append(args)
+                return out
+
+            m.setattr(render_mod, "sample_pdf", recorded)
+            with torch.no_grad():
+                render_mod.render_rays(
+                    {"coarse": model_from_params(
+                        _scene(start, s)["coarse"], rc.model_config(),
+                        device="cpu")},
+                    b[:, :3], b[:, 3:6], None, rc, near=near, far=far,
+                    occ_grid=grid)
+        prior = [c for c in trace[s] if c[0] == "prior"][0][2]
+        draws = [c for c in trace[s] if c[0] == "pdf"]
+        assert len(draws) == len(ports) == 2
+        (_, (_, bins0, w0, _), _), args0 = draws[0], ports[0]
+        np.testing.assert_array_equal(args0[1].numpy(), np.asarray(bins0))
+        np.testing.assert_array_equal(args0[2].numpy(), np.asarray(w0))
+        np.testing.assert_array_equal(
+            occ.occupancy_weights(grid, b[:, :3], b[:, 3:6], args0[1], rc,
+                                  rc.occ_threshold).numpy(), prior)
+        for _, (_, bins, w, n), want in draws:
+            bins, w = np.array(bins), np.array(w)
+            cdf = _jax_cdf(w)
+            wt = torch.from_numpy(w) + 1e-5
+            port_cdf = torch.cumsum(wt / wt.sum(-1, keepdim=True), -1)
+            assert np.abs(port_cdf.numpy() - cdf[:, 1:]).max() < 1e-6
+            u = torch.from_numpy(np.array(jnp.linspace(0.0, 1.0, n)))
+            u = u.expand(cdf.shape[0], n)
+            np.testing.assert_array_equal(
+                _invert_cdf(torch.from_numpy(bins), torch.from_numpy(cdf),
+                            u).numpy(), want)
+            # The port's own draw from JAX's inputs: the mass of the bin
+            # each u falls in (JAX's CDF), and the departure there.
+            own = render_mod.sample_pdf(None, torch.from_numpy(bins),
+                                        torch.from_numpy(w), n,
+                                        det=True).numpy()
+            idx = np.stack([np.searchsorted(c, uu, side="right")
+                            for c, uu in zip(cdf, u.numpy())])
+            m_ = cdf.shape[-1]
+            mass = (np.take_along_axis(cdf, np.minimum(idx, m_ - 1), -1)
+                    - np.take_along_axis(cdf, np.maximum(idx - 1, 0), -1))
+            gap = np.abs(own - want)
+            assert gap[mass > 1e-2].max() < 1e-5
+            assert (mass[gap > 1e-5] < 2e-3).all()
+            departed += int((gap > 1e-5).sum())
+    assert departed > 0
 
 
 def _solo_state(rc, tc, s):

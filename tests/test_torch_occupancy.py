@@ -39,6 +39,17 @@ KW = dict(depth=3, width=32, N_samples=8, N_importance=8, near=2.0, far=6.0,
           occ_grid_size=12, occ_dense_samples=32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """One intra-op thread for this module's tests and fixtures (restored
+    after), so that parallel test workers do not oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))
 

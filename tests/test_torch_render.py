@@ -37,6 +37,17 @@ ARCH = dict(depth=6, width=64, N_samples=16, N_importance=8, perturb=False,
             raw_noise_std=0.0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """One intra-op thread for this module's tests and fixtures (restored
+    after), so that parallel test workers do not oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))
 

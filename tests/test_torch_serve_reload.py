@@ -211,21 +211,35 @@ def test_latest_params_checkpoint_rules(tmp_path):
     (tmp_path / "metrics_latest.pt").write_bytes(b"x")
     assert latest_params_checkpoint(str(tmp_path)).endswith(
         "metrics_latest.pt")
-    # Stepped files win, by step; stepless ones, the JAX package's .ckpt
-    # names and files still being written never match.
+    # The JAX Trainer's whole state too; the newer of the two.
+    (tmp_path / "metrics_latest.ckpt").write_bytes(b"x")
+    os.utime(tmp_path / "metrics_latest.pt", (1e9, 1e9))
+    assert latest_params_checkpoint(str(tmp_path)).endswith(
+        "metrics_latest.ckpt")
+    # Stepped files win, by step, the JAX package's .ckpt names among the
+    # port's; stepless ones and files still being written never match.
     for name in ("model_best.pt", "model_final.pt", "model_1000.pt",
-                 "model_2000_latest.pt", "model_9000.ckpt",
-                 "model_5000.pt.tmp", "model_3000_latest.pt.tmp"):
+                 "model_2000_latest.pt", "model_best.ckpt",
+                 "model_final.ckpt", "model_1500.ckpt",
+                 "model_5000.pt.tmp", "model_3000_latest.pt.tmp",
+                 "model_4000.ckpt.tmp"):
         (tmp_path / name).write_bytes(b"x")
     assert latest_params_checkpoint(str(tmp_path)).endswith(
         "model_2000_latest.pt")
-    # The same step twice: the newer file.
+    # The same step twice: the newer file, whichever its format.
     (tmp_path / "model_2000.pt").write_bytes(b"x")
     os.utime(tmp_path / "model_2000.pt", (1e9, 1e9))
     assert latest_params_checkpoint(str(tmp_path)).endswith(
         "model_2000_latest.pt")
     os.utime(tmp_path / "model_2000.pt", (4e9, 4e9))
     assert latest_params_checkpoint(str(tmp_path)).endswith("model_2000.pt")
+    (tmp_path / "model_2000_latest.ckpt").write_bytes(b"x")
+    os.utime(tmp_path / "model_2000_latest.ckpt", (5e9, 5e9))
+    assert latest_params_checkpoint(str(tmp_path)).endswith(
+        "model_2000_latest.ckpt")
+    (tmp_path / "model_9000.ckpt").write_bytes(b"x")
+    assert latest_params_checkpoint(str(tmp_path)).endswith(
+        "model_9000.ckpt")
 
 
 def test_reload_picks_the_newest_checkpoint(tmp_path):

@@ -31,6 +31,17 @@ N_RAYS = 32
 ARCH = dict(depth=6, width=64)   # depth 6: the skip before layer 5 exists
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """One intra-op thread for this module's tests and fixtures (restored
+    after), so that parallel test workers do not oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _setup(n_importance=16, seed=5, **cfg):
     """Shared weights (JAX init), a ray batch and both packages' configs."""
     kw = dict(N_samples=32, N_importance=n_importance, near=2.0, far=6.0,

@@ -25,6 +25,17 @@ TC = TrainConfig(batch_size=128, iters=24, quick_val_interval=12,
                  ckpt_interval=12, seed=1, lr=5e-3)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """One intra-op thread for this module's tests and fixtures (restored
+    after), so that parallel test workers do not oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def scene(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("scene"))
@@ -146,8 +157,15 @@ def test_checkpoint_names_and_formats(tmp_path):
         (tmp_path / name).write_bytes(b"")
     assert ckpt.latest_checkpoint(str(tmp_path)).endswith("model_20.pt")
     assert ckpt.latest_checkpoint(str(tmp_path / "none")) is None
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # The JAX package's .ckpt names carry their step too; the files are
+    # read (tests/test_torch_ckpt.py), and one that does not decode raises
+    # by name.
+    assert ckpt.step_from_filename("model_5_latest.ckpt") == 5
+    with pytest.raises(FileNotFoundError):
         ckpt.load_checkpoint(str(tmp_path / "model_5.ckpt"))
+    (tmp_path / "model_6.ckpt").write_bytes(b"")
+    with pytest.raises(ckpt.CheckpointCorruptError, match="truncated"):
+        ckpt.load_checkpoint(str(tmp_path / "model_6.ckpt"))
 
 
 def test_trained_params_load_for_serving(scene, tmp_path):
