@@ -161,11 +161,31 @@ Phases, each fatal on failure:
      mean loss below phase 5's last 50 steps', 2 launches of each kernel
      a step; the forward at the served tile and the four kernels at the
      resumed fine call, held on the weights read back, timed.
+ 13. data parallelism ("parallel"): phase 5's flagship recipe on two gloo
+     ranks sharing the card (512 of the 1,024 rays a step each), spawned
+     by parallel/mesh.py::launch: the first step's averaged gradient held
+     against one process's on the same rays (KERNEL_TOL), 100 steps
+     through the Trainer (held-out PSNR within 0.5 dB of the one-process
+     run's, the ranks' parameters bit-equal, 2 launches of each kernel a
+     step on each rank, rank 0 alone writing files), each rank's step
+     time, idle share and the gradient all-reduce timed; one NCCL rank at
+     K = 1 and K = 16 (the all-reduce captured in the CUDA graph; the
+     parameters bit-equal after 100 steps), timed beside the in-process
+     Trainer; NCCL over every card where there is more than one (the
+     count printed either way); a 400x400 frame through
+     render_image_sharded over [cuda:0, cuda:0], dense and with a grid,
+     bit-equal to the local renderer's; a frame served by the serve CLI
+     with sharding on (the default) bit-equal to --no_shard_render's, and
+     RenderService over [cuda:0, cuda:0] at the serving bars; the train
+     CLI with --n_devices 1 in this process (with one visible card also
+     bit-equal to the run without the flag); the four kernels at a rank's
+     shapes (32,768 coarse and 65,536 fine points), held and timed.
 Then it prints the kernels' JSON line, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Weights are random, from a seed.
 It exits non-zero, printing no result, without a CUDA device.
 ``--only multi_scene`` runs the build, phase 5 and phase 11 alone;
-``--only interchange`` the build, phases 5 and 6 and phase 12.
+``--only interchange`` the build, phases 5 and 6 and phase 12;
+``--only parallel`` the build, phase 5 and phase 13.
 """
 
 import contextlib
@@ -1930,7 +1950,11 @@ def step_timing(trainer, w, graph):
     """``w`` steps of a trained Trainer: windows of replays (``graph``) or
     eager steps. Returns the synchronised ms per step over four windows,
     and one profiled window's wall and busy ms, idle share and the four
-    kernels' launches per step, counted from the trace."""
+    kernels' launches per step, counted from the trace. A collective's
+    kernels (NCCL's, under data parallelism) spin while they wait for the
+    other ranks, and other kernels may run beside them: their time is kept
+    apart (``comm``), and the idle share is of the time no other kernel
+    runs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1957,9 +1981,11 @@ def step_timing(trainer, w, graph):
         window()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    busy = sum(ms for _, ms in device_rows(prof))
+    rows = device_rows(prof)
+    comm = sum(ms for name, ms in rows if "nccl" in name.lower())
+    busy = sum(ms for _, ms in rows) - comm
     per_step = tuple(n / w for n, _ in kernel_trace(prof))
-    return {"ms": ms, "wall": wall, "busy": busy,
+    return {"ms": ms, "wall": wall, "busy": busy, "comm": comm,
             "idle": 100 * (1 - busy / wall), "per_step": per_step}
 
 
@@ -3614,6 +3640,377 @@ def save_turbo(occ_run):
     return path
 
 
+# --------------------------------------------------------------------- #
+# Phase 13: data parallelism ("parallel")
+# --------------------------------------------------------------------- #
+PAR_RANKS = 2             # gloo ranks on the one card
+PAR_RAYS = TRAIN_RAYS // PAR_RANKS   # each rank's rays of a step
+PAR_STEPS = 100           # the Trainer runs held against each other
+PAR_PSNR_GAP = 0.5        # held-out PSNR, 2 ranks vs 1, dB
+PAR_WINDOW = 16           # steps of a timed and of a profiled window
+PAR_CLI_STEPS = 50        # the train CLI's steps at --n_devices 1
+PAR_TIMEOUT_S = 300       # a collective waiting longer fails the phase
+
+
+def par_configs(near, far, k=1):
+    """Phase 5's flagship recipe, PAR_STEPS steps, K = ``k``."""
+    rc, tc = train_configs(near, far)
+    return rc, dataclasses.replace(tc, iters=PAR_STEPS, log_interval=0,
+                                   steps_per_dispatch=k)
+
+
+def par_timing(mesh, rc, tc, scene):
+    """A fresh Trainer (of ``mesh``'s rank, or this process's) timed at
+    its K: phase 9's step_timing over windows of PAR_WINDOW steps (ms per
+    step synchronised, a profiled window's idle share), and the median
+    time of one all-reduce (mean) of the step's flat gradient buffer
+    (every parameter and the two losses, fp32). Returns this rank's
+    numbers, or every rank's (rows in rank order) under a mesh."""
+    import torch
+
+    from nerfmlp_torch.data.blender import BlenderDataset
+    from nerfmlp_torch.parallel.mesh import all_gather_rows, all_reduce_mean_
+    from nerfmlp_torch.train.loop import Trainer
+
+    from torch.profiler import ProfilerActivity, profile
+
+    ds = BlenderDataset(scene, "train", img_wh=(TRAIN_WH, TRAIN_WH))
+    tr = Trainer(rc, tc, ds, save_dir=os.path.join(SMOKE_DIR, "parallel",
+                                                   "timing"),
+                 verbose=False, device="cuda" if mesh is None else None,
+                 mesh=mesh)
+    tr.pool.ensure_epoch(0)
+    # A spawned rank's first profile starts the tracer (seconds): not in
+    # the profiled window.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        tr.step_fn(tr.state, tr.pool.batch(tr.state.step))
+        torch.cuda.synchronize()
+    t = step_timing(tr, PAR_WINDOW, graph=tr.windows is not None)
+    n = sum(p.numel() for p in tr.state.optimizer.params) + 2
+    ar = None
+    if mesh is not None:
+        buf = torch.zeros(n, device=mesh.device)
+        times = []
+        for i in range(23):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce_mean_(buf, mesh)
+            torch.cuda.synchronize()
+            if i >= 3:
+                times.append(1e3 * (time.perf_counter() - t0))
+        ar = statistics.median(times)
+    row = torch.tensor([[t["ms"], t["idle"], t["wall"], t["busy"],
+                         t["comm"], -1.0 if ar is None else ar, float(n)]],
+                       dtype=torch.float64, device=tr.device)
+    if mesh is not None:
+        row = all_gather_rows(row, mesh)
+    cols = ("ms", "idle", "wall", "busy", "comm", "allreduce_ms", "floats")
+    return [dict(zip(cols, r)) for r in row.cpu().tolist()], t["per_step"]
+
+
+def par_rank(mesh, rc, tc, scene, save_dir, batch):
+    """One gloo rank of phase 13: the first step on a global batch (its
+    averaged gradient), PAR_STEPS steps through the Trainer, the timing."""
+    from nerfmlp_torch.parallel import checks
+
+    first = checks.dp_steps(mesh, rc, tc, [batch])
+    run = checks.dp_trainer(mesh, rc, tc, scene, (TRAIN_WH, TRAIN_WH),
+                            save_dir)
+    timing = par_timing(mesh, rc, tc, scene)
+    return {"first": {k: first[k] for k in ("grads0", "loss",
+                                            "ranks_bit_equal")},
+            "run": run, "timing": timing}
+
+
+def par_cards_rank(mesh, rc, tc, scene, save_dir, batch):
+    """One NCCL rank of phase 13 over every card: par_rank's checks, then
+    the timing at K = GRAPH_K too."""
+    out = par_rank(mesh, rc, tc, scene, save_dir, batch)
+    out["timing_graph"] = par_timing(
+        mesh, rc, dataclasses.replace(tc, steps_per_dispatch=GRAPH_K), scene)
+    return out
+
+
+def par_nccl_rank(mesh, rc, tc, scene, root):
+    """The NCCL rank of phase 13: the Trainer at K = 1 and at K = GRAPH_K
+    (the all-reduce captured in the CUDA graph), each timed."""
+    from nerfmlp_torch.parallel import checks
+
+    out = {}
+    for k in (1, GRAPH_K):
+        tck = dataclasses.replace(tc, steps_per_dispatch=k)
+        out[k] = {"run": checks.dp_trainer(
+            mesh, rc, tck, scene, (TRAIN_WH, TRAIN_WH),
+            os.path.join(root, f"nccl_k{k}")),
+                  "timing": par_timing(mesh, rc, tck, scene)}
+    return out
+
+
+def par_grad_err(got, want):
+    return float(abs(got - want).max() / max(abs(want).max(), 1e-30))
+
+
+def phase_parallel(train_run, card):
+    """Data parallelism (the module docstring, phase 13). Returns the
+    records of path parallel."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from nerfmlp_torch.data.pipeline import RayBatchLoader
+    from nerfmlp_torch.ops import fused_mlp
+    from nerfmlp_torch.ops.rays import pose_spherical
+    from nerfmlp_torch.ops.render import prepare_params, render_image_maps
+    from nerfmlp_torch.parallel import checks
+    from nerfmlp_torch.parallel.mesh import launch
+    from nerfmlp_torch.parallel.render_parallel import render_image_sharded
+    from nerfmlp_torch.render_path import rays_for_pose_device
+    from nerfmlp_torch.serve import RenderService
+    from nerfmlp_torch.train.checkpoint import load_params_any, save_params
+
+    t0 = time.perf_counter()
+    root = os.path.join(SMOKE_DIR, "parallel")
+    shutil.rmtree(root, ignore_errors=True)     # no auto-resume of a rerun
+    os.makedirs(root)
+    scene = os.path.join(SMOKE_DIR, "scene")
+    trainer = train_run["trainer"]
+    rc, tc = par_configs(trainer.rc.near, trainer.rc.far)
+    batch = RayBatchLoader.from_dataset(trainer.train_ds, TRAIN_RAYS,
+                                        seed=SEED).next_batch()
+    n_dev = torch.cuda.device_count()
+    print(f"[parallel] visible cards: {n_dev}")
+
+    # -- two gloo ranks on the one card, against one process -----------
+    one_first = checks.dp_steps(None, rc, tc, [batch], device="cuda")
+    one = checks.dp_trainer(None, rc, tc, scene, (TRAIN_WH, TRAIN_WH),
+                            os.path.join(root, "one"), device="cuda")
+    t1 = time.perf_counter()
+    two = launch(par_rank, PAR_RANKS,
+                 args=(rc, tc, scene, os.path.join(root, "two"), batch),
+                 device="cuda", backend="gloo", timeout_s=PAR_TIMEOUT_S)
+    t_two = time.perf_counter() - t1
+    gerr = par_grad_err(two["first"]["grads0"], one_first["grads0"])
+    run = two["run"]
+    psnr1, psnr2 = one["after"]["psnr"], run["after"]["psnr"]
+    want = [2 * PAR_STEPS] * 4
+    print(f"[parallel] {PAR_RANKS} gloo ranks on {min(PAR_RANKS, n_dev)} "
+          f"card(s), {PAR_RAYS} rays "
+          f"a rank of a {TRAIN_RAYS}-ray batch: the first step's averaged "
+          f"gradient vs one rank's on the same rays, max|diff| / max|g| "
+          f"{gerr:.3e} (bar {KERNEL_TOL}); its loss "
+          f"{two['first']['loss'][0]:.6f} vs {one_first['loss'][0]:.6f}")
+    print(f"[parallel] {PAR_STEPS} steps through the Trainer: held-out PSNR "
+          f"{psnr2:.2f} dB on {PAR_RANKS} ranks vs {psnr1:.2f} dB on one "
+          f"(gap bar {PAR_PSNR_GAP}); parameters bit-equal across ranks "
+          f"{run['ranks_bit_equal'] and two['first']['ranks_bit_equal']}; "
+          f"launches in the steps per rank {run['step_launches']} (want "
+          f"{want}); files written per rank {run['writes']}; spawn + run "
+          f"{t_two:.1f} s")
+    if not (gerr <= KERNEL_TOL and abs(psnr2 - psnr1) <= PAR_PSNR_GAP
+            and np.isfinite(psnr2) and run["ranks_bit_equal"]
+            and two["first"]["ranks_bit_equal"]
+            and all(r == want for r in run["step_launches"])
+            and run["writes"][0] > 0 and not any(run["writes"][1:])):
+        raise SystemExit("[parallel] the gloo ranks failed their checks")
+    for rank, t in enumerate(two["timing"][0]):
+        print(f"[parallel] gloo rank {rank}: {t['ms']:.2f} ms per step "
+              f"synchronised ({PAR_RAYS / t['ms'] * 1e3:.0f} rays/s a rank); "
+              f"a profiled window of {PAR_WINDOW} steps: wall {t['wall']:.2f}"
+              f" ms, device busy {t['busy']:.2f} ms, idle {t['idle']:.1f}%; "
+              f"all-reduce (through the host) of the {int(t['floats'])}-float "
+              f"gradient buffer "
+              f"({4 * t['floats'] / 1e6:.2f} MB) {t['allreduce_ms']:.3f} ms "
+              f"[{card}]")
+
+    # -- one NCCL rank at K = 1 and K = GRAPH_K, beside one process -----
+    t1 = time.perf_counter()
+    nccl = launch(par_nccl_rank, 1, args=(rc, tc, scene, root),
+                  device="cuda", backend="nccl", timeout_s=PAR_TIMEOUT_S)
+    t_nccl = time.perf_counter() - t1
+    same = np.array_equal(nccl[1]["run"]["params"],
+                          nccl[GRAPH_K]["run"]["params"])
+    local = {k: par_timing(None, *par_configs(trainer.rc.near,
+                                              trainer.rc.far, k), scene)
+             for k in (1, GRAPH_K)}
+    for k in (1, GRAPH_K):
+        t, t_in = nccl[k]["timing"][0][0], local[k][0][0]
+        print(f"[parallel] one NCCL rank, K = {k}: {t['ms']:.2f} ms per step"
+              f" synchronised, idle {t['idle']:.1f}%, NCCL kernels "
+              f"{t['comm']:.2f} ms a window (all-reduce "
+              f"{t['allreduce_ms']:.3f} ms); the in-process Trainer "
+              f"{t_in['ms']:.2f} ms, idle {t_in['idle']:.1f}%; launches per "
+              f"replayed step {nccl[k]['timing'][1]} [{card}]")
+    print(f"[parallel] NCCL rank: K = {GRAPH_K} parameters bit-equal to K = "
+          f"1's after {PAR_STEPS} steps {same}; held-out PSNR "
+          f"{nccl[1]['run']['after']['psnr']:.2f} / "
+          f"{nccl[GRAPH_K]['run']['after']['psnr']:.2f} dB; {t_nccl:.1f} s")
+    if not (same and nccl[1]["run"]["step_launches"][0] == want
+            and np.isfinite(nccl[1]["run"]["after"]["psnr"])):
+        raise SystemExit("[parallel] the NCCL rank failed its checks")
+
+    # -- NCCL over every card, where there is more than one ------------
+    if n_dev > 1:
+        multi = launch(par_cards_rank, n_dev,
+                       args=(rc, tc, scene, os.path.join(root, "cards"),
+                             batch),
+                       device="cuda", backend="nccl",
+                       timeout_s=PAR_TIMEOUT_S)
+        merr = par_grad_err(multi["first"]["grads0"], one_first["grads0"])
+        mrun = multi["run"]
+        print(f"[parallel] NCCL over {n_dev} cards, {TRAIN_RAYS // n_dev} "
+              f"rays a card: the first step's averaged gradient vs one "
+              f"rank's {merr:.3e}; {PAR_STEPS} steps: held-out PSNR "
+              f"{mrun['after']['psnr']:.2f} dB vs {psnr1:.2f}; parameters "
+              f"bit-equal across ranks {mrun['ranks_bit_equal']}; launches "
+              f"in the steps per rank {mrun['step_launches']}")
+        for k, (rows, _) in ((1, multi["timing"]),
+                             (GRAPH_K, multi["timing_graph"])):
+            for rank, t in enumerate(rows):
+                rate = TRAIN_RAYS / t["ms"] * 1e3
+                print(f"[parallel] NCCL card {rank}, K = {k}: {t['ms']:.2f} "
+                      f"ms per step synchronised ({rate:.0f} rays/s over the "
+                      f"{n_dev} cards); a profiled window of "
+                      f"{PAR_WINDOW} steps: wall {t['wall']:.2f} ms, compute "
+                      f"busy {t['busy']:.2f} ms, NCCL kernels {t['comm']:.2f}"
+                      f" ms, idle {t['idle']:.1f}%; all-reduce of the "
+                      f"{4 * t['floats'] / 1e6:.2f} MB buffer "
+                      f"{t['allreduce_ms']:.3f} ms [{card}]")
+        if not (merr <= KERNEL_TOL and mrun["ranks_bit_equal"]
+                and multi["first"]["ranks_bit_equal"]
+                and abs(mrun["after"]["psnr"] - psnr1) <= PAR_PSNR_GAP
+                and all(r == want for r in mrun["step_launches"])):
+            raise SystemExit("[parallel] NCCL over the cards failed")
+    else:
+        print("[parallel] NCCL over every card: one visible card, not run "
+              "(NCCL refuses two ranks on one GPU)")
+
+    # -- a 400x400 frame over [cuda:0, cuda:0], dense and occupancy -----
+    nets = {"coarse": trainer.state.params["coarse"]}
+    cfg = slice_config()
+    occ_cfg = dataclasses.replace(cfg, use_occupancy=True, aabb=OCC_AABB,
+                                  N_samples=OCC_PROBE,
+                                  N_importance=OCC_REFINE,
+                                  occ_dense_samples=OCC_DENSE,
+                                  occ_grid_size=OCC_GRID)
+    from nerfmlp_torch.serve import grid_from_weights
+
+    for tag, c, tile in (("dense", cfg, TILE), ("occupancy", occ_cfg,
+                                                OCC_TILE)):
+        params = prepare_params(nets, c)
+        grid = grid_from_weights(params, c) if c.use_occupancy else None
+        o, d, vd = rays_for_pose_device(pose_spherical(*SERVE_POSE), H, W,
+                                        FOCAL, c, device="cuda")
+        with torch.no_grad():
+            want_f = render_image_maps(params, o, d, H, W, c, tile=tile,
+                                       occ_grid=grid, viewdirs=vd)["rgb_map"]
+            fused_mlp.fused_nerf_mlp.launches = 0
+            got_f = render_image_sharded(params, o, d, H, W, c,
+                                         ["cuda:0", "cuda:0"], tile=tile,
+                                         occ_grid=grid,
+                                         viewdirs=vd)["rgb_map"]
+            launches = fused_mlp.fused_nerf_mlp.launches
+        eq = torch.equal(got_f, want_f)
+        print(f"[parallel] {W}x{H} {tag} frame over [cuda:0, cuda:0] "
+              f"({tile} rays a device a tile): bit-equal to the local "
+              f"renderer's {eq}, {launches} forward launches")
+        if not (eq and launches > 0):
+            raise SystemExit(f"[parallel] the sharded {tag} frame differs")
+
+    # -- one served frame with sharding on (the default) -----------------
+    ckpt = os.path.join(root, "flagship.pt")
+    save_params(ckpt, nets)
+    flags = ["--focal", str(FOCAL), "--img_wh", str(W), str(H)]
+    frame_on, l_on = serve_frame(flags, ckpt)
+    frame_off, l_off = serve_frame(flags + ["--no_shard_render"], ckpt)
+    svc_args = dict(H=H, W=W, focal=FOCAL, device="cuda",
+                    log=lambda *a: None)
+    loaded = load_params_any(ckpt, cfg.model_config(), device="cuda")
+    svc2 = RenderService(loaded, cfg, devices=["cuda:0", "cuda:0"],
+                         **svc_args)
+    pose = pose_spherical(*SERVE_POSE)
+    f2 = svc2.render_pose(pose)["rgb_map"]
+    e2 = np.abs(f2 - frame_off)
+    print(f"[parallel] served frame, serve CLI with sharding on ({n_dev} "
+          f"card(s); one: the local renderer) bit-equal to "
+          f"--no_shard_render's "
+          f"{np.array_equal(frame_on, frame_off)} ({l_on} / {l_off} forward "
+          f"launches); RenderService over [cuda:0, cuda:0] ({TILE // 2} "
+          f"rays a device a tile) vs it: max|err| {e2.max():.3e}, p99.9 "
+          f"{np.percentile(e2, 99.9):.3e}, bit-equal "
+          f"{np.array_equal(f2, frame_off)}")
+    if not (np.array_equal(frame_on, frame_off) and l_on > 0 and l_off > 0
+            and np.percentile(e2, 99.9) <= FRAME_TOL
+            and e2.max() <= FRAME_MAX):
+        raise SystemExit("[parallel] the served frames differ")
+
+    # -- the train CLI with --n_devices 1: in this process, as before ---
+    argv = ["--datadir", scene, "--img_wh", str(TRAIN_WH), str(TRAIN_WH),
+            "--white_bkgd", "--N_samples", str(cfg.N_samples),
+            "--N_importance", str(cfg.N_importance), "--batch_size",
+            str(TRAIN_RAYS), "--iters", str(PAR_CLI_STEPS),
+            "--quick_val_interval", str(PAR_CLI_STEPS), "--quick_val_res",
+            str(TRAIN_WH), str(TRAIN_WH), "--quick_val_subset", "1",
+            "--full_val_interval", "0", "--i_weights", "0"]
+    cli = {}
+    # With one visible card the default (every card) is one rank too; with
+    # more it spawns ranks, which the NCCL branch above covers.
+    runs = [("n1", ["--n_devices", "1"])] + ([("default", [])]
+                                             if n_dev == 1 else [])
+    for name, extra in runs:
+        _, launches, step_fwd, _, tr = train_cli_run(
+            f"parallel cli {name}",
+            argv + extra + ["--save_dir", os.path.join(root, "cli_" + name)],
+            PAR_CLI_STEPS)
+        cli[name] = ([p.detach().clone() for p in
+                      tr.state.optimizer.params], step_fwd, launches)
+    same_cli = all(torch.equal(a, b) for a, b in zip(
+        cli["n1"][0], cli.get("default", cli["n1"])[0]))
+    print(f"[parallel] train CLI --n_devices 1: in this process (process "
+          f"group started: {dist.is_initialized()}), parameters bit-equal "
+          f"to the run without the flag {same_cli}"
+          + ("" if n_dev == 1 else " (not run: it spawns a rank a card)")
+          + f", step launches {cli['n1'][1]} (want {2 * PAR_CLI_STEPS})")
+    if not (same_cli and not dist.is_initialized()
+            and cli["n1"][1] == 2 * PAR_CLI_STEPS):
+        raise SystemExit("[parallel] --n_devices 1 changed the CLI's run")
+
+    # -- the kernels at a rank's shapes -----------------------------------
+    net = nets["coarse"]
+    recs = []
+    fwd = [check_kernel(net, cfg, *serving_points(n, cfg, n_rays=PAR_RAYS),
+                        f"parallel rank {what} call", time_it=True)
+           for what, n in (("fine", cfg.N_importance),
+                           ("coarse", cfg.N_samples))]
+    _, phases = check_backward(net, cfg, *serving_points(
+        cfg.N_importance, cfg, n_rays=PAR_RAYS), "parallel rank fine call",
+        time_it=True)
+    launches = run["step_launches"][0]
+    base = {"path": "parallel", "route": "cuda"}
+    r = fwd[0]
+    recs.append({**base, "name": "fused_mlp_fwd_parallel",
+                 "source": "nerfmlp_torch/csrc/fused_mlp_fwd.cu",
+                 "replaces": "nerfmlp_tpu/ops/pallas_mlp.py:264",
+                 "launches": launches[0],
+                 "max_abs_err": max(x["max_abs_err"] for x in fwd),
+                 "ms": r["ms"], "plain_ms": r["plain_ms"],
+                 "module_ms": r["module_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"], "library_ms": None})
+    for key, name, replaces, i in (
+            ("phase1", "fused_mlp_bwd_phase1", "pallas_mlp.py:312", 1),
+            ("phase2", "fused_mlp_bwd_phase2", "pallas_mlp.py:386", 2),
+            ("reduce", "fused_mlp_bwd_reduce", "pallas_mlp.py:327", 3)):
+        r = phases[key]
+        recs.append({**base, "name": name + "_parallel",
+                     "source": "nerfmlp_torch/csrc/fused_mlp_bwd.cu",
+                     "replaces": "nerfmlp_tpu/ops/" + replaces,
+                     "launches": launches[i], "max_abs_err": r["max_abs_err"],
+                     "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"]})
+    print(f"[parallel] phase took {time.perf_counter() - t0:.1f} s")
+    return recs
+
+
 def smi_line():
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -3649,6 +4046,14 @@ def main():
                                                        card)}))
         print(card)
         return 0
+    if sys.argv[1:] == ["--only", "parallel"]:
+        # Phase 13 alone, after the single-process run it starts from.
+        train_ds, val_ds = make_scene()
+        card = smi_line()
+        recs = phase_parallel(phase_train(train_ds, val_ds), card)
+        print(json.dumps({"kernels": recs}))
+        print(card)
+        return 0
     if sys.argv[1:] == ["--only", "multi_scene"]:
         # Phase 11 alone, after the single-scene run it is held against.
         train_ds, val_ds = make_scene()
@@ -3680,6 +4085,7 @@ def main():
     mesh_recs = phase_mesh(turbo_ckpt, card)
     ms_run = phase_multi_scene(train_run["val"]["psnr"], card)
     interchange_recs = phase_interchange(train_run, turbo_ckpt, card)
+    parallel_recs = phase_parallel(train_run, card)
 
     # The forward runs on both paths, at different shapes: one record per
     # path, each with that path's launches and its fine call's times, and
@@ -3848,6 +4254,9 @@ def main():
     # The JAX package's .ckpt files (phase 12): the served frame's forward
     # and the resumed steps' four kernels, held on the weights read back.
     kernels += interchange_recs
+    # Data parallelism (phase 13): each kernel at a rank's shapes, with
+    # the launches of a rank's steps.
+    kernels += parallel_recs
     for rec in bwds + [occ["bwd probe"], occ["bwd refine"], occ["bwd hi_lo"],
                        llff["bwd"]]:
         print(f"[backward] {rec['label']} call, all three kernels: "

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from nerfmlp_torch import resolve_device
+from nerfmlp_torch.parallel.mesh import shard_batch, shard_rows
 
 
 def epoch_seed(seed: int, epoch: int) -> int:
@@ -31,16 +32,21 @@ def epoch_seed(seed: int, epoch: int) -> int:
 
 class DeviceRayPool:
     """The (N, F) ray pool in device memory, re-shuffled into a
-    (steps_per_epoch, batch, F) stack once per epoch."""
+    (steps_per_epoch, batch, F) stack once per epoch. ``mesh``: a
+    data-parallel :class:`~nerfmlp_torch.parallel.mesh.Mesh`, whose rank
+    reads its rows of each batch (``batch_size`` is the global batch)."""
 
     def __init__(self, pool: np.ndarray, batch_size: int, seed: int = 0,
-                 device=None):
+                 device=None, mesh=None):
         n, _ = pool.shape
         if n < batch_size:
             raise ValueError(
                 f"ray pool ({n}) smaller than one batch ({batch_size}); "
                 "use the host loader's with-replacement fallback")
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            shard_rows(batch_size, mesh)   # refuses a batch that won't split
         self.batch_size = int(batch_size)
         self.steps_per_epoch = n // batch_size
         self.seed = int(seed)
@@ -75,13 +81,16 @@ class DeviceRayPool:
         return self.stack
 
     def batch(self, completed_steps: int) -> torch.Tensor:
-        """The batch of the step after ``completed_steps``."""
+        """The batch of the step after ``completed_steps`` (this rank's
+        rows of it under a mesh)."""
         stack = self.ensure_epoch(self.epoch_of(completed_steps))
-        return stack[completed_steps % self.steps_per_epoch]
+        return shard_batch(stack[completed_steps % self.steps_per_epoch],
+                           self.mesh)
 
     def batch_at(self, counter: torch.Tensor) -> torch.Tensor:
         """The batch of the step after ``counter`` updates, ``counter`` a
         () integer tensor on the device: picked there, from the stack of
-        the current epoch (the caller keeps it current)."""
+        the current epoch (the caller keeps it current); this rank's rows
+        of it under a mesh."""
         idx = torch.remainder(counter, self.steps_per_epoch).reshape(1)
-        return self.stack.index_select(0, idx)[0]
+        return shard_batch(self.stack.index_select(0, idx)[0], self.mesh)

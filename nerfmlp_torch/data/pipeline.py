@@ -5,7 +5,11 @@ seed gives the same batches in both packages): ``auto_tune_batch_size``
 and ``RayBatchLoader`` with its global and per-image modes and precrop.
 The JAX package's ``prefetch_to_device`` has no counterpart: the Trainer
 copies a host batch to the card itself, and by default draws batches from
-the device-resident pool (data/device_pool.py) instead.
+the device-resident pool (data/device_pool.py) instead. Under data
+parallelism every rank's loader, seeded alike, draws the same global
+batch, and the Trainer copies only the rank's rows of it
+(``parallel/mesh.py::shard_batch``), as the JAX Trainer shards each host
+batch (``nerfmlp_tpu/train/loop.py:686-692``).
 """
 
 from __future__ import annotations

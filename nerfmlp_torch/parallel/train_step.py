@@ -2,8 +2,9 @@
 
 Counterpart of ``nerfmlp_tpu/parallel/train_step.py:30-127``
 (``TrainState``, ``make_optimizer``, ``create_train_state``,
-``loss_and_metrics``, ``make_step_fn``), single device; and of that rule
-under ``jax.vmap`` over a scene axis (:func:`make_stack_step_body`, for
+``loss_and_metrics``, ``make_step_fn``), on one device or data-parallel
+over ranks (``mesh``, below); and of that rule under ``jax.vmap`` over a
+scene axis (:func:`make_stack_step_body`, for
 ``parallel/multi_scene.py``). The update is optax's, term by term:
 
   * Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8 outside the
@@ -34,6 +35,21 @@ a CUDA graph and replayed (``train/graph.py``, ``steps_per_dispatch``).
 Why a hand-written Adam and not ``torch.optim.Adam(capturable=True)``:
 the capturable mode refuses CPU tensors, and the CPU path has to run the
 very update that the graph replays.
+
+Data parallelism (``mesh``, a :class:`~nerfmlp_torch.parallel.mesh.Mesh`
+of N ranks; ``make_train_step(..., mesh=...)`` and ``make_pool_step``'s in
+``nerfmlp_tpu/parallel/train_step.py:248-323``): every rank holds the
+same nets and Adam state, and its step renders its B/N rays of the global
+batch of B. The stratified and noise draws are made at the global shape
+from the generator every rank holds in the same state, and each rank
+keeps its rows (:class:`~nerfmlp_torch.ops.RankDraws`), so the N ranks
+use what one device draws. After ``backward()`` the gradients and the two
+losses go into one flat fp32 buffer for one ``all_reduce`` (sum), divided
+by N: each rank's loss is the mean over its B/N rays, so this is the
+gradient of the mean over all B, up to the order of one sum. The global
+norm, the clip and Adam then see the global gradient, as in JAX, and
+every rank gets the same bits, so the parameters stay equal across ranks.
+PSNR is taken from the averaged loss; nothing is read back to the host.
 """
 
 from __future__ import annotations
@@ -46,6 +62,7 @@ import torch
 from nerfmlp_torch import resolve_device
 from nerfmlp_torch.config import RenderConfig, TrainConfig
 from nerfmlp_torch.models.mlp import NeRFMLP, init_model
+from nerfmlp_torch.ops import RankDraws
 from nerfmlp_torch.ops.fused_mlp import NetStack
 from nerfmlp_torch.ops.render import prepare_params, render_rays
 
@@ -223,8 +240,39 @@ def loss_and_metrics(params: Dict, batch: torch.Tensor,
     loss = loss_fine
     if tc.coarse_loss and "rgb_map_coarse" in out:
         loss = loss + torch.mean((out["rgb_map_coarse"] - target) ** 2)
-    psnr = -10.0 * torch.log10(torch.clamp(loss_fine.detach(), min=1e-10))
-    return loss, {"loss": loss_fine.detach(), "psnr": psnr}
+    return loss, {"loss": loss_fine.detach(), "psnr": psnr_of(loss_fine)}
+
+
+def psnr_of(mse: torch.Tensor) -> torch.Tensor:
+    """PSNR of an MSE (a tensor), floored at 1e-10 as JAX floors it."""
+    return -10.0 * torch.log10(torch.clamp(mse.detach(), min=1e-10))
+
+
+def _draws(generator, mesh):
+    """The step's generator(s), or under a mesh the rank's share of the
+    global draws (:class:`~nerfmlp_torch.ops.RankDraws`)."""
+    if mesh is None:
+        return generator
+    return RankDraws(generator, mesh.rank, mesh.world_size)
+
+
+def _all_reduce_mean(grads, extras, mesh):
+    """(grads, extras) averaged over the ranks of ``mesh`` by ONE
+    ``all_reduce`` of one flat fp32 buffer: the gradients (views of the
+    buffer come back, shaped like ``grads``) and the 0-d ``extras`` after
+    them. Without a mesh, both as they are."""
+    if mesh is None:
+        return grads, list(extras)
+    from nerfmlp_torch.parallel.mesh import all_reduce_mean_
+
+    flat = torch.cat([g.reshape(-1).float() for g in grads]
+                     + [e.reshape(1).float() for e in extras])
+    all_reduce_mean_(flat, mesh)
+    out, i = [], 0
+    for g in grads:
+        out.append(flat[i:i + g.numel()].view_as(g))
+        i += g.numel()
+    return out, list(flat[i:].unbind())
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -249,38 +297,48 @@ def _clip(grads, gnorm: torch.Tensor, tc: TrainConfig) -> None:
         torch._foreach_mul_(grads, scale)
 
 
-def make_step_body(rc: RenderConfig, tc: TrainConfig):
+def make_step_body(rc: RenderConfig, tc: TrainConfig, mesh=None):
     """The update rule on the device, ``body(state, batch[, occ_grid[,
     bounds]]) -> metrics``: one step in place on the state's nets, Adam and
     counter, the host's ``state.step`` left alone. ``bounds``: an optional
     [near, far] pair (a (2,) tensor) overriding the config's, as JAX's
     ``step_fn`` takes it. It reads no host value that changes between
     steps and reads nothing back, so it can be captured in a CUDA graph.
-    Metrics are device tensors: loss, psnr, grad_norm and total_loss."""
+    Metrics are device tensors: loss, psnr, grad_norm and total_loss.
+
+    ``mesh``: a data-parallel :class:`~nerfmlp_torch.parallel.mesh.Mesh`;
+    ``batch`` is then this rank's rows of the global batch
+    (``parallel/mesh.py::shard_batch``), and the gradients and losses are
+    averaged over the ranks before the clip (the module's docstring);
+    metrics are the global batch's."""
 
     def body(state: TrainState, batch: torch.Tensor, occ_grid=None,
              bounds=None) -> Dict[str, torch.Tensor]:
         opt = state.optimizer
         opt.zero_grad()
         params = prepare_params(state.params, rc, backward=True)  # once a step
-        loss, metrics = loss_and_metrics(params, batch, state.generator,
+        loss, metrics = loss_and_metrics(params, batch,
+                                         _draws(state.generator, mesh),
                                          rc, tc, occ_grid, bounds)
         loss.backward()
-        grads = _grads(opt.params)
+        grads, (fine, total) = _all_reduce_mean(
+            _grads(opt.params), (metrics["loss"], loss.detach()), mesh)
+        if mesh is not None:
+            metrics = {"loss": fine, "psnr": psnr_of(fine)}
         gnorm = global_norm(grads)
         _clip(grads, gnorm, tc)
         opt.step(grads, lr_tensor(tc, state.counter))
         state.counter.add_(1)
-        return dict(metrics, grad_norm=gnorm, total_loss=loss.detach())
+        return dict(metrics, grad_norm=gnorm, total_loss=total)
 
     return body
 
 
-def make_step_fn(rc: RenderConfig, tc: TrainConfig):
+def make_step_fn(rc: RenderConfig, tc: TrainConfig, mesh=None):
     """One eager step, ``step_fn(state, batch[, occ_grid[, bounds]]) ->
-    metrics``: :func:`make_step_body`'s update, then the host's step
-    count."""
-    body = make_step_body(rc, tc)
+    metrics``: :func:`make_step_body`'s update (over ``mesh``'s ranks,
+    where given), then the host's step count."""
+    body = make_step_body(rc, tc, mesh)
 
     def step_fn(state: TrainState, batch: torch.Tensor, occ_grid=None,
                 bounds=None) -> Dict[str, torch.Tensor]:
@@ -318,7 +376,7 @@ class StackState:
             self.counter.fill_(int(self.step))
 
 
-def make_stack_step_body(rc: RenderConfig, tc: TrainConfig):
+def make_stack_step_body(rc: RenderConfig, tc: TrainConfig, mesh=None):
     """:func:`make_step_body`'s rule for S scenes at once, as JAX's
     ``jax.vmap`` of ``make_step_fn`` computes it: ``body(state, batch[,
     occ_grid[, bounds]]) -> metrics`` with ``batch`` (S, B, 9 | 12),
@@ -329,7 +387,11 @@ def make_stack_step_body(rc: RenderConfig, tc: TrainConfig):
     gradient is its scene's alone; ``grad_norm`` and the clip are per
     scene (``vmap`` clips each scene alone); Adam runs over every scene's
     parameters with one count and learning rate. Metrics are (S,) device
-    tensors."""
+    tensors. ``mesh``: the data-parallel group of these scenes (the
+    ("scene", "data") layout, ``parallel/multi_scene.py``): ``batch`` is
+    then (S, B / N, ...), this rank's rows of each scene's batch, and the
+    gradients and losses are averaged over the group before the clip, as
+    :func:`make_step_body` does."""
 
     def body(state: StackState, batch: torch.Tensor, occ_grid=None,
              bounds=None) -> Dict[str, torch.Tensor]:
@@ -343,7 +405,8 @@ def make_stack_step_body(rc: RenderConfig, tc: TrainConfig):
             near, far = (bounds[:, i:i + 1].expand(n_scenes, b).reshape(-1)
                          for i in (0, 1))
         out = render_rays(params, flat[:, 0:3], flat[:, 3:6],
-                          state.generators, rc, near=near, far=far,
+                          _draws(state.generators, mesh), rc, near=near,
+                          far=far,
                           occ_grid=occ_grid,
                           viewdirs=flat[:, 6:9] if flat.shape[1] == 12
                           else None)
@@ -357,21 +420,21 @@ def make_stack_step_body(rc: RenderConfig, tc: TrainConfig):
         losses = [f + torch.mean((coarse[s] - target[s]) ** 2)
                   if coarse is not None else f for s, f in enumerate(fine)]
         sum(losses).backward()
+        grads, ext = _all_reduce_mean(
+            _grads(opt.params),
+            [f.detach() for f in fine] + [x.detach() for x in losses], mesh)
+        fine, totals = ext[:n_scenes], ext[n_scenes:]
         per = len(opt.params) // n_scenes   # Adam's params, scene by scene
-        grads, gnorms = [], []
+        gnorms = []
         for s in range(n_scenes):
-            mine = _grads(opt.params[s * per:(s + 1) * per])
+            mine = grads[s * per:(s + 1) * per]
             gnorms.append(global_norm(mine))
             _clip(mine, gnorms[-1], tc)
-            grads += mine
         opt.step(grads, lr_tensor(tc, state.counter))
         state.counter.add_(1)
-        fine = [f.detach() for f in fine]
         return {"loss": torch.stack(fine),
-                "psnr": torch.stack([
-                    -10.0 * torch.log10(torch.clamp(f, min=1e-10))
-                    for f in fine]),
+                "psnr": torch.stack([psnr_of(f) for f in fine]),
                 "grad_norm": torch.stack(gnorms),
-                "total_loss": torch.stack(losses).detach()}
+                "total_loss": torch.stack(totals)}
 
     return body

@@ -6,8 +6,8 @@ ground truth), with ``save_path_videos`` for their videos.
 Counterpart of ``nerfmlp_tpu/render_path.py`` (``rays_for_pose``,
 ``rays_for_pose_device``, ``render_path``, ``save_path_videos``). Used by
 the Trainer's video and test-set events, ``--render_only`` and the
-``render_video`` CLI. Rendering over several devices (``mesh``) is not
-ported (ROADMAP.md, Queue 1 item 18).
+``render_video`` CLI. With ``mesh`` every frame is rendered over several
+devices (``parallel/render_parallel.py``).
 """
 
 from __future__ import annotations
@@ -116,28 +116,41 @@ def render_path(
     * ``save_dir``: ``{i:03d}.png`` rgb frames.
     * ``static_cam_pose``: every frame from this camera while the view
       branch follows the trajectory (the view-dependence video).
-    * ``mesh``: rendering over several devices; not ported, raises.
+    * ``mesh``: a data-parallel mesh of ranks, a list of devices or their
+      replicas: every frame is rendered over them
+      (``parallel/render_parallel.py::render_image_sharded``, ``tile`` per
+      device ``ceil(tile / n)``, at least 256, as JAX divides it); with
+      ranks, every rank calls this and gets the frames, and rank 0 alone
+      prints and writes the PNGs. One device, or ``None``: the local
+      renderer.
 
     Rays are generated on the device from each 16-float pose
     (:func:`rays_for_pose_device`) and rendered by
     ``ops/render.py::render_image_maps`` with the nets packed once."""
     from nerfmlp_torch.ops.render import prepare_params, render_image_maps
+    from nerfmlp_torch.parallel.mesh import Mesh
+    from nerfmlp_torch.parallel.render_parallel import (
+        Replicas, data_parallel_mesh, render_image_sharded, replicate,
+    )
     from nerfmlp_torch.train.metrics import psnr_images
     from nerfmlp_torch.utils.image import save_png
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "render_path(mesh=...): rendering over several devices is not "
-            "ported to PyTorch yet (ROADMAP.md, Queue 1 item 18)")
+    dev = params_device(params)
+    params = prepare_params(params, cfg)
+    mesh = data_parallel_mesh(mesh)
+    if mesh is not None and not isinstance(mesh, (Mesh, Replicas)):
+        mesh = replicate(params, cfg, mesh, occ_grid)   # once for the path
+    ranks = isinstance(mesh, Mesh)
+    n_dev = (mesh.world_size if ranks else len(mesh.devices)) if mesh else 1
+    main = not ranks or mesh.is_main
+    verbose = verbose and main
     H, W, focal = hwf
     if render_factor:
         H, W = H // render_factor, W // render_factor
         focal = focal / render_factor
         gt_images = None
-    if save_dir:
+    if save_dir and main:
         os.makedirs(save_dir, exist_ok=True)
-    dev = params_device(params)
-    params = prepare_params(params, cfg)
     rgbs, disps = [], []
     psnrs = [] if gt_images is not None else None
     poses = np.asarray(poses)
@@ -148,9 +161,15 @@ def render_path(
         else:
             o, d, vd = rays_for_pose_device(pose, H, W, focal, cfg,
                                             device=dev)
-        out = render_image_maps(params, o, d, H, W, cfg, tile=tile,
-                                occ_grid=occ_grid, viewdirs=vd,
-                                maps=("rgb_map", "disp_map"))
+        if mesh is None:
+            out = render_image_maps(params, o, d, H, W, cfg, tile=tile,
+                                    occ_grid=occ_grid, viewdirs=vd,
+                                    maps=("rgb_map", "disp_map"))
+        else:
+            out = render_image_sharded(
+                params, o, d, H, W, cfg, mesh,
+                tile=max(256, -(-tile // n_dev)), occ_grid=occ_grid,
+                viewdirs=vd, maps=("rgb_map", "disp_map"))
         rgb = out["rgb_map"].float().cpu().numpy()
         disp = out["disp_map"].float().cpu().numpy()
         rgbs.append(rgb)
@@ -160,7 +179,7 @@ def render_path(
             p = psnr_images(rgb, gt_images[i])
             psnrs.append(p)
             line += f" | PSNR {p:.2f}"
-        if save_dir:
+        if save_dir and main:
             save_png(os.path.join(save_dir, f"{i:03d}.png"), rgb)
         if verbose:
             print(line, flush=True)

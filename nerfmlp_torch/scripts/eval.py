@@ -1,15 +1,16 @@
 """Evaluate a checkpoint on a split: render every view and report
-per-view and mean PSNR and SSIM, on one GPU (or, with ``--device cpu``,
-on the CPU).
+per-view and mean PSNR and SSIM, on one GPU or all of a host's (or,
+with ``--device cpu``, on the CPU).
 
 The PyTorch counterpart of ``scripts/eval.py``, with its flags and its
 JSON report (``--out``, default ``<ckpt>.eval.json``), ``--save_renders``
 the occupancy flags and ``--dataset_type`` ``blender``, ``llff`` (with
 the LLFF flags of training; no white background) or ``deepvoxels``
 (``--shape``). Beside the JAX CLI: ``--device`` and
-``--no_kernel`` (alias ``--no_pallas``). Refused by name: ``--lpips`` (the
-``lpips`` package and its pretrained AlexNet weights are not available to
-the port) and ``--shard_render`` (ROADMAP.md, Queue 1 item 18).
+``--no_kernel`` (alias ``--no_pallas``). ``--shard_render`` renders each
+view over all visible cards. Refused by name: ``--lpips`` (the ``lpips``
+package and its pretrained AlexNet weights are not available to the
+port).
 
 Example:
     python -m nerfmlp_torch.scripts.eval --datadir data/lego --split test \\
@@ -29,7 +30,7 @@ from nerfmlp_torch.utils.cli import (
     add_arch_flags, add_dataset_flag, add_device_flags, add_llff_flags,
     add_occupancy_flags, add_shard_flag, add_tile_flag, arch_fields,
     build_occ_grid, dataset_class, dataset_kwargs, load_params,
-    occupancy_fields, refuse_shard_render, render_frame,
+    occupancy_fields, render_frame,
 )
 
 
@@ -74,7 +75,6 @@ def main(argv=None):
         raise SystemExit("--lpips: LPIPS needs the lpips package and its "
                          "pretrained AlexNet weights, which the PyTorch port "
                          "does not have")
-    refuse_shard_render(args)
     DS = dataset_class(args.dataset_type)
 
     from nerfmlp_torch import resolve_device, use_true_fp32

@@ -1,5 +1,5 @@
-"""Render views of a split from a checkpoint, on one GPU (or, with
-``--device cpu``, on the CPU).
+"""Render views of a split from a checkpoint, on one GPU or all of a
+host's (or, with ``--device cpu``, on the CPU).
 
 The PyTorch counterpart of ``scripts/render_example.py``, with its flags:
 ``.pt``/``.pth``/``.ckpt`` checkpoints and official ``.npy`` weight lists (64
@@ -9,8 +9,8 @@ for Blender unless ``--dynamic_bounds``, the dataset's own for LLFF
 either; the LLFF flags of training (LLFF is never composited on white); ``--apply_gamma``,
 ``--brightness_boost``, ``--out_prefix``; the occupancy flags. PNGs are
 written by the port's own encoder. Beside the JAX CLI: ``--device`` and
-``--no_kernel`` (alias ``--no_pallas``); ``--shard_render`` is refused
-(ROADMAP.md, Queue 1 item 18).
+``--no_kernel`` (alias ``--no_pallas``). ``--shard_render`` renders each
+view over all visible cards.
 
 Example:
     python -m nerfmlp_torch.scripts.render_example --datadir data/lego \\
@@ -28,7 +28,7 @@ from nerfmlp_torch.utils.cli import (
     add_arch_flags, add_dataset_flag, add_device_flags, add_llff_flags,
     add_occupancy_flags, add_shard_flag, add_tile_flag, arch_fields,
     build_occ_grid, dataset_class, dataset_kwargs, load_params,
-    occupancy_fields, refuse_shard_render, render_frame,
+    occupancy_fields, render_frame,
 )
 
 
@@ -84,7 +84,6 @@ def build_parser():
 def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
-    refuse_shard_render(args)
     DS = dataset_class(args.dataset_type)
 
     from nerfmlp_torch import resolve_device, use_true_fp32

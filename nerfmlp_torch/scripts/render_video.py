@@ -1,5 +1,6 @@
 """Render a camera trajectory (or the test split) to PNG frames and rgb /
-disparity videos, on one GPU (or, with ``--device cpu``, on the CPU).
+disparity videos, on one GPU or all of a host's (or, with ``--device
+cpu``, on the CPU).
 
 The PyTorch counterpart of ``scripts/render_video.py``, with its flags:
 
@@ -22,7 +23,7 @@ The PyTorch counterpart of ``scripts/render_video.py``, with its flags:
 Videos are animated GIFs (``<out_dir>/<tag>_{rgb,disp}.gif``). Beside the
 JAX CLI: ``--device``, ``--no_kernel`` (alias ``--no_pallas``) and
 ``--tile`` (default: 16,384 rays with ``--use_occupancy``, else 4,096).
-``--shard_render`` is refused (ROADMAP.md, Queue 1 item 18).
+``--shard_render`` renders every frame over all visible cards.
 
 Example:
     python -m nerfmlp_torch.scripts.render_video --datadir data/lego \\
@@ -41,7 +42,7 @@ from nerfmlp_torch.utils.cli import (
     add_arch_flags, add_dataset_flag, add_device_flags, add_llff_flags,
     add_occupancy_flags, add_shard_flag, add_tile_flag, arch_fields,
     build_occ_grid, dataset_class, dataset_kwargs, load_params,
-    occupancy_fields, refuse_shard_render, resolve_tile,
+    occupancy_fields, resolve_tile, shard_devices,
 )
 
 
@@ -83,7 +84,6 @@ def main(argv=None):
     render config."""
     p = build_parser()
     args = p.parse_args(argv)
-    refuse_shard_render(args)
     DS = dataset_class(args.dataset_type)
 
     from nerfmlp_torch import resolve_device, use_true_fp32
@@ -136,9 +136,15 @@ def main(argv=None):
         gts, tag = None, "flythrough"
     else:
         poses, gts, tag = ds.render_poses(n_frames=args.n_frames), None, "path"
+    mesh = None
+    if args.shard_render:
+        mesh = shard_devices(device)
+        if len(mesh) == 1:
+            print("--shard_render: one visible device; using the local "
+                  "renderer")
     rgbs, disps, psnrs = render_path(
         params, poses, (ds.H, ds.W, ds.focal), rc, gt_images=gts,
-        render_factor=args.render_factor, occ_grid=occ_grid,
+        render_factor=args.render_factor, occ_grid=occ_grid, mesh=mesh,
         save_dir=os.path.join(args.out_dir, "frames"),
         tile=resolve_tile(args))
     videos = save_path_videos(os.path.join(args.out_dir, tag), rgbs, disps,

@@ -1,4 +1,5 @@
-"""Serve renders from a resident checkpoint over HTTP, on one GPU.
+"""Serve renders from a resident checkpoint over HTTP, on one GPU or all
+of a host's.
 
 The PyTorch counterpart of ``scripts/serve.py``, with the same flag names
 for the parts ported plus ``--device``. Checkpoints are ``.npy`` official
@@ -30,6 +31,12 @@ checkpoint's own directory when watching or when the checkpoint is a
 Trainer's ``.pt`` or ``.ckpt`` — and swaps in every newer checkpoint a
 Trainer (the port's or the JAX package's) writes there; ``POST /reload``
 forces a swap.
+
+Frames are sharded over every visible card by default, as in JAX
+(``scripts/serve.py:127-140``): each frame's pixel grid is dealt over
+them, the weights replicated once and on every swap; ``--n_devices N``
+takes the first N cards, ``--no_shard_render`` serves on ``--device``
+alone. One visible card (or ``--device cpu``) serves locally.
 
 Example:
     python -m nerfmlp_torch.scripts.serve --ckpt model.pth --focal 555.5 \\
@@ -129,13 +136,37 @@ def build_service(args, parser=None):
             (".npy", ".pth"))):
         # The checkpoint's own directory: the Trainer's --save_dir layout.
         watch_dir = os.path.dirname(os.path.abspath(args.ckpt))
+    devices = serve_devices(args, parser)
+    if devices:
+        print(f"sharded frame rendering over {len(devices)} devices")
     return RenderService(
         params, rc, H, W, focal, tile=resolve_tile(args),
         max_pixels=args.max_pixels, max_queue=args.max_queue,
         max_mesh_resolution=args.max_mesh_resolution, reload_fn=reload_fn,
         watch_dir=watch_dir, ckpt_path=os.path.abspath(args.ckpt),
-        ckpt_step=step, device=args.device,
+        ckpt_step=step, device=args.device, devices=devices,
     )
+
+
+def serve_devices(args, parser=None):
+    """The cards a frame shards over: with --shard_render (the default)
+    on cuda, the first --n_devices visible ones (0: all), when that is
+    more than one; else None (serve on --device)."""
+    import torch
+
+    from nerfmlp_torch.utils.cli import shard_devices
+
+    visible = shard_devices(torch.device(args.device))
+    n = args.n_devices or len(visible)
+    if n > len(visible):
+        msg = (f"--n_devices {n}: only {len(visible)} device(s) visible "
+               f"for --device {args.device}")
+        if parser is not None:
+            parser.error(msg)
+        raise SystemExit(msg)
+    if not args.shard_render or n < 2:
+        return None
+    return visible[:n]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -144,7 +175,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
 
     p = argparse.ArgumentParser(
-        description="Persistent NeRF render server (PyTorch, one GPU)")
+        description="Persistent NeRF render server (PyTorch, one GPU or "
+                    "several)")
     p.add_argument("--ckpt", "--model_path", type=str, required=True,
                    help=".npy/.pth/.pt/.ckpt checkpoint to serve")
     p.add_argument("--device", type=str, default="cuda",
@@ -183,6 +215,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="plain PyTorch module path instead of the fused kernel")
     p.add_argument("--separate_fine", action="store_true")
     add_occupancy_flags(p)
+    p.add_argument("--no_shard_render", dest="shard_render",
+                   action="store_false", default=True,
+                   help="serve frames on --device alone even when several "
+                        "cards are visible (default: shard each frame's "
+                        "pixel grid over all of them)")
+    p.add_argument("--n_devices", type=int, default=0,
+                   help="cards for sharded serving (default: all visible)")
     p.add_argument("--tile", "--chunk", type=int, default=None,
                    help="rays per tile (default: 16384 with "
                         "--use_occupancy, else 4096)")

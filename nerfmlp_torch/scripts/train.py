@@ -1,4 +1,5 @@
-"""Train a NeRF on one GPU (or, with ``--device cpu``, on the CPU).
+"""Train a NeRF on one GPU or several (or, with ``--device cpu``, on the
+CPU).
 
 The PyTorch counterpart of ``scripts/train.py``, with its flag names for
 everything this port supports, plus:
@@ -20,6 +21,15 @@ they are, given ``--datadir``. Videos are animated GIFs. Flags of
 features not ported yet are refused by name, each naming its ROADMAP
 item.
 
+``--n_devices N`` trains data-parallel on N cards, as the JAX CLI does
+(``scripts/train.py:223-224``, ``:496-508``): 0, the default, means every
+visible card; N > 1 starts N ranks, one process per card (NCCL), each
+stepping on its ``batch_size / N`` rays of the global batch, the
+gradients averaged (``parallel/train_step.py``); rank 0 logs and writes.
+Under ``torchrun`` the ranks are torchrun's. At N = 1 the run stays in
+this process, with no process group. ``--device cpu --n_devices N`` runs
+N gloo ranks on the CPU.
+
 Examples:
     python -m nerfmlp_torch.scripts.train --datadir /tmp/scene \\
         --make_synthetic_scene --img_wh 64 64 --iters 300 --save_dir /tmp/out
@@ -29,6 +39,8 @@ Examples:
         --config configs/fern.txt --datadir data/nerf_llff_data/fern
     python -m nerfmlp_torch.scripts.train --config ... --render_only \\
         [--render_test]     # renders the newest checkpoint, no training
+    torchrun --nproc_per_node 8 -m nerfmlp_torch.scripts.train \\
+        --config configs/lego_turbo_bf16.txt --datadir data/lego
 """
 
 from __future__ import annotations
@@ -56,8 +68,6 @@ _NOT_PORTED = {
                           "a compilation cache (PyTorch runs eagerly)"),
     "tensorboard": (dict(action="store_true"),
                     "TensorBoard logging (ROADMAP.md, Queue 1 item 21)"),
-    "n_devices": (dict(type=int, default=0),
-                  "data parallelism (ROADMAP.md, Queue 1 item 18)"),
     "tensor_parallel": (dict(type=int, default=1),
                         "tensor parallelism (ROADMAP.md, Queue 1 item 18)"),
     "remat": (dict(action="store_true"),
@@ -68,7 +78,7 @@ _NOT_PORTED = {
 
 def build_parser():
     p = argparse.ArgumentParser(
-        description="Train NeRF with the PyTorch port (one GPU)")
+        description="Train NeRF with the PyTorch port (one GPU or several)")
     p.add_argument("--datadir", type=str, required=True)
     p.add_argument("--make_synthetic_scene", action="store_true",
                    help="write the analytic synthetic Blender scene into "
@@ -155,6 +165,9 @@ def build_parser():
     p.add_argument("--no_kernel", "--no_pallas", dest="use_kernel",
                    action="store_false",
                    help="plain PyTorch module path instead of the kernels")
+    p.add_argument("--n_devices", type=int, default=0,
+                   help="data-parallel ranks, one per card (0 = every "
+                        "visible card; with --device cpu, 1)")
     p.add_argument("--seed", "--random_seed", type=int, default=0)
     add_dataset_flag(p)
     add_llff_flags(p)
@@ -251,7 +264,8 @@ def _default_wh(args):
 def _render_only(args, trainer, rc, dataset, test_ds, render_poses,
                  resumed):
     """Render the orbit (or the test split) from the loaded state into
-    ``renderonly_{path|test}_{step:06d}/``; no training."""
+    ``renderonly_{path|test}_{step:06d}/``; no training. Over ranks, each
+    renders its share of every frame and rank 0 writes."""
     from nerfmlp_torch.render_path import render_path, save_path_videos
 
     if not resumed:
@@ -261,7 +275,7 @@ def _render_only(args, trainer, rc, dataset, test_ds, render_poses,
     suffix = "test" if args.render_test else "path"
     out_dir = os.path.join(args.save_dir, f"renderonly_{suffix}_{start:06d}")
     kw = dict(render_factor=args.render_factor, occ_grid=trainer.occ_grid,
-              save_dir=out_dir, tile=args.chunk)
+              save_dir=out_dir, tile=args.chunk, mesh=trainer.render_mesh)
     if args.render_test:
         rgbs, _, psnrs = render_path(
             trainer.state.params, test_ds.poses,
@@ -271,9 +285,28 @@ def _render_only(args, trainer, rc, dataset, test_ds, render_poses,
         rgbs, disps, psnrs = render_path(
             trainer.state.params, render_poses,
             (dataset.H, dataset.W, dataset.focal), rc, **kw)
-        save_path_videos(os.path.join(out_dir, "video"), rgbs, disps)
+        if trainer.is_main:
+            save_path_videos(os.path.join(out_dir, "video"), rgbs, disps)
     print(f"✅ render_only done: {len(rgbs)} frames -> {out_dir}")
     return {"render_only": out_dir, "psnrs": psnrs}
+
+
+def n_ranks(args) -> int:
+    """The ranks a run asks for: --n_devices, or every visible card (0);
+    one on the CPU unless --n_devices says otherwise."""
+    import torch
+
+    if args.n_devices < 0:
+        raise SystemExit(f"--n_devices {args.n_devices}: give 0 (every "
+                         "visible card) or a count")
+    if args.n_devices:
+        return args.n_devices
+    if torch.device(args.device).type == "cuda":
+        from nerfmlp_torch import resolve_device
+
+        resolve_device(args.device)   # no card: raise, do not count 0
+        return torch.cuda.device_count()
+    return 1
 
 
 def main(argv=None):
@@ -287,6 +320,33 @@ def main(argv=None):
     if args.make_synthetic_scene and args.dataset_type != "blender":
         raise SystemExit("--make_synthetic_scene writes a Blender scene; "
                          f"not one for --dataset_type {args.dataset_type}")
+    from nerfmlp_torch.parallel.mesh import launch, under_torchrun
+
+    n = n_ranks(args)
+    if n > 1 or under_torchrun():
+        from nerfmlp_torch.scripts import train as this  # by name: picklable
+
+        print(f"Data-parallel training over {n} ranks ({args.device})")
+        return launch(this.train_rank, 0 if under_torchrun() else n,
+                      args=(args,), device=args.device)
+    return run(args)
+
+
+def train_rank(mesh, args):
+    """One rank of a data-parallel run (:func:`run` on ``mesh``)."""
+    return run(args, mesh)
+
+
+def run(args, mesh=None):
+    """The run the parsed ``args`` ask for, in this process: on one device,
+    or as one rank of ``mesh``. Rank 0 writes the synthetic scene and the
+    run's files; the other ranks load the data once rank 0 has (a loader
+    may write minified images)."""
+    from nerfmlp_torch.parallel.mesh import barrier
+
+    main_rank = mesh is None or mesh.is_main
+    if not main_rank:
+        barrier(mesh)
     if args.make_synthetic_scene and not os.path.exists(
             os.path.join(args.datadir, "transforms_train.json")):
         from nerfmlp_torch.data.synthetic import make_synthetic_scene
@@ -312,7 +372,7 @@ def main(argv=None):
     from nerfmlp_torch.train.checkpoint import latest_checkpoint
     from nerfmlp_torch.train.loop import Trainer
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
     use_true_fp32()
     DS = dataset_class(args.dataset_type)
     ds_kw = dataset_kwargs(args)
@@ -345,10 +405,12 @@ def main(argv=None):
             print(f"⚠️  --i_testset: no test split ({e}); falling back to "
                   "val")
             test_ds = val_ds
-    os.makedirs(args.save_dir, exist_ok=True)
-    with open(os.path.join(args.save_dir, "args.txt"), "w") as f:
-        for k, v in sorted(vars(args).items()):
-            f.write(f"{k} = {v}\n")
+    if main_rank:
+        os.makedirs(args.save_dir, exist_ok=True)
+        with open(os.path.join(args.save_dir, "args.txt"), "w") as f:
+            for k, v in sorted(vars(args).items()):
+                f.write(f"{k} = {v}\n")
+        barrier(mesh)
 
     near, far = dataset.dynamic_near_far()
     near = near if args.near is None else args.near
@@ -390,7 +452,7 @@ def main(argv=None):
     )
     trainer = Trainer(rc, tc, dataset, val_ds, quick_val_ds,
                       save_dir=args.save_dir, device=device,
-                      render_poses=render_poses, test_ds=test_ds)
+                      render_poses=render_poses, test_ds=test_ds, mesh=mesh)
     resume_path = args.resume
     if resume_path is None and not args.no_resume:
         resume_path = latest_checkpoint(args.save_dir)

@@ -1,8 +1,8 @@
 """Multi-scene batched training: N scenes, one NeRF per scene, trained in
-lock step on one GPU (or, with ``--device cpu``, on the CPU).
+lock step on one GPU or several (or, with ``--device cpu``, on the CPU).
 
 The PyTorch counterpart of ``scripts/train_multi_scene.py`` (BASELINE
-config 5), with its flags and semantics on one device: per-scene
+config 5), with its flags and semantics: per-scene
 ``dynamic_near_far()`` bounds (printed), the white-background rule for
 mixed LLFF + synthetic scenes (with its warning), 9-column batches widened
 to 12 when any scene has world viewdirs, one ray loader per scene seeded by
@@ -11,7 +11,14 @@ steps (decay 1 through ``occ_warmup_steps``, else 0.95), the ``iter ... |
 mean loss ... | PSNR s0:... s1:...`` log line and per-scene final
 checkpoints. Every fused-MLP call of a step is one launch of each kernel
 over all scenes (``parallel/multi_scene.py``). Added: ``--device`` and
-``--no_kernel`` (alias ``--no_pallas``), as the train CLI has them.
+``--no_kernel`` (alias ``--no_pallas``), as the train CLI has them, and
+``--n_devices``: 0, the default, means every visible card, as the JAX CLI
+uses all devices (on the CPU, 1). On N > 1 ranks (one process per card,
+or torchrun's) the scenes lie as in JAX (``scripts/train_multi_scene.py:
+96-176``): whole scenes per rank when N divides the scene count, one
+group of ranks per scene ("scene", "data") when the scene count divides
+N, refused otherwise; rank 0 logs, and each scene's checkpoint is written
+by the first rank of the ranks that hold it.
 
 Checkpoints are the port's own format, ``torch.save`` files with the
 ``.pt`` suffix where the JAX CLI writes flax ``.ckpt`` files:
@@ -58,7 +65,8 @@ def unique_scene_names(names):
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="Train one NeRF per scene, in lock step on one device")
+        description="Train one NeRF per scene, in lock step on one device "
+                    "or several")
     p.add_argument("--datadirs", type=str, nargs="+", required=True)
     p.add_argument("--img_wh", type=int, nargs=2, default=[128, 128])
     p.add_argument("--batch_size", type=int, default=1024,
@@ -72,6 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", type=str, default="bfloat16")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
+    p.add_argument("--n_devices", type=int, default=0,
+                   help="ranks, one per card (0 = every visible card; "
+                        "with --device cpu, 1)")
     p.add_argument("--no_kernel", "--no_pallas", dest="use_kernel",
                    action="store_false", default=True,
                    help="plain PyTorch module path instead of the fused "
@@ -92,13 +103,14 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refresh_generators(it: int, n_scenes: int, device):
-    """Scene s's generator for the refresh before step ``it``: the JAX
-    CLI's ``fold_in(PRNGKey(17 + it), s)`` as a seed."""
+def _refresh_generators(it: int, scenes, device):
+    """Scene s's generator for the refresh before step ``it``, for each s
+    of ``scenes``: the JAX CLI's ``fold_in(PRNGKey(17 + it), s)`` as a
+    seed."""
     import torch
 
     gens = []
-    for s in range(n_scenes):
+    for s in scenes:
         g = torch.Generator(device=device)
         g.manual_seed((17 + it) * 1_000_003 + s)
         gens.append(g)
@@ -106,25 +118,57 @@ def _refresh_generators(it: int, n_scenes: int, device):
 
 
 def main(argv=None):
+    """Train; returns (state, grids) of a run in this process, or, from N
+    spawned ranks, rank 0's {"loss", "psnr"} per scene after the last
+    step and the checkpoints written."""
     p = build_parser()
     args = p.parse_args(argv)
+    from nerfmlp_torch.parallel.mesh import launch, under_torchrun
+    from nerfmlp_torch.scripts.train import n_ranks
 
+    n = n_ranks(args)
+    if n > 1 or under_torchrun():
+        n_scenes = len(args.datadirs)
+        if not under_torchrun() and n_scenes % n and n % n_scenes:
+            p.error(f"{n_scenes} scenes vs {n} devices: need one to divide "
+                    "the other")
+        from nerfmlp_torch.scripts import train_multi_scene as this
+
+        return launch(this.train_rank, 0 if under_torchrun() else n,
+                      args=(args,), device=args.device)
+    return run(args, p)
+
+
+def train_rank(mesh, args):
+    """One rank of a multi-rank run (:func:`run` on ``mesh``)."""
+    return run(args, build_parser(), mesh)
+
+
+def run(args, p, mesh=None):
+    """The run ``args`` ask for: every scene in this process, or this
+    rank's scenes of ``mesh`` (``parallel/multi_scene.py::scene_layout``).
+    """
     import numpy as np
     import torch
 
     from nerfmlp_torch import resolve_device, use_true_fp32
     from nerfmlp_torch.config import RenderConfig, TrainConfig
     from nerfmlp_torch.data.pipeline import RayBatchLoader
+    from nerfmlp_torch.parallel.mesh import barrier, shard_batch
     from nerfmlp_torch.parallel.multi_scene import (
         create_multi_scene_grids, create_multi_scene_state,
-        make_multi_scene_grid_update, make_multi_scene_step, scene_params,
+        gather_scene_metrics, make_multi_scene_grid_update,
+        make_multi_scene_step, scene_layout, scene_params,
     )
     from nerfmlp_torch.train.checkpoint import save_params
     from nerfmlp_torch.utils.cli import dataset_class
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
     use_true_fp32()
     n_scenes = len(args.datadirs)
+    layout = None if mesh is None else scene_layout(n_scenes, mesh)
+    local = range(n_scenes) if layout is None else layout.scenes
+    data = None if layout is None else layout.data
     types = args.dataset_types
     if len(types) == 1:
         types = types * n_scenes
@@ -143,10 +187,8 @@ def main(argv=None):
         )
 
     datasets = [load_scene(d, t) for d, t in zip(args.datadirs, types)]
-    loaders = [
-        RayBatchLoader.from_dataset(ds, args.batch_size, seed=i)
-        for i, ds in enumerate(datasets)
-    ]
+    loaders = [RayBatchLoader.from_dataset(datasets[i], args.batch_size,
+                                           seed=i) for i in local]
     # Per-scene [near, far]: each scene samples its own depth range (NDC
     # LLFF scenes live in [0, 1] while blender scenes sit at 2-6).
     bounds = np.asarray(
@@ -154,7 +196,14 @@ def main(argv=None):
     )
     for d, t, (nr, fr) in zip(args.datadirs, types, bounds):
         print(f"  {t:10s} {d}: near/far {nr:.2f}/{fr:.2f}")
-    print(f"{n_scenes} scenes on 1 device ({device})")
+    if layout is None:
+        print(f"{n_scenes} scenes on 1 device ({device})")
+    elif data is None:
+        print(f"{n_scenes} scenes on {mesh.world_size} devices: "
+              f"{len(local)} a rank ({device.type})")
+    else:
+        print(f"{n_scenes} scenes on {mesh.world_size} devices: scene x data "
+              f"mesh {n_scenes} x {data.world_size} ({device.type})")
 
     # white_bkgd is structural (one shared RenderConfig): white composite
     # for blender/deepvoxels, off for LLFF real photos. Mixed batches take
@@ -178,15 +227,17 @@ def main(argv=None):
     )
     tc = TrainConfig(batch_size=args.batch_size, iters=args.iters, lr=args.lr)
 
-    step = make_multi_scene_step(rc, tc, with_bounds=True)
-    state = create_multi_scene_state(n_scenes, rc, tc, device=device)
-    bounds_dev = torch.from_numpy(bounds).to(device)
+    # A scene group's ranks average its gradients (data None: no group).
+    step = make_multi_scene_step(rc, tc, with_bounds=True, mesh=data)
+    state = create_multi_scene_state(len(local), rc, tc, device=device,
+                                     first_scene=local[0])
+    bounds_dev = torch.from_numpy(bounds[list(local)]).to(device)
 
     # Per-scene occupancy grids, stacked, refreshed every
     # --occ_update_every steps from each scene's own current weights.
     grids = grid_update = None
     if rc.use_occupancy:
-        grids = create_multi_scene_grids(n_scenes, rc, device=device)
+        grids = create_multi_scene_grids(len(local), rc, device=device)
         grid_update = make_multi_scene_grid_update(rc)
         print(f"occupancy sampling on: {args.occ_grid_size}^3 grids "
               f"per scene, refresh every {rc.occ_update_every} steps")
@@ -204,36 +255,54 @@ def main(argv=None):
             b = np.concatenate([b[:, :6], vd, b[:, 6:]], axis=-1)
         return b
 
+    main_rank = mesh is None or mesh.is_main
     os.makedirs(args.save_dir, exist_ok=True)
+    metrics = None
     for it in range(1, args.iters + 1):
-        batch = np.stack([scene_batch(ld) for ld in loaders], axis=0)
+        # (S_rank, B, F) global batches; a scene group's ranks each copy
+        # their rows of them.
+        batch = shard_batch(np.stack([scene_batch(ld) for ld in loaders]),
+                            data, axis=1)
         extra = ()
         if grids is not None:
             if (it - 1) % rc.occ_update_every == 0:
                 grids = grid_update(
                     grids, state.params,
-                    _refresh_generators(it, n_scenes, device),
+                    _refresh_generators(it, local, device),
                     1.0 if it <= rc.occ_warmup_steps else 0.95)
             extra = (grids,)
-        metrics = step(state, torch.from_numpy(batch).to(device), *extra,
-                       bounds_dev)
+        metrics = step(state,
+                       torch.from_numpy(np.ascontiguousarray(batch)).to(
+                           device), *extra, bounds_dev)
         if it % args.log_interval == 0:
-            losses = metrics["loss"].cpu().numpy()
-            psnrs = metrics["psnr"].cpu().numpy()
+            shown = (metrics if layout is None
+                     else gather_scene_metrics(metrics, layout, n_scenes))
+            losses = shown["loss"].cpu().numpy()
+            psnrs = shown["psnr"].cpu().numpy()
             per = " ".join(f"s{i}:{p:.1f}" for i, p in enumerate(psnrs))
-            print(f"iter {it:6d} | mean loss {losses.mean():.6f} | PSNR {per}",
-                  flush=True)
+            if main_rank:
+                print(f"iter {it:6d} | mean loss {losses.mean():.6f} | "
+                      f"PSNR {per}", flush=True)
 
     # Per-scene final checkpoints.
     names = unique_scene_names([
         os.path.basename(os.path.normpath(d)) or f"scene_{i}"
         for i, d in enumerate(args.datadirs)
     ])
-    for i, name in enumerate(names):
-        save_params(os.path.join(args.save_dir, f"model_{name}_final.pt"),
-                    scene_params(state, i))
+    paths = [os.path.join(args.save_dir, f"model_{name}_final.pt")
+             for name in names]
+    if data is None or data.is_main:   # one writer per scene
+        for i, s in enumerate(local):
+            save_params(paths[s], scene_params(state, i))
+    barrier(mesh)
     print(f"saved {n_scenes} per-scene checkpoints to {args.save_dir}")
-    return state, grids
+    if layout is None:
+        return state, grids
+    final = ({} if metrics is None else {
+        k: v.cpu().numpy() for k, v in gather_scene_metrics(
+            metrics, layout, n_scenes).items()})
+    return {"loss": final.get("loss"), "psnr": final.get("psnr"),
+            "checkpoints": paths}
 
 
 if __name__ == "__main__":

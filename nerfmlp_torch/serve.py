@@ -1,4 +1,5 @@
-"""Persistent render serving on one GPU — load once, serve frames.
+"""Persistent render serving on one GPU or several — load once, serve
+frames.
 
 Counterpart of ``nerfmlp_tpu/serve.py``. :class:`RenderService` is the
 embeddable core (weights + config + device behind a dispatch lock);
@@ -30,8 +31,14 @@ Trainer's ``--save_dir`` and :meth:`RenderService.watch` swaps in every
 newer ``model_{step}[_latest].pt`` or the JAX Trainer's ``.ckpt``
 (``metrics_latest.pt`` / ``.ckpt`` until one exists); ``POST /reload``
 forces a swap. The Trainer writes each file to
-``*.tmp`` and renames it, and no ``.tmp`` name is ever picked. Multi-device
-sharding is not ported: ``/spec`` lists it.
+``*.tmp`` and renames it, and no ``.tmp`` name is ever picked.
+
+Several cards (``devices``, ``nerfmlp_tpu/serve.py:125-145``, ``:301-317``):
+each frame's pixel grid is dealt over them
+(``parallel/render_parallel.py``), the weights and the grid replicated
+once per service and on every swap or reload, so a frame copies no
+weights; ``tile`` stays the rays per dispatch, each card's tile
+``ceil(tile / n)`` (at least 256). Mesh extraction runs on ``device``.
 """
 
 from __future__ import annotations
@@ -58,7 +65,6 @@ _VALID_MAPS = ("rgb_map", "disp_map", "depth_map", "acc_map")
 MAX_BODY_BYTES = 1 << 20
 ROUTES = ("GET /health", "GET /spec", "POST /render", "POST /mesh",
           "POST /reload")
-NOT_PORTED = ("multi-device sharding",)
 # The seed of the grid a service builds from its weights: a fixed one, so a
 # restart serves the same grid.
 GRID_SEED = 0
@@ -102,6 +108,9 @@ class RenderService:
     the route). ``reload_fn(path)``: weights, or ``(weights, step)``, of a
     checkpoint, for :meth:`reload`; ``watch_dir``: where :meth:`reload`
     and :meth:`watch` look (without it, the served file is reloaded).
+    ``devices``: more than one device (the first is usually ``device``,
+    and one may repeat) shards every frame over them; one or ``None``
+    renders on ``device``.
     """
 
     def __init__(
@@ -123,6 +132,7 @@ class RenderService:
         ckpt_path: Optional[str] = None,
         ckpt_step: Optional[int] = None,
         device=None,
+        devices=None,
         log=print,
     ):
         if cfg.use_occupancy and cfg.aabb is None:
@@ -131,8 +141,14 @@ class RenderService:
         self.device = resolve_device(device)
         use_true_fp32()
         self.cfg = cfg
+        self.devices = None
+        if devices is not None and len(devices) > 1:
+            import torch
+
+            self.devices = tuple(torch.device(d) for d in devices)
         self.params = self._prepare(params)
         self.occ_grid = self._build_grid(self.params)
+        self.replicas = self._replicate(self.params, self.occ_grid)
         self.tile = int(tile)
         self.defaults = {
             "H": int(H),
@@ -175,6 +191,15 @@ class RenderService:
         return prepare_params(
             {k: net.to(self.device) for k, net in params.items()}, self.cfg
         )
+
+    def _replicate(self, params: Dict, occ_grid):
+        """The weights and grid on every card of ``devices`` (None on
+        one)."""
+        if self.devices is None:
+            return None
+        from nerfmlp_torch.parallel.render_parallel import replicate
+
+        return replicate(params, self.cfg, self.devices, occ_grid)
 
     def _build_grid(self, params: Dict):
         """The density grid of prepared ``params``, or None without
@@ -245,6 +270,9 @@ class RenderService:
     def _render_admitted(self, c2w, viewdirs_c2w, H, W, focal, near, far,
                          maps, _record_stats):
         from nerfmlp_torch.ops.render import render_image_maps
+        from nerfmlp_torch.parallel.render_parallel import (
+            render_image_sharded,
+        )
         from nerfmlp_torch.render_path import rays_for_pose_device
 
         with self._lock:
@@ -254,11 +282,17 @@ class RenderService:
                 c2w, H, W, focal, self.cfg, viewdirs_pose=viewdirs_c2w,
                 device=self.device,
             )
-            out = render_image_maps(
-                self.params, o, d, H, W, self.cfg, tile=self.tile,
-                near=near, far=far, occ_grid=self.occ_grid, viewdirs=vd,
-                maps=tuple(maps),
-            )
+            if self.replicas is None:
+                out = render_image_maps(
+                    self.params, o, d, H, W, self.cfg, tile=self.tile,
+                    near=near, far=far, occ_grid=self.occ_grid, viewdirs=vd,
+                    maps=tuple(maps),
+                )
+            else:
+                out = render_image_sharded(
+                    self.params, o, d, H, W, self.cfg, self.replicas,
+                    tile=max(256, -(-self.tile // len(self.devices))),
+                    near=near, far=far, viewdirs=vd, maps=tuple(maps))
             # The copy to the host waits for the device: the honest end.
             result = {k: v.float().cpu().numpy() for k, v in out.items()}
             dt = time.perf_counter() - t0
@@ -442,10 +476,10 @@ class RenderService:
             "hot_reload": self.reload_fn is not None,
             "watch_dir": self.watch_dir,
             "device": str(self.device),
+            "devices": [str(d) for d in self.devices or (self.device,)],
             "kernel": uses_kernel(self.cfg),
             "occupancy": self.cfg.use_occupancy,
             "routes": list(ROUTES),
-            "not_ported": list(NOT_PORTED),
             "render_config": dataclasses.asdict(self.cfg),
         }
 
@@ -507,13 +541,16 @@ class RenderService:
 
     def swap_params(self, params: Dict, source: str = "<direct>") -> None:
         """Atomically replace the served weights (and the density grid,
-        rebuilt from them): moved, packed and rebuilt here, outside the
-        lock; in-flight renders finish on the old weights."""
+        rebuilt from them; both replicated over ``devices``): moved,
+        packed and rebuilt here, outside the lock; in-flight renders
+        finish on the old weights."""
         params = self._prepare(params)
         occ_grid = self._build_grid(params)
+        replicas = self._replicate(params, occ_grid)
         with self._lock:
             self.params = params
             self.occ_grid = occ_grid
+            self.replicas = replicas
             self.reloads += 1
         self.log(f"params swapped from {source} (reload #{self.reloads})")
 

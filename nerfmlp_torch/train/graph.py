@@ -30,6 +30,12 @@ fails raises, naming the cause; nothing falls back to eager steps.
 
 On the CPU (asked for with ``device="cpu"``) there are no graphs: a window
 runs the same function eagerly ``w`` times.
+
+A data-parallel body (``make_step_body(..., mesh=...)``) is captured with
+its gradient ``all_reduce``: NCCL collectives can be captured in a CUDA
+graph, and every rank warms up, restores and captures the same steps in
+the same order. gloo's cannot (they go through the host), so the Trainer
+refuses K > 1 under gloo on ``cuda``.
 """
 
 from __future__ import annotations

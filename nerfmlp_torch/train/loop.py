@@ -2,11 +2,11 @@
 resume and the metrics JSON.
 
 Counterpart of ``nerfmlp_tpu/train/loop.py:61-1123`` (``Trainer``), its
-main path on one device: the train state, the host loader and the device
-ray pool; ``train()`` with the log interval and precrop; quick and full
-validation on whole held-out images (PSNR, SSIM); best, final, periodic
-and latest checkpoints; auto-resume; the metrics JSON in the reference
-schema; occupancy-grid sampling, with the grid refreshed on the JAX
+main path on one device or data-parallel over several: the train state,
+the host loader and the device ray pool; ``train()`` with the log
+interval and precrop; quick and full validation on whole held-out images
+(PSNR, SSIM); best, final, periodic and latest checkpoints; auto-resume;
+the metrics JSON in the reference schema; occupancy-grid sampling, with the grid refreshed on the JAX
 Trainer's schedule and rebuilt on resume; the in-training render events
 (``i_video``: orbit videos, ``i_testset``: test-set sweeps with per-frame
 PSNR, ``i_img``: held-out frames, ``render_factor``; ``i_mesh``:
@@ -18,7 +18,16 @@ do (:func:`dispatch_window`). At K = 1, the default, the loop calls
 ``step_fn`` once a step on the pool's batch or the host batch copied
 straight in: a window of one step gains nothing from a graph, and the
 static batch buffer and slot counter a window reads would only add a
-copy and an index to every step. Left out, and refused when asked for:
+copy and an index to every step. Data parallelism (``mesh``, the JAX
+Trainer's ``mesh=`` of ``nerfmlp_tpu/train/loop.py:76-152``): every rank
+builds the same Trainer and steps on its rows of each global batch (pool
+or host), the gradients averaged over the ranks
+(``parallel/train_step.py``); the occupancy grid is refreshed on every
+rank from the same seed, so the grids stay equal; validation and the
+render events render each frame over the ranks
+(``parallel/render_parallel.py``); rank 0 alone logs and writes files
+(checkpoints, metrics, PNGs, videos, meshes), and the others wait at a
+barrier after each write. Left out, and refused when asked for:
 TensorBoard, ``profile_dir`` and tensor parallelism (each raises a
 ``NotImplementedError`` naming its ROADMAP item).
 
@@ -44,6 +53,10 @@ from nerfmlp_torch.config import TRAIN_NOT_PORTED, RenderConfig, TrainConfig
 from nerfmlp_torch.data import image_viewdirs
 from nerfmlp_torch.data.device_pool import DeviceRayPool
 from nerfmlp_torch.data.pipeline import RayBatchLoader
+from nerfmlp_torch.parallel.mesh import barrier, replicate_, shard_batch
+from nerfmlp_torch.parallel.render_parallel import (
+    data_parallel_mesh, render_image_sharded,
+)
 from nerfmlp_torch.parallel.train_step import (
     create_train_state, lr_at, make_step_body, make_step_fn,
 )
@@ -91,7 +104,8 @@ def check_supported(tc: TrainConfig) -> None:
 
 
 class Trainer:
-    """End-to-end trainer for one scene on one device.
+    """End-to-end trainer for one scene, on one device or data-parallel
+    over the ranks of ``mesh``.
 
     ``train_ds``/``val_ds``/``quick_val_ds`` are Blender, LLFF or
     DeepVoxels datasets (``all_rays_*``, ``image_rays``, ``n_images``,
@@ -106,7 +120,15 @@ class Trainer:
     (:func:`nerfmlp_torch.use_true_fp32`). With ``steps_per_dispatch`` K >
     1 the steps run in windows (``self.windows``): on ``cuda`` a CUDA
     graph of one step, captured at the first window of each batch source
-    and replayed; on the CPU the same step body, eagerly."""
+    and replayed; on the CPU the same step body, eagerly.
+
+    ``mesh``: a :class:`~nerfmlp_torch.parallel.mesh.Mesh` of ranks, each
+    running this Trainer on ``mesh.device`` (``device`` must be None or
+    that device's type); ``tc.batch_size`` is the global batch, a
+    multiple of the rank count. A mesh of one rank runs the step's
+    collective too (JAX's one-device mesh), and renders locally. K > 1
+    under gloo on ``cuda`` is refused: gloo's collectives cannot be
+    captured in a CUDA graph."""
 
     # iteration_times cap: past it the oldest half is folded into the
     # dropped counters, so the JSON stays bounded.
@@ -117,10 +139,28 @@ class Trainer:
     def __init__(self, rc: RenderConfig, tc: TrainConfig, train_ds,
                  val_ds=None, quick_val_ds=None,
                  save_dir: str = "outputs/checkpoints", verbose: bool = True,
-                 device=None, render_poses=None, test_ds=None):
+                 device=None, render_poses=None, test_ds=None, mesh=None):
         check_supported(tc)
         if rc.use_occupancy and rc.aabb is None:
             raise ValueError("use_occupancy requires RenderConfig.aabb")
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and (torch.device(device).type
+                                       != mesh.device.type):
+                raise ValueError(f"device {device} on a mesh of "
+                                 f"{mesh.device.type} ranks")
+            device = mesh.device
+            shard_batch(np.empty(tc.batch_size), mesh)   # B % N refused
+            if (tc.steps_per_dispatch > 1 and mesh.device.type == "cuda"
+                    and mesh.backend != "nccl"):
+                raise ValueError(
+                    f"steps_per_dispatch={tc.steps_per_dispatch} under "
+                    f"{mesh.backend} on cuda: its collectives go through the "
+                    "host and cannot be captured in a CUDA graph; use nccl "
+                    "or steps_per_dispatch 1")
+        self.is_main = self.mesh is None or self.mesh.is_main
+        # Frames render over the ranks (validation, i_img, the events).
+        self.render_mesh = data_parallel_mesh(self.mesh)
         self.device = resolve_device(device)
         use_true_fp32()
         self.rc = rc
@@ -133,10 +173,12 @@ class Trainer:
         self.render_poses = render_poses
         self.test_ds = test_ds
         self._mesh_warned = False
-        os.makedirs(save_dir, exist_ok=True)
+        if self.is_main:
+            os.makedirs(save_dir, exist_ok=True)
 
         self.state = create_train_state(rc, tc, self.device)
-        self.step_fn = make_step_fn(rc, tc)
+        self._replicate()
+        self.step_fn = make_step_fn(rc, tc, self.mesh)
         # Occupancy-grid sampling state (ops/occupancy.py): derived from the
         # nets, refreshed in train() and rebuilt on resume (in place: a
         # captured step reads its density), not saved.
@@ -162,10 +204,12 @@ class Trainer:
                           "batch — host with-replacement sampling)")
             else:
                 self.pool = DeviceRayPool(self.loader.pool, tc.batch_size,
-                                          seed=tc.seed, device=self.device)
+                                          seed=tc.seed, device=self.device,
+                                          mesh=self.mesh)
         self.windows = None
         if tc.steps_per_dispatch > 1:
-            self.windows = StepWindows(self.state, make_step_body(rc, tc),
+            self.windows = StepWindows(self.state,
+                                       make_step_body(rc, tc, self.mesh),
                                        tc.steps_per_dispatch, self._sums,
                                        pool=self.pool, occ_grid=self.occ_grid)
 
@@ -193,8 +237,28 @@ class Trainer:
     # ------------------------------------------------------------------ #
 
     def _log(self, msg: str) -> None:
-        if self.verbose:
+        if self.verbose and self.is_main:
             print(msg, flush=True)
+
+    def _replicate(self) -> None:
+        """Rank 0's nets, Adam state and step counter into every rank's
+        (nothing without a mesh). Every rank builds and resumes the same
+        state; this makes them equal bit for bit whatever the devices."""
+        if self.mesh is None:
+            return
+        st = self.state
+        opt = st.optimizer
+        replicate_([p.data for p in opt.params] + opt.exp_avg
+                   + opt.exp_avg_sq + [opt.count, st.counter], self.mesh)
+
+    def _sync(self) -> None:
+        """The ranks wait here for rank 0's writes (nothing without a
+        mesh)."""
+        barrier(self.mesh)
+
+    def _host_batch(self) -> np.ndarray:
+        """This rank's rows of the loader's next global batch."""
+        return shard_batch(self.loader.next_batch(), self.mesh)
 
     def _occ_update(self, seed_step: int, decay: float) -> None:
         """One refresh of the density grid from the current nets, its
@@ -216,9 +280,19 @@ class Trainer:
         vd = image_viewdirs(dataset, idx)
         t = lambda a: torch.as_tensor(a, device=self.device)
         params = prepare_params(self.state.params, self.rc)
-        img = render_image(params, t(o), t(d), dataset.H, dataset.W, self.rc,
-                           tile=self.tc.chunk, occ_grid=self.occ_grid,
-                           viewdirs=None if vd is None else t(vd))
+        if self.render_mesh is not None:
+            # The JAX Trainer's per-device tile: the chunk over the ranks.
+            img = render_image_sharded(
+                params, t(o), t(d), dataset.H, dataset.W, self.rc,
+                self.render_mesh,
+                tile=max(256, -(-self.tc.chunk // self.mesh.world_size)),
+                occ_grid=self.occ_grid,
+                viewdirs=None if vd is None else t(vd))["rgb_map"]
+        else:
+            img = render_image(params, t(o), t(d), dataset.H, dataset.W,
+                               self.rc, tile=self.tc.chunk,
+                               occ_grid=self.occ_grid,
+                               viewdirs=None if vd is None else t(vd))
         return img.float().cpu().numpy(), gt
 
     def _validate(self, dataset, n_images: Optional[int] = None):
@@ -246,9 +320,12 @@ class Trainer:
             from nerfmlp_torch.utils.image import save_png
 
             img, _ = self._render_view(self.val_ds, 0)
-            save_png(os.path.join(self.save_dir, f"val_{step:06d}.png"), img)
+            if self.is_main:
+                save_png(os.path.join(self.save_dir, f"val_{step:06d}.png"),
+                         img)
         except Exception as e:
             self._log(f"(val image dump skipped: {e})")
+        self._sync()
 
     def _video_event(self, step: int) -> None:
         """The orbit as rgb and disparity videos,
@@ -263,22 +340,27 @@ class Trainer:
             ds = self.train_ds
             kw = dict(render_factor=self.tc.render_factor,
                       occ_grid=self.occ_grid, verbose=False,
-                      tile=self.tc.chunk)
+                      tile=self.tc.chunk, mesh=self.render_mesh)
             rgbs, disps, _ = render_path(self.state.params, self.render_poses,
                                          (ds.H, ds.W, ds.focal), self.rc, **kw)
             expname = os.path.basename(os.path.normpath(self.save_dir))
             base = os.path.join(self.save_dir, f"{expname}_spiral_{step:06d}")
-            rgb_path, disp_path = save_path_videos(base, rgbs, disps)
-            self._log(f"🎬 i_video @ {step:,}: {rgb_path}, {disp_path}")
+            if self.is_main:
+                rgb_path, disp_path = save_path_videos(base, rgbs, disps)
+                self._log(f"🎬 i_video @ {step:,}: {rgb_path}, {disp_path}")
             if self.rc.use_viewdirs:
                 stills, _, _ = render_path(
                     self.state.params, self.render_poses,
                     (ds.H, ds.W, ds.focal), self.rc,
                     static_cam_pose=np.asarray(self.render_poses)[0], **kw)
-                still_path = write_video(base + "_rgb_still", to8b(stills))
-                self._log(f"🎬 i_video @ {step:,}: {still_path} (static cam)")
+                if self.is_main:
+                    still_path = write_video(base + "_rgb_still",
+                                             to8b(stills))
+                    self._log(f"🎬 i_video @ {step:,}: {still_path} "
+                              "(static cam)")
         except Exception as e:
             self._log(f"(i_video event failed: {e})")
+        self._sync()
 
     def _testset_event(self, step: int) -> None:
         """Every test pose rendered to ``testset_{step:06d}/{i:03d}.png``
@@ -300,7 +382,7 @@ class Trainer:
             _, _, psnrs = render_path(
                 self.state.params, ds.poses, (H, W, focal), self.rc,
                 gt_images=gt, tile=self.tc.chunk, occ_grid=self.occ_grid,
-                save_dir=out_dir, verbose=False)
+                save_dir=out_dir, verbose=False, mesh=self.render_mesh)
             if psnrs:
                 mean_p = float(np.mean(psnrs))
                 self.history["testset_psnrs"].append(mean_p)
@@ -312,14 +394,17 @@ class Trainer:
                 self._log(f"🧪 i_testset @ {step:,}: frames -> {out_dir}")
         except Exception as e:
             self._log(f"(i_testset event failed: {e})")
+        self._sync()
 
     def _mesh_event(self, step: int) -> None:
         """A density-isosurface ``<expname>_mesh_{step:06d}.ply`` of the
         current weights (``ops/mesh.py``), packed from them here: under
         ``steps_per_dispatch`` the replays update the nets in place, so no
         earlier packing is current. Without ``rc.aabb`` it warns once and
-        skips. Best-effort."""
+        skips. Best-effort. Rank 0 alone extracts it."""
         try:
+            if not self.is_main:
+                return
             if self.rc.aabb is None:
                 if not self._mesh_warned:
                     self._mesh_warned = True
@@ -341,6 +426,8 @@ class Trainer:
                       f"{mesh['sigma_max']:.3g}) -> {path}")
         except Exception as e:
             self._log(f"(i_mesh event failed: {e})")
+        finally:
+            self._sync()
 
     def quick_validate(self) -> Optional[Dict[str, float]]:
         return self._validate(self.quick_val_ds, self.tc.quick_val_subset)
@@ -406,6 +493,7 @@ class Trainer:
             self._log(f"⚠️  no history sidecar at {hist_path} — metric "
                       "histories start empty (step comes from the state)")
         self.history["step"] = max(int(self.history.get("step", 0)), st.step)
+        self._replicate()
         if self.occ_grid is not None:
             # The grid is derived state: one refresh with decay 0 rebuilds
             # it from the restored nets (an EMA step on the fresh grid
@@ -432,13 +520,17 @@ class Trainer:
 
     def _save_resumable(self, name: str = "metrics_latest.pt",
                         history: Optional[Dict] = None) -> None:
+        if not self.is_main:
+            return
         path = os.path.join(self.save_dir, name)
         ckpt.save_checkpoint(path, self.state)
         ckpt.save_metrics_json(path.rsplit(".", 1)[0] + ".history.json",
                                self.history if history is None else history)
 
     def _save_params(self, name: str) -> None:
-        ckpt.save_params(os.path.join(self.save_dir, name), self.state.params)
+        if self.is_main:
+            ckpt.save_params(os.path.join(self.save_dir, name),
+                             self.state.params)
 
     # ------------------------------------------------------------------ #
 
@@ -513,12 +605,13 @@ class Trainer:
                 metrics = self.windows.run_pool(w)
             elif windowed:
                 metrics = self.windows.run_host(np.stack(
-                    [self.loader.next_batch() for _ in range(w)]))
+                    [self._host_batch() for _ in range(w)]))
             else:
                 if pool_active:
                     batch = self.pool.batch(s - 1)
                 else:
-                    batch = torch.from_numpy(self.loader.next_batch()).to(
+                    batch = torch.from_numpy(
+                        np.ascontiguousarray(self._host_batch())).to(
                         dev, non_blocking=True)
                 metrics = self.step_fn(self.state, batch, *occ_args)
                 sums.add_(torch.stack((metrics["loss"], metrics["psnr"])))
@@ -553,6 +646,7 @@ class Trainer:
                 run_loss, run_psnr = sums.tolist()
                 self._quick_val_block(step, iters, start_time, run_loss,
                                       run_psnr, run_count)
+                self._sync()
                 sums.zero_()
                 run_count = 0
                 t_prev = time.time()
@@ -573,6 +667,7 @@ class Trainer:
 
             if tc.ckpt_interval and step % tc.ckpt_interval == 0:
                 self._save_params(f"model_{step}.pt")
+                self._sync()
 
             # Render events, never on the last step (the end-of-run
             # artefacts come from the final model).
@@ -617,9 +712,11 @@ class Trainer:
         comprehensive = dict(self.history, final_val=final,
                              config=self._config_dict(),
                              total_training_time=time.time() - start_time)
-        ckpt.save_metrics_json(
-            os.path.join(self.save_dir, "comprehensive_metrics.json"),
-            comprehensive)
+        if self.is_main:
+            ckpt.save_metrics_json(
+                os.path.join(self.save_dir, "comprehensive_metrics.json"),
+                comprehensive)
+        self._sync()
         return comprehensive
 
     def _quick_val_block(self, step, iters, start_time, run_loss, run_psnr,
@@ -664,6 +761,8 @@ class Trainer:
             self._log(f"🏆 Best model saved at iter {step:,} with quick val "
                       f"PSNR {qm['psnr']:.2f}")
         self._save_resumable()
+        if not self.is_main:
+            return
         snapshot = dict(self.history, config=self._config_dict())
         ckpt.save_metrics_json(
             os.path.join(self.save_dir, "metrics_latest.json"), snapshot)

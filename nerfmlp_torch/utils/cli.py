@@ -10,8 +10,8 @@ Counterpart of ``nerfmlp_tpu/utils/cli.py`` (``add_arch_flags``,
 ``render_frame``, ``dataset_class``; ``params_template`` becomes
 :func:`load_params`: the port reads a ``.ckpt`` without a template) and of
 the config-file helpers in ``scripts/train.py:23-92`` (the oracle reads ``key
-= value`` files through configargparse). Rendering over several devices
-(ROADMAP.md, Queue 1 item 18) is refused by name.
+= value`` files through configargparse). ``--shard_render`` renders each
+frame over every visible card (``parallel/render_parallel.py``).
 """
 
 from __future__ import annotations
@@ -88,10 +88,6 @@ def resolve_tile(args) -> int:
     return 16384 if getattr(args, "use_occupancy", False) else 4096
 
 
-NOT_PORTED_SHARDING = ("rendering over several devices (ROADMAP.md, Queue 1 "
-                       "item 18)")
-
-
 def add_device_flags(p) -> None:
     """--device (default cuda) and --no_kernel (alias --no_pallas)."""
     p.add_argument("--device", type=str, default="cuda",
@@ -151,16 +147,26 @@ def dataset_kwargs(args) -> dict:
 
 
 def add_shard_flag(p) -> None:
-    """--shard_render, kept so that a JAX command line reads here; the
-    CLIs refuse it (:func:`refuse_shard_render`)."""
+    """--shard_render for the scripts that load a checkpoint: each frame
+    through :func:`nerfmlp_torch.parallel.render_image_sharded` (the pixel
+    grid dealt over every visible card, the weights replicated) instead
+    of the local tiled renderer; with one device the local renderer runs,
+    with a note."""
     p.add_argument("--shard_render", action="store_true",
-                   help=f"not ported: {NOT_PORTED_SHARDING}")
+                   help="shard each frame's pixel grid over all visible "
+                        "cards (the weights replicate, every card renders "
+                        "its tiles)")
 
 
-def refuse_shard_render(args) -> None:
-    if getattr(args, "shard_render", False):
-        raise SystemExit(f"--shard_render: {NOT_PORTED_SHARDING} is not "
-                         "ported to PyTorch yet")
+def shard_devices(dev) -> list:
+    """The devices a frame shards over from ``dev``: every visible card
+    for ``cuda``, else ``dev`` alone."""
+    import torch
+
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
 
 
 def dataset_class(dataset_type: str):
@@ -210,8 +216,11 @@ def build_occ_grid(args, rc, params, parser):
 def render_frame(args, params, o, d, H, W, rc, occ_grid=None,
                  viewdirs=None):
     """One (H, W, 3) numpy frame of host rays (H*W, 3), rendered on the
-    nets' device in tiles of :func:`resolve_tile` rays. ``params``: packed
-    by the caller (``ops/render.py::prepare_params``)."""
+    nets' device in tiles of :func:`resolve_tile` rays, or under
+    ``--shard_render`` with more than one visible card over all of them
+    (``--tile`` stays the rays per dispatch: each card's tile is ``ceil(tile
+    / n)``, at least 256, as in ``nerfmlp_tpu/utils/cli.py:140-175``).
+    ``params``: packed by the caller (``ops/render.py::prepare_params``)."""
     import torch
 
     from nerfmlp_torch.ops.render import render_image
@@ -223,8 +232,21 @@ def render_frame(args, params, o, d, H, W, rc, occ_grid=None,
         return None if a is None else torch.as_tensor(
             np.asarray(a, np.float32), device=dev)
 
+    tile = resolve_tile(args)
+    if getattr(args, "shard_render", False):
+        devices = shard_devices(dev)
+        if len(devices) > 1:
+            from nerfmlp_torch.parallel.render_parallel import (
+                render_image_sharded,
+            )
+
+            return render_image_sharded(
+                params, t(o), t(d), H, W, rc, devices,
+                tile=max(256, -(-tile // len(devices))), occ_grid=occ_grid,
+                viewdirs=t(viewdirs))["rgb_map"].float().cpu().numpy()
+        print("--shard_render: one visible device; using the local renderer")
     return render_image(params, t(o), t(d), H, W, rc,
-                        tile=resolve_tile(args), occ_grid=occ_grid,
+                        tile=tile, occ_grid=occ_grid,
                         viewdirs=t(viewdirs)).float().cpu().numpy()
 
 

@@ -216,9 +216,9 @@ def test_shipped_config_runs(scene, tmp_path, capsys):
     assert (cfg["N_samples"], cfg["N_importance"]) == (16, 48)
 
 
+# --shard_render left this list when frames could be rendered over several
+# devices (tests/test_torch_parallel.py::test_shard_render_on_one_device).
 @pytest.mark.parametrize("cli, extra, match", [
-    (render_video, ["--shard_render"], "item 18"),
-    (render_example, ["--shard_render"], "item 18"),
     (eval_cli, ["--lpips"], "lpips"),
 ])
 def test_refusals_that_stay(scene, cli, extra, match):

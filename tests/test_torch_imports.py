@@ -50,7 +50,10 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
             "nerfmlp_torch.scripts.train_multi_scene",
             "nerfmlp_torch.train.flax_msgpack",
             "nerfmlp_torch.scripts.make_synthetic_scene",
-            "nerfmlp_torch.scripts.convert_checkpoint"} <= set(mods)
+            "nerfmlp_torch.scripts.convert_checkpoint",
+            "nerfmlp_torch.parallel.mesh",
+            "nerfmlp_torch.parallel.render_parallel",
+            "nerfmlp_torch.parallel.checks"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -171,8 +171,12 @@ def test_render_path_without_gt_and_refusals(tmp_path):
     rgb, disp = save_path_videos(str(tmp_path / "v"), rgbs, disps)
     assert rgb.endswith("v_rgb.gif") and disp.endswith("v_disp.gif")
     assert os.path.getsize(rgb) > 0 and os.path.getsize(disp) > 0
-    with pytest.raises(NotImplementedError, match="item 18"):
-        render_path(tp, _poses(1), HWF, cfg, mesh=object())
+    # mesh= was refused until frames could be rendered over several
+    # devices: over two (here both the CPU) the frames are the local ones.
+    shard = render_path(tp, _poses(2), HWF, cfg, verbose=False,
+                        mesh=["cpu", "cpu"])
+    np.testing.assert_allclose(shard[0], rgbs, rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(shard[1], disps, rtol=2e-4, atol=2e-5)
 
 
 def test_trainer_render_events(scene, tmp_path):

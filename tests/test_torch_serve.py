@@ -164,7 +164,7 @@ def test_http_routes(server_url):
     status, body, _ = _http(server_url + "/spec")
     spec = json.loads(body)
     assert status == 200 and spec["defaults"]["W"] == 16
-    assert spec["not_ported"] == ["multi-device sharding"]
+    assert "not_ported" not in spec and spec["devices"] == ["cpu"]
     assert {"POST /mesh", "POST /reload"} <= set(spec["routes"])
     assert spec["render_config"]["use_kernel"] is False
     status, body, ctype = _http(server_url + "/render", json.dumps(

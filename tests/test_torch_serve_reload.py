@@ -365,7 +365,7 @@ def test_http_mesh_and_reload_routes(tmp_path):
         with urllib.request.urlopen(url + "/spec", timeout=30) as r:
             spec = json.loads(r.read())
         assert spec["hot_reload"] and spec["watch_dir"] == str(tmp_path)
-        assert spec["not_ported"] == ["multi-device sharding"]
+        assert "not_ported" not in spec and spec["devices"] == ["cpu"]
     finally:
         server.shutdown()
         server.server_close()
