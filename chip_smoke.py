@@ -180,12 +180,29 @@ Phases, each fatal on failure:
      CLI with --n_devices 1 in this process (with one visible card also
      bit-equal to the run without the flag); the four kernels at a rank's
      shapes (32,768 coarse and 65,536 fine points), held and timed.
+ 14. JPEG captures and the Trainer's extras ("jpeg"): every committed
+     JPEG of tests/data/jpeg/ decoded by the port's decoder and held to
+     its stored Pillow decode (0 levels; the decode rate per megapixel on
+     this host printed beside the card); the train CLI on
+     configs/fern.txt as it is with --factor 4 on the committed 384x288
+     JPEG images/ of phase 8's 12-view capture (the loader minifies them
+     to 96x72 PNGs), 400 steps through the kernels with --profile_dir and
+     --check_numerics: held-out PSNR >= 20 dB and within 1 dB of the same
+     capture's PNG renders (written on the card) trained alike (phase 8's
+     run printed beside them), 2 launches of each kernel a step, the trace
+     of steps 10-29
+     parsed (40 launches of each kernel, device ms per launch), the four
+     kernels held against their plain versions on the net of that window
+     at the run's call; the same run without --check_numerics, both step
+     times printed; --tensorboard refused by name where the tensorboard
+     package does not import, else its event file written.
 Then it prints the kernels' JSON line, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Weights are random, from a seed.
 It exits non-zero, printing no result, without a CUDA device.
 ``--only multi_scene`` runs the build, phase 5 and phase 11 alone;
 ``--only interchange`` the build, phases 5 and 6 and phase 12;
-``--only parallel`` the build, phase 5 and phase 13.
+``--only parallel`` the build, phase 5 and phase 13;
+``--only jpeg`` the build and phase 14.
 """
 
 import contextlib
@@ -1659,15 +1676,44 @@ def train_cli_run(tag, argv, steps):
     return metrics, launches, launches[0] - rendered, wall, tr.args[0][0]
 
 
+def write_llff_scene(root):
+    """Phase 8's forward capture (LLFF_VIEWS views of LLFF_WH) under a fresh
+    ``root`` (no auto-resume of a rerun), as a pre-minified images_8/:
+    the scene's directory."""
+    from nerfmlp_torch.data.synthetic import make_synthetic_llff_scene
+
+    t0 = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    scene = os.path.join(root, "scene")
+    make_synthetic_llff_scene(scene, n_images=LLFF_VIEWS, img_wh=LLFF_WH,
+                              style="forward", seed=SEED)
+    os.rename(os.path.join(scene, "images"), os.path.join(scene, "images_8"))
+    print(f"[llff] forward-facing scene {LLFF_WH[0]}x{LLFF_WH[1]}, "
+          f"{LLFF_VIEWS} views as a pre-minified images_8/, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return scene
+
+
+def fern_argv(scene, save_dir, extra=()):
+    """The train CLI on configs/fern.txt as it is; on the command line only
+    what the scene and the time limit force: the data and save dirs, the
+    steps, the interval of the videos (8 frames) and of a quick validation
+    (the loss is read there)."""
+    return ["--config", os.path.join(ROOT, "configs", "fern.txt"),
+            "--datadir", scene, "--save_dir", save_dir,
+            "--iters", str(LLFF_STEPS), "--i_video", str(LLFF_EVENT),
+            "--video_frames", str(INF_FRAMES), "--quick_val_interval",
+            str(LLFF_EVENT)] + list(extra)
+
+
 def phase_llff(net):
     """Forward-facing (LLFF, NDC) and DeepVoxels scenes as a user runs them
     (the module docstring, phase 8). Returns the llff path's records: its
     forward launches, the kernel records at its shapes and the train CLI
-    run's backward launches."""
+    run's backward launches, and the kernel run's held-out PSNR."""
     import numpy as np
 
     from nerfmlp_torch.data.llff import LLFFDataset
-    from nerfmlp_torch.data.synthetic import make_synthetic_llff_scene
     from nerfmlp_torch.ops import fused_mlp
     from nerfmlp_torch.ops import render as render_mod
     from nerfmlp_torch.ops.render import prepare_params, render_image_maps
@@ -1680,27 +1726,12 @@ def phase_llff(net):
 
     t0 = time.perf_counter()
     root = os.path.join(SMOKE_DIR, "llff")
-    shutil.rmtree(root, ignore_errors=True)     # no auto-resume of a rerun
-    scene = os.path.join(root, "scene")
-    make_synthetic_llff_scene(scene, n_images=LLFF_VIEWS, img_wh=LLFF_WH,
-                              style="forward", seed=SEED)
-    os.rename(os.path.join(scene, "images"), os.path.join(scene, "images_8"))
-    print(f"[llff] forward-facing scene {LLFF_WH[0]}x{LLFF_WH[1]}, "
-          f"{LLFF_VIEWS} views as a pre-minified images_8/, in "
-          f"{time.perf_counter() - t0:.1f} s")
-
-    # configs/fern.txt as it is; on the command line only what this scene
-    # and the time limit force: the data and save dirs, the steps, the
-    # interval of the videos (8 frames) and of a quick validation (the loss
-    # is read there).
+    scene = write_llff_scene(root)
     runs = {}
     for name, extra in (("kernel", []), ("plain", ["--no_kernel"])):
-        argv = ["--config", os.path.join(ROOT, "configs", "fern.txt"),
-                "--datadir", scene, "--save_dir", os.path.join(root, name),
-                "--iters", str(LLFF_STEPS), "--i_video", str(LLFF_EVENT),
-                "--video_frames", str(INF_FRAMES), "--quick_val_interval",
-                str(LLFF_EVENT)] + extra
-        runs[name] = train_cli_run(f"llff {name}", argv, LLFF_STEPS)
+        runs[name] = train_cli_run(
+            f"llff {name}", fern_argv(scene, os.path.join(root, name), extra),
+            LLFF_STEPS)
     metrics, launches, step_fwd, _, trainer = runs["kernel"]
     plain_metrics, plain_launches = runs["plain"][:2]
     rc = trainer.rc
@@ -1873,7 +1904,8 @@ def phase_llff(net):
     print(f"[llff] phase took {time.perf_counter() - t0:.1f} s")
     return {"fwd_launches": launches[0] + rv_launches + served_launches,
             "bwd_launches": launches[1:], "tile": tile,
-            "fwd_train": fwd_train, "bwd": bwd, "phases": phases}
+            "fwd_train": fwd_train, "bwd": bwd, "phases": phases,
+            "psnr": final}
 
 
 def kernel_trace(prof):
@@ -4011,6 +4043,256 @@ def phase_parallel(train_run, card):
     return recs
 
 
+# --------------------------------------------------------------------- #
+# Phase 14: JPEG captures and the Trainer's extras ("jpeg")
+# --------------------------------------------------------------------- #
+JPEG_DIR = os.path.join(ROOT, "tests", "data", "jpeg")   # the fixtures
+JPEG_FACTOR = 4           # 384x288 JPEG images/ -> 96x72, phase 8's size
+JPEG_CAPTURE_WH = (384, 288)
+JPEG_TRACED = 20          # steps 10-29 in the --profile_dir trace: 2
+#                           launches of each kernel a step (coarse, fine)
+
+
+def jpeg_decode_rate(repeats=3):
+    """Seconds per megapixel of the port's JPEG decoder on this host: the
+    committed capture's twelve 384x288 views, the best of ``repeats``
+    passes. Runs anywhere (no card): ``python -c "import chip_smoke;
+    print(chip_smoke.jpeg_decode_rate())"``."""
+    sys.path.insert(0, ROOT)
+    from nerfmlp_torch.utils.jpeg import read_jpeg
+
+    images = os.path.join(JPEG_DIR, "capture", "images")
+    paths = [os.path.join(images, n) for n in sorted(os.listdir(images))]
+    best = float("inf")
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        pixels = 0
+        for p in paths:
+            px = read_jpeg(p)
+            pixels += px.shape[0] * px.shape[1]
+        best = min(best, (time.perf_counter() - t0) / (pixels / 1e6))
+    return best
+
+
+def check_jpeg_fixtures(card):
+    """Every committed JPEG against the Pillow decode stored with it: the
+    sha256 of its RGB pixels (max |err| 0 levels) and, for the decoder
+    cases, their PNG; the decode rate printed beside the card."""
+    import hashlib
+
+    import numpy as np
+
+    from nerfmlp_torch.utils.image import read_png
+    from nerfmlp_torch.utils.jpeg import read_jpeg
+
+    with open(os.path.join(JPEG_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    bad = []
+    for name, want in sorted(manifest.items()):
+        px = read_jpeg(os.path.join(JPEG_DIR, name))
+        if px.shape[2] == 1:
+            px = np.repeat(px, 3, axis=2)
+        same = (list(px.shape) == want["shape"] and hashlib.sha256(
+            px.tobytes()).hexdigest() == want["sha256"])
+        if name.startswith("cases/"):
+            same = same and np.array_equal(px, read_png(os.path.join(
+                JPEG_DIR, name[:-4] + ".png")))
+        if not same:
+            bad.append(name)
+    rate = jpeg_decode_rate()
+    print(f"[jpeg] {len(manifest)} committed JPEGs decoded, {len(bad)} "
+          f"departing from their Pillow decodes {bad}; decoder "
+          f"{rate:.3f} s per megapixel on this host (the capture's 12 "
+          f"views, best of 3) | {card}")
+    if bad:
+        raise SystemExit("[jpeg] the decoder departs from Pillow's pixels")
+    return rate
+
+
+def image_dirs_psnr(a, b):
+    """Mean PSNR (dB, 8-bit pixels) between the images of two directories,
+    paired in sorted order."""
+    import numpy as np
+
+    from nerfmlp_torch.utils.image import read_rgb
+
+    out = []
+    for x, y in zip(sorted(os.listdir(a)), sorted(os.listdir(b))):
+        d = (read_rgb(os.path.join(a, x)).astype(np.float64)
+             - read_rgb(os.path.join(b, y))) / 255.0
+        out.append(-10.0 * np.log10(max(float(np.mean(d * d)), 1e-10)))
+    return float(np.mean(out))
+
+
+def trace_file_kernels(path):
+    """(launches, device ms in all) of each of the four kernels in an
+    exported Chrome trace, by kernel_trace's rule (kernel events whose name
+    holds the kernel's)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    found = [[0, 0.0] for _ in KERNEL_NAMES]
+    for e in events:
+        if e.get("cat") == "kernel":
+            for f, kernel in zip(found, KERNEL_NAMES):
+                if kernel in e.get("name", ""):
+                    f[0] += 1
+                    f[1] += e.get("dur", 0.0) / 1e3
+    return tuple((n, ms) for n, ms in found)
+
+
+def phase_jpeg(png_psnr, card):
+    """JPEG captures and the Trainer's extras (the module docstring, phase
+    14). ``png_psnr``: phase 8's PNG run's held-out PSNR, printed beside
+    this phase's (None: not run). Returns four records (path ``jpeg``):
+    the run's launches, device ms per launch from its --profile_dir trace,
+    the kernels held on the run's net as the trace closed."""
+    import copy
+    import importlib.util
+
+    from nerfmlp_torch.data.llff import LLFFDataset
+    from nerfmlp_torch.data.synthetic import make_synthetic_llff_scene
+    from nerfmlp_torch.scripts import train as train_cli
+    from nerfmlp_torch.train import loop
+
+    t0 = time.perf_counter()
+    check_jpeg_fixtures(card)
+    root = os.path.join(SMOKE_DIR, "jpeg")
+    shutil.rmtree(root, ignore_errors=True)
+    scene = os.path.join(root, "scene")
+    shutil.copytree(os.path.join(JPEG_DIR, "capture"), scene)
+    prof = os.path.join(root, "prof")
+    flags = ["--factor", str(JPEG_FACTOR), "--profile_dir", prof]
+    # The same capture as PNG: the JPEG run is held against it, since
+    # phase 8's 96x72 renders are point-sampled where the minified 384x288
+    # views are area-averaged (they lie ~33 dB apart, the q90 JPEGs ~50 dB
+    # from their PNGs).
+    twin = os.path.join(root, "png_twin")
+    make_synthetic_llff_scene(twin, n_images=LLFF_VIEWS,
+                              img_wh=JPEG_CAPTURE_WH, style="forward",
+                              seed=SEED, device="cuda")
+    twin_psnr = train_cli_run("jpeg png twin", fern_argv(
+        twin, os.path.join(root, "png_run"), ["--factor", str(JPEG_FACTOR)]),
+        LLFF_STEPS)[0]["final_val"]["psnr"]
+
+    # The net as the trace closes (steps 10-29), for the kernel checks.
+    window = {}
+    stop = loop.Trainer._stop_trace
+
+    def keep_net(self, *a):
+        window["net"] = copy.deepcopy(self.state.params["coarse"])
+        window["path"] = stop(self, *a)
+        return window["path"]
+
+    loop.Trainer._stop_trace = keep_net
+    try:
+        metrics, launches, step_fwd, wall, trainer = train_cli_run(
+            "jpeg checked", fern_argv(scene, os.path.join(root, "checked"),
+                                      flags + ["--check_numerics"]),
+            LLFF_STEPS)
+    finally:
+        loop.Trainer._stop_trace = stop
+    fdir = os.path.join(scene, f"images_{JPEG_FACTOR}")
+    minified = sorted(os.listdir(fdir))
+    final = metrics["final_val"]["psnr"]
+    # How far apart the image sets lie: the minified JPEGs from the
+    # minified PNGs, and phase 8's point-sampled 96x72 renders from the
+    # minified ones.
+    point = os.path.join(root, "point_sampled")
+    make_synthetic_llff_scene(point, n_images=LLFF_VIEWS, img_wh=LLFF_WH,
+                              style="forward", seed=SEED, device="cuda")
+    twin_min = os.path.join(twin, f"images_{JPEG_FACTOR}")
+    print(f"[jpeg] minified views, mean PSNR between the sets: the JPEGs' vs "
+          f"the PNGs' {image_dirs_psnr(fdir, twin_min):.2f} dB; phase 8's "
+          f"point-sampled renders vs the PNGs' "
+          f"{image_dirs_psnr(os.path.join(point, 'images'), twin_min):.2f} dB")
+    traced = trace_file_kernels(window["path"])
+    print(f"[jpeg] fern from JPEG images/ at --factor {JPEG_FACTOR}: "
+          f"{len(minified)} PNGs in images_{JPEG_FACTOR}/, trained at "
+          f"{metrics['config']['full_val_res']}; held-out PSNR {final:.2f} dB "
+          f"vs the same capture as PNG {twin_psnr:.2f} dB (gap "
+          f"{abs(final - twin_psnr):.2f}, limit {PSNR_GAP}; floor "
+          f"{PSNR_MIN}); phase 8's point-sampled 96x72 PNG run "
+          + ("not run" if png_psnr is None else f"{png_psnr:.2f} dB")
+          + f"; trace {os.path.basename(window['path'])}: "
+          f"{[n for n, _ in traced]} launches (want "
+          f"{2 * JPEG_TRACED} each) | {card}")
+    want = 2 * LLFF_STEPS
+    if not (len(minified) == LLFF_VIEWS
+            and all(n.endswith(".png") for n in minified)
+            and metrics["config"]["full_val_res"] == list(LLFF_WH)
+            and final >= PSNR_MIN and abs(final - twin_psnr) <= PSNR_GAP
+            and step_fwd == want and launches[1:] == [want] * 3
+            and all(n == 2 * JPEG_TRACED for n, _ in traced)):
+        raise SystemExit("[jpeg] the JPEG capture's run failed its checks")
+
+    # The kernels on the net of the traced window, at the run's call.
+    ds = LLFFDataset(scene, "train", img_wh=LLFF_WH, factor=JPEG_FACTOR)
+    kcfg = dataclasses.replace(slice_config(), N_importance=LLFF_SAMPLES,
+                               near=0.0, far=1.0, ndc=True, white_bkgd=False)
+    pts, dirs = ndc_points(kcfg, ds.render_poses(n_frames=INF_FRAMES)[0],
+                          (ds.H, ds.W, ds.focal), TRAIN_RAYS, LLFF_SAMPLES)
+    label = "jpeg run's net at step 29, train call"
+    fwd = check_kernel(window["net"], kcfg, pts, dirs, label, time_it=True)
+    _, phases = check_backward(window["net"], kcfg, pts, dirs, label,
+                               time_it=True)
+
+    # The same run without --check_numerics: the checks' cost.
+    _, _, _, plain_wall, _ = train_cli_run(
+        "jpeg unchecked", fern_argv(scene, os.path.join(root, "unchecked"),
+                                    flags), LLFF_STEPS)
+    print(f"[jpeg] train CLI step time (train() less its renders): "
+          f"--check_numerics {1e3 * wall / LLFF_STEPS:.2f} ms, without "
+          f"{1e3 * plain_wall / LLFF_STEPS:.2f} ms | {card}")
+
+    # --tensorboard: refused by name where the package does not import,
+    # else its event file written.
+    has_tb = importlib.util.find_spec("tensorboard") is not None
+    tb_dir = os.path.join(root, "tb")
+    try:
+        train_cli.main(fern_argv(scene, tb_dir, ["--factor", str(JPEG_FACTOR),
+                                                 "--tensorboard", "--iters",
+                                                 "1"]))
+        refused = None
+    except SystemExit as e:
+        refused = str(e)
+    events = glob.glob(os.path.join(tb_dir, "tb", "events.out.tfevents.*"))
+    print(f"[jpeg] --tensorboard with the tensorboard package "
+          f"{'present' if has_tb else 'absent'}: "
+          + (f"refused: {refused}" if refused else
+             f"accepted, {len(events)} event file(s) written"))
+    if (has_tb and (refused or not events)) or (not has_tb and not (
+            refused and "--tensorboard" in refused)):
+        raise SystemExit("[jpeg] --tensorboard was neither refused by name "
+                         "nor written")
+
+    recs = []
+    for (n, ms), (name, source, replaces), r, i in zip(
+            traced,
+            (("fused_mlp_fwd", "fused_mlp_fwd.cu", "pallas_mlp.py:264"),
+             ("fused_mlp_bwd_phase1", "fused_mlp_bwd.cu", "pallas_mlp.py:312"),
+             ("fused_mlp_bwd_phase2", "fused_mlp_bwd.cu", "pallas_mlp.py:386"),
+             ("fused_mlp_bwd_reduce", "fused_mlp_bwd.cu",
+              "pallas_mlp.py:327")),
+            (fwd, phases["phase1"], phases["phase2"], phases["reduce"]),
+            range(4)):
+        rec = {"name": name + "_jpeg", "path": "jpeg", "route": "cuda",
+               "source": "nerfmlp_torch/csrc/" + source,
+               "replaces": "nerfmlp_tpu/ops/" + replaces,
+               "launches": launches[i], "max_abs_err": r["max_abs_err"],
+               "ms": ms / n, "kernel_call_ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
+        if "module_ms" in r:
+            rec["module_ms"] = r["module_ms"]
+        recs.append(rec)
+        print(f"[jpeg] {name}: {launches[i]} launches in the run, "
+              f"{n} in the trace at {ms / n:.4f} ms each (device), "
+              f"{r['ms']:.4f} ms timed alone; plain {r['plain_ms']:.3f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | {card}")
+    print(f"[jpeg] phase took {time.perf_counter() - t0:.1f} s")
+    return recs
+
+
 def smi_line():
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -4054,6 +4336,12 @@ def main():
         print(json.dumps({"kernels": recs}))
         print(card)
         return 0
+    if sys.argv[1:] == ["--only", "jpeg"]:
+        # Phase 14 alone.
+        card = smi_line()
+        print(json.dumps({"kernels": phase_jpeg(None, card)}))
+        print(card)
+        return 0
     if sys.argv[1:] == ["--only", "multi_scene"]:
         # Phase 11 alone, after the single-scene run it is held against.
         train_ds, val_ds = make_scene()
@@ -4086,6 +4374,7 @@ def main():
     ms_run = phase_multi_scene(train_run["val"]["psnr"], card)
     interchange_recs = phase_interchange(train_run, turbo_ckpt, card)
     parallel_recs = phase_parallel(train_run, card)
+    jpeg_recs = phase_jpeg(llff["psnr"], card)
 
     # The forward runs on both paths, at different shapes: one record per
     # path, each with that path's launches and its fine call's times, and
@@ -4257,6 +4546,10 @@ def main():
     # Data parallelism (phase 13): each kernel at a rank's shapes, with
     # the launches of a rank's steps.
     kernels += parallel_recs
+    # JPEG captures (phase 14): each kernel's launches in the train CLI run
+    # on the JPEG capture, its device ms per launch from the run's own
+    # --profile_dir trace, held on the net of the traced window.
+    kernels += jpeg_recs
     for rec in bwds + [occ["bwd probe"], occ["bwd refine"], occ["bwd hi_lo"],
                        llff["bwd"]]:
         print(f"[backward] {rec['label']} call, all three kernels: "

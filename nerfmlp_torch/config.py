@@ -120,14 +120,6 @@ class RenderConfig:
         )
 
 
-# TrainConfig fields whose features this port does not have yet: a
-# non-default value raises in the Trainer, naming the ROADMAP item.
-TRAIN_NOT_PORTED = {
-    "profile_dir": "profiling traces in the Trainer (ROADMAP.md, Queue 1 "
-                   "item 21)",
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Optimization & loop configuration, the JAX package's
@@ -139,8 +131,8 @@ class TrainConfig:
     on ``cuda`` one captured CUDA graph of the step, replayed (the JAX
     package's jitted ``lax.scan``; ``train/graph.py``), on the CPU the same
     step body eagerly; windows end at every step where the host has work.
-    The profiling field in ``TRAIN_NOT_PORTED`` is kept and refused when
-    set.
+    ``profile_dir``: a ``torch.profiler`` trace of steps 10-29 of each
+    ``Trainer.train()`` call is written there (``train/loop.py``).
     """
 
     batch_size: int = 1024
@@ -160,7 +152,7 @@ class TrainConfig:
     precrop_iters: int = 0       # central-crop sampling for the first N iters
     precrop_frac: float = 0.5
     no_batching: bool = False    # sample each batch from ONE random image
-    profile_dir: str = ""
+    profile_dir: str = ""        # torch.profiler trace of steps 10-29
     i_video: int = 0
     i_testset: int = 0
     i_img: int = 0

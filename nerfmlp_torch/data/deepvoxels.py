@@ -121,12 +121,9 @@ class DeepVoxelsDataset:
     def _load_image(self, fname: str) -> np.ndarray:
         """(H, W, 3) float32 as ``Image.open(f).convert("RGB")`` and, at
         another size, a LANCZOS resize give it."""
-        from nerfmlp_torch.utils.image import read_png, resize_lanczos
+        from nerfmlp_torch.utils.image import read_rgb, resize_lanczos
 
-        px = read_png(fname)
-        if px.shape[2] in (1, 2):
-            px = np.repeat(px[..., :1], 3, axis=2)
-        px = resize_lanczos(px[..., :3], self.img_wh)
+        px = resize_lanczos(read_rgb(fname), self.img_wh)
         return px.astype(np.float32) / 255.0
 
     def _generate_rays(self) -> None:

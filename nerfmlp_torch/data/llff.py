@@ -7,12 +7,12 @@ The layout is COLMAP2LLFF's: ``poses_bounds.npy`` of shape (N, 17) — a
 3x5 ``[down | right | back | t | hwf]`` pose and two depth bounds per
 image — beside ``images/`` and its downsamples ``images_{factor}/``.
 
-Images are read by the port's PNG decoder and resized by
-``utils/image.py::resize_lanczos`` (Pillow's LANCZOS, bit for bit), where
-the JAX loader calls PIL. JPEG files are refused by name
-(``utils/image.py::refuse_jpeg``): real captures keep JPEGs in
-``images/`` and PNGs in ``images_{factor}/``, so ``--factor`` with a
-pre-minified directory loads them. The NDC projection runs
+Images, PNG or JPEG, are read by the port's decoders
+(``utils/image.py::read_rgb``; the JPEG pixels equal Pillow's) and resized
+by ``utils/image.py::resize_lanczos`` (Pillow's LANCZOS, bit for bit),
+where the JAX loader calls PIL. A missing ``images_{factor}/`` is minified
+from ``images/`` as the JAX loader does it, but written as lossless PNG
+(see :meth:`LLFFDataset._ensure_factor_dir`). The NDC projection runs
 ``ops/rays.py::ndc_rays`` on CPU tensors.
 """
 
@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from nerfmlp_torch.utils.image import (
-    IMAGE_EXTS, image_size, png_bytes, read_png, refuse_jpeg, resize_lanczos,
+    IMAGE_EXTS, image_size, png_bytes, read_image, read_rgb, resize_lanczos,
 )
 
 
@@ -148,16 +148,6 @@ def _image_files(d: str):
     return sorted(f for f in os.listdir(d) if f.lower().endswith(IMAGE_EXTS))
 
 
-def _read_rgb(path: str) -> np.ndarray:
-    """uint8 (H, W, 3) as ``Image.open(path).convert("RGB")`` gives it:
-    grey replicated, alpha dropped."""
-    refuse_jpeg(path)
-    px = read_png(path)
-    if px.shape[2] in (1, 2):
-        px = np.repeat(px[..., :1], 3, axis=2)
-    return px[..., :3]
-
-
 class LLFFDataset:
     """A forward-facing (or, with ``spherify``, a 360) capture, with the
     surface of BlenderDataset (``all_rays_*``, ``image_rays``, ``n_images``,
@@ -268,7 +258,7 @@ class LLFFDataset:
         self.poses = self.poses[keep]
         self.bounds = self.bounds[keep]
 
-        imgs = [resize_lanczos(_read_rgb(os.path.join(img_dir, files[i])),
+        imgs = [resize_lanczos(read_rgb(os.path.join(img_dir, files[i])),
                                self.img_wh).astype(np.float32) / 255.0
                 for i in keep]
         self.images = (np.stack(imgs, axis=0) if imgs
@@ -283,12 +273,19 @@ class LLFFDataset:
     @staticmethod
     def _ensure_factor_dir(datadir: str, factor: int) -> str:
         """``images_{factor}/``, made from ``images/`` by a LANCZOS minify
-        (to ``size // factor``, each PNG in its own channels) when it does
-        not exist. It is built in ``images_{factor}.tmp/`` and renamed on
-        completion, so a killed run leaves no partial directory. A
-        pre-minified directory with no ``images/`` beside it is trusted;
-        one whose image count differs from ``images/``'s, or one that
-        holds no images but other files, is refused, never deleted."""
+        (to ``size // factor``, each image in its own channels) when it
+        does not exist. Every image is written as lossless PNG,
+        ``<stem>.png``: the JAX loader saves each under its own name, so
+        Pillow re-encodes a JPEG at quality 75
+        (``nerfmlp_tpu/data/llff.py:352-361``), and the port has no JPEG
+        encoder (ROADMAP.md, Queue 3). Both loaders read either directory.
+        Names whose stems collide, or whose order the new suffix would
+        change, are refused. The directory is built in
+        ``images_{factor}.tmp/`` and renamed on completion, so a killed
+        or refused run leaves no partial directory. A pre-minified
+        directory with no ``images/`` beside it is trusted; one whose image
+        count differs from ``images/``'s, or one that holds no images but
+        other files, is refused, never deleted."""
         out_dir = os.path.join(datadir, f"images_{factor}")
         src_dir = os.path.join(datadir, "images")
 
@@ -308,9 +305,12 @@ class LLFFDataset:
             raise FileNotFoundError(
                 f"--factor {factor}: neither {out_dir} nor {src_dir} exists"
             )
-        srcs = [os.path.join(src_dir, f) for f in _image_files(src_dir)]
-        for path in srcs:
-            refuse_jpeg(path)
+        names = _image_files(src_dir)
+        outs = [os.path.splitext(f)[0] + ".png" for f in names]
+        if len(set(outs)) != len(outs) or sorted(outs) != outs:
+            raise ValueError(
+                f"{src_dir}: the minified PNG names {outs} would collide or "
+                f"sort in another order than {names}; rename the images")
         tmp_dir = out_dir + ".tmp"
         if os.path.isdir(tmp_dir):
             shutil.rmtree(tmp_dir)
@@ -323,13 +323,16 @@ class LLFFDataset:
                 )
             shutil.rmtree(out_dir)
         os.makedirs(tmp_dir)
-        for path in srcs:
-            px = read_png(path)
-            px = resize_lanczos(px, (px.shape[1] // factor,
-                                     px.shape[0] // factor))
-            with open(os.path.join(tmp_dir, os.path.basename(path)),
-                      "wb") as f:
-                f.write(png_bytes(px))
+        try:
+            for name, out in zip(names, outs):
+                px = read_image(os.path.join(src_dir, name))
+                px = resize_lanczos(px, (px.shape[1] // factor,
+                                         px.shape[0] // factor))
+                with open(os.path.join(tmp_dir, out), "wb") as f:
+                    f.write(png_bytes(px))
+        except BaseException:
+            shutil.rmtree(tmp_dir)
+            raise
         os.replace(tmp_dir, out_dir)
         return out_dir
 

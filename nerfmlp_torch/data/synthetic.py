@@ -361,13 +361,15 @@ def make_synthetic_llff_scene(
     style: str = "360",
     radius: float = 4.0,
     seed: int = 0,
+    device=None,
 ) -> str:
     """Write an LLFF-layout scene (``poses_bounds.npy`` + ``images/``) of
     the default analytic field: ``style="360"`` puts the cameras on a ring
     around the object (the ``spherify`` workload), ``"forward"`` clusters
     them behind it looking down -z (the NDC forward-facing workload). The
     images are the linear renders, each stored with its ``hwf`` and its
-    camera distance -/+ 1.5 as bounds."""
+    camera distance -/+ 1.5 as bounds; ``device``: render them with torch
+    there (:func:`render_analytic`), not numpy."""
     rng = np.random.default_rng(seed)
     W, H = img_wh
     focal = 1.2 * W  # a long-ish lens, as captured LLFF scenes have
@@ -393,7 +395,8 @@ def make_synthetic_llff_scene(
         pose = look_at_matrix(eye, np.zeros(3))
         dist = float(np.linalg.norm(eye))
         near_k, far_k = dist - 1.5, dist + 1.5
-        img = render_analytic(pose, H, W, focal, near=near_k, far=far_k)
+        img = render_analytic(pose, H, W, focal, near=near_k, far=far_k,
+                              device=device)
         save_png(os.path.join(img_dir, f"image{k:03d}.png"),
                  (np.clip(img, 0, 1) * 255).round().astype(np.uint8))
         # LLFF stores 3x5 [down | right | back | t | hwf] + 2 depth bounds

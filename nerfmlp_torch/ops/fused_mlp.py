@@ -20,7 +20,9 @@ it and how it is built for Hopper.
   bias gradients; points and dirs get zeros. Nothing falls back from a
   kernel to a plain version. Each kernel's wrapper counts its launches:
   ``fused_nerf_mlp.launches``, ``bwd_workspace.launches``,
-  ``weight_grads.launches`` and ``reduce_partials.launches``.
+  ``weight_grads.launches`` and ``reduce_partials.launches``. Under
+  :func:`nerfmlp_torch.check_numerics` each wrapper checks what its kernel
+  wrote (or its plain version returned) for NaNs, naming the kernel.
 * :func:`pack_params` lays a net's weights out for the kernels once
   (transposed to ``(in, out)``, split at the skip and view layers, padded
   to multiples of 16 with zeros, bf16 — (hi, lo) bf16 pairs in the hi_lo
@@ -53,6 +55,9 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from nerfmlp_torch import (
+    check_nan, numerics_checked, numerics_scope, numerics_where,
+)
 from nerfmlp_torch.config import ModelConfig, RenderConfig
 from nerfmlp_torch.models.mlp import NeRFMLP
 from nerfmlp_torch.ops import _build
@@ -1201,6 +1206,7 @@ def _launch(packed: PackedMLP, pts: torch.Tensor,
         raise RuntimeError("fused_mlp_fwd launch failed: "
                            + lib.fused_mlp_fwd_error_string(rc).decode())
     fused_nerf_mlp.launches += 1
+    check_nan([("the output of the fused_mlp_fwd kernel", out)])
     return out
 
 
@@ -1231,6 +1237,7 @@ def reduce_partials(part: torch.Tensor, total: int) -> torch.Tensor:
                                             part.shape[-1], out.data_ptr(),
                                             total, scenes, stream))
     reduce_partials.launches += 1
+    check_nan([("the gradient of the fused_mlp_bwd_reduce kernel", out)])
     return out
 
 
@@ -1281,6 +1288,13 @@ def bwd_workspace(packed: PackedMLP, pts: torch.Tensor,
             min(scenes * -(-n_s // tile), _sm_count(index)),
             packed.bwd_smem, ws.data_ptr(), cap, stream))
     bwd_workspace.launches += 1
+    if numerics_checked():
+        rows = -(-n_s // tile) * tile
+        check_nan([(f"the workspace of the fused_mlp_bwd_phase1 kernel "
+                    f"({name})", ws_matrix(packed, ws, m)[
+                        :, s * rows:s * rows + n_s])
+                   for m, (name, _, _) in enumerate(packed.ws_mats)
+                   for s in range(scenes)])
     return ws
 
 
@@ -1318,6 +1332,8 @@ def weight_grads(packed: PackedMLP, ws: torch.Tensor, rows: int,
             part.data_ptr(), stride, part.stride(0) if packed.stack else 0,
             stream))
     weight_grads.launches += 1
+    check_nan([("the partial gradients of the fused_mlp_bwd_phase2 kernel",
+                part[..., :packed.grad_total])])
     return part
 
 
@@ -1403,17 +1419,23 @@ class _Call:
 
     def forward(self, pts, dirs) -> torch.Tensor:
         if self.packed is None:
-            return fused_nerf_mlp_stack_plain(self.nets, pts, dirs,
-                                              self.n_freqs, self.dt,
-                                              self.hi_lo)
+            out = fused_nerf_mlp_stack_plain(self.nets, pts, dirs,
+                                             self.n_freqs, self.dt,
+                                             self.hi_lo)
+            check_nan([("the output of the fused MLP's plain forward", out)])
+            return out
         return _launch(self.packed, pts, dirs)
 
     def backward(self, pts, dirs, g) -> List[Dict[str, torch.Tensor]]:
         """Each net's gradients, in the order of ``nets``."""
         if self.packed is None:
-            return fused_nerf_mlp_bwd_stack_plain(self.nets, pts, dirs, g,
-                                                  self.n_freqs, self.dt,
-                                                  self.hi_lo)
+            grads = fused_nerf_mlp_bwd_stack_plain(self.nets, pts, dirs, g,
+                                                   self.n_freqs, self.dt,
+                                                   self.hi_lo)
+            check_nan([(f"the fused MLP's plain backward's gradient of "
+                        f"{name}", t) for gr in grads
+                       for name, t in gr.items()])
+            return grads
         grads = unpack_grads(self.packed,
                              _launch_bwd(self.packed, pts, dirs, g))
         return grads if self.stacked else [grads]
@@ -1471,13 +1493,16 @@ class FusedMLPFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, call, pts, dirs, *net_params):
         ctx.call = call
+        ctx.where = numerics_where()
         ctx.save_for_backward(pts, dirs)
         return call.forward(pts, dirs)
 
     @staticmethod
     def backward(ctx, g):
         pts, dirs = ctx.saved_tensors
-        grads = ctx.call.backward(pts, dirs, g)
+        with numerics_scope("backward of the "
+                            + (ctx.where[-1] if ctx.where else "fused MLP")):
+            grads = ctx.call.backward(pts, dirs, g)
         d_pts = torch.zeros_like(pts) if ctx.needs_input_grad[1] else None
         d_dirs = (torch.zeros_like(dirs)
                   if dirs is not None and ctx.needs_input_grad[2] else None)

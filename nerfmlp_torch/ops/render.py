@@ -33,6 +33,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from nerfmlp_torch import check_nan, numerics_scope
 from nerfmlp_torch.config import RenderConfig
 from nerfmlp_torch.ops.encoding import positional_encoding
 from nerfmlp_torch.ops.fused_mlp import (
@@ -101,13 +102,22 @@ def _stack_nets(net):
 
 
 def _query_mlp(net, pts: torch.Tensor, viewdirs_enc: Optional[torch.Tensor],
-               cfg: RenderConfig, fine: bool = False) -> torch.Tensor:
+               cfg: RenderConfig, fine: bool = False,
+               call: str = "query") -> torch.Tensor:
     """Encode points + run the MLP. pts (N, S, 3) -> raw (N, S, 4).
 
     ``viewdirs_enc``: (N, E) per-ray encoded directions, broadcast over
     the samples, or None. ``fine`` selects the fine net's architecture.
     A stack of nets takes scene-major rays: the kernels in one launch, or
-    on the module path each scene's rays through its own net."""
+    on the module path each scene's rays through its own net. ``call``
+    names the query (coarse, fine, probe, ...) in the NaN checks'
+    errors (:func:`nerfmlp_torch.check_numerics`)."""
+    with numerics_scope(f"{call} call"):
+        return _run_mlp(net, pts, viewdirs_enc, cfg, fine)
+
+
+def _run_mlp(net, pts, viewdirs_enc, cfg, fine):
+    """:func:`_query_mlp`'s body."""
     n_rays, n_samples, _ = pts.shape
     if cfg.coord_scale != 1.0:
         pts = pts * cfg.coord_scale
@@ -120,8 +130,9 @@ def _query_mlp(net, pts: torch.Tensor, viewdirs_enc: Optional[torch.Tensor],
         ).reshape(n_rays * n_samples, -1)
     stack = _stack_nets(net)
     if uses_kernel(cfg, fine, backward=torch.is_grad_enabled()):
-        raw = fused_nerf_mlp(net, flat, dirs, cfg, mc=mc)
-    elif stack is not None:
+        return fused_nerf_mlp(net, flat, dirs, cfg, mc=mc).float().reshape(
+            n_rays, n_samples, 4)
+    if stack is not None:
         k = flat.shape[0] // len(stack)
         raw = torch.cat([
             module(positional_encoding(flat[i * k:(i + 1) * k], cfg.pos_enc_L),
@@ -132,6 +143,7 @@ def _query_mlp(net, pts: torch.Tensor, viewdirs_enc: Optional[torch.Tensor],
         module = net.net if isinstance(net, PackedMLP) else net
         enc = positional_encoding(flat, cfg.pos_enc_L)
         raw = module(enc, dirs, compute_dtype=_dtype(cfg))
+    check_nan([("the output of the MLP's module path", raw)])
     return raw.float().reshape(n_rays, n_samples, 4)
 
 
@@ -215,7 +227,7 @@ def render_rays(
         perturb=cfg.perturb, lindisp=cfg.lindisp, device=rays_o.device,
     )
     pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
-    raw = _query_mlp(params["coarse"], pts, viewdirs_enc, cfg)
+    raw = _query_mlp(params["coarse"], pts, viewdirs_enc, cfg, call="coarse")
     coarse = composite_rays(raw, z_vals, rays_d, generator=generator,
                             raw_noise_std=cfg.raw_noise_std,
                             white_bkgd=cfg.white_bkgd, far_cap=far_cap)
@@ -236,14 +248,16 @@ def render_rays(
         # fine pass would recompute there — query only the new depths and
         # merge into depth order.
         pts_new = rays_o[:, None, :] + rays_d[:, None, :] * z_samples[..., None]
-        raw_new = _query_mlp(fine_net, pts_new, viewdirs_enc, cfg)
+        raw_new = _query_mlp(fine_net, pts_new, viewdirs_enc, cfg,
+                             call="fine")
         z_vals_fine, raw_fine = _merge_by_depth(z_vals, raw, z_samples, raw_new)
     else:
         z_vals_fine, _ = torch.sort(torch.cat([z_vals, z_samples], dim=-1),
                                     dim=-1)
         pts_fine = (rays_o[:, None, :]
                     + rays_d[:, None, :] * z_vals_fine[..., None])
-        raw_fine = _query_mlp(fine_net, pts_fine, viewdirs_enc, cfg, fine=True)
+        raw_fine = _query_mlp(fine_net, pts_fine, viewdirs_enc, cfg,
+                              fine=True, call="fine")
     fine = composite_rays(raw_fine, z_vals_fine, rays_d, generator=generator,
                           raw_noise_std=cfg.raw_noise_std,
                           white_bkgd=cfg.white_bkgd, far_cap=far_cap)
@@ -285,20 +299,21 @@ def _render_occupancy(params, rays_o, rays_d, generator, cfg, near, far,
     net, is_fine = _final_net(params, cfg)
     det = not cfg.perturb
 
-    def query(z):
+    def query(z, call):
         pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
-        return _query_mlp(net, pts, viewdirs_enc, cfg, fine=is_fine)
+        return _query_mlp(net, pts, viewdirs_enc, cfg, fine=is_fine,
+                          call=call)
 
     if cfg.occ_one_shot or cfg.N_importance <= 0:
         # Stratified draws come out sorted: no per-ray sort.
         z_vals = sample_pdf(generator, z_dense, w_int,
                             cfg.N_samples + cfg.N_importance, det=det,
                             stratified=True).detach()
-        raw = query(z_vals)
+        raw = query(z_vals, "one-shot")
     else:
         z_probe = sample_pdf(generator, z_dense, w_int, cfg.N_samples,
                              det=det, stratified=True).detach()
-        raw_p = query(z_probe)
+        raw_p = query(z_probe, "probe")
         probe = composite_rays(raw_p, z_probe, rays_d, generator=generator,
                                raw_noise_std=cfg.raw_noise_std,
                                white_bkgd=cfg.white_bkgd, far_cap=far_cap)
@@ -306,7 +321,8 @@ def _render_occupancy(params, rays_o, rays_d, generator, cfg, near, far,
         z_new = sample_pdf(generator, z_mids,
                            probe["weights"][..., 1:-1].detach(),
                            cfg.N_importance, det=det).detach()
-        z_vals, raw = _merge_by_depth(z_probe, raw_p, z_new, query(z_new))
+        z_vals, raw = _merge_by_depth(z_probe, raw_p, z_new,
+                                      query(z_new, "refine"))
     out = composite_rays(raw, z_vals, rays_d, generator=generator,
                          raw_noise_std=cfg.raw_noise_std,
                          white_bkgd=cfg.white_bkgd, far_cap=far_cap)

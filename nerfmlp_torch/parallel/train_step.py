@@ -32,6 +32,10 @@ The step never reads a value back to the host and reads no host value
 that changes between steps: the step count it needs lives in a device
 counter, and metrics stay device tensors. So one step can be captured in
 a CUDA graph and replayed (``train/graph.py``, ``steps_per_dispatch``).
+The exception is :func:`nerfmlp_torch.check_numerics`: while it is on,
+the step reads back whether the loss, a gradient or a parameter after the
+update holds a NaN, and raises ``FloatingPointError`` naming it and the
+step (``make_step_fn``'s ``train step N``); such a step runs eagerly.
 Why a hand-written Adam and not ``torch.optim.Adam(capturable=True)``:
 the capturable mode refuses CPU tensors, and the CPU path has to run the
 very update that the graph replays.
@@ -59,7 +63,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from nerfmlp_torch import resolve_device
+from nerfmlp_torch import (
+    check_nan, numerics_checked, numerics_scope, resolve_device,
+)
 from nerfmlp_torch.config import RenderConfig, TrainConfig
 from nerfmlp_torch.models.mlp import NeRFMLP, init_model
 from nerfmlp_torch.ops import RankDraws
@@ -288,6 +294,13 @@ def _grads(params) -> list:
             for p in params]
 
 
+def _param_names(params: Dict) -> list:
+    """``{net}.{parameter}`` of every parameter, in the optimizer's order
+    (:func:`make_optimizer`)."""
+    return [f"{key}.{name}" for key, net in params.items()
+            for name, _ in net.named_parameters()]
+
+
 def _clip(grads, gnorm: torch.Tensor, tc: TrainConfig) -> None:
     """``clip_by_global_norm(tc.grad_clip)`` of ``grads`` in place, from
     their norm ``gnorm``; nothing when ``grad_clip`` is 0."""
@@ -316,18 +329,27 @@ def make_step_body(rc: RenderConfig, tc: TrainConfig, mesh=None):
              bounds=None) -> Dict[str, torch.Tensor]:
         opt = state.optimizer
         opt.zero_grad()
+        checked = numerics_checked()
+        names = _param_names(state.params) if checked else ()
         params = prepare_params(state.params, rc, backward=True)  # once a step
         loss, metrics = loss_and_metrics(params, batch,
                                          _draws(state.generator, mesh),
                                          rc, tc, occ_grid, bounds)
+        check_nan([("the loss", loss)])
         loss.backward()
         grads, (fine, total) = _all_reduce_mean(
             _grads(opt.params), (metrics["loss"], loss.detach()), mesh)
+        if checked:
+            check_nan([(f"the gradient of {n}", g)
+                       for n, g in zip(names, grads)])
         if mesh is not None:
             metrics = {"loss": fine, "psnr": psnr_of(fine)}
         gnorm = global_norm(grads)
         _clip(grads, gnorm, tc)
         opt.step(grads, lr_tensor(tc, state.counter))
+        if checked:
+            check_nan([(f"the parameter {n} after the update", p)
+                       for n, p in zip(names, opt.params)])
         state.counter.add_(1)
         return dict(metrics, grad_norm=gnorm, total_loss=total)
 
@@ -342,7 +364,8 @@ def make_step_fn(rc: RenderConfig, tc: TrainConfig, mesh=None):
 
     def step_fn(state: TrainState, batch: torch.Tensor, occ_grid=None,
                 bounds=None) -> Dict[str, torch.Tensor]:
-        metrics = body(state, batch, occ_grid, bounds)
+        with numerics_scope(f"train step {state.step + 1}"):
+            metrics = body(state, batch, occ_grid, bounds)
         state.step += 1
         return metrics
 

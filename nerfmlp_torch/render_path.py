@@ -18,7 +18,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from nerfmlp_torch import resolve_device
+from nerfmlp_torch import numerics_scope, resolve_device
 from nerfmlp_torch.config import RenderConfig
 from nerfmlp_torch.ops.rays import get_rays, get_rays_np, ndc_rays
 
@@ -161,15 +161,16 @@ def render_path(
         else:
             o, d, vd = rays_for_pose_device(pose, H, W, focal, cfg,
                                             device=dev)
-        if mesh is None:
-            out = render_image_maps(params, o, d, H, W, cfg, tile=tile,
-                                    occ_grid=occ_grid, viewdirs=vd,
-                                    maps=("rgb_map", "disp_map"))
-        else:
-            out = render_image_sharded(
-                params, o, d, H, W, cfg, mesh,
-                tile=max(256, -(-tile // n_dev)), occ_grid=occ_grid,
-                viewdirs=vd, maps=("rgb_map", "disp_map"))
+        with numerics_scope(f"render_path frame {i}"):
+            if mesh is None:
+                out = render_image_maps(params, o, d, H, W, cfg, tile=tile,
+                                        occ_grid=occ_grid, viewdirs=vd,
+                                        maps=("rgb_map", "disp_map"))
+            else:
+                out = render_image_sharded(
+                    params, o, d, H, W, cfg, mesh,
+                    tile=max(256, -(-tile // n_dev)), occ_grid=occ_grid,
+                    viewdirs=vd, maps=("rgb_map", "disp_map"))
         rgb = out["rgb_map"].float().cpu().numpy()
         disp = out["disp_map"].float().cpu().numpy()
         rgbs.append(rgb)

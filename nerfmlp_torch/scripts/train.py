@@ -21,6 +21,13 @@ they are, given ``--datadir``. Videos are animated GIFs. Flags of
 features not ported yet are refused by name, each naming its ROADMAP
 item.
 
+``--profile_dir D`` writes a ``torch.profiler`` Chrome trace of steps
+10-29 into D (one a rank), ``--check_numerics`` raises
+``FloatingPointError`` at the first NaN of a step or render, naming the
+tensor (the JAX CLI's ``jax_debug_nans``), and ``--tensorboard`` logs
+the JAX Trainer's TensorBoard tags to ``<save_dir>/tb``; it is refused
+by name where ``torch.utils.tensorboard`` does not import.
+
 ``--n_devices N`` trains data-parallel on N cards, as the JAX CLI does
 (``scripts/train.py:223-224``, ``:496-508``): 0, the default, means every
 visible card; N > 1 starts N ranks, one process per card (NCCL), each
@@ -60,14 +67,8 @@ _DEFAULT_SAVE_DIR = "outputs/checkpoints"
 # name -> (argparse kwargs, what is missing). Any non-default value is
 # refused.
 _NOT_PORTED = {
-    "check_numerics": (dict(action="store_true"),
-                       "numerics checking (ROADMAP.md, Queue 1 item 21)"),
-    "profile_dir": (dict(type=str, default=""),
-                    "profiling traces (ROADMAP.md, Queue 1 item 21)"),
     "compilation_cache": (dict(type=str, default=None),
                           "a compilation cache (PyTorch runs eagerly)"),
-    "tensorboard": (dict(action="store_true"),
-                    "TensorBoard logging (ROADMAP.md, Queue 1 item 21)"),
     "tensor_parallel": (dict(type=int, default=1),
                         "tensor parallelism (ROADMAP.md, Queue 1 item 18)"),
     "remat": (dict(action="store_true"),
@@ -174,6 +175,16 @@ def build_parser():
     p.add_argument("--precrop_iters", type=int, default=0)
     p.add_argument("--precrop_frac", type=float, default=0.5)
     p.add_argument("--no_batching", action="store_true")
+    p.add_argument("--check_numerics", action="store_true",
+                   help="raise FloatingPointError at the first NaN of a "
+                        "step or render, naming the tensor (the JAX CLI's "
+                        "jax_debug_nans; steps run one by one)")
+    p.add_argument("--profile_dir", type=str, default="",
+                   help="write a torch.profiler trace of steps 10-29 here "
+                        "(a Chrome trace per rank; steps run one by one)")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="log scalars/histograms/images to <save_dir>/tb "
+                        "(needs the tensorboard package)")
     p.add_argument("--i_print", type=int, default=100,
                    help="console log interval")
     p.add_argument("--i_weights", type=int, default=10000,
@@ -309,9 +320,22 @@ def n_ranks(args) -> int:
     return 1
 
 
+def refuse_tensorboard(args) -> None:
+    """SystemExit naming --tensorboard where torch.utils.tensorboard does
+    not import (as on a machine without the tensorboard package)."""
+    if args.tensorboard:
+        try:
+            import torch.utils.tensorboard  # noqa: F401
+        except ImportError as e:
+            raise SystemExit(f"--tensorboard: TensorBoard logging needs "
+                             f"torch.utils.tensorboard, which does not "
+                             f"import here ({e})") from e
+
+
 def main(argv=None):
     args = parse_args(argv)
     refuse_unported(args)
+    refuse_tensorboard(args)
     if args.expname and args.save_dir == _DEFAULT_SAVE_DIR:
         args.save_dir = os.path.join(args.basedir, args.expname)
     if args.i_embed == -1:
@@ -341,7 +365,19 @@ def run(args, mesh=None):
     """The run the parsed ``args`` ask for, in this process: on one device,
     or as one rank of ``mesh``. Rank 0 writes the synthetic scene and the
     run's files; the other ranks load the data once rank 0 has (a loader
-    may write minified images)."""
+    may write minified images). ``--check_numerics`` holds for the run
+    (:func:`nerfmlp_torch.check_numerics`) and is restored after it."""
+    from nerfmlp_torch import check_numerics, numerics_checked
+
+    before = numerics_checked()
+    check_numerics(before or args.check_numerics)
+    try:
+        return _run(args, mesh)
+    finally:
+        check_numerics(before)
+
+
+def _run(args, mesh):
     from nerfmlp_torch.parallel.mesh import barrier
 
     main_rank = mesh is None or mesh.is_main
@@ -449,10 +485,13 @@ def run(args, mesh=None):
         device_pool=args.device_pool, i_video=args.i_video,
         i_testset=args.i_testset, i_img=args.i_img,
         render_factor=args.render_factor, i_mesh=args.i_mesh,
+        profile_dir=args.profile_dir,
     )
     trainer = Trainer(rc, tc, dataset, val_ds, quick_val_ds,
                       save_dir=args.save_dir, device=device,
-                      render_poses=render_poses, test_ds=test_ds, mesh=mesh)
+                      render_poses=render_poses, test_ds=test_ds, mesh=mesh,
+                      tensorboard_dir=(os.path.join(args.save_dir, "tb")
+                                       if args.tensorboard else None))
     resume_path = args.resume
     if resume_path is None and not args.no_resume:
         resume_path = latest_checkpoint(args.save_dir)

@@ -27,9 +27,25 @@ rank from the same seed, so the grids stay equal; validation and the
 render events render each frame over the ranks
 (``parallel/render_parallel.py``); rank 0 alone logs and writes files
 (checkpoints, metrics, PNGs, videos, meshes), and the others wait at a
-barrier after each write. Left out, and refused when asked for:
-TensorBoard, ``profile_dir`` and tensor parallelism (each raises a
-``NotImplementedError`` naming its ROADMAP item).
+barrier after each write. Tensor parallelism is left out (ROADMAP.md,
+Queue 1 item 18).
+
+The Trainer's extras (``nerfmlp_tpu/train/loop.py:103-110``, ``:613``,
+``:636-640``, ``:715-737``, ``:894-904``): ``TrainConfig.profile_dir``
+writes a ``torch.profiler`` trace (CPU and, on ``cuda``, CUDA activities)
+of steps 10-29 of each ``train()`` call, counted from where it starts, as
+a Chrome trace, one file per rank, each step a ``train step N`` range; it
+is closed after the loop if the run ends inside the window. Where the JAX
+Trainer logs "(profiler unavailable)" and carries on, a profiler that
+fails to start or stop raises here: no trace is lost without a word.
+``tensorboard_dir``: the JAX Trainer's TensorBoard tags at its cadence
+(``train/*`` at each log step, ``val/*`` scalars, ``params/*`` histograms
+and the ``val/*`` images at each quick validation, ``test/psnr`` at each
+test-set event), written by rank 0; where ``torch.utils.tensorboard``
+does not import, asking for it raises. Under ``profile_dir`` or
+:func:`nerfmlp_torch.check_numerics` the steps run one by one, not in
+``steps_per_dispatch`` windows: a graph replay hides the step boundaries
+from the trace, and a check cannot raise inside a captured graph.
 
 The hot loop never waits for the card: loss and PSNR stay device tensors,
 summed on the device, and are read back at log and validation steps
@@ -38,6 +54,7 @@ only.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import re
@@ -48,8 +65,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from nerfmlp_torch import resolve_device, use_true_fp32
-from nerfmlp_torch.config import TRAIN_NOT_PORTED, RenderConfig, TrainConfig
+from nerfmlp_torch import (
+    numerics_checked, numerics_scope, resolve_device, use_true_fp32,
+)
+from nerfmlp_torch.config import RenderConfig, TrainConfig
 from nerfmlp_torch.data import image_viewdirs
 from nerfmlp_torch.data.device_pool import DeviceRayPool
 from nerfmlp_torch.data.pipeline import RayBatchLoader
@@ -92,17 +111,6 @@ def dispatch_window(
     return max(w, 1)
 
 
-def check_supported(tc: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for every requested feature this port
-    does not have yet, naming its ROADMAP item — none is ignored."""
-    defaults = TrainConfig()
-    for name, what in TRAIN_NOT_PORTED.items():
-        if getattr(tc, name) != getattr(defaults, name):
-            raise NotImplementedError(
-                f"TrainConfig.{name}={getattr(tc, name)!r}: {what} is not "
-                "ported to PyTorch yet")
-
-
 class Trainer:
     """End-to-end trainer for one scene, on one device or data-parallel
     over the ranks of ``mesh``.
@@ -122,6 +130,9 @@ class Trainer:
     graph of one step, captured at the first window of each batch source
     and replayed; on the CPU the same step body, eagerly.
 
+    ``tensorboard_dir``: where rank 0 writes TensorBoard events (the
+    train CLI's ``<save_dir>/tb``), or None.
+
     ``mesh``: a :class:`~nerfmlp_torch.parallel.mesh.Mesh` of ranks, each
     running this Trainer on ``mesh.device`` (``device`` must be None or
     that device's type); ``tc.batch_size`` is the global batch, a
@@ -139,8 +150,8 @@ class Trainer:
     def __init__(self, rc: RenderConfig, tc: TrainConfig, train_ds,
                  val_ds=None, quick_val_ds=None,
                  save_dir: str = "outputs/checkpoints", verbose: bool = True,
-                 device=None, render_poses=None, test_ds=None, mesh=None):
-        check_supported(tc)
+                 device=None, render_poses=None, test_ds=None, mesh=None,
+                 tensorboard_dir: Optional[str] = None):
         if rc.use_occupancy and rc.aabb is None:
             raise ValueError("use_occupancy requires RenderConfig.aabb")
         self.mesh = mesh
@@ -175,6 +186,19 @@ class Trainer:
         self._mesh_warned = False
         if self.is_main:
             os.makedirs(save_dir, exist_ok=True)
+        self._tb = None
+        if tensorboard_dir and self.is_main:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError as e:
+                raise ImportError(
+                    f"TensorBoard logging needs torch.utils.tensorboard, "
+                    f"which does not import here ({e}): install the "
+                    f"tensorboard package, or train without it") from e
+            self._tb = SummaryWriter(tensorboard_dir)
+        # View 0 of the last validation, with the TensorBoard maps:
+        # (dataset, maps, gt), reused by the images logged after it.
+        self._last_val = None
 
         self.state = create_train_state(rc, tc, self.device)
         self._replicate()
@@ -271,40 +295,57 @@ class Trainer:
                           decay=decay)
         self.occ_grid.density.copy_(new.density)
 
-    def _render_view(self, dataset, idx: int) -> tuple:
+    def _render_view(self, dataset, idx: int, maps=("rgb_map",)) -> tuple:
         """Deterministic render of one held-out view, and its ground
-        truth: ((H, W, 3) numpy, (H, W, 3) numpy)."""
-        from nerfmlp_torch.ops.render import prepare_params, render_image
+        truth: ({map: numpy}, (H, W, 3) numpy)."""
+        from nerfmlp_torch.ops.render import prepare_params, render_image_maps
 
         o, d, gt = dataset.image_rays(idx)
         vd = image_viewdirs(dataset, idx)
         t = lambda a: torch.as_tensor(a, device=self.device)
         params = prepare_params(self.state.params, self.rc)
-        if self.render_mesh is not None:
-            # The JAX Trainer's per-device tile: the chunk over the ranks.
-            img = render_image_sharded(
-                params, t(o), t(d), dataset.H, dataset.W, self.rc,
-                self.render_mesh,
-                tile=max(256, -(-self.tc.chunk // self.mesh.world_size)),
-                occ_grid=self.occ_grid,
-                viewdirs=None if vd is None else t(vd))["rgb_map"]
-        else:
-            img = render_image(params, t(o), t(d), dataset.H, dataset.W,
-                               self.rc, tile=self.tc.chunk,
-                               occ_grid=self.occ_grid,
-                               viewdirs=None if vd is None else t(vd))
-        return img.float().cpu().numpy(), gt
+        with numerics_scope(f"the render of view {idx}"):
+            if self.render_mesh is not None:
+                # The JAX Trainer's per-device tile: the chunk over the
+                # ranks.
+                out = render_image_sharded(
+                    params, t(o), t(d), dataset.H, dataset.W, self.rc,
+                    self.render_mesh,
+                    tile=max(256, -(-self.tc.chunk // self.mesh.world_size)),
+                    occ_grid=self.occ_grid,
+                    viewdirs=None if vd is None else t(vd), maps=maps)
+            else:
+                out = render_image_maps(
+                    params, t(o), t(d), dataset.H, dataset.W, self.rc,
+                    tile=self.tc.chunk, occ_grid=self.occ_grid,
+                    viewdirs=None if vd is None else t(vd), maps=maps)
+        return {k: v.float().cpu().numpy() for k, v in out.items()}, gt
+
+    def _tb_extra_maps(self) -> tuple:
+        """The coarse pass's TensorBoard extras (the JAX Trainer's
+        ``_tb_extra_maps``): only with TensorBoard and a coarse pass to
+        show (a fine pass, no occupancy grid)."""
+        if (self._tb is not None and self.rc.N_importance > 0
+                and not self.rc.use_occupancy):
+            return ("rgb_map_coarse", "disp_map_coarse", "z_std")
+        return ()
 
     def _validate(self, dataset, n_images: Optional[int] = None):
         """Render whole held-out images; mean PSNR/SSIM/MSE over them, or
-        None when there is nothing to validate."""
+        None when there is nothing to validate. View 0's maps are kept for
+        the TensorBoard images."""
         n = dataset.n_images if n_images is None else min(n_images,
                                                            dataset.n_images)
+        self._last_val = None
         if n <= 0:
             return None
+        maps = ("rgb_map",) + self._tb_extra_maps()
         mses, psnrs, ssims = [], [], []
         for i in range(n):
-            img, gt = self._render_view(dataset, i)
+            out, gt = self._render_view(dataset, i, maps)
+            img = out["rgb_map"]
+            if i == 0:
+                self._last_val = (dataset, out, gt)
             mses.append(float(np.mean((img - gt) ** 2)))
             psnrs.append(psnr_images(img, gt))
             ssims.append(ssim(img, gt))
@@ -319,7 +360,7 @@ class Trainer:
         try:
             from nerfmlp_torch.utils.image import save_png
 
-            img, _ = self._render_view(self.val_ds, 0)
+            img = self._render_view(self.val_ds, 0)[0]["rgb_map"]
             if self.is_main:
                 save_png(os.path.join(self.save_dir, f"val_{step:06d}.png"),
                          img)
@@ -387,6 +428,8 @@ class Trainer:
                 mean_p = float(np.mean(psnrs))
                 self.history["testset_psnrs"].append(mean_p)
                 self.history["testset_steps"].append(step)
+                if self._tb is not None:
+                    self._tb.add_scalar("test/psnr", mean_p, step)
                 self._log(f"🧪 i_testset @ {step:,}: {len(psnrs)} views -> "
                           f"{out_dir} | mean PSNR {mean_p:.2f} (min "
                           f"{min(psnrs):.2f} / max {max(psnrs):.2f})")
@@ -557,6 +600,13 @@ class Trainer:
             self._log(f"📍 device ray pool: {len(self.pool):,} rays on "
                       f"{dev}, {self.pool.steps_per_epoch:,} steps/epoch")
         windowed = self.windows is not None
+        if windowed and (tc.profile_dir or numerics_checked()):
+            self._log("(steps_per_dispatch disabled while "
+                      + ("profiling: the trace wants per-step dispatch "
+                         "boundaries)" if tc.profile_dir else
+                         "checking numerics: a captured graph cannot "
+                         "raise)"))
+            windowed = False
         if windowed:
             # Windows end exactly at every step where the blocks below need
             # host work, so the events fire on the same steps as at K = 1 —
@@ -577,8 +627,14 @@ class Trainer:
 
         t_prev = time.time()
         step = start_step
+        trace = None      # the open profiler trace: (profile, first step)
         while step < iters:
             s = step + 1   # the first step of this window
+            if tc.profile_dir and s - start_step == 10:
+                trace = (self._start_trace(), s)
+            elif trace is not None and s - start_step == 30:
+                self._stop_trace(*trace, s - 1)
+                trace = None
             if tc.precrop_iters > 0 and s == tc.precrop_iters + 1:
                 self.loader.set_precrop(1.0)
                 self._log(f"🎯 precrop off at iter {s:,}")
@@ -613,7 +669,9 @@ class Trainer:
                     batch = torch.from_numpy(
                         np.ascontiguousarray(self._host_batch())).to(
                         dev, non_blocking=True)
-                metrics = self.step_fn(self.state, batch, *occ_args)
+                with (torch.profiler.record_function(f"train step {s}")
+                      if trace is not None else contextlib.nullcontext()):
+                    metrics = self.step_fn(self.state, batch, *occ_args)
                 sums.add_(torch.stack((metrics["loss"], metrics["psnr"])))
             run_count += w
             step = s + w - 1
@@ -632,6 +690,11 @@ class Trainer:
 
             if tc.log_interval and step % tc.log_interval == 0:
                 med_t = float(np.median(it[-200:]))
+                if self._tb is not None:
+                    for key in ("loss", "psnr", "grad_norm"):
+                        self._tb.add_scalar(f"train/{key}",
+                                            float(metrics[key]), step)
+                    self._tb.add_scalar("train/lr", lr_at(tc, step), step)
                 self._log(
                     f"{datetime.now().strftime('%Y-%m-%d %H:%M:%S')} | "
                     f"Iter {step:,} | Loss: {float(metrics['loss']):.6f} | "
@@ -687,6 +750,10 @@ class Trainer:
                     self._save_val_image(step)
                     t_prev = time.time()
 
+        if trace is not None:
+            # The run ended inside the trace window: close it, so the
+            # trace is written.
+            self._stop_trace(*trace, step)
         # Final saves + full validation.
         self._save_params("model_final.pt")
         if tc.i_img and iters > start_step:
@@ -716,8 +783,33 @@ class Trainer:
             ckpt.save_metrics_json(
                 os.path.join(self.save_dir, "comprehensive_metrics.json"),
                 comprehensive)
+        if self._tb is not None:
+            self._tb.flush()
         self._sync()
         return comprehensive
+
+    def _start_trace(self):
+        """A started ``torch.profiler`` profile of the CPU and, on
+        ``cuda``, the card."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_trace(self, prof, first: int, last: int) -> str:
+        """Stop ``prof`` (steps ``first``-``last``) and write its Chrome
+        trace into ``profile_dir``, one file per rank."""
+        prof.stop()
+        rank = self.mesh.rank if self.mesh is not None else 0
+        os.makedirs(self.tc.profile_dir, exist_ok=True)
+        path = os.path.join(self.tc.profile_dir,
+                            f"train_steps_{first:06d}-{last:06d}"
+                            f".rank{rank}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        self._log(f"🧪 profiler trace (steps {first}-{last}) -> {path}")
+        return path
 
     def _quick_val_block(self, step, iters, start_time, run_loss, run_psnr,
                          run_count):
@@ -735,6 +827,10 @@ class Trainer:
         h["quick_val_psnrs"].append(qm["psnr"])
         h["quick_val_ssims"].append(qm["ssim"])
         h["val_steps"].append(step)
+        if self._tb is not None:
+            for key in ("loss", "psnr", "ssim"):
+                self._tb.add_scalar(f"val/{key}", qm[key], step)
+            self._tb_histograms_and_image(step)
         conv = ""
         if len(h["quick_val_losses"]) > 5:
             prev_l = h["quick_val_losses"][-6]
@@ -773,6 +869,43 @@ class Trainer:
         self._save_params(f"model_{step}_latest.pt")
         self._prune_step_snapshots(keep=5)
         self._log("-" * 80)
+
+    def _tb_histograms_and_image(self, step: int) -> None:
+        """Parameter histograms (the JAX tree's paths, ``params/coarse/
+        pts_linears_0/kernel``), the held-out render and its ground truth,
+        and with a coarse pass its rgb, disparity and ``z_std`` (the JAX
+        Trainer's ``_tb_histograms_and_image``), from the validation's
+        view 0 where it rendered one. Best-effort: a failure is logged."""
+        try:
+            tree = ckpt.jax_params_tree(self.state.params)
+            for net, layers in tree.items():
+                for layer, leaves in layers.items():
+                    for leaf, value in leaves.items():
+                        self._tb.add_histogram(
+                            f"params/{net}/{layer}/{leaf}",
+                            np.asarray(value), step)
+            ds = self.quick_val_ds
+            if ds is None:
+                return
+            if self._last_val is not None and self._last_val[0] is ds:
+                _, maps, gt = self._last_val
+            else:
+                maps, gt = self._render_view(
+                    ds, 0, ("rgb_map",) + self._tb_extra_maps())
+            self._tb.add_image("val/render", np.clip(maps["rgb_map"], 0, 1),
+                               step, dataformats="HWC")
+            self._tb.add_image("val/gt", gt, step, dataformats="HWC")
+            if "rgb_map_coarse" in maps:
+                self._tb.add_image("val/rgb0",
+                                   np.clip(maps["rgb_map_coarse"], 0, 1),
+                                   step, dataformats="HWC")
+                disp0 = maps["disp_map_coarse"]
+                disp0 = disp0 / max(float(np.max(disp0)), 1e-8)
+                self._tb.add_image("val/disp0", disp0[..., None], step,
+                                   dataformats="HWC")
+                self._tb.add_histogram("val/z_std", maps["z_std"], step)
+        except Exception as e:
+            self._log(f"(tensorboard histogram/image logging failed: {e})")
 
     def _prune_step_snapshots(self, keep: int) -> None:
         """Keep only the newest ``keep`` metrics_{step}_latest.json and

@@ -1,9 +1,10 @@
 """Small image helpers on numpy and the standard library, so serving,
 training and rendering need no imaging package: ``to8b``; a PNG encoder
-and decoder (``zlib`` + ``struct``) and the image size from a PNG or JPEG
+and decoder (``zlib`` + ``struct``); :func:`read_image`, PNG or baseline
+JPEG pixels (``utils/jpeg.py``, equal to Pillow's; the JPEG modes it
+refuses are refused by name), and the image size from a PNG or JPEG
 header; a LANCZOS resize equal to Pillow's; an animated-GIF writer for
-videos. JPEG pixels are not decoded: :func:`refuse_jpeg` names the
-ROADMAP item that waits for a decoder.
+videos.
 
 Counterpart of ``nerfmlp_tpu/utils/image.py`` (``to8b``, ``save_png``,
 ``load_png``, ``write_video``), which uses PIL and imageio, and of the
@@ -23,9 +24,6 @@ _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 _COLOUR_TYPE = {c: t for t, c in _CHANNELS.items()}
 IMAGE_EXTS = (".png", ".jpg", ".jpeg")
-JPEG_NOT_PORTED = ("JPEG images are not decoded by the PyTorch port (a "
-                   "baseline JPEG decoder is ROADMAP.md, Queue 1 item 22); "
-                   "convert them to PNG")
 
 
 def to8b(x: np.ndarray) -> np.ndarray:
@@ -143,14 +141,29 @@ def read_png(path: str) -> np.ndarray:
     return pixels.reshape(h, w, ch)
 
 
-def is_jpeg(path: str) -> bool:
-    return path.lower().endswith((".jpg", ".jpeg"))
+def _is_jpeg(path: str) -> bool:
+    """Whether the file starts with JPEG's SOI marker (how Pillow tells a
+    JPEG, whatever its name)."""
+    with open(path, "rb") as f:
+        return f.read(2) == b"\xff\xd8"
 
 
-def refuse_jpeg(path: str) -> None:
-    """ValueError for a ``.jpg``/``.jpeg`` file, naming its ROADMAP item."""
-    if is_jpeg(path):
-        raise ValueError(f"{path}: {JPEG_NOT_PORTED}")
+def read_image(path: str) -> np.ndarray:
+    """A PNG or JPEG file, told apart by its first bytes as Pillow tells
+    them -> uint8 (H, W, C) pixels: PNG's channels (:func:`read_png`), or
+    a JPEG's (1 grey or 3 RGB, :func:`~nerfmlp_torch.utils.jpeg.decode_jpeg`)."""
+    from nerfmlp_torch.utils.jpeg import read_jpeg
+
+    return read_jpeg(path) if _is_jpeg(path) else read_png(path)
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """uint8 (H, W, 3) as ``Image.open(path).convert("RGB")`` gives it:
+    grey replicated, alpha dropped."""
+    px = read_image(path)
+    if px.shape[2] in (1, 2):
+        px = np.repeat(px[..., :1], 3, axis=2)
+    return px[..., :3]
 
 
 def png_size(path: str):
@@ -190,7 +203,7 @@ def _jpeg_size(path: str):
 def image_size(path: str):
     """(width, height) of a PNG or JPEG file, from its header alone (what
     the JAX loaders read with ``Image.open(path).size``)."""
-    return _jpeg_size(path) if is_jpeg(path) else png_size(path)
+    return _jpeg_size(path) if _is_jpeg(path) else png_size(path)
 
 
 def load_png(path: str) -> np.ndarray:

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports no jax, flax, optax, msgpack
-or nerfmlp_tpu, and no imaging or plotting package (PIL, imageio,
-matplotlib: the card's machine has none) — checked in a fresh
+or nerfmlp_tpu, and no imaging, plotting or logging package (PIL, imageio,
+matplotlib, tensorboard: the card's machine has none; the Trainer imports
+torch.utils.tensorboard only when asked to log) — checked in a fresh
 interpreter (this test process already holds jax, from conftest) and by
 scanning the port's sources and chip_smoke.py."""
 
@@ -16,7 +17,7 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "nerfmlp_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "nerfmlp_tpu",
-             "PIL", "imageio", "matplotlib")
+             "PIL", "imageio", "matplotlib", "tensorboard")
 
 
 def _port_modules():
@@ -53,7 +54,8 @@ def test_port_imports_no_jax_in_a_fresh_interpreter():
             "nerfmlp_torch.scripts.convert_checkpoint",
             "nerfmlp_torch.parallel.mesh",
             "nerfmlp_torch.parallel.render_parallel",
-            "nerfmlp_torch.parallel.checks"} <= set(mods)
+            "nerfmlp_torch.parallel.checks",
+            "nerfmlp_torch.utils.jpeg"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

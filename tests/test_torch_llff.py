@@ -326,10 +326,13 @@ def test_factor_dir_edge_cases(scene, tmp_path):
 
 
 def test_jpeg_refused_by_name_and_sized_from_its_header(scene, tmp_path):
-    """JPEGs are refused, naming the ROADMAP item, where the JAX loader
-    opens one (loading, minifying); their size comes from the header, as
-    Pillow's, so a real capture's layout — JPEGs in images/, PNGs in
-    images_{factor}/ — loads through --factor."""
+    """JPEG captures load as the JAX loader loads them (the decoder's
+    pixels equal Pillow's: tests/test_torch_jpeg.py), sized from the
+    header as Pillow sizes them; a JPEG mode the decoder does not read is
+    refused naming its ROADMAP item, where the JAX loader opens one
+    (loading, minifying), and a refused minify leaves no directory; a
+    pre-minified PNG images_{factor}/ beside JPEG images/ loads through
+    --factor, as a real capture's layout does."""
     d = _copy(scene, tmp_path, "jpeg")
     src = os.path.join(d, "images")
     for n in sorted(os.listdir(src)):
@@ -338,11 +341,19 @@ def test_jpeg_refused_by_name_and_sized_from_its_header(scene, tmp_path):
         os.remove(path)
     first = os.path.join(src, sorted(os.listdir(src))[0])
     assert image_size(first) == Image.open(first).size == (40, 30)
-    with pytest.raises(ValueError, match="item 22"):
-        llff.LLFFDataset(d, "train", img_wh=(40, 30))
-    with pytest.raises(ValueError, match="item 22"):
-        llff.LLFFDataset._ensure_factor_dir(d, 2)
-    assert not os.path.exists(os.path.join(d, "images_2.tmp"))
+    _assert_same_dataset(llff.LLFFDataset(d, "train", img_wh=(40, 30)),
+                         jllff.LLFFDataset(d, "train", img_wh=(40, 30)))
+    prog = _copy(scene, tmp_path, "progressive")
+    for n in sorted(os.listdir(os.path.join(prog, "images"))):
+        path = os.path.join(prog, "images", n)
+        Image.open(path).save(path[:-4] + ".jpg", progressive=True)
+        os.remove(path)
+    with pytest.raises(ValueError, match="progressive JPEG.*item 28"):
+        llff.LLFFDataset(prog, "train", img_wh=(40, 30))
+    with pytest.raises(ValueError, match="progressive JPEG.*item 28"):
+        llff.LLFFDataset._ensure_factor_dir(prog, 2)
+    assert not os.path.exists(os.path.join(prog, "images_2.tmp"))
+    assert not os.path.exists(os.path.join(prog, "images_2"))
     fdir = os.path.join(d, "images_2")
     shutil.copytree(llff.LLFFDataset._ensure_factor_dir(
         _copy(scene, tmp_path, "png"), 2), fdir)

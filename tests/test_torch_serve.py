@@ -9,6 +9,7 @@ import urllib.error
 import urllib.request
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -16,11 +17,15 @@ import torch
 from nerfmlp_tpu.config import RenderConfig as JaxRenderConfig
 from nerfmlp_tpu.models.mlp import init_model as jax_init_model
 from nerfmlp_tpu.models.import_torch import params_to_torch_state_dict
+from nerfmlp_tpu.ops import render as jrender
+from nerfmlp_tpu.ops.sampling import sample_pdf as jax_sample_pdf
 from nerfmlp_tpu.serve import RenderService as JaxRenderService
 
 from nerfmlp_torch.config import RenderConfig
 from nerfmlp_torch.models.convert import model_from_params
+from nerfmlp_torch.ops import render as render_mod
 from nerfmlp_torch.ops.rays import pose_spherical
+from nerfmlp_torch.ops.sampling import _invert_cdf
 from nerfmlp_torch.serve import (
     RenderServer, RenderService, RequestError, ServiceOverloaded,
 )
@@ -48,25 +53,130 @@ def svc():
     return _service()
 
 
-def test_frame_matches_jax_service():
-    """One fp32 frame from each package's service, same weights and pose:
-    the render_rays fp32 bars (tests/test_reference_parity.py:118-131).
+POSE = pose_spherical(30.0, -30.0, 4.0)
+MAPS = ("rgb_map", "depth_map", "acc_map")
+BARS = {"rgb_map": 3e-3, "depth_map": 1e-2, "acc_map": 3e-3}
 
-    Seed and pose are fixed on purpose. With det sampling the fine pass's
-    u = 1 sample sits on the last bin when the CDF's end rounds to <= 1 and
-    one bin earlier when it rounds above; where that last bin is empty, a
-    one-ulp difference in the coarse weights (another summation order)
-    moves it by a whole bin and a pixel by up to ~5e-3."""
+
+def _jax_frame_and_draws(monkeypatch):
+    """JAX's service frame at POSE, with the (bins, weights, depths) of the
+    fine pass's sample_pdf call recorded inside the jitted tile program
+    that made the frame."""
+    draws = []
+    jax_pdf = jrender.sample_pdf
+
+    def recorded(rng, bins, weights, n, *args, **kwargs):
+        out = jax_pdf(rng, bins, weights, n, *args, **kwargs)
+        jax.debug.callback(lambda *a: draws.append(
+            tuple(np.array(x) for x in a)), bins, weights, out)
+        return out
+
     jsvc = JaxRenderService({"coarse": _params(1)}, JaxRenderConfig(**KW),
                             **FRAME, log=lambda *a: None)
-    pose = pose_spherical(30.0, -30.0, 4.0)
-    maps = ("rgb_map", "depth_map", "acc_map")
-    want = jsvc.render_pose(pose, maps=maps)
-    got = _service(seed=1).render_pose(pose, maps=maps)
+    jrender._tile_render_fn.cache_clear()   # retrace with the recorder
+    try:
+        with monkeypatch.context() as m:
+            m.setattr(jrender, "sample_pdf", recorded)
+            want = jsvc.render_pose(POSE, maps=MAPS)
+    finally:
+        jrender._tile_render_fn.cache_clear()
+    assert len(draws) == 1   # one tile
+    return want, draws[0]
+
+
+def _port_frame(monkeypatch, depths=None):
+    """The port's service frame at POSE and the (bins, weights, depths) of
+    its own fine-pass draw; with ``depths`` the fine pass takes those
+    instead of its own (the renderer's sample_pdf seam)."""
+    draws = []
+    port_pdf = render_mod.sample_pdf
+
+    def seam(*args, **kwargs):
+        mine = port_pdf(*args, **kwargs)
+        draws.append((args[1].numpy(), args[2].numpy(), mine.numpy()))
+        return mine if depths is None else torch.from_numpy(depths)
+
+    with monkeypatch.context() as m:
+        m.setattr(render_mod, "sample_pdf", seam)
+        got = _service(seed=1).render_pose(POSE, maps=MAPS)
+    assert len(draws) == 1
+    return got, draws[0]
+
+
+def test_frame_matches_jax_service(monkeypatch):
+    """One fp32 frame from each package's service, same weights and pose:
+    the render_rays fp32 bars (tests/test_reference_parity.py:118-131) on
+    every pixel, with the port's fine pass fed the depths JAX's service
+    drew for this frame; the plain service-against-service frame at the
+    same bars on its mean.
+
+    The fine pass is discontinuous in the coarse outputs: with det sampling
+    the u = 1 sample snaps to the last bin's edge when the CDF's end rounds
+    to <= 1 and lands inside the last bin when it rounds above. Where that
+    bin holds almost no mass, one ulp of the coarse weights moves the sample
+    by ulp / mass of the bin's width, and the frame's tail with it; which
+    pixels cross a bar then depends on the host's summation order
+    (test_frame_departure_is_the_u1_last_bin pins where)."""
+    want, (bins, weights, depths) = _jax_frame_and_draws(monkeypatch)
+    got, (my_bins, my_weights, _) = _port_frame(monkeypatch, depths=depths)
+    # The fine pass's inputs are the port's own, ulps from JAX's.
+    np.testing.assert_allclose(my_bins, bins, atol=1e-5)
+    np.testing.assert_allclose(my_weights, weights, atol=1e-4)
     assert got["rgb_map"].shape == (16, 16, 3)
-    np.testing.assert_allclose(got["rgb_map"], want["rgb_map"], atol=3e-3)
-    np.testing.assert_allclose(got["depth_map"], want["depth_map"], atol=1e-2)
-    np.testing.assert_allclose(got["acc_map"], want["acc_map"], atol=3e-3)
+    for key, bar in BARS.items():
+        np.testing.assert_allclose(got[key], want[key], atol=bar)
+    own, _ = _port_frame(monkeypatch)
+    for key, bar in BARS.items():
+        assert np.abs(own[key] - want[key]).mean() < bar, key
+
+
+def _cdf_end_above_one(weights, jax_ops):
+    """Whether each row's CDF (sample_pdf's, nerfmlp_tpu/ops/sampling.py:
+    76-79) ends above 1, built with JAX's ops or the port's."""
+    if jax_ops:
+        w = jnp.asarray(weights) + 1e-5
+        return np.asarray(jnp.cumsum(w / jnp.sum(w, axis=-1, keepdims=True),
+                                     axis=-1)[:, -1] > 1.0)
+    w = torch.from_numpy(weights) + 1e-5
+    return (torch.cumsum(w / w.sum(-1, keepdim=True), -1)[:, -1] > 1.0).numpy()
+
+
+def test_frame_departure_is_the_u1_last_bin(monkeypatch):
+    """Where the port's own frame departs from JAX's service frame: only on
+    rays whose u = 1 fine sample lies in a last bin holding < 1e-4 of the
+    mass and whose two CDFs end on either side of 1. Given JAX's depth for
+    that one sample on those rays (the port's own everywhere else) the frame
+    meets the bars on every pixel. The port's inversion of JAX's CDF gives
+    JAX's depths bit for bit; the CDFs themselves differ by ulps (the
+    normalising sum and the cumsum add in another order)."""
+    want, (bins, weights, depths) = _jax_frame_and_draws(monkeypatch)
+    own, (_, my_weights, my_depths) = _port_frame(monkeypatch)
+    last_mass = (weights[:, -1] + 1e-5) / (weights + 1e-5).sum(-1)
+    flips = (last_mass < 1e-4) & (_cdf_end_above_one(weights, True)
+                                  != _cdf_end_above_one(my_weights, False))
+    departs = np.zeros(flips.shape, bool)
+    for key, bar in BARS.items():
+        err = np.abs(own[key] - want[key]).reshape(len(flips), -1)
+        departs |= err.max(-1) > bar
+    assert not (departs & ~flips).any(), np.nonzero(departs & ~flips)
+    # JAX's u = 1 depth on the flipped rays alone closes the frame.
+    mixed = my_depths.copy()
+    mixed[flips, -1] = depths[flips, -1]
+    got, _ = _port_frame(monkeypatch, depths=mixed)
+    for key, bar in BARS.items():
+        np.testing.assert_allclose(got[key], want[key], atol=bar)
+    # The inversion is JAX's: JAX's own CDF of these weights, inverted by
+    # the port, gives JAX's (eager) depths bit for bit.
+    w = jnp.asarray(weights) + 1e-5
+    cdf = jnp.cumsum(w / jnp.sum(w, axis=-1, keepdims=True), axis=-1)
+    cdf = np.array(jnp.concatenate([jnp.zeros_like(cdf[:, :1]), cdf], -1))
+    n = depths.shape[-1]
+    u = torch.from_numpy(np.array(jnp.linspace(0.0, 1.0, n))).expand(
+        len(cdf), n)
+    np.testing.assert_array_equal(
+        _invert_cdf(torch.from_numpy(bins), torch.from_numpy(cdf), u).numpy(),
+        np.asarray(jax_sample_pdf(None, jnp.asarray(bins),
+                                  jnp.asarray(weights), n, det=True)))
 
 
 def test_formats(svc):

@@ -66,6 +66,24 @@ def test_torch_ground_truth_matches_numpy_and_jax(field, aa):
     assert got.min() < 0.5 < got.max()
 
 
+def test_llff_scene_rendered_with_torch(tmp_path):
+    """make_synthetic_llff_scene(device=): the numpy writer's poses and
+    bounds, its images within one 8-bit level."""
+    from nerfmlp_torch.utils.image import read_png
+
+    a = syn.make_synthetic_llff_scene(str(tmp_path / "np"), n_images=2,
+                                      img_wh=(24, 18), style="forward")
+    b = syn.make_synthetic_llff_scene(str(tmp_path / "t"), n_images=2,
+                                      img_wh=(24, 18), style="forward",
+                                      device="cpu")
+    np.testing.assert_array_equal(np.load(os.path.join(a, "poses_bounds.npy")),
+                                  np.load(os.path.join(b, "poses_bounds.npy")))
+    for name in sorted(os.listdir(os.path.join(a, "images"))):
+        got = read_png(os.path.join(b, "images", name)).astype(np.int32)
+        want = read_png(os.path.join(a, "images", name)).astype(np.int32)
+        assert np.abs(got - want).max() <= 1
+
+
 def test_torch_ground_truth_renders_only_the_package_fields():
     pose = look_at_matrix(np.array([4.0, 0.0, 1.0]), np.zeros(3))
     with pytest.raises(ValueError, match="package's fields"):

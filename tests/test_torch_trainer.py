@@ -1,6 +1,6 @@
 """The port's Trainer, checkpoints and train CLI on the CPU, on a tiny
 synthetic scene: a few dozen steps, the metrics JSON in the JAX Trainer's
-schema, resume, refusal of what is not ported, and the CLI end to end."""
+schema, resume, and the CLI end to end."""
 
 import dataclasses
 import json
@@ -130,15 +130,6 @@ def test_resume_from_params_only_checkpoint(scene, tmp_path):
                    save_dir=str(tmp_path / "c"), device="cpu", verbose=False)
     with pytest.raises(ValueError, match="architecture"):
         wide.resume(str(tmp_path / "model_12.pt"))
-
-
-@pytest.mark.parametrize("field, value, item", [
-    ("profile_dir", "/tmp/x", "item 21"),
-])
-def test_trainer_refuses_what_is_not_ported(scene, field, value, item):
-    with pytest.raises(NotImplementedError, match=item):
-        Trainer(RC, dataclasses.replace(TC, **{field: value}), scene[0],
-                device="cpu")
 
 
 def test_trainer_refuses_occupancy(scene, tmp_path):
