@@ -196,13 +196,35 @@ Phases, each fatal on failure:
      at the run's call; the same run without --check_numerics, both step
      times printed; --tensorboard refused by name where the tensorboard
      package does not import, else its event file written.
+ 15. the rest of the JAX package ("finish"): tensor parallelism on two
+     ranks as (data 1, model 2), NCCL over two cards where there are two,
+     else two gloo ranks sharing the card: the flagship 8x256 net in fp32
+     on the module path (1,024 rays, 64 + 128 samples), its first step
+     against one process's on the same global batch (loss rtol 1e-5, the
+     gradient within 1e-5 of its largest element, parameters atol 5e-3),
+     pts_linears.0's shard 128 rows, no kernel launched in the TP steps,
+     100 steps through the TP Trainer within 0.5 dB of the one-process
+     run's held-out PSNR, ms per step a rank beside the one-process
+     module path's; the turbo weights' 256^3 mesh dealt over two devices
+     (two cards, or the card twice) against one device: the volume,
+     vertices, faces and colours bit-equal, the forward launches summed
+     over the devices equal to one device's, seconds per stage; every
+     committed progressive JPEG against its Pillow decode (0 levels), the
+     decode rate, the progressive capture's pixels equal to the baseline
+     capture's, and configs/fern.txt trained on it at --factor 4 (>= 20
+     dB, within 1 dB of phase 14's baseline-JPEG run, 2 launches of each
+     kernel a step; the four kernels held on its net); the tools on phase
+     7's run directory: its three end-of-run figures, view_progress
+     showing its step, make_timelapse's GIF with one frame per
+     val_*.png, side_by_side_compare's 2W x H image.
 Then it prints the kernels' JSON line, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Weights are random, from a seed.
 It exits non-zero, printing no result, without a CUDA device.
 ``--only multi_scene`` runs the build, phase 5 and phase 11 alone;
 ``--only interchange`` the build, phases 5 and 6 and phase 12;
 ``--only parallel`` the build, phase 5 and phase 13;
-``--only jpeg`` the build and phase 14.
+``--only jpeg`` the build and phase 14;
+``--only finish`` the build, phases 5, 6 and 7 and phase 15.
 """
 
 import contextlib
@@ -2301,10 +2323,10 @@ class PathLaunches:
         self.colours += sum(c.fwd)
 
 
-def mesh_extract(params, cfg, g, thr, tag, card):
-    """extract_mesh at ``g``^3, its stages timed (synchronised) and its
-    forward launches counted; returns (mesh, {stage: s}, launches of the
-    density and the colour bake)."""
+def mesh_extract(params, cfg, g, thr, tag, card, mesh=None):
+    """extract_mesh at ``g``^3 (over the devices ``mesh``, where given), its
+    stages timed (synchronised) and its forward launches counted; returns
+    (mesh, {stage: s}, launches of the density and the colour bake)."""
     from nerfmlp_torch.ops import mesh as mesh_mod
 
     with Timed(mesh_mod, "density_volume") as dens, \
@@ -2314,7 +2336,7 @@ def mesh_extract(params, cfg, g, thr, tag, card):
             Timed(mesh_mod, "vertex_colors") as bake:
         t0 = time.perf_counter()
         m = mesh_mod.extract_mesh(params, cfg, resolution=g, threshold=thr,
-                                  density_chunk=MESH_CHUNK)
+                                  density_chunk=MESH_CHUNK, mesh=mesh)
         total = time.perf_counter() - t0
     stages = {"density": dens.times[0], "compaction": comp.times[0],
               "tets": tets.times[0], "weld+orient": weld.times[0],
@@ -4293,6 +4315,361 @@ def phase_jpeg(png_psnr, card):
     return recs
 
 
+# --------------------------------------------------------------------- #
+# Phase 15: the rest of the JAX package ("finish")
+# --------------------------------------------------------------------- #
+TP_RANKS = 2              # tensor parallelism: one model group of two
+TP_SHARD_ROWS = 128       # ... so pts_linears.0's shard: 256 / 2 rows
+TP_LOSS_RTOL = 1e-5       # the first step against one process's
+TP_GRAD_TOL = 1e-5        # ... its gradient, of the largest element, with
+#                           the MLP in fp64: in fp32 the weight gradients'
+#                           sums over 196,608 points take another cuBLAS
+#                           order at the shards' shapes (2.4e-5 measured)
+TP_PARAM_ATOL = 5e-3      # ... its parameters (tests/test_parallel.py:
+#                           248-252: Adam's first update is ~lr sign(g))
+TP_PSNR_GAP = 0.5         # held-out PSNR after PAR_STEPS steps, dB
+
+
+def tp_configs(near, far):
+    """Phase 5's flagship recipe in fp32, PAR_STEPS steps: the module path
+    (a TP step runs no kernel; the Trainer turns them off itself)."""
+    rc, tc = par_configs(near, far)
+    return dataclasses.replace(rc, compute_dtype="float32"), tc
+
+
+def tp_rank(mesh, rc, tc, scene, save_dir, batch):
+    """One rank of phase 15's TP runs: the first step on a global batch in
+    fp32 and with the MLP in fp64, then PAR_STEPS steps through the TP
+    Trainer."""
+    from nerfmlp_torch.parallel import checks
+
+    rc64 = dataclasses.replace(rc, compute_dtype="float64")
+    return {"first": checks.dp_steps(mesh, rc, tc, [batch],
+                                     tensor_parallel=TP_RANKS),
+            "first64": checks.dp_steps(mesh, rc64, tc, [batch],
+                                       tensor_parallel=TP_RANKS),
+            "run": checks.dp_trainer(mesh, rc, tc, scene,
+                                     (TRAIN_WH, TRAIN_WH), save_dir,
+                                     tensor_parallel=TP_RANKS)}
+
+
+def grad_err(got, want):
+    """max |got - want| over max |want|."""
+    import numpy as np
+
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def finish_tp(train_run, backend, card):
+    """Tensor parallelism over TP_RANKS ranks (the module docstring, phase
+    15): the first step and PAR_STEPS Trainer steps against one process."""
+    from nerfmlp_torch.data.pipeline import RayBatchLoader
+    from nerfmlp_torch.parallel import checks
+    from nerfmlp_torch.parallel.mesh import launch
+
+    import numpy as np
+
+    root = os.path.join(SMOKE_DIR, "finish", "tp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    scene = os.path.join(SMOKE_DIR, "scene")
+    trainer = train_run["trainer"]
+    rc, tc = tp_configs(trainer.rc.near, trainer.rc.far)
+    batch = RayBatchLoader.from_dataset(trainer.train_ds, TRAIN_RAYS,
+                                        seed=SEED).next_batch()
+    rc64 = dataclasses.replace(rc, compute_dtype="float64")
+    one_first = checks.dp_steps(None, rc, tc, [batch], device="cuda")
+    one64 = checks.dp_steps(None, rc64, tc, [batch], device="cuda")
+    one = checks.dp_trainer(None, rc, tc, scene, (TRAIN_WH, TRAIN_WH),
+                            os.path.join(root, "one"), device="cuda")
+    t1 = time.perf_counter()
+    ranks = launch(tp_rank, TP_RANKS,
+                   args=(rc, tc, scene, os.path.join(root, "tp"), batch),
+                   device="cuda", backend=backend, timeout_s=PAR_TIMEOUT_S)
+    t_tp = time.perf_counter() - t1
+    tp_first, tp = ranks["first"], ranks["run"]
+    loss_err = abs(tp_first["loss"][0] - one_first["loss"][0]) / abs(
+        one_first["loss"][0])
+    gerr = grad_err(ranks["first64"]["grads0"], one64["grads0"])
+    gerr32 = grad_err(tp_first["grads0"], one_first["grads0"])
+    perr = max(float(np.abs(tp_first["params"]["coarse"][k] - v).max())
+               for k, v in one_first["params"]["coarse"].items())
+    rows = tp_first["shard_shapes"]["pts_linears.0.weight"][0]
+    psnr1, psnr2 = one["after"]["psnr"], tp["after"]["psnr"]
+    zero = [[0] * 4] * TP_RANKS
+    print(f"[finish] tensor parallelism, {TP_RANKS} {backend} ranks as "
+          f"(data 1, model {TP_RANKS}), the flagship 8x256 fp32 net on the "
+          f"module path, {TRAIN_RAYS} rays, {rc.N_samples} + "
+          f"{rc.N_importance}: the first step's loss {tp_first['loss'][0]:.7f} "
+          f"vs one process {one_first['loss'][0]:.7f} (rel {loss_err:.2e}, "
+          f"limit {TP_LOSS_RTOL}), gradient {gerr:.2e} of its largest "
+          f"element with the MLP in fp64 (limit {TP_GRAD_TOL}; in fp32 "
+          f"{gerr32:.2e}, the one-process fp32 gradient's own distance from "
+          f"fp64 {grad_err(one_first['grads0'], one64['grads0']):.2e}), "
+          f"parameters max |diff| "
+          f"{perr:.2e} (limit {TP_PARAM_ATOL}); pts_linears.0's shard "
+          f"{tp_first['shard_shapes']['pts_linears.0.weight']}; held-out "
+          f"PSNR after {PAR_STEPS} steps {psnr2:.2f} dB vs one process "
+          f"{psnr1:.2f} (limit {TP_PSNR_GAP}); kernel launches in the TP "
+          f"steps {tp_first['launches']} / in train() {tp['launches']}; "
+          f"ranks' shards bit-equal {tp['ranks_bit_equal']} | {card}")
+    print(f"[finish] TP step, host median: {tp['step_ms']:.2f} ms per step "
+          f"a rank ({TP_RANKS} ranks, {backend}); the one-process module "
+          f"path (fp32) {one['step_ms']:.2f} ms; the TP Trainer's run "
+          f"{t_tp:.1f} s with its spawn | {card}")
+    if not (loss_err <= TP_LOSS_RTOL and gerr <= TP_GRAD_TOL
+            and perr <= TP_PARAM_ATOL and rows == TP_SHARD_ROWS
+            and abs(psnr1 - psnr2) <= TP_PSNR_GAP
+            and tp_first["launches"] == [0] * 4 and tp["launches"] == zero
+            and tp["ranks_bit_equal"] and tp_first["ranks_bit_equal"]
+            and ranks["first64"]["launches"] == [0] * 4):
+        raise SystemExit("[finish] the tensor-parallel step failed its "
+                         "checks")
+    return {"step_ms": tp["step_ms"], "one_step_ms": one["step_ms"]}
+
+
+def finish_mesh(turbo_ckpt, devices, card):
+    """The turbo model's MESH_RES[-1]^3 mesh dealt over ``devices``,
+    against one device. Returns the forward's record (path
+    ``mesh_devices``)."""
+    import numpy as np
+    import torch
+
+    from nerfmlp_torch.ops import mesh as mesh_mod
+    from nerfmlp_torch.ops.encoding import positional_encoding
+    from nerfmlp_torch.ops.occupancy import _QUERY_DIR
+    from nerfmlp_torch.parallel.render_parallel import replicate
+    from nerfmlp_torch.train.checkpoint import load_params_any
+
+    cfg = dataclasses.replace(turbo_configs(2.0, 6.0)[0], perturb=False)
+    params = load_params_any(turbo_ckpt, cfg.model_config(), device="cuda")
+    g = MESH_RES[-1]
+    probe = mesh_mod.density_volume(params, cfg, resolution=MESH_RES[0])
+    lo, hi = float(probe.min()), float(probe.max())
+    thr = MESH_ISO if hi > MESH_ISO else 0.5 * (lo + hi)
+    reps = replicate(params, cfg, devices)
+    one, one_s, one_l = mesh_extract(params, cfg, g, thr, "one device", card)
+    two, two_s, two_l = mesh_extract(params, cfg, g, thr,
+                                     f"over {list(map(str, devices))}", card,
+                                     mesh=reps)
+    vol_one = mesh_mod.density_volume(params, cfg, resolution=g)
+    vol_two = mesh_mod.density_volume(params, cfg, resolution=g, mesh=reps)
+    same = {k: bool(np.array_equal(one[k], two[k]))
+            for k in ("verts", "faces", "normals", "colors")}
+    print(f"[finish] mesh over {len(devices)} devices: volume bit-equal "
+          f"{bool(np.array_equal(vol_one, vol_two))}, {same}; forward "
+          f"launches summed (density + colours) {two_l} vs one device "
+          f"{one_l}; s per stage over the devices "
+          + ", ".join(f"{k} {v:.3f}" for k, v in two_s.items())
+          + f" (one device: density {one_s['density']:.3f}, colours "
+          f"{one_s['colours']:.3f}) | {card}")
+    if not (np.array_equal(vol_one, vol_two) and all(same.values())
+            and len(two["faces"]) and tuple(two_l) == tuple(one_l)):
+        raise SystemExit("[finish] the mesh over devices departs from one "
+                         "device's")
+    # The forward at the density chunk's shape on each distinct device.
+    n = g ** 3
+    s0 = (n // 2) // MESH_CHUNK * MESH_CHUNK
+    recs = []
+    for dev in dict.fromkeys(reps.devices):
+        ids = torch.arange(s0, s0 + MESH_CHUNK, dtype=torch.int32, device=dev)
+        ijk = torch.stack([ids // (g * g), (ids // g) % g, ids % g], -1)
+        lo_t = torch.tensor(OCC_AABB[:3], device=dev)
+        span = torch.tensor(OCC_AABB[3:], device=dev) - lo_t
+        pts = (lo_t + (ijk.float() / (g - 1)) * span).contiguous()
+        dirs = positional_encoding(
+            torch.tensor(_QUERY_DIR, device=dev).expand(MESH_CHUNK, 3),
+            cfg.dir_enc_L)
+        with torch.cuda.device(dev):
+            recs.append(check_kernel(
+                reps.params[dev]["coarse"].net, cfg, pts, dirs,
+                f"mesh density chunk on {dev}", time_it=True))
+    rec = dict(recs[0], max_abs_err=max(r["max_abs_err"] for r in recs),
+               launches=sum(two_l))
+    return rec
+
+
+def finish_progressive(jpeg_run, card):
+    """The progressive capture: every committed progressive JPEG against
+    its Pillow decode, the decode rate, and the train CLI on
+    configs/fern.txt with --factor 4 on it. Returns the four kernels'
+    records (path ``progressive``)."""
+    import hashlib
+
+    import numpy as np
+
+    from nerfmlp_torch.data.llff import LLFFDataset
+    from nerfmlp_torch.utils.jpeg import read_jpeg
+
+    with open(os.path.join(JPEG_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    prog = []
+    for name in sorted(manifest):
+        with open(os.path.join(JPEG_DIR, name), "rb") as f:
+            if b"\xff\xc2" in f.read():
+                prog.append(name)
+    bad, pixels, t_dec = [], 0, 0.0
+    for name in prog:
+        t1 = time.perf_counter()
+        px = read_jpeg(os.path.join(JPEG_DIR, name))
+        t_dec += time.perf_counter() - t1
+        pixels += px.shape[0] * px.shape[1]
+        if px.shape[2] == 1:
+            px = np.repeat(px, 3, axis=2)
+        if hashlib.sha256(px.tobytes()).hexdigest() != \
+                manifest[name]["sha256"]:
+            bad.append(name)
+    views = [n for n in prog if n.startswith("capture_progressive/")]
+    same = all(np.array_equal(
+        read_jpeg(os.path.join(JPEG_DIR, n)),
+        read_jpeg(os.path.join(JPEG_DIR, n.replace("capture_progressive",
+                                                    "capture"))))
+        for n in views)
+    print(f"[finish] {len(prog)} committed progressive JPEGs decoded, "
+          f"{len(bad)} departing from their Pillow decodes {bad}; "
+          f"{t_dec / (pixels / 1e6):.3f} s per megapixel on this host; the "
+          f"{len(views)} capture views' pixels equal the baseline capture's: "
+          f"{same} | {card}")
+    if bad or not same or len(views) != LLFF_VIEWS:
+        raise SystemExit("[finish] a progressive JPEG departs from Pillow's "
+                         "pixels")
+    root = os.path.join(SMOKE_DIR, "finish", "progressive")
+    shutil.rmtree(root, ignore_errors=True)
+    scene = os.path.join(root, "scene")
+    shutil.copytree(os.path.join(JPEG_DIR, "capture_progressive"), scene)
+    metrics, launches, step_fwd, wall, trainer = train_cli_run(
+        "finish progressive", fern_argv(scene, os.path.join(root, "run"),
+                                        ["--factor", str(JPEG_FACTOR)]),
+        LLFF_STEPS)
+    final = metrics["final_val"]["psnr"]
+    want = 2 * LLFF_STEPS
+    print(f"[finish] fern from progressive JPEG images/ at --factor "
+          f"{JPEG_FACTOR}: held-out PSNR {final:.2f} dB; phase 14's baseline "
+          f"JPEG run without --check_numerics "
+          + ("not run" if jpeg_run is None else f"{jpeg_run:.2f} dB")
+          + f" (the same pixels); step launches {step_fwd} forward, "
+          f"{launches[1:]} backward (want {want} each) | {card}")
+    if not (final >= PSNR_MIN and step_fwd == want
+            and launches[1:] == [want] * 3
+            and (jpeg_run is None or abs(final - jpeg_run) <= PSNR_GAP)):
+        raise SystemExit("[finish] the progressive capture's run failed its "
+                         "checks")
+    ds = LLFFDataset(scene, "train", img_wh=LLFF_WH, factor=JPEG_FACTOR)
+    kcfg = dataclasses.replace(slice_config(), N_importance=LLFF_SAMPLES,
+                               near=0.0, far=1.0, ndc=True, white_bkgd=False)
+    pts, dirs = ndc_points(kcfg, ds.render_poses(n_frames=INF_FRAMES)[0],
+                          (ds.H, ds.W, ds.focal), TRAIN_RAYS, LLFF_SAMPLES)
+    net = trainer.state.params["coarse"]
+    label = "progressive run's net, train call"
+    fwd = check_kernel(net, kcfg, pts, dirs, label, time_it=True)
+    _, phases = check_backward(net, kcfg, pts, dirs, label, time_it=True)
+    recs = []
+    for (name, source, replaces), r, n in zip(
+            (("fused_mlp_fwd", "fused_mlp_fwd.cu", "pallas_mlp.py:264"),
+             ("fused_mlp_bwd_phase1", "fused_mlp_bwd.cu", "pallas_mlp.py:312"),
+             ("fused_mlp_bwd_phase2", "fused_mlp_bwd.cu", "pallas_mlp.py:386"),
+             ("fused_mlp_bwd_reduce", "fused_mlp_bwd.cu",
+              "pallas_mlp.py:327")),
+            (fwd, phases["phase1"], phases["phase2"], phases["reduce"]),
+            launches):
+        rec = {"name": name + "_progressive", "path": "progressive",
+               "route": "cuda", "source": "nerfmlp_torch/csrc/" + source,
+               "replaces": "nerfmlp_tpu/ops/" + replaces, "launches": n,
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
+        if "module_ms" in r:
+            rec["module_ms"] = r["module_ms"]
+        recs.append(rec)
+    return recs
+
+
+def finish_tools(run, gt, card):
+    """The plotting and status tools on phase 7's train CLI run directory
+    ``run``: its three end-of-run figures, view_progress, make_timelapse
+    and side_by_side_compare (its last held-out frame beside ``gt``)."""
+    from nerfmlp_torch.scripts import (
+        make_timelapse, side_by_side_compare, view_progress,
+    )
+    from nerfmlp_torch.utils.image import read_png
+
+    shapes = {}
+    for name in ("training_report.png", "convergence_plot.png",
+                 "comprehensive_metrics.png"):
+        shapes[name] = read_png(os.path.join(run, name)).shape
+    with open(os.path.join(run, "metrics_latest.json")) as f:
+        step = json.load(f)["step"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_view = view_progress.main(["--metrics-dir", run])
+    shown = f"step:                {step:,}" in buf.getvalue()
+    frames = sorted(n for n in os.listdir(run) if n.startswith("val_")
+                    and n.endswith(".png"))
+    out = os.path.join(SMOKE_DIR, "finish", "timelapse")
+    with contextlib.redirect_stdout(io.StringIO()):
+        gif = make_timelapse.main(["--run_dir", run, "--out", out])
+    gw, gh, n_frames, _ = gif_info(gif)
+    rendered = os.path.join(run, frames[-1])
+    sbs = os.path.join(SMOKE_DIR, "finish", "side_by_side.png")
+    with contextlib.redirect_stdout(io.StringIO()):
+        side_by_side_compare.main([rendered, sbs, "--gt", gt])
+    h, w = read_png(rendered).shape[:2]
+    got = read_png(sbs).shape
+    print(f"[finish] tools on phase 7's run: figures {shapes}; "
+          f"view_progress exit {rc_view}, step {step:,} shown {shown}; "
+          f"make_timelapse {n_frames} frames of {gw}x{gh} for {len(frames)} "
+          f"val_*.png; side_by_side_compare {got[1]}x{got[0]} from a "
+          f"{w}x{h} render | {card}")
+    if not (rc_view == 0 and shown and frames and n_frames == len(frames)
+            and got[:2] == (h, 2 * w)
+            and all(len(v) == 3 and v[2] == 3 for v in shapes.values())):
+        raise SystemExit("[finish] a tool failed its checks")
+
+
+def phase_finish(train_run, turbo_ckpt, card):
+    """The rest of the JAX package (the module docstring, phase 15).
+    Returns the records of paths mesh_devices and progressive."""
+    import torch
+
+    t0 = time.perf_counter()
+    n_dev = torch.cuda.device_count()
+    backend = "nccl" if n_dev >= TP_RANKS else "gloo"
+    devices = ([f"cuda:{i}" for i in range(TP_RANKS)] if n_dev >= TP_RANKS
+               else ["cuda:0"] * TP_RANKS)
+    print(f"[finish] visible cards: {n_dev}: TP over {backend}, the mesh "
+          f"over {devices}")
+    inference = os.path.join(SMOKE_DIR, "inference")
+    finish_tools(os.path.join(inference, "run"),
+                 os.path.join(inference, "scene", "val", "r_0.png"), card)
+    t1 = time.perf_counter()
+    mesh_rec = finish_mesh(turbo_ckpt, devices, card)
+    t_mesh = time.perf_counter() - t1
+    unchecked = os.path.join(SMOKE_DIR, "jpeg", "unchecked",
+                             "comprehensive_metrics.json")
+    jpeg_run = None
+    if os.path.exists(unchecked):
+        with open(unchecked) as f:
+            jpeg_run = json.load(f)["final_val"]["psnr"]
+    t1 = time.perf_counter()
+    prog = finish_progressive(jpeg_run, card)
+    t_prog = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    finish_tp(train_run, backend, card)
+    t_tp = time.perf_counter() - t1
+    print(f"[finish] phase took {time.perf_counter() - t0:.1f} s (TP "
+          f"{t_tp:.1f}, mesh {t_mesh:.1f}, progressive {t_prog:.1f})")
+    rec = {"name": "fused_mlp_fwd_mesh_devices", "path": "mesh_devices",
+           "route": "cuda", "source": "nerfmlp_torch/csrc/fused_mlp_fwd.cu",
+           "replaces": "nerfmlp_tpu/ops/pallas_mlp.py:264",
+           "launches": mesh_rec["launches"],
+           "max_abs_err": mesh_rec["max_abs_err"], "ms": mesh_rec["ms"],
+           "plain_ms": mesh_rec["plain_ms"],
+           "module_ms": mesh_rec["module_ms"],
+           "bound_ms": mesh_rec["bound_ms"],
+           "bound_by": mesh_rec["bound_by"], "library_ms": None}
+    return [rec] + prog
+
+
 def smi_line():
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -4342,6 +4719,18 @@ def main():
         print(json.dumps({"kernels": phase_jpeg(None, card)}))
         print(card)
         return 0
+    if sys.argv[1:] == ["--only", "finish"]:
+        # Phase 15 alone, after the runs whose files it reads: phase 5's
+        # scene and run, phase 6's turbo weights, phase 7's run directory.
+        train_ds, val_ds = make_scene()
+        card = smi_line()
+        train_run = phase_train(train_ds, val_ds)
+        turbo_ckpt = save_turbo(phase_occ_train(train_ds, val_ds))
+        phase_inference()
+        print(json.dumps({"kernels": phase_finish(train_run, turbo_ckpt,
+                                                  card)}))
+        print(card)
+        return 0
     if sys.argv[1:] == ["--only", "multi_scene"]:
         # Phase 11 alone, after the single-scene run it is held against.
         train_ds, val_ds = make_scene()
@@ -4375,6 +4764,7 @@ def main():
     interchange_recs = phase_interchange(train_run, turbo_ckpt, card)
     parallel_recs = phase_parallel(train_run, card)
     jpeg_recs = phase_jpeg(llff["psnr"], card)
+    finish_recs = phase_finish(train_run, turbo_ckpt, card)
 
     # The forward runs on both paths, at different shapes: one record per
     # path, each with that path's launches and its fine call's times, and
@@ -4550,6 +4940,10 @@ def main():
     # on the JPEG capture, its device ms per launch from the run's own
     # --profile_dir trace, held on the net of the traced window.
     kernels += jpeg_recs
+    # The rest of the JAX package (phase 15): the forward of the mesh over
+    # two devices (launches summed over them), and the four kernels on the
+    # progressive capture's train CLI run.
+    kernels += finish_recs
     for rec in bwds + [occ["bwd probe"], occ["bwd refine"], occ["bwd hi_lo"],
                        llff["bwd"]]:
         print(f"[backward] {rec['label']} call, all three kernels: "

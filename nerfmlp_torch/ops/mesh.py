@@ -179,12 +179,55 @@ def _final(params: Dict, cfg: RenderConfig):
     return net, fine, params_device(params)
 
 
+def _workers(params: Dict, cfg: RenderConfig, mesh):
+    """The nets that query a chunk, and the ranks that share the chunks:
+    ([(net, is_fine, device)], None) for one device or a list of devices
+    (their :class:`~nerfmlp_torch.parallel.render_parallel.Replicas`),
+    ([this rank's], mesh) for a :class:`~nerfmlp_torch.parallel.mesh.
+    Mesh` of ranks."""
+    from nerfmlp_torch.parallel.mesh import Mesh
+    from nerfmlp_torch.parallel.render_parallel import (
+        Replicas, data_parallel_mesh, replicate,
+    )
+
+    mesh = data_parallel_mesh(mesh)
+    if mesh is None or isinstance(mesh, Mesh):
+        return [_final(params, cfg)], mesh
+    reps = mesh if isinstance(mesh, Replicas) else replicate(params, cfg,
+                                                             mesh)
+    return [_final(reps.params[d], cfg) for d in reps.devices], None
+
+
+def _over_chunks(starts, workers, ranks, query, shape, home) -> torch.Tensor:
+    """``query(worker, start)`` for every chunk start, dealt whole over the
+    workers (chunk i to worker i mod n; each runs the one-device call's
+    shape, so each value is the one-device value, bit for bit, and the
+    launches sum to the one-device count), or over the ranks of
+    ``ranks`` (rank r takes chunks r, r + n, ...; all-gathered to every
+    rank). Returns the (chunks, *shape) results in chunk order on
+    ``home``."""
+    from nerfmlp_torch.parallel.mesh import all_gather_rows
+
+    starts = list(starts)
+    if ranks is None:
+        return torch.stack([query(workers[i % len(workers)], s).to(home)
+                            for i, s in enumerate(starts)])
+    n, r = ranks.world_size, ranks.rank
+    per = -(-len(starts) // n)
+    mine = [query(workers[0], starts[i]) for i in range(r, len(starts), n)]
+    mine += [torch.zeros(shape, device=home)] * (per - len(mine))
+    every = all_gather_rows(torch.stack(mine), ranks)      # rank-major
+    return every.reshape((n, per) + tuple(shape)).transpose(0, 1).reshape(
+        (n * per,) + tuple(shape))[:len(starts)]
+
+
 def density_volume(
     params: Dict,
     cfg: RenderConfig,
     resolution: int = 128,
     aabb=None,
     chunk: int = 65536,
+    mesh=None,
 ) -> np.ndarray:
     """relu(sigma) at (G, G, G) grid NODES spanning the box (inclusive).
 
@@ -194,6 +237,12 @@ def density_volume(
     2^20 and the request), each one ``_query_mlp`` call — on the card one
     forward kernel launch. Node ids are int32, the tail chunk's clamped
     to g^3 - 1; node points ``box_min + (ijk / max(g - 1, 1)) * span``.
+
+    ``mesh``: several devices (a list, or their ``Replicas``) or a
+    :class:`~nerfmlp_torch.parallel.mesh.Mesh` of ranks (JAX's
+    ``_shard_rows`` over ``mesh=``, ``nerfmlp_tpu/ops/mesh.py:205-265``):
+    the chunks are dealt over them whole and gathered in node order; the
+    volume is one device's, bit for bit.
     """
     from nerfmlp_torch.ops.encoding import positional_encoding
     from nerfmlp_torch.ops.occupancy import _QUERY_DIR
@@ -214,28 +263,34 @@ def density_volume(
         # before the clamp, so g^3 plus the 2^20 cap must fit.
         raise ValueError(f"resolution must be <= 1289 (int32 node ids), "
                          f"got {g}")
-    net, fine, dev = _final(params, cfg)
+    workers, ranks = _workers(params, cfg, mesh)
     lo = np.asarray(aabb[:3], np.float32)
-    box_min = torch.from_numpy(lo).to(dev)
-    box_span = torch.from_numpy(np.asarray(aabb[3:], np.float32) - lo).to(dev)
+    span = np.asarray(aabb[3:], np.float32) - lo
     n = g * g * g
     chunk = max(1, min(int(chunk), 1 << 20, 1 << (n - 1).bit_length()))
-    dirs_enc = None
-    if cfg.use_viewdirs:
-        dirs_enc = positional_encoding(
-            device_constant(_QUERY_DIR, torch.float32, dev).expand(chunk, 3),
-            cfg.dir_enc_L)
-    ar = torch.arange(chunk, dtype=torch.int32, device=dev)
     denom = float(max(g - 1, 1))
-    out = torch.empty(n, dtype=torch.float32, device=dev)
+    consts = {}   # per device: box min, span, encoded direction, arange
+
+    def sigma_chunk(worker, s):
+        net, fine, dev = worker
+        if dev not in consts:
+            consts[dev] = (
+                torch.from_numpy(lo).to(dev), torch.from_numpy(span).to(dev),
+                positional_encoding(device_constant(
+                    _QUERY_DIR, torch.float32, dev).expand(chunk, 3),
+                    cfg.dir_enc_L) if cfg.use_viewdirs else None,
+                torch.arange(chunk, dtype=torch.int32, device=dev))
+        box_min, box_span, dirs_enc, ar = consts[dev]
+        ids = torch.clamp(ar + s, max=n - 1)
+        ijk = torch.stack([ids // (g * g), (ids // g) % g, ids % g], -1)
+        pts = box_min + (ijk.to(torch.float32) / denom) * box_span
+        raw = _query_mlp(net, pts[:, None, :], dirs_enc, cfg, fine=fine)
+        return torch.relu(raw[:, 0, 3])
+
     with torch.no_grad():
-        for s in range(0, n, chunk):
-            ids = torch.clamp(ar + s, max=n - 1)
-            ijk = torch.stack([ids // (g * g), (ids // g) % g, ids % g], -1)
-            pts = box_min + (ijk.to(torch.float32) / denom) * box_span
-            raw = _query_mlp(net, pts[:, None, :], dirs_enc, cfg, fine=fine)
-            out[s:s + chunk] = torch.relu(raw[:, 0, 3])[: n - s]
-    return out.cpu().numpy().reshape(g, g, g)
+        out = _over_chunks(range(0, n, chunk), workers, ranks, sigma_chunk,
+                           (chunk,), workers[0][2])
+    return out.reshape(-1)[:n].cpu().numpy().reshape(g, g, g)
 
 
 def _active_cells(vol: np.ndarray, threshold: float):
@@ -367,35 +422,41 @@ def vertex_colors(
     verts: np.ndarray,
     normals: np.ndarray,
     chunk: int = 65536,
+    mesh=None,
 ) -> np.ndarray:
     """Per-vertex RGB, sigmoid(raw[:, :3]), looking INTO the surface: the
     view direction at each vertex is its inward normal. On the nets'
     device in chunks of ``chunk`` vertices (the tail padded with points at
     0 and direction (0, 0, -1)), each one ``_query_mlp`` call — on the
-    card one forward kernel launch."""
+    card one forward kernel launch. ``mesh``: as :func:`density_volume`
+    takes it, the chunks dealt whole over its devices or ranks."""
     from nerfmlp_torch.ops.encoding import positional_encoding
     from nerfmlp_torch.ops.render import _query_mlp
 
     n = verts.shape[0]
     if n == 0:
         return np.zeros((0, 3), np.float32)
-    net, fine, dev = _final(params, cfg)
+    workers, ranks = _workers(params, cfg, mesh)
     chunk = max(1, min(int(chunk), n))
     total = -(-n // chunk) * chunk
     xv = np.zeros((total, 3), np.float32)
     xv[:n] = verts
     dv = np.tile(np.array([[0, 0, -1]], np.float32), (total, 1))
     dv[:n] = -np.asarray(normals, np.float32)
-    xv, dv = torch.from_numpy(xv).to(dev), torch.from_numpy(dv).to(dev)
-    out = torch.empty((total, 3), dtype=torch.float32, device=dev)
+    xv, dv = torch.from_numpy(xv), torch.from_numpy(dv)
+
+    def color_chunk(worker, s):
+        net, fine, dev = worker
+        pts, dirs = xv[s:s + chunk].to(dev), dv[s:s + chunk].to(dev)
+        dirs_enc = (positional_encoding(dirs, cfg.dir_enc_L)
+                    if cfg.use_viewdirs else None)
+        raw = _query_mlp(net, pts[:, None, :], dirs_enc, cfg, fine=fine)
+        return torch.sigmoid(raw[:, 0, :3])
+
     with torch.no_grad():
-        for s in range(0, n, chunk):
-            dirs_enc = (positional_encoding(dv[s:s + chunk], cfg.dir_enc_L)
-                        if cfg.use_viewdirs else None)
-            raw = _query_mlp(net, xv[s:s + chunk, None, :], dirs_enc, cfg,
-                             fine=fine)
-            out[s:s + chunk] = torch.sigmoid(raw[:, 0, :3])
-    return out[:n].cpu().numpy()
+        out = _over_chunks(range(0, n, chunk), workers, ranks, color_chunk,
+                           (chunk, 3), workers[0][2])
+    return out.reshape(-1, 3)[:n].cpu().numpy()
 
 
 def extract_mesh(
@@ -409,8 +470,13 @@ def extract_mesh(
     cell_chunk: int = 16384,
     gamma: bool = False,
     device_lock=None,
+    mesh=None,
 ) -> Dict[str, np.ndarray]:
-    """Weights -> triangle mesh, end to end, on the nets' device.
+    """Weights -> triangle mesh, end to end, on the nets' device, or with
+    ``mesh`` (several devices, their ``Replicas``, or a ``Mesh`` of ranks,
+    JAX's ``extract_mesh(mesh=)``) the density and colour chunks dealt
+    over them: the same volume and faces as on one device. Over ranks
+    every rank gets the mesh.
 
     Returns verts (V, 3) f32, faces (T, 3) i32, normals (V, 3) f32, colors
     (V, 3) f32 in [0, 1] (with ``color``), and the sigma volume's min and
@@ -423,13 +489,17 @@ def extract_mesh(
     NDC space.
     """
     from nerfmlp_torch.ops.render import prepare_params
+    from nerfmlp_torch.parallel.mesh import Mesh
+    from nerfmlp_torch.parallel.render_parallel import Replicas, replicate
     from nerfmlp_torch.render_path import params_device
 
     params = prepare_params(params, cfg)   # packed once for both stages
+    if mesh is not None and not isinstance(mesh, (Mesh, Replicas)):
+        mesh = replicate(params, cfg, mesh)    # placed once for both too
     lock = device_lock if device_lock is not None else nullcontext()
     with lock:
         vol = density_volume(params, cfg, resolution=resolution, aabb=aabb,
-                             chunk=density_chunk)
+                             chunk=density_chunk, mesh=mesh)
     use_aabb = cfg.aabb if aabb is None else aabb
     verts, faces = mesh_from_volume(vol, use_aabb, threshold,
                                     chunk=cell_chunk,
@@ -444,7 +514,7 @@ def extract_mesh(
     }
     if color:
         with lock:
-            rgb = vertex_colors(params, cfg, verts, normals)
+            rgb = vertex_colors(params, cfg, verts, normals, mesh=mesh)
         if gamma:
             from nerfmlp_torch.data.blender import linear_to_srgb
 

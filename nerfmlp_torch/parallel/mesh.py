@@ -49,18 +49,30 @@ class Mesh:
     """This rank's place in a data-parallel process group: ``rank`` of
     ``world_size``, the ``group`` its collectives run in (``None``: the
     default group), the ``device`` it computes on and the group's
-    ``backend`` ("nccl" or "gloo")."""
+    ``backend`` ("nccl" or "gloo").
+
+    A ("data", "model") mesh (``parallel/tensor_parallel.py::
+    make_tp_mesh``) also holds this rank's two sub-meshes: ``data``, the
+    ranks that hold the same parameter shards, and ``model``, the ranks
+    whose shards make up one net."""
 
     rank: int
     world_size: int
     device: torch.device
     backend: str
     group: Optional[object] = None
+    data: Optional["Mesh"] = None
+    model: Optional["Mesh"] = None
 
     @property
     def is_main(self) -> bool:
         """Rank 0: the rank that logs and writes files."""
         return self.rank == 0
+
+    @property
+    def model_parallel(self) -> int:
+        """The size of the "model" axis: 1 on a data-parallel mesh."""
+        return 1 if self.model is None else self.model.world_size
 
 
 def default_backend(device) -> str:

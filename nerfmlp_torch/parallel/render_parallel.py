@@ -81,12 +81,15 @@ def replicate(params: Dict, cfg: RenderConfig, devices: Sequence,
 
 def data_parallel_mesh(mesh):
     """``mesh`` if frames can shard over it: a :class:`Mesh` of more than
-    one rank, or more than one device (a sequence or :class:`Replicas`);
-    else ``None`` (render locally)."""
+    one rank with no "model" axis, or more than one device (a sequence or
+    :class:`Replicas`); else ``None`` (render locally: under tensor
+    parallelism each rank renders with the gathered nets, as JAX's
+    ``data_parallel_mesh`` keeps a ("data", "model") mesh's render local)."""
     if mesh is None:
         return None
     if isinstance(mesh, Mesh):
-        return mesh if mesh.world_size > 1 else None
+        return (mesh if mesh.world_size > 1 and mesh.model_parallel == 1
+                else None)
     devices = mesh.devices if isinstance(mesh, Replicas) else tuple(mesh)
     return mesh if len(devices) > 1 else None
 

@@ -323,7 +323,28 @@ def make_step_body(rc: RenderConfig, tc: TrainConfig, mesh=None):
     ``batch`` is then this rank's rows of the global batch
     (``parallel/mesh.py::shard_batch``), and the gradients and losses are
     averaged over the ranks before the clip (the module's docstring);
-    metrics are the global batch's."""
+    metrics are the global batch's. A ("data", "model") mesh
+    (``parallel/tensor_parallel.py``) takes the state of its
+    ``shard_state``: ``batch`` is then this rank's rows over ``mesh.data``,
+    the gradients are averaged over that sub-group only and the global
+    norm sums each shard once over ``mesh.model``; the nets run on the
+    module path."""
+
+    model = mesh.model if mesh is not None and mesh.model_parallel > 1 \
+        else None
+    data = reduce_over = mesh
+    if model is not None:
+        # The ("data", "model") mesh of parallel/tensor_parallel.py: draws
+        # and the gradient average over the data sub-group (none at one
+        # data rank); the nets are model-rank shards, which the fused
+        # kernels cannot take.
+        from nerfmlp_torch.parallel.tensor_parallel import (
+            param_splits, tp_global_norm, tp_render_config,
+        )
+
+        rc = tp_render_config(rc)
+        data = mesh.data
+        reduce_over = data if data.world_size > 1 else None
 
     def body(state: TrainState, batch: torch.Tensor, occ_grid=None,
              bounds=None) -> Dict[str, torch.Tensor]:
@@ -333,18 +354,19 @@ def make_step_body(rc: RenderConfig, tc: TrainConfig, mesh=None):
         names = _param_names(state.params) if checked else ()
         params = prepare_params(state.params, rc, backward=True)  # once a step
         loss, metrics = loss_and_metrics(params, batch,
-                                         _draws(state.generator, mesh),
+                                         _draws(state.generator, data),
                                          rc, tc, occ_grid, bounds)
         check_nan([("the loss", loss)])
         loss.backward()
         grads, (fine, total) = _all_reduce_mean(
-            _grads(opt.params), (metrics["loss"], loss.detach()), mesh)
+            _grads(opt.params), (metrics["loss"], loss.detach()), reduce_over)
         if checked:
             check_nan([(f"the gradient of {n}", g)
                        for n, g in zip(names, grads)])
         if mesh is not None:
             metrics = {"loss": fine, "psnr": psnr_of(fine)}
-        gnorm = global_norm(grads)
+        gnorm = (global_norm(grads) if model is None else
+                 tp_global_norm(grads, param_splits(state.params), model))
         _clip(grads, gnorm, tc)
         opt.step(grads, lr_tensor(tc, state.counter))
         if checked:

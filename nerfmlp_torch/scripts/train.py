@@ -17,9 +17,14 @@ size (the JAX CLI's default is 1024x1024), for LLFF with ``--factor`` the
 native size of ``images_{factor}/``, else 504x378, and for DeepVoxels
 512x512; ``--half_res`` halves a Blender scene's stored size and is
 ignored, with a warning, elsewhere. The shipped ``configs/*.txt`` run as
-they are, given ``--datadir``. Videos are animated GIFs. Flags of
-features not ported yet are refused by name, each naming its ROADMAP
-item.
+they are, given ``--datadir``. Videos are animated GIFs. The two flags
+of features that the port does not need, by design (``--remat``,
+``--compilation_cache``), are refused by name, saying why.
+
+At the end of a run rank 0 draws the JAX CLI's three figures,
+``training_report.png``, ``convergence_plot.png`` and
+``comprehensive_metrics.png``, with the port's numpy plotter
+(``scripts/plot_training_progress.py``), best-effort.
 
 ``--profile_dir D`` writes a ``torch.profiler`` Chrome trace of steps
 10-29 into D (one a rank), ``--check_numerics`` raises
@@ -35,7 +40,11 @@ stepping on its ``batch_size / N`` rays of the global batch, the
 gradients averaged (``parallel/train_step.py``); rank 0 logs and writes.
 Under ``torchrun`` the ranks are torchrun's. At N = 1 the run stays in
 this process, with no process group. ``--device cpu --n_devices N`` runs
-N gloo ranks on the CPU.
+N gloo ranks on the CPU. ``--tensor_parallel T`` (the JAX CLI's
+``:225-228``, ``:497-508``) lays the N ranks out as a ("data", "model")
+mesh of N / T x T (``parallel/tensor_parallel.py``): each net's layers
+split column / row over the T model ranks, on the module path; N must
+divide by T, as JAX requires.
 
 Examples:
     python -m nerfmlp_torch.scripts.train --datadir /tmp/scene \\
@@ -63,14 +72,12 @@ from nerfmlp_torch.utils.cli import (
 
 _DEFAULT_SAVE_DIR = "outputs/checkpoints"
 
-# Flags of the JAX CLI whose features this port does not have yet:
-# name -> (argparse kwargs, what is missing). Any non-default value is
-# refused.
+# Flags of the JAX CLI whose features this port does not have, by design:
+# name -> (argparse kwargs, what is missing and why). Any non-default
+# value is refused.
 _NOT_PORTED = {
     "compilation_cache": (dict(type=str, default=None),
                           "a compilation cache (PyTorch runs eagerly)"),
-    "tensor_parallel": (dict(type=int, default=1),
-                        "tensor parallelism (ROADMAP.md, Queue 1 item 18)"),
     "remat": (dict(action="store_true"),
               "activation rematerialisation (the fused backward recomputes "
               "the forward already)"),
@@ -169,6 +176,11 @@ def build_parser():
     p.add_argument("--n_devices", type=int, default=0,
                    help="data-parallel ranks, one per card (0 = every "
                         "visible card; with --device cpu, 1)")
+    p.add_argument("--tensor_parallel", type=int, default=1,
+                   help="model-axis size of a (data, model) mesh over the "
+                        "--n_devices ranks: each net's layers are split "
+                        "column / row over it (the module path; "
+                        "parallel/tensor_parallel.py)")
     p.add_argument("--seed", "--random_seed", type=int, default=0)
     add_dataset_flag(p)
     add_llff_flags(p)
@@ -289,12 +301,12 @@ def _render_only(args, trainer, rc, dataset, test_ds, render_poses,
               save_dir=out_dir, tile=args.chunk, mesh=trainer.render_mesh)
     if args.render_test:
         rgbs, _, psnrs = render_path(
-            trainer.state.params, test_ds.poses,
+            trainer.full_params(), test_ds.poses,
             (test_ds.H, test_ds.W, test_ds.focal), rc,
             gt_images=test_ds.images, **kw)
     else:
         rgbs, disps, psnrs = render_path(
-            trainer.state.params, render_poses,
+            trainer.full_params(), render_poses,
             (dataset.H, dataset.W, dataset.focal), rc, **kw)
         if trainer.is_main:
             save_path_videos(os.path.join(out_dir, "video"), rgbs, disps)
@@ -347,17 +359,31 @@ def main(argv=None):
     from nerfmlp_torch.parallel.mesh import launch, under_torchrun
 
     n = n_ranks(args)
+    tp = args.tensor_parallel
+    if tp > 1:
+        from nerfmlp_torch.parallel.tensor_parallel import check_tp
+
+        check_tp(n, tp)
     if n > 1 or under_torchrun():
         from nerfmlp_torch.scripts import train as this  # by name: picklable
 
-        print(f"Data-parallel training over {n} ranks ({args.device})")
+        if tp > 1:
+            print(f"Mesh: dp={n // tp} x tp={tp} over {n} devices "
+                  f"({args.device})")
+        else:
+            print(f"Data-parallel training over {n} ranks ({args.device})")
         return launch(this.train_rank, 0 if under_torchrun() else n,
                       args=(args,), device=args.device)
     return run(args)
 
 
 def train_rank(mesh, args):
-    """One rank of a data-parallel run (:func:`run` on ``mesh``)."""
+    """One rank of a data-parallel run (:func:`run` on ``mesh``), or of a
+    ("data", "model") mesh with ``--tensor_parallel``."""
+    if args.tensor_parallel > 1:
+        from nerfmlp_torch.parallel.tensor_parallel import make_tp_mesh
+
+        mesh = make_tp_mesh(mesh.world_size, args.tensor_parallel, mesh=mesh)
     return run(args, mesh)
 
 
@@ -504,6 +530,13 @@ def _run(args, mesh):
         return _render_only(args, trainer, rc, dataset, test_ds, render_poses,
                             bool(resume_path))
     metrics = trainer.train()
+    if trainer.is_main:
+        # The end-of-run figures (the JAX CLI's scripts/train.py:563-600).
+        from nerfmlp_torch.scripts.plot_training_progress import (
+            end_of_run_figures,
+        )
+
+        end_of_run_figures(args.save_dir)
     print(f"✅ done — final PSNR {metrics.get('final_val', {}).get('psnr')}")
     return metrics
 

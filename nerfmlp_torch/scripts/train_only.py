@@ -4,10 +4,10 @@ JSON, on one GPU (or, with ``--device cpu``, on the CPU).
 
 The PyTorch counterpart of ``scripts/train_only.py``, with its flags, its
 ``model_{step}.pt`` / ``metrics_{step}.json`` every 1,000 steps and its
-``final_metrics.json``. The JAX script's loss plot is best-effort and
-needs matplotlib, which the port does not use: it is skipped, and said
-so. Beside the JAX CLI: ``--device``, and ``--no_kernel`` as an alias of
-``--no_pallas``.
+``final_metrics.json``, and its best-effort loss / PSNR plot,
+``training_progress.png``, drawn by the port's numpy plotter
+(``utils/plot.py``: no matplotlib). Beside the JAX CLI: ``--device``, and
+``--no_kernel`` as an alias of ``--no_pallas``.
 
 Example:
     python -m nerfmlp_torch.scripts.train_only --datadir /tmp/scene \\
@@ -105,8 +105,21 @@ def main(argv=None):
                    "total_iterations": args.iters,
                    "img_wh": list(args.img_wh)},
     })
-    print("(plot skipped: the PyTorch port draws no plots; "
-          "final_metrics.json holds the series)")
+    try:
+        from nerfmlp_torch.utils.plot import subplots
+
+        fig, (a1, a2) = subplots(1, 2, 1100, 440)
+        xs = np.arange(1, len(losses) + 1) * 100
+        a1.semilogy(xs, losses)
+        a1.set_title("loss")
+        a1.set_xlabel("iter")
+        a2.plot(xs, psnrs)
+        a2.set_title("train PSNR (dB)")
+        a2.set_xlabel("iter")
+        fig.savefig(os.path.join(args.save_dir, "training_progress.png"))
+        print(f"saved {args.save_dir}/training_progress.png")
+    except Exception as e:
+        print(f"(plot skipped: {e})")
     if losses:
         print(f"final loss {losses[-1]:.6f}, PSNR {psnrs[-1]:.2f}")
     else:

@@ -38,7 +38,9 @@ each frame's pixel grid is dealt over them
 (``parallel/render_parallel.py``), the weights and the grid replicated
 once per service and on every swap or reload, so a frame copies no
 weights; ``tile`` stays the rays per dispatch, each card's tile
-``ceil(tile / n)`` (at least 256). Mesh extraction runs on ``device``.
+``ceil(tile / n)`` (at least 256). ``POST /mesh`` deals its density and
+colour chunks over the same replicas (``ops/mesh.py::extract_mesh(mesh=)``,
+JAX's ``serve.py:502``): the volume and faces are one card's.
 """
 
 from __future__ import annotations
@@ -430,11 +432,15 @@ class RenderService:
                 self._mesh_active += 1
             try:
                 t0 = time.perf_counter()
-                # One read: a swap replaces the attribute, never the dict.
-                mesh = extract_mesh(self.params, self.cfg, resolution=resolution,
+                # One read: a swap replaces the attribute, never the dict;
+                # over several devices, the replicas (placed together).
+                reps = self.replicas
+                params = (self.params if reps is None
+                          else reps.params[reps.devices[0]])
+                mesh = extract_mesh(params, self.cfg, resolution=resolution,
                                     threshold=threshold, aabb=aabb,
                                     color=color, gamma=gamma,
-                                    device_lock=self._lock)
+                                    device_lock=self._lock, mesh=reps)
                 dt = time.perf_counter() - t0
             finally:
                 with self._stats_lock:

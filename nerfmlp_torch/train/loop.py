@@ -27,8 +27,15 @@ rank from the same seed, so the grids stay equal; validation and the
 render events render each frame over the ranks
 (``parallel/render_parallel.py``); rank 0 alone logs and writes files
 (checkpoints, metrics, PNGs, videos, meshes), and the others wait at a
-barrier after each write. Tensor parallelism is left out (ROADMAP.md,
-Queue 1 item 18).
+barrier after each write. Tensor parallelism (a ("data", "model")
+``mesh`` of ``parallel/tensor_parallel.py::make_tp_mesh``, the JAX
+Trainer's ``:112-145``): each rank holds its shards of the nets and of
+Adam's moments and steps on its rows over the "data" sub-group, through
+the module path (the fused kernels have no path for sharded weights);
+occupancy sampling is refused, ``device_pool`` and ``steps_per_dispatch``
+are ignored, as in JAX; every rank renders validation and the events
+locally with the gathered nets, and checkpoints hold the gathered nets
+and moments, in a one-process run's layout.
 
 The Trainer's extras (``nerfmlp_tpu/train/loop.py:103-110``, ``:613``,
 ``:636-640``, ``:715-737``, ``:894-904``): ``TrainConfig.profile_dir``
@@ -155,21 +162,38 @@ class Trainer:
         if rc.use_occupancy and rc.aabb is None:
             raise ValueError("use_occupancy requires RenderConfig.aabb")
         self.mesh = mesh
+        self.verbose = verbose
+        # A mesh with a "model" axis > 1 takes the tensor-parallel step.
+        self._tp = mesh is not None and mesh.model_parallel > 1
+        self.is_main = self.mesh is None or self.mesh.is_main
+        if self._tp:
+            if rc.use_occupancy:
+                raise ValueError(
+                    "tensor parallelism + occupancy sampling is not wired; "
+                    "drop --use_occupancy or --tensor_parallel")
+            if rc.use_kernel:
+                # The fused kernels have no path for sharded weights (the
+                # JAX Trainer turns its Pallas kernel off alike).
+                rc = dataclasses.replace(rc, use_kernel=False)
+                self._log("(tensor parallelism: fused kernels disabled — "
+                          "sharded weights take the module path)")
+        # The ranks that split each global batch (the "data" sub-group
+        # under tensor parallelism).
+        self._data_mesh = mesh.data if self._tp else mesh
         if mesh is not None:
             if device is not None and (torch.device(device).type
                                        != mesh.device.type):
                 raise ValueError(f"device {device} on a mesh of "
                                  f"{mesh.device.type} ranks")
             device = mesh.device
-            shard_batch(np.empty(tc.batch_size), mesh)   # B % N refused
+            shard_batch(np.empty(tc.batch_size), self._data_mesh)  # B % N
             if (tc.steps_per_dispatch > 1 and mesh.device.type == "cuda"
-                    and mesh.backend != "nccl"):
+                    and mesh.backend != "nccl" and not self._tp):
                 raise ValueError(
                     f"steps_per_dispatch={tc.steps_per_dispatch} under "
                     f"{mesh.backend} on cuda: its collectives go through the "
                     "host and cannot be captured in a CUDA graph; use nccl "
                     "or steps_per_dispatch 1")
-        self.is_main = self.mesh is None or self.mesh.is_main
         # Frames render over the ranks (validation, i_img, the events).
         self.render_mesh = data_parallel_mesh(self.mesh)
         self.device = resolve_device(device)
@@ -180,7 +204,6 @@ class Trainer:
         self.val_ds = val_ds
         self.quick_val_ds = quick_val_ds if quick_val_ds is not None else val_ds
         self.save_dir = save_dir
-        self.verbose = verbose
         self.render_poses = render_poses
         self.test_ds = test_ds
         self._mesh_warned = False
@@ -201,7 +224,12 @@ class Trainer:
         self._last_val = None
 
         self.state = create_train_state(rc, tc, self.device)
-        self._replicate()
+        self._replicate(self.mesh)
+        self._full = None     # (step, the gathered state) under TP
+        if self._tp:
+            from nerfmlp_torch.parallel.tensor_parallel import shard_state
+
+            self.state = shard_state(self.state, self.mesh)
         self.step_fn = make_step_fn(rc, tc, self.mesh)
         # Occupancy-grid sampling state (ops/occupancy.py): derived from the
         # nets, refreshed in train() and rebuilt on resume (in place: a
@@ -220,7 +248,9 @@ class Trainer:
         # and pools smaller than one batch.
         self.pool = None
         if tc.device_pool:
-            if tc.no_batching:
+            if self._tp:
+                self._log("(device_pool ignored under tensor parallelism)")
+            elif tc.no_batching:
                 self._log("(device_pool ignored: --no_batching samples "
                           "per-image on host)")
             elif len(self.loader) < tc.batch_size:
@@ -231,7 +261,9 @@ class Trainer:
                                           seed=tc.seed, device=self.device,
                                           mesh=self.mesh)
         self.windows = None
-        if tc.steps_per_dispatch > 1:
+        if tc.steps_per_dispatch > 1 and self._tp:
+            self._log("(steps_per_dispatch ignored under tensor parallelism)")
+        elif tc.steps_per_dispatch > 1:
             self.windows = StepWindows(self.state,
                                        make_step_body(rc, tc, self.mesh),
                                        tc.steps_per_dispatch, self._sums,
@@ -264,16 +296,36 @@ class Trainer:
         if self.verbose and self.is_main:
             print(msg, flush=True)
 
-    def _replicate(self) -> None:
-        """Rank 0's nets, Adam state and step counter into every rank's
-        (nothing without a mesh). Every rank builds and resumes the same
-        state; this makes them equal bit for bit whatever the devices."""
-        if self.mesh is None:
+    def _replicate(self, mesh) -> None:
+        """The first rank's nets, Adam state and step counter into every
+        rank's of ``mesh`` (nothing without one). Every rank builds and
+        resumes the same state; this makes them equal bit for bit
+        whatever the devices. Under tensor parallelism a resumed state is
+        replicated over the "data" sub-group, whose ranks hold the same
+        shards."""
+        if mesh is None:
             return
         st = self.state
         opt = st.optimizer
         replicate_([p.data for p in opt.params] + opt.exp_avg
-                   + opt.exp_avg_sq + [opt.count, st.counter], self.mesh)
+                   + opt.exp_avg_sq + [opt.count, st.counter], mesh)
+
+    def full_state(self):
+        """The train state as one process holds it: under tensor
+        parallelism gathered from the model ranks (a collective every rank
+        makes at the same step; kept until the next step), else the
+        state itself."""
+        if not self._tp:
+            return self.state
+        if self._full is None or self._full[0] != self.state.step:
+            from nerfmlp_torch.parallel.tensor_parallel import gather_state
+
+            self._full = (self.state.step, gather_state(self.state))
+        return self._full[1]
+
+    def full_params(self) -> Dict:
+        """The nets as one process holds them (:meth:`full_state`)."""
+        return self.full_state().params
 
     def _sync(self) -> None:
         """The ranks wait here for rank 0's writes (nothing without a
@@ -282,7 +334,7 @@ class Trainer:
 
     def _host_batch(self) -> np.ndarray:
         """This rank's rows of the loader's next global batch."""
-        return shard_batch(self.loader.next_batch(), self.mesh)
+        return shard_batch(self.loader.next_batch(), self._data_mesh)
 
     def _occ_update(self, seed_step: int, decay: float) -> None:
         """One refresh of the density grid from the current nets, its
@@ -303,7 +355,7 @@ class Trainer:
         o, d, gt = dataset.image_rays(idx)
         vd = image_viewdirs(dataset, idx)
         t = lambda a: torch.as_tensor(a, device=self.device)
-        params = prepare_params(self.state.params, self.rc)
+        params = prepare_params(self.full_params(), self.rc)
         with numerics_scope(f"the render of view {idx}"):
             if self.render_mesh is not None:
                 # The JAX Trainer's per-device tile: the chunk over the
@@ -382,7 +434,7 @@ class Trainer:
             kw = dict(render_factor=self.tc.render_factor,
                       occ_grid=self.occ_grid, verbose=False,
                       tile=self.tc.chunk, mesh=self.render_mesh)
-            rgbs, disps, _ = render_path(self.state.params, self.render_poses,
+            rgbs, disps, _ = render_path(self.full_params(), self.render_poses,
                                          (ds.H, ds.W, ds.focal), self.rc, **kw)
             expname = os.path.basename(os.path.normpath(self.save_dir))
             base = os.path.join(self.save_dir, f"{expname}_spiral_{step:06d}")
@@ -391,7 +443,7 @@ class Trainer:
                 self._log(f"🎬 i_video @ {step:,}: {rgb_path}, {disp_path}")
             if self.rc.use_viewdirs:
                 stills, _, _ = render_path(
-                    self.state.params, self.render_poses,
+                    self.full_params(), self.render_poses,
                     (ds.H, ds.W, ds.focal), self.rc,
                     static_cam_pose=np.asarray(self.render_poses)[0], **kw)
                 if self.is_main:
@@ -421,7 +473,7 @@ class Trainer:
                 H, W, focal = H // rf, W // rf, focal / rf
                 gt = gt[:, : H * rf: rf, : W * rf: rf]
             _, _, psnrs = render_path(
-                self.state.params, ds.poses, (H, W, focal), self.rc,
+                self.full_params(), ds.poses, (H, W, focal), self.rc,
                 gt_images=gt, tile=self.tc.chunk, occ_grid=self.occ_grid,
                 save_dir=out_dir, verbose=False, mesh=self.render_mesh)
             if psnrs:
@@ -444,10 +496,12 @@ class Trainer:
         current weights (``ops/mesh.py``), packed from them here: under
         ``steps_per_dispatch`` the replays update the nets in place, so no
         earlier packing is current. Without ``rc.aabb`` it warns once and
-        skips. Best-effort. Rank 0 alone extracts it."""
+        skips. Best-effort. Over a data-parallel mesh each rank queries
+        its share of the chunks (``extract_mesh(mesh=)``, the JAX
+        Trainer's ``render_mesh``) and rank 0 writes the file; otherwise
+        rank 0 alone extracts it (under tensor parallelism from the
+        gathered nets)."""
         try:
-            if not self.is_main:
-                return
             if self.rc.aabb is None:
                 if not self._mesh_warned:
                     self._mesh_warned = True
@@ -455,9 +509,15 @@ class Trainer:
                 return
             from nerfmlp_torch.ops.mesh import extract_mesh, save_ply
 
-            mesh = extract_mesh(self.state.params, self.rc,
+            params = self.full_params()
+            if self.render_mesh is None and not self.is_main:
+                return
+            mesh = extract_mesh(params, self.rc,
                                 resolution=self.tc.mesh_resolution,
-                                threshold=self.tc.mesh_threshold)
+                                threshold=self.tc.mesh_threshold,
+                                mesh=self.render_mesh)
+            if not self.is_main:
+                return
             expname = os.path.basename(os.path.normpath(self.save_dir))
             path = os.path.join(self.save_dir,
                                 f"{expname}_mesh_{step:06d}.ply")
@@ -505,9 +565,9 @@ class Trainer:
         st = self.state
         # Everything is written into the live tensors, so a captured step
         # (steps_per_dispatch) stays valid and a run resumes at any K.
+        self._full = None
         if ckpt.is_train_state(raw):
-            self._load_params(raw["params"], path)
-            st.optimizer.load_state_dict(raw["opt_state"])
+            self._load_params(raw["params"], path, raw["opt_state"])
             if raw["generator"] is None:
                 st.generator.manual_seed(self.tc.seed)
                 self._log(f"⚠️  {path} holds a JAX PRNG key, not a torch "
@@ -536,7 +596,7 @@ class Trainer:
             self._log(f"⚠️  no history sidecar at {hist_path} — metric "
                       "histories start empty (step comes from the state)")
         self.history["step"] = max(int(self.history.get("step", 0)), st.step)
-        self._replicate()
+        self._replicate(self._data_mesh)
         if self.occ_grid is not None:
             # The grid is derived state: one refresh with decay 0 rebuilds
             # it from the restored nets (an EMA step on the fresh grid
@@ -546,34 +606,48 @@ class Trainer:
                   f"quick-val PSNR {self.history['best_val_psnr']:.2f})")
         return True
 
-    def _load_params(self, sds: Dict, path: str) -> None:
+    def _load_params(self, sds: Dict, path: str,
+                     opt_state: Optional[Dict] = None) -> None:
+        """The nets' state dicts ``sds`` (and Adam's ``opt_state``, where
+        given) into the live state; under tensor parallelism each rank
+        keeps its shards of them."""
         if set(sds) != set(self.state.params):
             raise ValueError(
                 f"{path}: checkpoint nets {sorted(sds)} do not match this "
                 f"run's {sorted(self.state.params)} — pass the run's "
                 "original --separate_fine flag")
-        for key, net in self.state.params.items():
-            try:
+        try:
+            if self._tp:
+                from nerfmlp_torch.parallel.tensor_parallel import (
+                    load_full_state,
+                )
+
+                load_full_state(self.state, sds, opt_state)
+                return
+            for key, net in self.state.params.items():
                 net.load_state_dict(sds[key])
-            except RuntimeError as e:
-                raise ValueError(
-                    f"{path}: checkpoint does not match this architecture "
-                    f"({e}) — pass the run's original --netdepth/--netwidth "
-                    "flags") from e
+        except RuntimeError as e:
+            raise ValueError(
+                f"{path}: checkpoint does not match this architecture "
+                f"({e}) — pass the run's original --netdepth/--netwidth "
+                "flags") from e
+        if opt_state is not None:
+            self.state.optimizer.load_state_dict(opt_state)
 
     def _save_resumable(self, name: str = "metrics_latest.pt",
                         history: Optional[Dict] = None) -> None:
+        state = self.full_state()
         if not self.is_main:
             return
         path = os.path.join(self.save_dir, name)
-        ckpt.save_checkpoint(path, self.state)
+        ckpt.save_checkpoint(path, state)
         ckpt.save_metrics_json(path.rsplit(".", 1)[0] + ".history.json",
                                self.history if history is None else history)
 
     def _save_params(self, name: str) -> None:
+        params = self.full_params()
         if self.is_main:
-            ckpt.save_params(os.path.join(self.save_dir, name),
-                             self.state.params)
+            ckpt.save_params(os.path.join(self.save_dir, name), params)
 
     # ------------------------------------------------------------------ #
 
@@ -877,7 +951,7 @@ class Trainer:
         Trainer's ``_tb_histograms_and_image``), from the validation's
         view 0 where it rendered one. Best-effort: a failure is logged."""
         try:
-            tree = ckpt.jax_params_tree(self.state.params)
+            tree = ckpt.jax_params_tree(self.full_params())
             for net, layers in tree.items():
                 for layer, leaves in layers.items():
                     for leaf, value in leaves.items():

@@ -1,18 +1,25 @@
-"""A baseline JPEG decoder on numpy and the standard library, whose pixels
-equal those of libjpeg-turbo with its default settings (what
+"""A JPEG decoder on numpy and the standard library, whose pixels equal
+those of libjpeg-turbo with its default settings (what
 ``Image.open(path).convert("RGB")`` gives with Pillow), so that the port
 reads the JPEG captures of LLFF scenes with no imaging package.
 
-What it reads: sequential Huffman-coded JPEG (SOF0 baseline and SOF1
-extended) at 8-bit precision, one component (greyscale) or three (YCbCr,
-or RGB where an Adobe marker or the component ids say so); 8- and 16-bit
-quantisation tables; restart intervals; interleaved and non-interleaved
-scans. APPn and COM segments are skipped, so EXIF orientation is ignored,
-as ``Image.open`` ignores it.
+What it reads: Huffman-coded JPEG at 8-bit precision, sequential (SOF0
+baseline and SOF1 extended) or progressive (SOF2: spectral selection and
+successive approximation), one component (greyscale) or three (YCbCr, or
+RGB where an Adobe marker or the component ids say so); 8- and 16-bit
+quantisation tables; restart intervals, in progressive scans too;
+interleaved and non-interleaved scans. APPn and COM segments are skipped,
+so EXIF orientation is ignored, as ``Image.open`` ignores it.
 
 How, step by step as libjpeg-turbo does it (its files named):
 
   * Huffman decoding from 16-bit lookup tables, one symbol per lookup;
+    a progressive scan's DC first and refinement passes, AC first passes
+    with end-of-band runs and AC refinement passes (``jdphuff.c``) build
+    the coefficients up in the same per-component arrays, the
+    quantisation table latched at the component's first scan; the whole
+    file is read before the inverse DCT, as Pillow reads it, so no block
+    smoothing applies;
   * dequantisation and the integer "islow" inverse DCT with its range
     limiting (``jidctint.c``: ``CONST_BITS`` 13, ``PASS1_BITS`` 2), over
     all blocks at once in numpy;
@@ -22,11 +29,11 @@ How, step by step as libjpeg-turbo does it (its files named):
   * YCbCr -> RGB through the fixed-point tables of ``jdcolor.c``
     (``SCALEBITS`` 16).
 
-What it refuses, by name (ValueError, naming ROADMAP.md's item): progressive
-(SOF2), lossless (SOF3) and hierarchical (SOF5-7) JPEG, arithmetic coding
-(SOF9 and above, DAC), 12-bit samples, four components (CMYK, YCCK), a
-height given by a DNL marker. A stream that ends before its last MCU, or
-without an EOI marker, is refused as truncated.
+What it refuses, by name (ValueError, naming ROADMAP.md's item): lossless
+(SOF3) and hierarchical (SOF5-7) JPEG, arithmetic coding (SOF9 and above,
+DAC), 12-bit samples, four components (CMYK, YCCK), a height given by a
+DNL marker. A stream that ends before its last MCU, or without an EOI
+marker, is refused as truncated.
 """
 
 from __future__ import annotations
@@ -48,7 +55,6 @@ _ZIGZAG = (
 )
 
 _REFUSED_SOF = {
-    0xC2: "progressive JPEG (SOF2)",
     0xC3: "lossless JPEG (SOF3)",
     0xC5: "hierarchical JPEG (SOF5)",
     0xC6: "hierarchical progressive JPEG (SOF6)",
@@ -180,9 +186,143 @@ def _decode_blocks(buf: bytes, blocks, dc_luts, ac_luts, n_bits: int,
         _truncated(name, "the entropy-coded data ends inside a block")
 
 
-def _decode_scan(data, pos, comps, scan, huff, restart, name):
-    """Decode one sequential scan starting at ``pos`` into its components'
-    coefficient arrays. Returns the position of the marker after it."""
+def _read_bits(buf: bytes, p: int, n: int) -> int:
+    """The ``n`` (<= 16) bits at bit ``p`` of ``buf``, MSB first."""
+    w = int.from_bytes(buf[p >> 3:(p >> 3) + 4], "big")
+    return (w >> (32 - (p & 7) - n)) & ((1 << n) - 1)
+
+
+def _huff_symbol(buf: bytes, p: int, lut, name: str, what: str):
+    """(code length, symbol) of the Huffman code at bit ``p``."""
+    e = lut[_read_bits(buf, p, 16)]
+    if not e:
+        raise ValueError(f"{name}: bad Huffman code in {what}")
+    return e >> 8, e & 0xFF
+
+
+def _extend(v: int, s: int) -> int:
+    """HUFF_EXTEND: ``s`` bits ``v`` as a signed difference."""
+    return v - (1 << s) + 1 if v < 1 << (s - 1) else v
+
+
+def _decode_progressive(buf: bytes, blocks, luts, n_bits: int, ss: int,
+                        se: int, ah: int, al: int, name: str) -> None:
+    """One restart interval of a progressive scan (libjpeg-turbo's
+    ``jdphuff.c``: ``decode_mcu_DC_first``, ``decode_mcu_DC_refine``,
+    ``decode_mcu_AC_first``, ``decode_mcu_AC_refine``) into ``blocks``'
+    coefficients; ``luts``: each scan component's DC (DC scans) or AC
+    table. The DC predictors and the end-of-band run start at 0."""
+    zz = _ZIGZAG
+    p = 0
+    if ss == 0:                                         # DC scans
+        pred = [0] * len(luts)
+        for coefs, base, slot in blocks:
+            if ah:                                      # refinement: 1 bit
+                if _read_bits(buf, p, 1):
+                    coefs[base] |= 1 << al
+                p += 1
+                continue
+            length, s = _huff_symbol(buf, p, luts[slot], name, "a DC term")
+            p += length
+            diff = 0
+            if s:
+                diff = _extend(_read_bits(buf, p, s), s)
+                p += s
+            pred[slot] += diff
+            coefs[base] = pred[slot] << al
+    elif not ah:                                        # AC first
+        lut = luts[0]
+        eobrun = 0
+        for coefs, base, _ in blocks:
+            if eobrun:
+                eobrun -= 1
+                continue
+            k = ss
+            while k <= se:
+                length, rs = _huff_symbol(buf, p, lut, name, "an AC term")
+                p += length
+                r, s = rs >> 4, rs & 15
+                if s:
+                    k += r
+                    if k > 63:
+                        raise ValueError(f"{name}: AC run past the block's "
+                                         "end")
+                    coefs[base + zz[k]] = _extend(_read_bits(buf, p, s),
+                                                  s) << al
+                    p += s
+                elif r == 15:
+                    k += 15                             # sixteen zeros
+                else:                                   # end of band
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += _read_bits(buf, p, r)
+                        p += r
+                    eobrun -= 1
+                    break
+                k += 1
+    else:                                               # AC refinement
+        lut = luts[0]
+        p1, m1 = 1 << al, -1 << al
+        eobrun = 0
+        for coefs, base, _ in blocks:
+            k = ss
+            if not eobrun:
+                while k <= se:
+                    length, rs = _huff_symbol(buf, p, lut, name,
+                                              "an AC refinement")
+                    p += length
+                    r, s = rs >> 4, rs & 15
+                    if s:
+                        # Size 1 in a valid stream; libjpeg warns and reads
+                        # one sign bit whatever it is.
+                        s = p1 if _read_bits(buf, p, 1) else m1
+                        p += 1
+                    elif r != 15:
+                        eobrun = 1 << r
+                        if r:
+                            eobrun += _read_bits(buf, p, r)
+                            p += r
+                        break
+                    # Skip r zero terms, refining the nonzero ones passed.
+                    while k <= se:
+                        i = base + zz[k]
+                        c = coefs[i]
+                        if c:
+                            if _read_bits(buf, p, 1) and not c & p1:
+                                coefs[i] = c + (p1 if c >= 0 else m1)
+                            p += 1
+                        else:
+                            if r == 0:
+                                break
+                            r -= 1
+                        k += 1
+                    if s:
+                        if k > 63:
+                            raise ValueError(f"{name}: AC run past the "
+                                             "block's end")
+                        coefs[base + zz[k]] = s
+                    k += 1
+            if eobrun:
+                # The band's remaining nonzero terms take a correction bit.
+                while k <= se:
+                    i = base + zz[k]
+                    c = coefs[i]
+                    if c:
+                        if _read_bits(buf, p, 1) and not c & p1:
+                            coefs[i] = c + (p1 if c >= 0 else m1)
+                        p += 1
+                    k += 1
+                eobrun -= 1
+    if p > n_bits:
+        _truncated(name, "the entropy-coded data ends inside a block")
+
+
+def _decode_scan(data, pos, comps, scan, huff, restart, name,
+                 progression=None):
+    """Decode one scan starting at ``pos`` into its components'
+    coefficient arrays: sequential, or with ``progression`` (Ss, Se, Ah,
+    Al) one scan of a progressive frame. Returns the position of the
+    marker after it."""
     end, rst = _scan_end(data, pos)
     if end >= len(data) - 1:
         _truncated(name, "no marker after the last scan")
@@ -224,13 +364,23 @@ def _decode_scan(data, pos, comps, scan, huff, restart, name):
     n_intervals = -(-n_mcus // interval)
     if len(pieces) < n_intervals:
         _truncated(name, f"{len(pieces)} of {n_intervals} restart intervals")
-    dc_luts = [huff[(0, td)].lut for _, td, _ in scan]
-    ac_luts = [huff[(1, ta)].lut for _, _, ta in scan]
+    if progression is None:
+        dc_luts = [huff[(0, td)].lut for _, td, _ in scan]
+        ac_luts = [huff[(1, ta)].lut for _, _, ta in scan]
+    else:
+        ss, se, ah, al = progression
+        luts = ([None] * len(scan) if ss == 0 and ah else
+                [huff[(0, td)].lut for _, td, _ in scan] if ss == 0 else
+                [huff[(1, ta)].lut for _, _, ta in scan])
     for i in range(n_intervals):
         piece = pieces[i].replace(b"\xff\x00", b"\xff")
         chunk = blocks[i * interval * per_mcu:(i + 1) * interval * per_mcu]
-        _decode_blocks(piece + b"\x00" * 8, chunk, dc_luts, ac_luts,
-                       8 * len(piece), name)
+        if progression is None:
+            _decode_blocks(piece + b"\x00" * 8, chunk, dc_luts, ac_luts,
+                           8 * len(piece), name)
+        else:
+            _decode_progressive(piece + b"\x00" * 8, chunk, luts,
+                                8 * len(piece), ss, se, ah, al, name)
     return end
 
 
@@ -401,6 +551,7 @@ def parse_jpeg(data: bytes, name: str = "JPEG") -> dict:
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{name}: not a JPEG file")
     quant, huff, comps = {}, {}, None
+    progressive = False
     restart = 0
     adobe = None            # the Adobe marker's transform flag
     jfif = False
@@ -454,7 +605,8 @@ def parse_jpeg(data: bytes, name: str = "JPEG") -> dict:
                     raise ValueError(f"{name}: short Huffman table")
                 huff[(tc, th)] = _Huffman(counts, symbols)
                 i += 17 + total
-        elif marker in (0xC0, 0xC1):        # SOF0 baseline, SOF1 extended
+        elif marker in (0xC0, 0xC1, 0xC2):  # SOF0, SOF1, SOF2 progressive
+            progressive = marker == 0xC2
             precision, h, w, nc = struct.unpack(">BHHB", seg[:6])
             if precision != 8:
                 _refuse(name, f"{precision}-bit JPEG")
@@ -493,6 +645,18 @@ def parse_jpeg(data: bytes, name: str = "JPEG") -> dict:
             if comps is None:
                 raise ValueError(f"{name}: scan before the frame header")
             ns = seg[0]
+            ss, se, ahl = seg[1 + 2 * ns:4 + 2 * ns]
+            progression = None
+            if progressive:
+                progression = (ss, se, ahl >> 4, ahl & 15)
+                if (ss > se or se > 63 or (ss == 0) != (se == 0)
+                        or (ss and ns != 1)):
+                    raise ValueError(f"{name}: bad progressive scan "
+                                     f"({ss}-{se}, {ns} components)")
+            # The Huffman tables the scan decodes with: a DC refinement
+            # needs none, a progressive AC scan only its AC table.
+            need_dc = progression is None or (ss == 0 and not ahl >> 4)
+            need_ac = progression is None or ss > 0
             scan = []
             for k in range(ns):
                 cid, tables = seg[1 + 2 * k], seg[2 + 2 * k]
@@ -502,7 +666,8 @@ def parse_jpeg(data: bytes, name: str = "JPEG") -> dict:
                                      f"{cid}")
                 c = found[0]
                 td, ta = tables >> 4, tables & 15
-                if (0, td) not in huff or (1, ta) not in huff:
+                if ((need_dc and (0, td) not in huff)
+                        or (need_ac and (1, ta) not in huff)):
                     raise ValueError(f"{name}: scan uses an undefined "
                                      "Huffman table")
                 if c.quant is None:
@@ -512,7 +677,8 @@ def parse_jpeg(data: bytes, name: str = "JPEG") -> dict:
                     c.quant = quant[c.tq]
                 c.scanned, c.td, c.ta = True, td, ta
                 scan.append((c, td, ta))
-            pos = _decode_scan(data, pos, comps, scan, huff, restart, name)
+            pos = _decode_scan(data, pos, comps, scan, huff, restart, name,
+                               progression)
         elif marker == 0xE0 and seg[:5] == b"JFIF\x00":
             jfif = True
         elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:

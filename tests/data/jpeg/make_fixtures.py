@@ -8,8 +8,14 @@ Into this directory:
     multiples of 8 or 16) in every mode the decoder reads — 4:4:4, 4:2:2,
     4:2:0 and 4:4:0 chroma, greyscale, qualities 50-95, restart markers,
     optimised Huffman tables, 16-bit quantisation tables (SOF1), an Adobe
-    RGB file and non-interleaved scans — and ``cases/<name>.png``, the
-    pixels ``Image.open(jpg).convert("RGB")`` gives;
+    RGB file and non-interleaved scans; progressive files (``prog_*``,
+    libjpeg's default script: spectral selection and successive
+    approximation) in 4:2:0 and 4:4:4 chroma, greyscale, with restart
+    markers and at 61x45 — and ``cases/<name>.png``, the pixels
+    ``Image.open(jpg).convert("RGB")`` gives;
+  * ``capture_progressive/``: the capture below stored as progressive
+    q90 JPEG (the same quantised coefficients, so the same pixels), which
+    ``chip_smoke.py`` decodes, times and trains on;
   * ``capture/``: the 12-view forward-facing capture that ``chip_smoke.py``
     trains in phase 8 (``make_synthetic_llff_scene(style="forward",
     seed=0)``), rendered at 384x288 and stored as JPEG ``images/`` with its
@@ -236,11 +242,25 @@ def cases():
         img().transpose(1, 0, 2).copy(), quality=75, subsampling=1))
     out["420_noninterleaved"] = non_interleaved(pillow_jpeg(
         img(), quality=75, subsampling=2))
+    # Progressive files, from a generator of their own so that the files
+    # above keep their bytes.
+    rng = np.random.default_rng(SEED + 1)
+    prog = dict(progressive=True)
+    out.update({
+        "prog_420_q75": pillow_jpeg(img(), quality=75, subsampling=2, **prog),
+        "prog_444_q95": pillow_jpeg(img(), quality=95, subsampling=0, **prog),
+        "prog_grey_q75": pillow_jpeg(img(1), quality=75, **prog),
+        "prog_420_restart": pillow_jpeg(img(), quality=75, subsampling=2,
+                                        restart_marker_blocks=2, **prog),
+        "prog_422_61x45": pillow_jpeg(seeded_image(rng, 45, 61), quality=85,
+                                      subsampling=1, optimize=True, **prog),
+    })
     return out
 
 
 def write_capture(root):
-    """The phase-8 capture at CAPTURE_WH as JPEG ``images/``."""
+    """The phase-8 capture at CAPTURE_WH as JPEG ``images/``, baseline
+    in ``root`` and progressive in ``<root>_progressive``."""
     import shutil
     import tempfile
 
@@ -251,14 +271,20 @@ def write_capture(root):
         make_synthetic_llff_scene(tmp, n_images=CAPTURE_VIEWS,
                                   img_wh=CAPTURE_WH, style="forward",
                                   seed=SEED)
-        shutil.rmtree(root, ignore_errors=True)
-        os.makedirs(os.path.join(root, "images"))
-        shutil.copy(os.path.join(tmp, "poses_bounds.npy"), root)
+        prog = root + "_progressive"
+        for d in (root, prog):
+            shutil.rmtree(d, ignore_errors=True)
+            os.makedirs(os.path.join(d, "images"))
+            shutil.copy(os.path.join(tmp, "poses_bounds.npy"), d)
         for name in sorted(os.listdir(os.path.join(tmp, "images"))):
             px = read_png(os.path.join(tmp, "images", name))
             stem = os.path.splitext(name)[0]
             with open(os.path.join(root, "images", stem + ".jpg"), "wb") as f:
                 f.write(pillow_jpeg(px, quality=CAPTURE_QUALITY))
+            with open(os.path.join(prog, "images", stem + ".jpg"),
+                      "wb") as f:
+                f.write(pillow_jpeg(px, quality=CAPTURE_QUALITY,
+                                    progressive=True))
 
 
 def digest(px):
@@ -281,11 +307,13 @@ def main():
                                          "sha256": digest(px)}
     capture = os.path.join(HERE, "capture")
     write_capture(capture)
-    for name in sorted(os.listdir(os.path.join(capture, "images"))):
-        with open(os.path.join(capture, "images", name), "rb") as f:
+    views = [f"{d}/images/{name}"
+             for d in ("capture", "capture_progressive")
+             for name in sorted(os.listdir(os.path.join(HERE, d, "images")))]
+    for rel in views:
+        with open(os.path.join(HERE, rel), "rb") as f:
             px = pillow_rgb(f.read())
-        manifest[f"capture/images/{name}"] = {"shape": list(px.shape),
-                                              "sha256": digest(px)}
+        manifest[rel] = {"shape": list(px.shape), "sha256": digest(px)}
     with open(os.path.join(HERE, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
     print(f"{len(manifest)} JPEGs -> {HERE}")

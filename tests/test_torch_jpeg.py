@@ -1,4 +1,5 @@
-"""The port's baseline JPEG decoder (nerfmlp_torch/utils/jpeg.py) against
+"""The port's JPEG decoder (nerfmlp_torch/utils/jpeg.py; baseline and
+progressive) against
 Pillow (libjpeg-turbo) on this host, and the JPEG captures it opens to the
 port's loaders (LLFF, DeepVoxels, the train CLI's size probe) against the
 JAX package's, which read them through Pillow.
@@ -130,6 +131,64 @@ def test_decoder_equals_pillow_modes(case):
         _assert_pillow_equal(data, f"{case} {i}")
 
 
+# -- progressive files (SOF2), written by Pillow here --------------------- #
+@pytest.mark.parametrize("quality", [50, 75, 95])
+@pytest.mark.parametrize("subsampling", ["4:4:4", "4:2:2", "4:2:0", "grey"])
+def test_progressive_decoder_equals_pillow(subsampling, quality):
+    """libjpeg's default progressive script (DC first and refinement, AC
+    first scans with end-of-band runs, AC successive-approximation
+    refinement: jdphuff.c) in each chroma subsampling and greyscale, at
+    sizes that are multiples of neither 8 nor 16 and at one that is."""
+    grey = subsampling == "grey"
+    for seed, wh in ((quality, (37, 29)), (quality + 1, (48, 32)),
+                     (quality + 2, (61, 45))):
+        img = _image(seed, wh, channels=1 if grey else 3)
+        kw = {} if grey else {"subsampling": subsampling}
+        data = fixtures.pillow_jpeg(img, quality=quality, progressive=True,
+                                    **kw)
+        assert b"\xff\xc2" in data
+        _assert_pillow_equal(data, f"progressive {subsampling} q{quality} "
+                                   f"{wh}")
+
+
+@pytest.mark.parametrize("case", ["restart_blocks", "restart_rows",
+                                  "optimized", "odd_sizes"])
+def test_progressive_decoder_equals_pillow_modes(case):
+    """Progressive files with restart intervals inside their scans (every
+    2 MCUs, every MCU row: the end-of-band run and DC predictors restart),
+    optimised Huffman tables (long end-of-band runs), and tiny sizes."""
+    img = _image(11, (37, 29))
+    prog = dict(progressive=True)
+    if case == "restart_blocks":
+        files = [fixtures.pillow_jpeg(img, restart_marker_blocks=2,
+                                      subsampling=s, **prog)
+                 for s in (0, 2)]
+    elif case == "restart_rows":
+        files = [fixtures.pillow_jpeg(img, restart_marker_rows=1,
+                                      subsampling=s, **prog)
+                 for s in (0, 1, 2)]
+    elif case == "optimized":
+        files = [fixtures.pillow_jpeg(img, optimize=True, quality=q, **prog)
+                 for q in (40, 90)]
+    else:
+        files = [fixtures.pillow_jpeg(_image(1, wh), subsampling=2, **prog)
+                 for wh in ((1, 1), (3, 17), (4, 5), (17, 3))]
+    for i, data in enumerate(files):
+        _assert_pillow_equal(data, f"{case} {i}")
+
+
+@pytest.mark.parametrize("cut", [0.5, 0.9])
+def test_progressive_truncated_is_refused(cut):
+    """A progressive stream cut inside its scans is refused as truncated
+    (Pillow refuses it too, without LOAD_TRUNCATED_IMAGES)."""
+    data = fixtures.pillow_jpeg(_image(3, (37, 29)), quality=75,
+                                progressive=True)
+    with pytest.raises(ValueError, match="truncated JPEG stream"):
+        decode_jpeg(data[:int(len(data) * cut)], "x.jpg")
+    with pytest.raises(OSError):
+        Image.open(io.BytesIO(data[:int(len(data) * cut)])).convert("RGB")
+
+
 # -- the committed fixtures ---------------------------------------------- #
 @pytest.mark.parametrize("name", sorted(MANIFEST))
 def test_committed_fixtures_equal_their_pillow_decodes(name):
@@ -168,8 +227,8 @@ def _cmyk():
 
 
 @pytest.mark.parametrize("make, match", [
-    (lambda d: fixtures.pillow_jpeg(_image(2, (37, 29)), progressive=True),
-     "progressive JPEG \\(SOF2\\) is not decoded .*item 28"),
+    (lambda d: _patched(d, 0xC0, 0xC5),
+     "hierarchical JPEG \\(SOF5\\) is not decoded .*item 28"),
     (lambda d: _patched(d, 0xC0, 0xC9),
      "arithmetic-coded JPEG \\(marker 0xC9\\) is not decoded .*item 28"),
     (lambda d: _patched(d, 0xC0, 0xC3),
@@ -182,7 +241,7 @@ def _cmyk():
      "truncated JPEG stream"),
     (lambda d: d[:-2],
      "truncated JPEG stream"),
-], ids=["progressive", "arithmetic", "lossless", "12bit", "cmyk",
+], ids=["hierarchical", "arithmetic", "lossless", "12bit", "cmyk",
         "truncated_half", "truncated_eoi"])
 def test_refusals_name_the_mode(make, match):
     """Each mode the decoder does not read raises a ValueError that names
@@ -259,6 +318,32 @@ def test_llff_minify_from_jpeg(jpeg_scene, tmp_path):
         _assert_same_dataset(
             llff.LLFFDataset(d, "val", img_wh=(20, 15), factor=2),
             jllff.LLFFDataset(d, "val", img_wh=(20, 15), factor=2))
+
+
+def test_llff_progressive_capture_equals_jax(jpeg_scene, tmp_path):
+    """A progressive JPEG images/ capture (Pillow's progressive q92
+    re-encode of the baseline capture): the port's LLFFDataset equals
+    JAX's on the same files, at the native size, resized and through the
+    minify, as the baseline capture's tests hold them."""
+    d = _copy(jpeg_scene, tmp_path, "progressive")
+    src = os.path.join(d, "images")
+    for n in sorted(os.listdir(src)):
+        path = os.path.join(src, n)
+        with Image.open(path) as im:
+            px = np.asarray(im.convert("RGB"))
+        Image.fromarray(px).save(path, quality=92, progressive=True)
+        with open(path, "rb") as f:
+            assert b"\xff\xc2" in f.read()
+    for wh in ((40, 30), (32, 24)):
+        _assert_same_dataset(llff.LLFFDataset(d, "train", img_wh=wh),
+                             jllff.LLFFDataset(d, "train", img_wh=wh))
+    theirs = _copy(d, tmp_path, "progressive_jax")
+    llff.LLFFDataset._ensure_factor_dir(d, 2)
+    jllff.LLFFDataset._ensure_factor_dir(theirs, 2)
+    for root in (d, theirs):    # each package's minify, read by both
+        _assert_same_dataset(
+            llff.LLFFDataset(root, "val", img_wh=(20, 15), factor=2),
+            jllff.LLFFDataset(root, "val", img_wh=(20, 15), factor=2))
 
 
 def test_llff_jpeg_images_at_native_and_resized(jpeg_scene):

@@ -343,17 +343,24 @@ def test_jpeg_refused_by_name_and_sized_from_its_header(scene, tmp_path):
     assert image_size(first) == Image.open(first).size == (40, 30)
     _assert_same_dataset(llff.LLFFDataset(d, "train", img_wh=(40, 30)),
                          jllff.LLFFDataset(d, "train", img_wh=(40, 30)))
+    # Progressive files, refused until the decoder read them, load as
+    # JAX's loader loads them; a CMYK capture is refused.
     prog = _copy(scene, tmp_path, "progressive")
-    for n in sorted(os.listdir(os.path.join(prog, "images"))):
-        path = os.path.join(prog, "images", n)
-        Image.open(path).save(path[:-4] + ".jpg", progressive=True)
-        os.remove(path)
-    with pytest.raises(ValueError, match="progressive JPEG.*item 28"):
-        llff.LLFFDataset(prog, "train", img_wh=(40, 30))
-    with pytest.raises(ValueError, match="progressive JPEG.*item 28"):
-        llff.LLFFDataset._ensure_factor_dir(prog, 2)
-    assert not os.path.exists(os.path.join(prog, "images_2.tmp"))
-    assert not os.path.exists(os.path.join(prog, "images_2"))
+    cmyk = _copy(scene, tmp_path, "cmyk")
+    for root, kw in ((prog, dict(progressive=True)), (cmyk, {})):
+        for n in sorted(os.listdir(os.path.join(root, "images"))):
+            path = os.path.join(root, "images", n)
+            im = Image.open(path)
+            (im if kw else im.convert("CMYK")).save(path[:-4] + ".jpg", **kw)
+            os.remove(path)
+    _assert_same_dataset(llff.LLFFDataset(prog, "train", img_wh=(40, 30)),
+                         jllff.LLFFDataset(prog, "train", img_wh=(40, 30)))
+    with pytest.raises(ValueError, match="four-component.*item 28"):
+        llff.LLFFDataset(cmyk, "train", img_wh=(40, 30))
+    with pytest.raises(ValueError, match="four-component.*item 28"):
+        llff.LLFFDataset._ensure_factor_dir(cmyk, 2)
+    assert not os.path.exists(os.path.join(cmyk, "images_2.tmp"))
+    assert not os.path.exists(os.path.join(cmyk, "images_2"))
     fdir = os.path.join(d, "images_2")
     shutil.copytree(llff.LLFFDataset._ensure_factor_dir(
         _copy(scene, tmp_path, "png"), 2), fdir)

@@ -249,7 +249,9 @@ def test_train_cli_over_two_ranks(tmp_path):
                  "comprehensive_metrics.json"):
         assert os.path.exists(out / name), name
     assert ckpt.step_in_checkpoint(str(out / "metrics_latest.pt")) == 4
-    with pytest.raises(SystemExit, match="item 18"):
+    # --tensor_parallel 2 (refused until tensor parallelism was ported)
+    # on one rank fails JAX's divisibility check.
+    with pytest.raises(ValueError, match="1 devices not divisible by tp=2"):
         cli.main(args + ["--tensor_parallel", "2"])
 
 
