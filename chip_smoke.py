@@ -217,6 +217,21 @@ Phases, each fatal on failure:
      7's run directory: its three end-of-run figures, view_progress
      showing its step, make_timelapse's GIF with one frame per
      val_*.png, side_by_side_compare's 2W x H image.
+ 16. the fused MLP kernels at every width the JAX package runs them
+     ("wide"): the forward and the backward's three kernels at depth 8
+     and widths 288, 384, 512 and 640 in bf16 and 384, 512 and 576 in
+     hi_lo (column passes of 256; phase-1 tiles of 128 to 32 points),
+     at the train fine call's 131,072 points with random weights, against
+     their plain versions (each alone and the backward whole, repeat runs
+     bit-identical), timed beside their bounds and the module path
+     (autograd through the nn.Linear net); the train CLI at --netwidth
+     512 for 300 steps and at --netwidth 384 in fp32 'high' for 100 steps
+     on phase 5's scene, through the kernels and with --no_kernel
+     (exactly 2 launches of each kernel a step, held-out PSNR >= 20 dB and
+     within 1 dB); one 400x400 frame of the trained 8x384 hi_lo net
+     served by RenderService (2 launches a tile, equal to a direct render,
+     the fp32 module path's frame at the serving bar); one stacked call
+     of two 8x512 nets against two single-scene launches, bit for bit.
 Then it prints the kernels' JSON line, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Weights are random, from a seed.
 It exits non-zero, printing no result, without a CUDA device.
@@ -224,7 +239,8 @@ It exits non-zero, printing no result, without a CUDA device.
 ``--only interchange`` the build, phases 5 and 6 and phase 12;
 ``--only parallel`` the build, phase 5 and phase 13;
 ``--only jpeg`` the build and phase 14;
-``--only finish`` the build, phases 5, 6 and 7 and phase 15.
+``--only finish`` the build, phases 5, 6 and 7 and phase 15;
+``--only wide`` the build and phase 16.
 """
 
 import contextlib
@@ -649,7 +665,7 @@ def check_phases(net, packed, pts, dirs, g, label):
     from nerfmlp_torch.ops import fused_mlp as fm
 
     n = pts.shape[0]
-    tile = fm.bwd_tile_rows(packed.hi_lo)
+    tile = packed.bwd_rows
     rows = -(-n // tile) * tile
     ws = torch.empty(rows * packed.ws_cols, device="cuda",
                      dtype=torch.bfloat16)
@@ -2677,16 +2693,16 @@ MS_GAP_EACH = 2 * PSNR_GAP  # one scene's distance from the module path's
 #                           the scenes is held at PSNR_GAP
 
 
-def stack_inputs(n_samples, cfg):
-    """MS_SCENES scenes' points (the serving pose's central rays, each
+def stack_inputs(n_samples, cfg, scenes=MS_SCENES):
+    """``scenes`` scenes' points (the serving pose's central rays, each
     scene's shifted by 0.03 * s) and encoded dirs, scene-major: (pts,
     dirs, points a scene)."""
     import torch
 
     pts, dirs = serving_points(n_samples, cfg, n_rays=TRAIN_RAYS)
     n_s = pts.shape[0]
-    pts = torch.cat([pts + 0.03 * s for s in range(MS_SCENES)])
-    dirs = dirs.repeat(MS_SCENES, 1)
+    pts = torch.cat([pts + 0.03 * s for s in range(scenes)])
+    dirs = dirs.repeat(scenes, 1)
     return pts.contiguous(), dirs.contiguous(), n_s
 
 
@@ -2704,15 +2720,16 @@ def ms_cotangent(nets, pts, dirs, cfg, n_s, hi_lo):
     return (2.0 / (n_s * raw.shape[1])) * (raw - target)
 
 
-def check_stack(nets, cfg, n_samples, label, card, hi_lo=False):
+def check_stack(nets, cfg, n_samples, label, card, hi_lo=False,
+                tag="multi_scene"):
     """The four kernels over a scene axis at one call of the multi-scene
-    step (MS_SCENES x points of 1024 rays x ``n_samples``): the stacked
-    launch against MS_SCENES single-scene launches of the same work, bit
+    step (S = len(nets) x points of 1024 rays x ``n_samples``): the
+    stacked launch against S single-scene launches of the same work, bit
     for bit, and against the stacked plain version at the single-scene
     bars; timed beside the single-scene launches, the plain version and
-    (forward) the use_kernel=False module path; each with its bound at
-    MS_SCENES x n_s points. Returns {"fwd", "phase1", "phase2", "reduce",
-    "bwd"} records."""
+    (forward) the use_kernel=False module path; each with its bound at S x
+    n_s points. Returns {"fwd", "phase1", "phase2", "reduce", "bwd"}
+    records."""
     import torch
 
     from nerfmlp_torch.ops import fused_mlp as fm
@@ -2723,11 +2740,12 @@ def check_stack(nets, cfg, n_samples, label, card, hi_lo=False):
                                   fp32_precision="high")
     dt = torch.float32 if hi_lo else torch.bfloat16
     vdirs = True
-    pts, dirs, n_s = stack_inputs(n_samples, cfg)
+    scenes = len(nets)
+    pts, dirs, n_s = stack_inputs(n_samples, cfg, scenes)
     n = pts.shape[0]
     stack = fm.pack_params_stack(nets, cfg.pos_enc_L, vdirs, hi_lo)
     solos = [fm.pack_params(net, cfg.pos_enc_L, vdirs, hi_lo) for net in nets]
-    sl = [slice(s * n_s, (s + 1) * n_s) for s in range(MS_SCENES)]
+    sl = [slice(s * n_s, (s + 1) * n_s) for s in range(scenes)]
     sp = [pts[x].contiguous() for x in sl]
     sd = [dirs[x].contiguous() for x in sl]
     g = ms_cotangent(nets, pts, dirs, cfg, n_s, hi_lo)
@@ -2767,21 +2785,21 @@ def check_stack(nets, cfg, n_samples, label, card, hi_lo=False):
         nets, pts, dirs, cfg.pos_enc_L, torch.bfloat16, hi_lo), iters=2,
         warmup=1)
     recs["fwd"] = r
-    print(f"[multi_scene] {label} forward, {MS_SCENES} x {n_s} points: one "
-          f"launch bit-equal to {MS_SCENES} single-scene launches: {same}; "
+    print(f"[{tag}] {label} forward, {scenes} x {n_s} points: one "
+          f"launch bit-equal to {scenes} single-scene launches: {same}; "
           f"max|err| {err:.3e} normalised {norm:.3e} (tol {tol}); kernel "
-          f"{r['ms']:.3f} ms, {MS_SCENES} single-scene launches "
+          f"{r['ms']:.3f} ms, {scenes} single-scene launches "
           f"{r['solo_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, module path "
           f"{r['module_ms']:.3f} ms; bound {r['bound_ms']:.3f} ms "
           f"({r['bound_by']}) [{card}]")
     if not (same and norm <= tol):
-        raise SystemExit(f"[multi_scene] {label}: the stacked forward "
+        raise SystemExit(f"[{tag}] {label}: the stacked forward "
                          "disagrees")
 
     # Phase 1, phase 2 and the reduction, each alone.
-    tile = fm.bwd_tile_rows(hi_lo)
+    tile = stack.bwd_rows
     rows_s = -(-n_s // tile) * tile
-    ws = torch.empty(MS_SCENES * rows_s * stack.ws_cols, device="cuda",
+    ws = torch.empty(scenes * rows_s * stack.ws_cols, device="cuda",
                      dtype=torch.bfloat16)
     fm.bwd_workspace(stack, pts, dirs, g, ws)
     ws1 = [torch.empty(rows_s * stack.ws_cols, device="cuda",
@@ -2791,8 +2809,8 @@ def check_stack(nets, cfg, n_samples, label, card, hi_lo=False):
     same1 = all(torch.equal(
         fm.ws_matrix(stack, ws, m)[:, s * rows_s:(s + 1) * rows_s],
         fm.ws_matrix(solos[s], ws1[s], m))
-        for s in range(MS_SCENES) for m in range(len(stack.ws_mats)))
-    want_ws = fm.bwd_workspace_plain(stack, pts, dirs, g, MS_SCENES * rows_s)
+        for s in range(scenes) for m in range(len(stack.ws_mats)))
+    want_ws = fm.bwd_workspace_plain(stack, pts, dirs, g, scenes * rows_s)
     rel1 = 0.0
     err1 = 0.0
     for m in range(len(stack.ws_mats)):
@@ -2803,7 +2821,7 @@ def check_stack(nets, cfg, n_samples, label, card, hi_lo=False):
     del want_ws
     splits, split_rows = fm.bwd_splits(rows_s)
     total = stack.grad_total
-    part = torch.empty((MS_SCENES, splits, fm.part_stride(total)),
+    part = torch.empty((scenes, splits, fm.part_stride(total)),
                        device="cuda")
     fm.weight_grads(stack, ws, rows_s, split_rows, part)
     part1 = [torch.empty((splits, fm.part_stride(total)), device="cuda")
@@ -2811,17 +2829,17 @@ def check_stack(nets, cfg, n_samples, label, card, hi_lo=False):
     for p, w, q in zip(solos, ws1, part1):
         fm.weight_grads(p, w, rows_s, split_rows, q)
     same2 = all(torch.equal(part[s, :, :total], part1[s][:, :total])
-                for s in range(MS_SCENES))   # past total: padding
+                for s in range(scenes))   # past total: padding
     want_part = fm.weight_grads_plain(stack, ws, rows_s, split_rows)
     err2 = float((part[..., :total] - want_part[..., :total]).abs().max())
     norm2 = err2 / float(want_part[..., :total].abs().max())
     del want_part
     red = fm.reduce_partials(part, total)
     same3 = all(torch.equal(red[s], fm.reduce_partials(part1[s], total))
-                for s in range(MS_SCENES))
+                for s in range(scenes))
     err3 = float((red - fm.reduce_partials_plain(part, total)).abs().max())
     torch.cuda.synchronize()
-    ws_bytes = MS_SCENES * rows_s * stack.ws_cols * 2
+    ws_bytes = scenes * rows_s * stack.ws_cols * 2
     p1_macs = phase1_macs(nets[0], vdirs)
     recs["phase1"] = {
         "max_abs_err": err1, "rel_l2": rel1,
@@ -2831,7 +2849,7 @@ def check_stack(nets, cfg, n_samples, label, card, hi_lo=False):
                                     p, a, d, gg, w in
                                     zip(solos, sp, sd, sg, ws1)], iters=5),
         "plain_ms": cuda_ms(lambda: fm.bwd_workspace_plain(
-            stack, pts, dirs, g, MS_SCENES * rows_s), iters=2, warmup=1)}
+            stack, pts, dirs, g, scenes * rows_s), iters=2, warmup=1)}
     recs["phase2"] = {
         "max_abs_err": err2, "norm_err": norm2,
         "ms": cuda_ms(lambda: fm.weight_grads(stack, ws, rows_s, split_rows,
@@ -2853,31 +2871,31 @@ def check_stack(nets, cfg, n_samples, label, card, hi_lo=False):
             ("phase1", 2.0 * products * p1_macs * n, in_bytes
              + g.numel() * 4 + ws_bytes),
             ("phase2", 2.0 * products * fwd_macs * n,
-             ws_bytes + MS_SCENES * splits * total * 4),
-            ("reduce", 0.0, MS_SCENES * (splits + 1) * total * 4)):
+             ws_bytes + scenes * splits * total * 4),
+            ("reduce", 0.0, scenes * (splits + 1) * total * 4)):
         recs[key]["bound_ms"], recs[key]["bound_by"] = bound(flops, nbytes)
         recs[key].setdefault("library_ms", None)
     del ws, ws1
     r1, r2, r3 = recs["phase1"], recs["phase2"], recs["reduce"]
-    print(f"[multi_scene] {label} phase 1 ({ws_bytes} B workspace): "
+    print(f"[{tag}] {label} phase 1 ({ws_bytes} B workspace): "
           f"bit-equal to single-scene launches: {same1}; rel-L2 {rel1:.3e} "
           f"(tol {PHASE1_TOL}); kernel {r1['ms']:.3f} ms, single-scene "
           f"{r1['solo_ms']:.3f} ms, plain {r1['plain_ms']:.3f} ms; bound "
           f"{r1['bound_ms']:.3f} ms ({r1['bound_by']}) [{card}]")
-    print(f"[multi_scene] {label} phase 2 ({len(stack.bwd_jobs)} jobs x "
-          f"{splits} splits x {MS_SCENES} scenes): bit-equal: {same2}; "
+    print(f"[{tag}] {label} phase 2 ({len(stack.bwd_jobs)} jobs x "
+          f"{splits} splits x {scenes} scenes): bit-equal: {same2}; "
           f"normalised {norm2:.3e} (tol {PHASE2_TOL}); kernel "
           f"{r2['ms']:.3f} ms, single-scene {r2['solo_ms']:.3f} ms, plain "
           f"{r2['plain_ms']:.3f} ms; bound {r2['bound_ms']:.3f} ms "
           f"({r2['bound_by']}) [{card}]")
-    print(f"[multi_scene] {label} reduction ({MS_SCENES} x {splits} slots): "
+    print(f"[{tag}] {label} reduction ({scenes} x {splits} slots): "
           f"bit-equal: {same3}; max|err| vs plain {err3:.3e}; kernel "
           f"{r3['ms']:.4f} ms, single-scene {r3['solo_ms']:.4f} ms, plain "
           f"{r3['plain_ms']:.4f} ms, part.sum(1) {r3['library_ms']:.4f} ms; "
           f"bound {r3['bound_ms']:.4f} ms ({r3['bound_by']}) [{card}]")
     if not (same1 and same2 and same3 and rel1 <= PHASE1_TOL
             and norm2 <= PHASE2_TOL and err3 == 0.0):
-        raise SystemExit(f"[multi_scene] {label}: a backward kernel over the "
+        raise SystemExit(f"[{tag}] {label}: a backward kernel over the "
                          "scene axis disagrees")
 
     # The backward whole: bit-equal to single-scene backwards, repeatable,
@@ -2888,7 +2906,7 @@ def check_stack(nets, cfg, n_samples, label, card, hi_lo=False):
     one = [fm._launch_bwd(p, a, d, gg) for p, a, d, gg in
            zip(solos, sp, sd, sg)]
     same = torch.equal(flat, again) and all(torch.equal(flat[s], one[s])
-                                            for s in range(MS_SCENES))
+                                            for s in range(scenes))
     want = fm.fused_nerf_mlp_bwd_stack_plain(nets, pts, dirs, g,
                                              cfg.pos_enc_L, torch.bfloat16,
                                              hi_lo)
@@ -2914,15 +2932,15 @@ def check_stack(nets, cfg, n_samples, label, card, hi_lo=False):
     rb["floor_ms"] = sum(recs[k]["bound_ms"] for k in ("phase1", "phase2",
                                                        "reduce"))
     recs["bwd"] = rb
-    print(f"[multi_scene] {label} backward whole: bit-equal to "
-          f"{MS_SCENES} single-scene backwards and repeatable: {same}; "
+    print(f"[{tag}] {label} backward whole: bit-equal to "
+          f"{scenes} single-scene backwards and repeatable: {same}; "
           f"normalised {bwd_norm:.3e} (tol {btol})"
           + (f", control (bf16 kernels) {control:.3e}" if hi_lo else "")
           + f"; {rb['ms']:.3f} ms vs {rb['solo_ms']:.3f} ms single-scene; "
           f"design floor {rb['floor_ms']:.3f} ms [{card}]")
     if not (same and bwd_norm <= btol
             and (control is None or control > btol)):
-        raise SystemExit(f"[multi_scene] {label}: the stacked backward "
+        raise SystemExit(f"[{tag}] {label}: the stacked backward "
                          "disagrees")
     return recs
 
@@ -4670,6 +4688,226 @@ def phase_finish(train_run, turbo_ckpt, card):
     return [rec] + prog
 
 
+# --------------------------------------------------------------------- #
+# Phase 16: the fused MLP kernels at every width the JAX package runs
+# them ("wide")
+# --------------------------------------------------------------------- #
+WIDE_BF16 = (288, 384, 512, 640)   # depth 8, bf16: 128 / 64 / 64 / 32 points
+#                                    a phase-1 tile
+WIDE_HI_LO = (384, 512, 576)       # depth 8, hi_lo: 32-point tiles
+WIDE_TRAIN = 512                   # --netwidth of the flagship recipe's run
+WIDE_HI_LO_TRAIN = 384             # ... and of the fp32 'high' run, which
+WIDE_HI_LO_STEPS = 100             # takes this many steps
+WIDE_SCENES = 2                    # the stacked call's scenes, at 8x512
+
+
+def wide_check(width, hi_lo, pts, dirs, card):
+    """One wide net (depth 8, CLI shapes, random weights from the seed) at
+    the train fine call's points: the forward and the backward's three
+    kernels against their plain versions, alone and the backward whole,
+    repeat runs bit-identical (check_kernel, check_backward); beside each
+    kernel's time its bound and the module path on the same call (the
+    forward's module_ms; autograd's backward through the module,
+    module_bwd_ms). Returns {"fwd", "bwd", "phase1", "phase2", "reduce"}."""
+    import torch
+
+    from nerfmlp_torch.models.mlp import init_model
+    from nerfmlp_torch.ops import fused_mlp
+    from nerfmlp_torch.ops.encoding import positional_encoding
+
+    cfg = dataclasses.replace(slice_config(), width=width)
+    mc = cfg.model_config()
+    lay = fused_mlp._bwd_layout(mc, True, hi_lo)
+    flay = fused_mlp._fwd_layout(mc, True, hi_lo)
+    label = f"8x{width}{' hi_lo' if hi_lo else ''}"
+    print(f"[wide] {label} budget: forward {flay.rows}-point tiles, "
+          f"{flay.stages} stages, {flay.smem} B; phase 1 {lay.rows}-point "
+          f"tiles, {lay.stages} stages, {lay.smem} B, "
+          f"{fused_mlp.backward_counts(mc, True)[0]} operations, "
+          f"{fused_mlp.bwd_scratch_bytes(mc, True, hi_lo)} B of workspace a "
+          f"point; fits {fused_mlp.kernel_fits(mc, True, hi_lo)} / "
+          f"{fused_mlp.backward_fits(mc, True, hi_lo)}")
+    net = init_model(mc, seed=SEED + width, device="cuda")
+    fwd = check_kernel(net, cfg, pts, dirs, f"wide {label}", time_it=True,
+                       hi_lo=hi_lo)
+    bwd, phases = check_backward(net, cfg, pts, dirs, f"wide {label}",
+                                 time_it=True, hi_lo=hi_lo)
+    dt = torch.float32 if hi_lo else torch.bfloat16
+    params = list(net.parameters())
+    out = net(positional_encoding(pts, cfg.pos_enc_L), dirs, compute_dtype=dt)
+    g = torch.ones_like(out)
+    bwd["module_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        out, params, g, retain_graph=True), iters=5)
+    del out, g
+    print(f"[wide] {label}: forward {fwd['ms']:.3f} ms (bound "
+          f"{fwd['bound_ms']:.3f}, plain {fwd['plain_ms']:.3f}, module path "
+          f"{fwd['module_ms']:.3f}); backward {bwd['ms']:.3f} ms (bound "
+          f"{bwd['bound_ms']:.3f}, plain {bwd['plain_ms']:.3f}, autograd "
+          f"through the module {bwd['module_bwd_ms']:.3f}): phase 1 "
+          f"{phases['phase1']['ms']:.3f} (bound "
+          f"{phases['phase1']['bound_ms']:.3f}), phase 2 "
+          f"{phases['phase2']['ms']:.3f} (bound "
+          f"{phases['phase2']['bound_ms']:.3f}), reduction "
+          f"{phases['reduce']['ms']:.4f} (bound "
+          f"{phases['reduce']['bound_ms']:.4f}) | {card}")
+    torch.cuda.empty_cache()
+    return {"fwd": fwd, "bwd": bwd, **phases}
+
+
+def wide_train(scene, width, hi_lo, steps, card):
+    """The train CLI at --netwidth ``width`` (hi_lo: --compute_dtype
+    float32 --fp32_precision high) for ``steps`` steps on the synthetic
+    scene, through the kernels and with --no_kernel: exactly 2 launches
+    of each of the four kernels a step (none on the plain run), held-out
+    PSNR >= PSNR_MIN and within PSNR_GAP of --no_kernel. Returns (the
+    kernel run's launches, its Trainer)."""
+    root = os.path.join(SMOKE_DIR, "wide", f"{width}{'_hi_lo' if hi_lo else ''}")
+    shutil.rmtree(root, ignore_errors=True)
+    mode = (["--compute_dtype", "float32", "--fp32_precision", "high"]
+            if hi_lo else [])
+    runs = {}
+    for name, extra in (("kernel", []), ("plain", ["--no_kernel"])):
+        # A quick validation at half way and at the end (the CLI records
+        # the mean loss of the steps before each).
+        argv = ["--datadir", scene, "--img_wh", str(TRAIN_WH), str(TRAIN_WH),
+                "--iters", str(steps), "--netwidth", str(width),
+                "--quick_val_interval", str(steps // 2), "--quick_val_res",
+                str(TRAIN_WH), str(TRAIN_WH),
+                "--save_dir", os.path.join(root, name), *mode, *extra]
+        runs[name] = train_cli_run(f"wide {width} {name}", argv, steps)
+    metrics, launches, step_fwd, wall, trainer = runs["kernel"]
+    plain_metrics, plain_launches = runs["plain"][:2]
+    psnr = metrics["final_val"]["psnr"]
+    plain = plain_metrics["final_val"]["psnr"]
+    want = 2 * steps
+    label = f"--netwidth {width}{' hi_lo' if hi_lo else ''}"
+    print(f"[wide] {label}: {steps} steps, {1e3 * wall / steps:.2f} ms a step "
+          f"(--no_kernel {1e3 * runs['plain'][3] / steps:.2f}); held-out "
+          f"PSNR {psnr:.2f} dB vs --no_kernel {plain:.2f} dB (floor "
+          f"{PSNR_MIN}, gap {PSNR_GAP}); step launches {step_fwd} forward, "
+          f"{launches[1:]} backward (want {want} each); --no_kernel "
+          f"{plain_launches} | {card}")
+    if not (step_fwd == want and launches[1:] == [want] * 3
+            and plain_launches == [0, 0, 0, 0] and psnr >= PSNR_MIN
+            and abs(psnr - plain) <= PSNR_GAP):
+        raise SystemExit(f"[wide] the {label} train CLI runs failed their "
+                         "checks")
+    return [step_fwd, *launches[1:]], trainer
+
+
+def wide_serve(trainer, card):
+    """One 400x400 frame of the trained 8x384 hi_lo net through
+    RenderService (2 forward launches a 4,096-ray tile), equal to a direct
+    render through the kernel, and held against the fp32 module path's
+    frame at the serving bar (99.9% of values within FRAME_TOL). Returns
+    the frame's launches."""
+    import numpy as np
+    import torch
+
+    from nerfmlp_torch.ops import fused_mlp
+    from nerfmlp_torch.ops.rays import pose_spherical
+    from nerfmlp_torch.ops.render import prepare_params, render_image_maps
+    from nerfmlp_torch.render_path import rays_for_pose_device
+    from nerfmlp_torch.serve import RenderService
+
+    cfg, params = trainer.rc, trainer.state.params
+    svc = RenderService(params, cfg, H, W, FOCAL, tile=TILE, device="cuda",
+                        log=lambda m: None)
+    svc.warmup()
+    pose = pose_spherical(*SERVE_POSE)
+    torch.cuda.synchronize()
+    fused_mlp.fused_nerf_mlp.launches = 0
+    t0 = time.perf_counter()
+    served = np.clip(svc.render_pose(pose)["rgb_map"], 0.0, 1.0)
+    wall = time.perf_counter() - t0
+    launches = fused_mlp.fused_nerf_mlp.launches
+    o, d, _ = rays_for_pose_device(pose, H, W, FOCAL, cfg, device="cuda")
+    frames = {}
+    for name, c in (("kernel", cfg),
+                    ("module", dataclasses.replace(
+                        cfg, use_kernel=False, fp32_precision="highest"))):
+        out = render_image_maps(prepare_params(params, c), o, d, H, W, c,
+                                tile=TILE)
+        frames[name] = np.clip(out["rgb_map"].cpu().numpy(), 0.0, 1.0)
+    e = np.abs(served - frames["module"])
+    q = float(np.quantile(e, 0.999))
+    want = 2 * -(-H * W // TILE)
+    print(f"[wide] served 8x{WIDE_HI_LO_TRAIN} hi_lo frame {H}x{W}: "
+          f"{wall:.3f} s, {launches} forward launches (want {want}); equal "
+          f"to a direct render: {np.array_equal(served, frames['kernel'])}; "
+          f"vs the fp32 module path: max|err| {e.max():.3e}, 99.9th "
+          f"percentile {q:.3e} (tol {FRAME_TOL}) | {card}")
+    if not (launches == want and np.isfinite(served).all()
+            and np.array_equal(served, frames["kernel"]) and q <= FRAME_TOL):
+        raise SystemExit("[wide] the served wide frame failed its checks")
+    return launches
+
+
+def phase_wide(card):
+    """The fused MLP kernels at every width the JAX package runs them (the
+    module docstring, phase 16). Returns the kernels' records of paths
+    wide (the 8x512 train run) and wide_hi_lo (the 8x384 hi_lo run)."""
+    import torch
+
+    from nerfmlp_torch.models.mlp import init_model
+
+    t0 = time.perf_counter()
+    cfg = slice_config()
+    pts, dirs = serving_points(cfg.N_importance, cfg, n_rays=TRAIN_RAYS)
+    checks = {}
+    for width, hi_lo in ([(w, False) for w in WIDE_BF16]
+                         + [(w, True) for w in WIDE_HI_LO]):
+        checks[width, hi_lo] = wide_check(width, hi_lo, pts, dirs, card)
+    del pts, dirs
+    t1 = time.perf_counter()
+    scene = os.path.join(SMOKE_DIR, "scene")
+    if not os.path.exists(os.path.join(scene, "transforms_train.json")):
+        make_scene()
+    bf16_launches, _ = wide_train(scene, WIDE_TRAIN, False, TRAIN_STEPS, card)
+    hi_lo_launches, trainer = wide_train(scene, WIDE_HI_LO_TRAIN, True,
+                                         WIDE_HI_LO_STEPS, card)
+    t2 = time.perf_counter()
+    wide_serve(trainer, card)
+    del trainer
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    wcfg = dataclasses.replace(cfg, width=WIDE_TRAIN)
+    nets = [init_model(wcfg.model_config(), seed=SEED + s, device="cuda")
+            for s in range(WIDE_SCENES)]
+    check_stack(nets, wcfg, cfg.N_samples, f"8x{WIDE_TRAIN}", card,
+                tag="wide")
+    del nets
+    torch.cuda.empty_cache()
+    print(f"[wide] phase took {time.perf_counter() - t0:.1f} s (kernels "
+          f"{t1 - t0:.1f}, train {t2 - t1:.1f}, serve {t3 - t2:.1f}, stack "
+          f"{time.perf_counter() - t3:.1f})")
+    recs = []
+    for path, key, launches in (
+            ("wide", (WIDE_TRAIN, False), bf16_launches),
+            ("wide_hi_lo", (WIDE_HI_LO_TRAIN, True), hi_lo_launches)):
+        c = checks[key]
+        for (name, source, replaces), r, n in zip(
+                (("fused_mlp_fwd", "fused_mlp_fwd.cu", "pallas_mlp.py:264"),
+                 ("fused_mlp_bwd_phase1", "fused_mlp_bwd.cu",
+                  "pallas_mlp.py:312"),
+                 ("fused_mlp_bwd_phase2", "fused_mlp_bwd.cu",
+                  "pallas_mlp.py:386"),
+                 ("fused_mlp_bwd_reduce", "fused_mlp_bwd.cu",
+                  "pallas_mlp.py:327")),
+                (c["fwd"], c["phase1"], c["phase2"], c["reduce"]), launches):
+            rec = {"name": f"{name}_{path}", "path": path, "route": "cuda",
+                   "source": "nerfmlp_torch/csrc/" + source,
+                   "replaces": "nerfmlp_tpu/ops/" + replaces, "launches": n,
+                   "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                   "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                   "bound_by": r["bound_by"],
+                   "library_ms": r.get("library_ms")}
+            if "module_ms" in r:
+                rec["module_ms"] = r["module_ms"]
+            recs.append(rec)
+    return recs
+
+
 def smi_line():
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -4731,6 +4969,12 @@ def main():
                                                   card)}))
         print(card)
         return 0
+    if sys.argv[1:] == ["--only", "wide"]:
+        # Phase 16 alone.
+        card = smi_line()
+        print(json.dumps({"kernels": phase_wide(card)}))
+        print(card)
+        return 0
     if sys.argv[1:] == ["--only", "multi_scene"]:
         # Phase 11 alone, after the single-scene run it is held against.
         train_ds, val_ds = make_scene()
@@ -4765,6 +5009,7 @@ def main():
     parallel_recs = phase_parallel(train_run, card)
     jpeg_recs = phase_jpeg(llff["psnr"], card)
     finish_recs = phase_finish(train_run, turbo_ckpt, card)
+    wide_recs = phase_wide(card)
 
     # The forward runs on both paths, at different shapes: one record per
     # path, each with that path's launches and its fine call's times, and
@@ -4944,6 +5189,10 @@ def main():
     # two devices (launches summed over them), and the four kernels on the
     # progressive capture's train CLI run.
     kernels += finish_recs
+    # The wide nets (phase 16): each kernel's launches in the --netwidth
+    # 512 train CLI run (path wide) and the 8x384 hi_lo run (wide_hi_lo),
+    # timed at the train fine call on random weights of the same shape.
+    kernels += wide_recs
     for rec in bwds + [occ["bwd probe"], occ["bwd refine"], occ["bwd hi_lo"],
                        llff["bwd"]]:
         print(f"[backward] {rec['label']} call, all three kernels: "

@@ -31,6 +31,11 @@
 //     hi_lo). The tile's current input and output activations live in
 //     shared memory (two ping-pong buffers, the encoded points and dirs), so
 //     the A operand of every product comes from shared memory by ldmatrix.
+//     Where a net's buffers and masks leave no room for two weight stages
+//     (wider than 256), the wrapper picks 64-, then 32-point tiles (hi_lo:
+//     32, then 16): at 8x512 bf16 64 points, at 8x640 32, at 8x384 hi_lo
+//     32, at 8x608 hi_lo 16. The weights then stream once per smaller
+//     tile: the price of fitting the activations in 227 KB.
 //   * Weights stream through a ring of 16-row k-slabs (3 stages at 8x256,
 //     2 in hi_lo) filled by cp.async two slabs (one in hi_lo) ahead of the
 //     product; one barrier per slab. The slab sequence runs across
@@ -43,16 +48,27 @@
 //     likely causes, not measured apart: a ring two slabs deep does not
 //     hide a bulk copy's latency, and warp 0, a consumer too, waits for
 //     the slowest warp before each refill.
-//   * mma.sync m16n8k16 bf16 with fp32 accumulators (not wgmma); 16 warps,
-//     each owning a 32 x 64 block (16 x 64 in hi_lo) of the 128 x 256 layer
-//     output, so a whole layer is one pass over its k-slabs and two warps
-//     per scheduler hide each other's latency.
-//   * The ReLU masks the dX chain needs are kept as bits in shared memory:
-//     a thread holds the same (row, column) positions in every layer, so it
-//     writes its bits in the forward epilogue and reads them back in the
-//     dX epilogue, with no other thread involved.
+//   * mma.sync m16n8k16 bf16 with fp32 accumulators (not wgmma); 16 warps
+//     over the tile and one pass of up to 256 output columns
+//     (mlp_tile.cuh's WarpGrid: each warp 32 x 64 of a 128-point tile, 16 x
+//     64 of a 64-point one, 16 x 32 of a 32-point one, 16 x 16 of a
+//     16-point one), so a layer up to 256 wide is one pass over its k-slabs
+//     and two warps per scheduler hide each other's latency.
+//   * A layer wider than 256 (the forward's layers and the dX chain's
+//     outputs) is cut by the wrapper into column passes of at most 256,
+//     each an operation of the program over the whole K of its operands:
+//     a dX pass reads the whole cotangent and writes its columns, so each
+//     value is rounded once, after its whole sum, as the TPU kernel rounds
+//     it. A pass reads its own columns (forward) or rows (dX) of the
+//     weight block, whose row stride the operation carries.
+//   * The ReLU masks the dX chain needs are kept as bits in shared memory,
+//     one block per column pass of each ReLU layer: a thread holds the
+//     same (row, column) positions in every pass, so it writes its bits in
+//     the forward epilogue and reads them back in the dX epilogue, with no
+//     other thread involved.
 //   * Every stored activation and every rounded cotangent is copied once,
-//     16 B per thread, into a row-major (rows, width) workspace matrix.
+//     16 B per thread, into a row-major (rows, width) workspace matrix,
+//     each pass its own columns.
 // Phase 2 (bwd_phase2_kernel). The TPU adds each tile's dW into one
 // accumulator over its sequential grid; on 132 parallel blocks that would
 // be a read-modify-write of a 2.4 MB partial slot per tile, ~4.6 GB per
@@ -104,7 +120,8 @@ namespace {
 using namespace mlp_tile;
 
 constexpr int kThreads = 256;     // phase 2: 8 warps
-constexpr int kMaxN = 256;        // widest layer phase 1's warp grid covers
+constexpr int kP1Threads = 512;   // phase 1: 16 warps (mlp_tile.cuh's WarpGrid)
+constexpr int kMaxN = 256;        // output columns of one phase-1 pass
 constexpr int kHeaderInts = 32;
 constexpr int kMaxBufs = 8;       // shared-memory buffers: offset, ld, cols
 constexpr int kMaxMats = 64;      // workspace matrices: column offset, cols
@@ -128,18 +145,26 @@ enum Header {
   hNOps = 0, hProgLen, hNFreqs, hEncDim, hDirsDim, hGCols, hGrCols,
   hXBuf, hDBuf, hGrBuf, hGsBuf, hXMat, hDMat, hGrMat, hGsMat,
   hStages, hRingOff, hStageElems, hMaskOff, hSmem, hWsCols, hJobsOff,
-  hNJobs
+  hNJobs, hRows
 };
 
-// Operation record fields:
-//   kFwd:  dst = act(A @ WA + B @ WB + bias); act = ReLU when maskOut >= 0,
-//          which also records dst > 0 into that mask slot
-//   kDx:   dst = mask(A @ WA^T + B @ WB^T)   (maskIn: a slot, or -1)
+// Operation record fields. An operation is one pass of n <= kMaxN output
+// columns, from column `col` on, over the whole K of its operands:
+//   kFwd:  dst[:, col:col + n] = act(A @ WA + B @ WB + bias), WA the
+//          columns col.. of a (k_a, wld) weight block (wA points at column
+//          col; in hi_lo its lo plane k_a * wld further on), bias at
+//          column col; act = ReLU when maskOut >= 0, which also records
+//          dst > 0 into that mask block
+//   kDx:   dst[:, col:col + n] = mask(A @ WA^T + B @ WB^T), WA the rows
+//          col.. of a (wld, k_a) weight block (wA points at row col; lo
+//          plane k_a * wld further on); maskIn: a mask block, or -1
 //   kLoadG: the cotangent into buffers GR / GS and their matrices
-// dst is then copied into workspace matrix `mat` (if >= 0).
+// dst's pass is then copied into workspace matrix `mat` (if >= 0). Each
+// ReLU layer's mask slot has one block per column pass (the wrapper
+// numbers them), so a layer up to 256 wide has block = slot.
 enum Field {
   fOp = 0, fSrcA, fWA, fKA, fSrcB, fWB, fKB, fBias, fN, fMaskIn, fDst,
-  fMat, fMaskOut
+  fMat, fMaskOut, fCol, fWLd
 };
 
 // Job record fields (phase 2): the tile [k0, k0 + kc) x [n0, n0 + nc) of
@@ -163,40 +188,33 @@ __device__ __forceinline__ void put2(bf16* s, int s_plane, bf16* w,
   }
 }
 
-// Phase 1's warps: 4 x 4, each owning 64 columns and 16 * kMT rows of the
-// tile.
-template <bool kHiLo>
-struct Phase1 {
-  static constexpr int kThreads = 512;
-  static constexpr int kMT = kHiLo ? 1 : 2;  // m16 tiles per warp
-  static constexpr int kNT = 8;              // n8 tiles per warp: 64 columns
-  static constexpr int kRows = 4 * 16 * kMT; // points per tile: 128, or 64
-};
 // One thread per 16-byte chunk of a weight slab: 16 rows of up to 32
 // chunks (forward), or up to 256 rows of 2 chunks (dX).
-static_assert(16 * (kMaxN / 8) <= 512 && 2 * kMaxN <= 512,
+static_assert(16 * (kMaxN / 8) <= kP1Threads && 2 * kMaxN <= kP1Threads,
               "a slab must take at most one chunk per thread");
 
-template <bool kHiLo>
-__global__ void __launch_bounds__(Phase1<kHiLo>::kThreads, 1)
+// Phase 1 over tiles of T points (mlp_tile.cuh's WarpGrid<T>).
+template <bool kHiLo, int T>
+__global__ void __launch_bounds__(kP1Threads, 1)
 bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
                   const float* __restrict__ g, const bf16* __restrict__ weights,
                   const float* __restrict__ biases,
                   const int* __restrict__ prog_in, int prog_len, int n,
                   int n_tiles, bf16* __restrict__ ws, long long rows_cap,
                   long long w_stride, int b_stride) {
-  constexpr int MT = Phase1<kHiLo>::kMT;
-  constexpr int NT = Phase1<kHiLo>::kNT;
-  constexpr int T = Phase1<kHiLo>::kRows;
-  constexpr int kThreads = Phase1<kHiLo>::kThreads;
+  using G = WarpGrid<T>;
+  using Mask = typename MaskWord<G::kNT>::type;
+  constexpr int MT = G::kMT;
+  constexpr int NT = G::kNT;
+  constexpr int kThreads = kP1Threads;
   extern __shared__ __align__(128) unsigned char smem[];
   int* prog = reinterpret_cast<int*>(smem);
   for (int i = threadIdx.x; i < prog_len; i += kThreads) prog[i] = prog_in[i];
   __syncthreads();
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rb = (warp >> 2) * MT * 16;  // the warp's first row
-  const int cb = (warp & 3) * 64;        // ... and first column
+  const int rb = (warp / G::kCG) * MT * 16;  // the warp's first row
+  const int cb = (warp % G::kCG) * G::kWN;   // ... and first column of a pass
   const int* bufs = prog + kBufsBase;
   const int* mats = prog + kMatsBase;
   const int* ops = prog + kOpsBase;
@@ -205,7 +223,7 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
   const int half = prog[hStageElems];  // a slab's lo plane follows its hi
   const int stage_elems = half * (kHiLo ? 2 : 1);
   bf16* ring = reinterpret_cast<bf16*>(smem + prog[hRingOff]);
-  uint32_t* masks = reinterpret_cast<uint32_t*>(smem + prog[hMaskOff]);
+  Mask* masks = reinterpret_cast<Mask*>(smem + prog[hMaskOff]);
   auto bufp = [&](int b) { return reinterpret_cast<bf16*>(smem + bufs[3 * b]); };
   auto bld = [&](int b) { return bufs[3 * b + 1]; };
   auto matp = [&](int m) { return ws + static_cast<long long>(mats[2 * m]) * rows_cap; };
@@ -217,28 +235,28 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
   const int tiles_per_scene = (n + T - 1) / T;
 
   // The slab stream: every operation's 16-row k-slabs in program order,
-  // tile after tile. Forward: rows k0..k0+15 of W (k x n), stored
-  // [16][n + kPad]. dX: the same rows of W^T, i.e. columns k0..k0+15 of
-  // every row of W (n x k), stored [n][16] with the two 16-byte halves of a
-  // row swapped every 4 rows, so that ldmatrix meets no bank conflict. A
-  // thread's chunk of an operand's slabs is set up once per operand
-  // (f_operand); fetch() then issues it, one slab further each call, or an
-  // empty group at the end. f_w: the weights of the scene of the tile being
-  // fetched for.
+  // tile after tile. Forward: rows k0..k0+15 of the pass's columns of W
+  // (k x wld), stored [16][n + kPad]. dX: the same rows of W^T, i.e.
+  // columns k0..k0+15 of the pass's rows of W (wld x k), stored [n][16]
+  // with the two 16-byte halves of a row swapped every 4 rows, so that
+  // ldmatrix meets no bank conflict. A thread's chunk of an operand's
+  // slabs is set up once per operand (f_operand); fetch() then issues it,
+  // one slab further each call, or an empty group at the end. f_w: the
+  // weights of the scene of the tile being fetched for.
   const bf16* f_w = weights;
   int f_tile = static_cast<int>(blockIdx.x) - static_cast<int>(gridDim.x);
   const bf16* f_src = weights;
   long long f_lo = 0;
   int f_dst = -1, f_step = 0, f_op = -1, f_j = 0, f_steps = 0, f_steps_a = 0;
   auto f_operand = [&](const int* o, bool second) {
-    const int k = second ? o[fKB] : o[fKA], nn = o[fN];
+    const int k = second ? o[fKB] : o[fKA], nn = o[fN], wld = o[fWLd];
     const bf16* w = f_w + (second ? o[fWB] : o[fWA]);
-    f_lo = static_cast<long long>(k) * nn;
+    f_lo = static_cast<long long>(k) * wld;
     if (o[fOp] == kFwd) {
       const int r = tid >> 5, cc = tid & 31;
       f_dst = cc < nn / 8 ? r * (nn + kPad) + cc * 8 : -1;
-      f_src = w + r * nn + cc * 8;
-      f_step = 16 * nn;
+      f_src = w + static_cast<long long>(r) * wld + cc * 8;
+      f_step = 16 * wld;
     } else {
       const int r = tid >> 1, h = tid & 1;
       f_dst = r < nn ? r * 16 + 8 * (h ^ ((r >> 2) & 1)) : -1;
@@ -414,12 +432,13 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
       }
 
       // Epilogue. Forward: fp32 bias, then ReLU, recording dst > 0 (of the
-      // rounded value in bf16 mode) into the mask slot. dX: the mask slot
-      // of the stored activation. Then the compute type, into dst. Bit
-      // 4 nt + e of word mt is the thread's accumulator acc[mt][nt][e].
+      // rounded value in bf16 mode) into the mask block. dX: the mask
+      // block of the stored activation. Then the compute type, into dst's
+      // columns of the pass. Each value is a whole K sum, rounded once.
+      // Bit 4 nt + e of word mt is the thread's accumulator acc[mt][nt][e].
       {
-        const int dst = o[fDst], ldd = bld(dst);
-        bf16* d = bufp(dst);
+        const int dst = o[fDst], ldd = bld(dst), col0 = o[fCol];
+        bf16* d = bufp(dst) + col0;
         const int mask_in = o[fMaskIn], mask_out = o[fMaskOut];
         const float* bias = bias_s + o[fBias];
 #pragma unroll
@@ -468,21 +487,22 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
               }
             }
           }
-          if (mask_out >= 0) masks[(mask_out * MT + mt) * kThreads + tid] = bits_out;
+          if (mask_out >= 0)
+            masks[(mask_out * MT + mt) * kThreads + tid] = static_cast<Mask>(bits_out);
         }
       }
       __syncthreads();
 
-      // The output, 16 B a thread, into its workspace matrix: row r, chunk
-      // cc of thread slot c = 32 r + cc.
+      // The pass's columns, 16 B a thread, into its workspace matrix: row
+      // r, chunk cc of thread slot c = 32 r + cc.
       const int m = o[fMat];
       if (m >= 0) {
-        const int b = o[fDst], cols = mcols(m), ld = bld(b);
-        const bf16* s = bufp(b);
-        bf16* w = matp(m) + static_cast<long long>(row0) * cols;
+        const int b = o[fDst], cols = mcols(m), ld = bld(b), col0 = o[fCol];
+        const bf16* s = bufp(b) + col0;
+        bf16* w = matp(m) + static_cast<long long>(row0) * cols + col0;
         for (int c = tid; c < 32 * T; c += kThreads) {
           const int r = c >> 5, cc = c & 31;
-          if (8 * cc >= cols) continue;
+          if (8 * cc >= nn) continue;
           const long long at = static_cast<long long>(r) * cols + cc * 8;
           *reinterpret_cast<uint4*>(w + at) =
               *reinterpret_cast<const uint4*>(s + r * ld + cc * 8);
@@ -694,20 +714,19 @@ reduce_partials_kernel(const float* __restrict__ part, int slots,
   }
 }
 
-template <bool kHiLo>
+template <bool kHiLo, int T>
 cudaError_t launch_phase1(const float* pts, const void* dirs, const float* g,
                           const bf16* weights, const float* biases,
                           const int* prog, int prog_len, int n,
                           int n_scenes, long long w_stride, int b_stride,
                           int grid, int smem, bf16* ws, long long rows_cap,
                           cudaStream_t stream) {
-  const int n_tiles =
-      n_scenes * ((n + Phase1<kHiLo>::kRows - 1) / Phase1<kHiLo>::kRows);
+  const int n_tiles = n_scenes * ((n + T - 1) / T);
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_phase1_kernel<kHiLo>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_phase1_kernel<kHiLo, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  bwd_phase1_kernel<kHiLo><<<grid, Phase1<kHiLo>::kThreads, smem, stream>>>(
+  bwd_phase1_kernel<kHiLo, T><<<grid, kP1Threads, smem, stream>>>(
       pts, dirs, g, weights, biases, prog, prog_len, n, n_tiles, ws, rows_cap,
       w_stride, b_stride);
   return cudaGetLastError();
@@ -737,11 +756,11 @@ extern "C" {
 
 // The kernels' fixed shape, for the wrapper to check against its own.
 int fused_mlp_bwd_constants(int* out, int len) {
+  // ... then phase 1's tile sizes: bf16, then hi_lo, in the order tried.
   const int c[] = {kThreads,   kPad,        kMaxN,      kHeaderInts,
                    kMaxBufs,   kMaxMats,    kOpInts,    kMaxOps,
                    kTileK,     kTileN,      kStageRows, kStages2,
-                   kJobInts,   Phase1<false>::kRows,    Phase1<true>::kRows,
-                   Phase1<false>::kThreads};
+                   kJobInts,   kP1Threads,  128, 64, 32, 64, 32, 16};
   const int count = static_cast<int>(sizeof(c) / sizeof(c[0]));
   for (int i = 0; i < len && i < count; ++i) out[i] = c[i];
   return count;
@@ -756,20 +775,20 @@ const char* fused_mlp_bwd_error_string(int code) {
 // hi_lo mode) or null; g (n_scenes * n, g_cols) fp32; weights bf16 and
 // biases fp32 as packed for the forward, scene s's at s * w_stride and
 // s * b_stride elements; prog (device, int32): the program, whose first
-// prog_len ints go to shared memory; smem: the program's shared-memory
-// bytes; ws: the workspace, rows_cap rows per matrix (>= n_scenes times n
-// rounded up to the tile; scene s's from s times that). Launches `grid`
-// persistent blocks on `stream`, does not synchronise, allocates nothing;
-// returns cudaGetLastError().
+// prog_len ints go to shared memory; rows: the program's points per tile
+// (128, 64 or 32; hi_lo 64, 32 or 16), which picks the kernel; smem: the
+// program's shared-memory bytes; ws: the workspace, rows_cap rows per
+// matrix (>= n_scenes times n rounded up to the tile; scene s's from s
+// times that). Launches `grid` persistent blocks on `stream`, does not
+// synchronise, allocates nothing; returns cudaGetLastError().
 int fused_mlp_bwd_phase1(const void* pts, const void* dirs, const void* g,
                          const void* weights, const void* biases,
-                         const void* prog, int prog_len, int hi_lo, int n,
-                         int n_scenes, long long w_stride, int b_stride,
-                         int grid, int smem, void* ws, long long rows_cap,
-                         void* stream) {
-  const int rows = hi_lo ? Phase1<true>::kRows : Phase1<false>::kRows;
+                         const void* prog, int prog_len, int hi_lo, int rows,
+                         int n, int n_scenes, long long w_stride,
+                         int b_stride, int grid, int smem, void* ws,
+                         long long rows_cap, void* stream) {
   if (prog_len < kOpsBase || grid <= 0 || n_scenes <= 0 || w_stride % 8 ||
-      b_stride < 0 ||
+      b_stride < 0 || rows <= 0 ||
       rows_cap < static_cast<long long>(n_scenes) * ((n + rows - 1) / rows) *
                      rows)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -781,13 +800,19 @@ int fused_mlp_bwd_phase1(const void* pts, const void* dirs, const void* g,
   const auto* pr = static_cast<const int*>(prog);
   auto* wsp = static_cast<bf16*>(ws);
   auto* s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      hi_lo ? launch_phase1<true>(p, dirs, gg, w, b, pr, prog_len, n,
-                                  n_scenes, w_stride, b_stride, grid, smem,
-                                  wsp, rows_cap, s)
-            : launch_phase1<false>(p, dirs, gg, w, b, pr, prog_len, n,
-                                   n_scenes, w_stride, b_stride, grid, smem,
-                                   wsp, rows_cap, s));
+#define PHASE1(HI_LO, T)                                                     \
+  if (!!hi_lo == HI_LO && rows == T)                                         \
+    return static_cast<int>(launch_phase1<HI_LO, T>(                        \
+        p, dirs, gg, w, b, pr, prog_len, n, n_scenes, w_stride, b_stride,    \
+        grid, smem, wsp, rows_cap, s));
+  PHASE1(false, 128)
+  PHASE1(false, 64)
+  PHASE1(false, 32)
+  PHASE1(true, 64)
+  PHASE1(true, 32)
+  PHASE1(true, 16)
+#undef PHASE1
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Phase 2 over n_scenes scenes of `rows` workspace rows each (a multiple

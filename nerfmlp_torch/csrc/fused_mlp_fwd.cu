@@ -23,16 +23,18 @@
 // recomputes this same forward.
 //   * A persistent grid (one block of 16 warps per SM) walks tiles of 128
 //     points (64 in hi_lo, and where two 128-row activation buffers of the
-//     net's width do not fit shared memory, e.g. widths 384-512). Every
-//     block streams the ~1.19 MB of weights from L2 once per tile: 9.3 KB
-//     per point, half of what the first 64-point, one-tile-per-block design
-//     read.
+//     net's width do not fit shared memory, e.g. widths 320-768; 32 in
+//     hi_lo past width 320, where two planes of 64-row buffers do not).
+//     Every block streams the ~1.19 MB of weights from L2 once per tile:
+//     9.3 KB per point, half of what the first 64-point, one-tile-per-block
+//     design read.
 //   * The tile's activations stay in shared memory: the encoded points
 //     (kept for the skip layer), the encoded view directions and two
 //     ping-pong buffers for a layer's input and output. Only the output
 //     heads' real columns leave the block, straight from registers.
 //   * Each warp owns 32 x 64 of a 128 x 256 output pass (16 x 64 of a
-//     64 x 256 pass): mma.sync m16n8k16 bf16 into fp32 accumulators, A
+//     64 x 256 pass, 16 x 32 of a 32 x 256 one: mlp_tile.cuh's WarpGrid):
+//     mma.sync m16n8k16 bf16 into fp32 accumulators, A
 //     fragments from the activation buffers and B fragments from the weight
 //     ring, both by ldmatrix. A layer wider than 256 columns is cut into
 //     column passes by the Python wrapper, each a record of the program.
@@ -138,10 +140,10 @@ __device__ __forceinline__ void put(bf16* p, int plane, float v) {
   if (kHiLo) p[plane] = __float2bfloat16(v - __bfloat162float(h));
 }
 
-// kHiLo: (hi, lo) planes and three products. MT: m16 tiles per warp (2:
-// 128-point tiles, 1: 64). KSUB: 16-row k-steps per ring stage of a full
-// width operation.
-template <bool kHiLo, int MT, int KSUB>
+// kHiLo: (hi, lo) planes and three products. T: points per tile (128, 64
+// or 32; mlp_tile.cuh's WarpGrid<T> lays the 16 warps over it). KSUB:
+// 16-row k-steps per ring stage of a full width operation.
+template <bool kHiLo, int T, int KSUB>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_mlp_fwd_kernel(const float* __restrict__ pts,
                      const void* __restrict__ dirs,
@@ -150,8 +152,9 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
                      float* __restrict__ out,
                      const int* __restrict__ prog_in, int prog_len, int n,
                      int n_tiles, long long w_stride, int b_stride) {
-  constexpr int NT = 8;           // n8 tiles per warp: 64 columns
-  constexpr int T = 64 * MT;      // points per tile
+  using G = WarpGrid<T>;
+  constexpr int MT = G::kMT;      // m16 tiles per warp
+  constexpr int NT = G::kNT;      // n8 tiles per warp
   constexpr int KS = 16 * KSUB;   // weight rows per ring stage
   extern __shared__ __align__(128) unsigned char smem[];
   int* prog = reinterpret_cast<int*>(smem);
@@ -159,8 +162,8 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
   __syncthreads();
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rb = (warp >> 2) * MT * 16;  // the warp's first row
-  const int cb = (warp & 3) * 64;        // ... and first column of a pass
+  const int rb = (warp / G::kCG) * MT * 16;  // the warp's first row
+  const int cb = (warp % G::kCG) * G::kWN;   // ... and first column of a pass
   const int* bufs = prog + kBufsBase;
   const int* ops = prog + kOpsBase;
   const int n_ops = prog[hNOps];
@@ -402,17 +405,17 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
   cp_async_wait<0>();
 }
 
-template <bool kHiLo, int MT, int KSUB>
+template <bool kHiLo, int T, int KSUB>
 cudaError_t launch(const float* pts, const void* dirs, const bf16* weights,
                    const float* biases, float* out, const int* prog,
                    int prog_len, int n, int n_scenes, long long w_stride,
                    int b_stride, int grid, int smem, cudaStream_t stream) {
-  const int n_tiles = n_scenes * ((n + 64 * MT - 1) / (64 * MT));
+  const int n_tiles = n_scenes * ((n + T - 1) / T);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_fwd_kernel<kHiLo, MT, KSUB>,
+      fused_mlp_fwd_kernel<kHiLo, T, KSUB>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  fused_mlp_fwd_kernel<kHiLo, MT, KSUB><<<grid, kThreads, smem, stream>>>(
+  fused_mlp_fwd_kernel<kHiLo, T, KSUB><<<grid, kThreads, smem, stream>>>(
       pts, dirs, weights, biases, out, prog, prog_len, n, n_tiles, w_stride,
       b_stride);
   return cudaGetLastError();
@@ -439,8 +442,8 @@ const char* fused_mlp_fwd_error_string(int code) {
 // weights bf16 and biases fp32, scene s's at s * w_stride and s * b_stride
 // elements; out (n_scenes * n, out_w) fp32; prog (int32): the program,
 // whose first prog_len ints go to shared memory — all on the current
-// device. rows (128 or 64 points per tile) and ksub (2 or 1
-// 16-row k-steps per ring stage) pick the kernel; smem: the program's
+// device. rows (128 or 64 points per tile; hi_lo 64 or 32) and ksub (2 or
+// 1 16-row k-steps per ring stage) pick the kernel; smem: the program's
 // shared-memory bytes. Launches `grid` persistent blocks on `stream`, does
 // not synchronise, allocates nothing; returns cudaGetLastError().
 int fused_mlp_fwd(const void* pts, const void* dirs, const void* weights,
@@ -459,22 +462,17 @@ int fused_mlp_fwd(const void* pts, const void* dirs, const void* weights,
   const auto* pr = static_cast<const int*>(prog);
   auto* o = static_cast<float*>(out);
   auto* s = static_cast<cudaStream_t>(stream);
-  if (hi_lo && rows == 64 && ksub == 1)
-    return static_cast<int>(launch<true, 1, 1>(p, dirs, w, b, o, pr, prog_len,
-                                               n, n_scenes, w_stride, b_stride,
-                                               grid, smem, s));
-  if (!hi_lo && rows == 128 && ksub == 2)
-    return static_cast<int>(launch<false, 2, 2>(p, dirs, w, b, o, pr,
-                                                prog_len, n, n_scenes, w_stride,
-                                                b_stride, grid, smem, s));
-  if (!hi_lo && rows == 64 && ksub == 2)
-    return static_cast<int>(launch<false, 1, 2>(p, dirs, w, b, o, pr,
-                                                prog_len, n, n_scenes, w_stride,
-                                                b_stride, grid, smem, s));
-  if (!hi_lo && rows == 64 && ksub == 1)
-    return static_cast<int>(launch<false, 1, 1>(p, dirs, w, b, o, pr,
-                                                prog_len, n, n_scenes, w_stride,
-                                                b_stride, grid, smem, s));
+#define FWD(HI_LO, T, KSUB)                                                  \
+  if (!!hi_lo == HI_LO && rows == T && ksub == KSUB)                         \
+    return static_cast<int>(launch<HI_LO, T, KSUB>(                         \
+        p, dirs, w, b, o, pr, prog_len, n, n_scenes, w_stride, b_stride,     \
+        grid, smem, s));
+  FWD(true, 64, 1)
+  FWD(true, 32, 1)
+  FWD(false, 128, 2)
+  FWD(false, 64, 2)
+  FWD(false, 64, 1)
+#undef FWD
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -19,6 +19,26 @@ constexpr int kPad = 8;  // bf16 of padding per shared-memory row: with a
                          // row stride of 16 B times an odd number, the 8
                          // rows an ldmatrix reads fall in 8 distinct banks
 
+// The 16 warps of a block over a tile of T points and one output pass of
+// up to 256 columns: kRG x kCG warps, each owning 16 * kMT rows and kWN
+// columns (kNT n8 tiles). T = 128 or 64: 4 x 4 warps of 64 columns (two
+// m16 tiles each at 128); T = 32: 2 x 8 warps of 32 columns; T = 16: 1 x
+// 16 warps of 16 columns. A thread holds the same (row, column) positions
+// of every pass, so each keeps its own ReLU mask bits: 4 kNT bits an m16
+// tile, one word of type Mask.
+template <int T>
+struct WarpGrid {
+  static constexpr int kMT = T >= 64 ? T / 64 : 1;
+  static constexpr int kWN = T >= 64 ? 64 : T;
+  static constexpr int kNT = kWN / 8;
+  static constexpr int kCG = 256 / kWN;
+  static constexpr int kRG = 16 / kCG;
+  static_assert(kRG * 16 * kMT == T && kCG * kWN == 256, "a warp grid of 16");
+};
+template <int NT> struct MaskWord { using type = uint32_t; };
+template <> struct MaskWord<4> { using type = uint16_t; };
+template <> struct MaskWord<2> { using type = uint8_t; };
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

@@ -79,8 +79,8 @@ SMEM_LIMIT = 232_448    # dynamic shared memory one Hopper block may use
 
 # The backward kernels' fixed shape (csrc/fused_mlp_bwd.cu).
 BWD_THREADS = 256      # phase 2 and the reduction
-BWD_P1_THREADS = 512   # phase 1: 16 warps, 4 x 4 over the tile
-BWD_MAX_N = 256         # widest layer phase 1's warp grid covers
+BWD_P1_THREADS = 512   # phase 1: 16 warps over the tile and a column pass
+BWD_MAX_N = 256         # output columns of one phase-1 pass
 BWD_SLAB_K = 16         # weight rows per ring stage of phase 1
 BWD_HEADER_INTS = 32
 BWD_MAX_BUFS = 8        # shared-memory buffers (offset, ld, cols)
@@ -94,9 +94,10 @@ BWD_TILE_N = 128        # phase 2: dW columns per block
 BWD_STAGE_ROWS = 64     # phase 2: points per ring stage
 BWD_STAGES2 = 3
 BWD_JOB_INTS = 10
-# Phase 1's points per tile: 128, or 64 in hi_lo mode (two bf16 planes).
-BWD_TILE_ROWS = 128
-BWD_TILE_ROWS_HI_LO = 64
+# Phase 1's points per tile, in the order tried: the first whose layout
+# holds two weight stages is taken (hi_lo: two bf16 planes per value).
+BWD_TILE_ROWS = (128, 64, 32)
+BWD_TILE_ROWS_HI_LO = (64, 32, 16)
 # How a call is cut: at most BWD_CHUNK_ROWS points per phase-1 / phase-2
 # pair (bounds the workspace), and phase 2's rows split in up to
 # BWD_MAX_SPLITS ranges of at least BWD_MIN_SPLIT_ROWS points.
@@ -163,10 +164,11 @@ def _fwd_layout(mc: ModelConfig, vdirs: bool, hi_lo: bool) -> FwdLayout:
     """The program, then the buffers x (encoded points), d (encoded dirs),
     p0 / p1 (a layer's input and output, ping-pong), each ``rows`` rows of
     ``cols + PAD`` bf16 (two planes in hi_lo), then the weight ring with as
-    many stages (up to 4) as fit. The first of 128-point tiles with 32-row
-    stages, 64-point tiles with 32-row stages and 64-point tiles with
-    16-row stages (hi_lo: only the last) that holds three stages, else the
-    first that holds two."""
+    many stages (up to 4) as fit. bf16: the first of 128-point tiles with
+    32-row stages, 64-point tiles with 32-row stages and 64-point tiles
+    with 16-row stages that holds three stages, else the first that holds
+    two. hi_lo: 16-row stages, 64-point tiles where they hold two stages
+    (up to width 320), else 32-point tiles (widths 336-608)."""
     planes = 2 if hi_lo else 1
     hid = _hidden_cols(mc, vdirs)
     pass_cols = min(FWD_MAX_N, max(_layer_widths(mc, vdirs)))
@@ -175,7 +177,8 @@ def _fwd_layout(mc: ModelConfig, vdirs: bool, hi_lo: bool) -> FwdLayout:
             ("d", _pad16(mc.input_ch_views) if vdirs else 0),
             ("p0", hid), ("p1", hid))
     layouts = []
-    for rows, ksub in ((64, 1),) if hi_lo else ((128, 2), (64, 2), (64, 1)):
+    for rows, ksub in (((64, 1), (32, 1)) if hi_lo
+                       else ((128, 2), (64, 2), (64, 1))):
         off, bufs = prog, []
         for name, c in cols:
             bufs.append((name, (off, c + PAD, c)))
@@ -184,7 +187,7 @@ def _fwd_layout(mc: ModelConfig, vdirs: bool, hi_lo: bool) -> FwdLayout:
         stages = max(0, min(4, (SMEM_LIMIT - off) // (2 * stage * planes)))
         layouts.append(FwdLayout(rows, ksub, tuple(bufs), off, stage, stages,
                                  off + 2 * stage * planes * stages))
-    for want in (3, 2):
+    for want in ((2,) if hi_lo else (3, 2)):
         for lay in layouts:
             if lay.stages >= want:
                 return lay
@@ -205,31 +208,47 @@ def smem_bytes(mc: ModelConfig, vdirs: bool, hi_lo: bool = False) -> int:
     return _fwd_layout(mc, vdirs, hi_lo).smem
 
 
+def _arch_name(mc: ModelConfig, vdirs: bool, hi_lo: bool) -> str:
+    return (f"depth {mc.depth} width {mc.width}"
+            + (" +view head" if vdirs else "") + (" hi_lo" if hi_lo else ""))
+
+
+def forward_misfit(mc: ModelConfig, vdirs: bool = True,
+                   hi_lo: bool = False) -> Optional[str]:
+    """Why the forward kernel does not take this architecture, or None:
+    its program, activation buffers and two weight-ring stages must fit
+    one block's shared memory, and it has at most ``MAX_LAYERS``
+    layers."""
+    lay = _fwd_layout(mc, vdirs, hi_lo)
+    layers = mc.depth + (4 if vdirs else 1)
+    if lay.stages < 2:
+        return (f"the forward's buffers of {lay.rows}-point tiles leave room "
+                f"for {lay.stages} weight stage(s) of two in {SMEM_LIMIT} B "
+                f"of shared memory")
+    if layers > MAX_LAYERS:
+        return f"{layers} layers, more than the forward's {MAX_LAYERS}"
+    return None
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_fits(mc: ModelConfig, vdirs: bool = True,
                 hi_lo: bool = False) -> bool:
-    """Whether the forward kernel takes this architecture: its program,
-    activation buffers and at least two weight-ring stages fit one block's
-    shared memory, and it has at most ``MAX_LAYERS`` layers. Logged once
-    per architecture and mode."""
+    """Whether the forward kernel takes this architecture
+    (:func:`forward_misfit` says why not). Logged once per architecture
+    and mode."""
     lay = _fwd_layout(mc, vdirs, hi_lo)
-    layers = mc.depth + (4 if vdirs else 1)
-    fits = lay.stages >= 2 and layers <= MAX_LAYERS
+    why = forward_misfit(mc, vdirs, hi_lo)
     log.info(
-        "fused MLP kernel budget: depth %d width %d%s%s: %d-point tiles, %d "
-        "weight stages of %d rows, %d B of shared memory per block (Hopper "
-        "limit %d B), %d layers (limit %d): %s",
-        mc.depth, mc.width, " +view head" if vdirs else "",
-        " hi_lo" if hi_lo else "", lay.rows, lay.stages, 16 * lay.ksub,
-        lay.smem, SMEM_LIMIT, layers, MAX_LAYERS,
-        "kernel" if fits else "plain module path",
-    )
-    return fits
+        "fused MLP kernel budget: %s: %d-point tiles, %d weight stages of "
+        "%d rows, %d B of shared memory per block (Hopper limit %d B): %s",
+        _arch_name(mc, vdirs, hi_lo), lay.rows, lay.stages, 16 * lay.ksub,
+        lay.smem, SMEM_LIMIT, why or "kernel")
+    return why is None
 
 
-def bwd_tile_rows(hi_lo: bool) -> int:
-    """Phase 1's points per tile."""
-    return BWD_TILE_ROWS_HI_LO if hi_lo else BWD_TILE_ROWS
+def _passes(cols: int) -> int:
+    """Column passes of at most ``BWD_MAX_N`` over a layer of ``cols``."""
+    return -(-_pad16(cols) // BWD_MAX_N)
 
 
 def _bwd_mats(mc: ModelConfig, vdirs: bool) -> List[Tuple[str, int]]:
@@ -252,95 +271,157 @@ def _bwd_mats(mc: ModelConfig, vdirs: bool) -> List[Tuple[str, int]]:
 
 
 def backward_counts(mc: ModelConfig, vdirs: bool) -> Tuple[int, int]:
-    """(phase-1 operations, workspace matrices) for an architecture: the
-    recomputed forward layers (the output heads excepted), the load of the
-    cotangent and the dX chain; the matrices of :func:`_bwd_mats`."""
-    fwd = mc.depth + (2 if vdirs else 0)
-    dx = mc.depth - 1 + (3 if vdirs else 1)
+    """(phase-1 operations, workspace matrices) for an architecture: a
+    pass of at most ``BWD_MAX_N`` columns over each recomputed forward
+    layer (the output heads excepted), the load of the cotangent, and a
+    pass over each dX output of the chain; the matrices of
+    :func:`_bwd_mats`."""
+    w = _passes(mc.width)
+    fwd = mc.depth * w
+    dx = (mc.depth - 1) * w
+    if vdirs:
+        bott, view = _passes(mc.bottleneck_ch), _passes(mc.view_width)
+        fwd += bott + view
+        dx += view + bott + w
+    else:
+        dx += w
     return fwd + 1 + dx, len(_bwd_mats(mc, vdirs))
+
+
+def _mask_blocks(mc: ModelConfig, vdirs: bool) -> List[int]:
+    """The first mask block of each ReLU layer's slot (trunk layer i, then
+    the view layer): one block of ``rows * BWD_MAX_N`` bits per column
+    pass of the layer; the last entry is the total."""
+    firsts = [0]
+    for cols in [mc.width] * mc.depth + ([mc.view_width] if vdirs else []):
+        firsts.append(firsts[-1] + _passes(cols))
+    return firsts
 
 
 def bwd_scratch_bytes(mc: ModelConfig, vdirs: bool,
                       hi_lo: bool = False) -> int:
     """Workspace bytes per point: every matrix of :func:`_bwd_mats`, bf16
-    (two planes in hi_lo mode)."""
+    (two planes in hi_lo mode). At 8x640 + view head: 24,576 B in bf16
+    (3.2 GB for a chunk of ``BWD_CHUNK_ROWS`` points); at 8x576 hi_lo:
+    44,288 B (5.8 GB)."""
     cols = sum(c for _, c in _bwd_mats(mc, vdirs))
     return cols * 2 * (2 if hi_lo else 1)
 
 
-def _bwd_smem_layout(mc: ModelConfig, vdirs: bool, hi_lo: bool):
-    """Phase 1's dynamic shared memory, in bytes: the program; the buffers
-    x, d, the two ping-pong activation buffers p0 / p1, and the cotangent's
-    gr / gs laid over x when they fit there (x is dead by then); a mask
-    slot per ReLU layer; the weight ring, with as many 16-row stages (up
-    to 4) as fit. Returns (buffers {name: (offset, ld, cols)}, mask
-    offset, ring offset, elements of a stage's hi slab, stages, total
-    bytes)."""
-    rows = bwd_tile_rows(hi_lo)
+@dataclasses.dataclass(frozen=True)
+class BwdLayout:
+    """Phase 1's shared memory for one architecture and mode: ``rows``
+    points per tile; the buffers as ``{name: (byte offset, ld, cols)}``;
+    the mask blocks' byte offset; the weight ring's byte offset, the
+    elements of a stage's hi slab and its stages; the total bytes."""
+
+    rows: int
+    bufs: Dict[str, Tuple[int, int, int]]
+    mask_off: int
+    ring_off: int
+    stage_elems: int
+    stages: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_layout(mc: ModelConfig, vdirs: bool, hi_lo: bool) -> BwdLayout:
+    """Phase 1's dynamic shared memory: the program; the buffers x, d, the
+    two ping-pong activation buffers p0 / p1, and the cotangent's gr / gs
+    laid over x when they fit there (x is dead by then), each ``rows``
+    rows of ``cols + PAD`` bf16 (two planes in hi_lo); the mask blocks
+    (one bit a value of a ReLU layer's column pass); the weight ring, with
+    as many stages (up to 4) of 16 rows of a pass as fit. The first tile
+    of ``BWD_TILE_ROWS`` (hi_lo: ``BWD_TILE_ROWS_HI_LO``) whose layout
+    holds two stages: 128 points (hi_lo 64) up to width 256 and wherever
+    else they fit, then 64, then 32, then (hi_lo) 16."""
     planes = 2 if hi_lo else 1
     n_ops, _ = backward_counts(mc, vdirs)
-    off = _align128(4 * (BWD_OPS_BASE + n_ops * BWD_OP_INTS))
-    bufs: Dict[str, Tuple[int, int, int]] = {}
-
-    def size(cols):
-        return _align128(rows * (cols + PAD) * 2 * planes)
-
-    def region(name, cols, at=None):
-        nonlocal off
-        if at is None:
-            at, off = off, off + size(cols)
-        bufs[name] = (at, cols + PAD, cols)
-        return at + size(cols)
-
-    region("x", _pad16(mc.input_ch))
-    if vdirs:
-        region("d", _pad16(mc.input_ch_views))
+    prog = _align128(4 * (BWD_OPS_BASE + n_ops * BWD_OP_INTS))
     hid = _hidden_cols(mc, vdirs)
-    region("p0", hid)
-    region("p1", hid)
-    g_cols = (16, 16) if vdirs else (_pad16(mc.output_ch),)
-    over_x = sum(size(c) for c in g_cols) <= size(_pad16(mc.input_ch))
-    at = bufs["x"][0] if over_x else None
-    for name, c in zip(("gr", "gs"), g_cols):
-        end = region(name, c, at)
-        at = end if over_x else None
-    masks = off
-    n_masks = mc.depth + (1 if vdirs else 0)
-    off += _align128(n_masks * rows * BWD_MAX_N // 8)  # one bit a value
-    stage = BWD_SLAB_K * (hid + PAD)
-    stages = min(4, (SMEM_LIMIT - off) // (2 * stage * planes))
-    return bufs, masks, off, stage, stages, off + 2 * stage * planes * stages
+    stage = BWD_SLAB_K * (min(hid, BWD_MAX_N) + PAD)
+    layout = None
+    for rows in BWD_TILE_ROWS_HI_LO if hi_lo else BWD_TILE_ROWS:
+        off = prog
+        bufs: Dict[str, Tuple[int, int, int]] = {}
+
+        def size(cols):
+            return _align128(rows * (cols + PAD) * 2 * planes)
+
+        def region(name, cols, at=None):
+            nonlocal off
+            if at is None:
+                at, off = off, off + size(cols)
+            bufs[name] = (at, cols + PAD, cols)
+            return at + size(cols)
+
+        region("x", _pad16(mc.input_ch))
+        if vdirs:
+            region("d", _pad16(mc.input_ch_views))
+        region("p0", hid)
+        region("p1", hid)
+        g_cols = (16, 16) if vdirs else (_pad16(mc.output_ch),)
+        over_x = sum(size(c) for c in g_cols) <= size(_pad16(mc.input_ch))
+        at = bufs["x"][0] if over_x else None
+        for name, c in zip(("gr", "gs"), g_cols):
+            end = region(name, c, at)
+            at = end if over_x else None
+        masks = off
+        off += _align128(_mask_blocks(mc, vdirs)[-1] * rows * BWD_MAX_N // 8)
+        stages = max(0, min(4, (SMEM_LIMIT - off) // (2 * stage * planes)))
+        layout = BwdLayout(rows, bufs, masks, off, stage, stages,
+                           off + 2 * stage * planes * stages)
+        if stages >= 2:
+            break
+    return layout
 
 
 def bwd_smem_bytes(mc: ModelConfig, vdirs: bool, hi_lo: bool = False) -> int:
     """Shared memory one phase-1 block needs for this architecture."""
-    return _bwd_smem_layout(mc, vdirs, hi_lo)[-1]
+    return _bwd_layout(mc, vdirs, hi_lo).smem
+
+
+def backward_misfit(mc: ModelConfig, vdirs: bool = True,
+                    hi_lo: bool = False) -> Optional[str]:
+    """Why the backward kernels do not take this architecture, or None:
+    phase 1's buffers, masks and two weight-ring stages must fit one
+    block's shared memory at some tile of points, and its program and
+    workspace the kernel's tables."""
+    ops, mats = backward_counts(mc, vdirs)
+    lay = _bwd_layout(mc, vdirs, hi_lo)
+    if lay.stages < 2:
+        return (f"phase 1's buffers and masks of {lay.rows}-point tiles "
+                f"leave room for {lay.stages} weight stage(s) of two in "
+                f"{SMEM_LIMIT} B of shared memory")
+    if ops > BWD_MAX_OPS:
+        return (f"{ops} phase-1 operations, more than the program table's "
+                f"{BWD_MAX_OPS}")
+    if mats > BWD_MAX_MATS:
+        return (f"{mats} workspace matrices, more than the table's "
+                f"{BWD_MAX_MATS}")
+    return None
 
 
 @functools.lru_cache(maxsize=None)
 def backward_fits(mc: ModelConfig, vdirs: bool = True,
                   hi_lo: bool = False) -> bool:
-    """Whether the backward kernels take this architecture: phase 1's
-    buffers, masks and at least two weight-ring stages fit one block's
-    shared memory, every layer it writes is at most ``BWD_MAX_N`` wide,
-    and its program and workspace fit the kernel's tables. The workspace,
+    """Whether the backward kernels take this architecture
+    (:func:`backward_misfit` says why not). The workspace,
     :func:`bwd_scratch_bytes` per point, is bounded by the call's chunk of
-    ``BWD_CHUNK_ROWS`` points. Logged once per architecture and mode."""
+    ``BWD_CHUNK_ROWS`` points; the partial gradients by ``BWD_MAX_SPLITS``
+    slots a chunk (at 8x640, 32 slots of ~3.6M floats). Logged once per
+    architecture and mode."""
     ops, mats = backward_counts(mc, vdirs)
-    stages, smem = _bwd_smem_layout(mc, vdirs, hi_lo)[-2:]
-    fits = (stages >= 2 and _hidden_cols(mc, vdirs) <= BWD_MAX_N
-            and ops <= BWD_MAX_OPS and mats <= BWD_MAX_MATS)
+    lay = _bwd_layout(mc, vdirs, hi_lo)
+    why = backward_misfit(mc, vdirs, hi_lo)
     log.info(
-        "fused MLP backward budget: depth %d width %d%s%s needs %d B of "
-        "shared memory per block (%d weight stages; Hopper limit %d B), "
-        "%d operations (limit %d), %d workspace matrices (limit %d), %d B "
-        "of workspace per point: %s",
-        mc.depth, mc.width, " +view head" if vdirs else "",
-        " hi_lo" if hi_lo else "", smem, stages, SMEM_LIMIT, ops,
-        BWD_MAX_OPS, mats, BWD_MAX_MATS, bwd_scratch_bytes(mc, vdirs, hi_lo),
-        "kernel" if fits else "plain module path",
-    )
-    return fits
+        "fused MLP backward budget: %s: %d-point tiles, %d B of shared "
+        "memory per block (%d weight stages; Hopper limit %d B), %d "
+        "operations (limit %d), %d workspace matrices (limit %d), %d B of "
+        "workspace per point: %s", _arch_name(mc, vdirs, hi_lo), lay.rows,
+        lay.smem, lay.stages, SMEM_LIMIT, ops, BWD_MAX_OPS, mats,
+        BWD_MAX_MATS, bwd_scratch_bytes(mc, vdirs, hi_lo), why or "kernel")
+    return why is None
 
 
 # --------------------------------------------------------------------- #
@@ -364,8 +445,9 @@ class PackedMLP:
     ``grad_blocks`` / ``grad_biases`` say where each parameter's gradient
     lies in the backward's flat fp32 output: ``(param, in_start, k, n,
     offset, k_pad, n_pad)`` per weight block and ``(param, offset, n)``
-    per bias. ``net`` is the module the blocks came from (the plain path
-    and the architecture check read it)."""
+    per bias. ``bwd_rows``: phase 1's points per tile. ``net`` is the
+    module the blocks came from (the plain path and the architecture
+    check read it)."""
 
     net: NeRFMLP
     vdirs: bool
@@ -380,6 +462,7 @@ class PackedMLP:
     bwd_prog_len: int
     bwd_jobs: np.ndarray
     bwd_smem: int
+    bwd_rows: int
     ws_cols: int
     ws_mats: Tuple[Tuple[str, int, int], ...]
     grad_total: int
@@ -563,7 +646,8 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
         bwd_program_dev=_device_program(bwd_program.tobytes(), str(dev)),
         bwd_prog_len=jobs_off,
         bwd_jobs=bwd_program[jobs_off:].reshape(n_jobs, BWD_JOB_INTS),
-        bwd_smem=int(hdr[_H_SMEM]), ws_cols=int(hdr[_H_WS_COLS]),
+        bwd_smem=int(hdr[_H_SMEM]), bwd_rows=int(hdr[_H_ROWS]),
+        ws_cols=int(hdr[_H_WS_COLS]),
         ws_mats=ws_mats, grad_total=g_off + b_off,
         grad_blocks=tuple(grad_blocks), grad_biases=tuple(grad_biases),
     )
@@ -618,9 +702,10 @@ _BWD_HEADER = ("n_ops", "prog_len", "n_freqs", "enc_dim", "dirs_dim",
                "g_cols", "gr_cols", "x_buf", "d_buf", "gr_buf", "gs_buf",
                "x_mat", "d_mat", "gr_mat", "gs_mat", "stages", "ring_off",
                "stage_elems", "mask_off", "smem", "ws_cols", "jobs_off",
-               "n_jobs")
-_H_SMEM, _H_WS_COLS, _H_JOBS_OFF, _H_N_JOBS = (
-    _BWD_HEADER.index(k) for k in ("smem", "ws_cols", "jobs_off", "n_jobs"))
+               "n_jobs", "rows")
+_H_SMEM, _H_WS_COLS, _H_JOBS_OFF, _H_N_JOBS, _H_ROWS = (
+    _BWD_HEADER.index(k)
+    for k in ("smem", "ws_cols", "jobs_off", "n_jobs", "rows"))
 
 
 def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
@@ -636,37 +721,50 @@ def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
     the matrices' (name, column offset, cols)."""
     mc = net.cfg
     depth = mc.depth
-    bufs, mask_off, ring_off, stage, stages, smem = _bwd_smem_layout(
-        mc, vdirs, hi_lo)
+    lay = _bwd_layout(mc, vdirs, hi_lo)
+    bufs = lay.bufs
     buf = {name: i for i, name in enumerate(bufs)}
     names = _bwd_mats(mc, vdirs)
     mat = {name: i for i, (name, _) in enumerate(names)}
     x, p = buf["x"], (buf["p0"], buf["p1"])
+    masks = _mask_blocks(mc, vdirs)
     ops: List[List[int]] = []
 
     def op(kind, a=-1, wa=0, ka=0, b=-1, wb=0, kb=0, bias=0, n=0,
-           mask_in=-1, dst=-1, m=-1, mask_out=-1):
+           mask_in=-1, dst=-1, m=-1, mask_out=-1, col=0, wld=0):
         ops.append([kind, a, wa, ka, b, wb, kb, bias, n, mask_in, dst, m,
-                    mask_out, 0, 0, 0])
+                    mask_out, col, wld, 0])
 
-    def fwd(name, srcs, dst, m, mask_out=-1):
-        """dst = act(sum of src @ W + bias); ReLU when it records a mask."""
+    def block_of(slot, c0):
+        """The mask block of a ReLU layer's slot for the pass at c0."""
+        return -1 if slot < 0 else masks[slot] + c0 // BWD_MAX_N
+
+    def fwd(name, srcs, dst, m, slot=-1):
+        """dst = act(sum of src @ W + bias), one op per column pass; ReLU
+        when it records a mask."""
         blk = blocks[name]
         wa, ka, na, _ = blk[0]
         wb, kb = (blk[1][0], blk[1][1]) if len(blk) > 1 else (0, 0)
-        op(_FWD, srcs[0], wa, ka, srcs[1] if len(srcs) > 1 else -1, wb, kb,
-           bias_of[name], na, dst=dst, m=mat[m], mask_out=mask_out)
+        for c0 in range(0, na, BWD_MAX_N):
+            op(_FWD, srcs[0], wa + c0, ka, srcs[1] if len(srcs) > 1 else -1,
+               wb + c0 if kb else 0, kb, bias_of[name] + c0,
+               min(BWD_MAX_N, na - c0), dst=dst, m=mat[m],
+               mask_out=block_of(slot, c0), col=c0, wld=na)
 
-    def dx(srcs, dst, m, mask_in=-1):
-        """dst = mask(sum of src @ W^T) for (src, name, part) operands."""
+    def dx(srcs, dst, m, slot=-1):
+        """dst = mask(sum of src @ W^T) for (src, name, part) operands, one
+        op per pass over the output columns (W's rows), each over all of
+        the cotangent's columns."""
         (sa, na, pa) = srcs[0]
-        wa, ka_rows, ka_cols, _ = blocks[na][pa]
-        rec = dict(a=sa, wa=wa, ka=ka_cols, n=ka_rows, mask_in=mask_in,
-                   dst=dst, m=mat[m])
+        wa, rows, ka, _ = blocks[na][pa]
+        sb, wb, kb = -1, 0, 0
         if len(srcs) > 1:
             sb, nb, pb = srcs[1]
-            rec.update(b=sb, wb=blocks[nb][pb][0], kb=blocks[nb][pb][2])
-        op(_DX, **rec)
+            wb, kb = blocks[nb][pb][0], blocks[nb][pb][2]
+        for c0 in range(0, rows, BWD_MAX_N):
+            op(_DX, sa, wa + c0 * ka, ka, sb, wb + c0 * kb if kb else 0, kb,
+               n=min(BWD_MAX_N, rows - c0), mask_in=block_of(slot, c0),
+               dst=dst, m=mat[m], col=c0, wld=rows)
 
     # Recompute the forward (mask slot i: h_i > 0), load the cotangent,
     # walk the dX chain; h_i is in p[i % 2].
@@ -737,9 +835,10 @@ def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
         gr_cols=gr_cols, x_buf=x, d_buf=buf.get("d", -1), gr_buf=buf["gr"],
         gs_buf=buf.get("gs", -1), x_mat=mat["x"], d_mat=mat.get("d", -1),
         gr_mat=mat["g_rgb" if vdirs else "g_out"],
-        gs_mat=mat.get("g_sigma", -1), stages=stages, ring_off=ring_off,
-        stage_elems=stage, mask_off=mask_off, smem=smem, ws_cols=col,
-        jobs_off=prog_len, n_jobs=len(jobs))
+        gs_mat=mat.get("g_sigma", -1), stages=lay.stages,
+        ring_off=lay.ring_off, stage_elems=lay.stage_elems,
+        mask_off=lay.mask_off, smem=lay.smem, ws_cols=col,
+        jobs_off=prog_len, n_jobs=len(jobs), rows=lay.rows)
     head = [header[k] for k in _BWD_HEADER]
     head += [0] * (BWD_HEADER_INTS - len(head))
     prog = np.asarray(head + buf_table + mat_table
@@ -1020,7 +1119,7 @@ def bwd_workspace_plain(packed: PackedMLP, pts: torch.Tensor,
                      dtype=torch.bfloat16)
     s = packed.n_scenes
     nets = packed.stack or (packed.net,)
-    tile = bwd_tile_rows(hi_lo)
+    tile = packed.bwd_rows
     for i, (net, p, d, gg) in enumerate(zip(
             nets, _scenes(pts, s), _scenes(dirs, s), _scenes(g, s))):
         n = p.shape[0]
@@ -1114,7 +1213,7 @@ def _bwd_kernel(csrc: str = _build.CSRC):
     sources in ``csrc``, declared and checked."""
     lib = _build.load("fused_mlp_bwd", csrc)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fused_mlp_bwd_phase1.argtypes = ([vp] * 6 + [i32] * 4 + [i64]
+    lib.fused_mlp_bwd_phase1.argtypes = ([vp] * 6 + [i32] * 5 + [i64]
                                          + [i32] * 3 + [vp, i64, vp])
     lib.fused_mlp_bwd_phase1.restype = i32
     lib.fused_mlp_bwd_phase2.argtypes = [vp, i64, vp, vp] + [i32] * 6 + [
@@ -1127,8 +1226,8 @@ def _bwd_kernel(csrc: str = _build.CSRC):
     lib.fused_mlp_bwd_constants.argtypes = [ctypes.POINTER(i32), i32]
     want = [BWD_THREADS, PAD, BWD_MAX_N, BWD_HEADER_INTS, BWD_MAX_BUFS,
             BWD_MAX_MATS, BWD_OP_INTS, BWD_MAX_OPS, BWD_TILE_K, BWD_TILE_N,
-            BWD_STAGE_ROWS, BWD_STAGES2, BWD_JOB_INTS, BWD_TILE_ROWS,
-            BWD_TILE_ROWS_HI_LO, BWD_P1_THREADS]
+            BWD_STAGE_ROWS, BWD_STAGES2, BWD_JOB_INTS, BWD_P1_THREADS,
+            *BWD_TILE_ROWS, *BWD_TILE_ROWS_HI_LO]
     consts = (i32 * len(want))()
     lib.fused_mlp_bwd_constants(consts, len(want))
     if list(consts) != want:
@@ -1257,7 +1356,7 @@ def bwd_workspace(packed: PackedMLP, pts: torch.Tensor,
                   ws: torch.Tensor) -> torch.Tensor:
     """Phase 1 for n points: recompute the forward, walk the dX chain and
     fill the flat workspace ``ws`` (at least n, rounded up to
-    :func:`bwd_tile_rows`, rows per matrix; for a stack, S times n / S
+    ``packed.bwd_rows``, rows per matrix; for a stack, S times n / S
     rounded up, scene s's rows after scene s - 1's). The kernel for CUDA
     tensors (or raise), :func:`bwd_workspace_plain` for CPU ones.
     ``bwd_workspace.launches`` counts kernel launches."""
@@ -1267,7 +1366,7 @@ def bwd_workspace(packed: PackedMLP, pts: torch.Tensor,
         raise ValueError(f"the cotangent must be ({n}, {packed.out_w}) on "
                          f"{dev}, got {tuple(g.shape)} on {g.device}")
     g = g.to(torch.float32).contiguous()
-    tile = bwd_tile_rows(packed.hi_lo)
+    tile = packed.bwd_rows
     scenes = packed.n_scenes
     n_s = n // scenes
     cap = _check_ws(packed, ws, scenes * (-(-n_s // tile) * tile), dev)
@@ -1284,7 +1383,8 @@ def bwd_workspace(packed: PackedMLP, pts: torch.Tensor,
             pts.data_ptr(), dirs.data_ptr() if dirs is not None else None,
             g.data_ptr(), packed.weights.data_ptr(),
             packed.biases.data_ptr(), prog.data_ptr(), packed.bwd_prog_len,
-            int(packed.hi_lo), n_s, scenes, packed.w_stride, packed.b_stride,
+            int(packed.hi_lo), tile, n_s, scenes, packed.w_stride,
+            packed.b_stride,
             min(scenes * -(-n_s // tile), _sm_count(index)),
             packed.bwd_smem, ws.data_ptr(), cap, stream))
     bwd_workspace.launches += 1
@@ -1352,7 +1452,7 @@ def _launch_bwd(packed: PackedMLP, pts: torch.Tensor,
         raise ValueError(f"the cotangent must be ({n}, {packed.out_w}), got "
                          f"{tuple(g.shape)}")
     total = packed.grad_total
-    tile = bwd_tile_rows(packed.hi_lo)
+    tile = packed.bwd_rows
     scenes = packed.n_scenes
     n_s = n // scenes
     ws = torch.empty(scenes * (-(-min(n_s, chunk_rows) // tile) * tile)
@@ -1470,8 +1570,10 @@ def _route(params, pts_flat, dirs_enc_flat, cfg: RenderConfig,
                          "'high'; fp32 'highest' takes the plain module path")
     if not kernel_fits(mc, vdirs, hi_lo) or (
             backward and not backward_fits(mc, vdirs, hi_lo)):
-        raise ValueError(f"depth {mc.depth} width {mc.width} does not fit "
-                         "the kernels (see kernel_fits, backward_fits)")
+        why = forward_misfit(mc, vdirs, hi_lo) or backward_misfit(
+            mc, vdirs, hi_lo)
+        raise ValueError(f"{_arch_name(mc, vdirs, hi_lo)} does not fit the "
+                         f"kernels: {why}")
     if (not isinstance(params, PackedMLP) or params.vdirs != vdirs
             or params.hi_lo != hi_lo):
         params = (pack_params_stack(nets, cfg.pos_enc_L, vdirs, hi_lo)

@@ -29,6 +29,17 @@ from nerfmlp_torch.ops.encoding import positional_encoding
 ARCH = dict(depth=6, width=64)  # depth 6: the skip before layer 5 exists
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """One intra-op thread for this module's tests and fixtures (restored
+    after), so that parallel test workers do not oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _nets(use_viewdirs=True, seed=0, **arch):
     kw = dict(ARCH, **arch)
     jcfg = JaxRenderConfig(use_viewdirs=use_viewdirs, **kw)
@@ -173,6 +184,8 @@ def _run_program(packed, pts, dirs):
     (dict(depth=4, width=288, use_viewdirs=True), 200),
     (dict(depth=4, width=288, use_viewdirs=True, hi_lo=True), 200),
     (dict(depth=2, width=512, use_viewdirs=True), 150),   # 64-point tiles
+    # hi_lo past width 320: 32-point tiles, two planes, two passes a layer
+    (dict(depth=2, width=384, use_viewdirs=True, hi_lo=True), 200),
     # ragged: one row past two 128-point tiles
     (dict(depth=6, width=64, use_viewdirs=True), 257),
 ])
@@ -195,7 +208,8 @@ def test_packed_program_matches_plain(arch, n):
     layers = cfg.depth + (4 if vdirs else 1)
     assert hdr["n_ops"] == fused_mlp.forward_ops(net.cfg, vdirs) >= layers
     assert (hdr["n_ops"] == layers) is (cfg.width <= fused_mlp.FWD_MAX_N)
-    assert hdr["rows"] == (64 if hi_lo or cfg.width > 288 else 128)
+    assert hdr["rows"] == (32 if hi_lo and cfg.width > 320 else
+                           64 if hi_lo or cfg.width > 288 else 128)
     assert n % hdr["rows"]
     got = _run_program(packed, pts, dirs if vdirs else None)
     want = fused_mlp.fused_nerf_mlp_plain(net, pts, dirs if vdirs else None,
@@ -247,8 +261,14 @@ def test_hopper_budget():
     assert (lay.rows, lay.ksub, lay.stages) == (64, 1, 4)
     assert fused_mlp.smem_bytes(mc, True, hi_lo=True) == 232_320
     assert fused_mlp.kernel_fits(mc, True, hi_lo=True)
-    assert not fused_mlp.kernel_fits(
-        RenderConfig(width=384).model_config(), True, hi_lo=True)
+    # hi_lo past width 320: 32-point tiles, up to width 688; at 704 two
+    # planes of the 32-point buffers leave room for one stage.
+    for width, fits in ((384, True), (576, True), (688, True), (704, False)):
+        wide = RenderConfig(width=width).model_config()
+        assert fused_mlp._fwd_layout(wide, True, True).rows == 32
+        assert fused_mlp.kernel_fits(wide, True, hi_lo=True) is fits
+    assert "1 weight stage(s)" in fused_mlp.forward_misfit(
+        RenderConfig(width=704).model_config(), True, hi_lo=True)
     # Width 512: 64-point tiles, every layer in two 256-column passes.
     wide = RenderConfig(width=512).model_config()
     assert fused_mlp._fwd_layout(wide, True, False).rows == 64

@@ -19,10 +19,12 @@ import numpy as np
 import pytest
 import torch
 
+from nerfmlp_tpu.config import ModelConfig as JaxModelConfig
 from nerfmlp_tpu.config import RenderConfig as JaxRenderConfig
+from nerfmlp_tpu.ops.pallas_mlp import backward_fits_vmem
 from nerfmlp_tpu.ops.pallas_mlp import fused_nerf_mlp as jax_fused
 
-from nerfmlp_torch.config import RenderConfig
+from nerfmlp_torch.config import ModelConfig, RenderConfig
 from nerfmlp_torch.models.convert import params_from_state_dict
 from nerfmlp_torch.models.mlp import init_model
 from nerfmlp_torch.ops import fused_mlp
@@ -61,19 +63,27 @@ def _loss_torch(raw):
             + torch.mean(torch.relu(raw[:, 3]) * 1e-2))
 
 
-@pytest.mark.parametrize("case", ["viewdirs", "no_viewdirs", "ragged",
-                                  "hi_lo"])
+# Nets wider than one 256-column pass (CLI shapes: bottleneck = width,
+# view head = width / 2), three layers deep to keep interpret mode short.
+WIDE = {"wide-3x384": dict(depth=3, width=384),
+        "wide-3x288": dict(depth=3, width=288)}
+
+
+@pytest.mark.parametrize("case", [
+    "viewdirs", "no_viewdirs", "ragged", "hi_lo",
+    "wide-3x384", "wide-3x384-hi_lo", "wide-3x288", "wide-3x288-hi_lo"])
 def test_plain_backward_matches_jax_kernel(case):
     """jax.grad through the Pallas backward (interpret mode) vs the port's
     autograd Function on CPU tensors (the plain backward), same weights."""
     vdirs = case != "no_viewdirs"
-    hi_lo = case == "hi_lo"
+    hi_lo = case.endswith("hi_lo")
     n = 300 if case == "ragged" else 256
-    params, net, cfg = _nets(use_viewdirs=vdirs)
+    arch = WIDE.get(case.replace("-hi_lo", ""), ARCH)
+    params, net, cfg = _nets(use_viewdirs=vdirs, **arch)
     pts, dirs = _inputs(n, seed=4)
     dt = dict(compute_dtype="float32", fp32_precision="high") if hi_lo \
         else dict(compute_dtype="bfloat16")
-    jcfg = JaxRenderConfig(use_viewdirs=vdirs, use_pallas=True, **dt, **ARCH)
+    jcfg = JaxRenderConfig(use_viewdirs=vdirs, use_pallas=True, **dt, **arch)
     jd = jnp.asarray(dirs) if vdirs else None
     want = jax.grad(lambda p: _loss_jax(
         jax_fused(p, jnp.asarray(pts), jd, jcfg, tile=128)))(params)
@@ -134,13 +144,15 @@ def test_two_calls_on_one_net_sum_their_grads():
 def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
     """What the CUDA backward does with a packed net, step for step, in
     PyTorch: the call walked in chunks of at most ``chunk_rows`` points. In
-    each chunk, phase 1 walks tiles of ``bwd_tile_rows`` points: the
+    each chunk, phase 1 walks tiles of the program's ``rows`` points: the
     program's shared-memory buffers (one flat array, so buffers laid over
-    each other share storage), its mask slots, operations and epilogues,
-    the (hi, lo) planes and three products in hi_lo mode, rows past n zero,
-    each result copied into its workspace matrix. Then phase 2 runs every
-    job over every split of the chunk's rows into that chunk's partial
-    slots, and the slots are summed in (chunk, split) order."""
+    each other share storage), its mask blocks, operations (each a pass of
+    at most ``BWD_MAX_N`` output columns from column ``col`` on, over the
+    whole K of its operands) and epilogues, the (hi, lo) planes and three
+    products in hi_lo mode, rows past n zero, each pass's columns copied
+    into its workspace matrix. Then phase 2 runs every job over every split
+    of the chunk's rows into that chunk's partial slots, and the slots are
+    summed in (chunk, split) order."""
     prog = packed.bwd_program.tolist()
     hdr = dict(zip(fused_mlp._BWD_HEADER, prog))
     hi_lo = packed.hi_lo
@@ -155,7 +167,9 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
                 fused_mlp.BWD_OPS_BASE + 16 * (i + 1)]
            for i in range(hdr["n_ops"])]
     jobs = np.asarray(prog[hdr["jobs_off"]:]).reshape(hdr["n_jobs"], 10)
-    rows = fused_mlp.bwd_tile_rows(hi_lo)
+    rows = hdr["rows"]
+    assert rows == packed.bwd_rows and hdr["stages"] >= 2
+    assert hdr["smem"] <= fused_mlp.SMEM_LIMIT
     bf = lambda t: t.to(torch.bfloat16).float()
     w = packed.weights.float()
     n = pts.shape[0]
@@ -167,20 +181,19 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
         at = off // 2 + plane * rows * ld
         return smem[at: at + rows * ld].view(rows, ld)[:, :cols]
 
-    def block(off, k, cols):   # a packed (k, cols) weight's planes
-        size = k * cols
-        return [w[off + p * size: off + (p + 1) * size].view(k, cols)
+    def block(off, k, nn, ld, lo):   # a (k, nn) weight slice's planes
+        return [w.as_strided((k, nn), (ld, 1), off + p * lo)
                 for p in range(planes)]
 
     def mm(a, b):   # planes @ planes: hi*hi (+ lo*hi + hi*lo)
         out = a[0] @ b[0]
         return out + a[1] @ b[0] + a[0] @ b[1] if hi_lo else out
 
-    def put(b, v):   # a value into buffer b's planes, from column 0
+    def put(b, v, col=0):   # a value into buffer b's planes from column col
         hi = bf(v)
-        buf(b, 0)[:, :v.shape[1]] = hi
+        buf(b, 0)[:, col:col + v.shape[1]] = hi
         if hi_lo:
-            buf(b, 1)[:, :v.shape[1]] = bf(v - hi)
+            buf(b, 1)[:, col:col + v.shape[1]] = bf(v - hi)
 
     def tile_of(t, r0):
         out = torch.zeros(rows, t.shape[1])
@@ -199,10 +212,11 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
             at = cap * (col + plane * cols)
             return ws[at: at + cap * cols].view(cap, cols)
 
-        def save(b, m, r0):   # the matrix's columns of buffer b
+        def save(b, m, r0, col=0, nn=None):   # columns of buffer b
             for plane in range(planes):
                 dst = mat(m, plane)
-                dst[r0:r0 + rows] = buf(b, plane)[:, :dst.shape[1]]
+                end = dst.shape[1] if nn is None else col + nn
+                dst[r0:r0 + rows, col:end] = buf(b, plane)[:, col:end]
 
         c_pts, c_g = pts[c0:c0 + r], g[c0:c0 + r]
         c_enc = enc[c0:c0 + r]
@@ -215,7 +229,7 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
                 put(hdr["d_buf"], tile_of(c_dirs, r0))
                 save(hdr["d_buf"], hdr["d_mat"], r0)
             for (kind, sa, wa, ka, sb, wb, kb, bias, nn, mask_in, dst, m,
-                 mask_out, *_) in ops:
+                 mask_out, col, wld, _) in ops:
                 if kind == 2:   # the cotangent, split at gr_cols
                     gt = tile_of(c_g, r0)
                     put(hdr["gr_buf"], gt[:, :hdr["gr_cols"]])
@@ -224,12 +238,18 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
                         put(hdr["gs_buf"], gt[:, hdr["gr_cols"]:])
                         save(hdr["gs_buf"], hdr["gs_mat"], r0)
                     continue
+                assert 0 < nn <= fused_mlp.BWD_MAX_N and nn % 16 == 0
+                # a slab of 16 rows (forward) or nn rows (dX) fits a stage
+                assert 16 * (nn + fused_mlp.PAD) <= hdr["stage_elems"]
                 acc = 0
                 for src, wo, k in ((sa, wa, ka), (sb, wb, kb)):
                     if k:
                         a = [buf(src, p)[:, :k] for p in range(planes)]
-                        wt = (block(wo, k, nn) if kind == 0
-                              else [t.t() for t in block(wo, nn, k)])
+                        # forward: columns col.. of the (k, wld) block;
+                        # dX: rows col.. of the (wld, k) block, transposed
+                        wt = (block(wo, k, nn, wld, k * wld) if kind == 0
+                              else [t.t() for t in
+                                    block(wo, nn, k, k, k * wld)])
                         acc = acc + mm(a, wt)
                 if kind == 0:
                     acc = acc + packed.biases[bias:bias + nn]
@@ -238,8 +258,8 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
                         masks[mask_out] = acc > 0 if hi_lo else bf(acc) > 0
                 elif mask_in >= 0:
                     acc = torch.where(masks[mask_in], acc, 0.0)
-                put(dst, acc)
-                save(dst, m, r0)
+                put(dst, acc, col)
+                save(dst, m, r0, col, nn)
         # Phase 2 over the chunk's rows, rounded up to the tile.
         r_pad = -(-r // rows) * rows
         splits, split_rows = fused_mlp.bwd_splits(r_pad)
@@ -273,6 +293,15 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
     (dict(depth=6, width=64, use_viewdirs=True), 50, 256, 2048),
     # more than one chunk, each in several splits
     (dict(depth=6, width=64, use_viewdirs=True), 700, 192, 64),
+    # wider than one 256-column pass: every layer in two or three passes,
+    # each with its own mask block; 128-, 64-, 32- and 16-point tiles
+    (dict(depth=3, width=288, use_viewdirs=True), 150, 256, 2048),
+    (dict(depth=2, width=512, use_viewdirs=True), 150, 256, 2048),
+    (dict(depth=3, width=384, use_viewdirs=True, hi_lo=True), 100, 256,
+     2048),
+    (dict(depth=8, width=576, use_viewdirs=False), 70, 256, 2048),
+    (dict(depth=8, width=608, use_viewdirs=True, hi_lo=True), 40, 256,
+     2048),
 ])
 def test_bwd_program_matches_plain(arch, n, chunk, min_split, monkeypatch):
     """The backward program, packed layout, workspace, job list, splits,
@@ -292,6 +321,7 @@ def test_bwd_program_matches_plain(arch, n, chunk, min_split, monkeypatch):
     ops, mats = fused_mlp.backward_counts(net.cfg, vdirs)
     assert int(packed.bwd_program[0]) == ops
     assert len(packed.ws_mats) == mats
+    assert fused_mlp.backward_fits(net.cfg, vdirs, hi_lo)
     got = _run_bwd_program(packed, pts, dirs if vdirs else None, g, chunk)
     want = fused_mlp.fused_nerf_mlp_bwd_plain(
         net, pts, dirs if vdirs else None, g, cfg.pos_enc_L, hi_lo=hi_lo)
@@ -376,8 +406,10 @@ def test_backward_budget():
     """8x256 + view head: 10 recomputed layers, the cotangent's load and
     10 dX operations; 24 workspace matrices, 9,984 B per point (4,992 bf16
     columns); phase 1's shared memory within Hopper's 227 KB with three
-    weight stages (two in hi_lo); a net too deep for the program table, or
-    too wide for the warp grid, does not fit."""
+    weight stages of 128-point tiles (two of 64-point tiles in hi_lo). A
+    layer wider than 256 columns takes one operation per column pass and
+    smaller tiles; a net too deep for the program table does not fit, and
+    says so."""
     mc = RenderConfig().model_config()
     ops, mats = fused_mlp.backward_counts(mc, True)
     assert (ops, mats) == (10 + 1 + 10, 24)
@@ -386,23 +418,38 @@ def test_backward_budget():
     # 64 + 32 + 8 x 256 + 256 + 128 + 16 + 16 + 128 + 256 + 8 x 256.
     assert fused_mlp.bwd_scratch_bytes(mc, True) == 4992 * 2
     assert fused_mlp.bwd_scratch_bytes(mc, True, hi_lo=True) == 4992 * 4
-    for hi_lo, stages in ((False, 3), (True, 2)):
-        layout = fused_mlp._bwd_smem_layout(mc, True, hi_lo)
-        assert layout[-2] == stages
+    for hi_lo, rows, stages in ((False, 128, 3), (True, 64, 2)):
+        layout = fused_mlp._bwd_layout(mc, True, hi_lo)
+        assert (layout.rows, layout.stages) == (rows, stages)
         assert fused_mlp.bwd_smem_bytes(mc, True, hi_lo) <= fused_mlp.SMEM_LIMIT
+    # 8x640: every layer in three passes (the view head's 320 in two);
+    # 24,576 B of workspace per point. 8x576 hi_lo: 44,288 B.
+    wide = RenderConfig(width=640).model_config()
+    assert fused_mlp.backward_counts(wide, True) == (
+        8 * 3 + 3 + 2 + 1 + 2 + 3 + 3 + 7 * 3, 24)
+    assert fused_mlp.bwd_scratch_bytes(wide, True) == 24_576
+    assert fused_mlp._bwd_layout(wide, True, False).rows == 32
+    assert fused_mlp.backward_fits(wide, True)
+    hi = RenderConfig(width=576).model_config()
+    assert fused_mlp.bwd_scratch_bytes(hi, True, hi_lo=True) == 44_288
+    assert fused_mlp._bwd_layout(hi, True, True).rows == 32
+    assert fused_mlp.backward_fits(hi, True, hi_lo=True)
     deep = RenderConfig(depth=100).model_config()
     assert not fused_mlp.backward_fits(deep, True)
-    assert not fused_mlp.backward_fits(RenderConfig(width=384).model_config(),
-                                       True)
+    assert "205 phase-1 operations" in fused_mlp.backward_misfit(deep, True)
+    assert fused_mlp.backward_fits(RenderConfig(width=384).model_config(),
+                                   True)
     assert not uses_kernel(RenderConfig(depth=100, use_kernel=True,
                                         compute_dtype="bfloat16"))
 
 
 @pytest.mark.parametrize("width, serve, train", [
     (256, True, True),
-    (384, True, False),    # wider than phase 1's warp grid
-    (512, True, False),
-    (1024, False, False),  # past the forward's shared memory too
+    (384, True, True),     # column passes of phase 1's 256-column grid
+    (512, True, True),
+    (704, True, True),     # where the JAX gate stops at depth 8
+    (768, True, True),
+    (1024, False, False),  # past the forward's shared memory
 ])
 def test_kernel_gates_of_serving_and_training(width, serve, train):
     """A net goes to the forward kernel when it fits the forward's budget;
@@ -417,3 +464,43 @@ def test_kernel_gates_of_serving_and_training(width, serve, train):
     for backward, packed in ((False, serve), (True, train)):
         got = prepare_params({"coarse": net}, cfg, backward)["coarse"]
         assert isinstance(got, fused_mlp.PackedMLP) is packed
+
+
+# tests/test_pallas_generic.py's ARCHS: (depth, width, skips), bottleneck =
+# width, view head = width / 2; and depth 8 at every CLI width from 16 to
+# 1024 in steps of 16, of which JAX admits 43 in bf16 (up to 688) and 38 in
+# hi_lo (up to 608).
+GATE_CASES = [
+    pytest.param([(8, w, (5,)) for w in range(16, 1025, 16)], (43, 38),
+                 id="cli-depth-8"),
+    *[pytest.param([(d, w, s)], (1, 1), id=f"{d}x{w}-skips{s}")
+      for d, w, s in [(4, 128, ()), (6, 256, (5,)), (10, 256, (5,)),
+                      (8, 384, (5,)), (8, 256, (3, 6)), (3, 200, (0, 2))]]]
+
+
+@pytest.mark.parametrize("hi_lo", [False, True], ids=["bf16", "hi_lo"])
+@pytest.mark.parametrize("archs, admits", GATE_CASES)
+def test_gates_cover_jax(archs, admits, hi_lo):
+    """Every net the JAX package sends through its Pallas kernels
+    (``backward_fits_vmem``, its render gate) goes through the port's
+    kernels for both passes; the CLI's architectures also by
+    ``uses_kernel``."""
+    admitted = 0
+    for depth, width, skips in archs:
+        jmc = JaxModelConfig(depth=depth, width=width, skips=skips,
+                             bottleneck_ch=width, view_width=width // 2)
+        if not backward_fits_vmem(jmc, hi_lo):
+            continue
+        admitted += 1
+        mc = ModelConfig(depth=depth, width=width, skips=skips,
+                         bottleneck_ch=width, view_width=width // 2)
+        assert fused_mlp.kernel_fits(mc, True, hi_lo), (
+            depth, width, fused_mlp.forward_misfit(mc, True, hi_lo))
+        assert fused_mlp.backward_fits(mc, True, hi_lo), (
+            depth, width, fused_mlp.backward_misfit(mc, True, hi_lo))
+        cfg = RenderConfig(depth=depth, width=width, use_kernel=True,
+                           compute_dtype="float32" if hi_lo else "bfloat16",
+                           fp32_precision="high")
+        if cfg.model_config() == mc:   # an architecture the CLI can ask for
+            assert uses_kernel(cfg) and uses_kernel(cfg, backward=True)
+    assert admitted == admits[hi_lo]

@@ -30,7 +30,9 @@ from nerfmlp_torch.ops.encoding import positional_encoding
     (True, "bfloat16", 288, 1e-2),
     (True, "bfloat16", 512, 1e-2),
     (False, "bfloat16", 512, 1e-2),
-    (True, "float32", 320, 1e-4),    # the widest hi_lo net that fits
+    (True, "float32", 320, 1e-4),    # hi_lo: 64-point tiles, two passes
+    (True, "float32", 384, 1e-4),    # hi_lo: 32-point tiles
+    (True, "float32", 608, 1e-4),    # the widest hi_lo net JAX admits
 ])
 def test_kernel_matches_plain_on_gpu(use_viewdirs, dtype, width, tol):
     if not torch.cuda.is_available():
@@ -121,3 +123,47 @@ def test_backward_kernel_matches_plain_on_gpu(use_viewdirs, dtype, n, tol):
         bf16 = RenderConfig(compute_dtype="bfloat16", use_kernel=True)
         assert worst(fused_mlp.fused_nerf_mlp_bwd(net, pts, dirs, g,
                                                   bf16)) > tol
+
+
+@pytest.mark.cuda
+# Nets wider than one 256-column pass of phase 1: column passes, each with
+# its own mask block, at 64-point (8x512), 32-point (8x640, 8x384 hi_lo)
+# and 16-point (8x608 hi_lo) tiles. The bars and sizes of the 8x256 test.
+@pytest.mark.parametrize("width, dtype, n, tol", [
+    (512, "bfloat16", 1000, 1e-2),
+    (640, "bfloat16", 1000, 1e-2),
+    (384, "float32", 65535, 1e-3),
+    (608, "float32", 65535, 1e-3),
+])
+def test_wide_backward_kernels_match_plain_on_gpu(width, dtype, n, tol):
+    """The backward's kernels vs the plain backward at widths 264-688
+    (bf16) and 264-608 (hi_lo), per parameter (max |err| / max |plain|),
+    on a ragged n; a second run gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    cfg = RenderConfig(compute_dtype=dtype, fp32_precision="high",
+                       use_kernel=True, width=width)
+    hi_lo = dtype == "float32"
+    assert fused_mlp.backward_fits(cfg.model_config(), True, hi_lo)
+    net = init_model(cfg.model_config(), seed=0, device="cuda")
+    rng = np.random.default_rng(1)
+    pts = torch.from_numpy(rng.uniform(-1.2, 1.2, (n, 3)).astype(np.float32))
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d = torch.from_numpy(d / np.linalg.norm(d, axis=-1, keepdims=True))
+    pts, dirs = pts.cuda(), positional_encoding(d, 4).cuda()
+    raw = fused_mlp.fused_nerf_mlp_plain(net, pts, dirs, cfg.pos_enc_L,
+                                         hi_lo=hi_lo)
+    target = torch.from_numpy(rng.uniform(size=tuple(raw.shape)).astype(
+        np.float32)).cuda()
+    g = 2.0 / raw.numel() * (raw - target)
+    got = fused_mlp.fused_nerf_mlp_bwd(net, pts, dirs, g, cfg)
+    again = fused_mlp.fused_nerf_mlp_bwd(net, pts, dirs, g, cfg)
+    want = fused_mlp.fused_nerf_mlp_bwd_plain(net, pts, dirs, g,
+                                              cfg.pos_enc_L, hi_lo=hi_lo)
+    torch.cuda.synchronize()
+    for name, p in net.named_parameters():
+        assert got[name].shape == p.shape
+        assert torch.equal(got[name], again[name]), name
+    worst = max(float((got[k] - want[k]).abs().max())
+                / float(want[k].abs().max().clamp_min(1e-12)) for k in want)
+    assert worst <= tol

@@ -496,7 +496,7 @@ def test_stacked_plain_functions_equal_the_per_scene_ones(vdirs, hi_lo, n_s,
                       for net, p, d in zip(nets, sp, sd)])
     assert torch.equal(got, want)
 
-    tile = fm.bwd_tile_rows(hi_lo)
+    tile = stack.bwd_rows
     rows_s = -(-n_s // tile) * tile
     ws = fm.bwd_workspace_plain(stack, pts, dirs, g, S * rows_s)
     for s, p1 in enumerate(one):
