@@ -232,6 +232,23 @@ Phases, each fatal on failure:
      served by RenderService (2 launches a tile, equal to a direct render,
      the fp32 module path's frame at the serving bar); one stacked call
      of two 8x512 nets against two single-scene launches, bit for bit.
+ 17. the fused MLP kernels on the deep nets the JAX package runs through
+     Pallas ("deep"): the forward and the backward's three kernels at
+     32x256, 54x256, 43x256 hi_lo, 26x384, 36x320, 177x128, 509x64,
+     866x16 and 600x16 hi_lo (CLI shapes; random weights, the trunk's
+     scaled by 0.7, and random biases, so that the activations stay
+     alive), at the train fine call's 131,072 points, against their plain
+     versions at phase 16's bars layer by layer (phase 1's every matrix
+     from its own stored operands, the forward's output from the heads
+     on phase 1's activations, on the call's first chunk; phase 2 and the
+     reduction as before; the end-to-end distances, which grow with
+     depth, printed beside), repeat runs bit-identical, timed beside
+     their bounds and the module path, and a differentiated call of each
+     through fused_nerf_mlp with its launches counted; the train CLI at
+     --netdepth 32 for 300 steps, through the kernels and with
+     --no_kernel (2 launches of each kernel a step, held-out PSNRs within
+     1 dB); one stacked call of two 32x256 nets against two single-scene
+     launches, bit for bit.
 Then it prints the kernels' JSON line, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Weights are random, from a seed.
 It exits non-zero, printing no result, without a CUDA device.
@@ -240,7 +257,8 @@ It exits non-zero, printing no result, without a CUDA device.
 ``--only parallel`` the build, phase 5 and phase 13;
 ``--only jpeg`` the build and phase 14;
 ``--only finish`` the build, phases 5, 6 and 7 and phase 15;
-``--only wide`` the build and phase 16.
+``--only wide`` the build and phase 16;
+``--only deep`` the build and phase 17.
 """
 
 import contextlib
@@ -428,13 +446,17 @@ def serving_points(n_samples, cfg, n_rays=TILE):
     return pts.contiguous(), dirs.reshape(n_rays * n_samples, -1)
 
 
-def check_kernel(net, cfg, pts, dirs, label, time_it, hi_lo=False):
+def check_kernel(net, cfg, pts, dirs, label, time_it, hi_lo=False,
+                 iters=10, plain_iters=3, held=True):
     """Kernel vs plain on the same inputs; returns a result record.
     ``hi_lo``: fp32_precision="high", three bf16 products per matmul. With
     ``time_it`` the module path that use_kernel=False takes for the same
     call (encoding + the nn.Linear net, bf16; fp32 for hi_lo) is timed
     too, as the kernel's yardstick: no single PyTorch call computes this
-    function."""
+    function. ``iters`` / ``plain_iters``: timed runs of the kernel (and
+    the module path, half as many) / of the plain version. ``held=False``
+    (a deep net, held layer by layer instead): the distance is printed,
+    not held to the bar."""
     import torch
 
     from nerfmlp_torch.ops import fused_mlp
@@ -476,13 +498,14 @@ def check_kernel(net, cfg, pts, dirs, label, time_it, hi_lo=False):
         with torch.no_grad():
             for key, spin in (("ms", True), ("ms_no_spin", False)):
                 rec[key] = cuda_ms(lambda: fused_mlp.fused_nerf_mlp(
-                    packed, pts, dirs, cfg), iters=10, spin=spin)
-        rec["plain_ms"] = cuda_ms(plain, iters=3)
+                    packed, pts, dirs, cfg), iters=iters, spin=spin)
+        rec["plain_ms"] = cuda_ms(plain, iters=plain_iters,
+                                  warmup=plain_iters - 1)
         dt = torch.float32 if hi_lo else torch.bfloat16
         with torch.no_grad():
             rec["module_ms"] = cuda_ms(lambda: net(
                 positional_encoding(pts, cfg.pos_enc_L), dirs,
-                compute_dtype=dt).float(), iters=5)
+                compute_dtype=dt).float(), iters=max(1, iters // 2))
         rec["tflops"] = flops / rec["ms"] / 1e9
     print(f"[kernel] {label}: n={n} max|err|={err:.3e} "
           f"normalised={norm:.3e} (tol {tol})"
@@ -491,8 +514,9 @@ def check_kernel(net, cfg, pts, dirs, label, time_it, hi_lo=False):
              f"{rec['plain_ms']:.3f} ms, module path (use_kernel=False, "
              f"{'fp32' if hi_lo else 'bf16'}) {rec['module_ms']:.3f} ms"
              if time_it else "")
-          + f" bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})")
-    if not norm <= tol:
+          + f" bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})"
+          + ("" if held else " (end to end: printed, not held)"))
+    if held and not norm <= tol:
         raise SystemExit(f"[kernel] {label}: kernel disagrees with plain")
     return rec
 
@@ -562,7 +586,8 @@ def bound(flops, nbytes):
     return 1e3 * max(ops, mem), "operations" if ops >= mem else "bytes"
 
 
-def check_backward(net, cfg, pts, dirs, label, time_it, hi_lo=False):
+def check_backward(net, cfg, pts, dirs, label, time_it, hi_lo=False,
+                   iters=10, plain_iters=3, phase_rows=None):
     """The backward (both phases + reduction) vs the plain backward on the
     same inputs and a cotangent from a seeded loss, per parameter (max
     |err| / max |plain|); a repeat run must give the same bits. In hi_lo
@@ -570,8 +595,12 @@ def check_backward(net, cfg, pts, dirs, label, time_it, hi_lo=False):
     reference as a control, which must land above the bar: the bar then
     tells hi_lo from bf16. With ``time_it``, each kernel is also held
     against its own plain version and timed (check_phases), and the whole
-    backward is timed with and without the spin. Returns (the
-    whole backward's record, the kernels' records or None)."""
+    backward is timed with and without the spin; ``phase_rows`` (a deep
+    net): each kernel alone on the first that many points (a chunk of the
+    call, as the backward runs its phases), phase 1 held matrix by matrix
+    to one plain step from its own operands (check_phases' ``forced``),
+    else on all. Returns (the whole backward's record, the kernels'
+    records or None)."""
     import torch
 
     from nerfmlp_torch.ops import fused_mlp
@@ -633,19 +662,27 @@ def check_backward(net, cfg, pts, dirs, label, time_it, hi_lo=False):
     if time_it:
         for key, spin in (("ms", True), ("ms_no_spin", False)):
             rec[key] = cuda_ms(lambda: fused_mlp._launch_bwd(
-                packed, pts, dirs, g), iters=10, spin=spin)
-        rec["plain_ms"] = cuda_ms(plain, iters=3)
+                packed, pts, dirs, g), iters=iters, spin=spin)
+        rec["plain_ms"] = cuda_ms(plain, iters=plain_iters,
+                                  warmup=plain_iters - 1)
         rec["tflops"] = flops / rec["ms"] / 1e9
-        phases = check_phases(net, packed, pts, dirs, g, label)
+        m = n if phase_rows is None else min(n, phase_rows)
+        phases = check_phases(net, packed, pts[:m],
+                              None if dirs is None else dirs[:m], g[:m],
+                              label, iters, plain_iters,
+                              forced=phase_rows is not None)
         rec["floor_ms"] = sum(r["bound_ms"] for r in phases.values())
     print(f"[backward] {label}: n={n} max|err|={err:.3e} "
-          f"normalised={norm:.3e} ({leaf}; tol {tol}), repeat bit-identical"
+          f"normalised={norm:.3e} ({leaf}; tol {tol}"
+          + ("" if phase_rows is None else "; end to end: printed, not held,"
+             " the kernels held alone")
+          + "), repeat bit-identical"
           + (f" kernels {rec['ms']:.3f} ms ({rec['tflops']:.1f} TFLOP/s; "
              f"{rec['ms_no_spin']:.3f} ms without the spin) plain "
              f"{rec['plain_ms']:.3f} ms; design floor {rec['floor_ms']:.3f} "
              f"ms" if time_it else "")
           + f" bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})")
-    if not norm <= tol:
+    if phase_rows is None and not norm <= tol:
         raise SystemExit(f"[backward] {label}: kernels disagree with plain")
     if control is not None and not control > tol:
         raise SystemExit(f"[backward] {label}: the bar does not tell hi_lo "
@@ -653,20 +690,135 @@ def check_backward(net, cfg, pts, dirs, label, time_it, hi_lo=False):
     return rec, phases
 
 
-def check_phases(net, packed, pts, dirs, g, label):
+class _Stored:
+    """Phase 1's workspace ``ws`` of n points read as the plain version's
+    operands: ``planes(name, cols)`` a matrix's bf16 planes in fp32 (hi,
+    and lo in hi_lo mode); ``dot(a, w)`` planes times a weight the plain
+    version's way (hi@hi + hi@lo + lo@hi in hi_lo); ``rnd`` its rounding
+    to the compute type."""
+
+    def __init__(self, packed, ws, n):
+        self.packed, self.ws, self.n = packed, ws, n
+        self.at = {name: m for m, (name, _, _) in enumerate(packed.ws_mats)}
+
+    def planes(self, name, cols):
+        from nerfmlp_torch.ops import fused_mlp as fm
+
+        return list(fm.ws_matrix(self.packed, self.ws, self.at[name])
+                    [:, :self.n, :cols].float())
+
+    def split(self, t):
+        import torch
+
+        from nerfmlp_torch.ops import fused_mlp as fm
+
+        return (list(fm._split_bf16(t)) if self.packed.hi_lo
+                else [t.to(torch.bfloat16).float()])
+
+    def dot(self, a, w):
+        w = self.split(w.float())
+        out = a[0] @ w[0]
+        return out + a[0] @ w[1] + a[1] @ w[0] if self.packed.hi_lo else out
+
+    def rnd(self, t):
+        import torch
+
+        return t if self.packed.hi_lo else t.to(torch.bfloat16).float()
+
+
+def phase1_forced(packed, ws, pts, dirs, g):
+    """Each matrix of phase 1's workspace ``ws`` (a net with the view head)
+    recomputed by one step of the plain version's arithmetic from the
+    kernel's own stored operands: the layer below's activation (the layer
+    above's cotangent, and the stored activation's ReLU mask, down the dX
+    chain), in its (hi, lo) planes in hi_lo mode. Yields (name, fp32 (n,
+    real columns)) in the workspace's order. Held against the workspace
+    it checks every operation of the program at any depth, where the
+    plain version run end to end (bwd_workspace_plain) carries each
+    earlier summation-order difference and ReLU flip down the chain."""
+    import torch
+
+    from nerfmlp_torch.ops import fused_mlp as fm
+    from nerfmlp_torch.ops.encoding import positional_encoding
+
+    net, mc = packed.net, packed.net.cfg
+    enc, bott_ch = mc.input_ch, mc.bottleneck_ch
+    st = _Stored(packed, ws, pts.shape[0])
+    stored, dot, rnd = st.planes, st.dot, st.rnd
+
+    def masked(planes, t):   # the stored activation's ReLU mask
+        return rnd(torch.where(sum(planes) > 0, t, torch.zeros_like(t)))
+
+    x = stored("x", enc)
+    n_freqs = int(packed.bwd_program[fm._BWD_HEADER.index("n_freqs")])
+    yield "x", rnd(positional_encoding(pts.float(), n_freqs))
+    yield "d", rnd(dirs.float())
+    for i, lin in enumerate(net.pts_linears):
+        a = x if i == 0 else stored(f"h{i - 1}", mc.width)
+        w = lin.weight.t()
+        acc = (dot(x, w[:enc]) + dot(a, w[enc:]) if i in mc.skips
+               else dot(a, w))
+        yield f"h{i}", rnd(torch.relu(acc + lin.bias.float()))
+    h_last = stored(f"h{mc.depth - 1}", mc.width)
+    yield "bott", rnd(dot(h_last, net.bottleneck_linear.weight.t())
+                      + net.bottleneck_linear.bias.float())
+    wv = net.view_linear.weight.t()
+    yield "v", rnd(torch.relu(
+        dot(stored("bott", bott_ch), wv[:bott_ch])
+        + dot(stored("d", mc.input_ch_views), wv[bott_ch:])
+        + net.view_linear.bias.float()))
+    yield "g_rgb", rnd(g[:, :3].float())
+    yield "g_sigma", rnd(g[:, 3:4].float())
+    yield "dv", masked(stored("v", mc.view_width),
+                       dot(stored("g_rgb", 3), net.rgb_linear.weight))
+    yield "dbott", rnd(dot(stored("dv", mc.view_width),
+                           net.view_linear.weight[:, :bott_ch]))
+    yield f"dacc{mc.depth - 1}", masked(h_last, dot(
+        stored("dbott", bott_ch), net.bottleneck_linear.weight)
+        + dot(stored("g_sigma", 1), net.sigma_linear.weight))
+    for i in range(mc.depth - 1, 0, -1):
+        w = net.pts_linears[i].weight
+        yield f"dacc{i - 1}", masked(
+            stored(f"h{i - 1}", mc.width),
+            dot(stored(f"dacc{i}", mc.width),
+                w[:, enc:] if i in mc.skips else w))
+
+
+def heads_forced(packed, ws, n):
+    """The forward's (n, 4) output from the plain version's output heads
+    on the last trunk activation and the view activation that phase 1
+    stored for the same points: the forward kernel and phase 1's
+    recomputed forward run the same arithmetic, so their hidden
+    activations are the same bits, and this holds the forward at any depth
+    to one layer of summation order."""
+    import torch
+
+    net, mc = packed.net, packed.net.cfg
+    st = _Stored(packed, ws, n)
+    rgb = (st.dot(st.planes("v", mc.view_width), net.rgb_linear.weight.t())
+           + net.rgb_linear.bias.float())
+    sigma = (st.dot(st.planes(f"h{mc.depth - 1}", mc.width),
+                    net.sigma_linear.weight.t())
+             + net.sigma_linear.bias.float())
+    return torch.cat([rgb, sigma], -1)
+
+
+def check_phases(net, packed, pts, dirs, g, label, iters=10,
+                 plain_iters=3, forced=False):
     """Each kernel of the backward alone, against its plain version on the
     same inputs, and timed: phase 1's workspace (per matrix, relative L2
-    over the n rows), phase 2's partials on that workspace, the reduction
-    of those partials (bit-identical; beside part.sum(0), the library call
-    for the same function). Returns {"phase1", "phase2", "reduce"}
-    records, each with its bound from this run's shapes."""
+    over the n rows; ``forced``: against phase1_forced, each matrix from
+    the kernel's own operands, the end-to-end plain version's distance
+    printed beside it), phase 2's partials on that workspace, the
+    reduction of those partials (bit-identical; beside part.sum(0), the
+    library call for the same function). Returns {"phase1", "phase2",
+    "reduce"} records, each with its bound from this run's shapes."""
     import torch
 
     from nerfmlp_torch.ops import fused_mlp as fm
 
     n = pts.shape[0]
-    tile = packed.bwd_rows
-    rows = -(-n // tile) * tile
+    rows = fm.ws_rows(n, packed.bwd_rows)
     ws = torch.empty(rows * packed.ws_cols, device="cuda",
                      dtype=torch.bfloat16)
     fm.bwd_workspace(packed, pts, dirs, g, ws)
@@ -678,6 +830,21 @@ def check_phases(net, packed, pts, dirs, g, label):
         err1 = max(err1, float((a - b).abs().max()))
         worst = max(worst, (float((a - b).norm() / b.norm().clamp_min(1e-30)),
                             name))
+    del want_ws
+    free = None
+    if forced:
+        free, err1, worst = worst, 0.0, (0.0, "")
+        with torch.no_grad():
+            for m, (name, t) in enumerate(phase1_forced(packed, ws, pts,
+                                                        dirs, g)):
+                if name != packed.ws_mats[m][0]:
+                    raise SystemExit(f"[backward] {label}: phase 1's "
+                                     f"matrices out of order at {name}")
+                a = fm.ws_matrix(packed, ws, m)[0, :n, :t.shape[1]].float()
+                b = t.to(torch.bfloat16).float()
+                err1 = max(err1, float((a - b).abs().max()))
+                worst = max(worst, (float((a - b).norm()
+                                          / b.norm().clamp_min(1e-30)), name))
     splits, split_rows = fm.bwd_splits(rows)
     total = packed.grad_total
     part = torch.empty((splits, fm.part_stride(total)), device="cuda")
@@ -688,24 +855,28 @@ def check_phases(net, packed, pts, dirs, g, label):
     red = fm.reduce_partials(part, total)
     err3 = float((red - fm.reduce_partials_plain(part, total)).abs().max())
     torch.cuda.synchronize()
+    warm = plain_iters - 1
     recs = {
         "phase1": {"max_abs_err": err1, "rel_l2": worst[0],
+                   "rel_l2_end_to_end": free and free[0],
                    "ms": cuda_ms(lambda: fm.bwd_workspace(
-                       packed, pts, dirs, g, ws), iters=10),
+                       packed, pts, dirs, g, ws), iters=iters),
                    "plain_ms": cuda_ms(lambda: fm.bwd_workspace_plain(
-                       packed, pts, dirs, g, rows), iters=3)},
+                       packed, pts, dirs, g, rows), iters=plain_iters,
+                       warmup=warm)},
         "phase2": {"max_abs_err": err2, "norm_err": norm2,
                    "ms": cuda_ms(lambda: fm.weight_grads(
-                       packed, ws, rows, split_rows, part), iters=10),
+                       packed, ws, rows, split_rows, part), iters=iters),
                    "plain_ms": cuda_ms(lambda: fm.weight_grads_plain(
-                       packed, ws, rows, split_rows), iters=3)},
+                       packed, ws, rows, split_rows), iters=plain_iters,
+                       warmup=warm)},
         "reduce": {"max_abs_err": err3,
                    "ms": cuda_ms(lambda: fm.reduce_partials(part, total),
-                                 iters=10),
+                                 iters=iters),
                    "plain_ms": cuda_ms(lambda: fm.reduce_partials_plain(
-                       part, total), iters=3),
+                       part, total), iters=plain_iters, warmup=warm),
                    "library_ms": cuda_ms(lambda: part[:, :total].sum(0),
-                                         iters=10)},
+                                         iters=iters)},
     }
     ws_bytes = rows * packed.ws_cols * 2
     in_bytes = (pts.numel() * 4 + g.numel() * 4
@@ -726,7 +897,11 @@ def check_phases(net, packed, pts, dirs, g, label):
     r1, r2, r3 = recs["phase1"], recs["phase2"], recs["reduce"]
     print(f"[backward] {label} phase 1 (recompute + dX -> {ws_bytes} B "
           f"workspace): rel-L2 {r1['rel_l2']:.3e} ({worst[1]}; tol "
-          f"{PHASE1_TOL}) kernel {r1['ms']:.3f} ms plain {r1['plain_ms']:.3f} "
+          f"{PHASE1_TOL}"
+          + (f"; each matrix from the kernel's own operands, the plain "
+             f"version end to end {free[0]:.3e} ({free[1]})" if forced
+             else "")
+          + f") kernel {r1['ms']:.3f} ms plain {r1['plain_ms']:.3f} "
           f"ms bound {r1['bound_ms']:.3f} ms ({r1['bound_by']})")
     print(f"[backward] {label} phase 2 (dW, db: {len(packed.bwd_jobs)} jobs x "
           f"{splits} splits of {split_rows} rows): normalised "
@@ -2721,15 +2896,16 @@ def ms_cotangent(nets, pts, dirs, cfg, n_s, hi_lo):
 
 
 def check_stack(nets, cfg, n_samples, label, card, hi_lo=False,
-                tag="multi_scene"):
+                tag="multi_scene", forced=False):
     """The four kernels over a scene axis at one call of the multi-scene
     step (S = len(nets) x points of 1024 rays x ``n_samples``): the
     stacked launch against S single-scene launches of the same work, bit
     for bit, and against the stacked plain version at the single-scene
     bars; timed beside the single-scene launches, the plain version and
     (forward) the use_kernel=False module path; each with its bound at S x
-    n_s points. Returns {"fwd", "phase1", "phase2", "reduce", "bwd"}
-    records."""
+    n_s points (``forced``, deep nets: phase 1 held matrix by matrix to
+    phase1_forced on each scene's single-scene workspace). Returns {"fwd",
+    "phase1", "phase2", "reduce", "bwd"} records."""
     import torch
 
     from nerfmlp_torch.ops import fused_mlp as fm
@@ -2797,8 +2973,7 @@ def check_stack(nets, cfg, n_samples, label, card, hi_lo=False,
                          "disagrees")
 
     # Phase 1, phase 2 and the reduction, each alone.
-    tile = stack.bwd_rows
-    rows_s = -(-n_s // tile) * tile
+    rows_s = fm.ws_rows(n_s, stack.bwd_rows)
     ws = torch.empty(scenes * rows_s * stack.ws_cols, device="cuda",
                      dtype=torch.bfloat16)
     fm.bwd_workspace(stack, pts, dirs, g, ws)
@@ -2819,6 +2994,16 @@ def check_stack(nets, cfg, n_samples, label, card, hi_lo=False,
         err1 = max(err1, float((a - b).abs().max()))
         rel1 = max(rel1, float((a - b).norm() / b.norm().clamp_min(1e-30)))
     del want_ws
+    free1 = rel1
+    if forced:
+        rel1 = 0.0
+        with torch.no_grad():
+            for p, w, a_, d, gg in zip(solos, ws1, sp, sd, sg):
+                for m, (name, t) in enumerate(phase1_forced(p, w, a_, d, gg)):
+                    a = fm.ws_matrix(p, w, m)[0, :n_s, :t.shape[1]].float()
+                    b = t.to(torch.bfloat16).float()
+                    rel1 = max(rel1, float((a - b).norm()
+                                           / b.norm().clamp_min(1e-30)))
     splits, split_rows = fm.bwd_splits(rows_s)
     total = stack.grad_total
     part = torch.empty((scenes, splits, fm.part_stride(total)),
@@ -2879,7 +3064,10 @@ def check_stack(nets, cfg, n_samples, label, card, hi_lo=False,
     r1, r2, r3 = recs["phase1"], recs["phase2"], recs["reduce"]
     print(f"[{tag}] {label} phase 1 ({ws_bytes} B workspace): "
           f"bit-equal to single-scene launches: {same1}; rel-L2 {rel1:.3e} "
-          f"(tol {PHASE1_TOL}); kernel {r1['ms']:.3f} ms, single-scene "
+          f"(tol {PHASE1_TOL}"
+          + (f"; each matrix from its own operands, the plain version end "
+             f"to end {free1:.3e}" if forced else "")
+          + f"); kernel {r1['ms']:.3f} ms, single-scene "
           f"{r1['solo_ms']:.3f} ms, plain {r1['plain_ms']:.3f} ms; bound "
           f"{r1['bound_ms']:.3f} ms ({r1['bound_by']}) [{card}]")
     print(f"[{tag}] {label} phase 2 ({len(stack.bwd_jobs)} jobs x "
@@ -4908,6 +5096,257 @@ def phase_wide(card):
     return recs
 
 
+# --------------------------------------------------------------------- #
+# Phase 17: the fused MLP kernels on the deep nets the JAX package runs
+# through Pallas ("deep")
+# --------------------------------------------------------------------- #
+# (depth, width, hi_lo) at CLI shapes: to JAX's deepest at widths 256 (bf16
+# 54, hi_lo 43), 128 (177), 64 (509) and 16 (866, hi_lo 600), and past the
+# old tables at 320 and 384. Phase 1: 64-point tiles at 32x256, 32-point
+# ones elsewhere; 866x16 keeps its tables in device memory.
+DEEP_NETS = ((32, 256, False), (54, 256, False), (43, 256, True),
+             (26, 384, False), (36, 320, False), (177, 128, False),
+             (509, 64, False), (866, 16, False), (600, 16, True))
+DEEP_TRAIN = 32                    # --netdepth of the train CLI runs
+DEEP_SCENES = 2                    # the stacked call's scenes, at 32x256
+DEEP_ITERS, DEEP_PLAIN_ITERS = 5, 1   # timed runs: kernels, plain versions
+DEEP_GAIN, DEEP_BIAS = 0.7, 0.3    # deep_net's trunk weight scale, bias std
+
+
+def deep_net(cfg, seed):
+    """A random net of ``cfg``'s shape from ``seed`` whose deep trunk keeps
+    its activations alive and lets a rounding difference fade: lecun-normal
+    weights as initialised, the trunk's scaled by DEEP_GAIN, and every bias
+    drawn from N(0, DEEP_BIAS^2), as a trained net's biases are not zero.
+    With zero biases the activations shrink ~1.4x a layer (exact zeros
+    past ~300 layers at width 64), so kernel and plain would agree
+    trivially; weights scaled to hold them at gain 1 carry each layer's
+    summation-order difference on to the output."""
+    import torch
+
+    from nerfmlp_torch.models.mlp import init_model
+
+    net = init_model(cfg.model_config(), seed=seed, device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for lin in net.pts_linears:
+            lin.weight.mul_(DEEP_GAIN)
+        for m in net.modules():
+            if isinstance(m, torch.nn.Linear):
+                m.bias.copy_(DEEP_BIAS * torch.randn(m.bias.shape,
+                                                     generator=gen))
+    return net.cuda()
+
+
+def deep_check(depth, width, hi_lo, pts, dirs, card):
+    """One deep net (CLI shapes, deep_net's weights from the seed) at the
+    train fine call's points: the forward (twice, bit-identical) and the
+    backward's three kernels against their plain versions, alone (on the
+    call's first chunk, the points phase 1 and phase 2 take at once) and
+    the backward whole (repeat bit-identical), at the wide phase's bars;
+    beside each kernel's time its bound and the module path on the same
+    call. A plain version run end to end parts from the kernels with
+    depth (each layer's summation order flips a rounding or a ReLU mask,
+    and the dX chain carries the flips on undamped), so a deep net is held
+    layer by layer: phase 1's matrices to phase1_forced, the forward's
+    output to heads_forced on phase 1's activations of the same points;
+    the end-to-end distances are printed beside. Then one differentiated
+    call through fused_nerf_mlp, the train step's entry, with the launch
+    counts set to 0 just before: its launches of each kernel. Returns
+    {"fwd", "bwd", "phase1", "phase2", "reduce", "launches"}."""
+    import torch
+
+    from nerfmlp_torch.ops import fused_mlp
+    from nerfmlp_torch.ops.encoding import positional_encoding
+
+    cfg = dataclasses.replace(slice_config(), depth=depth, width=width)
+    mc = cfg.model_config()
+    lay = fused_mlp._bwd_layout(mc, True, hi_lo)
+    flay = fused_mlp._fwd_layout(mc, True, hi_lo)
+    chunk = fused_mlp.bwd_chunk_rows(mc, True, hi_lo)
+    label = f"{depth}x{width}{' hi_lo' if hi_lo else ''}"
+    tables = ("shared" if lay.prog_ints > fused_mlp.BWD_TABLES_BASE
+              else "device")
+    print(f"[deep] {label} budget: forward {flay.rows}-point tiles, "
+          f"{flay.stages} stages, {flay.smem} B; phase 1 {lay.rows}-point "
+          f"tiles, {lay.stages} stages, {lay.smem} B "
+          f"({lay.ring_off - lay.mask_off} B of masks, tables in {tables} "
+          f"memory), {fused_mlp.backward_counts(mc, True)} (operations, "
+          f"matrices), {fused_mlp.bwd_scratch_bytes(mc, True, hi_lo)} B of "
+          f"workspace a point, chunks of {chunk} points; fits "
+          f"{fused_mlp.kernel_fits(mc, True, hi_lo)} / "
+          f"{fused_mlp.backward_fits(mc, True, hi_lo)}")
+    net = deep_net(cfg, SEED + depth + width)
+    fwd = check_kernel(net, cfg, pts, dirs, f"deep {label}", time_it=True,
+                       hi_lo=hi_lo, iters=DEEP_ITERS,
+                       plain_iters=DEEP_PLAIN_ITERS, held=False)
+    kcfg = (dataclasses.replace(cfg, compute_dtype="float32",
+                                fp32_precision="high") if hi_lo else cfg)
+    packed = fused_mlp.pack_params(net, cfg.pos_enc_L, True, hi_lo)
+    m = min(pts.shape[0], chunk)
+    ws = torch.empty(fused_mlp.ws_rows(m, packed.bwd_rows) * packed.ws_cols,
+                     device="cuda", dtype=torch.bfloat16)
+    fused_mlp.bwd_workspace(packed, pts[:m], dirs[:m],
+                            torch.zeros((m, 4), device="cuda"), ws)
+    with torch.no_grad():
+        out = fused_mlp.fused_nerf_mlp(packed, pts, dirs, kcfg)
+        same = torch.equal(out, fused_mlp.fused_nerf_mlp(packed, pts, dirs,
+                                                         kcfg))
+        want = heads_forced(packed, ws, m)
+    err = float((out[:m] - want).abs().max())
+    fwd.update(end_to_end_norm_err=fwd["norm_err"],
+               end_to_end_max_abs_err=fwd["max_abs_err"], max_abs_err=err,
+               norm_err=err / max(float(want.abs().max()), 1e-12))
+    ftol = HI_LO_TOL if hi_lo else KERNEL_TOL
+    print(f"[deep] {label} forward, on phase 1's activations of the first "
+          f"{m} points: max|err| {err:.3e} normalised {fwd['norm_err']:.3e} "
+          f"(tol {ftol}); end to end {fwd['end_to_end_norm_err']:.3e}; "
+          f"repeat bit-identical: {same}")
+    if not (same and fwd["norm_err"] <= ftol):
+        raise SystemExit(f"[deep] {label}: the forward disagrees with its "
+                         f"plain heads, or two runs differ")
+    del packed, ws, out, want
+    bwd, phases = check_backward(net, cfg, pts, dirs, f"deep {label}",
+                                 time_it=True, hi_lo=hi_lo,
+                                 iters=DEEP_ITERS,
+                                 plain_iters=DEEP_PLAIN_ITERS,
+                                 phase_rows=chunk)
+    dt = torch.float32 if hi_lo else torch.bfloat16
+    params = list(net.parameters())
+    out = net(positional_encoding(pts, cfg.pos_enc_L), dirs, compute_dtype=dt)
+    g = torch.ones_like(out)
+    bwd["module_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        out, params, g, retain_graph=True), iters=DEEP_ITERS)
+    del out, g
+    counters = (fused_mlp.fused_nerf_mlp, fused_mlp.bwd_workspace,
+                fused_mlp.weight_grads, fused_mlp.reduce_partials)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    (fused_mlp.fused_nerf_mlp(net, pts, dirs, kcfg) ** 2).mean().backward()
+    torch.cuda.synchronize()
+    launches = [c.launches for c in counters]
+    chunks = -(-pts.shape[0] // chunk)
+    if launches != [1, chunks, chunks, 1] or not all(
+            torch.isfinite(p.grad).all() for p in params):
+        raise SystemExit(f"[deep] {label}: the differentiated call launched "
+                         f"{launches}, want [1, {chunks}, {chunks}, 1]")
+    print(f"[deep] {label}: forward {fwd['ms']:.3f} ms (bound "
+          f"{fwd['bound_ms']:.3f}, plain {fwd['plain_ms']:.3f}, module path "
+          f"{fwd['module_ms']:.3f}), repeat bit-identical; backward "
+          f"{bwd['ms']:.3f} ms (bound {bwd['bound_ms']:.3f}, plain "
+          f"{bwd['plain_ms']:.3f}, autograd through the module "
+          f"{bwd['module_bwd_ms']:.3f}): phase 1 "
+          f"{phases['phase1']['ms']:.3f} (bound "
+          f"{phases['phase1']['bound_ms']:.3f}), phase 2 "
+          f"{phases['phase2']['ms']:.3f} (bound "
+          f"{phases['phase2']['bound_ms']:.3f}), reduction "
+          f"{phases['reduce']['ms']:.4f} (bound "
+          f"{phases['reduce']['bound_ms']:.4f}) on a chunk of "
+          f"{min(chunk, pts.shape[0])} points; a differentiated call "
+          f"launched {launches} | {card}")
+    del net, params
+    torch.cuda.empty_cache()
+    return {"fwd": fwd, "bwd": bwd, **phases, "launches": launches}
+
+
+def deep_train(scene, card):
+    """The train CLI at --netdepth DEEP_TRAIN (width 256) for TRAIN_STEPS
+    steps on the synthetic scene, through the kernels and with
+    --no_kernel: exactly 2 launches of each of the four kernels a step
+    (none on the plain run), the held-out PSNRs within PSNR_GAP of each
+    other. (The CLI's lecun-normal trunk with zero biases shrinks its
+    activations ~1e4 by layer 32, on both paths alike, so this run shows
+    the kernels on the train path, not a trained net: the deep kernels'
+    gradients are held in deep_check.) Returns the kernel run's
+    launches."""
+    root = os.path.join(SMOKE_DIR, "deep", str(DEEP_TRAIN))
+    shutil.rmtree(root, ignore_errors=True)
+    runs = {}
+    for name, extra in (("kernel", []), ("plain", ["--no_kernel"])):
+        argv = ["--datadir", scene, "--img_wh", str(TRAIN_WH), str(TRAIN_WH),
+                "--iters", str(TRAIN_STEPS), "--netdepth", str(DEEP_TRAIN),
+                "--quick_val_interval", str(TRAIN_STEPS // 2),
+                "--quick_val_res", str(TRAIN_WH), str(TRAIN_WH),
+                "--save_dir", os.path.join(root, name), *extra]
+        runs[name] = train_cli_run(f"deep {DEEP_TRAIN} {name}", argv,
+                                   TRAIN_STEPS)
+    metrics, launches, step_fwd, wall, _ = runs["kernel"]
+    plain_metrics, plain_launches = runs["plain"][:2]
+    psnr = metrics["final_val"]["psnr"]
+    plain = plain_metrics["final_val"]["psnr"]
+    want = 2 * TRAIN_STEPS
+    print(f"[deep] --netdepth {DEEP_TRAIN}: {TRAIN_STEPS} steps, "
+          f"{1e3 * wall / TRAIN_STEPS:.2f} ms a step (--no_kernel "
+          f"{1e3 * runs['plain'][3] / TRAIN_STEPS:.2f}); held-out PSNR "
+          f"{psnr:.2f} dB vs --no_kernel {plain:.2f} dB (gap {PSNR_GAP}); "
+          f"step launches {step_fwd} forward, {launches[1:]} backward (want "
+          f"{want} each); --no_kernel {plain_launches} | {card}")
+    if not (step_fwd == want and launches[1:] == [want] * 3
+            and plain_launches == [0, 0, 0, 0]
+            and abs(psnr - plain) <= PSNR_GAP):
+        raise SystemExit(f"[deep] the --netdepth {DEEP_TRAIN} train CLI runs "
+                         "failed their checks")
+    return [step_fwd, *launches[1:]]
+
+
+def phase_deep(card):
+    """The fused MLP kernels on the deep nets the JAX package runs through
+    Pallas (the module docstring, phase 17). Returns the kernels' records:
+    path deep (the --netdepth 32 train run's launches) for each net."""
+    import torch
+
+    t0 = time.perf_counter()
+    cfg = slice_config()
+    pts, dirs = serving_points(cfg.N_importance, cfg, n_rays=TRAIN_RAYS)
+    checks = {net: deep_check(*net, pts, dirs, card) for net in DEEP_NETS}
+    t1 = time.perf_counter()
+    scene = os.path.join(SMOKE_DIR, "scene")
+    if not os.path.exists(os.path.join(scene, "transforms_train.json")):
+        make_scene()
+    launches = deep_train(scene, card)
+    t2 = time.perf_counter()
+    dcfg = dataclasses.replace(cfg, depth=DEEP_TRAIN)
+    nets = [deep_net(dcfg, SEED + s) for s in range(DEEP_SCENES)]
+    check_stack(nets, dcfg, cfg.N_samples, f"{DEEP_TRAIN}x256", card,
+                tag="deep", forced=True)
+    del nets, pts, dirs
+    torch.cuda.empty_cache()
+    print(f"[deep] phase took {time.perf_counter() - t0:.1f} s (kernels "
+          f"{t1 - t0:.1f}, train {t2 - t1:.1f}, stack "
+          f"{time.perf_counter() - t2:.1f})")
+    recs = []
+    for (depth, width, hi_lo), c in checks.items():
+        tag = f"{depth}x{width}{'_hi_lo' if hi_lo else ''}"
+        # The --netdepth 32 run's launches (its own net), else those of the
+        # net's differentiated call through fused_nerf_mlp.
+        for (name, source, replaces), key, n in zip(
+                (("fused_mlp_fwd", "fused_mlp_fwd.cu", "pallas_mlp.py:264"),
+                 ("fused_mlp_bwd_phase1", "fused_mlp_bwd.cu",
+                  "pallas_mlp.py:312"),
+                 ("fused_mlp_bwd_phase2", "fused_mlp_bwd.cu",
+                  "pallas_mlp.py:386"),
+                 ("fused_mlp_bwd_reduce", "fused_mlp_bwd.cu",
+                  "pallas_mlp.py:327")),
+                ("fwd", "phase1", "phase2", "reduce"),
+                launches if (depth, width, hi_lo) == (DEEP_TRAIN, 256, False)
+                else c["launches"]):
+            r = c[key]
+            rec = {"name": f"{name}_deep_{tag}", "path": "deep",
+                   "route": "cuda", "source": "nerfmlp_torch/csrc/" + source,
+                   "replaces": "nerfmlp_tpu/ops/" + replaces, "launches": n,
+                   "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                   "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                   "bound_by": r["bound_by"],
+                   "library_ms": r.get("library_ms")}
+            if key == "fwd":
+                rec["module_ms"] = r["module_ms"]
+            elif key == "phase1":
+                rec["module_bwd_ms"] = c["bwd"]["module_bwd_ms"]
+            recs.append(rec)
+    return recs
+
+
 def smi_line():
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -4975,6 +5414,12 @@ def main():
         print(json.dumps({"kernels": phase_wide(card)}))
         print(card)
         return 0
+    if sys.argv[1:] == ["--only", "deep"]:
+        # Phase 17 alone.
+        card = smi_line()
+        print(json.dumps({"kernels": phase_deep(card)}))
+        print(card)
+        return 0
     if sys.argv[1:] == ["--only", "multi_scene"]:
         # Phase 11 alone, after the single-scene run it is held against.
         train_ds, val_ds = make_scene()
@@ -5010,6 +5455,7 @@ def main():
     jpeg_recs = phase_jpeg(llff["psnr"], card)
     finish_recs = phase_finish(train_run, turbo_ckpt, card)
     wide_recs = phase_wide(card)
+    deep_recs = phase_deep(card)
 
     # The forward runs on both paths, at different shapes: one record per
     # path, each with that path's launches and its fine call's times, and
@@ -5193,6 +5639,10 @@ def main():
     # 512 train CLI run (path wide) and the 8x384 hi_lo run (wide_hi_lo),
     # timed at the train fine call on random weights of the same shape.
     kernels += wide_recs
+    # The deep nets (phase 17): each kernel's launches in the --netdepth 32
+    # train CLI run (path deep, 32x256) or in one differentiated call of
+    # each other deep net, timed at the train fine call.
+    kernels += deep_recs
     for rec in bwds + [occ["bwd probe"], occ["bwd refine"], occ["bwd hi_lo"],
                        llff["bwd"]]:
         print(f"[backward] {rec['label']} call, all three kernels: "

@@ -65,7 +65,18 @@
 //     one block per column pass of each ReLU layer: a thread holds the
 //     same (row, column) positions in every pass, so it writes its bits in
 //     the forward epilogue and reads them back in the dX epilogue, with no
-//     other thread involved.
+//     other thread involved. A block holds the words of the warps whose
+//     columns its pass reaches, so a 16-wide layer of a deep narrow net
+//     (866x16 at 32-point tiles: 128 B a layer) does not take a 256-wide
+//     pass's room; a net 256 or more wide keeps every warp's words.
+//   * A deep net's program (866x16: 1,737 operations, 1,740 workspace
+//     matrices, 125 KB) can crowd the masks and buffers out of shared
+//     memory. Where it does, only the header and buffer table are copied
+//     there, and the matrix and operation tables are read from device
+//     memory: every thread reads the same record, once an operation, so
+//     one broadcast load through L1 serves the block. A template flag
+//     picks where the tables are, so a program that fits shared memory
+//     keeps its loads from there.
 //   * Every stored activation and every rounded cotangent is copied once,
 //     16 B per thread, into a row-major (rows, width) workspace matrix,
 //     each pass its own columns.
@@ -90,7 +101,8 @@
 // The network arrives as a program built by the Python wrapper
 // (nerfmlp_torch/ops/fused_mlp.py, pack_params): a header, a shared-memory
 // buffer table, a workspace matrix table, one record per phase-1 operation
-// (forward layer, dX, load of the cotangent) and phase 2's job list. Every
+// (forward layer, dX, load of the cotangent) and phase 2's job list, each
+// table sized by the net (any depth), at the bases the header gives. Every
 // width is padded to a multiple of 16 with zeros, so padding adds exactly
 // zero. Rows at or past n load a zero cotangent, so they contribute nothing.
 //
@@ -99,10 +111,11 @@
 // architecture, scene s with its own weights and biases (at s times a
 // stride), its own n points, dirs and cotangent rows (scene-major, at s *
 // n), its own workspace rows and its own partial slots.
-//   * Phase 1 walks S * ceil(n / T) tiles, none straddling two scenes; tile
-//     t is workspace rows t * T on, so scene s's rows start at s * rows_s,
-//     rows_s = n rounded up to the tile. The fetch stream keeps the scene
-//     of the tile it fetches for.
+//   * Phase 1 walks S * rows_s / T tiles, none straddling two scenes, rows_s
+//     = n rounded up to the tile and to phase 2's 64-row stage
+//     (scene_rows); tile t is workspace rows t * T on, so scene s's rows
+//     start at s * rows_s. The fetch stream keeps the scene of the tile it
+//     fetches for.
 //   * Phase 2's blocks are (job, split, scene): scene s's splits cover its
 //     rows_s rows only, and write slot block s of the partials.
 //   * The reduction sums each scene's slots (grid y: the scene) in the order
@@ -124,12 +137,12 @@ constexpr int kP1Threads = 512;   // phase 1: 16 warps (mlp_tile.cuh's WarpGrid)
 constexpr int kMaxN = 256;        // output columns of one phase-1 pass
 constexpr int kHeaderInts = 32;
 constexpr int kMaxBufs = 8;       // shared-memory buffers: offset, ld, cols
-constexpr int kMaxMats = 64;      // workspace matrices: column offset, cols
 constexpr int kOpInts = 16;
-constexpr int kMaxOps = 96;
 constexpr int kBufsBase = kHeaderInts;
-constexpr int kMatsBase = kBufsBase + 3 * kMaxBufs;
-constexpr int kOpsBase = kMatsBase + 2 * kMaxMats;
+// The matrix table (column offset, cols per workspace matrix) and the
+// operation table follow the buffer table, sized by the net: the header
+// holds their bases and counts.
+constexpr int kTablesBase = kBufsBase + 3 * kMaxBufs;
 constexpr int kTileK = 128;       // phase 2: dW rows per block
 constexpr int kTileN = 128;       // phase 2: dW columns per block
 constexpr int kStageRows = 64;    // phase 2: points per ring stage
@@ -145,7 +158,7 @@ enum Header {
   hNOps = 0, hProgLen, hNFreqs, hEncDim, hDirsDim, hGCols, hGrCols,
   hXBuf, hDBuf, hGrBuf, hGsBuf, hXMat, hDMat, hGrMat, hGsMat,
   hStages, hRingOff, hStageElems, hMaskOff, hSmem, hWsCols, hJobsOff,
-  hNJobs, hRows
+  hNJobs, hRows, hMatsBase, hOpsBase, hNMats
 };
 
 // Operation record fields. An operation is one pass of n <= kMaxN output
@@ -159,12 +172,17 @@ enum Header {
 //          col.. of a (wld, k_a) weight block (wA points at row col; lo
 //          plane k_a * wld further on); maskIn: a mask block, or -1
 //   kLoadG: the cotangent into buffers GR / GS and their matrices
-// dst's pass is then copied into workspace matrix `mat` (if >= 0). Each
-// ReLU layer's mask slot has one block per column pass (the wrapper
-// numbers them), so a layer up to 256 wide has block = slot.
+// dst's pass is then copied into workspace matrix `mat` (if >= 0). A mask
+// block (maskIn / maskOut: its first mask word, or -1) holds the bits of
+// one column pass of a ReLU layer for the warps of its first maskCg column
+// groups (mlp_tile.cuh's WarpGrid), whose columns the pass reaches: warp
+// (row group rg, column group cg < maskCg) keeps word
+// ((mt * kRG + rg) * maskCg + cg) * 32 + lane of the block. The wrapper
+// lays the blocks out, each sized by its pass's columns (a net 256 or
+// more wide takes every column group in every pass).
 enum Field {
   fOp = 0, fSrcA, fWA, fKA, fSrcB, fWB, fKB, fBias, fN, fMaskIn, fDst,
-  fMat, fMaskOut, fCol, fWLd
+  fMat, fMaskOut, fCol, fWLd, fMaskCg
 };
 
 // Job record fields (phase 2): the tile [k0, k0 + kc) x [n0, n0 + nc) of
@@ -188,13 +206,22 @@ __device__ __forceinline__ void put2(bf16* s, int s_plane, bf16* w,
   }
 }
 
+// A scene's workspace rows: its n points rounded up to the tile of T
+// points and to phase 2's stage of kStageRows rows (tiles of 32 and 16
+// points fill the rows up to a stage with points past n, which are zero).
+__host__ __device__ inline int scene_rows(int n, int t) {
+  const int step = t > kStageRows ? t : kStageRows;
+  return (n + step - 1) / step * step;
+}
+
 // One thread per 16-byte chunk of a weight slab: 16 rows of up to 32
 // chunks (forward), or up to 256 rows of 2 chunks (dX).
 static_assert(16 * (kMaxN / 8) <= kP1Threads && 2 * kMaxN <= kP1Threads,
               "a slab must take at most one chunk per thread");
 
-// Phase 1 over tiles of T points (mlp_tile.cuh's WarpGrid<T>).
-template <bool kHiLo, int T>
+// Phase 1 over tiles of T points (mlp_tile.cuh's WarpGrid<T>), its matrix
+// and operation tables in shared memory (kSharedTables) or device memory.
+template <bool kHiLo, int T, bool kSharedTables>
 __global__ void __launch_bounds__(kP1Threads, 1)
 bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
                   const float* __restrict__ g, const bf16* __restrict__ weights,
@@ -208,16 +235,22 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
   constexpr int NT = G::kNT;
   constexpr int kThreads = kP1Threads;
   extern __shared__ __align__(128) unsigned char smem[];
+  // The program's first prog_len ints: the header and buffer table, and
+  // with kSharedTables the matrix and operation tables (else those are read
+  // from device memory, where every thread reads the same record: one
+  // broadcast load through L1).
   int* prog = reinterpret_cast<int*>(smem);
   for (int i = threadIdx.x; i < prog_len; i += kThreads) prog[i] = prog_in[i];
   __syncthreads();
+  const int* tables = kSharedTables ? prog : prog_in;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rb = (warp / G::kCG) * MT * 16;  // the warp's first row
-  const int cb = (warp % G::kCG) * G::kWN;   // ... and first column of a pass
+  const int rg = warp / G::kCG, cg = warp % G::kCG;  // the warp's place
+  const int rb = rg * MT * 16;  // the warp's first row
+  const int cb = cg * G::kWN;   // ... and first column of a pass
   const int* bufs = prog + kBufsBase;
-  const int* mats = prog + kMatsBase;
-  const int* ops = prog + kOpsBase;
+  const int* mats = tables + prog[hMatsBase];
+  const int* ops = tables + prog[hOpsBase];
   const int n_ops = prog[hNOps];
   const int stages = prog[hStages];
   const int half = prog[hStageElems];  // a slab's lo plane follows its hi
@@ -232,7 +265,7 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
     const int* o = ops + oi * kOpInts;
     return o[fOp] == kLoadG ? 0 : (o[fKA] + o[fKB]) / 16;
   };
-  const int tiles_per_scene = (n + T - 1) / T;
+  const int tiles_per_scene = scene_rows(n, T) / T;
 
   // The slab stream: every operation's 16-row k-slabs in program order,
   // tile after tile. Forward: rows k0..k0+15 of the pass's columns of W
@@ -440,12 +473,17 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
         const int dst = o[fDst], ldd = bld(dst), col0 = o[fCol];
         bf16* d = bufp(dst) + col0;
         const int mask_in = o[fMaskIn], mask_out = o[fMaskOut];
+        // The mask block's column groups: a warp past them has no columns
+        // in the pass, and no words in the block.
+        const int mask_cg = o[fMaskCg];
+        const bool mask_mine = cg < mask_cg;
         const float* bias = bias_s + o[fBias];
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
+          const int word = ((mt * G::kRG + rg) * mask_cg + cg) * 32 + lane;
           const uint32_t bits_in =
-              (op == kDx && mask_in >= 0)
-                  ? masks[(mask_in * MT + mt) * kThreads + tid]
+              (op == kDx && mask_in >= 0 && mask_mine)
+                  ? masks[mask_in + word]
                   : 0xffffffffu;
           uint32_t bits_out = 0;
 #pragma unroll
@@ -487,8 +525,8 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
               }
             }
           }
-          if (mask_out >= 0)
-            masks[(mask_out * MT + mt) * kThreads + tid] = static_cast<Mask>(bits_out);
+          if (mask_out >= 0 && mask_mine)
+            masks[mask_out + word] = static_cast<Mask>(bits_out);
         }
       }
       __syncthreads();
@@ -533,7 +571,7 @@ bwd_phase2_kernel(const bf16* __restrict__ ws, long long rows_cap,
   const int job = blockIdx.x % n_jobs, split = (blockIdx.x / n_jobs) % splits;
   const int scene = blockIdx.x / n_jobs / splits;
   const int* jb = jobs + job * kJobInts;
-  const int* mats = prog + kMatsBase;
+  const int* mats = prog + prog[hMatsBase];
   const int am = jb[jA], ym = jb[jY];
   const int k0 = jb[jK0], kc = jb[jKc], n0 = jb[jN0], nc = jb[jNc];
   const int ac = mats[2 * am + 1], yc = mats[2 * ym + 1];
@@ -714,19 +752,20 @@ reduce_partials_kernel(const float* __restrict__ part, int slots,
   }
 }
 
-template <bool kHiLo, int T>
+template <bool kHiLo, int T, bool kSharedTables>
 cudaError_t launch_phase1(const float* pts, const void* dirs, const float* g,
                           const bf16* weights, const float* biases,
                           const int* prog, int prog_len, int n,
                           int n_scenes, long long w_stride, int b_stride,
                           int grid, int smem, bf16* ws, long long rows_cap,
                           cudaStream_t stream) {
-  const int n_tiles = n_scenes * ((n + T - 1) / T);
+  const int n_tiles = n_scenes * (scene_rows(n, T) / T);
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_phase1_kernel<kHiLo, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      bwd_phase1_kernel<kHiLo, T, kSharedTables>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  bwd_phase1_kernel<kHiLo, T><<<grid, kP1Threads, smem, stream>>>(
+  bwd_phase1_kernel<kHiLo, T, kSharedTables><<<grid, kP1Threads, smem,
+                                              stream>>>(
       pts, dirs, g, weights, biases, prog, prog_len, n, n_tiles, ws, rows_cap,
       w_stride, b_stride);
   return cudaGetLastError();
@@ -756,11 +795,12 @@ extern "C" {
 
 // The kernels' fixed shape, for the wrapper to check against its own.
 int fused_mlp_bwd_constants(int* out, int len) {
-  // ... then phase 1's tile sizes: bf16, then hi_lo, in the order tried.
+  // ... then phase 1's tile sizes: bf16, then hi_lo, in the order tried;
+  // then the largest tile built with its tables in device memory.
   const int c[] = {kThreads,   kPad,        kMaxN,      kHeaderInts,
-                   kMaxBufs,   kMaxMats,    kOpInts,    kMaxOps,
-                   kTileK,     kTileN,      kStageRows, kStages2,
-                   kJobInts,   kP1Threads,  128, 64, 32, 64, 32, 16};
+                   kMaxBufs,   kOpInts,     kTileK,     kTileN,
+                   kStageRows, kStages2,    kJobInts,   kP1Threads,
+                   128, 64, 32, 64, 32, 16, 32};
   const int count = static_cast<int>(sizeof(c) / sizeof(c[0]));
   for (int i = 0; i < len && i < count; ++i) out[i] = c[i];
   return count;
@@ -775,22 +815,24 @@ const char* fused_mlp_bwd_error_string(int code) {
 // hi_lo mode) or null; g (n_scenes * n, g_cols) fp32; weights bf16 and
 // biases fp32 as packed for the forward, scene s's at s * w_stride and
 // s * b_stride elements; prog (device, int32): the program, whose first
-// prog_len ints go to shared memory; rows: the program's points per tile
-// (128, 64 or 32; hi_lo 64, 32 or 16), which picks the kernel; smem: the
-// program's shared-memory bytes; ws: the workspace, rows_cap rows per
-// matrix (>= n_scenes times n rounded up to the tile; scene s's from s
-// times that). Launches `grid` persistent blocks on `stream`, does not
-// synchronise, allocates nothing; returns cudaGetLastError().
+// prog_len ints go to shared memory: through the operation table, or the
+// header and buffer table alone; rows: the program's points per tile (128,
+// 64 or 32; hi_lo 64, 32 or 16), which with prog_len picks the kernel
+// (tables in device memory: 32, hi_lo 32 or 16); smem: the program's
+// shared-memory bytes; ws: the
+// workspace, rows_cap rows per matrix (>= n_scenes times scene_rows(n,
+// rows); scene s's from s times that). Launches `grid` persistent blocks
+// on `stream`, does not synchronise, allocates nothing; returns
+// cudaGetLastError().
 int fused_mlp_bwd_phase1(const void* pts, const void* dirs, const void* g,
                          const void* weights, const void* biases,
                          const void* prog, int prog_len, int hi_lo, int rows,
                          int n, int n_scenes, long long w_stride,
                          int b_stride, int grid, int smem, void* ws,
                          long long rows_cap, void* stream) {
-  if (prog_len < kOpsBase || grid <= 0 || n_scenes <= 0 || w_stride % 8 ||
-      b_stride < 0 || rows <= 0 ||
-      rows_cap < static_cast<long long>(n_scenes) * ((n + rows - 1) / rows) *
-                     rows)
+  if (prog_len < kTablesBase || grid <= 0 || n_scenes <= 0 ||
+      w_stride % 8 || b_stride < 0 || rows <= 0 ||
+      rows_cap < static_cast<long long>(n_scenes) * scene_rows(n, rows))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaSuccess);
   const auto* p = static_cast<const float*>(pts);
@@ -800,17 +842,24 @@ int fused_mlp_bwd_phase1(const void* pts, const void* dirs, const void* g,
   const auto* pr = static_cast<const int*>(prog);
   auto* wsp = static_cast<bf16*>(ws);
   auto* s = static_cast<cudaStream_t>(stream);
-#define PHASE1(HI_LO, T)                                                     \
-  if (!!hi_lo == HI_LO && rows == T)                                         \
-    return static_cast<int>(launch_phase1<HI_LO, T>(                        \
+  // The tables stay in device memory only where the program ends at the
+  // buffer table, and only at tiles of 32 and 16 points: a program that
+  // crowds shared memory belongs to a net whose masks took the tile there.
+  const bool shared_tables = prog_len > kTablesBase;
+#define PHASE1(HI_LO, T, SHARED)                                             \
+  if (!!hi_lo == HI_LO && rows == T && shared_tables == SHARED)              \
+    return static_cast<int>(launch_phase1<HI_LO, T, SHARED>(                \
         p, dirs, gg, w, b, pr, prog_len, n, n_scenes, w_stride, b_stride,    \
         grid, smem, wsp, rows_cap, s));
-  PHASE1(false, 128)
-  PHASE1(false, 64)
-  PHASE1(false, 32)
-  PHASE1(true, 64)
-  PHASE1(true, 32)
-  PHASE1(true, 16)
+  PHASE1(false, 128, true)
+  PHASE1(false, 64, true)
+  PHASE1(false, 32, true)
+  PHASE1(true, 64, true)
+  PHASE1(true, 32, true)
+  PHASE1(true, 16, true)
+  PHASE1(false, 32, false)
+  PHASE1(true, 32, false)
+  PHASE1(true, 16, false)
 #undef PHASE1
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -71,9 +71,11 @@
 // (nerfmlp_torch/ops/fused_mlp.py, pack_params) and copied into shared
 // memory: a header, a table of the four buffers and one record per column
 // pass of each layer naming its operand buffers, weight blocks, bias,
-// width, epilogue and destination. Every dimension is padded to a multiple
-// of 16 with zero weights, zero biases and zero activations, so padding adds
-// exactly zero. Rows past n are zero on the way in and never written on the
+// width, epilogue and destination; its bytes are the only bound on depth
+// (866 layers: 55 KB, which a 128-point tile's buffers leave room for at
+// width 16). Every dimension is padded to a multiple of 16 with zero
+// weights, zero biases and zero activations, so padding adds exactly
+// zero. Rows past n are zero on the way in and never written on the
 // way out.
 //
 // A scene axis (the TPU kernel under jax.vmap, whose batching rule gives the

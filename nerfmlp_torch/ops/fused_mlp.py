@@ -74,21 +74,19 @@ FWD_HEADER_INTS = 16
 FWD_MAX_BUFS = 4        # X, D, P0, P1: (offset, ld, cols)
 FWD_OP_INTS = 16
 FWD_OPS_BASE = FWD_HEADER_INTS + 3 * FWD_MAX_BUFS
-MAX_LAYERS = 48         # layers of a program the forward admits
 SMEM_LIMIT = 232_448    # dynamic shared memory one Hopper block may use
 
-# The backward kernels' fixed shape (csrc/fused_mlp_bwd.cu).
+# The backward kernels' fixed shape (csrc/fused_mlp_bwd.cu). The matrix and
+# operation tables follow the buffer table, sized by the net (their bases
+# and counts are in the header).
 BWD_THREADS = 256      # phase 2 and the reduction
 BWD_P1_THREADS = 512   # phase 1: 16 warps over the tile and a column pass
 BWD_MAX_N = 256         # output columns of one phase-1 pass
 BWD_SLAB_K = 16         # weight rows per ring stage of phase 1
 BWD_HEADER_INTS = 32
 BWD_MAX_BUFS = 8        # shared-memory buffers (offset, ld, cols)
-BWD_MAX_MATS = 64       # workspace matrices (column offset, cols)
 BWD_OP_INTS = 16
-BWD_MAX_OPS = 96
-BWD_MATS_BASE = BWD_HEADER_INTS + 3 * BWD_MAX_BUFS
-BWD_OPS_BASE = BWD_MATS_BASE + 2 * BWD_MAX_MATS
+BWD_TABLES_BASE = BWD_HEADER_INTS + 3 * BWD_MAX_BUFS
 BWD_TILE_K = 128        # phase 2: dW rows per block
 BWD_TILE_N = 128        # phase 2: dW columns per block
 BWD_STAGE_ROWS = 64     # phase 2: points per ring stage
@@ -98,10 +96,21 @@ BWD_JOB_INTS = 10
 # holds two weight stages is taken (hi_lo: two bf16 planes per value).
 BWD_TILE_ROWS = (128, 64, 32)
 BWD_TILE_ROWS_HI_LO = (64, 32, 16)
-# How a call is cut: at most BWD_CHUNK_ROWS points per phase-1 / phase-2
-# pair (bounds the workspace), and phase 2's rows split in up to
-# BWD_MAX_SPLITS ranges of at least BWD_MIN_SPLIT_ROWS points.
+# ... and the largest tile at which the matrix and operation tables may
+# stay in device memory (a deep net's program, once its masks have taken
+# the tile down).
+BWD_DEVICE_TABLES_ROWS = 32
+# How a call is cut: at most BWD_CHUNK_ROWS points of a scene per phase-1 /
+# phase-2 pair, fewer (a multiple of BWD_CHUNK_ALIGN) where a scene's
+# workspace would pass BWD_WS_BUDGET bytes; phase 2's rows split in up to
+# BWD_MAX_SPLITS ranges of at least BWD_MIN_SPLIT_ROWS points. A call's
+# workspace and partial slots may take BWD_MEMORY_SHARE of the card's
+# memory (the rest holds the nets, the optimizer and the step's
+# activations); a stack of more scenes is refused by name.
 BWD_CHUNK_ROWS = 131_072
+BWD_CHUNK_ALIGN = 4096
+BWD_WS_BUDGET = 8 << 30
+BWD_MEMORY_SHARE = 0.5
 BWD_MAX_SPLITS = 32
 BWD_MIN_SPLIT_ROWS = 2048
 
@@ -168,7 +177,9 @@ def _fwd_layout(mc: ModelConfig, vdirs: bool, hi_lo: bool) -> FwdLayout:
     32-row stages, 64-point tiles with 32-row stages and 64-point tiles
     with 16-row stages that holds three stages, else the first that holds
     two. hi_lo: 16-row stages, 64-point tiles where they hold two stages
-    (up to width 320), else 32-point tiles (widths 336-608)."""
+    (up to width 320), else 32-point tiles (widths 336-608). The program's
+    bytes (64 a layer) are the only bound on depth: at 866x16, 55 KB
+    beside 128-point tiles."""
     planes = 2 if hi_lo else 1
     hid = _hidden_cols(mc, vdirs)
     pass_cols = min(FWD_MAX_N, max(_layer_widths(mc, vdirs)))
@@ -217,16 +228,12 @@ def forward_misfit(mc: ModelConfig, vdirs: bool = True,
                    hi_lo: bool = False) -> Optional[str]:
     """Why the forward kernel does not take this architecture, or None:
     its program, activation buffers and two weight-ring stages must fit
-    one block's shared memory, and it has at most ``MAX_LAYERS``
-    layers."""
+    one block's shared memory (the program's bytes bound the depth)."""
     lay = _fwd_layout(mc, vdirs, hi_lo)
-    layers = mc.depth + (4 if vdirs else 1)
     if lay.stages < 2:
         return (f"the forward's buffers of {lay.rows}-point tiles leave room "
                 f"for {lay.stages} weight stage(s) of two in {SMEM_LIMIT} B "
                 f"of shared memory")
-    if layers > MAX_LAYERS:
-        return f"{layers} layers, more than the forward's {MAX_LAYERS}"
     return None
 
 
@@ -288,14 +295,38 @@ def backward_counts(mc: ModelConfig, vdirs: bool) -> Tuple[int, int]:
     return fwd + 1 + dx, len(_bwd_mats(mc, vdirs))
 
 
-def _mask_blocks(mc: ModelConfig, vdirs: bool) -> List[int]:
-    """The first mask block of each ReLU layer's slot (trunk layer i, then
-    the view layer): one block of ``rows * BWD_MAX_N`` bits per column
-    pass of the layer; the last entry is the total."""
-    firsts = [0]
+def _warp_grid(rows: int) -> Tuple[int, int, int, int]:
+    """``mlp_tile.cuh``'s ``WarpGrid<rows>``: (m16 tiles a warp, columns a
+    warp, column groups, row groups) of the 16 warps over a tile and a
+    pass of ``BWD_MAX_N`` columns."""
+    wn = 64 if rows >= 64 else rows
+    groups = BWD_MAX_N // wn
+    return (rows // 64 if rows >= 64 else 1), wn, groups, 16 // groups
+
+
+def _mask_blocks(mc: ModelConfig, vdirs: bool, rows: int
+                 ) -> Tuple[Tuple[Tuple[Tuple[int, int], ...], ...], int]:
+    """Phase 1's ReLU masks at tiles of ``rows`` points: for each ReLU
+    layer's slot (trunk layer i, then the view layer), one block per
+    column pass as (its first mask word, the warp column groups it holds);
+    and the bytes of all blocks. A thread keeps the bits of its own (row,
+    column) positions, one word of ``columns a warp / 2`` bits per m16
+    tile, so a block of g column groups is ``32 x row groups x g x m16
+    tiles`` words. A pass holds the column groups its columns reach; a net
+    256 or more wide keeps one whole grid's block (``rows x 256`` bits)
+    per pass."""
+    m16, wn, groups, row_groups = _warp_grid(rows)
+    whole = mc.width >= BWD_MAX_N
+    slots, at = [], 0
     for cols in [mc.width] * mc.depth + ([mc.view_width] if vdirs else []):
-        firsts.append(firsts[-1] + _passes(cols))
-    return firsts
+        blocks = []
+        for c0 in range(0, _pad16(cols), BWD_MAX_N):
+            g = groups if whole else -(-min(BWD_MAX_N, _pad16(cols) - c0)
+                                       // wn)
+            blocks.append((at, g))
+            at += 32 * row_groups * g * m16
+        slots.append(tuple(blocks))
+    return tuple(slots), at * wn // 16
 
 
 def bwd_scratch_bytes(mc: ModelConfig, vdirs: bool,
@@ -308,16 +339,42 @@ def bwd_scratch_bytes(mc: ModelConfig, vdirs: bool,
     return cols * 2 * (2 if hi_lo else 1)
 
 
+def bwd_chunk_rows(mc: ModelConfig, vdirs: bool, hi_lo: bool = False) -> int:
+    """Points of a scene per chunk of a backward call: ``BWD_CHUNK_ROWS``,
+    or as many (a multiple of ``BWD_CHUNK_ALIGN``) as keep one scene's
+    workspace within ``BWD_WS_BUDGET`` (a deep net: 147x128 hi_lo takes
+    152,576 B a point, 20 GB for 131,072 points). An architecture's chunk,
+    whatever the call's scenes, so a stack's scene gives a single-scene
+    call's bits."""
+    fit = BWD_WS_BUDGET // bwd_scratch_bytes(mc, vdirs, hi_lo)
+    return min(BWD_CHUNK_ROWS,
+               max(BWD_CHUNK_ALIGN, fit // BWD_CHUNK_ALIGN * BWD_CHUNK_ALIGN))
+
+
+def ws_rows(n: int, tile: int) -> int:
+    """Workspace rows of a scene's n points at phase-1 tiles of ``tile``
+    points: n rounded up to the tile and to phase 2's ``BWD_STAGE_ROWS``
+    (tiles of 32 and 16 points fill the rows up to the stage with zero
+    points)."""
+    step = max(tile, BWD_STAGE_ROWS)
+    return -(-n // step) * step
+
+
 @dataclasses.dataclass(frozen=True)
 class BwdLayout:
     """Phase 1's shared memory for one architecture and mode: ``rows``
-    points per tile; the buffers as ``{name: (byte offset, ld, cols)}``;
-    the mask blocks' byte offset; the weight ring's byte offset, the
+    points per tile; ``prog_ints`` the program's ints copied into shared
+    memory (header, buffer, matrix and operation tables, or the header and
+    buffer table alone); the buffers as ``{name: (byte offset, ld,
+    cols)}``; the mask blocks' byte offset and their words per slot and
+    pass (:func:`_mask_blocks`); the weight ring's byte offset, the
     elements of a stage's hi slab and its stages; the total bytes."""
 
     rows: int
+    prog_ints: int
     bufs: Dict[str, Tuple[int, int, int]]
     mask_off: int
+    masks: Tuple[Tuple[Tuple[int, int], ...], ...]
     ring_off: int
     stage_elems: int
     stages: int
@@ -334,15 +391,22 @@ def _bwd_layout(mc: ModelConfig, vdirs: bool, hi_lo: bool) -> BwdLayout:
     as many stages (up to 4) of 16 rows of a pass as fit. The first tile
     of ``BWD_TILE_ROWS`` (hi_lo: ``BWD_TILE_ROWS_HI_LO``) whose layout
     holds two stages: 128 points (hi_lo 64) up to width 256 and wherever
-    else they fit, then 64, then 32, then (hi_lo) 16."""
+    else they fit, then 64, then 32, then (hi_lo) 16, with the whole
+    program in shared memory; failing those, the tiles of at most
+    ``BWD_DEVICE_TABLES_ROWS`` points with only its header and buffer
+    table there (a deep net: the kernel then reads the matrix and
+    operation tables from device memory)."""
     planes = 2 if hi_lo else 1
-    n_ops, _ = backward_counts(mc, vdirs)
-    prog = _align128(4 * (BWD_OPS_BASE + n_ops * BWD_OP_INTS))
+    n_ops, n_mats = backward_counts(mc, vdirs)
+    whole = BWD_TABLES_BASE + 2 * n_mats + BWD_OP_INTS * n_ops
     hid = _hidden_cols(mc, vdirs)
     stage = BWD_SLAB_K * (min(hid, BWD_MAX_N) + PAD)
     layout = None
-    for rows in BWD_TILE_ROWS_HI_LO if hi_lo else BWD_TILE_ROWS:
-        off = prog
+    tiles = BWD_TILE_ROWS_HI_LO if hi_lo else BWD_TILE_ROWS
+    for prog_ints, rows in [(whole, r) for r in tiles] + [
+            (BWD_TABLES_BASE, r) for r in tiles
+            if r <= BWD_DEVICE_TABLES_ROWS]:
+        off = _align128(4 * prog_ints)
         bufs: Dict[str, Tuple[int, int, int]] = {}
 
         def size(cols):
@@ -366,11 +430,12 @@ def _bwd_layout(mc: ModelConfig, vdirs: bool, hi_lo: bool) -> BwdLayout:
         for name, c in zip(("gr", "gs"), g_cols):
             end = region(name, c, at)
             at = end if over_x else None
-        masks = off
-        off += _align128(_mask_blocks(mc, vdirs)[-1] * rows * BWD_MAX_N // 8)
+        mask_off = off
+        masks, mask_bytes = _mask_blocks(mc, vdirs, rows)
+        off += _align128(mask_bytes)
         stages = max(0, min(4, (SMEM_LIMIT - off) // (2 * stage * planes)))
-        layout = BwdLayout(rows, bufs, masks, off, stage, stages,
-                           off + 2 * stage * planes * stages)
+        layout = BwdLayout(rows, prog_ints, bufs, mask_off, masks, off, stage,
+                           stages, off + 2 * stage * planes * stages)
         if stages >= 2:
             break
     return layout
@@ -385,20 +450,15 @@ def backward_misfit(mc: ModelConfig, vdirs: bool = True,
                     hi_lo: bool = False) -> Optional[str]:
     """Why the backward kernels do not take this architecture, or None:
     phase 1's buffers, masks and two weight-ring stages must fit one
-    block's shared memory at some tile of points, and its program and
-    workspace the kernel's tables."""
-    ops, mats = backward_counts(mc, vdirs)
+    block's shared memory at some tile of points (its program's tables,
+    sized by the net, too where they fit, else they stay in device
+    memory). The workspace is bounded by cutting the call into chunks
+    (:func:`bwd_chunk_rows`)."""
     lay = _bwd_layout(mc, vdirs, hi_lo)
     if lay.stages < 2:
         return (f"phase 1's buffers and masks of {lay.rows}-point tiles "
                 f"leave room for {lay.stages} weight stage(s) of two in "
                 f"{SMEM_LIMIT} B of shared memory")
-    if ops > BWD_MAX_OPS:
-        return (f"{ops} phase-1 operations, more than the program table's "
-                f"{BWD_MAX_OPS}")
-    if mats > BWD_MAX_MATS:
-        return (f"{mats} workspace matrices, more than the table's "
-                f"{BWD_MAX_MATS}")
     return None
 
 
@@ -407,8 +467,8 @@ def backward_fits(mc: ModelConfig, vdirs: bool = True,
                   hi_lo: bool = False) -> bool:
     """Whether the backward kernels take this architecture
     (:func:`backward_misfit` says why not). The workspace,
-    :func:`bwd_scratch_bytes` per point, is bounded by the call's chunk of
-    ``BWD_CHUNK_ROWS`` points; the partial gradients by ``BWD_MAX_SPLITS``
+    :func:`bwd_scratch_bytes` per point, is bounded by the call's chunk
+    (:func:`bwd_chunk_rows`); the partial gradients by ``BWD_MAX_SPLITS``
     slots a chunk (at 8x640, 32 slots of ~3.6M floats). Logged once per
     architecture and mode."""
     ops, mats = backward_counts(mc, vdirs)
@@ -416,11 +476,14 @@ def backward_fits(mc: ModelConfig, vdirs: bool = True,
     why = backward_misfit(mc, vdirs, hi_lo)
     log.info(
         "fused MLP backward budget: %s: %d-point tiles, %d B of shared "
-        "memory per block (%d weight stages; Hopper limit %d B), %d "
-        "operations (limit %d), %d workspace matrices (limit %d), %d B of "
-        "workspace per point: %s", _arch_name(mc, vdirs, hi_lo), lay.rows,
-        lay.smem, lay.stages, SMEM_LIMIT, ops, BWD_MAX_OPS, mats,
-        BWD_MAX_MATS, bwd_scratch_bytes(mc, vdirs, hi_lo), why or "kernel")
+        "memory per block (%d weight stages, %d B of masks; Hopper limit %d "
+        "B), %d operations and %d workspace matrices (tables in %s memory), "
+        "%d B of workspace per point, chunks of %d points: %s",
+        _arch_name(mc, vdirs, hi_lo), lay.rows, lay.smem, lay.stages,
+        lay.ring_off - lay.mask_off, SMEM_LIMIT, ops, mats,
+        "shared" if lay.prog_ints > BWD_TABLES_BASE else "device",
+        bwd_scratch_bytes(mc, vdirs, hi_lo), bwd_chunk_rows(mc, vdirs, hi_lo),
+        why or "kernel")
     return why is None
 
 
@@ -437,9 +500,10 @@ class PackedMLP:
     ``program``: the forward's int32 header, buffer table and one record
     per column pass of each layer (see ``fused_mlp_fwd.cu``), also on the
     device as ``program_dev``; ``bwd_program``: the backward's header, buffer
-    and matrix tables, phase-1 operations (its first ``bwd_prog_len``
-    ints) and phase 2's ``bwd_jobs`` (see ``fused_mlp_bwd.cu``), also on
-    the device as ``bwd_program_dev``. ``ws_mats``: each workspace
+    and matrix tables, phase-1 operations and phase 2's ``bwd_jobs`` (see
+    ``fused_mlp_bwd.cu``), also on the device as ``bwd_program_dev``, of
+    which phase 1 copies the first ``bwd_prog_len`` ints into shared
+    memory. ``ws_mats``: each workspace
     matrix's (name, column offset, cols); a workspace of R rows holds
     ``R * ws_cols`` bf16, matrix m at ``R * offset`` as (planes, R, cols).
     ``grad_blocks`` / ``grad_biases`` say where each parameter's gradient
@@ -644,7 +708,7 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
         out_w=out_w,
         bwd_program=bwd_program,
         bwd_program_dev=_device_program(bwd_program.tobytes(), str(dev)),
-        bwd_prog_len=jobs_off,
+        bwd_prog_len=int(hdr[_H_PROG_LEN]),
         bwd_jobs=bwd_program[jobs_off:].reshape(n_jobs, BWD_JOB_INTS),
         bwd_smem=int(hdr[_H_SMEM]), bwd_rows=int(hdr[_H_ROWS]),
         ws_cols=int(hdr[_H_WS_COLS]),
@@ -702,10 +766,10 @@ _BWD_HEADER = ("n_ops", "prog_len", "n_freqs", "enc_dim", "dirs_dim",
                "g_cols", "gr_cols", "x_buf", "d_buf", "gr_buf", "gs_buf",
                "x_mat", "d_mat", "gr_mat", "gs_mat", "stages", "ring_off",
                "stage_elems", "mask_off", "smem", "ws_cols", "jobs_off",
-               "n_jobs", "rows")
-_H_SMEM, _H_WS_COLS, _H_JOBS_OFF, _H_N_JOBS, _H_ROWS = (
+               "n_jobs", "rows", "mats_base", "ops_base", "n_mats")
+_H_PROG_LEN, _H_SMEM, _H_WS_COLS, _H_JOBS_OFF, _H_N_JOBS, _H_ROWS = (
     _BWD_HEADER.index(k)
-    for k in ("smem", "ws_cols", "jobs_off", "n_jobs", "rows"))
+    for k in ("prog_len", "smem", "ws_cols", "jobs_off", "n_jobs", "rows"))
 
 
 def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
@@ -727,17 +791,17 @@ def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
     names = _bwd_mats(mc, vdirs)
     mat = {name: i for i, (name, _) in enumerate(names)}
     x, p = buf["x"], (buf["p0"], buf["p1"])
-    masks = _mask_blocks(mc, vdirs)
     ops: List[List[int]] = []
 
     def op(kind, a=-1, wa=0, ka=0, b=-1, wb=0, kb=0, bias=0, n=0,
-           mask_in=-1, dst=-1, m=-1, mask_out=-1, col=0, wld=0):
-        ops.append([kind, a, wa, ka, b, wb, kb, bias, n, mask_in, dst, m,
-                    mask_out, col, wld, 0])
+           mask_in=(-1, 0), dst=-1, m=-1, mask_out=(-1, 0), col=0, wld=0):
+        ops.append([kind, a, wa, ka, b, wb, kb, bias, n, mask_in[0], dst, m,
+                    mask_out[0], col, wld, max(mask_in[1], mask_out[1])])
 
     def block_of(slot, c0):
-        """The mask block of a ReLU layer's slot for the pass at c0."""
-        return -1 if slot < 0 else masks[slot] + c0 // BWD_MAX_N
+        """The mask block of a ReLU layer's slot for the pass at c0: (its
+        first word, its column groups), or (-1, 0)."""
+        return (-1, 0) if slot < 0 else lay.masks[slot][c0 // BWD_MAX_N]
 
     def fwd(name, srcs, dst, m, slot=-1):
         """dst = act(sum of src @ W + bias), one op per column pass; ReLU
@@ -822,14 +886,15 @@ def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
     buf_table = [0] * (3 * BWD_MAX_BUFS)
     for i, rec in enumerate(bufs.values()):
         buf_table[3 * i: 3 * i + 3] = rec
-    mat_table, ws_mats, col = [0] * (2 * BWD_MAX_MATS), [], 0
-    for i, (name, c) in enumerate(names):
-        mat_table[2 * i: 2 * i + 2] = [col, c]
+    mat_table, ws_mats, col = [], [], 0
+    for name, c in names:
+        mat_table += [col, c]
         ws_mats.append((name, col, c))
         col += c * (2 if hi_lo else 1)
-    prog_len = BWD_OPS_BASE + BWD_OP_INTS * len(ops)
+    ops_base = BWD_TABLES_BASE + len(mat_table)
+    jobs_off = ops_base + BWD_OP_INTS * len(ops)
     header = dict(
-        n_ops=len(ops), prog_len=prog_len, n_freqs=n_freqs,
+        n_ops=len(ops), prog_len=lay.prog_ints, n_freqs=n_freqs,
         enc_dim=3 + 6 * n_freqs,
         dirs_dim=mc.input_ch_views if vdirs else 0, g_cols=out_w,
         gr_cols=gr_cols, x_buf=x, d_buf=buf.get("d", -1), gr_buf=buf["gr"],
@@ -838,12 +903,14 @@ def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
         gs_mat=mat.get("g_sigma", -1), stages=lay.stages,
         ring_off=lay.ring_off, stage_elems=lay.stage_elems,
         mask_off=lay.mask_off, smem=lay.smem, ws_cols=col,
-        jobs_off=prog_len, n_jobs=len(jobs), rows=lay.rows)
+        jobs_off=jobs_off, n_jobs=len(jobs), rows=lay.rows,
+        mats_base=BWD_TABLES_BASE, ops_base=ops_base, n_mats=len(names))
     head = [header[k] for k in _BWD_HEADER]
     head += [0] * (BWD_HEADER_INTS - len(head))
     prog = np.asarray(head + buf_table + mat_table
                       + [v for rec in ops + jobs for v in rec], np.int32)
-    if len(ops) != backward_counts(mc, vdirs)[0] or len(ops) > BWD_MAX_OPS:
+    if (len(ops) != backward_counts(mc, vdirs)[0]
+            or lay.prog_ints not in (jobs_off, BWD_TABLES_BASE)):
         raise ValueError(f"backward program of {len(ops)} operations")
     return prog, tuple(ws_mats)
 
@@ -933,7 +1000,10 @@ def fused_nerf_mlp_bwd_plain(net: NeRFMLP, pts: torch.Tensor,
     sigma and bottleneck branches are summed; every ``dacc`` and ``dh`` down
     the trunk rounded; dW from rounded operands in fp32; db an fp32 sum of
     the rounded cotangents; the skip's d(enc) branch dropped. ``hi_lo``
-    splits both operands of every product (``:347-365``)."""
+    splits both operands of every product (``:347-365``), and sums for db
+    each cotangent's (hi, lo) pair, the bf16 planes the kernels' workspace
+    stores (the TPU kernel sums the fp32 values: within 2^-17 of each
+    value)."""
     mc = net.cfg
     dt = torch.float32 if hi_lo else compute_dtype
 
@@ -946,6 +1016,9 @@ def fused_nerf_mlp_bwd_plain(net: NeRFMLP, pts: torch.Tensor,
             g_hi, g_lo = _split_bf16(gg)
             return g_hi.t() @ a_hi + g_lo.t() @ a_hi + g_hi.t() @ a_lo
         return gg.t() @ a
+
+    def colsum(t):  # db: in hi_lo the kernel sums each value's stored pair
+        return sum(_split_bf16(t)).sum(0) if hi_lo else t.sum(0)
 
     def back(gg, w):  # gg @ W for an (out, in) weight: the dX product
         if hi_lo:
@@ -967,18 +1040,18 @@ def fused_nerf_mlp_bwd_plain(net: NeRFMLP, pts: torch.Tensor,
         h_last = hs[-1]
         if dirs is None:
             g_out = rnd(g)
-            put("output_linear", wgrad(h_last, g_out), g_out.sum(0))
+            put("output_linear", wgrad(h_last, g_out), colsum(g_out))
             dh = rnd(back(g_out, net.output_linear.weight))
         else:
             g_rgb, g_sigma = rnd(g[:, 0:3]), rnd(g[:, 3:4])
-            put("rgb_linear", wgrad(v, g_rgb), g_rgb.sum(0))
+            put("rgb_linear", wgrad(v, g_rgb), colsum(g_rgb))
             dv = back(g_rgb, net.rgb_linear.weight)
             dv = rnd(torch.where(v > 0, dv, torch.zeros_like(dv)))
             put("view_linear", torch.cat([wgrad(bott, dv), wgrad(d, dv)], 1),
-                dv.sum(0))
+                colsum(dv))
             dbott = rnd(back(dv, net.view_linear.weight[:, :mc.bottleneck_ch]))
-            put("bottleneck_linear", wgrad(h_last, dbott), dbott.sum(0))
-            put("sigma_linear", wgrad(h_last, g_sigma), g_sigma.sum(0))
+            put("bottleneck_linear", wgrad(h_last, dbott), colsum(dbott))
+            put("sigma_linear", wgrad(h_last, g_sigma), colsum(g_sigma))
             dh = rnd(back(dbott, net.bottleneck_linear.weight)
                      + back(g_sigma, net.sigma_linear.weight))
         enc = x.shape[-1]
@@ -992,7 +1065,7 @@ def fused_nerf_mlp_bwd_plain(net: NeRFMLP, pts: torch.Tensor,
             else:
                 dw = wgrad(a, dacc)
                 w_h = lin.weight
-            put(f"pts_linears.{i}", dw, dacc.sum(0))
+            put(f"pts_linears.{i}", dw, colsum(dacc))
             if i > 0:
                 dh = rnd(back(dacc, w_h))
     return grads
@@ -1119,11 +1192,10 @@ def bwd_workspace_plain(packed: PackedMLP, pts: torch.Tensor,
                      dtype=torch.bfloat16)
     s = packed.n_scenes
     nets = packed.stack or (packed.net,)
-    tile = packed.bwd_rows
     for i, (net, p, d, gg) in enumerate(zip(
             nets, _scenes(pts, s), _scenes(dirs, s), _scenes(g, s))):
         n = p.shape[0]
-        r0 = i * (-(-n // tile) * tile)
+        r0 = i * ws_rows(n, packed.bwd_rows)
         terms = _bwd_terms(net, p, d, gg, n_freqs, dt, hi_lo)
         for m, (name, _, _) in enumerate(packed.ws_mats):
             t = terms[name]
@@ -1225,9 +1297,9 @@ def _bwd_kernel(csrc: str = _build.CSRC):
     lib.fused_mlp_bwd_error_string.restype = ctypes.c_char_p
     lib.fused_mlp_bwd_constants.argtypes = [ctypes.POINTER(i32), i32]
     want = [BWD_THREADS, PAD, BWD_MAX_N, BWD_HEADER_INTS, BWD_MAX_BUFS,
-            BWD_MAX_MATS, BWD_OP_INTS, BWD_MAX_OPS, BWD_TILE_K, BWD_TILE_N,
+            BWD_OP_INTS, BWD_TILE_K, BWD_TILE_N,
             BWD_STAGE_ROWS, BWD_STAGES2, BWD_JOB_INTS, BWD_P1_THREADS,
-            *BWD_TILE_ROWS, *BWD_TILE_ROWS_HI_LO]
+            *BWD_TILE_ROWS, *BWD_TILE_ROWS_HI_LO, BWD_DEVICE_TABLES_ROWS]
     consts = (i32 * len(want))()
     lib.fused_mlp_bwd_constants(consts, len(want))
     if list(consts) != want:
@@ -1355,9 +1427,9 @@ def bwd_workspace(packed: PackedMLP, pts: torch.Tensor,
                   dirs: Optional[torch.Tensor], g: torch.Tensor,
                   ws: torch.Tensor) -> torch.Tensor:
     """Phase 1 for n points: recompute the forward, walk the dX chain and
-    fill the flat workspace ``ws`` (at least n, rounded up to
-    ``packed.bwd_rows``, rows per matrix; for a stack, S times n / S
-    rounded up, scene s's rows after scene s - 1's). The kernel for CUDA
+    fill the flat workspace ``ws`` (at least :func:`ws_rows` of n rows per
+    matrix; for a stack, S times those of n / S, scene s's rows after
+    scene s - 1's). The kernel for CUDA
     tensors (or raise), :func:`bwd_workspace_plain` for CPU ones.
     ``bwd_workspace.launches`` counts kernel launches."""
     pts, dirs = _check_operands(packed, pts, dirs)
@@ -1369,7 +1441,8 @@ def bwd_workspace(packed: PackedMLP, pts: torch.Tensor,
     tile = packed.bwd_rows
     scenes = packed.n_scenes
     n_s = n // scenes
-    cap = _check_ws(packed, ws, scenes * (-(-n_s // tile) * tile), dev)
+    rows = ws_rows(n_s, tile)
+    cap = _check_ws(packed, ws, scenes * rows, dev)
     if dev.type == "cpu":
         return ws.copy_(bwd_workspace_plain(packed, pts, dirs, g, cap))
     if n == 0:
@@ -1385,11 +1458,10 @@ def bwd_workspace(packed: PackedMLP, pts: torch.Tensor,
             packed.biases.data_ptr(), prog.data_ptr(), packed.bwd_prog_len,
             int(packed.hi_lo), tile, n_s, scenes, packed.w_stride,
             packed.b_stride,
-            min(scenes * -(-n_s // tile), _sm_count(index)),
+            min(scenes * rows // tile, _sm_count(index)),
             packed.bwd_smem, ws.data_ptr(), cap, stream))
     bwd_workspace.launches += 1
     if numerics_checked():
-        rows = -(-n_s // tile) * tile
         check_nan([(f"the workspace of the fused_mlp_bwd_phase1 kernel "
                     f"({name})", ws_matrix(packed, ws, m)[
                         :, s * rows:s * rows + n_s])
@@ -1427,7 +1499,8 @@ def weight_grads(packed: PackedMLP, ws: torch.Tensor, rows: int,
         stream = torch.cuda.current_stream(ws.device).cuda_stream
         _bwd_error(lib, "fused_mlp_bwd_phase2 launch", lib.fused_mlp_bwd_phase2(
             ws.data_ptr(), cap, prog.data_ptr(),
-            prog.data_ptr() + 4 * packed.bwd_prog_len, len(packed.bwd_jobs),
+            prog.data_ptr() + 4 * int(packed.bwd_program[_H_JOBS_OFF]),
+            len(packed.bwd_jobs),
             int(packed.hi_lo), rows, splits, split_rows, scenes,
             part.data_ptr(), stride, part.stride(0) if packed.stack else 0,
             stream))
@@ -1437,17 +1510,73 @@ def weight_grads(packed: PackedMLP, ws: torch.Tensor, rows: int,
     return part
 
 
+def _bwd_chunks(packed: PackedMLP, n_s: int):
+    """A backward call over n_s points a scene, cut into chunks: [(first
+    point, points, (phase-2 splits, rows a split))] of at most
+    :func:`bwd_chunk_rows` points each."""
+    step = bwd_chunk_rows(packed.net.cfg, packed.vdirs, packed.hi_lo)
+    return [(c0, r, bwd_splits(ws_rows(r, packed.bwd_rows)))
+            for c0 in range(0, n_s, step) for r in [min(step, n_s - c0)]]
+
+
+def bwd_call_bytes(packed: PackedMLP, n_s: int) -> int:
+    """Device bytes a backward call over n_s points a scene allocates: the
+    workspace of one chunk of every scene, and every chunk's partial
+    slots."""
+    chunks = _bwd_chunks(packed, n_s)
+    rows = max((ws_rows(r, packed.bwd_rows) for _, r, _ in chunks), default=0)
+    slots = sum(splits for _, _, (splits, _) in chunks)
+    return packed.n_scenes * (rows * packed.ws_cols * 2
+                              + slots * part_stride(packed.grad_total) * 4)
+
+
+def check_bwd_memory(packed: PackedMLP, n_s: int, card_bytes: int) -> int:
+    """:func:`bwd_call_bytes`, after checking that they fit
+    ``BWD_MEMORY_SHARE`` of a card of ``card_bytes``; else a ValueError
+    naming the net, the bytes and the most scenes of n_s points that
+    fit."""
+    need = bwd_call_bytes(packed, n_s)
+    limit = int(card_bytes * BWD_MEMORY_SHARE)
+    if need > limit:
+        mc = packed.net.cfg
+        raise ValueError(
+            f"{_arch_name(mc, packed.vdirs, packed.hi_lo)}: a backward call "
+            f"over {packed.n_scenes} scene(s) of {n_s} points needs {need} B "
+            f"of workspace and partial gradients ("
+            f"{bwd_scratch_bytes(mc, packed.vdirs, packed.hi_lo)} B a point "
+            f"in chunks of {bwd_chunk_rows(mc, packed.vdirs, packed.hi_lo)} "
+            f"points a scene), more than the {limit} B a call may take "
+            f"({BWD_MEMORY_SHARE:.0%} of the card's {card_bytes} B): at most "
+            f"{limit // (need // packed.n_scenes)} scene(s) of {n_s} points "
+            f"fit")
+    return need
+
+
+@functools.lru_cache(maxsize=None)
+def _card_bytes(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).total_memory
+
+
+@functools.lru_cache(maxsize=256)
+def _state_bwd_bytes(name: str, scenes: int, n_s: int, need: int,
+                     card: int) -> None:
+    """Say, once per net, scenes and points, what a backward call takes."""
+    log.info("fused MLP backward: %s, %d scene(s) of %d points: %d B of "
+             "workspace and partial gradients (card %d B)", name, scenes,
+             n_s, need, card)
+
+
 def _launch_bwd(packed: PackedMLP, pts: torch.Tensor,
                 dirs: Optional[torch.Tensor], g: torch.Tensor) -> torch.Tensor:
     """The backward: the flat fp32 gradient (``packed.grad_total``) in the
     packed blocks' layout; (S, grad_total) for a stack. The call is walked
-    in chunks of at most ``BWD_CHUNK_ROWS`` points (of each scene), each
-    phase 1 into one workspace, then phase 2 into the chunk's partial
+    in chunks of at most :func:`bwd_chunk_rows` points (of each scene),
+    each phase 1 into one workspace, then phase 2 into the chunk's partial
     slots; the reduction sums every slot in (chunk, split) order. A stack's
     chunk is one launch of each phase over all scenes, so it launches each
-    kernel as often as one of its scenes alone."""
+    kernel as often as one of its scenes alone. On a card, the bytes are
+    checked against the card first (:func:`check_bwd_memory`)."""
     n, dev = pts.shape[0], pts.device
-    chunk_rows = BWD_CHUNK_ROWS
     if g.shape != (n, packed.out_w):
         raise ValueError(f"the cotangent must be ({n}, {packed.out_w}), got "
                          f"{tuple(g.shape)}")
@@ -1455,12 +1584,17 @@ def _launch_bwd(packed: PackedMLP, pts: torch.Tensor,
     tile = packed.bwd_rows
     scenes = packed.n_scenes
     n_s = n // scenes
-    ws = torch.empty(scenes * (-(-min(n_s, chunk_rows) // tile) * tile)
+    if dev.type == "cuda":
+        card = _card_bytes(dev.index if dev.index is not None
+                           else torch.cuda.current_device())
+        _state_bwd_bytes(_arch_name(packed.net.cfg, packed.vdirs,
+                                    packed.hi_lo), scenes, n_s,
+                         check_bwd_memory(packed, n_s, card), card)
+    chunks = _bwd_chunks(packed, n_s)
+    ws = torch.empty(scenes * max((ws_rows(r, tile) for _, r, _ in chunks),
+                                  default=0)
                      * packed.ws_cols, device=dev, dtype=torch.bfloat16)
-    chunks = [(c0, min(chunk_rows, n_s - c0))
-              for c0 in range(0, n_s, chunk_rows)]
-    plans = [bwd_splits(-(-r // tile) * tile) for _, r in chunks]
-    slots = sum(s for s, _ in plans)
+    slots = sum(splits for _, _, (splits, _) in chunks)
     part = torch.empty((scenes, slots, part_stride(total)), device=dev,
                        dtype=torch.float32)
 
@@ -1472,10 +1606,10 @@ def _launch_bwd(packed: PackedMLP, pts: torch.Tensor,
         return rows.reshape(scenes * r, -1)
 
     slot = 0
-    for (c0, r), (splits, split_rows) in zip(chunks, plans):
+    for c0, r, (splits, split_rows) in chunks:
         bwd_workspace(packed, piece(pts, c0, r), piece(dirs, c0, r),
                       piece(g, c0, r), ws)
-        weight_grads(packed, ws, -(-r // tile) * tile, split_rows,
+        weight_grads(packed, ws, ws_rows(r, tile), split_rows,
                      part[:, slot:slot + splits] if packed.stack
                      else part[0, slot:slot + splits])
         slot += splits

@@ -1,6 +1,8 @@
 """Where the fused MLP kernels' time goes, on one GPU.
 
     python -m nerfmlp_torch.scripts.bwd_ablate
+    python -m nerfmlp_torch.scripts.bwd_ablate --outputs FILE
+    python -m nerfmlp_torch.scripts.bwd_ablate --compare FILE FILE
 
 Builds csrc/fused_mlp_bwd.cu and csrc/fused_mlp_fwd.cu as they are and in
 variants with one part of a kernel taken out (results are then wrong:
@@ -18,6 +20,13 @@ chunk). Device times by CUDA events, median of 10, with a GPU spin ahead
 of each timed call so that the host's launch path is not timed. Variant
 sources go under build/nerfmlp_torch/ablate/; a variant whose text is no
 longer in the source fails with its name. Needs no jax.
+
+``--outputs FILE`` instead writes the forward's output and the backward's
+flat gradient of the depth-8 nets (OUTPUT_NETS) at the fine call, from
+seed 0, and ``--compare A B`` holds two such files to each other bit for
+bit (exit 1 on a difference): run with another tree's package first on
+PYTHONPATH, they show that a change left those paths' results as they
+were.
 """
 
 import argparse
@@ -40,6 +49,12 @@ _SRC = os.path.join(_build.CSRC, "fused_mlp_bwd.cu")
 _FWD_SRC = os.path.join(_build.CSRC, "fused_mlp_fwd.cu")
 _P1_END = "// dW and db partials of one job"
 CHUNK_TRY = 8192
+# (width, view head, hi_lo) of the depth-8 nets --outputs writes: 8x256 and
+# phase 16's wide nets (chip_smoke.py), and 8x592 without the view head.
+OUTPUT_NETS = ((256, True, False), (256, True, True), (288, True, False),
+               (384, True, False), (512, True, False), (640, True, False),
+               (384, True, True), (512, True, True), (576, True, True),
+               (592, False, False))
 
 # name -> [(old text, new text, in phase 1's kernel or not)]
 VARIANTS = {
@@ -192,11 +207,54 @@ def call_inputs(n, cfg):
     return pts, dirs, g
 
 
+def write_outputs(path: str) -> None:
+    """OUTPUT_NETS' forward outputs and flat backward gradients at the
+    fine call (random weights and inputs from seed 0), to ``path``."""
+    out = {}
+    n = 1024 * 128
+    for width, vdirs, hi_lo in OUTPUT_NETS:
+        cfg = RenderConfig(compute_dtype="bfloat16", use_kernel=True,
+                           width=width, use_viewdirs=vdirs)
+        net = init_model(cfg.model_config(), seed=0, device="cuda")
+        packed = fm.pack_params(net, cfg.pos_enc_L, vdirs, hi_lo)
+        pts, dirs, g = call_inputs(n, cfg)
+        dirs = dirs if vdirs else None
+        g = g[:, :packed.out_w]
+        with torch.no_grad():
+            key = f"8x{width}{'' if vdirs else ' no view head'}" + (
+                " hi_lo" if hi_lo else "")
+            out[key + " forward"] = fm._launch(packed, pts, dirs).cpu()
+            out[key + " backward"] = fm._launch_bwd(packed, pts, dirs,
+                                                    g).cpu()
+        print(f"[outputs] {key}: phase-1 tile {packed.bwd_rows}", flush=True)
+        del net, packed
+        torch.cuda.empty_cache()
+    torch.save(out, path)
+
+
+def compare_outputs(a: str, b: str) -> int:
+    """0 when the two --outputs files hold the same bits, else 1."""
+    x, y = torch.load(a), torch.load(b)
+    same = sorted(x) == sorted(y) and all(torch.equal(x[k], y[k]) for k in x)
+    for k in sorted(x):
+        print(f"[compare] {k}: "
+              f"{'bit-identical' if k in y and torch.equal(x[k], y[k]) else 'DIFFERS'}")
+    print(f"[compare] {a} vs {b}: {'bit-identical' if same else 'DIFFER'}")
+    return 0 if same else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.parse_args(argv)
+    ap.add_argument("--outputs", metavar="FILE")
+    ap.add_argument("--compare", nargs=2, metavar="FILE")
+    args = ap.parse_args(argv)
+    if args.compare:
+        return compare_outputs(*args.compare)
     if not torch.cuda.is_available():
         raise SystemExit("bwd_ablate: needs a CUDA device")
+    if args.outputs:
+        write_outputs(args.outputs)
+        return 0
     cfg = RenderConfig(compute_dtype="bfloat16", use_kernel=True)
     net = init_model(cfg.model_config(), seed=0, device="cuda")
     packed = fm.pack_params(net, cfg.pos_enc_L, True)

@@ -58,25 +58,41 @@ def _inputs(n, seed=0):
     return pts, np.array(jax_encoding(jnp.asarray(dirs), 4))
 
 
-@pytest.mark.parametrize("case", ["viewdirs", "no_viewdirs", "ragged"])
+# Deep nets past the old tables (CLI shapes), 64 points.
+DEEP = {"deep-30x32": dict(depth=30, width=32),
+        "deep-31x16": dict(depth=31, width=16)}
+
+
+@pytest.mark.parametrize("case", [
+    "viewdirs", "no_viewdirs", "ragged", "deep-30x32", "deep-31x16",
+    "deep-30x32-hi_lo", "deep-31x16-hi_lo"])
 def test_plain_matches_jax_kernel(case):
     """bf16 plain version vs the Pallas forward (interpret mode): the
-    same rounding points, so agreement to fp32 summation order."""
+    same rounding points, so agreement to fp32 summation order. The deep
+    hi_lo cases at test_plain_hi_lo_matches_jax_kernel's bar."""
     vdirs = case != "no_viewdirs"
-    n = 300 if case == "ragged" else 256  # 300: not a multiple of any tile
-    params, net, cfg = _nets(use_viewdirs=vdirs)
+    hi_lo = case.endswith("hi_lo")
+    deep = DEEP.get(case.replace("-hi_lo", ""))
+    n = 300 if case == "ragged" else 64 if deep else 256  # 300: not a
+    arch = deep or ARCH                                   # multiple of a tile
+    params, net, cfg = _nets(use_viewdirs=vdirs, **arch)
     pts, dirs = _inputs(n)
-    jcfg = JaxRenderConfig(use_viewdirs=vdirs, compute_dtype="bfloat16",
-                           use_pallas=True, **ARCH)
+    dt = dict(compute_dtype="float32", fp32_precision="high") if hi_lo \
+        else dict(compute_dtype="bfloat16")
+    jcfg = JaxRenderConfig(use_viewdirs=vdirs, use_pallas=True, **dt, **arch)
     want = np.asarray(jax_fused(params, jnp.asarray(pts),
                                 jnp.asarray(dirs) if vdirs else None, jcfg,
                                 tile=128))
-    cfg = dataclasses.replace(cfg, compute_dtype="bfloat16", use_kernel=True)
+    cfg = dataclasses.replace(cfg, use_kernel=True, **dt)
     got = fused_mlp.fused_nerf_mlp(
         net, torch.from_numpy(pts),
         torch.from_numpy(dirs) if vdirs else None, cfg).detach().numpy()
     assert got.shape == want.shape == (n, 4)
-    np.testing.assert_allclose(got, want, atol=1e-4)
+    if hi_lo:
+        scale = np.abs(want).max()
+        np.testing.assert_allclose(got / scale, want / scale, atol=2e-5)
+    else:
+        np.testing.assert_allclose(got, want, atol=1e-4)
 
 
 def test_plain_hi_lo_matches_jax_kernel():
@@ -116,6 +132,10 @@ def _run_program(packed, pts, dirs):
     planes = 2 if hi_lo else 1
     slot = hdr["stage_elems"]
     assert hdr["stages"] >= 2 and hdr["smem"] <= fused_mlp.SMEM_LIMIT
+    # the kernel copies the whole program into shared memory, ahead of the
+    # buffers
+    assert hdr["prog_len"] == len(prog)
+    assert 4 * hdr["prog_len"] <= min(off for off, _, c in bufs if c)
     assert all(off + rows * ld * 2 * planes <= hdr["ring_off"]
                for off, ld, cols in bufs if cols)
     bf = lambda t: t.to(torch.bfloat16).float()
@@ -188,6 +208,9 @@ def _run_program(packed, pts, dirs):
     (dict(depth=2, width=384, use_viewdirs=True, hi_lo=True), 200),
     # ragged: one row past two 128-point tiles
     (dict(depth=6, width=64, use_viewdirs=True), 257),
+    # deeper than the old 48-layer bound; 16 wide, 64-point tiles in hi_lo
+    (dict(depth=54, width=64, use_viewdirs=True), 150),
+    (dict(depth=200, width=16, use_viewdirs=True, hi_lo=True), 100),
 ])
 def test_packed_program_matches_plain(arch, n):
     """The weight layout and program the kernel executes — tiles, column
@@ -276,5 +299,10 @@ def test_hopper_budget():
     assert fused_mlp.kernel_fits(wide, True)
     assert not fused_mlp.kernel_fits(
         RenderConfig(width=1024).model_config(), True)
-    assert not fused_mlp.kernel_fits(RenderConfig(depth=48).model_config(),
-                                     True)
+    # Depth is bounded by the program's bytes alone (64 a layer): 48 layers
+    # and more fit; 866 (55,808 B of program) at 64-point tiles.
+    for depth in (48, 866):
+        assert fused_mlp.kernel_fits(
+            RenderConfig(depth=depth).model_config(), True)
+    assert fused_mlp._fwd_layout(RenderConfig(depth=866).model_config(),
+                                 True, False).rows == 64

@@ -64,20 +64,25 @@ def _loss_torch(raw):
 
 
 # Nets wider than one 256-column pass (CLI shapes: bottleneck = width,
-# view head = width / 2), three layers deep to keep interpret mode short.
+# view head = width / 2), three layers deep to keep interpret mode short;
+# nets deeper than the old tables (96 phase-1 operations, 64 workspace
+# matrices) at 64 points.
 WIDE = {"wide-3x384": dict(depth=3, width=384),
-        "wide-3x288": dict(depth=3, width=288)}
+        "wide-3x288": dict(depth=3, width=288),
+        "deep-30x32": dict(depth=30, width=32),
+        "deep-31x16": dict(depth=31, width=16)}
 
 
 @pytest.mark.parametrize("case", [
     "viewdirs", "no_viewdirs", "ragged", "hi_lo",
-    "wide-3x384", "wide-3x384-hi_lo", "wide-3x288", "wide-3x288-hi_lo"])
+    "wide-3x384", "wide-3x384-hi_lo", "wide-3x288", "wide-3x288-hi_lo",
+    "deep-30x32", "deep-30x32-hi_lo", "deep-31x16", "deep-31x16-hi_lo"])
 def test_plain_backward_matches_jax_kernel(case):
     """jax.grad through the Pallas backward (interpret mode) vs the port's
     autograd Function on CPU tensors (the plain backward), same weights."""
     vdirs = case != "no_viewdirs"
     hi_lo = case.endswith("hi_lo")
-    n = 300 if case == "ragged" else 256
+    n = 300 if case == "ragged" else 64 if "deep" in case else 256
     arch = WIDE.get(case.replace("-hi_lo", ""), ARCH)
     params, net, cfg = _nets(use_viewdirs=vdirs, **arch)
     pts, dirs = _inputs(n, seed=4)
@@ -141,18 +146,41 @@ def test_two_calls_on_one_net_sum_their_grads():
                                    atol=1e-6)
 
 
+def _mask_bits(rows, word0, groups, nn):
+    """Where phase 1 keeps the ReLU bits of a column pass of nn columns at
+    tiles of ``rows`` points, as bit indices from the mask region's start,
+    (rows, nn): mlp_tile.cuh's WarpGrid gives row r and column c to warp
+    (row group, column group) and lane, as bit 4 nt + 2 hh + e of its word
+    for m16 tile mt, and the block of ``groups`` column groups from word
+    ``word0`` keeps that word at ((mt * row groups + row group) * groups +
+    column group) * 32 + lane (fused_mlp_bwd.cu's Field notes)."""
+    m16, wn, _, row_groups = fused_mlp._warp_grid(rows)
+    r = torch.arange(rows)[:, None]
+    c = torch.arange(nn)[None, :]
+    r16, ci = r % 16, c % wn
+    assert bool((c // wn < groups).all())
+    lane = (r16 % 8) * 4 + (ci % 8) // 2
+    word = word0 + ((((r % (16 * m16)) // 16) * row_groups + r // (16 * m16))
+                    * groups + c // wn) * 32 + lane
+    return word * (wn // 16) * 8 + 4 * (ci // 8) + 2 * (r16 // 8) + ci % 2
+
+
 def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
     """What the CUDA backward does with a packed net, step for step, in
     PyTorch: the call walked in chunks of at most ``chunk_rows`` points. In
-    each chunk, phase 1 walks tiles of the program's ``rows`` points: the
+    each chunk, phase 1 walks tiles of the program's ``rows`` points over
+    the chunk's workspace rows (``ws_rows``: past n, zero points): the
     program's shared-memory buffers (one flat array, so buffers laid over
-    each other share storage), its mask blocks, operations (each a pass of
-    at most ``BWD_MAX_N`` output columns from column ``col`` on, over the
-    whole K of its operands) and epilogues, the (hi, lo) planes and three
-    products in hi_lo mode, rows past n zero, each pass's columns copied
-    into its workspace matrix. Then phase 2 runs every job over every split
-    of the chunk's rows into that chunk's partial slots, and the slots are
-    summed in (chunk, split) order."""
+    each other share storage), its mask blocks (the bits at the places the
+    kernel's threads keep them, each block inside the mask region and
+    apart from the others), operations (each a pass of at most
+    ``BWD_MAX_N`` output columns from column ``col`` on, over the whole K
+    of its operands) and epilogues, the (hi, lo) planes and three products
+    in hi_lo mode, rows past n zero, each pass's columns copied into its
+    workspace matrix. The matrix and operation tables are read at the
+    header's bases. Then phase 2 runs every job over every split of the
+    chunk's rows into that chunk's partial slots, and the slots are summed
+    in (chunk, split) order."""
     prog = packed.bwd_program.tolist()
     hdr = dict(zip(fused_mlp._BWD_HEADER, prog))
     hi_lo = packed.hi_lo
@@ -160,16 +188,29 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
     bufs = [prog[fused_mlp.BWD_HEADER_INTS + 3 * i:
                  fused_mlp.BWD_HEADER_INTS + 3 * i + 3]
             for i in range(fused_mlp.BWD_MAX_BUFS)]
-    mats = [prog[fused_mlp.BWD_MATS_BASE + 2 * i:
-                 fused_mlp.BWD_MATS_BASE + 2 * i + 2]
-            for i in range(fused_mlp.BWD_MAX_MATS)]
-    ops = [prog[fused_mlp.BWD_OPS_BASE + 16 * i:
-                fused_mlp.BWD_OPS_BASE + 16 * (i + 1)]
+    mats = [prog[hdr["mats_base"] + 2 * i: hdr["mats_base"] + 2 * i + 2]
+            for i in range(hdr["n_mats"])]
+    ops = [prog[hdr["ops_base"] + 16 * i: hdr["ops_base"] + 16 * (i + 1)]
            for i in range(hdr["n_ops"])]
+    assert hdr["mats_base"] == fused_mlp.BWD_TABLES_BASE
+    assert hdr["ops_base"] == hdr["mats_base"] + 2 * hdr["n_mats"]
+    assert hdr["jobs_off"] == hdr["ops_base"] + 16 * hdr["n_ops"]
     jobs = np.asarray(prog[hdr["jobs_off"]:]).reshape(hdr["n_jobs"], 10)
     rows = hdr["rows"]
     assert rows == packed.bwd_rows and hdr["stages"] >= 2
     assert hdr["smem"] <= fused_mlp.SMEM_LIMIT
+    # phase 1 copies the whole program, or its header and buffer table,
+    # into shared memory ahead of the buffers
+    assert hdr["prog_len"] in (hdr["jobs_off"], fused_mlp.BWD_TABLES_BASE)
+    assert 4 * hdr["prog_len"] <= min(off for off, _, c in bufs if c)
+    # the mask blocks: each inside the region, none overlapping another
+    m16, wn, _, row_groups = fused_mlp._warp_grid(rows)
+    region = 8 * (hdr["ring_off"] - hdr["mask_off"])
+    blocks = sorted({(o[12], o[15]) for o in ops if o[12] >= 0})
+    ends = [w0 + 32 * row_groups * cg * m16 for w0, cg in blocks]
+    assert all(e <= w1 for e, (w1, _) in zip(ends, blocks[1:]))
+    assert not blocks or ends[-1] * (wn // 16) * 8 <= region
+    assert {(o[9], o[15]) for o in ops if o[9] >= 0} <= set(blocks)
     bf = lambda t: t.to(torch.bfloat16).float()
     w = packed.weights.float()
     n = pts.shape[0]
@@ -185,9 +226,9 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
         return [w.as_strided((k, nn), (ld, 1), off + p * lo)
                 for p in range(planes)]
 
-    def mm(a, b):   # planes @ planes: hi*hi (+ lo*hi + hi*lo)
+    def mm(a, b):   # planes @ planes: hi*hi (+ hi*lo + lo*hi)
         out = a[0] @ b[0]
-        return out + a[1] @ b[0] + a[0] @ b[1] if hi_lo else out
+        return out + a[0] @ b[1] + a[1] @ b[0] if hi_lo else out
 
     def put(b, v, col=0):   # a value into buffer b's planes from column col
         hi = bf(v)
@@ -202,7 +243,7 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
         return out
 
     chunks = [(c0, min(chunk_rows, n - c0)) for c0 in range(0, n, chunk_rows)]
-    cap = -(-min(n, chunk_rows) // rows) * rows
+    cap = fused_mlp.ws_rows(min(n, chunk_rows), rows)
     slots = []
     for c0, r in chunks:
         ws = torch.zeros(cap * hdr["ws_cols"])
@@ -221,15 +262,16 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
         c_pts, c_g = pts[c0:c0 + r], g[c0:c0 + r]
         c_enc = enc[c0:c0 + r]
         c_dirs = None if dirs is None else dirs[c0:c0 + r]
-        masks = {}
-        for r0 in range(0, r, rows):
+        masks = torch.zeros(region, dtype=torch.bool)
+        r_pad = fused_mlp.ws_rows(r, rows)
+        for r0 in range(0, r_pad, rows):
             put(hdr["x_buf"], tile_of(c_enc, r0))
             save(hdr["x_buf"], hdr["x_mat"], r0)
             if hdr["d_buf"] >= 0:
                 put(hdr["d_buf"], tile_of(c_dirs, r0))
                 save(hdr["d_buf"], hdr["d_mat"], r0)
             for (kind, sa, wa, ka, sb, wb, kb, bias, nn, mask_in, dst, m,
-                 mask_out, col, wld, _) in ops:
+                 mask_out, col, wld, mask_cg) in ops:
                 if kind == 2:   # the cotangent, split at gr_cols
                     gt = tile_of(c_g, r0)
                     put(hdr["gr_buf"], gt[:, :hdr["gr_cols"]])
@@ -255,13 +297,15 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
                     acc = acc + packed.biases[bias:bias + nn]
                     if mask_out >= 0:
                         acc = torch.relu(acc)
-                        masks[mask_out] = acc > 0 if hi_lo else bf(acc) > 0
+                        at = _mask_bits(rows, mask_out, mask_cg, nn)
+                        assert len(at.unique()) == at.numel()
+                        masks[at] = acc > 0 if hi_lo else bf(acc) > 0
                 elif mask_in >= 0:
-                    acc = torch.where(masks[mask_in], acc, 0.0)
+                    acc = torch.where(masks[_mask_bits(rows, mask_in, mask_cg,
+                                                       nn)], acc, 0.0)
                 put(dst, acc, col)
                 save(dst, m, r0, col, nn)
-        # Phase 2 over the chunk's rows, rounded up to the tile.
-        r_pad = -(-r // rows) * rows
+        # Phase 2 over the chunk's workspace rows.
         splits, split_rows = fused_mlp.bwd_splits(r_pad)
         for s in range(splits):
             s0, s1 = s * split_rows, min(r_pad, (s + 1) * split_rows)
@@ -302,6 +346,23 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
     (dict(depth=8, width=576, use_viewdirs=False), 70, 256, 2048),
     (dict(depth=8, width=608, use_viewdirs=True, hi_lo=True), 40, 256,
      2048),
+    # deeper than the old tables (64 workspace matrices, 96 operations):
+    # 68 matrices at 64-point tiles, 111 operations at 32-point tiles, a
+    # whole 256-column mask block per pass
+    (dict(depth=30, width=256, use_viewdirs=True), 100, 256, 2048),
+    (dict(depth=26, width=384, use_viewdirs=True), 40, 256, 2048),
+    # masks sized by the layer's columns: 16-wide layers at 128-, 64- and
+    # 32-point tiles; 866x16 keeps its tables in device memory
+    (dict(depth=40, width=16, use_viewdirs=True), 150, 256, 2048),
+    (dict(depth=200, width=16, use_viewdirs=True), 100, 256, 2048),
+    (dict(depth=866, width=16, use_viewdirs=True), 40, 256, 2048),
+    (dict(depth=60, width=64, use_viewdirs=True, hi_lo=True), 70, 256,
+     2048),
+    (dict(depth=600, width=16, use_viewdirs=True, hi_lo=True), 40, 256,
+     2048),
+    # 32-point tiles, ragged in a 64-row phase-2 stage: the tiles past n
+    # fill the stage
+    (dict(depth=8, width=640, use_viewdirs=True), 96, 256, 2048),
 ])
 def test_bwd_program_matches_plain(arch, n, chunk, min_split, monkeypatch):
     """The backward program, packed layout, workspace, job list, splits,
@@ -322,6 +383,14 @@ def test_bwd_program_matches_plain(arch, n, chunk, min_split, monkeypatch):
     assert int(packed.bwd_program[0]) == ops
     assert len(packed.ws_mats) == mats
     assert fused_mlp.backward_fits(net.cfg, vdirs, hi_lo)
+    if cfg.width >= fused_mlp.BWD_MAX_N:
+        # one whole grid's block per pass, numbered in order: the layout
+        # of nets this wide before narrow passes were sized
+        lay = fused_mlp._bwd_layout(net.cfg, vdirs, hi_lo)
+        m16 = fused_mlp._warp_grid(lay.rows)[0]
+        blocks = [b for slot in lay.masks for b in slot]
+        assert blocks == [(512 * m16 * k, 256 // fused_mlp._warp_grid(
+            lay.rows)[1]) for k in range(len(blocks))]
     got = _run_bwd_program(packed, pts, dirs if vdirs else None, g, chunk)
     want = fused_mlp.fused_nerf_mlp_bwd_plain(
         net, pts, dirs if vdirs else None, g, cfg.pos_enc_L, hi_lo=hi_lo)
@@ -434,13 +503,29 @@ def test_backward_budget():
     assert fused_mlp.bwd_scratch_bytes(hi, True, hi_lo=True) == 44_288
     assert fused_mlp._bwd_layout(hi, True, True).rows == 32
     assert fused_mlp.backward_fits(hi, True, hi_lo=True)
-    deep = RenderConfig(depth=100).model_config()
+    # Depth is bounded by phase 1's masks alone: 100x256 (205 operations,
+    # 208 matrices, past the old tables' 96 and 64) fits at 32-point tiles;
+    # 400x256's masks (401 blocks of 1 KB) leave no room at any tile.
+    assert fused_mlp.backward_counts(RenderConfig(depth=100).model_config(),
+                                     True) == (205, 208)
+    assert uses_kernel(RenderConfig(depth=100, use_kernel=True,
+                                    compute_dtype="bfloat16"), backward=True)
+    deep = RenderConfig(depth=400).model_config()
     assert not fused_mlp.backward_fits(deep, True)
-    assert "205 phase-1 operations" in fused_mlp.backward_misfit(deep, True)
+    assert ("phase 1's buffers and masks of 32-point tiles"
+            in fused_mlp.backward_misfit(deep, True))
+    assert not uses_kernel(RenderConfig(depth=400, use_kernel=True,
+                                        compute_dtype="bfloat16"),
+                           backward=True)
     assert fused_mlp.backward_fits(RenderConfig(width=384).model_config(),
                                    True)
-    assert not uses_kernel(RenderConfig(depth=100, use_kernel=True,
-                                        compute_dtype="bfloat16"))
+    # Narrow layers take blocks of the warp columns they reach: at 866x16
+    # one 32-point tile's 16 columns (2 warps x 32 lanes x 16-bit words,
+    # 128 B) a layer; the tables (125 KB) stay in device memory.
+    lay = fused_mlp._bwd_layout(RenderConfig(depth=866, width=16)
+                                .model_config(), True, False)
+    assert (lay.rows, lay.prog_ints) == (32, fused_mlp.BWD_TABLES_BASE)
+    assert lay.ring_off - lay.mask_off == 867 * 128
 
 
 @pytest.mark.parametrize("width, serve, train", [
@@ -467,25 +552,39 @@ def test_kernel_gates_of_serving_and_training(width, serve, train):
 
 
 # tests/test_pallas_generic.py's ARCHS: (depth, width, skips), bottleneck =
-# width, view head = width / 2; and depth 8 at every CLI width from 16 to
+# width, view head = width / 2; depth 8 at every CLI width from 16 to
 # 1024 in steps of 16, of which JAX admits 43 in bf16 (up to 688) and 38 in
-# hi_lo (up to 608).
+# hi_lo (up to 608); deep nets at the CLI's skip, depths 9-60 in steps of 3
+# and up to 866 at widths 16-400, where JAX admits 129 / 115; and the
+# shallow wide nets, depths 1-5 at widths 704-1712, where JAX admits 157 /
+# 108 and the port's forward refuses 132 / 103 (below).
 GATE_CASES = [
     pytest.param([(8, w, (5,)) for w in range(16, 1025, 16)], (43, 38),
-                 id="cli-depth-8"),
-    *[pytest.param([(d, w, s)], (1, 1), id=f"{d}x{w}-skips{s}")
+                 (0, 0), id="cli-depth-8"),
+    *[pytest.param([(d, w, s)], (1, 1), (0, 0), id=f"{d}x{w}-skips{s}")
       for d, w, s in [(4, 128, ()), (6, 256, (5,)), (10, 256, (5,)),
-                      (8, 384, (5,)), (8, 256, (3, 6)), (3, 200, (0, 2))]]]
+                      (8, 384, (5,)), (8, 256, (3, 6)), (3, 200, (0, 2))]],
+    pytest.param([(d, w, (4,)) for d in [*range(9, 61, 3), 64, 100, 128, 177,
+                                         400, 509, 600, 866]
+                  for w in (16, 64, 128, 192, 256, 320, 384, 400)],
+                 (129, 115), (0, 0), id="deep"),
+    pytest.param([(d, w, (4,)) for d in range(1, 6)
+                  for w in range(704, 1713, 16)], (157, 108), (132, 103),
+                 id="shallow-wide"),
+]
 
 
 @pytest.mark.parametrize("hi_lo", [False, True], ids=["bf16", "hi_lo"])
-@pytest.mark.parametrize("archs, admits", GATE_CASES)
-def test_gates_cover_jax(archs, admits, hi_lo):
+@pytest.mark.parametrize("archs, admits, refused", GATE_CASES)
+def test_gates_cover_jax(archs, admits, refused, hi_lo):
     """Every net the JAX package sends through its Pallas kernels
     (``backward_fits_vmem``, its render gate) goes through the port's
     kernels for both passes; the CLI's architectures also by
-    ``uses_kernel``."""
-    admitted = 0
+    ``uses_kernel``. The one exception, not yet ported: shallow nets 720
+    or more wide, whose buffers the forward's smallest tile cannot hold
+    beside two weight stages (at depth 1 near the widest, phase 1's
+    neither); each is refused by name."""
+    admitted = shut_out = 0
     for depth, width, skips in archs:
         jmc = JaxModelConfig(depth=depth, width=width, skips=skips,
                              bottleneck_ch=width, view_width=width // 2)
@@ -494,13 +593,57 @@ def test_gates_cover_jax(archs, admits, hi_lo):
         admitted += 1
         mc = ModelConfig(depth=depth, width=width, skips=skips,
                          bottleneck_ch=width, view_width=width // 2)
-        assert fused_mlp.kernel_fits(mc, True, hi_lo), (
-            depth, width, fused_mlp.forward_misfit(mc, True, hi_lo))
-        assert fused_mlp.backward_fits(mc, True, hi_lo), (
-            depth, width, fused_mlp.backward_misfit(mc, True, hi_lo))
         cfg = RenderConfig(depth=depth, width=width, use_kernel=True,
                            compute_dtype="float32" if hi_lo else "bfloat16",
                            fp32_precision="high")
+        why = fused_mlp.forward_misfit(mc, True, hi_lo)
+        if why is not None and depth <= 5 and width >= 720:
+            shut_out += 1
+            assert why.startswith("the forward's buffers of"), why
+            bwd = fused_mlp.backward_misfit(mc, True, hi_lo)
+            assert bwd is None or (depth == 1 and bwd.startswith(
+                "phase 1's buffers and masks")), (depth, width, bwd)
+            assert not uses_kernel(cfg)
+            continue
+        assert fused_mlp.kernel_fits(mc, True, hi_lo), (depth, width, why)
+        assert fused_mlp.backward_fits(mc, True, hi_lo), (
+            depth, width, fused_mlp.backward_misfit(mc, True, hi_lo))
         if cfg.model_config() == mc:   # an architecture the CLI can ask for
             assert uses_kernel(cfg) and uses_kernel(cfg, backward=True)
-    assert admitted == admits[hi_lo]
+    assert (admitted, shut_out) == (admits[hi_lo], refused[hi_lo])
+
+
+def test_bwd_memory_refused_by_name():
+    """A backward call's bytes, and the refusal past the card: 147x128 hi_lo
+    (the widest workspace a point JAX admits, 152,576 B) cuts its chunks to
+    53,248 points (8,124,366,848 B of workspace, within the 8 GiB budget);
+    131,072 points then take three chunks, with 26 + 26 + 12 partial slots
+    of its gradient. A stack of scenes takes that once per scene, and on
+    an 80 GB card (40 GB a call) the fifth scene is refused."""
+    cfg = RenderConfig(depth=147, width=128)
+    mc = cfg.model_config()
+    assert fused_mlp.bwd_scratch_bytes(mc, True, True) == 152_576
+    assert fused_mlp.bwd_chunk_rows(mc, True, True) == 53_248
+    assert fused_mlp.bwd_chunk_rows(RenderConfig().model_config(),
+                                    True) == fused_mlp.BWD_CHUNK_ROWS
+    net = init_model(mc, seed=0, device="cpu")
+    packed = fused_mlp.pack_params(net, cfg.pos_enc_L, True, True)
+    n_s = 131_072
+    splits = [fused_mlp.bwd_splits(r)[0] for r in (53_248, 53_248, 24_576)]
+    assert splits == [26, 26, 12]
+    one = (53_248 * packed.ws_cols * 2
+           + sum(splits) * fused_mlp.part_stride(packed.grad_total) * 4)
+    assert fused_mlp.bwd_call_bytes(packed, n_s) == one
+    card = 80 * 10 ** 9
+    for scenes in (1, 4, 5):
+        stack = fused_mlp.pack_params_stack([net] * scenes, cfg.pos_enc_L,
+                                            True, True)
+        assert fused_mlp.bwd_call_bytes(stack, n_s) == scenes * one
+        if scenes < 5:
+            assert fused_mlp.check_bwd_memory(stack, n_s, card) == scenes * one
+        else:
+            with pytest.raises(ValueError, match=(
+                    r"depth 147 width 128 \+view head hi_lo: a backward call "
+                    r"over 5 scene\(s\) of 131072 points needs .* at most 4 "
+                    r"scene\(s\) of 131072 points fit")):
+                fused_mlp.check_bwd_memory(stack, n_s, card)

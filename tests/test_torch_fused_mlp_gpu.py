@@ -167,3 +167,83 @@ def test_wide_backward_kernels_match_plain_on_gpu(width, dtype, n, tol):
     worst = max(float((got[k] - want[k]).abs().max())
                 / float(want[k].abs().max().clamp_min(1e-12)) for k in want)
     assert worst <= tol
+
+
+def _deep_net(mc, seed):
+    """A random deep net that keeps live activations and forgets a rounding
+    difference (chip_smoke.py's deep_net): lecun-normal weights, the
+    trunk's scaled by 0.7, biases from N(0, 0.09). Zero biases let a deep
+    trunk's activations vanish; weights that hold them at gain 1 carry
+    every layer's summation-order difference to the output."""
+    net = init_model(mc, seed=seed, device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for lin in net.pts_linears:
+            lin.weight.mul_(0.7)
+        for m in net.modules():
+            if isinstance(m, torch.nn.Linear):
+                m.bias.copy_(0.3 * torch.randn(m.bias.shape, generator=gen))
+    return net.cuda()
+
+
+@pytest.mark.cuda
+# Nets past the old tables (96 phase-1 operations, 64 workspace matrices,
+# 48 forward layers): 64-point tiles at 32x256, sized mask blocks at
+# 32-point tiles for the narrow ones, 866x16's tables in device memory,
+# and chunks cut to the workspace budget at 177x128. The bars of the 8x256
+# tests.
+@pytest.mark.parametrize("depth, width, dtype, n, tol", [
+    (32, 256, "bfloat16", 1000, 1e-2),
+    (177, 128, "bfloat16", 10000, 1e-2),
+    (866, 16, "bfloat16", 1000, 1e-2),
+    (43, 256, "float32", 65535, 1e-3),
+    (600, 16, "float32", 65535, 1e-3),
+])
+def test_deep_kernels_match_plain_on_gpu(depth, width, dtype, n, tol,
+                                         monkeypatch):
+    """The forward and the backward's kernels vs their plain versions at
+    depths up to the JAX gate's (max |err| / max |plain|: the forward, and
+    per parameter the backward), on a ragged n; a second run gives the
+    same bits. 177x128 runs in chunks of 4,096 points (its workspace
+    budget cut to that): three chunks, the last ragged in phase 2's
+    64-row stage."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    cfg = RenderConfig(compute_dtype=dtype, fp32_precision="high",
+                       use_kernel=True, depth=depth, width=width)
+    hi_lo = dtype == "float32"
+    mc = cfg.model_config()
+    assert fused_mlp.kernel_fits(mc, True, hi_lo)
+    assert fused_mlp.backward_fits(mc, True, hi_lo)
+    if width == 128:
+        monkeypatch.setattr(fused_mlp, "BWD_WS_BUDGET",
+                            4096 * fused_mlp.bwd_scratch_bytes(mc, True))
+        assert fused_mlp.bwd_chunk_rows(mc, True) == 4096
+    rng = np.random.default_rng(1)
+    pts = torch.from_numpy(rng.uniform(-1.2, 1.2, (n, 3)).astype(np.float32))
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d = torch.from_numpy(d / np.linalg.norm(d, axis=-1, keepdims=True))
+    pts, dirs = pts.cuda(), positional_encoding(d, 4).cuda()
+    net = _deep_net(mc, seed=0)
+    with torch.no_grad():
+        out = fused_mlp.fused_nerf_mlp(net, pts, dirs, cfg)
+        again = fused_mlp.fused_nerf_mlp(net, pts, dirs, cfg)
+    raw = fused_mlp.fused_nerf_mlp_plain(net, pts, dirs, cfg.pos_enc_L,
+                                         hi_lo=hi_lo)
+    assert torch.equal(out, again)
+    assert float((out - raw).abs().max() / raw.abs().max()) <= (
+        1e-4 if hi_lo else 1e-2)
+    target = torch.from_numpy(rng.uniform(size=tuple(raw.shape)).astype(
+        np.float32)).cuda()
+    g = 2.0 / raw.numel() * (raw - target)
+    got = fused_mlp.fused_nerf_mlp_bwd(net, pts, dirs, g, cfg)
+    again = fused_mlp.fused_nerf_mlp_bwd(net, pts, dirs, g, cfg)
+    want = fused_mlp.fused_nerf_mlp_bwd_plain(net, pts, dirs, g,
+                                              cfg.pos_enc_L, hi_lo=hi_lo)
+    torch.cuda.synchronize()
+    for name, p in net.named_parameters():
+        assert got[name].shape == p.shape
+        assert torch.equal(got[name], again[name]), name
+    worst = max(float((got[k] - want[k]).abs().max())
+                / float(want[k].abs().max().clamp_min(1e-12)) for k in want)
+    assert worst <= tol
