@@ -249,6 +249,21 @@ Phases, each fatal on failure:
      --no_kernel (2 launches of each kernel a step, held-out PSNRs within
      1 dB); one stacked call of two 32x256 nets against two single-scene
      launches, bit for bit.
+ 18. the fused MLP kernels on the shallow wide nets the JAX package runs
+     through Pallas ("shallow"): the forward and the backward's three
+     kernels at 1x1696, 2x1312 and 5x864 in bf16, 1x1472, 3x960 and 5x752
+     in hi_lo and 2x1024 (CLI shapes, random weights as initialised;
+     forward tiles of 32 and 16 points, phase-1 tiles of 32 and 16, passes
+     of 128 columns at 1x1472 hi_lo), at the train fine call's 131,072
+     points, against their plain versions at phase 16's bars (each alone
+     and the backward whole, the hi_lo bf16 control above its bar),
+     repeat runs bit-identical, timed beside their bounds and the module
+     path, and a differentiated call of each through fused_nerf_mlp with
+     its launches counted; the train CLI at --netdepth 2 --netwidth 1024
+     for 300 steps, through the kernels and with --no_kernel (2 launches
+     of each kernel a step, held-out PSNR >= 20 dB and within 1 dB); one
+     stacked call of two 2x1024 nets against two single-scene launches,
+     bit for bit.
 Then it prints the kernels' JSON line, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Weights are random, from a seed.
 It exits non-zero, printing no result, without a CUDA device.
@@ -258,7 +273,9 @@ It exits non-zero, printing no result, without a CUDA device.
 ``--only jpeg`` the build and phase 14;
 ``--only finish`` the build, phases 5, 6 and 7 and phase 15;
 ``--only wide`` the build and phase 16;
-``--only deep`` the build and phase 17.
+``--only deep`` the build and phase 17;
+``--only shallow`` the build and phase 18.
+Plain versions are timed once: their times are no yardstick.
 """
 
 import contextlib
@@ -447,7 +464,7 @@ def serving_points(n_samples, cfg, n_rays=TILE):
 
 
 def check_kernel(net, cfg, pts, dirs, label, time_it, hi_lo=False,
-                 iters=10, plain_iters=3, held=True):
+                 iters=10, plain_iters=1, held=True):
     """Kernel vs plain on the same inputs; returns a result record.
     ``hi_lo``: fp32_precision="high", three bf16 products per matmul. With
     ``time_it`` the module path that use_kernel=False takes for the same
@@ -587,7 +604,7 @@ def bound(flops, nbytes):
 
 
 def check_backward(net, cfg, pts, dirs, label, time_it, hi_lo=False,
-                   iters=10, plain_iters=3, phase_rows=None):
+                   iters=10, plain_iters=1, phase_rows=None):
     """The backward (both phases + reduction) vs the plain backward on the
     same inputs and a cotangent from a seeded loss, per parameter (max
     |err| / max |plain|); a repeat run must give the same bits. In hi_lo
@@ -804,7 +821,7 @@ def heads_forced(packed, ws, n):
 
 
 def check_phases(net, packed, pts, dirs, g, label, iters=10,
-                 plain_iters=3, forced=False):
+                 plain_iters=1, forced=False):
     """Each kernel of the backward alone, against its plain version on the
     same inputs, and timed: phase 1's workspace (per matrix, relative L2
     over the n rows; ``forced``: against phase1_forced, each matrix from
@@ -4889,6 +4906,136 @@ WIDE_HI_LO_STEPS = 100             # takes this many steps
 WIDE_SCENES = 2                    # the stacked call's scenes, at 8x512
 
 
+def module_bwd_ms(net, cfg, pts, dirs, hi_lo, iters):
+    """Milliseconds of autograd's backward through the nn.Linear net (the
+    module path's backward, bf16 or fp32 as the mode) on the same call."""
+    import torch
+
+    from nerfmlp_torch.ops.encoding import positional_encoding
+
+    dt = torch.float32 if hi_lo else torch.bfloat16
+    params = list(net.parameters())
+    out = net(positional_encoding(pts, cfg.pos_enc_L), dirs, compute_dtype=dt)
+    g = torch.ones_like(out)
+    return cuda_ms(lambda: torch.autograd.grad(out, params, g,
+                                               retain_graph=True),
+                   iters=iters)
+
+
+def call_launches(net, pts, dirs, cfg):
+    """The launches of each of the four kernels in one differentiated call
+    through fused_nerf_mlp (the train step's entry), the counts set to 0
+    just before; every gradient must be finite."""
+    import torch
+
+    from nerfmlp_torch.ops import fused_mlp
+
+    counters = (fused_mlp.fused_nerf_mlp, fused_mlp.bwd_workspace,
+                fused_mlp.weight_grads, fused_mlp.reduce_partials)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    (fused_mlp.fused_nerf_mlp(net, pts, dirs, cfg) ** 2).mean().backward()
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(p.grad).all() for p in net.parameters()):
+        raise SystemExit("a differentiated call gave a gradient that is "
+                         "not finite")
+    return [c.launches for c in counters]
+
+
+def times_line(c):
+    """A net's check {"fwd", "bwd", "phase1", "phase2", "reduce"}: each
+    time beside its bound, the plain version and the module path."""
+    fwd, bwd = c["fwd"], c["bwd"]
+    return (f"forward {fwd['ms']:.3f} ms (bound {fwd['bound_ms']:.3f}, plain "
+            f"{fwd['plain_ms']:.3f}, module path {fwd['module_ms']:.3f}); "
+            f"backward {bwd['ms']:.3f} ms (bound {bwd['bound_ms']:.3f}, plain "
+            f"{bwd['plain_ms']:.3f}, autograd through the module "
+            f"{bwd['module_bwd_ms']:.3f}): phase 1 {c['phase1']['ms']:.3f} "
+            f"(bound {c['phase1']['bound_ms']:.3f}), phase 2 "
+            f"{c['phase2']['ms']:.3f} (bound {c['phase2']['bound_ms']:.3f}), "
+            f"reduction {c['reduce']['ms']:.4f} (bound "
+            f"{c['reduce']['bound_ms']:.4f})")
+
+
+KERNEL_RECORDS = (
+    ("fused_mlp_fwd", "fused_mlp_fwd.cu", "pallas_mlp.py:264", "fwd"),
+    ("fused_mlp_bwd_phase1", "fused_mlp_bwd.cu", "pallas_mlp.py:312",
+     "phase1"),
+    ("fused_mlp_bwd_phase2", "fused_mlp_bwd.cu", "pallas_mlp.py:386",
+     "phase2"),
+    ("fused_mlp_bwd_reduce", "fused_mlp_bwd.cu", "pallas_mlp.py:327",
+     "reduce"))
+
+
+def kernel_records(suffix, path, c, launches):
+    """The four kernels' records of one net's check ``c`` on ``path``,
+    named ``<kernel>_<suffix>``, with ``launches`` of each; the module
+    path's forward time beside the forward, autograd's backward beside
+    phase 1 where the check timed them."""
+    recs = []
+    for (name, source, replaces, key), n in zip(KERNEL_RECORDS, launches):
+        r = c[key]
+        rec = {"name": f"{name}_{suffix}", "path": path, "route": "cuda",
+               "source": "nerfmlp_torch/csrc/" + source,
+               "replaces": "nerfmlp_tpu/ops/" + replaces, "launches": n,
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
+        if "module_ms" in r:
+            rec["module_ms"] = r["module_ms"]
+        if key == "phase1" and "module_bwd_ms" in c["bwd"]:
+            rec["module_bwd_ms"] = c["bwd"]["module_bwd_ms"]
+        recs.append(rec)
+    return recs
+
+
+def arch_train(tag, flags, steps, card, floor=True):
+    """The train CLI with ``flags`` (an architecture and mode) for
+    ``steps`` steps on phase 5's synthetic scene, through the kernels and
+    with --no_kernel: exactly 2 launches of each of the four kernels a
+    step (none on the plain run), held-out PSNRs within PSNR_GAP of each
+    other and (``floor``) >= PSNR_MIN. Returns (the kernel run's launches,
+    its Trainer)."""
+    scene = os.path.join(SMOKE_DIR, "scene")
+    if not os.path.exists(os.path.join(scene, "transforms_train.json")):
+        make_scene()
+    root = os.path.join(SMOKE_DIR, tag, "_".join(f.lstrip("-")
+                                                 for f in flags))
+    shutil.rmtree(root, ignore_errors=True)
+    runs = {}
+    for name, extra in (("kernel", []), ("plain", ["--no_kernel"])):
+        # A quick validation at half way and at the end (the CLI records
+        # the mean loss of the steps before each).
+        argv = ["--datadir", scene, "--img_wh", str(TRAIN_WH), str(TRAIN_WH),
+                "--iters", str(steps), *flags,
+                "--quick_val_interval", str(steps // 2), "--quick_val_res",
+                str(TRAIN_WH), str(TRAIN_WH),
+                "--save_dir", os.path.join(root, name), *extra]
+        runs[name] = train_cli_run(f"{tag} {' '.join(flags)} {name}", argv,
+                                   steps)
+    metrics, launches, step_fwd, wall, trainer = runs["kernel"]
+    plain_metrics, plain_launches = runs["plain"][:2]
+    psnr = metrics["final_val"]["psnr"]
+    plain = plain_metrics["final_val"]["psnr"]
+    want = 2 * steps
+    label = " ".join(flags)
+    print(f"[{tag}] {label}: {steps} steps, {1e3 * wall / steps:.2f} ms a "
+          f"step (--no_kernel {1e3 * runs['plain'][3] / steps:.2f}); "
+          f"held-out PSNR {psnr:.2f} dB vs --no_kernel {plain:.2f} dB ("
+          + (f"floor {PSNR_MIN}, " if floor else "")
+          + f"gap {PSNR_GAP}); step launches {step_fwd} forward, "
+          f"{launches[1:]} backward (want {want} each); --no_kernel "
+          f"{plain_launches} | {card}")
+    if not (step_fwd == want and launches[1:] == [want] * 3
+            and plain_launches == [0, 0, 0, 0]
+            and (psnr >= PSNR_MIN or not floor)
+            and abs(psnr - plain) <= PSNR_GAP):
+        raise SystemExit(f"[{tag}] the {label} train CLI runs failed their "
+                         "checks")
+    return [step_fwd, *launches[1:]], trainer
+
+
 def wide_check(width, hi_lo, pts, dirs, card):
     """One wide net (depth 8, CLI shapes, random weights from the seed) at
     the train fine call's points: the forward and the backward's three
@@ -4901,7 +5048,6 @@ def wide_check(width, hi_lo, pts, dirs, card):
 
     from nerfmlp_torch.models.mlp import init_model
     from nerfmlp_torch.ops import fused_mlp
-    from nerfmlp_torch.ops.encoding import positional_encoding
 
     cfg = dataclasses.replace(slice_config(), width=width)
     mc = cfg.model_config()
@@ -4911,7 +5057,7 @@ def wide_check(width, hi_lo, pts, dirs, card):
     print(f"[wide] {label} budget: forward {flay.rows}-point tiles, "
           f"{flay.stages} stages, {flay.smem} B; phase 1 {lay.rows}-point "
           f"tiles, {lay.stages} stages, {lay.smem} B, "
-          f"{fused_mlp.backward_counts(mc, True)[0]} operations, "
+          f"{fused_mlp.backward_counts(mc, True, hi_lo)[0]} operations, "
           f"{fused_mlp.bwd_scratch_bytes(mc, True, hi_lo)} B of workspace a "
           f"point; fits {fused_mlp.kernel_fits(mc, True, hi_lo)} / "
           f"{fused_mlp.backward_fits(mc, True, hi_lo)}")
@@ -4920,67 +5066,11 @@ def wide_check(width, hi_lo, pts, dirs, card):
                        hi_lo=hi_lo)
     bwd, phases = check_backward(net, cfg, pts, dirs, f"wide {label}",
                                  time_it=True, hi_lo=hi_lo)
-    dt = torch.float32 if hi_lo else torch.bfloat16
-    params = list(net.parameters())
-    out = net(positional_encoding(pts, cfg.pos_enc_L), dirs, compute_dtype=dt)
-    g = torch.ones_like(out)
-    bwd["module_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
-        out, params, g, retain_graph=True), iters=5)
-    del out, g
-    print(f"[wide] {label}: forward {fwd['ms']:.3f} ms (bound "
-          f"{fwd['bound_ms']:.3f}, plain {fwd['plain_ms']:.3f}, module path "
-          f"{fwd['module_ms']:.3f}); backward {bwd['ms']:.3f} ms (bound "
-          f"{bwd['bound_ms']:.3f}, plain {bwd['plain_ms']:.3f}, autograd "
-          f"through the module {bwd['module_bwd_ms']:.3f}): phase 1 "
-          f"{phases['phase1']['ms']:.3f} (bound "
-          f"{phases['phase1']['bound_ms']:.3f}), phase 2 "
-          f"{phases['phase2']['ms']:.3f} (bound "
-          f"{phases['phase2']['bound_ms']:.3f}), reduction "
-          f"{phases['reduce']['ms']:.4f} (bound "
-          f"{phases['reduce']['bound_ms']:.4f}) | {card}")
+    bwd["module_bwd_ms"] = module_bwd_ms(net, cfg, pts, dirs, hi_lo, 5)
+    c = {"fwd": fwd, "bwd": bwd, **phases}
+    print(f"[wide] {label}: {times_line(c)} | {card}")
     torch.cuda.empty_cache()
-    return {"fwd": fwd, "bwd": bwd, **phases}
-
-
-def wide_train(scene, width, hi_lo, steps, card):
-    """The train CLI at --netwidth ``width`` (hi_lo: --compute_dtype
-    float32 --fp32_precision high) for ``steps`` steps on the synthetic
-    scene, through the kernels and with --no_kernel: exactly 2 launches
-    of each of the four kernels a step (none on the plain run), held-out
-    PSNR >= PSNR_MIN and within PSNR_GAP of --no_kernel. Returns (the
-    kernel run's launches, its Trainer)."""
-    root = os.path.join(SMOKE_DIR, "wide", f"{width}{'_hi_lo' if hi_lo else ''}")
-    shutil.rmtree(root, ignore_errors=True)
-    mode = (["--compute_dtype", "float32", "--fp32_precision", "high"]
-            if hi_lo else [])
-    runs = {}
-    for name, extra in (("kernel", []), ("plain", ["--no_kernel"])):
-        # A quick validation at half way and at the end (the CLI records
-        # the mean loss of the steps before each).
-        argv = ["--datadir", scene, "--img_wh", str(TRAIN_WH), str(TRAIN_WH),
-                "--iters", str(steps), "--netwidth", str(width),
-                "--quick_val_interval", str(steps // 2), "--quick_val_res",
-                str(TRAIN_WH), str(TRAIN_WH),
-                "--save_dir", os.path.join(root, name), *mode, *extra]
-        runs[name] = train_cli_run(f"wide {width} {name}", argv, steps)
-    metrics, launches, step_fwd, wall, trainer = runs["kernel"]
-    plain_metrics, plain_launches = runs["plain"][:2]
-    psnr = metrics["final_val"]["psnr"]
-    plain = plain_metrics["final_val"]["psnr"]
-    want = 2 * steps
-    label = f"--netwidth {width}{' hi_lo' if hi_lo else ''}"
-    print(f"[wide] {label}: {steps} steps, {1e3 * wall / steps:.2f} ms a step "
-          f"(--no_kernel {1e3 * runs['plain'][3] / steps:.2f}); held-out "
-          f"PSNR {psnr:.2f} dB vs --no_kernel {plain:.2f} dB (floor "
-          f"{PSNR_MIN}, gap {PSNR_GAP}); step launches {step_fwd} forward, "
-          f"{launches[1:]} backward (want {want} each); --no_kernel "
-          f"{plain_launches} | {card}")
-    if not (step_fwd == want and launches[1:] == [want] * 3
-            and plain_launches == [0, 0, 0, 0] and psnr >= PSNR_MIN
-            and abs(psnr - plain) <= PSNR_GAP):
-        raise SystemExit(f"[wide] the {label} train CLI runs failed their "
-                         "checks")
-    return [step_fwd, *launches[1:]], trainer
+    return c
 
 
 def wide_serve(trainer, card):
@@ -5048,12 +5138,12 @@ def phase_wide(card):
         checks[width, hi_lo] = wide_check(width, hi_lo, pts, dirs, card)
     del pts, dirs
     t1 = time.perf_counter()
-    scene = os.path.join(SMOKE_DIR, "scene")
-    if not os.path.exists(os.path.join(scene, "transforms_train.json")):
-        make_scene()
-    bf16_launches, _ = wide_train(scene, WIDE_TRAIN, False, TRAIN_STEPS, card)
-    hi_lo_launches, trainer = wide_train(scene, WIDE_HI_LO_TRAIN, True,
-                                         WIDE_HI_LO_STEPS, card)
+    bf16_launches, _ = arch_train("wide", ["--netwidth", str(WIDE_TRAIN)],
+                                  TRAIN_STEPS, card)
+    hi_lo_launches, trainer = arch_train(
+        "wide", ["--netwidth", str(WIDE_HI_LO_TRAIN), "--compute_dtype",
+                 "float32", "--fp32_precision", "high"],
+        WIDE_HI_LO_STEPS, card)
     t2 = time.perf_counter()
     wide_serve(trainer, card)
     del trainer
@@ -5073,26 +5163,7 @@ def phase_wide(card):
     for path, key, launches in (
             ("wide", (WIDE_TRAIN, False), bf16_launches),
             ("wide_hi_lo", (WIDE_HI_LO_TRAIN, True), hi_lo_launches)):
-        c = checks[key]
-        for (name, source, replaces), r, n in zip(
-                (("fused_mlp_fwd", "fused_mlp_fwd.cu", "pallas_mlp.py:264"),
-                 ("fused_mlp_bwd_phase1", "fused_mlp_bwd.cu",
-                  "pallas_mlp.py:312"),
-                 ("fused_mlp_bwd_phase2", "fused_mlp_bwd.cu",
-                  "pallas_mlp.py:386"),
-                 ("fused_mlp_bwd_reduce", "fused_mlp_bwd.cu",
-                  "pallas_mlp.py:327")),
-                (c["fwd"], c["phase1"], c["phase2"], c["reduce"]), launches):
-            rec = {"name": f"{name}_{path}", "path": path, "route": "cuda",
-                   "source": "nerfmlp_torch/csrc/" + source,
-                   "replaces": "nerfmlp_tpu/ops/" + replaces, "launches": n,
-                   "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                   "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                   "bound_by": r["bound_by"],
-                   "library_ms": r.get("library_ms")}
-            if "module_ms" in r:
-                rec["module_ms"] = r["module_ms"]
-            recs.append(rec)
+        recs += kernel_records(path, path, checks[key], launches)
     return recs
 
 
@@ -5157,7 +5228,6 @@ def deep_check(depth, width, hi_lo, pts, dirs, card):
     import torch
 
     from nerfmlp_torch.ops import fused_mlp
-    from nerfmlp_torch.ops.encoding import positional_encoding
 
     cfg = dataclasses.replace(slice_config(), depth=depth, width=width)
     mc = cfg.model_config()
@@ -5211,83 +5281,20 @@ def deep_check(depth, width, hi_lo, pts, dirs, card):
                                  iters=DEEP_ITERS,
                                  plain_iters=DEEP_PLAIN_ITERS,
                                  phase_rows=chunk)
-    dt = torch.float32 if hi_lo else torch.bfloat16
-    params = list(net.parameters())
-    out = net(positional_encoding(pts, cfg.pos_enc_L), dirs, compute_dtype=dt)
-    g = torch.ones_like(out)
-    bwd["module_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
-        out, params, g, retain_graph=True), iters=DEEP_ITERS)
-    del out, g
-    counters = (fused_mlp.fused_nerf_mlp, fused_mlp.bwd_workspace,
-                fused_mlp.weight_grads, fused_mlp.reduce_partials)
-    for c in counters:
-        c.launches = 0
-    torch.cuda.synchronize()
-    (fused_mlp.fused_nerf_mlp(net, pts, dirs, kcfg) ** 2).mean().backward()
-    torch.cuda.synchronize()
-    launches = [c.launches for c in counters]
+    bwd["module_bwd_ms"] = module_bwd_ms(net, cfg, pts, dirs, hi_lo,
+                                         DEEP_ITERS)
+    launches = call_launches(net, pts, dirs, kcfg)
     chunks = -(-pts.shape[0] // chunk)
-    if launches != [1, chunks, chunks, 1] or not all(
-            torch.isfinite(p.grad).all() for p in params):
+    if launches != [1, chunks, chunks, 1]:
         raise SystemExit(f"[deep] {label}: the differentiated call launched "
                          f"{launches}, want [1, {chunks}, {chunks}, 1]")
-    print(f"[deep] {label}: forward {fwd['ms']:.3f} ms (bound "
-          f"{fwd['bound_ms']:.3f}, plain {fwd['plain_ms']:.3f}, module path "
-          f"{fwd['module_ms']:.3f}), repeat bit-identical; backward "
-          f"{bwd['ms']:.3f} ms (bound {bwd['bound_ms']:.3f}, plain "
-          f"{bwd['plain_ms']:.3f}, autograd through the module "
-          f"{bwd['module_bwd_ms']:.3f}): phase 1 "
-          f"{phases['phase1']['ms']:.3f} (bound "
-          f"{phases['phase1']['bound_ms']:.3f}), phase 2 "
-          f"{phases['phase2']['ms']:.3f} (bound "
-          f"{phases['phase2']['bound_ms']:.3f}), reduction "
-          f"{phases['reduce']['ms']:.4f} (bound "
-          f"{phases['reduce']['bound_ms']:.4f}) on a chunk of "
+    c = {"fwd": fwd, "bwd": bwd, **phases, "launches": launches}
+    print(f"[deep] {label}: {times_line(c)} on a chunk of "
           f"{min(chunk, pts.shape[0])} points; a differentiated call "
           f"launched {launches} | {card}")
-    del net, params
+    del net
     torch.cuda.empty_cache()
-    return {"fwd": fwd, "bwd": bwd, **phases, "launches": launches}
-
-
-def deep_train(scene, card):
-    """The train CLI at --netdepth DEEP_TRAIN (width 256) for TRAIN_STEPS
-    steps on the synthetic scene, through the kernels and with
-    --no_kernel: exactly 2 launches of each of the four kernels a step
-    (none on the plain run), the held-out PSNRs within PSNR_GAP of each
-    other. (The CLI's lecun-normal trunk with zero biases shrinks its
-    activations ~1e4 by layer 32, on both paths alike, so this run shows
-    the kernels on the train path, not a trained net: the deep kernels'
-    gradients are held in deep_check.) Returns the kernel run's
-    launches."""
-    root = os.path.join(SMOKE_DIR, "deep", str(DEEP_TRAIN))
-    shutil.rmtree(root, ignore_errors=True)
-    runs = {}
-    for name, extra in (("kernel", []), ("plain", ["--no_kernel"])):
-        argv = ["--datadir", scene, "--img_wh", str(TRAIN_WH), str(TRAIN_WH),
-                "--iters", str(TRAIN_STEPS), "--netdepth", str(DEEP_TRAIN),
-                "--quick_val_interval", str(TRAIN_STEPS // 2),
-                "--quick_val_res", str(TRAIN_WH), str(TRAIN_WH),
-                "--save_dir", os.path.join(root, name), *extra]
-        runs[name] = train_cli_run(f"deep {DEEP_TRAIN} {name}", argv,
-                                   TRAIN_STEPS)
-    metrics, launches, step_fwd, wall, _ = runs["kernel"]
-    plain_metrics, plain_launches = runs["plain"][:2]
-    psnr = metrics["final_val"]["psnr"]
-    plain = plain_metrics["final_val"]["psnr"]
-    want = 2 * TRAIN_STEPS
-    print(f"[deep] --netdepth {DEEP_TRAIN}: {TRAIN_STEPS} steps, "
-          f"{1e3 * wall / TRAIN_STEPS:.2f} ms a step (--no_kernel "
-          f"{1e3 * runs['plain'][3] / TRAIN_STEPS:.2f}); held-out PSNR "
-          f"{psnr:.2f} dB vs --no_kernel {plain:.2f} dB (gap {PSNR_GAP}); "
-          f"step launches {step_fwd} forward, {launches[1:]} backward (want "
-          f"{want} each); --no_kernel {plain_launches} | {card}")
-    if not (step_fwd == want and launches[1:] == [want] * 3
-            and plain_launches == [0, 0, 0, 0]
-            and abs(psnr - plain) <= PSNR_GAP):
-        raise SystemExit(f"[deep] the --netdepth {DEEP_TRAIN} train CLI runs "
-                         "failed their checks")
-    return [step_fwd, *launches[1:]]
+    return c
 
 
 def phase_deep(card):
@@ -5301,10 +5308,12 @@ def phase_deep(card):
     pts, dirs = serving_points(cfg.N_importance, cfg, n_rays=TRAIN_RAYS)
     checks = {net: deep_check(*net, pts, dirs, card) for net in DEEP_NETS}
     t1 = time.perf_counter()
-    scene = os.path.join(SMOKE_DIR, "scene")
-    if not os.path.exists(os.path.join(scene, "transforms_train.json")):
-        make_scene()
-    launches = deep_train(scene, card)
+    # No PSNR floor: the CLI's lecun-normal trunk with zero biases shrinks
+    # its activations ~1e4 by layer 32, on both paths alike, so this run
+    # shows the kernels on the train path, not a trained net (the deep
+    # kernels' gradients are held in deep_check).
+    launches, _ = arch_train("deep", ["--netdepth", str(DEEP_TRAIN)],
+                             TRAIN_STEPS, card, floor=False)
     t2 = time.perf_counter()
     dcfg = dataclasses.replace(cfg, depth=DEEP_TRAIN)
     nets = [deep_net(dcfg, SEED + s) for s in range(DEEP_SCENES)]
@@ -5317,33 +5326,132 @@ def phase_deep(card):
           f"{time.perf_counter() - t2:.1f})")
     recs = []
     for (depth, width, hi_lo), c in checks.items():
-        tag = f"{depth}x{width}{'_hi_lo' if hi_lo else ''}"
         # The --netdepth 32 run's launches (its own net), else those of the
         # net's differentiated call through fused_nerf_mlp.
-        for (name, source, replaces), key, n in zip(
-                (("fused_mlp_fwd", "fused_mlp_fwd.cu", "pallas_mlp.py:264"),
-                 ("fused_mlp_bwd_phase1", "fused_mlp_bwd.cu",
-                  "pallas_mlp.py:312"),
-                 ("fused_mlp_bwd_phase2", "fused_mlp_bwd.cu",
-                  "pallas_mlp.py:386"),
-                 ("fused_mlp_bwd_reduce", "fused_mlp_bwd.cu",
-                  "pallas_mlp.py:327")),
-                ("fwd", "phase1", "phase2", "reduce"),
-                launches if (depth, width, hi_lo) == (DEEP_TRAIN, 256, False)
-                else c["launches"]):
-            r = c[key]
-            rec = {"name": f"{name}_deep_{tag}", "path": "deep",
-                   "route": "cuda", "source": "nerfmlp_torch/csrc/" + source,
-                   "replaces": "nerfmlp_tpu/ops/" + replaces, "launches": n,
-                   "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                   "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                   "bound_by": r["bound_by"],
-                   "library_ms": r.get("library_ms")}
-            if key == "fwd":
-                rec["module_ms"] = r["module_ms"]
-            elif key == "phase1":
-                rec["module_bwd_ms"] = c["bwd"]["module_bwd_ms"]
-            recs.append(rec)
+        recs += kernel_records(
+            f"deep_{depth}x{width}{'_hi_lo' if hi_lo else ''}", "deep", c,
+            launches if (depth, width, hi_lo) == (DEEP_TRAIN, 256, False)
+            else c["launches"])
+    return recs
+
+
+# --------------------------------------------------------------------- #
+# Phase 18: the fused MLP kernels on the shallow wide nets the JAX package
+# runs through Pallas ("shallow")
+# --------------------------------------------------------------------- #
+# (depth, width, hi_lo) at CLI shapes: JAX's widest bf16 net (1x1696:
+# 16-point tiles of both kernels), its widest at depth 2 and 5, JAX's
+# widest hi_lo net (1x1472: phase 1's passes of 128 columns), its widest
+# hi_lo at depth 3, and 5x752 hi_lo. The bf16 forward takes 32-point
+# tiles past width 784 (16 at 1x1696), the hi_lo forward 16-point tiles.
+SHALLOW_NETS = ((1, 1696, False), (2, 1312, False), (5, 864, False),
+                (1, 1472, True), (3, 960, True), (5, 752, True))
+SHALLOW_TRAIN = (2, 1024)          # --netdepth, --netwidth of the train CLI
+SHALLOW_SCENES = 2                 # the stacked call's scenes, at 2x1024
+
+
+def shallow_check(depth, width, hi_lo, pts, dirs, card):
+    """One shallow wide net (CLI shapes, random weights from the seed, as
+    initialised: a shallow trunk keeps its activations alive) at the train
+    fine call's points: the forward (twice, bit-identical) and the
+    backward's three kernels against their plain versions, alone and the
+    backward whole (repeat bit-identical), at the wide phase's bars end to
+    end; beside each kernel's time its bound and the module path on the
+    same call; then the launches of one differentiated call
+    (call_launches). Returns {"fwd", "bwd", "phase1", "phase2", "reduce",
+    "launches"}."""
+    import torch
+
+    from nerfmlp_torch.models.mlp import init_model
+    from nerfmlp_torch.ops import fused_mlp
+
+    cfg = dataclasses.replace(slice_config(), depth=depth, width=width)
+    mc = cfg.model_config()
+    lay = fused_mlp._bwd_layout(mc, True, hi_lo)
+    flay = fused_mlp._fwd_layout(mc, True, hi_lo)
+    chunk = fused_mlp.bwd_chunk_rows(mc, True, hi_lo)
+    label = f"{depth}x{width}{' hi_lo' if hi_lo else ''}"
+    print(f"[shallow] {label} budget: forward {flay.rows}-point tiles, "
+          f"{flay.stages} stages, {flay.smem} B; phase 1 {lay.rows}-point "
+          f"tiles, passes of {lay.pass_cols} columns, {lay.stages} stages, "
+          f"{lay.smem} B, {fused_mlp.backward_counts(mc, True, hi_lo)} "
+          f"(operations, matrices), "
+          f"{fused_mlp.bwd_scratch_bytes(mc, True, hi_lo)} B of workspace a "
+          f"point, chunks of {chunk} points; fits "
+          f"{fused_mlp.kernel_fits(mc, True, hi_lo)} / "
+          f"{fused_mlp.backward_fits(mc, True, hi_lo)}")
+    if pts.shape[0] > chunk:
+        raise SystemExit(f"[shallow] {label}: the call is cut into chunks "
+                         f"of {chunk} points; the phases are checked whole")
+    net = init_model(mc, seed=SEED + depth + width, device="cuda")
+    fwd = check_kernel(net, cfg, pts, dirs, f"shallow {label}", time_it=True,
+                       hi_lo=hi_lo, iters=DEEP_ITERS,
+                       plain_iters=DEEP_PLAIN_ITERS)
+    kcfg = (dataclasses.replace(cfg, compute_dtype="float32",
+                                fp32_precision="high") if hi_lo else cfg)
+    packed = fused_mlp.pack_params(net, cfg.pos_enc_L, True, hi_lo)
+    with torch.no_grad():
+        same = torch.equal(fused_mlp.fused_nerf_mlp(packed, pts, dirs, kcfg),
+                           fused_mlp.fused_nerf_mlp(packed, pts, dirs, kcfg))
+    if not same:
+        raise SystemExit(f"[shallow] {label}: two runs of the forward differ")
+    del packed
+    bwd, phases = check_backward(net, cfg, pts, dirs, f"shallow {label}",
+                                 time_it=True, hi_lo=hi_lo, iters=DEEP_ITERS,
+                                 plain_iters=DEEP_PLAIN_ITERS)
+    bwd["module_bwd_ms"] = module_bwd_ms(net, cfg, pts, dirs, hi_lo,
+                                         DEEP_ITERS)
+    launches = call_launches(net, pts, dirs, kcfg)
+    if launches != [1, 1, 1, 1]:
+        raise SystemExit(f"[shallow] {label}: the differentiated call "
+                         f"launched {launches}, want [1, 1, 1, 1]")
+    c = {"fwd": fwd, "bwd": bwd, **phases, "launches": launches}
+    print(f"[shallow] {label}: {times_line(c)}; the forward's repeat "
+          f"bit-identical; a differentiated call launched {launches} | "
+          f"{card}")
+    del net
+    torch.cuda.empty_cache()
+    return c
+
+
+def phase_shallow(card):
+    """The fused MLP kernels on the shallow wide nets the JAX package runs
+    through Pallas (the module docstring, phase 18). Returns the kernels'
+    records: path shallow, for each net the launches of its differentiated
+    call, and for the train CLI's net (2x1024, timed at the train fine
+    call on random weights of its shape) those of the run."""
+    import torch
+
+    from nerfmlp_torch.models.mlp import init_model
+
+    t0 = time.perf_counter()
+    cfg = slice_config()
+    pts, dirs = serving_points(cfg.N_importance, cfg, n_rays=TRAIN_RAYS)
+    depth, width = SHALLOW_TRAIN
+    nets = SHALLOW_NETS + ((depth, width, False),)
+    checks = {net: shallow_check(*net, pts, dirs, card) for net in nets}
+    del pts, dirs
+    t1 = time.perf_counter()
+    train_launches, _ = arch_train(
+        "shallow", ["--netdepth", str(depth), "--netwidth", str(width)],
+        TRAIN_STEPS, card)
+    t2 = time.perf_counter()
+    scfg = dataclasses.replace(cfg, depth=depth, width=width)
+    stack = [init_model(scfg.model_config(), seed=SEED + s, device="cuda")
+             for s in range(SHALLOW_SCENES)]
+    check_stack(stack, scfg, cfg.N_samples, f"{depth}x{width}", card,
+                tag="shallow")
+    del stack
+    torch.cuda.empty_cache()
+    print(f"[shallow] phase took {time.perf_counter() - t0:.1f} s (kernels "
+          f"{t1 - t0:.1f}, train {t2 - t1:.1f}, stack "
+          f"{time.perf_counter() - t2:.1f})")
+    recs = []
+    for (d, w, hi_lo), c in checks.items():
+        recs += kernel_records(
+            f"shallow_{d}x{w}{'_hi_lo' if hi_lo else ''}", "shallow", c,
+            train_launches if (d, w, hi_lo) == (depth, width, False)
+            else c["launches"])
     return recs
 
 
@@ -5370,6 +5478,7 @@ def main():
     use_true_fp32()
     print(f"[device] {torch.cuda.get_device_name(0)} | torch "
           f"{torch.__version__} CUDA {torch.version.cuda}")
+    t_start = time.perf_counter()
     phase_build()
     if sys.argv[1:] == ["--only", "interchange"]:
         # Phase 12 alone, after the runs whose files it reads: phase 5's
@@ -5420,6 +5529,15 @@ def main():
         print(json.dumps({"kernels": phase_deep(card)}))
         print(card)
         return 0
+    if sys.argv[1:] == ["--only", "shallow"]:
+        # Phase 18 alone.
+        card = smi_line()
+        recs = phase_shallow(card)
+        print(f"[chip_smoke] build and phase 18 took "
+              f"{time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": recs}))
+        print(card)
+        return 0
     if sys.argv[1:] == ["--only", "multi_scene"]:
         # Phase 11 alone, after the single-scene run it is held against.
         train_ds, val_ds = make_scene()
@@ -5456,6 +5574,7 @@ def main():
     finish_recs = phase_finish(train_run, turbo_ckpt, card)
     wide_recs = phase_wide(card)
     deep_recs = phase_deep(card)
+    shallow_recs = phase_shallow(card)
 
     # The forward runs on both paths, at different shapes: one record per
     # path, each with that path's launches and its fine call's times, and
@@ -5643,12 +5762,19 @@ def main():
     # train CLI run (path deep, 32x256) or in one differentiated call of
     # each other deep net, timed at the train fine call.
     kernels += deep_recs
+    # The shallow wide nets (phase 18): each kernel's launches in the
+    # --netdepth 2 --netwidth 1024 train CLI run (2x1024) or in one
+    # differentiated call of each other shallow net, timed at the train
+    # fine call.
+    kernels += shallow_recs
     for rec in bwds + [occ["bwd probe"], occ["bwd refine"], occ["bwd hi_lo"],
                        llff["bwd"]]:
         print(f"[backward] {rec['label']} call, all three kernels: "
               f"{rec['ms']:.3f} ms ({rec['ms_no_spin']:.3f} ms without the "
               f"spin); bound {rec['bound_ms']:.3f} ms "
               f"({rec['bound_by']}), design floor {rec['floor_ms']:.3f} ms")
+    print(f"[chip_smoke] the whole script took "
+          f"{time.perf_counter() - t_start:.1f} s after the device check")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

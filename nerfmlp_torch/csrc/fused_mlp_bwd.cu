@@ -34,8 +34,14 @@
 //     Where a net's buffers and masks leave no room for two weight stages
 //     (wider than 256), the wrapper picks 64-, then 32-point tiles (hi_lo:
 //     32, then 16): at 8x512 bf16 64 points, at 8x640 32, at 8x384 hi_lo
-//     32, at 8x608 hi_lo 16. The weights then stream once per smaller
-//     tile: the price of fitting the activations in 227 KB.
+//     32, at 8x608 hi_lo 16; bf16 takes 16-point tiles at depth 1 from
+//     width 1552. The weights then stream once per smaller tile: the price
+//     of fitting the activations in 227 KB. At hi_lo 1x1456 and 1x1472
+//     even 16-point tiles leave no room for two 256-column stages of two
+//     planes; the wrapper cuts those nets' layers into passes of 128
+//     columns, whose stages and mask blocks are half as wide. The kernel
+//     takes a pass's width from its operation record and a stage's size
+//     from the header, so it needs nothing else for them.
 //   * Weights stream through a ring of 16-row k-slabs (3 stages at 8x256,
 //     2 in hi_lo) filled by cp.async two slabs (one in hi_lo) ahead of the
 //     product; one barrier per slab. The slab sequence runs across
@@ -800,7 +806,7 @@ int fused_mlp_bwd_constants(int* out, int len) {
   const int c[] = {kThreads,   kPad,        kMaxN,      kHeaderInts,
                    kMaxBufs,   kOpInts,     kTileK,     kTileN,
                    kStageRows, kStages2,    kJobInts,   kP1Threads,
-                   128, 64, 32, 64, 32, 16, 32};
+                   128, 64, 32, 16, 64, 32, 16, 32};
   const int count = static_cast<int>(sizeof(c) / sizeof(c[0]));
   for (int i = 0; i < len && i < count; ++i) out[i] = c[i];
   return count;
@@ -817,7 +823,7 @@ const char* fused_mlp_bwd_error_string(int code) {
 // s * b_stride elements; prog (device, int32): the program, whose first
 // prog_len ints go to shared memory: through the operation table, or the
 // header and buffer table alone; rows: the program's points per tile (128,
-// 64 or 32; hi_lo 64, 32 or 16), which with prog_len picks the kernel
+// 64, 32 or 16; hi_lo 64, 32 or 16), which with prog_len picks the kernel
 // (tables in device memory: 32, hi_lo 32 or 16); smem: the program's
 // shared-memory bytes; ws: the
 // workspace, rows_cap rows per matrix (>= n_scenes times scene_rows(n,
@@ -854,6 +860,7 @@ int fused_mlp_bwd_phase1(const void* pts, const void* dirs, const void* g,
   PHASE1(false, 128, true)
   PHASE1(false, 64, true)
   PHASE1(false, 32, true)
+  PHASE1(false, 16, true)
   PHASE1(true, 64, true)
   PHASE1(true, 32, true)
   PHASE1(true, 16, true)

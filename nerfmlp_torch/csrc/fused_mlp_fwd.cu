@@ -25,6 +25,10 @@
 //     points (64 in hi_lo, and where two 128-row activation buffers of the
 //     net's width do not fit shared memory, e.g. widths 320-768; 32 in
 //     hi_lo past width 320, where two planes of 64-row buffers do not).
+//     The shallow wide nets take smaller tiles still: bf16 32 points from
+//     width 784 and 16 at depth 1 from 1616, hi_lo 16 from 720 (up to the
+//     JAX gate's 1696 / 1472), where a larger tile's two activation
+//     buffers leave no room for two weight stages.
 //     Every block streams the ~1.19 MB of weights from L2 once per tile:
 //     9.3 KB per point, half of what the first 64-point, one-tile-per-block
 //     design read.
@@ -33,11 +37,12 @@
 //     ping-pong buffers for a layer's input and output. Only the output
 //     heads' real columns leave the block, straight from registers.
 //   * Each warp owns 32 x 64 of a 128 x 256 output pass (16 x 64 of a
-//     64 x 256 pass, 16 x 32 of a 32 x 256 one: mlp_tile.cuh's WarpGrid):
-//     mma.sync m16n8k16 bf16 into fp32 accumulators, A
-//     fragments from the activation buffers and B fragments from the weight
-//     ring, both by ldmatrix. A layer wider than 256 columns is cut into
-//     column passes by the Python wrapper, each a record of the program.
+//     64 x 256 pass, 16 x 32 of a 32 x 256 one, 16 x 16 of a 16 x 256 one:
+//     mlp_tile.cuh's WarpGrid): mma.sync m16n8k16 bf16 into fp32
+//     accumulators, A fragments from the activation buffers and B
+//     fragments from the weight ring, both by ldmatrix. A layer wider
+//     than 256 columns is cut into column passes by the Python wrapper,
+//     each a record of the program.
 //   * Weights stream through a cp.async ring of k-slabs: 32 rows per stage
 //     (16 in hi_lo, where the (hi, lo) planes take twice the room), up to
 //     4 stages as they fit. A narrow operation takes as many rows per
@@ -142,8 +147,11 @@ __device__ __forceinline__ void put(bf16* p, int plane, float v) {
   if (kHiLo) p[plane] = __float2bfloat16(v - __bfloat162float(h));
 }
 
-// kHiLo: (hi, lo) planes and three products. T: points per tile (128, 64
-// or 32; mlp_tile.cuh's WarpGrid<T> lays the 16 warps over it). KSUB:
+// kHiLo: (hi, lo) planes and three products. T: points per tile (128, 64,
+// 32 or 16; mlp_tile.cuh's WarpGrid<T> lays the 16 warps over it: at 16, 1
+// x 16 warps of 16 columns, one m16 tile each). Nothing else depends on T:
+// the slab loader's threads cover 16 rows of a stage whatever the tile,
+// and the epilogue masks the output rows at or past n per row. KSUB:
 // 16-row k-steps per ring stage of a full width operation.
 template <bool kHiLo, int T, int KSUB>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -444,9 +452,9 @@ const char* fused_mlp_fwd_error_string(int code) {
 // weights bf16 and biases fp32, scene s's at s * w_stride and s * b_stride
 // elements; out (n_scenes * n, out_w) fp32; prog (int32): the program,
 // whose first prog_len ints go to shared memory — all on the current
-// device. rows (128 or 64 points per tile; hi_lo 64 or 32) and ksub (2 or
-// 1 16-row k-steps per ring stage) pick the kernel; smem: the program's
-// shared-memory bytes. Launches `grid` persistent blocks on `stream`, does
+// device. rows (points per tile: 128, 64, 32 or 16; hi_lo 64, 32 or 16)
+// and ksub (16-row k-steps per ring stage: 2 or 1; 1 below 64 points and
+// in hi_lo) pick the kernel; smem: the program's shared-memory bytes. Launches `grid` persistent blocks on `stream`, does
 // not synchronise, allocates nothing; returns cudaGetLastError().
 int fused_mlp_fwd(const void* pts, const void* dirs, const void* weights,
                   const void* biases, void* out, int n, int n_scenes,
@@ -471,9 +479,12 @@ int fused_mlp_fwd(const void* pts, const void* dirs, const void* weights,
         grid, smem, s));
   FWD(true, 64, 1)
   FWD(true, 32, 1)
+  FWD(true, 16, 1)
   FWD(false, 128, 2)
   FWD(false, 64, 2)
   FWD(false, 64, 1)
+  FWD(false, 32, 1)
+  FWD(false, 16, 1)
 #undef FWD
   return static_cast<int>(cudaErrorInvalidValue);
 }

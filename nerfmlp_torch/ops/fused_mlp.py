@@ -92,14 +92,34 @@ BWD_TILE_N = 128        # phase 2: dW columns per block
 BWD_STAGE_ROWS = 64     # phase 2: points per ring stage
 BWD_STAGES2 = 3
 BWD_JOB_INTS = 10
-# Phase 1's points per tile, in the order tried: the first whose layout
-# holds two weight stages is taken (hi_lo: two bf16 planes per value).
-BWD_TILE_ROWS = (128, 64, 32)
+# Phase 1's points per tile, as built (hi_lo: two bf16 planes per value).
+BWD_TILE_ROWS = (128, 64, 32, 16)
 BWD_TILE_ROWS_HI_LO = (64, 32, 16)
 # ... and the largest tile at which the matrix and operation tables may
 # stay in device memory (a deep net's program, once its masks have taken
 # the tile down).
 BWD_DEVICE_TABLES_ROWS = 32
+# Phase 1's columns a pass where even 16-point tiles of 256-column passes
+# leave no room for two weight stages (hi_lo at depth 1 near JAX's widest,
+# 1456 and 1472): the ring's stages are half as wide, and so are the mask
+# blocks; the kernel reads a pass's width from its operation record and a
+# stage's size from the header.
+BWD_NARROW_N = 128
+# Phase 1's layouts in the order tried, (points per tile, matrix and
+# operation tables in shared memory, columns a pass): the first that holds
+# two weight stages is taken. The bf16 16-point tiles and the 128-column
+# passes come after the rest, so that every net an earlier entry takes
+# keeps its layout. Each entry has its kernel in fused_mlp_bwd.cu (no
+# net the JAX gate admits needs bf16 16-point tiles with the tables in
+# device memory, and none is built).
+BWD_TRIES = {
+    False: ((128, True, BWD_MAX_N), (64, True, BWD_MAX_N),
+            (32, True, BWD_MAX_N), (32, False, BWD_MAX_N),
+            (16, True, BWD_MAX_N)),
+    True: ((64, True, BWD_MAX_N), (32, True, BWD_MAX_N),
+           (16, True, BWD_MAX_N), (32, False, BWD_MAX_N),
+           (16, False, BWD_MAX_N), (16, True, BWD_NARROW_N)),
+}
 # How a call is cut: at most BWD_CHUNK_ROWS points of a scene per phase-1 /
 # phase-2 pair, fewer (a multiple of BWD_CHUNK_ALIGN) where a scene's
 # workspace would pass BWD_WS_BUDGET bytes; phase 2's rows split in up to
@@ -153,11 +173,11 @@ def forward_ops(mc: ModelConfig, vdirs: bool) -> int:
 @dataclasses.dataclass(frozen=True)
 class FwdLayout:
     """The forward kernel's shared memory for one architecture and mode:
-    ``rows`` points per tile (128, or 64), ``ksub`` 16-row k-steps per
-    weight-ring stage (2, or 1), the program's buffers as ``(name, (byte
-    offset, ld, cols))`` pairs in table order, the ring's byte offset, the
-    elements of a stage's hi slab, the ring's stages and the total
-    bytes."""
+    ``rows`` points per tile (bf16 128, 64, 32 or 16; hi_lo 64, 32 or 16),
+    ``ksub`` 16-row k-steps per weight-ring stage (2, or 1), the program's
+    buffers as ``(name, (byte offset, ld, cols))`` pairs in table order,
+    the ring's byte offset, the elements of a stage's hi slab, the ring's
+    stages and the total bytes."""
 
     rows: int
     ksub: int
@@ -168,18 +188,35 @@ class FwdLayout:
     smem: int
 
 
+# The forward's tiles in the order tried, (points per tile, 16-row k-steps
+# per ring stage), and the stages each group wants: bf16 takes the first
+# of its first three that holds three stages, else the first that holds
+# two; failing those, the first of 32- and 16-point tiles that holds two
+# (the shallow wide nets). hi_lo: the first that holds two. The later
+# groups come after, so that every net an earlier group takes keeps its
+# tile.
+FWD_TRIES = {
+    False: ((((128, 2), (64, 2), (64, 1)), (3, 2)),
+            (((32, 1), (16, 1)), (2,))),
+    True: ((((64, 1), (32, 1), (16, 1)), (2,)),),
+}
+
+
 @functools.lru_cache(maxsize=None)
 def _fwd_layout(mc: ModelConfig, vdirs: bool, hi_lo: bool) -> FwdLayout:
     """The program, then the buffers x (encoded points), d (encoded dirs),
     p0 / p1 (a layer's input and output, ping-pong), each ``rows`` rows of
     ``cols + PAD`` bf16 (two planes in hi_lo), then the weight ring with as
-    many stages (up to 4) as fit. bf16: the first of 128-point tiles with
-    32-row stages, 64-point tiles with 32-row stages and 64-point tiles
-    with 16-row stages that holds three stages, else the first that holds
-    two. hi_lo: 16-row stages, 64-point tiles where they hold two stages
-    (up to width 320), else 32-point tiles (widths 336-608). The program's
-    bytes (64 a layer) are the only bound on depth: at 866x16, 55 KB
-    beside 128-point tiles."""
+    many stages (up to 4) as fit, at the tiles of ``FWD_TRIES``. bf16:
+    128-point tiles with 32-row stages up to width 288, 64-point ones past
+    it, then (the shallow wide nets, 784 and wider) 32-point tiles with
+    16-row stages, and 16-point ones at depth 1 from 1616. hi_lo: 16-row
+    stages, 64-point tiles up to width 320, 32-point ones past it, and
+    16-point ones on the shallow wide nets (720 and wider). Where none
+    holds two stages, the last tried is returned
+    (:func:`forward_misfit` names it). The program's bytes (64 a layer)
+    are the only bound on depth: at 866x16, 55 KB beside 128-point
+    tiles."""
     planes = 2 if hi_lo else 1
     hid = _hidden_cols(mc, vdirs)
     pass_cols = min(FWD_MAX_N, max(_layer_widths(mc, vdirs)))
@@ -187,22 +224,25 @@ def _fwd_layout(mc: ModelConfig, vdirs: bool, hi_lo: bool) -> FwdLayout:
     cols = (("x", _pad16(mc.input_ch)),
             ("d", _pad16(mc.input_ch_views) if vdirs else 0),
             ("p0", hid), ("p1", hid))
-    layouts = []
-    for rows, ksub in (((64, 1), (32, 1)) if hi_lo
-                       else ((128, 2), (64, 2), (64, 1))):
-        off, bufs = prog, []
-        for name, c in cols:
-            bufs.append((name, (off, c + PAD, c)))
-            off += _align128(rows * (c + PAD) * 2 * planes) if c else 0
-        stage = 16 * ksub * (pass_cols + PAD)
-        stages = max(0, min(4, (SMEM_LIMIT - off) // (2 * stage * planes)))
-        layouts.append(FwdLayout(rows, ksub, tuple(bufs), off, stage, stages,
-                                 off + 2 * stage * planes * stages))
-    for want in ((2,) if hi_lo else (3, 2)):
-        for lay in layouts:
-            if lay.stages >= want:
-                return lay
-    return layouts[-1]
+    lay = None
+    for tiles, wants in FWD_TRIES[hi_lo]:
+        layouts = []
+        for rows, ksub in tiles:
+            off, bufs = prog, []
+            for name, c in cols:
+                bufs.append((name, (off, c + PAD, c)))
+                off += _align128(rows * (c + PAD) * 2 * planes) if c else 0
+            stage = 16 * ksub * (pass_cols + PAD)
+            ring = 2 * stage * planes
+            stages = max(0, min(4, (SMEM_LIMIT - off) // ring))
+            layouts.append(FwdLayout(rows, ksub, tuple(bufs), off, stage,
+                                     stages, off + ring * stages))
+        for want in wants:
+            for cand in layouts:
+                if cand.stages >= want:
+                    return cand
+        lay = layouts[-1]
+    return lay
 
 
 def _stage_rows(lay: FwdLayout, n: int, k: int) -> int:
@@ -253,9 +293,9 @@ def kernel_fits(mc: ModelConfig, vdirs: bool = True,
     return why is None
 
 
-def _passes(cols: int) -> int:
-    """Column passes of at most ``BWD_MAX_N`` over a layer of ``cols``."""
-    return -(-_pad16(cols) // BWD_MAX_N)
+def _passes(cols: int, pass_cols: int) -> int:
+    """Column passes of at most ``pass_cols`` over a layer of ``cols``."""
+    return -(-_pad16(cols) // pass_cols)
 
 
 def _bwd_mats(mc: ModelConfig, vdirs: bool) -> List[Tuple[str, int]]:
@@ -277,22 +317,30 @@ def _bwd_mats(mc: ModelConfig, vdirs: bool) -> List[Tuple[str, int]]:
     return mats + [(f"dacc{i}", w) for i in range(mc.depth - 1, -1, -1)]
 
 
-def backward_counts(mc: ModelConfig, vdirs: bool) -> Tuple[int, int]:
-    """(phase-1 operations, workspace matrices) for an architecture: a
-    pass of at most ``BWD_MAX_N`` columns over each recomputed forward
-    layer (the output heads excepted), the load of the cotangent, and a
-    pass over each dX output of the chain; the matrices of
-    :func:`_bwd_mats`."""
-    w = _passes(mc.width)
+def _backward_counts(mc: ModelConfig, vdirs: bool,
+                     pass_cols: int) -> Tuple[int, int]:
+    w = _passes(mc.width, pass_cols)
     fwd = mc.depth * w
     dx = (mc.depth - 1) * w
     if vdirs:
-        bott, view = _passes(mc.bottleneck_ch), _passes(mc.view_width)
+        bott = _passes(mc.bottleneck_ch, pass_cols)
+        view = _passes(mc.view_width, pass_cols)
         fwd += bott + view
         dx += view + bott + w
     else:
         dx += w
     return fwd + 1 + dx, len(_bwd_mats(mc, vdirs))
+
+
+def backward_counts(mc: ModelConfig, vdirs: bool,
+                    hi_lo: bool = False) -> Tuple[int, int]:
+    """(phase-1 operations, workspace matrices) for an architecture and
+    mode: a pass of at most the layout's columns (``BWD_MAX_N``, or
+    ``BWD_NARROW_N``) over each recomputed forward layer (the output heads
+    excepted), the load of the cotangent, and a pass over each dX output of
+    the chain; the matrices of :func:`_bwd_mats`."""
+    return _backward_counts(mc, vdirs,
+                            _bwd_layout(mc, vdirs, hi_lo).pass_cols)
 
 
 def _warp_grid(rows: int) -> Tuple[int, int, int, int]:
@@ -304,24 +352,25 @@ def _warp_grid(rows: int) -> Tuple[int, int, int, int]:
     return (rows // 64 if rows >= 64 else 1), wn, groups, 16 // groups
 
 
-def _mask_blocks(mc: ModelConfig, vdirs: bool, rows: int
+def _mask_blocks(mc: ModelConfig, vdirs: bool, rows: int, pass_cols: int
                  ) -> Tuple[Tuple[Tuple[Tuple[int, int], ...], ...], int]:
-    """Phase 1's ReLU masks at tiles of ``rows`` points: for each ReLU
-    layer's slot (trunk layer i, then the view layer), one block per
-    column pass as (its first mask word, the warp column groups it holds);
-    and the bytes of all blocks. A thread keeps the bits of its own (row,
-    column) positions, one word of ``columns a warp / 2`` bits per m16
-    tile, so a block of g column groups is ``32 x row groups x g x m16
-    tiles`` words. A pass holds the column groups its columns reach; a net
-    256 or more wide keeps one whole grid's block (``rows x 256`` bits)
-    per pass."""
-    m16, wn, groups, row_groups = _warp_grid(rows)
-    whole = mc.width >= BWD_MAX_N
+    """Phase 1's ReLU masks at tiles of ``rows`` points and passes of
+    ``pass_cols`` columns: for each ReLU layer's slot (trunk layer i, then
+    the view layer), one block per column pass as (its first mask word,
+    the warp column groups it holds); and the bytes of all blocks. A
+    thread keeps the bits of its own (row, column) positions, one word of
+    ``columns a warp / 2`` bits per m16 tile, so a block of g column
+    groups is ``32 x row groups x g x m16 tiles`` words. A pass holds the
+    column groups its columns reach; a net at least a pass wide keeps one
+    whole pass's block (``rows x pass_cols`` bits) per pass."""
+    m16, wn, _, row_groups = _warp_grid(rows)
+    groups = pass_cols // wn
+    whole = mc.width >= pass_cols
     slots, at = [], 0
     for cols in [mc.width] * mc.depth + ([mc.view_width] if vdirs else []):
         blocks = []
-        for c0 in range(0, _pad16(cols), BWD_MAX_N):
-            g = groups if whole else -(-min(BWD_MAX_N, _pad16(cols) - c0)
+        for c0 in range(0, _pad16(cols), pass_cols):
+            g = groups if whole else -(-min(pass_cols, _pad16(cols) - c0)
                                        // wn)
             blocks.append((at, g))
             at += 32 * row_groups * g * m16
@@ -363,14 +412,16 @@ def ws_rows(n: int, tile: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class BwdLayout:
     """Phase 1's shared memory for one architecture and mode: ``rows``
-    points per tile; ``prog_ints`` the program's ints copied into shared
-    memory (header, buffer, matrix and operation tables, or the header and
-    buffer table alone); the buffers as ``{name: (byte offset, ld,
-    cols)}``; the mask blocks' byte offset and their words per slot and
-    pass (:func:`_mask_blocks`); the weight ring's byte offset, the
-    elements of a stage's hi slab and its stages; the total bytes."""
+    points per tile; ``pass_cols`` the columns of a pass; ``prog_ints``
+    the program's ints copied into shared memory (header, buffer, matrix
+    and operation tables, or the header and buffer table alone); the
+    buffers as ``{name: (byte offset, ld, cols)}``; the mask blocks' byte
+    offset and their words per slot and pass (:func:`_mask_blocks`); the
+    weight ring's byte offset, the elements of a stage's hi slab and its
+    stages; the total bytes."""
 
     rows: int
+    pass_cols: int
     prog_ints: int
     bufs: Dict[str, Tuple[int, int, int]]
     mask_off: int
@@ -388,24 +439,26 @@ def _bwd_layout(mc: ModelConfig, vdirs: bool, hi_lo: bool) -> BwdLayout:
     laid over x when they fit there (x is dead by then), each ``rows``
     rows of ``cols + PAD`` bf16 (two planes in hi_lo); the mask blocks
     (one bit a value of a ReLU layer's column pass); the weight ring, with
-    as many stages (up to 4) of 16 rows of a pass as fit. The first tile
-    of ``BWD_TILE_ROWS`` (hi_lo: ``BWD_TILE_ROWS_HI_LO``) whose layout
-    holds two stages: 128 points (hi_lo 64) up to width 256 and wherever
-    else they fit, then 64, then 32, then (hi_lo) 16, with the whole
-    program in shared memory; failing those, the tiles of at most
+    as many stages (up to 4) of 16 rows of a pass as fit. The first entry
+    of ``BWD_TRIES`` whose layout holds two stages: 128 points (hi_lo 64)
+    up to width 256 and wherever else they fit, then 64, then 32, with
+    the whole program in shared memory; then the tiles of at most
     ``BWD_DEVICE_TABLES_ROWS`` points with only its header and buffer
     table there (a deep net: the kernel then reads the matrix and
-    operation tables from device memory)."""
+    operation tables from device memory); then bf16 16-point tiles (depth
+    1 from width 1552), and last passes of ``BWD_NARROW_N`` columns (hi_lo
+    1x1456 and 1x1472: a 256-column stage of two planes does not fit
+    twice). Where none holds two stages, the last tried is returned
+    (:func:`backward_misfit` names it)."""
     planes = 2 if hi_lo else 1
-    n_ops, n_mats = backward_counts(mc, vdirs)
-    whole = BWD_TABLES_BASE + 2 * n_mats + BWD_OP_INTS * n_ops
+    n_mats = len(_bwd_mats(mc, vdirs))
     hid = _hidden_cols(mc, vdirs)
-    stage = BWD_SLAB_K * (min(hid, BWD_MAX_N) + PAD)
     layout = None
-    tiles = BWD_TILE_ROWS_HI_LO if hi_lo else BWD_TILE_ROWS
-    for prog_ints, rows in [(whole, r) for r in tiles] + [
-            (BWD_TABLES_BASE, r) for r in tiles
-            if r <= BWD_DEVICE_TABLES_ROWS]:
+    for rows, shared, pass_cols in BWD_TRIES[hi_lo]:
+        n_ops = _backward_counts(mc, vdirs, pass_cols)[0]
+        prog_ints = (BWD_TABLES_BASE + 2 * n_mats + BWD_OP_INTS * n_ops
+                     if shared else BWD_TABLES_BASE)
+        stage = BWD_SLAB_K * (min(hid, pass_cols) + PAD)
         off = _align128(4 * prog_ints)
         bufs: Dict[str, Tuple[int, int, int]] = {}
 
@@ -431,11 +484,12 @@ def _bwd_layout(mc: ModelConfig, vdirs: bool, hi_lo: bool) -> BwdLayout:
             end = region(name, c, at)
             at = end if over_x else None
         mask_off = off
-        masks, mask_bytes = _mask_blocks(mc, vdirs, rows)
+        masks, mask_bytes = _mask_blocks(mc, vdirs, rows, pass_cols)
         off += _align128(mask_bytes)
         stages = max(0, min(4, (SMEM_LIMIT - off) // (2 * stage * planes)))
-        layout = BwdLayout(rows, prog_ints, bufs, mask_off, masks, off, stage,
-                           stages, off + 2 * stage * planes * stages)
+        layout = BwdLayout(rows, pass_cols, prog_ints, bufs, mask_off, masks,
+                           off, stage, stages,
+                           off + 2 * stage * planes * stages)
         if stages >= 2:
             break
     return layout
@@ -471,15 +525,17 @@ def backward_fits(mc: ModelConfig, vdirs: bool = True,
     (:func:`bwd_chunk_rows`); the partial gradients by ``BWD_MAX_SPLITS``
     slots a chunk (at 8x640, 32 slots of ~3.6M floats). Logged once per
     architecture and mode."""
-    ops, mats = backward_counts(mc, vdirs)
+    ops, mats = backward_counts(mc, vdirs, hi_lo)
     lay = _bwd_layout(mc, vdirs, hi_lo)
     why = backward_misfit(mc, vdirs, hi_lo)
     log.info(
-        "fused MLP backward budget: %s: %d-point tiles, %d B of shared "
-        "memory per block (%d weight stages, %d B of masks; Hopper limit %d "
-        "B), %d operations and %d workspace matrices (tables in %s memory), "
-        "%d B of workspace per point, chunks of %d points: %s",
-        _arch_name(mc, vdirs, hi_lo), lay.rows, lay.smem, lay.stages,
+        "fused MLP backward budget: %s: %d-point tiles, passes of %d "
+        "columns, %d B of shared memory per block (%d weight stages, %d B of "
+        "masks; Hopper limit %d B), %d operations and %d workspace matrices "
+        "(tables in %s memory), %d B of workspace per point, chunks of %d "
+        "points: %s",
+        _arch_name(mc, vdirs, hi_lo), lay.rows, lay.pass_cols, lay.smem,
+        lay.stages,
         lay.ring_off - lay.mask_off, SMEM_LIMIT, ops, mats,
         "shared" if lay.prog_ints > BWD_TABLES_BASE else "device",
         bwd_scratch_bytes(mc, vdirs, hi_lo), bwd_chunk_rows(mc, vdirs, hi_lo),
@@ -798,10 +854,12 @@ def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
         ops.append([kind, a, wa, ka, b, wb, kb, bias, n, mask_in[0], dst, m,
                     mask_out[0], col, wld, max(mask_in[1], mask_out[1])])
 
+    step = lay.pass_cols
+
     def block_of(slot, c0):
         """The mask block of a ReLU layer's slot for the pass at c0: (its
         first word, its column groups), or (-1, 0)."""
-        return (-1, 0) if slot < 0 else lay.masks[slot][c0 // BWD_MAX_N]
+        return (-1, 0) if slot < 0 else lay.masks[slot][c0 // step]
 
     def fwd(name, srcs, dst, m, slot=-1):
         """dst = act(sum of src @ W + bias), one op per column pass; ReLU
@@ -809,10 +867,10 @@ def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
         blk = blocks[name]
         wa, ka, na, _ = blk[0]
         wb, kb = (blk[1][0], blk[1][1]) if len(blk) > 1 else (0, 0)
-        for c0 in range(0, na, BWD_MAX_N):
+        for c0 in range(0, na, step):
             op(_FWD, srcs[0], wa + c0, ka, srcs[1] if len(srcs) > 1 else -1,
                wb + c0 if kb else 0, kb, bias_of[name] + c0,
-               min(BWD_MAX_N, na - c0), dst=dst, m=mat[m],
+               min(step, na - c0), dst=dst, m=mat[m],
                mask_out=block_of(slot, c0), col=c0, wld=na)
 
     def dx(srcs, dst, m, slot=-1):
@@ -825,9 +883,9 @@ def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
         if len(srcs) > 1:
             sb, nb, pb = srcs[1]
             wb, kb = blocks[nb][pb][0], blocks[nb][pb][2]
-        for c0 in range(0, rows, BWD_MAX_N):
+        for c0 in range(0, rows, step):
             op(_DX, sa, wa + c0 * ka, ka, sb, wb + c0 * kb if kb else 0, kb,
-               n=min(BWD_MAX_N, rows - c0), mask_in=block_of(slot, c0),
+               n=min(step, rows - c0), mask_in=block_of(slot, c0),
                dst=dst, m=mat[m], col=c0, wld=rows)
 
     # Recompute the forward (mask slot i: h_i > 0), load the cotangent,
@@ -909,7 +967,7 @@ def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
     head += [0] * (BWD_HEADER_INTS - len(head))
     prog = np.asarray(head + buf_table + mat_table
                       + [v for rec in ops + jobs for v in rec], np.int32)
-    if (len(ops) != backward_counts(mc, vdirs)[0]
+    if (len(ops) != backward_counts(mc, vdirs, hi_lo)[0]
             or lay.prog_ints not in (jobs_off, BWD_TABLES_BASE)):
         raise ValueError(f"backward program of {len(ops)} operations")
     return prog, tuple(ws_mats)

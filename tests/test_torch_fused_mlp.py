@@ -58,18 +58,23 @@ def _inputs(n, seed=0):
     return pts, np.array(jax_encoding(jnp.asarray(dirs), 4))
 
 
-# Deep nets past the old tables (CLI shapes), 64 points.
+# Deep nets past the old tables and shallow nets past the forward's
+# 64-point (bf16) and 32-point (hi_lo) tiles (CLI shapes), 64 points.
 DEEP = {"deep-30x32": dict(depth=30, width=32),
-        "deep-31x16": dict(depth=31, width=16)}
+        "deep-31x16": dict(depth=31, width=16),
+        "shallow-1x784": dict(depth=1, width=784),
+        "shallow-1x720": dict(depth=1, width=720)}
 
 
 @pytest.mark.parametrize("case", [
     "viewdirs", "no_viewdirs", "ragged", "deep-30x32", "deep-31x16",
-    "deep-30x32-hi_lo", "deep-31x16-hi_lo"])
+    "deep-30x32-hi_lo", "deep-31x16-hi_lo", "shallow-1x784",
+    "shallow-1x720-hi_lo"])
 def test_plain_matches_jax_kernel(case):
     """bf16 plain version vs the Pallas forward (interpret mode): the
     same rounding points, so agreement to fp32 summation order. The deep
-    hi_lo cases at test_plain_hi_lo_matches_jax_kernel's bar."""
+    and shallow hi_lo cases at test_plain_hi_lo_matches_jax_kernel's
+    bar."""
     vdirs = case != "no_viewdirs"
     hi_lo = case.endswith("hi_lo")
     deep = DEEP.get(case.replace("-hi_lo", ""))
@@ -156,8 +161,12 @@ def _run_program(packed, pts, dirs):
             buf(bi, 1)[:, col:col + v.shape[1]] = bf(v - hi)
 
     def block(off, k, nn, ld):   # columns of a packed (k, ld) weight's planes
+        # copied column-major, the layout of the plain version's w.t(): the
+        # same BLAS path sums in the same order, so the bf16 roundings of a
+        # wide net's activations agree (the kernel's own order is held on
+        # the card)
         return [w.as_strided((k, nn), (ld, 1), off + p * k * ld)
-                for p in range(planes)]
+                .t().contiguous().t() for p in range(planes)]
 
     def mm(a, wt):   # planes @ planes: hi*hi (+ lo*hi + hi*lo)
         out = a[0] @ wt[0]
@@ -211,6 +220,11 @@ def _run_program(packed, pts, dirs):
     # deeper than the old 48-layer bound; 16 wide, 64-point tiles in hi_lo
     (dict(depth=54, width=64, use_viewdirs=True), 150),
     (dict(depth=200, width=16, use_viewdirs=True, hi_lo=True), 100),
+    # the shallow wide nets: 32-point tiles (bf16 from width 784), 16-point
+    # ones (bf16 at depth 1 from 1616, hi_lo from 720), ragged in n
+    (dict(depth=2, width=1024, use_viewdirs=True), 40),
+    (dict(depth=1, width=1696, use_viewdirs=True), 40),
+    (dict(depth=1, width=1472, use_viewdirs=True, hi_lo=True), 40),
 ])
 def test_packed_program_matches_plain(arch, n):
     """The weight layout and program the kernel executes — tiles, column
@@ -231,8 +245,11 @@ def test_packed_program_matches_plain(arch, n):
     layers = cfg.depth + (4 if vdirs else 1)
     assert hdr["n_ops"] == fused_mlp.forward_ops(net.cfg, vdirs) >= layers
     assert (hdr["n_ops"] == layers) is (cfg.width <= fused_mlp.FWD_MAX_N)
-    assert hdr["rows"] == (32 if hi_lo and cfg.width > 320 else
-                           64 if hi_lo or cfg.width > 288 else 128)
+    assert hdr["rows"] == ((16 if cfg.width >= 720 else 32 if cfg.width > 320
+                            else 64) if hi_lo else
+                           16 if cfg.width >= 1616 else
+                           32 if cfg.width >= 784 else
+                           64 if cfg.width > 288 else 128)
     assert n % hdr["rows"]
     got = _run_program(packed, pts, dirs if vdirs else None)
     want = fused_mlp.fused_nerf_mlp_plain(net, pts, dirs if vdirs else None,
@@ -284,21 +301,36 @@ def test_hopper_budget():
     assert (lay.rows, lay.ksub, lay.stages) == (64, 1, 4)
     assert fused_mlp.smem_bytes(mc, True, hi_lo=True) == 232_320
     assert fused_mlp.kernel_fits(mc, True, hi_lo=True)
-    # hi_lo past width 320: 32-point tiles, up to width 688; at 704 two
-    # planes of the 32-point buffers leave room for one stage.
-    for width, fits in ((384, True), (576, True), (688, True), (704, False)):
+    # hi_lo past width 320: 32-point tiles, up to width 688; from 704,
+    # where two planes of the 32-point buffers leave room for one stage,
+    # 16-point tiles, up to 1456; at 1472 those leave room for one stage.
+    for width, rows, fits in ((384, 32, True), (576, 32, True),
+                              (688, 32, True), (704, 16, True),
+                              (1456, 16, True), (1472, 16, False)):
         wide = RenderConfig(width=width).model_config()
-        assert fused_mlp._fwd_layout(wide, True, True).rows == 32
+        assert fused_mlp._fwd_layout(wide, True, True).rows == rows
         assert fused_mlp.kernel_fits(wide, True, hi_lo=True) is fits
-    assert "1 weight stage(s)" in fused_mlp.forward_misfit(
-        RenderConfig(width=704).model_config(), True, hi_lo=True)
+    assert ("the forward's buffers of 16-point tiles leave room for 1 "
+            "weight stage(s)") in fused_mlp.forward_misfit(
+        RenderConfig(width=1472).model_config(), True, hi_lo=True)
     # Width 512: 64-point tiles, every layer in two 256-column passes.
     wide = RenderConfig(width=512).model_config()
     assert fused_mlp._fwd_layout(wide, True, False).rows == 64
     assert fused_mlp.forward_ops(wide, True) == 8 * 2 + 1 + 2 + 1 + 1
     assert fused_mlp.kernel_fits(wide, True)
+    # Where two 64-point buffers leave no room for two stages (width 784
+    # on), 32-point tiles with 16-row stages; then 16-point ones, up to
+    # 3168 at depth 8.
+    lay = fused_mlp._fwd_layout(RenderConfig(width=1024).model_config(),
+                                True, False)
+    assert (lay.rows, lay.ksub, lay.stages) == (32, 1, 4)
+    assert fused_mlp.kernel_fits(RenderConfig(width=3168).model_config(),
+                                 True)
     assert not fused_mlp.kernel_fits(
-        RenderConfig(width=1024).model_config(), True)
+        RenderConfig(width=3184).model_config(), True)
+    assert fused_mlp.forward_misfit(
+        RenderConfig(width=3184).model_config(), True).startswith(
+            "the forward's buffers of 16-point tiles")
     # Depth is bounded by the program's bytes alone (64 a layer): 48 layers
     # and more fit; 866 (55,808 B of program) at 64-point tiles.
     for depth in (48, 866):

@@ -12,6 +12,7 @@ tests/test_torch_fused_mlp_gpu.py and chip_smoke.py.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -66,23 +67,28 @@ def _loss_torch(raw):
 # Nets wider than one 256-column pass (CLI shapes: bottleneck = width,
 # view head = width / 2), three layers deep to keep interpret mode short;
 # nets deeper than the old tables (96 phase-1 operations, 64 workspace
-# matrices) at 64 points.
+# matrices) and shallow nets past the forward's 64-point (bf16) and
+# 32-point (hi_lo) tiles at 64 points.
 WIDE = {"wide-3x384": dict(depth=3, width=384),
         "wide-3x288": dict(depth=3, width=288),
         "deep-30x32": dict(depth=30, width=32),
-        "deep-31x16": dict(depth=31, width=16)}
+        "deep-31x16": dict(depth=31, width=16),
+        "shallow-1x784": dict(depth=1, width=784),
+        "shallow-1x720": dict(depth=1, width=720)}
 
 
 @pytest.mark.parametrize("case", [
     "viewdirs", "no_viewdirs", "ragged", "hi_lo",
     "wide-3x384", "wide-3x384-hi_lo", "wide-3x288", "wide-3x288-hi_lo",
-    "deep-30x32", "deep-30x32-hi_lo", "deep-31x16", "deep-31x16-hi_lo"])
+    "deep-30x32", "deep-30x32-hi_lo", "deep-31x16", "deep-31x16-hi_lo",
+    "shallow-1x784", "shallow-1x720-hi_lo"])
 def test_plain_backward_matches_jax_kernel(case):
     """jax.grad through the Pallas backward (interpret mode) vs the port's
     autograd Function on CPU tensors (the plain backward), same weights."""
     vdirs = case != "no_viewdirs"
     hi_lo = case.endswith("hi_lo")
-    n = 300 if case == "ragged" else 64 if "deep" in case else 256
+    n = (300 if case == "ragged" else
+         64 if "deep" in case or "shallow" in case else 256)
     arch = WIDE.get(case.replace("-hi_lo", ""), ARCH)
     params, net, cfg = _nets(use_viewdirs=vdirs, **arch)
     pts, dirs = _inputs(n, seed=4)
@@ -288,9 +294,16 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
                     if k:
                         a = [buf(src, p)[:, :k] for p in range(planes)]
                         # forward: columns col.. of the (k, wld) block;
-                        # dX: rows col.. of the (wld, k) block, transposed
-                        wt = (block(wo, k, nn, wld, k * wld) if kind == 0
-                              else [t.t() for t in
+                        # dX: rows col.. of the (wld, k) block, transposed;
+                        # each copied in the memory order of the plain
+                        # version's operand (w.t() of an (out, in) weight,
+                        # and the weight itself), so that the same BLAS
+                        # path sums in the same order and a wide net's
+                        # bf16 roundings agree (the kernels' own order is
+                        # held on the card)
+                        wt = ([t.t().contiguous().t() for t in
+                               block(wo, k, nn, wld, k * wld)] if kind == 0
+                              else [t.t().contiguous() for t in
                                     block(wo, nn, k, k, k * wld)])
                         acc = acc + mm(a, wt)
                 if kind == 0:
@@ -363,6 +376,12 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
     # 32-point tiles, ragged in a 64-row phase-2 stage: the tiles past n
     # fill the stage
     (dict(depth=8, width=640, use_viewdirs=True), 96, 256, 2048),
+    # the shallow wide nets at depth 1: bf16 16-point tiles; hi_lo 16-point
+    # tiles of 128-column passes (a 256-column stage of two planes does
+    # not fit twice); n not a multiple of 64
+    (dict(depth=1, width=1696, use_viewdirs=True), 40, 256, 2048),
+    (dict(depth=1, width=1472, use_viewdirs=True, hi_lo=True), 40, 256,
+     2048),
 ])
 def test_bwd_program_matches_plain(arch, n, chunk, min_split, monkeypatch):
     """The backward program, packed layout, workspace, job list, splits,
@@ -379,18 +398,19 @@ def test_bwd_program_matches_plain(arch, n, chunk, min_split, monkeypatch):
     g = torch.from_numpy(np.random.default_rng(6).normal(
         size=(n, 4 if vdirs else net.cfg.output_ch)).astype(np.float32))
     packed = fused_mlp.pack_params(net, cfg.pos_enc_L, vdirs, hi_lo)
-    ops, mats = fused_mlp.backward_counts(net.cfg, vdirs)
+    ops, mats = fused_mlp.backward_counts(net.cfg, vdirs, hi_lo)
     assert int(packed.bwd_program[0]) == ops
     assert len(packed.ws_mats) == mats
     assert fused_mlp.backward_fits(net.cfg, vdirs, hi_lo)
-    if cfg.width >= fused_mlp.BWD_MAX_N:
-        # one whole grid's block per pass, numbered in order: the layout
-        # of nets this wide before narrow passes were sized
-        lay = fused_mlp._bwd_layout(net.cfg, vdirs, hi_lo)
-        m16 = fused_mlp._warp_grid(lay.rows)[0]
+    lay = fused_mlp._bwd_layout(net.cfg, vdirs, hi_lo)
+    if cfg.width >= lay.pass_cols:
+        # one whole pass's block per pass, numbered in order (256 columns:
+        # the layout of nets this wide before narrow passes were sized)
+        m16, wn, _, row_groups = fused_mlp._warp_grid(lay.rows)
+        groups = lay.pass_cols // wn
         blocks = [b for slot in lay.masks for b in slot]
-        assert blocks == [(512 * m16 * k, 256 // fused_mlp._warp_grid(
-            lay.rows)[1]) for k in range(len(blocks))]
+        assert blocks == [(32 * row_groups * groups * m16 * k, groups)
+                          for k in range(len(blocks))]
     got = _run_bwd_program(packed, pts, dirs if vdirs else None, g, chunk)
     want = fused_mlp.fused_nerf_mlp_bwd_plain(
         net, pts, dirs if vdirs else None, g, cfg.pos_enc_L, hi_lo=hi_lo)
@@ -505,14 +525,15 @@ def test_backward_budget():
     assert fused_mlp.backward_fits(hi, True, hi_lo=True)
     # Depth is bounded by phase 1's masks alone: 100x256 (205 operations,
     # 208 matrices, past the old tables' 96 and 64) fits at 32-point tiles;
-    # 400x256's masks (401 blocks of 1 KB) leave no room at any tile.
+    # 400x256's masks (401 blocks of 1 KB at 32 points) leave no room at
+    # any tile, down to the last tried, 16 points.
     assert fused_mlp.backward_counts(RenderConfig(depth=100).model_config(),
                                      True) == (205, 208)
     assert uses_kernel(RenderConfig(depth=100, use_kernel=True,
                                     compute_dtype="bfloat16"), backward=True)
     deep = RenderConfig(depth=400).model_config()
     assert not fused_mlp.backward_fits(deep, True)
-    assert ("phase 1's buffers and masks of 32-point tiles"
+    assert ("phase 1's buffers and masks of 16-point tiles"
             in fused_mlp.backward_misfit(deep, True))
     assert not uses_kernel(RenderConfig(depth=400, use_kernel=True,
                                         compute_dtype="bfloat16"),
@@ -528,23 +549,104 @@ def test_backward_budget():
     assert lay.ring_off - lay.mask_off == 867 * 128
 
 
+# (depth, width, hi_lo): the forward's (points per tile, k-steps a stage,
+# stages, bytes) and phase 1's (points per tile, columns a pass, tables in
+# shared memory, stages, bytes). The nets that fit before the shallow wide
+# nets were ported keep their layouts; those nets' own layouts (CLI
+# shapes).
+LAYOUTS = [
+    (8, 256, False, (128, 2, 4, 232_320), (128, 256, True, 3, 227_840)),
+    (8, 256, True, (64, 1, 4, 232_320), (64, 256, True, 2, 217_856)),
+    (8, 512, False, (64, 2, 4, 216_576), (64, 256, True, 4, 219_008)),
+    (8, 640, False, (64, 1, 4, 216_192), (32, 256, True, 4, 154_752)),
+    (8, 384, True, (32, 1, 4, 183_808), (32, 256, True, 4, 202_624)),
+    (32, 256, False, (128, 2, 3, 216_960), (64, 256, True, 4, 188_544)),
+    (866, 16, False, (128, 2, 4, 102_912), (32, 256, False, 4, 124_544)),
+    (1, 1696, False, (16, 1, 4, 147_840), (16, 256, True, 4, 154_752)),
+    (2, 1312, False, (32, 1, 4, 211_584), (32, 256, True, 4, 228_352)),
+    (5, 864, False, (32, 1, 4, 154_496), (32, 256, True, 4, 178_944)),
+    (2, 1024, False, (32, 1, 4, 174_208), (32, 256, True, 4, 185_472)),
+    (1, 1472, True, (16, 1, 2, 231_680), (16, 128, True, 3, 231_552)),
+    (3, 960, True, (16, 1, 4, 200_064), (16, 256, True, 4, 208_640)),
+    (5, 752, True, (16, 1, 4, 173_568), (16, 256, True, 4, 183_808)),
+]
+
+
+@pytest.mark.filterwarnings("ignore:netdepth=5")
+@pytest.mark.parametrize("depth, width, hi_lo, fwd, bwd", LAYOUTS,
+                         ids=[f"{d}x{w}{'-hi_lo' if h else ''}"
+                              for d, w, h, _, _ in LAYOUTS])
+def test_layouts_pinned(depth, width, hi_lo, fwd, bwd):
+    """Each net's forward tile and phase-1 layout: the deep and depth-8
+    nets keep theirs; the shallow wide nets take 32- and 16-point forward
+    tiles, 16-point phase-1 tiles at depth 1 from bf16 1552 and hi_lo
+    passes of 128 columns at 1456-1472."""
+    mc = RenderConfig(depth=depth, width=width).model_config()
+    f = fused_mlp._fwd_layout(mc, True, hi_lo)
+    b = fused_mlp._bwd_layout(mc, True, hi_lo)
+    assert (f.rows, f.ksub, f.stages, f.smem) == fwd
+    assert (b.rows, b.pass_cols, b.prog_ints > fused_mlp.BWD_TABLES_BASE,
+            b.stages, b.smem) == bwd
+    assert fused_mlp.kernel_fits(mc, True, hi_lo)
+    assert fused_mlp.backward_fits(mc, True, hi_lo)
+
+
+def test_every_layout_has_its_kernel():
+    """Every tile the layouts try is a kernel the CUDA sources build and
+    dispatch: the forward's (mode, points, k-steps) and phase 1's (mode,
+    points, tables in shared memory); a layout with no kernel would only
+    fail on the card."""
+    csrc = os.path.join(os.path.dirname(fused_mlp.__file__), os.pardir,
+                        "csrc")
+    with open(os.path.join(csrc, "fused_mlp_fwd.cu")) as f:
+        fwd_src = f.read()
+    with open(os.path.join(csrc, "fused_mlp_bwd.cu")) as f:
+        bwd_src = f.read()
+    name = lambda flag: "true" if flag else "false"
+    for hi_lo, groups in fused_mlp.FWD_TRIES.items():
+        for tiles, _ in groups:
+            for rows, ksub in tiles:
+                assert (f"  FWD({name(hi_lo)}, {rows}, {ksub})\n"
+                        in fwd_src), (hi_lo, rows, ksub)
+    for hi_lo, tries in fused_mlp.BWD_TRIES.items():
+        built = (fused_mlp.BWD_TILE_ROWS_HI_LO if hi_lo
+                 else fused_mlp.BWD_TILE_ROWS)
+        for rows, shared, _ in tries:
+            assert rows in built
+            assert shared or rows <= fused_mlp.BWD_DEVICE_TABLES_ROWS
+            assert (f"  PHASE1({name(hi_lo)}, {rows}, {name(shared)})\n"
+                    in bwd_src), (hi_lo, rows, shared)
+
+
 @pytest.mark.parametrize("width, serve, train", [
     (256, True, True),
     (384, True, True),     # column passes of phase 1's 256-column grid
     (512, True, True),
     (704, True, True),     # where the JAX gate stops at depth 8
     (768, True, True),
-    (1024, False, False),  # past the forward's shared memory
+    (1024, True, True),    # 32-point forward tiles
+    (2960, True, True),    # 16-point tiles, both passes
+    (2976, True, False),   # past phase 1's 16-point tiles
+    (3264, False, False),  # past the forward's 16-point tiles
 ])
 def test_kernel_gates_of_serving_and_training(width, serve, train):
     """A net goes to the forward kernel when it fits the forward's budget;
     it trains through the kernels only when the backward's fits too, and
-    otherwise takes the module path for both passes of training. Only a
-    net that goes to the kernels is packed."""
+    otherwise takes the module path for both passes of training; a net
+    past the kernels is refused by name. Only a net that goes to the
+    kernels is packed."""
     cfg = RenderConfig(width=width, use_kernel=True, compute_dtype="bfloat16",
                        depth=2)
     assert uses_kernel(cfg) is serve
     assert uses_kernel(cfg, backward=True) is train
+    mc = cfg.model_config()
+    why = (fused_mlp.forward_misfit(mc, True)
+           or fused_mlp.backward_misfit(mc, True))
+    assert (why is None) is train
+    if not train:
+        assert why.startswith("the forward's buffers of 16-point tiles" if
+                              not serve else "phase 1's buffers and masks of "
+                              "16-point tiles"), why
     net = init_model(cfg.model_config(), seed=0, device="cpu")
     for backward, packed in ((False, serve), (True, train)):
         got = prepare_params({"coarse": net}, cfg, backward)["coarse"]
@@ -557,7 +659,8 @@ def test_kernel_gates_of_serving_and_training(width, serve, train):
 # hi_lo (up to 608); deep nets at the CLI's skip, depths 9-60 in steps of 3
 # and up to 866 at widths 16-400, where JAX admits 129 / 115; and the
 # shallow wide nets, depths 1-5 at widths 704-1712, where JAX admits 157 /
-# 108 and the port's forward refuses 132 / 103 (below).
+# 108 (on 32- and 16-point forward tiles from 784 bf16 / 720 hi_lo). The
+# port refuses none of them.
 GATE_CASES = [
     pytest.param([(8, w, (5,)) for w in range(16, 1025, 16)], (43, 38),
                  (0, 0), id="cli-depth-8"),
@@ -569,7 +672,7 @@ GATE_CASES = [
                   for w in (16, 64, 128, 192, 256, 320, 384, 400)],
                  (129, 115), (0, 0), id="deep"),
     pytest.param([(d, w, (4,)) for d in range(1, 6)
-                  for w in range(704, 1713, 16)], (157, 108), (132, 103),
+                  for w in range(704, 1713, 16)], (157, 108), (0, 0),
                  id="shallow-wide"),
 ]
 
@@ -580,10 +683,10 @@ def test_gates_cover_jax(archs, admits, refused, hi_lo):
     """Every net the JAX package sends through its Pallas kernels
     (``backward_fits_vmem``, its render gate) goes through the port's
     kernels for both passes; the CLI's architectures also by
-    ``uses_kernel``. The one exception, not yet ported: shallow nets 720
-    or more wide, whose buffers the forward's smallest tile cannot hold
-    beside two weight stages (at depth 1 near the widest, phase 1's
-    neither); each is refused by name."""
+    ``uses_kernel``, and every shallow wide net by ``uses_kernel`` at the
+    CLI's shape of its depth and width (no skip: the skip before layer 4
+    is absent at depth 1-4 and dropped by the CLI at depth 5). ``refused``
+    counts the admitted nets the port's gates refuse: none."""
     admitted = shut_out = 0
     for depth, width, skips in archs:
         jmc = JaxModelConfig(depth=depth, width=width, skips=skips,
@@ -596,19 +699,14 @@ def test_gates_cover_jax(archs, admits, refused, hi_lo):
         cfg = RenderConfig(depth=depth, width=width, use_kernel=True,
                            compute_dtype="float32" if hi_lo else "bfloat16",
                            fp32_precision="high")
-        why = fused_mlp.forward_misfit(mc, True, hi_lo)
-        if why is not None and depth <= 5 and width >= 720:
+        why = (fused_mlp.forward_misfit(mc, True, hi_lo)
+               or fused_mlp.backward_misfit(mc, True, hi_lo))
+        if why is not None:
             shut_out += 1
-            assert why.startswith("the forward's buffers of"), why
-            bwd = fused_mlp.backward_misfit(mc, True, hi_lo)
-            assert bwd is None or (depth == 1 and bwd.startswith(
-                "phase 1's buffers and masks")), (depth, width, bwd)
-            assert not uses_kernel(cfg)
-            continue
         assert fused_mlp.kernel_fits(mc, True, hi_lo), (depth, width, why)
-        assert fused_mlp.backward_fits(mc, True, hi_lo), (
-            depth, width, fused_mlp.backward_misfit(mc, True, hi_lo))
-        if cfg.model_config() == mc:   # an architecture the CLI can ask for
+        assert fused_mlp.backward_fits(mc, True, hi_lo), (depth, width, why)
+        if cfg.model_config() == mc or (depth <= 5 and width >= 704):
+            # an architecture the CLI can ask for
             assert uses_kernel(cfg) and uses_kernel(cfg, backward=True)
     assert (admitted, shut_out) == (admits[hi_lo], refused[hi_lo])
 

@@ -190,23 +190,27 @@ def _deep_net(mc, seed):
 # Nets past the old tables (96 phase-1 operations, 64 workspace matrices,
 # 48 forward layers): 64-point tiles at 32x256, sized mask blocks at
 # 32-point tiles for the narrow ones, 866x16's tables in device memory,
-# and chunks cut to the workspace budget at 177x128. The bars of the 8x256
-# tests.
+# and chunks cut to the workspace budget at 177x128; and the widest
+# shallow nets JAX admits: 16-point tiles of both kernels at 1x1696 bf16,
+# and at 1x1472 hi_lo phase 1's passes of 128 columns. The bars of the
+# 8x256 tests.
 @pytest.mark.parametrize("depth, width, dtype, n, tol", [
     (32, 256, "bfloat16", 1000, 1e-2),
     (177, 128, "bfloat16", 10000, 1e-2),
     (866, 16, "bfloat16", 1000, 1e-2),
     (43, 256, "float32", 65535, 1e-3),
     (600, 16, "float32", 65535, 1e-3),
+    (1, 1696, "bfloat16", 1000, 1e-2),
+    (1, 1472, "float32", 65535, 1e-3),
 ])
 def test_deep_kernels_match_plain_on_gpu(depth, width, dtype, n, tol,
                                          monkeypatch):
     """The forward and the backward's kernels vs their plain versions at
-    depths up to the JAX gate's (max |err| / max |plain|: the forward, and
-    per parameter the backward), on a ragged n; a second run gives the
-    same bits. 177x128 runs in chunks of 4,096 points (its workspace
-    budget cut to that): three chunks, the last ragged in phase 2's
-    64-row stage."""
+    depths and widths up to the JAX gate's (max |err| / max |plain|: the
+    forward, and per parameter the backward), on a ragged n; a second run
+    gives the same bits. 177x128 runs in chunks of 4,096 points (its
+    workspace budget cut to that): three chunks, the last ragged in phase
+    2's 64-row stage."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
     cfg = RenderConfig(compute_dtype=dtype, fp32_precision="high",
