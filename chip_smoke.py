@@ -5,6 +5,9 @@
 
 Phases, each fatal on failure:
   1. build every CUDA kernel of the port from csrc/ (nvcc, in parallel);
+     fail where ptxas serialized the wgmma of a kernel (note C7520) or
+     where an instantiation of the forward or phase 1 has no HGMMA or no
+     bulk copy in its SASS;
   2. hold the fused MLP kernel against its plain PyTorch version at the
      serving path's shapes (8x256 + view head, 262,144 and 524,288 points
      from real rays of a serving pose), in hi_lo mode (fp32 'high') at the
@@ -203,12 +206,12 @@ Phases, each fatal on failure:
      against one process's on the same global batch (loss rtol 1e-5, the
      gradient within 1e-5 of its largest element, parameters atol 5e-3),
      pts_linears.0's shard 128 rows, no kernel launched in the TP steps,
-     100 steps through the TP Trainer within 0.5 dB of the one-process
-     run's held-out PSNR, ms per step a rank beside the one-process
-     module path's; the turbo weights' 256^3 mesh dealt over two devices
-     (two cards, or the card twice) against one device: the volume,
-     vertices, faces and colours bit-equal, the forward launches summed
-     over the devices equal to one device's, seconds per stage; every
+     100 steps through the TP Trainer at 32 + 64 samples within 0.5 dB of
+     the one-process run's at 32 + 64, ms per step a rank beside the
+     one-process module path's; the turbo weights' 256^3 mesh dealt over
+     two devices (two cards, or the card twice) against one device: the
+     volume, vertices, faces and colours bit-equal, the forward launches
+     summed over the devices equal to one device's, seconds per stage; every
      committed progressive JPEG against its Pillow decode (0 levels), the
      decode rate, the progressive capture's pixels equal to the baseline
      capture's, and configs/fern.txt trained on it at --factor 4 (>= 20
@@ -427,6 +430,34 @@ def slice_config():
                         compute_dtype="bfloat16", use_kernel=True)
 
 
+# The redesigned kernels' SASS, per kernel function: wgmma (HGMMA) and
+# bulk copies (UBLKCP, or TMA's UTMALDG) in every instantiation, and the
+# waits for retired wgmma (WARPGROUP.DEPBAR: one an HGMMA where ptxas
+# serialized them), read from the built libraries by phase_build.
+SASS_KERNELS = {"fused_mlp_fwd": "fused_mlp_fwd_kernel",
+                "fused_mlp_bwd_phase1": "bwd_phase1_kernel"}
+SASS = {}
+
+
+def sass_counts(lib, function):
+    """{instantiation: (HGMMA, bulk copies, WARPGROUP.DEPBAR)} of the
+    kernel functions whose name holds ``function`` in the library ``lib``,
+    from cuobjdump -sass."""
+    from nerfmlp_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if function in name:
+            counts[name] = (part.count("HGMMA"),
+                            part.count("UBLKCP") + part.count("UTMALDG"),
+                            part.count("WARPGROUP.DEPBAR"))
+    return counts
+
+
 def phase_build():
     from nerfmlp_torch.ops import _build
 
@@ -434,11 +465,61 @@ def phase_build():
     paths = _build.build()
     print(f"[build] {len(paths)} kernel(s) in {time.perf_counter() - t0:.1f} s "
           f"-> {_build.build_dir()}")
+    serialized = []
     for name, path in paths.items():
         with open(path + ".log") as f:
             for line in f:
-                if "registers" in line or "spill" in line:
+                if "registers" in line or "spill" in line or "C752" in line:
                     print(f"[build] {name}: {line.strip()}")
+                if "C7520" in line:
+                    serialized.append(name)
+    # ptxas's note C7520: it serialized every wgmma of a kernel (a branch
+    # it cannot prove warpgroup-uniform touches the accumulators).
+    if serialized:
+        raise SystemExit(f"[build] wgmma serialized by ptxas (C7520) in "
+                         f"{sorted(set(serialized))}")
+    # Each redesigned kernel computes with wgmma and fills its ring with
+    # bulk copies, in every instantiation, or the script fails.
+    for key, function in SASS_KERNELS.items():
+        counts = sass_counts(paths[key.replace("_phase1", "")], function)
+        if not counts or min(min(c[:2]) for c in counts.values()) == 0:
+            raise SystemExit(f"[build] {function}: an instantiation without "
+                             f"wgmma or bulk copies in its SASS: {counts}")
+        SASS[key] = {"hgmma": sum(c[0] for c in counts.values()),
+                     "bulk_copies": sum(c[1] for c in counts.values()),
+                     "wgmma_waits": sum(c[2] for c in counts.values()),
+                     "instantiations": len(counts)}
+        print(f"[build] {function}: {SASS[key]['instantiations']} "
+              f"instantiations, {SASS[key]['hgmma']} HGMMA, "
+              f"{SASS[key]['bulk_copies']} bulk copies (UBLKCP / UTMALDG) "
+              f"and {SASS[key]['wgmma_waits']} WARPGROUP.DEPBAR in their "
+              f"SASS")
+
+
+def annotate(kernels):
+    """Each redesigned kernel's record (the forward and phase 1) with its
+    SASS counts and its layout: the record's own where its check gave one,
+    else the flagship 8x256 net's (bf16, or hi_lo where the name says)."""
+    from nerfmlp_torch.models.mlp import init_model
+    from nerfmlp_torch.ops import fused_mlp
+
+    flagship = {}
+    for rec in kernels:
+        key = next((k for k in SASS_KERNELS if rec["name"].startswith(k)),
+                   None)
+        if key is None:
+            continue
+        rec["sass"] = SASS[key]
+        if rec.get("layout") is None:
+            hi_lo = "hi_lo" in rec["name"]
+            if hi_lo not in flagship:
+                cfg = slice_config()
+                net = init_model(cfg.model_config(), seed=SEED, device="cuda")
+                flagship[hi_lo] = fused_mlp.kernel_layouts(
+                    fused_mlp.pack_params(net, cfg.pos_enc_L, True, hi_lo))
+            rec["layout"] = flagship[hi_lo][
+                "fwd" if key == "fused_mlp_fwd" else "phase1"]
+    return kernels
 
 
 def serving_points(n_samples, cfg, n_rays=TILE):
@@ -507,6 +588,7 @@ def check_kernel(net, cfg, pts, dirs, label, time_it, hi_lo=False,
               + packed.weights.numel() * 2 + packed.biases.numel() * 4
               + got.numel() * 4)
     rec = {"label": label, "n": n, "max_abs_err": err, "norm_err": norm,
+           "layout": fused_mlp.kernel_layouts(packed)["fwd"],
            "bound_ms": 1e3 * max(flops / PEAK_BF16_FLOPS,
                                  nbytes / PEAK_MEM_BYTES),
            "bound_by": ("operations" if flops / PEAK_BF16_FLOPS
@@ -549,9 +631,9 @@ def phase_kernel(net):
         for hi_lo in (False, True):
             lay = _fwd_layout(mc, True, hi_lo)
             print(f"[kernel] 8x{c.width}{' hi_lo' if hi_lo else ''} budget: "
-                  f"{lay.rows}-point tiles, {lay.stages} weight stages of "
-                  f"{16 * lay.ksub} rows, {lay.smem} B shared memory, "
-                  f"fits={kernel_fits(mc, True, hi_lo)}")
+                  f"{lay.rows}-point tiles in clusters of {lay.cluster}, "
+                  f"{lay.stages} weight stages of {lay.kr} rows, {lay.smem} B "
+                  f"shared memory, fits={kernel_fits(mc, True, hi_lo)}")
     recs = []
     for n_samples, label in ((cfg.N_samples, "coarse"),
                              (cfg.N_importance, "fine")):
@@ -876,6 +958,7 @@ def check_phases(net, packed, pts, dirs, g, label, iters=10,
     recs = {
         "phase1": {"max_abs_err": err1, "rel_l2": worst[0],
                    "rel_l2_end_to_end": free and free[0],
+                   "layout": fm.kernel_layouts(packed)["phase1"],
                    "ms": cuda_ms(lambda: fm.bwd_workspace(
                        packed, pts, dirs, g, ws), iters=iters),
                    "plain_ms": cuda_ms(lambda: fm.bwd_workspace_plain(
@@ -4529,6 +4612,8 @@ def phase_jpeg(png_psnr, card):
                "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
         if "module_ms" in r:
             rec["module_ms"] = r["module_ms"]
+        if "layout" in r:
+            rec["layout"] = r["layout"]
         recs.append(rec)
         print(f"[jpeg] {name}: {launches[i]} launches in the run, "
               f"{n} in the trace at {ms / n:.4f} ms each (device), "
@@ -4555,15 +4640,27 @@ TP_PSNR_GAP = 0.5         # held-out PSNR after PAR_STEPS steps, dB
 
 def tp_configs(near, far):
     """Phase 5's flagship recipe in fp32, PAR_STEPS steps: the module path
-    (a TP step runs no kernel; the Trainer turns them off itself)."""
+    (a TP step runs no kernel; the Trainer turns them off itself). The
+    first step is held at this recipe; the PAR_STEPS-step runs take half
+    its samples a ray (32 + 64), on both sides (``tp_run_config``)."""
     rc, tc = par_configs(near, far)
     return dataclasses.replace(rc, compute_dtype="float32"), tc
+
+
+def tp_run_config(rc):
+    """The recipe of phase 15's PAR_STEPS-step runs, TP and one process:
+    ``rc`` at half its samples a ray. Two gloo ranks sharing the card move
+    every activation through the host: 3,339 ms a TP step at 64 + 128 on
+    an H100 host where the whole script then took 1,339.3 s of its 1,200 s
+    limit (TP 393.7 s)."""
+    return dataclasses.replace(rc, N_samples=rc.N_samples // 2,
+                               N_importance=rc.N_importance // 2)
 
 
 def tp_rank(mesh, rc, tc, scene, save_dir, batch):
     """One rank of phase 15's TP runs: the first step on a global batch in
     fp32 and with the MLP in fp64, then PAR_STEPS steps through the TP
-    Trainer."""
+    Trainer (at ``tp_run_config(rc)``)."""
     from nerfmlp_torch.parallel import checks
 
     rc64 = dataclasses.replace(rc, compute_dtype="float64")
@@ -4571,7 +4668,7 @@ def tp_rank(mesh, rc, tc, scene, save_dir, batch):
                                      tensor_parallel=TP_RANKS),
             "first64": checks.dp_steps(mesh, rc64, tc, [batch],
                                        tensor_parallel=TP_RANKS),
-            "run": checks.dp_trainer(mesh, rc, tc, scene,
+            "run": checks.dp_trainer(mesh, tp_run_config(rc), tc, scene,
                                      (TRAIN_WH, TRAIN_WH), save_dir,
                                      tensor_parallel=TP_RANKS)}
 
@@ -4603,8 +4700,9 @@ def finish_tp(train_run, backend, card):
     rc64 = dataclasses.replace(rc, compute_dtype="float64")
     one_first = checks.dp_steps(None, rc, tc, [batch], device="cuda")
     one64 = checks.dp_steps(None, rc64, tc, [batch], device="cuda")
-    one = checks.dp_trainer(None, rc, tc, scene, (TRAIN_WH, TRAIN_WH),
-                            os.path.join(root, "one"), device="cuda")
+    one = checks.dp_trainer(None, tp_run_config(rc), tc, scene,
+                            (TRAIN_WH, TRAIN_WH), os.path.join(root, "one"),
+                            device="cuda")
     t1 = time.perf_counter()
     ranks = launch(tp_rank, TP_RANKS,
                    args=(rc, tc, scene, os.path.join(root, "tp"), batch),
@@ -4632,7 +4730,9 @@ def finish_tp(train_run, backend, card):
           f"parameters max |diff| "
           f"{perr:.2e} (limit {TP_PARAM_ATOL}); pts_linears.0's shard "
           f"{tp_first['shard_shapes']['pts_linears.0.weight']}; held-out "
-          f"PSNR after {PAR_STEPS} steps {psnr2:.2f} dB vs one process "
+          f"PSNR after {PAR_STEPS} steps at "
+          f"{tp_run_config(rc).N_samples} + "
+          f"{tp_run_config(rc).N_importance} {psnr2:.2f} dB vs one process "
           f"{psnr1:.2f} (limit {TP_PSNR_GAP}); kernel launches in the TP "
           f"steps {tp_first['launches']} / in train() {tp['launches']}; "
           f"ranks' shards bit-equal {tp['ranks_bit_equal']} | {card}")
@@ -4803,6 +4903,8 @@ def finish_progressive(jpeg_run, card):
                "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
         if "module_ms" in r:
             rec["module_ms"] = r["module_ms"]
+        if "layout" in r:
+            rec["layout"] = r["layout"]
         recs.append(rec)
     return recs
 
@@ -4984,6 +5086,8 @@ def kernel_records(suffix, path, c, launches):
                "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
         if "module_ms" in r:
             rec["module_ms"] = r["module_ms"]
+        if "layout" in r:
+            rec["layout"] = r["layout"]
         if key == "phase1" and "module_bwd_ms" in c["bwd"]:
             rec["module_bwd_ms"] = c["bwd"]["module_bwd_ms"]
         recs.append(rec)
@@ -5487,8 +5591,8 @@ def main():
         card = smi_line()
         train_run = phase_train(train_ds, val_ds)
         turbo_ckpt = save_turbo(phase_occ_train(train_ds, val_ds))
-        print(json.dumps({"kernels": phase_interchange(train_run, turbo_ckpt,
-                                                       card)}))
+        recs = phase_interchange(train_run, turbo_ckpt, card)
+        print(json.dumps({"kernels": annotate(recs)}))
         print(card)
         return 0
     if sys.argv[1:] == ["--only", "parallel"]:
@@ -5496,13 +5600,13 @@ def main():
         train_ds, val_ds = make_scene()
         card = smi_line()
         recs = phase_parallel(phase_train(train_ds, val_ds), card)
-        print(json.dumps({"kernels": recs}))
+        print(json.dumps({"kernels": annotate(recs)}))
         print(card)
         return 0
     if sys.argv[1:] == ["--only", "jpeg"]:
         # Phase 14 alone.
         card = smi_line()
-        print(json.dumps({"kernels": phase_jpeg(None, card)}))
+        print(json.dumps({"kernels": annotate(phase_jpeg(None, card))}))
         print(card)
         return 0
     if sys.argv[1:] == ["--only", "finish"]:
@@ -5513,20 +5617,20 @@ def main():
         train_run = phase_train(train_ds, val_ds)
         turbo_ckpt = save_turbo(phase_occ_train(train_ds, val_ds))
         phase_inference()
-        print(json.dumps({"kernels": phase_finish(train_run, turbo_ckpt,
-                                                  card)}))
+        recs = phase_finish(train_run, turbo_ckpt, card)
+        print(json.dumps({"kernels": annotate(recs)}))
         print(card)
         return 0
     if sys.argv[1:] == ["--only", "wide"]:
         # Phase 16 alone.
         card = smi_line()
-        print(json.dumps({"kernels": phase_wide(card)}))
+        print(json.dumps({"kernels": annotate(phase_wide(card))}))
         print(card)
         return 0
     if sys.argv[1:] == ["--only", "deep"]:
         # Phase 17 alone.
         card = smi_line()
-        print(json.dumps({"kernels": phase_deep(card)}))
+        print(json.dumps({"kernels": annotate(phase_deep(card))}))
         print(card)
         return 0
     if sys.argv[1:] == ["--only", "shallow"]:
@@ -5535,7 +5639,7 @@ def main():
         recs = phase_shallow(card)
         print(f"[chip_smoke] build and phase 18 took "
               f"{time.perf_counter() - t_start:.1f} s")
-        print(json.dumps({"kernels": recs}))
+        print(json.dumps({"kernels": annotate(recs)}))
         print(card)
         return 0
     if sys.argv[1:] == ["--only", "multi_scene"]:
@@ -5544,7 +5648,8 @@ def main():
         card = smi_line()
         ms_run = phase_multi_scene(phase_train(train_ds, val_ds)["val"]
                                    ["psnr"], card)
-        print(json.dumps({"kernels": multi_scene_records(ms_run)}))
+        print(json.dumps({"kernels": annotate(
+            multi_scene_records(ms_run))}))
         print(card)
         return 0
     net = init_model(slice_config().model_config(), seed=SEED, device="cuda")
@@ -5775,7 +5880,7 @@ def main():
               f"({rec['bound_by']}), design floor {rec['floor_ms']:.3f} ms")
     print(f"[chip_smoke] the whole script took "
           f"{time.perf_counter() - t_start:.1f} s after the device check")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": annotate(kernels)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

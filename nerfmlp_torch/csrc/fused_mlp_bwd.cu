@@ -24,68 +24,42 @@
 // by the bytes it writes, phase 2 by the bytes it reads.
 //
 // Phase 1 (bwd_phase1_kernel). The TPU kernel keeps a tile's activations
-// in VMEM. A per-block device-memory scratch in their place would hold
-// 786 KB per block, 104 MB over 132 blocks: twice the 50 MB L2, so every
-// product would wait on HBM.
-//   * A persistent grid (one block per SM) walks tiles of 128 points (64 in
-//     hi_lo). The tile's current input and output activations live in
-//     shared memory (two ping-pong buffers, the encoded points and dirs), so
-//     the A operand of every product comes from shared memory by ldmatrix.
-//     Where a net's buffers and masks leave no room for two weight stages
-//     (wider than 256), the wrapper picks 64-, then 32-point tiles (hi_lo:
-//     32, then 16): at 8x512 bf16 64 points, at 8x640 32, at 8x384 hi_lo
-//     32, at 8x608 hi_lo 16; bf16 takes 16-point tiles at depth 1 from
-//     width 1552. The weights then stream once per smaller tile: the price
-//     of fitting the activations in 227 KB. At hi_lo 1x1456 and 1x1472
-//     even 16-point tiles leave no room for two 256-column stages of two
-//     planes; the wrapper cuts those nets' layers into passes of 128
-//     columns, whose stages and mask blocks are half as wide. The kernel
-//     takes a pass's width from its operation record and a stage's size
-//     from the header, so it needs nothing else for them.
-//   * Weights stream through a ring of 16-row k-slabs (3 stages at 8x256,
-//     2 in hi_lo) filled by cp.async two slabs (one in hi_lo) ahead of the
-//     product; one barrier per slab. The slab sequence runs across
-//     operations and tiles, so the ring never drains, and each thread's
-//     chunk of an operand's slabs is set up once per operand: issuing a
-//     slab costs a few instructions. A ring of bulk copies instead (warp 0
-//     copying each slab's 16 rows with cp.async.bulk, a full and an empty
-//     mbarrier per stage, no block barrier per slab, dX from a transposed
-//     copy of the weights) measured 29% slower on an H100 (PERF.md). The
-//     likely causes, not measured apart: a ring two slabs deep does not
-//     hide a bulk copy's latency, and warp 0, a consumer too, waits for
-//     the slowest warp before each refill.
-//   * mma.sync m16n8k16 bf16 with fp32 accumulators (not wgmma); 16 warps
-//     over the tile and one pass of up to 256 output columns
-//     (mlp_tile.cuh's WarpGrid: each warp 32 x 64 of a 128-point tile, 16 x
-//     64 of a 64-point one, 16 x 32 of a 32-point one, 16 x 16 of a
-//     16-point one), so a layer up to 256 wide is one pass over its k-slabs
-//     and two warps per scheduler hide each other's latency.
-//   * A layer wider than 256 (the forward's layers and the dX chain's
-//     outputs) is cut by the wrapper into column passes of at most 256,
-//     each an operation of the program over the whole K of its operands:
-//     a dX pass reads the whole cotangent and writes its columns, so each
-//     value is rounded once, after its whole sum, as the TPU kernel rounds
-//     it. A pass reads its own columns (forward) or rows (dX) of the
-//     weight block, whose row stride the operation carries.
+// in VMEM; here they stay in shared memory, so phase 1 runs on the
+// forward's core (mlp_tile.cuh): wgmma with the products transposed (the
+// layer's output features as M, the tile's points as N), weight stages
+// streamed by a producer warp through a ring of bulk copies behind full and
+// empty mbarriers (multicast over a cluster where the layout asks; the
+// layouts take one CTA, which measured as fast or faster). What bounded
+// the design before it (mma.sync from ldmatrix fragments, a block barrier
+// per 16-row stage, every weight restreamed per 16- or 32-point tile on
+// the wide nets) was latency and L2 traffic, at 6-57x the bound.
+//   * dX reads the forward's weight image as it lies: the same bytes are
+//     W^T for the forward (M-major A) and W for dX (K-major A); a dX stage
+//     is one 64-column strip of the block and up to 256 of its rows (the
+//     pass's output features), so both walk the same image.
+//   * A persistent grid of clusters walks tile groups. The tile's input
+//     and output activations live in shared memory (the encoded points and
+//     dirs, one buffer written in place where every layer is one pass,
+//     else two ping-pong buffers), the cotangent laid over the encoded
+//     points once they are dead. A layer wider than 256 is cut by the
+//     wrapper into column passes of at most 256, each an operation over
+//     the whole K of its operands: a dX pass reads the whole cotangent and
+//     writes its columns, so each value is rounded once, after its whole
+//     sum, as the TPU kernel rounds it.
 //   * The ReLU masks the dX chain needs are kept as bits in shared memory,
-//     one block per column pass of each ReLU layer: a thread holds the
-//     same (row, column) positions in every pass, so it writes its bits in
-//     the forward epilogue and reads them back in the dX epilogue, with no
-//     other thread involved. A block holds the words of the warps whose
-//     columns its pass reaches, so a 16-wide layer of a deep narrow net
-//     (866x16 at 32-point tiles: 128 B a layer) does not take a 256-wide
-//     pass's room; a net 256 or more wide keeps every warp's words.
-//   * A deep net's program (866x16: 1,737 operations, 1,740 workspace
-//     matrices, 125 KB) can crowd the masks and buffers out of shared
-//     memory. Where it does, only the header and buffer table are copied
-//     there, and the matrix and operation tables are read from device
-//     memory: every thread reads the same record, once an operation, so
-//     one broadcast load through L1 serves the block. A template flag
-//     picks where the tables are, so a program that fits shared memory
-//     keeps its loads from there.
-//   * Every stored activation and every rounded cotangent is copied once,
-//     16 B per thread, into a row-major (rows, width) workspace matrix,
-//     each pass its own columns.
+//     one block per column pass of each ReLU layer: the warpgroup that owns
+//     a pass's features in the forward owns them in dX, so each thread
+//     writes its accumulator fragment's bits in the forward epilogue and
+//     reads them back in the dX epilogue (one entry of T / 2 bits per 16
+//     features), with no other thread involved.
+//   * A deep net's program (866x16: 1,737 operations, 125 KB) can crowd the
+//     masks and buffers out of shared memory. Where it does, only the
+//     header and buffer table are copied there, and the matrix and
+//     operation tables are read from device memory (one broadcast load
+//     through L1 per record). A template flag picks where they are.
+//   * The epilogue stores its accumulators with stmatrix into the
+//     destination buffer; each pass's columns are then copied, 16 B a
+//     thread, into a row-major (rows, width) workspace matrix.
 // Phase 2 (bwd_phase2_kernel). The TPU adds each tile's dW into one
 // accumulator over its sequential grid; on 132 parallel blocks that would
 // be a read-modify-write of a 2.4 MB partial slot per tile, ~4.6 GB per
@@ -117,11 +91,11 @@
 // architecture, scene s with its own weights and biases (at s times a
 // stride), its own n points, dirs and cotangent rows (scene-major, at s *
 // n), its own workspace rows and its own partial slots.
-//   * Phase 1 walks S * rows_s / T tiles, none straddling two scenes, rows_s
-//     = n rounded up to the tile and to phase 2's 64-row stage
-//     (scene_rows); tile t is workspace rows t * T on, so scene s's rows
-//     start at s * rows_s. The fetch stream keeps the scene of the tile it
-//     fetches for.
+//   * Phase 1 walks S * rows_s / T tiles in groups of a cluster's tiles,
+//     none straddling two scenes, rows_s = n rounded up to the tile and to
+//     phase 2's 64-row stage (scene_rows); tile t of scene s is workspace
+//     rows (s * rows_s / T + t) * T on. The producer keeps the scene of
+//     the group it streams for.
 //   * Phase 2's blocks are (job, split, scene): scene s's splits cover its
 //     rows_s rows only, and write slot block s of the partials.
 //   * The reduction sums each scene's slots (grid y: the scene) in the order
@@ -139,10 +113,11 @@ namespace {
 using namespace mlp_tile;
 
 constexpr int kThreads = 256;     // phase 2: 8 warps
-constexpr int kP1Threads = 512;   // phase 1: 16 warps (mlp_tile.cuh's WarpGrid)
-constexpr int kMaxN = 256;        // output columns of one phase-1 pass
+constexpr int kP2Threads = kThreads;
+constexpr int kP1Threads = mlp_tile::kThreads;
 constexpr int kHeaderInts = 32;
-constexpr int kMaxBufs = 8;       // shared-memory buffers: offset, ld, cols
+constexpr int kMaxBufs = 8;       // shared-memory buffers: byte offset,
+                                  // columns, first column (mlp_tile.cuh)
 constexpr int kOpInts = 16;
 constexpr int kBufsBase = kHeaderInts;
 // The matrix table (column offset, cols per workspace matrix) and the
@@ -156,40 +131,27 @@ constexpr int kStages2 = 3;
 constexpr int kLd2 = kTileK + kPad;
 constexpr int kJobInts = 10;
 
-// Phase-1 operations.
-enum Op { kFwd = 0, kDx = 1, kLoadG = 2 };
-
 // Header fields.
 enum Header {
   hNOps = 0, hProgLen, hNFreqs, hEncDim, hDirsDim, hGCols, hGrCols,
   hXBuf, hDBuf, hGrBuf, hGsBuf, hXMat, hDMat, hGrMat, hGsMat,
-  hStages, hRingOff, hStageElems, hMaskOff, hSmem, hWsCols, hJobsOff,
-  hNJobs, hRows, hMatsBase, hOpsBase, hNMats
+  hStages, hRingOff, hSlotBytes, hMaskOff, hSmem, hWsCols, hJobsOff,
+  hNJobs, hRows, hMatsBase, hOpsBase, hNMats, hCluster, hBarOff
 };
 
-// Operation record fields. An operation is one pass of n <= kMaxN output
-// columns, from column `col` on, over the whole K of its operands:
-//   kFwd:  dst[:, col:col + n] = act(A @ WA + B @ WB + bias), WA the
-//          columns col.. of a (k_a, wld) weight block (wA points at column
-//          col; in hi_lo its lo plane k_a * wld further on), bias at
-//          column col; act = ReLU when maskOut >= 0, which also records
-//          dst > 0 into that mask block
-//   kDx:   dst[:, col:col + n] = mask(A @ WA^T + B @ WB^T), WA the rows
-//          col.. of a (wld, k_a) weight block (wA points at row col; lo
-//          plane k_a * wld further on); maskIn: a mask block, or -1
-//   kLoadG: the cotangent into buffers GR / GS and their matrices
+// Operation record fields after mlp_tile.cuh's CoreField:
+//   kOpFwd:  dst[:, col:col + n] = act(A @ WA + B @ WB + bias), bias at
+//            cBias (the pass's first column); act = ReLU when maskOut >=
+//            0, which also records dst > 0 into that mask block
+//   kOpDx:   dst[:, col:col + n] = mask(A @ WA^T + B @ WB^T); maskIn: a
+//            mask block, or -1
+//   kOpNone: the cotangent into buffers GR / GS and their matrices
 // dst's pass is then copied into workspace matrix `mat` (if >= 0). A mask
-// block (maskIn / maskOut: its first mask word, or -1) holds the bits of
-// one column pass of a ReLU layer for the warps of its first maskCg column
-// groups (mlp_tile.cuh's WarpGrid), whose columns the pass reaches: warp
-// (row group rg, column group cg < maskCg) keeps word
-// ((mt * kRG + rg) * maskCg + cg) * 32 + lane of the block. The wrapper
-// lays the blocks out, each sized by its pass's columns (a net 256 or
-// more wide takes every column group in every pass).
-enum Field {
-  fOp = 0, fSrcA, fWA, fKA, fSrcB, fWB, fKB, fBias, fN, fMaskIn, fDst,
-  fMat, fMaskOut, fCol, fWLd, fMaskCg
-};
+// block (maskIn / maskOut: its byte offset in the mask region, or -1) holds
+// the bits of one column pass of a ReLU layer: for the warp tile of its
+// features 16 v.., lane l's entry (its accumulator fragment's T / 2 bits,
+// bit i for element i) at (32 v + l) entries.
+enum Field { fMaskIn = cBias + 1, fMaskOut, fMat };
 
 // Job record fields (phase 2): the tile [k0, k0 + kc) x [n0, n0 + nc) of
 // the weight block whose gradient starts at `off` (row stride `ld`), from
@@ -197,367 +159,278 @@ enum Field {
 // gradient's offset when this job also sums Y's columns, else -1.
 enum JobField { jA = 0, jK0, jKc, jY, jN0, jNc, jOff, jLd, jDb };
 
-// A value into a shared-memory buffer and its workspace matrix: bf16, or in
-// hi_lo mode the pair (hi, lo) = (bf16(v), bf16(v - hi)) into two planes.
+// A value into a shared-memory buffer (byte address) and its workspace
+// matrix: bf16, or in hi_lo mode the pair (hi, lo) = (bf16(v), bf16(v -
+// hi)) into two planes.
 template <bool kHiLo>
-__device__ __forceinline__ void put2(bf16* s, int s_plane, bf16* w,
+__device__ __forceinline__ void put2(unsigned char* s, int s_plane, bf16* w,
                                      long long w_plane, float v) {
   const bf16 h = __float2bfloat16(v);
-  s[0] = h;
+  *reinterpret_cast<bf16*>(s) = h;
   w[0] = h;
   if (kHiLo) {
     const bf16 l = __float2bfloat16(v - __bfloat162float(h));
-    s[s_plane] = l;
+    *reinterpret_cast<bf16*>(s + s_plane) = l;
     w[w_plane] = l;
   }
 }
 
 // A scene's workspace rows: its n points rounded up to the tile of T
-// points and to phase 2's stage of kStageRows rows (tiles of 32 and 16
-// points fill the rows up to a stage with points past n, which are zero).
+// points and to phase 2's stage of kStageRows rows (smaller tiles fill the
+// rows up to a stage with points past n, which are zero).
 __host__ __device__ inline int scene_rows(int n, int t) {
   const int step = t > kStageRows ? t : kStageRows;
   return (n + step - 1) / step * step;
 }
 
-// One thread per 16-byte chunk of a weight slab: 16 rows of up to 32
-// chunks (forward), or up to 256 rows of 2 chunks (dX).
-static_assert(16 * (kMaxN / 8) <= kP1Threads && 2 * kMaxN <= kP1Threads,
-              "a slab must take at most one chunk per thread");
+// A thread's ReLU bits of one 16-feature warp tile: T / 2 of them.
+template <int T> struct MaskWord { using type = uint64_t; };
+template <> struct MaskWord<64> { using type = uint32_t; };
+template <> struct MaskWord<32> { using type = uint16_t; };
+template <> struct MaskWord<16> { using type = uint8_t; };
+template <> struct MaskWord<8> { using type = uint8_t; };
 
-// Phase 1 over tiles of T points (mlp_tile.cuh's WarpGrid<T>), its matrix
-// and operation tables in shared memory (kSharedTables) or device memory.
+// Phase 1 over tiles of T points, its matrix and operation tables in
+// shared memory (kSharedTables) or device memory.
 template <bool kHiLo, int T, bool kSharedTables>
-__global__ void __launch_bounds__(kP1Threads, 1)
+__global__ void __launch_bounds__(mlp_tile::kThreads, 1)
 bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
                   const float* __restrict__ g, const bf16* __restrict__ weights,
                   const float* __restrict__ biases,
                   const int* __restrict__ prog_in, int prog_len, int n,
-                  int n_tiles, bf16* __restrict__ ws, long long rows_cap,
+                  int n_scenes, bf16* __restrict__ ws, long long rows_cap,
                   long long w_stride, int b_stride) {
-  using G = WarpGrid<T>;
-  using Mask = typename MaskWord<G::kNT>::type;
-  constexpr int MT = G::kMT;
-  constexpr int NT = G::kNT;
-  constexpr int kThreads = kP1Threads;
+  using Mask = typename MaskWord<T>::type;
+  using Core = Consumer<kHiLo, T>;
   extern __shared__ __align__(128) unsigned char smem[];
   // The program's first prog_len ints: the header and buffer table, and
   // with kSharedTables the matrix and operation tables (else those are read
   // from device memory, where every thread reads the same record: one
   // broadcast load through L1).
   int* prog = reinterpret_cast<int*>(smem);
-  for (int i = threadIdx.x; i < prog_len; i += kThreads) prog[i] = prog_in[i];
+  for (int i = threadIdx.x; i < prog_len; i += mlp_tile::kThreads)
+    prog[i] = prog_in[i];
+  const int stages = prog_in[hStages];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + prog_in[hBarOff]);
+  uint64_t* empty = full + stages;
+  const int csize = static_cast<int>(cluster_size());
+  const int rank = static_cast<int>(cluster_rank());
+  if (threadIdx.x == 0) init_ring(full, empty, stages, csize);
   __syncthreads();
-  const int* tables = kSharedTables ? prog : prog_in;
+  cluster_sync();  // every CTA's barriers exist before any copy or arrive
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rg = warp / G::kCG, cg = warp % G::kCG;  // the warp's place
-  const int rb = rg * MT * 16;  // the warp's first row
-  const int cb = cg * G::kWN;   // ... and first column of a pass
+  const int* tables = kSharedTables ? prog : prog_in;
   const int* bufs = prog + kBufsBase;
   const int* mats = tables + prog[hMatsBase];
   const int* ops = tables + prog[hOpsBase];
   const int n_ops = prog[hNOps];
-  const int stages = prog[hStages];
-  const int half = prog[hStageElems];  // a slab's lo plane follows its hi
-  const int stage_elems = half * (kHiLo ? 2 : 1);
-  bf16* ring = reinterpret_cast<bf16*>(smem + prog[hRingOff]);
-  Mask* masks = reinterpret_cast<Mask*>(smem + prog[hMaskOff]);
-  auto bufp = [&](int b) { return reinterpret_cast<bf16*>(smem + bufs[3 * b]); };
-  auto bld = [&](int b) { return bufs[3 * b + 1]; };
-  auto matp = [&](int m) { return ws + static_cast<long long>(mats[2 * m]) * rows_cap; };
+  unsigned char* ring = smem + prog[hRingOff];
+  unsigned char* masks = smem + prog[hMaskOff];
+  const int slot_bytes = prog[hSlotBytes];
+  const int half = kHiLo ? slot_bytes / 2 : 0;
+  const int tiles = scene_rows(n, T) / T;
+  const int groups = scene_groups(tiles, csize);
+  const int n_groups = n_scenes * groups;
+  const int cluster_id = static_cast<int>(blockIdx.x) / csize;
+  const int n_clusters = static_cast<int>(gridDim.x) / csize;
+  const int wg = threadIdx.x / 128;
+  auto matp = [&](int m) {
+    return ws + static_cast<long long>(mats[2 * m]) * rows_cap;
+  };
   auto mcols = [&](int m) { return mats[2 * m + 1]; };
-  auto steps = [&](int oi) {
-    const int* o = ops + oi * kOpInts;
-    return o[fOp] == kLoadG ? 0 : (o[fKA] + o[fKB]) / 16;
-  };
-  const int tiles_per_scene = scene_rows(n, T) / T;
 
-  // The slab stream: every operation's 16-row k-slabs in program order,
-  // tile after tile. Forward: rows k0..k0+15 of the pass's columns of W
-  // (k x wld), stored [16][n + kPad]. dX: the same rows of W^T, i.e.
-  // columns k0..k0+15 of the pass's rows of W (wld x k), stored [n][16]
-  // with the two 16-byte halves of a row swapped every 4 rows, so that
-  // ldmatrix meets no bank conflict. A thread's chunk of an operand's
-  // slabs is set up once per operand (f_operand); fetch() then issues it,
-  // one slab further each call, or an empty group at the end. f_w: the
-  // weights of the scene of the tile being fetched for.
-  const bf16* f_w = weights;
-  int f_tile = static_cast<int>(blockIdx.x) - static_cast<int>(gridDim.x);
-  const bf16* f_src = weights;
-  long long f_lo = 0;
-  int f_dst = -1, f_step = 0, f_op = -1, f_j = 0, f_steps = 0, f_steps_a = 0;
-  auto f_operand = [&](const int* o, bool second) {
-    const int k = second ? o[fKB] : o[fKA], nn = o[fN], wld = o[fWLd];
-    const bf16* w = f_w + (second ? o[fWB] : o[fWA]);
-    f_lo = static_cast<long long>(k) * wld;
-    if (o[fOp] == kFwd) {
-      const int r = tid >> 5, cc = tid & 31;
-      f_dst = cc < nn / 8 ? r * (nn + kPad) + cc * 8 : -1;
-      f_src = w + static_cast<long long>(r) * wld + cc * 8;
-      f_step = 16 * wld;
-    } else {
-      const int r = tid >> 1, h = tid & 1;
-      f_dst = r < nn ? r * 16 + 8 * (h ^ ((r >> 2) & 1)) : -1;
-      f_src = w + static_cast<long long>(r) * k + 8 * h;
-      f_step = 16;
-    }
-  };
-  int per_tile = 0;
-  for (int oi = 0; oi < n_ops; ++oi) per_tile += steps(oi);
-  const int my_tiles = static_cast<int>(blockIdx.x) < n_tiles
-      ? (n_tiles - 1 - static_cast<int>(blockIdx.x)) / static_cast<int>(gridDim.x) + 1
-      : 0;
-  long long f_left = static_cast<long long>(my_tiles) * per_tile;
-  auto fetch = [&](int slot) {
-    if (f_left > 0) {
-      while (f_j >= f_steps) {
-        if (f_op + 1 == n_ops || f_op < 0) {  // the block's next tile
-          f_op = 0;
-          f_tile += gridDim.x;
-          f_w = weights + (f_tile / tiles_per_scene) * w_stride;
-        } else {
-          ++f_op;
-        }
-        f_j = 0;
-        f_steps = steps(f_op);
-        f_steps_a = ops[f_op * kOpInts + fKA] / 16;
-        if (f_steps) f_operand(ops + f_op * kOpInts, false);
-      }
-      if (f_j == f_steps_a) f_operand(ops + f_op * kOpInts, true);
-      if (f_dst >= 0) {
-        bf16* d = ring + slot * stage_elems + f_dst;
-        cp_async16(d, f_src);
-        if (kHiLo) cp_async16(d + half, f_src + f_lo);
-      }
-      f_src += f_step;
-      ++f_j;
-      --f_left;
-    }
-    cp_async_commit();
-  };
-  for (int s = 0; s < stages - 1; ++s) fetch(s);
-  int consumed = 0;
-
-  float acc[MT][NT][4];
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    // Workspace rows row0 on; the tile's scene, its first point within the
-    // scene (p0) and the scene's points, dirs, cotangent rows and biases.
-    const int row0 = tile * T;
-    const int scene = tile / tiles_per_scene;
-    const int p0 = (tile - scene * tiles_per_scene) * T;
-    const long long base = static_cast<long long>(scene) * n;
-    const float* pts_s = pts + 3 * base;
+  // The roles never meet again: ptxas treats the code of a branch that
+  // reconverges as divergent and serializes every wgmma in it.
+  if (wg == 2) {
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x < 256 + 32)
+      produce<kHiLo>(ops, kOpInts, n_ops, weights, w_stride, groups, n_groups,
+                     cluster_id, n_clusters, stages, ring, slot_bytes, half,
+                     full, empty, rank, csize == 8 ? 3 : csize == 4 ? 2
+                                                                    : csize - 1);
+    cluster_sync();  // no CTA leaves while the cluster may still reach it
+    return;
+  }
+  regs_inc<kConsumerRegs>();
+  const int tid = threadIdx.x, lane = tid & 31, warp = (tid >> 5) & 3;
+  const uint32_t base = smem_u32(smem);
+  float acc0[Core::kAcc], acc1[Core::kAcc];
+  Ring pos;
+  for (int g_i = cluster_id; g_i < n_groups; g_i += n_clusters) {
+    // The tile's scene, its first point within the scene (p0), its
+    // workspace rows (row0 on) and the scene's points, dirs, cotangent
+    // rows and biases.
+    const int scene = g_i / groups;
+    const int tile = (g_i - scene * groups) * csize + rank;
+    const bool live = tile < tiles;
+    const int p0 = tile * T;
+    const int row0 = (scene * tiles + tile) * T;
+    const long long sbase = static_cast<long long>(scene) * n;
+    const float* pts_s = pts + 3 * sbase;
     const float* bias_s = biases + static_cast<long long>(scene) * b_stride;
 
-    // Encoded points (mlp_tile.cuh's encode, as the forward).
-    {
-      const int xb = prog[hXBuf], ldx = bld(xb), xm = prog[hXMat];
+    if (live) {
+      // Encoded points (mlp_tile.cuh's encode_pair, as the forward).
+      const int xb = prog[hXBuf], xm = prog[hXMat];
       const int xc = mcols(xm), enc_dim = prog[hEncDim];
-      bf16* xs = bufp(xb);
+      const int x_plane = 2 * T * bufs[3 * xb + 1];
+      unsigned char* xs = smem + bufs[3 * xb];
       bf16* xw = matp(xm) + static_cast<long long>(row0) * xc;
-      for (int idx = tid; idx < T * xc; idx += kThreads) {
+      for (int idx = tid; idx < T * xc; idx += kConsumers) {
         const int r = idx / xc, j = idx - r * xc, gr = p0 + r;
-        const float v = (gr < n && j < enc_dim) ? encode(pts_s, gr, j) : 0.f;
-        put2<kHiLo>(xs + r * ldx + j, T * ldx, xw + idx, rows_cap * xc, v);
+        float v0 = 0.f, v1 = 0.f;
+        const int got =
+            (gr < n && j < enc_dim) ? encode_pair(pts_s, gr, j, &v0, &v1) : 1;
+        if (got)
+          put2<kHiLo>(xs + act_byte<T>(r, j), x_plane, xw + idx,
+                      rows_cap * xc, v0);
+        if (got == 2)
+          put2<kHiLo>(xs + act_byte<T>(r, j + 3), x_plane, xw + idx + 3,
+                      rows_cap * xc, v1);
       }
-    }
-    // Encoded view directions: bf16, or fp32 in hi_lo mode.
-    if (prog[hDBuf] >= 0) {
-      const int db = prog[hDBuf], ldd = bld(db), dm = prog[hDMat];
-      const int dc = mcols(dm), dirs_dim = prog[hDirsDim];
-      bf16* ds = bufp(db);
-      bf16* dw = matp(dm) + static_cast<long long>(row0) * dc;
-      for (int idx = tid; idx < T * dc; idx += kThreads) {
-        const int r = idx / dc, j = idx - r * dc, gr = p0 + r;
-        float v = 0.f;
-        if (gr < n && j < dirs_dim) {
-          const long long at = (base + gr) * dirs_dim + j;
-          v = kHiLo ? static_cast<const float*>(dirs)[at]
-                    : __bfloat162float(static_cast<const bf16*>(dirs)[at]);
+      // Encoded view directions: bf16, or fp32 in hi_lo mode.
+      if (prog[hDBuf] >= 0) {
+        const int db = prog[hDBuf], dm = prog[hDMat];
+        const int dc = mcols(dm), dirs_dim = prog[hDirsDim];
+        unsigned char* ds = smem + bufs[3 * db];
+        bf16* dw = matp(dm) + static_cast<long long>(row0) * dc;
+        for (int idx = tid; idx < T * dc; idx += kConsumers) {
+          const int r = idx / dc, j = idx - r * dc, gr = p0 + r;
+          float v = 0.f;
+          if (gr < n && j < dirs_dim) {
+            const long long at = (sbase + gr) * dirs_dim + j;
+            v = kHiLo ? static_cast<const float*>(dirs)[at]
+                      : __bfloat162float(static_cast<const bf16*>(dirs)[at]);
+          }
+          put2<kHiLo>(ds + act_byte<T>(r, j), 2 * T * bufs[3 * db + 1],
+                      dw + idx, rows_cap * dc, v);
         }
-        put2<kHiLo>(ds + r * ldd + j, T * ldd, dw + idx, rows_cap * dc, v);
       }
+      fence_proxy_async();
     }
+    named_sync(kConsumerBar, kConsumers);
 
     for (int oi = 0; oi < n_ops; ++oi) {
       const int* o = ops + oi * kOpInts;
-      const int op = o[fOp];
-      if (op == kLoadG) {
+      const int kind = o[cKind];
+      if (kind == kOpNone) {
         // The cotangent, cast to the compute type: its first gr_cols
         // columns into GR (rgb, or the whole output head), the rest into
-        // GS (sigma). Rows at or past n are zero. The buffers may overlay
-        // the encoded points, which no later operation of the tile reads.
-        const int g_cols = prog[hGCols], gr_cols = prog[hGrCols];
-        for (int which = 0; which < 2; ++which) {
-          const int b = which ? prog[hGsBuf] : prog[hGrBuf];
-          if (b < 0) continue;
-          const int m = which ? prog[hGsMat] : prog[hGrMat];
-          const int ldg = bld(b), mc = mcols(m);
-          const int c0 = which ? gr_cols : 0;
-          const int cn = which ? g_cols - gr_cols : gr_cols;
-          bf16* gs = bufp(b);
-          bf16* gw = matp(m) + static_cast<long long>(row0) * mc;
-          for (int idx = tid; idx < T * mc; idx += kThreads) {
-            const int r = idx / mc, j = idx - r * mc, gr = p0 + r;
-            const float v =
-                (gr < n && j < cn) ? g[(base + gr) * g_cols + c0 + j] : 0.f;
-            put2<kHiLo>(gs + r * ldg + j, T * ldg, gw + idx, rows_cap * mc, v);
+        // GS (sigma). Rows at or past n are zero. The buffers lie in the
+        // encoded points' atoms, which no later operation of the tile
+        // reads.
+        if (live) {
+          const int g_cols = prog[hGCols], gr_cols = prog[hGrCols];
+          for (int which = 0; which < 2; ++which) {
+            const int b = which ? prog[hGsBuf] : prog[hGrBuf];
+            if (b < 0) continue;
+            const int m = which ? prog[hGsMat] : prog[hGrMat];
+            const int mc = mcols(m), cb = bufs[3 * b + 2];
+            const int c0 = which ? gr_cols : 0;
+            const int cn = which ? g_cols - gr_cols : gr_cols;
+            unsigned char* gs = smem + bufs[3 * b];
+            bf16* gw = matp(m) + static_cast<long long>(row0) * mc;
+            // The same trips on every thread, the tail predicated: this
+            // loop lies in the operation loop.
+            for (int i0 = 0; i0 < T * mc; i0 += kConsumers) {
+              const int idx = min(i0 + tid, T * mc - 1);
+              const bool in = i0 + tid < T * mc;
+              const int r = idx / mc, j = idx - r * mc, gr = p0 + r;
+              const float v =
+                  g[(sbase + min(gr, n - 1)) * g_cols + c0 + min(j, cn - 1)];
+              const float x = gr < n && j < cn ? v : 0.f;
+              const bf16 h = __float2bfloat16(x);
+              unsigned char* at = gs + act_byte<T>(r, cb + j);
+              st_shared_if(at, h, in);
+              st_global_if(gw + idx, h, in);
+              if (kHiLo) {
+                const bf16 l = __float2bfloat16(x - __bfloat162float(h));
+                st_shared_if(at + 2 * T * bufs[3 * b + 1], l, in);
+                st_global_if(gw + idx + rows_cap * mc, l, in);
+              }
+            }
           }
+          fence_proxy_async();
         }
+        named_sync(kConsumerBar, kConsumers);
         continue;
       }
+      Core::op(o, pos, stages, ring, slot_bytes, half, full, empty, bufs,
+               base, smem_u32(full + 2 * kMaxStages), wg, tid & 127, csize,
+               live, acc0, acc1);
+      if (!live) continue;
+      const int dst = o[cDst], nn = o[cN], col0 = o[cCol];
+      if (dst == o[cSrcA] || (o[cKB] && dst == o[cSrcB]))
+        named_sync(kConsumerBar, kConsumers);  // in place: all reads done
 
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-      // Per operation: each operand's A rows for this lane, and where the
-      // lane's B fragments sit in a slab (column pair p at + p * b_pair).
-      const int nn = o[fN];
-      const int steps_a = o[fKA] / 16, n_steps = steps(oi);
-      const int lda = bld(o[fSrcA]), ldb = o[fKB] ? bld(o[fSrcB]) : 0;
-      const int a_lane = (rb + (lane & 15)) * lda + (lane >> 4) * 8;
-      const int b_lane = (rb + (lane & 15)) * ldb + (lane >> 4) * 8;
-      const bf16* a_op = bufp(o[fSrcA]) + a_lane;
-      const bf16* b_op = o[fKB] ? bufp(o[fSrcB]) + b_lane : a_op;
-      const bool fwd = op == kFwd;
-      const int b_frag =
-          fwd ? (lane & 15) * (nn + kPad) + cb + (lane >> 4) * 8
-              : (cb + (lane & 7) + ((lane >> 4) << 3)) * 16 +
-                    8 * (((lane >> 3) & 1) ^ ((lane >> 2) & 1));
-      const int b_pair = fwd ? 16 : 256;
-      for (int j = 0; j < n_steps; ++j) {
-        cp_async_wait_n(stages - 2);
-        __syncthreads();  // the slab is in; the oldest slot is free
-        fetch((consumed + stages - 1) % stages);
-        const bf16* slab = ring + (consumed % stages) * stage_elems + b_frag;
-        ++consumed;
-        const bool second = j >= steps_a;
-        const int ld = second ? ldb : lda;
-        const bf16* a_base = second ? b_op + 16 * (j - steps_a) : a_op + 16 * j;
-        uint32_t a[MT][4], al[MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          ldsm_x4(a[mt], a_base + mt * 16 * ld);
-          if (kHiLo) ldsm_x4(al[mt], a_base + mt * 16 * ld + T * ld);
-        }
-#pragma unroll
-        for (int p = 0; p < NT / 2; ++p) {
-          if (cb + 16 * p >= nn) continue;  // warp-uniform
-          uint32_t b[4], bl[4];
-          const bf16* q = slab + p * b_pair;
-          if (fwd) {
-            ldsm_x4_t(b, q);
-            if (kHiLo) ldsm_x4_t(bl, q + half);
-          } else {
-            ldsm_x4(b, q);
-            if (kHiLo) ldsm_x4(bl, q + half);
-          }
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            mma(acc[mt][2 * p], a[mt], b[0], b[1]);
-            mma(acc[mt][2 * p + 1], a[mt], b[2], b[3]);
-            if (kHiLo) {
-              mma(acc[mt][2 * p], al[mt], b[0], b[1]);
-              mma(acc[mt][2 * p + 1], al[mt], b[2], b[3]);
-              mma(acc[mt][2 * p], a[mt], bl[0], bl[1]);
-              mma(acc[mt][2 * p + 1], a[mt], bl[2], bl[3]);
-            }
-          }
-        }
-      }
-
-      // Epilogue. Forward: fp32 bias, then ReLU, recording dst > 0 (of the
-      // rounded value in bf16 mode) into the mask block. dX: the mask
+      // Epilogue. Forward: fp32 bias, then ReLU, recording dst > 0 (of
+      // the rounded value in bf16 mode) into the mask block. dX: the mask
       // block of the stored activation. Then the compute type, into dst's
-      // columns of the pass. Each value is a whole K sum, rounded once.
-      // Bit 4 nt + e of word mt is the thread's accumulator acc[mt][nt][e].
-      {
-        const int dst = o[fDst], ldd = bld(dst), col0 = o[fCol];
-        bf16* d = bufp(dst) + col0;
-        const int mask_in = o[fMaskIn], mask_out = o[fMaskOut];
-        // The mask block's column groups: a warp past them has no columns
-        // in the pass, and no words in the block.
-        const int mask_cg = o[fMaskCg];
-        const bool mask_mine = cg < mask_cg;
-        const float* bias = bias_s + o[fBias];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const int word = ((mt * G::kRG + rg) * mask_cg + cg) * 32 + lane;
-          const uint32_t bits_in =
-              (op == kDx && mask_in >= 0 && mask_mine)
-                  ? masks[mask_in + word]
-                  : 0xffffffffu;
-          uint32_t bits_out = 0;
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            if (cb + nt * 8 >= nn) continue;
-            const int col = cb + nt * 8 + 2 * (lane & 3);
-            float b0 = 0.f, b1 = 0.f;
-            if (op == kFwd) {
-              b0 = bias[col];
-              b1 = bias[col + 1];
+      // columns of the pass (mlp_tile.cuh's store_acc). Each value is a
+      // whole K sum, rounded once.
+      const int mask_in = o[fMaskIn], mask_out = o[fMaskOut];
+      const float* bias = bias_s + o[cBias];
+      unsigned char* d = smem + bufs[3 * dst];
+      const int d_plane = 2 * T * bufs[3 * dst + 1];
+      const int dcol = bufs[3 * dst + 2] + col0;
+      // One tile's epilogue, given its accumulator (each array its own
+      // call: no accumulator is ever picked at run time).
+      auto epilogue = [&](int u, float(&acc)[Core::kAcc]) {
+        const int f0 = 64 * (wg + 2 * u) + 16 * warp;
+        const bool ok = f0 < nn;  // the warp's features lie in the pass
+        const int entry = (ok ? f0 >> 4 : 0) * 32 + lane;
+        if (kind == kOpFwd) {
+          const int fb = min(f0 + (lane >> 2), nn - 1);
+          const float b0 = bias[fb], b1 = bias[min(fb + 8, nn - 1)];
+          const bool relu = mask_out >= 0;
+          Mask bits = 0;
+          store_acc<kHiLo, T>(d, d_plane, dcol + (ok ? f0 : 0), lane, ok,
+                              [&](int i) {
+            float v = acc[i] + ((i & 2) ? b1 : b0);
+            if (relu) {
+              v = fmaxf(v, 0.f);
+              const bool on =
+                  kHiLo ? v > 0.f : __bfloat162float(__float2bfloat16(v)) > 0.f;
+              bits |= static_cast<Mask>(on) << i;
             }
-#pragma unroll
-            for (int hh = 0; hh < 2; ++hh) {
-              const int row = rb + mt * 16 + (lane >> 2) + 8 * hh;
-              const int bit = 4 * nt + 2 * hh;
-              float v0 = acc[mt][nt][2 * hh], v1 = acc[mt][nt][2 * hh + 1];
-              if (op == kFwd) {
-                v0 += b0;
-                v1 += b1;
-                if (mask_out >= 0) {
-                  v0 = fmaxf(v0, 0.f);
-                  v1 = fmaxf(v1, 0.f);
-                }
-              } else {
-                if (!((bits_in >> bit) & 1u)) v0 = 0.f;
-                if (!((bits_in >> (bit + 1)) & 1u)) v1 = 0.f;
-              }
-              const bf16 h0 = __float2bfloat16(v0), h1 = __float2bfloat16(v1);
-              bf16* at = d + row * ldd + col;
-              *reinterpret_cast<__nv_bfloat162*>(at) = __halves2bfloat162(h0, h1);
-              if (kHiLo)
-                store2(at + T * ldd, v0 - __bfloat162float(h0),
-                       v1 - __bfloat162float(h1));
-              if (mask_out >= 0) {
-                const bool p0 = kHiLo ? v0 > 0.f : __bfloat162float(h0) > 0.f;
-                const bool p1 = kHiLo ? v1 > 0.f : __bfloat162float(h1) > 0.f;
-                bits_out |= (static_cast<uint32_t>(p0) << bit) |
-                            (static_cast<uint32_t>(p1) << (bit + 1));
-              }
-            }
-          }
-          if (mask_out >= 0 && mask_mine)
-            masks[mask_out + word] = static_cast<Mask>(bits_out);
+            return v;
+          });
+          if (relu)
+            st_shared_if(masks + mask_out + entry * sizeof(Mask), bits, ok);
+        } else {
+          const Mask bits = mask_in >= 0
+              ? reinterpret_cast<const Mask*>(masks + mask_in)[entry]
+              : static_cast<Mask>(~static_cast<Mask>(0));
+          store_acc<kHiLo, T>(d, d_plane, dcol + (ok ? f0 : 0), lane, ok,
+                              [&](int i) {
+            return ((bits >> i) & 1) ? acc[i] : 0.f;
+          });
         }
-      }
-      __syncthreads();
+      };
+      epilogue(0, acc0);
+      epilogue(1, acc1);
+      fence_proxy_async();
+      named_sync(kConsumerBar, kConsumers);
 
-      // The pass's columns, 16 B a thread, into its workspace matrix: row
-      // r, chunk cc of thread slot c = 32 r + cc.
+      // The pass's columns, 16 B a thread, into its workspace matrix (a
+      // loop of the same trips on every thread, its tail predicated).
       const int m = o[fMat];
       if (m >= 0) {
-        const int b = o[fDst], cols = mcols(m), ld = bld(b), col0 = o[fCol];
-        const bf16* s = bufp(b) + col0;
+        const int cols = mcols(m), chunks = nn >> 3, all = T * chunks;
         bf16* w = matp(m) + static_cast<long long>(row0) * cols + col0;
-        for (int c = tid; c < 32 * T; c += kThreads) {
-          const int r = c >> 5, cc = c & 31;
-          if (8 * cc >= nn) continue;
+        for (int c0 = 0; c0 < all; c0 += kConsumers) {
+          const int c = min(c0 + tid, all - 1);
+          const int r = c / chunks, cc = c - r * chunks;
+          const unsigned char* s = d + act_byte<T>(r, dcol + 8 * cc);
           const long long at = static_cast<long long>(r) * cols + cc * 8;
-          *reinterpret_cast<uint4*>(w + at) =
-              *reinterpret_cast<const uint4*>(s + r * ld + cc * 8);
-          if (kHiLo)
-            *reinterpret_cast<uint4*>(w + rows_cap * cols + at) =
-                *reinterpret_cast<const uint4*>(s + (T + r) * ld + cc * 8);
+          copy16_if(w + at, s, c0 + tid < all);
+          if (kHiLo) copy16_if(w + rows_cap * cols + at, s + d_plane,
+                               c0 + tid < all);
         }
       }
     }
   }
-  cp_async_wait<0>();
+  cluster_sync();  // no CTA leaves while the cluster may still reach it
 }
 
 // dW and db partials of one job, one split of the rows and one scene.
@@ -763,18 +636,21 @@ cudaError_t launch_phase1(const float* pts, const void* dirs, const float* g,
                           const bf16* weights, const float* biases,
                           const int* prog, int prog_len, int n,
                           int n_scenes, long long w_stride, int b_stride,
-                          int grid, int smem, bf16* ws, long long rows_cap,
+                          int csize, int smem, bf16* ws, long long rows_cap,
                           cudaStream_t stream) {
-  const int n_tiles = n_scenes * (scene_rows(n, T) / T);
+  auto kernel = bwd_phase1_kernel<kHiLo, T, kSharedTables>;
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_phase1_kernel<kHiLo, T, kSharedTables>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  bwd_phase1_kernel<kHiLo, T, kSharedTables><<<grid, kP1Threads, smem,
-                                              stream>>>(
-      pts, dirs, g, weights, biases, prog, prog_len, n, n_tiles, ws, rows_cap,
-      w_stride, b_stride);
-  return cudaGetLastError();
+  const long long groups = static_cast<long long>(n_scenes) *
+                           scene_groups(scene_rows(n, T) / T, csize);
+  int clusters = 0;
+  err = max_clusters(kernel, csize, smem, &clusters);
+  if (err != cudaSuccess) return err;
+  const int grid = static_cast<int>(groups < clusters ? groups : clusters);
+  return launch_clusters(kernel, grid, csize, smem, stream, pts, dirs, g,
+                         weights, biases, prog, prog_len, n, n_scenes, ws,
+                         rows_cap, w_stride, b_stride);
 }
 
 template <bool kHiLo>
@@ -801,12 +677,11 @@ extern "C" {
 
 // The kernels' fixed shape, for the wrapper to check against its own.
 int fused_mlp_bwd_constants(int* out, int len) {
-  // ... then phase 1's tile sizes: bf16, then hi_lo, in the order tried;
-  // then the largest tile built with its tables in device memory.
-  const int c[] = {kThreads,   kPad,        kMaxN,      kHeaderInts,
+  // ... then phase 1's tile sizes: bf16, then hi_lo.
+  const int c[] = {kP2Threads, kPad,        kMaxN,      kHeaderInts,
                    kMaxBufs,   kOpInts,     kTileK,     kTileN,
                    kStageRows, kStages2,    kJobInts,   kP1Threads,
-                   128, 64, 32, 16, 64, 32, 16, 32};
+                   128, 64, 32, 16, 64, 32, 16, 8};
   const int count = static_cast<int>(sizeof(c) / sizeof(c[0]));
   for (int i = 0; i < len && i < count; ++i) out[i] = c[i];
   return count;
@@ -823,21 +698,22 @@ const char* fused_mlp_bwd_error_string(int code) {
 // s * b_stride elements; prog (device, int32): the program, whose first
 // prog_len ints go to shared memory: through the operation table, or the
 // header and buffer table alone; rows: the program's points per tile (128,
-// 64, 32 or 16; hi_lo 64, 32 or 16), which with prog_len picks the kernel
-// (tables in device memory: 32, hi_lo 32 or 16); smem: the program's
-// shared-memory bytes; ws: the
-// workspace, rows_cap rows per matrix (>= n_scenes times scene_rows(n,
-// rows); scene s's from s times that). Launches `grid` persistent blocks
-// on `stream`, does not synchronise, allocates nothing; returns
-// cudaGetLastError().
+// 64, 32 or 16; hi_lo 64, 32, 16 or 8), which with prog_len picks the
+// kernel, cluster its CTAs a cluster (1, 2, 4 or 8); smem: the program's
+// shared-memory bytes; ws: the workspace, rows_cap rows per matrix (>=
+// n_scenes times scene_rows(n, rows); scene s's from s times that).
+// Launches a persistent grid of as many clusters as the card holds at once
+// (and the tile groups need) on `stream`, does not synchronise, allocates
+// nothing; returns the launch's error.
 int fused_mlp_bwd_phase1(const void* pts, const void* dirs, const void* g,
                          const void* weights, const void* biases,
                          const void* prog, int prog_len, int hi_lo, int rows,
-                         int n, int n_scenes, long long w_stride,
-                         int b_stride, int grid, int smem, void* ws,
-                         long long rows_cap, void* stream) {
-  if (prog_len < kTablesBase || grid <= 0 || n_scenes <= 0 ||
-      w_stride % 8 || b_stride < 0 || rows <= 0 ||
+                         int cluster, int n, int n_scenes, long long w_stride,
+                         int b_stride, int smem, void* ws, long long rows_cap,
+                         void* stream) {
+  if (prog_len < kTablesBase || n_scenes <= 0 || w_stride % 8 ||
+      b_stride < 0 || rows <= 0 ||
+      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
       rows_cap < static_cast<long long>(n_scenes) * scene_rows(n, rows))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaSuccess);
@@ -849,14 +725,14 @@ int fused_mlp_bwd_phase1(const void* pts, const void* dirs, const void* g,
   auto* wsp = static_cast<bf16*>(ws);
   auto* s = static_cast<cudaStream_t>(stream);
   // The tables stay in device memory only where the program ends at the
-  // buffer table, and only at tiles of 32 and 16 points: a program that
-  // crowds shared memory belongs to a net whose masks took the tile there.
+  // buffer table (a deep or wide hi_lo net whose masks and buffers crowd
+  // shared memory).
   const bool shared_tables = prog_len > kTablesBase;
 #define PHASE1(HI_LO, T, SHARED)                                             \
   if (!!hi_lo == HI_LO && rows == T && shared_tables == SHARED)              \
     return static_cast<int>(launch_phase1<HI_LO, T, SHARED>(                \
         p, dirs, gg, w, b, pr, prog_len, n, n_scenes, w_stride, b_stride,    \
-        grid, smem, wsp, rows_cap, s));
+        cluster, smem, wsp, rows_cap, s));
   PHASE1(false, 128, true)
   PHASE1(false, 64, true)
   PHASE1(false, 32, true)
@@ -864,9 +740,8 @@ int fused_mlp_bwd_phase1(const void* pts, const void* dirs, const void* g,
   PHASE1(true, 64, true)
   PHASE1(true, 32, true)
   PHASE1(true, 16, true)
-  PHASE1(false, 32, false)
-  PHASE1(true, 32, false)
   PHASE1(true, 16, false)
+  PHASE1(true, 8, false)
 #undef PHASE1
   return static_cast<int>(cudaErrorInvalidValue);
 }

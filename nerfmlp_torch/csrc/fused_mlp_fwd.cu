@@ -15,83 +15,70 @@
 //
 // What bounds it. One point costs 2 * 593,408 FLOP at 8x256 with the view
 // head; device memory sees only 12 B of points, 54 B of dirs and 16 B of
-// output per point. So the work is compute-bound by about 50x against the
-// card's memory rate: the bf16 tensor cores set the floor (0.629 ms for the
-// 524,288-point fine serving call at 989 TFLOP/s).
+// output per point. So the function is compute-bound by about 50x against
+// the card's memory rate: the bf16 tensor cores set the floor (0.629 ms for
+// the 524,288-point fine serving call at 989 TFLOP/s). What bounded the
+// design before this one (mma.sync m16n8k16 from ldmatrix fragments, a
+// block barrier per 16- or 32-row ring stage, weights loaded by all 512
+// threads) was latency, ~150 TFLOP/s, with no part dominant; and on the
+// shallow wide nets, whose activations only fit 16- and 32-point tiles,
+// the weights every tile restreams from L2 (74 GB for one 131,072-point
+// call at 1x1696).
 //
-// Design: the core of the backward's phase 1 (fused_mlp_bwd.cu), which
-// recomputes this same forward.
-//   * A persistent grid (one block of 16 warps per SM) walks tiles of 128
-//     points (64 in hi_lo, and where two 128-row activation buffers of the
-//     net's width do not fit shared memory, e.g. widths 320-768; 32 in
-//     hi_lo past width 320, where two planes of 64-row buffers do not).
-//     The shallow wide nets take smaller tiles still: bf16 32 points from
-//     width 784 and 16 at depth 1 from 1616, hi_lo 16 from 720 (up to the
-//     JAX gate's 1696 / 1472), where a larger tile's two activation
-//     buffers leave no room for two weight stages.
-//     Every block streams the ~1.19 MB of weights from L2 once per tile:
-//     9.3 KB per point, half of what the first 64-point, one-tile-per-block
-//     design read.
-//   * The tile's activations stay in shared memory: the encoded points
-//     (kept for the skip layer), the encoded view directions and two
-//     ping-pong buffers for a layer's input and output. Only the output
-//     heads' real columns leave the block, straight from registers.
-//   * Each warp owns 32 x 64 of a 128 x 256 output pass (16 x 64 of a
-//     64 x 256 pass, 16 x 32 of a 32 x 256 one, 16 x 16 of a 16 x 256 one:
-//     mlp_tile.cuh's WarpGrid): mma.sync m16n8k16 bf16 into fp32
-//     accumulators, A fragments from the activation buffers and B
-//     fragments from the weight ring, both by ldmatrix. A layer wider
-//     than 256 columns is cut into column passes by the Python wrapper,
-//     each a record of the program.
-//   * Weights stream through a cp.async ring of k-slabs: 32 rows per stage
-//     (16 in hi_lo, where the (hi, lo) planes take twice the room), up to
-//     4 stages as they fit. A narrow operation takes as many rows per
-//     stage as its slot holds: every stage costs a barrier and a wait
-//     whatever its width, so the sigma and rgb heads take one stage per
-//     operand instead of 8 and 4. The slab sequence runs across the
-//     program's operations and across the block's tiles, so the ring never
-//     drains; each thread's 16-byte chunk of an operand's slabs is set up
-//     once per operand; one block barrier per stage both publishes the
-//     stage and frees the oldest slot.
-//   * The epilogue works in registers: fp32 bias, ReLU, bf16 (pairs), into
-//     the destination buffer; the heads write their real columns to the
-//     (n, out_w) fp32 output, rows at or past n masked. The barrier of the
-//     next operation's first stage orders an epilogue's writes before any
-//     read of them, so operations need no barrier of their own.
+// Design: mlp_tile.cuh's core, shared with the backward's phase 1.
+//   * wgmma.mma_async with the products transposed: M the layer's output
+//     features (64 a wgmma; a pass of up to 256 columns over the two
+//     consumer warpgroups), N the tile's points (16 to 128), K the input
+//     features. A is the weight stage in shared memory, B the tile's
+//     activations, both through descriptors; a hi_lo product is three
+//     wgmma into the same accumulators.
+//   * A producer warpgroup (its registers given to the consumers by
+//     setmaxnreg) streams every operation's weight stages through a ring
+//     of slots with bulk copies, the packer having written each weight
+//     block in the layout wgmma reads; a full and an empty mbarrier per
+//     slot and no block-wide barrier per stage. Stages of up to 64 rows
+//     (a narrow operation takes as many as the slot holds), at least three
+//     deep where the layout fits.
+//   * A cluster of C CTAs walks neighbouring tiles of one scene; each
+//     stage is loaded once from L2 and multicast into every CTA. The
+//     layouts take C = 1: at 32- and 16-point tiles, clusters of 2 and 4
+//     were slower on an H100 at nearly every layout measured, by up to
+//     26%, never faster by more than 1.3% (the small-N wgmma, not L2
+//     reads, take the time; scripts/layout_sweep.py). The
+//     persistent grid is sized by cudaOccupancyMaxActiveClusters.
+//   * The tile's activations stay in shared memory (encoded points, kept
+//     for the skip layer; encoded view directions; one activation buffer
+//     written in place where every layer is one pass, else two ping-pong
+//     buffers). The epilogue works from the accumulators: fp32 bias, ReLU,
+//     bf16 (or the hi / lo split) into the next operation's buffer; the
+//     heads' real columns, in fp32, into staging columns in the encoded
+//     points' buffer (dead after the trunk), copied to the (n, out_w)
+//     output after the tile's last operation, coalesced, rows at or past n
+//     masked. The epilogue takes no branch and stores nothing to device
+//     memory: while the heads took a branch of their own that stored
+//     there, ptxas serialized every wgmma of the loop (note C7520, one
+//     WARPGROUP.DEPBAR an HGMMA). Two named barriers of the consumers an
+//     operation (one before an in-place epilogue, one after every
+//     epilogue), none per stage.
 //   * The skip layer's cat([x, h]) @ W is two operands accumulated into the
 //     same registers, x @ W[:enc] + h @ W[enc:], as is the view layer's
 //     cat([bottleneck, dirs]) @ Wv.
 //
-// Measured (chip_smoke.py, one H100 80GB HBM3 at 700 W): about 4.0 ms for
-// the 524,288-point served fine call and 1.0 ms for the 131,072-point
-// train fine call, ~150 TFLOP/s: 2.6x faster than the first design (wmma,
-// one 64-point tile per block, synchronous slab loads), 6.4x the bound.
-// No part dominates (scripts/bwd_ablate.py): without the mma ~20% less,
-// without the stage wait and barrier ~17%, without the weight loads ~17%,
-// without the B-fragment ldmatrix ~11%, without the encoding (sinf/cosf
-// and the point loads) ~8%. The next step is wgmma with a producer warp
-// and TMA multicast of the weight slabs (PERF.md).
-//
 // The network arrives as a program built by the Python wrapper
 // (nerfmlp_torch/ops/fused_mlp.py, pack_params) and copied into shared
 // memory: a header, a table of the four buffers and one record per column
-// pass of each layer naming its operand buffers, weight blocks, bias,
-// width, epilogue and destination; its bytes are the only bound on depth
-// (866 layers: 55 KB, which a 128-point tile's buffers leave room for at
-// width 16). Every dimension is padded to a multiple of 16 with zero
-// weights, zero biases and zero activations, so padding adds exactly
-// zero. Rows past n are zero on the way in and never written on the
-// way out.
+// pass of each layer (mlp_tile.cuh's CoreField, then its epilogue); its
+// bytes bound the depth (866 layers: 55 KB). Every dimension is padded to
+// a multiple of 16 with zero weights, zero biases and zero activations, so
+// padding adds exactly zero.
 //
 // A scene axis (the TPU kernel under jax.vmap, whose batching rule gives the
 // pallas_call a leading grid axis over scenes): one launch runs S nets of
 // one architecture, scene s with its own weights and biases (at s times a
 // stride in each buffer), its n points, dirs and output rows (scene-major,
-// at s * n). The tile loop runs over S * ceil(n / T) tiles; a tile never
-// straddles two scenes, and each tile decodes (scene, local tile). The
-// weight ring's fetch stream, which runs ahead into the block's next tile,
-// keeps the scene of the tile it fetches for. Every output row is computed
-// as in a launch of its scene alone, so scene s's rows equal a single-scene
+// at s * n). A tile group never straddles two scenes; the producer keeps
+// the scene of the group it streams for. Every output row is computed as
+// in a launch of its scene alone, so scene s's rows equal a single-scene
 // launch's bit for bit. S = 1 is the single net.
 
 #include <cuda_bf16.h>
@@ -104,10 +91,9 @@ namespace {
 
 using namespace mlp_tile;
 
-constexpr int kThreads = 512;     // 16 warps, 4 x 4 over an output pass
-constexpr int kMaxN = 256;        // output columns of one pass
 constexpr int kHeaderInts = 16;
-constexpr int kMaxBufs = 4;       // X, D, P0, P1: offset, ld, cols
+constexpr int kMaxBufs = 4;       // X, D, P0, P1: byte offset, columns, 0
+                                  // (mlp_tile.cuh's activation buffers)
 constexpr int kOpInts = 16;
 constexpr int kBufsBase = kHeaderInts;
 constexpr int kOpsBase = kBufsBase + 3 * kMaxBufs;
@@ -115,45 +101,33 @@ constexpr int kOpsBase = kBufsBase + 3 * kMaxBufs;
 // Header fields.
 enum Header {
   hNOps = 0, hProgLen, hNFreqs, hEncDim, hDirsDim, hOutW, hHiLo, hRows,
-  hKSub, hStages, hRingOff, hStageElems, hSmem
+  hCluster, hStages, hRingOff, hSlotBytes, hBarOff, hSmem
 };
-// Buffers of the encoded points and dirs (the activations: 2 and 3).
+// Buffers of the encoded points and dirs.
 enum Buffer { kX = 0, kD = 1 };
 // Epilogues.
 enum Mode { kReluBf16 = 0, kBf16 = 1, kOutF32 = 2 };
-// Operation record fields: columns [c, c + n) of a layer,
-//   dst[:, col:col + n] = act(A @ WA + B @ WB + bias)
-// with WA the (k_a, n) block at weight offset w_a, row stride w_ld (the
-// layer's padded width; in hi_lo its lo plane k_a * w_ld further on), B and
-// WB likewise (k_b == 0: none). kOutF32: out[:, dst + j] for j < n_real.
-// kr: weight rows per ring stage, a multiple of 16 — KS, or more for a
-// narrow operation whose slab of kr x (n + kPad) still fits a ring slot
-// (the sigma and rgb heads take one stage per operand).
-enum Field {
-  fSrcA = 0, fWA, fKA, fSrcB, fWB, fKB, fBias, fN, fWLd, fMode, fDst, fCol,
-  fNReal, fKR
-};
-
-// One slab thread per 16-byte chunk of 16 rows: 16 x 32 chunks.
-static_assert(16 * (kMaxN / 8) == kThreads, "a slab row set per thread");
+// Operation record fields after mlp_tile.cuh's CoreField (kind kOpFwd):
+//   dst[:, col:col + n] = act(A @ WA + B @ WB + bias), bias at fBias (the
+//   pass's first column); kOutF32: out[:, dst + j] for j < n_real.
+enum Field { fMode = cBias + 1, fNReal };
 
 // A value into an activation buffer: bf16, or in hi_lo mode the pair
 // (hi, lo) = (bf16(v), bf16(v - hi)) — the split the TPU kernel takes of
-// its fp32 activations before each product (pallas_mlp.py:68-100).
+// its fp32 activations before each product (pallas_mlp.py:68-100); the
+// epilogue makes the same split (mlp_tile.cuh's store_acc).
 template <bool kHiLo>
-__device__ __forceinline__ void put(bf16* p, int plane, float v) {
+__device__ __forceinline__ void put(unsigned char* p, int plane, float v) {
   const bf16 h = __float2bfloat16(v);
-  p[0] = h;
-  if (kHiLo) p[plane] = __float2bfloat16(v - __bfloat162float(h));
+  *reinterpret_cast<bf16*>(p) = h;
+  if (kHiLo)
+    *reinterpret_cast<bf16*>(p + plane) =
+        __float2bfloat16(v - __bfloat162float(h));
 }
 
 // kHiLo: (hi, lo) planes and three products. T: points per tile (128, 64,
-// 32 or 16; mlp_tile.cuh's WarpGrid<T> lays the 16 warps over it: at 16, 1
-// x 16 warps of 16 columns, one m16 tile each). Nothing else depends on T:
-// the slab loader's threads cover 16 rows of a stage whatever the tile,
-// and the epilogue masks the output rows at or past n per row. KSUB:
-// 16-row k-steps per ring stage of a full width operation.
-template <bool kHiLo, int T, int KSUB>
+// 32 or 16), the N of every wgmma.
+template <bool kHiLo, int T>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_mlp_fwd_kernel(const float* __restrict__ pts,
                      const void* __restrict__ dirs,
@@ -161,274 +135,179 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
                      const float* __restrict__ biases,
                      float* __restrict__ out,
                      const int* __restrict__ prog_in, int prog_len, int n,
-                     int n_tiles, long long w_stride, int b_stride) {
-  using G = WarpGrid<T>;
-  constexpr int MT = G::kMT;      // m16 tiles per warp
-  constexpr int NT = G::kNT;      // n8 tiles per warp
-  constexpr int KS = 16 * KSUB;   // weight rows per ring stage
+                     int n_scenes, long long w_stride, int b_stride) {
   extern __shared__ __align__(128) unsigned char smem[];
   int* prog = reinterpret_cast<int*>(smem);
   for (int i = threadIdx.x; i < prog_len; i += kThreads) prog[i] = prog_in[i];
+  const int stages = prog_in[hStages];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + prog_in[hBarOff]);
+  uint64_t* empty = full + stages;
+  const int csize = static_cast<int>(cluster_size());
+  const int rank = static_cast<int>(cluster_rank());
+  if (threadIdx.x == 0) init_ring(full, empty, stages, csize);
   __syncthreads();
+  cluster_sync();  // every CTA's barriers exist before any copy or arrive
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rb = (warp / G::kCG) * MT * 16;  // the warp's first row
-  const int cb = (warp % G::kCG) * G::kWN;   // ... and first column of a pass
   const int* bufs = prog + kBufsBase;
   const int* ops = prog + kOpsBase;
   const int n_ops = prog[hNOps];
-  const int stages = prog[hStages];
-  const int half = prog[hStageElems];  // a stage's lo plane follows its hi
-  const int stage_elems = half * (kHiLo ? 2 : 1);
-  bf16* ring = reinterpret_cast<bf16*>(smem + prog[hRingOff]);
-  auto bufp = [&](int b) { return reinterpret_cast<bf16*>(smem + bufs[3 * b]); };
-  auto bld = [&](int b) { return bufs[3 * b + 1]; };
-  auto stages_of = [](int k, int kr) { return (k + kr - 1) / kr; };
-  auto steps = [&](int oi) {
-    const int* o = ops + oi * kOpInts;
-    return stages_of(o[fKA], o[fKR]) + stages_of(o[fKB], o[fKR]);
-  };
-  const int tiles_per_scene = (n + T - 1) / T;
+  unsigned char* ring = smem + prog[hRingOff];
+  const int slot_bytes = prog[hSlotBytes];
+  const int half = kHiLo ? slot_bytes / 2 : 0;
+  const int tiles = (n + T - 1) / T;
+  const int groups = scene_groups(tiles, csize);
+  const int n_groups = n_scenes * groups;
+  const int cluster_id = static_cast<int>(blockIdx.x) / csize;
+  const int n_clusters = static_cast<int>(gridDim.x) / csize;
+  const int wg = threadIdx.x / 128;
 
-  // The slab stream: every operation's kr-row k-slabs, operand A's then
-  // B's, in program order, tile after tile. A slab holds rows k0..k0+kr-1
-  // of the operation's columns of W, stored [kr][n + kPad]; rows past the
-  // operand's k are not loaded (and not read). A thread's chunk (row
-  // tid / 32, 16-byte column chunk tid % 32, and the same chunk every 16
-  // rows further on) is set up once per operand (f_operand); fetch() then
-  // issues it, one slab further each call, or an empty group at the end.
-  // f_w: the weights of the scene of the tile being fetched for.
-  const bf16* f_w = weights;
-  int f_tile = static_cast<int>(blockIdx.x) - static_cast<int>(gridDim.x);
-  const bf16* f_src = weights;
-  long long f_lo = 0, f_rows16 = 0;
-  int f_dst = -1, f_ld = 0, f_row = 0, f_k = 0, f_kr = KS;
-  int f_op = -1, f_j = 0, f_steps = 0, f_steps_a = 0;
-  auto f_operand = [&](const int* o, bool second) {
-    const int k = second ? o[fKB] : o[fKA], nn = o[fN], wld = o[fWLd];
-    const int r = tid >> 5, cc = tid & 31;
-    f_lo = static_cast<long long>(k) * wld;
-    f_ld = nn + kPad;
-    f_dst = cc < nn / 8 ? r * f_ld + cc * 8 : -1;
-    f_src = f_w + (second ? o[fWB] : o[fWA]) +
-            static_cast<long long>(r) * wld + cc * 8;
-    f_rows16 = 16LL * wld;
-    f_row = r;
-    f_k = k;
-    f_kr = o[fKR];
-  };
-  int per_tile = 0;
-  for (int oi = 0; oi < n_ops; ++oi) per_tile += steps(oi);
-  const int my_tiles = static_cast<int>(blockIdx.x) < n_tiles
-      ? (n_tiles - 1 - static_cast<int>(blockIdx.x)) / static_cast<int>(gridDim.x) + 1
-      : 0;
-  long long f_left = static_cast<long long>(my_tiles) * per_tile;
-  auto fetch = [&](int slot) {
-    if (f_left > 0) {
-      while (f_j >= f_steps) {
-        if (f_op + 1 == n_ops || f_op < 0) {  // the block's next tile
-          f_op = 0;
-          f_tile += gridDim.x;
-          f_w = weights + (f_tile / tiles_per_scene) * w_stride;
-        } else {
-          ++f_op;
-        }
-        f_j = 0;
-        f_steps = steps(f_op);
-        f_steps_a = stages_of(ops[f_op * kOpInts + fKA], ops[f_op * kOpInts + fKR]);
-        if (f_steps) f_operand(ops + f_op * kOpInts, false);
-      }
-      if (f_j == f_steps_a) f_operand(ops + f_op * kOpInts, true);
-      if (f_dst >= 0) {
-        bf16* d = ring + slot * stage_elems + f_dst;
-        const bf16* src = f_src;
-#pragma unroll 2
-        for (int s = 0; s < f_kr && f_row + s < f_k; s += 16) {
-          cp_async16(d + s * f_ld, src);
-          if (kHiLo) cp_async16(d + s * f_ld + half, src + f_lo);
-          src += f_rows16;
-        }
-      }
-      f_src += (f_kr / 16) * f_rows16;
-      f_row += f_kr;
-      ++f_j;
-      --f_left;
-    }
-    cp_async_commit();
-  };
-  for (int s = 0; s < stages - 1; ++s) fetch(s);
-  int consumed = 0;
-
-  float acc[MT][NT][4];
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    // The tile's scene and its first point within the scene; the scene's
-    // points, dirs, output rows and biases.
-    const int scene = tile / tiles_per_scene;
-    const int row0 = (tile - scene * tiles_per_scene) * T;
-    const long long base = static_cast<long long>(scene) * n;
-    const float* pts_s = pts + 3 * base;
+  // The roles never meet again: ptxas treats the code of a branch that
+  // reconverges as divergent and serializes every wgmma in it.
+  if (wg == 2) {
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x < 256 + 32)
+      produce<kHiLo>(ops, kOpInts, n_ops, weights, w_stride, groups, n_groups,
+                     cluster_id, n_clusters, stages, ring, slot_bytes, half,
+                     full, empty, rank, csize == 4 ? 2 : csize - 1);
+    cluster_sync();  // no CTA leaves while the cluster may still reach it
+    return;
+  }
+  regs_inc<kConsumerRegs>();
+  using Core = Consumer<kHiLo, T>;
+  const int tid = threadIdx.x, lane = tid & 31, warp = (tid >> 5) & 3;
+  const uint32_t base = smem_u32(smem);
+  float acc0[Core::kAcc], acc1[Core::kAcc];
+  Ring pos;
+  for (int g = cluster_id; g < n_groups; g += n_clusters) {
+    const int scene = g / groups;
+    const int tile = (g - scene * groups) * csize + rank;
+    const bool live = tile < tiles;
+    const int row0 = tile * T;
+    const long long sbase = static_cast<long long>(scene) * n;
+    const float* pts_s = pts + 3 * sbase;
     const float* bias_s = biases + static_cast<long long>(scene) * b_stride;
-    __syncthreads();  // the previous tile's reads of X and D are done
 
     // Encoded points, then the encoded view directions (bf16, or fp32 in
     // hi_lo mode); zeros past n and in the padding columns.
-    {
-      const int ldx = bld(kX), xc = bufs[3 * kX + 2], enc_dim = prog[hEncDim];
-      bf16* xs = bufp(kX);
-      for (int idx = tid; idx < T * xc; idx += kThreads) {
-        const int r = idx / xc, j = idx - r * xc, g = row0 + r;
-        const float v = (g < n && j < enc_dim) ? encode(pts_s, g, j) : 0.f;
-        put<kHiLo>(xs + r * ldx + j, T * ldx, v);
+    if (live) {
+      const int xc = bufs[3 * kX + 1], enc_dim = prog[hEncDim];
+      unsigned char* xs = smem + bufs[3 * kX];
+      for (int idx = tid; idx < T * xc; idx += kConsumers) {
+        const int r = idx / xc, j = idx - r * xc, p = row0 + r;
+        float v0 = 0.f, v1 = 0.f;
+        const int got =
+            (p < n && j < enc_dim) ? encode_pair(pts_s, p, j, &v0, &v1) : 1;
+        if (got) put<kHiLo>(xs + act_byte<T>(r, j), 2 * T * xc, v0);
+        if (got == 2) put<kHiLo>(xs + act_byte<T>(r, j + 3), 2 * T * xc, v1);
       }
-    }
-    if (prog[hDirsDim] > 0) {
-      const int ldd = bld(kD), dc = bufs[3 * kD + 2], dirs_dim = prog[hDirsDim];
-      bf16* ds = bufp(kD);
-      for (int idx = tid; idx < T * dc; idx += kThreads) {
-        const int r = idx / dc, j = idx - r * dc, g = row0 + r;
-        float v = 0.f;
-        if (g < n && j < dirs_dim) {
-          const long long at = (base + g) * dirs_dim + j;
-          v = kHiLo ? static_cast<const float*>(dirs)[at]
-                    : __bfloat162float(static_cast<const bf16*>(dirs)[at]);
+      if (prog[hDirsDim] > 0) {
+        const int dc = bufs[3 * kD + 1], dirs_dim = prog[hDirsDim];
+        unsigned char* ds = smem + bufs[3 * kD];
+        for (int idx = tid; idx < T * dc; idx += kConsumers) {
+          const int r = idx / dc, j = idx - r * dc, p = row0 + r;
+          float v = 0.f;
+          if (p < n && j < dirs_dim) {
+            const long long at = (sbase + p) * dirs_dim + j;
+            v = kHiLo ? static_cast<const float*>(dirs)[at]
+                      : __bfloat162float(static_cast<const bf16*>(dirs)[at]);
+          }
+          put<kHiLo>(ds + act_byte<T>(r, j), 2 * T * dc, v);
         }
-        put<kHiLo>(ds + r * ldd + j, T * ldd, v);
       }
+      fence_proxy_async();
     }
+    named_sync(kConsumerBar, kConsumers);
 
     for (int oi = 0; oi < n_ops; ++oi) {
       const int* o = ops + oi * kOpInts;
+      Core::op(o, pos, stages, ring, slot_bytes, half, full, empty, bufs,
+               base, smem_u32(full + 2 * kMaxStages), wg, tid & 127, csize,
+               live, acc0, acc1);
+      if (!live) continue;
+      const int mode = o[fMode], dst = o[cDst], nn = o[cN];
+      const bool head = mode == kOutF32;
+      if (!head && (dst == o[cSrcA] || (o[cKB] && dst == o[cSrcB])))
+        named_sync(kConsumerBar, kConsumers);  // in place: all reads done
+      // Epilogue: accumulator u, element i = 4 j + 2 h + e is feature
+      // 64 (wg + 2 u) + 16 warp + lane / 4 + 8 h of the pass, point
+      // 8 j + 2 (lane % 4) + e of the tile.
+      const float* bias = bias_s + o[cBias];
+      const int col0 = o[cCol], n_real = o[fNReal];  // n_real: 0 but heads
+      const int buf = head ? static_cast<int>(kX) : dst;
+      const int dc = bufs[3 * buf + 1], out_w = prog[hOutW];
+      const bool relu = mode == kReluBf16;
+      float* stage = reinterpret_cast<float*>(smem + bufs[3 * kX]);
+      // One tile's epilogue, given its accumulator (each array its own
+      // call: no accumulator is ever picked at run time). It takes no
+      // branch: ptxas serializes every wgmma of the loop where a branch it
+      // cannot prove warpgroup-uniform reads the accumulators (note C7520,
+      // "WG.AR in divergent path"). A layer's values go to its buffer; a
+      // head's real columns, in fp32, to the staging columns in the encoded
+      // points' buffer (dead once the trunk is done; T floats a column),
+      // copied out after the tile's last operation. Each store is
+      // predicated.
+      auto epilogue = [&](int u, float(&acc)[Core::kAcc]) {
+        const int f0 = 64 * (wg + 2 * u) + 16 * warp;
+        const bool ok = f0 < nn;  // the warp's features lie in the pass
+        const int fb = min(f0 + (lane >> 2), nn - 1);
+        const float b0 = bias[fb], b1 = bias[min(fb + 8, nn - 1)];
+        store_acc<kHiLo, T>(
+            smem + bufs[3 * buf], 2 * T * dc,
+            bufs[3 * buf + 2] + col0 + (ok ? f0 : 0), lane, ok && !head,
+            [&](int i) {
+              const float v = acc[i] + ((i & 2) ? b1 : b0);
+              return relu ? fmaxf(v, 0.f) : v;
+            });
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-      // Per operation: each operand's A rows for this lane, and where the
-      // lane's B fragments sit in a slab (column pair p at + 16 p).
-      const int nn = o[fN], ka = o[fKA], kb = o[fKB], kr = o[fKR];
-      const int steps_a = stages_of(ka, kr), n_steps = steps_a + stages_of(kb, kr);
-      const int lda = bld(o[fSrcA]), ldb = kb ? bld(o[fSrcB]) : 0;
-      const bf16* a_op =
-          bufp(o[fSrcA]) + (rb + (lane & 15)) * lda + (lane >> 4) * 8;
-      const bf16* b_op =
-          kb ? bufp(o[fSrcB]) + (rb + (lane & 15)) * ldb + (lane >> 4) * 8
-             : a_op;
-      const int sld = nn + kPad;
-      const int b_frag = (lane & 15) * sld + cb + (lane >> 4) * 8;
-      // One 16-row k-step: A fragments at a_s (row stride ld), B from the
-      // slab's rows at b_s.
-      auto k_step = [&](const bf16* a_s, const bf16* b_s, int ld) {
-        uint32_t a[MT][4], al[MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          ldsm_x4(a[mt], a_s + mt * 16 * ld);
-          if (kHiLo) ldsm_x4(al[mt], a_s + mt * 16 * ld + T * ld);
-        }
-#pragma unroll
-        for (int p = 0; p < NT / 2; ++p) {
-          if (cb + 16 * p >= nn) continue;  // warp-uniform
-          uint32_t b[4], bl[4];
-          const bf16* q = b_s + p * 16;
-          ldsm_x4_t(b, q);
-          if (kHiLo) ldsm_x4_t(bl, q + half);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            mma(acc[mt][2 * p], a[mt], b[0], b[1]);
-            mma(acc[mt][2 * p + 1], a[mt], b[2], b[3]);
-            if (kHiLo) {
-              mma(acc[mt][2 * p], al[mt], b[0], b[1]);
-              mma(acc[mt][2 * p + 1], al[mt], b[2], b[3]);
-              mma(acc[mt][2 * p], a[mt], bl[0], bl[1]);
-              mma(acc[mt][2 * p + 1], a[mt], bl[2], bl[3]);
-            }
-          }
+        for (int i = 0; i < Core::kAcc; i += 2) {
+          const int f = f0 + (lane >> 2) + 8 * ((i >> 1) & 1);
+          const int p = 8 * (i >> 2) + 2 * (lane & 3);
+          const float b = (i & 2) ? b1 : b0;
+          st_shared_v2_if(stage + min(dst + f, out_w - 1) * T + p,
+                          acc[i] + b, acc[i + 1] + b, f < n_real);
         }
       };
-      for (int j = 0; j < n_steps; ++j) {
-        cp_async_wait_n(stages - 2);
-        __syncthreads();  // the slab is in; the oldest slot is free
-        fetch((consumed + stages - 1) % stages);
-        const bf16* slab = ring + (consumed % stages) * stage_elems + b_frag;
-        ++consumed;
-        const bool second = j >= steps_a;
-        const int ld = second ? ldb : lda, k = second ? kb : ka;
-        const int k0 = kr * (second ? j - steps_a : j);
-        const bf16* a_base = (second ? b_op : a_op) + k0;
-        if (kr == KS) {  // a full-width operation: unrolled k-steps
-#pragma unroll
-          for (int s = 0; s < KSUB; ++s) {
-            if (s > 0 && k0 + 16 * s >= k) break;  // warp-uniform
-            k_step(a_base + 16 * s, slab + s * 16 * sld, ld);
-          }
-        } else {
-          for (int s = 0; s < kr && k0 + s < k; s += 16)
-            k_step(a_base + s, slab + s * sld, ld);
-        }
+      epilogue(0, acc0);
+      epilogue(1, acc1);
+      fence_proxy_async();
+      named_sync(kConsumerBar, kConsumers);
+    }
+    if (live) {
+      // The heads' staged columns to the (n, out_w) output, row-major and
+      // coalesced; rows at or past n masked.
+      const int out_w = prog[hOutW], all = T * out_w;
+      const float* stage = reinterpret_cast<const float*>(smem + bufs[3 * kX]);
+      float* out_t = out + (sbase + row0) * out_w;
+      const int rest = (n - row0) * out_w;  // values of rows below n
+      for (int i0 = 0; i0 < all; i0 += kConsumers) {
+        const int i = min(i0 + tid, all - 1), p = i / out_w;
+        st_global_if(out_t + min(i, rest - 1), stage[(i - p * out_w) * T + p],
+                     i0 + tid < all && i0 + tid < rest);
       }
-
-      // Epilogue, in registers: fp32 bias, then ReLU and the activation
-      // type into the destination buffer, or the real columns in fp32 to
-      // the output. Accumulator acc[mt][nt][2 hh + e] is row rb + 16 mt +
-      // lane / 4 + 8 hh, column cb + 8 nt + 2 (lane % 4) + e of the pass.
-      const int mode = o[fMode], dst = o[fDst];
-      const float* bias = bias_s + o[fBias];
-      const int n_real = o[fNReal], out_w = prog[hOutW];
-      bf16* d = mode == kOutF32 ? nullptr : bufp(dst) + o[fCol];
-      const int ldd = mode == kOutF32 ? 0 : bld(dst);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        if (cb + nt * 8 >= nn) continue;  // warp-uniform
-        const int col = cb + nt * 8 + 2 * (lane & 3);
-        const float b0 = bias[col], b1 = bias[col + 1];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int row = rb + mt * 16 + (lane >> 2) + 8 * hh;
-            float v0 = acc[mt][nt][2 * hh] + b0;
-            float v1 = acc[mt][nt][2 * hh + 1] + b1;
-            if (mode == kOutF32) {
-              const int g = row0 + row;
-              if (g < n) {
-                float* at = out + (base + g) * out_w + dst + col;
-                if (col < n_real) at[0] = v0;
-                if (col + 1 < n_real) at[1] = v1;
-              }
-              continue;
-            }
-            if (mode == kReluBf16) {
-              v0 = fmaxf(v0, 0.f);
-              v1 = fmaxf(v1, 0.f);
-            }
-            const bf16 h0 = __float2bfloat16(v0), h1 = __float2bfloat16(v1);
-            bf16* at = d + row * ldd + col;
-            *reinterpret_cast<__nv_bfloat162*>(at) = __halves2bfloat162(h0, h1);
-            if (kHiLo)
-              store2(at + T * ldd, v0 - __bfloat162float(h0),
-                     v1 - __bfloat162float(h1));
-          }
-        }
-      }
+      named_sync(kConsumerBar, kConsumers);  // read before the next tile
     }
   }
-  cp_async_wait<0>();
+  cluster_sync();  // no CTA leaves while the cluster may still reach it
 }
 
-template <bool kHiLo, int T, int KSUB>
+template <bool kHiLo, int T>
 cudaError_t launch(const float* pts, const void* dirs, const bf16* weights,
                    const float* biases, float* out, const int* prog,
                    int prog_len, int n, int n_scenes, long long w_stride,
-                   int b_stride, int grid, int smem, cudaStream_t stream) {
-  const int n_tiles = n_scenes * ((n + T - 1) / T);
+                   int b_stride, int csize, int smem, cudaStream_t stream) {
+  auto kernel = fused_mlp_fwd_kernel<kHiLo, T>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_fwd_kernel<kHiLo, T, KSUB>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  fused_mlp_fwd_kernel<kHiLo, T, KSUB><<<grid, kThreads, smem, stream>>>(
-      pts, dirs, weights, biases, out, prog, prog_len, n, n_tiles, w_stride,
-      b_stride);
-  return cudaGetLastError();
+  const long long groups =
+      static_cast<long long>(n_scenes) * scene_groups((n + T - 1) / T, csize);
+  int clusters = 0;
+  err = max_clusters(kernel, csize, smem, &clusters);
+  if (err != cudaSuccess) return err;
+  const int grid = static_cast<int>(groups < clusters ? groups : clusters);
+  return launch_clusters(kernel, grid, csize, smem, stream, pts, dirs,
+                         weights, biases, out, prog, prog_len, n, n_scenes,
+                         w_stride, b_stride);
 }
 
 }  // namespace
@@ -437,7 +316,7 @@ extern "C" {
 
 // The kernel's fixed shape, for the wrapper to check against its own.
 int fused_mlp_fwd_constants(int* out, int len) {
-  const int c[] = {kThreads, kPad, kMaxN, kHeaderInts, kMaxBufs, kOpInts};
+  const int c[] = {kThreads, kMaxN, kHeaderInts, kMaxBufs, kOpInts};
   const int count = static_cast<int>(sizeof(c) / sizeof(c[0]));
   for (int i = 0; i < len && i < count; ++i) out[i] = c[i];
   return count;
@@ -449,20 +328,22 @@ const char* fused_mlp_fwd_error_string(int code) {
 
 // n_scenes scenes of n points each, scene-major: pts (n_scenes * n, 3)
 // fp32; dirs (n_scenes * n, dirs_dim), bf16 (fp32 in hi_lo mode) or null;
-// weights bf16 and biases fp32, scene s's at s * w_stride and s * b_stride
-// elements; out (n_scenes * n, out_w) fp32; prog (int32): the program,
-// whose first prog_len ints go to shared memory — all on the current
-// device. rows (points per tile: 128, 64, 32 or 16; hi_lo 64, 32 or 16)
-// and ksub (16-row k-steps per ring stage: 2 or 1; 1 below 64 points and
-// in hi_lo) pick the kernel; smem: the program's shared-memory bytes. Launches `grid` persistent blocks on `stream`, does
-// not synchronise, allocates nothing; returns cudaGetLastError().
+// weights bf16 (each block in mlp_tile.cuh's strip layout) and biases
+// fp32, scene s's at s * w_stride and s * b_stride elements; out
+// (n_scenes * n, out_w) fp32; prog (int32): the program, whose first
+// prog_len ints go to shared memory — all on the current device. rows
+// (points per tile: 128, 64, 32 or 16; hi_lo 64, 32 or 16) picks the
+// kernel, cluster its CTAs a cluster (1, 2 or 4); smem: the program's
+// shared-memory bytes. Launches a persistent grid of as many clusters as
+// the card holds at once (and the tile groups need) on `stream`, does not
+// synchronise, allocates nothing; returns the launch's error.
 int fused_mlp_fwd(const void* pts, const void* dirs, const void* weights,
                   const void* biases, void* out, int n, int n_scenes,
                   long long w_stride, int b_stride, const void* prog,
-                  int prog_len, int hi_lo, int rows, int ksub, int grid,
-                  int smem, void* stream) {
-  if (prog_len < kOpsBase || grid <= 0 || n_scenes <= 0 || w_stride % 8 ||
-      b_stride < 0 ||
+                  int prog_len, int hi_lo, int rows, int cluster, int smem,
+                  void* stream) {
+  if (prog_len < kOpsBase || n_scenes <= 0 || w_stride % 8 ||
+      b_stride < 0 || (cluster != 1 && cluster != 2 && cluster != 4) ||
       static_cast<long long>(n_scenes) * ((n + rows - 1) / rows) > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaSuccess);
@@ -472,19 +353,18 @@ int fused_mlp_fwd(const void* pts, const void* dirs, const void* weights,
   const auto* pr = static_cast<const int*>(prog);
   auto* o = static_cast<float*>(out);
   auto* s = static_cast<cudaStream_t>(stream);
-#define FWD(HI_LO, T, KSUB)                                                  \
-  if (!!hi_lo == HI_LO && rows == T && ksub == KSUB)                         \
-    return static_cast<int>(launch<HI_LO, T, KSUB>(                         \
-        p, dirs, w, b, o, pr, prog_len, n, n_scenes, w_stride, b_stride,     \
-        grid, smem, s));
-  FWD(true, 64, 1)
-  FWD(true, 32, 1)
-  FWD(true, 16, 1)
-  FWD(false, 128, 2)
-  FWD(false, 64, 2)
-  FWD(false, 64, 1)
-  FWD(false, 32, 1)
-  FWD(false, 16, 1)
+#define FWD(HI_LO, T)                                                        \
+  if (!!hi_lo == HI_LO && rows == T)                                         \
+    return static_cast<int>(launch<HI_LO, T>(p, dirs, w, b, o, pr, prog_len, \
+                                             n, n_scenes, w_stride,          \
+                                             b_stride, cluster, smem, s));
+  FWD(true, 64)
+  FWD(true, 32)
+  FWD(true, 16)
+  FWD(false, 128)
+  FWD(false, 64)
+  FWD(false, 32)
+  FWD(false, 16)
 #undef FWD
   return static_cast<int>(cudaErrorInvalidValue);
 }

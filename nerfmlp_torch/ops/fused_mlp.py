@@ -26,9 +26,11 @@ it and how it is built for Hopper.
 * :func:`pack_params` lays a net's weights out for the kernels once
   (transposed to ``(in, out)``, split at the skip and view layers, padded
   to multiples of 16 with zeros, bf16 — (hi, lo) bf16 pairs in the hi_lo
-  mode of ``fp32_precision="high"``) together with the forward's program
-  (one operation per pass of at most ``FWD_MAX_N`` columns over each
-  layer) and the backward's program and job list — at service build,
+  mode of ``fp32_precision="high"`` — each block in the strips of 128-byte
+  swizzled atoms the kernels' wgmma reads, :func:`strip_image`; the
+  kernels' layouts in ``csrc/mlp_tile.cuh``) together with the forward's
+  program (one operation per pass of at most ``FWD_MAX_N`` columns over
+  each layer) and the backward's program and job list — at service build,
   weight swap and once per train step, never per call.
 * :func:`kernel_fits` and :func:`backward_fits` are the Hopper budgets that
   decide, from the architecture alone, whether a net goes to the kernels
@@ -65,26 +67,35 @@ from nerfmlp_torch.ops.encoding import positional_encoding
 
 log = logging.getLogger(__name__)
 
-# The forward kernel's fixed shape (csrc/fused_mlp_fwd.cu); checked against
-# the built library at load.
-FWD_THREADS = 512       # 16 warps, 4 x 4 over a tile's output pass
-PAD = 8                 # bf16 elements of padding per shared-memory row
-FWD_MAX_N = 256         # output columns of one pass
+# The kernels' shared core (csrc/mlp_tile.cuh): two consumer warpgroups
+# and a producer warpgroup a block. Checked against the built libraries
+# at load.
+CORE_THREADS = 384
+FWD_THREADS = CORE_THREADS
+FWD_MAX_N = 256         # output columns of one pass (four 64-row wgmma tiles)
 FWD_HEADER_INTS = 16
-FWD_MAX_BUFS = 4        # X, D, P0, P1: (offset, ld, cols)
+FWD_MAX_BUFS = 4        # X, D, P0, P1: (byte offset, columns, 0)
 FWD_OP_INTS = 16
 FWD_OPS_BASE = FWD_HEADER_INTS + 3 * FWD_MAX_BUFS
 SMEM_LIMIT = 232_448    # dynamic shared memory one Hopper block may use
+STRIP = 64              # columns of a weight strip: one wgmma's M
+MAX_STAGES = 8          # slots of a weight ring
+# Weight rows a ring stage gives the widest forward operations, each tried
+# (a dX stage is one 64-column strip of as many rows, a multiple of 64, as
+# the slot then holds; a narrow operation takes as many rows as it holds).
+STAGE_ROWS = (64, 32, 16)
+BARRIER_BYTES = 16      # a slot's full and empty mbarriers
+ZERO_BYTES = 128        # after the barriers: zeros a missing tile multiplies
 
 # The backward kernels' fixed shape (csrc/fused_mlp_bwd.cu). The matrix and
 # operation tables follow the buffer table, sized by the net (their bases
 # and counts are in the header).
-BWD_THREADS = 256      # phase 2 and the reduction
-BWD_P1_THREADS = 512   # phase 1: 16 warps over the tile and a column pass
+PAD = 8                 # phase 2: bf16 of padding per shared-memory row
+BWD_THREADS = 256       # phase 2 and the reduction
+BWD_P1_THREADS = CORE_THREADS
 BWD_MAX_N = 256         # output columns of one phase-1 pass
-BWD_SLAB_K = 16         # weight rows per ring stage of phase 1
 BWD_HEADER_INTS = 32
-BWD_MAX_BUFS = 8        # shared-memory buffers (offset, ld, cols)
+BWD_MAX_BUFS = 8        # shared-memory buffers (byte offset, columns, 0)
 BWD_OP_INTS = 16
 BWD_TABLES_BASE = BWD_HEADER_INTS + 3 * BWD_MAX_BUFS
 BWD_TILE_K = 128        # phase 2: dW rows per block
@@ -92,34 +103,29 @@ BWD_TILE_N = 128        # phase 2: dW columns per block
 BWD_STAGE_ROWS = 64     # phase 2: points per ring stage
 BWD_STAGES2 = 3
 BWD_JOB_INTS = 10
-# Phase 1's points per tile, as built (hi_lo: two bf16 planes per value).
-BWD_TILE_ROWS = (128, 64, 32, 16)
-BWD_TILE_ROWS_HI_LO = (64, 32, 16)
-# ... and the largest tile at which the matrix and operation tables may
-# stay in device memory (a deep net's program, once its masks have taken
-# the tile down).
-BWD_DEVICE_TABLES_ROWS = 32
-# Phase 1's columns a pass where even 16-point tiles of 256-column passes
-# leave no room for two weight stages (hi_lo at depth 1 near JAX's widest,
-# 1456 and 1472): the ring's stages are half as wide, and so are the mask
-# blocks; the kernel reads a pass's width from its operation record and a
-# stage's size from the header.
-BWD_NARROW_N = 128
-# Phase 1's layouts in the order tried, (points per tile, matrix and
-# operation tables in shared memory, columns a pass): the first that holds
-# two weight stages is taken. The bf16 16-point tiles and the 128-column
-# passes come after the rest, so that every net an earlier entry takes
-# keeps its layout. Each entry has its kernel in fused_mlp_bwd.cu (no
-# net the JAX gate admits needs bf16 16-point tiles with the tables in
-# device memory, and none is built).
-BWD_TRIES = {
-    False: ((128, True, BWD_MAX_N), (64, True, BWD_MAX_N),
-            (32, True, BWD_MAX_N), (32, False, BWD_MAX_N),
-            (16, True, BWD_MAX_N)),
-    True: ((64, True, BWD_MAX_N), (32, True, BWD_MAX_N),
-           (16, True, BWD_MAX_N), (32, False, BWD_MAX_N),
-           (16, False, BWD_MAX_N), (16, True, BWD_NARROW_N)),
+
+# The layouts tried: (points a tile, CTAs a cluster) for the forward, and
+# (points a tile, CTAs a cluster, matrix and operation tables in shared
+# memory) for phase 1, each at every stage size of STAGE_ROWS; _fwd_pick /
+# _bwd_pick choose among them. A tile of T points is the N of every wgmma.
+# Every cluster is of one CTA: the kernels can run tiles below 64 points in
+# clusters of 64 / T CTAs that share each weight stage by multicast, but
+# on an H100 that was slower at 123 of 134 layouts measured, by up to 26%,
+# and never faster by more than 1.3% (scripts/layout_sweep.py, PERF.md):
+# the small-N products, not L2 reads, take the time. Phase 1 keeps its tables in device memory only where they
+# crowd shared memory.
+FWD_TRIES = {
+    False: ((128, 1), (64, 1), (32, 1), (16, 1)),
+    True: ((64, 1), (32, 1), (16, 1)),
 }
+BWD_TRIES = {
+    False: ((128, 1, True), (64, 1, True), (32, 1, True), (16, 1, True)),
+    True: ((64, 1, True), (32, 1, True), (16, 1, True), (16, 1, False),
+           (8, 1, False)),
+}
+# Every tile a layout may take has its kernels in the CUDA sources.
+TILE_ROWS = (128, 64, 32, 16)
+TILE_ROWS_HI_LO = (64, 32, 16, 8)
 # How a call is cut: at most BWD_CHUNK_ROWS points of a scene per phase-1 /
 # phase-2 pair, fewer (a multiple of BWD_CHUNK_ALIGN) where a scene's
 # workspace would pass BWD_WS_BUDGET bytes; phase 2's rows split in up to
@@ -137,7 +143,8 @@ BWD_MIN_SPLIT_ROWS = 2048
 # Shared-memory buffers and epilogues of the forward's program.
 _X, _D, _P0, _P1 = 0, 1, 2, 3
 _RELU_BF16, _BF16, _OUT_F32 = 0, 1, 2
-# Operations of the backward's phase-1 program.
+# Operation kinds of both programs (mlp_tile.cuh's CoreKind): a forward
+# product, a dX product, none (phase 1's load of the cotangent).
 _FWD, _DX, _LOAD_G = 0, 1, 2
 
 
@@ -145,8 +152,16 @@ def _pad16(n: int) -> int:
     return -(-n // 16) * 16
 
 
+def _pad64(n: int) -> int:
+    return -(-n // 64) * 64
+
+
 def _align128(n: int) -> int:
     return -(-n // 128) * 128
+
+
+def _align1k(n: int) -> int:
+    return -(-n // 1024) * 1024
 
 
 def _hidden_cols(mc: ModelConfig, vdirs: bool) -> int:
@@ -170,87 +185,316 @@ def forward_ops(mc: ModelConfig, vdirs: bool) -> int:
     return sum(-(-w // FWD_MAX_N) for w in _layer_widths(mc, vdirs))
 
 
+# --------------------------------------------------------------------- #
+# The weight image: mlp_tile.cuh's strip layout
+# --------------------------------------------------------------------- #
+def strip_cores(cols: int, s: int) -> int:
+    """Core matrices (8 columns each) a row group of strip ``s`` of a block
+    ``cols`` wide holds: 8, or fewer in a last, narrower strip."""
+    return min(8, (cols - STRIP * s) // 8)
+
+
+def _strip_index(k: int, w: int) -> torch.Tensor:
+    """Where element (row, column) of a strip of k rows and w columns lies
+    in the strip's image, (k, w): a whole strip (w = 64) in 128-byte
+    swizzled atoms of 8 rows (16-byte chunk j of row r at chunk j ^ r), a
+    narrower one in 8 x 8 core matrices, row group after row group."""
+    r = torch.arange(k)[:, None]
+    c = torch.arange(w)[None, :]
+    if w == STRIP:
+        return (r // 8) * 512 + (r % 8) * 64 + ((c // 8) ^ (r % 8)) * 8 + c % 8
+    return ((r // 8) * (w // 8) + c // 8) * 64 + (r % 8) * 8 + c % 8
+
+
+def strip_image(blk: torch.Tensor) -> torch.Tensor:
+    """A (k, n) weight block, both multiples of 16, in the kernels' layout
+    (mlp_tile.cuh), flat: strips of 64 columns one after another, each its
+    row groups of 8 rows one after another (:func:`_strip_index`). The
+    forward reads a strip as W^T (M-major A of wgmma), dX the same bytes as
+    W (K-major A). Only device operations on the block's device (the train
+    step packs inside a CUDA-graph capture, where no host tensor may be
+    copied in)."""
+    k, n = blk.shape
+    full = n // STRIP * STRIP
+    parts = []
+    if full:
+        # (strip, row group, row, 16-byte chunk, element); row r's chunk j
+        # holds the chunk j ^ r of the row.
+        a = (blk[:, :full].reshape(k // 8, 8, full // STRIP, 8, 8)
+             .permute(2, 0, 1, 3, 4))
+        r = torch.arange(8, device=blk.device)
+        swz = (r[:, None] ^ r[None, :])[None, None, :, :, None]
+        parts.append(torch.gather(a, 3, swz.expand(a.shape)).reshape(-1))
+    if full < n:
+        w = n - full
+        parts.append(blk[:, full:].reshape(k // 8, 8, w // 8, 8)
+                     .permute(0, 2, 1, 3).reshape(-1))
+    return torch.cat(parts)
+
+
+def block_from_image(flat: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """The (k, n) block :func:`strip_image` laid out as ``flat``."""
+    cols = []
+    at = 0
+    for s in range(0, n, STRIP):
+        w = min(STRIP, n - s)
+        cols.append(flat[at:at + k * w][_strip_index(k, w).to(flat.device)])
+        at += k * w
+    return torch.cat(cols, 1)
+
+
+def act_index(rows: int, cols: int, col0: int = 0) -> torch.Tensor:
+    """Element offsets of columns ``col0`` to ``col0 + cols`` of an
+    activation buffer of ``rows`` points (mlp_tile.cuh's act_byte / 2):
+    (rows, cols), the 128-byte swizzled atom (column / 64, point / 8) at
+    ((column / 64) * (rows / 8) + point / 8) * 512, row point % 8, chunk
+    (column % 64 / 8) ^ (point % 8). The wgmma's B operand, K-major."""
+    p = torch.arange(rows)[:, None]
+    c = torch.arange(col0, col0 + cols)[None, :]
+    return (((c // 64) * (rows // 8) + p // 8) * 512 + (p % 8) * 64
+            + ((c // 8) ^ (p % 8)) % 8 * 8 + c % 8)
+
+
+def tile_groups(n_scenes: int, tiles: int, cluster: int):
+    """The kernels' walk over a call's tiles (mlp_tile.cuh's scene_groups):
+    group g of a cluster's ``cluster`` CTAs lies in scene g // groups,
+    groups = ceil(tiles / cluster), and its CTA of rank r takes tile (g %
+    groups) * cluster + r of that scene, or an empty tile (None: no points,
+    nothing written) at or past ``tiles``. Returns [(scene, (tile or None
+    for each rank))], group by group."""
+    groups = -(-tiles // cluster)
+    return [(g // groups, tuple(t if t < tiles else None
+                                for t in range((g % groups) * cluster,
+                                               (g % groups + 1) * cluster)))
+            for g in range(n_scenes * groups)]
+
+
+# --------------------------------------------------------------------- #
+# Layouts: the operations' shapes, the ring, shared memory
+# --------------------------------------------------------------------- #
+# One product of a program, as the ring sees it: kind, the rows (k) of its
+# operands' weight blocks (forward) or their columns (dX), the block's
+# other dimension (wld: forward its columns, dX its rows), the pass's
+# first column and its width.
+@dataclasses.dataclass(frozen=True)
+class OpShape:
+    kind: int
+    ka: int
+    kb: int
+    wld: int
+    col: int
+    n: int
+
+
+def _fwd_touch(op: OpShape, rows: int) -> int:
+    """Bytes of a slot a forward stage of ``rows`` weight rows reaches (one
+    plane): its strips' rows, and the rest of 64 columns a narrow last
+    strip's last row group reads."""
+    strips = -(-op.n // STRIP)
+    sc = strip_cores(op.wld, op.col // STRIP + strips - 1)
+    used = (strips - 1) * rows * 128 + rows * sc * 16
+    return used + (8 - sc) * 128 if sc < 8 else used
+
+
+def _dx_touch(op: OpShape, rows: int) -> int:
+    """Bytes of a slot a dX stage of ``rows`` block rows of its widest
+    strip reaches (one plane): a 64-row tile reads whole 64 rows."""
+    sc = strip_cores(max(op.ka, op.kb), 0)
+    return _pad64(rows) * sc * 16
+
+
+def _touch(op: OpShape, rows: int) -> int:
+    return _fwd_touch(op, rows) if op.kind == _FWD else _dx_touch(op, rows)
+
+
+def stage_rows(op: OpShape, slot: int) -> int:
+    """Rows a stage of ``op`` takes in a slot of ``slot`` bytes a plane:
+    forward, as many weight rows (a multiple of 16, up to its operands'
+    rows and 64: four k-steps) as fit; dX, as many block rows of a strip
+    (a multiple of 64, up to the pass's columns)."""
+    step, top = ((16, min(STAGE_ROWS[0], _pad16(max(op.ka, op.kb))))
+                 if op.kind == _FWD else (64, _pad64(op.n)))
+    rows = step
+    while rows + step <= top and _touch(op, rows + step) <= slot:
+        rows += step
+    return rows
+
+
+def _ring_slot(ops: List[OpShape], kr: int) -> int:
+    """Bytes a plane of a ring slot needs so that every forward operation
+    takes stages of ``kr`` rows (its operands' rows, where fewer) and every
+    dX operation stages of 64 rows."""
+    need = [_fwd_touch(o, min(kr, _pad16(max(o.ka, o.kb)))) if o.kind == _FWD
+            else _dx_touch(o, 64) for o in ops if o.kind != _LOAD_G]
+    return _align1k(max(need))
+
+
+def _layer_shapes(mc: ModelConfig, vdirs: bool):
+    """(first operand's rows, second's or 0, output columns) of each
+    forward layer, in program order: the skip layer's encoded and hidden
+    blocks, the view layer's bottleneck and dirs blocks."""
+    enc, w = _pad16(mc.input_ch), _pad16(mc.width)
+    out = []
+    for i in range(mc.depth):
+        prev = enc if i == 0 else w
+        out.append((enc, _pad16(mc.input_ch if i == 0 else mc.width), w)
+                   if i in mc.skips else (prev, 0, w))
+    if vdirs:
+        bott, view = _pad16(mc.bottleneck_ch), _pad16(mc.view_width)
+        out += [(w, 0, 16), (w, 0, bott),
+                (bott, _pad16(mc.input_ch_views), view), (view, 0, 16)]
+    else:
+        out.append((w, 0, _pad16(mc.output_ch)))
+    return out
+
+
+def _fwd_shapes(mc: ModelConfig, vdirs: bool) -> List[OpShape]:
+    """The forward program's products: a pass of at most ``FWD_MAX_N``
+    columns over each layer."""
+    return [OpShape(_FWD, ka, kb, n, c0, min(FWD_MAX_N, n - c0))
+            for ka, kb, n in _layer_shapes(mc, vdirs)
+            for c0 in range(0, n, FWD_MAX_N)]
+
+
+def _bwd_shapes(mc: ModelConfig, vdirs: bool) -> List[OpShape]:
+    """Phase 1's operations: the recomputed forward without the output
+    heads, the load of the cotangent, and the dX chain (dX's ka / kb: the
+    cotangents' widths, wld: the output's), each a pass of at most
+    ``BWD_MAX_N`` columns."""
+    layers = _layer_shapes(mc, vdirs)
+    fwd = layers[:mc.depth] + ([layers[mc.depth + 1], layers[mc.depth + 2]]
+                               if vdirs else [])
+    w = _pad16(mc.width)
+    if vdirs:
+        bott, view = _pad16(mc.bottleneck_ch), _pad16(mc.view_width)
+        dx = [(16, 0, view), (view, 0, bott), (bott, 16, w)]
+    else:
+        dx = [(_pad16(mc.output_ch), 0, w)]
+    dx += [(w, 0, w)] * (mc.depth - 1)
+    ops = [OpShape(_FWD, ka, kb, n, c0, min(BWD_MAX_N, n - c0))
+           for ka, kb, n in fwd for c0 in range(0, n, BWD_MAX_N)]
+    ops.append(OpShape(_LOAD_G, 0, 0, 0, 0, 0))
+    return ops + [OpShape(_DX, ka, kb, n, c0, min(BWD_MAX_N, n - c0))
+                  for ka, kb, n in dx for c0 in range(0, n, BWD_MAX_N)]
+
+
 @dataclasses.dataclass(frozen=True)
 class FwdLayout:
     """The forward kernel's shared memory for one architecture and mode:
-    ``rows`` points per tile (bf16 128, 64, 32 or 16; hi_lo 64, 32 or 16),
-    ``ksub`` 16-row k-steps per weight-ring stage (2, or 1), the program's
-    buffers as ``(name, (byte offset, ld, cols))`` pairs in table order,
-    the ring's byte offset, the elements of a stage's hi slab, the ring's
-    stages and the total bytes."""
+    ``rows`` points a tile, ``cluster`` CTAs a cluster; the program's
+    buffers as ``(name, (byte offset, columns, 0))`` pairs in table order;
+    the ring's barriers' and slots' byte offsets, a slot's bytes (in
+    hi_lo, the lo plane at half), its stages and the weight rows a stage
+    gives the widest operations (``kr``); the total bytes."""
 
     rows: int
-    ksub: int
+    cluster: int
     bufs: Tuple[Tuple[str, Tuple[int, int, int]], ...]
+    bar_off: int
     ring_off: int
-    stage_elems: int
+    slot: int
     stages: int
+    kr: int
     smem: int
 
 
-# The forward's tiles in the order tried, (points per tile, 16-row k-steps
-# per ring stage), and the stages each group wants: bf16 takes the first
-# of its first three that holds three stages, else the first that holds
-# two; failing those, the first of 32- and 16-point tiles that holds two
-# (the shallow wide nets). hi_lo: the first that holds two. The later
-# groups come after, so that every net an earlier group takes keeps its
-# tile.
-FWD_TRIES = {
-    False: ((((128, 2), (64, 2), (64, 1)), (3, 2)),
-            (((32, 1), (16, 1)), (2,))),
-    True: ((((64, 1), (32, 1), (16, 1)), (2,)),),
-}
+def _ring_at(room: int, ops: List[OpShape], planes: int, kr: int):
+    """(stages, rows a stage, a plane's slot bytes) of a ring in ``room``
+    bytes whose widest forward operations take stages of ``kr`` rows: as
+    many stages as fit, up to ``MAX_STAGES``."""
+    slot = _ring_slot(ops, kr)
+    return max(0, min(MAX_STAGES, room // (slot * planes))), kr, slot
+
+
+def _fwd_pick(layouts):
+    """The forward's layout among ``layouts`` (every tile of the tries at
+    every stage size): the largest tile that holds two stages, at the
+    largest stage that leaves two; else the last tried. Measured on an
+    H100 (scripts/layout_sweep.py, PERF.md): at every net of chip_smoke.py's
+    phases 4 and 16-18 this is the fastest layout; a larger tile (the N of
+    every wgmma) and larger stages gain more than a deeper ring."""
+    fit = [lay for lay in layouts if lay.stages >= 2]
+    return max(fit, key=lambda lay: (lay.rows, lay.kr)) if fit \
+        else layouts[-1]
+
+
+def _bwd_pick(layouts):
+    """Phase 1's layout among ``layouts``: the most points x weight rows a
+    stage, the larger tile on a tie, among tiles of 16 points or more with
+    their tables in shared memory that hold three stages of at least 32
+    rows; else two stages; else the same with the tables in device memory;
+    else 8-point tiles that hold two; else the last tried. Measured on an H100
+    (scripts/layout_sweep.py, PERF.md): phase 1, whose dX stages follow its
+    forward ones, loses up to 1.45x with two stages where three fit, and
+    gains with the product of its tile and stage."""
+    def best(fit):
+        return max(fit, key=lambda lay: (lay.rows * lay.kr, lay.rows))
+
+    shared = lambda lay: lay.prog_ints > BWD_TABLES_BASE
+    for want, tables, small in ((3, True, False), (2, True, False),
+                                (2, False, False), (2, False, True)):
+        fit = [lay for lay in layouts
+               if lay.stages >= want and (lay.rows < 16) == small
+               and (shared(lay) or not tables)
+               and (want == 2 or lay.kr >= 32)]
+        if fit:
+            return best(fit)
+    return layouts[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_layout_at(mc: ModelConfig, vdirs: bool, hi_lo: bool, rows: int,
+                   cluster: int, kr: int) -> FwdLayout:
+    """The forward's layout at tiles of ``rows`` points in clusters of
+    ``cluster`` CTAs: the program, the ring's barriers, the buffers x
+    (encoded points; the heads' fp32 rows are staged there after the
+    trunk), d (encoded dirs), p0 (and p1 where a layer takes more than one
+    pass: every layer of a net at most ``FWD_MAX_N`` wide writes its output
+    over its input), each ``rows`` rows of its columns rounded up to 64
+    (whole swizzled atoms) in bf16 (two planes in hi_lo), then the ring:
+    stages of ``kr`` rows, as many as fit. The program's bytes (64 a layer)
+    bound the depth."""
+    planes = 2 if hi_lo else 1
+    hid = _pad64(_hidden_cols(mc, vdirs))
+    prog = _align128(4 * (FWD_OPS_BASE + forward_ops(mc, vdirs) * FWD_OP_INTS))
+    out_w = 4 if vdirs else mc.output_ch
+    cols = (("x", max(_pad64(mc.input_ch), _pad64(2 * out_w))),
+            ("d", _pad64(mc.input_ch_views) if vdirs else 0),
+            ("p0", hid), ("p1", hid if hid > FWD_MAX_N else 0))
+    ops = _fwd_shapes(mc, vdirs)
+    bar = prog
+    off = _align1k(bar + MAX_STAGES * BARRIER_BYTES + ZERO_BYTES)
+    bufs = []
+    for name, c in cols:
+        bufs.append((name, (off, c, 0)))
+        off += rows * c * 2 * planes
+    stages, kr, slot = _ring_at(SMEM_LIMIT - off, ops, planes, kr)
+    return FwdLayout(rows, cluster, tuple(bufs), bar, off, slot * planes,
+                     stages, kr, off + slot * planes * stages)
 
 
 @functools.lru_cache(maxsize=None)
 def _fwd_layout(mc: ModelConfig, vdirs: bool, hi_lo: bool) -> FwdLayout:
-    """The program, then the buffers x (encoded points), d (encoded dirs),
-    p0 / p1 (a layer's input and output, ping-pong), each ``rows`` rows of
-    ``cols + PAD`` bf16 (two planes in hi_lo), then the weight ring with as
-    many stages (up to 4) as fit, at the tiles of ``FWD_TRIES``. bf16:
-    128-point tiles with 32-row stages up to width 288, 64-point ones past
-    it, then (the shallow wide nets, 784 and wider) 32-point tiles with
-    16-row stages, and 16-point ones at depth 1 from 1616. hi_lo: 16-row
-    stages, 64-point tiles up to width 320, 32-point ones past it, and
-    16-point ones on the shallow wide nets (720 and wider). Where none
-    holds two stages, the last tried is returned
-    (:func:`forward_misfit` names it). The program's bytes (64 a layer)
-    are the only bound on depth: at 866x16, 55 KB beside 128-point
-    tiles."""
-    planes = 2 if hi_lo else 1
-    hid = _hidden_cols(mc, vdirs)
-    pass_cols = min(FWD_MAX_N, max(_layer_widths(mc, vdirs)))
-    prog = _align128(4 * (FWD_OPS_BASE + forward_ops(mc, vdirs) * FWD_OP_INTS))
-    cols = (("x", _pad16(mc.input_ch)),
-            ("d", _pad16(mc.input_ch_views) if vdirs else 0),
-            ("p0", hid), ("p1", hid))
-    lay = None
-    for tiles, wants in FWD_TRIES[hi_lo]:
-        layouts = []
-        for rows, ksub in tiles:
-            off, bufs = prog, []
-            for name, c in cols:
-                bufs.append((name, (off, c + PAD, c)))
-                off += _align128(rows * (c + PAD) * 2 * planes) if c else 0
-            stage = 16 * ksub * (pass_cols + PAD)
-            ring = 2 * stage * planes
-            stages = max(0, min(4, (SMEM_LIMIT - off) // ring))
-            layouts.append(FwdLayout(rows, ksub, tuple(bufs), off, stage,
-                                     stages, off + ring * stages))
-        for want in wants:
-            for cand in layouts:
-                if cand.stages >= want:
-                    return cand
-        lay = layouts[-1]
-    return lay
+    """The forward's layout (:func:`_fwd_layout_at`) at the tiles of
+    ``FWD_TRIES`` and the stage sizes of ``STAGE_ROWS``, chosen by
+    :func:`_fwd_pick`. Where no layout holds two stages, the last tried is
+    returned (:func:`forward_misfit` names it)."""
+    return _fwd_pick([_fwd_layout_at(mc, vdirs, hi_lo, rows, cluster, kr)
+                      for rows, cluster in FWD_TRIES[hi_lo]
+                      for kr in STAGE_ROWS])
 
 
-def _stage_rows(lay: FwdLayout, n: int, k: int) -> int:
-    """Weight rows per ring stage of an operation of ``n`` columns whose
-    largest operand has ``k`` rows: as many (a multiple of 16) as a slot of
-    ``lay.stage_elems`` holds at a row stride of ``n + PAD`` — 16 *
-    ``lay.ksub`` for the widest operations — and no more than k needs."""
-    return min(lay.stage_elems // (n + PAD) // 16 * 16, _pad16(k))
+def kernel_layouts(packed: "PackedMLP") -> Dict[str, Dict[str, int]]:
+    """The layouts a packed net's forward and phase 1 run: points a tile,
+    CTAs a cluster, ring stages and weight rows a stage (of the widest
+    forward operations)."""
+    mc = packed.net.cfg
+    return {key: {"points_a_tile": lay.rows, "cluster": lay.cluster,
+                  "stages": lay.stages, "rows_a_stage": lay.kr}
+            for key, lay in (("fwd", _fwd_layout(mc, packed.vdirs,
+                                                 packed.hi_lo)),
+                             ("phase1", _bwd_layout(mc, packed.vdirs,
+                                                    packed.hi_lo)))}
 
 
 def smem_bytes(mc: ModelConfig, vdirs: bool, hi_lo: bool = False) -> int:
@@ -286,16 +530,12 @@ def kernel_fits(mc: ModelConfig, vdirs: bool = True,
     lay = _fwd_layout(mc, vdirs, hi_lo)
     why = forward_misfit(mc, vdirs, hi_lo)
     log.info(
-        "fused MLP kernel budget: %s: %d-point tiles, %d weight stages of "
-        "%d rows, %d B of shared memory per block (Hopper limit %d B): %s",
-        _arch_name(mc, vdirs, hi_lo), lay.rows, lay.stages, 16 * lay.ksub,
-        lay.smem, SMEM_LIMIT, why or "kernel")
+        "fused MLP kernel budget: %s: %d-point tiles in clusters of %d, %d "
+        "weight stages of %d rows (%d B a slot), %d B of shared memory per "
+        "block (Hopper limit %d B): %s",
+        _arch_name(mc, vdirs, hi_lo), lay.rows, lay.cluster, lay.stages,
+        lay.kr, lay.slot, lay.smem, SMEM_LIMIT, why or "kernel")
     return why is None
-
-
-def _passes(cols: int, pass_cols: int) -> int:
-    """Column passes of at most ``pass_cols`` over a layer of ``cols``."""
-    return -(-_pad16(cols) // pass_cols)
 
 
 def _bwd_mats(mc: ModelConfig, vdirs: bool) -> List[Tuple[str, int]]:
@@ -317,65 +557,42 @@ def _bwd_mats(mc: ModelConfig, vdirs: bool) -> List[Tuple[str, int]]:
     return mats + [(f"dacc{i}", w) for i in range(mc.depth - 1, -1, -1)]
 
 
-def _backward_counts(mc: ModelConfig, vdirs: bool,
-                     pass_cols: int) -> Tuple[int, int]:
-    w = _passes(mc.width, pass_cols)
-    fwd = mc.depth * w
-    dx = (mc.depth - 1) * w
-    if vdirs:
-        bott = _passes(mc.bottleneck_ch, pass_cols)
-        view = _passes(mc.view_width, pass_cols)
-        fwd += bott + view
-        dx += view + bott + w
-    else:
-        dx += w
-    return fwd + 1 + dx, len(_bwd_mats(mc, vdirs))
-
-
 def backward_counts(mc: ModelConfig, vdirs: bool,
                     hi_lo: bool = False) -> Tuple[int, int]:
     """(phase-1 operations, workspace matrices) for an architecture and
-    mode: a pass of at most the layout's columns (``BWD_MAX_N``, or
-    ``BWD_NARROW_N``) over each recomputed forward layer (the output heads
-    excepted), the load of the cotangent, and a pass over each dX output of
-    the chain; the matrices of :func:`_bwd_mats`."""
-    return _backward_counts(mc, vdirs,
-                            _bwd_layout(mc, vdirs, hi_lo).pass_cols)
+    mode: a pass of at most ``BWD_MAX_N`` columns over each recomputed
+    forward layer (the output heads excepted), the load of the cotangent,
+    and a pass over each dX output of the chain; the matrices of
+    :func:`_bwd_mats`."""
+    return len(_bwd_shapes(mc, vdirs)), len(_bwd_mats(mc, vdirs))
 
 
-def _warp_grid(rows: int) -> Tuple[int, int, int, int]:
-    """``mlp_tile.cuh``'s ``WarpGrid<rows>``: (m16 tiles a warp, columns a
-    warp, column groups, row groups) of the 16 warps over a tile and a
-    pass of ``BWD_MAX_N`` columns."""
-    wn = 64 if rows >= 64 else rows
-    groups = BWD_MAX_N // wn
-    return (rows // 64 if rows >= 64 else 1), wn, groups, 16 // groups
+def mask_entry_bytes(rows: int) -> int:
+    """Bytes of a thread's ReLU bits for one 16-column warp tile of a pass
+    at tiles of ``rows`` points: rows / 2 bits (two features' rows of its
+    accumulator fragment), at least a byte."""
+    return max(1, rows // 16)
 
 
-def _mask_blocks(mc: ModelConfig, vdirs: bool, rows: int, pass_cols: int
-                 ) -> Tuple[Tuple[Tuple[Tuple[int, int], ...], ...], int]:
-    """Phase 1's ReLU masks at tiles of ``rows`` points and passes of
-    ``pass_cols`` columns: for each ReLU layer's slot (trunk layer i, then
-    the view layer), one block per column pass as (its first mask word,
-    the warp column groups it holds); and the bytes of all blocks. A
-    thread keeps the bits of its own (row, column) positions, one word of
-    ``columns a warp / 2`` bits per m16 tile, so a block of g column
-    groups is ``32 x row groups x g x m16 tiles`` words. A pass holds the
-    column groups its columns reach; a net at least a pass wide keeps one
-    whole pass's block (``rows x pass_cols`` bits) per pass."""
-    m16, wn, _, row_groups = _warp_grid(rows)
-    groups = pass_cols // wn
-    whole = mc.width >= pass_cols
+def _mask_blocks(mc: ModelConfig, vdirs: bool, rows: int
+                 ) -> Tuple[Tuple[int, ...], ...]:
+    """Phase 1's ReLU masks at tiles of ``rows`` points: for each ReLU
+    layer's slot (trunk layer i, then the view layer), one block per column
+    pass, as its byte offset in the mask region. A thread keeps the bits of
+    its own accumulator fragment: the block of a pass of n columns holds,
+    for each of its n / 16 warp tiles (64-row tile mt, warp w: 4 mt + w),
+    32 lanes' entries of :func:`mask_entry_bytes`; blocks 16-byte
+    aligned. The last entry is the region's bytes."""
+    entry = mask_entry_bytes(rows)
     slots, at = [], 0
     for cols in [mc.width] * mc.depth + ([mc.view_width] if vdirs else []):
         blocks = []
-        for c0 in range(0, _pad16(cols), pass_cols):
-            g = groups if whole else -(-min(pass_cols, _pad16(cols) - c0)
-                                       // wn)
-            blocks.append((at, g))
-            at += 32 * row_groups * g * m16
+        for c0 in range(0, _pad16(cols), BWD_MAX_N):
+            blocks.append(at)
+            nn = min(BWD_MAX_N, _pad16(cols) - c0)
+            at += -(-nn * 32 * entry // 16 // 16) * 16
         slots.append(tuple(blocks))
-    return tuple(slots), at * wn // 16
+    return tuple(slots) + ((at,),)
 
 
 def bwd_scratch_bytes(mc: ModelConfig, vdirs: bool,
@@ -403,7 +620,7 @@ def bwd_chunk_rows(mc: ModelConfig, vdirs: bool, hi_lo: bool = False) -> int:
 def ws_rows(n: int, tile: int) -> int:
     """Workspace rows of a scene's n points at phase-1 tiles of ``tile``
     points: n rounded up to the tile and to phase 2's ``BWD_STAGE_ROWS``
-    (tiles of 32 and 16 points fill the rows up to the stage with zero
+    (tiles of fewer points fill the rows up to the stage with zero
     points)."""
     step = max(tile, BWD_STAGE_ROWS)
     return -(-n // step) * step
@@ -412,87 +629,89 @@ def ws_rows(n: int, tile: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class BwdLayout:
     """Phase 1's shared memory for one architecture and mode: ``rows``
-    points per tile; ``pass_cols`` the columns of a pass; ``prog_ints``
-    the program's ints copied into shared memory (header, buffer, matrix
-    and operation tables, or the header and buffer table alone); the
-    buffers as ``{name: (byte offset, ld, cols)}``; the mask blocks' byte
-    offset and their words per slot and pass (:func:`_mask_blocks`); the
-    weight ring's byte offset, the elements of a stage's hi slab and its
-    stages; the total bytes."""
+    points a tile, ``cluster`` CTAs a cluster; ``prog_ints`` the program's
+    ints copied into shared memory (header, buffer, matrix and operation
+    tables, or the header and buffer table alone); the buffers as ``{name:
+    (byte offset, columns, 0)}``; the mask region's byte offset and its
+    blocks (:func:`_mask_blocks`); the ring's barriers' and slots' byte
+    offsets, a slot's bytes, its stages and the weight rows a stage gives
+    the widest forward operations (``kr``); the total bytes."""
 
     rows: int
-    pass_cols: int
+    cluster: int
     prog_ints: int
     bufs: Dict[str, Tuple[int, int, int]]
     mask_off: int
-    masks: Tuple[Tuple[Tuple[int, int], ...], ...]
+    masks: Tuple[Tuple[int, ...], ...]
+    bar_off: int
     ring_off: int
-    stage_elems: int
+    slot: int
     stages: int
+    kr: int
     smem: int
+
+    @property
+    def pass_cols(self) -> int:
+        return BWD_MAX_N
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_layout_at(mc: ModelConfig, vdirs: bool, hi_lo: bool, rows: int,
+                   cluster: int, shared: bool, kr: int) -> BwdLayout:
+    """Phase 1's dynamic shared memory at tiles of ``rows`` points in
+    clusters of ``cluster`` CTAs: the program (or, where ``shared`` is
+    false, its header and buffer table); the ring's barriers; the buffers
+    x, d, p0 (and p1 where a layer takes more than one pass: a net at most
+    ``BWD_MAX_N`` wide writes every output over its input, down the dX
+    chain too), and the cotangent's gr / gs laid over x when they fit there
+    (x is dead by then), each ``rows`` rows of its columns in bf16 (two
+    planes in hi_lo); the mask blocks (one bit a value of a ReLU layer's
+    column pass); the ring: stages of ``kr`` rows, as many as fit."""
+    planes = 2 if hi_lo else 1
+    n_mats = len(_bwd_mats(mc, vdirs))
+    ops = _bwd_shapes(mc, vdirs)
+    hid = _hidden_cols(mc, vdirs)
+    prog_ints = (BWD_TABLES_BASE + 2 * n_mats + BWD_OP_INTS * len(ops)
+                 if shared else BWD_TABLES_BASE)
+    bar = _align128(4 * prog_ints)
+    off = _align1k(bar + MAX_STAGES * BARRIER_BYTES + ZERO_BYTES)
+    bufs: Dict[str, Tuple[int, int, int]] = {}
+
+    def region(name, cols):
+        nonlocal off
+        bufs[name] = (off, _pad64(cols), 0)
+        off += rows * _pad64(cols) * 2 * planes
+
+    region("x", mc.input_ch)
+    if vdirs:
+        region("d", mc.input_ch_views)
+    region("p0", hid)
+    if hid > BWD_MAX_N:
+        region("p1", hid)
+    # The cotangent in x's atoms (x is dead by then): rgb's columns
+    # from 0, sigma's from 16 (or the output head's from 0).
+    x_at, x_cols = bufs["x"][:2]
+    bufs["gr"] = (x_at, x_cols, 0)
+    if vdirs:
+        bufs["gs"] = (x_at, x_cols, 16)
+    mask_off = off
+    masks = _mask_blocks(mc, vdirs, rows)
+    off += _align128(masks[-1][0])
+    off = _align1k(off)
+    stages, kr, slot = _ring_at(SMEM_LIMIT - off, ops, planes, kr)
+    return BwdLayout(rows, cluster, prog_ints, bufs, mask_off, masks[:-1],
+                     bar, off, slot * planes, stages, kr,
+                     off + slot * planes * stages)
 
 
 @functools.lru_cache(maxsize=None)
 def _bwd_layout(mc: ModelConfig, vdirs: bool, hi_lo: bool) -> BwdLayout:
-    """Phase 1's dynamic shared memory: the program; the buffers x, d, the
-    two ping-pong activation buffers p0 / p1, and the cotangent's gr / gs
-    laid over x when they fit there (x is dead by then), each ``rows``
-    rows of ``cols + PAD`` bf16 (two planes in hi_lo); the mask blocks
-    (one bit a value of a ReLU layer's column pass); the weight ring, with
-    as many stages (up to 4) of 16 rows of a pass as fit. The first entry
-    of ``BWD_TRIES`` whose layout holds two stages: 128 points (hi_lo 64)
-    up to width 256 and wherever else they fit, then 64, then 32, with
-    the whole program in shared memory; then the tiles of at most
-    ``BWD_DEVICE_TABLES_ROWS`` points with only its header and buffer
-    table there (a deep net: the kernel then reads the matrix and
-    operation tables from device memory); then bf16 16-point tiles (depth
-    1 from width 1552), and last passes of ``BWD_NARROW_N`` columns (hi_lo
-    1x1456 and 1x1472: a 256-column stage of two planes does not fit
-    twice). Where none holds two stages, the last tried is returned
-    (:func:`backward_misfit` names it)."""
-    planes = 2 if hi_lo else 1
-    n_mats = len(_bwd_mats(mc, vdirs))
-    hid = _hidden_cols(mc, vdirs)
-    layout = None
-    for rows, shared, pass_cols in BWD_TRIES[hi_lo]:
-        n_ops = _backward_counts(mc, vdirs, pass_cols)[0]
-        prog_ints = (BWD_TABLES_BASE + 2 * n_mats + BWD_OP_INTS * n_ops
-                     if shared else BWD_TABLES_BASE)
-        stage = BWD_SLAB_K * (min(hid, pass_cols) + PAD)
-        off = _align128(4 * prog_ints)
-        bufs: Dict[str, Tuple[int, int, int]] = {}
-
-        def size(cols):
-            return _align128(rows * (cols + PAD) * 2 * planes)
-
-        def region(name, cols, at=None):
-            nonlocal off
-            if at is None:
-                at, off = off, off + size(cols)
-            bufs[name] = (at, cols + PAD, cols)
-            return at + size(cols)
-
-        region("x", _pad16(mc.input_ch))
-        if vdirs:
-            region("d", _pad16(mc.input_ch_views))
-        region("p0", hid)
-        region("p1", hid)
-        g_cols = (16, 16) if vdirs else (_pad16(mc.output_ch),)
-        over_x = sum(size(c) for c in g_cols) <= size(_pad16(mc.input_ch))
-        at = bufs["x"][0] if over_x else None
-        for name, c in zip(("gr", "gs"), g_cols):
-            end = region(name, c, at)
-            at = end if over_x else None
-        mask_off = off
-        masks, mask_bytes = _mask_blocks(mc, vdirs, rows, pass_cols)
-        off += _align128(mask_bytes)
-        stages = max(0, min(4, (SMEM_LIMIT - off) // (2 * stage * planes)))
-        layout = BwdLayout(rows, pass_cols, prog_ints, bufs, mask_off, masks,
-                           off, stage, stages,
-                           off + 2 * stage * planes * stages)
-        if stages >= 2:
-            break
-    return layout
+    """Phase 1's layout (:func:`_bwd_layout_at`) at the entries of
+    ``BWD_TRIES`` and the stage sizes of ``STAGE_ROWS``, chosen by
+    :func:`_bwd_pick`. Where none holds two stages, the last tried is
+    returned (:func:`backward_misfit` names it)."""
+    return _bwd_pick([_bwd_layout_at(mc, vdirs, hi_lo, *entry, kr)
+                      for entry in BWD_TRIES[hi_lo] for kr in STAGE_ROWS])
 
 
 def bwd_smem_bytes(mc: ModelConfig, vdirs: bool, hi_lo: bool = False) -> int:
@@ -529,14 +748,14 @@ def backward_fits(mc: ModelConfig, vdirs: bool = True,
     lay = _bwd_layout(mc, vdirs, hi_lo)
     why = backward_misfit(mc, vdirs, hi_lo)
     log.info(
-        "fused MLP backward budget: %s: %d-point tiles, passes of %d "
-        "columns, %d B of shared memory per block (%d weight stages, %d B of "
-        "masks; Hopper limit %d B), %d operations and %d workspace matrices "
-        "(tables in %s memory), %d B of workspace per point, chunks of %d "
-        "points: %s",
-        _arch_name(mc, vdirs, hi_lo), lay.rows, lay.pass_cols, lay.smem,
-        lay.stages,
-        lay.ring_off - lay.mask_off, SMEM_LIMIT, ops, mats,
+        "fused MLP backward budget: %s: %d-point tiles in clusters of %d, "
+        "%d B of shared memory per block (%d weight stages of %d rows, %d B "
+        "of masks; Hopper limit %d B), %d operations and %d workspace "
+        "matrices (tables in %s memory), %d B of workspace per point, "
+        "chunks of %d points: %s",
+        _arch_name(mc, vdirs, hi_lo), lay.rows, lay.cluster, lay.smem,
+        lay.stages, lay.kr, lay.ring_off - lay.mask_off,
+        SMEM_LIMIT, ops, mats,
         "shared" if lay.prog_ints > BWD_TABLES_BASE else "device",
         bwd_scratch_bytes(mc, vdirs, hi_lo), bwd_chunk_rows(mc, vdirs, hi_lo),
         why or "kernel")
@@ -550,9 +769,10 @@ def backward_fits(mc: ModelConfig, vdirs: bool = True,
 class PackedMLP:
     """One net's weights in the kernels' layout, plus both programs.
 
-    ``weights``: every weight block, bf16, each ``(k_pad, n_pad)`` row-major
-    in ``(in, out)`` layout — in ``hi_lo`` mode a (hi, lo) pair of such
-    blocks, lo right after hi; ``biases``: fp32, each padded to ``n_pad``;
+    ``weights``: every weight block, bf16, each a ``(k_pad, n_pad)`` block
+    in ``(in, out)`` layout laid out by :func:`strip_image` — in ``hi_lo``
+    mode a (hi, lo) pair of such blocks, lo right after hi; ``biases``:
+    fp32, each padded to ``n_pad``;
     ``program``: the forward's int32 header, buffer table and one record
     per column pass of each layer (see ``fused_mlp_fwd.cu``), also on the
     device as ``program_dev``; ``bwd_program``: the backward's header, buffer
@@ -583,6 +803,7 @@ class PackedMLP:
     bwd_jobs: np.ndarray
     bwd_smem: int
     bwd_rows: int
+    bwd_cluster: int
     ws_cols: int
     ws_mats: Tuple[Tuple[str, int, int], ...]
     grad_total: int
@@ -665,9 +886,9 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
         blk = torch.zeros(kp, np_, device=dev, dtype=torch.float32)
         blk[: k.shape[0], : k.shape[1]] = k
         hi = blk.to(torch.bfloat16)
-        w_parts.append(hi.reshape(-1))
+        w_parts.append(strip_image(hi))
         if hi_lo:
-            w_parts.append((blk - hi.float()).to(torch.bfloat16).reshape(-1))
+            w_parts.append(strip_image((blk - hi.float()).to(torch.bfloat16)))
         name = names[id(lin)]
         grad_blocks.append((f"{name}.weight", in0, k.shape[0], k.shape[1],
                             g_off, kp, np_))
@@ -688,6 +909,7 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
 
     ops = []
     lay = _fwd_layout(mc, vdirs, hi_lo)
+    slot = lay.slot // (2 if hi_lo else 1)
 
     def layer(a, b, lin, mode, dst, n_real=0):
         """a/b: (buffer, in_start, (in, out) block) operands; b may be
@@ -699,25 +921,27 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
         for c0 in range(0, n, FWD_MAX_N):
             nn = min(FWD_MAX_N, n - c0)
             head = mode == _OUT_F32
-            ops.append([a[0], wa + c0, ka, b[0] if b is not None else 0,
-                        wb + c0 if kb else 0, kb, bo + c0, nn, n, mode,
-                        dst + c0 if head else dst, 0 if head else c0,
-                        max(0, min(nn, n_real - c0)) if head else 0,
-                        _stage_rows(lay, nn, max(ka, kb)), 0, 0])
+            ops.append([_FWD, a[0], wa, ka, b[0] if b is not None else 0,
+                        wb if kb else 0, kb, nn, c0, n,
+                        stage_rows(OpShape(_FWD, ka, kb, n, c0, nn), slot),
+                        dst + c0 if head else dst, bo + c0, mode,
+                        max(0, min(nn, n_real - c0)) if head else 0, 0])
 
     kt = lambda lin: lin.weight.detach().float().t()
+    # Where every layer is one pass, each writes its output over its input.
+    p = (_P0, _P1) if dict(lay.bufs)["p1"][1] else (_P0, _P0)
     with torch.no_grad():
         cur = _X
         for i, lin in enumerate(net.pts_linears):
             k = kt(lin)
-            dst = _P0 if i % 2 == 0 else _P1
+            dst = p[i % 2]
             if i in mc.skips:  # cat([x, h]) @ W == x @ W[:enc] + h @ W[enc:]
                 layer((_X, 0, k[:enc_dim]), (cur, enc_dim, k[enc_dim:]), lin,
                       _RELU_BF16, dst)
             else:
                 layer((cur, 0, k), None, lin, _RELU_BF16, dst)
             cur = dst
-        other = _P1 if cur == _P0 else _P0
+        other = p[1] if cur == p[0] else p[0]
         if vdirs:
             kv = kt(net.view_linear)
             bott = mc.bottleneck_ch
@@ -735,14 +959,16 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
             layer((cur, 0, kt(net.output_linear)), None, net.output_linear,
                   _OUT_F32, 0, out_w)
 
-    if len(ops) != forward_ops(mc, vdirs):
+    if ([OpShape(o[0], o[3], o[6], o[9], o[8], o[7]) for o in ops]
+            != _fwd_shapes(mc, vdirs)):
         raise ValueError(f"forward program of {len(ops)} operations")
     header = dict(
         n_ops=len(ops), prog_len=FWD_OPS_BASE + FWD_OP_INTS * len(ops),
         n_freqs=n_freqs, enc_dim=enc_dim,
         dirs_dim=mc.input_ch_views if vdirs else 0, out_w=out_w,
-        hi_lo=int(hi_lo), rows=lay.rows, ksub=lay.ksub, stages=lay.stages,
-        ring_off=lay.ring_off, stage_elems=lay.stage_elems, smem=lay.smem)
+        hi_lo=int(hi_lo), rows=lay.rows, cluster=lay.cluster,
+        stages=lay.stages, ring_off=lay.ring_off, slot=lay.slot,
+        bar_off=lay.bar_off, smem=lay.smem)
     head = [header[k] for k in _FWD_HEADER]
     head += [0] * (FWD_HEADER_INTS - len(head))
     program = np.asarray(head + [v for _, b in lay.bufs for v in b]
@@ -767,6 +993,7 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
         bwd_prog_len=int(hdr[_H_PROG_LEN]),
         bwd_jobs=bwd_program[jobs_off:].reshape(n_jobs, BWD_JOB_INTS),
         bwd_smem=int(hdr[_H_SMEM]), bwd_rows=int(hdr[_H_ROWS]),
+        bwd_cluster=int(hdr[_BWD_HEADER.index("cluster")]),
         ws_cols=int(hdr[_H_WS_COLS]),
         ws_mats=ws_mats, grad_total=g_off + b_off,
         grad_blocks=tuple(grad_blocks), grad_biases=tuple(grad_biases),
@@ -807,8 +1034,8 @@ def _device_program(prog: bytes, device: str) -> torch.Tensor:
 # The forward program's header fields, in the order of fused_mlp_fwd.cu's
 # `Header` enum.
 _FWD_HEADER = ("n_ops", "prog_len", "n_freqs", "enc_dim", "dirs_dim",
-               "out_w", "hi_lo", "rows", "ksub", "stages", "ring_off",
-               "stage_elems", "smem")
+               "out_w", "hi_lo", "rows", "cluster", "stages", "ring_off",
+               "slot", "bar_off", "smem")
 
 
 def fwd_header(packed: "PackedMLP") -> Dict[str, int]:
@@ -821,8 +1048,9 @@ def fwd_header(packed: "PackedMLP") -> Dict[str, int]:
 _BWD_HEADER = ("n_ops", "prog_len", "n_freqs", "enc_dim", "dirs_dim",
                "g_cols", "gr_cols", "x_buf", "d_buf", "gr_buf", "gs_buf",
                "x_mat", "d_mat", "gr_mat", "gs_mat", "stages", "ring_off",
-               "stage_elems", "mask_off", "smem", "ws_cols", "jobs_off",
-               "n_jobs", "rows", "mats_base", "ops_base", "n_mats")
+               "slot", "mask_off", "smem", "ws_cols", "jobs_off",
+               "n_jobs", "rows", "mats_base", "ops_base", "n_mats", "cluster",
+               "bar_off")
 _H_PROG_LEN, _H_SMEM, _H_WS_COLS, _H_JOBS_OFF, _H_N_JOBS, _H_ROWS = (
     _BWD_HEADER.index(k)
     for k in ("prog_len", "smem", "ws_cols", "jobs_off", "n_jobs", "rows"))
@@ -846,20 +1074,24 @@ def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
     buf = {name: i for i, name in enumerate(bufs)}
     names = _bwd_mats(mc, vdirs)
     mat = {name: i for i, (name, _) in enumerate(names)}
-    x, p = buf["x"], (buf["p0"], buf["p1"])
+    # Where every layer is one pass, each output is written over its input.
+    x, p = buf["x"], (buf["p0"], buf.get("p1", buf["p0"]))
+    slot_bytes = lay.slot // (2 if hi_lo else 1)
     ops: List[List[int]] = []
 
-    def op(kind, a=-1, wa=0, ka=0, b=-1, wb=0, kb=0, bias=0, n=0,
-           mask_in=(-1, 0), dst=-1, m=-1, mask_out=(-1, 0), col=0, wld=0):
-        ops.append([kind, a, wa, ka, b, wb, kb, bias, n, mask_in[0], dst, m,
-                    mask_out[0], col, wld, max(mask_in[1], mask_out[1])])
+    def op(kind, a=-1, wa=0, ka=0, b=-1, wb=0, kb=0, n=0, col=0, wld=0,
+           dst=-1, bias=0, mask_in=-1, mask_out=-1, m=-1):
+        kr = (stage_rows(OpShape(kind, ka, kb, wld, col, n), slot_bytes)
+              if kind != _LOAD_G else 0)
+        ops.append([kind, a, wa, ka, b, wb, kb, n, col, wld, kr, dst, bias,
+                    mask_in, mask_out, m])
 
-    step = lay.pass_cols
+    step = BWD_MAX_N
 
     def block_of(slot, c0):
-        """The mask block of a ReLU layer's slot for the pass at c0: (its
-        first word, its column groups), or (-1, 0)."""
-        return (-1, 0) if slot < 0 else lay.masks[slot][c0 // step]
+        """The mask block of a ReLU layer's slot for the pass at c0: its
+        byte offset in the mask region, or -1."""
+        return -1 if slot < 0 else lay.masks[slot][c0 // step]
 
     def fwd(name, srcs, dst, m, slot=-1):
         """dst = act(sum of src @ W + bias), one op per column pass; ReLU
@@ -868,10 +1100,9 @@ def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
         wa, ka, na, _ = blk[0]
         wb, kb = (blk[1][0], blk[1][1]) if len(blk) > 1 else (0, 0)
         for c0 in range(0, na, step):
-            op(_FWD, srcs[0], wa + c0, ka, srcs[1] if len(srcs) > 1 else -1,
-               wb + c0 if kb else 0, kb, bias_of[name] + c0,
-               min(step, na - c0), dst=dst, m=mat[m],
-               mask_out=block_of(slot, c0), col=c0, wld=na)
+            op(_FWD, srcs[0], wa, ka, srcs[1] if len(srcs) > 1 else -1,
+               wb, kb, min(step, na - c0), c0, na, dst, bias_of[name] + c0,
+               mask_out=block_of(slot, c0), m=mat[m])
 
     def dx(srcs, dst, m, slot=-1):
         """dst = mask(sum of src @ W^T) for (src, name, part) operands, one
@@ -884,9 +1115,8 @@ def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
             sb, nb, pb = srcs[1]
             wb, kb = blocks[nb][pb][0], blocks[nb][pb][2]
         for c0 in range(0, rows, step):
-            op(_DX, sa, wa + c0 * ka, ka, sb, wb + c0 * kb if kb else 0, kb,
-               n=min(step, rows - c0), mask_in=block_of(slot, c0),
-               dst=dst, m=mat[m], col=c0, wld=rows)
+            op(_DX, sa, wa, ka, sb, wb, kb, min(step, rows - c0), c0, rows,
+               dst, mask_in=block_of(slot, c0), m=mat[m])
 
     # Recompute the forward (mask slot i: h_i > 0), load the cotangent,
     # walk the dX chain; h_i is in p[i % 2].
@@ -959,15 +1189,18 @@ def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
         gs_buf=buf.get("gs", -1), x_mat=mat["x"], d_mat=mat.get("d", -1),
         gr_mat=mat["g_rgb" if vdirs else "g_out"],
         gs_mat=mat.get("g_sigma", -1), stages=lay.stages,
-        ring_off=lay.ring_off, stage_elems=lay.stage_elems,
+        ring_off=lay.ring_off, slot=lay.slot,
         mask_off=lay.mask_off, smem=lay.smem, ws_cols=col,
         jobs_off=jobs_off, n_jobs=len(jobs), rows=lay.rows,
-        mats_base=BWD_TABLES_BASE, ops_base=ops_base, n_mats=len(names))
+        mats_base=BWD_TABLES_BASE, ops_base=ops_base, n_mats=len(names),
+        cluster=lay.cluster, bar_off=lay.bar_off)
     head = [header[k] for k in _BWD_HEADER]
     head += [0] * (BWD_HEADER_INTS - len(head))
     prog = np.asarray(head + buf_table + mat_table
                       + [v for rec in ops + jobs for v in rec], np.int32)
-    if (len(ops) != backward_counts(mc, vdirs, hi_lo)[0]
+    if ([OpShape(o[0], o[3], o[6], o[9], o[8], o[7]) if o[0] != _LOAD_G
+         else OpShape(_LOAD_G, 0, 0, 0, 0, 0) for o in ops]
+            != _bwd_shapes(mc, vdirs)
             or lay.prog_ints not in (jobs_off, BWD_TABLES_BASE)):
         raise ValueError(f"backward program of {len(ops)} operations")
     return prog, tuple(ws_mats)
@@ -1322,12 +1555,12 @@ def _kernel(csrc: str = _build.CSRC):
     lib = _build.load("fused_mlp_fwd", csrc)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.fused_mlp_fwd.argtypes = ([vp] * 5 + [i32, i32, ctypes.c_longlong, i32,
-                                   vp] + [i32] * 6 + [vp])
+                                   vp] + [i32] * 5 + [vp])
     lib.fused_mlp_fwd.restype = i32
     lib.fused_mlp_fwd_error_string.argtypes = [i32]
     lib.fused_mlp_fwd_error_string.restype = ctypes.c_char_p
     lib.fused_mlp_fwd_constants.argtypes = [ctypes.POINTER(i32), i32]
-    want = [FWD_THREADS, PAD, FWD_MAX_N, FWD_HEADER_INTS, FWD_MAX_BUFS,
+    want = [FWD_THREADS, FWD_MAX_N, FWD_HEADER_INTS, FWD_MAX_BUFS,
             FWD_OP_INTS]
     consts = (i32 * len(want))()
     lib.fused_mlp_fwd_constants(consts, len(want))
@@ -1343,8 +1576,8 @@ def _bwd_kernel(csrc: str = _build.CSRC):
     sources in ``csrc``, declared and checked."""
     lib = _build.load("fused_mlp_bwd", csrc)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fused_mlp_bwd_phase1.argtypes = ([vp] * 6 + [i32] * 5 + [i64]
-                                         + [i32] * 3 + [vp, i64, vp])
+    lib.fused_mlp_bwd_phase1.argtypes = ([vp] * 6 + [i32] * 6 + [i64]
+                                         + [i32] * 2 + [vp, i64, vp])
     lib.fused_mlp_bwd_phase1.restype = i32
     lib.fused_mlp_bwd_phase2.argtypes = [vp, i64, vp, vp] + [i32] * 6 + [
         vp, i64, i64, vp]
@@ -1357,7 +1590,7 @@ def _bwd_kernel(csrc: str = _build.CSRC):
     want = [BWD_THREADS, PAD, BWD_MAX_N, BWD_HEADER_INTS, BWD_MAX_BUFS,
             BWD_OP_INTS, BWD_TILE_K, BWD_TILE_N,
             BWD_STAGE_ROWS, BWD_STAGES2, BWD_JOB_INTS, BWD_P1_THREADS,
-            *BWD_TILE_ROWS, *BWD_TILE_ROWS_HI_LO, BWD_DEVICE_TABLES_ROWS]
+            *TILE_ROWS, *TILE_ROWS_HI_LO]
     consts = (i32 * len(want))()
     lib.fused_mlp_bwd_constants(consts, len(want))
     if list(consts) != want:
@@ -1370,11 +1603,6 @@ def _bwd_error(lib, what: str, rc: int):
     if rc != 0:
         raise RuntimeError(f"{what} failed: "
                            + lib.fused_mlp_bwd_error_string(rc).decode())
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _check_operands(packed: PackedMLP, pts, dirs):
@@ -1419,8 +1647,6 @@ def _launch(packed: PackedMLP, pts: torch.Tensor,
     hdr = fwd_header(packed)
     scenes = packed.n_scenes
     n_s = n // scenes
-    tiles = scenes * -(-n_s // hdr["rows"])
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fused_mlp_fwd(
@@ -1428,8 +1654,8 @@ def _launch(packed: PackedMLP, pts: torch.Tensor,
             packed.weights.data_ptr(), packed.biases.data_ptr(),
             out.data_ptr(), n_s, scenes, packed.w_stride, packed.b_stride,
             packed.program_dev.data_ptr(),
-            hdr["prog_len"], hdr["hi_lo"], hdr["rows"], hdr["ksub"],
-            min(tiles, _sm_count(index)), hdr["smem"], stream,
+            hdr["prog_len"], hdr["hi_lo"], hdr["rows"], hdr["cluster"],
+            hdr["smem"], stream,
         )
     if rc != 0:
         raise RuntimeError("fused_mlp_fwd launch failed: "
@@ -1507,17 +1733,15 @@ def bwd_workspace(packed: PackedMLP, pts: torch.Tensor,
         return ws
     lib = _bwd_kernel()
     prog = packed.bwd_program_dev
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _bwd_error(lib, "fused_mlp_bwd_phase1 launch", lib.fused_mlp_bwd_phase1(
             pts.data_ptr(), dirs.data_ptr() if dirs is not None else None,
             g.data_ptr(), packed.weights.data_ptr(),
             packed.biases.data_ptr(), prog.data_ptr(), packed.bwd_prog_len,
-            int(packed.hi_lo), tile, n_s, scenes, packed.w_stride,
-            packed.b_stride,
-            min(scenes * rows // tile, _sm_count(index)),
-            packed.bwd_smem, ws.data_ptr(), cap, stream))
+            int(packed.hi_lo), tile, packed.bwd_cluster, n_s, scenes,
+            packed.w_stride, packed.b_stride, packed.bwd_smem, ws.data_ptr(),
+            cap, stream))
     bwd_workspace.launches += 1
     if numerics_checked():
         check_nan([(f"the workspace of the fused_mlp_bwd_phase1 kernel "

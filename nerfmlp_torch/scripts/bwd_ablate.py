@@ -1,25 +1,26 @@
 """Where the fused MLP kernels' time goes, on one GPU.
 
-    python -m nerfmlp_torch.scripts.bwd_ablate
+    python -m nerfmlp_torch.scripts.bwd_ablate [--kernels fwd,bwd]
     python -m nerfmlp_torch.scripts.bwd_ablate --outputs FILE
     python -m nerfmlp_torch.scripts.bwd_ablate --compare FILE FILE
 
 Builds csrc/fused_mlp_bwd.cu and csrc/fused_mlp_fwd.cu as they are and in
-variants with one part of a kernel taken out (results are then wrong:
-only their time counts), all builds of a source started together, and
-times each backward variant's two phases at the flagship train step's
-fine call (1024 rays x 128 samples, 8x256 + view head, bf16, random
-weights from seed 0), and each forward variant at that call and at the
-served fine call (4096 rays x 128 samples), then the forward with its
-narrow operations' weight rows per ring stage capped. Then, with the
-sources as they are:
-phase 2 and the reduction at 4 to 32 row splits, and the whole backward
-at the fine and coarse calls in one chunk per call and in chunks of 8,192
-points (80 MB of workspace, against 1.31 GB for the fine call in one
-chunk). Device times by CUDA events, median of 10, with a GPU spin ahead
-of each timed call so that the host's launch path is not timed. Variant
-sources go under build/nerfmlp_torch/ablate/; a variant whose text is no
-longer in the source fails with its name. Needs no jax.
+variants with one part of the design taken out (results are then wrong:
+only their time counts), all builds of a source started together: the
+wgmma of mlp_tile.cuh's shared core, the producer's weight copies (its
+full barriers then arm with no bytes), the epilogue, the encoding; and
+phase 2's mma and loads. It times each backward variant's two phases at
+the flagship train step's fine call (1024 rays x 128 samples, 8x256 + view
+head, bf16, random weights from seed 0), and each forward variant at that
+call and at the served fine call (4096 rays x 128 samples). Then the
+multicast: the shallow wide nets' forward and phase 1 as built (clusters
+of one CTA) and with their tiles in clusters of 64 / T CTAs. Then, with the sources as they are: phase 2 and
+the reduction at 4 to 32 row splits, and the whole backward at the fine
+and coarse calls in one chunk per call and in chunks of 8,192 points.
+Device times by CUDA events, median of 10, with a GPU spin ahead of each
+timed call so that the host's launch path is not timed. Variant sources
+go under build/nerfmlp_torch/ablate/; a variant whose text is no longer in
+the source fails with its name. Needs no jax.
 
 ``--outputs FILE`` instead writes the forward's output and the backward's
 flat gradient of the depth-8 nets (OUTPUT_NETS) at the fine call, from
@@ -31,8 +32,8 @@ were.
 
 import argparse
 import concurrent.futures
+import dataclasses
 import os
-import shutil
 import statistics
 import subprocess
 from unittest import mock
@@ -45,8 +46,6 @@ from nerfmlp_torch.ops import _build
 from nerfmlp_torch.ops import fused_mlp as fm
 from nerfmlp_torch.ops.encoding import positional_encoding
 
-_SRC = os.path.join(_build.CSRC, "fused_mlp_bwd.cu")
-_FWD_SRC = os.path.join(_build.CSRC, "fused_mlp_fwd.cu")
 _P1_END = "// dW and db partials of one job"
 CHUNK_TRY = 8192
 # (width, view head, hi_lo) of the depth-8 nets --outputs writes: 8x256 and
@@ -55,124 +54,110 @@ OUTPUT_NETS = ((256, True, False), (256, True, True), (288, True, False),
                (384, True, False), (512, True, False), (640, True, False),
                (384, True, True), (512, True, True), (576, True, True),
                (592, False, False))
+# (depth, width) of the shallow wide nets whose tiles run in clusters.
+SHALLOW_NETS = ((2, 1024), (1, 1696))
 
-# name -> [(old text, new text, in phase 1's kernel or not)]
+_CORE = "mlp_tile.cuh"
+_NO_MMA = (
+    "template <int N>\nstruct Wgmma;\n",
+    "template <int N>\nstruct Wgmma;\n"
+    "template <int N>\nstruct NoMma {\n"
+    "  template <int kTnspA>\n"
+    "  static __device__ __forceinline__ void mma(float (&d)[N / 2], "
+    "uint64_t a,\n      uint64_t b, int s) {\n"
+    "    d[0] += __uint_as_float(static_cast<uint32_t>(a ^ b)) * s;\n"
+    "  }\n};\n")
+# Parts of mlp_tile.cuh's core (both kernels): (file, old text, new text).
+_CORE_VARIANTS = {
+    "without wgmma": [
+        (_CORE, *_NO_MMA),
+        (_CORE, "  using Mma = Wgmma<T>;", "  using Mma = NoMma<T>;")],
+    "without the weight copies": [
+        (_CORE, "          mbar_expect_tx(&full[pos.slot], kHiLo ? 2 * bytes : "
+         "bytes);", "          mbar_expect_tx(&full[pos.slot], 0 * bytes);"),
+        (_CORE, "        if (kind == kOpFwd) {\n          if (t < strips) {",
+         "        if (false) {\n          if (t < strips) {"),
+        (_CORE, "        } else if (t == 0) {", "        } else if (false) {")],
+}
+# The forward's variants: name -> [(file, old text, new text)]; file the
+# kernel's source or mlp_tile.cuh. The results are then wrong: only the
+# time counts. Without an epilogue the accumulators still reach a
+# (predicated) store, or the compiler would drop the products too.
+_NO_EPILOGUE = ("      epilogue(0, acc0);\n      epilogue(1, acc1);",
+                "      st_global_if(reinterpret_cast<float*>({}), 0.f,\n"
+                "                   acc0[0] == 123.f && acc1[1] == 7.f);")
+FWD_VARIANTS = {
+    "as built": [],
+    **_CORE_VARIANTS,
+    "without the epilogue": [(
+        "fused_mlp_fwd.cu", _NO_EPILOGUE[0], _NO_EPILOGUE[1].format("out"))],
+    "without the encoding": [(
+        "fused_mlp_fwd.cu",
+        "(p < n && j < enc_dim) ? encode_pair(pts_s, p, j, &v0, &v1) : 1",
+        "(p < n && j < enc_dim) ? 1 : 1")],
+}
+# Phase 1's variants (its part of fused_mlp_bwd.cu, before phase 2).
 VARIANTS = {
     "as built": [],
-    "phase 1 without mma": [(
-        "            mma(acc[mt][2 * p], a[mt], b[0], b[1]);\n"
-        "            mma(acc[mt][2 * p + 1], a[mt], b[2], b[3]);",
-        "            acc[mt][2 * p][0] += __uint_as_float(a[mt][0] ^ b[0]);\n"
-        "            acc[mt][2 * p + 1][0] += __uint_as_float(a[mt][1] ^ b[2]);",
-        True)],
-    "phase 1 without slab wait + barrier": [(
-        "        cp_async_wait_n(stages - 2);\n"
-        "        __syncthreads();  // the slab is in; the oldest slot is free\n",
-        "", True)],
-    "phase 1 without weight loads": [(
-        "      if (f_dst >= 0) {", "      if (false) {", True)],
-    "phase 1 without workspace copy": [(
-        "      if (m >= 0) {", "      if (false) {", True)],
-    "phase 1 without B-fragment ldmatrix": [(
-        "          if (fwd) {\n"
-        "            ldsm_x4_t(b, q);\n"
-        "            if (kHiLo) ldsm_x4_t(bl, q + half);\n"
-        "          } else {\n"
-        "            ldsm_x4(b, q);\n"
-        "            if (kHiLo) ldsm_x4(bl, q + half);\n"
-        "          }",
-        "          b[0] = b[1] = b[2] = b[3] = lane ^ j;\n"
-        "          bl[0] = bl[1] = bl[2] = bl[3] = lane;\n"
-        "          (void)q;", True)],
-    "phase 1 without A-fragment ldmatrix": [(
-        "          ldsm_x4(a[mt], a_base + mt * 16 * ld);",
-        "          a[mt][0] = a[mt][1] = a[mt][2] = a[mt][3] = j + lane;\n"
-        "          (void)a_base;", True)],
+    **_CORE_VARIANTS,
+    "without the epilogue": [(
+        _NO_EPILOGUE[0], _NO_EPILOGUE[1].format("ws"))],
+    "without the encoding": [(
+        "(gr < n && j < enc_dim) ? encode_pair(pts_s, gr, j, &v0, &v1) : 1",
+        "(gr < n && j < enc_dim) ? 1 : 1")],
+}
+# Phase 2's, in its part of the source.
+P2_VARIANTS = {
     "phase 2 without mma": [(
         "          mma(acc[mt][2 * p], a[mt], b[0], b[1]);\n"
         "          mma(acc[mt][2 * p + 1], a[mt], b[2], b[3]);\n"
         "          if (kHiLo) {",
         "          acc[mt][2 * p][0] += __uint_as_float(a[mt][0] ^ b[0]);\n"
         "          acc[mt][2 * p + 1][0] += __uint_as_float(a[mt][1] ^ b[2]);\n"
-        "          if (kHiLo) {", False)],
+        "          if (kHiLo) {")],
     "phase 2 without loads": [
-        ("      if (cc < ca) {", "      if (false) {", False),
-        ("      if (cc < cy) {", "      if (false) {", False)],
+        ("      if (cc < ca) {", "      if (false) {"),
+        ("      if (cc < cy) {", "      if (false) {")],
 }
 
 
-# The forward's variants: name -> [(old text, new text)].
-FWD_VARIANTS = {
-    "as built": [],
-    "forward without mma": [(
-        "            mma(acc[mt][2 * p], a[mt], b[0], b[1]);\n"
-        "            mma(acc[mt][2 * p + 1], a[mt], b[2], b[3]);\n"
-        "            if (kHiLo) {",
-        "            acc[mt][2 * p][0] += __uint_as_float(a[mt][0] ^ b[0]);\n"
-        "            acc[mt][2 * p + 1][0] += __uint_as_float(a[mt][1] ^ b[2]);\n"
-        "            if (kHiLo) {")],
-    "forward without stage wait + barrier": [(
-        "        cp_async_wait_n(stages - 2);\n"
-        "        __syncthreads();  // the slab is in; the oldest slot is free\n",
-        "")],
-    "forward without weight loads": [(
-        "      if (f_dst >= 0) {", "      if (false) {")],
-    "forward without B-fragment ldmatrix": [(
-        "          ldsm_x4_t(b, q);\n"
-        "          if (kHiLo) ldsm_x4_t(bl, q + half);",
-        "          b[0] = b[1] = b[2] = b[3] = lane ^ p;\n"
-        "          bl[0] = bl[1] = bl[2] = bl[3] = lane;\n"
-        "          (void)q;")],
-    "forward without A-fragment ldmatrix": [(
-        "          ldsm_x4(a[mt], a_s + mt * 16 * ld);",
-        "          a[mt][0] = a[mt][1] = a[mt][2] = a[mt][3] = mt + lane;\n"
-        "          (void)a_s;")],
-    "forward without encoding": [(
-        "(g < n && j < enc_dim) ? encode(pts_s, g, j) : 0.f",
-        "(g < n && j < enc_dim) ? 0.5f : 0.f")],
-}
-
-
-def fwd_variant_source(name: str) -> str:
-    """The forward's source with the named variant's edits applied; each
-    edit's text must occur once in the source."""
-    src = open(_FWD_SRC).read()
-    for old, new in FWD_VARIANTS[name]:
-        if src.count(old) != 1:
-            raise RuntimeError(f"{name}: its text is not found once in the "
-                               f"source: {old!r}")
-        src = src.replace(old, new)
-    return src
-
-
-def variant_source(name: str) -> str:
-    """The backward's source with the named variant's edits applied; each
-    edit's text must occur once in its kernel's part of the source."""
-    src = open(_SRC).read()
-    for old, new, phase1 in VARIANTS[name]:
-        cut = src.index(_P1_END)
-        part = src[:cut] if phase1 else src[cut:]
+def variant_files(kernel: str, name: str, edits) -> dict:
+    """{file name: text} of ``kernel``'s source and the headers with the
+    variant ``name``'s edits ((file,) old, new) applied; each old text must
+    occur once in its file (phase 1's and phase 2's in their own part of
+    fused_mlp_bwd.cu), else the variant fails by name."""
+    files = {os.path.basename(p): open(p).read()
+             for p in _build.sources(kernel)}
+    for edit in edits:
+        fname, old, new = edit if len(edit) == 3 else (
+            _build.KERNELS[kernel], *edit)
+        src = files[fname]
+        part, rest = src, ""
+        if fname == "fused_mlp_bwd.cu":
+            cut = src.index(_P1_END)
+            p2 = edit in [e for v in P2_VARIANTS.values() for e in v]
+            part, rest = (src[cut:], src[:cut]) if p2 else (src[:cut],
+                                                             src[cut:])
         if part.count(old) != 1:
-            raise RuntimeError(f"{name}: its text is not found once in the "
-                               f"source: {old!r}")
+            raise RuntimeError(f"{name}: its text is not found once in "
+                               f"{fname}: {old!r}")
         part = part.replace(old, new)
-        src = part + src[cut:] if phase1 else src[:cut] + part
-    return src
+        files[fname] = (rest + part if fname == "fused_mlp_bwd.cu" and p2
+                        else part + rest)
+    return files
 
 
-def build_variants(names, kernel="fused_mlp_bwd", source=variant_source):
-    """Each variant's source directory for ``kernel`` (its source from
-    ``source(name)``, beside the headers), every one built (in
-    parallel)."""
+def build_variants(variants, kernel):
+    """Each variant's source directory for ``kernel`` (``variants``: name
+    -> edits), every one built (in parallel)."""
     dirs = {}
-    for name in names:
+    for name, edits in variants.items():
         d = os.path.join(_build.build_dir(), "ablate", kernel,
                          name.replace(" ", "_"))
         os.makedirs(d, exist_ok=True)
-        for path in _build.sources(kernel)[1:]:   # the headers
-            shutil.copy(path, d)
-        with open(os.path.join(d, _build.KERNELS[kernel]), "w") as f:
-            f.write(source(name))
+        for fname, text in variant_files(kernel, name, edits).items():
+            with open(os.path.join(d, fname), "w") as f:
+                f.write(text)
         dirs[name] = d
     with concurrent.futures.ThreadPoolExecutor(len(dirs)) as pool:
         list(pool.map(lambda d: _build.build([kernel], d), dirs.values()))
@@ -243,10 +228,19 @@ def compare_outputs(a: str, b: str) -> int:
     return 0 if same else 1
 
 
+def multicast(tries):
+    """``tries`` with every tile below 64 points in a cluster of 64 / T
+    CTAs that share each weight stage by multicast."""
+    return {hi_lo: tuple((t[0], max(1, 64 // t[0]), *t[2:]) for t in ts)
+            for hi_lo, ts in tries.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--outputs", metavar="FILE")
     ap.add_argument("--compare", nargs=2, metavar="FILE")
+    ap.add_argument("--kernels", default="fwd,bwd",
+                    help="which kernels' variants to time: fwd, bwd or both")
     args = ap.parse_args(argv)
     if args.compare:
         return compare_outputs(*args.compare)
@@ -255,6 +249,7 @@ def main(argv=None) -> int:
     if args.outputs:
         write_outputs(args.outputs)
         return 0
+    kernels = args.kernels.split(",")
     cfg = RenderConfig(compute_dtype="bfloat16", use_kernel=True)
     net = init_model(cfg.model_config(), seed=0, device="cuda")
     packed = fm.pack_params(net, cfg.pos_enc_L, True)
@@ -266,68 +261,93 @@ def main(argv=None) -> int:
     part = torch.empty((splits, fm.part_stride(total)), device="cuda")
     print(f"[ablate] {torch.cuda.get_device_name(0)}; fine call, n={n}, "
           f"{splits} splits of {split_rows} rows")
-    for name, d in build_variants(VARIANTS).items():
-        lib = fm._bwd_kernel(d)
-        with mock.patch.object(fm, "_bwd_kernel", lambda: lib):
-            t1 = device_ms(lambda: fm.bwd_workspace(packed, pts, dirs, g, ws))
-            t2 = device_ms(lambda: fm.weight_grads(packed, ws, n, split_rows,
-                                                   part))
-        print(f"[ablate] {name}: phase 1 {t1:.3f} ms, phase 2 {t2:.3f} ms",
-              flush=True)
+    if "bwd" in kernels:
+        for name, d in build_variants({**VARIANTS, **P2_VARIANTS},
+                                      "fused_mlp_bwd").items():
+            lib = fm._bwd_kernel(d)
+            with mock.patch.object(fm, "_bwd_kernel", lambda: lib):
+                t1 = device_ms(lambda: fm.bwd_workspace(packed, pts, dirs, g,
+                                                        ws))
+                t2 = device_ms(lambda: fm.weight_grads(packed, ws, n,
+                                                       split_rows, part))
+            print(f"[ablate] {name}: phase 1 {t1:.3f} ms, phase 2 "
+                  f"{t2:.3f} ms", flush=True)
     serve = call_inputs(4 * n, cfg)[:2]
-    fwd_dirs = build_variants(FWD_VARIANTS, "fused_mlp_fwd",
-                              fwd_variant_source)
-    with torch.no_grad():
-        for name, d in fwd_dirs.items():
-            lib = fm._kernel(d)
-            with mock.patch.object(fm, "_kernel", lambda: lib):
-                tt = device_ms(lambda: fm._launch(packed, pts, dirs))
-                ts = device_ms(lambda: fm._launch(packed, *serve))
-            print(f"[ablate] {name}: train fine call {tt:.3f} ms, served "
-                  f"fine call ({4 * n} points) {ts:.3f} ms", flush=True)
-        # The narrow operations (sigma, rgb, view) with at most `cap` weight
-        # rows per ring stage (0: a full-width stage's 16 * ksub rows, as
-        # wide operations take), packed anew; the as-built program last.
-        stage_rows = fm._stage_rows
-        for cap in (0, 64, 128, None):
-            def capped(lay, nn, k, cap=cap):
-                got = stage_rows(lay, nn, k)
-                return got if cap is None else min(got, max(16 * lay.ksub, cap))
-            with mock.patch.object(fm, "_stage_rows", capped):
-                pc = fm.pack_params(net, cfg.pos_enc_L, True)
-            tt = device_ms(lambda: fm._launch(pc, pts, dirs))
-            ts = device_ms(lambda: fm._launch(pc, *serve))
-            print(f"[ablate] forward, narrow operations at "
-                  f"{'as built' if cap is None else f'<= max({cap}, 32)'} "
-                  f"rows per stage: train fine call {tt:.3f} ms, served fine "
-                  f"call {ts:.3f} ms", flush=True)
+    if "fwd" in kernels:
+        with torch.no_grad():
+            for name, d in build_variants(FWD_VARIANTS,
+                                          "fused_mlp_fwd").items():
+                lib = fm._kernel(d)
+                with mock.patch.object(fm, "_kernel", lambda: lib):
+                    tt = device_ms(lambda: fm._launch(packed, pts, dirs))
+                    ts = device_ms(lambda: fm._launch(packed, *serve))
+                print(f"[ablate] forward {name}: train fine call {tt:.3f} ms,"
+                      f" served fine call ({4 * n} points) {ts:.3f} ms",
+                      flush=True)
+    # The multicast: the shallow wide nets' layouts as built (clusters of
+    # one CTA, each streaming every stage itself) and with their tiles in
+    # clusters of 64 / T CTAs that share each stage by multicast.
+    for depth, width in SHALLOW_NETS:
+        scfg = dataclasses.replace(cfg, depth=depth, width=width)
+        snet = init_model(scfg.model_config(), seed=0, device="cuda")
+        times = []
+        for label, fwd_tries, bwd_tries in (
+                ("as built", fm.FWD_TRIES, fm.BWD_TRIES),
+                ("multicast", multicast(fm.FWD_TRIES),
+                 multicast(fm.BWD_TRIES))):
+            with mock.patch.object(fm, "FWD_TRIES", fwd_tries), \
+                    mock.patch.object(fm, "BWD_TRIES", bwd_tries):
+                fm._fwd_layout.cache_clear()
+                fm._bwd_layout.cache_clear()
+                sp = fm.pack_params(snet, scfg.pos_enc_L, True)
+                sws = torch.empty(fm.ws_rows(n, sp.bwd_rows) * sp.ws_cols,
+                                  device="cuda", dtype=torch.bfloat16)
+                with torch.no_grad():
+                    tf = device_ms(lambda: fm._launch(sp, pts, dirs))
+                t1 = (device_ms(lambda: fm.bwd_workspace(sp, pts, dirs, g,
+                                                         sws))
+                      if "bwd" in kernels else float("nan"))
+            times.append(f"{label} (forward {fwd_header_line(sp)}): "
+                         f"forward {tf:.3f} ms, phase 1 {t1:.3f} ms")
+        fm._fwd_layout.cache_clear()
+        fm._bwd_layout.cache_clear()
+        print(f"[ablate] {depth}x{width}: " + "; ".join(times), flush=True)
+        del snet, sp, sws
+        torch.cuda.empty_cache()
 
-    fm.bwd_workspace(packed, pts, dirs, g, ws)
-    for s in (4, 8, 16, 32):
-        for rows in (n // 2, n):
-            per = -(-rows // (s * fm.BWD_STAGE_ROWS)) * fm.BWD_STAGE_ROWS
-            part = torch.empty((-(-rows // per), fm.part_stride(total)),
-                               device="cuda")
-            t2 = device_ms(lambda: fm.weight_grads(packed, ws, rows, per,
-                                                   part))
-            t3 = device_ms(lambda: fm.reduce_partials(part, total))
-            tl = device_ms(lambda: part[:, :total].sum(0))
-            print(f"[ablate] {rows} rows in {part.shape[0]} splits: phase 2 "
-                  f"{t2:.3f} ms, reduction {t3:.4f} ms (part.sum(0) "
-                  f"{tl:.4f} ms)", flush=True)
-
-    for rows, label in ((n, "fine"), (n // 2, "coarse")):
-        p, d, gg = call_inputs(rows, cfg)
-        one = device_ms(lambda: fm._launch_bwd(packed, p, d, gg))
-        with mock.patch.object(fm, "BWD_CHUNK_ROWS", CHUNK_TRY):
-            chunked = device_ms(lambda: fm._launch_bwd(packed, p, d, gg))
-        print(f"[ablate] {label} call, whole backward: one chunk of "
-              f"{fm.BWD_CHUNK_ROWS} points {one:.3f} ms, chunks of "
-              f"{CHUNK_TRY} points {chunked:.3f} ms", flush=True)
+    if "bwd" in kernels:
+        fm.bwd_workspace(packed, pts, dirs, g, ws)
+        for s in (4, 8, 16, 32):
+            for rows in (n // 2, n):
+                per = -(-rows // (s * fm.BWD_STAGE_ROWS)) * fm.BWD_STAGE_ROWS
+                part = torch.empty((-(-rows // per), fm.part_stride(total)),
+                                   device="cuda")
+                t2 = device_ms(lambda: fm.weight_grads(packed, ws, rows, per,
+                                                       part))
+                t3 = device_ms(lambda: fm.reduce_partials(part, total))
+                tl = device_ms(lambda: part[:, :total].sum(0))
+                print(f"[ablate] {rows} rows in {part.shape[0]} splits: "
+                      f"phase 2 {t2:.3f} ms, reduction {t3:.4f} ms "
+                      f"(part.sum(0) {tl:.4f} ms)", flush=True)
+        for rows, label in ((n, "fine"), (n // 2, "coarse")):
+            p, d, gg = call_inputs(rows, cfg)
+            one = device_ms(lambda: fm._launch_bwd(packed, p, d, gg))
+            with mock.patch.object(fm, "BWD_CHUNK_ROWS", CHUNK_TRY):
+                chunked = device_ms(lambda: fm._launch_bwd(packed, p, d, gg))
+            print(f"[ablate] {label} call, whole backward: one chunk of "
+                  f"{fm.BWD_CHUNK_ROWS} points {one:.3f} ms, chunks of "
+                  f"{CHUNK_TRY} points {chunked:.3f} ms", flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     return 0
+
+
+def fwd_header_line(packed) -> str:
+    """A packed net's forward and phase-1 tiles and clusters."""
+    h = fm.fwd_header(packed)
+    return (f"{h['rows']}-point tiles x {h['cluster']}, phase 1 "
+            f"{packed.bwd_rows} x {packed.bwd_cluster}")
 
 
 if __name__ == "__main__":

@@ -53,17 +53,23 @@ def test_build_without_nvcc_names_it(tmp_path, monkeypatch):
 
 def test_ablation_variant_whose_text_is_gone_fails_by_name(monkeypatch):
     monkeypatch.setitem(bwd_ablate.VARIANTS, "phase 1 without nothing",
-                        [("no such line in the kernel", "", True)])
+                        [("no such line in the kernel", "")])
     with pytest.raises(RuntimeError, match="phase 1 without nothing"):
-        bwd_ablate.variant_source("phase 1 without nothing")
-    assert bwd_ablate.variant_source("as built") == open(bwd_ablate._SRC).read()
+        bwd_ablate.variant_files("fused_mlp_bwd", "phase 1 without nothing",
+                                 bwd_ablate.VARIANTS["phase 1 without nothing"])
+    files = bwd_ablate.variant_files("fused_mlp_bwd", "as built", [])
+    assert files == {os.path.basename(p): open(p).read()
+                     for p in _build.sources("fused_mlp_bwd")}
 
 
 def test_forward_ablation_variant_whose_text_is_gone_fails_by_name(
         monkeypatch):
     monkeypatch.setitem(bwd_ablate.FWD_VARIANTS, "forward without nothing",
-                        [("no such line in the kernel", "")])
+                        [("mlp_tile.cuh", "no such line in the core", "")])
     with pytest.raises(RuntimeError, match="forward without nothing"):
-        bwd_ablate.fwd_variant_source("forward without nothing")
-    assert (bwd_ablate.fwd_variant_source("as built")
-            == open(bwd_ablate._FWD_SRC).read())
+        bwd_ablate.variant_files(
+            "fused_mlp_fwd", "forward without nothing",
+            bwd_ablate.FWD_VARIANTS["forward without nothing"])
+    files = bwd_ablate.variant_files("fused_mlp_fwd", "as built", [])
+    assert files == {os.path.basename(p): open(p).read()
+                     for p in _build.sources("fused_mlp_fwd")}

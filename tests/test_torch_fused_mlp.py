@@ -119,12 +119,15 @@ def _run_program(packed, pts, dirs):
     """What the CUDA kernel does with a packed net, step for step, in
     PyTorch: tiles of the program's row count, each encoded into the
     kernel's shared-memory buffers (one flat array laid out as the kernel
-    lays them out, unwritten slots NaN so that a read of one shows); then
+    lays them out: whole 128-byte swizzled atoms at 1024-byte offsets,
+    ``act_index``; unwritten slots NaN so that a read of one shows); then
     the program's operations, each a pass of at most FWD_MAX_N columns over
-    one layer, with its padding, epilogue and, in hi_lo mode, the (hi, lo)
-    planes and three products; the heads' real columns written from the
-    epilogue to the output, rows at or past n masked. The weight ring is
-    not modelled beyond the room of a stage."""
+    one layer, its weights read back from the strip image
+    (``block_from_image``), with its padding, epilogue and, in hi_lo mode,
+    the (hi, lo) planes and three products; the heads' real columns written
+    from the epilogue to the output, rows at or past n masked. Each
+    operation's ring stage is checked to fit a slot; the ring itself is
+    not modelled."""
     hdr = fused_mlp.fwd_header(packed)
     prog = [int(v) for v in packed.program]
     base, ops_base = fused_mlp.FWD_HEADER_INTS, fused_mlp.FWD_OPS_BASE
@@ -135,38 +138,53 @@ def _run_program(packed, pts, dirs):
            for i in range(hdr["n_ops"])]
     rows, hi_lo = hdr["rows"], bool(hdr["hi_lo"])
     planes = 2 if hi_lo else 1
-    slot = hdr["stage_elems"]
+    slot = hdr["slot"] // planes   # a stage's bytes of one plane
     assert hdr["stages"] >= 2 and hdr["smem"] <= fused_mlp.SMEM_LIMIT
-    # the kernel copies the whole program into shared memory, ahead of the
-    # buffers
+    assert hdr["cluster"] == 1 and max(1, 64 // rows) in (1, 2, 4)
+    # the kernel copies the whole program into shared memory; then the
+    # ring's barriers and the zero block, the buffers, the ring
     assert hdr["prog_len"] == len(prog)
-    assert 4 * hdr["prog_len"] <= min(off for off, _, c in bufs if c)
-    assert all(off + rows * ld * 2 * planes <= hdr["ring_off"]
-               for off, ld, cols in bufs if cols)
+    assert 4 * hdr["prog_len"] <= hdr["bar_off"]
+    used = [(off, cols) for off, cols, _ in bufs if cols]
+    assert (hdr["bar_off"] + fused_mlp.MAX_STAGES * fused_mlp.BARRIER_BYTES
+            + fused_mlp.ZERO_BYTES <= min(off for off, _ in used))
+    assert all(off % 1024 == 0 and cols % 64 == 0 for off, cols in used)
+    assert all(off + rows * cols * 2 * planes <= hdr["ring_off"]
+               for off, cols in used)
+    assert hdr["ring_off"] % 1024 == 0 and slot % 1024 == 0
+    assert hdr["ring_off"] + hdr["stages"] * hdr["slot"] == hdr["smem"]
     bf = lambda t: t.to(torch.bfloat16).float()
     w = packed.weights.float()
     b = packed.biases
     n = pts.shape[0]
     smem = torch.full((hdr["ring_off"] // 2,), float("nan"))
 
-    def buf(bi, plane=0):
-        off, ld, cols = bufs[bi]
-        at = off // 2 + plane * rows * ld
-        return smem[at: at + rows * ld].view(rows, ld)[:, :cols]
+    def at(bi, col, cols):   # element offsets of buffer bi's columns col..
+        off, bcols, c0 = bufs[bi]
+        assert c0 + col + cols <= bcols
+        return off // 2 + fused_mlp.act_index(rows, cols, c0 + col)
+
+    def read(bi, k):   # buffer bi's first k columns, each plane
+        off, bcols, _ = bufs[bi]
+        idx = at(bi, 0, k)
+        return [smem[idx + p * rows * bcols] for p in range(planes)]
 
     def put(bi, col, v):   # a value into buffer bi's planes from column col
+        off, bcols, _ = bufs[bi]
+        idx = at(bi, col, v.shape[1])
         hi = bf(v)
-        buf(bi, 0)[:, col:col + v.shape[1]] = hi
+        smem[idx] = hi
         if hi_lo:
-            buf(bi, 1)[:, col:col + v.shape[1]] = bf(v - hi)
+            smem[idx + rows * bcols] = bf(v - hi)
 
-    def block(off, k, nn, ld):   # columns of a packed (k, ld) weight's planes
+    def block(off, k, ld, col, nn):   # columns col.. of a (k, ld) block
         # copied column-major, the layout of the plain version's w.t(): the
         # same BLAS path sums in the same order, so the bf16 roundings of a
         # wide net's activations agree (the kernel's own order is held on
         # the card)
-        return [w.as_strided((k, nn), (ld, 1), off + p * k * ld)
-                .t().contiguous().t() for p in range(planes)]
+        return [fused_mlp.block_from_image(w[off + p * k * ld:
+                                             off + (p + 1) * k * ld], k, ld)
+                [:, col:col + nn].t().contiguous().t() for p in range(planes)]
 
     def mm(a, wt):   # planes @ planes: hi*hi (+ lo*hi + hi*lo)
         out = a[0] @ wt[0]
@@ -180,20 +198,24 @@ def _run_program(packed, pts, dirs):
 
     enc = positional_encoding(pts, hdr["n_freqs"])
     out = torch.full((n, hdr["out_w"]), float("nan"))
+    xk = fused_mlp._pad16(hdr["enc_dim"])
+    dk = fused_mlp._pad16(hdr["dirs_dim"])
     for r0 in range(0, n, rows):
-        put(0, 0, tile(enc, r0, bufs[0][2]))
+        put(0, 0, tile(enc, r0, xk))
         if hdr["dirs_dim"]:
-            put(1, 0, tile(dirs, r0, bufs[1][2]))
-        for (sa, wa, ka, sb, wb, kb, bo, nn, wld, mode, dst, col, n_real,
-             kr, *_) in ops:
+            put(1, 0, tile(dirs, r0, dk))
+        for (kind, sa, wa, ka, sb, wb, kb, nn, col, wld, kr, dst, bo, mode,
+             n_real, _) in ops:
+            assert kind == 0 and col % fused_mlp.FWD_MAX_N == 0
             assert nn <= fused_mlp.FWD_MAX_N and nn % 16 == 0
-            # a stage of kr weight rows fits one slot of the ring
-            assert kr % 16 == 0 and kr * (nn + fused_mlp.PAD) <= slot
-            acc = mm([buf(sa, p)[:, :ka] for p in range(planes)],
-                     block(wa, ka, nn, wld))
+            # a stage of kr weight rows (at most 64: four k-steps) fits a
+            # slot of the ring, with what a 64-row tile reads past it
+            shape = fused_mlp.OpShape(kind, ka, kb, wld, col, nn)
+            assert kr % 16 == 0 and 16 <= kr <= 64
+            assert fused_mlp._touch(shape, kr) <= slot
+            acc = mm(read(sa, ka), block(wa, ka, wld, col, nn))
             if kb:
-                acc = acc + mm([buf(sb, p)[:, :kb] for p in range(planes)],
-                               block(wb, kb, nn, wld))
+                acc = acc + mm(read(sb, kb), block(wb, kb, wld, col, nn))
             acc = acc + b[bo:bo + nn]
             if mode == 2:
                 m = min(rows, n - r0)
@@ -203,33 +225,33 @@ def _run_program(packed, pts, dirs):
     return out
 
 
-@pytest.mark.parametrize("arch, n", [
-    (dict(depth=6, width=64, use_viewdirs=True), 200),
-    (dict(depth=6, width=40, use_viewdirs=False), 200),   # padded to 48
-    (dict(depth=8, width=32, use_viewdirs=True), 200),
-    (dict(depth=6, width=64, use_viewdirs=True, hi_lo=True), 200),
-    (dict(depth=6, width=40, use_viewdirs=False, hi_lo=True), 200),
+@pytest.mark.parametrize("arch, n, rows", [
+    (dict(depth=6, width=64, use_viewdirs=True), 200, (128, 1)),
+    (dict(depth=6, width=40, use_viewdirs=False), 200, (128, 1)),  # pad 48
+    (dict(depth=8, width=32, use_viewdirs=True), 200, (128, 1)),
+    (dict(depth=6, width=64, use_viewdirs=True, hi_lo=True), 200, (64, 1)),
+    (dict(depth=6, width=40, use_viewdirs=False, hi_lo=True), 200, (64, 1)),
     # wider than one 256-column pass: trunk and bottleneck in two passes
-    (dict(depth=4, width=288, use_viewdirs=True), 200),
-    (dict(depth=4, width=288, use_viewdirs=True, hi_lo=True), 200),
-    (dict(depth=2, width=512, use_viewdirs=True), 150),   # 64-point tiles
-    # hi_lo past width 320: 32-point tiles, two planes, two passes a layer
-    (dict(depth=2, width=384, use_viewdirs=True, hi_lo=True), 200),
+    (dict(depth=4, width=288, use_viewdirs=True), 200, (128, 1)),
+    (dict(depth=4, width=288, use_viewdirs=True, hi_lo=True), 200, (64, 1)),
+    (dict(depth=2, width=512, use_viewdirs=True), 150, (64, 1)),
+    # hi_lo past width 256: 32-point tiles, two planes, two passes a layer
+    (dict(depth=2, width=384, use_viewdirs=True, hi_lo=True), 200, (32, 1)),
     # ragged: one row past two 128-point tiles
-    (dict(depth=6, width=64, use_viewdirs=True), 257),
-    # deeper than the old 48-layer bound; 16 wide, 64-point tiles in hi_lo
-    (dict(depth=54, width=64, use_viewdirs=True), 150),
-    (dict(depth=200, width=16, use_viewdirs=True, hi_lo=True), 100),
-    # the shallow wide nets: 32-point tiles (bf16 from width 784), 16-point
-    # ones (bf16 at depth 1 from 1616, hi_lo from 720), ragged in n
-    (dict(depth=2, width=1024, use_viewdirs=True), 40),
-    (dict(depth=1, width=1696, use_viewdirs=True), 40),
-    (dict(depth=1, width=1472, use_viewdirs=True, hi_lo=True), 40),
+    (dict(depth=6, width=64, use_viewdirs=True), 257, (128, 1)),
+    # deep; 16 wide, 64-point tiles in hi_lo
+    (dict(depth=54, width=64, use_viewdirs=True), 150, (128, 1)),
+    (dict(depth=200, width=16, use_viewdirs=True, hi_lo=True), 100, (64, 1)),
+    # the shallow wide nets: 32- and 16-point tiles, ragged in n
+    (dict(depth=2, width=1024, use_viewdirs=True), 40, (32, 1)),
+    (dict(depth=1, width=1696, use_viewdirs=True), 40, (16, 1)),
+    (dict(depth=1, width=1472, use_viewdirs=True, hi_lo=True), 40, (16, 1)),
 ])
-def test_packed_program_matches_plain(arch, n):
-    """The weight layout and program the kernel executes — tiles, column
-    passes, buffers, epilogues — compute the plain version's function
-    (padding adds exactly zero; rows past n are never written)."""
+def test_packed_program_matches_plain(arch, n, rows):
+    """The weight layout and program the kernel executes — tiles and their
+    clusters, column passes, buffers, epilogues — compute the plain
+    version's function (padding adds exactly zero; rows past n are never
+    written)."""
     arch = dict(arch)
     hi_lo = arch.pop("hi_lo", False)
     vdirs = arch["use_viewdirs"]
@@ -245,11 +267,7 @@ def test_packed_program_matches_plain(arch, n):
     layers = cfg.depth + (4 if vdirs else 1)
     assert hdr["n_ops"] == fused_mlp.forward_ops(net.cfg, vdirs) >= layers
     assert (hdr["n_ops"] == layers) is (cfg.width <= fused_mlp.FWD_MAX_N)
-    assert hdr["rows"] == ((16 if cfg.width >= 720 else 32 if cfg.width > 320
-                            else 64) if hi_lo else
-                           16 if cfg.width >= 1616 else
-                           32 if cfg.width >= 784 else
-                           64 if cfg.width > 288 else 128)
+    assert (hdr["rows"], hdr["cluster"]) == rows
     assert n % hdr["rows"]
     got = _run_program(packed, pts, dirs if vdirs else None)
     want = fused_mlp.fused_nerf_mlp_plain(net, pts, dirs if vdirs else None,
@@ -282,59 +300,98 @@ def test_architecture_mismatch_raises():
 
 
 def test_hopper_budget():
-    """The forward's shared memory per block: its program, the encoded
-    points and dirs, two ping-pong activation buffers and as many weight
-    stages (up to 4) as fit Hopper's 232,448 B."""
+    """The forward's shared memory per block: its program, the ring's
+    barriers and zero block, the encoded points and dirs (whole 64-column
+    swizzled atoms), one activation buffer written in place (two where a
+    layer takes more than one pass) and as many weight stages (up to 8) as
+    fit Hopper's 232,448 B."""
     mc = RenderConfig().model_config()
-    # 8x256 + view head: 128-point tiles, 32-row weight stages.
-    # 896 (program) + 18,432 (x) + 10,240 (dirs) + 2 x 67,584 + 4 x 16,896.
+    # 8x256 + view head: 128-point tiles, four stages of 64 rows.
+    # 896 (program) + 128 + 128 (barriers, zeros; atoms from 2,048) +
+    # 16,384 (x) + 16,384 (dirs) + 65,536 (in place) + 4 x 32,768.
     lay = fused_mlp._fwd_layout(mc, True, False)
-    assert (lay.rows, lay.ksub, lay.stages) == (128, 2, 4)
-    assert fused_mlp.smem_bytes(mc, True) == 232_320
+    assert (lay.rows, lay.cluster, lay.kr, lay.stages) == (128, 1, 64, 4)
+    assert fused_mlp.smem_bytes(mc, True) == 231_424 == (
+        2048 + 16384 + 16384 + 65536 + 4 * 32768)
     assert fused_mlp.kernel_fits(mc, True)
-    # Rows per stage: 32 for a 256-column layer, 48 for the 128-column view
-    # layer; the sigma (256 x 16) and rgb (128 x 16) heads in one stage.
-    assert [fused_mlp._stage_rows(lay, n, k) for n, k in (
-        (256, 256), (128, 256), (16, 256), (16, 128))] == [32, 48, 256, 128]
-    # hi_lo: 64-point tiles of two planes, 16-row stages of two planes.
+    # Rows per stage: 64 for the 256- and 128-column layers and for the
+    # sigma (256 x 16) and rgb (128 x 16) heads: a stage is at most four
+    # k-steps.
+    assert [fused_mlp.stage_rows(fused_mlp.OpShape(0, k, 0, wld, 0, n),
+                                 lay.slot) for k, wld, n in (
+        (256, 256, 256), (256, 128, 128), (256, 16, 16), (128, 16, 16))
+    ] == [64, 64, 64, 64]
+    # hi_lo: 64-point tiles of two planes, two stages of 64 rows.
     lay = fused_mlp._fwd_layout(mc, True, True)
-    assert (lay.rows, lay.ksub, lay.stages) == (64, 1, 4)
-    assert fused_mlp.smem_bytes(mc, True, hi_lo=True) == 232_320
+    assert (lay.rows, lay.cluster, lay.kr, lay.stages) == (64, 1, 64, 2)
+    assert fused_mlp.smem_bytes(mc, True, hi_lo=True) == 231_424
     assert fused_mlp.kernel_fits(mc, True, hi_lo=True)
-    # hi_lo past width 320: 32-point tiles, up to width 688; from 704,
-    # where two planes of the 32-point buffers leave room for one stage,
-    # 16-point tiles, up to 1456; at 1472 those leave room for one stage.
-    for width, rows, fits in ((384, 32, True), (576, 32, True),
-                              (688, 32, True), (704, 16, True),
-                              (1456, 16, True), (1472, 16, False)):
+    # Depth 8, by width (the largest tile that holds two stages): bf16
+    # 128-point tiles up to 320, 64 to 768, 32 to 1536, 16 to 3136; hi_lo
+    # 64 to 320, 32 to 704, 16 to 1408, each alone. Past those, no two
+    # stages fit.
+    for width, hi_lo, tile in ((320, False, (128, 1)), (336, False, (64, 1)),
+                               (768, False, (64, 1)), (784, False, (32, 1)),
+                               (1536, False, (32, 1)), (1552, False, (16, 1)),
+                               (3136, False, (16, 1)), (320, True, (64, 1)),
+                               (336, True, (32, 1)), (704, True, (32, 1)),
+                               (720, True, (16, 1)), (1408, True, (16, 1))):
         wide = RenderConfig(width=width).model_config()
-        assert fused_mlp._fwd_layout(wide, True, True).rows == rows
-        assert fused_mlp.kernel_fits(wide, True, hi_lo=True) is fits
-    assert ("the forward's buffers of 16-point tiles leave room for 1 "
-            "weight stage(s)") in fused_mlp.forward_misfit(
-        RenderConfig(width=1472).model_config(), True, hi_lo=True)
+        lay = fused_mlp._fwd_layout(wide, True, hi_lo)
+        assert (lay.rows, lay.cluster) == tile, (width, hi_lo)
+        assert fused_mlp.kernel_fits(wide, True, hi_lo=hi_lo)
+    for width, hi_lo in ((3152, False), (1424, True)):
+        wide = RenderConfig(width=width).model_config()
+        assert not fused_mlp.kernel_fits(wide, True, hi_lo=hi_lo)
+        assert fused_mlp.forward_misfit(wide, True, hi_lo).startswith(
+            "the forward's buffers of 16-point tiles leave room for 1")
     # Width 512: 64-point tiles, every layer in two 256-column passes.
     wide = RenderConfig(width=512).model_config()
     assert fused_mlp._fwd_layout(wide, True, False).rows == 64
     assert fused_mlp.forward_ops(wide, True) == 8 * 2 + 1 + 2 + 1 + 1
-    assert fused_mlp.kernel_fits(wide, True)
-    # Where two 64-point buffers leave no room for two stages (width 784
-    # on), 32-point tiles with 16-row stages; then 16-point ones, up to
-    # 3168 at depth 8.
-    lay = fused_mlp._fwd_layout(RenderConfig(width=1024).model_config(),
-                                True, False)
-    assert (lay.rows, lay.ksub, lay.stages) == (32, 1, 4)
-    assert fused_mlp.kernel_fits(RenderConfig(width=3168).model_config(),
-                                 True)
-    assert not fused_mlp.kernel_fits(
-        RenderConfig(width=3184).model_config(), True)
-    assert fused_mlp.forward_misfit(
-        RenderConfig(width=3184).model_config(), True).startswith(
-            "the forward's buffers of 16-point tiles")
     # Depth is bounded by the program's bytes alone (64 a layer): 48 layers
-    # and more fit; 866 (55,808 B of program) at 64-point tiles.
+    # and more fit; 866 (55,808 B of program) at 128-point tiles.
     for depth in (48, 866):
-        assert fused_mlp.kernel_fits(
-            RenderConfig(depth=depth).model_config(), True)
-    assert fused_mlp._fwd_layout(RenderConfig(depth=866).model_config(),
-                                 True, False).rows == 64
+        deep = RenderConfig(depth=depth).model_config()
+        assert fused_mlp.kernel_fits(deep, True)
+        assert fused_mlp._fwd_layout(deep, True, False).rows == 128
+
+
+@pytest.mark.parametrize("depth, width, hi_lo", [
+    (8, 256, False), (8, 256, True), (3, 200, False), (1, 1696, False),
+    (1, 1472, True), (2, 40, False)])
+def test_weight_image_unswizzles_to_every_block(depth, width, hi_lo):
+    """Every block of a packed net, read back from the strip image (the
+    128-byte swizzled atoms of whole 64-column strips, core matrices of a
+    narrower last one), is exactly the block of the net's weights: the
+    (in, out) transpose, zero padded, in bf16 (in hi_lo its (hi, lo)
+    pair). The image holds nothing else."""
+    cfg = RenderConfig(depth=depth, width=width)
+    from nerfmlp_torch.models.mlp import init_model
+
+    net = init_model(cfg.model_config(), seed=4, device="cpu")
+    packed = fused_mlp.pack_params(net, cfg.pos_enc_L, True, hi_lo)
+    params = dict(net.named_parameters())
+    planes = 2 if hi_lo else 1
+    w = packed.weights.float()
+    at = 0
+    for name, in0, k, n, _, kp, np_ in packed.grad_blocks:
+        blk = torch.zeros(kp, np_)
+        blk[:k, :n] = params[name].detach().float()[:, in0:in0 + k].t()
+        hi = blk.to(torch.bfloat16).float()
+        want = [hi, (blk - hi).to(torch.bfloat16).float()][:planes]
+        for plane in want:
+            got = fused_mlp.block_from_image(w[at:at + kp * np_], kp, np_)
+            assert torch.equal(got, plane), name
+            at += kp * np_
+    assert at == w.numel()
+
+
+@pytest.mark.parametrize("k, n", [(64, 256), (16, 16), (48, 208), (32, 1696)])
+def test_strip_image_round_trips(k, n):
+    """strip_image lays a block out once, every element in its own place,
+    and block_from_image reads it back exactly."""
+    blk = torch.arange(k * n, dtype=torch.float32).reshape(k, n)
+    img = fused_mlp.strip_image(blk)
+    assert sorted(img.tolist()) == list(range(k * n))
+    assert torch.equal(fused_mlp.block_from_image(img, k, n), blk)

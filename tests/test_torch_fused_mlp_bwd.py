@@ -13,6 +13,7 @@ tests/test_torch_fused_mlp_gpu.py and chip_smoke.py.
 
 import dataclasses
 import os
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -152,41 +153,23 @@ def test_two_calls_on_one_net_sum_their_grads():
                                    atol=1e-6)
 
 
-def _mask_bits(rows, word0, groups, nn):
-    """Where phase 1 keeps the ReLU bits of a column pass of nn columns at
-    tiles of ``rows`` points, as bit indices from the mask region's start,
-    (rows, nn): mlp_tile.cuh's WarpGrid gives row r and column c to warp
-    (row group, column group) and lane, as bit 4 nt + 2 hh + e of its word
-    for m16 tile mt, and the block of ``groups`` column groups from word
-    ``word0`` keeps that word at ((mt * row groups + row group) * groups +
-    column group) * 32 + lane (fused_mlp_bwd.cu's Field notes)."""
-    m16, wn, _, row_groups = fused_mlp._warp_grid(rows)
-    r = torch.arange(rows)[:, None]
-    c = torch.arange(nn)[None, :]
-    r16, ci = r % 16, c % wn
-    assert bool((c // wn < groups).all())
-    lane = (r16 % 8) * 4 + (ci % 8) // 2
-    word = word0 + ((((r % (16 * m16)) // 16) * row_groups + r // (16 * m16))
-                    * groups + c // wn) * 32 + lane
-    return word * (wn // 16) * 8 + 4 * (ci // 8) + 2 * (r16 // 8) + ci % 2
-
-
 def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
     """What the CUDA backward does with a packed net, step for step, in
     PyTorch: the call walked in chunks of at most ``chunk_rows`` points. In
     each chunk, phase 1 walks tiles of the program's ``rows`` points over
     the chunk's workspace rows (``ws_rows``: past n, zero points): the
-    program's shared-memory buffers (one flat array, so buffers laid over
-    each other share storage), its mask blocks (the bits at the places the
-    kernel's threads keep them, each block inside the mask region and
-    apart from the others), operations (each a pass of at most
+    program's shared-memory buffers (one flat array of whole 128-byte
+    swizzled atoms, ``act_index``, so buffers laid in one another's atoms
+    share storage), its mask blocks (each a pass's bits, inside the mask
+    region and apart from the others), operations (each a pass of at most
     ``BWD_MAX_N`` output columns from column ``col`` on, over the whole K
-    of its operands) and epilogues, the (hi, lo) planes and three products
-    in hi_lo mode, rows past n zero, each pass's columns copied into its
-    workspace matrix. The matrix and operation tables are read at the
-    header's bases. Then phase 2 runs every job over every split of the
-    chunk's rows into that chunk's partial slots, and the slots are summed
-    in (chunk, split) order."""
+    of its operands, its weights read back from the strip image, its ring
+    stage checked to fit a slot) and epilogues, the (hi, lo) planes and
+    three products in hi_lo mode, rows past n zero, each pass's columns
+    copied into its workspace matrix. The matrix and operation tables are
+    read at the header's bases. Then phase 2 runs every job over every
+    split of the chunk's rows into that chunk's partial slots, and the
+    slots are summed in (chunk, split) order."""
     prog = packed.bwd_program.tolist()
     hdr = dict(zip(fused_mlp._BWD_HEADER, prog))
     hi_lo = packed.hi_lo
@@ -204,32 +187,47 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
     jobs = np.asarray(prog[hdr["jobs_off"]:]).reshape(hdr["n_jobs"], 10)
     rows = hdr["rows"]
     assert rows == packed.bwd_rows and hdr["stages"] >= 2
+    assert hdr["cluster"] == packed.bwd_cluster == 1
     assert hdr["smem"] <= fused_mlp.SMEM_LIMIT
+    slot = hdr["slot"] // planes
     # phase 1 copies the whole program, or its header and buffer table,
-    # into shared memory ahead of the buffers
+    # into shared memory ahead of the ring's barriers, zero block and
+    # buffers (whole atoms at 1024-byte offsets)
     assert hdr["prog_len"] in (hdr["jobs_off"], fused_mlp.BWD_TABLES_BASE)
-    assert 4 * hdr["prog_len"] <= min(off for off, _, c in bufs if c)
-    # the mask blocks: each inside the region, none overlapping another
-    m16, wn, _, row_groups = fused_mlp._warp_grid(rows)
-    region = 8 * (hdr["ring_off"] - hdr["mask_off"])
-    blocks = sorted({(o[12], o[15]) for o in ops if o[12] >= 0})
-    ends = [w0 + 32 * row_groups * cg * m16 for w0, cg in blocks]
-    assert all(e <= w1 for e, (w1, _) in zip(ends, blocks[1:]))
-    assert not blocks or ends[-1] * (wn // 16) * 8 <= region
-    assert {(o[9], o[15]) for o in ops if o[9] >= 0} <= set(blocks)
+    assert 4 * hdr["prog_len"] <= hdr["bar_off"]
+    used = [(off, cols, c0) for off, cols, c0 in bufs if cols]
+    assert (hdr["bar_off"] + fused_mlp.MAX_STAGES * fused_mlp.BARRIER_BYTES
+            + fused_mlp.ZERO_BYTES <= min(off for off, _, _ in used))
+    assert all(off % 1024 == 0 and cols % 64 == 0 and c0 < cols
+               for off, cols, c0 in used)
+    assert all(off + rows * cols * 2 * planes <= hdr["mask_off"]
+               for off, cols, _ in used)
+    assert hdr["ring_off"] + hdr["stages"] * hdr["slot"] == hdr["smem"]
+    # the mask blocks: each a pass's entries, inside the region, none
+    # overlapping another
+    entry = fused_mlp.mask_entry_bytes(rows)
+    blocks = sorted({(o[14], o[7]) for o in ops if o[14] >= 0})
+    ends = [off + nn * 2 * entry for off, nn in blocks]
+    assert all(e <= b for e, (b, _) in zip(ends, blocks[1:]))
+    assert not blocks or hdr["mask_off"] + ends[-1] <= hdr["ring_off"]
+    assert {(o[13], o[7]) for o in ops if o[13] >= 0} <= set(blocks)
     bf = lambda t: t.to(torch.bfloat16).float()
     w = packed.weights.float()
     n = pts.shape[0]
     enc = positional_encoding(pts, hdr["n_freqs"])
-    smem = torch.zeros(hdr["smem"] // 2)   # bf16 slots, by element
+    smem = torch.zeros(hdr["mask_off"] // 2)   # bf16 slots, by element
 
-    def buf(b, plane=0):
-        off, ld, cols = bufs[b]
-        at = off // 2 + plane * rows * ld
-        return smem[at: at + rows * ld].view(rows, ld)[:, :cols]
+    def at(b, col, cols):   # element offsets of buffer b's columns col..
+        off, bcols, c0 = bufs[b]
+        assert c0 + col + cols <= bcols
+        return off // 2 + fused_mlp.act_index(rows, cols, c0 + col)
 
-    def block(off, k, nn, ld, lo):   # a (k, nn) weight slice's planes
-        return [w.as_strided((k, nn), (ld, 1), off + p * lo)
+    def buf(b, cols, col=0, plane=0):
+        return smem[at(b, col, cols) + plane * rows * bufs[b][1]]
+
+    def block(off, k, ld):   # a (k, ld) weight block's planes
+        return [fused_mlp.block_from_image(w[off + p * k * ld:
+                                             off + (p + 1) * k * ld], k, ld)
                 for p in range(planes)]
 
     def mm(a, b):   # planes @ planes: hi*hi (+ hi*lo + lo*hi)
@@ -237,10 +235,11 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
         return out + a[0] @ b[1] + a[1] @ b[0] if hi_lo else out
 
     def put(b, v, col=0):   # a value into buffer b's planes from column col
+        idx = at(b, col, v.shape[1])
         hi = bf(v)
-        buf(b, 0)[:, col:col + v.shape[1]] = hi
+        smem[idx] = hi
         if hi_lo:
-            buf(b, 1)[:, col:col + v.shape[1]] = bf(v - hi)
+            smem[idx + rows * bufs[b][1]] = bf(v - hi)
 
     def tile_of(t, r0):
         out = torch.zeros(rows, t.shape[1])
@@ -256,19 +255,19 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
 
         def mat(m, plane=0):
             col, cols = mats[m]
-            at = cap * (col + plane * cols)
-            return ws[at: at + cap * cols].view(cap, cols)
+            at_ = cap * (col + plane * cols)
+            return ws[at_: at_ + cap * cols].view(cap, cols)
 
         def save(b, m, r0, col=0, nn=None):   # columns of buffer b
             for plane in range(planes):
                 dst = mat(m, plane)
                 end = dst.shape[1] if nn is None else col + nn
-                dst[r0:r0 + rows, col:end] = buf(b, plane)[:, col:end]
+                dst[r0:r0 + rows, col:end] = buf(b, end - col, col, plane)
 
-        c_pts, c_g = pts[c0:c0 + r], g[c0:c0 + r]
+        c_g = g[c0:c0 + r]
         c_enc = enc[c0:c0 + r]
         c_dirs = None if dirs is None else dirs[c0:c0 + r]
-        masks = torch.zeros(region, dtype=torch.bool)
+        masks = {}
         r_pad = fused_mlp.ws_rows(r, rows)
         for r0 in range(0, r_pad, rows):
             put(hdr["x_buf"], tile_of(c_enc, r0))
@@ -276,8 +275,8 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
             if hdr["d_buf"] >= 0:
                 put(hdr["d_buf"], tile_of(c_dirs, r0))
                 save(hdr["d_buf"], hdr["d_mat"], r0)
-            for (kind, sa, wa, ka, sb, wb, kb, bias, nn, mask_in, dst, m,
-                 mask_out, col, wld, mask_cg) in ops:
+            for (kind, sa, wa, ka, sb, wb, kb, nn, col, wld, kr, dst, bias,
+                 mask_in, mask_out, m) in ops:
                 if kind == 2:   # the cotangent, split at gr_cols
                     gt = tile_of(c_g, r0)
                     put(hdr["gr_buf"], gt[:, :hdr["gr_cols"]])
@@ -287,12 +286,17 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
                         save(hdr["gs_buf"], hdr["gs_mat"], r0)
                     continue
                 assert 0 < nn <= fused_mlp.BWD_MAX_N and nn % 16 == 0
-                # a slab of 16 rows (forward) or nn rows (dX) fits a stage
-                assert 16 * (nn + fused_mlp.PAD) <= hdr["stage_elems"]
+                # a stage (forward: at most 64 weight rows; dX: a 64-column
+                # strip and a multiple of 64 of its rows) fits a slot, with
+                # what a 64-row tile reads past it
+                shape = fused_mlp.OpShape(kind, ka, kb, wld, col, nn)
+                assert kr % (16 if kind == 0 else 64) == 0
+                assert kind != 0 or kr <= 64
+                assert fused_mlp._touch(shape, kr) <= slot
                 acc = 0
                 for src, wo, k in ((sa, wa, ka), (sb, wb, kb)):
                     if k:
-                        a = [buf(src, p)[:, :k] for p in range(planes)]
+                        a = [buf(src, k, 0, p) for p in range(planes)]
                         # forward: columns col.. of the (k, wld) block;
                         # dX: rows col.. of the (wld, k) block, transposed;
                         # each copied in the memory order of the plain
@@ -301,21 +305,18 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
                         # path sums in the same order and a wide net's
                         # bf16 roundings agree (the kernels' own order is
                         # held on the card)
-                        wt = ([t.t().contiguous().t() for t in
-                               block(wo, k, nn, wld, k * wld)] if kind == 0
-                              else [t.t().contiguous() for t in
-                                    block(wo, nn, k, k, k * wld)])
+                        wt = ([t[:, col:col + nn].t().contiguous().t()
+                               for t in block(wo, k, wld)] if kind == 0
+                              else [t[col:col + nn].t().contiguous()
+                                    for t in block(wo, wld, k)])
                         acc = acc + mm(a, wt)
                 if kind == 0:
                     acc = acc + packed.biases[bias:bias + nn]
                     if mask_out >= 0:
                         acc = torch.relu(acc)
-                        at = _mask_bits(rows, mask_out, mask_cg, nn)
-                        assert len(at.unique()) == at.numel()
-                        masks[at] = acc > 0 if hi_lo else bf(acc) > 0
+                        masks[mask_out] = acc > 0 if hi_lo else bf(acc) > 0
                 elif mask_in >= 0:
-                    acc = torch.where(masks[_mask_bits(rows, mask_in, mask_cg,
-                                                       nn)], acc, 0.0)
+                    acc = torch.where(masks[mask_in], acc, 0.0)
                 put(dst, acc, col)
                 save(dst, m, r0, col, nn)
         # Phase 2 over the chunk's workspace rows.
@@ -403,14 +404,15 @@ def test_bwd_program_matches_plain(arch, n, chunk, min_split, monkeypatch):
     assert len(packed.ws_mats) == mats
     assert fused_mlp.backward_fits(net.cfg, vdirs, hi_lo)
     lay = fused_mlp._bwd_layout(net.cfg, vdirs, hi_lo)
-    if cfg.width >= lay.pass_cols:
-        # one whole pass's block per pass, numbered in order (256 columns:
-        # the layout of nets this wide before narrow passes were sized)
-        m16, wn, _, row_groups = fused_mlp._warp_grid(lay.rows)
-        groups = lay.pass_cols // wn
-        blocks = [b for slot in lay.masks for b in slot]
-        assert blocks == [(32 * row_groups * groups * m16 * k, groups)
-                          for k in range(len(blocks))]
+    # the mask blocks, one per pass of each ReLU layer, one after another,
+    # each the pass's bits at this tile
+    entry = fused_mlp.mask_entry_bytes(lay.rows)
+    sizes = [-(-min(256, fused_mlp._pad16(c) - c0) * 2 * entry // 16) * 16
+             for c in [cfg.width] * cfg.depth + ([net.cfg.view_width]
+                                                 if vdirs else [])
+             for c0 in range(0, fused_mlp._pad16(c), 256)]
+    assert [b for slot in lay.masks for b in slot] == [
+        sum(sizes[:i]) for i in range(len(sizes))]
     got = _run_bwd_program(packed, pts, dirs if vdirs else None, g, chunk)
     want = fused_mlp.fused_nerf_mlp_bwd_plain(
         net, pts, dirs if vdirs else None, g, cfg.pos_enc_L, hi_lo=hi_lo)
@@ -494,11 +496,11 @@ def test_cpu_backward_takes_the_plain_version():
 def test_backward_budget():
     """8x256 + view head: 10 recomputed layers, the cotangent's load and
     10 dX operations; 24 workspace matrices, 9,984 B per point (4,992 bf16
-    columns); phase 1's shared memory within Hopper's 227 KB with three
-    weight stages of 128-point tiles (two of 64-point tiles in hi_lo). A
+    columns); phase 1's shared memory within Hopper's 227 KB with five
+    weight stages of 128-point tiles (three of 64-point tiles in hi_lo). A
     layer wider than 256 columns takes one operation per column pass and
-    smaller tiles; a net too deep for the program table does not fit, and
-    says so."""
+    smaller tiles, in clusters; a net too deep for phase 1's masks does
+    not fit, and says so."""
     mc = RenderConfig().model_config()
     ops, mats = fused_mlp.backward_counts(mc, True)
     assert (ops, mats) == (10 + 1 + 10, 24)
@@ -507,28 +509,34 @@ def test_backward_budget():
     # 64 + 32 + 8 x 256 + 256 + 128 + 16 + 16 + 128 + 256 + 8 x 256.
     assert fused_mlp.bwd_scratch_bytes(mc, True) == 4992 * 2
     assert fused_mlp.bwd_scratch_bytes(mc, True, hi_lo=True) == 4992 * 4
-    for hi_lo, rows, stages in ((False, 128, 3), (True, 64, 2)):
+    for hi_lo, rows, stages in ((False, 128, 5), (True, 64, 3)):
         layout = fused_mlp._bwd_layout(mc, True, hi_lo)
-        assert (layout.rows, layout.stages) == (rows, stages)
+        assert (layout.rows, layout.cluster, layout.kr, layout.stages) == (
+            rows, 1, 32, stages)
         assert fused_mlp.bwd_smem_bytes(mc, True, hi_lo) <= fused_mlp.SMEM_LIMIT
     # 8x640: every layer in three passes (the view head's 320 in two);
-    # 24,576 B of workspace per point. 8x576 hi_lo: 44,288 B.
+    # 24,576 B of workspace per point, 32-point tiles.
+    # 8x576 hi_lo: 44,288 B, 16-point tiles.
     wide = RenderConfig(width=640).model_config()
     assert fused_mlp.backward_counts(wide, True) == (
         8 * 3 + 3 + 2 + 1 + 2 + 3 + 3 + 7 * 3, 24)
     assert fused_mlp.bwd_scratch_bytes(wide, True) == 24_576
-    assert fused_mlp._bwd_layout(wide, True, False).rows == 32
+    lay = fused_mlp._bwd_layout(wide, True, False)
+    assert (lay.rows, lay.cluster) == (32, 1)
     assert fused_mlp.backward_fits(wide, True)
     hi = RenderConfig(width=576).model_config()
     assert fused_mlp.bwd_scratch_bytes(hi, True, hi_lo=True) == 44_288
-    assert fused_mlp._bwd_layout(hi, True, True).rows == 32
+    lay = fused_mlp._bwd_layout(hi, True, True)
+    assert (lay.rows, lay.cluster) == (16, 1)
     assert fused_mlp.backward_fits(hi, True, hi_lo=True)
-    # Depth is bounded by phase 1's masks alone: 100x256 (205 operations,
-    # 208 matrices, past the old tables' 96 and 64) fits at 32-point tiles;
-    # 400x256's masks (401 blocks of 1 KB at 32 points) leave no room at
-    # any tile, down to the last tried, 16 points.
+    # Depth is bounded by phase 1's masks and tables: 100x256 (205
+    # operations, 208 matrices) fits at 32-point tiles; 400x256's masks
+    # (401 blocks of 1 KB at 16 points) leave no room at any tile, down to
+    # the last tried, 16 points.
     assert fused_mlp.backward_counts(RenderConfig(depth=100).model_config(),
                                      True) == (205, 208)
+    assert fused_mlp._bwd_layout(RenderConfig(depth=100).model_config(),
+                                 True, False).rows == 32
     assert uses_kernel(RenderConfig(depth=100, use_kernel=True,
                                     compute_dtype="bfloat16"), backward=True)
     deep = RenderConfig(depth=400).model_config()
@@ -540,35 +548,34 @@ def test_backward_budget():
                            backward=True)
     assert fused_mlp.backward_fits(RenderConfig(width=384).model_config(),
                                    True)
-    # Narrow layers take blocks of the warp columns they reach: at 866x16
-    # one 32-point tile's 16 columns (2 warps x 32 lanes x 16-bit words,
-    # 128 B) a layer; the tables (125 KB) stay in device memory.
+    # Narrow layers take mask blocks of their own columns: at 866x16 one
+    # 32-point tile's 16 columns (32 lanes x 2-byte entries, 64 B) a layer,
+    # the tables in shared memory beside them.
     lay = fused_mlp._bwd_layout(RenderConfig(depth=866, width=16)
                                 .model_config(), True, False)
-    assert (lay.rows, lay.prog_ints) == (32, fused_mlp.BWD_TABLES_BASE)
-    assert lay.ring_off - lay.mask_off == 867 * 128
+    assert (lay.rows, lay.cluster) == (32, 1)
+    assert lay.prog_ints > fused_mlp.BWD_TABLES_BASE
+    assert lay.masks[-1] == (866 * 64,)
 
 
-# (depth, width, hi_lo): the forward's (points per tile, k-steps a stage,
-# stages, bytes) and phase 1's (points per tile, columns a pass, tables in
-# shared memory, stages, bytes). The nets that fit before the shallow wide
-# nets were ported keep their layouts; those nets' own layouts (CLI
-# shapes).
+# (depth, width, hi_lo): the forward's (points a tile, CTAs a cluster, weight
+# rows a stage, stages, bytes) and phase 1's (points a tile, CTAs a cluster,
+# tables in shared memory, weight rows a stage, stages, bytes); CLI shapes.
 LAYOUTS = [
-    (8, 256, False, (128, 2, 4, 232_320), (128, 256, True, 3, 227_840)),
-    (8, 256, True, (64, 1, 4, 232_320), (64, 256, True, 2, 217_856)),
-    (8, 512, False, (64, 2, 4, 216_576), (64, 256, True, 4, 219_008)),
-    (8, 640, False, (64, 1, 4, 216_192), (32, 256, True, 4, 154_752)),
-    (8, 384, True, (32, 1, 4, 183_808), (32, 256, True, 4, 202_624)),
-    (32, 256, False, (128, 2, 3, 216_960), (64, 256, True, 4, 188_544)),
-    (866, 16, False, (128, 2, 4, 102_912), (32, 256, False, 4, 124_544)),
-    (1, 1696, False, (16, 1, 4, 147_840), (16, 256, True, 4, 154_752)),
-    (2, 1312, False, (32, 1, 4, 211_584), (32, 256, True, 4, 228_352)),
-    (5, 864, False, (32, 1, 4, 154_496), (32, 256, True, 4, 178_944)),
-    (2, 1024, False, (32, 1, 4, 174_208), (32, 256, True, 4, 185_472)),
-    (1, 1472, True, (16, 1, 2, 231_680), (16, 128, True, 3, 231_552)),
-    (3, 960, True, (16, 1, 4, 200_064), (16, 256, True, 4, 208_640)),
-    (5, 752, True, (16, 1, 4, 173_568), (16, 256, True, 4, 183_808)),
+    (8, 256, False, (128, 1, 64, 4, 231_424), (128, 1, True, 32, 5, 217_088)),
+    (8, 256, True, (64, 1, 64, 2, 231_424), (64, 1, True, 32, 3, 216_064)),
+    (8, 512, False, (64, 1, 64, 2, 215_040), (32, 1, True, 64, 4, 226_304)),
+    (8, 640, False, (64, 1, 32, 3, 232_448), (32, 1, True, 64, 3, 216_064)),
+    (8, 384, True, (32, 1, 32, 3, 215_040), (32, 1, True, 32, 3, 230_400)),
+    (32, 256, False, (128, 1, 64, 4, 232_448), (64, 1, True, 64, 3, 220_160)),
+    (866, 16, False, (128, 1, 64, 8, 130_048), (32, 1, True, 64, 8, 219_136)),
+    (1, 1696, False, (16, 1, 64, 3, 215_040), (16, 1, True, 64, 3, 221_184)),
+    (2, 1312, False, (32, 1, 32, 3, 231_424), (16, 1, True, 64, 4, 232_448)),
+    (5, 864, False, (32, 1, 64, 3, 224_256), (32, 1, True, 32, 5, 228_352)),
+    (2, 1024, False, (32, 1, 64, 2, 206_848), (32, 1, True, 32, 4, 218_112)),
+    (1, 1472, True, (16, 1, 16, 2, 231_424), (8, 1, False, 32, 3, 202_752)),
+    (3, 960, True, (16, 1, 32, 3, 231_424), (16, 1, True, 32, 2, 206_848)),
+    (5, 752, True, (16, 1, 32, 3, 206_848), (16, 1, True, 32, 3, 218_112)),
 ]
 
 
@@ -577,25 +584,26 @@ LAYOUTS = [
                          ids=[f"{d}x{w}{'-hi_lo' if h else ''}"
                               for d, w, h, _, _ in LAYOUTS])
 def test_layouts_pinned(depth, width, hi_lo, fwd, bwd):
-    """Each net's forward tile and phase-1 layout: the deep and depth-8
-    nets keep theirs; the shallow wide nets take 32- and 16-point forward
-    tiles, 16-point phase-1 tiles at depth 1 from bf16 1552 and hi_lo
-    passes of 128 columns at 1456-1472."""
+    """Each net's forward and phase-1 layout, as the measured rules pick
+    them (_fwd_pick, _bwd_pick): tiles of 128 to 16 points (and, for phase
+    1 at hi_lo 1x1424-1472, 8), each in a cluster of one CTA; rings of two
+    to eight stages."""
     mc = RenderConfig(depth=depth, width=width).model_config()
     f = fused_mlp._fwd_layout(mc, True, hi_lo)
     b = fused_mlp._bwd_layout(mc, True, hi_lo)
-    assert (f.rows, f.ksub, f.stages, f.smem) == fwd
-    assert (b.rows, b.pass_cols, b.prog_ints > fused_mlp.BWD_TABLES_BASE,
-            b.stages, b.smem) == bwd
+    assert (f.rows, f.cluster, f.kr, f.stages, f.smem) == fwd
+    assert (b.rows, b.cluster, b.prog_ints > fused_mlp.BWD_TABLES_BASE,
+            b.kr, b.stages, b.smem) == bwd
     assert fused_mlp.kernel_fits(mc, True, hi_lo)
     assert fused_mlp.backward_fits(mc, True, hi_lo)
 
 
 def test_every_layout_has_its_kernel():
     """Every tile the layouts try is a kernel the CUDA sources build and
-    dispatch: the forward's (mode, points, k-steps) and phase 1's (mode,
-    points, tables in shared memory); a layout with no kernel would only
-    fail on the card."""
+    dispatch: the forward's (mode, points) and phase 1's (mode, points,
+    tables in shared memory), each in a cluster of one CTA, and in a
+    multicast cluster of 64 / T CTAs the entry points take (the
+    ablation's); a layout with no kernel would only fail on the card."""
     csrc = os.path.join(os.path.dirname(fused_mlp.__file__), os.pardir,
                         "csrc")
     with open(os.path.join(csrc, "fused_mlp_fwd.cu")) as f:
@@ -603,31 +611,88 @@ def test_every_layout_has_its_kernel():
     with open(os.path.join(csrc, "fused_mlp_bwd.cu")) as f:
         bwd_src = f.read()
     name = lambda flag: "true" if flag else "false"
-    for hi_lo, groups in fused_mlp.FWD_TRIES.items():
-        for tiles, _ in groups:
-            for rows, ksub in tiles:
-                assert (f"  FWD({name(hi_lo)}, {rows}, {ksub})\n"
-                        in fwd_src), (hi_lo, rows, ksub)
+    for hi_lo, tries in fused_mlp.FWD_TRIES.items():
+        for rows, cluster in tries:
+            assert cluster == 1 and max(1, 64 // rows) in (1, 2, 4)
+            assert f"  FWD({name(hi_lo)}, {rows})\n" in fwd_src, (hi_lo, rows)
     for hi_lo, tries in fused_mlp.BWD_TRIES.items():
-        built = (fused_mlp.BWD_TILE_ROWS_HI_LO if hi_lo
-                 else fused_mlp.BWD_TILE_ROWS)
-        for rows, shared, _ in tries:
-            assert rows in built
-            assert shared or rows <= fused_mlp.BWD_DEVICE_TABLES_ROWS
+        built = (fused_mlp.TILE_ROWS_HI_LO if hi_lo
+                 else fused_mlp.TILE_ROWS)
+        for rows, cluster, shared in tries:
+            assert rows in built and cluster == 1
+            assert max(1, 64 // rows) in (1, 2, 4, 8)
             assert (f"  PHASE1({name(hi_lo)}, {rows}, {name(shared)})\n"
                     in bwd_src), (hi_lo, rows, shared)
 
 
+@pytest.mark.parametrize("n_scenes, tiles, cluster", [
+    (1, 1024, 1), (1, 4096, 2), (2, 13, 4), (3, 7, 8), (1, 1, 4),
+    (4, 10, 2)])
+def test_tile_groups_cover_every_tile(n_scenes, tiles, cluster):
+    """The kernels' walk (tile_groups): every tile of every scene in
+    exactly one group, each group within one scene, and only a scene's
+    last group padded, with empty tiles."""
+    groups = fused_mlp.tile_groups(n_scenes, tiles, cluster)
+    seen = [(scene, t) for scene, ts in groups for t in ts if t is not None]
+    assert sorted(seen) == [(s, t) for s in range(n_scenes)
+                            for t in range(tiles)]
+    for i, (scene, ts) in enumerate(groups):
+        assert len(ts) == cluster
+        last = i + 1 == len(groups) or groups[i + 1][0] != scene
+        assert all(t is not None for t in ts) or last
+        assert ts[0] is not None   # no group is all padding
+
+
+@pytest.mark.filterwarnings("ignore:netdepth=5")
+@pytest.mark.parametrize("depth, width", [
+    (8, 256), (8, 640), (866, 16), (2, 1024), (1, 1696), (1, 1472), (5, 752),
+    (3, 200)])
+def test_every_try_fits_shared_memory(depth, width):
+    """Every layout the tries give a net, at every stage size and in its
+    multicast cluster too, fits Hopper's shared memory wherever it holds a
+    stage; the one taken holds two at least; each operation's stage fits
+    a slot."""
+    mc = RenderConfig(depth=depth, width=width).model_config()
+    for hi_lo in (False, True):
+        for tries, layout, at in (
+                (fused_mlp.FWD_TRIES, fused_mlp._fwd_layout,
+                 fused_mlp._fwd_layout_at),
+                (fused_mlp.BWD_TRIES, fused_mlp._bwd_layout,
+                 fused_mlp._bwd_layout_at)):
+            chosen = layout(mc, True, hi_lo)
+            for entry in tries[hi_lo]:
+                with mock.patch.dict(tries, {hi_lo: (entry,)}):
+                    layout.cache_clear()
+                    lay = layout(mc, True, hi_lo)
+                assert lay.cluster == 1
+                for cluster in (1, max(1, 64 // entry[0])):
+                    for kr in fused_mlp.STAGE_ROWS:
+                        lay = at(mc, True, hi_lo, entry[0], cluster,
+                                 *entry[2:], kr)
+                        if lay.stages >= 1:
+                            assert lay.smem <= fused_mlp.SMEM_LIMIT, entry
+            layout.cache_clear()
+            shapes = (fused_mlp._fwd_shapes(mc, True)
+                      if layout is fused_mlp._fwd_layout
+                      else fused_mlp._bwd_shapes(mc, True))
+            if chosen.stages >= 2:
+                slot = chosen.slot // (2 if hi_lo else 1)
+                for op in shapes:
+                    if op.kind != fused_mlp._LOAD_G:
+                        rows = fused_mlp.stage_rows(op, slot)
+                        assert fused_mlp._touch(op, rows) <= slot
+
+
 @pytest.mark.parametrize("width, serve, train", [
     (256, True, True),
-    (384, True, True),     # column passes of phase 1's 256-column grid
+    (384, True, True),     # column passes of 256
     (512, True, True),
     (704, True, True),     # where the JAX gate stops at depth 8
     (768, True, True),
     (1024, True, True),    # 32-point forward tiles
-    (2960, True, True),    # 16-point tiles, both passes
-    (2976, True, False),   # past phase 1's 16-point tiles
-    (3264, False, False),  # past the forward's 16-point tiles
+    (2944, True, True),    # 16-point tiles, both passes
+    (2960, True, False),   # past phase 1's 16-point tiles
+    (3216, False, False),  # past the forward's 16-point tiles
 ])
 def test_kernel_gates_of_serving_and_training(width, serve, train):
     """A net goes to the forward kernel when it fits the forward's budget;

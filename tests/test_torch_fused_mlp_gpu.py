@@ -127,8 +127,9 @@ def test_backward_kernel_matches_plain_on_gpu(use_viewdirs, dtype, n, tol):
 
 @pytest.mark.cuda
 # Nets wider than one 256-column pass of phase 1: column passes, each with
-# its own mask block, at 64-point (8x512), 32-point (8x640, 8x384 hi_lo)
-# and 16-point (8x608 hi_lo) tiles. The bars and sizes of the 8x256 test.
+# its own mask block, at 32-point tiles (8x512, 8x640, 8x384 hi_lo) and
+# 16-point tiles (8x608 hi_lo). The bars
+# and sizes of the 8x256 test.
 @pytest.mark.parametrize("width, dtype, n, tol", [
     (512, "bfloat16", 1000, 1e-2),
     (640, "bfloat16", 1000, 1e-2),
