@@ -6,8 +6,8 @@
 Phases, each fatal on failure:
   1. build every CUDA kernel of the port from csrc/ (nvcc, in parallel);
      fail where ptxas serialized the wgmma of a kernel (note C7520) or
-     where an instantiation of the forward or phase 1 has no HGMMA or no
-     bulk copy in its SASS;
+     where an instantiation of the forward or of the backward's phase 1 or
+     phase 2 has no HGMMA or no bulk copy in its SASS;
   2. hold the fused MLP kernel against its plain PyTorch version at the
      serving path's shapes (8x256 + view head, 262,144 and 524,288 points
      from real rays of a serving pose), in hi_lo mode (fp32 'high') at the
@@ -25,7 +25,10 @@ Phases, each fatal on failure:
      reduction) against their plain versions at the flagship train step's
      shapes (1024 rays of a pose x 64 / 128 samples, a cotangent from a
      seeded MSE loss), each alone and the backward as a whole, and time
-     each; the backward also in hi_lo mode, beside the bf16 kernels as a
+     each (phase 2 beside its library sequence on the same workspace: one
+     bf16 torch.mm with an fp32 output a weight block, three in hi_lo, and
+     a column sum a bias); the backward also in hi_lo mode, beside the bf16
+     kernels as a
      control, and at the generic architecture; repeat runs must give the
      same bits;
   5. train the flagship recipe (8x256, batch 1024, 64+128 samples, bf16,
@@ -206,8 +209,8 @@ Phases, each fatal on failure:
      against one process's on the same global batch (loss rtol 1e-5, the
      gradient within 1e-5 of its largest element, parameters atol 5e-3),
      pts_linears.0's shard 128 rows, no kernel launched in the TP steps,
-     100 steps through the TP Trainer at 32 + 64 samples within 0.5 dB of
-     the one-process run's at 32 + 64, ms per step a rank beside the
+     100 steps through the TP Trainer at 16 + 32 samples within 0.5 dB of
+     the one-process run's at 16 + 32, ms per step a rank beside the
      one-process module path's; the turbo weights' 256^3 mesh dealt over
      two devices (two cards, or the card twice) against one device: the
      volume, vertices, faces and colours bit-equal, the forward launches
@@ -435,7 +438,11 @@ def slice_config():
 # waits for retired wgmma (WARPGROUP.DEPBAR: one an HGMMA where ptxas
 # serialized them), read from the built libraries by phase_build.
 SASS_KERNELS = {"fused_mlp_fwd": "fused_mlp_fwd_kernel",
-                "fused_mlp_bwd_phase1": "bwd_phase1_kernel"}
+                "fused_mlp_bwd_phase1": "bwd_phase1_kernel",
+                "fused_mlp_bwd_phase2": "bwd_phase2_kernel"}
+# ... and the key of each one's layout in fused_mlp.kernel_layouts.
+SASS_LAYOUT = {"fused_mlp_fwd": "fwd", "fused_mlp_bwd_phase1": "phase1",
+               "fused_mlp_bwd_phase2": "phase2"}
 SASS = {}
 
 
@@ -481,7 +488,7 @@ def phase_build():
     # Each redesigned kernel computes with wgmma and fills its ring with
     # bulk copies, in every instantiation, or the script fails.
     for key, function in SASS_KERNELS.items():
-        counts = sass_counts(paths[key.replace("_phase1", "")], function)
+        counts = sass_counts(paths[key.split("_phase")[0]], function)
         if not counts or min(min(c[:2]) for c in counts.values()) == 0:
             raise SystemExit(f"[build] {function}: an instantiation without "
                              f"wgmma or bulk copies in its SASS: {counts}")
@@ -497,9 +504,10 @@ def phase_build():
 
 
 def annotate(kernels):
-    """Each redesigned kernel's record (the forward and phase 1) with its
-    SASS counts and its layout: the record's own where its check gave one,
-    else the flagship 8x256 net's (bf16, or hi_lo where the name says)."""
+    """Each redesigned kernel's record (the forward and both phases of the
+    backward) with its SASS counts and its layout: the record's own where
+    its check gave one, else the flagship 8x256 net's (bf16, or hi_lo where
+    the name says)."""
     from nerfmlp_torch.models.mlp import init_model
     from nerfmlp_torch.ops import fused_mlp
 
@@ -517,8 +525,7 @@ def annotate(kernels):
                 net = init_model(cfg.model_config(), seed=SEED, device="cuda")
                 flagship[hi_lo] = fused_mlp.kernel_layouts(
                     fused_mlp.pack_params(net, cfg.pos_enc_L, True, hi_lo))
-            rec["layout"] = flagship[hi_lo][
-                "fwd" if key == "fused_mlp_fwd" else "phase1"]
+            rec["layout"] = flagship[hi_lo][SASS_LAYOUT[key]]
     return kernels
 
 
@@ -631,8 +638,8 @@ def phase_kernel(net):
         for hi_lo in (False, True):
             lay = _fwd_layout(mc, True, hi_lo)
             print(f"[kernel] 8x{c.width}{' hi_lo' if hi_lo else ''} budget: "
-                  f"{lay.rows}-point tiles in clusters of {lay.cluster}, "
-                  f"{lay.stages} weight stages of {lay.kr} rows, {lay.smem} B "
+                  f"{lay.rows}-point tiles, {lay.stages} weight stages of "
+                  f"{lay.kr} rows, {lay.smem} B "
                   f"shared memory, fits={kernel_fits(mc, True, hi_lo)}")
     recs = []
     for n_samples, label in ((cfg.N_samples, "coarse"),
@@ -902,6 +909,43 @@ def heads_forced(packed, ws, n):
     return torch.cat([rgb, sigma], -1)
 
 
+def p2_library_ms(packed, ws, rows, iters=10):
+    """Phase 2's library yardstick: the same function on the same
+    workspace as PyTorch calls, timed as one sequence: per weight block
+    and scene one bf16 torch.mm(A.t(), Y, out_dtype=torch.float32) (three
+    in hi_lo: hi*hi + lo*hi + hi*lo) and, where the block holds its layer's
+    bias, Y.float() summed over its rows (and planes). The row-major
+    matrices are read out of the workspace's strips before the timing; the
+    port never makes these calls."""
+    import torch
+
+    from nerfmlp_torch.ops import fused_mlp as fm
+
+    mats = {}
+    calls = []
+    for am, ym, _, _, db in fm._p2_blocks(packed):
+        for m in (am, ym):
+            if m not in mats:
+                mats[m] = fm.ws_matrix(packed, ws, m)
+        for sc in range(packed.n_scenes):
+            calls.append((mats[am][:, sc * rows:(sc + 1) * rows],
+                          mats[ym][:, sc * rows:(sc + 1) * rows], db >= 0))
+    f32 = torch.float32
+
+    def run():
+        for a, y, bias in calls:
+            torch.mm(a[0].t(), y[0], out_dtype=f32)
+            if packed.hi_lo:
+                torch.mm(a[1].t(), y[0], out_dtype=f32)
+                torch.mm(a[0].t(), y[1], out_dtype=f32)
+            if bias:
+                y.float().sum((0, 1))
+
+    ms = cuda_ms(run, iters=iters)
+    del mats, calls
+    return ms
+
+
 def check_phases(net, packed, pts, dirs, g, label, iters=10,
                  plain_iters=1, forced=False):
     """Each kernel of the backward alone, against its plain version on the
@@ -910,8 +954,9 @@ def check_phases(net, packed, pts, dirs, g, label, iters=10,
     the kernel's own operands, the end-to-end plain version's distance
     printed beside it), phase 2's partials on that workspace, the
     reduction of those partials (bit-identical; beside part.sum(0), the
-    library call for the same function). Returns {"phase1", "phase2",
-    "reduce"} records, each with its bound from this run's shapes."""
+    library call for the same function; phase 2 beside its library
+    sequence, p2_library_ms). Returns {"phase1", "phase2", "reduce"}
+    records, each with its bound from this run's shapes."""
     import torch
 
     from nerfmlp_torch.ops import fused_mlp as fm
@@ -944,7 +989,7 @@ def check_phases(net, packed, pts, dirs, g, label, iters=10,
                 err1 = max(err1, float((a - b).abs().max()))
                 worst = max(worst, (float((a - b).norm()
                                           / b.norm().clamp_min(1e-30)), name))
-    splits, split_rows = fm.bwd_splits(rows)
+    splits, split_rows = fm.bwd_splits(rows, packed.bwd_units)
     total = packed.grad_total
     part = torch.empty((splits, fm.part_stride(total)), device="cuda")
     fm.weight_grads(packed, ws, rows, split_rows, part)
@@ -969,7 +1014,9 @@ def check_phases(net, packed, pts, dirs, g, label, iters=10,
                        packed, ws, rows, split_rows, part), iters=iters),
                    "plain_ms": cuda_ms(lambda: fm.weight_grads_plain(
                        packed, ws, rows, split_rows), iters=plain_iters,
-                       warmup=warm)},
+                       warmup=warm),
+                   "library_ms": p2_library_ms(packed, ws, rows, iters),
+                   "layout": fm.kernel_layouts(packed)["phase2"]},
         "reduce": {"max_abs_err": err3,
                    "ms": cuda_ms(lambda: fm.reduce_partials(part, total),
                                  iters=iters),
@@ -1003,11 +1050,12 @@ def check_phases(net, packed, pts, dirs, g, label, iters=10,
              else "")
           + f") kernel {r1['ms']:.3f} ms plain {r1['plain_ms']:.3f} "
           f"ms bound {r1['bound_ms']:.3f} ms ({r1['bound_by']})")
-    print(f"[backward] {label} phase 2 (dW, db: {len(packed.bwd_jobs)} jobs x "
-          f"{splits} splits of {split_rows} rows): normalised "
+    print(f"[backward] {label} phase 2 (dW, db: {len(packed.bwd_units)} units "
+          f"x {splits} splits of {split_rows} rows): normalised "
           f"{norm2:.3e} (tol {PHASE2_TOL}) kernel {r2['ms']:.3f} ms plain "
-          f"{r2['plain_ms']:.3f} ms bound {r2['bound_ms']:.3f} ms "
-          f"({r2['bound_by']})")
+          f"{r2['plain_ms']:.3f} ms library {r2['library_ms']:.3f} ms "
+          f"bound {r2['bound_ms']:.3f} ms ({r2['bound_by']}; "
+          f"{100 * r2['bound_ms'] / r2['ms']:.0f}% of it)")
     print(f"[reduce] {label}: {splits} slots x {total} floats: max|err| "
           f"{err3:.3e} kernel {r3['ms']:.4f} ms plain {r3['plain_ms']:.4f} "
           f"ms part.sum(0) {r3['library_ms']:.4f} ms bound "
@@ -3104,7 +3152,7 @@ def check_stack(nets, cfg, n_samples, label, card, hi_lo=False,
                     b = t.to(torch.bfloat16).float()
                     rel1 = max(rel1, float((a - b).norm()
                                            / b.norm().clamp_min(1e-30)))
-    splits, split_rows = fm.bwd_splits(rows_s)
+    splits, split_rows = fm.bwd_splits(rows_s, stack.bwd_units)
     total = stack.grad_total
     part = torch.empty((scenes, splits, fm.part_stride(total)),
                        device="cuda")
@@ -3143,7 +3191,8 @@ def check_stack(nets, cfg, n_samples, label, card, hi_lo=False,
                                                     q) for p, w, q in
                                     zip(solos, ws1, part1)], iters=5),
         "plain_ms": cuda_ms(lambda: fm.weight_grads_plain(
-            stack, ws, rows_s, split_rows), iters=2, warmup=1)}
+            stack, ws, rows_s, split_rows), iters=2, warmup=1),
+        "library_ms": p2_library_ms(stack, ws, rows_s)}
     recs["reduce"] = {
         "max_abs_err": err3,
         "ms": cuda_ms(lambda: fm.reduce_partials(part, total), iters=10),
@@ -3170,12 +3219,12 @@ def check_stack(nets, cfg, n_samples, label, card, hi_lo=False,
           + f"); kernel {r1['ms']:.3f} ms, single-scene "
           f"{r1['solo_ms']:.3f} ms, plain {r1['plain_ms']:.3f} ms; bound "
           f"{r1['bound_ms']:.3f} ms ({r1['bound_by']}) [{card}]")
-    print(f"[{tag}] {label} phase 2 ({len(stack.bwd_jobs)} jobs x "
+    print(f"[{tag}] {label} phase 2 ({len(stack.bwd_units)} units x "
           f"{splits} splits x {scenes} scenes): bit-equal: {same2}; "
           f"normalised {norm2:.3e} (tol {PHASE2_TOL}); kernel "
           f"{r2['ms']:.3f} ms, single-scene {r2['solo_ms']:.3f} ms, plain "
-          f"{r2['plain_ms']:.3f} ms; bound {r2['bound_ms']:.3f} ms "
-          f"({r2['bound_by']}) [{card}]")
+          f"{r2['plain_ms']:.3f} ms, library {r2['library_ms']:.3f} ms; "
+          f"bound {r2['bound_ms']:.3f} ms ({r2['bound_by']}) [{card}]")
     print(f"[{tag}] {label} reduction ({scenes} x {splits} slots): "
           f"bit-equal: {same3}; max|err| vs plain {err3:.3e}; kernel "
           f"{r3['ms']:.4f} ms, single-scene {r3['solo_ms']:.4f} ms, plain "
@@ -4641,20 +4690,22 @@ TP_PSNR_GAP = 0.5         # held-out PSNR after PAR_STEPS steps, dB
 def tp_configs(near, far):
     """Phase 5's flagship recipe in fp32, PAR_STEPS steps: the module path
     (a TP step runs no kernel; the Trainer turns them off itself). The
-    first step is held at this recipe; the PAR_STEPS-step runs take half
-    its samples a ray (32 + 64), on both sides (``tp_run_config``)."""
+    first step is held at this recipe; the PAR_STEPS-step runs take a
+    quarter of its samples a ray (16 + 32), on both sides
+    (``tp_run_config``)."""
     rc, tc = par_configs(near, far)
     return dataclasses.replace(rc, compute_dtype="float32"), tc
 
 
 def tp_run_config(rc):
     """The recipe of phase 15's PAR_STEPS-step runs, TP and one process:
-    ``rc`` at half its samples a ray. Two gloo ranks sharing the card move
-    every activation through the host: 3,339 ms a TP step at 64 + 128 on
-    an H100 host where the whole script then took 1,339.3 s of its 1,200 s
-    limit (TP 393.7 s)."""
-    return dataclasses.replace(rc, N_samples=rc.N_samples // 2,
-                               N_importance=rc.N_importance // 2)
+    ``rc`` at a quarter of its samples a ray (16 + 32). Two gloo ranks
+    sharing the card move every activation through the host: 3,339 ms a
+    TP step at 64 + 128 on an H100 host where the whole script then took
+    1,339.3 s of its 1,200 s limit (TP 393.7 s), 1,804 ms at 32 + 64 on a
+    faster one (TP 227.6 s)."""
+    return dataclasses.replace(rc, N_samples=rc.N_samples // 4,
+                               N_importance=rc.N_importance // 4)
 
 
 def tp_rank(mesh, rc, tc, scene, save_dir, batch):
@@ -5584,6 +5635,10 @@ def main():
           f"{torch.__version__} CUDA {torch.version.cuda}")
     t_start = time.perf_counter()
     phase_build()
+    if sys.argv[1:] == ["--only", "build"]:
+        # The build and its SASS checks alone.
+        print(smi_line())
+        return 0
     if sys.argv[1:] == ["--only", "interchange"]:
         # Phase 12 alone, after the runs whose files it reads: phase 5's
         # train state and phase 6's turbo weights.
@@ -5878,6 +5933,17 @@ def main():
               f"{rec['ms']:.3f} ms ({rec['ms_no_spin']:.3f} ms without the "
               f"spin); bound {rec['bound_ms']:.3f} ms "
               f"({rec['bound_by']}), design floor {rec['floor_ms']:.3f} ms")
+    # The ordering rule's sum (ROADMAP Queue 2): launches x (ms - bound_ms)
+    # over the records, by kernel.
+    lost = {}
+    for rec in kernels:
+        kind = next((k for k in ("fused_mlp_fwd", "fused_mlp_bwd_phase1",
+                                "fused_mlp_bwd_phase2", "fused_mlp_bwd_reduce")
+                    if rec["name"].startswith(k)), rec["name"])
+        lost[kind] = lost.get(kind, 0.0) + rec["launches"] * (
+            rec["ms"] - rec["bound_ms"])
+    print("[chip_smoke] launches x (ms - bound ms) summed over the records: "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in lost.items()))
     print(f"[chip_smoke] the whole script took "
           f"{time.perf_counter() - t_start:.1f} s after the device check")
     print(json.dumps({"kernels": annotate(kernels)}))

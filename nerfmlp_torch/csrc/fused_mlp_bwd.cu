@@ -28,16 +28,15 @@
 // forward's core (mlp_tile.cuh): wgmma with the products transposed (the
 // layer's output features as M, the tile's points as N), weight stages
 // streamed by a producer warp through a ring of bulk copies behind full and
-// empty mbarriers (multicast over a cluster where the layout asks; the
-// layouts take one CTA, which measured as fast or faster). What bounded
-// the design before it (mma.sync from ldmatrix fragments, a block barrier
-// per 16-row stage, every weight restreamed per 16- or 32-point tile on
-// the wide nets) was latency and L2 traffic, at 6-57x the bound.
+// empty mbarriers. What bounded the design before it (mma.sync from
+// ldmatrix fragments, a block barrier per 16-row stage, every weight
+// restreamed per 16- or 32-point tile on the wide nets) was latency and L2
+// traffic, at 6-57x the bound.
 //   * dX reads the forward's weight image as it lies: the same bytes are
 //     W^T for the forward (M-major A) and W for dX (K-major A); a dX stage
 //     is one 64-column strip of the block and up to 256 of its rows (the
 //     pass's output features), so both walk the same image.
-//   * A persistent grid of clusters walks tile groups. The tile's input
+//   * A persistent grid walks the tiles, one CTA a tile. The tile's input
 //     and output activations live in shared memory (the encoded points and
 //     dirs, one buffer written in place where every layer is one pass,
 //     else two ping-pong buffers), the cotangent laid over the encoded
@@ -59,21 +58,64 @@
 //     through L1 per record). A template flag picks where they are.
 //   * The epilogue stores its accumulators with stmatrix into the
 //     destination buffer; each pass's columns are then copied, 16 B a
-//     thread, into a row-major (rows, width) workspace matrix.
+//     thread, into its workspace matrix, which lies in the strips phase 2
+//     reads (below).
 // Phase 2 (bwd_phase2_kernel). The TPU adds each tile's dW into one
 // accumulator over its sequential grid; on 132 parallel blocks that would
 // be a read-modify-write of a 2.4 MB partial slot per tile, ~4.6 GB per
-// call of 131,072 points.
-//   * dW_b = A_b^T dY_b is a product with the points as its long K: one
-//     block per 128 x 128 tile of one weight block and one split of the
-//     rows, accumulating in registers over its whole range of rows through
-//     a 3-stage cp.async ring of 64-row (rows x k) and (rows x n) tiles;
-//     A^T comes from ldmatrix.trans. The block writes one fp32 partial.
-//   * db is the column sum of the same dY tiles, in fp32, in the blocks
-//     that hold the first k-tile of a layer's first weight block.
-//   * Jobs are ordered largest weight block first, and the tiles of one
-//     weight block and split are neighbours, so blocks that share an
-//     operand run together and the second read comes from L2.
+// call of 131,072 points. Here dW_b = A_b^T Y_b is one long product with
+// the points as K, cut into splits of the rows, each writing one fp32
+// partial slot; the reduction sums the slots.
+//   * What bounds it: the workspace it reads (8x256: 1.31 GB at 131,072
+//     points, 0.39 ms at the card's memory rate, against 0.16 ms of bf16
+//     products; hi_lo reads twice the bytes for three times the
+//     products, and becomes operation-bound). The design before this one
+//     (mma.sync from ldmatrix.trans fragments, a block barrier per 64-row
+//     cp.async stage, one fixed 128 x 128 tile a block) ran at 12-50% of
+//     that bound: a 16-wide block left one warp of eight busy and moved 4
+//     KB a barrier, and a 256 x 256 block read A and Y twice each.
+//   * The workspace lies in the weights' strip layout (mlp_tile.cuh): each
+//     matrix of R rows (points) and C columns is strips of 64 columns,
+//     each R rows in 128-byte swizzled atoms of 8 rows, a last, narrower
+//     strip in 8 x 8 core matrices. So a stage of a strip is one
+//     contiguous bulk copy, and wgmma reads it as it lies: A (the
+//     activations) M-major, Y (the cotangent) N-major. No tensor map, no
+//     gather; only the addresses phase 1 writes to differ from a row-major
+//     matrix, not its values. Narrow matrices are not padded (866x16's
+//     bytes stay its own).
+//   * A work unit is 64 or 128 input features of a weight block (one or
+//     two A strips: M, one consumer warpgroup each) by up to 256 of its
+//     output features (N: whole strips of Y, or its narrow last strip), so
+//     a 256-wide Y strip is read once per 128 input features. Each
+//     consumer warpgroup holds its 64 x N fp32 tile in registers over the
+//     whole split: wgmma m64nNk16 with both operands transposed (the
+//     points as K), three into the same accumulators in hi_lo. A
+//     warpgroup without an A strip multiplies the zero block (the products
+//     a stage issues depend on the unit alone: note C7520).
+//   * A producer warp streams the unit's stages through a ring of bulk
+//     copies behind full and empty mbarriers; the consumers take no
+//     block-wide barrier. A stage is whole groups of rows (64 in bf16, 32
+//     in hi_lo: kGroupRows), as many as its bytes allow (the wrapper's
+//     rule, measured): a narrow unit takes hundreds of rows a stage, so
+//     that enough bytes are in flight; a wide one as few as leave the ring
+//     three or four stages deep. The consumers issue a group's k-steps as
+//     one straight-line block, one commit group a group.
+//   * A persistent grid walks the items (unit, split, scene) in order,
+//     units largest first; the units of one block and split are
+//     neighbours, so the CTAs that read the same Y rows run together and
+//     the second read comes from L2. The wrapper picks the splits so that
+//     each fp32 sum runs over at most 2,048 points (where 32 splits
+//     allow; 4,096 at 131,072 points), the items fill the
+//     card two to four times over and the CTAs' bytes balance.
+//   * db, an fp32 column sum of Y (in hi_lo of each stored (hi, lo) pair),
+//     is taken by the tensor cores, by the units that hold a layer's first
+//     input features: a unit of one A strip multiplies the ones block on
+//     its idle warpgroup instead of the zero block; a unit of two adds a
+//     product of its Y strips (as A) against ones (m64n8k16) a k-step. A
+//     loop over the stage in shared memory, on the consumers or on the
+//     producer warpgroup's spare warps, cost 40-60% at 8x256.
+//   * Every store of the epilogue is predicated in asm; no branch reads
+//     the accumulators.
 // Reduction (reduce_partials_kernel), bound by bytes: float4 loads, sixteen
 // slots in flight at a time, added in slot order, so the sum repeats bit
 // for bit and equals the plain sum. Nothing here uses atomics.
@@ -81,7 +123,7 @@
 // The network arrives as a program built by the Python wrapper
 // (nerfmlp_torch/ops/fused_mlp.py, pack_params): a header, a shared-memory
 // buffer table, a workspace matrix table, one record per phase-1 operation
-// (forward layer, dX, load of the cotangent) and phase 2's job list, each
+// (forward layer, dX, load of the cotangent) and phase 2's unit list, each
 // table sized by the net (any depth), at the bases the header gives. Every
 // width is padded to a multiple of 16 with zeros, so padding adds exactly
 // zero. Rows at or past n load a zero cotangent, so they contribute nothing.
@@ -91,12 +133,11 @@
 // architecture, scene s with its own weights and biases (at s times a
 // stride), its own n points, dirs and cotangent rows (scene-major, at s *
 // n), its own workspace rows and its own partial slots.
-//   * Phase 1 walks S * rows_s / T tiles in groups of a cluster's tiles,
-//     none straddling two scenes, rows_s = n rounded up to the tile and to
-//     phase 2's 64-row stage (scene_rows); tile t of scene s is workspace
-//     rows (s * rows_s / T + t) * T on. The producer keeps the scene of
-//     the group it streams for.
-//   * Phase 2's blocks are (job, split, scene): scene s's splits cover its
+//   * Phase 1 walks S * rows_s / T tiles, none straddling two scenes,
+//     rows_s = n rounded up to the tile and to 64 rows (scene_rows); tile
+//     t of scene s is workspace rows (s * rows_s / T + t) * T on. The
+//     producer keeps the scene of the tile it streams for.
+//   * Phase 2's items are (unit, split, scene): scene s's splits cover its
 //     rows_s rows only, and write slot block s of the partials.
 //   * The reduction sums each scene's slots (grid y: the scene) in the order
 //     it sums one scene's.
@@ -112,9 +153,8 @@ namespace {
 
 using namespace mlp_tile;
 
-constexpr int kThreads = 256;     // phase 2: 8 warps
-constexpr int kP2Threads = kThreads;
 constexpr int kP1Threads = mlp_tile::kThreads;
+constexpr int kP2Threads = mlp_tile::kThreads;
 constexpr int kHeaderInts = 32;
 constexpr int kMaxBufs = 8;       // shared-memory buffers: byte offset,
                                   // columns, first column (mlp_tile.cuh)
@@ -124,19 +164,28 @@ constexpr int kBufsBase = kHeaderInts;
 // operation table follow the buffer table, sized by the net: the header
 // holds their bases and counts.
 constexpr int kTablesBase = kBufsBase + 3 * kMaxBufs;
-constexpr int kTileK = 128;       // phase 2: dW rows per block
-constexpr int kTileN = 128;       // phase 2: dW columns per block
-constexpr int kStageRows = 64;    // phase 2: points per ring stage
-constexpr int kStages2 = 3;
-constexpr int kLd2 = kTileK + kPad;
-constexpr int kJobInts = 10;
+constexpr int kUnitK = 128;       // phase 2: input features of a unit, at most
+constexpr int kUnitN = 256;       // ... and output features
+constexpr int kStageRows = 64;    // workspace rows and phase 2's splits: a
+                                  // multiple of
+// Phase 2's stages are groups of rows (a group's products issued as one
+// straight-line block): 64 rows (four k-steps) in bf16, 32 (two) in hi_lo,
+// whose 128 x 256-feature units take 48 KB for 32 rows of two planes, so
+// that four stages fit.
+template <bool kHiLo>
+constexpr int kGroupRows = kHiLo ? 32 : 64;
+constexpr int kUnitInts = 12;
+// Phase 2: 64 bf16 ones, then 128 zero bytes (their lo plane), after the
+// ring's barriers and the zero block (mlp_tile.cuh's init_ring).
+constexpr int kOnesOff = 2 * kMaxStages * 8 + kZeroBytes;
 
 // Header fields.
 enum Header {
   hNOps = 0, hProgLen, hNFreqs, hEncDim, hDirsDim, hGCols, hGrCols,
   hXBuf, hDBuf, hGrBuf, hGsBuf, hXMat, hDMat, hGrMat, hGsMat,
-  hStages, hRingOff, hSlotBytes, hMaskOff, hSmem, hWsCols, hJobsOff,
-  hNJobs, hRows, hMatsBase, hOpsBase, hNMats, hCluster, hBarOff
+  hStages, hRingOff, hSlotBytes, hMaskOff, hSmem, hWsCols, hUnitsOff,
+  hNUnits, hRows, hMatsBase, hOpsBase, hNMats, hBarOff, hP2Stages, hP2Slot,
+  hP2RingOff, hP2Smem
 };
 
 // Operation record fields after mlp_tile.cuh's CoreField:
@@ -153,11 +202,14 @@ enum Header {
 // bit i for element i) at (32 v + l) entries.
 enum Field { fMaskIn = cBias + 1, fMaskOut, fMat };
 
-// Job record fields (phase 2): the tile [k0, k0 + kc) x [n0, n0 + nc) of
+// Unit record fields (phase 2): the part [k0, k0 + kc) x [n0, n0 + nc) of
 // the weight block whose gradient starts at `off` (row stride `ld`), from
-// workspace matrices A (activations) and Y (cotangent); `db`: the bias
-// gradient's offset when this job also sums Y's columns, else -1.
-enum JobField { jA = 0, jK0, jKc, jY, jN0, jNc, jOff, jLd, jDb };
+// workspace matrices A (activations, columns k0..) and Y (cotangent,
+// columns n0..): kc <= 128 (one or two A strips, the last maybe narrow),
+// nc <= 256 (whole Y strips, or one narrow last strip); `db`: the bias
+// gradient's offset when this unit also sums Y's columns, else -1; `sub`:
+// groups of rows (kGroupRows) a ring stage.
+enum UnitField { uA = 0, uK0, uKc, uY, uN0, uNc, uOff, uLd, uDb, uSub };
 
 // A value into a shared-memory buffer (byte address) and its workspace
 // matrix: bf16, or in hi_lo mode the pair (hi, lo) = (bf16(v), bf16(v -
@@ -176,8 +228,8 @@ __device__ __forceinline__ void put2(unsigned char* s, int s_plane, bf16* w,
 }
 
 // A scene's workspace rows: its n points rounded up to the tile of T
-// points and to phase 2's stage of kStageRows rows (smaller tiles fill the
-// rows up to a stage with points past n, which are zero).
+// points and to kStageRows rows (smaller tiles fill the rows up to 64 with
+// points past n, which are zero).
 __host__ __device__ inline int scene_rows(int n, int t) {
   const int step = t > kStageRows ? t : kStageRows;
   return (n + step - 1) / step * step;
@@ -189,6 +241,21 @@ template <> struct MaskWord<64> { using type = uint32_t; };
 template <> struct MaskWord<32> { using type = uint16_t; };
 template <> struct MaskWord<16> { using type = uint8_t; };
 template <> struct MaskWord<8> { using type = uint8_t; };
+
+// Element (r, c) of a workspace matrix of `cap` rows (a multiple of 64) and
+// `cols` columns, within one plane: the strip layout of mlp_tile.cuh
+// (strip c / 64 at cap * 64 * (c / 64); a whole strip in 128-byte swizzled
+// atoms of 8 rows, a narrower last strip in 8 x 8 core matrices).
+__device__ __forceinline__ long long ws_elem(long long r, int c,
+                                             long long cap, int cols) {
+  const int s = c >> 6, w = min(64, cols - 64 * s), cc = c & 63;
+  const int g = static_cast<int>(r & 7);
+  const long long in =
+      w == 64 ? ((r >> 3) << 9) + (g << 6) + ((((cc >> 3) ^ g) & 7) << 3) +
+                    (cc & 7)
+              : (((r >> 3) * (w >> 3) + (cc >> 3)) << 6) + (g << 3) + (cc & 7);
+  return cap * 64 * s + in;
+}
 
 // Phase 1 over tiles of T points, its matrix and operation tables in
 // shared memory (kSharedTables) or device memory.
@@ -213,11 +280,8 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
   const int stages = prog_in[hStages];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + prog_in[hBarOff]);
   uint64_t* empty = full + stages;
-  const int csize = static_cast<int>(cluster_size());
-  const int rank = static_cast<int>(cluster_rank());
-  if (threadIdx.x == 0) init_ring(full, empty, stages, csize);
+  if (threadIdx.x == 0) init_ring(full, empty, stages);
   __syncthreads();
-  cluster_sync();  // every CTA's barriers exist before any copy or arrive
 
   const int* tables = kSharedTables ? prog : prog_in;
   const int* bufs = prog + kBufsBase;
@@ -229,10 +293,7 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
   const int slot_bytes = prog[hSlotBytes];
   const int half = kHiLo ? slot_bytes / 2 : 0;
   const int tiles = scene_rows(n, T) / T;
-  const int groups = scene_groups(tiles, csize);
-  const int n_groups = n_scenes * groups;
-  const int cluster_id = static_cast<int>(blockIdx.x) / csize;
-  const int n_clusters = static_cast<int>(gridDim.x) / csize;
+  const int n_tiles = n_scenes * tiles;
   const int wg = threadIdx.x / 128;
   auto matp = [&](int m) {
     return ws + static_cast<long long>(mats[2 * m]) * rows_cap;
@@ -244,11 +305,8 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
   if (wg == 2) {
     regs_dec<kProducerRegs>();
     if (threadIdx.x < 256 + 32)
-      produce<kHiLo>(ops, kOpInts, n_ops, weights, w_stride, groups, n_groups,
-                     cluster_id, n_clusters, stages, ring, slot_bytes, half,
-                     full, empty, rank, csize == 8 ? 3 : csize == 4 ? 2
-                                                                    : csize - 1);
-    cluster_sync();  // no CTA leaves while the cluster may still reach it
+      produce<kHiLo>(ops, kOpInts, n_ops, weights, w_stride, tiles, n_tiles,
+                     stages, ring, slot_bytes, half, full, empty);
     return;
   }
   regs_inc<kConsumerRegs>();
@@ -256,58 +314,57 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
   const uint32_t base = smem_u32(smem);
   float acc0[Core::kAcc], acc1[Core::kAcc];
   Ring pos;
-  for (int g_i = cluster_id; g_i < n_groups; g_i += n_clusters) {
+  for (int g_i = blockIdx.x; g_i < n_tiles; g_i += gridDim.x) {
     // The tile's scene, its first point within the scene (p0), its
     // workspace rows (row0 on) and the scene's points, dirs, cotangent
     // rows and biases.
-    const int scene = g_i / groups;
-    const int tile = (g_i - scene * groups) * csize + rank;
-    const bool live = tile < tiles;
-    const int p0 = tile * T;
-    const int row0 = (scene * tiles + tile) * T;
+    const int scene = g_i / tiles;
+    const int p0 = (g_i - scene * tiles) * T;
+    const int row0 = g_i * T;
     const long long sbase = static_cast<long long>(scene) * n;
     const float* pts_s = pts + 3 * sbase;
     const float* bias_s = biases + static_cast<long long>(scene) * b_stride;
 
-    if (live) {
-      // Encoded points (mlp_tile.cuh's encode_pair, as the forward).
-      const int xb = prog[hXBuf], xm = prog[hXMat];
-      const int xc = mcols(xm), enc_dim = prog[hEncDim];
-      const int x_plane = 2 * T * bufs[3 * xb + 1];
-      unsigned char* xs = smem + bufs[3 * xb];
-      bf16* xw = matp(xm) + static_cast<long long>(row0) * xc;
-      for (int idx = tid; idx < T * xc; idx += kConsumers) {
-        const int r = idx / xc, j = idx - r * xc, gr = p0 + r;
-        float v0 = 0.f, v1 = 0.f;
-        const int got =
-            (gr < n && j < enc_dim) ? encode_pair(pts_s, gr, j, &v0, &v1) : 1;
-        if (got)
-          put2<kHiLo>(xs + act_byte<T>(r, j), x_plane, xw + idx,
-                      rows_cap * xc, v0);
-        if (got == 2)
-          put2<kHiLo>(xs + act_byte<T>(r, j + 3), x_plane, xw + idx + 3,
-                      rows_cap * xc, v1);
-      }
-      // Encoded view directions: bf16, or fp32 in hi_lo mode.
-      if (prog[hDBuf] >= 0) {
-        const int db = prog[hDBuf], dm = prog[hDMat];
-        const int dc = mcols(dm), dirs_dim = prog[hDirsDim];
-        unsigned char* ds = smem + bufs[3 * db];
-        bf16* dw = matp(dm) + static_cast<long long>(row0) * dc;
-        for (int idx = tid; idx < T * dc; idx += kConsumers) {
-          const int r = idx / dc, j = idx - r * dc, gr = p0 + r;
-          float v = 0.f;
-          if (gr < n && j < dirs_dim) {
-            const long long at = (sbase + gr) * dirs_dim + j;
-            v = kHiLo ? static_cast<const float*>(dirs)[at]
-                      : __bfloat162float(static_cast<const bf16*>(dirs)[at]);
-          }
-          put2<kHiLo>(ds + act_byte<T>(r, j), 2 * T * bufs[3 * db + 1],
-                      dw + idx, rows_cap * dc, v);
-        }
-      }
-      fence_proxy_async();
+    // Encoded points (mlp_tile.cuh's encode_pair, as the forward).
+    const int xb = prog[hXBuf], xm = prog[hXMat];
+    const int xc = mcols(xm), enc_dim = prog[hEncDim];
+    const int x_plane = 2 * T * bufs[3 * xb + 1];
+    unsigned char* xs = smem + bufs[3 * xb];
+    bf16* xw = matp(xm);
+    for (int idx = tid; idx < T * xc; idx += kConsumers) {
+      const int r = idx / xc, j = idx - r * xc, gr = p0 + r;
+      float v0 = 0.f, v1 = 0.f;
+      const int got =
+          (gr < n && j < enc_dim) ? encode_pair(pts_s, gr, j, &v0, &v1) : 1;
+      if (got)
+        put2<kHiLo>(xs + act_byte<T>(r, j), x_plane,
+                    xw + ws_elem(row0 + r, j, rows_cap, xc), rows_cap * xc,
+                    v0);
+      if (got == 2)
+        put2<kHiLo>(xs + act_byte<T>(r, j + 3), x_plane,
+                    xw + ws_elem(row0 + r, j + 3, rows_cap, xc),
+                    rows_cap * xc, v1);
     }
+    // Encoded view directions: bf16, or fp32 in hi_lo mode.
+    if (prog[hDBuf] >= 0) {
+      const int db = prog[hDBuf], dm = prog[hDMat];
+      const int dc = mcols(dm), dirs_dim = prog[hDirsDim];
+      unsigned char* ds = smem + bufs[3 * db];
+      bf16* dw = matp(dm);
+      for (int idx = tid; idx < T * dc; idx += kConsumers) {
+        const int r = idx / dc, j = idx - r * dc, gr = p0 + r;
+        float v = 0.f;
+        if (gr < n && j < dirs_dim) {
+          const long long at = (sbase + gr) * dirs_dim + j;
+          v = kHiLo ? static_cast<const float*>(dirs)[at]
+                    : __bfloat162float(static_cast<const bf16*>(dirs)[at]);
+        }
+        put2<kHiLo>(ds + act_byte<T>(r, j), 2 * T * bufs[3 * db + 1],
+                    dw + ws_elem(row0 + r, j, rows_cap, dc), rows_cap * dc,
+                    v);
+      }
+    }
+    fence_proxy_async();
     named_sync(kConsumerBar, kConsumers);
 
     for (int oi = 0; oi < n_ops; ++oi) {
@@ -319,46 +376,44 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
         // GS (sigma). Rows at or past n are zero. The buffers lie in the
         // encoded points' atoms, which no later operation of the tile
         // reads.
-        if (live) {
-          const int g_cols = prog[hGCols], gr_cols = prog[hGrCols];
-          for (int which = 0; which < 2; ++which) {
-            const int b = which ? prog[hGsBuf] : prog[hGrBuf];
-            if (b < 0) continue;
-            const int m = which ? prog[hGsMat] : prog[hGrMat];
-            const int mc = mcols(m), cb = bufs[3 * b + 2];
-            const int c0 = which ? gr_cols : 0;
-            const int cn = which ? g_cols - gr_cols : gr_cols;
-            unsigned char* gs = smem + bufs[3 * b];
-            bf16* gw = matp(m) + static_cast<long long>(row0) * mc;
-            // The same trips on every thread, the tail predicated: this
-            // loop lies in the operation loop.
-            for (int i0 = 0; i0 < T * mc; i0 += kConsumers) {
-              const int idx = min(i0 + tid, T * mc - 1);
-              const bool in = i0 + tid < T * mc;
-              const int r = idx / mc, j = idx - r * mc, gr = p0 + r;
-              const float v =
-                  g[(sbase + min(gr, n - 1)) * g_cols + c0 + min(j, cn - 1)];
-              const float x = gr < n && j < cn ? v : 0.f;
-              const bf16 h = __float2bfloat16(x);
-              unsigned char* at = gs + act_byte<T>(r, cb + j);
-              st_shared_if(at, h, in);
-              st_global_if(gw + idx, h, in);
-              if (kHiLo) {
-                const bf16 l = __float2bfloat16(x - __bfloat162float(h));
-                st_shared_if(at + 2 * T * bufs[3 * b + 1], l, in);
-                st_global_if(gw + idx + rows_cap * mc, l, in);
-              }
+        const int g_cols = prog[hGCols], gr_cols = prog[hGrCols];
+        for (int which = 0; which < 2; ++which) {
+          const int b = which ? prog[hGsBuf] : prog[hGrBuf];
+          if (b < 0) continue;
+          const int m = which ? prog[hGsMat] : prog[hGrMat];
+          const int mc = mcols(m), cb = bufs[3 * b + 2];
+          const int c0 = which ? gr_cols : 0;
+          const int cn = which ? g_cols - gr_cols : gr_cols;
+          unsigned char* gs = smem + bufs[3 * b];
+          bf16* gw = matp(m);
+          // The same trips on every thread, the tail predicated: this
+          // loop lies in the operation loop.
+          for (int i0 = 0; i0 < T * mc; i0 += kConsumers) {
+            const int idx = min(i0 + tid, T * mc - 1);
+            const bool in = i0 + tid < T * mc;
+            const int r = idx / mc, j = idx - r * mc, gr = p0 + r;
+            const float v =
+                g[(sbase + min(gr, n - 1)) * g_cols + c0 + min(j, cn - 1)];
+            const float x = gr < n && j < cn ? v : 0.f;
+            const bf16 h = __float2bfloat16(x);
+            unsigned char* at = gs + act_byte<T>(r, cb + j);
+            bf16* wat = gw + ws_elem(row0 + r, j, rows_cap, mc);
+            st_shared_if(at, h, in);
+            st_global_if(wat, h, in);
+            if (kHiLo) {
+              const bf16 l = __float2bfloat16(x - __bfloat162float(h));
+              st_shared_if(at + 2 * T * bufs[3 * b + 1], l, in);
+              st_global_if(wat + rows_cap * mc, l, in);
             }
           }
-          fence_proxy_async();
         }
+        fence_proxy_async();
         named_sync(kConsumerBar, kConsumers);
         continue;
       }
       Core::op(o, pos, stages, ring, slot_bytes, half, full, empty, bufs,
-               base, smem_u32(full + 2 * kMaxStages), wg, tid & 127, csize,
-               live, acc0, acc1);
-      if (!live) continue;
+               base, smem_u32(full + 2 * kMaxStages), wg, tid & 127, acc0,
+               acc1);
       const int dst = o[cDst], nn = o[cN], col0 = o[cCol];
       if (dst == o[cSrcA] || (o[cKB] && dst == o[cSrcB]))
         named_sync(kConsumerBar, kConsumers);  // in place: all reads done
@@ -412,17 +467,18 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
       fence_proxy_async();
       named_sync(kConsumerBar, kConsumers);
 
-      // The pass's columns, 16 B a thread, into its workspace matrix (a
-      // loop of the same trips on every thread, its tail predicated).
+      // The pass's columns, 16 B (8 columns of a row: one chunk of its
+      // strip) a thread, into its workspace matrix (a loop of the same
+      // trips on every thread, its tail predicated).
       const int m = o[fMat];
       if (m >= 0) {
         const int cols = mcols(m), chunks = nn >> 3, all = T * chunks;
-        bf16* w = matp(m) + static_cast<long long>(row0) * cols + col0;
+        bf16* w = matp(m);
         for (int c0 = 0; c0 < all; c0 += kConsumers) {
           const int c = min(c0 + tid, all - 1);
           const int r = c / chunks, cc = c - r * chunks;
           const unsigned char* s = d + act_byte<T>(r, dcol + 8 * cc);
-          const long long at = static_cast<long long>(r) * cols + cc * 8;
+          const long long at = ws_elem(row0 + r, col0 + 8 * cc, rows_cap, cols);
           copy16_if(w + at, s, c0 + tid < all);
           if (kHiLo) copy16_if(w + rows_cap * cols + at, s + d_plane,
                                c0 + tid < all);
@@ -430,161 +486,323 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
       }
     }
   }
-  cluster_sync();  // no CTA leaves while the cluster may still reach it
 }
 
-// dW and db partials of one job, one split of the rows and one scene.
+// Phase 2: the products of one group of a stage (kGroupRows: four
+// straight-line k-steps in bf16, two in hi_lo), for a unit N output
+// features wide: acc (its first N / 2) += A^T Y, three products in hi_lo
+// (hi*hi + lo*hi + hi*lo). a, b: the group's
+// first k-step's descriptors; a_step, b_step: a k-step's advance; a_lo,
+// b_lo: the lo planes' offsets (all in 16-byte units). With kBias, also
+// the bias: bias[u] (64 x 8) += Y_u^T ones for this warpgroup's Y strips
+// u (their descriptors y[u], advancing y_step[u], lo planes y_lo[u]; a
+// strip the unit lacks reads the zero block; the second only where N
+// passes 128), every column of bias[u] the column sums of the strip's 64
+// features (hi + lo in hi_lo).
+template <bool kHiLo, int N, bool kBias>
+__device__ __forceinline__ void p2_group(
+    float (&acc)[2 * kUnitN / 4], uint64_t a, uint32_t a_step, uint64_t b,
+    uint32_t b_step, uint32_t a_lo, uint32_t b_lo, float (&bias0)[4],
+    float (&bias1)[4], const uint64_t (&y)[2], const uint32_t (&y_step)[2],
+    const uint32_t (&y_lo)[2], uint64_t ones) {
+  float(&d)[N / 2] = *reinterpret_cast<float(*)[N / 2]>(&acc[0]);
+#pragma unroll
+  for (int q = 0; q < kGroupRows<kHiLo> / 16; ++q) {
+    const uint64_t aq = a + q * a_step, bq = b + q * b_step;
+    Wgmma<N>::template mma<1, 1>(d, aq, bq, 1);
+    if (kHiLo) {
+      Wgmma<N>::template mma<1, 1>(d, aq + a_lo, bq, 1);
+      Wgmma<N>::template mma<1, 1>(d, aq, bq + b_lo, 1);
+    }
+    if (kBias) {
+      const uint64_t y0 = y[0] + q * y_step[0], y1 = y[1] + q * y_step[1];
+      Wgmma<8>::template mma<1, 0>(bias0, y0, ones, 1);
+      if (N > 128) Wgmma<8>::template mma<1, 0>(bias1, y1, ones, 1);
+      if (kHiLo) {
+        Wgmma<8>::template mma<1, 0>(bias0, y0 + y_lo[0], ones, 1);
+        if (N > 128)
+          Wgmma<8>::template mma<1, 0>(bias1, y1 + y_lo[1], ones, 1);
+      }
+    }
+  }
+}
+
+// The group's products for a unit nc columns wide: whole Y strips (64,
+// 128, 192, 256) or one narrow strip (16, 32, 48), with or without the
+// bias. A switch on the unit, each case straight-line (ptxas serializes
+// the wgmma of a path it cannot prove warpgroup-uniform; the unit is the
+// same for the whole block).
 template <bool kHiLo>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void p2_products(
+    int nc, bool bias, float (&acc)[2 * kUnitN / 4], uint64_t a,
+    uint32_t a_step, uint64_t b, uint32_t b_step, uint32_t a_lo,
+    uint32_t b_lo, float (&bias0)[4], float (&bias1)[4],
+    const uint64_t (&y)[2], const uint32_t (&y_step)[2],
+    const uint32_t (&y_lo)[2], uint64_t ones) {
+#define P2_GROUP(N)                                                          \
+  case N:                                                                    \
+    if (bias)                                                                \
+      p2_group<kHiLo, N, true>(acc, a, a_step, b, b_step, a_lo, b_lo, bias0, \
+                               bias1, y, y_step, y_lo, ones);                \
+    else                                                                     \
+      p2_group<kHiLo, N, false>(acc, a, a_step, b, b_step, a_lo, b_lo,       \
+                                bias0, bias1, y, y_step, y_lo, ones);        \
+    break;
+  switch (nc) {
+    P2_GROUP(16) P2_GROUP(32) P2_GROUP(48) P2_GROUP(64) P2_GROUP(128)
+    P2_GROUP(192) P2_GROUP(256)
+    default:
+      break;
+  }
+#undef P2_GROUP
+}
+
+// Work item i of phase 2: unit i % n_units, then the split, then the
+// scene. Returns the unit's record; its rows [r0, r1) of the workspace.
+__device__ __forceinline__ const int* p2_item(const int* units, int n_units,
+                                              long long i, int rows,
+                                              int splits, int split_rows,
+                                              int* split, int* scene,
+                                              long long* r0, long long* r1) {
+  const long long rest = i / n_units;
+  *split = static_cast<int>(rest % splits);
+  *scene = static_cast<int>(rest / splits);
+  const long long r_end = static_cast<long long>(*scene + 1) * rows;
+  *r0 = r_end - rows + static_cast<long long>(*split) * split_rows;
+  *r1 = min(r_end, *r0 + split_rows);
+  return units + (i - rest * n_units) * kUnitInts;
+}
+
+// Phase 2's producer warp: every item's stages, item after item of this
+// CTA. Lane 0 waits for the slot and arms its full barrier with the
+// stage's bytes; lane c + 8 plane copies piece c of that plane: A strip c
+// (c < the unit's A strips), else Y strip c - A strips. A stage's plane:
+// A strip 0, A strip 1, then Y's strips, each rr rows of its columns.
+template <bool kHiLo>
+__device__ __forceinline__ void p2_produce(
+    const bf16* ws, long long cap, const int* mats, const int* units,
+    int n_units, int rows, int splits, int split_rows, long long items,
+    int stages, unsigned char* ring, int slot_bytes, int half,
+    uint64_t* full, uint64_t* empty) {
+  const int lane = threadIdx.x & 31;
+  const int c = lane & 7, plane = lane >> 3;
+  Ring pos;
+#pragma unroll 1
+  for (long long i = blockIdx.x; i < items; i += gridDim.x) {
+    int split, scene;
+    long long r0, r1;
+    const int* u = p2_item(units, n_units, i, rows, splits, split_rows,
+                           &split, &scene, &r0, &r1);
+    const int kc = u[uKc], nc = u[uNc];
+    const int rows_a = kGroupRows<kHiLo> * u[uSub];
+    const int w0 = min(64, kc), w1 = kc - w0, a_strips = w1 > 0 ? 2 : 1;
+    const bool is_a = c < a_strips;
+    const bool on = plane < (kHiLo ? 2 : 1) &&
+                    c < a_strips + ((nc + 63) >> 6);
+    const int m = is_a ? u[uA] : u[uY];
+    const int cols = mats[2 * m + 1];
+    const int w = is_a ? (c ? w1 : w0) : min(64, nc);
+    const int strip = is_a ? (u[uK0] >> 6) + c : (u[uN0] >> 6) + c - a_strips;
+    const bf16* src = ws + cap * (mats[2 * m] + plane * cols) + cap * 64 * strip;
+#pragma unroll 1
+    for (long long r = r0; r < r1; r += rows_a) {
+      const int rr = static_cast<int>(min(static_cast<long long>(rows_a),
+                                          r1 - r));
+      if (lane == 0) {
+        mbar_wait(&empty[pos.slot], pos.phase ^ 1);
+        mbar_expect_tx(&full[pos.slot], rr * (kc + nc) * 2 * (kHiLo ? 2 : 1));
+      }
+      __syncwarp();
+      if (on) {
+        const int at = is_a ? (c ? rr * w0 * 2 : 0)
+                            : rr * kc * 2 + (c - a_strips) * rr * 128;
+        bulk_load(ring + pos.slot * slot_bytes + plane * half + at,
+                  src + r * w, rr * w * 2, &full[pos.slot]);
+      }
+      pos.next(stages);
+    }
+  }
+}
+
+__device__ __forceinline__ void st_global_v2_if(float* p, float a, float b,
+                                                bool pred) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.b32 q, %3, 0;\n"
+      "@q st.global.v2.f32 [%0], {%1, %2};\n}\n" ::"l"(p),
+      "f"(a), "f"(b), "r"(static_cast<int>(pred))
+      : "memory");
+}
+
+// Phase 2 over n_scenes scenes: each item (unit, split, scene) writes the
+// unit's part of the split's partial slot, and its bias columns where the
+// unit sums them. The program's header gives the ring.
+template <bool kHiLo>
+__global__ void __launch_bounds__(mlp_tile::kThreads, 1)
 bwd_phase2_kernel(const bf16* __restrict__ ws, long long rows_cap,
-                  const int* __restrict__ prog, const int* __restrict__ jobs,
-                  int n_jobs, int rows, int splits, int split_rows,
-                  float* __restrict__ part, long long part_stride,
-                  long long part_scene_stride) {
-  constexpr int kPlane = kStageRows * kLd2;  // one [64][136] tile
-  constexpr int kStage = 2 * kPlane * (kHiLo ? 2 : 1);
-  constexpr int kLo = 2 * kPlane;             // lo planes follow both his
+                  const int* __restrict__ prog, const int* __restrict__ units,
+                  int n_units, int rows, int splits, int split_rows,
+                  int n_scenes, float* __restrict__ part,
+                  long long part_stride, long long part_scene_stride) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-
-  const int job = blockIdx.x % n_jobs, split = (blockIdx.x / n_jobs) % splits;
-  const int scene = blockIdx.x / n_jobs / splits;
-  const int* jb = jobs + job * kJobInts;
+  const int stages = prog[hP2Stages], slot_bytes = prog[hP2Slot];
+  const int half = kHiLo ? slot_bytes / 2 : 0;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kMaxStages;
+  unsigned char* ring = smem + prog[hP2RingOff];
+  if (threadIdx.x == 0) {
+    // The ones the bias products multiply, then the ring (whose fence
+    // makes both visible to wgmma).
+    uint32_t* ones = reinterpret_cast<uint32_t*>(smem + kOnesOff);
+    for (int i = 0; i < kZeroBytes / 4; ++i) {
+      ones[i] = 0x3F803F80u;
+      ones[kZeroBytes / 4 + i] = 0;
+    }
+    init_ring(full, empty, stages);
+  }
+  __syncthreads();
   const int* mats = prog + prog[hMatsBase];
-  const int am = jb[jA], ym = jb[jY];
-  const int k0 = jb[jK0], kc = jb[jKc], n0 = jb[jN0], nc = jb[jNc];
-  const int ac = mats[2 * am + 1], yc = mats[2 * ym + 1];
-  const bf16* A = ws + static_cast<long long>(mats[2 * am]) * rows_cap + k0;
-  const bf16* Y = ws + static_cast<long long>(mats[2 * ym]) * rows_cap + n0;
-  const long long a_lo = rows_cap * ac, y_lo = rows_cap * yc;
-  // The scene's rows are rows [scene * rows, (scene + 1) * rows).
-  const long long r_end = static_cast<long long>(scene + 1) * rows;
-  const long long r0 = r_end - rows + static_cast<long long>(split) * split_rows;
-  const long long r1 = min(r_end, r0 + split_rows);
-  const int n_st = r1 > r0 ? static_cast<int>((r1 - r0) / kStageRows) : 0;
+  const long long items = static_cast<long long>(n_units) * splits * n_scenes;
+  const int wg = threadIdx.x / 128;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int kb = (warp >> 2) * 64;  // the warp's k rows of the tile
-  const int nb = (warp & 3) * 32;   // ... and its n columns
-
-  // This thread's chunks of a stage: slot c = tid + kThreads i holds row
-  // c / 16 and 16-byte chunk c % 16 of the A and Y tiles.
-  constexpr int kChunks = kStageRows * 16 / kThreads;
-  const int ca = kc / 8, cy = nc / 8;
-  auto load = [&](int st, int slot) {
-    const long long r = r0 + st * kStageRows;
-    bf16* sa = ring + slot * kStage;
-    bf16* sy = sa + kPlane;
-#pragma unroll
-    for (int i = 0; i < kChunks; ++i) {
-      const int c = tid + i * kThreads, rr = c >> 4, cc = c & 15;
-      const int at = rr * kLd2 + cc * 8;
-      if (cc < ca) {
-        const long long src = (r + rr) * ac + cc * 8;
-        cp_async16(sa + at, A + src);
-        if (kHiLo) cp_async16(sa + kLo + at, A + a_lo + src);
-      }
-      if (cc < cy) {
-        const long long src = (r + rr) * yc + cc * 8;
-        cp_async16(sy + at, Y + src);
-        if (kHiLo) cp_async16(sy + kLo + at, Y + y_lo + src);
-      }
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-  const bool do_db = jb[jDb] >= 0;
-  const int db_col = tid & 127, db_half = tid >> 7;
-  float db_sum = 0.f;
-
-  for (int s = 0; s < kStages2 - 1; ++s) {
-    if (s < n_st) load(s, s);
-    cp_async_commit();
+  // The roles never meet again (see bwd_phase1_kernel).
+  if (wg == 2) {
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x < 256 + 32)
+      p2_produce<kHiLo>(ws, rows_cap, mats, units, n_units, rows, splits,
+                        split_rows, items, stages, ring, slot_bytes, half,
+                        full, empty);
+    return;
   }
-  for (int i = 0; i < n_st; ++i) {
-    cp_async_wait<kStages2 - 2>();
-    __syncthreads();
-    if (i + kStages2 - 1 < n_st)
-      load(i + kStages2 - 1, (i + kStages2 - 1) % kStages2);
-    cp_async_commit();
-    const bf16* sa = ring + (i % kStages2) * kStage;
-    const bf16* sy = sa + kPlane;
+  regs_inc<kConsumerRegs>();
+  const int tid = threadIdx.x, lane = tid & 31, warp = (tid >> 5) & 3;
+  const uint32_t ring_at = smem_u32(ring);
+  const uint64_t zero_desc =
+      gmma_desc(smem_u32(full + 2 * kMaxStages), 0, 0, false);
+  const uint64_t ones_desc = gmma_desc(smem_u32(smem + kOnesOff), 0, 0, false);
+  const uint32_t lo = static_cast<uint32_t>(half) >> 4;
+  float acc[2 * kUnitN / 4];  // this warpgroup's 64 x N tile, N <= 256
+  float bias0[4], bias1[4];    // ... and its Y strips' column sums
+  Ring pos;
+#pragma unroll 1
+  for (long long i = blockIdx.x; i < items; i += gridDim.x) {
+    int split, scene;
+    long long r0, r1;
+    const int* u = p2_item(units, n_units, i, rows, splits, split_rows,
+                           &split, &scene, &r0, &r1);
+    const int k0 = u[uK0], kc = u[uKc], n0 = u[uN0], nc = u[uNc];
+    const int db = u[uDb], rows_a = kGroupRows<kHiLo> * u[uSub];
+    const int w0 = min(64, kc), w1 = kc - w0;
+    // This warpgroup's A strip (none: the zero block) and Y's strips. A
+    // unit of one A strip that sums its bias does so on warpgroup 1, A the
+    // ones (their lo plane zeros): every row of its tile is the bias; a
+    // unit of two, by products of Y against ones (p2_group).
+    const bool ones_unit = db >= 0 && w1 == 0;
+    const int wa = wg ? w1 : w0;
+    const bool mine = wa > 0;
+    const int yw = min(64, nc);
+    const uint32_t a_step = !mine ? 0 : wa == 64 ? 128 : 2 * wa;
+    const uint32_t a_lo = mine ? lo : ones_unit ? kZeroBytes >> 4 : 0;
+    const uint32_t b_step = yw == 64 ? 128 : 2 * yw;
+    // The bias (units that sum it): this warpgroup's Y strips wg and wg + 2
+    // as the M-major A of a product with ones.
+    const int ny = (nc + 63) >> 6;
+    const bool has[2] = {wg < ny, wg + 2 < ny};
+    const uint32_t y_step[2] = {has[0] ? b_step : 0, has[1] ? b_step : 0};
+    const uint32_t y_lo[2] = {has[0] ? lo : 0, has[1] ? lo : 0};
 #pragma unroll
-    for (int kk = 0; kk < kStageRows; kk += 16) {
-      // A^T: the m16 tile is 16 k-columns of A, its K the 16 rows.
-      uint32_t a[4][4], al[4][4];
-      const bf16* pa = sa + (kk + (lane & 7) + ((lane >> 4) << 3)) * kLd2 +
-                       kb + ((lane >> 3) & 1) * 8;
+    for (int e = 0; e < 2 * kUnitN / 4; ++e) acc[e] = 0.f;
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        if (kb + 16 * mt < kc) {
-          ldsm_x4_t(a[mt], pa + 16 * mt);
-          if (kHiLo) ldsm_x4_t(al[mt], pa + 16 * mt + kLo);
-        }
+    for (int e = 0; e < 4; ++e) bias0[e] = bias1[e] = 0.f;
+    int prev = -1;
+#pragma unroll 1
+    for (long long r = r0; r < r1; r += rows_a) {
+      const int rr = static_cast<int>(min(static_cast<long long>(rows_a),
+                                          r1 - r));
+      mbar_wait(&full[pos.slot], pos.phase);
+      const uint32_t sb = ring_at + pos.slot * slot_bytes;
+      const uint32_t a_at = sb + (wg ? rr * w0 * 2 : 0);
+      const uint32_t y_at = sb + rr * kc * 2;
+      // A M-major: sbo the next 8 rows (an atom, or a row group of cores),
+      // lbo unused / the next core. Y N-major: lbo the next 64-column
+      // strip, sbo the next 8 rows.
+      const uint64_t da =
+          !mine ? (ones_unit ? ones_desc : zero_desc)
+          : wa == 64 ? gmma_desc(a_at, 1024, 1024, true)
+                     : gmma_desc(a_at, (wa >> 3) * 128, 128, false);
+      const uint64_t dy =
+          yw == 64 ? gmma_desc(y_at, rr * 128, 1024, true)
+                   : gmma_desc(y_at, (yw >> 3) * 128, 128, false);
+      uint64_t yd[2];
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const uint32_t at = y_at + (wg + 2 * t) * rr * 128;
+        yd[t] = !has[t] ? zero_desc
+                : yw == 64 ? gmma_desc(at, 1024, 1024, true)
+                           : gmma_desc(at, (yw >> 3) * 128, 128, false);
       }
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const int c = nb + 16 * p;
-        if (c >= nc) continue;
-        uint32_t b[4], bl[4];
-        const bf16* q = sy + (kk + (lane & 15)) * kLd2 + c + (lane >> 4) * 8;
-        ldsm_x4_t(b, q);
-        if (kHiLo) ldsm_x4_t(bl, q + kLo);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          if (kb + 16 * mt >= kc) continue;
-          mma(acc[mt][2 * p], a[mt], b[0], b[1]);
-          mma(acc[mt][2 * p + 1], a[mt], b[2], b[3]);
-          if (kHiLo) {
-            mma(acc[mt][2 * p], al[mt], b[0], b[1]);
-            mma(acc[mt][2 * p + 1], al[mt], b[2], b[3]);
-            mma(acc[mt][2 * p], a[mt], bl[0], bl[1]);
-            mma(acc[mt][2 * p + 1], a[mt], bl[2], bl[3]);
-          }
-        }
+      constexpr int kSteps = kGroupRows<kHiLo> / 16;
+#pragma unroll 1
+      for (int s = 0; s < rr / kGroupRows<kHiLo>; ++s) {
+        const uint64_t ys[2] = {yd[0] + kSteps * s * y_step[0],
+                                yd[1] + kSteps * s * y_step[1]};
+        wgmma_fence();
+        p2_products<kHiLo>(nc, db >= 0 && w1 > 0, acc,
+                           da + kSteps * s * a_step, a_step,
+                           dy + kSteps * s * b_step, b_step, a_lo, lo, bias0,
+                           bias1, ys, y_step, y_lo, ones_desc);
+        wgmma_commit();
+        wgmma_wait<1>();
       }
+      // The previous stage's products have retired (wait<1> above).
+      if (prev >= 0) mbar_arrive_if(&empty[prev], (tid & 127) == 0);
+      prev = pos.slot;
+      pos.next(stages);
     }
-    if (do_db && db_col < nc) {
-#pragma unroll 4
-      for (int rr = 0; rr < kStageRows / 2; ++rr) {
-        const int at = (kStageRows / 2 * db_half + rr) * kLd2 + db_col;
-        float v = __bfloat162float(sy[at]);
-        if (kHiLo) v += __bfloat162float(sy[kLo + at]);
-        db_sum += v;
-      }
-    }
-  }
-  cp_async_wait<0>();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    fence_acc(bias0);
+    fence_acc(bias1);
+    if (prev >= 0) mbar_arrive_if(&empty[prev], (tid & 127) == 0);
 
-  float* P = part + scene * part_scene_stride +
-             static_cast<long long>(split) * part_stride;
-  const int off = jb[jOff], ld = jb[jLd];
+    // The tile into the slot: element (k, n) of the block at off + k * ld
+    // + n; rows past this warpgroup's strip and columns past the unit are
+    // never written. Every store predicated.
+    float* P = part + scene * part_scene_stride + split * part_stride;
+    const int ld = u[uLd];
+    float* blk = P + u[uOff] + static_cast<long long>(k0) * ld + n0;
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-    if (kb + 16 * mt >= kc) continue;
+    for (int j = 0; j < kUnitN / 8; ++j) {
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      if (nb + 8 * nt >= nc) continue;
-      const int k = k0 + kb + 16 * mt + (lane >> 2);
-      const int c = n0 + nb + 8 * nt + 2 * (lane & 3);
-      float* at = P + off + static_cast<long long>(k) * ld + c;
-      *reinterpret_cast<float2*>(at) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-      *reinterpret_cast<float2*>(at + 8LL * ld) =
-          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+      for (int h = 0; h < 2; ++h) {
+        const int k = 64 * wg + 16 * warp + (lane >> 2) + 8 * h;
+        const int n = 8 * j + 2 * (lane & 3);
+        st_global_v2_if(blk + static_cast<long long>(min(k, kc - 1)) * ld +
+                            min(n, nc - 2),
+                        acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1],
+                        k < kc && n < nc);
+      }
     }
-  }
-  if (do_db) {
-    __syncthreads();  // the ring is idle: reuse it for the two halves
-    float* halves = reinterpret_cast<float*>(smem);
-    if (db_half) halves[db_col] = db_sum;
-    __syncthreads();
-    if (!db_half && db_col < nc) P[jb[jDb] + n0 + db_col] = db_sum + halves[db_col];
+    // The bias. Of a unit of two A strips: feature 64 (wg + 2 t) + 16
+    // warp + lane / 4 + 8 h of Y is row 16 warp + lane / 4 + 8 h of
+    // bias_t, in every column: the lanes of column 0 store it. Of a unit of
+    // one: row 0 of warpgroup 1's tile (warp 0, lanes 0-3).
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = 64 * (wg + 2 * t) + 16 * warp + (lane >> 2) + 8 * h;
+        st_global_if(P + max(db, 0) + n0 + min(n, nc - 1),
+                     t ? bias1[2 * h] : bias0[2 * h],
+                     db >= 0 && w1 > 0 && (lane & 3) == 0 && n < nc);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kUnitN / 8; ++j) {
+      const int n = 8 * j + 2 * (lane & 3);
+      st_global_v2_if(P + max(db, 0) + n0 + min(n, nc - 2), acc[4 * j],
+                      acc[4 * j + 1],
+                      ones_unit && wg == 1 && (tid & 127) < 4 && n < nc);
+    }
   }
 }
 
@@ -636,39 +854,26 @@ cudaError_t launch_phase1(const float* pts, const void* dirs, const float* g,
                           const bf16* weights, const float* biases,
                           const int* prog, int prog_len, int n,
                           int n_scenes, long long w_stride, int b_stride,
-                          int csize, int smem, bf16* ws, long long rows_cap,
+                          int smem, bf16* ws, long long rows_cap,
                           cudaStream_t stream) {
-  auto kernel = bwd_phase1_kernel<kHiLo, T, kSharedTables>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const long long groups = static_cast<long long>(n_scenes) *
-                           scene_groups(scene_rows(n, T) / T, csize);
-  int clusters = 0;
-  err = max_clusters(kernel, csize, smem, &clusters);
-  if (err != cudaSuccess) return err;
-  const int grid = static_cast<int>(groups < clusters ? groups : clusters);
-  return launch_clusters(kernel, grid, csize, smem, stream, pts, dirs, g,
-                         weights, biases, prog, prog_len, n, n_scenes, ws,
-                         rows_cap, w_stride, b_stride);
+  return launch_persistent(
+      bwd_phase1_kernel<kHiLo, T, kSharedTables>,
+      static_cast<long long>(n_scenes) * (scene_rows(n, T) / T), smem,
+      stream, pts, dirs, g, weights, biases, prog, prog_len, n, n_scenes, ws,
+      rows_cap, w_stride, b_stride);
 }
 
 template <bool kHiLo>
 cudaError_t launch_phase2(const bf16* ws, long long rows_cap, const int* prog,
-                          const int* jobs, int n_jobs, int rows, int splits,
+                          const int* units, int n_units, int rows, int splits,
                           int split_rows, int n_scenes, float* part,
                           long long part_stride, long long part_scene_stride,
-                          cudaStream_t stream) {
-  const int smem = kStages2 * 2 * kStageRows * kLd2 * 2 * (kHiLo ? 2 : 1);
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_phase2_kernel<kHiLo>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  bwd_phase2_kernel<kHiLo><<<n_jobs * splits * n_scenes, kThreads, smem,
-                              stream>>>(
-      ws, rows_cap, prog, jobs, n_jobs, rows, splits, split_rows, part,
-      part_stride, part_scene_stride);
-  return cudaGetLastError();
+                          int smem, cudaStream_t stream) {
+  return launch_persistent(
+      bwd_phase2_kernel<kHiLo>,
+      static_cast<long long>(n_units) * splits * n_scenes, smem, stream, ws,
+      rows_cap, prog, units, n_units, rows, splits, split_rows, n_scenes,
+      part, part_stride, part_scene_stride);
 }
 
 }  // namespace
@@ -678,9 +883,9 @@ extern "C" {
 // The kernels' fixed shape, for the wrapper to check against its own.
 int fused_mlp_bwd_constants(int* out, int len) {
   // ... then phase 1's tile sizes: bf16, then hi_lo.
-  const int c[] = {kP2Threads, kPad,        kMaxN,      kHeaderInts,
-                   kMaxBufs,   kOpInts,     kTileK,     kTileN,
-                   kStageRows, kStages2,    kJobInts,   kP1Threads,
+  const int c[] = {kP2Threads, kMaxN,     kHeaderInts, kMaxBufs,
+                   kOpInts,    kUnitK,    kUnitN,      kStageRows,
+                   kUnitInts,  kP1Threads, kMaxStages,
                    128, 64, 32, 16, 64, 32, 16, 8};
   const int count = static_cast<int>(sizeof(c) / sizeof(c[0]));
   for (int i = 0; i < len && i < count; ++i) out[i] = c[i];
@@ -699,21 +904,20 @@ const char* fused_mlp_bwd_error_string(int code) {
 // prog_len ints go to shared memory: through the operation table, or the
 // header and buffer table alone; rows: the program's points per tile (128,
 // 64, 32 or 16; hi_lo 64, 32, 16 or 8), which with prog_len picks the
-// kernel, cluster its CTAs a cluster (1, 2, 4 or 8); smem: the program's
-// shared-memory bytes; ws: the workspace, rows_cap rows per matrix (>=
-// n_scenes times scene_rows(n, rows); scene s's from s times that).
-// Launches a persistent grid of as many clusters as the card holds at once
-// (and the tile groups need) on `stream`, does not synchronise, allocates
-// nothing; returns the launch's error.
+// kernel; smem: the program's shared-memory bytes; ws: the workspace,
+// rows_cap rows per matrix (a multiple of 64, >= n_scenes times
+// scene_rows(n, rows); scene s's from s times that), each matrix in the
+// strip layout (ws_elem). Launches a persistent grid of as many CTAs as the
+// card holds at once (and the tiles need) on `stream`, does not
+// synchronise, allocates nothing; returns the launch's error.
 int fused_mlp_bwd_phase1(const void* pts, const void* dirs, const void* g,
                          const void* weights, const void* biases,
                          const void* prog, int prog_len, int hi_lo, int rows,
-                         int cluster, int n, int n_scenes, long long w_stride,
+                         int n, int n_scenes, long long w_stride,
                          int b_stride, int smem, void* ws, long long rows_cap,
                          void* stream) {
   if (prog_len < kTablesBase || n_scenes <= 0 || w_stride % 8 ||
-      b_stride < 0 || rows <= 0 ||
-      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
+      b_stride < 0 || rows <= 0 || rows_cap % kStageRows ||
       rows_cap < static_cast<long long>(n_scenes) * scene_rows(n, rows))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaSuccess);
@@ -732,7 +936,7 @@ int fused_mlp_bwd_phase1(const void* pts, const void* dirs, const void* g,
   if (!!hi_lo == HI_LO && rows == T && shared_tables == SHARED)              \
     return static_cast<int>(launch_phase1<HI_LO, T, SHARED>(                \
         p, dirs, gg, w, b, pr, prog_len, n, n_scenes, w_stride, b_stride,    \
-        cluster, smem, wsp, rows_cap, s));
+        smem, wsp, rows_cap, s));
   PHASE1(false, 128, true)
   PHASE1(false, 64, true)
   PHASE1(false, 32, true)
@@ -747,34 +951,37 @@ int fused_mlp_bwd_phase1(const void* pts, const void* dirs, const void* g,
 }
 
 // Phase 2 over n_scenes scenes of `rows` workspace rows each (a multiple
-// of 64; scene s's from s * rows): n_jobs jobs (device, int32) x `splits`
+// of 64; scene s's from s * rows): n_units units (device, int32) x `splits`
 // ranges of split_rows rows (a multiple of 64) x the scenes, each writing
-// its tile into part[scene * part_scene_stride + split * part_stride +
-// ...] (fp32). Every element of each scene's packed gradient is written
-// once per split.
+// its part into part[scene * part_scene_stride + split * part_stride +
+// ...] (fp32); prog: the program (its header gives the ring); smem: its
+// shared-memory bytes. Every element of each scene's packed gradient is
+// written once per split. Launches a persistent grid of as many CTAs as the
+// card holds at once (and the items need) on `stream`.
 int fused_mlp_bwd_phase2(const void* ws, long long rows_cap, const void* prog,
-                         const void* jobs, int n_jobs, int hi_lo, int rows,
+                         const void* units, int n_units, int hi_lo, int rows,
                          int splits, int split_rows, int n_scenes, void* part,
                          long long part_stride, long long part_scene_stride,
-                         void* stream) {
-  if (n_jobs <= 0 || splits <= 0 || n_scenes <= 0 || rows % kStageRows ||
-      split_rows % kStageRows ||
+                         int smem, void* stream) {
+  if (n_units <= 0 || splits <= 0 || n_scenes <= 0 || rows % kStageRows ||
+      split_rows % kStageRows || rows_cap % kStageRows ||
       static_cast<long long>(n_scenes) * rows > rows_cap ||
-      static_cast<long long>(splits) * split_rows < rows ||
-      static_cast<long long>(n_jobs) * splits * n_scenes > 0x7fffffff)
+      static_cast<long long>(splits) * split_rows < rows || smem <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* w = static_cast<const bf16*>(ws);
   const auto* pr = static_cast<const int*>(prog);
-  const auto* jb = static_cast<const int*>(jobs);
+  const auto* un = static_cast<const int*>(units);
   auto* pa = static_cast<float*>(part);
   auto* s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      hi_lo ? launch_phase2<true>(w, rows_cap, pr, jb, n_jobs, rows, splits,
-                                  split_rows, n_scenes, pa, part_stride,
-                                  part_scene_stride, s)
-            : launch_phase2<false>(w, rows_cap, pr, jb, n_jobs, rows, splits,
-                                   split_rows, n_scenes, pa, part_stride,
-                                   part_scene_stride, s));
+#define PHASE2(HI_LO)                                                        \
+  if (!!hi_lo == HI_LO)                                                      \
+    return static_cast<int>(launch_phase2<HI_LO>(                           \
+        w, rows_cap, pr, un, n_units, rows, splits, split_rows, n_scenes,    \
+        pa, part_stride, part_scene_stride, smem, s));
+  PHASE2(false)
+  PHASE2(true)
+#undef PHASE2
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // For each of n_scenes scenes: out (total,) at scene * total = the sum of

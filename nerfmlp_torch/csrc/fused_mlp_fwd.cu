@@ -39,13 +39,12 @@
 //     slot and no block-wide barrier per stage. Stages of up to 64 rows
 //     (a narrow operation takes as many as the slot holds), at least three
 //     deep where the layout fits.
-//   * A cluster of C CTAs walks neighbouring tiles of one scene; each
-//     stage is loaded once from L2 and multicast into every CTA. The
-//     layouts take C = 1: at 32- and 16-point tiles, clusters of 2 and 4
-//     were slower on an H100 at nearly every layout measured, by up to
-//     26%, never faster by more than 1.3% (the small-N wgmma, not L2
-//     reads, take the time; scripts/layout_sweep.py). The
-//     persistent grid is sized by cudaOccupancyMaxActiveClusters.
+//   * A persistent grid of as many CTAs as the card holds at once walks
+//     the tiles, one CTA a tile. (Clusters of 2 and 4 CTAs that shared
+//     each 32- or 16-point tile's weight stages by multicast were slower
+//     on an H100 at nearly every layout measured, by up to 26%, never
+//     faster by more than 1.3%: the small-N wgmma, not L2 reads, take the
+//     time. They were taken out.)
 //   * The tile's activations stay in shared memory (encoded points, kept
 //     for the skip layer; encoded view directions; one activation buffer
 //     written in place where every layer is one pass, else two ping-pong
@@ -76,8 +75,8 @@
 // pallas_call a leading grid axis over scenes): one launch runs S nets of
 // one architecture, scene s with its own weights and biases (at s times a
 // stride in each buffer), its n points, dirs and output rows (scene-major,
-// at s * n). A tile group never straddles two scenes; the producer keeps
-// the scene of the group it streams for. Every output row is computed as
+// at s * n). A tile never straddles two scenes; the producer keeps the
+// scene of the tile it streams for. Every output row is computed as
 // in a launch of its scene alone, so scene s's rows equal a single-scene
 // launch's bit for bit. S = 1 is the single net.
 
@@ -101,7 +100,7 @@ constexpr int kOpsBase = kBufsBase + 3 * kMaxBufs;
 // Header fields.
 enum Header {
   hNOps = 0, hProgLen, hNFreqs, hEncDim, hDirsDim, hOutW, hHiLo, hRows,
-  hCluster, hStages, hRingOff, hSlotBytes, hBarOff, hSmem
+  hStages, hRingOff, hSlotBytes, hBarOff, hSmem
 };
 // Buffers of the encoded points and dirs.
 enum Buffer { kX = 0, kD = 1 };
@@ -142,11 +141,8 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
   const int stages = prog_in[hStages];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + prog_in[hBarOff]);
   uint64_t* empty = full + stages;
-  const int csize = static_cast<int>(cluster_size());
-  const int rank = static_cast<int>(cluster_rank());
-  if (threadIdx.x == 0) init_ring(full, empty, stages, csize);
+  if (threadIdx.x == 0) init_ring(full, empty, stages);
   __syncthreads();
-  cluster_sync();  // every CTA's barriers exist before any copy or arrive
 
   const int* bufs = prog + kBufsBase;
   const int* ops = prog + kOpsBase;
@@ -155,10 +151,7 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
   const int slot_bytes = prog[hSlotBytes];
   const int half = kHiLo ? slot_bytes / 2 : 0;
   const int tiles = (n + T - 1) / T;
-  const int groups = scene_groups(tiles, csize);
-  const int n_groups = n_scenes * groups;
-  const int cluster_id = static_cast<int>(blockIdx.x) / csize;
-  const int n_clusters = static_cast<int>(gridDim.x) / csize;
+  const int n_tiles = n_scenes * tiles;
   const int wg = threadIdx.x / 128;
 
   // The roles never meet again: ptxas treats the code of a branch that
@@ -166,10 +159,8 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
   if (wg == 2) {
     regs_dec<kProducerRegs>();
     if (threadIdx.x < 256 + 32)
-      produce<kHiLo>(ops, kOpInts, n_ops, weights, w_stride, groups, n_groups,
-                     cluster_id, n_clusters, stages, ring, slot_bytes, half,
-                     full, empty, rank, csize == 4 ? 2 : csize - 1);
-    cluster_sync();  // no CTA leaves while the cluster may still reach it
+      produce<kHiLo>(ops, kOpInts, n_ops, weights, w_stride, tiles, n_tiles,
+                     stages, ring, slot_bytes, half, full, empty);
     return;
   }
   regs_inc<kConsumerRegs>();
@@ -178,52 +169,47 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
   const uint32_t base = smem_u32(smem);
   float acc0[Core::kAcc], acc1[Core::kAcc];
   Ring pos;
-  for (int g = cluster_id; g < n_groups; g += n_clusters) {
-    const int scene = g / groups;
-    const int tile = (g - scene * groups) * csize + rank;
-    const bool live = tile < tiles;
-    const int row0 = tile * T;
+  for (int g = blockIdx.x; g < n_tiles; g += gridDim.x) {
+    const int scene = g / tiles;
+    const int row0 = (g - scene * tiles) * T;
     const long long sbase = static_cast<long long>(scene) * n;
     const float* pts_s = pts + 3 * sbase;
     const float* bias_s = biases + static_cast<long long>(scene) * b_stride;
 
     // Encoded points, then the encoded view directions (bf16, or fp32 in
     // hi_lo mode); zeros past n and in the padding columns.
-    if (live) {
-      const int xc = bufs[3 * kX + 1], enc_dim = prog[hEncDim];
-      unsigned char* xs = smem + bufs[3 * kX];
-      for (int idx = tid; idx < T * xc; idx += kConsumers) {
-        const int r = idx / xc, j = idx - r * xc, p = row0 + r;
-        float v0 = 0.f, v1 = 0.f;
-        const int got =
-            (p < n && j < enc_dim) ? encode_pair(pts_s, p, j, &v0, &v1) : 1;
-        if (got) put<kHiLo>(xs + act_byte<T>(r, j), 2 * T * xc, v0);
-        if (got == 2) put<kHiLo>(xs + act_byte<T>(r, j + 3), 2 * T * xc, v1);
-      }
-      if (prog[hDirsDim] > 0) {
-        const int dc = bufs[3 * kD + 1], dirs_dim = prog[hDirsDim];
-        unsigned char* ds = smem + bufs[3 * kD];
-        for (int idx = tid; idx < T * dc; idx += kConsumers) {
-          const int r = idx / dc, j = idx - r * dc, p = row0 + r;
-          float v = 0.f;
-          if (p < n && j < dirs_dim) {
-            const long long at = (sbase + p) * dirs_dim + j;
-            v = kHiLo ? static_cast<const float*>(dirs)[at]
-                      : __bfloat162float(static_cast<const bf16*>(dirs)[at]);
-          }
-          put<kHiLo>(ds + act_byte<T>(r, j), 2 * T * dc, v);
-        }
-      }
-      fence_proxy_async();
+    const int xc = bufs[3 * kX + 1], enc_dim = prog[hEncDim];
+    unsigned char* xs = smem + bufs[3 * kX];
+    for (int idx = tid; idx < T * xc; idx += kConsumers) {
+      const int r = idx / xc, j = idx - r * xc, p = row0 + r;
+      float v0 = 0.f, v1 = 0.f;
+      const int got =
+          (p < n && j < enc_dim) ? encode_pair(pts_s, p, j, &v0, &v1) : 1;
+      if (got) put<kHiLo>(xs + act_byte<T>(r, j), 2 * T * xc, v0);
+      if (got == 2) put<kHiLo>(xs + act_byte<T>(r, j + 3), 2 * T * xc, v1);
     }
+    if (prog[hDirsDim] > 0) {
+      const int dc = bufs[3 * kD + 1], dirs_dim = prog[hDirsDim];
+      unsigned char* ds = smem + bufs[3 * kD];
+      for (int idx = tid; idx < T * dc; idx += kConsumers) {
+        const int r = idx / dc, j = idx - r * dc, p = row0 + r;
+        float v = 0.f;
+        if (p < n && j < dirs_dim) {
+          const long long at = (sbase + p) * dirs_dim + j;
+          v = kHiLo ? static_cast<const float*>(dirs)[at]
+                    : __bfloat162float(static_cast<const bf16*>(dirs)[at]);
+        }
+        put<kHiLo>(ds + act_byte<T>(r, j), 2 * T * dc, v);
+      }
+    }
+    fence_proxy_async();
     named_sync(kConsumerBar, kConsumers);
 
     for (int oi = 0; oi < n_ops; ++oi) {
       const int* o = ops + oi * kOpInts;
       Core::op(o, pos, stages, ring, slot_bytes, half, full, empty, bufs,
-               base, smem_u32(full + 2 * kMaxStages), wg, tid & 127, csize,
-               live, acc0, acc1);
-      if (!live) continue;
+               base, smem_u32(full + 2 * kMaxStages), wg, tid & 127, acc0,
+               acc1);
       const int mode = o[fMode], dst = o[cDst], nn = o[cN];
       const bool head = mode == kOutF32;
       if (!head && (dst == o[cSrcA] || (o[cKB] && dst == o[cSrcB])))
@@ -272,42 +258,30 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
       fence_proxy_async();
       named_sync(kConsumerBar, kConsumers);
     }
-    if (live) {
-      // The heads' staged columns to the (n, out_w) output, row-major and
-      // coalesced; rows at or past n masked.
-      const int out_w = prog[hOutW], all = T * out_w;
-      const float* stage = reinterpret_cast<const float*>(smem + bufs[3 * kX]);
-      float* out_t = out + (sbase + row0) * out_w;
-      const int rest = (n - row0) * out_w;  // values of rows below n
-      for (int i0 = 0; i0 < all; i0 += kConsumers) {
-        const int i = min(i0 + tid, all - 1), p = i / out_w;
-        st_global_if(out_t + min(i, rest - 1), stage[(i - p * out_w) * T + p],
-                     i0 + tid < all && i0 + tid < rest);
-      }
-      named_sync(kConsumerBar, kConsumers);  // read before the next tile
+    // The heads' staged columns to the (n, out_w) output, row-major and
+    // coalesced; rows at or past n masked.
+    const int out_w = prog[hOutW], all = T * out_w;
+    const float* stage = reinterpret_cast<const float*>(smem + bufs[3 * kX]);
+    float* out_t = out + (sbase + row0) * out_w;
+    const int rest = (n - row0) * out_w;  // values of rows below n
+    for (int i0 = 0; i0 < all; i0 += kConsumers) {
+      const int i = min(i0 + tid, all - 1), p = i / out_w;
+      st_global_if(out_t + min(i, rest - 1), stage[(i - p * out_w) * T + p],
+                   i0 + tid < all && i0 + tid < rest);
     }
+    named_sync(kConsumerBar, kConsumers);  // read before the next tile
   }
-  cluster_sync();  // no CTA leaves while the cluster may still reach it
 }
 
 template <bool kHiLo, int T>
 cudaError_t launch(const float* pts, const void* dirs, const bf16* weights,
                    const float* biases, float* out, const int* prog,
                    int prog_len, int n, int n_scenes, long long w_stride,
-                   int b_stride, int csize, int smem, cudaStream_t stream) {
-  auto kernel = fused_mlp_fwd_kernel<kHiLo, T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const long long groups =
-      static_cast<long long>(n_scenes) * scene_groups((n + T - 1) / T, csize);
-  int clusters = 0;
-  err = max_clusters(kernel, csize, smem, &clusters);
-  if (err != cudaSuccess) return err;
-  const int grid = static_cast<int>(groups < clusters ? groups : clusters);
-  return launch_clusters(kernel, grid, csize, smem, stream, pts, dirs,
-                         weights, biases, out, prog, prog_len, n, n_scenes,
-                         w_stride, b_stride);
+                   int b_stride, int smem, cudaStream_t stream) {
+  return launch_persistent(fused_mlp_fwd_kernel<kHiLo, T>,
+                           static_cast<long long>(n_scenes) * ((n + T - 1) / T),
+                           smem, stream, pts, dirs, weights, biases, out, prog,
+                           prog_len, n, n_scenes, w_stride, b_stride);
 }
 
 }  // namespace
@@ -333,17 +307,16 @@ const char* fused_mlp_fwd_error_string(int code) {
 // (n_scenes * n, out_w) fp32; prog (int32): the program, whose first
 // prog_len ints go to shared memory — all on the current device. rows
 // (points per tile: 128, 64, 32 or 16; hi_lo 64, 32 or 16) picks the
-// kernel, cluster its CTAs a cluster (1, 2 or 4); smem: the program's
-// shared-memory bytes. Launches a persistent grid of as many clusters as
-// the card holds at once (and the tile groups need) on `stream`, does not
-// synchronise, allocates nothing; returns the launch's error.
+// kernel; smem: the program's shared-memory bytes. Launches a persistent
+// grid of as many CTAs as the card holds at once (and the tiles need) on
+// `stream`, does not synchronise, allocates nothing; returns the launch's
+// error.
 int fused_mlp_fwd(const void* pts, const void* dirs, const void* weights,
                   const void* biases, void* out, int n, int n_scenes,
                   long long w_stride, int b_stride, const void* prog,
-                  int prog_len, int hi_lo, int rows, int cluster, int smem,
-                  void* stream) {
+                  int prog_len, int hi_lo, int rows, int smem, void* stream) {
   if (prog_len < kOpsBase || n_scenes <= 0 || w_stride % 8 ||
-      b_stride < 0 || (cluster != 1 && cluster != 2 && cluster != 4) ||
+      b_stride < 0 || rows <= 0 ||
       static_cast<long long>(n_scenes) * ((n + rows - 1) / rows) > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaSuccess);
@@ -357,7 +330,7 @@ int fused_mlp_fwd(const void* pts, const void* dirs, const void* weights,
   if (!!hi_lo == HI_LO && rows == T)                                         \
     return static_cast<int>(launch<HI_LO, T>(p, dirs, w, b, o, pr, prog_len, \
                                              n, n_scenes, w_stride,          \
-                                             b_stride, cluster, smem, s));
+                                             b_stride, smem, s));
   FWD(true, 64)
   FWD(true, 32)
   FWD(true, 16)

@@ -1,8 +1,8 @@
 // Device routines shared by the fused NeRF-MLP kernels for Hopper (sm_90a):
 // the forward (fused_mlp_fwd.cu) and the backward's phase 1, which
 // recomputes the same forward and walks the dX chain (fused_mlp_bwd.cu),
-// run on one core here; phase 2 keeps the mma.sync and cp.async helpers
-// at the top.
+// run on one core here; the backward's phase 2 (dW, db) shares its
+// asynchronous pieces: mbarriers, bulk copies, wgmma, the ring.
 //
 // What bounds the two kernels. Their work is compute (the forward ~50x
 // over the card's memory rate at 8x256) but it comes in small pieces: a
@@ -25,11 +25,10 @@
 //     barrier is taken per stage (two named barriers of the consumers an
 //     operation). The packer writes the weights in the swizzled layout
 //     wgmma reads, so a copy needs no tensor map.
-//   * Tiles below 64 points can run in clusters that share each weight
-//     stage by multicast, so 64 points or more share each byte read from
-//     L2. The layouts take clusters of one CTA: on an H100 the multicast
-//     was slower at 123 of 134 layouts measured, never faster by more
-//     than 1.3% (scripts/layout_sweep.py).
+//   * One CTA a tile, a persistent grid of as many CTAs as the card holds
+//     at once. (Clusters that shared each weight stage by multicast were
+//     slower on an H100 at 123 of 134 layouts measured, never faster by
+//     more than 1.3%, and were taken out.)
 //   * The epilogue stores the accumulators with stmatrix.
 //   * ptxas fences and waits for every wgmma of a loop it cannot prove
 //     uniform over the warpgroup (note C7520): the stage's products issue
@@ -40,8 +39,7 @@
 // Measured (PERF.md, chip_smoke.py, bwd_ablate.py, layout_sweep.py):
 // faster than the design before at 8x256 and on most wide, deep and
 // shallow nets; at 16- and 32-point tiles the small-N products, not L2
-// traffic, take the time, so the layouts take the largest tile that fits
-// and the multicast saves reads that were not the limit.
+// traffic, take the time, so the layouts take the largest tile that fits.
 
 #pragma once
 
@@ -58,45 +56,8 @@ namespace mlp_tile {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kPad = 8;  // phase 2: bf16 of padding per shared-memory row:
-                         // with a row stride of 16 B times an odd number,
-                         // the 8 rows an ldmatrix reads fall in 8 banks
-
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(smem)),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a @ b for one m16n8k16 tile: bf16 operands, fp32 accumulators.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Point g's positional encoding, pts (n, 3) row-major: [x, sin(x * 2^0),
@@ -120,8 +81,8 @@ __device__ __forceinline__ int encode_pair(const float* __restrict__ pts,
 }
 
 // ---------------------------------------------------------------------
-// Hopper's asynchronous pieces: mbarriers, bulk copies (multicast over a
-// thread-block cluster), wgmma from shared-memory descriptors.
+// Hopper's asynchronous pieces: mbarriers, bulk copies, wgmma from
+// shared-memory descriptors.
 // ---------------------------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -153,17 +114,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
-// Where `pred`, arrive on the barrier at the same offset in CTA `cta` of
-// the cluster (predicated in the asm: no branch around it).
-__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
-                                                    uint32_t cta, bool pred) {
+// Where `pred`, arrive on the barrier (predicated in the asm: no branch
+// around it).
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
   asm volatile(
-      "{\n.reg .pred p;\n.reg .b32 a;\n"
-      "setp.ne.b32 p, %2, 0;\n"
-      "@p mapa.shared::cluster.u32 a, %0, %1;\n"
-      "@p mbarrier.arrive.release.cluster.shared::cluster.b64 _, [a];\n}\n"
-      ::"r"(smem_u32(bar)),
-      "r"(cta), "r"(static_cast<int>(pred))
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+      ::"r"(smem_u32(bar)), "r"(static_cast<int>(pred))
       : "memory");
 }
 
@@ -175,25 +133,6 @@ __device__ __forceinline__ void fence_barrier_init() {
 // copies (the async proxy).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
-  return r;
-}
-
-// Every thread of every CTA of the cluster.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // Barrier `id` (1..15) among `threads` threads (a multiple of 32).
@@ -212,26 +151,13 @@ __device__ __forceinline__ void regs_inc() {
 }
 
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) from device
-// memory into this CTA's shared memory, completing on `bar`; the
-// multicast form into every CTA of the cluster in `mask`, at the same
-// offset, each completing on its own barrier at `bar`'s offset.
+// memory into this CTA's shared memory, completing on `bar`.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           uint32_t bytes, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_load_multicast(void* dst, const void* src,
-                                                    uint32_t bytes,
-                                                    uint64_t* bar,
-                                                    uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(mask)
       : "memory");
 }
 
@@ -274,16 +200,16 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
 }
 
 // d (64 x N fp32, the warpgroup's fragments) += A (64 x 16) @ B (16 x N),
-// bf16 operands from shared memory; scale_d == 0 starts d at zero. B is
-// K-major; A is K-major (kTnspA = 0) or M-major (kTnspA = 1). Thread t of
-// the warpgroup holds d[4 j + 2 h + e] = row 16 (t / 32) + (t % 32) / 4 +
-// 8 h, column 8 j + 2 (t % 4) + e.
+// bf16 operands from shared memory; scale_d == 0 starts d at zero. A is
+// K-major (kTnspA = 0) or M-major (kTnspA = 1), B K-major (kTnspB = 0) or
+// N-major (kTnspB = 1). Thread t of the warpgroup holds d[4 j + 2 h + e] =
+// row 16 (t / 32) + (t % 32) / 4 + 8 h, column 8 j + 2 (t % 4) + e.
 template <int N>
 struct Wgmma;
 
 template <>
 struct Wgmma<8> {
-  template <int kTnspA>
+  template <int kTnspA, int kTnspB = 0>
   static __device__ __forceinline__ void mma(float (&d)[4], uint64_t a,
                                           uint64_t b, int scale_d) {
     asm volatile(
@@ -291,17 +217,16 @@ struct Wgmma<8> {
         "setp.ne.b32 p, %6, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3}, "
-        "%4, %5, p, 1, 1, %7, 0;\n}\n"
+        "%4, %5, p, 1, 1, %7, %8;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(kTnspA)
+        : "l"(a), "l"(b), "r"(scale_d), "n"(kTnspA), "n"(kTnspB)
         : "memory");
   }
 };
 
-
 template <>
 struct Wgmma<16> {
-  template <int kTnspA>
+  template <int kTnspA, int kTnspB = 0>
   static __device__ __forceinline__ void mma(float (&d)[8], uint64_t a,
                                           uint64_t b, int scale_d) {
     asm volatile(
@@ -309,17 +234,17 @@ struct Wgmma<16> {
         "setp.ne.b32 p, %10, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "%8, %9, p, 1, 1, %11, 0;\n}\n"
+        "%8, %9, p, 1, 1, %11, %12;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(kTnspA)
+        : "l"(a), "l"(b), "r"(scale_d), "n"(kTnspA), "n"(kTnspB)
         : "memory");
   }
 };
 
 template <>
 struct Wgmma<32> {
-  template <int kTnspA>
+  template <int kTnspA, int kTnspB = 0>
   static __device__ __forceinline__ void mma(float (&d)[16], uint64_t a,
                                           uint64_t b, int scale_d) {
     asm volatile(
@@ -328,18 +253,40 @@ struct Wgmma<32> {
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7,"
         " %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "%16, %17, p, 1, 1, %19, 0;\n}\n"
+        "%16, %17, p, 1, 1, %19, %20;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(kTnspA)
+        : "l"(a), "l"(b), "r"(scale_d), "n"(kTnspA), "n"(kTnspB)
+        : "memory");
+  }
+};
+
+template <>
+struct Wgmma<48> {
+  template <int kTnspA, int kTnspB = 0>
+  static __device__ __forceinline__ void mma(float (&d)[24], uint64_t a,
+                                          uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23}, "
+        "%24, %25, p, 1, 1, %27, %28;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(kTnspA), "n"(kTnspB)
         : "memory");
   }
 };
 
 template <>
 struct Wgmma<64> {
-  template <int kTnspA>
+  template <int kTnspA, int kTnspB = 0>
   static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a,
                                           uint64_t b, int scale_d) {
     asm volatile(
@@ -350,21 +297,21 @@ struct Wgmma<64> {
         " %8, %9, %10, %11, %12, %13, %14, %15,"
         " %16, %17, %18, %19, %20, %21, %22, %23,"
         " %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, %35, 0;\n}\n"
+        "%32, %33, p, 1, 1, %35, %36;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(kTnspA)
+        : "l"(a), "l"(b), "r"(scale_d), "n"(kTnspA), "n"(kTnspB)
         : "memory");
   }
 };
 
 template <>
 struct Wgmma<128> {
-  template <int kTnspA>
+  template <int kTnspA, int kTnspB = 0>
   static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a,
                                           uint64_t b, int scale_d) {
     asm volatile(
@@ -379,7 +326,7 @@ struct Wgmma<128> {
         " %40, %41, %42, %43, %44, %45, %46, %47,"
         " %48, %49, %50, %51, %52, %53, %54, %55,"
         " %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, %67, 0;\n}\n"
+        "%64, %65, p, 1, 1, %67, %68;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -391,11 +338,106 @@ struct Wgmma<128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(kTnspA)
+        : "l"(a), "l"(b), "r"(scale_d), "n"(kTnspA), "n"(kTnspB)
         : "memory");
   }
 };
 
+template <>
+struct Wgmma<192> {
+  template <int kTnspA, int kTnspB = 0>
+  static __device__ __forceinline__ void mma(float (&d)[96], uint64_t a,
+                                          uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %98, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71,"
+        " %72, %73, %74, %75, %76, %77, %78, %79,"
+        " %80, %81, %82, %83, %84, %85, %86, %87,"
+        " %88, %89, %90, %91, %92, %93, %94, %95}, "
+        "%96, %97, p, 1, 1, %99, %100;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(kTnspA), "n"(kTnspB)
+        : "memory");
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  template <int kTnspA, int kTnspB = 0>
+  static __device__ __forceinline__ void mma(float (&d)[128], uint64_t a,
+                                          uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71,"
+        " %72, %73, %74, %75, %76, %77, %78, %79,"
+        " %80, %81, %82, %83, %84, %85, %86, %87,"
+        " %88, %89, %90, %91, %92, %93, %94, %95,"
+        " %96, %97, %98, %99, %100, %101, %102, %103,"
+        " %104, %105, %106, %107, %108, %109, %110, %111,"
+        " %112, %113, %114, %115, %116, %117, %118, %119,"
+        " %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "%128, %129, p, 1, 1, %131, %132;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+          "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+          "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+          "+f"(d[126]), "+f"(d[127])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(kTnspA), "n"(kTnspB)
+        : "memory");
+  }
+};
 
 
 // ---------------------------------------------------------------------
@@ -406,13 +448,12 @@ struct Wgmma<128> {
 // wgmma (points as N, features as K) and take the weights as A (the layer's
 // output features as M, 64 a wgmma): a pass of up to 256 output columns is
 // up to four 64-row tiles, tiles 0 and 2 to consumer 0, 1 and 3 to
-// consumer 1. One thread of the producer streams every operation's weight
-// stages, in program order and tile group after tile group, into a ring of
-// slots: one bulk copy per 64-column strip (and plane) of a stage, each
-// split over the CTAs of the cluster and multicast into all of them. Every
-// slot has a full barrier (the producer's arrive and the copies' bytes)
-// and an empty barrier (one arrive per consumer warpgroup of every CTA of
-// the cluster). The consumers wait only on their stage's full barrier.
+// consumer 1. One warp of the producer streams every operation's weight
+// stages, in program order and tile after tile, into a ring of slots: one
+// bulk copy per 64-column strip (and plane) of a stage. Every slot has a
+// full barrier (the producer's arrive and the copies' bytes) and an empty
+// barrier (one arrive per consumer warpgroup). The consumers wait only on
+// their stage's full barrier.
 //
 // Shared-memory layouts (gmma_desc's 128-byte swizzle, 1024-byte atoms of
 // 8 rows x 64 bf16 columns, chunk j of row r at j ^ r):
@@ -430,7 +471,9 @@ struct Wgmma<128> {
 //    * sc + n % 64 / 8) * 128). The forward reads a strip as W^T (M-major
 //    A: sbo = 1024, the next 8 rows, swizzled; lbo = sc * 128, sbo = 128
 //    unswizzled); dX reads the same bytes as W (K-major A: sbo = 1024
-//    swizzled; lbo = 128, sbo = sc * 128 unswizzled).
+//    swizzled; lbo = 128, sbo = sc * 128 unswizzled). The backward's
+//    workspace matrices (rows of points) lie in the same strips, so that
+//    phase 2 reads a stage of them as M-major A and N-major B.
 // A 64-row tile may read past the last real row of its operand (a strip
 // narrower than 64 columns, a pass ending inside a tile): those rows of
 // the product are never written, and the layout leaves room after the
@@ -670,40 +713,24 @@ struct Ring {
   }
 };
 
-// `bytes` of a copy, cut into 128-byte units shared out over the cluster's
-// CTAs (rank of 1 << lg), this CTA's part multicast into all of them.
-__device__ __forceinline__ void copy_part(unsigned char* dst, const bf16* src,
-                                          int bytes, uint64_t* full, int rank,
-                                          int lg) {
-  if (lg == 0) {
-    bulk_load(dst, src, bytes, full);
-    return;
-  }
-  const int units = bytes >> 7;
-  const int u0 = (units * rank) >> lg, u1 = (units * (rank + 1)) >> lg;
-  if (u1 > u0)
-    bulk_load_multicast(dst + (u0 << 7), src + (u0 << 6), (u1 - u0) << 7,
-                        full, static_cast<uint16_t>((1u << (1 << lg)) - 1));
-}
-
 // The producer warp's stream: every operation's stages in program order,
-// group after group of this cluster. Lane 0 waits for the slot and arms
-// its full barrier with the stage's bytes; then lane 2 t + plane copies
-// the forward stage's strip t of that plane (a dX stage is one strip:
-// lanes 0 and 1). `ops`, `n_ops`: the operation table; lg: log2 of the
-// cluster's CTAs.
+// tile after tile of this CTA (tile g of the call: scene g / tiles). Lane
+// 0 waits for the slot and arms its full barrier with the stage's bytes;
+// then lane 2 t + plane copies the forward stage's strip t of that plane
+// (a dX stage is one strip: lanes 0 and 1). `ops`, `n_ops`: the operation
+// table.
 template <bool kHiLo>
 __device__ __forceinline__ void produce(
     const int* ops, int op_ints, int n_ops, const bf16* weights,
-    long long w_stride, int groups_per_scene, int n_groups, int cluster_id,
-    int n_clusters, int stages, unsigned char* ring, int slot_bytes,
-    int half, uint64_t* full, uint64_t* empty, int rank, int lg) {
+    long long w_stride, int tiles, int n_tiles, int stages,
+    unsigned char* ring, int slot_bytes, int half, uint64_t* full,
+    uint64_t* empty) {
   const int lane = threadIdx.x & 31;
   const int t = kHiLo ? lane >> 1 : lane, plane = kHiLo ? lane & 1 : 0;
   Ring pos;
 #pragma unroll 1
-  for (int g = cluster_id; g < n_groups; g += n_clusters) {
-    const bf16* w = weights + (g / groups_per_scene) * w_stride;
+  for (int g = blockIdx.x; g < n_tiles; g += gridDim.x) {
+    const bf16* w = weights + (g / tiles) * w_stride;
 #pragma unroll 1
     for (int oi = 0; oi < n_ops; ++oi) {
       const int* o = ops + oi * op_ints;
@@ -730,18 +757,18 @@ __device__ __forceinline__ void produce(
         if (kind == kOpFwd) {
           if (t < strips) {
             const long long lo = static_cast<long long>(k) * wld;
-            copy_part(slot + t * rows * 128,
+            bulk_load(slot + t * rows * 128,
                       blk + plane * lo + static_cast<long long>(k) * 64 * gs +
                           a * sc * 8,
-                      rows * sc * 16, &full[pos.slot], rank, lg);
+                      rows * sc * 16, &full[pos.slot]);
           }
         } else if (t == 0) {
           const long long lo = static_cast<long long>(wld) * k;
           const int scs = min(8, (k >> 3) - 8 * a);
-          copy_part(slot,
+          bulk_load(slot,
                     blk + plane * lo + static_cast<long long>(wld) * 64 * a +
                         (c0 + r0) * scs * 8,
-                    rows * scs * 16, &full[pos.slot], rank, lg);
+                    rows * scs * 16, &full[pos.slot]);
         }
         pos.next(stages);
       });
@@ -757,11 +784,9 @@ struct Consumer {
   static constexpr int kAcc = T / 2;
 
   // Release a slot: one arrive per consumer warpgroup on the slot's empty
-  // barrier in every CTA of the cluster, once the warpgroup's products
-  // that read it have retired.
-  static __device__ __forceinline__ void release(uint64_t* empty, int lane,
-                                                 int csize) {
-    mbar_arrive_cluster(empty, lane, lane < csize);
+  // barrier, once the warpgroup's products that read it have retired.
+  static __device__ __forceinline__ void release(uint64_t* empty, int lane) {
+    mbar_arrive_if(empty, lane == 0);
   }
 
   // One stage's products as one straight-line block: S k-steps over the
@@ -823,10 +848,9 @@ struct Consumer {
   // One operation's products over its stages, from ring position `pos`
   // (advanced): the accumulators hold the whole sum on return. `bufs`:
   // the buffer table (byte offset, columns, first column); `base`: shared
-  // memory's address; `zero`: 128 zero bytes; `live`: a tile of real
-  // points (else the stages are only waited on and released). A forward
-  // stage holds at most 64 weight rows and a dX stage one 64-column
-  // strip: at most four k-steps.
+  // memory's address; `zero`: 128 zero bytes. A forward stage holds at
+  // most 64 weight rows and a dX stage one 64-column strip: at most four
+  // k-steps.
   //
   // Which products a stage issues (its k-steps, and u = 0 / 1 where either
   // warpgroup has tile wg + 2 u in the stage) depends on the operation
@@ -838,7 +862,7 @@ struct Consumer {
       const int* o, Ring& pos, int stages, unsigned char* ring,
       int slot_bytes, int half, uint64_t* full, uint64_t* empty,
       const int* bufs, uint32_t base, uint32_t zero, int wg, int lane_wg,
-      int csize, bool live, float (&acc0)[kAcc], float (&acc1)[kAcc]) {
+      float (&acc0)[kAcc], float (&acc1)[kAcc]) {
     const int kind = o[cKind], nn = o[cN], c0 = o[cCol], wld = o[cWLd];
     const int pass_tiles = (nn + 63) >> 6;
     // The forward's strips of this warpgroup's tiles: cores a row group.
@@ -850,101 +874,90 @@ struct Consumer {
     int prev = -1;
     each_stage(o, [&](int x, int a, int r0, int rows) {
       mbar_wait(&full[pos.slot], pos.phase);
-      if (live) {
-        const int src = x ? o[cSrcB] : o[cSrcA];
-        const uint32_t b_at = base + bufs[3 * src];
-        const uint32_t b_lo = (T * bufs[3 * src + 1] * 2) >> 4;
-        const int cb = bufs[3 * src + 2];
-        const uint32_t slot = ring_at + pos.slot * slot_bytes;
-        uint64_t da[2], db[4];
-        uint32_t a_step[2], hf[2];
-        bool mine[2];
-        int steps, tiles;
-        if (kind == kOpFwd) {
-          // Tile mt's strip at mt * rows * 128 of the stage; 16 weight rows
-          // (two row groups) a k-step.
-          const int sc[2] = {sc0, sc1};
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            const uint32_t at = slot + (wg + 2 * u) * rows * 128;
-            const uint64_t sw = gmma_desc(at, 1024, 1024, true);
-            const uint64_t un = gmma_desc(at, sc[u] * 128, 128, false);
-            da[u] = sc[u] == 8 ? sw : un;
-            a_step[u] = 2 * sc[u] * 8;
-            mine[u] = wg + 2 * u < pass_tiles;
-          }
-          steps = rows >> 4;
-          tiles = 1 | (pass_tiles > 2 ? 2 : 0);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) db[q] = act_desc<T>(b_at, cb + a + 16 * q);
-        } else {
-          // Strip a of the block, rows r0.. of the pass: tile mt from row
-          // group (64 mt - r0) / 8; 16 columns (two cores) a k-step: 32
-          // bytes on in a swizzled row, two cores unswizzled.
-          const int k = x ? o[cKB] : o[cKA];
-          const int sc = min(8, (k >> 3) - 8 * a);
-          const bool sw = sc == 8;
-          const int t0 = r0 >> 6, t1 = min(pass_tiles, (r0 + rows + 63) >> 6);
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            const int mt = wg + 2 * u;
-            da[u] = gmma_desc(slot + ((mt * 64 - r0) >> 3) * sc * 128,
-                              sw ? 16 : 128, sw ? 1024 : sc * 128, sw);
-            a_step[u] = sw ? 2 : 16;
-            mine[u] = mt >= t0 && mt < t1;
-          }
-          steps = sc >> 1;
-          tiles = (t0 <= 1 && t1 > 0 ? 1 : 0) | (t1 > 2 ? 2 : 0);
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            db[q] = act_desc<T>(b_at, cb + 64 * a + 16 * q);
-        }
+      const int src = x ? o[cSrcB] : o[cSrcA];
+      const uint32_t b_at = base + bufs[3 * src];
+      const uint32_t b_lo = (T * bufs[3 * src + 1] * 2) >> 4;
+      const int cb = bufs[3 * src + 2];
+      const uint32_t slot = ring_at + pos.slot * slot_bytes;
+      uint64_t da[2], db[4];
+      uint32_t a_step[2], hf[2];
+      bool mine[2];
+      int steps, tiles;
+      if (kind == kOpFwd) {
+        // Tile mt's strip at mt * rows * 128 of the stage; 16 weight rows
+        // (two row groups) a k-step.
+        const int sc[2] = {sc0, sc1};
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
-          da[u] = mine[u] ? da[u] : zero_desc;
-          a_step[u] = mine[u] ? a_step[u] : 0;
-          hf[u] = mine[u] ? static_cast<uint32_t>(half) >> 4 : 0;
+          const uint32_t at = slot + (wg + 2 * u) * rows * 128;
+          const uint64_t sw = gmma_desc(at, 1024, 1024, true);
+          const uint64_t un = gmma_desc(at, sc[u] * 128, 128, false);
+          da[u] = sc[u] == 8 ? sw : un;
+          a_step[u] = 2 * sc[u] * 8;
+          mine[u] = wg + 2 * u < pass_tiles;
         }
-        const int s[2] = {mine[0] ? fresh[0] : 1, mine[1] ? fresh[1] : 1};
-        wgmma_fence();
-        if (kind == kOpFwd)
-          dispatch<1>(steps, tiles, acc0, acc1, da, a_step, db, hf, b_lo, s);
-        else
-          dispatch<0>(steps, tiles, acc0, acc1, da, a_step, db, hf, b_lo, s);
-        wgmma_commit();
-        fresh[0] |= static_cast<int>(mine[0]) & tiles;
-        fresh[1] |= static_cast<int>(mine[1]) & (tiles >> 1);
-        wgmma_wait<1>();
+        steps = rows >> 4;
+        tiles = 1 | (pass_tiles > 2 ? 2 : 0);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) db[q] = act_desc<T>(b_at, cb + a + 16 * q);
+      } else {
+        // Strip a of the block, rows r0.. of the pass: tile mt from row
+        // group (64 mt - r0) / 8; 16 columns (two cores) a k-step: 32
+        // bytes on in a swizzled row, two cores unswizzled.
+        const int k = x ? o[cKB] : o[cKA];
+        const int sc = min(8, (k >> 3) - 8 * a);
+        const bool sw = sc == 8;
+        const int t0 = r0 >> 6, t1 = min(pass_tiles, (r0 + rows + 63) >> 6);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int mt = wg + 2 * u;
+          da[u] = gmma_desc(slot + ((mt * 64 - r0) >> 3) * sc * 128,
+                            sw ? 16 : 128, sw ? 1024 : sc * 128, sw);
+          a_step[u] = sw ? 2 : 16;
+          mine[u] = mt >= t0 && mt < t1;
+        }
+        steps = sc >> 1;
+        tiles = (t0 <= 1 && t1 > 0 ? 1 : 0) | (t1 > 2 ? 2 : 0);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          db[q] = act_desc<T>(b_at, cb + 64 * a + 16 * q);
       }
-      if (prev >= 0) release(&empty[prev], lane_wg, csize);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        da[u] = mine[u] ? da[u] : zero_desc;
+        a_step[u] = mine[u] ? a_step[u] : 0;
+        hf[u] = mine[u] ? static_cast<uint32_t>(half) >> 4 : 0;
+      }
+      const int s[2] = {mine[0] ? fresh[0] : 1, mine[1] ? fresh[1] : 1};
+      wgmma_fence();
+      if (kind == kOpFwd)
+        dispatch<1>(steps, tiles, acc0, acc1, da, a_step, db, hf, b_lo, s);
+      else
+        dispatch<0>(steps, tiles, acc0, acc1, da, a_step, db, hf, b_lo, s);
+      wgmma_commit();
+      fresh[0] |= static_cast<int>(mine[0]) & tiles;
+      fresh[1] |= static_cast<int>(mine[1]) & (tiles >> 1);
+      wgmma_wait<1>();
+      if (prev >= 0) release(&empty[prev], lane_wg);
       prev = pos.slot;
       pos.next(stages);
     });
-    if (live) {
-      wgmma_wait<0>();
-      fence_acc(acc0);
-      fence_acc(acc1);
-    }
-    if (prev >= 0) release(&empty[prev], lane_wg, csize);
+    wgmma_wait<0>();
+    fence_acc(acc0);
+    fence_acc(acc1);
+    if (prev >= 0) release(&empty[prev], lane_wg);
   }
 };
 
-// Tile groups: a cluster of C CTAs walks groups of C neighbouring tiles of
-// one scene, CTA r the group's tile r; a scene's last group is padded with
-// empty tiles (no points, nothing written), so no group straddles two
-// scenes. Group g: scene g / groups, tile (g % groups) * C + r.
-__host__ __device__ inline int scene_groups(int tiles, int csize) {
-  return (tiles + csize - 1) / csize;
-}
-
 // The ring's barriers: full[s] expects the producer's arrive (and the
-// bytes), empty[s] two consumer warpgroups of each CTA of the cluster;
-// after kMaxStages slots' barriers, the zero block.
+// bytes), empty[s] `readers` arrivals (the two consumer warpgroups, and
+// whatever else reads the slot); after kMaxStages slots' barriers, the
+// zero block.
 __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty,
-                                          int stages, int csize) {
+                                          int stages, int readers = 2) {
   for (int s = 0; s < stages; ++s) {
     mbar_init(&full[s], 1);
-    mbar_init(&empty[s], 2 * csize);
+    mbar_init(&empty[s], readers);
   }
   uint32_t* zero = reinterpret_cast<uint32_t*>(full + 2 * kMaxStages);
   for (int i = 0; i < kZeroBytes / 4; ++i) zero[i] = 0;
@@ -952,64 +965,50 @@ __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty,
   fence_barrier_init();
 }
 
-// Launch `kernel` on `clusters` clusters of `csize` CTAs of kThreads.
-template <typename... KArgs, typename... Args>
-cudaError_t launch_clusters(void (*kernel)(KArgs...), int clusters, int csize,
-                            int smem, cudaStream_t stream, Args&&... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(clusters * csize);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = csize;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
-  return err != cudaSuccess ? err : cudaGetLastError();
-}
-
-// How many clusters of `csize` CTAs of `kernel` at `smem` bytes the card
-// holds at once (the GPCs may not hold 132 / csize), asked once per
-// (kernel, cluster, bytes, device).
+// How many CTAs of `kernel` (kThreads each, `smem` bytes) the card holds at
+// once: the persistent grid's size, asked once per (kernel, bytes,
+// device).
 template <typename... KArgs>
-cudaError_t max_clusters(void (*kernel)(KArgs...), int csize, int smem,
-                         int* out) {
+cudaError_t resident_ctas(void (*kernel)(KArgs...), int smem, int* out) {
   static std::mutex lock;
-  static std::map<std::tuple<const void*, int, int, int>, int> known;
+  static std::map<std::tuple<const void*, int, int>, int> known;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const auto key = std::make_tuple(reinterpret_cast<const void*>(kernel),
-                                   csize, smem, dev);
+  const auto key =
+      std::make_tuple(reinterpret_cast<const void*>(kernel), smem, dev);
   std::lock_guard<std::mutex> hold(lock);
   auto at = known.find(key);
   if (at != known.end()) {
     *out = at->second;
     return cudaSuccess;
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(csize * 132);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = csize;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(kernel),
-                                       &cfg);
+  int sms = 0, per = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  if (n <= 0) return cudaErrorInvalidConfiguration;
-  known[key] = n;
-  *out = n;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per, reinterpret_cast<const void*>(kernel), kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per <= 0) return cudaErrorInvalidConfiguration;
+  known[key] = sms * per;
+  *out = sms * per;
   return cudaSuccess;
+}
+
+// Launch `kernel` on a persistent grid of min(work, resident CTAs) CTAs of
+// kThreads with `smem` bytes of dynamic shared memory.
+template <typename... KArgs, typename... Args>
+cudaError_t launch_persistent(void (*kernel)(KArgs...), long long work,
+                              int smem, cudaStream_t stream, Args&&... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int ctas = 0;
+  err = resident_ctas(kernel, smem, &ctas);
+  if (err != cudaSuccess) return err;
+  const int grid = static_cast<int>(work < ctas ? work : ctas);
+  kernel<<<grid, kThreads, smem, stream>>>(std::forward<Args>(args)...);
+  return cudaGetLastError();
 }
 
 }  // namespace mlp_tile

@@ -90,55 +90,71 @@ ZERO_BYTES = 128        # after the barriers: zeros a missing tile multiplies
 # The backward kernels' fixed shape (csrc/fused_mlp_bwd.cu). The matrix and
 # operation tables follow the buffer table, sized by the net (their bases
 # and counts are in the header).
-PAD = 8                 # phase 2: bf16 of padding per shared-memory row
-BWD_THREADS = 256       # phase 2 and the reduction
 BWD_P1_THREADS = CORE_THREADS
+BWD_P2_THREADS = CORE_THREADS
 BWD_MAX_N = 256         # output columns of one phase-1 pass
 BWD_HEADER_INTS = 32
 BWD_MAX_BUFS = 8        # shared-memory buffers (byte offset, columns, 0)
 BWD_OP_INTS = 16
 BWD_TABLES_BASE = BWD_HEADER_INTS + 3 * BWD_MAX_BUFS
-BWD_TILE_K = 128        # phase 2: dW rows per block
-BWD_TILE_N = 128        # phase 2: dW columns per block
-BWD_STAGE_ROWS = 64     # phase 2: points per ring stage
-BWD_STAGES2 = 3
-BWD_JOB_INTS = 10
+BWD_UNIT_K = 128        # phase 2: input features of a work unit, at most
+BWD_UNIT_N = 256        # ... and output features (wgmma's N)
+BWD_STAGE_ROWS = 64     # workspace rows and phase 2's splits: multiples
+BWD_UNIT_INTS = 12
+P2_RING_OFF = 1024      # phase 2's ring, after its barriers, the zero
+#                         block and the ones (and zeros) its bias products
+#                         multiply
+P2_SLACK = 1024         # ... and the bytes a narrow A strip's tile reads past
+P2_GROUP_ROWS = {False: 64, True: 32}   # phase 2: a group of rows (its
+#                         k-steps issued as one block), bf16 and hi_lo
+P2_MAX_SUB = 16         # groups of rows a phase-2 stage, at most
+P2_MAX_STAGES = MAX_STAGES   # phase 2's ring slots, at most
 
-# The layouts tried: (points a tile, CTAs a cluster) for the forward, and
-# (points a tile, CTAs a cluster, matrix and operation tables in shared
-# memory) for phase 1, each at every stage size of STAGE_ROWS; _fwd_pick /
-# _bwd_pick choose among them. A tile of T points is the N of every wgmma.
-# Every cluster is of one CTA: the kernels can run tiles below 64 points in
-# clusters of 64 / T CTAs that share each weight stage by multicast, but
-# on an H100 that was slower at 123 of 134 layouts measured, by up to 26%,
-# and never faster by more than 1.3% (scripts/layout_sweep.py, PERF.md):
-# the small-N products, not L2 reads, take the time. Phase 1 keeps its tables in device memory only where they
-# crowd shared memory.
-FWD_TRIES = {
-    False: ((128, 1), (64, 1), (32, 1), (16, 1)),
-    True: ((64, 1), (32, 1), (16, 1)),
-}
+# The layouts tried: points a tile for the forward, and (points a tile,
+# matrix and operation tables in shared memory) for phase 1, each at every
+# stage size of STAGE_ROWS; _fwd_pick / _bwd_pick choose among them. A tile
+# of T points is the N of every wgmma, one CTA a tile. Phase 1 keeps its
+# tables in device memory only where they crowd shared memory.
+FWD_TRIES = {False: (128, 64, 32, 16), True: (64, 32, 16)}
 BWD_TRIES = {
-    False: ((128, 1, True), (64, 1, True), (32, 1, True), (16, 1, True)),
-    True: ((64, 1, True), (32, 1, True), (16, 1, True), (16, 1, False),
-           (8, 1, False)),
+    False: ((128, True), (64, True), (32, True), (16, True)),
+    True: ((64, True), (32, True), (16, True), (16, False), (8, False)),
 }
+# Phase 2's layouts tried: (input features a work unit, bytes a ring stage
+# aims at); _p2_pick chooses (scripts/layout_sweep.py times them all).
+P2_TRIES = ((128, 32768), (128, 16384), (128, 65536), (64, 32768),
+            (64, 16384), (64, 65536))
 # Every tile a layout may take has its kernels in the CUDA sources.
 TILE_ROWS = (128, 64, 32, 16)
 TILE_ROWS_HI_LO = (64, 32, 16, 8)
 # How a call is cut: at most BWD_CHUNK_ROWS points of a scene per phase-1 /
 # phase-2 pair, fewer (a multiple of BWD_CHUNK_ALIGN) where a scene's
 # workspace would pass BWD_WS_BUDGET bytes; phase 2's rows split in up to
-# BWD_MAX_SPLITS ranges of at least BWD_MIN_SPLIT_ROWS points. A call's
-# workspace and partial slots may take BWD_MEMORY_SHARE of the card's
-# memory (the rest holds the nets, the optimizer and the step's
+# BWD_MAX_SPLITS ranges of at least BWD_MIN_SPLIT_ROWS and, where the
+# splits allow, at most BWD_MAX_SPLIT_ROWS points (the length of each fp32
+# sum), enough to give BWD_FILL_ITEMS work items (units x splits) or more,
+# up to twice that, as many as balance the P2_SMS CTAs' bytes best
+# (bwd_splits). A
+# call's workspace and partial slots may take BWD_MEMORY_SHARE of the
+# card's memory (the rest holds the nets, the optimizer and the step's
 # activations); a stack of more scenes is refused by name.
 BWD_CHUNK_ROWS = 131_072
 BWD_CHUNK_ALIGN = 4096
 BWD_WS_BUDGET = 8 << 30
 BWD_MEMORY_SHARE = 0.5
 BWD_MAX_SPLITS = 32
-BWD_MIN_SPLIT_ROWS = 2048
+BWD_MIN_SPLIT_ROWS = 512
+BWD_MAX_SPLIT_ROWS = 2048   # the split lengths of the mma.sync design
+#                             at the train calls (32 x 2,048 / 32 x 4,096
+#                             at 65,536 / 131,072 points): on an H100, sums
+#                             over 11,968 points a split left phase 2 at
+#                             3.0e-5 of the plain products (normalised,
+#                             8x256 fine call), over 4,096 at 7.1e-6
+#                             (PERF.md)
+BWD_FILL_ITEMS = 2 * 132
+P2_SMS = 132            # phase 2's persistent CTAs on an H100, one an SM
+P2_ITEM_ROWS = 256      # an item's fixed cost (its pipeline's fill and its
+#                         epilogue), in rows of its operands
 
 # Shared-memory buffers and epilogues of the forward's program.
 _X, _D, _P0, _P1 = 0, 1, 2, 3
@@ -194,22 +210,10 @@ def strip_cores(cols: int, s: int) -> int:
     return min(8, (cols - STRIP * s) // 8)
 
 
-def _strip_index(k: int, w: int) -> torch.Tensor:
-    """Where element (row, column) of a strip of k rows and w columns lies
-    in the strip's image, (k, w): a whole strip (w = 64) in 128-byte
-    swizzled atoms of 8 rows (16-byte chunk j of row r at chunk j ^ r), a
-    narrower one in 8 x 8 core matrices, row group after row group."""
-    r = torch.arange(k)[:, None]
-    c = torch.arange(w)[None, :]
-    if w == STRIP:
-        return (r // 8) * 512 + (r % 8) * 64 + ((c // 8) ^ (r % 8)) * 8 + c % 8
-    return ((r // 8) * (w // 8) + c // 8) * 64 + (r % 8) * 8 + c % 8
-
-
 def strip_image(blk: torch.Tensor) -> torch.Tensor:
     """A (k, n) weight block, both multiples of 16, in the kernels' layout
     (mlp_tile.cuh), flat: strips of 64 columns one after another, each its
-    row groups of 8 rows one after another (:func:`_strip_index`). The
+    row groups of 8 rows one after another (:func:`ws_index`). The
     forward reads a strip as W^T (M-major A of wgmma), dX the same bytes as
     W (K-major A). Only device operations on the block's device (the train
     step packs inside a CUDA-graph capture, where no host tensor may be
@@ -233,12 +237,21 @@ def strip_image(blk: torch.Tensor) -> torch.Tensor:
 
 
 def block_from_image(flat: torch.Tensor, k: int, n: int) -> torch.Tensor:
-    """The (k, n) block :func:`strip_image` laid out as ``flat``."""
+    """The (k, n) block :func:`strip_image` laid out as ``flat`` (k a
+    multiple of 8): row r's 16-byte chunk j of a whole strip from its chunk
+    j ^ r, a narrower strip's core matrices back to rows."""
     cols = []
     at = 0
+    r = torch.arange(8, device=flat.device)
+    swz = r[:, None] ^ r[None, :]
     for s in range(0, n, STRIP):
         w = min(STRIP, n - s)
-        cols.append(flat[at:at + k * w][_strip_index(k, w).to(flat.device)])
+        part = flat[at:at + k * w]
+        if w == STRIP:
+            t = part.view(k // 8, 8, 8, 8)[:, r[:, None], swz, :]
+        else:
+            t = part.view(k // 8, w // 8, 8, 8).permute(0, 2, 1, 3)
+        cols.append(t.reshape(k, w))
         at += k * w
     return torch.cat(cols, 1)
 
@@ -255,18 +268,21 @@ def act_index(rows: int, cols: int, col0: int = 0) -> torch.Tensor:
             + ((c // 8) ^ (p % 8)) % 8 * 8 + c % 8)
 
 
-def tile_groups(n_scenes: int, tiles: int, cluster: int):
-    """The kernels' walk over a call's tiles (mlp_tile.cuh's scene_groups):
-    group g of a cluster's ``cluster`` CTAs lies in scene g // groups,
-    groups = ceil(tiles / cluster), and its CTA of rank r takes tile (g %
-    groups) * cluster + r of that scene, or an empty tile (None: no points,
-    nothing written) at or past ``tiles``. Returns [(scene, (tile or None
-    for each rank))], group by group."""
-    groups = -(-tiles // cluster)
-    return [(g // groups, tuple(t if t < tiles else None
-                                for t in range((g % groups) * cluster,
-                                               (g % groups + 1) * cluster)))
-            for g in range(n_scenes * groups)]
+def ws_index(rows: int, cols: int, device=None) -> torch.Tensor:
+    """Element offsets of a workspace matrix of ``rows`` points (a multiple
+    of 8) and ``cols`` columns within one plane (fused_mlp_bwd.cu's
+    ws_elem): (rows, cols), the weights' strip layout (:func:`strip_image`)
+    with the points as its rows: strip c // 64 at rows * 64 * (c // 64), a
+    whole strip in 128-byte swizzled atoms of 8 rows, a narrower last strip
+    in 8 x 8 core matrices. Phase 2 reads a stage of a strip with one bulk
+    copy, as wgmma's M-major A or N-major B."""
+    r = torch.arange(rows, device=device)[:, None]
+    c = torch.arange(cols, device=device)[None, :]
+    cc = c % STRIP
+    w = torch.clamp(cols - c // STRIP * STRIP, max=STRIP)
+    full = (r // 8) * 512 + (r % 8) * 64 + ((cc // 8) ^ (r % 8)) * 8 + c % 8
+    narrow = ((r // 8) * (w // 8) + cc // 8) * 64 + (r % 8) * 8 + c % 8
+    return rows * (c - cc) + torch.where(w == STRIP, full, narrow)
 
 
 # --------------------------------------------------------------------- #
@@ -381,14 +397,13 @@ def _bwd_shapes(mc: ModelConfig, vdirs: bool) -> List[OpShape]:
 @dataclasses.dataclass(frozen=True)
 class FwdLayout:
     """The forward kernel's shared memory for one architecture and mode:
-    ``rows`` points a tile, ``cluster`` CTAs a cluster; the program's
-    buffers as ``(name, (byte offset, columns, 0))`` pairs in table order;
+    ``rows`` points a tile; the program's buffers as ``(name, (byte
+    offset, columns, 0))`` pairs in table order;
     the ring's barriers' and slots' byte offsets, a slot's bytes (in
     hi_lo, the lo plane at half), its stages and the weight rows a stage
     gives the widest operations (``kr``); the total bytes."""
 
     rows: int
-    cluster: int
     bufs: Tuple[Tuple[str, Tuple[int, int, int]], ...]
     bar_off: int
     ring_off: int
@@ -444,9 +459,9 @@ def _bwd_pick(layouts):
 
 @functools.lru_cache(maxsize=None)
 def _fwd_layout_at(mc: ModelConfig, vdirs: bool, hi_lo: bool, rows: int,
-                   cluster: int, kr: int) -> FwdLayout:
-    """The forward's layout at tiles of ``rows`` points in clusters of
-    ``cluster`` CTAs: the program, the ring's barriers, the buffers x
+                   kr: int) -> FwdLayout:
+    """The forward's layout at tiles of ``rows`` points: the program, the
+    ring's barriers, the buffers x
     (encoded points; the heads' fp32 rows are staged there after the
     trunk), d (encoded dirs), p0 (and p1 where a layer takes more than one
     pass: every layer of a net at most ``FWD_MAX_N`` wide writes its output
@@ -469,8 +484,8 @@ def _fwd_layout_at(mc: ModelConfig, vdirs: bool, hi_lo: bool, rows: int,
         bufs.append((name, (off, c, 0)))
         off += rows * c * 2 * planes
     stages, kr, slot = _ring_at(SMEM_LIMIT - off, ops, planes, kr)
-    return FwdLayout(rows, cluster, tuple(bufs), bar, off, slot * planes,
-                     stages, kr, off + slot * planes * stages)
+    return FwdLayout(rows, tuple(bufs), bar, off, slot * planes, stages, kr,
+                     off + slot * planes * stages)
 
 
 @functools.lru_cache(maxsize=None)
@@ -479,22 +494,28 @@ def _fwd_layout(mc: ModelConfig, vdirs: bool, hi_lo: bool) -> FwdLayout:
     ``FWD_TRIES`` and the stage sizes of ``STAGE_ROWS``, chosen by
     :func:`_fwd_pick`. Where no layout holds two stages, the last tried is
     returned (:func:`forward_misfit` names it)."""
-    return _fwd_pick([_fwd_layout_at(mc, vdirs, hi_lo, rows, cluster, kr)
-                      for rows, cluster in FWD_TRIES[hi_lo]
-                      for kr in STAGE_ROWS])
+    return _fwd_pick([_fwd_layout_at(mc, vdirs, hi_lo, rows, kr)
+                      for rows in FWD_TRIES[hi_lo] for kr in STAGE_ROWS])
 
 
 def kernel_layouts(packed: "PackedMLP") -> Dict[str, Dict[str, int]]:
-    """The layouts a packed net's forward and phase 1 run: points a tile,
-    CTAs a cluster, ring stages and weight rows a stage (of the widest
-    forward operations)."""
+    """The layouts a packed net's kernels run: the forward's and phase 1's
+    points a tile, ring stages and weight rows a stage (of the widest
+    forward operations); phase 2's input features a unit, the bytes a
+    stage aims at, its ring stages and slot bytes."""
     mc = packed.net.cfg
-    return {key: {"points_a_tile": lay.rows, "cluster": lay.cluster,
-                  "stages": lay.stages, "rows_a_stage": lay.kr}
-            for key, lay in (("fwd", _fwd_layout(mc, packed.vdirs,
-                                                 packed.hi_lo)),
-                             ("phase1", _bwd_layout(mc, packed.vdirs,
-                                                    packed.hi_lo)))}
+    out = {key: {"points_a_tile": lay.rows, "stages": lay.stages,
+                 "rows_a_stage": lay.kr}
+           for key, lay in (("fwd", _fwd_layout(mc, packed.vdirs,
+                                                packed.hi_lo)),
+                            ("phase1", _bwd_layout(mc, packed.vdirs,
+                                                   packed.hi_lo)))}
+    hdr = bwd_header(packed)
+    unit_k, stage_bytes = _p2_pick(mc, packed.vdirs, packed.hi_lo)
+    out["phase2"] = {"unit_k": unit_k, "stage_bytes": stage_bytes,
+                     "stages": hdr["p2_stages"], "slot": hdr["p2_slot"],
+                     "units": hdr["n_units"]}
+    return out
 
 
 def smem_bytes(mc: ModelConfig, vdirs: bool, hi_lo: bool = False) -> int:
@@ -530,11 +551,11 @@ def kernel_fits(mc: ModelConfig, vdirs: bool = True,
     lay = _fwd_layout(mc, vdirs, hi_lo)
     why = forward_misfit(mc, vdirs, hi_lo)
     log.info(
-        "fused MLP kernel budget: %s: %d-point tiles in clusters of %d, %d "
-        "weight stages of %d rows (%d B a slot), %d B of shared memory per "
-        "block (Hopper limit %d B): %s",
-        _arch_name(mc, vdirs, hi_lo), lay.rows, lay.cluster, lay.stages,
-        lay.kr, lay.slot, lay.smem, SMEM_LIMIT, why or "kernel")
+        "fused MLP kernel budget: %s: %d-point tiles, %d weight stages of "
+        "%d rows (%d B a slot), %d B of shared memory per block (Hopper "
+        "limit %d B): %s",
+        _arch_name(mc, vdirs, hi_lo), lay.rows, lay.stages, lay.kr,
+        lay.slot, lay.smem, SMEM_LIMIT, why or "kernel")
     return why is None
 
 
@@ -619,9 +640,8 @@ def bwd_chunk_rows(mc: ModelConfig, vdirs: bool, hi_lo: bool = False) -> int:
 
 def ws_rows(n: int, tile: int) -> int:
     """Workspace rows of a scene's n points at phase-1 tiles of ``tile``
-    points: n rounded up to the tile and to phase 2's ``BWD_STAGE_ROWS``
-    (tiles of fewer points fill the rows up to the stage with zero
-    points)."""
+    points: n rounded up to the tile and to ``BWD_STAGE_ROWS`` (tiles of
+    fewer points fill the rows up to 64 with zero points)."""
     step = max(tile, BWD_STAGE_ROWS)
     return -(-n // step) * step
 
@@ -629,7 +649,7 @@ def ws_rows(n: int, tile: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class BwdLayout:
     """Phase 1's shared memory for one architecture and mode: ``rows``
-    points a tile, ``cluster`` CTAs a cluster; ``prog_ints`` the program's
+    points a tile; ``prog_ints`` the program's
     ints copied into shared memory (header, buffer, matrix and operation
     tables, or the header and buffer table alone); the buffers as ``{name:
     (byte offset, columns, 0)}``; the mask region's byte offset and its
@@ -638,7 +658,6 @@ class BwdLayout:
     the widest forward operations (``kr``); the total bytes."""
 
     rows: int
-    cluster: int
     prog_ints: int
     bufs: Dict[str, Tuple[int, int, int]]
     mask_off: int
@@ -657,9 +676,9 @@ class BwdLayout:
 
 @functools.lru_cache(maxsize=None)
 def _bwd_layout_at(mc: ModelConfig, vdirs: bool, hi_lo: bool, rows: int,
-                   cluster: int, shared: bool, kr: int) -> BwdLayout:
-    """Phase 1's dynamic shared memory at tiles of ``rows`` points in
-    clusters of ``cluster`` CTAs: the program (or, where ``shared`` is
+                   shared: bool, kr: int) -> BwdLayout:
+    """Phase 1's dynamic shared memory at tiles of ``rows`` points: the
+    program (or, where ``shared`` is
     false, its header and buffer table); the ring's barriers; the buffers
     x, d, p0 (and p1 where a layer takes more than one pass: a net at most
     ``BWD_MAX_N`` wide writes every output over its input, down the dX
@@ -699,9 +718,8 @@ def _bwd_layout_at(mc: ModelConfig, vdirs: bool, hi_lo: bool, rows: int,
     off += _align128(masks[-1][0])
     off = _align1k(off)
     stages, kr, slot = _ring_at(SMEM_LIMIT - off, ops, planes, kr)
-    return BwdLayout(rows, cluster, prog_ints, bufs, mask_off, masks[:-1],
-                     bar, off, slot * planes, stages, kr,
-                     off + slot * planes * stages)
+    return BwdLayout(rows, prog_ints, bufs, mask_off, masks[:-1], bar, off,
+                     slot * planes, stages, kr, off + slot * planes * stages)
 
 
 @functools.lru_cache(maxsize=None)
@@ -748,12 +766,12 @@ def backward_fits(mc: ModelConfig, vdirs: bool = True,
     lay = _bwd_layout(mc, vdirs, hi_lo)
     why = backward_misfit(mc, vdirs, hi_lo)
     log.info(
-        "fused MLP backward budget: %s: %d-point tiles in clusters of %d, "
-        "%d B of shared memory per block (%d weight stages of %d rows, %d B "
-        "of masks; Hopper limit %d B), %d operations and %d workspace "
-        "matrices (tables in %s memory), %d B of workspace per point, "
-        "chunks of %d points: %s",
-        _arch_name(mc, vdirs, hi_lo), lay.rows, lay.cluster, lay.smem,
+        "fused MLP backward budget: %s: %d-point tiles, %d B of shared "
+        "memory per block (%d weight stages of %d rows, %d B of masks; "
+        "Hopper limit %d B), %d operations and %d workspace matrices "
+        "(tables in %s memory), %d B of workspace per point, chunks of %d "
+        "points: %s",
+        _arch_name(mc, vdirs, hi_lo), lay.rows, lay.smem,
         lay.stages, lay.kr, lay.ring_off - lay.mask_off,
         SMEM_LIMIT, ops, mats,
         "shared" if lay.prog_ints > BWD_TABLES_BASE else "device",
@@ -776,12 +794,13 @@ class PackedMLP:
     ``program``: the forward's int32 header, buffer table and one record
     per column pass of each layer (see ``fused_mlp_fwd.cu``), also on the
     device as ``program_dev``; ``bwd_program``: the backward's header, buffer
-    and matrix tables, phase-1 operations and phase 2's ``bwd_jobs`` (see
-    ``fused_mlp_bwd.cu``), also on the device as ``bwd_program_dev``, of
-    which phase 1 copies the first ``bwd_prog_len`` ints into shared
-    memory. ``ws_mats``: each workspace
-    matrix's (name, column offset, cols); a workspace of R rows holds
-    ``R * ws_cols`` bf16, matrix m at ``R * offset`` as (planes, R, cols).
+    and matrix tables, phase-1 operations and phase 2's work units
+    ``bwd_units`` (see ``fused_mlp_bwd.cu``), also on the device as
+    ``bwd_program_dev``, of which phase 1 copies the first ``bwd_prog_len``
+    ints into shared memory. ``ws_mats``: each workspace matrix's (name,
+    column offset, cols); a workspace of R rows holds ``R * ws_cols`` bf16,
+    matrix m at ``R * offset``, plane after plane, each in the strip layout
+    of :func:`ws_index` (:func:`ws_matrix` reads one).
     ``grad_blocks`` / ``grad_biases`` say where each parameter's gradient
     lies in the backward's flat fp32 output: ``(param, in_start, k, n,
     offset, k_pad, n_pad)`` per weight block and ``(param, offset, n)``
@@ -800,10 +819,9 @@ class PackedMLP:
     bwd_program: np.ndarray
     bwd_program_dev: torch.Tensor
     bwd_prog_len: int
-    bwd_jobs: np.ndarray
+    bwd_units: np.ndarray
     bwd_smem: int
     bwd_rows: int
-    bwd_cluster: int
     ws_cols: int
     ws_mats: Tuple[Tuple[str, int, int], ...]
     grad_total: int
@@ -966,8 +984,7 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
         n_ops=len(ops), prog_len=FWD_OPS_BASE + FWD_OP_INTS * len(ops),
         n_freqs=n_freqs, enc_dim=enc_dim,
         dirs_dim=mc.input_ch_views if vdirs else 0, out_w=out_w,
-        hi_lo=int(hi_lo), rows=lay.rows, cluster=lay.cluster,
-        stages=lay.stages, ring_off=lay.ring_off, slot=lay.slot,
+        hi_lo=int(hi_lo), rows=lay.rows, stages=lay.stages, ring_off=lay.ring_off, slot=lay.slot,
         bar_off=lay.bar_off, smem=lay.smem)
     head = [header[k] for k in _FWD_HEADER]
     head += [0] * (FWD_HEADER_INTS - len(head))
@@ -980,7 +997,7 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
     bwd_program, ws_mats = _bwd_program(net, n_freqs, vdirs, hi_lo, out_w,
                                         blocks, bias_of, g_off)
     hdr = bwd_program[:BWD_HEADER_INTS]
-    jobs_off, n_jobs = int(hdr[_H_JOBS_OFF]), int(hdr[_H_N_JOBS])
+    units_off, n_units = int(hdr[_H_UNITS_OFF]), int(hdr[_H_N_UNITS])
     return PackedMLP(
         net=net, vdirs=vdirs, hi_lo=hi_lo,
         weights=torch.cat(w_parts).contiguous(),
@@ -991,9 +1008,8 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
         bwd_program=bwd_program,
         bwd_program_dev=_device_program(bwd_program.tobytes(), str(dev)),
         bwd_prog_len=int(hdr[_H_PROG_LEN]),
-        bwd_jobs=bwd_program[jobs_off:].reshape(n_jobs, BWD_JOB_INTS),
+        bwd_units=bwd_program[units_off:].reshape(n_units, BWD_UNIT_INTS),
         bwd_smem=int(hdr[_H_SMEM]), bwd_rows=int(hdr[_H_ROWS]),
-        bwd_cluster=int(hdr[_BWD_HEADER.index("cluster")]),
         ws_cols=int(hdr[_H_WS_COLS]),
         ws_mats=ws_mats, grad_total=g_off + b_off,
         grad_blocks=tuple(grad_blocks), grad_biases=tuple(grad_biases),
@@ -1034,8 +1050,8 @@ def _device_program(prog: bytes, device: str) -> torch.Tensor:
 # The forward program's header fields, in the order of fused_mlp_fwd.cu's
 # `Header` enum.
 _FWD_HEADER = ("n_ops", "prog_len", "n_freqs", "enc_dim", "dirs_dim",
-               "out_w", "hi_lo", "rows", "cluster", "stages", "ring_off",
-               "slot", "bar_off", "smem")
+               "out_w", "hi_lo", "rows", "stages", "ring_off", "slot",
+               "bar_off", "smem")
 
 
 def fwd_header(packed: "PackedMLP") -> Dict[str, int]:
@@ -1048,12 +1064,82 @@ def fwd_header(packed: "PackedMLP") -> Dict[str, int]:
 _BWD_HEADER = ("n_ops", "prog_len", "n_freqs", "enc_dim", "dirs_dim",
                "g_cols", "gr_cols", "x_buf", "d_buf", "gr_buf", "gs_buf",
                "x_mat", "d_mat", "gr_mat", "gs_mat", "stages", "ring_off",
-               "slot", "mask_off", "smem", "ws_cols", "jobs_off",
-               "n_jobs", "rows", "mats_base", "ops_base", "n_mats", "cluster",
-               "bar_off")
-_H_PROG_LEN, _H_SMEM, _H_WS_COLS, _H_JOBS_OFF, _H_N_JOBS, _H_ROWS = (
+               "slot", "mask_off", "smem", "ws_cols", "units_off",
+               "n_units", "rows", "mats_base", "ops_base", "n_mats",
+               "bar_off", "p2_stages", "p2_slot", "p2_ring_off", "p2_smem")
+_H_PROG_LEN, _H_SMEM, _H_WS_COLS, _H_UNITS_OFF, _H_N_UNITS, _H_ROWS = (
     _BWD_HEADER.index(k)
-    for k in ("prog_len", "smem", "ws_cols", "jobs_off", "n_jobs", "rows"))
+    for k in ("prog_len", "smem", "ws_cols", "units_off", "n_units", "rows"))
+
+
+def bwd_header(packed: "PackedMLP") -> Dict[str, int]:
+    """The backward program's header fields by name."""
+    return dict(zip(_BWD_HEADER, packed.bwd_program.tolist()))
+
+
+def _p2_pick(mc: ModelConfig, vdirs: bool, hi_lo: bool) -> Tuple[int, int]:
+    """Phase 2's layout among ``P2_TRIES``: (input features a unit, bytes a
+    ring stage aims at). Measured on an H100 (scripts/layout_sweep.py,
+    PERF.md): units of 128 input features everywhere (64 is up to 1.6x
+    slower, never faster by more than 3%); stages of about 32 KB, and of
+    64 KB on nets at most 64 wide, whose narrow units need more rows in
+    flight (866x16 2.537 ms against 2.771; a wide net loses up to 18%)."""
+    return (128, 65536) if mc.width <= 64 else (128, 32768)
+
+
+def p2_units(blocks, unit_k: int):
+    """Phase 2's work units of weight blocks ``blocks`` ([(A matrix, A
+    columns, Y matrix, Y columns, gradient offset, bias gradient offset or
+    -1)], largest first): each block cut into ``unit_k`` (64 or 128) of
+    its input features, the A strips (the last maybe narrower), by up to
+    ``BWD_UNIT_N`` of its output features: whole 64-column strips of Y, or
+    its narrower last strip alone. The units of one block and output range
+    are neighbours. Returns [(A, k0, kc, Y, n0, nc, offset, ld, db)]; db
+    (the unit sums the bias of its output range) only where k0 is 0."""
+    out = []
+    for am, kp, ym, np_, goff, db in blocks:
+        full = np_ // STRIP * STRIP
+        ranges = [(n0, min(BWD_UNIT_N, full - n0))
+                  for n0 in range(0, full, BWD_UNIT_N)]
+        if full < np_:
+            ranges.append((full, np_ - full))
+        for n0, nc in ranges:
+            for k0 in range(0, kp, unit_k):
+                out.append((am, k0, min(unit_k, kp - k0), ym, n0, nc, goff,
+                            np_, db if k0 == 0 else -1))
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class P2Layout:
+    """Phase 2's shared memory: each unit's groups of rows a stage
+    (``subs``), the ring's slot bytes (both planes in hi_lo) and stages,
+    its offset and the total bytes."""
+
+    subs: Tuple[int, ...]
+    slot: int
+    stages: int
+    ring_off: int
+    smem: int
+
+
+def p2_layout(units, hi_lo: bool, stage_bytes: int) -> P2Layout:
+    """Each unit's stage: as many groups of rows (``P2_GROUP_ROWS``, up to
+    ``P2_MAX_SUB``) as keep its bytes (A's and Y's columns, both planes in
+    hi_lo) within ``stage_bytes``, at least one; a slot holds the largest
+    stage; as many slots as fit (up to ``P2_MAX_STAGES``) after the
+    barriers and zero block and before ``P2_SLACK`` bytes that a narrow A
+    strip's 64-row tile reads past its last stage."""
+    planes = 2 if hi_lo else 1
+    group = [P2_GROUP_ROWS[hi_lo] * (u[2] + u[5]) * 2 * planes
+             for u in units]
+    subs = tuple(max(1, min(P2_MAX_SUB, stage_bytes // g)) for g in group)
+    slot = -(-max(s * g for s, g in zip(subs, group)) // (1024 * planes)) \
+        * 1024 * planes
+    stages = min(P2_MAX_STAGES,
+                 (SMEM_LIMIT - P2_RING_OFF - P2_SLACK) // slot)
+    return P2Layout(subs, slot, stages, P2_RING_OFF,
+                    P2_RING_OFF + stages * slot + P2_SLACK)
 
 
 def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
@@ -1061,12 +1147,12 @@ def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
                  db_base: int) -> Tuple[np.ndarray, Tuple]:
     """The backward kernels' program — ``_bwd_kernel``/``_trunk_bwd``
     (``pallas_mlp.py:312-441``) as phase 1's operations over shared-memory
-    buffers, each writing a workspace matrix, and phase 2's jobs over
+    buffers, each writing a workspace matrix, and phase 2's work units over
     those matrices. ``blocks``: per Linear its (weight offset, k_pad,
     n_pad, gradient offset) blocks in operand order; ``bias_of``: its bias
     offset, which is also its gradient's offset after ``db_base``. Returns
-    the program (header, buffer table, matrix table, operations, jobs) and
-    the matrices' (name, column offset, cols)."""
+    the program (header, buffer table, matrix table, operations, units)
+    and the matrices' (name, column offset, cols)."""
     mc = net.cfg
     depth = mc.depth
     lay = _bwd_layout(mc, vdirs, hi_lo)
@@ -1148,8 +1234,9 @@ def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
            f"dacc{i - 1}", i - 1)
         cur = nxt
 
-    # Phase 2: dW = A^T dY per weight block, in tiles; db with the first
-    # k-tile of each layer's first block. Largest blocks first.
+    # Phase 2: dW = A^T dY per weight block, in work units; db with the
+    # first input features of each layer's first block. Largest blocks
+    # first.
     wblocks = [(f"h{depth - 1}", "g_out", "output_linear", 0)]
     if vdirs:
         wblocks = [("v", "g_rgb", "rgb_linear", 0),
@@ -1162,14 +1249,13 @@ def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
         parts = [("x", 0), (a, 1)] if i in mc.skips else [(a, 0)]
         wblocks += [(am, f"dacc{i}", name, pt) for am, pt in parts]
     wblocks.sort(key=lambda b: -blocks[b[2]][b[3]][1] * blocks[b[2]][b[3]][2])
-    jobs = []
-    for am, ym, name, pt in wblocks:
-        _, kp, np_, goff = blocks[name][pt]
-        for k0 in range(0, kp, BWD_TILE_K):
-            for n0 in range(0, np_, BWD_TILE_N):
-                db = db_base + bias_of[name] if pt == 0 and k0 == 0 else -1
-                jobs.append([mat[am], k0, min(BWD_TILE_K, kp - k0), mat[ym],
-                             n0, min(BWD_TILE_N, np_ - n0), goff, np_, db, 0])
+    unit_k, stage_bytes = _p2_pick(mc, vdirs, hi_lo)
+    units = p2_units([(mat[am], blocks[name][pt][1], mat[ym],
+                       blocks[name][pt][2], blocks[name][pt][3],
+                       db_base + bias_of[name] if pt == 0 else -1)
+                      for am, ym, name, pt in wblocks], unit_k)
+    p2 = p2_layout(units, hi_lo, stage_bytes)
+    units = [[*u, sub, 0, 0] for u, sub in zip(units, p2.subs)]
 
     buf_table = [0] * (3 * BWD_MAX_BUFS)
     for i, rec in enumerate(bufs.values()):
@@ -1180,7 +1266,7 @@ def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
         ws_mats.append((name, col, c))
         col += c * (2 if hi_lo else 1)
     ops_base = BWD_TABLES_BASE + len(mat_table)
-    jobs_off = ops_base + BWD_OP_INTS * len(ops)
+    units_off = ops_base + BWD_OP_INTS * len(ops)
     header = dict(
         n_ops=len(ops), prog_len=lay.prog_ints, n_freqs=n_freqs,
         enc_dim=3 + 6 * n_freqs,
@@ -1191,18 +1277,21 @@ def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
         gs_mat=mat.get("g_sigma", -1), stages=lay.stages,
         ring_off=lay.ring_off, slot=lay.slot,
         mask_off=lay.mask_off, smem=lay.smem, ws_cols=col,
-        jobs_off=jobs_off, n_jobs=len(jobs), rows=lay.rows,
+        units_off=units_off, n_units=len(units), rows=lay.rows,
         mats_base=BWD_TABLES_BASE, ops_base=ops_base, n_mats=len(names),
-        cluster=lay.cluster, bar_off=lay.bar_off)
+        bar_off=lay.bar_off, p2_stages=p2.stages, p2_slot=p2.slot,
+        p2_ring_off=p2.ring_off, p2_smem=p2.smem)
     head = [header[k] for k in _BWD_HEADER]
     head += [0] * (BWD_HEADER_INTS - len(head))
     prog = np.asarray(head + buf_table + mat_table
-                      + [v for rec in ops + jobs for v in rec], np.int32)
+                      + [v for rec in ops + units for v in rec], np.int32)
     if ([OpShape(o[0], o[3], o[6], o[9], o[8], o[7]) if o[0] != _LOAD_G
          else OpShape(_LOAD_G, 0, 0, 0, 0, 0) for o in ops]
             != _bwd_shapes(mc, vdirs)
-            or lay.prog_ints not in (jobs_off, BWD_TABLES_BASE)):
-        raise ValueError(f"backward program of {len(ops)} operations")
+            or lay.prog_ints not in (units_off, BWD_TABLES_BASE)
+            or p2.stages < 2):
+        raise ValueError(f"backward program of {len(ops)} operations and "
+                         f"{len(units)} phase-2 units ({p2.stages} stages)")
     return prog, tuple(ws_mats)
 
 
@@ -1459,12 +1548,26 @@ def fused_nerf_mlp_bwd_stack_plain(nets, pts: torch.Tensor,
 
 
 def ws_matrix(packed: PackedMLP, ws: torch.Tensor, m: int) -> torch.Tensor:
-    """Workspace matrix ``m`` of a flat workspace: (planes, rows, cols)."""
+    """Workspace matrix ``m`` of a flat workspace, read out of its strip
+    layout (:func:`ws_index`): (planes, rows, cols), a copy."""
     rows = ws.numel() // packed.ws_cols
     _, off, cols = packed.ws_mats[m]
     planes = 2 if packed.hi_lo else 1
-    return ws[rows * off: rows * (off + planes * cols)].view(planes, rows,
-                                                               cols)
+    return torch.stack([
+        block_from_image(ws[rows * (off + p * cols):
+                            rows * (off + (p + 1) * cols)], rows, cols)
+        for p in range(planes)])
+
+
+def ws_store(packed: PackedMLP, ws: torch.Tensor, m: int,
+             mat: torch.Tensor) -> None:
+    """Write workspace matrix ``m`` (planes, rows, cols) into a flat
+    workspace of that many rows, in its strip layout (:func:`ws_index`)."""
+    rows = ws.numel() // packed.ws_cols
+    _, off, cols = packed.ws_mats[m]
+    for p, t in enumerate(mat):
+        ws[rows * (off + p * cols): rows * (off + (p + 1) * cols)] = \
+            strip_image(t)
 
 
 def bwd_workspace_plain(packed: PackedMLP, pts: torch.Tensor,
@@ -1473,9 +1576,9 @@ def bwd_workspace_plain(packed: PackedMLP, pts: torch.Tensor,
     """What phase 1 computes, from the function's definition: the flat
     workspace of ``rows`` rows holding every stored activation and rounded
     cotangent of the n points (bf16; in hi_lo mode the (hi, lo) planes of
-    the fp32 value), rows n and on zero. For a stack, scene s's n / S
-    points fill rows ``s * rows_s`` on, ``rows_s`` = n / S rounded up to
-    phase 1's tile."""
+    the fp32 value), rows n and on zero, each matrix in its strip layout.
+    For a stack, scene s's n / S points fill rows ``s * rows_s`` on,
+    ``rows_s`` = n / S rounded up to phase 1's tile."""
     hi_lo = packed.hi_lo
     dt = torch.float32 if hi_lo else torch.bfloat16
     n_freqs = int(packed.bwd_program[_BWD_HEADER.index("n_freqs")])
@@ -1483,6 +1586,10 @@ def bwd_workspace_plain(packed: PackedMLP, pts: torch.Tensor,
                      dtype=torch.bfloat16)
     s = packed.n_scenes
     nets = packed.stack or (packed.net,)
+    planes = 2 if hi_lo else 1
+    mats = [torch.zeros((planes, rows, cols), device=pts.device,
+                        dtype=torch.bfloat16)
+            for _, _, cols in packed.ws_mats]
     for i, (net, p, d, gg) in enumerate(zip(
             nets, _scenes(pts, s), _scenes(dirs, s), _scenes(g, s))):
         n = p.shape[0]
@@ -1490,22 +1597,55 @@ def bwd_workspace_plain(packed: PackedMLP, pts: torch.Tensor,
         terms = _bwd_terms(net, p, d, gg, n_freqs, dt, hi_lo)
         for m, (name, _, _) in enumerate(packed.ws_mats):
             t = terms[name]
-            mat = ws_matrix(packed, ws, m)
             hi = t.to(torch.bfloat16)
-            mat[0, r0:r0 + n, :t.shape[1]] = hi
+            mats[m][0, r0:r0 + n, :t.shape[1]] = hi
             if hi_lo:
-                mat[1, r0:r0 + n, :t.shape[1]] = (
+                mats[m][1, r0:r0 + n, :t.shape[1]] = (
                     t - hi.float()).to(torch.bfloat16)
+    for m, mat in enumerate(mats):
+        ws_store(packed, ws, m, mat)
     return ws
 
 
-def bwd_splits(rows: int) -> Tuple[int, int]:
-    """(splits, rows per split) of phase 2 over ``rows`` points, a multiple
-    of ``BWD_STAGE_ROWS``: up to ``BWD_MAX_SPLITS`` ranges of at least
-    ``BWD_MIN_SPLIT_ROWS`` points, each a whole number of stages."""
-    want = max(1, min(BWD_MAX_SPLITS, rows // BWD_MIN_SPLIT_ROWS))
-    per = -(-rows // (want * BWD_STAGE_ROWS)) * BWD_STAGE_ROWS
-    return -(-rows // per), per
+def bwd_splits(rows: int, units) -> Tuple[int, int]:
+    """(splits, rows per split) of phase 2 over ``rows`` points (a multiple
+    of ``BWD_STAGE_ROWS``) for the work units ``units`` (their records):
+    among the splits that give ``BWD_FILL_ITEMS`` items (units x splits) or
+    more and ranges of at most ``BWD_MAX_SPLIT_ROWS`` points, up to twice
+    as many (and at most ``BWD_MAX_SPLITS`` ranges of at least
+    ``BWD_MIN_SPLIT_ROWS`` points), the one whose busiest CTA, in the
+    kernel's round-robin walk of the items over ``P2_SMS`` CTAs, moves the
+    fewest bytes (an item: its rows, plus ``P2_ITEM_ROWS``, times its A and
+    Y columns); each split a whole number of 64-row groups. Asked once per
+    (rows, units' columns): the walk is host time of every backward
+    call."""
+    u = np.asarray(units)
+    return _bwd_splits(rows, tuple((u[:, 2] + u[:, 5]).tolist()),
+                       (BWD_MAX_SPLITS, BWD_MIN_SPLIT_ROWS,
+                        BWD_MAX_SPLIT_ROWS, BWD_FILL_ITEMS, P2_SMS,
+                        P2_ITEM_ROWS))
+
+
+@functools.lru_cache(maxsize=4096)
+def _bwd_splits(rows: int, cols: Tuple[int, ...],
+                rule: Tuple[int, ...]) -> Tuple[int, int]:
+    max_splits, min_rows, max_rows, fill, sms, item_rows = rule
+    top = max(1, min(max_splits, rows // min_rows))
+    low = min(top, max(-(-fill // len(cols)), -(-rows // max_rows)))
+    best = None
+    for want in range(low, min(top, 2 * low) + 1):
+        per = -(-rows // (want * BWD_STAGE_ROWS)) * BWD_STAGE_ROWS
+        splits = -(-rows // per)
+        items = len(cols) * splits
+        ctas = min(items, sms)
+        load = [0] * ctas
+        for i in range(items):
+            s = i // len(cols)
+            r = per if s < splits - 1 else rows - s * per
+            load[i % ctas] += (r + item_rows) * cols[i % len(cols)]
+        if best is None or max(load) < best[0]:
+            best = (max(load), splits, per)
+    return best[1], best[2]
 
 
 def part_stride(total: int) -> int:
@@ -1513,34 +1653,51 @@ def part_stride(total: int) -> int:
     return -(-total // 64) * 64
 
 
+def _p2_blocks(packed: PackedMLP):
+    """Phase 2's weight blocks, from its units: [(A matrix, Y matrix,
+    gradient offset, row stride, bias gradient offset or -1)]."""
+    blocks: Dict[int, list] = {}
+    for am, _, _, ym, _, _, off, ld, db, *_ in packed.bwd_units.tolist():
+        b = blocks.setdefault(off, [am, ym, off, ld, -1])
+        b[4] = max(b[4], db)
+    return list(blocks.values())
+
+
 def weight_grads_plain(packed: PackedMLP, ws: torch.Tensor, rows: int,
                        split_rows: int) -> torch.Tensor:
     """What phase 2 computes: for each split of the workspace's first
     ``rows`` rows into ranges of ``split_rows``, one (splits, stride) fp32
-    partial slot with every job's dW tile (A^T dY over the range; in hi_lo
-    mode hi*hi + lo*hi + hi*lo) and its db (dY's column sums). For a stack,
-    ``rows`` per scene from ``s * rows`` on, into (S, splits, stride)."""
+    partial slot with every weight block's dW (A^T dY over the range; in
+    hi_lo mode hi*hi + lo*hi + hi*lo) and every bias's db (dY's column
+    sums, of each (hi, lo) pair in hi_lo): per scene and weight block one
+    batched product over the splits. For a stack, ``rows`` per scene from
+    ``s * rows`` on, into (S, splits, stride)."""
     splits = -(-rows // split_rows)
     n_sc = packed.n_scenes
     part = torch.zeros((n_sc, splits, part_stride(packed.grad_total)),
                        device=ws.device)
-    mats = [ws_matrix(packed, ws, m).float()
-            for m in range(len(packed.ws_mats))]
-    for am, k0, kc, ym, n0, nc, off, ld, db, _ in packed.bwd_jobs.tolist():
-        for sc in range(n_sc):
-            for s in range(splits):
-                r0 = sc * rows + s * split_rows
-                r1 = min((sc + 1) * rows, r0 + split_rows)
-                a = mats[am][:, r0:r1, k0:k0 + kc]
-                y = mats[ym][:, r0:r1, n0:n0 + nc]
-                prod = a[0].t() @ y[0]
-                if packed.hi_lo:
-                    prod = prod + a[1].t() @ y[0] + a[0].t() @ y[1]
-                tile = part[sc, s, off + k0 * ld:
-                            off + (k0 + kc) * ld].view(kc, ld)
-                tile[:, n0:n0 + nc] = prod
-                if db >= 0:
-                    part[sc, s, db + n0: db + n0 + nc] = y.sum(0).sum(0)
+    mats: Dict[int, torch.Tensor] = {}
+
+    def cut(m, sc):
+        """Scene sc's rows of matrix m, fp32, (planes, splits, split_rows,
+        cols): the last split's rows past ``rows`` zero."""
+        if m not in mats:
+            mats[m] = ws_matrix(packed, ws, m)
+        t = mats[m][:, sc * rows:(sc + 1) * rows].float()
+        t = torch.nn.functional.pad(t, (0, 0, 0, splits * split_rows - rows))
+        return t.reshape(t.shape[0], splits, split_rows, t.shape[-1])
+
+    for sc in range(n_sc):
+        for am, ym, off, ld, db in _p2_blocks(packed):
+            a, y = cut(am, sc), cut(ym, sc)
+            prod = a[0].transpose(1, 2) @ y[0]
+            if packed.hi_lo:
+                prod = (prod + a[1].transpose(1, 2) @ y[0]
+                        + a[0].transpose(1, 2) @ y[1])
+            part[sc, :, off:off + prod.shape[1] * ld] = prod.reshape(
+                splits, -1)
+            if db >= 0:
+                part[sc, :, db:db + ld] = y.sum(0).sum(1)
     return part if packed.stack else part[0]
 
 
@@ -1555,7 +1712,7 @@ def _kernel(csrc: str = _build.CSRC):
     lib = _build.load("fused_mlp_fwd", csrc)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.fused_mlp_fwd.argtypes = ([vp] * 5 + [i32, i32, ctypes.c_longlong, i32,
-                                   vp] + [i32] * 5 + [vp])
+                                   vp] + [i32] * 4 + [vp])
     lib.fused_mlp_fwd.restype = i32
     lib.fused_mlp_fwd_error_string.argtypes = [i32]
     lib.fused_mlp_fwd_error_string.restype = ctypes.c_char_p
@@ -1576,20 +1733,20 @@ def _bwd_kernel(csrc: str = _build.CSRC):
     sources in ``csrc``, declared and checked."""
     lib = _build.load("fused_mlp_bwd", csrc)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fused_mlp_bwd_phase1.argtypes = ([vp] * 6 + [i32] * 6 + [i64]
+    lib.fused_mlp_bwd_phase1.argtypes = ([vp] * 6 + [i32] * 5 + [i64]
                                          + [i32] * 2 + [vp, i64, vp])
     lib.fused_mlp_bwd_phase1.restype = i32
     lib.fused_mlp_bwd_phase2.argtypes = [vp, i64, vp, vp] + [i32] * 6 + [
-        vp, i64, i64, vp]
+        vp, i64, i64, i32, vp]
     lib.fused_mlp_bwd_phase2.restype = i32
     lib.fused_mlp_bwd_reduce.argtypes = [vp, i32, i64, vp, i64, i32, vp]
     lib.fused_mlp_bwd_reduce.restype = i32
     lib.fused_mlp_bwd_error_string.argtypes = [i32]
     lib.fused_mlp_bwd_error_string.restype = ctypes.c_char_p
     lib.fused_mlp_bwd_constants.argtypes = [ctypes.POINTER(i32), i32]
-    want = [BWD_THREADS, PAD, BWD_MAX_N, BWD_HEADER_INTS, BWD_MAX_BUFS,
-            BWD_OP_INTS, BWD_TILE_K, BWD_TILE_N,
-            BWD_STAGE_ROWS, BWD_STAGES2, BWD_JOB_INTS, BWD_P1_THREADS,
+    want = [BWD_P2_THREADS, BWD_MAX_N, BWD_HEADER_INTS, BWD_MAX_BUFS,
+            BWD_OP_INTS, BWD_UNIT_K, BWD_UNIT_N, BWD_STAGE_ROWS,
+            BWD_UNIT_INTS, BWD_P1_THREADS, MAX_STAGES,
             *TILE_ROWS, *TILE_ROWS_HI_LO]
     consts = (i32 * len(want))()
     lib.fused_mlp_bwd_constants(consts, len(want))
@@ -1654,8 +1811,7 @@ def _launch(packed: PackedMLP, pts: torch.Tensor,
             packed.weights.data_ptr(), packed.biases.data_ptr(),
             out.data_ptr(), n_s, scenes, packed.w_stride, packed.b_stride,
             packed.program_dev.data_ptr(),
-            hdr["prog_len"], hdr["hi_lo"], hdr["rows"], hdr["cluster"],
-            hdr["smem"], stream,
+            hdr["prog_len"], hdr["hi_lo"], hdr["rows"], hdr["smem"], stream,
         )
     if rc != 0:
         raise RuntimeError("fused_mlp_fwd launch failed: "
@@ -1697,13 +1853,16 @@ def reduce_partials(part: torch.Tensor, total: int) -> torch.Tensor:
 
 
 def _check_ws(packed: PackedMLP, ws: torch.Tensor, rows: int, dev) -> int:
-    """The workspace's rows per matrix, after checking it holds ``rows``."""
+    """The workspace's rows per matrix, after checking it holds ``rows``
+    (its rows a multiple of ``BWD_STAGE_ROWS``: the strips' row groups and
+    phase 2's stages)."""
     cap = ws.numel() // packed.ws_cols
     if (ws.dtype != torch.bfloat16 or ws.dim() != 1 or not ws.is_contiguous()
-            or ws.device != dev or cap < rows
+            or ws.device != dev or cap < rows or cap % BWD_STAGE_ROWS
             or ws.numel() != cap * packed.ws_cols or ws.data_ptr() % 16):
         raise ValueError(f"the workspace must be a contiguous bf16 vector of "
-                         f">= {rows} x {packed.ws_cols} on {dev}")
+                         f">= {rows} x {packed.ws_cols} on {dev}, its rows a "
+                         f"multiple of {BWD_STAGE_ROWS}")
     return cap
 
 
@@ -1739,7 +1898,7 @@ def bwd_workspace(packed: PackedMLP, pts: torch.Tensor,
             pts.data_ptr(), dirs.data_ptr() if dirs is not None else None,
             g.data_ptr(), packed.weights.data_ptr(),
             packed.biases.data_ptr(), prog.data_ptr(), packed.bwd_prog_len,
-            int(packed.hi_lo), tile, packed.bwd_cluster, n_s, scenes,
+            int(packed.hi_lo), tile, n_s, scenes,
             packed.w_stride, packed.b_stride, packed.bwd_smem, ws.data_ptr(),
             cap, stream))
     bwd_workspace.launches += 1
@@ -1777,15 +1936,15 @@ def weight_grads(packed: PackedMLP, ws: torch.Tensor, rows: int,
         return part.copy_(weight_grads_plain(packed, ws, rows, split_rows))
     lib = _bwd_kernel()
     prog = packed.bwd_program_dev
+    hdr = bwd_header(packed)
     with torch.cuda.device(ws.device):
         stream = torch.cuda.current_stream(ws.device).cuda_stream
         _bwd_error(lib, "fused_mlp_bwd_phase2 launch", lib.fused_mlp_bwd_phase2(
             ws.data_ptr(), cap, prog.data_ptr(),
-            prog.data_ptr() + 4 * int(packed.bwd_program[_H_JOBS_OFF]),
-            len(packed.bwd_jobs),
+            prog.data_ptr() + 4 * hdr["units_off"], hdr["n_units"],
             int(packed.hi_lo), rows, splits, split_rows, scenes,
             part.data_ptr(), stride, part.stride(0) if packed.stack else 0,
-            stream))
+            hdr["p2_smem"], stream))
     weight_grads.launches += 1
     check_nan([("the partial gradients of the fused_mlp_bwd_phase2 kernel",
                 part[..., :packed.grad_total])])
@@ -1797,7 +1956,8 @@ def _bwd_chunks(packed: PackedMLP, n_s: int):
     point, points, (phase-2 splits, rows a split))] of at most
     :func:`bwd_chunk_rows` points each."""
     step = bwd_chunk_rows(packed.net.cfg, packed.vdirs, packed.hi_lo)
-    return [(c0, r, bwd_splits(ws_rows(r, packed.bwd_rows)))
+    return [(c0, r, bwd_splits(ws_rows(r, packed.bwd_rows),
+                               packed.bwd_units))
             for c0 in range(0, n_s, step) for r in [min(step, n_s - c0)]]
 
 

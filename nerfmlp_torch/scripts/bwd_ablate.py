@@ -9,30 +9,34 @@ variants with one part of the design taken out (results are then wrong:
 only their time counts), all builds of a source started together: the
 wgmma of mlp_tile.cuh's shared core, the producer's weight copies (its
 full barriers then arm with no bytes), the epilogue, the encoding; and
-phase 2's mma and loads. It times each backward variant's two phases at
-the flagship train step's fine call (1024 rays x 128 samples, 8x256 + view
-head, bf16, random weights from seed 0), and each forward variant at that
-call and at the served fine call (4096 rays x 128 samples). Then the
-multicast: the shallow wide nets' forward and phase 1 as built (clusters
-of one CTA) and with their tiles in clusters of 64 / T CTAs. Then, with the sources as they are: phase 2 and
-the reduction at 4 to 32 row splits, and the whole backward at the fine
-and coarse calls in one chunk per call and in chunks of 8,192 points.
+phase 2's wgmma, its copies, its bias products. It times each backward
+variant's two phases at the flagship train step's fine call (1024 rays x
+128 samples, 8x256 + view head, bf16, random weights from seed 0), and
+each forward variant at that call and at the served fine call (4096 rays
+x 128 samples). Then, with the sources as they are: phase 2 and the
+reduction at 4 to 32 row splits, and the whole backward at the fine and
+coarse calls in one chunk per call and in chunks of 8,192 points. Phase
+2's variants, and the sources as built, are also timed at 866x16 and
+8x576 hi_lo (P2_NETS).
 Device times by CUDA events, median of 10, with a GPU spin ahead of each
 timed call so that the host's launch path is not timed. Variant sources
 go under build/nerfmlp_torch/ablate/; a variant whose text is no longer in
 the source fails with its name. Needs no jax.
 
-``--outputs FILE`` instead writes the forward's output and the backward's
-flat gradient of the depth-8 nets (OUTPUT_NETS) at the fine call, from
-seed 0, and ``--compare A B`` holds two such files to each other bit for
-bit (exit 1 on a difference): run with another tree's package first on
-PYTHONPATH, they show that a change left those paths' results as they
-were.
+``--outputs FILE`` instead writes, for the nets of OUTPUT_NETS at the fine
+call (random weights and inputs from seed 0), the forward's output, a
+digest of each of phase 1's workspace matrices (read out of its layout) on
+the call's first 16,384 points and the backward's flat gradient, and ``--compare A B`` holds two such
+files to each other bit for bit (exit 1 on a difference; beside a
+differing gradient its largest difference over its largest value). Run
+this file by its path with another tree's package first on PYTHONPATH,
+they show that a change left those paths' results as they were.
 """
 
 import argparse
 import concurrent.futures
 import dataclasses
+import hashlib
 import os
 import statistics
 import subprocess
@@ -46,16 +50,26 @@ from nerfmlp_torch.ops import _build
 from nerfmlp_torch.ops import fused_mlp as fm
 from nerfmlp_torch.ops.encoding import positional_encoding
 
-_P1_END = "// dW and db partials of one job"
+_P1_END = "// Phase 2: the products of one group of a stage"
 CHUNK_TRY = 8192
-# (width, view head, hi_lo) of the depth-8 nets --outputs writes: 8x256 and
-# phase 16's wide nets (chip_smoke.py), and 8x592 without the view head.
-OUTPUT_NETS = ((256, True, False), (256, True, True), (288, True, False),
-               (384, True, False), (512, True, False), (640, True, False),
-               (384, True, True), (512, True, True), (576, True, True),
-               (592, False, False))
-# (depth, width) of the shallow wide nets whose tiles run in clusters.
-SHALLOW_NETS = ((2, 1024), (1, 1696))
+# Points of the call phase 1's workspace digests cover (every tile runs the
+# same code).
+P1_DIGEST_POINTS = 16_384
+# (depth, width, view head, hi_lo) of the nets --outputs writes: every net
+# whose layouts tests/test_torch_fused_mlp_bwd.py pins, phase 16's other
+# wide nets (chip_smoke.py), and 8x592 without the view head.
+OUTPUT_NETS = ((8, 256, True, False), (8, 256, True, True),
+               (8, 288, True, False), (8, 512, True, False),
+               (8, 640, True, False), (8, 384, True, True),
+               (8, 512, True, True), (8, 576, True, True),
+               (32, 256, True, False), (866, 16, True, False),
+               (1, 1696, True, False), (2, 1312, True, False),
+               (5, 864, True, False), (2, 1024, True, False),
+               (1, 1472, True, True), (3, 960, True, True),
+               (5, 752, True, True), (8, 592, False, False))
+# (depth, width, hi_lo) of the nets phase 2 is also timed at: the narrowest
+# units and an operation-bound one.
+P2_NETS = ((866, 16, False), (8, 576, True))
 
 _CORE = "mlp_tile.cuh"
 _NO_MMA = (
@@ -108,16 +122,22 @@ VARIANTS = {
 }
 # Phase 2's, in its part of the source.
 P2_VARIANTS = {
-    "phase 2 without mma": [(
-        "          mma(acc[mt][2 * p], a[mt], b[0], b[1]);\n"
-        "          mma(acc[mt][2 * p + 1], a[mt], b[2], b[3]);\n"
-        "          if (kHiLo) {",
-        "          acc[mt][2 * p][0] += __uint_as_float(a[mt][0] ^ b[0]);\n"
-        "          acc[mt][2 * p + 1][0] += __uint_as_float(a[mt][1] ^ b[2]);\n"
-        "          if (kHiLo) {")],
-    "phase 2 without loads": [
-        ("      if (cc < ca) {", "      if (false) {"),
-        ("      if (cc < cy) {", "      if (false) {")],
+    "phase 2 without wgmma": [(
+        "        p2_products<kHiLo>(nc, db >= 0 && w1 > 0, acc,\n"
+        "                           da + kSteps * s * a_step, a_step,\n"
+        "                           dy + kSteps * s * b_step, b_step, a_lo, "
+        "lo, bias0,\n"
+        "                           bias1, ys, y_step, y_lo, ones_desc);",
+        "        acc[0] += __uint_as_float(static_cast<uint32_t>(da ^ ys[0])) "
+        "* s;")],
+    "phase 2 without copies": [
+        ("        mbar_expect_tx(&full[pos.slot], rr * (kc + nc) * 2 * "
+         "(kHiLo ? 2 : 1));",
+         "        mbar_expect_tx(&full[pos.slot], 0 * rr);"),
+        ("      if (on) {", "      if (false) {")],
+    "phase 2 without the bias products": [
+        ("        p2_products<kHiLo>(nc, db >= 0 && w1 > 0, acc,",
+         "        p2_products<kHiLo>(nc, false, acc,")],
 }
 
 
@@ -193,22 +213,33 @@ def call_inputs(n, cfg):
 
 
 def write_outputs(path: str) -> None:
-    """OUTPUT_NETS' forward outputs and flat backward gradients at the
-    fine call (random weights and inputs from seed 0), to ``path``."""
+    """OUTPUT_NETS' forward outputs, phase-1 workspace digests and flat
+    backward gradients at the fine call (random weights and inputs from
+    seed 0), to ``path``."""
     out = {}
     n = 1024 * 128
-    for width, vdirs, hi_lo in OUTPUT_NETS:
+    for depth, width, vdirs, hi_lo in OUTPUT_NETS:
         cfg = RenderConfig(compute_dtype="bfloat16", use_kernel=True,
-                           width=width, use_viewdirs=vdirs)
+                           depth=depth, width=width, use_viewdirs=vdirs)
         net = init_model(cfg.model_config(), seed=0, device="cuda")
         packed = fm.pack_params(net, cfg.pos_enc_L, vdirs, hi_lo)
         pts, dirs, g = call_inputs(n, cfg)
         dirs = dirs if vdirs else None
         g = g[:, :packed.out_w]
+        key = f"{depth}x{width}{'' if vdirs else ' no view head'}" + (
+            " hi_lo" if hi_lo else "")
         with torch.no_grad():
-            key = f"8x{width}{'' if vdirs else ' no view head'}" + (
-                " hi_lo" if hi_lo else "")
             out[key + " forward"] = fm._launch(packed, pts, dirs).cpu()
+            m = P1_DIGEST_POINTS
+            ws = torch.empty(fm.ws_rows(m, packed.bwd_rows) * packed.ws_cols,
+                             device="cuda", dtype=torch.bfloat16)
+            fm.bwd_workspace(packed, pts[:m], None if dirs is None
+                             else dirs[:m], g[:m], ws)
+            out[key + " phase 1"] = [
+                hashlib.sha256(fm.ws_matrix(packed, ws, i)[:, :m].cpu()
+                               .view(torch.int16).numpy().tobytes())
+                .hexdigest() for i in range(len(packed.ws_mats))]
+            del ws
             out[key + " backward"] = fm._launch_bwd(packed, pts, dirs,
                                                     g).cpu()
         print(f"[outputs] {key}: phase-1 tile {packed.bwd_rows}", flush=True)
@@ -220,19 +251,24 @@ def write_outputs(path: str) -> None:
 def compare_outputs(a: str, b: str) -> int:
     """0 when the two --outputs files hold the same bits, else 1."""
     x, y = torch.load(a), torch.load(b)
-    same = sorted(x) == sorted(y) and all(torch.equal(x[k], y[k]) for k in x)
+
+    def same(k):
+        if k not in y:
+            return False
+        if isinstance(x[k], list):
+            return x[k] == y[k]
+        return torch.equal(x[k], y[k])
+
     for k in sorted(x):
+        note = ""
+        if k in y and not isinstance(x[k], list) and not same(k):
+            note = (f" (max |diff| / max |value| "
+                    f"{float((x[k] - y[k]).abs().max() / y[k].abs().max()):.3e})")
         print(f"[compare] {k}: "
-              f"{'bit-identical' if k in y and torch.equal(x[k], y[k]) else 'DIFFERS'}")
-    print(f"[compare] {a} vs {b}: {'bit-identical' if same else 'DIFFER'}")
-    return 0 if same else 1
-
-
-def multicast(tries):
-    """``tries`` with every tile below 64 points in a cluster of 64 / T
-    CTAs that share each weight stage by multicast."""
-    return {hi_lo: tuple((t[0], max(1, 64 // t[0]), *t[2:]) for t in ts)
-            for hi_lo, ts in tries.items()}
+              f"{'bit-identical' if same(k) else 'DIFFERS'}{note}")
+    ok = sorted(x) == sorted(y) and all(same(k) for k in x)
+    print(f"[compare] {a} vs {b}: {'bit-identical' if ok else 'DIFFER'}")
+    return 0 if ok else 1
 
 
 def main(argv=None) -> int:
@@ -257,11 +293,29 @@ def main(argv=None) -> int:
     n = 1024 * 128
     pts, dirs, g = call_inputs(n, cfg)
     ws = torch.empty(n * packed.ws_cols, device="cuda", dtype=torch.bfloat16)
-    splits, split_rows = fm.bwd_splits(n)
+    splits, split_rows = fm.bwd_splits(n, packed.bwd_units)
     part = torch.empty((splits, fm.part_stride(total)), device="cuda")
     print(f"[ablate] {torch.cuda.get_device_name(0)}; fine call, n={n}, "
           f"{splits} splits of {split_rows} rows")
     if "bwd" in kernels:
+        # Phase 2's other nets: their workspaces filled once, as built.
+        p2_calls = []
+        for depth, width, hi_lo in P2_NETS:
+            ncfg = dataclasses.replace(cfg, depth=depth, width=width)
+            nnet = init_model(ncfg.model_config(), seed=0, device="cuda")
+            npk = fm.pack_params(nnet, ncfg.pos_enc_L, True, hi_lo)
+            rows = fm.ws_rows(n, npk.bwd_rows)
+            nsplits, nper = fm.bwd_splits(rows, npk.bwd_units)
+            nws = torch.empty(rows * npk.ws_cols, device="cuda",
+                              dtype=torch.bfloat16)
+            npart = torch.empty((nsplits, fm.part_stride(npk.grad_total)),
+                                device="cuda")
+            fm.bwd_workspace(npk, pts, dirs.float() if hi_lo else dirs, g,
+                             nws)
+            p2_calls.append((f"{depth}x{width}{' hi_lo' if hi_lo else ''} "
+                             f"({len(npk.bwd_units)} units x {nsplits} "
+                             f"splits)", npk, nws, rows, nper, npart))
+            del nnet
         for name, d in build_variants({**VARIANTS, **P2_VARIANTS},
                                       "fused_mlp_bwd").items():
             lib = fm._bwd_kernel(d)
@@ -270,8 +324,15 @@ def main(argv=None) -> int:
                                                         ws))
                 t2 = device_ms(lambda: fm.weight_grads(packed, ws, n,
                                                        split_rows, part))
+                more = ""
+                if name == "as built" or name in P2_VARIANTS:
+                    more = "".join(
+                        f", phase 2 at {label} "
+                        f"{device_ms(lambda: fm.weight_grads(*c)):.3f} ms"
+                        for label, *c in p2_calls)
             print(f"[ablate] {name}: phase 1 {t1:.3f} ms, phase 2 "
-                  f"{t2:.3f} ms", flush=True)
+                  f"{t2:.3f} ms{more}", flush=True)
+        del p2_calls
     serve = call_inputs(4 * n, cfg)[:2]
     if "fwd" in kernels:
         with torch.no_grad():
@@ -284,37 +345,6 @@ def main(argv=None) -> int:
                 print(f"[ablate] forward {name}: train fine call {tt:.3f} ms,"
                       f" served fine call ({4 * n} points) {ts:.3f} ms",
                       flush=True)
-    # The multicast: the shallow wide nets' layouts as built (clusters of
-    # one CTA, each streaming every stage itself) and with their tiles in
-    # clusters of 64 / T CTAs that share each stage by multicast.
-    for depth, width in SHALLOW_NETS:
-        scfg = dataclasses.replace(cfg, depth=depth, width=width)
-        snet = init_model(scfg.model_config(), seed=0, device="cuda")
-        times = []
-        for label, fwd_tries, bwd_tries in (
-                ("as built", fm.FWD_TRIES, fm.BWD_TRIES),
-                ("multicast", multicast(fm.FWD_TRIES),
-                 multicast(fm.BWD_TRIES))):
-            with mock.patch.object(fm, "FWD_TRIES", fwd_tries), \
-                    mock.patch.object(fm, "BWD_TRIES", bwd_tries):
-                fm._fwd_layout.cache_clear()
-                fm._bwd_layout.cache_clear()
-                sp = fm.pack_params(snet, scfg.pos_enc_L, True)
-                sws = torch.empty(fm.ws_rows(n, sp.bwd_rows) * sp.ws_cols,
-                                  device="cuda", dtype=torch.bfloat16)
-                with torch.no_grad():
-                    tf = device_ms(lambda: fm._launch(sp, pts, dirs))
-                t1 = (device_ms(lambda: fm.bwd_workspace(sp, pts, dirs, g,
-                                                         sws))
-                      if "bwd" in kernels else float("nan"))
-            times.append(f"{label} (forward {fwd_header_line(sp)}): "
-                         f"forward {tf:.3f} ms, phase 1 {t1:.3f} ms")
-        fm._fwd_layout.cache_clear()
-        fm._bwd_layout.cache_clear()
-        print(f"[ablate] {depth}x{width}: " + "; ".join(times), flush=True)
-        del snet, sp, sws
-        torch.cuda.empty_cache()
-
     if "bwd" in kernels:
         fm.bwd_workspace(packed, pts, dirs, g, ws)
         for s in (4, 8, 16, 32):
@@ -341,13 +371,6 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     return 0
-
-
-def fwd_header_line(packed) -> str:
-    """A packed net's forward and phase-1 tiles and clusters."""
-    h = fm.fwd_header(packed)
-    return (f"{h['rows']}-point tiles x {h['cluster']}, phase 1 "
-            f"{packed.bwd_rows} x {packed.bwd_cluster}")
 
 
 if __name__ == "__main__":

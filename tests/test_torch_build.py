@@ -73,3 +73,16 @@ def test_forward_ablation_variant_whose_text_is_gone_fails_by_name(
     files = bwd_ablate.variant_files("fused_mlp_fwd", "as built", [])
     assert files == {os.path.basename(p): open(p).read()
                      for p in _build.sources("fused_mlp_fwd")}
+
+
+@pytest.mark.parametrize("kernel, variants", [
+    ("fused_mlp_bwd", {**bwd_ablate.VARIANTS, **bwd_ablate.P2_VARIANTS}),
+    ("fused_mlp_fwd", bwd_ablate.FWD_VARIANTS)])
+def test_every_ablation_variant_applies(kernel, variants):
+    """Each variant the ablation script builds finds its text once in the
+    sources as they are (a stale variant would only fail on the card), and
+    changes them (but "as built")."""
+    built = bwd_ablate.variant_files(kernel, "as built", [])
+    for name, edits in variants.items():
+        files = bwd_ablate.variant_files(kernel, name, edits)
+        assert (files == built) is (not edits), name

@@ -140,7 +140,7 @@ def _run_program(packed, pts, dirs):
     planes = 2 if hi_lo else 1
     slot = hdr["slot"] // planes   # a stage's bytes of one plane
     assert hdr["stages"] >= 2 and hdr["smem"] <= fused_mlp.SMEM_LIMIT
-    assert hdr["cluster"] == 1 and max(1, 64 // rows) in (1, 2, 4)
+    assert rows in fused_mlp.FWD_TRIES[hi_lo]
     # the kernel copies the whole program into shared memory; then the
     # ring's barriers and the zero block, the buffers, the ring
     assert hdr["prog_len"] == len(prog)
@@ -248,10 +248,10 @@ def _run_program(packed, pts, dirs):
     (dict(depth=1, width=1472, use_viewdirs=True, hi_lo=True), 40, (16, 1)),
 ])
 def test_packed_program_matches_plain(arch, n, rows):
-    """The weight layout and program the kernel executes — tiles and their
-    clusters, column passes, buffers, epilogues — compute the plain
-    version's function (padding adds exactly zero; rows past n are never
-    written)."""
+    """The weight layout and program the kernel executes — tiles (``rows``:
+    points a tile, one CTA a tile), column passes, buffers, epilogues —
+    compute the plain version's function (padding adds exactly zero; rows
+    past n are never written)."""
     arch = dict(arch)
     hi_lo = arch.pop("hi_lo", False)
     vdirs = arch["use_viewdirs"]
@@ -267,7 +267,7 @@ def test_packed_program_matches_plain(arch, n, rows):
     layers = cfg.depth + (4 if vdirs else 1)
     assert hdr["n_ops"] == fused_mlp.forward_ops(net.cfg, vdirs) >= layers
     assert (hdr["n_ops"] == layers) is (cfg.width <= fused_mlp.FWD_MAX_N)
-    assert (hdr["rows"], hdr["cluster"]) == rows
+    assert (hdr["rows"], 1) == rows
     assert n % hdr["rows"]
     got = _run_program(packed, pts, dirs if vdirs else None)
     want = fused_mlp.fused_nerf_mlp_plain(net, pts, dirs if vdirs else None,
@@ -310,7 +310,7 @@ def test_hopper_budget():
     # 896 (program) + 128 + 128 (barriers, zeros; atoms from 2,048) +
     # 16,384 (x) + 16,384 (dirs) + 65,536 (in place) + 4 x 32,768.
     lay = fused_mlp._fwd_layout(mc, True, False)
-    assert (lay.rows, lay.cluster, lay.kr, lay.stages) == (128, 1, 64, 4)
+    assert (lay.rows, lay.kr, lay.stages) == (128, 64, 4)
     assert fused_mlp.smem_bytes(mc, True) == 231_424 == (
         2048 + 16384 + 16384 + 65536 + 4 * 32768)
     assert fused_mlp.kernel_fits(mc, True)
@@ -323,22 +323,22 @@ def test_hopper_budget():
     ] == [64, 64, 64, 64]
     # hi_lo: 64-point tiles of two planes, two stages of 64 rows.
     lay = fused_mlp._fwd_layout(mc, True, True)
-    assert (lay.rows, lay.cluster, lay.kr, lay.stages) == (64, 1, 64, 2)
+    assert (lay.rows, lay.kr, lay.stages) == (64, 64, 2)
     assert fused_mlp.smem_bytes(mc, True, hi_lo=True) == 231_424
     assert fused_mlp.kernel_fits(mc, True, hi_lo=True)
     # Depth 8, by width (the largest tile that holds two stages): bf16
     # 128-point tiles up to 320, 64 to 768, 32 to 1536, 16 to 3136; hi_lo
     # 64 to 320, 32 to 704, 16 to 1408, each alone. Past those, no two
     # stages fit.
-    for width, hi_lo, tile in ((320, False, (128, 1)), (336, False, (64, 1)),
-                               (768, False, (64, 1)), (784, False, (32, 1)),
-                               (1536, False, (32, 1)), (1552, False, (16, 1)),
-                               (3136, False, (16, 1)), (320, True, (64, 1)),
-                               (336, True, (32, 1)), (704, True, (32, 1)),
-                               (720, True, (16, 1)), (1408, True, (16, 1))):
+    for width, hi_lo, tile in ((320, False, 128), (336, False, 64),
+                               (768, False, 64), (784, False, 32),
+                               (1536, False, 32), (1552, False, 16),
+                               (3136, False, 16), (320, True, 64),
+                               (336, True, 32), (704, True, 32),
+                               (720, True, 16), (1408, True, 16)):
         wide = RenderConfig(width=width).model_config()
         lay = fused_mlp._fwd_layout(wide, True, hi_lo)
-        assert (lay.rows, lay.cluster) == tile, (width, hi_lo)
+        assert lay.rows == tile, (width, hi_lo)
         assert fused_mlp.kernel_fits(wide, True, hi_lo=hi_lo)
     for width, hi_lo in ((3152, False), (1424, True)):
         wide = RenderConfig(width=width).model_config()

@@ -166,10 +166,15 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
     of its operands, its weights read back from the strip image, its ring
     stage checked to fit a slot) and epilogues, the (hi, lo) planes and
     three products in hi_lo mode, rows past n zero, each pass's columns
-    copied into its workspace matrix. The matrix and operation tables are
-    read at the header's bases. Then phase 2 runs every job over every
-    split of the chunk's rows into that chunk's partial slots, and the
-    slots are summed in (chunk, split) order."""
+    copied into its workspace matrix, which lies in the strip layout
+    (``ws_index``). The matrix and operation tables are read at the
+    header's bases. Then phase 2 walks its items as the kernel does (unit,
+    then split) over the chunk's rows: each unit's stages of its 64-row
+    groups (each stage checked to fit a ring slot), its A strips as the
+    warpgroups' 64-row M tiles, its Y strips as N, the products summed in
+    fp32 over the split into the unit's part of the split's slot, its bias
+    columns summed from the stages; the slots are summed in (chunk, split)
+    order."""
     prog = packed.bwd_program.tolist()
     hdr = dict(zip(fused_mlp._BWD_HEADER, prog))
     hi_lo = packed.hi_lo
@@ -183,17 +188,24 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
            for i in range(hdr["n_ops"])]
     assert hdr["mats_base"] == fused_mlp.BWD_TABLES_BASE
     assert hdr["ops_base"] == hdr["mats_base"] + 2 * hdr["n_mats"]
-    assert hdr["jobs_off"] == hdr["ops_base"] + 16 * hdr["n_ops"]
-    jobs = np.asarray(prog[hdr["jobs_off"]:]).reshape(hdr["n_jobs"], 10)
+    assert hdr["units_off"] == hdr["ops_base"] + 16 * hdr["n_ops"]
+    units = np.asarray(prog[hdr["units_off"]:]).reshape(
+        hdr["n_units"], fused_mlp.BWD_UNIT_INTS)
     rows = hdr["rows"]
     assert rows == packed.bwd_rows and hdr["stages"] >= 2
-    assert hdr["cluster"] == packed.bwd_cluster == 1
     assert hdr["smem"] <= fused_mlp.SMEM_LIMIT
+    # phase 2's ring: its slots after the barriers and zero block, whole
+    # 1024-byte atoms a plane, and the bytes a narrow strip's tile reads past
+    assert 2 <= hdr["p2_stages"] <= fused_mlp.MAX_STAGES
+    assert hdr["p2_ring_off"] >= 2 * fused_mlp.MAX_STAGES * 8 + 128
+    assert hdr["p2_slot"] % (1024 * planes) == 0
+    assert (hdr["p2_ring_off"] + hdr["p2_stages"] * hdr["p2_slot"]
+            + fused_mlp.P2_SLACK == hdr["p2_smem"] <= fused_mlp.SMEM_LIMIT)
     slot = hdr["slot"] // planes
     # phase 1 copies the whole program, or its header and buffer table,
     # into shared memory ahead of the ring's barriers, zero block and
     # buffers (whole atoms at 1024-byte offsets)
-    assert hdr["prog_len"] in (hdr["jobs_off"], fused_mlp.BWD_TABLES_BASE)
+    assert hdr["prog_len"] in (hdr["units_off"], fused_mlp.BWD_TABLES_BASE)
     assert 4 * hdr["prog_len"] <= hdr["bar_off"]
     used = [(off, cols, c0) for off, cols, c0 in bufs if cols]
     assert (hdr["bar_off"] + fused_mlp.MAX_STAGES * fused_mlp.BARRIER_BYTES
@@ -249,20 +261,23 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
 
     chunks = [(c0, min(chunk_rows, n - c0)) for c0 in range(0, n, chunk_rows)]
     cap = fused_mlp.ws_rows(min(n, chunk_rows), rows)
+    assert cap % fused_mlp.BWD_STAGE_ROWS == 0
     slots = []
     for c0, r in chunks:
         ws = torch.zeros(cap * hdr["ws_cols"])
 
-        def mat(m, plane=0):
+        def at_m(m, plane=0):   # matrix m's elements in the workspace
             col, cols = mats[m]
-            at_ = cap * (col + plane * cols)
-            return ws[at_: at_ + cap * cols].view(cap, cols)
+            return cap * (col + plane * cols) + fused_mlp.ws_index(cap, cols)
+
+        def mat(m, plane=0):
+            return ws[at_m(m, plane)]
 
         def save(b, m, r0, col=0, nn=None):   # columns of buffer b
             for plane in range(planes):
-                dst = mat(m, plane)
-                end = dst.shape[1] if nn is None else col + nn
-                dst[r0:r0 + rows, col:end] = buf(b, end - col, col, plane)
+                idx = at_m(m, plane)
+                end = idx.shape[1] if nn is None else col + nn
+                ws[idx[r0:r0 + rows, col:end]] = buf(b, end - col, col, plane)
 
         c_g = g[c0:c0 + r]
         c_enc = enc[c0:c0 + r]
@@ -319,27 +334,49 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
                     acc = torch.where(masks[mask_in], acc, 0.0)
                 put(dst, acc, col)
                 save(dst, m, r0, col, nn)
-        # Phase 2 over the chunk's workspace rows.
-        splits, split_rows = fused_mlp.bwd_splits(r_pad)
-        for s in range(splits):
-            s0, s1 = s * split_rows, min(r_pad, (s + 1) * split_rows)
-            part = torch.zeros(fused_mlp.part_stride(packed.grad_total))
-            for am, k0, kc, ym, n0, nc, off, ld, db, _ in jobs.tolist():
-                a = [mat(am, p)[s0:s1, k0:k0 + kc] for p in range(planes)]
-                y = [mat(ym, p)[s0:s1, n0:n0 + nc] for p in range(planes)]
-                prod = mm([t.t() for t in a], y)
-                tile = part[off + k0 * ld: off + (k0 + kc) * ld].view(kc, ld)
-                tile[:, n0:n0 + nc] = prod
-                if db >= 0:
-                    part[db + n0: db + n0 + nc] = sum(y).sum(0)
-            slots.append(part)
+        # Phase 2 over the chunk's workspace rows: item i is unit i % units
+        # of split i // units (one scene).
+        splits, split_rows = fused_mlp.bwd_splits(r_pad, units)
+        parts = [torch.zeros(fused_mlp.part_stride(packed.grad_total))
+                 for _ in range(splits)]
+        for i in range(len(units) * splits):
+            am, k0, kc, ym, n0, nc, off, ld, db, sub, _, _ = \
+                units[i % len(units)].tolist()
+            part = parts[i // len(units)]
+            s0 = i // len(units) * split_rows
+            s1 = min(r_pad, s0 + split_rows)
+            # one or two A strips (the last maybe narrower) by whole Y
+            # strips or Y's narrower last strip, each a strip of its matrix
+            ac, yc = mats[am][1], mats[ym][1]
+            assert k0 % 64 == 0 and n0 % 64 == 0 and 0 < kc <= 128
+            assert kc in (min(128, ac - k0), min(64, ac - k0))
+            assert nc in (16, 32, 48, 64, 128, 192, 256)
+            assert n0 + nc <= yc and (nc % 64 == 0 or n0 + nc == yc)
+            # each stage within a ring slot, up to 16 groups of rows (64
+            # in bf16, 32 in hi_lo)
+            group = fused_mlp.P2_GROUP_ROWS[hi_lo]
+            assert 1 <= sub <= fused_mlp.P2_MAX_SUB
+            assert group * sub * (kc + nc) * 2 * planes <= hdr["p2_slot"]
+            acc = torch.zeros(kc, nc)
+            dsum = torch.zeros(nc)
+            for q0 in range(s0, s1, group * sub):
+                q1 = min(s1, q0 + group * sub)
+                a = [mat(am, p)[q0:q1, k0:k0 + kc] for p in range(planes)]
+                y = [mat(ym, p)[q0:q1, n0:n0 + nc] for p in range(planes)]
+                acc += mm([t.t() for t in a], y)
+                dsum += sum(y).sum(0)
+            tile = part[off + k0 * ld: off + (k0 + kc) * ld].view(kc, ld)
+            tile[:, n0:n0 + nc] = acc
+            if db >= 0:
+                part[db + n0: db + n0 + nc] = dsum
+        slots += parts
     flat = slots[0][:packed.grad_total].clone()
     for part in slots[1:]:
         flat += part[:packed.grad_total]
     return fused_mlp.unpack_grads(packed, flat)
 
 
-@pytest.mark.parametrize("arch, n, chunk, min_split", [
+PROGRAM_CASES = [
     (dict(depth=6, width=64, use_viewdirs=True), 549, 256, 2048),
     (dict(depth=6, width=40, use_viewdirs=False), 549, 256, 2048),  # pad 48
     (dict(depth=8, width=32, use_viewdirs=True), 549, 256, 2048),
@@ -383,7 +420,10 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
     (dict(depth=1, width=1696, use_viewdirs=True), 40, 256, 2048),
     (dict(depth=1, width=1472, use_viewdirs=True, hi_lo=True), 40, 256,
      2048),
-])
+]
+
+
+@pytest.mark.parametrize("arch, n, chunk, min_split", PROGRAM_CASES)
 def test_bwd_program_matches_plain(arch, n, chunk, min_split, monkeypatch):
     """The backward program, packed layout, workspace, job list, splits,
     chunks and slot order the kernels execute compute the plain backward
@@ -423,6 +463,68 @@ def test_bwd_program_matches_plain(arch, n, chunk, min_split, monkeypatch):
                                    want[name].numpy() / scale,
                                    atol=1e-4 if not hi_lo else 1e-5,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("arch, n, chunk, min_split", PROGRAM_CASES)
+def test_units_cover_every_gradient_once(arch, n, chunk, min_split,
+                                         monkeypatch):
+    """Phase 2's items (unit, split, scene), as the kernel walks them, write
+    every element of each scene's packed gradient exactly once per split:
+    every weight element by one unit, every bias element by the unit that
+    holds its layer's first input features; each unit one or two A strips
+    by whole Y strips or Y's narrow last strip, the units of a block's
+    output range neighbours, larger blocks first. Two scenes."""
+    arch = dict(arch)
+    hi_lo = arch.pop("hi_lo", False)
+    vdirs = arch["use_viewdirs"]
+    monkeypatch.setattr(fused_mlp, "BWD_MIN_SPLIT_ROWS", min_split)
+    cfg = RenderConfig(compute_dtype="bfloat16", use_kernel=True, **arch)
+    net = init_model(cfg.model_config(), seed=3, device="cpu")
+    packed = fused_mlp.pack_params(net, cfg.pos_enc_L, vdirs, hi_lo)
+    units = packed.bwd_units.tolist()
+    rows = fused_mlp.ws_rows(min(n, chunk), packed.bwd_rows)
+    splits, split_rows = fused_mlp.bwd_splits(rows, units)
+    assert splits * split_rows >= rows > (splits - 1) * split_rows
+    scenes = 2
+    count = torch.zeros((scenes, splits, packed.grad_total),
+                        dtype=torch.int32)
+    for i in range(len(units) * splits * scenes):
+        am, k0, kc, ym, n0, nc, off, ld, db, sub, _, _ = units[i % len(units)]
+        rest = i // len(units)
+        c = count[rest // splits, rest % splits]
+        c[off: off + (k0 + kc) * ld].view(k0 + kc, ld)[k0:, n0:n0 + nc] += 1
+        if db >= 0:
+            assert k0 == 0
+            c[db + n0: db + n0 + nc] += 1
+    assert int(count.min()) == int(count.max()) == 1
+    sizes = [ld * packed.ws_mats[u[0]][2] for u in units
+             for ld in [u[7]]]
+    assert sizes == sorted(sizes, reverse=True)
+    for u, v in zip(units, units[1:]):   # a block's output range together
+        if (u[6], u[4]) == (v[6], v[4]):
+            assert v[1] == u[1] + u[2]
+
+
+def test_workspace_strip_layout():
+    """The workspace's strip layout three ways: ws_index (what the kernels'
+    ws_elem computes), strip_image (the plain phase 1's writes) and
+    block_from_image / ws_matrix (the readers) agree, at whole and narrow
+    strips."""
+    for rows, cols in ((64, 16), (128, 64), (64, 160), (192, 304)):
+        mat = torch.arange(rows * cols, dtype=torch.float32).view(rows, cols)
+        img = fused_mlp.strip_image(mat)
+        idx = fused_mlp.ws_index(rows, cols)
+        assert sorted(idx.flatten().tolist()) == list(range(rows * cols))
+        assert torch.equal(img[idx], mat)
+        assert torch.equal(fused_mlp.block_from_image(img, rows, cols), mat)
+    cfg = RenderConfig(depth=3, width=96)
+    net = init_model(cfg.model_config(), seed=0, device="cpu")
+    packed = fused_mlp.pack_params(net, cfg.pos_enc_L, True, True)
+    ws = torch.zeros(64 * packed.ws_cols, dtype=torch.bfloat16)
+    for m, (_, _, cols) in enumerate(packed.ws_mats):
+        want = torch.randn(2, 64, cols).to(torch.bfloat16)
+        fused_mlp.ws_store(packed, ws, m, want)
+        assert torch.equal(fused_mlp.ws_matrix(packed, ws, m), want)
 
 
 @pytest.mark.parametrize("vdirs, hi_lo", [(True, False), (False, True)])
@@ -499,8 +601,8 @@ def test_backward_budget():
     columns); phase 1's shared memory within Hopper's 227 KB with five
     weight stages of 128-point tiles (three of 64-point tiles in hi_lo). A
     layer wider than 256 columns takes one operation per column pass and
-    smaller tiles, in clusters; a net too deep for phase 1's masks does
-    not fit, and says so."""
+    smaller tiles; a net too deep for phase 1's masks does not fit, and
+    says so."""
     mc = RenderConfig().model_config()
     ops, mats = fused_mlp.backward_counts(mc, True)
     assert (ops, mats) == (10 + 1 + 10, 24)
@@ -511,8 +613,7 @@ def test_backward_budget():
     assert fused_mlp.bwd_scratch_bytes(mc, True, hi_lo=True) == 4992 * 4
     for hi_lo, rows, stages in ((False, 128, 5), (True, 64, 3)):
         layout = fused_mlp._bwd_layout(mc, True, hi_lo)
-        assert (layout.rows, layout.cluster, layout.kr, layout.stages) == (
-            rows, 1, 32, stages)
+        assert (layout.rows, layout.kr, layout.stages) == (rows, 32, stages)
         assert fused_mlp.bwd_smem_bytes(mc, True, hi_lo) <= fused_mlp.SMEM_LIMIT
     # 8x640: every layer in three passes (the view head's 320 in two);
     # 24,576 B of workspace per point, 32-point tiles.
@@ -522,12 +623,12 @@ def test_backward_budget():
         8 * 3 + 3 + 2 + 1 + 2 + 3 + 3 + 7 * 3, 24)
     assert fused_mlp.bwd_scratch_bytes(wide, True) == 24_576
     lay = fused_mlp._bwd_layout(wide, True, False)
-    assert (lay.rows, lay.cluster) == (32, 1)
+    assert lay.rows == 32
     assert fused_mlp.backward_fits(wide, True)
     hi = RenderConfig(width=576).model_config()
     assert fused_mlp.bwd_scratch_bytes(hi, True, hi_lo=True) == 44_288
     lay = fused_mlp._bwd_layout(hi, True, True)
-    assert (lay.rows, lay.cluster) == (16, 1)
+    assert lay.rows == 16
     assert fused_mlp.backward_fits(hi, True, hi_lo=True)
     # Depth is bounded by phase 1's masks and tables: 100x256 (205
     # operations, 208 matrices) fits at 32-point tiles; 400x256's masks
@@ -553,57 +654,80 @@ def test_backward_budget():
     # the tables in shared memory beside them.
     lay = fused_mlp._bwd_layout(RenderConfig(depth=866, width=16)
                                 .model_config(), True, False)
-    assert (lay.rows, lay.cluster) == (32, 1)
+    assert lay.rows == 32
     assert lay.prog_ints > fused_mlp.BWD_TABLES_BASE
     assert lay.masks[-1] == (866 * 64,)
 
 
-# (depth, width, hi_lo): the forward's (points a tile, CTAs a cluster, weight
-# rows a stage, stages, bytes) and phase 1's (points a tile, CTAs a cluster,
-# tables in shared memory, weight rows a stage, stages, bytes); CLI shapes.
+# (depth, width, hi_lo): the forward's (points a tile, weight rows a stage,
+# stages, bytes), phase 1's (points a tile, tables in shared memory, weight
+# rows a stage, stages, bytes) and phase 2's (work units, ring stages, slot
+# bytes, bytes); CLI shapes.
 LAYOUTS = [
-    (8, 256, False, (128, 1, 64, 4, 231_424), (128, 1, True, 32, 5, 217_088)),
-    (8, 256, True, (64, 1, 64, 2, 231_424), (64, 1, True, 32, 3, 216_064)),
-    (8, 512, False, (64, 1, 64, 2, 215_040), (32, 1, True, 64, 4, 226_304)),
-    (8, 640, False, (64, 1, 32, 3, 232_448), (32, 1, True, 64, 3, 216_064)),
-    (8, 384, True, (32, 1, 32, 3, 215_040), (32, 1, True, 32, 3, 230_400)),
-    (32, 256, False, (128, 1, 64, 4, 232_448), (64, 1, True, 64, 3, 220_160)),
-    (866, 16, False, (128, 1, 64, 8, 130_048), (32, 1, True, 64, 8, 219_136)),
-    (1, 1696, False, (16, 1, 64, 3, 215_040), (16, 1, True, 64, 3, 221_184)),
-    (2, 1312, False, (32, 1, 32, 3, 231_424), (16, 1, True, 64, 4, 232_448)),
-    (5, 864, False, (32, 1, 64, 3, 224_256), (32, 1, True, 32, 5, 228_352)),
-    (2, 1024, False, (32, 1, 64, 2, 206_848), (32, 1, True, 32, 4, 218_112)),
-    (1, 1472, True, (16, 1, 16, 2, 231_424), (8, 1, False, 32, 3, 202_752)),
-    (3, 960, True, (16, 1, 32, 3, 231_424), (16, 1, True, 32, 2, 206_848)),
-    (5, 752, True, (16, 1, 32, 3, 206_848), (16, 1, True, 32, 3, 218_112)),
+    (8, 256, False, (128, 64, 4, 231_424), (128, True, 32, 5, 217_088),
+     (24, 4, 49_152, 198_656)),
+    (8, 256, True, (64, 64, 2, 231_424), (64, True, 32, 3, 216_064),
+     (24, 4, 49_152, 198_656)),
+    (8, 512, False, (64, 64, 2, 215_040), (32, True, 64, 4, 226_304),
+     (79, 4, 49_152, 198_656)),
+    (8, 640, False, (64, 32, 3, 232_448), (32, True, 64, 3, 216_064),
+     (146, 4, 49_152, 198_656)),
+    (8, 384, True, (32, 32, 3, 215_040), (32, True, 32, 3, 230_400),
+     (61, 4, 49_152, 198_656)),
+    (32, 256, False, (128, 64, 4, 232_448), (64, True, 64, 3, 220_160),
+     (72, 4, 49_152, 198_656)),
+    (866, 16, False, (128, 64, 8, 130_048), (32, True, 64, 8, 219_136),
+     (872, 3, 65_536, 198_656)),
+    (1, 1696, False, (16, 64, 3, 215_040), (16, True, 64, 3, 221_184),
+     (216, 4, 49_152, 198_656)),
+    (2, 1312, False, (32, 32, 3, 231_424), (16, True, 64, 4, 232_448),
+     (203, 4, 49_152, 198_656)),
+    (5, 864, False, (32, 64, 3, 224_256), (32, True, 32, 5, 228_352),
+     (215, 4, 49_152, 198_656)),
+    (2, 1024, False, (32, 64, 2, 206_848), (32, True, 32, 4, 218_112),
+     (98, 4, 49_152, 198_656)),
+    (1, 1472, True, (16, 16, 2, 231_424), (8, False, 32, 3, 202_752),
+     (148, 4, 49_152, 198_656)),
+    (3, 960, True, (16, 32, 3, 231_424), (16, True, 32, 2, 206_848),
+     (139, 4, 49_152, 198_656)),
+    (5, 752, True, (16, 32, 3, 206_848), (16, True, 32, 3, 218_112),
+     (147, 4, 49_152, 198_656)),
 ]
 
 
 @pytest.mark.filterwarnings("ignore:netdepth=5")
-@pytest.mark.parametrize("depth, width, hi_lo, fwd, bwd", LAYOUTS,
+@pytest.mark.parametrize("depth, width, hi_lo, fwd, bwd, p2", LAYOUTS,
                          ids=[f"{d}x{w}{'-hi_lo' if h else ''}"
-                              for d, w, h, _, _ in LAYOUTS])
-def test_layouts_pinned(depth, width, hi_lo, fwd, bwd):
-    """Each net's forward and phase-1 layout, as the measured rules pick
-    them (_fwd_pick, _bwd_pick): tiles of 128 to 16 points (and, for phase
-    1 at hi_lo 1x1424-1472, 8), each in a cluster of one CTA; rings of two
-    to eight stages."""
+                              for d, w, h, _, _, _ in LAYOUTS])
+def test_layouts_pinned(depth, width, hi_lo, fwd, bwd, p2):
+    """Each net's forward, phase-1 and phase-2 layout, as the measured rules
+    pick them (_fwd_pick, _bwd_pick, _p2_pick): tiles of 128 to 16 points
+    (and, for phase 1 at hi_lo 1x1424-1472, 8), one CTA a tile; rings of
+    two to eight stages; phase 2's units of up to 128 x 256 features, its
+    stages about 32 KB (64 KB on nets at most 64 wide; a unit's group of
+    64 rows, 32 in hi_lo, where that takes more)."""
     mc = RenderConfig(depth=depth, width=width).model_config()
     f = fused_mlp._fwd_layout(mc, True, hi_lo)
     b = fused_mlp._bwd_layout(mc, True, hi_lo)
-    assert (f.rows, f.cluster, f.kr, f.stages, f.smem) == fwd
-    assert (b.rows, b.cluster, b.prog_ints > fused_mlp.BWD_TABLES_BASE,
+    assert (f.rows, f.kr, f.stages, f.smem) == fwd
+    assert (b.rows, b.prog_ints > fused_mlp.BWD_TABLES_BASE,
             b.kr, b.stages, b.smem) == bwd
     assert fused_mlp.kernel_fits(mc, True, hi_lo)
     assert fused_mlp.backward_fits(mc, True, hi_lo)
+    assert fused_mlp._p2_pick(mc, True, hi_lo) == (
+        128, 65536 if width <= 64 else 32768)
+    net = init_model(mc, seed=0, device="cpu")
+    h = fused_mlp.bwd_header(fused_mlp.pack_params(net, 10, True, hi_lo))
+    assert (h["n_units"], h["p2_stages"], h["p2_slot"], h["p2_smem"]) == p2
 
 
 def test_every_layout_has_its_kernel():
     """Every tile the layouts try is a kernel the CUDA sources build and
     dispatch: the forward's (mode, points) and phase 1's (mode, points,
-    tables in shared memory), each in a cluster of one CTA, and in a
-    multicast cluster of 64 / T CTAs the entry points take (the
-    ablation's); a layout with no kernel would only fail on the card."""
+    tables in shared memory); phase 2's two modes, and a straight-line
+    product group for every unit width its tries give (whole Y strips or a
+    narrow last one); a layout with no kernel would only fail on the
+    card."""
     csrc = os.path.join(os.path.dirname(fused_mlp.__file__), os.pardir,
                         "csrc")
     with open(os.path.join(csrc, "fused_mlp_fwd.cu")) as f:
@@ -612,35 +736,26 @@ def test_every_layout_has_its_kernel():
         bwd_src = f.read()
     name = lambda flag: "true" if flag else "false"
     for hi_lo, tries in fused_mlp.FWD_TRIES.items():
-        for rows, cluster in tries:
-            assert cluster == 1 and max(1, 64 // rows) in (1, 2, 4)
+        for rows in tries:
             assert f"  FWD({name(hi_lo)}, {rows})\n" in fwd_src, (hi_lo, rows)
     for hi_lo, tries in fused_mlp.BWD_TRIES.items():
         built = (fused_mlp.TILE_ROWS_HI_LO if hi_lo
                  else fused_mlp.TILE_ROWS)
-        for rows, cluster, shared in tries:
-            assert rows in built and cluster == 1
-            assert max(1, 64 // rows) in (1, 2, 4, 8)
+        for rows, shared in tries:
+            assert rows in built
             assert (f"  PHASE1({name(hi_lo)}, {rows}, {name(shared)})\n"
                     in bwd_src), (hi_lo, rows, shared)
-
-
-@pytest.mark.parametrize("n_scenes, tiles, cluster", [
-    (1, 1024, 1), (1, 4096, 2), (2, 13, 4), (3, 7, 8), (1, 1, 4),
-    (4, 10, 2)])
-def test_tile_groups_cover_every_tile(n_scenes, tiles, cluster):
-    """The kernels' walk (tile_groups): every tile of every scene in
-    exactly one group, each group within one scene, and only a scene's
-    last group padded, with empty tiles."""
-    groups = fused_mlp.tile_groups(n_scenes, tiles, cluster)
-    seen = [(scene, t) for scene, ts in groups for t in ts if t is not None]
-    assert sorted(seen) == [(s, t) for s in range(n_scenes)
-                            for t in range(tiles)]
-    for i, (scene, ts) in enumerate(groups):
-        assert len(ts) == cluster
-        last = i + 1 == len(groups) or groups[i + 1][0] != scene
-        assert all(t is not None for t in ts) or last
-        assert ts[0] is not None   # no group is all padding
+        assert f"  PHASE2({name(hi_lo)})\n" in bwd_src, hi_lo
+    # Phase 2's unit widths: whole strips up to BWD_UNIT_N, or a narrow
+    # last strip of 2, 4 or 6 cores; each a case of the product dispatch.
+    widths = set()
+    for unit_k, _ in fused_mlp.P2_TRIES:
+        for ncols in range(16, 1025, 16):
+            widths |= {u[5] for u in fused_mlp.p2_units(
+                [(0, 256, 1, ncols, 0, -1)], unit_k)}
+    assert widths == {16, 32, 48, 64, 128, 192, 256}
+    for nc in widths:
+        assert f"P2_GROUP({nc})" in bwd_src, nc
 
 
 @pytest.mark.filterwarnings("ignore:netdepth=5")
@@ -648,10 +763,11 @@ def test_tile_groups_cover_every_tile(n_scenes, tiles, cluster):
     (8, 256), (8, 640), (866, 16), (2, 1024), (1, 1696), (1, 1472), (5, 752),
     (3, 200)])
 def test_every_try_fits_shared_memory(depth, width):
-    """Every layout the tries give a net, at every stage size and in its
-    multicast cluster too, fits Hopper's shared memory wherever it holds a
-    stage; the one taken holds two at least; each operation's stage fits
-    a slot."""
+    """Every layout the tries give a net, at every stage size, fits
+    Hopper's shared memory wherever it holds a stage; the one taken holds
+    two at least; each operation's stage fits a slot; and every layout of
+    phase 2's tries holds two stages of its largest unit within Hopper's
+    shared memory."""
     mc = RenderConfig(depth=depth, width=width).model_config()
     for hi_lo in (False, True):
         for tries, layout, at in (
@@ -663,14 +779,13 @@ def test_every_try_fits_shared_memory(depth, width):
             for entry in tries[hi_lo]:
                 with mock.patch.dict(tries, {hi_lo: (entry,)}):
                     layout.cache_clear()
-                    lay = layout(mc, True, hi_lo)
-                assert lay.cluster == 1
-                for cluster in (1, max(1, 64 // entry[0])):
-                    for kr in fused_mlp.STAGE_ROWS:
-                        lay = at(mc, True, hi_lo, entry[0], cluster,
-                                 *entry[2:], kr)
-                        if lay.stages >= 1:
-                            assert lay.smem <= fused_mlp.SMEM_LIMIT, entry
+                    layout(mc, True, hi_lo)
+                for kr in fused_mlp.STAGE_ROWS:
+                    lay = at(mc, True, hi_lo,
+                             *(entry if isinstance(entry, tuple)
+                               else (entry,)), kr)
+                    if lay.stages >= 1:
+                        assert lay.smem <= fused_mlp.SMEM_LIMIT, entry
             layout.cache_clear()
             shapes = (fused_mlp._fwd_shapes(mc, True)
                       if layout is fused_mlp._fwd_layout
@@ -681,6 +796,19 @@ def test_every_try_fits_shared_memory(depth, width):
                     if op.kind != fused_mlp._LOAD_G:
                         rows = fused_mlp.stage_rows(op, slot)
                         assert fused_mlp._touch(op, rows) <= slot
+        if not fused_mlp.backward_fits(mc, True, hi_lo):
+            continue
+        net = init_model(mc, seed=0, device="cpu")
+        packed = fused_mlp.pack_params(net, 10, True, hi_lo)
+        blocks = [(am, packed.ws_mats[am][2], ym, ld, off, db)
+                  for am, ym, off, ld, db in fused_mlp._p2_blocks(packed)]
+        for unit_k, stage_bytes in fused_mlp.P2_TRIES:
+            units = fused_mlp.p2_units(blocks, unit_k)
+            p2 = fused_mlp.p2_layout(units, hi_lo, stage_bytes)
+            assert p2.stages >= 2 and p2.smem <= fused_mlp.SMEM_LIMIT
+            assert all(fused_mlp.P2_GROUP_ROWS[hi_lo] * sub * (u[2] + u[5])
+                       * 2 * (2 if hi_lo else 1) <= p2.slot
+                       for u, sub in zip(units, p2.subs))
 
 
 @pytest.mark.parametrize("width, serve, train", [
@@ -780,9 +908,11 @@ def test_bwd_memory_refused_by_name():
     """A backward call's bytes, and the refusal past the card: 147x128 hi_lo
     (the widest workspace a point JAX admits, 152,576 B) cuts its chunks to
     53,248 points (8,124,366,848 B of workspace, within the 8 GiB budget);
-    131,072 points then take three chunks, with 26 + 26 + 12 partial slots
-    of its gradient. A stack of scenes takes that once per scene, and on
-    an 80 GB card (40 GB a call) the fifth scene is refused."""
+    131,072 points then take three chunks, with 31 + 31 + 12 partial slots
+    of its gradient (at most 2,048 points a split: at least 26, 26 and 12;
+    of 26-32 splits 31 balance the CTAs' bytes best). A stack of scenes
+    takes that once per scene, and on an 80 GB card (40 GB a call) the
+    fifth scene is refused."""
     cfg = RenderConfig(depth=147, width=128)
     mc = cfg.model_config()
     assert fused_mlp.bwd_scratch_bytes(mc, True, True) == 152_576
@@ -792,8 +922,10 @@ def test_bwd_memory_refused_by_name():
     net = init_model(mc, seed=0, device="cpu")
     packed = fused_mlp.pack_params(net, cfg.pos_enc_L, True, True)
     n_s = 131_072
-    splits = [fused_mlp.bwd_splits(r)[0] for r in (53_248, 53_248, 24_576)]
-    assert splits == [26, 26, 12]
+    assert len(packed.bwd_units) == 153
+    splits = [fused_mlp.bwd_splits(r, packed.bwd_units)[0]
+              for r in (53_248, 53_248, 24_576)]
+    assert splits == [31, 31, 12]
     one = (53_248 * packed.ws_cols * 2
            + sum(splits) * fused_mlp.part_stride(packed.grad_total) * 4)
     assert fused_mlp.bwd_call_bytes(packed, n_s) == one

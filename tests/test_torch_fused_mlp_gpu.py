@@ -252,3 +252,76 @@ def test_deep_kernels_match_plain_on_gpu(depth, width, dtype, n, tol,
     worst = max(float((got[k] - want[k]).abs().max())
                 / float(want[k].abs().max().clamp_min(1e-12)) for k in want)
     assert worst <= tol
+
+
+@pytest.mark.cuda
+# Phase 2 alone on phase 1's workspace: the units of 128 x 256 features
+# (8x256), three products of two planes (8x512 hi_lo), the narrowest units
+# (866x16: every block 16 x 16, its tables and program at their largest),
+# the shallow wide net's narrow strips (1x1696), and a stack of two scenes.
+# The bar is chip_smoke.py's PHASE2_TOL: the same products in another fp32
+# summation order.
+@pytest.mark.parametrize("depth, width, hi_lo, scenes", [
+    (8, 256, False, 1),
+    (8, 512, True, 1),
+    (866, 16, False, 1),
+    (1, 1696, False, 1),
+    (8, 256, False, 2),
+])
+def test_phase2_matches_plain_on_gpu(depth, width, hi_lo, scenes):
+    """Phase 2's partial slots vs weight_grads_plain on the same workspace
+    (max |err| / max |plain| over the slots), a ragged 20,000 points a
+    scene (the last split ends inside a stage); a repeat gives the same
+    bits; a stack's scenes equal their single-scene launches bit for bit;
+    one launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    cfg = RenderConfig(compute_dtype="bfloat16", use_kernel=True,
+                       depth=depth, width=width)
+    mc = cfg.model_config()
+    nets = [_deep_net(mc, seed=s) for s in range(scenes)]
+    n_s = 20_000
+    rng = np.random.default_rng(3)
+    pts = torch.from_numpy(rng.uniform(-1.2, 1.2, (scenes * n_s, 3))
+                           .astype(np.float32)).cuda()
+    d = rng.normal(size=(scenes * n_s, 3)).astype(np.float32)
+    d = torch.from_numpy(d / np.linalg.norm(d, axis=-1, keepdims=True))
+    dirs = positional_encoding(d, 4).cuda()
+    g = torch.from_numpy(rng.normal(size=(scenes * n_s, 4)).astype(
+        np.float32)).cuda() / n_s
+    packs = [fused_mlp.pack_params(net, cfg.pos_enc_L, True, hi_lo)
+             for net in nets]
+    packed = (fused_mlp.pack_params_stack(nets, cfg.pos_enc_L, True, hi_lo)
+              if scenes > 1 else packs[0])
+    if hi_lo:
+        dirs = dirs.float()
+    rows = fused_mlp.ws_rows(n_s, packed.bwd_rows)
+    splits, split_rows = fused_mlp.bwd_splits(rows, packed.bwd_units)
+    ws = torch.empty(scenes * rows * packed.ws_cols, device="cuda",
+                     dtype=torch.bfloat16)
+    fused_mlp.bwd_workspace(packed, pts, dirs, g, ws)
+    stride = fused_mlp.part_stride(packed.grad_total)
+    shape = (scenes, splits, stride) if scenes > 1 else (splits, stride)
+    part = torch.empty(shape, device="cuda")
+    again = torch.empty(shape, device="cuda")
+    before = fused_mlp.weight_grads.launches
+    fused_mlp.weight_grads(packed, ws, rows, split_rows, part)
+    fused_mlp.weight_grads(packed, ws, rows, split_rows, again)
+    want = fused_mlp.weight_grads_plain(packed, ws, rows, split_rows)
+    torch.cuda.synchronize()
+    assert fused_mlp.weight_grads.launches == before + 2
+    total = packed.grad_total
+    assert torch.equal(part[..., :total], again[..., :total])
+    err = float((part[..., :total] - want[..., :total]).abs().max())
+    assert err / float(want[..., :total].abs().max()) <= 1e-4
+    for s in range(scenes if scenes > 1 else 0):
+        # scene s alone: its workspace rows, its own launch
+        one = torch.empty(rows * packed.ws_cols, device="cuda",
+                          dtype=torch.bfloat16)
+        sl = slice(s * n_s, (s + 1) * n_s)
+        fused_mlp.bwd_workspace(packs[s], pts[sl].contiguous(),
+                                dirs[sl].contiguous(), g[sl].contiguous(),
+                                one)
+        solo = torch.empty((splits, stride), device="cuda")
+        fused_mlp.weight_grads(packs[s], one, rows, split_rows, solo)
+        assert torch.equal(solo[:, :total], part[s, :, :total])

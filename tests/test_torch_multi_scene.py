@@ -505,7 +505,7 @@ def test_stacked_plain_functions_equal_the_per_scene_ones(vdirs, hi_lo, n_s,
             assert torch.equal(
                 fm.ws_matrix(stack, ws, m)[:, s * rows_s:(s + 1) * rows_s],
                 fm.ws_matrix(p1, w1, m)), (s, p1.ws_mats[m][0])
-    splits, split_rows = fm.bwd_splits(rows_s)
+    splits, split_rows = fm.bwd_splits(rows_s, stack.bwd_units)
     part = fm.weight_grads_plain(stack, ws, rows_s, split_rows)
     assert part.shape == (S, splits, fm.part_stride(stack.grad_total))
     for s, p1 in enumerate(one):
