@@ -72,7 +72,12 @@ class RenderConfig:
                                  # "high" = three bf16 products per matmul
                                  # (the kernel's hi_lo mode). Ignored in
                                  # bfloat16 mode.
-    remat: bool = False          # kept for config parity; training only
+    remat: bool = False          # on the module path, checkpoint the
+                                 # net's runs of layers (models/mlp.py::
+                                 # remat_runs): the backward recomputes
+                                 # their activations. The kernel path
+                                 # ignores it (its backward recomputes the
+                                 # forward already)
     aabb: Optional[Tuple[float, float, float, float, float, float]] = None
                                  # (xmin,ymin,zmin,xmax,ymax,zmax): tighten
                                  # per-ray near/far to the scene box

@@ -78,13 +78,17 @@ class NeRFMLP(nn.Module):
                 nn.init.zeros_(layer.bias)
 
     def forward(self, x: torch.Tensor, viewdirs: Optional[torch.Tensor] = None,
-                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                compute_dtype: torch.dtype = torch.float32,
+                remat: bool = False) -> torch.Tensor:
         """Raw outputs ``[rgb, sigma]`` (or ``output_ch`` channels).
 
         float32 runs true fp32 matmuls where TF32 is off (PyTorch's
         default; the package's entry points keep it so, see
         :func:`nerfmlp_torch.use_true_fp32`). bfloat16 casts inputs,
         weights and biases to bf16 like Flax's ``Dense(dtype=bf16)``.
+        ``remat``: keep only the inputs of each run of :func:`remat_runs`
+        for the backward, which recomputes the run's activations (the
+        same operations, so the same values).
         """
         cfg = self.cfg
 
@@ -92,21 +96,62 @@ class NeRFMLP(nn.Module):
             return F.linear(h, layer.weight.to(compute_dtype),
                             layer.bias.to(compute_dtype))
 
+        def trunk(layers, x, h):
+            for i in layers:
+                if i in cfg.skips:
+                    h = torch.cat([x, h], dim=-1)
+                h = F.relu(dense(self.pts_linears[i], h))
+            return h
+
+        def last(layers, x, h, viewdirs):
+            h = trunk(layers, x, h)
+            if cfg.use_viewdirs and viewdirs is not None:
+                viewdirs = viewdirs.to(compute_dtype)
+                sigma = dense(self.sigma_linear, h)
+                bottleneck = dense(self.bottleneck_linear, h)
+                h = torch.cat([bottleneck, viewdirs], dim=-1)
+                h = F.relu(dense(self.view_linear, h))
+                rgb = dense(self.rgb_linear, h)
+                return torch.cat([rgb, sigma], dim=-1)
+            return dense(self.output_linear, h)
+
         x = x.to(compute_dtype)
-        h = x
-        for i, layer in enumerate(self.pts_linears):
-            if i in cfg.skips:
-                h = torch.cat([x, h], dim=-1)
-            h = F.relu(dense(layer, h))
-        if cfg.use_viewdirs and viewdirs is not None:
-            viewdirs = viewdirs.to(compute_dtype)
-            sigma = dense(self.sigma_linear, h)
-            bottleneck = dense(self.bottleneck_linear, h)
-            h = torch.cat([bottleneck, viewdirs], dim=-1)
-            h = F.relu(dense(self.view_linear, h))
-            rgb = dense(self.rgb_linear, h)
-            return torch.cat([rgb, sigma], dim=-1)
-        return dense(self.output_linear, h)
+        return run_layers(trunk, last, cfg.depth, x, x, viewdirs, remat)
+
+
+def remat_runs(depth: int):
+    """The trunk's layers in ceil(sqrt(depth)) consecutive runs of near
+    equal length, the shorter ones last (the heads join the last run):
+    what ``remat`` checkpoints one by one. The backward then holds the
+    runs' inputs and one run's recomputed activations, the least of both
+    at about sqrt(depth) runs."""
+    k = max(1, math.ceil(math.sqrt(depth)))
+    ends = [-(-i * depth // k) for i in range(k + 1)]
+    return [range(a, b) for a, b in zip(ends, ends[1:])]
+
+
+def _checkpointed(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward
+    (non-reentrant ``torch.utils.checkpoint``). No RNG is drawn inside, so
+    none is stashed: that also keeps it capturable in a CUDA graph."""
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def run_layers(trunk, last, depth: int, x, state, viewdirs, remat: bool):
+    """A net's forward from its pieces: ``trunk(layers, x, state)`` runs
+    trunk layers on ``state`` (the activations, as the net carries them),
+    ``last(layers, x, state, viewdirs)`` the final layers and the heads.
+    With ``remat`` each run of :func:`remat_runs` is checkpointed, the
+    heads with the last run."""
+    runs = remat_runs(depth) if remat else [range(depth)]
+    for layers in runs[:-1]:
+        state = _checkpointed(trunk, layers, x, state)
+    if remat:
+        return _checkpointed(last, runs[-1], x, state, viewdirs)
+    return last(runs[-1], x, state, viewdirs)
 
 
 def init_model(cfg: Optional[ModelConfig] = None, seed: int = 0,

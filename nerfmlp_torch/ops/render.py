@@ -132,17 +132,28 @@ def _run_mlp(net, pts, viewdirs_enc, cfg, fine):
     if uses_kernel(cfg, fine, backward=torch.is_grad_enabled()):
         return fused_nerf_mlp(net, flat, dirs, cfg, mc=mc).float().reshape(
             n_rays, n_samples, 4)
+    # remat: JAX checkpoints the whole query (encoding and net) on its XLA
+    # path. The encoding holds nothing for the backward (the points carry
+    # no gradient), and one checkpoint of the net would recompute all of
+    # a query's activations at once in the backward: the fine query's two
+    # thirds of the step's points would stay at the peak. The module
+    # checkpoints its runs of layers one by one instead (the same
+    # operations, so the same values).
+    remat = cfg.remat and torch.is_grad_enabled()
+
+    def query(module, f, d):
+        return module(positional_encoding(f, cfg.pos_enc_L), d,
+                      compute_dtype=_dtype(cfg), remat=remat)
+
     if stack is not None:
         k = flat.shape[0] // len(stack)
         raw = torch.cat([
-            module(positional_encoding(flat[i * k:(i + 1) * k], cfg.pos_enc_L),
-                   None if dirs is None else dirs[i * k:(i + 1) * k],
-                   compute_dtype=_dtype(cfg))
+            query(module, flat[i * k:(i + 1) * k],
+                  None if dirs is None else dirs[i * k:(i + 1) * k])
             for i, module in enumerate(stack)])
     else:
-        module = net.net if isinstance(net, PackedMLP) else net
-        enc = positional_encoding(flat, cfg.pos_enc_L)
-        raw = module(enc, dirs, compute_dtype=_dtype(cfg))
+        raw = query(net.net if isinstance(net, PackedMLP) else net, flat,
+                    dirs)
     check_nan([("the output of the MLP's module path", raw)])
     return raw.float().reshape(n_rays, n_samples, 4)
 

@@ -55,7 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from nerfmlp_torch.config import RenderConfig, TrainConfig
-from nerfmlp_torch.models.mlp import NeRFMLP
+from nerfmlp_torch.models.mlp import NeRFMLP, run_layers
 from nerfmlp_torch.parallel.mesh import Mesh, all_gather_rows, make_mesh
 
 # Heads whose kernel is split on the OUTPUT feature axis (column); the
@@ -269,32 +269,44 @@ class TPNeRFMLP(nn.Module):
         return F.linear(h, w, b), dim == 0
 
     def forward(self, x: torch.Tensor, viewdirs: Optional[torch.Tensor] = None,
-                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                compute_dtype: torch.dtype = torch.float32,
+                remat: bool = False) -> torch.Tensor:
         """:meth:`NeRFMLP.forward` on the shards: raw ``[rgb, sigma]`` (or
-        ``output_ch`` channels), whole on every model rank."""
+        ``output_ch`` channels), whole on every model rank. ``remat`` as
+        there: a recomputed run repeats its collectives, on every rank in
+        the same order."""
         cfg = self.cfg
-        x = x.to(compute_dtype)
-        h, split = x, False
-        for i in range(cfg.depth):
-            if i in cfg.skips:
-                h, split = torch.cat([x, self._whole(h, split)], -1), False
-            h, split = self._dense(f"pts_linears.{i}", h, split,
-                                   compute_dtype)
-            h = F.relu(h)
-        if cfg.use_viewdirs and viewdirs is not None:
-            sigma, s_split = self._dense("sigma_linear", h, split,
-                                         compute_dtype)
-            bottleneck, b_split = self._dense("bottleneck_linear", h, split,
-                                              compute_dtype)
-            h = torch.cat([self._whole(bottleneck, b_split),
-                           viewdirs.to(compute_dtype)], -1)
-            h, split = self._dense("view_linear", h, False, compute_dtype)
-            rgb, r_split = self._dense("rgb_linear", F.relu(h), split,
+
+        def trunk(layers, x, state):
+            h, split = state
+            for i in layers:
+                if i in cfg.skips:
+                    h, split = torch.cat([x, self._whole(h, split)], -1), False
+                h, split = self._dense(f"pts_linears.{i}", h, split,
                                        compute_dtype)
-            return torch.cat([self._whole(rgb, r_split),
-                              self._whole(sigma, s_split)], -1)
-        out, split = self._dense("output_linear", h, split, compute_dtype)
-        return self._whole(out, split)
+                h = F.relu(h)
+            return h, split
+
+        def last(layers, x, state, viewdirs):
+            h, split = trunk(layers, x, state)
+            if cfg.use_viewdirs and viewdirs is not None:
+                sigma, s_split = self._dense("sigma_linear", h, split,
+                                             compute_dtype)
+                bottleneck, b_split = self._dense("bottleneck_linear", h,
+                                                  split, compute_dtype)
+                h = torch.cat([self._whole(bottleneck, b_split),
+                               viewdirs.to(compute_dtype)], -1)
+                h, split = self._dense("view_linear", h, False, compute_dtype)
+                rgb, r_split = self._dense("rgb_linear", F.relu(h), split,
+                                           compute_dtype)
+                return torch.cat([self._whole(rgb, r_split),
+                                  self._whole(sigma, s_split)], -1)
+            out, split = self._dense("output_linear", h, split, compute_dtype)
+            return self._whole(out, split)
+
+        x = x.to(compute_dtype)
+        return run_layers(trunk, last, cfg.depth, x, (x, False), viewdirs,
+                          remat)
 
     @torch.no_grad()
     def full_state_dict(self) -> Dict[str, torch.Tensor]:

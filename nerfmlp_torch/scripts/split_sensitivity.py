@@ -1,17 +1,21 @@
 """How chip_smoke.py's training-dependent bars move with phase 2's split
-length, on one GPU.
+length, on one GPU: the bars they replaced beside the bars that hold.
 
     python -m nerfmlp_torch.scripts.split_sensitivity [--rows 2048,4096,8192]
 
 Run from the root of a checkout (it drives chip_smoke.py's phases). For each
 cap on phase 2's split length (``BWD_MAX_SPLIT_ROWS``; it changes only the
 fp32 summation order of the weight gradients): phase 6's turbo training
-through the kernels, then phase 10's vertex bar on that model at 256^3 (the
+through the kernels, then phase 10's vertex bars on that model at 256^3 (the
 kernel's density volume against its plain version's on the same points: the
 signed difference, the grid points on either side of the threshold in one
-volume only, and each mesh's vertices against the other's), and phase 11's
-multi-scene train CLI (each scene's held-out PSNR against --no_kernel).
-Prints one line a bar and cap, with the card. Needs no jax.
+volume only; the old bar, every kernel vertex within a cell diagonal of the
+plain version's mesh, and the new one, ``chip_smoke.vertex_bar``), and phase
+11's multi-scene bars: the train CLI's held-out PSNR per scene against
+--no_kernel (the old bar, each scene within 2 dB, and the new ones, the
+floors and the mean gap), and every scene of the stack against its solo
+step (``chip_smoke.stack_gap``). Prints one line a bar and cap, with the
+card. Needs no jax.
 """
 
 import argparse
@@ -47,13 +51,39 @@ def mesh_bar(path):
     diag = float(np.linalg.norm(cell))
     a = cs.nearest(mk, mp, 4 * diag)
     b = cs.nearest(mp, mk, 4 * diag)
+    bar = cs.vertex_bar(vk, vp, thr, cs.OCC_AABB, mk, mp, a, b)
+    old = "holds" if a.max() <= diag else "fails"
+    new = "holds" if bar["ok"] else "fails"
     return (f"threshold {thr:.5f}; kernel - plain volume mean {d.mean():.3e}, "
             f"std {d.std():.3e}; above it in the kernel's volume only "
             f"{int(((vk > thr) & (vp <= thr)).sum())}, in the plain "
-            f"version's only {int(((vp > thr) & (vk <= thr)).sum())}; kernel "
-            f"vertices to the plain mesh max {a.max():.3e}, "
+            f"version's only {int(((vp > thr) & (vk <= thr)).sum())}; old "
+            f"bar {old}: kernel vertices to the plain mesh max {a.max():.3e}, "
             f"{int((a > diag).sum())} beyond a diagonal; plain to kernel max "
-            f"{b.max():.3e}, {int((b > diag).sum())} beyond ({diag:.3e})")
+            f"{b.max():.3e}, {int((b > diag).sum())} beyond ({diag:.3e}); "
+            f"new bar {new}: {cs.vertex_bar_line(bar)}")
+
+
+def multi_scene_bars(dirs, data, train_psnr, card):
+    """Phase 11's bars: the dense CLI runs' old per-scene gap and new
+    floors and mean gap, then every scene of the stack against its solo
+    step."""
+    try:
+        runs = cs.ms_cli_dense(dirs, data, train_psnr, card)
+        gaps = [k - p for k, p in zip(runs["kernel"]["psnr"],
+                                      runs["plain"]["psnr"])]
+        old = "holds" if max(abs(x) for x in gaps) <= 2 * cs.PSNR_GAP \
+            else "fails"
+        line = (f"old per-scene bar (each within {2 * cs.PSNR_GAP} dB) "
+                f"{old}, gaps {[round(x, 2) for x in gaps]}; new floors "
+                f"and mean gap hold")
+    except SystemExit as e:
+        line = f"the dense CLI bars failed: {e}"
+    try:
+        cs.ms_against_solo(data, card)
+        return line + "; stack_gap holds"
+    except SystemExit as e:
+        return line + f"; stack_gap fails: {e}"
 
 
 def main(argv=None) -> int:
@@ -73,13 +103,9 @@ def main(argv=None) -> int:
                   f"turbo held-out PSNR {occ['val']['psnr']:.2f} dB; phase "
                   f"10's bar at {cs.MESH_RES[1]}^3: "
                   f"{mesh_bar(cs.save_turbo(occ))} | {card}", flush=True)
-            try:
-                cs.ms_cli_dense(dirs, data, train_psnr, card)
-                verdict = "held"
-            except SystemExit as e:
-                verdict = f"failed: {e}"
             print(f"[split_sensitivity] splits of at most {rows} rows: phase "
-                  f"11's dense CLI bars {verdict} | {card}", flush=True)
+                  f"11: {multi_scene_bars(dirs, data, train_psnr, card)} | "
+                  f"{card}", flush=True)
     return 0
 
 

@@ -17,9 +17,12 @@ size (the JAX CLI's default is 1024x1024), for LLFF with ``--factor`` the
 native size of ``images_{factor}/``, else 504x378, and for DeepVoxels
 512x512; ``--half_res`` halves a Blender scene's stored size and is
 ignored, with a warning, elsewhere. The shipped ``configs/*.txt`` run as
-they are, given ``--datadir``. Videos are animated GIFs. The two flags
-of features that the port does not need, by design (``--remat``,
-``--compilation_cache``), are refused by name, saying why.
+they are, given ``--datadir``. Videos are animated GIFs. ``--remat``
+recomputes the MLP's activations in the backward where a net trains on the
+module path (fp32 'highest', ``--no_kernel``, or a net the kernels refuse);
+the kernels' backward recomputes its forward already. The flag of a feature
+that the port does not need, by design (``--compilation_cache``), is
+refused by name, saying why.
 
 At the end of a run rank 0 draws the JAX CLI's three figures,
 ``training_report.png``, ``convergence_plot.png`` and
@@ -78,9 +81,6 @@ _DEFAULT_SAVE_DIR = "outputs/checkpoints"
 _NOT_PORTED = {
     "compilation_cache": (dict(type=str, default=None),
                           "a compilation cache (PyTorch runs eagerly)"),
-    "remat": (dict(action="store_true"),
-              "activation rematerialisation (the fused backward recomputes "
-              "the forward already)"),
 }
 
 
@@ -173,6 +173,9 @@ def build_parser():
     p.add_argument("--no_kernel", "--no_pallas", dest="use_kernel",
                    action="store_false",
                    help="plain PyTorch module path instead of the kernels")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the MLP's activations in the backward on "
+                        "the module path: less memory, more operations")
     p.add_argument("--n_devices", type=int, default=0,
                    help="data-parallel ranks, one per card (0 = every "
                         "visible card; with --device cpu, 1)")
@@ -492,7 +495,7 @@ def _run(args, mesh):
         ndc=bool(getattr(dataset, "use_ndc", False)),
         separate_fine=args.separate_fine, compute_dtype=args.compute_dtype,
         use_kernel=args.use_kernel, fp32_precision=args.fp32_precision,
-        **occupancy_fields(args),
+        remat=args.remat, **occupancy_fields(args),
         occ_update_every=args.occ_update_every,
         occ_warmup_steps=args.occ_warmup_steps,
     )

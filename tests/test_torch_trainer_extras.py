@@ -368,8 +368,9 @@ def test_check_numerics_runs_windows_step_by_step(scene, tmp_path, numerics,
 def test_cli_flags(scene, tmp_path):
     """--check_numerics, --profile_dir and --tensorboard parse with the JAX
     CLI's names and reach the run: a NaN-free run with all three writes
-    its trace and events and leaves the checks as they were; the flags
-    that stay unported are still refused by name."""
+    its trace and events and leaves the checks as they were; the flag
+    that stays unported (--compilation_cache) is still refused by name
+    (--remat is ported: tests/test_torch_remat.py)."""
     out, prof = tmp_path / "out", tmp_path / "prof"
     argv = ["--datadir", scene, "--device", "cpu", "--img_wh", "16", "16",
             "--netdepth", "2", "--netwidth", "32", "--N_samples", "8",
@@ -386,11 +387,9 @@ def test_cli_flags(scene, tmp_path):
     assert m["step"] == 12 and not numerics_checked()
     assert list(_traced_steps(str(prof)).values()) == [list(range(10, 13))]
     assert "train/loss" in _events(str(out / "tb"))["scalars"]
-    for flag, match in (("--remat", "rematerialisation"),
-                        ("--compilation_cache", "compilation cache")):
-        extra = [flag] if flag == "--remat" else [flag, "2"]
+    for flag, match in (("--compilation_cache", "compilation cache"),):
         with pytest.raises(SystemExit, match=match):
-            train_cli.main(argv + extra)
+            train_cli.main(argv + [flag, "2"])
     # --tensor_parallel is ported: on one device it fails JAX's check.
     with pytest.raises(ValueError, match="1 devices not divisible by tp=2"):
         train_cli.main(argv + ["--tensor_parallel", "2"])
