@@ -1,0 +1,8 @@
+"""Share of the traced training window in which the card runs nothing."""
+
+
+def read(ctx):
+    t = ctx["trace"]
+    if ctx["work"]["mode"] != "train" or not t.kernels():
+        return None
+    return 100.0 * (1.0 - t.busy_s() / t.window_s)
