@@ -137,7 +137,10 @@ class TrainConfig:
     package's jitted ``lax.scan``; ``train/graph.py``), on the CPU the same
     step body eagerly; windows end at every step where the host has work.
     ``profile_dir``: a ``torch.profiler`` trace of steps 10-29 of each
-    ``Trainer.train()`` call is written there (``train/loop.py``).
+    ``Trainer.train()`` call is written there (``train/loop.py``): each
+    step a ``train step N`` range, beside the ranges of the program's
+    spans by their names (``train.window``, ``train.batch``,
+    ``train.occ_update``, ...: ``utils/spans.py``).
     """
 
     batch_size: int = 1024

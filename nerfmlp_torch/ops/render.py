@@ -42,6 +42,7 @@ from nerfmlp_torch.ops.fused_mlp import (
 )
 from nerfmlp_torch.ops.integrate import composite_rays
 from nerfmlp_torch.ops.sampling import sample_pdf, stratified_sample
+from nerfmlp_torch.utils.spans import count
 
 
 def _final_net(params: Dict, cfg: RenderConfig):
@@ -111,7 +112,9 @@ def _query_mlp(net, pts: torch.Tensor, viewdirs_enc: Optional[torch.Tensor],
     A stack of nets takes scene-major rays: the kernels in one launch, or
     on the module path each scene's rays through its own net. ``call``
     names the query (coarse, fine, probe, ...) in the NaN checks'
-    errors (:func:`nerfmlp_torch.check_numerics`)."""
+    errors (:func:`nerfmlp_torch.check_numerics`). Counts the points in
+    ``mlp.points`` while a profiler runs (``utils/spans.py``)."""
+    count("mlp.points", pts.shape[0] * pts.shape[1])
     with numerics_scope(f"{call} call"):
         return _run_mlp(net, pts, viewdirs_enc, cfg, fine)
 
@@ -359,11 +362,13 @@ def render_image_maps(
     Deterministic (perturb and noise forced off). Rays are padded to a
     multiple of ``tile`` and rendered tile by tile on the rays' device,
     without autograd; per-ray near/far tensors are padded like the rays.
-    ``occ_grid``: the density grid ``use_occupancy`` renders with."""
+    ``occ_grid``: the density grid ``use_occupancy`` renders with. While a
+    profiler runs, counts the rays in ``serve.rays``."""
     cfg = dataclasses.replace(cfg, perturb=False, raw_noise_std=0.0)
     n_rays = rays_o.shape[0]
     n_tiles = -(-n_rays // tile)
     pad = n_tiles * tile - n_rays
+    count("serve.rays", n_rays)
     # Pad with a valid direction: no 0-norm viewdirs on padded lanes.
     down = torch.tensor([0.0, 0.0, -1.0], device=rays_d.device,
                         dtype=rays_d.dtype).expand(pad, 3)

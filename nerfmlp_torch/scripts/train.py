@@ -30,7 +30,9 @@ At the end of a run rank 0 draws the JAX CLI's three figures,
 (``scripts/plot_training_progress.py``), best-effort.
 
 ``--profile_dir D`` writes a ``torch.profiler`` Chrome trace of steps
-10-29 into D (one a rank), ``--check_numerics`` raises
+10-29 into D (one a rank; each step a ``train step N`` range beside the
+ranges of the program's spans, ``train.window``, ``train.batch``, ...,
+``nerfmlp_torch/utils/spans.py``), ``--check_numerics`` raises
 ``FloatingPointError`` at the first NaN of a step or render, naming the
 tensor (the JAX CLI's ``jax_debug_nans``), and ``--tensorboard`` logs
 the JAX Trainer's TensorBoard tags to ``<save_dir>/tb``; it is refused
@@ -196,7 +198,10 @@ def build_parser():
                         "jax_debug_nans; steps run one by one)")
     p.add_argument("--profile_dir", type=str, default="",
                    help="write a torch.profiler trace of steps 10-29 here "
-                        "(a Chrome trace per rank; steps run one by one)")
+                        "(a Chrome trace per rank; steps run one by one; "
+                        "each a 'train step N' range beside the program's "
+                        "spans by name: train.window, train.batch, "
+                        "train.occ_update, train.log, ...)")
     p.add_argument("--tensorboard", action="store_true",
                    help="log scalars/histograms/images to <save_dir>/tb "
                         "(needs the tensorboard package)")

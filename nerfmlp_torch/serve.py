@@ -6,7 +6,8 @@ embeddable core (weights + config + device behind a dispatch lock);
 :func:`serve` wraps it in a threaded stdlib HTTP server with a JSON API:
 
     GET  /health    -> status, render and mesh counts, queue, reloads,
-                       served checkpoint, latency percentiles
+                       served checkpoint, latency percentiles (call to
+                       body) and those of the wait for the dispatch lock
     GET  /spec      -> model / render configuration + defaults
     POST /render    -> image bytes (png, default), .npy bytes, or JSON
     POST /mesh      -> density-isosurface mesh of the served weights
@@ -25,6 +26,12 @@ or extract a mesh, or wait, at once, and the excess is shed with HTTP 503
 + Retry-After. A config with ``use_occupancy`` is served with a density
 grid that the service builds from its weights, at start-up and on every
 weight swap.
+
+While a ``torch.profiler`` profile runs, each request records the spans
+(``utils/spans.py``) ``serve.request`` (grouped by its number) and
+inside it ``serve.wait`` (the lock), ``serve.render`` (rays and the tile
+loop's launches), ``serve.copy`` (the copy back, which waits for the
+device) and ``serve.encode`` (the body).
 
 Hot reload serves a model while it trains: point ``watch_dir`` at a
 Trainer's ``--save_dir`` and :meth:`RenderService.watch` swaps in every
@@ -47,6 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import io
+import itertools
 import json
 import math
 import os
@@ -61,6 +69,7 @@ import numpy as np
 
 from nerfmlp_torch import resolve_device, use_true_fp32
 from nerfmlp_torch.config import RenderConfig
+from nerfmlp_torch.utils.spans import span
 
 _VALID_MAPS = ("rgb_map", "disp_map", "depth_map", "acc_map")
 # A camera-spec JSON body is a few hundred bytes.
@@ -182,7 +191,9 @@ class RenderService:
         self.renders = 0
         self.warm = False
         self.warmup_s: Optional[float] = None
-        self._times = deque(maxlen=128)        # per-render seconds
+        self._times = deque(maxlen=128)        # seconds, call to result
+        self._waits = deque(maxlen=128)        # seconds for the lock
+        self._request_ids = itertools.count(1)
         self._lock = threading.Lock()          # device dispatch
         self._stats_lock = threading.Lock()    # counters, for /health
         self._reload_lock = threading.Lock()   # the watcher vs POST /reload
@@ -227,6 +238,16 @@ class RenderService:
     ) -> Dict[str, np.ndarray]:
         """Render one camera; returns the requested maps as (H, W[, C])
         numpy arrays."""
+        t0 = time.perf_counter()
+        out = self._render_pose(c2w, H, W, focal, near, far, viewdirs_c2w,
+                                maps, _record_stats)
+        if _record_stats:
+            self._record(time.perf_counter() - t0)
+        return out
+
+    def _render_pose(self, c2w, H, W, focal, near, far, viewdirs_c2w, maps,
+                     _record_stats):
+        """:meth:`render_pose` without its latency record."""
         try:
             H = int(self.defaults["H"] if H is None else H)
             W = int(self.defaults["W"] if W is None else W)
@@ -277,32 +298,43 @@ class RenderService:
         )
         from nerfmlp_torch.render_path import rays_for_pose_device
 
-        with self._lock:
-            t0 = time.perf_counter()
-            # Rays are generated on the device from the 16-float pose.
-            o, d, vd = rays_for_pose_device(
-                c2w, H, W, focal, self.cfg, viewdirs_pose=viewdirs_c2w,
-                device=self.device,
-            )
-            if self.replicas is None:
-                out = render_image_maps(
-                    self.params, o, d, H, W, self.cfg, tile=self.tile,
-                    near=near, far=far, occ_grid=self.occ_grid, viewdirs=vd,
-                    maps=tuple(maps),
+        t0 = time.perf_counter()
+        with span("serve.wait"):
+            self._lock.acquire()
+        waited = time.perf_counter() - t0
+        try:
+            with span("serve.render"):
+                # Rays are generated on the device from the 16-float pose.
+                o, d, vd = rays_for_pose_device(
+                    c2w, H, W, focal, self.cfg, viewdirs_pose=viewdirs_c2w,
+                    device=self.device,
                 )
-            else:
-                out = render_image_sharded(
-                    self.params, o, d, H, W, self.cfg, self.replicas,
-                    tile=max(256, -(-self.tile // len(self.devices))),
-                    near=near, far=far, viewdirs=vd, maps=tuple(maps))
-            # The copy to the host waits for the device: the honest end.
-            result = {k: v.float().cpu().numpy() for k, v in out.items()}
-            dt = time.perf_counter() - t0
+                if self.replicas is None:
+                    out = render_image_maps(
+                        self.params, o, d, H, W, self.cfg, tile=self.tile,
+                        near=near, far=far, occ_grid=self.occ_grid,
+                        viewdirs=vd, maps=tuple(maps),
+                    )
+                else:
+                    out = render_image_sharded(
+                        self.params, o, d, H, W, self.cfg, self.replicas,
+                        tile=max(256, -(-self.tile // len(self.devices))),
+                        near=near, far=far, viewdirs=vd, maps=tuple(maps))
+            # The copy to the host waits for the device.
+            with span("serve.copy"):
+                result = {k: v.float().cpu().numpy() for k, v in out.items()}
+        finally:
+            self._lock.release()
         if _record_stats:
             with self._stats_lock:
-                self._times.append(dt)
-                self.renders += 1
+                self._waits.append(waited)
         return result
+
+    def _record(self, seconds: float) -> None:
+        """One served request's latency, for /health and Retry-After."""
+        with self._stats_lock:
+            self._times.append(seconds)
+            self.renders += 1
 
     def warmup(self) -> float:
         """Render the default shape once (kernel build and first launches);
@@ -323,7 +355,16 @@ class RenderService:
     # -------------------------------------------------------------- #
     def render_request(self, req: Dict) -> Tuple[bytes, str]:
         """JSON request dict -> (body bytes, content type): the core of
-        ``POST /render``, callable without a socket."""
+        ``POST /render``, callable without a socket. Its latency, from this
+        call to the body, feeds :meth:`health` and :meth:`retry_after_s`."""
+        t0 = time.perf_counter()
+        with span("serve.request", group=next(self._request_ids)):
+            body = self._render_request(req)
+        self._record(time.perf_counter() - t0)
+        return body
+
+    def _render_request(self, req: Dict) -> Tuple[bytes, str]:
+        """:meth:`render_request` without its latency record."""
         if not isinstance(req, dict):
             raise RequestError("request body must be a JSON object")
         c2w = _pose_from_request(req)
@@ -340,14 +381,19 @@ class RenderService:
         if fmt == "png" and maps != ("rgb_map",):
             raise RequestError('format "png" serves rgb_map only; use '
                                '"npy"/"json" for other maps')
-        out = self.render_pose(
-            c2w,
-            H=req.get("H"), W=req.get("W"), focal=req.get("focal"),
-            near=req.get("near"), far=req.get("far"),
-            viewdirs_c2w=(_as_pose(req["viewdirs_c2w"], "viewdirs_c2w")
-                          if "viewdirs_c2w" in req else None),
-            maps=maps,
+        out = self._render_pose(
+            c2w, req.get("H"), req.get("W"), req.get("focal"),
+            req.get("near"), req.get("far"),
+            (_as_pose(req["viewdirs_c2w"], "viewdirs_c2w")
+             if "viewdirs_c2w" in req else None),
+            maps, True,
         )
+        with span("serve.encode"):
+            return self._encode(req, out, fmt, maps)
+
+    @staticmethod
+    def _encode(req: Dict, out: Dict[str, np.ndarray], fmt, maps):
+        """The rendered maps -> (body bytes, content type) in ``fmt``."""
         if "rgb_map" in out:
             # Brightness, then gamma (the reference CLI's order).
             try:
@@ -491,9 +537,11 @@ class RenderService:
 
     def retry_after_s(self) -> int:
         """Whole-second Retry-After hint for shed requests: one median
-        render (a queue slot frees roughly that often), floor 1 s; while a
-        mesh extraction runs, at least one median extraction (30 s before
-        the first has finished)."""
+        request of the last 128 (from the call of :meth:`render_request`
+        or :meth:`render_pose` to its result, queue and encode included:
+        a queue slot frees roughly that often), floor 1 s; while a mesh
+        extraction runs, at least one median extraction (30 s before the
+        first has finished)."""
         with self._stats_lock:
             times = sorted(self._times)
             mesh_times = sorted(self._mesh_times)
@@ -505,28 +553,38 @@ class RenderService:
         return max(1, round(hint))
 
     def health(self) -> Dict:
+        """``GET /health``: counts, the queue, the served checkpoint and
+        ``latency`` over the last 128 requests, each from the call of
+        :meth:`render_request` (or :meth:`render_pose`) to its body (or
+        maps): the parse, the wait for the dispatch lock, the render, the
+        copy back and the encode, the window a client sees; ``wait_ms``
+        holds the p50 and p95 of the wait for the lock alone."""
         # Stats lock only: /health answers at once even mid-render.
         with self._stats_lock:
             raw = list(self._times)
+            waits = sorted(self._waits)
             renders = self.renders
             meshes = self.meshes
             mesh_times = list(self._mesh_times)
             inflight = self._inflight
             rejected = self.rejected
         times = sorted(raw)
+
+        def pct(xs, q: float) -> float:  # ms at the nearest rank
+            i = max(0, math.ceil(q * len(xs)) - 1)
+            return round(xs[min(i, len(xs) - 1)] * 1e3, 2)
+
         lat = None
         if times:
-            def pct(q: float) -> float:  # nearest rank
-                i = max(0, math.ceil(q * len(times)) - 1)
-                return times[min(i, len(times) - 1)]
-
             lat = {
                 "n": len(times),
-                "p50_ms": round(pct(0.50) * 1e3, 2),
-                "p95_ms": round(pct(0.95) * 1e3, 2),
-                "p99_ms": round(pct(0.99) * 1e3, 2),
+                "p50_ms": pct(times, 0.50),
+                "p95_ms": pct(times, 0.95),
+                "p99_ms": pct(times, 0.99),
                 "max_ms": round(times[-1] * 1e3, 2),
                 "last_ms": round(raw[-1] * 1e3, 2),
+                "wait_ms": ({"p50": pct(waits, 0.50),
+                             "p95": pct(waits, 0.95)} if waits else None),
             }
         return {
             "status": "ok",

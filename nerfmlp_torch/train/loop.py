@@ -37,14 +37,24 @@ are ignored, as in JAX; every rank renders validation and the events
 locally with the gathered nets, and checkpoints hold the gathered nets
 and moments, in a one-process run's layout.
 
+While a ``torch.profiler`` profile runs (``profile_dir``'s or a
+caller's), the loop records spans (``utils/spans.py``): one
+``train.window`` a loop iteration (grouped by its first step), inside it
+``train.epoch`` (the pool's reshuffle), ``train.occ_update`` (a grid
+refresh), ``train.batch`` (the pool or host batch and its copy),
+``train.dispatch`` (enqueueing the step or window) and ``train.log`` (the
+log step's read-backs), then ``train.save`` around the final saves.
+
 The Trainer's extras (``nerfmlp_tpu/train/loop.py:103-110``, ``:613``,
 ``:636-640``, ``:715-737``, ``:894-904``): ``TrainConfig.profile_dir``
 writes a ``torch.profiler`` trace (CPU and, on ``cuda``, CUDA activities)
 of steps 10-29 of each ``train()`` call, counted from where it starts, as
-a Chrome trace, one file per rank, each step a ``train step N`` range; it
-is closed after the loop if the run ends inside the window. Where the JAX
-Trainer logs "(profiler unavailable)" and carries on, a profiler that
-fails to start or stop raises here: no trace is lost without a word.
+a Chrome trace, one file per rank, each step a ``train step N`` range (the
+``train.dispatch`` span) among the ranges of the spans above, by their
+names; it is closed after the loop if the run ends inside the window.
+Where the JAX Trainer logs "(profiler unavailable)" and carries on, a
+profiler that fails to start or stop raises here: no trace is lost
+without a word.
 ``tensorboard_dir``: the JAX Trainer's TensorBoard tags at its cadence
 (``train/*`` at each log step, ``val/*`` scalars, ``params/*`` histograms
 and the ``val/*`` images at each quick validation, ``test/psnr`` at each
@@ -61,7 +71,6 @@ only.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
 import re
@@ -92,6 +101,7 @@ from nerfmlp_torch.train.metrics import (
     calculate_etc, format_time_duration, get_memory_usage_gb, psnr_images,
     ssim,
 )
+from nerfmlp_torch.utils.spans import span
 
 
 def dispatch_window(
@@ -341,11 +351,12 @@ class Trainer:
         jitter drawn from a generator seeded by ``seed_step``."""
         from nerfmlp_torch.ops.occupancy import update_grid
 
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(self._OCC_SEED * 1_000_003 + seed_step)
-        new = update_grid(self.occ_grid, self.state.params, self.rc, gen,
-                          decay=decay)
-        self.occ_grid.density.copy_(new.density)
+        with span("train.occ_update"):
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self._OCC_SEED * 1_000_003 + seed_step)
+            new = update_grid(self.occ_grid, self.state.params, self.rc, gen,
+                              decay=decay)
+            self.occ_grid.density.copy_(new.density)
 
     def _render_view(self, dataset, idx: int, maps=("rgb_map",)) -> tuple:
         """Deterministic render of one held-out view, and its ground
@@ -709,127 +720,126 @@ class Trainer:
             elif trace is not None and s - start_step == 30:
                 self._stop_trace(*trace, s - 1)
                 trace = None
-            if tc.precrop_iters > 0 and s == tc.precrop_iters + 1:
-                self.loader.set_precrop(1.0)
-                self._log(f"🎯 precrop off at iter {s:,}")
-            w = 1
-            if windowed:
-                w = dispatch_window(s, iters, tc.steps_per_dispatch,
-                                    intervals, stop_steps=(tc.precrop_iters,))
-            pool_active = self.pool is not None and s > tc.precrop_iters
-            if pool_active:
-                # A window reads one epoch's stack: it ends at the reshuffle.
-                spe = self.pool.steps_per_epoch
-                w = min(w, spe - ((s - 1) % spe))
-                self.pool.ensure_epoch(self.pool.epoch_of(s - 1))
-            occ_args = ()
-            if self.occ_grid is not None:
-                if (s - 1) % rc.occ_update_every == 0:
-                    # Decay 1 during warmup: cells only accumulate, so the
-                    # whole box stays sampled until the model has placed
-                    # density.
-                    self._occ_update(
-                        s, 1.0 if s <= rc.occ_warmup_steps else 0.95)
-                occ_args = (self.occ_grid,)
-            if windowed and pool_active:
-                metrics = self.windows.run_pool(w)
-            elif windowed:
-                metrics = self.windows.run_host(np.stack(
-                    [self._host_batch() for _ in range(w)]))
-            else:
+            with span("train.window", group=s):
+                if tc.precrop_iters > 0 and s == tc.precrop_iters + 1:
+                    self.loader.set_precrop(1.0)
+                    self._log(f"🎯 precrop off at iter {s:,}")
+                w = 1
+                if windowed:
+                    w = dispatch_window(s, iters, tc.steps_per_dispatch,
+                                        intervals,
+                                        stop_steps=(tc.precrop_iters,))
+                pool_active = self.pool is not None and s > tc.precrop_iters
                 if pool_active:
-                    batch = self.pool.batch(s - 1)
+                    # A window reads one epoch's stack: it ends at the
+                    # reshuffle.
+                    spe = self.pool.steps_per_epoch
+                    w = min(w, spe - ((s - 1) % spe))
+                    with span("train.epoch"):
+                        self.pool.ensure_epoch(self.pool.epoch_of(s - 1))
+                occ_args = ()
+                if self.occ_grid is not None:
+                    if (s - 1) % rc.occ_update_every == 0:
+                        # Decay 1 during warmup: cells only accumulate, so the
+                        # whole box stays sampled until the model has placed
+                        # density.
+                        self._occ_update(
+                            s, 1.0 if s <= rc.occ_warmup_steps else 0.95)
+                    occ_args = (self.occ_grid,)
+                if windowed and pool_active:
+                    with span("train.dispatch"):
+                        metrics = self.windows.run_pool(w)
+                elif windowed:
+                    with span("train.batch"):
+                        batches = np.stack([self._host_batch()
+                                            for _ in range(w)])
+                    with span("train.dispatch"):
+                        metrics = self.windows.run_host(batches)
                 else:
-                    batch = torch.from_numpy(
-                        np.ascontiguousarray(self._host_batch())).to(
-                        dev, non_blocking=True)
-                with (torch.profiler.record_function(f"train step {s}")
-                      if trace is not None else contextlib.nullcontext()):
-                    metrics = self.step_fn(self.state, batch, *occ_args)
-                sums.add_(torch.stack((metrics["loss"], metrics["psnr"])))
-            run_count += w
-            step = s + w - 1
-            self.history["step"] = step
+                    with span("train.batch"):
+                        if pool_active:
+                            batch = self.pool.batch(s - 1)
+                        else:
+                            batch = torch.from_numpy(
+                                np.ascontiguousarray(self._host_batch())).to(
+                                dev, non_blocking=True)
+                    with span("train.dispatch", label=f"train step {s}"):
+                        metrics = self.step_fn(self.state, batch, *occ_args)
+                        sums.add_(torch.stack((metrics["loss"],
+                                               metrics["psnr"])))
+                run_count += w
+                step = s + w - 1
+                self.history["step"] = step
 
-            now = time.time()
-            it = self.history["iteration_times"]
-            it.extend([(now - t_prev) / w] * w)
-            t_prev = now
-            if len(it) > self._ITER_TIMES_CAP:
-                drop = len(it) // 2
-                self.history["iteration_times_dropped"] += drop
-                self.history["iteration_times_dropped_sum"] += float(
-                    np.sum(it[:drop]))
-                del it[:drop]
+                now = time.time()
+                it = self.history["iteration_times"]
+                it.extend([(now - t_prev) / w] * w)
+                t_prev = now
+                if len(it) > self._ITER_TIMES_CAP:
+                    drop = len(it) // 2
+                    self.history["iteration_times_dropped"] += drop
+                    self.history["iteration_times_dropped_sum"] += float(
+                        np.sum(it[:drop]))
+                    del it[:drop]
 
-            if tc.log_interval and step % tc.log_interval == 0:
-                med_t = float(np.median(it[-200:]))
-                if self._tb is not None:
-                    for key in ("loss", "psnr", "grad_norm"):
-                        self._tb.add_scalar(f"train/{key}",
-                                            float(metrics[key]), step)
-                    self._tb.add_scalar("train/lr", lr_at(tc, step), step)
-                self._log(
-                    f"{datetime.now().strftime('%Y-%m-%d %H:%M:%S')} | "
-                    f"Iter {step:,} | Loss: {float(metrics['loss']):.6f} | "
-                    f"PSNR: {float(metrics['psnr']):.2f} | "
-                    f"LR: {lr_at(tc, step):.2e} | "
-                    f"Grad: {float(metrics['grad_norm']):.4f} | "
-                    f"Mem: {get_memory_usage_gb():.1f}GB | "
-                    f"Time: {med_t * 1e3:.1f}ms (median)")
+                if tc.log_interval and step % tc.log_interval == 0:
+                    with span("train.log"):
+                        self._log_step(step, metrics, it)
 
-            if (tc.quick_val_interval and step % tc.quick_val_interval == 0
-                    and self.quick_val_ds is not None):
-                run_loss, run_psnr = sums.tolist()
-                self._quick_val_block(step, iters, start_time, run_loss,
-                                      run_psnr, run_count)
-                self._sync()
-                sums.zero_()
-                run_count = 0
-                t_prev = time.time()
-
-            if (tc.full_val_interval and step % tc.full_val_interval == 0
-                    and self.val_ds is not None and step < iters):
-                fv = self.full_validate()
-                if fv is not None:
-                    self.history["full_val_losses"].append(fv["loss"])
-                    self.history["full_val_psnrs"].append(fv["psnr"])
-                    self.history["full_val_ssims"].append(fv["ssim"])
-                    self.history["full_val_steps"].append(step)
-                    self._log(f"📋 FULL VAL @ {step:,}: loss "
-                              f"{fv['loss']:.6f} | PSNR {fv['psnr']:.2f} | "
-                              f"SSIM {fv['ssim']:.4f}")
-                    self._save_val_image(step)
-                t_prev = time.time()
-
-            if tc.ckpt_interval and step % tc.ckpt_interval == 0:
-                self._save_params(f"model_{step}.pt")
-                self._sync()
-
-            # Render events, never on the last step (the end-of-run
-            # artefacts come from the final model).
-            if step < iters:
-                if (tc.i_video and step % tc.i_video == 0
-                        and self.render_poses is not None):
-                    self._video_event(step)
+                if (tc.quick_val_interval and step % tc.quick_val_interval == 0
+                        and self.quick_val_ds is not None):
+                    run_loss, run_psnr = sums.tolist()
+                    self._quick_val_block(step, iters, start_time, run_loss,
+                                          run_psnr, run_count)
+                    self._sync()
+                    sums.zero_()
+                    run_count = 0
                     t_prev = time.time()
-                if (tc.i_testset and step % tc.i_testset == 0
-                        and self.test_ds is not None):
-                    self._testset_event(step)
+
+                if (tc.full_val_interval and step % tc.full_val_interval == 0
+                        and self.val_ds is not None and step < iters):
+                    fv = self.full_validate()
+                    if fv is not None:
+                        self.history["full_val_losses"].append(fv["loss"])
+                        self.history["full_val_psnrs"].append(fv["psnr"])
+                        self.history["full_val_ssims"].append(fv["ssim"])
+                        self.history["full_val_steps"].append(step)
+                        self._log(f"📋 FULL VAL @ {step:,}: loss "
+                                  f"{fv['loss']:.6f} | PSNR "
+                                  f"{fv['psnr']:.2f} | SSIM "
+                                  f"{fv['ssim']:.4f}")
+                        self._save_val_image(step)
                     t_prev = time.time()
-                if tc.i_mesh and step % tc.i_mesh == 0:
-                    self._mesh_event(step)
-                    t_prev = time.time()
-                if tc.i_img and step % tc.i_img == 0:
-                    self._save_val_image(step)
-                    t_prev = time.time()
+
+                if tc.ckpt_interval and step % tc.ckpt_interval == 0:
+                    self._save_params(f"model_{step}.pt")
+                    self._sync()
+
+                # Render events, never on the last step (the end-of-run
+                # artefacts come from the final model).
+                if step < iters:
+                    if (tc.i_video and step % tc.i_video == 0
+                            and self.render_poses is not None):
+                        self._video_event(step)
+                        t_prev = time.time()
+                    if (tc.i_testset and step % tc.i_testset == 0
+                            and self.test_ds is not None):
+                        self._testset_event(step)
+                        t_prev = time.time()
+                    if tc.i_mesh and step % tc.i_mesh == 0:
+                        self._mesh_event(step)
+                        t_prev = time.time()
+                    if tc.i_img and step % tc.i_img == 0:
+                        self._save_val_image(step)
+                        t_prev = time.time()
 
         if trace is not None:
             # The run ended inside the trace window: close it, so the
             # trace is written.
             self._stop_trace(*trace, step)
         # Final saves + full validation.
-        self._save_params("model_final.pt")
+        with span("train.save"):
+            self._save_params("model_final.pt")
         if tc.i_img and iters > start_step:
             # The in-loop frames stop one interval early; the time-lapse
             # they feed ends on the final model.
@@ -849,14 +859,15 @@ class Trainer:
                 dict(self.history, full_val_loss=final.get("loss"),
                      full_val_psnr=final.get("psnr"),
                      full_val_ssim=final.get("ssim")))
-        self._save_resumable()
-        comprehensive = dict(self.history, final_val=final,
-                             config=self._config_dict(),
-                             total_training_time=time.time() - start_time)
-        if self.is_main:
-            ckpt.save_metrics_json(
-                os.path.join(self.save_dir, "comprehensive_metrics.json"),
-                comprehensive)
+        with span("train.save"):
+            self._save_resumable()
+            comprehensive = dict(self.history, final_val=final,
+                                 config=self._config_dict(),
+                                 total_training_time=time.time() - start_time)
+            if self.is_main:
+                ckpt.save_metrics_json(
+                    os.path.join(self.save_dir, "comprehensive_metrics.json"),
+                    comprehensive)
         if self._tb is not None:
             self._tb.flush()
         self._sync()
@@ -884,6 +895,24 @@ class Trainer:
         prof.export_chrome_trace(path)
         self._log(f"🧪 profiler trace (steps {first}-{last}) -> {path}")
         return path
+
+    def _log_step(self, step: int, metrics: Dict, it) -> None:
+        """The log line (and TensorBoard's train scalars) at a log step:
+        reads the step's metrics back, so it waits for the card."""
+        tc = self.tc
+        med_t = float(np.median(it[-200:]))
+        if self._tb is not None:
+            for key in ("loss", "psnr", "grad_norm"):
+                self._tb.add_scalar(f"train/{key}", float(metrics[key]), step)
+            self._tb.add_scalar("train/lr", lr_at(tc, step), step)
+        self._log(
+            f"{datetime.now().strftime('%Y-%m-%d %H:%M:%S')} | "
+            f"Iter {step:,} | Loss: {float(metrics['loss']):.6f} | "
+            f"PSNR: {float(metrics['psnr']):.2f} | "
+            f"LR: {lr_at(tc, step):.2e} | "
+            f"Grad: {float(metrics['grad_norm']):.4f} | "
+            f"Mem: {get_memory_usage_gb():.1f}GB | "
+            f"Time: {med_t * 1e3:.1f}ms (median)")
 
     def _quick_val_block(self, step, iters, start_time, run_loss, run_psnr,
                          run_count):
