@@ -102,7 +102,10 @@ Phases, each fatal on failure:
      steps' and the replays'; each kernel's device ms per launch), the
      four kernels held against their plain versions on its trained net at
      its two calls' shapes and timed, and exactly 2 launches of each kernel
-     per replayed step in a profiled window; the
+     per replayed step in a profiled window, every phase-1 launch of the
+     run's warm-up steps and capture taking the forward's residuals (the
+     wrappers' residual_launches and handover_launches equal its phase-1
+     launches); the
      turbo recipe of phase 6 at K = 16 (the same refresh steps and seeds
      as K = 1, held-out PSNR within 0.5 dB of it); the one-shot hi_lo
      recipe at K = 8 (host-batch windows through the central crop, then
@@ -1091,6 +1094,29 @@ def check_phases(net, packed, pts, dirs, g, label, iters=10,
     if not (worst[0] <= PHASE1_TOL and norm2 <= PHASE2_TOL and err3 == 0.0):
         raise SystemExit(f"[backward] {label}: a kernel of the backward "
                          f"disagrees with its plain version")
+    if fm.hands_over(packed, n, True):
+        # A training call's path: the forward writes its residuals and
+        # phase 1 runs without its forward; the workspace must be the
+        # recompute's, every row, bit for bit.
+        res = fm.residual_buffers(packed, n, pts.device)
+        with torch.no_grad():
+            fm.forward_residuals(packed, pts, dirs, *res)
+        fm.bwd_workspace(packed, pts, dirs, g, *res)
+        torch.cuda.synchronize()
+        if not torch.equal(res[0].view(torch.int16), ws.view(torch.int16)):
+            raise SystemExit(f"[backward] {label}: the handover's workspace "
+                             f"differs from phase 1's recompute")
+        with torch.no_grad():
+            r1["fwd_residuals_ms"] = cuda_ms(
+                lambda: fm._launch(packed, pts, dirs, res), iters=iters)
+        r1["handover_ms"] = cuda_ms(lambda: fm.bwd_workspace(
+            packed, pts, dirs, g, *res), iters=iters)
+        print(f"[backward] {label} handover ({packed.handover.rows}-point "
+              f"tiles): the forward with its residuals "
+              f"{r1['fwd_residuals_ms']:.3f} ms, phase 1 without its "
+              f"forward {r1['handover_ms']:.3f} ms; the workspace bit-equal "
+              f"to the recompute's")
+        del res
     return recs
 
 
@@ -2351,6 +2377,8 @@ def graph_train(tag, rc, tc, train_ds, val_ds, k, trace=False):
     torch.cuda.synchronize()
     for c in counters:
         c.launches = 0
+    fused_mlp.fused_nerf_mlp.residual_launches = 0
+    fused_mlp.bwd_workspace.handover_launches = 0
     prof = (profile(activities=[ProfilerActivity.CUDA]) if trace
             else contextlib.nullcontext())
     with prof:
@@ -2359,10 +2387,13 @@ def graph_train(tag, rc, tc, train_ds, val_ds, k, trace=False):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     counts = tuple(c.launches for c in counters)
+    handover = (fused_mlp.fused_nerf_mlp.residual_launches,
+                fused_mlp.bwd_workspace.handover_launches)
     del win.run_pool, win.run_host, trainer._occ_update
     val = trainer._validate(val_ds)
     return {"trainer": trainer, "ends": {s: float(x) for s, x in ends},
             "wall": wall, "val": val, "calls": calls, "counts": counts,
+            "handover": handover,
             "trace": kernel_trace(prof) if trace else None}
 
 
@@ -2503,7 +2534,9 @@ def phase_graph(train_ds, val_ds, dense1, turbo1, fast1, card):
           f"window-end losses vs K = 1: max |diff| {d_loss:.3e} (rtol "
           f"{LOSS_RTOL}); parameters: max |diff| {d_par:.3e} (rtol "
           f"{PARAM_RTOL}, atol {PARAM_ATOL}); wrapper counts over the run "
-          f"{g['counts']} ({WARMUP_STEPS} warm-up steps + 1 capture, 2 each)")
+          f"{g['counts']} ({WARMUP_STEPS} warm-up steps + 1 capture, 2 each);"
+          f" forward launches that wrote residuals, phase-1 launches "
+          f"without the forward {g['handover']}")
     print(f"[graph] dense held-out PSNR: K = {GRAPH_K} "
           f"{g['val']['psnr']:.2f} dB, K = 1 {dense1['val']['psnr']:.2f} dB; "
           f"whole run {1e3 * g['wall'] / TRAIN_STEPS:.2f} ms per step "
@@ -2526,6 +2559,10 @@ def phase_graph(train_ds, val_ds, dense1, turbo1, fast1, card):
     print_timing("dense", "K = 1", t_eager, card)
     if not (loss_ok and par_ok and replays == TRAIN_STEPS):
         raise SystemExit("[graph] the K = 16 run left the K = 1 run")
+    if g["handover"] != (g["counts"][1],) * 2:
+        raise SystemExit("[graph] a captured phase-1 launch recomputed the "
+                         "forward: the training forward's residuals were "
+                         "not handed over")
     if t_graph["per_step"] != (2, 2, 2, 2) or g["counts"] != (
             2 * (WARMUP_STEPS + 1),) * 4:
         raise SystemExit("[graph] a captured dense step did not launch each "

@@ -23,6 +23,22 @@
 // (1.31 GB at 131,072 points), so its own floor is about 0.78 ms: phase 1
 // by the bytes it writes, phase 2 by the bytes it reads.
 //
+// The handover. The TPU kernel recomputes the forward because its custom
+// VJP saves only the inputs (the activations lived in VMEM); here phase 1
+// writes those activations to device memory anyway, so in training the
+// forward kernel writes them the first time (fused_mlp_fwd.cu's kRes, at
+// the same rows and in the same strips), with each ReLU layer's mask bits
+// in this kernel's mask layout, one image a tile. Phase 1 then runs a
+// program without the forward operations (557,696 MACs a point at 8x256;
+// on an H100 scripts/bwd_ablate.py timed the recomputed forward at 48% of
+// phase 1): at each
+// tile it copies the tile's mask image into its mask region and runs the
+// cotangent's load and the dX chain, writing only the cotangent matrices.
+// The wrapper engages it where the net's phase-1 layout without the
+// forward fits the forward's tile (the mask bits' layout depends on it)
+// and the call's backward is one chunk; the same values in the same order,
+// so the workspace and gradients keep their bits.
+//
 // Phase 1 (bwd_phase1_kernel). The TPU kernel keeps a tile's activations
 // in VMEM; here they stay in shared memory, so phase 1 runs on the
 // forward's core (mlp_tile.cuh): wgmma with the products transposed (the
@@ -124,7 +140,9 @@
 // (nerfmlp_torch/ops/fused_mlp.py, pack_params): a header, a shared-memory
 // buffer table, a workspace matrix table, one record per phase-1 operation
 // (forward layer, dX, load of the cotangent) and phase 2's unit list, each
-// table sized by the net (any depth), at the bases the header gives. Every
+// table sized by the net (any depth), at the bases the header gives; the
+// handover's phase 1 takes a second program of the same form, without the
+// forward layers or the x and d buffers. Every
 // width is padded to a multiple of 16 with zeros, so padding adds exactly
 // zero. Rows at or past n load a zero cotangent, so they contribute nothing.
 //
@@ -166,8 +184,6 @@ constexpr int kBufsBase = kHeaderInts;
 constexpr int kTablesBase = kBufsBase + 3 * kMaxBufs;
 constexpr int kUnitK = 128;       // phase 2: input features of a unit, at most
 constexpr int kUnitN = 256;       // ... and output features
-constexpr int kStageRows = 64;    // workspace rows and phase 2's splits: a
-                                  // multiple of
 // Phase 2's stages are groups of rows (a group's products issued as one
 // straight-line block): 64 rows (four k-steps) in bf16, 32 (two) in hi_lo,
 // whose 128 x 256-feature units take 48 KB for 32 rows of two planes, so
@@ -227,36 +243,6 @@ __device__ __forceinline__ void put2(unsigned char* s, int s_plane, bf16* w,
   }
 }
 
-// A scene's workspace rows: its n points rounded up to the tile of T
-// points and to kStageRows rows (smaller tiles fill the rows up to 64 with
-// points past n, which are zero).
-__host__ __device__ inline int scene_rows(int n, int t) {
-  const int step = t > kStageRows ? t : kStageRows;
-  return (n + step - 1) / step * step;
-}
-
-// A thread's ReLU bits of one 16-feature warp tile: T / 2 of them.
-template <int T> struct MaskWord { using type = uint64_t; };
-template <> struct MaskWord<64> { using type = uint32_t; };
-template <> struct MaskWord<32> { using type = uint16_t; };
-template <> struct MaskWord<16> { using type = uint8_t; };
-template <> struct MaskWord<8> { using type = uint8_t; };
-
-// Element (r, c) of a workspace matrix of `cap` rows (a multiple of 64) and
-// `cols` columns, within one plane: the strip layout of mlp_tile.cuh
-// (strip c / 64 at cap * 64 * (c / 64); a whole strip in 128-byte swizzled
-// atoms of 8 rows, a narrower last strip in 8 x 8 core matrices).
-__device__ __forceinline__ long long ws_elem(long long r, int c,
-                                             long long cap, int cols) {
-  const int s = c >> 6, w = min(64, cols - 64 * s), cc = c & 63;
-  const int g = static_cast<int>(r & 7);
-  const long long in =
-      w == 64 ? ((r >> 3) << 9) + (g << 6) + ((((cc >> 3) ^ g) & 7) << 3) +
-                    (cc & 7)
-              : (((r >> 3) * (w >> 3) + (cc >> 3)) << 6) + (g << 3) + (cc & 7);
-  return cap * 64 * s + in;
-}
-
 // Phase 1 over tiles of T points, its matrix and operation tables in
 // shared memory (kSharedTables) or device memory.
 template <bool kHiLo, int T, bool kSharedTables>
@@ -266,7 +252,8 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
                   const float* __restrict__ biases,
                   const int* __restrict__ prog_in, int prog_len, int n,
                   int n_scenes, bf16* __restrict__ ws, long long rows_cap,
-                  long long w_stride, int b_stride) {
+                  long long w_stride, int b_stride,
+                  const unsigned char* __restrict__ gmask, int mask_bytes) {
   using Mask = typename MaskWord<T>::type;
   using Core = Consumer<kHiLo, T>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -325,25 +312,37 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
     const float* pts_s = pts + 3 * sbase;
     const float* bias_s = biases + static_cast<long long>(scene) * b_stride;
 
+    // The handover: the forward wrote this tile's activations into the
+    // workspace, and its ReLU masks, in the mask region's layout, as tile
+    // g_i of `gmask` (the program then has no forward operation, and no x
+    // or d buffer).
+    if (gmask != nullptr) {
+      const uint4* src = reinterpret_cast<const uint4*>(
+          gmask + static_cast<long long>(g_i) * mask_bytes);
+      for (int i = tid; i < mask_bytes / 16; i += kConsumers)
+        reinterpret_cast<uint4*>(masks)[i] = __ldg(src + i);
+    }
     // Encoded points (mlp_tile.cuh's encode_pair, as the forward).
-    const int xb = prog[hXBuf], xm = prog[hXMat];
-    const int xc = mcols(xm), enc_dim = prog[hEncDim];
-    const int x_plane = 2 * T * bufs[3 * xb + 1];
-    unsigned char* xs = smem + bufs[3 * xb];
-    bf16* xw = matp(xm);
-    for (int idx = tid; idx < T * xc; idx += kConsumers) {
-      const int r = idx / xc, j = idx - r * xc, gr = p0 + r;
-      float v0 = 0.f, v1 = 0.f;
-      const int got =
-          (gr < n && j < enc_dim) ? encode_pair(pts_s, gr, j, &v0, &v1) : 1;
-      if (got)
-        put2<kHiLo>(xs + act_byte<T>(r, j), x_plane,
-                    xw + ws_elem(row0 + r, j, rows_cap, xc), rows_cap * xc,
-                    v0);
-      if (got == 2)
-        put2<kHiLo>(xs + act_byte<T>(r, j + 3), x_plane,
-                    xw + ws_elem(row0 + r, j + 3, rows_cap, xc),
-                    rows_cap * xc, v1);
+    if (prog[hXBuf] >= 0) {
+      const int xb = prog[hXBuf], xm = prog[hXMat];
+      const int xc = mcols(xm), enc_dim = prog[hEncDim];
+      const int x_plane = 2 * T * bufs[3 * xb + 1];
+      unsigned char* xs = smem + bufs[3 * xb];
+      bf16* xw = matp(xm);
+      for (int idx = tid; idx < T * xc; idx += kConsumers) {
+        const int r = idx / xc, j = idx - r * xc, gr = p0 + r;
+        float v0 = 0.f, v1 = 0.f;
+        const int got =
+            (gr < n && j < enc_dim) ? encode_pair(pts_s, gr, j, &v0, &v1) : 1;
+        if (got)
+          put2<kHiLo>(xs + act_byte<T>(r, j), x_plane,
+                      xw + ws_elem(row0 + r, j, rows_cap, xc), rows_cap * xc,
+                      v0);
+        if (got == 2)
+          put2<kHiLo>(xs + act_byte<T>(r, j + 3), x_plane,
+                      xw + ws_elem(row0 + r, j + 3, rows_cap, xc),
+                      rows_cap * xc, v1);
+      }
     }
     // Encoded view directions: bf16, or fp32 in hi_lo mode.
     if (prog[hDBuf] >= 0) {
@@ -467,23 +466,11 @@ bwd_phase1_kernel(const float* __restrict__ pts, const void* __restrict__ dirs,
       fence_proxy_async();
       named_sync(kConsumerBar, kConsumers);
 
-      // The pass's columns, 16 B (8 columns of a row: one chunk of its
-      // strip) a thread, into its workspace matrix (a loop of the same
-      // trips on every thread, its tail predicated).
+      // The pass's columns into its workspace matrix.
       const int m = o[fMat];
-      if (m >= 0) {
-        const int cols = mcols(m), chunks = nn >> 3, all = T * chunks;
-        bf16* w = matp(m);
-        for (int c0 = 0; c0 < all; c0 += kConsumers) {
-          const int c = min(c0 + tid, all - 1);
-          const int r = c / chunks, cc = c - r * chunks;
-          const unsigned char* s = d + act_byte<T>(r, dcol + 8 * cc);
-          const long long at = ws_elem(row0 + r, col0 + 8 * cc, rows_cap, cols);
-          copy16_if(w + at, s, c0 + tid < all);
-          if (kHiLo) copy16_if(w + rows_cap * cols + at, s + d_plane,
-                               c0 + tid < all);
-        }
-      }
+      if (m >= 0)
+        copy_pass<kHiLo, T>(matp(m), rows_cap, mcols(m), row0, col0, d,
+                            d_plane, dcol, nn, tid);
     }
   }
 }
@@ -855,12 +842,13 @@ cudaError_t launch_phase1(const float* pts, const void* dirs, const float* g,
                           const int* prog, int prog_len, int n,
                           int n_scenes, long long w_stride, int b_stride,
                           int smem, bf16* ws, long long rows_cap,
+                          const unsigned char* masks, int mask_bytes,
                           cudaStream_t stream) {
   return launch_persistent(
       bwd_phase1_kernel<kHiLo, T, kSharedTables>,
       static_cast<long long>(n_scenes) * (scene_rows(n, T) / T), smem,
       stream, pts, dirs, g, weights, biases, prog, prog_len, n, n_scenes, ws,
-      rows_cap, w_stride, b_stride);
+      rows_cap, w_stride, b_stride, masks, mask_bytes);
 }
 
 template <bool kHiLo>
@@ -907,18 +895,22 @@ const char* fused_mlp_bwd_error_string(int code) {
 // kernel; smem: the program's shared-memory bytes; ws: the workspace,
 // rows_cap rows per matrix (a multiple of 64, >= n_scenes times
 // scene_rows(n, rows); scene s's from s times that), each matrix in the
-// strip layout (ws_elem). Launches a persistent grid of as many CTAs as the
-// card holds at once (and the tiles need) on `stream`, does not
-// synchronise, allocates nothing; returns the launch's error.
+// strip layout (ws_elem). masks: null, or (the handover, with a program
+// without forward operations) every tile's ReLU masks as the forward wrote
+// them, mask_bytes (a multiple of 16) a tile, the activations already in
+// ws. Launches a persistent grid of as many CTAs as the card holds at once
+// (and the tiles need) on `stream`, does not synchronise, allocates
+// nothing; returns the launch's error.
 int fused_mlp_bwd_phase1(const void* pts, const void* dirs, const void* g,
                          const void* weights, const void* biases,
                          const void* prog, int prog_len, int hi_lo, int rows,
                          int n, int n_scenes, long long w_stride,
                          int b_stride, int smem, void* ws, long long rows_cap,
-                         void* stream) {
+                         const void* masks, int mask_bytes, void* stream) {
   if (prog_len < kTablesBase || n_scenes <= 0 || w_stride % 8 ||
       b_stride < 0 || rows <= 0 || rows_cap % kStageRows ||
-      rows_cap < static_cast<long long>(n_scenes) * scene_rows(n, rows))
+      rows_cap < static_cast<long long>(n_scenes) * scene_rows(n, rows) ||
+      (masks != nullptr && (mask_bytes <= 0 || mask_bytes % 16)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaSuccess);
   const auto* p = static_cast<const float*>(pts);
@@ -927,6 +919,7 @@ int fused_mlp_bwd_phase1(const void* pts, const void* dirs, const void* g,
   const auto* b = static_cast<const float*>(biases);
   const auto* pr = static_cast<const int*>(prog);
   auto* wsp = static_cast<bf16*>(ws);
+  const auto* mk = static_cast<const unsigned char*>(masks);
   auto* s = static_cast<cudaStream_t>(stream);
   // The tables stay in device memory only where the program ends at the
   // buffer table (a deep or wide hi_lo net whose masks and buffers crowd
@@ -936,7 +929,7 @@ int fused_mlp_bwd_phase1(const void* pts, const void* dirs, const void* g,
   if (!!hi_lo == HI_LO && rows == T && shared_tables == SHARED)              \
     return static_cast<int>(launch_phase1<HI_LO, T, SHARED>(                \
         p, dirs, gg, w, b, pr, prog_len, n, n_scenes, w_stride, b_stride,    \
-        smem, wsp, rows_cap, s));
+        smem, wsp, rows_cap, mk, mask_bytes, s));
   PHASE1(false, 128, true)
   PHASE1(false, 64, true)
   PHASE1(false, 32, true)

@@ -71,6 +71,17 @@
 // a multiple of 16 with zero weights, zero biases and zero activations, so
 // padding adds exactly zero.
 //
+// Training (a template flag, kRes): the kernel also writes the residuals
+// the backward's phase 1 would otherwise recompute (fused_mlp_bwd.cu's
+// handover): the encoded points and dirs and every stored activation into
+// the backward's workspace, 5,056 B a point at 8x256, each pass's whole
+// 64-column strips by one bulk copy each after its epilogue (the consumers
+// go on to the next operation meanwhile); and
+// each ReLU layer's mask bits from the epilogue's registers (shared memory
+// is full: 231,424 B of 232,448 at 8x256), one image a tile. A table in
+// device memory says where each goes. The serving instantiation is the
+// kernel without it.
+//
 // A scene axis (the TPU kernel under jax.vmap, whose batching rule gives the
 // pallas_call a leading grid axis over scenes): one launch runs S nets of
 // one architecture, scene s with its own weights and biases (at s times a
@@ -110,6 +121,13 @@ enum Mode { kReluBf16 = 0, kBf16 = 1, kOutF32 = 2 };
 //   dst[:, col:col + n] = act(A @ WA + B @ WB + bias), bias at fBias (the
 //   pass's first column); kOutF32: out[:, dst + j] for j < n_real.
 enum Field { fMode = cBias + 1, fNReal };
+// The residual table (kRes): x's workspace matrix (column offset, columns)
+// and d's (or -1, 0), then per operation its workspace matrix (column
+// offset, or -1: a head), its columns and its ReLU mask block (a byte
+// offset in a tile's mask image, or -1).
+constexpr int kResHeader = 4;
+constexpr int kResInts = 4;
+enum ResField { rMat = 0, rCols, rMask };
 
 // A value into an activation buffer: bf16, or in hi_lo mode the pair
 // (hi, lo) = (bf16(v), bf16(v - hi)) — the split the TPU kernel takes of
@@ -125,8 +143,16 @@ __device__ __forceinline__ void put(unsigned char* p, int plane, float v) {
 }
 
 // kHiLo: (hi, lo) planes and three products. T: points per tile (128, 64,
-// 32 or 16), the N of every wgmma.
-template <bool kHiLo, int T>
+// 32 or 16), the N of every wgmma. kRes: the training forward, which also
+// writes its residuals for the backward's phase 1 (fused_mlp_bwd.cu): the
+// encoded points and dirs and every stored activation into the
+// workspace `ws` (rows_cap rows a matrix), each at the rows and in the
+// strip layout phase 1 writes them (tile g at rows g * T; a scene's tiles
+// cover scene_rows(n, T) rows), and each ReLU layer's mask bits, in
+// phase 1's mask layout, into tile g's image of mask_bytes in `masks`,
+// from the epilogue's registers (shared memory is full). The residual
+// table `res` says where each goes.
+template <bool kHiLo, int T, bool kRes>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_mlp_fwd_kernel(const float* __restrict__ pts,
                      const void* __restrict__ dirs,
@@ -134,7 +160,10 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
                      const float* __restrict__ biases,
                      float* __restrict__ out,
                      const int* __restrict__ prog_in, int prog_len, int n,
-                     int n_scenes, long long w_stride, int b_stride) {
+                     int n_scenes, long long w_stride, int b_stride,
+                     const int* __restrict__ res, bf16* __restrict__ ws,
+                     long long rows_cap, unsigned char* __restrict__ masks,
+                     int mask_bytes) {
   extern __shared__ __align__(128) unsigned char smem[];
   int* prog = reinterpret_cast<int*>(smem);
   for (int i = threadIdx.x; i < prog_len; i += kThreads) prog[i] = prog_in[i];
@@ -150,7 +179,7 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
   unsigned char* ring = smem + prog[hRingOff];
   const int slot_bytes = prog[hSlotBytes];
   const int half = kHiLo ? slot_bytes / 2 : 0;
-  const int tiles = (n + T - 1) / T;
+  const int tiles = kRes ? scene_rows(n, T) / T : (n + T - 1) / T;
   const int n_tiles = n_scenes * tiles;
   const int wg = threadIdx.x / 128;
 
@@ -165,6 +194,7 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
   }
   regs_inc<kConsumerRegs>();
   using Core = Consumer<kHiLo, T>;
+  using Mask = typename MaskWord<T>::type;
   const int tid = threadIdx.x, lane = tid & 31, warp = (tid >> 5) & 3;
   const uint32_t base = smem_u32(smem);
   float acc0[Core::kAcc], acc1[Core::kAcc];
@@ -175,6 +205,7 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
     const long long sbase = static_cast<long long>(scene) * n;
     const float* pts_s = pts + 3 * sbase;
     const float* bias_s = biases + static_cast<long long>(scene) * b_stride;
+    const long long ws_row0 = static_cast<long long>(g) * T;  // kRes
 
     // Encoded points, then the encoded view directions (bf16, or fp32 in
     // hi_lo mode); zeros past n and in the padding columns.
@@ -204,12 +235,26 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
     }
     fence_proxy_async();
     named_sync(kConsumerBar, kConsumers);
+    // kRes: the encoded points and dirs into their workspace matrices, as
+    // the operations' passes go below.
+    if constexpr (kRes) {
+      copy_pass_bulk<kHiLo, T>(ws + res[0] * rows_cap, rows_cap, res[1],
+                               ws_row0, 0, xs, 2 * T * xc, 0, res[1], tid);
+      if (res[2] >= 0)
+        copy_pass_bulk<kHiLo, T>(ws + res[2] * rows_cap, rows_cap, res[3],
+                                 ws_row0, 0, smem + bufs[3 * kD],
+                                 2 * T * bufs[3 * kD + 1], 0, res[3], tid);
+    }
 
     for (int oi = 0; oi < n_ops; ++oi) {
       const int* o = ops + oi * kOpInts;
       Core::op(o, pos, stages, ring, slot_bytes, half, full, empty, bufs,
                base, smem_u32(full + 2 * kMaxStages), wg, tid & 127, acc0,
                acc1);
+      // kRes: the previous operation's bulk copies have read their buffer
+      // before any barrier after which this operation's epilogue (or the
+      // next's) writes it.
+      if constexpr (kRes) bulk_wait_read();
       const int mode = o[fMode], dst = o[cDst], nn = o[cN];
       const bool head = mode == kOutF32;
       if (!head && (dst == o[cSrcA] || (o[cKB] && dst == o[cSrcB])))
@@ -223,6 +268,14 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
       const int dc = bufs[3 * buf + 1], out_w = prog[hOutW];
       const bool relu = mode == kReluBf16;
       float* stage = reinterpret_cast<float*>(smem + bufs[3 * kX]);
+      // kRes: this operation's workspace matrix and mask block.
+      int mat = -1, mat_cols = 0, mask_out = -1;
+      if constexpr (kRes) {
+        const int* ro = res + kResHeader + kResInts * oi;
+        mat = ro[rMat];
+        mat_cols = ro[rCols];
+        mask_out = ro[rMask];
+      }
       // One tile's epilogue, given its accumulator (each array its own
       // call: no accumulator is ever picked at run time). It takes no
       // branch: ptxas serializes every wgmma of the loop where a branch it
@@ -231,18 +284,44 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
       // head's real columns, in fp32, to the staging columns in the encoded
       // points' buffer (dead once the trunk is done; T floats a column),
       // copied out after the tile's last operation. Each store is
-      // predicated.
+      // predicated. kRes: a ReLU layer's bits, as phase 1 records them, to
+      // its mask block, a byte (8 elements) at a time as store_acc packs
+      // them: in bf16 mode the rounded value > 0, read off the stored pair
+      // (a bf16 > 0 is a positive int16), in hi_lo the value > 0.
       auto epilogue = [&](int u, float(&acc)[Core::kAcc]) {
         const int f0 = 64 * (wg + 2 * u) + 16 * warp;
         const bool ok = f0 < nn;  // the warp's features lie in the pass
         const int fb = min(f0 + (lane >> 2), nn - 1);
         const float b0 = bias[fb], b1 = bias[min(fb + 8, nn - 1)];
+        unsigned char* mk = masks + static_cast<long long>(g) * mask_bytes +
+                            max(mask_out, 0) +
+                            ((ok ? f0 >> 4 : 0) * 32 + lane) * sizeof(Mask);
+        uint32_t byte = 0;
         store_acc<kHiLo, T>(
             smem + bufs[3 * buf], 2 * T * dc,
             bufs[3 * buf + 2] + col0 + (ok ? f0 : 0), lane, ok && !head,
             [&](int i) {
               const float v = acc[i] + ((i & 2) ? b1 : b0);
+              if constexpr (kRes && kHiLo) {
+                const float a = relu ? fmaxf(v, 0.f) : v;
+                byte |= static_cast<uint32_t>(a > 0.f) << (i & 7);
+                return a;
+              }
               return relu ? fmaxf(v, 0.f) : v;
+            },
+            [&](int i, uint32_t x) {
+              if constexpr (kRes) {
+                if constexpr (!kHiLo)
+                  byte |= ((static_cast<int16_t>(x & 0xFFFFu) > 0) |
+                           (static_cast<int32_t>(x) >= 0x10000) << 1)
+                          << (i & 7);
+                if ((i & 7) == 6 || i + 2 == Core::kAcc) {
+                  st_global_bits_if(mk + (i >> 3),
+                                    static_cast<uint8_t>(byte),
+                                    ok && mask_out >= 0);
+                  byte = 0;
+                }
+              }
             });
 #pragma unroll
         for (int i = 0; i < Core::kAcc; i += 2) {
@@ -257,6 +336,16 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
       epilogue(1, acc1);
       fence_proxy_async();
       named_sync(kConsumerBar, kConsumers);
+      // kRes: the pass's columns into its workspace matrix, one bulk copy
+      // a whole strip (the epilogue's fence and barrier made them visible
+      // to the copy engine).
+      if constexpr (kRes) {
+        if (mat >= 0)
+          copy_pass_bulk<kHiLo, T>(ws + mat * rows_cap, rows_cap, mat_cols,
+                                   ws_row0, col0, smem + bufs[3 * dst],
+                                   2 * T * dc, bufs[3 * dst + 2] + col0, nn,
+                                   tid);
+      }
     }
     // The heads' staged columns to the (n, out_w) output, row-major and
     // coalesced; rows at or past n masked.
@@ -271,17 +360,68 @@ fused_mlp_fwd_kernel(const float* __restrict__ pts,
     }
     named_sync(kConsumerBar, kConsumers);  // read before the next tile
   }
+  if constexpr (kRes) bulk_wait_read();
 }
 
-template <bool kHiLo, int T>
+template <bool kHiLo, int T, bool kRes>
 cudaError_t launch(const float* pts, const void* dirs, const bf16* weights,
                    const float* biases, float* out, const int* prog,
                    int prog_len, int n, int n_scenes, long long w_stride,
-                   int b_stride, int smem, cudaStream_t stream) {
-  return launch_persistent(fused_mlp_fwd_kernel<kHiLo, T>,
-                           static_cast<long long>(n_scenes) * ((n + T - 1) / T),
-                           smem, stream, pts, dirs, weights, biases, out, prog,
-                           prog_len, n, n_scenes, w_stride, b_stride);
+                   int b_stride, int smem, const int* res, bf16* ws,
+                   long long rows_cap, unsigned char* masks, int mask_bytes,
+                   cudaStream_t stream) {
+  const long long tiles = kRes ? scene_rows(n, T) / T : (n + T - 1) / T;
+  return launch_persistent(fused_mlp_fwd_kernel<kHiLo, T, kRes>,
+                           static_cast<long long>(n_scenes) * tiles, smem,
+                           stream, pts, dirs, weights, biases, out, prog,
+                           prog_len, n, n_scenes, w_stride, b_stride, res, ws,
+                           rows_cap, masks, mask_bytes);
+}
+
+// Both entry points: res null, the serving forward; else the training
+// forward with its residuals.
+int forward(const void* pts, const void* dirs, const void* weights,
+            const void* biases, void* out, int n, int n_scenes,
+            long long w_stride, int b_stride, const void* prog, int prog_len,
+            int hi_lo, int rows, int smem, const void* res, void* ws,
+            long long rows_cap, void* masks, int mask_bytes, void* stream) {
+  if (prog_len < kOpsBase || n_scenes <= 0 || w_stride % 8 ||
+      b_stride < 0 || rows <= 0 ||
+      static_cast<long long>(n_scenes) * ((n + rows - 1) / rows) > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (res != nullptr &&
+      (ws == nullptr || masks == nullptr || rows_cap % kStageRows ||
+       mask_bytes <= 0 ||
+       rows_cap < static_cast<long long>(n_scenes) * scene_rows(n, rows)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  const auto* p = static_cast<const float*>(pts);
+  const auto* w = static_cast<const bf16*>(weights);
+  const auto* b = static_cast<const float*>(biases);
+  const auto* pr = static_cast<const int*>(prog);
+  auto* o = static_cast<float*>(out);
+  const auto* rs = static_cast<const int*>(res);
+  auto* wsp = static_cast<bf16*>(ws);
+  auto* mk = static_cast<unsigned char*>(masks);
+  auto* s = static_cast<cudaStream_t>(stream);
+#define FWD(HI_LO, T)                                                        \
+  if (!!hi_lo == HI_LO && rows == T)                                         \
+    return static_cast<int>(                                                \
+        rs ? launch<HI_LO, T, true>(p, dirs, w, b, o, pr, prog_len, n,       \
+                                    n_scenes, w_stride, b_stride, smem, rs,  \
+                                    wsp, rows_cap, mk, mask_bytes, s)        \
+           : launch<HI_LO, T, false>(p, dirs, w, b, o, pr, prog_len, n,      \
+                                     n_scenes, w_stride, b_stride, smem,     \
+                                     nullptr, nullptr, 0, nullptr, 0, s));
+  FWD(true, 64)
+  FWD(true, 32)
+  FWD(true, 16)
+  FWD(false, 128)
+  FWD(false, 64)
+  FWD(false, 32)
+  FWD(false, 16)
+#undef FWD
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -315,31 +455,27 @@ int fused_mlp_fwd(const void* pts, const void* dirs, const void* weights,
                   const void* biases, void* out, int n, int n_scenes,
                   long long w_stride, int b_stride, const void* prog,
                   int prog_len, int hi_lo, int rows, int smem, void* stream) {
-  if (prog_len < kOpsBase || n_scenes <= 0 || w_stride % 8 ||
-      b_stride < 0 || rows <= 0 ||
-      static_cast<long long>(n_scenes) * ((n + rows - 1) / rows) > 0x7fffffff)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n <= 0) return static_cast<int>(cudaSuccess);
-  const auto* p = static_cast<const float*>(pts);
-  const auto* w = static_cast<const bf16*>(weights);
-  const auto* b = static_cast<const float*>(biases);
-  const auto* pr = static_cast<const int*>(prog);
-  auto* o = static_cast<float*>(out);
-  auto* s = static_cast<cudaStream_t>(stream);
-#define FWD(HI_LO, T)                                                        \
-  if (!!hi_lo == HI_LO && rows == T)                                         \
-    return static_cast<int>(launch<HI_LO, T>(p, dirs, w, b, o, pr, prog_len, \
-                                             n, n_scenes, w_stride,          \
-                                             b_stride, smem, s));
-  FWD(true, 64)
-  FWD(true, 32)
-  FWD(true, 16)
-  FWD(false, 128)
-  FWD(false, 64)
-  FWD(false, 32)
-  FWD(false, 16)
-#undef FWD
-  return static_cast<int>(cudaErrorInvalidValue);
+  return forward(pts, dirs, weights, biases, out, n, n_scenes, w_stride,
+                 b_stride, prog, prog_len, hi_lo, rows, smem, nullptr,
+                 nullptr, 0, nullptr, 0, stream);
+}
+
+// The training forward: as fused_mlp_fwd, and also its residuals for the
+// backward's phase 1 (fused_mlp_fwd_kernel's kRes): res (int32, device)
+// the residual table; ws the backward's workspace, rows_cap rows a matrix
+// (a multiple of 64, >= n_scenes * scene_rows(n, rows)); masks
+// (n_scenes * scene_rows(n, rows) / rows) tiles' mask images of
+// mask_bytes each.
+int fused_mlp_fwd_res(const void* pts, const void* dirs, const void* weights,
+                      const void* biases, void* out, int n, int n_scenes,
+                      long long w_stride, int b_stride, const void* prog,
+                      int prog_len, int hi_lo, int rows, int smem,
+                      const void* res, void* ws, long long rows_cap,
+                      void* masks, int mask_bytes, void* stream) {
+  if (res == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return forward(pts, dirs, weights, biases, out, n, n_scenes, w_stride,
+                 b_stride, prog, prog_len, hi_lo, rows, smem, res, ws,
+                 rows_cap, masks, mask_bytes, stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,11 @@
 // Device routines shared by the fused NeRF-MLP kernels for Hopper (sm_90a):
 // the forward (fused_mlp_fwd.cu) and the backward's phase 1, which
-// recomputes the same forward and walks the dX chain (fused_mlp_bwd.cu),
-// run on one core here; the backward's phase 2 (dW, db) shares its
-// asynchronous pieces: mbarriers, bulk copies, wgmma, the ring.
+// recomputes the same forward (or, in training, takes the activations and
+// ReLU masks the forward wrote) and walks the dX chain (fused_mlp_bwd.cu),
+// run on one core here, so both compute the same activations bit for bit;
+// the backward's phase 2 (dW, db) shares its asynchronous pieces:
+// mbarriers, bulk copies, wgmma, the ring; and both kernels write the
+// workspace in its strip layout.
 //
 // What bounds the two kernels. Their work is compute (the forward ~50x
 // over the card's memory rate at 8x256) but it comes in small pieces: a
@@ -506,6 +509,43 @@ __host__ __device__ inline int strip_cores(int cols, int s) {
   return c < 8 ? c : 8;
 }
 
+// The backward's workspace (fused_mlp_bwd.cu), which the forward also
+// writes in training (fused_mlp_fwd.cu's residuals): rows of points in
+// whole groups of kStageRows (phase 2's stages and splits).
+constexpr int kStageRows = 64;
+
+// A scene's workspace rows: its n points rounded up to the tile of T
+// points and to kStageRows rows (smaller tiles fill the rows up to 64 with
+// points past n, which are zero).
+__host__ __device__ inline int scene_rows(int n, int t) {
+  const int step = t > kStageRows ? t : kStageRows;
+  return (n + step - 1) / step * step;
+}
+
+// Element (r, c) of a workspace matrix of `cap` rows (a multiple of 64) and
+// `cols` columns, within one plane: the weights' strip layout (strip c /
+// 64 at cap * 64 * (c / 64); a whole strip in 128-byte swizzled atoms of 8
+// rows, a narrower last strip in 8 x 8 core matrices).
+__device__ __forceinline__ long long ws_elem(long long r, int c,
+                                             long long cap, int cols) {
+  const int s = c >> 6, w = min(64, cols - 64 * s), cc = c & 63;
+  const int g = static_cast<int>(r & 7);
+  const long long in =
+      w == 64 ? ((r >> 3) << 9) + (g << 6) + ((((cc >> 3) ^ g) & 7) << 3) +
+                    (cc & 7)
+              : (((r >> 3) * (w >> 3) + (cc >> 3)) << 6) + (g << 3) + (cc & 7);
+  return cap * 64 * s + in;
+}
+
+// A thread's ReLU bits of one 16-feature warp tile: T / 2 of them, bit i
+// for element i of its accumulator fragment. A mask block holds, for the
+// warp tile of its pass's features 16 v.., lane l's entry at 32 v + l.
+template <int T> struct MaskWord { using type = uint64_t; };
+template <> struct MaskWord<64> { using type = uint32_t; };
+template <> struct MaskWord<32> { using type = uint16_t; };
+template <> struct MaskWord<16> { using type = uint8_t; };
+template <> struct MaskWord<8> { using type = uint8_t; };
+
 // Byte offset of (point p, column c) in an activation buffer of T points.
 template <int T>
 __device__ __forceinline__ int act_byte(int p, int c) {
@@ -608,6 +648,36 @@ __device__ __forceinline__ void st_shared_if(void* p, M v, bool pred) {
         : "memory");
 }
 
+// A mask entry (1, 2, 4 or 8 bytes) to device memory where `pred`.
+template <typename M>
+__device__ __forceinline__ void st_global_bits_if(void* p, M v, bool pred) {
+  const unsigned long long x = v;
+  if constexpr (sizeof(M) == 8)
+    asm volatile(
+        "{\n.reg .pred q;\nsetp.ne.b32 q, %2, 0;\n"
+        "@q st.global.b64 [%0], %1;\n}\n" ::"l"(p),
+        "l"(x), "r"(static_cast<int>(pred))
+        : "memory");
+  else if constexpr (sizeof(M) == 4)
+    asm volatile(
+        "{\n.reg .pred q;\nsetp.ne.b32 q, %2, 0;\n"
+        "@q st.global.b32 [%0], %1;\n}\n" ::"l"(p),
+        "r"(static_cast<uint32_t>(x)), "r"(static_cast<int>(pred))
+        : "memory");
+  else if constexpr (sizeof(M) == 2)
+    asm volatile(
+        "{\n.reg .pred q;\nsetp.ne.b32 q, %2, 0;\n"
+        "@q st.global.b16 [%0], %1;\n}\n" ::"l"(p),
+        "h"(static_cast<unsigned short>(x)), "r"(static_cast<int>(pred))
+        : "memory");
+  else
+    asm volatile(
+        "{\n.reg .pred q;\nsetp.ne.b32 q, %2, 0;\n"
+        "@q st.global.b8 [%0], %1;\n}\n" ::"l"(p),
+        "h"(static_cast<unsigned short>(x)), "r"(static_cast<int>(pred))
+        : "memory");
+}
+
 // 16 bytes from shared to device memory where `pred`.
 __device__ __forceinline__ void copy16_if(void* g, const void* s, bool pred) {
   asm volatile(
@@ -623,16 +693,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// What store_acc hands on by default: nothing.
+struct NoPacked {
+  __device__ __forceinline__ void operator()(int, uint32_t) const {}
+};
+
 // A warp's 16 features x T points of one 64-row tile (its accumulator
 // fragment, element i = 4 j + 2 h + e: feature lane / 4 + 8 h from column
 // c of the buffer, point 8 j + 2 (lane % 4) + e) into an activation
 // buffer: val(i) the element's final value, stored in bf16 — in hi_lo as
 // the pair (hi, lo) = (bf16(v), bf16(v - hi)), the lo plane `plane` bytes
 // on; only where `pred` (the same on the warp's lanes). One stmatrix per
-// 16 points (per 8 at T = 8).
-template <bool kHiLo, int T, typename F>
+// 16 points (per 8 at T = 8). packed(i, x): elements i and i + 1 as
+// stored, bf16 (hi) in the low and high halves of x.
+template <bool kHiLo, int T, typename F, typename P = NoPacked>
 __device__ __forceinline__ void store_acc(unsigned char* buf, int plane, int c,
-                                          int lane, bool pred, F&& val) {
+                                          int lane, bool pred, F&& val,
+                                          P&& packed = P()) {
   const int blk = lane >> 3;
   if constexpr (T >= 16) {
 #pragma unroll
@@ -643,6 +720,7 @@ __device__ __forceinline__ void store_acc(unsigned char* buf, int plane, int c,
         const int i = 4 * (2 * jp + (m >> 1)) + 2 * (m & 1);
         const float v0 = val(i), v1 = val(i + 1);
         hi[m] = pack_bf16(v0, v1);
+        packed(i, hi[m]);
         if (kHiLo) {
           const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hi[m]);
           lo[m] = pack_bf16(v0 - __low2float(h), v1 - __high2float(h));
@@ -660,6 +738,7 @@ __device__ __forceinline__ void store_acc(unsigned char* buf, int plane, int c,
     for (int m = 0; m < 2; ++m) {
       const float v0 = val(2 * m), v1 = val(2 * m + 1);
       hi[m] = pack_bf16(v0, v1);
+      packed(2 * m, hi[m]);
       if (kHiLo) {
         const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hi[m]);
         lo[m] = pack_bf16(v0 - __low2float(h), v1 - __high2float(h));
@@ -669,6 +748,79 @@ __device__ __forceinline__ void store_acc(unsigned char* buf, int plane, int c,
     stsm_x2_t(at, hi, pred);
     if (kHiLo) stsm_x2_t(at + plane, lo, pred);
   }
+}
+
+// A bulk copy (the copy engine: no registers, and the thread goes on) of
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from this
+// CTA's shared memory to device memory where `pred`, in this thread's
+// bulk group; then the group's commit, and the wait until every group of
+// this thread has read its shared memory (before it is written again, and
+// before the CTA exits).
+__device__ __forceinline__ void bulk_store_if(void* g, const void* s,
+                                              uint32_t bytes, bool pred) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.b32 q, %3, 0;\n"
+      "@q cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n}\n"
+      ::"l"(g), "r"(smem_u32(s)), "r"(bytes), "r"(static_cast<int>(pred))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// A pass's nn columns of an activation buffer of T points (from buffer
+// column dcol; in hi_lo the lo plane `plane` bytes on), 16 B (8 columns of
+// a row: one chunk of its strip) a consumer thread, into columns col0.. of
+// a workspace matrix (w: its first plane; cols columns, cap rows a plane)
+// at rows row0... A loop of the same trips on every thread, its tail
+// predicated.
+template <bool kHiLo, int T>
+__device__ __forceinline__ void copy_pass(bf16* w, long long cap, int cols,
+                                          long long row0, int col0,
+                                          const unsigned char* d, int plane,
+                                          int dcol, int nn, int tid) {
+  const int chunks = nn >> 3, all = T * chunks;
+  for (int c0 = 0; c0 < all; c0 += kConsumers) {
+    const int c = min(c0 + tid, all - 1);
+    const int r = c / chunks, cc = c - r * chunks;
+    const unsigned char* s = d + act_byte<T>(r, dcol + 8 * cc);
+    const long long at = ws_elem(row0 + r, col0 + 8 * cc, cap, cols);
+    copy16_if(w + at, s, c0 + tid < all);
+    if (kHiLo) copy16_if(w + cap * cols + at, s + plane, c0 + tid < all);
+  }
+}
+
+// copy_pass's work as the forward's residuals do it: each whole 64-column
+// strip of the pass, T rows of it, is the same T * 128-byte image in the
+// buffer (act_byte) and in the matrix (ws_elem), so lane 0 of consumer
+// warp 2 s + plane copies strip s of that plane with one bulk copy (at
+// most 4 strips x 2 planes); a narrower last strip goes 16 B a thread.
+// The bulk copies run on while the consumers go on: every consumer calls
+// bulk_wait_read() before a barrier after which the buffer is written.
+// col0 and dcol: multiples of 64; row0: of 8.
+template <bool kHiLo, int T>
+__device__ __forceinline__ void copy_pass_bulk(bf16* w, long long cap,
+                                               int cols, long long row0,
+                                               int col0,
+                                               const unsigned char* d,
+                                               int plane, int dcol, int nn,
+                                               int tid) {
+  constexpr int kPlanes = kHiLo ? 2 : 1;
+  const int whole = max(0, min(nn, (cols >> 6 << 6) - col0)) >> 6;
+  const int k = tid >> 5, s = k / kPlanes, p = k - s * kPlanes;
+  const int at = min(s, max(whole - 1, 0));
+  bulk_store_if(w + p * cap * cols + ws_elem(row0, col0 + 64 * at, cap, cols),
+                d + p * plane + act_byte<T>(0, dcol + 64 * at), T * 128,
+                (tid & 31) == 0 && s < whole);
+  bulk_commit();
+  if (64 * whole < nn)
+    copy_pass<kHiLo, T>(w, cap, cols, row0, col0 + 64 * whole, d, plane,
+                        dcol + 64 * whole, nn - 64 * whole, tid);
 }
 
 // Its B-operand descriptor from column c (a multiple of 16): K-major,

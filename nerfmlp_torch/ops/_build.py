@@ -108,9 +108,14 @@ def build(names: Iterable[str] = tuple(KERNELS),
 
 def load(name: str, csrc: str = CSRC) -> ctypes.CDLL:
     """The kernel library ``name`` of the sources in ``csrc``, built if
-    needed; loaded once."""
+    needed, together with every other kernel whose source ``csrc`` holds
+    (a training process loads the forward's library, then the
+    backward's: built together, the second waits for no compiler);
+    loaded once."""
     with _lock:
-        path = build([name], csrc)[name]
+        names = [n for n, f in KERNELS.items()
+                 if os.path.exists(os.path.join(csrc, f))]
+        path = build(names, csrc)[name]
         if path not in _loaded:
             _loaded[path] = ctypes.CDLL(path)
         return _loaded[path]

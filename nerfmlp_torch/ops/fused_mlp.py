@@ -18,9 +18,17 @@ it and how it is built for Hopper.
   backward runs :func:`fused_nerf_mlp_bwd` (the backward's kernels, or
   the plain backward on the CPU) and returns the ``nn.Linear`` weight and
   bias gradients; points and dirs get zeros. Nothing falls back from a
-  kernel to a plain version. Each kernel's wrapper counts its launches:
-  ``fused_nerf_mlp.launches``, ``bwd_workspace.launches``,
-  ``weight_grads.launches`` and ``reduce_partials.launches``. Under
+  kernel to a plain version. In training (the parameters need a
+  gradient, the call's backward is one chunk, and the net's
+  :class:`Handover` exists: :func:`hands_over`, :func:`handover_misfit`)
+  the forward kernel also writes the activations phase 2 reads and the
+  ReLU masks (:func:`forward_residuals`), and phase 1 runs only the dX
+  chain on them: the same bits, without recomputing the forward. Each
+  kernel's wrapper counts its launches: ``fused_nerf_mlp.launches``
+  (of them ``fused_nerf_mlp.residual_launches`` with residuals),
+  ``bwd_workspace.launches`` (``bwd_workspace.handover_launches`` without
+  the forward), ``weight_grads.launches`` and
+  ``reduce_partials.launches``. Under
   :func:`nerfmlp_torch.check_numerics` each wrapper checks what its kernel
   wrote (or its plain version returned) for NaNs, naming the kernel.
 * :func:`pack_params` lays a net's weights out for the kernels once
@@ -336,12 +344,13 @@ def stage_rows(op: OpShape, slot: int) -> int:
     return rows
 
 
-def _ring_slot(ops: List[OpShape], kr: int) -> int:
+def _ring_slot(ops: List[OpShape], kr: int, dx_rows: int = 64) -> int:
     """Bytes a plane of a ring slot needs so that every forward operation
     takes stages of ``kr`` rows (its operands' rows, where fewer) and every
-    dX operation stages of 64 rows."""
+    dX operation stages of ``dx_rows`` (its pass's columns, where fewer)."""
     need = [_fwd_touch(o, min(kr, _pad16(max(o.ka, o.kb)))) if o.kind == _FWD
-            else _dx_touch(o, 64) for o in ops if o.kind != _LOAD_G]
+            else _dx_touch(o, min(dx_rows, _pad64(o.n)))
+            for o in ops if o.kind != _LOAD_G]
     return _align1k(max(need))
 
 
@@ -394,6 +403,13 @@ def _bwd_shapes(mc: ModelConfig, vdirs: bool) -> List[OpShape]:
                   for ka, kb, n in dx for c0 in range(0, n, BWD_MAX_N)]
 
 
+def _handover_shapes(mc: ModelConfig, vdirs: bool) -> List[OpShape]:
+    """Phase 1's operations where the forward handed over its residuals:
+    the load of the cotangent and the dX chain, without the recomputed
+    forward."""
+    return [o for o in _bwd_shapes(mc, vdirs) if o.kind != _FWD]
+
+
 @dataclasses.dataclass(frozen=True)
 class FwdLayout:
     """The forward kernel's shared memory for one architecture and mode:
@@ -413,11 +429,13 @@ class FwdLayout:
     smem: int
 
 
-def _ring_at(room: int, ops: List[OpShape], planes: int, kr: int):
+def _ring_at(room: int, ops: List[OpShape], planes: int, kr: int,
+             dx_rows: int = 64):
     """(stages, rows a stage, a plane's slot bytes) of a ring in ``room``
-    bytes whose widest forward operations take stages of ``kr`` rows: as
-    many stages as fit, up to ``MAX_STAGES``."""
-    slot = _ring_slot(ops, kr)
+    bytes whose widest forward operations take stages of ``kr`` rows (and
+    dX operations of ``dx_rows``): as many stages as fit, up to
+    ``MAX_STAGES``."""
+    slot = _ring_slot(ops, kr, dx_rows)
     return max(0, min(MAX_STAGES, room // (slot * planes))), kr, slot
 
 
@@ -676,7 +694,8 @@ class BwdLayout:
 
 @functools.lru_cache(maxsize=None)
 def _bwd_layout_at(mc: ModelConfig, vdirs: bool, hi_lo: bool, rows: int,
-                   shared: bool, kr: int) -> BwdLayout:
+                   shared: bool, kr: int, handover: bool = False
+                   ) -> BwdLayout:
     """Phase 1's dynamic shared memory at tiles of ``rows`` points: the
     program (or, where ``shared`` is
     false, its header and buffer table); the ring's barriers; the buffers
@@ -685,10 +704,14 @@ def _bwd_layout_at(mc: ModelConfig, vdirs: bool, hi_lo: bool, rows: int,
     chain too), and the cotangent's gr / gs laid over x when they fit there
     (x is dead by then), each ``rows`` rows of its columns in bf16 (two
     planes in hi_lo); the mask blocks (one bit a value of a ReLU layer's
-    column pass); the ring: stages of ``kr`` rows, as many as fit."""
+    column pass); the ring: stages of ``kr`` rows, as many as fit.
+    ``handover``: the program without the recomputed forward
+    (:func:`_handover_shapes`), whose residuals the forward wrote: no x or
+    d, the cotangent in a buffer g of its own, dX stages of ``4 kr`` rows
+    (the slot the forward's stages of ``kr`` rows would take)."""
     planes = 2 if hi_lo else 1
     n_mats = len(_bwd_mats(mc, vdirs))
-    ops = _bwd_shapes(mc, vdirs)
+    ops = (_handover_shapes if handover else _bwd_shapes)(mc, vdirs)
     hid = _hidden_cols(mc, vdirs)
     prog_ints = (BWD_TABLES_BASE + 2 * n_mats + BWD_OP_INTS * len(ops)
                  if shared else BWD_TABLES_BASE)
@@ -701,23 +724,28 @@ def _bwd_layout_at(mc: ModelConfig, vdirs: bool, hi_lo: bool, rows: int,
         bufs[name] = (off, _pad64(cols), 0)
         off += rows * _pad64(cols) * 2 * planes
 
-    region("x", mc.input_ch)
-    if vdirs:
-        region("d", mc.input_ch_views)
+    if handover:
+        region("g", 32 if vdirs else mc.output_ch)
+    else:
+        region("x", mc.input_ch)
+        if vdirs:
+            region("d", mc.input_ch_views)
     region("p0", hid)
     if hid > BWD_MAX_N:
         region("p1", hid)
-    # The cotangent in x's atoms (x is dead by then): rgb's columns
-    # from 0, sigma's from 16 (or the output head's from 0).
-    x_at, x_cols = bufs["x"][:2]
-    bufs["gr"] = (x_at, x_cols, 0)
+    # The cotangent in x's atoms (x is dead by then; with the handover, in
+    # g's): rgb's columns from 0, sigma's from 16 (or the output head's
+    # from 0).
+    g_at, g_cols = bufs.pop("g")[:2] if handover else bufs["x"][:2]
+    bufs["gr"] = (g_at, g_cols, 0)
     if vdirs:
-        bufs["gs"] = (x_at, x_cols, 16)
+        bufs["gs"] = (g_at, g_cols, 16)
     mask_off = off
     masks = _mask_blocks(mc, vdirs, rows)
     off += _align128(masks[-1][0])
     off = _align1k(off)
-    stages, kr, slot = _ring_at(SMEM_LIMIT - off, ops, planes, kr)
+    stages, kr, slot = _ring_at(SMEM_LIMIT - off, ops, planes, kr,
+                                4 * kr if handover else 64)
     return BwdLayout(rows, prog_ints, bufs, mask_off, masks[:-1], bar, off,
                      slot * planes, stages, kr, off + slot * planes * stages)
 
@@ -730,6 +758,48 @@ def _bwd_layout(mc: ModelConfig, vdirs: bool, hi_lo: bool) -> BwdLayout:
     returned (:func:`backward_misfit` names it)."""
     return _bwd_pick([_bwd_layout_at(mc, vdirs, hi_lo, *entry, kr)
                       for entry in BWD_TRIES[hi_lo] for kr in STAGE_ROWS])
+
+
+@functools.lru_cache(maxsize=None)
+def _handover_layout(mc: ModelConfig, vdirs: bool, hi_lo: bool) -> BwdLayout:
+    """Phase 1's layout without the recomputed forward
+    (:func:`_bwd_layout_at`'s ``handover``), at the forward's tile: the
+    forward writes its ReLU bits at its own tile, in the layout this phase
+    1 reads them. Among the entries of ``BWD_TRIES`` at that tile and the
+    stage sizes of ``STAGE_ROWS``, chosen by :func:`_bwd_pick`."""
+    rows = _fwd_layout(mc, vdirs, hi_lo).rows
+    return _bwd_pick([_bwd_layout_at(mc, vdirs, hi_lo, *entry, kr, True)
+                      for entry in BWD_TRIES[hi_lo] if entry[0] == rows
+                      for kr in STAGE_ROWS])
+
+
+def handover_misfit(mc: ModelConfig, vdirs: bool = True,
+                    hi_lo: bool = False) -> Optional[str]:
+    """Why a training call on this architecture recomputes the forward in
+    phase 1 instead of taking the forward's residuals, or None. Both
+    kernels must take the net; phase 1 without the forward must hold two
+    weight stages at the forward's tile (:func:`_handover_layout`), and
+    three where that tile is not phase 1's own (measured on an H100,
+    PERF.md: at a larger tile, two stages left the handover slower than
+    the recompute at 2x1312, 8x592, 1x1472 and 8x608 hi_lo); and that tile
+    must give the workspace the rows phase 1's own tile gives it
+    (:func:`ws_rows`), so that phase 2 sums the same rows in the same
+    splits and the gradient keeps its bits."""
+    why = forward_misfit(mc, vdirs, hi_lo) or backward_misfit(mc, vdirs,
+                                                              hi_lo)
+    if why is not None:
+        return why
+    lay = _handover_layout(mc, vdirs, hi_lo)
+    own = _bwd_layout(mc, vdirs, hi_lo).rows
+    if lay.stages < (2 if lay.rows == own else 3):
+        return (f"phase 1's buffers and masks of the forward's {lay.rows}-"
+                f"point tiles leave room for {lay.stages} weight stage(s) "
+                f"of {2 if lay.rows == own else 3} in {SMEM_LIMIT} B of "
+                f"shared memory")
+    if max(lay.rows, BWD_STAGE_ROWS) != max(own, BWD_STAGE_ROWS):
+        return (f"the forward's {lay.rows}-point tiles give the workspace "
+                f"other rows than phase 1's {own}-point tiles")
+    return None
 
 
 def bwd_smem_bytes(mc: ModelConfig, vdirs: bool, hi_lo: bool = False) -> int:
@@ -806,7 +876,9 @@ class PackedMLP:
     offset, k_pad, n_pad)`` per weight block and ``(param, offset, n)``
     per bias. ``bwd_rows``: phase 1's points per tile. ``net`` is the
     module the blocks came from (the plain path and the architecture
-    check read it)."""
+    check read it). ``handover``: what a training call needs to hand the
+    forward's residuals to phase 1, or None where the net recomputes
+    (:func:`handover_misfit`)."""
 
     net: NeRFMLP
     vdirs: bool
@@ -828,6 +900,7 @@ class PackedMLP:
     grad_blocks: Tuple[Tuple, ...]
     grad_biases: Tuple[Tuple, ...]
     stack: Tuple[NeRFMLP, ...] = ()
+    handover: Optional["Handover"] = None
 
     @property
     def n_scenes(self) -> int:
@@ -844,6 +917,31 @@ class PackedMLP:
     def b_stride(self) -> int:
         """fp32 elements of one scene's biases."""
         return self.biases.numel() // self.n_scenes
+
+
+@dataclasses.dataclass(frozen=True)
+class Handover:
+    """A packed net's residual handover (:func:`handover_misfit`): the
+    training forward writes the activations phase 2 reads and the ReLU
+    masks into the backward's workspace and a mask image per tile, and
+    phase 1 runs only the dX chain. ``rows``: points a tile, the forward's
+    and phase 1's; ``res``: the forward's residual table (x's and d's
+    workspace matrices as (column offset, columns), d's (-1, 0) without
+    the view head; then per forward operation its matrix's column offset
+    or -1, its columns, its mask block's byte offset or -1, and 0), also on
+    the device as ``res_dev``; ``program``: phase 1's program without the
+    recomputed forward, also ``program_dev``, of which it copies
+    ``prog_len`` ints into its ``smem`` bytes of shared memory;
+    ``mask_bytes``: one tile's mask image."""
+
+    rows: int
+    res: np.ndarray
+    res_dev: torch.Tensor
+    program: np.ndarray
+    program_dev: torch.Tensor
+    prog_len: int
+    smem: int
+    mask_bytes: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -926,13 +1024,16 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
         return off
 
     ops = []
+    res_ops = []   # per operation: (workspace matrix or None, ReLU slot, c0)
     lay = _fwd_layout(mc, vdirs, hi_lo)
     slot = lay.slot // (2 if hi_lo else 1)
 
-    def layer(a, b, lin, mode, dst, n_real=0):
+    def layer(a, b, lin, mode, dst, n_real=0, res=(None, -1)):
         """a/b: (buffer, in_start, (in, out) block) operands; b may be
         None. One operation per pass of at most FWD_MAX_N columns; an
-        output head's dst is its first output column."""
+        output head's dst is its first output column. ``res``: the
+        workspace matrix the layer's output is stored in for the backward
+        and its ReLU mask slot (:func:`_mask_blocks`), or -1."""
         wa, ka = weight(lin, a[1], a[2])
         wb, kb = weight(lin, b[1], b[2]) if b is not None else (0, 0)
         bo, n = bias(lin), _pad16(lin.out_features)
@@ -944,6 +1045,7 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
                         stage_rows(OpShape(_FWD, ka, kb, n, c0, nn), slot),
                         dst + c0 if head else dst, bo + c0, mode,
                         max(0, min(nn, n_real - c0)) if head else 0, 0])
+            res_ops.append((*res, c0))
 
     kt = lambda lin: lin.weight.detach().float().t()
     # Where every layer is one pass, each writes its output over its input.
@@ -955,9 +1057,10 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
             dst = p[i % 2]
             if i in mc.skips:  # cat([x, h]) @ W == x @ W[:enc] + h @ W[enc:]
                 layer((_X, 0, k[:enc_dim]), (cur, enc_dim, k[enc_dim:]), lin,
-                      _RELU_BF16, dst)
+                      _RELU_BF16, dst, res=(f"h{i}", i))
             else:
-                layer((cur, 0, k), None, lin, _RELU_BF16, dst)
+                layer((cur, 0, k), None, lin, _RELU_BF16, dst,
+                      res=(f"h{i}", i))
             cur = dst
         other = p[1] if cur == p[0] else p[0]
         if vdirs:
@@ -966,9 +1069,9 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
             layer((cur, 0, kt(net.sigma_linear)), None, net.sigma_linear,
                   _OUT_F32, 3, 1)
             layer((cur, 0, kt(net.bottleneck_linear)), None,
-                  net.bottleneck_linear, _BF16, other)
+                  net.bottleneck_linear, _BF16, other, res=("bott", -1))
             layer((other, 0, kv[:bott]), (_D, bott, kv[bott:]),
-                  net.view_linear, _RELU_BF16, cur)
+                  net.view_linear, _RELU_BF16, cur, res=("v", mc.depth))
             layer((cur, 0, kt(net.rgb_linear)), None, net.rgb_linear,
                   _OUT_F32, 0, 3)
             out_w = 4
@@ -996,6 +1099,12 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
                             modules[name].out_features))
     bwd_program, ws_mats = _bwd_program(net, n_freqs, vdirs, hi_lo, out_w,
                                         blocks, bias_of, g_off)
+    handover = None
+    if handover_misfit(mc, vdirs, hi_lo) is None:
+        handover = _pack_handover(
+            _bwd_program(net, n_freqs, vdirs, hi_lo, out_w, blocks, bias_of,
+                         g_off, handover=True)[0],
+            mc, vdirs, hi_lo, ws_mats, res_ops, str(dev))
     hdr = bwd_program[:BWD_HEADER_INTS]
     units_off, n_units = int(hdr[_H_UNITS_OFF]), int(hdr[_H_N_UNITS])
     return PackedMLP(
@@ -1013,7 +1122,30 @@ def pack_params(net: NeRFMLP, n_freqs: int, vdirs: bool,
         ws_cols=int(hdr[_H_WS_COLS]),
         ws_mats=ws_mats, grad_total=g_off + b_off,
         grad_blocks=tuple(grad_blocks), grad_biases=tuple(grad_biases),
+        handover=handover,
     )
+
+
+def _pack_handover(program: np.ndarray, mc: ModelConfig, vdirs: bool,
+                   hi_lo: bool, ws_mats, res_ops, device: str) -> Handover:
+    """A net's :class:`Handover`: phase 1's ``program`` without the
+    recomputed forward, and the forward's residual table from its
+    operations' ``res_ops`` ((workspace matrix or None, ReLU slot or -1,
+    first column) each) and the workspace's matrices ``ws_mats``."""
+    lay = _handover_layout(mc, vdirs, hi_lo)
+    at = {name: (off, cols) for name, off, cols in ws_mats}
+    res = [*at["x"], *at.get("d", (-1, 0))]
+    for name, relu, c0 in res_ops:
+        res += [*(at[name] if name else (-1, 0)),
+                lay.masks[relu][c0 // BWD_MAX_N] if relu >= 0 else -1, 0]
+    res = np.asarray(res, np.int32)
+    hdr = dict(zip(_BWD_HEADER, program.tolist()))
+    return Handover(
+        rows=lay.rows, res=res, res_dev=_device_program(res.tobytes(), device),
+        program=program, program_dev=_device_program(program.tobytes(),
+                                                     device),
+        prog_len=hdr["prog_len"], smem=hdr["smem"],
+        mask_bytes=-(-_mask_blocks(mc, vdirs, lay.rows)[-1][0] // 16) * 16)
 
 
 def pack_params_stack(nets, n_freqs: int, vdirs: bool,
@@ -1144,7 +1276,8 @@ def p2_layout(units, hi_lo: bool, stage_bytes: int) -> P2Layout:
 
 def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
                  out_w: int, blocks: Dict[str, list], bias_of: Dict[str, int],
-                 db_base: int) -> Tuple[np.ndarray, Tuple]:
+                 db_base: int, handover: bool = False
+                 ) -> Tuple[np.ndarray, Tuple]:
     """The backward kernels' program — ``_bwd_kernel``/``_trunk_bwd``
     (``pallas_mlp.py:312-441``) as phase 1's operations over shared-memory
     buffers, each writing a workspace matrix, and phase 2's work units over
@@ -1152,16 +1285,19 @@ def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
     n_pad, gradient offset) blocks in operand order; ``bias_of``: its bias
     offset, which is also its gradient's offset after ``db_base``. Returns
     the program (header, buffer table, matrix table, operations, units)
-    and the matrices' (name, column offset, cols)."""
+    and the matrices' (name, column offset, cols). ``handover``: phase 1's
+    program where the forward wrote its residuals
+    (:func:`_handover_layout`): no recomputed forward, and no x or d
+    buffer (-1 in the header)."""
     mc = net.cfg
     depth = mc.depth
-    lay = _bwd_layout(mc, vdirs, hi_lo)
+    lay = (_handover_layout if handover else _bwd_layout)(mc, vdirs, hi_lo)
     bufs = lay.bufs
     buf = {name: i for i, name in enumerate(bufs)}
     names = _bwd_mats(mc, vdirs)
     mat = {name: i for i, (name, _) in enumerate(names)}
     # Where every layer is one pass, each output is written over its input.
-    x, p = buf["x"], (buf["p0"], buf.get("p1", buf["p0"]))
+    x, p = buf.get("x", -1), (buf["p0"], buf.get("p1", buf["p0"]))
     slot_bytes = lay.slot // (2 if hi_lo else 1)
     ops: List[List[int]] = []
 
@@ -1204,16 +1340,20 @@ def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
             op(_DX, sa, wa, ka, sb, wb, kb, min(step, rows - c0), c0, rows,
                dst, mask_in=block_of(slot, c0), m=mat[m])
 
-    # Recompute the forward (mask slot i: h_i > 0), load the cotangent,
-    # walk the dX chain; h_i is in p[i % 2].
+    # Recompute the forward (mask slot i: h_i > 0; with the handover the
+    # forward kernel wrote it), load the cotangent, walk the dX chain; h_i
+    # is in p[i % 2].
     trunk = [f"pts_linears.{i}" for i in range(depth)]
-    for i, name in enumerate(trunk):
-        a = x if i == 0 else p[(i - 1) % 2]
-        fwd(name, (x, a) if i in mc.skips else (a,), p[i % 2], f"h{i}", i)
     last, other = p[(depth - 1) % 2], p[depth % 2]
+    if not handover:
+        for i, name in enumerate(trunk):
+            a = x if i == 0 else p[(i - 1) % 2]
+            fwd(name, (x, a) if i in mc.skips else (a,), p[i % 2], f"h{i}",
+                i)
+        if vdirs:
+            fwd("bottleneck_linear", (last,), other, "bott")
+            fwd("view_linear", (other, buf["d"]), last, "v", depth)
     if vdirs:
-        fwd("bottleneck_linear", (last,), other, "bott")
-        fwd("view_linear", (other, buf["d"]), last, "v", depth)
         op(_LOAD_G)
         # rgb head, view layer (dv masked by v > 0), bottleneck, then
         # dh = dbott @ Wb^T + g_sigma @ Ws^T and the last layer's mask.
@@ -1287,7 +1427,7 @@ def _bwd_program(net: NeRFMLP, n_freqs: int, vdirs: bool, hi_lo: bool,
                       + [v for rec in ops + units for v in rec], np.int32)
     if ([OpShape(o[0], o[3], o[6], o[9], o[8], o[7]) if o[0] != _LOAD_G
          else OpShape(_LOAD_G, 0, 0, 0, 0, 0) for o in ops]
-            != _bwd_shapes(mc, vdirs)
+            != (_handover_shapes if handover else _bwd_shapes)(mc, vdirs)
             or lay.prog_ints not in (units_off, BWD_TABLES_BASE)
             or p2.stages < 2):
         raise ValueError(f"backward program of {len(ops)} operations and "
@@ -1463,11 +1603,26 @@ def reduce_partials_plain(part: torch.Tensor, total: int) -> torch.Tensor:
     return out
 
 
-def _bwd_terms(net: NeRFMLP, pts, dirs, g, n_freqs: int, dt,
-               hi_lo: bool) -> Dict[str, torch.Tensor]:
-    """Every value the backward stores, by workspace matrix name (see
-    :func:`_bwd_mats`): the forward's residuals and the rounded cotangents
-    of :func:`fused_nerf_mlp_bwd_plain`, at its rounding points."""
+def _residuals(net: NeRFMLP, pts, dirs, n_freqs: int, dt, hi_lo: bool):
+    """The forward's output, the activations the backward stores by
+    workspace matrix name (see :func:`_bwd_mats`), and the ReLU masks the
+    dX chain reads (trunk layer i's, then the view layer's: act > 0 of the
+    stored value)."""
+    out, (x, d, hs, bott, v) = _plain_forward(net, pts, dirs, n_freqs, dt,
+                                              hi_lo)
+    acts = {"x": x, **{f"h{i}": h for i, h in enumerate(hs)}}
+    if dirs is not None:
+        acts.update(d=d, bott=bott, v=v)
+    on = [h > 0 for h in hs] + ([v > 0] if dirs is not None else [])
+    return out, acts, on
+
+
+def _dx_terms(net: NeRFMLP, g, on, vdirs: bool, dt,
+              hi_lo: bool) -> Dict[str, torch.Tensor]:
+    """The rounded cotangents the backward stores, by workspace matrix
+    name (see :func:`_bwd_mats`), at :func:`fused_nerf_mlp_bwd_plain`'s
+    rounding points, from the cotangent ``g`` and the ReLU masks ``on``
+    (:func:`_residuals`)."""
     mc = net.cfg
 
     def rnd(t):
@@ -1480,31 +1635,37 @@ def _bwd_terms(net: NeRFMLP, pts, dirs, g, n_freqs: int, dt,
             return g_hi @ w_hi + g_hi @ w_lo + g_lo @ w_hi
         return gg @ rnd(w.float())
 
-    with torch.no_grad():
-        _, (x, d, hs, bott, v) = _plain_forward(net, pts, dirs, n_freqs, dt,
-                                                hi_lo)
-        terms = {"x": x, **{f"h{i}": h for i, h in enumerate(hs)}}
-        g = g.float()
-        if dirs is None:
-            terms["g_out"] = rnd(g)
-            dh = rnd(back(terms["g_out"], net.output_linear.weight))
-        else:
-            g_rgb, g_sigma = rnd(g[:, 0:3]), rnd(g[:, 3:4])
-            dv = back(g_rgb, net.rgb_linear.weight)
-            dv = rnd(torch.where(v > 0, dv, torch.zeros_like(dv)))
-            dbott = rnd(back(dv, net.view_linear.weight[:, :mc.bottleneck_ch]))
-            dh = rnd(back(dbott, net.bottleneck_linear.weight)
-                     + back(g_sigma, net.sigma_linear.weight))
-            terms.update(d=d, bott=bott, v=v, g_rgb=g_rgb, g_sigma=g_sigma,
-                         dv=dv, dbott=dbott)
-        enc = x.shape[-1]
-        for i in range(mc.depth - 1, -1, -1):
-            dacc = rnd(torch.where(hs[i] > 0, dh, torch.zeros_like(dh)))
-            terms[f"dacc{i}"] = dacc
-            if i > 0:
-                w = net.pts_linears[i].weight
-                dh = rnd(back(dacc, w[:, enc:] if i in mc.skips else w))
+    terms = {}
+    g = g.float()
+    if not vdirs:
+        terms["g_out"] = rnd(g)
+        dh = rnd(back(terms["g_out"], net.output_linear.weight))
+    else:
+        g_rgb, g_sigma = rnd(g[:, 0:3]), rnd(g[:, 3:4])
+        dv = back(g_rgb, net.rgb_linear.weight)
+        dv = rnd(torch.where(on[mc.depth], dv, torch.zeros_like(dv)))
+        dbott = rnd(back(dv, net.view_linear.weight[:, :mc.bottleneck_ch]))
+        dh = rnd(back(dbott, net.bottleneck_linear.weight)
+                 + back(g_sigma, net.sigma_linear.weight))
+        terms.update(g_rgb=g_rgb, g_sigma=g_sigma, dv=dv, dbott=dbott)
+    enc = mc.input_ch
+    for i in range(mc.depth - 1, -1, -1):
+        dacc = rnd(torch.where(on[i], dh, torch.zeros_like(dh)))
+        terms[f"dacc{i}"] = dacc
+        if i > 0:
+            w = net.pts_linears[i].weight
+            dh = rnd(back(dacc, w[:, enc:] if i in mc.skips else w))
     return terms
+
+
+def _bwd_terms(net: NeRFMLP, pts, dirs, g, n_freqs: int, dt,
+               hi_lo: bool) -> Dict[str, torch.Tensor]:
+    """Every value the backward stores, by workspace matrix name (see
+    :func:`_bwd_mats`): the forward's residuals and the rounded cotangents
+    of :func:`fused_nerf_mlp_bwd_plain`, at its rounding points."""
+    with torch.no_grad():
+        _, acts, on = _residuals(net, pts, dirs, n_freqs, dt, hi_lo)
+        return {**acts, **_dx_terms(net, g, on, dirs is not None, dt, hi_lo)}
 
 
 def _scenes(t: Optional[torch.Tensor], n_scenes: int):
@@ -1579,31 +1740,180 @@ def bwd_workspace_plain(packed: PackedMLP, pts: torch.Tensor,
     the fp32 value), rows n and on zero, each matrix in its strip layout.
     For a stack, scene s's n / S points fill rows ``s * rows_s`` on,
     ``rows_s`` = n / S rounded up to phase 1's tile."""
-    hi_lo = packed.hi_lo
-    dt = torch.float32 if hi_lo else torch.bfloat16
+    dt = torch.float32 if packed.hi_lo else torch.bfloat16
     n_freqs = int(packed.bwd_program[_BWD_HEADER.index("n_freqs")])
     ws = torch.zeros(rows * packed.ws_cols, device=pts.device,
                      dtype=torch.bfloat16)
     s = packed.n_scenes
-    nets = packed.stack or (packed.net,)
-    planes = 2 if hi_lo else 1
-    mats = [torch.zeros((planes, rows, cols), device=pts.device,
-                        dtype=torch.bfloat16)
-            for _, _, cols in packed.ws_mats]
-    for i, (net, p, d, gg) in enumerate(zip(
-            nets, _scenes(pts, s), _scenes(dirs, s), _scenes(g, s))):
-        n = p.shape[0]
-        r0 = i * ws_rows(n, packed.bwd_rows)
-        terms = _bwd_terms(net, p, d, gg, n_freqs, dt, hi_lo)
-        for m, (name, _, _) in enumerate(packed.ws_mats):
+    scenes = [_bwd_terms(net, p, d, gg, n_freqs, dt, packed.hi_lo)
+              for net, p, d, gg in zip(packed.stack or (packed.net,),
+                                       _scenes(pts, s), _scenes(dirs, s),
+                                       _scenes(g, s))]
+    _store_terms(packed, ws, scenes, ws_rows(pts.shape[0] // s,
+                                             packed.bwd_rows))
+    return ws
+
+
+def mask_lanes(rows: int, cols: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where the ReLU bits of a mask block lie in its pass of ``cols``
+    columns at tiles of ``rows`` points (mlp_tile.cuh's accumulator
+    fragments): (feature, point) of bit i of entry e, each (cols / 16 * 32,
+    rows / 2). Entry 32 v + l is lane l's of the warp tile of features 16
+    v..; its element i = 4 j + 2 h + e' is feature 16 v + l / 4 + 8 h,
+    point 8 j + 2 (l % 4) + e'."""
+    e = torch.arange(cols // 16 * 32)[:, None]
+    i = torch.arange(rows // 2)[None, :]
+    lane = e % 32
+    return (16 * (e // 32) + lane // 4 + 8 * ((i >> 1) & 1),
+            8 * (i >> 2) + 2 * (lane % 4) + (i & 1))
+
+
+def mask_encode(on: torch.Tensor) -> torch.Tensor:
+    """A pass's ReLU bits (tiles, rows, cols) bool -> each tile's mask
+    block, (tiles, entries x :func:`mask_entry_bytes`) uint8: an entry's
+    bits little-endian, bit i for element i."""
+    tiles, rows, cols = on.shape
+    feat, pt = mask_lanes(rows, cols)
+    width = 8 * mask_entry_bytes(rows)
+    bits = torch.nn.functional.pad(on[:, pt, feat].to(torch.int32),
+                                   (0, width - rows // 2))
+    weights = 1 << torch.arange(8, dtype=torch.int32)
+    return ((bits.view(tiles, -1, width // 8, 8) * weights).sum(-1)
+            .to(torch.uint8).view(tiles, -1))
+
+
+def mask_decode(blocks: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """:func:`mask_encode`'s inverse: (tiles, entry bytes) uint8 -> (tiles,
+    rows, cols) bool."""
+    tiles = blocks.shape[0]
+    feat, pt = mask_lanes(rows, cols)
+    bits = ((blocks.to(torch.int32)[..., None]
+             >> torch.arange(8, dtype=torch.int32)) & 1).view(
+        tiles, feat.shape[0], -1)[..., :rows // 2].bool()
+    on = torch.zeros((tiles, rows, cols), dtype=torch.bool)
+    on[:, pt, feat] = bits
+    return on
+
+
+def _relu_widths(packed: PackedMLP) -> List[int]:
+    """The ReLU layers' widths, in mask slot order: each trunk layer's,
+    then the view layer's."""
+    mc = packed.net.cfg
+    return [mc.width] * mc.depth + ([mc.view_width] if packed.vdirs else [])
+
+
+def _mask_passes(packed: PackedMLP):
+    """The handover's mask blocks: (ReLU slot, byte offset in a tile's
+    image, first column, columns) of each pass."""
+    lay = _handover_layout(packed.net.cfg, packed.vdirs, packed.hi_lo)
+    widths = _relu_widths(packed)
+    return [(slot, off, b * BWD_MAX_N,
+             min(BWD_MAX_N, _pad16(widths[slot]) - b * BWD_MAX_N))
+            for slot, blocks in enumerate(lay.masks)
+            for b, off in enumerate(blocks)]
+
+
+def _mask_images(packed: PackedMLP, masks: torch.Tensor, rows_s: int):
+    """The handover's mask images of a call whose scenes take ``rows_s``
+    workspace rows each: (scenes x tiles, mask_bytes), a view of
+    ``masks``."""
+    ho = packed.handover
+    tiles = packed.n_scenes * rows_s // ho.rows
+    return masks[:tiles * ho.mask_bytes].view(tiles, ho.mask_bytes)
+
+
+def _store_terms(packed: PackedMLP, ws: torch.Tensor, scenes, rows_s: int):
+    """Each scene's values by workspace matrix name (``scenes``: one dict
+    of (n, cols) fp32 values a scene) into the flat workspace ``ws``:
+    scene i's at rows ``i * rows_s`` on, bf16 (the (hi, lo) planes in
+    hi_lo mode), every other row of those matrices zero; the other
+    matrices are left as they were."""
+    planes = 2 if packed.hi_lo else 1
+    cap = ws.numel() // packed.ws_cols
+    for m, (name, _, cols) in enumerate(packed.ws_mats):
+        if name not in scenes[0]:
+            continue
+        mat = torch.zeros((planes, cap, cols), device=ws.device,
+                          dtype=torch.bfloat16)
+        for i, terms in enumerate(scenes):
             t = terms[name]
+            r0, n = i * rows_s, t.shape[0]
             hi = t.to(torch.bfloat16)
-            mats[m][0, r0:r0 + n, :t.shape[1]] = hi
-            if hi_lo:
-                mats[m][1, r0:r0 + n, :t.shape[1]] = (
+            mat[0, r0:r0 + n, :t.shape[1]] = hi
+            if planes == 2:
+                mat[1, r0:r0 + n, :t.shape[1]] = (
                     t - hi.float()).to(torch.bfloat16)
-    for m, mat in enumerate(mats):
         ws_store(packed, ws, m, mat)
+
+
+def forward_residuals_plain(packed: PackedMLP, pts: torch.Tensor,
+                            dirs: Optional[torch.Tensor], ws: torch.Tensor,
+                            masks: torch.Tensor) -> torch.Tensor:
+    """What the forward kernel computes with its residuals, from the
+    function's definition: the output (:func:`fused_nerf_mlp_plain`), and
+    into the flat workspace ``ws`` every activation matrix of
+    :func:`bwd_workspace_plain` (rows past n zero), and into ``masks`` each
+    tile's mask image (:class:`Handover`: the blocks of
+    :func:`_handover_layout`, :func:`mask_encode`'s bits of the stored
+    activation > 0; points past n off). The cotangent matrices are left
+    as they were. A stack's scene s from tile (and row) s * tiles_s on."""
+    ho = packed.handover
+    dt = torch.float32 if packed.hi_lo else torch.bfloat16
+    n_freqs = int(packed.bwd_program[_BWD_HEADER.index("n_freqs")])
+    s = packed.n_scenes
+    rows_s = ws_rows(pts.shape[0] // s, ho.rows)
+    tiles_s = rows_s // ho.rows
+    image = _mask_images(packed, masks, rows_s)
+    image.zero_()
+    outs, scenes = [], []
+    with torch.no_grad():
+        for i, (net, p, d) in enumerate(zip(packed.stack or (packed.net,),
+                                            _scenes(pts, s),
+                                            _scenes(dirs, s))):
+            out, acts, on = _residuals(net, p, d, n_freqs, dt, packed.hi_lo)
+            outs.append(out)
+            scenes.append(acts)
+            for slot, off, c0, nn in _mask_passes(packed):
+                part = torch.zeros((rows_s, nn), dtype=torch.bool)
+                part[:p.shape[0], :on[slot].shape[1] - c0] = \
+                    on[slot][:, c0:c0 + nn]
+                blk = mask_encode(part.view(tiles_s, ho.rows, nn))
+                image[i * tiles_s:(i + 1) * tiles_s,
+                      off:off + blk.shape[1]] = blk
+    _store_terms(packed, ws, scenes, rows_s)
+    return torch.cat(outs)
+
+
+def bwd_handover_plain(packed: PackedMLP, g: torch.Tensor, ws: torch.Tensor,
+                       masks: torch.Tensor) -> torch.Tensor:
+    """What phase 1 computes without the recomputed forward: the rounded
+    cotangents of :func:`bwd_workspace_plain` into the flat workspace
+    ``ws`` (rows past n zero), its dX chain masked by the bits of the mask
+    images ``masks`` (:func:`mask_decode`) alone; the activation matrices
+    are left as the forward wrote them. Returns ``ws``."""
+    ho = packed.handover
+    dt = torch.float32 if packed.hi_lo else torch.bfloat16
+    s = packed.n_scenes
+    n = g.shape[0] // s
+    rows_s = ws_rows(n, ho.rows)
+    tiles_s = rows_s // ho.rows
+    image = _mask_images(packed, masks, rows_s)
+    widths = _relu_widths(packed)
+    scenes = []
+    with torch.no_grad():
+        for i, (net, gg) in enumerate(zip(packed.stack or (packed.net,),
+                                          _scenes(g, s))):
+            on = [torch.zeros((rows_s, _pad16(w)), dtype=torch.bool)
+                  for w in widths]
+            for slot, off, c0, nn in _mask_passes(packed):
+                blk = image[i * tiles_s:(i + 1) * tiles_s,
+                            off:off + nn * 2 * mask_entry_bytes(ho.rows)]
+                on[slot][:, c0:c0 + nn] = mask_decode(
+                    blk, ho.rows, nn).view(rows_s, nn)
+            scenes.append(_dx_terms(
+                net, gg, [m[:n, :w] for m, w in zip(on, widths)],
+                packed.vdirs, dt, packed.hi_lo))
+    _store_terms(packed, ws, scenes, rows_s)
     return ws
 
 
@@ -1714,6 +2024,10 @@ def _kernel(csrc: str = _build.CSRC):
     lib.fused_mlp_fwd.argtypes = ([vp] * 5 + [i32, i32, ctypes.c_longlong, i32,
                                    vp] + [i32] * 4 + [vp])
     lib.fused_mlp_fwd.restype = i32
+    lib.fused_mlp_fwd_res.argtypes = (lib.fused_mlp_fwd.argtypes[:-1]
+                                      + [vp, vp, ctypes.c_longlong, vp, i32,
+                                         vp])
+    lib.fused_mlp_fwd_res.restype = i32
     lib.fused_mlp_fwd_error_string.argtypes = [i32]
     lib.fused_mlp_fwd_error_string.restype = ctypes.c_char_p
     lib.fused_mlp_fwd_constants.argtypes = [ctypes.POINTER(i32), i32]
@@ -1734,7 +2048,8 @@ def _bwd_kernel(csrc: str = _build.CSRC):
     lib = _build.load("fused_mlp_bwd", csrc)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.fused_mlp_bwd_phase1.argtypes = ([vp] * 6 + [i32] * 5 + [i64]
-                                         + [i32] * 2 + [vp, i64, vp])
+                                         + [i32] * 2 + [vp, i64, vp, i32,
+                                                        vp])
     lib.fused_mlp_bwd_phase1.restype = i32
     lib.fused_mlp_bwd_phase2.argtypes = [vp, i64, vp, vp] + [i32] * 6 + [
         vp, i64, i64, i32, vp]
@@ -1793,7 +2108,10 @@ def _check_operands(packed: PackedMLP, pts, dirs):
 
 
 def _launch(packed: PackedMLP, pts: torch.Tensor,
-            dirs: Optional[torch.Tensor]) -> torch.Tensor:
+            dirs: Optional[torch.Tensor], res=None) -> torch.Tensor:
+    """The forward kernel; with ``res`` = (workspace, mask images), checked
+    by the caller, the training forward that also writes its residuals
+    there (:func:`forward_residuals`)."""
     pts, dirs = _check_operands(packed, pts, dirs)
     n = pts.shape[0]
     dev = pts.device
@@ -1804,21 +2122,86 @@ def _launch(packed: PackedMLP, pts: torch.Tensor,
     hdr = fwd_header(packed)
     scenes = packed.n_scenes
     n_s = n // scenes
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fused_mlp_fwd(
-            pts.data_ptr(), dirs.data_ptr() if dirs is not None else None,
+    args = (pts.data_ptr(), dirs.data_ptr() if dirs is not None else None,
             packed.weights.data_ptr(), packed.biases.data_ptr(),
             out.data_ptr(), n_s, scenes, packed.w_stride, packed.b_stride,
             packed.program_dev.data_ptr(),
-            hdr["prog_len"], hdr["hi_lo"], hdr["rows"], hdr["smem"], stream,
-        )
+            hdr["prog_len"], hdr["hi_lo"], hdr["rows"], hdr["smem"])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if res is None:
+            rc = lib.fused_mlp_fwd(*args, stream)
+        else:
+            ws, masks = res
+            rc = lib.fused_mlp_fwd_res(
+                *args, packed.handover.res_dev.data_ptr(), ws.data_ptr(),
+                ws.numel() // packed.ws_cols, masks.data_ptr(),
+                packed.handover.mask_bytes, stream)
     if rc != 0:
         raise RuntimeError("fused_mlp_fwd launch failed: "
                            + lib.fused_mlp_fwd_error_string(rc).decode())
     fused_nerf_mlp.launches += 1
+    fused_nerf_mlp.residual_launches += res is not None
     check_nan([("the output of the fused_mlp_fwd kernel", out)])
     return out
+
+
+def _check_handover(packed: PackedMLP, n: int, ws: torch.Tensor,
+                    masks: torch.Tensor, dev) -> int:
+    """The workspace's rows per matrix, after checking that the net hands
+    over and that ``ws`` and ``masks`` hold a call of n points: the
+    workspace rows of the handover's tile, and a mask image a tile."""
+    ho = packed.handover
+    if ho is None:
+        mc = packed.net.cfg
+        raise ValueError(f"{_arch_name(mc, packed.vdirs, packed.hi_lo)} "
+                         f"recomputes its forward in phase 1: "
+                         f"{handover_misfit(mc, packed.vdirs, packed.hi_lo)}")
+    rows = packed.n_scenes * ws_rows(n // packed.n_scenes, ho.rows)
+    cap = _check_ws(packed, ws, rows, dev)
+    need = rows // ho.rows * ho.mask_bytes
+    if (masks.dtype != torch.uint8 or masks.dim() != 1
+            or not masks.is_contiguous() or masks.device != dev
+            or masks.numel() < need or masks.data_ptr() % 16):
+        raise ValueError(f"the mask images must be a contiguous uint8 vector "
+                         f"of >= {need} bytes on {dev}, 16-byte aligned")
+    return cap
+
+
+def residual_buffers(packed: PackedMLP, n: int, dev) -> Tuple[torch.Tensor,
+                                                              torch.Tensor]:
+    """(workspace, mask images) that a training forward of n points hands
+    to the backward (:func:`forward_residuals`): the backward's whole
+    workspace, the rows of the handover's tile, and one mask image a tile.
+    On a card, the bytes are checked against the card first
+    (:func:`check_bwd_memory`)."""
+    ho = packed.handover
+    scenes = packed.n_scenes
+    rows = ws_rows(n // scenes, ho.rows)
+    _check_card(packed, n // scenes, dev)
+    return (torch.empty(scenes * rows * packed.ws_cols, device=dev,
+                        dtype=torch.bfloat16),
+            torch.empty(scenes * rows // ho.rows * ho.mask_bytes,
+                        device=dev, dtype=torch.uint8))
+
+
+def forward_residuals(packed: PackedMLP, pts: torch.Tensor,
+                      dirs: Optional[torch.Tensor], ws: torch.Tensor,
+                      masks: torch.Tensor) -> torch.Tensor:
+    """The training forward: the forward's output, and its residuals for
+    the backward (:class:`Handover`): the activation matrices of the
+    workspace ``ws`` and each tile's ReLU masks into ``masks``
+    (:func:`residual_buffers`), which :func:`bwd_workspace` then reads in
+    place of recomputing the forward. The forward kernel for CUDA tensors
+    (or raise), :func:`forward_residuals_plain` for CPU ones.
+    ``fused_nerf_mlp.residual_launches`` counts these kernel launches
+    (``fused_nerf_mlp.launches`` counts them too)."""
+    _check_handover(packed, pts.shape[0], ws, masks, pts.device)
+    if pts.device.type == "cpu":
+        out = forward_residuals_plain(packed, pts, dirs, ws, masks)
+        check_nan([("the output of the fused MLP's plain forward", out)])
+        return out
+    return _launch(packed, pts, dirs, (ws, masks))
 
 
 def reduce_partials(part: torch.Tensor, total: int) -> torch.Tensor:
@@ -1868,40 +2251,57 @@ def _check_ws(packed: PackedMLP, ws: torch.Tensor, rows: int, dev) -> int:
 
 def bwd_workspace(packed: PackedMLP, pts: torch.Tensor,
                   dirs: Optional[torch.Tensor], g: torch.Tensor,
-                  ws: torch.Tensor) -> torch.Tensor:
+                  ws: torch.Tensor,
+                  masks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Phase 1 for n points: recompute the forward, walk the dX chain and
     fill the flat workspace ``ws`` (at least :func:`ws_rows` of n rows per
     matrix; for a stack, S times those of n / S, scene s's rows after
-    scene s - 1's). The kernel for CUDA
-    tensors (or raise), :func:`bwd_workspace_plain` for CPU ones.
-    ``bwd_workspace.launches`` counts kernel launches."""
+    scene s - 1's). With ``masks``, the handover: the forward wrote its
+    activations into ``ws`` and its ReLU masks into ``masks``
+    (:func:`forward_residuals`), and phase 1 runs only the dX chain. The
+    kernel for CUDA tensors (or raise), :func:`bwd_workspace_plain` (or
+    :func:`bwd_handover_plain`) for CPU ones. ``bwd_workspace.launches``
+    counts kernel launches, ``bwd_workspace.handover_launches`` those
+    without the recomputed forward."""
     pts, dirs = _check_operands(packed, pts, dirs)
     n, dev = pts.shape[0], pts.device
     if g.shape != (n, packed.out_w) or g.device != dev:
         raise ValueError(f"the cotangent must be ({n}, {packed.out_w}) on "
                          f"{dev}, got {tuple(g.shape)} on {g.device}")
     g = g.to(torch.float32).contiguous()
+    ho = packed.handover if masks is not None else None
     tile = packed.bwd_rows
     scenes = packed.n_scenes
     n_s = n // scenes
     rows = ws_rows(n_s, tile)
-    cap = _check_ws(packed, ws, scenes * rows, dev)
+    if masks is None:
+        cap = _check_ws(packed, ws, scenes * rows, dev)
+    else:
+        cap = _check_handover(packed, n, ws, masks, dev)
+        tile = ho.rows
     if dev.type == "cpu":
+        if ho is not None:
+            return bwd_handover_plain(packed, g, ws, masks)
         return ws.copy_(bwd_workspace_plain(packed, pts, dirs, g, cap))
     if n == 0:
         return ws
     lib = _bwd_kernel()
-    prog = packed.bwd_program_dev
+    prog, prog_len, smem = ((ho.program_dev, ho.prog_len, ho.smem)
+                            if ho is not None else
+                            (packed.bwd_program_dev, packed.bwd_prog_len,
+                             packed.bwd_smem))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _bwd_error(lib, "fused_mlp_bwd_phase1 launch", lib.fused_mlp_bwd_phase1(
             pts.data_ptr(), dirs.data_ptr() if dirs is not None else None,
             g.data_ptr(), packed.weights.data_ptr(),
-            packed.biases.data_ptr(), prog.data_ptr(), packed.bwd_prog_len,
+            packed.biases.data_ptr(), prog.data_ptr(), prog_len,
             int(packed.hi_lo), tile, n_s, scenes,
-            packed.w_stride, packed.b_stride, packed.bwd_smem, ws.data_ptr(),
-            cap, stream))
+            packed.w_stride, packed.b_stride, smem, ws.data_ptr(),
+            cap, masks.data_ptr() if ho is not None else None,
+            ho.mask_bytes if ho is not None else 0, stream))
     bwd_workspace.launches += 1
+    bwd_workspace.handover_launches += ho is not None
     if numerics_checked():
         check_nan([(f"the workspace of the fused_mlp_bwd_phase1 kernel "
                     f"({name})", ws_matrix(packed, ws, m)[
@@ -2008,16 +2408,33 @@ def _state_bwd_bytes(name: str, scenes: int, n_s: int, need: int,
              n_s, need, card)
 
 
+def _check_card(packed: PackedMLP, n_s: int, dev) -> None:
+    """On a card, a backward call's bytes over n_s points a scene against
+    the card (:func:`check_bwd_memory`), said once."""
+    if dev.type != "cuda":
+        return
+    card = _card_bytes(dev.index if dev.index is not None
+                       else torch.cuda.current_device())
+    _state_bwd_bytes(_arch_name(packed.net.cfg, packed.vdirs, packed.hi_lo),
+                     packed.n_scenes, n_s,
+                     check_bwd_memory(packed, n_s, card), card)
+
+
 def _launch_bwd(packed: PackedMLP, pts: torch.Tensor,
-                dirs: Optional[torch.Tensor], g: torch.Tensor) -> torch.Tensor:
+                dirs: Optional[torch.Tensor], g: torch.Tensor,
+                res=None) -> torch.Tensor:
     """The backward: the flat fp32 gradient (``packed.grad_total``) in the
     packed blocks' layout; (S, grad_total) for a stack. The call is walked
     in chunks of at most :func:`bwd_chunk_rows` points (of each scene),
     each phase 1 into one workspace, then phase 2 into the chunk's partial
     slots; the reduction sums every slot in (chunk, split) order. A stack's
     chunk is one launch of each phase over all scenes, so it launches each
-    kernel as often as one of its scenes alone. On a card, the bytes are
-    checked against the card first (:func:`check_bwd_memory`)."""
+    kernel as often as one of its scenes alone. ``res``: the (workspace,
+    mask images) the call's forward wrote its residuals into
+    (:func:`forward_residuals`), for a call of one chunk; phase 1 then
+    takes them (:func:`bwd_workspace`) instead of recomputing the forward.
+    On a card, the bytes are checked against the card first
+    (:func:`check_bwd_memory`)."""
     n, dev = pts.shape[0], pts.device
     if g.shape != (n, packed.out_w):
         raise ValueError(f"the cotangent must be ({n}, {packed.out_w}), got "
@@ -2026,16 +2443,14 @@ def _launch_bwd(packed: PackedMLP, pts: torch.Tensor,
     tile = packed.bwd_rows
     scenes = packed.n_scenes
     n_s = n // scenes
-    if dev.type == "cuda":
-        card = _card_bytes(dev.index if dev.index is not None
-                           else torch.cuda.current_device())
-        _state_bwd_bytes(_arch_name(packed.net.cfg, packed.vdirs,
-                                    packed.hi_lo), scenes, n_s,
-                         check_bwd_memory(packed, n_s, card), card)
+    _check_card(packed, n_s, dev)
     chunks = _bwd_chunks(packed, n_s)
-    ws = torch.empty(scenes * max((ws_rows(r, tile) for _, r, _ in chunks),
-                                  default=0)
-                     * packed.ws_cols, device=dev, dtype=torch.bfloat16)
+    if res is not None and len(chunks) != 1:
+        raise ValueError(f"the forward's residuals hold a call of one chunk; "
+                         f"this one has {len(chunks)}")
+    ws = res[0] if res is not None else torch.empty(
+        scenes * max((ws_rows(r, tile) for _, r, _ in chunks), default=0)
+        * packed.ws_cols, device=dev, dtype=torch.bfloat16)
     slots = sum(splits for _, _, (splits, _) in chunks)
     part = torch.empty((scenes, slots, part_stride(total)), device=dev,
                        dtype=torch.float32)
@@ -2050,7 +2465,7 @@ def _launch_bwd(packed: PackedMLP, pts: torch.Tensor,
     slot = 0
     for c0, r, (splits, split_rows) in chunks:
         bwd_workspace(packed, piece(pts, c0, r), piece(dirs, c0, r),
-                      piece(g, c0, r), ws)
+                      piece(g, c0, r), ws, None if res is None else res[1])
         weight_grads(packed, ws, ws_rows(r, tile), split_rows,
                      part[:, slot:slot + splits] if packed.stack
                      else part[0, slot:slot + splits])
@@ -2079,12 +2494,24 @@ def unpack_grads(packed: PackedMLP, flat: torch.Tensor):
     return grads
 
 
+def hands_over(packed: Optional[PackedMLP], n: int, needs_grad: bool) -> bool:
+    """Whether a forward of n points writes its residuals for the backward
+    (:class:`FusedMLPFunction`): the nets' parameters need a gradient, the
+    call runs the kernels on a net that hands over (:func:`handover_misfit`)
+    and its backward is one chunk (each scene's points at most
+    :func:`bwd_chunk_rows`)."""
+    if not needs_grad or packed is None or packed.handover is None:
+        return False
+    return 0 < n // packed.n_scenes <= bwd_chunk_rows(
+        packed.net.cfg, packed.vdirs, packed.hi_lo)
+
+
 @dataclasses.dataclass(frozen=True)
 class _Call:
     """What one fused-MLP call runs on: its nets (one, or a stack's, one per
     scene), their packed layout (None for CPU tensors, which take the plain
     versions), the encoding's frequencies, the compute type and the hi_lo
-    mode."""
+    mode; ``grad``: gradients were being recorded where it was made."""
 
     nets: Tuple[NeRFMLP, ...]
     stacked: bool
@@ -2092,8 +2519,13 @@ class _Call:
     n_freqs: int
     dt: torch.dtype
     hi_lo: bool
+    grad: bool = False
 
-    def forward(self, pts, dirs) -> torch.Tensor:
+    def forward(self, pts, dirs, res=None) -> torch.Tensor:
+        """The output; with ``res`` (:func:`residual_buffers`), also the
+        residuals for the backward."""
+        if res is not None:
+            return forward_residuals(self.packed, pts, dirs, *res)
         if self.packed is None:
             out = fused_nerf_mlp_stack_plain(self.nets, pts, dirs,
                                              self.n_freqs, self.dt,
@@ -2102,8 +2534,10 @@ class _Call:
             return out
         return _launch(self.packed, pts, dirs)
 
-    def backward(self, pts, dirs, g) -> List[Dict[str, torch.Tensor]]:
-        """Each net's gradients, in the order of ``nets``."""
+    def backward(self, pts, dirs, g,
+                 res=None) -> List[Dict[str, torch.Tensor]]:
+        """Each net's gradients, in the order of ``nets``; ``res``: the
+        forward's residuals, if it wrote them."""
         if self.packed is None:
             grads = fused_nerf_mlp_bwd_stack_plain(self.nets, pts, dirs, g,
                                                    self.n_freqs, self.dt,
@@ -2113,7 +2547,7 @@ class _Call:
                        for name, t in gr.items()])
             return grads
         grads = unpack_grads(self.packed,
-                             _launch_bwd(self.packed, pts, dirs, g))
+                             _launch_bwd(self.packed, pts, dirs, g, res))
         return grads if self.stacked else [grads]
 
 
@@ -2140,7 +2574,8 @@ def _route(params, pts_flat, dirs_enc_flat, cfg: RenderConfig,
         raise ValueError(f"{pts_flat.shape[0]} points do not split into "
                          f"{len(nets)} equal scenes")
     if pts_flat.device.type == "cpu":
-        return _Call(nets, stacked, None, cfg.pos_enc_L, dt, hi_lo), dirs
+        return _Call(nets, stacked, None, cfg.pos_enc_L, dt, hi_lo,
+                     backward), dirs
     if dt != torch.bfloat16 and not hi_lo:
         raise ValueError("the CUDA kernels compute in bfloat16 or fp32 "
                          "'high'; fp32 'highest' takes the plain module path")
@@ -2155,7 +2590,8 @@ def _route(params, pts_flat, dirs_enc_flat, cfg: RenderConfig,
         params = (pack_params_stack(nets, cfg.pos_enc_L, vdirs, hi_lo)
                   if stacked else pack_params(nets[0], cfg.pos_enc_L, vdirs,
                                               hi_lo))
-    return _Call(nets, stacked, params, cfg.pos_enc_L, dt, hi_lo), dirs
+    return _Call(nets, stacked, params, cfg.pos_enc_L, dt, hi_lo,
+                 backward), dirs
 
 
 class FusedMLPFunction(torch.autograd.Function):
@@ -2166,21 +2602,28 @@ class FusedMLPFunction(torch.autograd.Function):
     reduction (or the plain backward) and returns each parameter's
     gradient — every net's of a stack, from its own scene's rows; two
     calls on one net (coarse and fine) are summed by autograd — and zeros
-    for points and dirs (``:564``)."""
+    for points and dirs (``:564``). Where the parameters need a gradient
+    and :func:`hands_over` allows, the forward writes its residuals
+    (:func:`forward_residuals`), kept on ``ctx`` for the backward's phase
+    1; the TPU kernel's custom VJP saved only the inputs, its activations
+    living in VMEM."""
 
     @staticmethod
     def forward(ctx, call, pts, dirs, *net_params):
         ctx.call = call
         ctx.where = numerics_where()
         ctx.save_for_backward(pts, dirs)
-        return call.forward(pts, dirs)
+        needs = call.grad and any(ctx.needs_input_grad[3:])
+        ctx.res = (residual_buffers(call.packed, pts.shape[0], pts.device)
+                   if hands_over(call.packed, pts.shape[0], needs) else None)
+        return call.forward(pts, dirs, ctx.res)
 
     @staticmethod
     def backward(ctx, g):
         pts, dirs = ctx.saved_tensors
         with numerics_scope("backward of the "
                             + (ctx.where[-1] if ctx.where else "fused MLP")):
-            grads = ctx.call.backward(pts, dirs, g)
+            grads = ctx.call.backward(pts, dirs, g, ctx.res)
         d_pts = torch.zeros_like(pts) if ctx.needs_input_grad[1] else None
         d_dirs = (torch.zeros_like(dirs)
                   if dirs is not None and ctx.needs_input_grad[2] else None)
@@ -2234,6 +2677,8 @@ def fused_nerf_mlp_bwd(
 
 
 fused_nerf_mlp.launches = 0
+fused_nerf_mlp.residual_launches = 0
 bwd_workspace.launches = 0
+bwd_workspace.handover_launches = 0
 weight_grads.launches = 0
 reduce_partials.launches = 0

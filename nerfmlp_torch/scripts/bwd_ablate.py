@@ -23,14 +23,22 @@ timed call so that the host's launch path is not timed. Variant sources
 go under build/nerfmlp_torch/ablate/; a variant whose text is no longer in
 the source fails with its name. Needs no jax.
 
+With the sources as built, the training path's residual handover
+(fused_mlp.Handover) is timed too: the forward with and without its
+residuals, phase 1 without and with its recomputed forward, at the fine and
+coarse calls.
+
 ``--outputs FILE`` instead writes, for the nets of OUTPUT_NETS at the fine
 call (random weights and inputs from seed 0), the forward's output, a
 digest of each of phase 1's workspace matrices (read out of its layout) on
-the call's first 16,384 points and the backward's flat gradient, and ``--compare A B`` holds two such
-files to each other bit for bit (exit 1 on a difference; beside a
-differing gradient its largest difference over its largest value). Run
-this file by its path with another tree's package first on PYTHONPATH,
-they show that a change left those paths' results as they were.
+the call's first 16,384 points and the backward's flat gradient, each by
+the path a training call takes (the forward with its residuals and phase
+1 without the forward where the net hands over), and ``--compare A B``
+holds two such files to each other bit for bit (exit 1 on a difference;
+beside a differing gradient its largest difference over its largest
+value). Run this file by its path with another tree's package first on
+PYTHONPATH, they show that a change left those paths' results as they
+were.
 """
 
 import argparse
@@ -109,6 +117,15 @@ FWD_VARIANTS = {
         "fused_mlp_fwd.cu",
         "(p < n && j < enc_dim) ? encode_pair(pts_s, p, j, &v0, &v1) : 1",
         "(p < n && j < enc_dim) ? 1 : 1")],
+    # The training forward's residuals by phase 1's 16-B copies (right
+    # results; the design's choice is measured against it).
+    "residuals by 16-B copies": [(
+        _CORE, "  const int whole = max(0, min(nn, (cols >> 6 << 6) - col0)) "
+        ">> 6;", "  const int whole = 0;")],
+    # The training forward without its mask stores (only the time counts).
+    "residuals without the masks": [(
+        "fused_mlp_fwd.cu", "                                    ok && "
+        "mask_out >= 0);", "                                    false);")],
 }
 # Phase 1's variants (its part of fused_mlp_bwd.cu, before phase 2).
 VARIANTS = {
@@ -119,6 +136,22 @@ VARIANTS = {
     "without the encoding": [(
         "(gr < n && j < enc_dim) ? encode_pair(pts_s, gr, j, &v0, &v1) : 1",
         "(gr < n && j < enc_dim) ? 1 : 1")],
+    # The recomputed forward's operations skipped by the consumers and by
+    # the producer's weight stream (the dX epilogues then read masks that
+    # no operation wrote).
+    "without its forward operations": [
+        ("      if (kind == kOpNone) {",
+         "      if (kind == kOpFwd) continue;\n      if (kind == kOpNone) {"),
+        (_CORE, "      // The forward's strips: this lane's strip t of the "
+         "pass (its cores a\n",
+         "      if (kind == kOpFwd) continue;\n"
+         "      // The forward's strips: this lane's strip t of the pass (its "
+         "cores a\n")],
+    # Every operation's columns left in shared memory (the encoded points
+    # and dirs, and the cotangent, still reach the workspace).
+    "without the workspace copies": [(
+        "      const int m = o[fMat];\n      if (m >= 0)\n",
+        "      const int m = o[fMat];\n      if (false && m >= 0)\n")],
 }
 # Phase 2's, in its part of the source.
 P2_VARIANTS = {
@@ -228,21 +261,35 @@ def write_outputs(path: str) -> None:
         g = g[:, :packed.out_w]
         key = f"{depth}x{width}{'' if vdirs else ' no view head'}" + (
             " hi_lo" if hi_lo else "")
+        # A training call's path: the handover where the net takes it
+        # (one chunk: every net here at this call), else the recompute.
+        ho = fm.hands_over(packed, n, True)
         with torch.no_grad():
-            out[key + " forward"] = fm._launch(packed, pts, dirs).cpu()
+            res = fm.residual_buffers(packed, n, pts.device) if ho else None
+            out[key + " forward"] = (
+                fm.forward_residuals(packed, pts, dirs, *res) if ho
+                else fm._launch(packed, pts, dirs)).cpu()
             m = P1_DIGEST_POINTS
-            ws = torch.empty(fm.ws_rows(m, packed.bwd_rows) * packed.ws_cols,
-                             device="cuda", dtype=torch.bfloat16)
-            fm.bwd_workspace(packed, pts[:m], None if dirs is None
-                             else dirs[:m], g[:m], ws)
+            part = (pts[:m], None if dirs is None else dirs[:m], g[:m])
+            if ho:
+                ws, masks = fm.residual_buffers(packed, m, pts.device)
+                fm.forward_residuals(packed, *part[:2], ws, masks)
+            else:
+                ws, masks = torch.empty(
+                    fm.ws_rows(m, packed.bwd_rows) * packed.ws_cols,
+                    device="cuda", dtype=torch.bfloat16), None
+            fm.bwd_workspace(packed, *part, ws, masks)
             out[key + " phase 1"] = [
                 hashlib.sha256(fm.ws_matrix(packed, ws, i)[:, :m].cpu()
                                .view(torch.int16).numpy().tobytes())
                 .hexdigest() for i in range(len(packed.ws_mats))]
-            del ws
-            out[key + " backward"] = fm._launch_bwd(packed, pts, dirs,
-                                                    g).cpu()
-        print(f"[outputs] {key}: phase-1 tile {packed.bwd_rows}", flush=True)
+            del ws, masks
+            out[key + " backward"] = fm._launch_bwd(packed, pts, dirs, g,
+                                                    res).cpu()
+            del res
+        print(f"[outputs] {key}: phase-1 tile {packed.bwd_rows}, "
+              f"{'handover at tile ' + str(packed.handover.rows) if ho else 'recompute'}",
+              flush=True)
         del net, packed
         torch.cuda.empty_cache()
     torch.save(out, path)
@@ -322,6 +369,9 @@ def main(argv=None) -> int:
             with mock.patch.object(fm, "_bwd_kernel", lambda: lib):
                 t1 = device_ms(lambda: fm.bwd_workspace(packed, pts, dirs, g,
                                                         ws))
+                h = n // 2
+                t1c = device_ms(lambda: fm.bwd_workspace(
+                    packed, pts[:h], dirs[:h], g[:h], ws))
                 t2 = device_ms(lambda: fm.weight_grads(packed, ws, n,
                                                        split_rows, part))
                 more = ""
@@ -330,21 +380,29 @@ def main(argv=None) -> int:
                         f", phase 2 at {label} "
                         f"{device_ms(lambda: fm.weight_grads(*c)):.3f} ms"
                         for label, *c in p2_calls)
-            print(f"[ablate] {name}: phase 1 {t1:.3f} ms, phase 2 "
-                  f"{t2:.3f} ms{more}", flush=True)
+            print(f"[ablate] {name}: phase 1 {t1:.3f} ms (coarse call "
+                  f"{t1c:.3f} ms), phase 2 {t2:.3f} ms{more}", flush=True)
         del p2_calls
     serve = call_inputs(4 * n, cfg)[:2]
     if "fwd" in kernels:
+        res = fm.residual_buffers(packed, n, pts.device)
+        h = n // 2
         with torch.no_grad():
             for name, d in build_variants(FWD_VARIANTS,
                                           "fused_mlp_fwd").items():
                 lib = fm._kernel(d)
                 with mock.patch.object(fm, "_kernel", lambda: lib):
                     tt = device_ms(lambda: fm._launch(packed, pts, dirs))
+                    tr = device_ms(lambda: fm._launch(packed, pts, dirs,
+                                                      res))
+                    trc = device_ms(lambda: fm._launch(packed, pts[:h],
+                                                       dirs[:h], res))
                     ts = device_ms(lambda: fm._launch(packed, *serve))
                 print(f"[ablate] forward {name}: train fine call {tt:.3f} ms,"
-                      f" served fine call ({4 * n} points) {ts:.3f} ms",
-                      flush=True)
+                      f" with its residuals {tr:.3f} ms (coarse call "
+                      f"{trc:.3f} ms), served fine call ({4 * n} points) "
+                      f"{ts:.3f} ms", flush=True)
+        del res
     if "bwd" in kernels:
         fm.bwd_workspace(packed, pts, dirs, g, ws)
         for s in (4, 8, 16, 32):
@@ -367,6 +425,19 @@ def main(argv=None) -> int:
             print(f"[ablate] {label} call, whole backward: one chunk of "
                   f"{fm.BWD_CHUNK_ROWS} points {one:.3f} ms, chunks of "
                   f"{CHUNK_TRY} points {chunked:.3f} ms", flush=True)
+            res = fm.residual_buffers(packed, rows, p.device)
+            with torch.no_grad():
+                tf = device_ms(lambda: fm._launch(packed, p, d))
+                tr = device_ms(lambda: fm.forward_residuals(packed, p, d,
+                                                            *res))
+            t1 = device_ms(lambda: fm.bwd_workspace(packed, p, d, gg, ws))
+            th = device_ms(lambda: fm.bwd_workspace(packed, p, d, gg, *res))
+            tb = device_ms(lambda: fm._launch_bwd(packed, p, d, gg, res))
+            print(f"[ablate] {label} call, handover: forward {tf:.3f} ms, "
+                  f"with its residuals {tr:.3f} ms; phase 1 recomputing "
+                  f"{t1:.3f} ms, without the forward {th:.3f} ms; whole "
+                  f"backward {tb:.3f} ms", flush=True)
+            del res
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())

@@ -51,6 +51,29 @@ def test_build_without_nvcc_names_it(tmp_path, monkeypatch):
     assert not any(p.suffix == ".so" for p in (tmp_path / "out").iterdir())
 
 
+def test_load_builds_the_kernels_of_its_sources_together(tmp_path,
+                                                        monkeypatch):
+    """The first load of a kernel builds every kernel whose source lies
+    beside it, in one build (the forward's and the backward's nvcc at
+    once); a directory with one kernel's sources builds that one."""
+    asked = []
+
+    def build(names, csrc):
+        asked.append(sorted(names))
+        return {n: str(tmp_path / f"{len(asked)}-{n}") for n in names}
+
+    monkeypatch.setattr(_build, "build", build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: path)
+    assert _build.load("fused_mlp_fwd") == str(tmp_path / "1-fused_mlp_fwd")
+    assert asked == [sorted(_build.KERNELS)]
+    src, *headers = _build.sources("fused_mlp_bwd")
+    for path in (src, *headers):
+        shutil.copy(path, tmp_path)
+    assert _build.load("fused_mlp_bwd", str(tmp_path)) == str(
+        tmp_path / "2-fused_mlp_bwd")
+    assert asked[-1] == ["fused_mlp_bwd"]
+
+
 def test_ablation_variant_whose_text_is_gone_fails_by_name(monkeypatch):
     monkeypatch.setitem(bwd_ablate.VARIANTS, "phase 1 without nothing",
                         [("no such line in the kernel", "")])

@@ -115,7 +115,43 @@ def test_plain_hi_lo_matches_jax_kernel():
     np.testing.assert_allclose(got / scale, want / scale, atol=2e-5)
 
 
-def _run_program(packed, pts, dirs):
+def fragment_lanes(rows, nn):
+    """(point, feature) of bit i of entry e of a pass's mask block, (2 nn,
+    rows / 2) each: lane l of the warp tile of features 16 v.. holds entry
+    32 v + l, its bit i the element i = 4 j + 2 h + e' of its wgmma
+    accumulator fragment: feature 16 v + l / 4 + 8 h, point 8 j + 2 (l %
+    4) + e' (mlp_tile.cuh's Wgmma)."""
+    e = np.arange(nn // 16 * 32)[:, None]
+    i = np.arange(rows // 2)[None, :]
+    lane = e % 32
+    return (8 * (i // 4) + 2 * (lane % 4) + i % 2,
+            16 * (e // 32) + lane // 4 + 8 * ((i // 2) % 2))
+
+
+def fragment_bits(on):
+    """A pass's ReLU bits (rows, nn) -> its mask block's bytes: each entry
+    its bits little-endian in max(1, rows / 16) bytes."""
+    rows, nn = on.shape
+    pt, feat = fragment_lanes(rows, nn)
+    bits = on.numpy()[pt, feat].astype(np.uint8)
+    out = np.zeros((bits.shape[0], max(1, rows // 16)), np.uint8)
+    for b in range(rows // 2):
+        out[:, b // 8] |= bits[:, b] << (b % 8)
+    return torch.from_numpy(out.reshape(-1))
+
+
+def fragment_mask(blk, rows, nn):
+    """:func:`fragment_bits`' inverse: a mask block's bytes -> (rows, nn)
+    bool."""
+    pt, feat = fragment_lanes(rows, nn)
+    b = blk.numpy().reshape(pt.shape[0], -1)
+    on = np.zeros((rows, nn), bool)
+    for i in range(rows // 2):
+        on[pt[:, i], feat[:, i]] = (b[:, i // 8] >> (i % 8)) & 1
+    return torch.from_numpy(on)
+
+
+def _run_program(packed, pts, dirs, res=None):
     """What the CUDA kernel does with a packed net, step for step, in
     PyTorch: tiles of the program's row count, each encoded into the
     kernel's shared-memory buffers (one flat array laid out as the kernel
@@ -127,7 +163,13 @@ def _run_program(packed, pts, dirs):
     the (hi, lo) planes and three products; the heads' real columns written
     from the epilogue to the output, rows at or past n masked. Each
     operation's ring stage is checked to fit a slot; the ring itself is
-    not modelled."""
+    not modelled. ``res`` = (workspace, mask images): the training forward
+    also writes its residuals as the handover's table says
+    (``packed.handover.res``), over tiles up to ``ws_rows(n, rows)``: the
+    encoded points and dirs, and each operation's pass into its workspace
+    matrix (fp32-held bf16 values in the strip layout, ``ws_index``), each
+    ReLU pass's bits (the stored value > 0) into its block of the tile's
+    image (``fragment_bits``)."""
     hdr = fused_mlp.fwd_header(packed)
     prog = [int(v) for v in packed.program]
     base, ops_base = fused_mlp.FWD_HEADER_INTS, fused_mlp.FWD_OPS_BASE
@@ -200,12 +242,34 @@ def _run_program(packed, pts, dirs):
     out = torch.full((n, hdr["out_w"]), float("nan"))
     xk = fused_mlp._pad16(hdr["enc_dim"])
     dk = fused_mlp._pad16(hdr["dirs_dim"])
-    for r0 in range(0, n, rows):
+    end, table = n, [(-1, 0, -1)] * len(ops)
+    if res is not None:
+        ws, image = res
+        ho = packed.handover
+        assert ho.rows == rows
+        r = [int(v) for v in ho.res]
+        assert len(r) == 4 + 4 * len(ops)
+        table = [tuple(r[4 + 4 * i: 7 + 4 * i]) for i in range(len(ops))]
+        end = fused_mlp.ws_rows(n, rows)
+        cap = ws.numel() // packed.ws_cols
+        assert image.shape == (cap // rows, ho.mask_bytes)
+
+    def save(off, cols, r0, bi, col, nn):   # a pass into its matrix
+        idx = fused_mlp.ws_index(cap, cols)[r0:r0 + rows, col:col + nn]
+        for p in range(planes):
+            ws[cap * (off + p * cols) + idx] = smem[at(bi, col, nn)
+                                                    + p * rows * bufs[bi][1]]
+
+    for r0 in range(0, end, rows):
         put(0, 0, tile(enc, r0, xk))
         if hdr["dirs_dim"]:
             put(1, 0, tile(dirs, r0, dk))
+        if res is not None:
+            save(r[0], r[1], r0, 0, 0, r[1])
+            if r[2] >= 0:
+                save(r[2], r[3], r0, 1, 0, r[3])
         for (kind, sa, wa, ka, sb, wb, kb, nn, col, wld, kr, dst, bo, mode,
-             n_real, _) in ops:
+             n_real, _), (m, m_cols, mask) in zip(ops, table):
             assert kind == 0 and col % fused_mlp.FWD_MAX_N == 0
             assert nn <= fused_mlp.FWD_MAX_N and nn % 16 == 0
             # a stage of kr weight rows (at most 64: four k-steps) fits a
@@ -218,10 +282,19 @@ def _run_program(packed, pts, dirs):
                 acc = acc + mm(read(sb, kb), block(wb, kb, wld, col, nn))
             acc = acc + b[bo:bo + nn]
             if mode == 2:
-                m = min(rows, n - r0)
-                out[r0:r0 + m, dst:dst + n_real] = acc[:m, :n_real]
-            else:
-                put(dst, col, torch.relu(acc) if mode == 0 else acc)
+                assert m < 0 and mask < 0
+                k = max(0, min(rows, n - r0))
+                out[r0:r0 + k, dst:dst + n_real] = acc[:k, :n_real]
+                continue
+            put(dst, col, torch.relu(acc) if mode == 0 else acc)
+            if m >= 0:
+                save(m, m_cols, r0, dst, col, nn)
+            assert (mask >= 0) == (res is not None and mode == 0)
+            if mask >= 0:
+                on = (torch.relu(acc) > 0 if hi_lo
+                      else bf(torch.relu(acc)) > 0)
+                bits = fragment_bits(on)
+                image[r0 // rows, mask:mask + bits.numel()] = bits
     return out
 
 

@@ -33,7 +33,8 @@ from nerfmlp_torch.ops import fused_mlp
 from nerfmlp_torch.ops.encoding import positional_encoding
 from nerfmlp_torch.ops.render import prepare_params, uses_kernel
 
-from test_torch_fused_mlp import ARCH, _inputs, _nets
+from test_torch_fused_mlp import (ARCH, _inputs, _nets, _run_program,
+                                  fragment_mask)
 
 # Per-leaf max |port - JAX| / max |JAX|. Both sides round at the same
 # points, so only fp32 summation order differs, and the rare bf16 rounding
@@ -153,7 +154,7 @@ def test_two_calls_on_one_net_sum_their_grads():
                                    atol=1e-6)
 
 
-def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
+def _run_bwd_program(packed, pts, dirs, g, chunk_rows, handover=False):
     """What the CUDA backward does with a packed net, step for step, in
     PyTorch: the call walked in chunks of at most ``chunk_rows`` points. In
     each chunk, phase 1 walks tiles of the program's ``rows`` points over
@@ -174,8 +175,13 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
     warpgroups' 64-row M tiles, its Y strips as N, the products summed in
     fp32 over the split into the unit's part of the split's slot, its bias
     columns summed from the stages; the slots are summed in (chunk, split)
-    order."""
-    prog = packed.bwd_program.tolist()
+    order. ``handover``: the call of one chunk runs the training forward
+    first (test_torch_fused_mlp's interpreter), which writes the
+    activations into the workspace and each tile's mask image; phase 1 is
+    then the handover's program (no recomputed forward, no x or d), each
+    tile's mask blocks read from its image (``fragment_mask``)."""
+    prog = (packed.handover.program if handover
+            else packed.bwd_program).tolist()
     hdr = dict(zip(fused_mlp._BWD_HEADER, prog))
     hi_lo = packed.hi_lo
     planes = 2 if hi_lo else 1
@@ -192,7 +198,9 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
     units = np.asarray(prog[hdr["units_off"]:]).reshape(
         hdr["n_units"], fused_mlp.BWD_UNIT_INTS)
     rows = hdr["rows"]
-    assert rows == packed.bwd_rows and hdr["stages"] >= 2
+    assert rows == (packed.handover.rows if handover else packed.bwd_rows)
+    assert hdr["stages"] >= 2
+    assert (hdr["x_buf"] < 0 and hdr["d_buf"] < 0) is handover
     assert hdr["smem"] <= fused_mlp.SMEM_LIMIT
     # phase 2's ring: its slots after the barriers and zero block, whole
     # 1024-byte atoms a plane, and the bytes a narrow strip's tile reads past
@@ -218,8 +226,20 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
     # the mask blocks: each a pass's entries, inside the region, none
     # overlapping another
     entry = fused_mlp.mask_entry_bytes(rows)
+
+    def ends_of(blks):   # (offset, pass columns): 2 x columns entries each
+        return [off + nn * 2 * entry for off, nn in blks]
+
     blocks = sorted({(o[14], o[7]) for o in ops if o[14] >= 0})
-    ends = [off + nn * 2 * entry for off, nn in blocks]
+    if handover:   # the blocks the forward writes: its ReLU passes'
+        fwd = packed.program.tolist()
+        res = packed.handover.res.tolist()
+        blocks = sorted({(res[4 + 4 * i + 2], fwd[fused_mlp.FWD_OPS_BASE
+                                                  + 16 * i + 7])
+                         for i in range(len(res) // 4 - 1)
+                         if res[4 + 4 * i + 2] >= 0})
+        assert blocks and ends_of(blocks)[-1] <= packed.handover.mask_bytes
+    ends = ends_of(blocks)
     assert all(e <= b for e, (b, _) in zip(ends, blocks[1:]))
     assert not blocks or hdr["mask_off"] + ends[-1] <= hdr["ring_off"]
     assert {(o[13], o[7]) for o in ops if o[13] >= 0} <= set(blocks)
@@ -284,9 +304,19 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
         c_dirs = None if dirs is None else dirs[c0:c0 + r]
         masks = {}
         r_pad = fused_mlp.ws_rows(r, rows)
+        if handover:   # the training forward, its residuals into ws
+            assert len(chunks) == 1
+            image = torch.zeros((r_pad // rows, packed.handover.mask_bytes),
+                                dtype=torch.uint8)
+            _run_program(packed, pts, dirs, (ws, image))
         for r0 in range(0, r_pad, rows):
-            put(hdr["x_buf"], tile_of(c_enc, r0))
-            save(hdr["x_buf"], hdr["x_mat"], r0)
+            if handover:
+                masks = {off: fragment_mask(
+                    image[r0 // rows, off:off + 2 * nn * entry], rows, nn)
+                    for off, nn in blocks}
+            else:
+                put(hdr["x_buf"], tile_of(c_enc, r0))
+                save(hdr["x_buf"], hdr["x_mat"], r0)
             if hdr["d_buf"] >= 0:
                 put(hdr["d_buf"], tile_of(c_dirs, r0))
                 save(hdr["d_buf"], hdr["d_mat"], r0)
@@ -334,8 +364,10 @@ def _run_bwd_program(packed, pts, dirs, g, chunk_rows):
                     acc = torch.where(masks[mask_in], acc, 0.0)
                 put(dst, acc, col)
                 save(dst, m, r0, col, nn)
-        # Phase 2 over the chunk's workspace rows: item i is unit i % units
-        # of split i // units (one scene).
+        # Phase 2 over the chunk's workspace rows (at phase 1's own tile:
+        # the handover's give the same rows): item i is unit i % units of
+        # split i // units (one scene).
+        assert r_pad == fused_mlp.ws_rows(r, packed.bwd_rows)
         splits, split_rows = fused_mlp.bwd_splits(r_pad, units)
         parts = [torch.zeros(fused_mlp.part_stride(packed.grad_total))
                  for _ in range(splits)]
@@ -463,6 +495,227 @@ def test_bwd_program_matches_plain(arch, n, chunk, min_split, monkeypatch):
                                    want[name].numpy() / scale,
                                    atol=1e-4 if not hi_lo else 1e-5,
                                    err_msg=name)
+
+
+# The nets the handover reaches, each a call of one chunk (n ragged in
+# the tile): 128-point tiles, with and without the view head; hi_lo's 64;
+# 8x512's forward tile (64) over phase 1's own (32); hi_lo 32-point tiles
+# of two passes; 16-point tiles; 3x1408 hi_lo, whose own phase 1 keeps
+# its tables in device memory; a deep narrow net.
+HANDOVER_CASES = [
+    (dict(depth=6, width=64, use_viewdirs=True), 549),
+    (dict(depth=6, width=40, use_viewdirs=False), 549),
+    (dict(depth=6, width=64, use_viewdirs=True, hi_lo=True), 549),
+    (dict(depth=2, width=512, use_viewdirs=True), 150),
+    (dict(depth=3, width=384, use_viewdirs=True, hi_lo=True), 100),
+    (dict(depth=1, width=1696, use_viewdirs=True), 40),
+    (dict(depth=3, width=1408, use_viewdirs=True, hi_lo=True), 40),
+    (dict(depth=40, width=16, use_viewdirs=True), 150),
+]
+
+
+@pytest.mark.parametrize("arch, n", HANDOVER_CASES)
+def test_handover_program_matches_plain(arch, n):
+    """The handover as the kernels execute it: the training forward's
+    program writes the activations and each tile's mask image as its
+    residual table says, and phase 1's program without the recomputed
+    forward reads them; the gradients hold the plain backward's bar, and
+    in bf16 equal the recompute's bit for bit (the same products on the
+    same values; in hi_lo the two interpreters add a product's three
+    terms in other orders, which the kernels' one core does not)."""
+    arch = dict(arch)
+    hi_lo = arch.pop("hi_lo", False)
+    vdirs = arch["use_viewdirs"]
+    cfg = RenderConfig(compute_dtype="bfloat16", use_kernel=True, **arch)
+    net = init_model(cfg.model_config(), seed=3, device="cpu")
+    pts, dirs = (torch.from_numpy(a) for a in _inputs(n, seed=5))
+    dirs = dirs if vdirs else None
+    g = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(n, 4 if vdirs else net.cfg.output_ch)).astype(np.float32))
+    packed = fused_mlp.pack_params(net, cfg.pos_enc_L, vdirs, hi_lo)
+    assert fused_mlp.handover_misfit(net.cfg, vdirs, hi_lo) is None
+    lay = fused_mlp._handover_layout(net.cfg, vdirs, hi_lo)
+    assert lay.rows == fused_mlp._fwd_layout(net.cfg, vdirs, hi_lo).rows
+    assert "x" not in lay.bufs and "d" not in lay.bufs
+    got = _run_bwd_program(packed, pts, dirs, g, n, handover=True)
+    again = _run_bwd_program(packed, pts, dirs, g, n)
+    want = fused_mlp.fused_nerf_mlp_bwd_plain(net, pts, dirs, g,
+                                              cfg.pos_enc_L, hi_lo=hi_lo)
+    for name in want:
+        assert hi_lo or torch.equal(got[name], again[name]), name
+        scale = max(float(want[name].abs().max()), 1e-8)
+        np.testing.assert_allclose(got[name].numpy() / scale,
+                                   want[name].numpy() / scale,
+                                   atol=1e-4 if not hi_lo else 1e-5,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("depth, width, hi_lo, scenes", [
+    (8, 256, False, 1), (8, 256, True, 1), (8, 256, False, 2),
+    (8, 512, False, 1), (60, 704, True, 1)],
+    ids=["8x256", "8x256-hi_lo", "8x256-stack2", "8x512", "60x704-hi_lo"])
+def test_handover_plain_equals_recompute(depth, width, hi_lo, scenes):
+    """The plain versions of the handover (the forward with its residuals,
+    then phase 1 without its forward) against the recompute's phase 1, bit
+    for bit: the forward's output, every workspace matrix, the masks (each
+    tile's image decoded, against the stored activations' signs on the
+    real points) and the gradients. 8x512: column passes of 256; 60x704
+    hi_lo: phase 1's own tables lie in device memory."""
+    cfg = RenderConfig(compute_dtype="bfloat16", use_kernel=True,
+                       depth=depth, width=width)
+    mc = cfg.model_config()
+    nets = [init_model(mc, seed=4 + s, device="cpu") for s in range(scenes)]
+    packed = (fused_mlp.pack_params_stack(nets, cfg.pos_enc_L, True, hi_lo)
+              if scenes > 1 else
+              fused_mlp.pack_params(nets[0], cfg.pos_enc_L, True, hi_lo))
+    assert fused_mlp.handover_misfit(mc, True, hi_lo) is None
+    n = scenes * (201 if depth * width < 20_000 else 37)
+    pts, dirs = (torch.from_numpy(a) for a in _inputs(n, seed=9))
+    g = torch.from_numpy(np.random.default_rng(10).normal(
+        size=(n, 4)).astype(np.float32))
+    ws, masks = fused_mlp.residual_buffers(packed, n, pts.device)
+    out = fused_mlp.forward_residuals(packed, pts, dirs, ws, masks)
+    fused_mlp.bwd_workspace(packed, pts, dirs, g, ws, masks)
+    rows = scenes * fused_mlp.ws_rows(n // scenes, packed.bwd_rows)
+    want = torch.zeros(rows * packed.ws_cols, dtype=torch.bfloat16)
+    fused_mlp.bwd_workspace(packed, pts, dirs, g, want)
+    assert torch.equal(out, fused_mlp.fused_nerf_mlp_stack_plain(
+        nets, pts, dirs, cfg.pos_enc_L, hi_lo=hi_lo))
+    assert ws.numel() == want.numel()
+    assert torch.equal(ws.view(torch.int16), want.view(torch.int16))
+    ho = packed.handover
+    rows_s = rows // scenes
+    image = fused_mlp._mask_images(packed, masks, rows_s)
+    acts = {name: fused_mlp.ws_matrix(packed, ws, m).float()
+            for m, (name, _, _) in enumerate(packed.ws_mats)}
+    names = [f"h{i}" for i in range(depth)] + ["v"]
+    entry = fused_mlp.mask_entry_bytes(ho.rows)
+    for slot, off, c0, nn in fused_mlp._mask_passes(packed):
+        on = acts[names[slot]].sum(0)[:, c0:c0 + nn] > 0
+        for t in range(rows // ho.rows):
+            s, r0 = divmod(t * ho.rows, rows_s)
+            got = fragment_mask(image[t, off:off + 2 * nn * entry], ho.rows,
+                                nn)
+            real = max(0, min(ho.rows, n // scenes - r0))
+            assert torch.equal(got[:real], on[t * ho.rows:][:real]), (slot,
+                                                                      t)
+            assert not got[real:].any()
+    assert torch.equal(fused_mlp._launch_bwd(packed, pts, dirs, g,
+                                             (ws, masks)),
+                       fused_mlp._launch_bwd(packed, pts, dirs, g))
+
+
+def test_handover_rule():
+    """Who hands over: a call that needs a gradient, on a net that hands
+    over, of one chunk a scene; not a call without a gradient, past one
+    chunk, on the CPU's plain path (no packed layout), or on a net whose
+    forward tile phase 1 cannot take (8x640, named), nor where it holds
+    two weight stages at a tile other than its own (2x1312: 32 points
+    over 16, slower than the recompute on an H100) though two suffice at
+    its own (3x960 hi_lo)."""
+    mc = RenderConfig().model_config()
+    net = init_model(mc, seed=0, device="cpu")
+    packed = fused_mlp.pack_params(net, 10, True)
+    chunk = fused_mlp.bwd_chunk_rows(mc, True)
+    assert fused_mlp.hands_over(packed, chunk, True)
+    assert fused_mlp.hands_over(packed, 1, True)
+    assert not fused_mlp.hands_over(packed, chunk, False)
+    assert not fused_mlp.hands_over(packed, chunk + 1, True)
+    assert not fused_mlp.hands_over(packed, 0, True)
+    assert not fused_mlp.hands_over(None, chunk, True)
+    stack = fused_mlp.pack_params_stack([net, net], 10, True)
+    assert fused_mlp.hands_over(stack, 2 * chunk, True)
+    assert not fused_mlp.hands_over(stack, 2 * chunk + 2, True)
+    wide = RenderConfig(width=640).model_config()
+    assert "64-point tiles leave room for 1 weight stage" in \
+        fused_mlp.handover_misfit(wide, True)
+    wpk = fused_mlp.pack_params(init_model(wide, seed=0, device="cpu"), 10,
+                                True)
+    assert wpk.handover is None
+    assert not fused_mlp.hands_over(wpk, 1000, True)
+    two = RenderConfig(depth=2, width=1312).model_config()
+    assert "32-point tiles leave room for 2 weight stage(s) of 3" in \
+        fused_mlp.handover_misfit(two, True)
+    own = RenderConfig(depth=3, width=960).model_config()
+    assert fused_mlp._handover_layout(own, True, True).stages == 2
+    assert fused_mlp.handover_misfit(own, True, True) is None
+    with pytest.raises(ValueError, match="recomputes its forward"):
+        fused_mlp.forward_residuals(
+            wpk, *(torch.from_numpy(a) for a in _inputs(10)),
+            *fused_mlp.residual_buffers(packed, 10, torch.device("cpu")))
+
+
+def test_autograd_hands_over_and_counts_kernels_only():
+    """Through FusedMLPFunction with a packed call (the plain versions on
+    the CPU): a call that needs a gradient writes its residuals and its
+    backward takes them, the gradients bit-equal to the plain backward's
+    path; under no_grad the forward writes none. The wrappers' counters
+    are plain integers that count kernel launches only: the plain path
+    moves none of them."""
+    mc = RenderConfig().model_config()
+    net = init_model(mc, seed=1, device="cpu")
+    packed = fused_mlp.pack_params(net, 10, True)
+    pts, dirs = (torch.from_numpy(a) for a in _inputs(300, seed=3))
+    counters = lambda: (fused_mlp.fused_nerf_mlp.launches,
+                        fused_mlp.fused_nerf_mlp.residual_launches,
+                        fused_mlp.bwd_workspace.launches,
+                        fused_mlp.bwd_workspace.handover_launches)
+    assert all(isinstance(c, int) for c in counters())
+    before = counters()
+    seen = []
+    real = fused_mlp.forward_residuals
+
+    def recorded(*args):
+        seen.append(args[0])
+        return real(*args)
+
+    params = list(net.parameters())
+    call = lambda grad: fused_mlp._Call((net,), False, packed, 10,
+                                        torch.bfloat16, False, grad)
+    with mock.patch.object(fused_mlp, "forward_residuals", recorded), \
+            mock.patch.object(fused_mlp, "_launch", lambda p, a, b: (
+                fused_mlp.fused_nerf_mlp_plain(net, a, b, 10))):
+        out = fused_mlp.FusedMLPFunction.apply(call(True), pts, dirs,
+                                               *params)
+        assert seen == [packed]
+        out.square().sum().backward()
+        with torch.no_grad():
+            fused_mlp.FusedMLPFunction.apply(call(False), pts, dirs, *params)
+        assert seen == [packed]
+    want = fused_mlp.unpack_grads(packed, fused_mlp._launch_bwd(
+        packed, pts, dirs, 2 * out.detach()))
+    for name, p in net.named_parameters():
+        assert torch.equal(p.grad, want[name]), name
+    assert counters() == before
+
+
+def test_serving_and_refresh_never_write_residuals(monkeypatch):
+    """The rule's input on the paths that call the fused MLP: a served
+    image and the occupancy grid's refresh call it without a gradient
+    (so no residuals, whatever the net), a training render with one."""
+    from nerfmlp_torch.ops.occupancy import create_grid, update_grid
+    from nerfmlp_torch.ops.render import render_image, render_rays
+
+    asked = []
+    rule = fused_mlp.hands_over
+    monkeypatch.setattr(fused_mlp, "hands_over", lambda p, n, needs: (
+        asked.append(needs) or rule(p, n, needs)))
+    cfg = RenderConfig(compute_dtype="bfloat16", use_kernel=True, depth=2,
+                       width=32, N_samples=4, N_importance=0,
+                       aabb=(-1.5, -1.5, -1.5, 1.5, 1.5, 1.5))
+    params = {"coarse": init_model(cfg.model_config(), seed=0,
+                                   device="cpu")}
+    rng = np.random.default_rng(0)
+    rays_o = torch.from_numpy(rng.normal(size=(16, 3)).astype(np.float32))
+    rays_d = torch.from_numpy(rng.normal(size=(16, 3)).astype(np.float32))
+    render_image(params, rays_o, rays_d, 4, 4, cfg, near=0.5, far=3.0)
+    update_grid(create_grid(4, device="cpu"), params, cfg,
+                jitter=torch.full((64, 3), 0.5))
+    assert asked and not any(asked)
+    out = render_rays(params, rays_o, rays_d, torch.Generator().manual_seed(0),
+                      cfg, near=0.5, far=3.0)
+    assert asked[-1] is True
+    assert out["rgb_map"].requires_grad
 
 
 @pytest.mark.parametrize("arch, n, chunk, min_split", PROGRAM_CASES)

@@ -325,3 +325,122 @@ def test_phase2_matches_plain_on_gpu(depth, width, hi_lo, scenes):
         solo = torch.empty((splits, stride), device="cuda")
         fused_mlp.weight_grads(packs[s], one, rows, split_rows, solo)
         assert torch.equal(solo[:, :total], part[s, :, :total])
+
+
+@pytest.mark.cuda
+# The residual handover against the recompute at the nets it reaches: 8x256
+# (128-point tiles; hi_lo 64), 8x512 (the forward's 64-point tiles, phase
+# 1's own 32), a stack of two, 60x704 hi_lo (phase 1's own tables in
+# device memory, the handover's in shared memory), 1x1696 (16-point tiles)
+# and a net without the view head; n ragged in every tile.
+@pytest.mark.parametrize("depth, width, hi_lo, scenes, vdirs", [
+    (8, 256, False, 1, True),
+    (8, 256, True, 1, True),
+    (8, 512, False, 1, True),
+    (8, 256, False, 2, True),
+    (60, 704, True, 1, True),
+    (1, 1696, False, 1, True),
+    (6, 64, False, 1, False),
+])
+def test_handover_equals_recompute_on_gpu(depth, width, hi_lo, scenes,
+                                          vdirs):
+    """The training forward with its residuals gives the serving forward's
+    output bit for bit; phase 1 without its forward then leaves the same
+    workspace as phase 1 that recomputes it, every row; the mask images
+    hold the activations' ReLU bits (real points); the gradients are
+    bit-equal; each launch is counted once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    cfg = RenderConfig(compute_dtype="bfloat16", use_kernel=True,
+                       depth=depth, width=width, use_viewdirs=vdirs)
+    mc = cfg.model_config()
+    assert fused_mlp.handover_misfit(mc, vdirs, hi_lo) is None
+    nets = [_deep_net(mc, seed=s) for s in range(scenes)]
+    packed = (fused_mlp.pack_params_stack(nets, cfg.pos_enc_L, vdirs, hi_lo)
+              if scenes > 1 else
+              fused_mlp.pack_params(nets[0], cfg.pos_enc_L, vdirs, hi_lo))
+    n = scenes * (3000 if depth * width < 20_000 else 700)
+    rng = np.random.default_rng(5)
+    pts = torch.from_numpy(rng.uniform(-1.2, 1.2, (n, 3))
+                           .astype(np.float32)).cuda()
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d = torch.from_numpy(d / np.linalg.norm(d, axis=-1, keepdims=True))
+    dirs = positional_encoding(d, 4).cuda() if vdirs else None
+    if hi_lo and vdirs:
+        dirs = dirs.float()
+    g = torch.from_numpy(rng.normal(size=(n, packed.out_w)).astype(
+        np.float32)).cuda() / n
+    counts = lambda: (fused_mlp.fused_nerf_mlp.launches,
+                      fused_mlp.fused_nerf_mlp.residual_launches,
+                      fused_mlp.bwd_workspace.launches,
+                      fused_mlp.bwd_workspace.handover_launches)
+    before = counts()
+    ws, masks = fused_mlp.residual_buffers(packed, n, pts.device)
+    out = fused_mlp.forward_residuals(packed, pts, dirs, ws, masks)
+    fused_mlp.bwd_workspace(packed, pts, dirs, g, ws, masks)
+    again = torch.empty_like(ws)
+    fused_mlp.bwd_workspace(packed, pts, dirs, g, again)
+    want = fused_mlp._launch(packed, pts, dirs)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 2, before[1] + 1, before[2] + 2,
+                        before[3] + 1)
+    assert torch.equal(out, want)
+    assert torch.equal(ws.view(torch.int16), again.view(torch.int16))
+    # the mask images against the stored activations' signs, real points
+    rows_s = fused_mlp.ws_rows(n // scenes, packed.handover.rows)
+    image = fused_mlp._mask_images(packed, masks, rows_s).cpu()
+    tiles_s = rows_s // packed.handover.rows
+    acts = {name: fused_mlp.ws_matrix(packed, ws, m).float().cpu()
+            for m, (name, _, _) in enumerate(packed.ws_mats)}
+    names = [f"h{i}" for i in range(depth)] + (["v"] if vdirs else [])
+    for slot, off, c0, nn in fused_mlp._mask_passes(packed):
+        on = acts[names[slot]]
+        on = (on[0] + on[1] if hi_lo else on[0])[:, c0:c0 + nn] > 0
+        for s in range(scenes):
+            blk = image[s * tiles_s:(s + 1) * tiles_s,
+                        off:off + nn * 2 * fused_mlp.mask_entry_bytes(
+                            packed.handover.rows)]
+            got = fused_mlp.mask_decode(blk, packed.handover.rows,
+                                        nn).view(rows_s, nn)
+            real = slice(s * rows_s, s * rows_s + n // scenes)
+            assert torch.equal(got[:n // scenes], on[real]), (slot, s)
+    a = fused_mlp._launch_bwd(packed, pts, dirs, g, (ws, masks))
+    b = fused_mlp._launch_bwd(packed, pts, dirs, g)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_autograd_hands_over_only_in_training_on_gpu():
+    """Through fused_nerf_mlp: a call under autograd whose parameters need
+    a gradient writes its residuals and its backward's phase 1 takes them
+    (gradients bit-equal to the backward's own); the same call under
+    no_grad, or past one chunk, does not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    cfg = RenderConfig(compute_dtype="bfloat16", use_kernel=True)
+    net = init_model(cfg.model_config(), seed=0, device="cuda")
+    packed = fused_mlp.pack_params(net, cfg.pos_enc_L, True)
+    rng = np.random.default_rng(6)
+    n = 5000
+    pts = torch.from_numpy(rng.uniform(-1.2, 1.2, (n, 3))
+                           .astype(np.float32)).cuda()
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d = torch.from_numpy(d / np.linalg.norm(d, axis=-1, keepdims=True))
+    dirs = positional_encoding(d, 4).cuda()
+    counts = lambda: (fused_mlp.fused_nerf_mlp.residual_launches,
+                      fused_mlp.bwd_workspace.handover_launches)
+    before = counts()
+    with torch.no_grad():
+        fused_mlp.fused_nerf_mlp(packed, pts, dirs, cfg)
+    assert counts() == before
+    out = fused_mlp.fused_nerf_mlp(packed, pts, dirs, cfg)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1)
+    want = fused_mlp.fused_nerf_mlp_bwd(packed, pts, dirs, 2 * out.detach(),
+                                        cfg)
+    for name, p in net.named_parameters():
+        assert torch.equal(p.grad, want[name]), name
+    assert not fused_mlp.hands_over(packed, fused_mlp.BWD_CHUNK_ROWS + 1,
+                                    True)
